@@ -1,0 +1,171 @@
+"""Fused Krylov-iteration kernels: CUDA kernels, plain versions, costs.
+
+Two kernels (``csrc/krylov_fused.cu``) replace the TPU kernels of
+``src/repro/kernels/krylov_fused/krylov_fused.py``:
+
+* :func:`fused_matvec_dot` — ``(A p, p . A p)`` in one pass over the bands
+  and ``p``; replaces ``spmv_dot_single`` (stacked wrapper
+  ``fused_matvec_dot``);
+* :func:`fused_update_step` — ``x' = x + alpha p``, ``r' = r - alpha Ap``,
+  ``z = r' * inv_diag`` and the ``r'.z``, ``r'.r'`` dots in one pass;
+  replaces ``fused_axpy_precond_single`` (stacked wrapper
+  ``fused_update_step``).
+
+Both are bound by bytes.  Each reduction writes one accum-width partial per
+block of :data:`KERNEL_BLOCK_ROWS` rows; the wrapper sums the partials with
+``torch.sum``, a fixed order.  Beside each kernel is its plain PyTorch
+version (:func:`spmv_dot_plain`, :func:`fused_axpy_precond_plain`), which
+the wrappers take for CPU tensors only; for CUDA tensors they launch the
+kernel or raise.
+
+:func:`spmv_dot_cost` and :func:`fused_axpy_precond_cost` are the JAX
+package's byte and flop contracts, as ints.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import dtype_code, load
+from repro_torch.kernels.spmv_dia.spmv_dia import (
+    KERNEL_BLOCK_ROWS, _offsets_arg, check_stacked_operands, stream_ptr)
+from repro_torch.sparse.distributed import spmv_dia
+
+__all__ = ["fused_matvec_dot", "fused_update_step", "spmv_dot_plain",
+           "fused_axpy_precond_plain", "spmv_dot_cost",
+           "fused_axpy_precond_cost", "DEFAULT_BLOCK_ROWS"]
+
+# the JAX kernels' row block, the default of the cost contracts below
+DEFAULT_BLOCK_ROWS = 2048
+
+
+def spmv_dot_cost(nb: int, m: int, plane: int, itemsize: int = 8,
+                  block_rows: int = DEFAULT_BLOCK_ROWS,
+                  accum_itemsize: int | None = None) -> dict:
+    """Bytes and flops of ``(A p, p . A p)`` on one part of ``m`` rows.
+
+    Bands once, ``x_pad`` once, ``Ap`` out, and ``ceil(m / block_rows)``
+    partial slots at ``accum_itemsize`` (default: the storage width).  For
+    the stacked kernel, pass the total row count, ``plane=0`` (the halo of
+    a part is its neighbours' rows, already counted) and
+    ``block_rows=KERNEL_BLOCK_ROWS``.
+    """
+    n_blocks = -(-m // block_rows)
+    acc = accum_itemsize if accum_itemsize is not None else itemsize
+    return {"bytes_accessed": (nb * m + (m + 2 * plane) + m) * itemsize
+            + n_blocks * acc,
+            "flops": 2 * nb * m + 2 * m, "transcendentals": 0}
+
+
+def fused_axpy_precond_cost(m: int, itemsize: int = 8,
+                            block_rows: int = DEFAULT_BLOCK_ROWS,
+                            accum_itemsize: int | None = None) -> dict:
+    """Bytes and flops of the fused axpy pair + Jacobi + two dots on ``m``
+    rows: reads x, r, p, Ap, inv_diag; writes x', r', z and two partials
+    per block."""
+    n_blocks = -(-m // block_rows)
+    acc = accum_itemsize if accum_itemsize is not None else itemsize
+    return {"bytes_accessed": (5 * m + 3 * m) * itemsize + 2 * n_blocks * acc,
+            "flops": 9 * m, "transcendentals": 0}
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def spmv_dot_plain(bands: torch.Tensor, x: torch.Tensor, *,
+                   offsets: tuple[int, ...], plane: int,
+                   accum_dtype: torch.dtype | None = None):
+    """``(A x, x . A x)`` over stacked parts; the dot consumes the
+    accum-width ``Ax`` before it is narrowed to the storage dtype."""
+    acc = accum_dtype or bands.dtype
+    y = spmv_dia(bands.to(acc), x.to(acc), offsets=offsets, plane=plane)
+    return y.to(bands.dtype), _vdot(x.to(acc), y)
+
+
+def fused_axpy_precond_plain(x, r, p, Ap, inv_diag, alpha,
+                             accum_dtype: torch.dtype | None = None):
+    """``(x', r', z, r'.z, r'.r')`` over stacked parts."""
+    acc = accum_dtype or x.dtype
+    a = alpha.to(x.dtype)
+    xn = x + a * p
+    rn = r - a * Ap
+    z = rn * inv_diag
+    rn_a = rn.to(acc)
+    return xn, rn, z, _vdot(rn_a, z.to(acc)), _vdot(rn_a, rn_a)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _partials(n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.empty((-(-n // KERNEL_BLOCK_ROWS),), dtype=dtype,
+                       device=device)
+
+
+def fused_matvec_dot(bands: torch.Tensor, x: torch.Tensor, *,
+                     offsets: tuple[int, ...], plane: int,
+                     accum_dtype: torch.dtype | None = None):
+    """``(A x, x . A x)``: bands (P, nb, m), x (P, m); the dot is a global
+    0-d tensor in the accum dtype (``None``: the storage dtype)."""
+    if bands.device.type == "cpu" and x.device.type == "cpu":
+        return spmv_dot_plain(bands, x, offsets=offsets, plane=plane,
+                              accum_dtype=accum_dtype)
+    check_stacked_operands(bands, x, offsets, plane)
+    acc = accum_dtype or bands.dtype
+    code = dtype_code(bands.dtype, acc)
+    P, nb, m = bands.shape
+    y = torch.empty_like(x)
+    part = _partials(P * m, acc, x.device)
+    rc = load("krylov_fused").spmv_dot_launch(
+        code, bands.data_ptr(), x.data_ptr(), y.data_ptr(), part.data_ptr(),
+        P, m, _offsets_arg(offsets), nb, stream_ptr(x))
+    if rc != 0:
+        raise RuntimeError(f"spmv_dot kernel launch failed (code {rc})")
+    fused_matvec_dot.launches += 1
+    return y, part.sum()
+
+
+def fused_update_step(x, r, p, Ap, inv_diag, alpha,
+                      accum_dtype: torch.dtype | None = None):
+    """Fused axpy pair + Jacobi apply + global ``(r'.z, r'.r')`` dots.
+
+    Vectors stacked (P, m) in one storage dtype; ``alpha`` a 0-d tensor on
+    the same device (any float dtype; narrowed to the storage dtype).
+    Returns ``(x', r', z, rz, rr)``, the dots in the accum dtype.
+    """
+    vecs = (x, r, p, Ap, inv_diag)
+    if all(v.device.type == "cpu" for v in vecs + (alpha,)):
+        return fused_axpy_precond_plain(x, r, p, Ap, inv_diag, alpha,
+                                        accum_dtype=accum_dtype)
+    acc = accum_dtype or x.dtype
+    code = dtype_code(x.dtype, acc)
+    for v in vecs:
+        if v.device != x.device or v.dtype != x.dtype or v.shape != x.shape:
+            raise ValueError("x, r, p, Ap, inv_diag must share device, dtype "
+                             "and shape")
+        if not v.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+    if x.device.type != "cuda" or alpha.device != x.device or alpha.numel() != 1:
+        raise ValueError("alpha must be a one-element tensor on the vectors' "
+                         "CUDA device")
+    alpha = alpha.to(acc).contiguous()
+    n = x.numel()
+    xo, ro, zo = (torch.empty_like(x) for _ in range(3))
+    rz, rr = _partials(n, acc, x.device), _partials(n, acc, x.device)
+    rc = load("krylov_fused").axpy_precond_launch(
+        code, *(v.data_ptr() for v in vecs), alpha.data_ptr(),
+        xo.data_ptr(), ro.data_ptr(), zo.data_ptr(), rz.data_ptr(),
+        rr.data_ptr(), n, stream_ptr(x))
+    if rc != 0:
+        raise RuntimeError(f"axpy_precond kernel launch failed (code {rc})")
+    fused_update_step.launches += 1
+    return xo, ro, zo, rz.sum(), rr.sum()
+
+
+fused_matvec_dot.launches = 0
+fused_update_step.launches = 0
