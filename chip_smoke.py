@@ -10,15 +10,20 @@ result.  Phases, in order (any failure exits nonzero):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of every kernel from ``src/repro_torch/csrc`` (``nvcc``, in
    parallel), with its seconds and the register counts ``ptxas`` reports;
-3. each kernel against its plain PyTorch version on the card, for every
-   (storage, accum) pair, at the main path's two shapes and one small
-   ragged shape; then each kernel's time at the pressure shape beside its
-   byte floor, the plain version's time and, for the SpMV, a
-   ``torch.sparse`` CSR product's (a yardstick the port never calls);
+3. each kernel against its plain PyTorch version on the card: the three
+   Krylov kernels for every (storage, accum) pair at the main path's two
+   shapes and one small ragged shape; the value-update gather on the real
+   210^3 plans (pressure, alpha 30, and momentum, alpha 1) and a ragged
+   shape, for float64/float32/bfloat16, bitwise; the momentum-assembly
+   kernel at the coarse and fine 210^3 shapes, float64 and float32.  Then
+   each kernel's time at the pressure shape beside its byte floor, the
+   plain version's time and, where one PyTorch call computes the same
+   function, that call's (a yardstick the port never calls);
 4. the main path at full size: 3 PISO steps of the 210^3 cavity, 30 fine
    parts fused with alpha = 30, through the launcher's code path, with the
-   kernels: every launch counter must move, every step converge with a
-   continuity error below 1e-6;
+   kernels: the step's four kernels' launch counters must move (the
+   value update 3 times a step), every step converge with a continuity
+   error below 1e-6;
 5. determinism: the kernel run again, step by step, bitwise equal;
 6. parity: the plain-PyTorch backend takes each step from the kernel run's
    state (step 0 from the shared initial state) and must agree within
@@ -27,7 +32,14 @@ result.  Phases, in order (any failure exits nonzero):
    tolerance (the two backends round their dot products in different
    orders, and a Krylov solve only pins its answer to its tolerance, so
    free runs drift apart at that level); a small mesh on the card is held
-   against the port's CPU run; one step is timed phase by phase.
+   against the port's CPU run; one step is timed phase by phase;
+7. rebinding: from the main run's state, ``rebind_alpha(15)`` and one
+   step, held to the alpha-30 step from the same state (1e-10, identical
+   counts and flags); ``rebind_alpha(30)`` then builds nothing;
+8. the refactoring baseline: ``momentum_bands`` from the main run's
+   velocity on the coarse mesh (1 part) against fine assembly plus the
+   alpha-30 value update, and on the fine mesh against the step's own
+   momentum bands, within 1e-12; both paths timed.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernel table as JSON; the last line is
@@ -50,7 +62,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # slabs fused into one coarse part.  At this size the pressure CG needs
 # more than the default 2000 iterations and a 1e-8 relative tolerance
 # leaves a continuity error above 1e-6, so the run tightens both.
-MAIN_ARGS = ["--n", "210", "--parts", "30", "--alpha", "30", "--steps", "3",
+N, PARTS, ALPHA = 210, 30, 30
+MAIN_ARGS = ["--n", str(N), "--parts", str(PARTS), "--alpha", str(ALPHA),
+             "--steps", "3",
              "--co", "0.5", "--p-tol", "1e-10", "--p-maxiter", "6000",
              "--device", "cuda"]
 PARITY = 1e-10        # fused vs plain backend, one step from one state,
@@ -64,11 +78,21 @@ FLOPS_PER_S = {"float64": 34e12,    # FP64 outside the tensor cores
                "float32": 67e12, "bfloat16": 67e12}
 SOURCES = {"spmv_dia": "src/repro_torch/csrc/spmv_dia.cu",
            "spmv_dot": "src/repro_torch/csrc/krylov_fused.cu",
-           "axpy_precond": "src/repro_torch/csrc/krylov_fused.cu"}
+           "axpy_precond": "src/repro_torch/csrc/krylov_fused.cu",
+           "coef_update": "src/repro_torch/csrc/coef_update.cu",
+           "momentum_bands": "src/repro_torch/csrc/stencil_assembly.cu"}
 REPLACES = {"spmv_dia": "src/repro/kernels/spmv_dia/spmv_dia.py:53",
             "spmv_dot": "src/repro/kernels/krylov_fused/krylov_fused.py:118",
             "axpy_precond":
-                "src/repro/kernels/krylov_fused/krylov_fused.py:189"}
+                "src/repro/kernels/krylov_fused/krylov_fused.py:189",
+            "coef_update": "src/repro/kernels/coef_update/coef_update.py:37",
+            "momentum_bands": "src/repro/kernels/stencil_assembly/"
+                              "stencil_assembly.py:74"}
+# the kernels a PISO step launches; the momentum-assembly kernel belongs to
+# the refactoring baseline's entry point (phase 8)
+STEP_KERNELS = ("spmv_dia", "spmv_dot", "axpy_precond", "coef_update")
+ASSEMBLY_PARITY = 1e-12  # momentum_bands vs assembly + update, elementwise
+#                          rtol = atol (tests/test_kernels.py's bar)
 
 
 class SmokeFailure(Exception):
@@ -181,11 +205,11 @@ def check_kernels(torch, dev) -> dict:
     pairs = [(p.storage_dtype, p.accum_dtype) for p in POLICIES.values()]
     # (label, P, m, nx, plane): the pressure and momentum systems of the
     # main path, and a ragged shape (P*m not a multiple of the block)
-    shapes = [("pressure", 1, 210 ** 3, 210, 210 ** 2),
-              ("momentum", 30, 210 ** 3 // 30, 210, 210 ** 2),
+    shapes = [("pressure", PARTS // ALPHA, N ** 3 * ALPHA // PARTS, N, N ** 2),
+              ("momentum", PARTS, N ** 3 // PARTS, N, N ** 2),
               ("ragged", 3, 777, 4, 16)]
     gen = torch.Generator(device=dev).manual_seed(0)
-    report = {name: {} for name in WRAPPERS}
+    report = {name: {} for name in plain}
     for label, P, m, nx, plane in shapes:
         inputs = make_inputs(torch, P, m, gen, dev)
         offsets = offsets_for(nx, plane)
@@ -221,26 +245,133 @@ def check_kernels(torch, dev) -> dict:
             }
             csr = csr_of_bands(torch, b, offsets)
             x_flat = x.reshape(-1)
-            lib = {"spmv_dia": time_ms(torch, lambda: csr @ x_flat)}
-            del csr
+            lib = {"spmv_dia": lambda: csr @ x_flat}
             for name, (k_fn, p_fn) in calls.items():
-                c = costs[name]
-                t_bytes = c["bytes_accessed"] / HBM_BYTES_PER_S * 1e3
-                t_ops = c["flops"] / FLOPS_PER_S["float64"] * 1e3
-                rep = report[name]
-                rep.update(
-                    ms=time_ms(torch, k_fn), plain_ms=time_ms(torch, p_fn),
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=lib.get(name), bytes=c["bytes_accessed"])
-                print(f"  {name:13s} ms={rep['ms']:.4f} "
-                      f"plain_ms={rep['plain_ms']:.4f} "
-                      f"bound_ms={rep['bound_ms']:.4f} ({rep['bound_by']}, "
-                      f"{c['bytes_accessed']} B) library_ms="
-                      f"{rep['library_ms']}")
+                report[name].update(timing_report(
+                    torch, name, k_fn, p_fn, costs[name], lib.get(name)))
+            del csr, lib
         del inputs
         torch.cuda.empty_cache()
+    report["coef_update"] = check_coef_update(torch, dev)
+    torch.cuda.empty_cache()
+    report["momentum_bands"] = check_momentum_bands(torch, dev)
+    torch.cuda.empty_cache()
     return report
+
+
+def timing_report(torch, name, k_fn, p_fn, cost, library=None) -> dict:
+    """Kernel, plain and library times (CUDA events) beside the bound."""
+    t_bytes = cost["bytes_accessed"] / HBM_BYTES_PER_S * 1e3
+    t_ops = cost["flops"] / FLOPS_PER_S["float64"] * 1e3
+    rep = {"ms": time_ms(torch, k_fn), "plain_ms": time_ms(torch, p_fn),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None if library is None else time_ms(torch, library),
+           "bytes": cost["bytes_accessed"]}
+    print(f"  {name:13s} ms={rep['ms']:.4f} plain_ms={rep['plain_ms']:.4f} "
+          f"bound_ms={rep['bound_ms']:.4f} ({rep['bound_by']}, "
+          f"{rep['bytes']} B) library_ms={rep['library_ms']}")
+    return rep
+
+
+def check_coef_update(torch, dev) -> dict:
+    """The value-update gather on the real 210^3 plans: bitwise equal to
+    its plain version (a gather does no arithmetic) for every dtype."""
+    from repro_torch.core.repartition import plan_for_mesh
+    from repro_torch.fvm.mesh import CavityMesh
+    from repro_torch.kernels.coef_update.coef_update import (
+        coef_update_cost, coef_update_plain, coef_update_stacked)
+
+    mesh = CavityMesh.cube(N, PARTS)
+    t0 = time.perf_counter()
+    plans = {"pressure": plan_for_mesh(mesh, ALPHA),
+             "momentum": plan_for_mesh(mesh, 1)}
+    print(f"  coef_update: the two {N}^3 plans built in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [(label, mesh.n_parts // plan.alpha, plan.sentinel + 1,
+              plan.src_on(dev)) for label, plan in plans.items()]
+    ragged = torch.randint(0, 1001, (777,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    ragged[::7] = 1000  # the sentinel slot
+    cases.append(("ragged", 3, 1001, ragged))
+    rep = {}
+    for label, n_c, n_buf, src in cases:
+        buf64 = torch.rand((n_c, n_buf), generator=gen, dtype=torch.float64,
+                           device=dev)
+        buf64[:, -1] = 0.0
+        for dtype in (torch.float64, torch.float32, torch.bfloat16):
+            buf = buf64.to(dtype)
+            got = coef_update_stacked(buf, src)
+            want = coef_update_plain(buf, src)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            abs_err = float((got.double() - want.double()).abs().max())
+            print(f"  coef_update   {label:9s} {str(dtype)[6:]:8s} "
+                  f"({n_c}, {n_buf}) -> {tuple(got.shape)} "
+                  f"max_abs_err={abs_err:.3e} bitwise={same}")
+            require(same, f"coef_update differs from its plain version at "
+                          f"{label} {dtype}")
+            if label == "pressure" and dtype == torch.float64:
+                rep["max_abs_err"] = abs_err
+            del buf, got, want
+        if label == "pressure":
+            n_out = src.shape[0]
+            src64 = src.long()
+            rep.update(timing_report(
+                torch, "coef_update", lambda: coef_update_stacked(buf64, src),
+                lambda: coef_update_plain(buf64, src),
+                coef_update_cost(n_c, n_buf, n_out),
+                library=lambda: torch.index_select(buf64, 1, src)))
+            rep["int64_index_select_ms"] = time_ms(
+                torch, lambda: buf64.index_select(1, src64))
+            print(f"    int64-index index_select (the update before the "
+                  f"kernel) {rep['int64_index_select_ms']:.4f} ms")
+            del src64
+        del buf64
+    return rep
+
+
+def check_momentum_bands(torch, dev) -> dict:
+    """The momentum-assembly kernel at the coarse (1 part) and fine (30
+    parts) 210^3 shapes against its plain version."""
+    from repro_torch.kernels.stencil_assembly.stencil_assembly import (
+        momentum_bands_cost, momentum_bands_plain, momentum_bands_stacked)
+
+    nx, plane = N, N ** 2
+    h = 0.1 / N
+    kw = dict(nx=nx, plane=plane, vdt=h ** 3 / (0.5 * h))  # V/dt, dt = 0.5 h
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rep = {}
+    for label, P, m in (("pressure", PARTS // ALPHA, N ** 3 * ALPHA // PARTS),
+                        ("momentum", PARTS, N ** 3 // PARTS)):
+        faces64 = [torch.rand((P, m), generator=gen, dtype=torch.float64,
+                              device=dev) * 2 - 1 for _ in range(7)]
+        for dtype in (torch.float64, torch.float32):
+            faces = [f.to(dtype) for f in faces64]
+            got = momentum_bands_stacked(*faces, **kw)
+            want = momentum_bands_plain(*faces, **kw)
+            torch.cuda.synchronize()
+            abs_err, rel = compare(torch, [got], [want])
+            sname = str(dtype).removeprefix("torch.")
+            ok = rel <= TOLERANCE[sname]
+            print(f"  momentum_bands {label:9s} {sname:8s} ({P}, {m}) "
+                  f"max_abs_err={abs_err:.3e} rel={rel:.3e} (tol "
+                  f"{TOLERANCE[sname]:.0e}) bitwise={torch.equal(got, want)} "
+                  f"{'ok' if ok else 'FAIL'}")
+            require(ok, f"momentum_bands disagrees with its plain version at "
+                        f"{label} {sname}: rel {rel:.3e}")
+            if label == "pressure" and dtype == torch.float64:
+                rep["max_abs_err"] = abs_err
+            del faces, got, want
+        if label == "pressure":
+            rep.update(timing_report(
+                torch, "momentum_bands",
+                lambda: momentum_bands_stacked(*faces64, **kw),
+                lambda: momentum_bands_plain(*faces64, **kw),
+                momentum_bands_cost(P * m)))
+        del faces64
+    return rep
 
 
 # ---------------------------------------------------------------------------
@@ -260,9 +391,10 @@ def timed_step(torch, solver, state, dt) -> dict:
         _bind(env, ph, ph.fn(*(env[k] for k in ph.inputs)))
         torch.cuda.synchronize()
         walls[ph.label] = time.perf_counter() - t0
-    _, stats = prog.finalize(env)
+    state, stats = prog.finalize(env)
     return {"walls": walls, "p_iters": stats.p_iters.tolist(),
-            "mom_iters": int(stats.mom_iters)}
+            "mom_iters": int(stats.mom_iters), "state": state,
+            "stats": stats}
 
 
 def check_steps(torch, stats, tag: str) -> None:
@@ -327,8 +459,11 @@ def main_path(torch) -> dict:
     state_f, stats_f, walls_f = steps("auto", state0, n)
     counts = launch_counts()
     print(f"  kernel launches over {n} steps: {counts}")
-    require(all(c > 0 for c in counts.values()),
+    require(all(counts[k] > 0 for k in STEP_KERNELS),
             f"a kernel of the main path was never launched: {counts}")
+    require(counts["coef_update"] == 3 * n,
+            f"the value update launched {counts['coef_update']} times in "
+            f"{n} steps, not 3 a step")
     check_steps(torch, stats_f, "fused")
 
     # determinism: the same steps again, one at a time, bitwise equal; the
@@ -417,7 +552,128 @@ def main_path(torch) -> dict:
           f"(plain) {[round(w, 3) for w in walls_r]}; "
           f"{int(stats_f.p_iters.sum())} CG iterations; "
           f"{summary['ms_per_cg_iter']:.4f} ms per CG iteration (timed step)")
+    summary["rebind"] = rebind_phase(torch, solver, state_f, dt, breakdown)
+    summary["baseline"] = baseline_phase(torch, solver, state_f, dt)
     return summary
+
+
+def rebind_phase(torch, solver, state, dt, alpha30) -> dict:
+    """One step at half the main ratio (alpha 15) from ``state`` against
+    the main ratio's step from it (``alpha30``: the timed step); then back
+    to the main ratio, memoised."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.case import run_transient
+
+    half = ALPHA // 2
+    print(f"[7] rebind_alpha({half}) at full width")
+    plan30, prog30, secs = solver.plan_p, solver.program, solver.plan_seconds
+    solver.rebind_alpha(half)
+    plan_s = solver.plan_seconds - secs
+    rows = solver.mesh.n_cells_global * half // PARTS
+    require(solver.n_coarse == PARTS // half
+            and solver.plan_p.m_coarse == rows,
+            f"alpha {half} did not give {PARTS // half} coarse parts of "
+            f"{rows} rows")
+    print(f"  alpha-{half} plan built in {plan_s:.2f} s (host)")
+    reset_launch_counts()
+    st, stt, walls = run_transient(
+        solver, dt, 1, state=state,
+        log=lambda line: print(f"  alpha {half}: {line}"))
+    counts = launch_counts()
+    check_steps(torch, stt, f"alpha {half}")
+    ref_state, ref_stats = alpha30["state"], alpha30["stats"]
+    diffs = {f: rel_diff(getattr(st, f), getattr(ref_state, f))
+             for f in st._fields if f != "phi_b"}
+    bitwise = all(torch.equal(getattr(st, f), getattr(ref_state, f))
+                  for f in st._fields)
+    print(f"  vs the alpha-{ALPHA} step from the same state: max|d|/max "
+          f"over U, "
+          f"p, phi, phi_if: " + ", ".join(f"{v:.3e}" for v in diffs.values())
+          + f"; bitwise {bitwise}; launches {counts}")
+    require(max(diffs.values()) <= PARITY,
+            f"alpha {half} vs alpha {ALPHA} differ by {diffs}")
+    for f in ("mom_iters", "p_iters", "converged", "hit_cap"):
+        require(torch.equal(getattr(stt, f)[0], getattr(ref_stats, f)),
+                f"alpha {half} vs alpha {ALPHA}: {f} differs")
+    secs_half = solver.plan_seconds
+    solver.rebind_alpha(ALPHA)
+    require(solver.plan_p is plan30 and solver.program is prog30
+            and solver.plan_seconds == secs_half,
+            f"rebind_alpha({ALPHA}) rebuilt what it had bound")
+    print(f"  rebind_alpha({ALPHA}): memoised plan, index and program, "
+          "no build")
+    return {"plan_s": plan_s, "step_s": walls[0], "diffs": diffs,
+            "bitwise": bitwise, "p_iters": stt.p_iters[0].tolist(),
+            "launches": counts}
+
+
+def baseline_phase(torch, solver, state, dt) -> dict:
+    """The refactoring baseline at full width against the plugin path."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.stencil_assembly import momentum_bands
+
+    print("[8] refactoring baseline: momentum_bands vs assembly + update")
+    mesh, asm, U = solver.mesh, solver.asm, state.U
+    plan30 = solver.plan_p
+    require(plan30.alpha == ALPHA, f"the solver is not bound to alpha "
+                                   f"{ALPHA}")
+    coarse = mesh.with_parts(mesh.n_parts // ALPHA)
+
+    def plugin(plan):  # fine assembly, then the plan's value update
+        phi, phi_if = asm.face_flux(U)
+        sysM = asm.assemble_momentum(U, phi, phi_if, state.p, dt,
+                                     phi_b=state.phi_b)
+        return solver._bands(plan, sysM.diag, sysM.upper, sysM.lower,
+                             sysM.iface)
+
+    def refactored(m):
+        return momentum_bands(U.reshape(m.n_parts, m.n_cells, 3), mesh=m,
+                              nu=solver.nu, dt=dt)
+
+    reset_launch_counts()
+    pairs = {f"coarse ({coarse.n_parts} part) vs fine + alpha-{ALPHA} update":
+             (refactored(coarse), plugin(plan30)),
+             f"fine ({mesh.n_parts} parts) vs the step's bandsM":
+             (refactored(mesh), plugin(solver.plan_mom))}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    out = {"launches": counts}
+    for label, (b, a) in pairs.items():
+        require(b.shape == a.shape, f"{label}: shapes {b.shape} {a.shape}")
+        err = (b - a).abs()
+        ok = bool((err <= ASSEMBLY_PARITY * (1 + a.abs())).all())
+        out[label] = {"max_abs_err": float(err.max()),
+                      "bitwise": torch.equal(a, b)}
+        print(f"  {label}: max_abs_err {out[label]['max_abs_err']:.3e} "
+              f"bitwise {out[label]['bitwise']} (tol {ASSEMBLY_PARITY:.0e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"{label}: momentum_bands differs from the assembly")
+    del pairs
+    print(f"  launches: {counts}")
+    require(counts["momentum_bands"] == 2 and counts["coef_update"] == 2,
+            f"baseline launches {counts}")
+
+    def wall(fn, n=3):  # best of n synchronised runs
+        best = float("inf")
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    out["seconds"] = {
+        "plugin main ratio (assemble + update)":
+            wall(lambda: plugin(plan30)),
+        "refactored coarse (momentum_bands)": wall(lambda: refactored(coarse)),
+        "plugin alpha 1 (assemble + update)":
+            wall(lambda: plugin(solver.plan_mom)),
+        "refactored fine (momentum_bands)": wall(lambda: refactored(mesh)),
+    }
+    print("  seconds (best of 3, synchronised): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out["seconds"].items()))
+    return out
 
 
 def main() -> int:
@@ -454,14 +710,19 @@ def main() -> int:
         print("[3] kernels vs plain versions")
         report = check_kernels(torch, dev)
         print("[4-6] main path: 210^3 cavity, 30 parts, alpha 30, 3 PISO "
-              "steps; determinism; parity")
+              "steps; determinism; parity (then 7-8)")
         torch.cuda.reset_peak_memory_stats()
         summary = main_path(torch)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         print("summary " + json.dumps(summary))
+        # launches: the main path's counts; the momentum-assembly kernel's
+        # from the refactoring baseline's run (phase 8)
+        launches = dict(summary["launches"],
+                        momentum_bands=summary["baseline"]["launches"][
+                            "momentum_bands"])
         kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name],
-                    "launches": summary["launches"][name],
+                    "launches": launches[name],
                     **{k: report[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}}

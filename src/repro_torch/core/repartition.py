@@ -25,7 +25,9 @@ The plan yields the paper's three data structures:
   (buffer order → solver order).
 
 Everything here is numpy and runs once on the host; runtime application
-lives in :mod:`repro_torch.core.update`.  At the paper's smallest mesh
+lives in :mod:`repro_torch.core.update`.  The gather indices go to a device
+once per plan and device, as int32 (:meth:`RepartitionPlan.src_on`,
+:meth:`RepartitionPlan.ell_cols_on`).  At the paper's smallest mesh
 (210^3 cells, alpha = 30) the plan covers about 65M buffer entries, so the
 duplicate check uses a counting pass rather than a sort.
 """
@@ -35,6 +37,7 @@ import dataclasses
 from functools import cached_property
 
 import numpy as np
+import torch
 
 from repro_torch.core.ldu import LDULayout
 from repro_torch.fvm.mesh import CavityMesh
@@ -69,10 +72,17 @@ class RepartitionPlan:
     nnz_localized: int       # formerly non-local entries that became local
     nnz_halo: int            # entries that remain in the non-local matrix
     # the symbolic source of the lazily built ELL target (None for a plan
-    # rebuilt from arrays, which then carries the DIA target only)
+    # rebuilt from arrays, which then carries the ELL target only if `ell`
+    # is given)
     layout: LDULayout | None = dataclasses.field(default=None, repr=False,
                                                  compare=False)
     K: int = ELL_K
+    # the ELL target's (ell_cols, ell_src) arrays, when given ready-made
+    ell: tuple[np.ndarray, np.ndarray] | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # device copies of the indices: {(name, device): tensor}
+    _on_device: dict = dataclasses.field(default_factory=dict, init=False,
+                                         repr=False, compare=False)
 
     @property
     def sentinel(self) -> int:
@@ -88,8 +98,37 @@ class RepartitionPlan:
         """(m_c, K) int64 → concat-buffer index (built on first access)."""
         return self._ell[1]
 
+    def src_on(self, device, target: str = "dia") -> torch.Tensor:
+        """The flattened ``dia_src`` (n_bands*m_c,) or ``ell_src``
+        (m_c*K,) as int32 on ``device``, copied there once."""
+        n_buf = self.sentinel + 1
+        if n_buf > np.iinfo(np.int32).max:
+            raise ValueError(f"buffer of {n_buf} entries exceeds int32 "
+                             "indexing")
+        return self._device_copy(
+            target + "_src", device,
+            lambda: self.dia_src if target == "dia" else self.ell_src)
+
+    def ell_cols_on(self, device) -> torch.Tensor:
+        """The flattened ``ell_cols`` (m_c*K,) int32 on ``device``."""
+        return self._device_copy("ell_cols", device, lambda: self.ell_cols)
+
+    def _device_copy(self, name: str, device, host) -> torch.Tensor:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            # one copy whether the caller says "cuda" or "cuda:0"
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = (name, device)
+        t = self._on_device.get(key)
+        if t is None:
+            t = self._on_device[key] = torch.as_tensor(
+                host().reshape(-1).astype(np.int32), device=device)
+        return t
+
     @cached_property
     def _ell(self) -> tuple[np.ndarray, np.ndarray]:
+        if self.ell is not None:
+            return self.ell
         if self.layout is None:
             raise ValueError("this plan carries no layout to build ELL from")
         rows, cols, _ = _fused_entries(self.layout, self.alpha)

@@ -15,8 +15,9 @@ StepProgram` phase list and walked by the serial executor.
 :class:`SegregatedSolver` is the binder: it owns the plans (built once, on
 the host), their device-resident gather indices, the SolverOps backend
 dispatch and the assembly; :class:`PisoSolver` is the transient PISO
-specialization.  The port runs the stacked layout (every coarse part's
-rows on the one device).
+specialization.  ``rebind_alpha`` swaps the pressure side's ratio between
+steps and keeps every ratio it has bound.  The port runs the stacked
+layout (every coarse part's rows on the one device).
 """
 from __future__ import annotations
 
@@ -28,8 +29,7 @@ import torch
 
 from repro_torch.core.ldu import buffer_from_parts
 from repro_torch.core.repartition import RepartitionPlan, plan_for_mesh
-from repro_torch.core.update import (dia_index, update_device_direct,
-                                     update_host_buffer)
+from repro_torch.core.update import update_device_direct, update_host_buffer
 from repro_torch.env import DTYPE, resolve_device
 from repro_torch.fvm.assembly import CavityAssembly
 from repro_torch.fvm.cases import FlowCase, get_case
@@ -71,7 +71,8 @@ class SegregatedSolver:
     ``solver_backend`` ("auto", "fused" or "reference") is read at every
     solve, so it may be changed between steps; "auto" is "fused" on a CUDA
     device.  ``plan_seconds`` records the host time the repartition plans
-    took to build (kept out of the step time).
+    took to build (kept out of the step time), :meth:`rebind_alpha`'s
+    included.
     """
 
     mesh: CavityMesh
@@ -92,8 +93,6 @@ class SegregatedSolver:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.mesh.n_parts % self.alpha != 0:
-            raise ValueError("alpha must divide the number of fine parts")
         resolve_backend(self.solver_backend, self.device)  # validates
         if self.update_schedule not in ("device_direct", "host_buffer"):
             raise ValueError(
@@ -109,27 +108,51 @@ class SegregatedSolver:
         self._update = (update_device_direct
                         if self.update_schedule == "device_direct"
                         else update_host_buffer)
-        t0 = time.perf_counter()
+        self.plan_seconds = 0.0
         # identity repartition for the momentum (fine-partition) matrix
-        self.plan_mom: RepartitionPlan = plan_for_mesh(self.mesh, 1)
-        self.plan_p: RepartitionPlan = (
-            self.plan_mom if self.alpha == 1
-            else plan_for_mesh(self.mesh, self.alpha))
-        self.plan_seconds = time.perf_counter() - t0
-        self.n_coarse = self.mesh.n_parts // self.alpha
-        # each plan's gather index, copied to the device once
-        self._src = {id(plan): dia_index(plan, self.device)
-                     for plan in (self.plan_mom, self.plan_p)}
-        # the PISO phase list (the steady SIMPLE program is still to port)
-        self.program = build_piso_program(self)
-        self._exec = SerialExecutor(self.program)
+        self.plan_mom: RepartitionPlan = self._build_plan(1)
+        # per alpha: (pressure plan, program, executor), bound once
+        self._bindings: dict[int, tuple] = {}
+        self.rebind_alpha(self.alpha)
+
+    def _build_plan(self, alpha: int) -> RepartitionPlan:
+        """A plan built on the host, its gather index copied to the
+        device once; the build's seconds go to ``plan_seconds``."""
+        t0 = time.perf_counter()
+        plan = plan_for_mesh(self.mesh, alpha)
+        self.plan_seconds += time.perf_counter() - t0
+        plan.src_on(self.device)
+        return plan
+
+    def rebind_alpha(self, alpha: int) -> None:
+        """Swap the pressure side's repartitioning ratio, between steps.
+
+        The state is alpha-independent (fine-partition layout), so a
+        running simulation may switch.  A new alpha builds its plan on the
+        host and its PISO phase list (the steady SIMPLE program is still
+        to port); a revisited alpha reuses its plan, device index and
+        program, and builds nothing.
+        """
+        if self.mesh.n_parts % alpha != 0:
+            raise ValueError("alpha must divide the number of fine parts")
+        self.alpha = alpha
+        self.n_coarse = self.mesh.n_parts // alpha
+        binding = self._bindings.get(alpha)
+        if binding is None:
+            # build_piso_program reads plan_p and n_coarse off the solver
+            self.plan_p = (self.plan_mom if alpha == 1
+                           else self._build_plan(alpha))
+            program = build_piso_program(self)
+            binding = self._bindings[alpha] = (self.plan_p, program,
+                                               SerialExecutor(program))
+        self.plan_p, self.program, self._exec = binding
 
     def _bands(self, plan: RepartitionPlan, diag, upper, lower, iface):
         """LDU buffers → repartitioned DIA bands via the update pattern."""
         buffers = buffer_from_parts(diag, upper, lower, iface)  # (P_f, L)
         n_c = buffers.shape[0] // plan.alpha
         grouped = buffers.reshape(n_c, plan.alpha, plan.buffer_len)
-        return self._update(plan, grouped, self._src[id(plan)])
+        return self._update(plan, grouped)
 
     def _solver_ops(self, plan: RepartitionPlan, bands, diag):
         """Bind the (bands, diag) system into a SolverOps bundle."""

@@ -41,15 +41,21 @@ def state_to_numpy(state: PisoState) -> dict:
 
 
 def plan_from_numpy(arrays: dict) -> RepartitionPlan:
-    """A DIA :class:`RepartitionPlan` from its arrays and sizes.
+    """A :class:`RepartitionPlan` from its arrays and sizes.
 
     ``arrays`` holds ``dia_offsets``, ``dia_src`` and the integer fields
     (``alpha``, ``m_fine``, ``m_coarse``, ``plane``, ``buffer_len``,
     ``nnz_local``, ``nnz_localized``, ``nnz_halo``) — e.g. the fields of
-    another implementation's plan.  The rebuilt plan carries no layout, so
-    its ELL target is unavailable.
+    another implementation's plan — and, where present, the ELL target's
+    ``ell_cols`` and ``ell_src``.  The rebuilt plan carries no layout, so
+    without those its ELL target is unavailable.
     """
+    ell = {}
+    if "ell_cols" in arrays and "ell_src" in arrays:
+        cols = np.asarray(arrays["ell_cols"], dtype=np.int32)
+        ell = {"ell": (cols, np.asarray(arrays["ell_src"], dtype=np.int64)),
+               "K": cols.shape[1]}
     return RepartitionPlan(
         **{k: int(arrays[k]) for k in _PLAN_INTS},
         dia_offsets=np.asarray(arrays["dia_offsets"], dtype=np.int32),
-        dia_src=np.asarray(arrays["dia_src"], dtype=np.int64))
+        dia_src=np.asarray(arrays["dia_src"], dtype=np.int64), **ell)

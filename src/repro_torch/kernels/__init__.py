@@ -8,9 +8,12 @@ for CPU tensors only, and a launch counter on the wrapper
 """
 from __future__ import annotations
 
+from repro_torch.kernels.coef_update.coef_update import coef_update_stacked
 from repro_torch.kernels.krylov_fused.krylov_fused import (fused_matvec_dot,
                                                            fused_update_step)
 from repro_torch.kernels.spmv_dia.spmv_dia import spmv_dia_stacked
+from repro_torch.kernels.stencil_assembly.stencil_assembly import (
+    momentum_bands_stacked)
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts"]
 
@@ -19,6 +22,8 @@ WRAPPERS = {
     "spmv_dia": spmv_dia_stacked,
     "spmv_dot": fused_matvec_dot,
     "axpy_precond": fused_update_step,
+    "coef_update": coef_update_stacked,
+    "momentum_bands": momentum_bands_stacked,
 }
 
 

@@ -23,7 +23,7 @@ __all__ = ["SOURCES", "DTYPE_CODES", "build_all", "load", "dtype_code"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("spmv_dia", "krylov_fused")
+SOURCES = ("spmv_dia", "krylov_fused", "coef_update", "stencil_assembly")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -44,6 +44,12 @@ _SIGNATURES = {
         "spmv_dot_launch": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64,
                             ctypes.POINTER(_I64), ctypes.c_int, _P],
         "axpy_precond_launch": [ctypes.c_int] + [_P] * 11 + [_I64, _P],
+    },
+    "coef_update": {"coef_update_launch": [ctypes.c_int, _P, _P, _P, _I64,
+                                           _I64, _I64, _P]},
+    "stencil_assembly": {
+        "momentum_bands_launch": [ctypes.c_int] + [_P] * 8
+        + [_I64] * 4 + [ctypes.c_double, _P],
     },
 }
 

@@ -4,16 +4,20 @@ Arrays are stacked over the part axis (axis 0); the halo of part ``p`` is
 the neighbouring parts' boundary planes.  The DIA target (see
 :mod:`repro_torch.core.repartition`) stores 7 bands, so SpMV is seven
 shifted multiply-adds on an ``x_pad = [down-halo | x | up-halo]`` vector.
+The ELL target stores padded rows with explicit column indices into
+``x_ext = [x | down-halo | up-halo]``: general but gather-based, the
+oracle of the DIA path.
 
 :func:`spmv_dia` here is the plain PyTorch version: the reference
 backend's operator and the plain counterpart of the hand-written kernel in
-:mod:`repro_torch.kernels.spmv_dia`.
+:mod:`repro_torch.kernels.spmv_dia`.  :func:`spmv_ell` is plain PyTorch
+only, as in the JAX package, which has no kernel for it.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["halo_exchange", "spmv_dia", "x_pad"]
+__all__ = ["halo_exchange", "spmv_dia", "spmv_ell", "x_pad", "x_ext"]
 
 
 def halo_exchange(x: torch.Tensor, plane: int
@@ -36,6 +40,24 @@ def x_pad(x: torch.Tensor, plane: int) -> torch.Tensor:
     """[down-halo | x | up-halo] layout for DIA shifts; (P, m + 2*plane)."""
     down, up = halo_exchange(x, plane)
     return torch.cat([down, x, up], dim=1)
+
+
+def x_ext(x: torch.Tensor, plane: int) -> torch.Tensor:
+    """[x | down-halo | up-halo] layout for ELL columns; (P, m + 2*plane)."""
+    down, up = halo_exchange(x, plane)
+    return torch.cat([x, down, up], dim=1)
+
+
+def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
+             plane: int) -> torch.Tensor:
+    """Padded-ELL SpMV: y[p, i] = sum_k vals[p, i, k] * x_ext[p, cols[i, k]].
+
+    vals: (P, m, K); cols: (m, K) or flattened (m*K,), int32 or int64,
+    shared across parts (plan uniformity); x: (P, m).
+    """
+    P, m, K = vals.shape
+    gathered = x_ext(x, plane).index_select(1, cols.reshape(-1))
+    return torch.einsum("pik,pik->pi", vals, gathered.reshape(P, m, K))
 
 
 def spmv_dia(bands: torch.Tensor, x: torch.Tensor, *,

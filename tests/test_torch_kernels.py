@@ -20,13 +20,17 @@ from repro.kernels.spmv_dia.spmv_dia import spmv_dia_single
 from repro.sparse.distributed import x_pad as jax_x_pad
 
 from repro_torch.kernels import WRAPPERS, launch_counts, reset_launch_counts
-from repro_torch.kernels._build import dtype_code
+from repro_torch.kernels._build import SOURCES, dtype_code
+from repro_torch.kernels.coef_update.coef_update import (
+    check_gather_operands, coef_update_plain, coef_update_stacked)
 from repro_torch.kernels.krylov_fused.krylov_fused import (
     fused_axpy_precond_cost, fused_axpy_precond_plain, fused_matvec_dot,
     fused_update_step, spmv_dot_cost, spmv_dot_plain)
 from repro_torch.kernels.spmv_dia.spmv_dia import (check_stacked_operands,
                                                    spmv_dia_plain,
                                                    spmv_dia_stacked)
+from repro_torch.kernels.stencil_assembly.stencil_assembly import (
+    check_face_operands, momentum_bands_plain, momentum_bands_stacked)
 
 # (storage, accum, tolerance relative to the output's max): the tolerances
 # of tests/test_krylov_fused.py — f64 round-off, f32 round-off, bf16 storage
@@ -152,7 +156,18 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
     for g, w in zip(fused_update_step(*vecs, alpha),
                     fused_axpy_precond_plain(*vecs, alpha)):
         assert torch.equal(g, w)
+    src = torch.as_tensor(np.arange(0, 601, 3)[::-1].copy(), dtype=torch.int32)
+    assert torch.equal(coef_update_stacked(b.reshape(2, -1)[:, :601], src),
+                       coef_update_plain(b.reshape(2, -1)[:, :601], src))
+    faces = [_t(ops[k], "float64") for k in ("x", "r", "p", "Ap", "inv")]
+    faces += [b[:, 0], b[:, 1]]
+    assert torch.equal(momentum_bands_stacked(*faces, nx=5, plane=25, vdt=2.),
+                       momentum_bands_plain(*faces, nx=5, plane=25, vdt=2.))
     assert launch_counts() == {name: 0 for name in WRAPPERS}
+    assert set(WRAPPERS) == {"spmv_dia", "spmv_dot", "axpy_precond",
+                             "coef_update", "momentum_bands"}
+    assert set(SOURCES) == {"spmv_dia", "krylov_fused", "coef_update",
+                            "stencil_assembly"}
 
 
 def test_kernel_operand_checks_raise():
@@ -161,6 +176,18 @@ def test_kernel_operand_checks_raise():
     offsets = _offsets(2, 4)
     with pytest.raises(ValueError, match="CUDA"):
         check_stacked_operands(b, x, offsets, 4)
+    buf = torch.zeros((2, 10), dtype=torch.float64)
+    src = torch.zeros(5, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        check_gather_operands(buf, src)
+    with pytest.raises(ValueError, match="CUDA"):
+        # neither all on the CPU (the plain version) nor on a card
+        coef_update_stacked(buf, src.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        check_face_operands([x] * 7)
+    with pytest.raises(ValueError, match="CUDA"):
+        momentum_bands_stacked(*([x] * 6 + [x.to("meta")]), nx=2, plane=4,
+                               vdt=1.0)
     assert dtype_code(torch.float64, torch.float64) == 0
     with pytest.raises(TypeError, match="no kernel instantiation"):
         dtype_code(torch.float16, torch.float32)

@@ -21,7 +21,7 @@ from repro.solvers.ops import reference_ops as jax_reference_ops
 from repro.sparse.distributed import spmv_dia as jax_spmv_dia
 
 from repro_torch.core.repartition import plan_for_mesh
-from repro_torch.core.update import dia_index, update_device_direct
+from repro_torch.core.update import update_device_direct
 from repro_torch.fvm.mesh import CavityMesh
 from repro_torch.solvers.bicgstab import bicgstab
 from repro_torch.solvers.cg import cg
@@ -58,8 +58,7 @@ def _systems(alpha: int, skew: bool):
 
     plan = plan_for_mesh(CavityMesh.cube(4, 4), alpha)
     bands = update_device_direct(
-        plan, torch.as_tensor(buffers).reshape(n_c, alpha, -1),
-        dia_index(plan, "cpu"))
+        plan, torch.as_tensor(buffers).reshape(n_c, alpha, -1))
     diag_t = torch.as_tensor(diag).reshape(n_c, -1)
     ops_t = {
         "reference": reference_ops(
