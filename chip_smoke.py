@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --compare LABEL=CSRC_DIR [LABEL=CSRC_DIR ...]
 
 Runs from the root of a checkout and needs one CUDA card; with no card, or
 without the rest of the checkout beside it, it exits nonzero and prints no
@@ -9,14 +10,19 @@ result.  Phases, in order (any failure exits nonzero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of every kernel from ``src/repro_torch/csrc`` (``nvcc``, in
-   parallel), with its seconds and the register counts ``ptxas`` reports;
+   parallel), with its seconds and, per kernel, the registers, stack frame
+   and spills ``ptxas -v`` reports; every instantiation of the two DIA SpMV
+   kernels must have no stack frame and no spills;
 3. each kernel against its plain PyTorch version on the card: the three
    Krylov kernels for every (storage, accum) pair at the main path's two
-   shapes and one small ragged shape; the value-update gather on the real
-   210^3 plans (pressure, alpha 30, and momentum, alpha 1) and a ragged
-   shape, for float64/float32/bfloat16, bitwise; the momentum-assembly
-   kernel at the coarse and fine 210^3 shapes, float64 and float32.  Then
-   each kernel's time at the pressure shape beside its byte floor, the
+   shapes and one small ragged shape, the SpMV and SpMV+dot vectors
+   bitwise and the SpMV+dot's per-256-row partials bitwise against
+   ``block_partials_plain`` (the kernels' tree order); the value-update
+   gather on the real 210^3 plans (pressure, alpha 30, and momentum,
+   alpha 1) and a ragged shape, for float64/float32/bfloat16, bitwise; the
+   momentum-assembly kernel at the coarse and fine 210^3 shapes, float64
+   and float32.  Then each kernel's time at the pressure shape (the two
+   SpMV kernels at the momentum shape too) beside its byte floor, the
    plain version's time and, where one PyTorch call computes the same
    function, that call's (a yardstick the port never calls);
 4. the main path at full size: 3 PISO steps of the 210^3 cavity, 30 fine
@@ -44,10 +50,21 @@ result.  Phases, in order (any failure exits nonzero):
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
+
+With ``--compare``, only phases 1 and 2 run, and then this tree's two SpMV
+kernels are built beside those of each other ``csrc`` directory (another
+checkout's ``src/repro_torch/csrc``), checked bitwise against the plain
+versions, and timed in turns on this card (this tree, the others, the
+others again in reverse, this tree) at the pressure and momentum shapes,
+for every (storage, accum) pair; the last line is then the comparison as
+JSON.
 """
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -67,6 +84,11 @@ MAIN_ARGS = ["--n", str(N), "--parts", str(PARTS), "--alpha", str(ALPHA),
              "--steps", "3",
              "--co", "0.5", "--p-tol", "1e-10", "--p-maxiter", "6000",
              "--device", "cuda"]
+# the Krylov counts of the main path on the H100 (PERF.md): the SpMV
+# kernels compute y and the p.Ap partials bit for bit as their plain
+# versions do, so other counts mean the solver, not the speed, changed
+MAIN_COUNTS = {"mom_iters": [59, 62, 62],
+               "p_iters": [[2125, 2160], [2460, 2486], [2444, 2490]]}
 PARITY = 1e-10        # fused vs plain backend, one step from one state,
 #                       relative to the field's max
 FREE_RUN_DRIFT = 1e-5  # free runs of the two backends: 100x mom_tol
@@ -91,6 +113,9 @@ REPLACES = {"spmv_dia": "src/repro/kernels/spmv_dia/spmv_dia.py:53",
 # the kernels a PISO step launches; the momentum-assembly kernel belongs to
 # the refactoring baseline's entry point (phase 8)
 STEP_KERNELS = ("spmv_dia", "spmv_dot", "axpy_precond", "coef_update")
+# kernels whose every instantiation must compile without a stack frame or
+# spills (ptxas -v): the band offsets are read at compile-time indices
+NO_FRAME_KERNELS = ("spmv_dia_kernel", "spmv_dot_kernel")
 ASSEMBLY_PARITY = 1e-12  # momentum_bands vs assembly + update, elementwise
 #                          rtol = atol (tests/test_kernels.py's bar)
 
@@ -113,8 +138,108 @@ def smi_line() -> str:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the build
+# ---------------------------------------------------------------------------
+
+_PTXAS_FUNCTION = re.compile(
+    r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGISTERS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> dict:
+    """``{function: {"stack", "spill_stores", "spill_loads", "registers"}}``
+    (bytes, and registers per thread) from ``nvcc -Xptxas -v`` text; the
+    function names are as ``ptxas`` prints them (mangled)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_FUNCTION.search(line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if m:
+            out[name].update(zip(("stack", "spill_stores", "spill_loads"),
+                                 map(int, m.groups())))
+        m = _PTXAS_REGISTERS.search(line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def base_name(mangled: str) -> str:
+    """The unqualified function name of an Itanium-mangled name
+    (``_Z15spmv_dia_kernelIddLi7EE...`` -> ``spmv_dia_kernel``)."""
+    m = re.match(r"_Z(\d+)", mangled)
+    return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
+
+
+def check_frames(report: dict, kernels=NO_FRAME_KERNELS) -> dict:
+    """Require every instantiation of ``kernels`` in a :func:`ptxas_report`
+    to have a complete record with no stack frame and no spills; returns
+    ``{kernel: number of instantiations}``."""
+    counts = {k: 0 for k in kernels}
+    for fn, rec in report.items():
+        k = base_name(fn)
+        if k not in counts:
+            continue
+        counts[k] += 1
+        require(all(f in rec for f in ("stack", "spill_stores",
+                                       "spill_loads")),
+                f"ptxas printed no frame line for {fn}")
+        require(rec["stack"] == rec["spill_stores"] == rec["spill_loads"] == 0,
+                f"{fn}: {rec['stack']} bytes stack frame, "
+                f"{rec['spill_stores']}/{rec['spill_loads']} bytes spilled")
+    require(all(counts.values()), f"ptxas reported no instance of some of "
+                                  f"{kernels}: {counts}")
+    return counts
+
+
+def print_record(label: str, fn: str, rec: dict) -> None:
+    print(f"  {label}: {fn} {rec.get('registers')} registers, "
+          f"{rec.get('stack')} B stack, {rec.get('spill_stores')}/"
+          f"{rec.get('spill_loads')} B spill stores/loads")
+
+
+def build_phase() -> None:
+    """Phase 2: build, print each kernel's ptxas record, check the frames."""
+    from repro_torch.kernels._build import build_all
+
+    info = build_all()
+    print(f"  built {info['built'] or 'nothing (cached)'} in "
+          f"{info['seconds']:.1f} s")
+    records = {}
+    for src, log in info["ptxas"].items():
+        for fn, rec in ptxas_report(log).items():
+            records[fn] = rec
+            if "registers" in rec:
+                print_record(src, fn, rec)
+    counts = check_frames(records)
+    print(f"  no stack frame, no spills: {counts} instantiations")
+
+
+# ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def shapes() -> list:
+    """(label, P, m, nx, plane): the pressure and momentum systems of the
+    main path, and a ragged shape (P*m not a multiple of 256)."""
+    return [("pressure", PARTS // ALPHA, N ** 3 * ALPHA // PARTS, N, N ** 2),
+            ("momentum", PARTS, N ** 3 // PARTS, N, N ** 2),
+            ("ragged", 3, 777, 4, 16)]
+
+
+def policy_pairs() -> list:
+    """(storage, accum) of every precision policy: f64, f32_ir, bf16_ir."""
+    from repro_torch.solvers.precision import POLICIES
+
+    return [(p.storage_dtype, p.accum_dtype) for p in POLICIES.values()]
+
 
 def offsets_for(nx: int, plane: int) -> tuple[int, ...]:
     return (-plane, -nx, -1, 0, 1, nx, plane)
@@ -175,8 +300,11 @@ def time_ms(torch, fn, n=20, warmup=3) -> float:
 
 
 def csr_of_bands(torch, bands, offsets):
-    """The (n, n) CSR matrix of one part's DIA bands (P = 1)."""
-    _, nb, n = bands.shape
+    """The (n, n) CSR matrix of stacked DIA bands (P, nb, m) on the flat
+    vector, n = P*m: what the kernels compute, halos included."""
+    P, nb, m = bands.shape
+    n = P * m
+    vals = bands.permute(1, 0, 2).reshape(nb, n)
     rows = torch.arange(n, device=bands.device)
     cols = rows[:, None] + torch.tensor(offsets, device=bands.device)[None, :]
     valid = (cols >= 0) & (cols < n)
@@ -184,41 +312,47 @@ def csr_of_bands(torch, bands, offsets):
     crow[1:] = torch.cumsum(valid.sum(dim=1), dim=0)
     with warnings.catch_warnings():  # "sparse CSR support is in beta"
         warnings.simplefilter("ignore", UserWarning)
-        return torch.sparse_csr_tensor(crow, cols[valid], bands[0].T[valid],
+        return torch.sparse_csr_tensor(crow, cols[valid], vals.T[valid],
                                        size=(n, n), check_invariants=False)
+
+
+def check_spmv_bitwise(torch, label, sname, y_dia, y_dot, part, y_want,
+                       part_want) -> None:
+    """The two SpMV kernels' vectors and the SpMV+dot's partials against
+    ``spmv_dot_partials_plain``, bit for bit."""
+    same = {"spmv_dia y": torch.equal(y_dia, y_want),
+            "spmv_dot y": torch.equal(y_dot, y_want),
+            "spmv_dot partials": part.shape == part_want.shape
+            and torch.equal(part, part_want)}
+    print(f"  bitwise {label:9s} {sname:8s}: "
+          + ", ".join(f"{k} {v}" for k, v in same.items()))
+    require(all(same.values()), f"not bitwise at {label} {sname}: {same}")
 
 
 def check_kernels(torch, dev) -> dict:
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels.krylov_fused.krylov_fused import (
         fused_axpy_precond_cost, fused_axpy_precond_plain, spmv_dot_cost,
-        spmv_dot_plain)
+        spmv_dot_partials, spmv_dot_partials_plain, spmv_dot_plain)
     from repro_torch.kernels.spmv_dia.spmv_dia import (KERNEL_BLOCK_ROWS,
                                                        spmv_dia_cost,
                                                        spmv_dia_plain)
 
-    from repro_torch.solvers.precision import POLICIES
-
     plain = {"spmv_dia": spmv_dia_plain, "spmv_dot": spmv_dot_plain,
              "axpy_precond": fused_axpy_precond_plain}
-    # (storage, accum) of every precision policy: f64, f32_ir, bf16_ir
-    pairs = [(p.storage_dtype, p.accum_dtype) for p in POLICIES.values()]
-    # (label, P, m, nx, plane): the pressure and momentum systems of the
-    # main path, and a ragged shape (P*m not a multiple of the block)
-    shapes = [("pressure", PARTS // ALPHA, N ** 3 * ALPHA // PARTS, N, N ** 2),
-              ("momentum", PARTS, N ** 3 // PARTS, N, N ** 2),
-              ("ragged", 3, 777, 4, 16)]
+    pairs = policy_pairs()
     gen = torch.Generator(device=dev).manual_seed(0)
     report = {name: {} for name in plain}
-    for label, P, m, nx, plane in shapes:
+    for label, P, m, nx, plane in shapes():
         inputs = make_inputs(torch, P, m, gen, dev)
         offsets = offsets_for(nx, plane)
         for storage, accum in pairs:
             sname = str(storage).removeprefix("torch.")
             calls = kernel_calls(WRAPPERS, plain, inputs, offsets, plane,
                                  storage, accum)
+            got_all = {}
             for name, (k_fn, p_fn) in calls.items():
-                got = k_fn()
+                got = got_all[name] = k_fn()
                 torch.cuda.synchronize()
                 abs_err, rel = compare(torch, got, p_fn())
                 ok = rel <= TOLERANCE[sname]
@@ -230,10 +364,17 @@ def check_kernels(torch, dev) -> dict:
                             f"{label} {sname}: rel {rel:.3e}")
                 if label == "pressure" and storage == torch.float64:
                     report[name]["max_abs_err"] = abs_err
-        if label == "pressure":
-            # times at the pressure shape, f64, cold in the 50 MB L2
+            b, x = inputs["bands"].to(storage), inputs["x"].to(storage)
+            kw = dict(offsets=offsets, plane=plane, accum_dtype=accum)
+            _, part = spmv_dot_partials(b, x, **kw)
+            check_spmv_bitwise(torch, label, sname, got_all["spmv_dia"][0],
+                               got_all["spmv_dot"][0], part,
+                               *spmv_dot_partials_plain(b, x, **kw))
+            del got_all, part, b, x
+        if label != "ragged":
+            # f64, cold in the 50 MB L2: every kernel at the pressure shape,
+            # the two SpMV kernels at the momentum shape too
             n = P * m
-            b, x = inputs["bands"], inputs["x"]
             calls = kernel_calls(WRAPPERS, plain, inputs, offsets, plane,
                                  torch.float64, torch.float64)
             costs = {
@@ -243,12 +384,18 @@ def check_kernels(torch, dev) -> dict:
                 "axpy_precond": fused_axpy_precond_cost(
                     n, block_rows=KERNEL_BLOCK_ROWS),
             }
-            csr = csr_of_bands(torch, b, offsets)
-            x_flat = x.reshape(-1)
+            csr = csr_of_bands(torch, inputs["bands"], offsets)
+            x_flat = inputs["x"].reshape(-1)
             lib = {"spmv_dia": lambda: csr @ x_flat}
             for name, (k_fn, p_fn) in calls.items():
-                report[name].update(timing_report(
-                    torch, name, k_fn, p_fn, costs[name], lib.get(name)))
+                if label == "momentum" and name == "axpy_precond":
+                    continue
+                rep = timing_report(torch, f"{name} @{label}", k_fn, p_fn,
+                                    costs[name], lib.get(name))
+                if label == "pressure":
+                    report[name].update(rep)
+                else:
+                    report[name]["momentum"] = rep
             del csr, lib
         del inputs
         torch.cuda.empty_cache()
@@ -268,7 +415,7 @@ def timing_report(torch, name, k_fn, p_fn, cost, library=None) -> dict:
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None if library is None else time_ms(torch, library),
            "bytes": cost["bytes_accessed"]}
-    print(f"  {name:13s} ms={rep['ms']:.4f} plain_ms={rep['plain_ms']:.4f} "
+    print(f"  {name:22s} ms={rep['ms']:.4f} plain_ms={rep['plain_ms']:.4f} "
           f"bound_ms={rep['bound_ms']:.4f} ({rep['bound_by']}, "
           f"{rep['bytes']} B) library_ms={rep['library_ms']}")
     return rep
@@ -375,6 +522,121 @@ def check_momentum_bands(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# --compare: this tree's SpMV kernels beside another checkout's
+# ---------------------------------------------------------------------------
+
+def compare_builds(torch, dev, others: dict) -> dict:
+    """This tree's two SpMV kernels beside those of each csrc directory in
+    ``others`` (``{label: dir}``) on this card: each bitwise against the
+    plain versions, then timed in turns (this tree, the others, the others
+    in reverse, this tree) at the pressure and momentum shapes, for every
+    (storage, accum) pair."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels._build import (BUILD_ROOT, build_sources,
+                                            dtype_code, load, load_library)
+    from repro_torch.kernels.krylov_fused.krylov_fused import (
+        spmv_dot_cost, spmv_dot_partials_plain)
+    from repro_torch.kernels.spmv_dia.spmv_dia import (KERNEL_BLOCK_ROWS,
+                                                       _offsets_arg,
+                                                       spmv_dia_cost,
+                                                       stream_ptr)
+
+    names = ("spmv_dia", "krylov_fused")
+
+    def build(label, csrc):
+        csrc = Path(csrc)
+        h = hashlib.sha256()
+        for f in sorted(csrc.iterdir()):
+            if f.suffix in (".cu", ".cuh"):
+                h.update(f.name.encode() + f.read_bytes())
+        out = BUILD_ROOT.parent / "compare" / f"{label}-{h.hexdigest()[:12]}"
+        info = build_sources(csrc, names, out)
+        return {n: load_library(out / f"lib{n}.so", n) for n in names}, info
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max(len(others), 1)) as pool:
+        built = dict(zip(others, pool.map(lambda kv: build(*kv),
+                                          others.items())))
+    print(f"  built {list(others)} in {time.perf_counter() - t0:.1f} s")
+    libs = {"tree": {n: load(n) for n in names}}
+    for label, (lib, info) in built.items():
+        libs[label] = lib
+        for log in info["ptxas"].values():
+            for fn, rec in ptxas_report(log).items():
+                if base_name(fn) in NO_FRAME_KERNELS:
+                    print_record(label, fn, rec)
+
+    def spmv(lib, code, b, x, offsets):
+        P, nb, m = b.shape
+        y = torch.empty_like(x)
+        rc = lib["spmv_dia"].spmv_dia_launch(
+            code, b.data_ptr(), x.data_ptr(), y.data_ptr(), P, m,
+            _offsets_arg(offsets), nb, stream_ptr(x))
+        require(rc == 0, f"spmv_dia launch failed ({rc})")
+        return y
+
+    def spmv_dot(lib, code, b, x, offsets, accum):
+        P, nb, m = b.shape
+        y = torch.empty_like(x)
+        part = torch.empty(-(-P * m // KERNEL_BLOCK_ROWS), dtype=accum,
+                           device=x.device)
+        rc = lib["krylov_fused"].spmv_dot_launch(
+            code, b.data_ptr(), x.data_ptr(), y.data_ptr(), part.data_ptr(),
+            P, m, _offsets_arg(offsets), nb, stream_ptr(x))
+        require(rc == 0, f"spmv_dot launch failed ({rc})")
+        return y, part
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    order = list(libs) + list(libs)[::-1]
+    result = {label: {"spmv_dia": {}, "spmv_dot": {}} for label in libs}
+    result["bound_ms"] = {"spmv_dia": {}, "spmv_dot": {}}
+    for shape, P, m, nx, plane in shapes()[:2]:
+        inputs = make_inputs(torch, P, m, gen, dev)
+        offsets = offsets_for(nx, plane)
+        n = P * m
+        for storage, accum in policy_pairs():
+            sname = str(storage).removeprefix("torch.")
+            cell = f"{shape}/{sname}"
+            code = dtype_code(storage, accum)
+            b, x = inputs["bands"].to(storage), inputs["x"].to(storage)
+            want = spmv_dot_partials_plain(b, x, offsets=offsets,
+                                           plane=plane, accum_dtype=accum)
+            for label, lib in libs.items():
+                y = spmv(lib, code, b, x, offsets)
+                y_dot, part = spmv_dot(lib, code, b, x, offsets, accum)
+                torch.cuda.synchronize()
+                check_spmv_bitwise(torch, f"{label}@{shape}", sname, y,
+                                   y_dot, part, *want)
+            size, acc_size = b.element_size(), torch.finfo(accum).bits // 8
+            for kernel, fn, cost in (
+                    ("spmv_dia", lambda lib: spmv(lib, code, b, x, offsets),
+                     spmv_dia_cost(7, n, size)),
+                    ("spmv_dot",
+                     lambda lib: spmv_dot(lib, code, b, x, offsets, accum),
+                     spmv_dot_cost(7, n, 0, size,
+                                   block_rows=KERNEL_BLOCK_ROWS,
+                                   accum_itemsize=acc_size))):
+                bound = cost["bytes_accessed"] / HBM_BYTES_PER_S * 1e3
+                result["bound_ms"][kernel][cell] = bound
+                for label in order:
+                    lib = libs[label]
+                    t = time_ms(torch, lambda: fn(lib))
+                    result[label][kernel].setdefault(cell, []).append(t)
+                for label in libs:
+                    ts = result[label][kernel][cell]
+                    mean = sum(ts) / len(ts)
+                    print(f"  {kernel} {cell:18s} {label:12s} ms "
+                          + " ".join(f"{t:.4f}" for t in ts)
+                          + f" (mean {mean:.4f}; floor {bound:.4f} = "
+                            f"{bound / mean:.1%})")
+            del b, x, want
+        del inputs
+        torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -465,6 +727,10 @@ def main_path(torch) -> dict:
             f"the value update launched {counts['coef_update']} times in "
             f"{n} steps, not 3 a step")
     check_steps(torch, stats_f, "fused")
+    counts_f = {"mom_iters": stats_f.mom_iters.tolist(),
+                "p_iters": stats_f.p_iters.tolist()}
+    require(counts_f == MAIN_COUNTS, f"Krylov counts {counts_f}, expected "
+                                     f"{MAIN_COUNTS}")
 
     # determinism: the same steps again, one at a time, bitwise equal; the
     # per-step states feed the parity check below
@@ -676,7 +942,12 @@ def baseline_phase(torch, solver, state, dt) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--compare", action="append", metavar="LABEL=CSRC_DIR",
+                    help="time this tree's SpMV kernels beside another "
+                         "csrc directory's, in turns (repeatable)")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -687,8 +958,7 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     try:
-        import repro_torch  # noqa: F401
-        from repro_torch.kernels._build import build_all
+        import repro_torch.kernels._build  # noqa: F401
     except ImportError as e:
         print(f"FAIL: the port is not importable beside chip_smoke.py ({e})",
               file=sys.stderr)
@@ -700,13 +970,13 @@ def main() -> int:
         print(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
               f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
         print("[2] build")
-        info = build_all()
-        print(f"  built {info['built'] or 'nothing (cached)'} in "
-              f"{info['seconds']:.1f} s")
-        for name, log in info["ptxas"].items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+        build_phase()
+        if args.compare:
+            others = dict(item.split("=", 1) for item in args.compare)
+            result = compare_builds(torch, dev, others)
+            print(smi_line())
+            print(json.dumps({"compare": result}))
+            return 0
         print("[3] kernels vs plain versions")
         report = check_kernels(torch, dev)
         print("[4-6] main path: 210^3 cavity, 30 parts, alpha 30, 3 PISO "
@@ -714,6 +984,9 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         summary = main_path(torch)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
+        summary["momentum_shape_times"] = {
+            name: report[name]["momentum"] for name in report
+            if "momentum" in report[name]}
         print("summary " + json.dumps(summary))
         # launches: the main path's counts; the momentum-assembly kernel's
         # from the refactoring baseline's run (phase 8)

@@ -16,16 +16,12 @@
 
 namespace repro {
 
-constexpr int kThreads = 256;   // threads (= rows) per block
+// threads (= rows) per block of the one-row-per-thread kernels, and the
+// rows of one partial of every reduction
+constexpr int kThreads = 256;
 constexpr int kMaxBands = 8;
 
 enum DtypeCode { kF64 = 0, kF32 = 1, kBF16F32 = 2 };
-
-// Static band offsets, passed by value into the kernels.
-struct BandOffsets {
-  long long off[kMaxBands];
-  int nb;
-};
 
 // Widening load and narrowing store between storage and accum/compute types.
 template <typename To, typename From>
@@ -59,13 +55,6 @@ __device__ __forceinline__ A block_sum(A v, A* smem) {
   A total = smem[0];
   __syncthreads();
   return total;
-}
-
-inline BandOffsets make_offsets(const long long* offsets, int nb) {
-  BandOffsets o;
-  o.nb = nb;
-  for (int d = 0; d < kMaxBands; ++d) o.off[d] = d < nb ? offsets[d] : 0;
-  return o;
 }
 
 inline unsigned int n_blocks(long long n) {

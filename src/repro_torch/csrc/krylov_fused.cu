@@ -10,42 +10,65 @@
 //
 // Bound: bytes.  spmv_dot moves 72 bytes per row in f64 (7 bands, p, Ap)
 // for 2*7 + 2 flops; axpy_precond moves 64 (five reads, three writes) for
-// 9.  Both are one thread per row over all parts, with coalesced
-// neighbouring-thread accesses, so each input is read once and each output
-// written once.  The reductions write one accum-width partial per block of
-// kThreads rows, summed inside the block in a fixed tree order; the wrapper
-// sums the partials with torch.sum.  No atomics: the order of every sum is
-// fixed, so Krylov iteration counts reproduce from run to run.
-#include "common.cuh"
+// 9.  spmv_dot is the streaming core of dia_rows.cuh (several rows per
+// thread, every load issued before the first multiply, offsets in the
+// parameter bank, streaming hints for the bands) with a p.Ap epilogue.
+// axpy_precond is one thread per row over all parts, with coalesced
+// neighbouring-thread accesses; its five loads are independent, so one row
+// per thread keeps enough bytes in flight.  The reductions write one
+// accum-width partial per kThreads (256) consecutive flat rows, summed in
+// block_sum's fixed tree order; the wrapper sums the partials with
+// torch.sum.  No atomics: the order of every sum is fixed, so Krylov
+// iteration counts reproduce from run to run.
+#include "dia_rows.cuh"
 
 using namespace repro;
 
 // ---------------------------------------------------------------------------
-// (A p, p . A p): the DIA SpMV of spmv_dia.cu plus a p.Ap block partial taken
-// from the accum-width row sum, before it is narrowed to the storage dtype.
+// (A p, p . A p): the rows of dia_rows.cuh plus the p.Ap partial of each
+// 256-row block, from the accum-width row sums before they are narrowed.
+// The partial is summed in exactly block_sum's order over the block's rows
+// v[0..255]: level s adds v[r + s] to v[r] for r < s, s = 128, 64, ..., 1.
+// Thread t of a group holds v[t + kDiaGroup*k], so the levels 128 down to
+// kDiaGroup are its own rows, the levels down to 32 cross the group's
+// warps through shared memory, and 16 down to 1 are warp shuffles.
 // ---------------------------------------------------------------------------
-template <typename S, typename A>
-__global__ void spmv_dot_kernel(const S* __restrict__ bands,
-                                const S* __restrict__ x, S* __restrict__ y,
-                                A* __restrict__ partials, long long m,
-                                long long n, BandOffsets offs) {
-  __shared__ A smem[kThreads];
-  const long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  A prod = A(0);
-  if (g < n) {
-    const long long p = g / m;
-    const S* b = bands + p * offs.nb * m + (g - p * m);
-    A acc = A(0);
-    for (int d = 0; d < offs.nb; ++d) {
-      const long long j = g + offs.off[d];
-      const A xv = (j >= 0 && j < n) ? cvt<A>(x[j]) : A(0);
-      acc = acc + cvt<A>(b[d * m]) * xv;
-    }
-    y[g] = cvt<S>(acc);
-    prod = cvt<A>(x[g]) * acc;
+template <typename S, typename A, int NB>
+__global__ void __launch_bounds__(kDiaThreads)
+spmv_dot_kernel(const S* __restrict__ bands, const S* __restrict__ x,
+                S* __restrict__ y, A* __restrict__ partials,
+                const __grid_constant__ DiaArgs a) {
+  const long long blk = static_cast<long long>(blockIdx.x) * kDiaTile;
+  const int t = threadIdx.x % kDiaGroup;
+  const long long row0 = blk + (threadIdx.x / kDiaGroup) * kThreads;
+  A acc[kDiaRows], xg[kDiaRows];
+  if (blk >= a.lo && blk + kDiaTile <= a.hi)
+    dia_rows<S, A, NB, false, true>(bands, x, y, a, row0 + t, acc, xg);
+  else
+    dia_rows<S, A, NB, true, true>(bands, x, y, a, row0 + t, acc, xg);
+  A v[kDiaRows];
+#pragma unroll
+  for (int k = 0; k < kDiaRows; ++k) v[k] = xg[k] * acc[k];
+#pragma unroll
+  for (int s = kDiaRows / 2; s >= 1; s >>= 1) {
+#pragma unroll
+    for (int k = 0; k < s; ++k) v[k] = v[k] + v[k + s];
   }
-  const A total = block_sum(prod, smem);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+  A sum = v[0];
+  if constexpr (kDiaGroup > 32) {
+    __shared__ A red[kDiaThreads];
+#pragma unroll
+    for (int s = kDiaGroup / 2; s >= 32; s >>= 1) {
+      red[threadIdx.x] = sum;
+      __syncthreads();
+      if (t < s) sum = sum + red[threadIdx.x + s];
+      if (s > 32) __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1)
+    sum = sum + __shfl_down_sync(0xffffffffu, sum, s);
+  if (t == 0 && row0 < a.n) partials[row0 / kThreads] = sum;
 }
 
 // ---------------------------------------------------------------------------
@@ -93,13 +116,19 @@ __global__ void axpy_precond_kernel(const S* __restrict__ x,
 
 template <typename S, typename A>
 static int launch_spmv_dot(const void* bands, const void* x, void* y,
-                           void* partials, long long P, long long m,
-                           BandOffsets offs, cudaStream_t stream) {
-  const long long n = P * m;
-  if (n == 0) return 0;
-  spmv_dot_kernel<S, A><<<n_blocks(n), kThreads, 0, stream>>>(
-      static_cast<const S*>(bands), static_cast<const S*>(x),
-      static_cast<S*>(y), static_cast<A*>(partials), m, n, offs);
+                           void* partials, const DiaArgs& a,
+                           cudaStream_t stream) {
+  if (a.n == 0) return 0;
+  const S* b = static_cast<const S*>(bands);
+  const S* xs = static_cast<const S*>(x);
+  S* ys = static_cast<S*>(y);
+  A* part = static_cast<A*>(partials);
+  if (a.nb == 7)
+    spmv_dot_kernel<S, A, 7><<<dia_blocks(a.n), kDiaThreads, 0, stream>>>(
+        b, xs, ys, part, a);
+  else
+    spmv_dot_kernel<S, A, kMaxBands>
+        <<<dia_blocks(a.n), kDiaThreads, 0, stream>>>(b, xs, ys, part, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -117,20 +146,21 @@ static int launch_axpy(const void* const* in, const void* alpha,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bands (P, nb, m), x (P, m) -> y (P, m), partials (ceil(P*m / 256),).
+// bands (P, nb, m), x (P, m) -> y (P, m), partials (ceil(P*m / 256),);
+// nb <= 8.
 // Returns cudaGetLastError() after the launch; -1 for an unknown dtype code.
 extern "C" int spmv_dot_launch(int dtype_code, const void* bands,
                                const void* x, void* y, void* partials,
                                long long P, long long m,
                                const long long* offsets, int nb,
                                void* stream) {
-  const BandOffsets offs = make_offsets(offsets, nb);
+  const DiaArgs a = make_dia_args(offsets, nb, P, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
-    case kF64: return launch_spmv_dot<double, double>(bands, x, y, partials, P, m, offs, s);
-    case kF32: return launch_spmv_dot<float, float>(bands, x, y, partials, P, m, offs, s);
+    case kF64: return launch_spmv_dot<double, double>(bands, x, y, partials, a, s);
+    case kF32: return launch_spmv_dot<float, float>(bands, x, y, partials, a, s);
     case kBF16F32:
-      return launch_spmv_dot<__nv_bfloat16, float>(bands, x, y, partials, P, m, offs, s);
+      return launch_spmv_dot<__nv_bfloat16, float>(bands, x, y, partials, a, s);
     default: return -1;
   }
 }

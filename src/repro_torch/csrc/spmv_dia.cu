@@ -11,59 +11,57 @@
 // and zero outside [0, P*m): no halo copy is made.  That needs
 // |off_d| <= plane <= m, which the wrapper checks.
 //
-// Bound: bytes.  Per row it reads nb band values and (through the cache)
-// one x value, and writes one y value — 72 bytes in f64 for 7 bands —
-// against 2*nb flops, far below the card's ratio of flops to bytes.  The
-// design is one thread per row over all parts: neighbouring threads read
-// neighbouring band and x addresses (coalesced), and the seven shifted x
-// reads of a block hit the same few cache lines, so x is read from device
-// memory about once.  Bands accumulate in band order, as the plain version
-// does.
-#include "common.cuh"
+// Bound: bytes (72 B per row in f64 for 7 bands against 14 flops).  The
+// row loop is the streaming core of dia_rows.cuh, whose notes say what
+// limits it on the H100 and what the design does about it; this kernel is
+// that core with no epilogue.
+#include "dia_rows.cuh"
 
 using namespace repro;
 
-template <typename S, typename A>
-__global__ void spmv_dia_kernel(const S* __restrict__ bands,
-                                const S* __restrict__ x, S* __restrict__ y,
-                                long long m, long long n, BandOffsets offs) {
-  const long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (g >= n) return;
-  const long long p = g / m;
-  const S* b = bands + p * offs.nb * m + (g - p * m);
-  A acc = A(0);
-  for (int d = 0; d < offs.nb; ++d) {
-    const long long j = g + offs.off[d];
-    const A xv = (j >= 0 && j < n) ? cvt<A>(x[j]) : A(0);
-    acc = acc + cvt<A>(b[d * m]) * xv;
-  }
-  y[g] = cvt<S>(acc);
+template <typename S, typename A, int NB>
+__global__ void __launch_bounds__(kDiaThreads)
+spmv_dia_kernel(const S* __restrict__ bands, const S* __restrict__ x,
+                S* __restrict__ y, const __grid_constant__ DiaArgs a) {
+  const long long blk = static_cast<long long>(blockIdx.x) * kDiaTile;
+  const long long g0 = blk + (threadIdx.x / kDiaGroup) * kThreads +
+                       threadIdx.x % kDiaGroup;
+  A acc[kDiaRows], xg[kDiaRows];
+  if (blk >= a.lo && blk + kDiaTile <= a.hi)
+    dia_rows<S, A, NB, false, false>(bands, x, y, a, g0, acc, xg);
+  else
+    dia_rows<S, A, NB, true, false>(bands, x, y, a, g0, acc, xg);
 }
 
 template <typename S, typename A>
-static int launch(const void* bands, const void* x, void* y, long long P,
-                  long long m, BandOffsets offs, cudaStream_t stream) {
-  const long long n = P * m;
-  if (n == 0) return 0;
-  spmv_dia_kernel<S, A><<<n_blocks(n), kThreads, 0, stream>>>(
-      static_cast<const S*>(bands), static_cast<const S*>(x),
-      static_cast<S*>(y), m, n, offs);
+static int launch(const void* bands, const void* x, void* y,
+                  const DiaArgs& a, cudaStream_t stream) {
+  if (a.n == 0) return 0;
+  const S* b = static_cast<const S*>(bands);
+  const S* xs = static_cast<const S*>(x);
+  S* ys = static_cast<S*>(y);
+  if (a.nb == 7)
+    spmv_dia_kernel<S, A, 7><<<dia_blocks(a.n), kDiaThreads, 0, stream>>>(
+        b, xs, ys, a);
+  else
+    spmv_dia_kernel<S, A, kMaxBands>
+        <<<dia_blocks(a.n), kDiaThreads, 0, stream>>>(b, xs, ys, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// bands (P, nb, m), x (P, m), y (P, m): all contiguous, on one device.
-// Returns cudaGetLastError() after the launch (0 on success); -1 for an
-// unknown dtype code.
+// bands (P, nb, m), x (P, m), y (P, m): all contiguous, on one device;
+// nb <= 8.  Returns cudaGetLastError() after the launch (0 on success); -1
+// for an unknown dtype code.
 extern "C" int spmv_dia_launch(int dtype_code, const void* bands,
                                const void* x, void* y, long long P,
                                long long m, const long long* offsets, int nb,
                                void* stream) {
-  const BandOffsets offs = make_offsets(offsets, nb);
+  const DiaArgs a = make_dia_args(offsets, nb, P, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
-    case kF64: return launch<double, double>(bands, x, y, P, m, offs, s);
-    case kF32: return launch<float, float>(bands, x, y, P, m, offs, s);
-    case kBF16F32: return launch<__nv_bfloat16, float>(bands, x, y, P, m, offs, s);
+    case kF64: return launch<double, double>(bands, x, y, a, s);
+    case kF32: return launch<float, float>(bands, x, y, a, s);
+    case kBF16F32: return launch<__nv_bfloat16, float>(bands, x, y, a, s);
     default: return -1;
   }
 }

@@ -19,7 +19,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "DTYPE_CODES", "build_all", "load", "dtype_code"]
+__all__ = ["SOURCES", "DTYPE_CODES", "build_all", "build_sources", "load",
+           "load_library", "dtype_code"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -86,37 +87,55 @@ def _lib_path(name: str) -> Path:
     return _build_dir() / f"lib{name}.so"
 
 
-def build_all() -> dict:
-    """Compile every source not yet built, in parallel.
+def build_sources(csrc: Path, names, out_dir: Path) -> dict:
+    """Compile ``csrc/<name>.cu`` for each of ``names`` into
+    ``out_dir/lib<name>.so``, all at once in parallel, skipping a library
+    already there.
 
-    Returns ``{"seconds": wall, "built": [...], "ptxas": {name: log}}``;
-    raises with the compiler's output if any build fails.
+    Returns ``{"seconds": wall, "built": [...], "ptxas": {name: log}}``
+    (the ``-Xptxas -v`` log of every name, kept beside its library); raises
+    with the compiler's output if any build fails.
     """
-    out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    todo = [n for n in names if not (out_dir / f"lib{n}.so").exists()]
     t0 = time.perf_counter()
     procs = {}
     for name in todo:
         tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True))
-    logs, failed = {}, []
+    failed = []
     for name, (tmp, proc) in procs.items():
-        logs[name] = proc.communicate()[0]
-        (out_dir / f"{name}.log").write_text(logs[name])
+        (out_dir / f"{name}.log").write_text(proc.communicate()[0])
         if proc.returncode != 0:
             failed.append(name)
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, _lib_path(name))
+            os.replace(tmp, out_dir / f"lib{name}.so")
+    logs = {n: (out_dir / f"{n}.log").read_text() for n in names
+            if (out_dir / f"{n}.log").exists()}
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return {"seconds": time.perf_counter() - t0, "built": todo,
             "ptxas": logs}
+
+
+def build_all() -> dict:
+    """Compile every source of the package not yet built (see
+    :func:`build_sources`)."""
+    return build_sources(CSRC, SOURCES, _build_dir())
+
+
+def load_library(path: Path, name: str) -> ctypes.CDLL:
+    """Load the library of ``<name>.cu`` at ``path``, its entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -125,9 +144,5 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         if not _lib_path(name).exists():
             build_all()
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
+        lib = _loaded[name] = load_library(_lib_path(name), name)
     return lib

@@ -12,11 +12,12 @@ Two kernels (``csrc/krylov_fused.cu``) replace the TPU kernels of
   ``fused_update_step``).
 
 Both are bound by bytes.  Each reduction writes one accum-width partial per
-block of :data:`KERNEL_BLOCK_ROWS` rows; the wrapper sums the partials with
-``torch.sum``, a fixed order.  Beside each kernel is its plain PyTorch
-version (:func:`spmv_dot_plain`, :func:`fused_axpy_precond_plain`), which
-the wrappers take for CPU tensors only; for CUDA tensors they launch the
-kernel or raise.
+:data:`KERNEL_BLOCK_ROWS` consecutive flat rows, summed in a fixed tree
+order (:func:`block_partials_plain` is that order in plain PyTorch); the
+wrapper sums the partials with ``torch.sum``, a fixed order.  Beside each
+kernel is its plain PyTorch version (:func:`spmv_dot_plain`,
+:func:`fused_axpy_precond_plain`), which the wrappers take for CPU tensors
+only; for CUDA tensors they launch the kernel or raise.
 
 :func:`spmv_dot_cost` and :func:`fused_axpy_precond_cost` are the JAX
 package's byte and flop contracts, as ints.
@@ -30,8 +31,9 @@ from repro_torch.kernels.spmv_dia.spmv_dia import (
     KERNEL_BLOCK_ROWS, _offsets_arg, check_stacked_operands, stream_ptr)
 from repro_torch.sparse.distributed import spmv_dia
 
-__all__ = ["fused_matvec_dot", "fused_update_step", "spmv_dot_plain",
-           "fused_axpy_precond_plain", "spmv_dot_cost",
+__all__ = ["fused_matvec_dot", "fused_update_step", "spmv_dot_partials",
+           "spmv_dot_plain", "spmv_dot_partials_plain",
+           "fused_axpy_precond_plain", "block_partials_plain", "spmv_dot_cost",
            "fused_axpy_precond_cost", "DEFAULT_BLOCK_ROWS"]
 
 # the JAX kernels' row block, the default of the cost contracts below
@@ -86,6 +88,36 @@ def spmv_dot_plain(bands: torch.Tensor, x: torch.Tensor, *,
     return y.to(bands.dtype), _vdot(x.to(acc), y)
 
 
+def block_partials_plain(v: torch.Tensor,
+                         block_rows: int = KERNEL_BLOCK_ROWS) -> torch.Tensor:
+    """The kernels' reduction partials of ``v`` in their order: ``v``
+    flattened and zero-padded to whole blocks of ``block_rows`` (a power of
+    two), each block summed pairwise, ``a[:, :h] + a[:, h:]`` for ``h`` =
+    ``block_rows / 2`` down to 1 (``block_sum`` in ``csrc/common.cuh``)."""
+    v = v.reshape(-1)
+    n_blocks = -(-v.numel() // block_rows)
+    a = v.new_zeros(n_blocks * block_rows)
+    a[:v.numel()] = v
+    a = a.reshape(n_blocks, block_rows)
+    h = block_rows // 2
+    while h >= 1:
+        a = a[:, :h] + a[:, h:]
+        h //= 2
+    return a[:, 0]
+
+
+def spmv_dot_partials_plain(bands: torch.Tensor, x: torch.Tensor, *,
+                            offsets: tuple[int, ...], plane: int,
+                            accum_dtype: torch.dtype | None = None):
+    """``(A x, partials)`` as the kernel computes them, bit for bit: the
+    SpMV at the accum width, narrowed, and :func:`block_partials_plain` of
+    ``x . A x``'s accum-width terms."""
+    acc = accum_dtype or bands.dtype
+    xa = x.to(acc)
+    y = spmv_dia(bands.to(acc), xa, offsets=offsets, plane=plane)
+    return y.to(bands.dtype), block_partials_plain(xa * y)
+
+
 def fused_axpy_precond_plain(x, r, p, Ap, inv_diag, alpha,
                              accum_dtype: torch.dtype | None = None):
     """``(x', r', z, r'.z, r'.r')`` over stacked parts."""
@@ -107,16 +139,17 @@ def _partials(n: int, dtype: torch.dtype, device) -> torch.Tensor:
                        device=device)
 
 
-def fused_matvec_dot(bands: torch.Tensor, x: torch.Tensor, *,
-                     offsets: tuple[int, ...], plane: int,
-                     accum_dtype: torch.dtype | None = None):
-    """``(A x, x . A x)``: bands (P, nb, m), x (P, m); the dot is a global
-    0-d tensor in the accum dtype (``None``: the storage dtype)."""
+def spmv_dot_partials(bands: torch.Tensor, x: torch.Tensor, *,
+                      offsets: tuple[int, ...], plane: int,
+                      accum_dtype: torch.dtype | None = None):
+    """``(A x, partials)``: ``A x`` in the storage dtype and the ``x . A x``
+    partials, one per :data:`KERNEL_BLOCK_ROWS` flat rows, in the accum
+    dtype.  On CPU tensors: :func:`spmv_dot_partials_plain`."""
     if bands.device.type == "cpu" and x.device.type == "cpu":
-        return spmv_dot_plain(bands, x, offsets=offsets, plane=plane,
-                              accum_dtype=accum_dtype)
-    check_stacked_operands(bands, x, offsets, plane)
+        return spmv_dot_partials_plain(bands, x, offsets=offsets,
+                                       plane=plane, accum_dtype=accum_dtype)
     acc = accum_dtype or bands.dtype
+    check_stacked_operands(bands, x, offsets, plane)
     code = dtype_code(bands.dtype, acc)
     P, nb, m = bands.shape
     y = torch.empty_like(x)
@@ -127,6 +160,19 @@ def fused_matvec_dot(bands: torch.Tensor, x: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"spmv_dot kernel launch failed (code {rc})")
     fused_matvec_dot.launches += 1
+    return y, part
+
+
+def fused_matvec_dot(bands: torch.Tensor, x: torch.Tensor, *,
+                     offsets: tuple[int, ...], plane: int,
+                     accum_dtype: torch.dtype | None = None):
+    """``(A x, x . A x)``: bands (P, nb, m), x (P, m); the dot is a global
+    0-d tensor in the accum dtype (``None``: the storage dtype)."""
+    if bands.device.type == "cpu" and x.device.type == "cpu":
+        return spmv_dot_plain(bands, x, offsets=offsets, plane=plane,
+                              accum_dtype=accum_dtype)
+    y, part = spmv_dot_partials(bands, x, offsets=offsets, plane=plane,
+                                accum_dtype=accum_dtype)
     return y, part.sum()
 
 

@@ -21,8 +21,8 @@ from repro_torch.sparse.distributed import spmv_dia as spmv_dia_plain
 __all__ = ["spmv_dia_stacked", "spmv_dia_plain", "spmv_dia_cost",
            "KERNEL_BLOCK_ROWS", "check_stacked_operands", "stream_ptr"]
 
-# rows per CUDA block (csrc/common.cuh kThreads): the reductions of the
-# krylov_fused kernels write one partial per block of this many rows
+# rows of one reduction partial (csrc/common.cuh kThreads): the reductions
+# of the krylov_fused kernels write one partial per this many flat rows
 KERNEL_BLOCK_ROWS = 256
 
 

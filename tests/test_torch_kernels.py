@@ -24,8 +24,9 @@ from repro_torch.kernels._build import SOURCES, dtype_code
 from repro_torch.kernels.coef_update.coef_update import (
     check_gather_operands, coef_update_plain, coef_update_stacked)
 from repro_torch.kernels.krylov_fused.krylov_fused import (
-    fused_axpy_precond_cost, fused_axpy_precond_plain, fused_matvec_dot,
-    fused_update_step, spmv_dot_cost, spmv_dot_plain)
+    block_partials_plain, fused_axpy_precond_cost, fused_axpy_precond_plain,
+    fused_matvec_dot, fused_update_step, spmv_dot_cost, spmv_dot_partials,
+    spmv_dot_partials_plain, spmv_dot_plain)
 from repro_torch.kernels.spmv_dia.spmv_dia import (check_stacked_operands,
                                                    spmv_dia_plain,
                                                    spmv_dia_stacked)
@@ -137,6 +138,63 @@ def test_fused_axpy_precond_plain_matches_ref(P, m, storage, accum, tol):
     for g, w in zip(got[3:], want[3:]):
         assert g.dtype == getattr(torch, accum)
         _close(float(g), float(w), 10 * tol)
+
+
+def _tree_partials(v, block=256):
+    """block_sum's order, one scalar add at a time: each block of ``block``
+    values (zero-padded), level h adds a[i + h] to a[i] for i < h."""
+    out = []
+    zero = v.dtype.type(0)
+    for start in range(0, len(v), block):
+        a = list(v[start:start + block])
+        a += [zero] * (block - len(a))
+        h = block // 2
+        while h >= 1:
+            a = [a[i] + a[i + h] for i in range(h)]
+            h //= 2
+        out.append(a[0])
+    return np.array(out, dtype=v.dtype)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 3 * 777])
+@pytest.mark.parametrize("storage,accum,tol", PAIRS)
+def test_block_partials_plain_is_the_kernels_tree(n, storage, accum, tol):
+    """The oracle of the SpMV+dot kernel's partials: bitwise a scalar tree
+    in block_sum's order, and its sum the dot within the dtype's
+    tolerance."""
+    rng = np.random.default_rng(n)
+    x = _t(rng.standard_normal(n), storage).to(getattr(torch, accum))
+    y = _t(rng.standard_normal(n), accum)
+    v = x * y
+    got = block_partials_plain(v)
+    assert got.dtype == getattr(torch, accum)
+    assert got.shape == (-(-n // 256),)
+    want = _tree_partials(v.numpy())
+    assert np.array_equal(got.numpy(), want)
+    scale = float(v.abs().sum())
+    assert abs(float(got.sum()) - float(torch.dot(x, y))) <= tol * scale
+
+
+@pytest.mark.parametrize("storage,accum,tol", PAIRS)
+def test_spmv_dot_partials_on_cpu_are_the_plain_versions(storage, accum,
+                                                         tol):
+    """On CPU tensors the partials entry point returns the plain SpMV and
+    the tree-order partials, whose sum is the plain dot."""
+    ops = _operands(3, 777, storage, seed=4)
+    b, x = _t(ops["bands"], storage), _t(ops["x"], storage)
+    kw = dict(offsets=_offsets(4, 16), plane=16,
+              accum_dtype=getattr(torch, accum))
+    y, part = spmv_dot_partials(b, x, **kw)
+    y_want, dot = spmv_dot_plain(b, x, **kw)
+    assert torch.equal(y, y_want)
+    y_acc = spmv_dia_plain(b.to(getattr(torch, accum)),
+                           x.to(getattr(torch, accum)), offsets=kw["offsets"],
+                           plane=16)
+    part_want = block_partials_plain(x.to(getattr(torch, accum)) * y_acc)
+    assert torch.equal(part, part_want)
+    for g, w in zip(spmv_dot_partials_plain(b, x, **kw), (y_want, part_want)):
+        assert torch.equal(g, w)
+    _close(float(part.sum()), float(dot), 10 * tol)
 
 
 def test_wrappers_take_plain_versions_on_cpu_without_launching():
