@@ -3,6 +3,7 @@
 
   python3 chip_smoke.py
   python3 chip_smoke.py --compare LABEL=CSRC_DIR [LABEL=CSRC_DIR ...]
+  python3 chip_smoke.py --step-timing REPEATS
 
 Runs from the root of a checkout and needs one CUDA card; with no card, or
 without the rest of the checkout beside it, it exits nonzero and prints no
@@ -45,7 +46,30 @@ result.  Phases, in order (any failure exits nonzero):
 8. the refactoring baseline: ``momentum_bands`` from the main run's
    velocity on the coarse mesh (1 part) against fine assembly plus the
    alpha-30 value update, and on the fine mesh against the step's own
-   momentum bands, within 1e-12; both paths timed.
+   momentum bands, within 1e-12; both paths timed;
+9. precision on the main path: from the main run's state, one cavity
+   step under ``f32_ir`` with the kernels (every solve converged, no cap,
+   continuity below 1e-6, the step's kernels launched), beside the f64
+   step from the same state (no ``bf16_ir`` on the cavity: the reference
+   diverges there);
+10. the 210^3 channel (inlet at z0, outlet at z1), 30 parts, alpha 30:
+    one PISO step from rest under ``f64``, ``f32_ir`` and ``bf16_ir`` with
+    the kernels, each converged with continuity below 1e-6; per policy the
+    plain-PyTorch backend from the same state (f64: within 1e-10,
+    identical counts and flags; refined: equal flags, within 1e-5, both
+    counts printed); then the step's first pressure system solved alone
+    under each policy, timed (outer and inner iterations, seconds, ms per
+    inner iteration), the f64 outer replays counted as ``spmv_dia``
+    launches;
+11. SIMPLE on the 210^3 channel: ``run_steady(max_outer=4)`` with the
+    kernels (capped, every Krylov solve converged), replayed outer
+    iteration by outer iteration (bitwise the same end), each outer
+    iteration's continuity error, velocity change and counts printed, and
+    the plain backend taking each outer iteration from the kernel run's
+    state (within 1e-10, identical counts and flags).
+
+In phases 9-11 every kernel wrapper's plain version is made to raise while
+the kernel runs go: the card's path launches the kernels only.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernel table as JSON; the last line is
@@ -57,11 +81,18 @@ checkout's ``src/repro_torch/csrc``), checked bitwise against the plain
 versions, and timed in turns on this card (this tree, the others, the
 others again in reverse, this tree) at the pressure and momentum shapes,
 for every (storage, accum) pair; the last line is then the comparison as
-JSON.
+JSON.  With ``--step-timing``, only phases 1 and 2 run, and then the main
+path's first step from rest, walked phase by phase ``REPEATS`` times after
+one untimed step, gives the ms per pressure-CG iteration; the last line is
+those as JSON.  It uses only what the port has had since its first slice,
+so a copy of this script beside another checkout's ``src`` times that
+tree the same way.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import hashlib
 import json
 import re
@@ -118,6 +149,14 @@ STEP_KERNELS = ("spmv_dia", "spmv_dot", "axpy_precond", "coef_update")
 NO_FRAME_KERNELS = ("spmv_dia_kernel", "spmv_dot_kernel")
 ASSEMBLY_PARITY = 1e-12  # momentum_bands vs assembly + update, elementwise
 #                          rtol = atol (tests/test_kernels.py's bar)
+# the policies whose 210^3 channel step must converge.  bf16_ir refines
+# with bfloat16 bands (eps 4e-3) on a matrix whose condition number grows
+# as n^2: at 210^3 its pressure CG stops at the outer cap (48 passes) on
+# the kernels and on the plain backend alike, as the JAX reference's
+# bf16_ir already fails on this channel at 16^3
+# (tests/test_torch_precision.py); it is run, held to the plain backend's
+# verdict and reported.
+MUST_CONVERGE = ("f64", "f32_ir")
 
 
 class SmokeFailure(Exception):
@@ -397,6 +436,10 @@ def check_kernels(torch, dev) -> dict:
                 else:
                     report[name]["momentum"] = rep
             del csr, lib
+        if label == "pressure":
+            time_low_precision(torch, calls_for=lambda st, ac: kernel_calls(
+                WRAPPERS, plain, inputs, offsets, plane, st, ac),
+                n=P * m, pairs=pairs[1:], report=report)
         del inputs
         torch.cuda.empty_cache()
     report["coef_update"] = check_coef_update(torch, dev)
@@ -406,10 +449,37 @@ def check_kernels(torch, dev) -> dict:
     return report
 
 
-def timing_report(torch, name, k_fn, p_fn, cost, library=None) -> dict:
+def time_low_precision(torch, calls_for, n, pairs, report) -> None:
+    """The three Krylov kernels at the pressure shape for the refined
+    policies' (storage, accum) pairs: ``report[kernel][storage name]``,
+    the floor at that storage width."""
+    from repro_torch.kernels.krylov_fused.krylov_fused import (
+        fused_axpy_precond_cost, spmv_dot_cost)
+    from repro_torch.kernels.spmv_dia.spmv_dia import (KERNEL_BLOCK_ROWS,
+                                                       spmv_dia_cost)
+
+    for storage, accum in pairs:
+        sname = str(storage).removeprefix("torch.")
+        size, acc = (torch.finfo(t).bits // 8 for t in (storage, accum))
+        costs = {
+            "spmv_dia": spmv_dia_cost(7, n, size),
+            "spmv_dot": spmv_dot_cost(7, n, 0, size,
+                                      block_rows=KERNEL_BLOCK_ROWS,
+                                      accum_itemsize=acc),
+            "axpy_precond": fused_axpy_precond_cost(
+                n, size, block_rows=KERNEL_BLOCK_ROWS, accum_itemsize=acc),
+        }
+        for name, (k_fn, p_fn) in calls_for(storage, accum).items():
+            report[name][sname] = timing_report(
+                torch, f"{name} @pressure {sname}", k_fn, p_fn, costs[name],
+                dtype=sname)
+
+
+def timing_report(torch, name, k_fn, p_fn, cost, library=None,
+                  dtype="float64") -> dict:
     """Kernel, plain and library times (CUDA events) beside the bound."""
     t_bytes = cost["bytes_accessed"] / HBM_BYTES_PER_S * 1e3
-    t_ops = cost["flops"] / FLOPS_PER_S["float64"] * 1e3
+    t_ops = cost["flops"] / FLOPS_PER_S[dtype] * 1e3
     rep = {"ms": time_ms(torch, k_fn), "plain_ms": time_ms(torch, p_fn),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -693,6 +763,39 @@ def rel_diff(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
 
 
+@contextlib.contextmanager
+def no_plain_versions():
+    """Make every kernel wrapper's plain version raise inside the block:
+    on the card the wrappers must launch their kernels."""
+    import importlib
+
+    # the wrapper modules (each package re-exports a function of its name)
+    sd, kf, cu = (importlib.import_module(f"repro_torch.kernels.{m}.{m}")
+                  for m in ("spmv_dia", "krylov_fused", "coef_update"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (sd, "spmv_dia_plain"), (kf, "spmv_dot_plain"),
+        (kf, "spmv_dot_partials_plain"), (kf, "fused_axpy_precond_plain"),
+        (cu, "coef_update_plain"))]
+
+    def refuse(name):
+        def plain(*args, **kwargs):
+            raise SmokeFailure(f"{name} ran on the card's path")
+        return plain
+
+    try:
+        for mod, name, _ in saved:
+            setattr(mod, name, refuse(name))
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def require_launched(counts: dict, tag: str) -> None:
+    require(all(counts[k] > 0 for k in STEP_KERNELS),
+            f"{tag}: a kernel of the path was never launched: {counts}")
+
+
 def main_path(torch) -> dict:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.case import (build_parser, build_solver,
@@ -820,6 +923,8 @@ def main_path(torch) -> dict:
           f"{summary['ms_per_cg_iter']:.4f} ms per CG iteration (timed step)")
     summary["rebind"] = rebind_phase(torch, solver, state_f, dt, breakdown)
     summary["baseline"] = baseline_phase(torch, solver, state_f, dt)
+    summary["precision"] = precision_phase(torch, solver, state_f, dt,
+                                           breakdown)
     return summary
 
 
@@ -942,11 +1047,330 @@ def baseline_phase(torch, solver, state, dt) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: the precision policies, the channel, SIMPLE
+# ---------------------------------------------------------------------------
+
+def case_args(case: str, program: str = "piso") -> list:
+    """The main path's launcher arguments for another case or program."""
+    return MAIN_ARGS + ["--case", case, "--program", program]
+
+
+def state_diffs(st, ref) -> dict:
+    return {f: rel_diff(getattr(st, f), getattr(ref, f))
+            for f in st._fields if f != "phi_b"}
+
+
+def kernel_step(torch, solver, state, dt, tag: str, must_converge=True):
+    """One step of ``solver`` from ``state`` with the kernels, the launch
+    counters read from 0, no plain version allowed; unless
+    ``must_converge`` is False, every solve converged and no cap hit."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.case import run_transient
+
+    solver.solver_backend = "auto"
+    reset_launch_counts()
+    with no_plain_versions():
+        st, stt, walls = run_transient(
+            solver, dt, 1, state=state,
+            log=lambda line: print(f"  {tag}: {line}"))
+    counts = launch_counts()
+    require_launched(counts, tag)
+    if must_converge:
+        check_steps(torch, stt, tag)
+        require(not bool(stt.hit_cap.any()), f"{tag}: a solve hit its cap")
+    return st, stt, walls[0], counts
+
+
+def flags(stats) -> str:
+    return ", ".join(f"{f} {bool(getattr(stats, f).all())}"
+                     for f in ("converged", "diverged", "hit_cap"))
+
+
+def precision_phase(torch, solver, state, dt, f64_step) -> dict:
+    """Phase 9: one f32_ir cavity step from ``state`` against the f64 step
+    from it (``f64_step``: the timed step)."""
+    print(f"[9] precision on the main path: f32_ir, {N}^3 cavity, "
+          f"alpha {ALPHA}")
+    require(solver.alpha == ALPHA, "the solver is not at the main ratio")
+    solver.precision = "f32_ir"
+    try:
+        st, stt, wall, counts = kernel_step(torch, solver, state, dt,
+                                            "f32_ir")
+    finally:
+        solver.precision = "f64"
+    ref_st, ref_stats = f64_step["state"], f64_step["stats"]
+    diffs = state_diffs(st, ref_st)
+    print(f"  vs the f64 step from the same state: max|dU|/max|U| "
+          f"{diffs['U']:.3e}, max|dp|/max|p| {diffs['p']:.3e}; counts "
+          f"f32_ir mom {int(stt.mom_iters[0])} p {stt.p_iters[0].tolist()}"
+          f", f64 mom {int(ref_stats.mom_iters)} p "
+          f"{ref_stats.p_iters.tolist()}; launches {counts}")
+    return {"step_s": wall, "diffs_vs_f64": diffs, "launches": counts,
+            "mom_iters": int(stt.mom_iters[0]),
+            "p_iters": stt.p_iters[0].tolist(),
+            "continuity": float(stt.continuity_err[0])}
+
+
+def pressure_system(solver, state, dt):
+    """The first corrector's ``(bands, b, x0, diag)`` of one step of
+    ``solver`` from ``state``, in the coarse layout."""
+    from repro_torch.fvm.step_program import _bind
+
+    prog = solver.program
+    env = prog.seed(state, dt, *solver._extras())
+    for ph in prog.phases:
+        if ph.name == "solve_p":
+            break
+        _bind(env, ph, ph.fn(*(env[k] for k in ph.inputs)))
+    n_c = solver.n_coarse
+    sysP = env["sysP"]
+    return (env["bandsP"], sysP.source.reshape(n_c, -1),
+            env["p"].reshape(n_c, -1), sysP.diag.reshape(n_c, -1))
+
+
+def pressure_solves(torch, solver, system) -> dict:
+    """The pressure system solved alone under each policy, kernels only,
+    timed; the f64 replays of a refined solve are ``spmv_dia`` launches
+    (1 for the initial residual, then 2 per outer pass: the inner
+    sweep's first residual and the replay)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solvers.cg import cg
+    from repro_torch.solvers.precision import POLICIES
+
+    bands, b, x0, diag = system
+    out = {}
+    solver.solver_backend = "auto"
+    for pol in POLICIES:
+        solver.precision = pol
+        try:
+            ops = solver._solver_ops(solver.plan_p, bands, diag)
+            reset_launch_counts()
+            with no_plain_versions():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = cg(ops, b, x0, tol=solver.p_tol,
+                         maxiter=solver.p_maxiter)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+        finally:
+            solver.precision = "f64"
+        counts = launch_counts()
+        rec = {"outer": res.outer_iters, "inner": res.iters, "s": secs,
+               "ms_per_inner": 1e3 * secs / max(res.iters, 1),
+               "launches": counts, "converged": res.converged}
+        out[pol] = rec
+        print(f"  pressure solve alone, {pol:7s}: outer {res.outer_iters}, "
+              f"inner {res.iters}, {secs:.3f} s, "
+              f"{rec['ms_per_inner']:.4f} ms per inner iteration, "
+              f"converged {res.converged}, hit_cap {res.hit_cap}, residual "
+              f"{float(res.residual):.3e}; launches {counts}")
+        rec["residual"] = float(res.residual)
+        require(pol not in MUST_CONVERGE
+                or (res.converged and not res.hit_cap),
+                f"the {pol} pressure solve did not converge")
+        replays = 2 * res.outer_iters + 1 if res.outer_iters else 1
+        require(counts["spmv_dia"] == replays
+                and counts["spmv_dot"] == counts["axpy_precond"] == res.iters,
+                f"{pol}: launches {counts} for {res.outer_iters} outer and "
+                f"{res.iters} inner iterations")
+    return out
+
+
+def channel_phase(torch) -> dict:
+    """Phase 10: the 210^3 channel under each policy (see the module
+    docstring)."""
+    from repro_torch.launch.case import build_parser, build_solver
+    from repro_torch.solvers.precision import POLICIES
+
+    print(f"[10] the {N}^3 channel, {PARTS} parts, alpha {ALPHA}: PISO "
+          "under f64, f32_ir, bf16_ir")
+    args = build_parser().parse_args(case_args("channel"))
+    solver = build_solver(args)
+    print(f"  plans (host) {solver.plan_seconds:.2f} s")
+    dt = args.co * solver.mesh.h
+    state0 = solver.initial_state()
+    out = {"plan_s": solver.plan_seconds}
+    runs = {}
+    for pol in POLICIES:
+        solver.precision = pol
+        try:
+            runs[pol] = kernel_step(torch, solver, state0, dt, pol,
+                                    must_converge=pol in MUST_CONVERGE)
+        finally:
+            solver.precision = "f64"
+    st64 = runs["f64"][0]
+    for pol, (st, stt, wall, counts) in runs.items():
+        rec = out[pol] = {"step_s": wall, "launches": counts,
+                          "mom_iters": int(stt.mom_iters[0]),
+                          "p_iters": stt.p_iters[0].tolist(),
+                          "continuity": float(stt.continuity_err[0]),
+                          "converged": bool(stt.converged.all()),
+                          "hit_cap": bool(stt.hit_cap.any()),
+                          "diverged": bool(stt.diverged.any())}
+        print(f"  {pol}: {flags(stt)}; launches {counts}")
+        if pol != "f64":
+            rec["diffs_vs_f64"] = state_diffs(st, st64)
+            print(f"  {pol} vs f64 from the same state: max|dU|/max|U| "
+                  f"{rec['diffs_vs_f64']['U']:.3e}, max|dp|/max|p| "
+                  f"{rec['diffs_vs_f64']['p']:.3e}")
+
+    # the plain backend per policy from the same state
+    for pol, (st, stt, _, _) in runs.items():
+        solver.precision, solver.solver_backend = pol, "reference"
+        try:
+            st_r, stt_r, w_r = solver_step(torch, solver, state0, dt)
+        finally:
+            solver.precision, solver.solver_backend = "f64", "auto"
+        converged = bool(stt.converged.all())
+        if pol in MUST_CONVERGE or converged:
+            check_steps(torch, stt_r, f"{pol} plain")
+        diffs = state_diffs(st, st_r)
+        bar = PARITY if pol == "f64" else FREE_RUN_DRIFT
+        print(f"  {pol} kernels vs plain: max|d|/max over U, p, phi, phi_if "
+              + ", ".join(f"{v:.3e}" for v in diffs.values())
+              + f" (bar {bar:.0e}{'' if converged else ', not held: unconverged'}"
+              f"); counts kernels mom "
+              f"{int(stt.mom_iters[0])} p {stt.p_iters[0].tolist()}, plain "
+              f"mom {int(stt_r.mom_iters[0])} p {stt_r.p_iters[0].tolist()}"
+              f"; plain {flags(stt_r)}; plain step {w_r:.3f} s")
+        require(not converged or max(diffs.values()) <= bar,
+                f"channel {pol}: kernels vs plain differ by {diffs}")
+        fields = ("converged", "diverged", "hit_cap") + (
+            ("mom_iters", "p_iters") if pol == "f64" else ())
+        for f in fields:
+            require(torch.equal(getattr(stt, f), getattr(stt_r, f)),
+                    f"channel {pol}: {f} differs between the backends")
+        out[pol].update(plain_step_s=w_r, plain_diffs=diffs,
+                        plain_mom_iters=int(stt_r.mom_iters[0]),
+                        plain_p_iters=stt_r.p_iters[0].tolist())
+    del runs
+    out["pressure_solve"] = pressure_solves(
+        torch, solver, pressure_system(solver, state0, dt))
+    return out
+
+
+def solver_step(torch, solver, state, dt):
+    """One synchronised ``solver.step``: ``(state, stats, seconds)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, stt = solver.step(state, dt)
+    torch.cuda.synchronize()
+    return st, type(stt)(*(t[None] for t in stt)), time.perf_counter() - t0
+
+
+def simple_phase(torch) -> dict:
+    """Phase 11: SIMPLE on the 210^3 channel, 4 outer iterations."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.case import (build_parser, build_solver,
+                                         run_steady)
+
+    n_outer = 4
+    print(f"[11] SIMPLE on the {N}^3 channel, alpha {ALPHA}: "
+          f"run_steady(max_outer={n_outer})")
+    args = build_parser().parse_args(case_args("channel", "simple"))
+    solver = build_solver(args)
+    dt = args.co * solver.mesh.h
+    state0 = solver.initial_state()
+    reset_launch_counts()
+    with no_plain_versions():
+        st, stats, n, wall = run_steady(
+            solver, dt, n_outer, state=state0,
+            log=lambda line: print(f"  {line}"))
+    counts = launch_counts()
+    require_launched(counts, "simple")
+    require(n == n_outer and not bool(solver.program.converged(stats)),
+            f"SIMPLE ran {n} outer iterations, not capped at {n_outer}")
+    require(bool(stats.converged) and not bool(stats.diverged)
+            and not bool(stats.hit_cap),
+            "SIMPLE: a Krylov solve did not converge")
+    print(f"  launches {counts}")
+
+    # outer iteration by outer iteration: the same run, each state kept
+    states, per_outer = [state0], []
+    with no_plain_versions():
+        for k in range(n_outer):
+            s_k, t_k, w_k = solver_step(torch, solver, states[-1], dt)
+            states.append(s_k)
+            per_outer.append({
+                "continuity": float(t_k.continuity_err[0]),
+                "u_delta": float(t_k.u_delta[0]),
+                "mom_iters": int(t_k.mom_iters[0]),
+                "p_iters": t_k.p_iters[0].tolist(), "s": w_k, "stats": t_k})
+            print(f"  outer {k}: continuity {per_outer[-1]['continuity']:.3e}"
+                  f" u_delta {per_outer[-1]['u_delta']:.3e} mom_iters "
+                  f"{per_outer[-1]['mom_iters']} p_iters "
+                  f"{per_outer[-1]['p_iters']} ({w_k:.3f} s)")
+    require(all(torch.equal(getattr(st, f), getattr(states[-1], f))
+                for f in st._fields),
+            "SIMPLE: the outer-by-outer replay is not bitwise run_steady's")
+
+    # the plain backend from each of the kernel run's states
+    solver.solver_backend = "reference"
+    worst = 0.0
+    try:
+        for k in range(n_outer):
+            s_r, t_r, w_r = solver_step(torch, solver, states[k], dt)
+            diffs = state_diffs(states[k + 1], s_r)
+            worst = max(worst, max(diffs.values()))
+            t_k = per_outer[k].pop("stats")
+            per_outer[k].update(plain_s=w_r, plain_diffs=diffs)
+            print(f"  outer {k} plain: max|d|/max over U, p, phi, phi_if "
+                  + ", ".join(f"{v:.3e}" for v in diffs.values())
+                  + f"; p_iters {t_r.p_iters[0].tolist()} ({w_r:.3f} s)")
+            require(max(diffs.values()) <= PARITY,
+                    f"SIMPLE outer {k}: kernels vs plain differ by {diffs}")
+            for f in ("mom_iters", "p_iters", "converged", "diverged",
+                      "hit_cap"):
+                require(torch.equal(getattr(t_k, f), getattr(t_r, f)),
+                        f"SIMPLE outer {k}: {f} differs between backends")
+    finally:
+        solver.solver_backend = "auto"
+    return {"run_steady_s": wall, "launches": counts,
+            "per_outer": per_outer, "plain_parity": worst,
+            "plan_s": solver.plan_seconds}
+
+
+def step_timing(torch, repeats: int) -> dict:
+    """The main path's first f64 step from rest, walked phase by phase
+    ``repeats`` times after one untimed step: ms per pressure-CG
+    iteration (the ``solve_p`` walls over their iterations)."""
+    from repro_torch.launch.case import build_parser, build_solver
+
+    args = build_parser().parse_args(MAIN_ARGS)
+    solver = build_solver(args)
+    dt = args.co * solver.mesh.h
+    state0 = solver.initial_state()
+    solver.step(state0, dt)  # loads the kernels; not timed
+    ms, p_iters = [], None
+    for _ in range(repeats):
+        bd = timed_step(torch, solver, state0, dt)
+        require(p_iters in (None, bd["p_iters"]),
+                f"the repeated step's counts changed: {bd['p_iters']}")
+        p_iters = bd["p_iters"]
+        cg_s = sum(v for k, v in bd["walls"].items()
+                   if k.startswith("solve_p"))
+        ms.append(1e3 * cg_s / sum(p_iters))
+    print(f"  step from rest, p_iters {p_iters}: ms per CG iteration "
+          + " ".join(f"{t:.4f}" for t in ms))
+    return {"ms_per_cg_iter": ms, "p_iters": p_iters, "src": str(ROOT)}
+
+
+def free_device(torch) -> None:
+    """Collect the solvers (their programs close over them) and give the
+    cached blocks back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", metavar="LABEL=CSRC_DIR",
                     help="time this tree's SpMV kernels beside another "
                          "csrc directory's, in turns (repeatable)")
+    ap.add_argument("--step-timing", type=int, metavar="REPEATS",
+                    help="time the main path's first step REPEATS times "
+                         "(ms per CG iteration) instead of the smoke test")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -977,16 +1401,29 @@ def main(argv=None) -> int:
             print(smi_line())
             print(json.dumps({"compare": result}))
             return 0
+        if args.step_timing:
+            result = step_timing(torch, args.step_timing)
+            print(smi_line())
+            print(json.dumps({"step_timing": result}))
+            return 0
         print("[3] kernels vs plain versions")
         report = check_kernels(torch, dev)
         print("[4-6] main path: 210^3 cavity, 30 parts, alpha 30, 3 PISO "
               "steps; determinism; parity (then 7-8)")
         torch.cuda.reset_peak_memory_stats()
         summary = main_path(torch)
+        free_device(torch)
+        summary["channel"] = channel_phase(torch)
+        free_device(torch)
+        summary["simple"] = simple_phase(torch)
+        free_device(torch)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         summary["momentum_shape_times"] = {
             name: report[name]["momentum"] for name in report
             if "momentum" in report[name]}
+        summary["low_precision_times"] = {
+            name: {d: report[name][d] for d in ("float32", "bfloat16")}
+            for name in report if "float32" in report[name]}
         print("summary " + json.dumps(summary))
         # launches: the main path's counts; the momentum-assembly kernel's
         # from the refactoring baseline's run (phase 8)

@@ -8,11 +8,18 @@ Assembles, on the **fine (CPU/assembly) partition**, the LDU coefficients of
 * the segregated pressure equation ``laplacian(rAU, p) = div(phiHbyA)``.
 
 All tensors are stacked over the fine part axis (P, ...).  Boundary
-conditions come from a wall-only :class:`~repro_torch.fvm.cases.FlowCase`
-(the paper's lid-driven cavity: no-slip walls, a moving lid at z = max,
-zeroGradient pressure with a reference cell); inlet/outlet cases are still
-to be ported and are refused.  Boundary diffusion of Dirichlet patches uses
-the half-cell distance h/2.
+conditions come from a :class:`~repro_torch.fvm.cases.FlowCase` (one
+:class:`~repro_torch.fvm.cases.PatchBC` per box face).  The default is the
+paper's lid-driven cavity — no-slip walls, a moving lid at z = max,
+zeroGradient pressure with a reference cell — whose boundary faces all
+have zero normal velocity.  Inlet/outlet cases carry a **boundary-flux
+plane pair** ``phi_b`` of shape ``(P, 2, B)`` (slot ``DOWN`` = the ``z0``
+face, slot ``UP`` = ``z1``): inlets contribute a fixed Dirichlet flux and
+a convective inflow source, outlets drop the boundary diffusion term
+(zero-gradient U), pin ``p = 0`` over the half cell (no reference cell
+needed), and get their flux corrected conservatively alongside the
+internal faces.  Boundary diffusion of Dirichlet patches uses the
+half-cell distance h/2.
 
 **Deterministic sums.**  Every face-to-cell sum over the internal faces
 (``owner``/``neigh`` repeat: a cell owns up to three faces) goes through a
@@ -58,8 +65,7 @@ class PressureSystem:
     source: torch.Tensor  # (P, m)
     g_int: torch.Tensor   # (P, F) face conductances (for flux correction)
     g_if: torch.Tensor    # (P, 2, B)
-    g_b: torch.Tensor     # (P, 2, B) outlet (Dirichlet-p) conductances: zero
-    #                       for the wall-only cases the port assembles
+    g_b: torch.Tensor     # (P, 2, B) outlet (Dirichlet-p) boundary conductances
 
 
 class CellSum:
@@ -111,9 +117,11 @@ def _patch_role(normal) -> str:
 class CavityAssembly:
     """Precomputed static addressing + assembly routines for one mesh.
 
-    ``case`` binds a wall-only :class:`~repro_torch.fvm.cases.FlowCase`
-    (name, instance, or ``None`` for the classic cavity built from
-    ``lid_speed``).  All tensors live on ``device``.
+    ``case`` binds a :class:`~repro_torch.fvm.cases.FlowCase` (name,
+    instance, or ``None`` for the classic cavity built from
+    ``lid_speed``); masks, Dirichlet velocities, boundary-flux slots and
+    the pressure reference policy derive from it.  All tensors live on
+    ``device``.
     """
 
     def __init__(self, mesh: CavityMesh, *, nu: float = 0.01,
@@ -131,10 +139,6 @@ class CavityAssembly:
                 case, bcs={"z1": PatchBC(MOVING_WALL,
                                          U=(lid_speed, 0.0, 0.0))})
         self.case = get_case(case)
-        if any(bc.kind in (INLET, OUTLET) for bc in self.case.bcs.values()):
-            raise NotImplementedError(
-                f"case {self.case.name!r}: inlet/outlet patches are not "
-                "ported yet (wall-only cases such as 'cavity' are)")
         P = mesh.n_parts
         self.owner = torch.as_tensor(mesh.owner, dtype=torch.int64, device=dev)
         self.neigh = torch.as_tensor(mesh.neigh, dtype=torch.int64, device=dev)
@@ -148,14 +152,16 @@ class CavityAssembly:
         # (P, 2) presence mask for interfaces, broadcast over faces
         self.if_mask = torch.as_tensor(mesh.iface_mask(), dtype=dtype,
                                        device=dev)[:, :, None]
-        # boundary patches: Dirichlet velocity bound from the case by role
+        # boundary patches: per-patch BC kind + Dirichlet velocity, bound
+        # from the case by geometric role.  patch_Ub entries are (3,)
+        # uniform values or (n_bf, 3) per-face values (profiled inlets).
         self.patch_rows = [torch.as_tensor(p.rows, dtype=torch.int64,
                                            device=dev) for p in mesh.patches]
         self.patch_mask = torch.as_tensor(mesh.patch_mask(), dtype=dtype,
                                           device=dev)  # (P, n_patches)
-        self.patch_Ub = [
-            torch.as_tensor(self.case.bc(_patch_role(p.normal)).U,
-                            dtype=dtype, device=dev) for p in mesh.patches]
+        self.patch_kind = [self.case.bc(_patch_role(p.normal)).kind
+                           for p in mesh.patches]
+        self.patch_Ub = [self._patch_Ub(p) for p in mesh.patches]
         self.patch_normal = [torch.as_tensor(p.normal, dtype=dtype,
                                              device=dev)
                              for p in mesh.patches]
@@ -174,6 +180,28 @@ class CavityAssembly:
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def _patch_Ub(self, patch) -> torch.Tensor:
+        """Dirichlet boundary velocity of one patch: (3,) uniform, or
+        (n_bf, 3) per-face for a profiled inlet (outlets get zeros: their
+        velocity is zero-gradient, never sourced)."""
+        bc = self.case.bc(_patch_role(patch.normal))
+        U = torch.as_tensor(bc.U if bc.kind != OUTLET else (0.0, 0.0, 0.0),
+                            dtype=self.dtype, device=self.device)
+        if bc.kind == INLET and bc.profile == "upper_half":
+            # plane rows are _plane_cells order: t -> (i = t % nx,
+            # j = t // nx); the inlet spans the j >= ny/2 half
+            j = np.arange(len(patch.rows)) // self.mesh.nx
+            prof = torch.as_tensor(j >= self.mesh.ny // 2, dtype=self.dtype,
+                                   device=self.device)
+            return prof[:, None] * U[None, :]
+        return U
+
+    def _z_Ub_face(self, slot: int) -> torch.Tensor:
+        """(B, 3) Dirichlet velocity over a z-plane slot (zeros for an
+        outlet: inflow across an outlet convects nothing)."""
+        Ub = self.patch_Ub[self._z_patch[slot]]
+        return torch.atleast_2d(Ub).expand(self.plane, 3)
 
     # ------------------------------------------------------------------
     # face interpolation / fluxes
@@ -201,14 +229,21 @@ class CavityAssembly:
     def boundary_flux(self, U: torch.Tensor) -> torch.Tensor:
         """(P, 2, B) outward boundary fluxes of the z-plane patches.
 
-        Dirichlet patches (walls, lid) contribute their *fixed* flux
-        ``U_b . n A`` — independent of ``U``, zero for every wall.
+        Dirichlet patches (walls, lid, inlets) contribute their *fixed*
+        flux ``U_b . n A`` — independent of ``U``, zero for every wall —
+        while an outlet's zero-gradient flux extrapolates the owner-cell
+        velocity.  x/y wall patches never carry a normal flux (the case
+        registry restricts inlet/outlet to z-faces).
         """
         P = U.shape[0]
         phi_b = self._zeros(P, 2, self.plane)
         for slot, pi in self._z_patch.items():
-            w = self.patch_Ub[pi][2]
-            f = (w * (self._patch_nz[pi] * self.A)).expand(P, self.plane)
+            nz = self._patch_nz[pi]
+            if self.patch_kind[pi] == OUTLET:
+                f = U[:, self.patch_rows[pi], 2] * (nz * self.A)
+            else:
+                w = torch.atleast_2d(self.patch_Ub[pi])[:, 2]  # (1,) or (B,)
+                f = (w * (nz * self.A)).expand(P, self.plane)
             phi_b[:, slot] = f * self.patch_mask[:, pi][:, None]
         return phi_b
 
@@ -231,9 +266,12 @@ class CavityAssembly:
         pf_up = 0.5 * (p[:, self.if_rows[UP]] + up) * self.if_mask[:, UP]
         g = _add_rows(g, self.if_rows[DOWN], -self.A * pf_down, comp=2)
         g = _add_rows(g, self.if_rows[UP], self.A * pf_up, comp=2)
-        # boundaries: zero-gradient ⇒ p_b = p_owner, S = A n_outward
-        for rows, mask, n in zip(self.patch_rows, self.patch_mask.T,
-                                 self.patch_normal):
+        # boundaries: zero-gradient ⇒ p_b = p_owner, S = A n_outward;
+        # outlets pin p_b = 0 (Dirichlet), so their face term vanishes
+        for rows, mask, n, kind in zip(self.patch_rows, self.patch_mask.T,
+                                       self.patch_normal, self.patch_kind):
+            if kind == OUTLET:
+                continue
             pb = p[:, rows] * mask[:, None]
             g = _add_rows(g, rows, pb[:, :, None] * (self.A * n)[None, None, :])
         return g / self.V
@@ -288,11 +326,11 @@ class CavityAssembly:
                 rows = self.if_rows[slot]
                 diag = _add_rows(diag, rows,
                                  torch.clamp_min(phi_b[:, slot], 0.0))
-                Ub = self.patch_Ub[self._z_patch[slot]]
+                Ub = self._z_Ub_face(slot)
                 source = _add_rows(
                     source, rows,
                     (-torch.clamp_max(phi_b[:, slot], 0.0))[..., None]
-                    * Ub[None, None, :])
+                    * Ub[None, :, :])
 
         # diffusion, central
         g = self.nu * self.A / self.h
@@ -305,13 +343,17 @@ class CavityAssembly:
         diag = _add_rows(diag, self.if_rows[UP], g * self.if_mask[:, UP])
         iface = iface - g * self.if_mask
 
-        # boundary diffusion (Dirichlet walls/lid, half-cell distance)
+        # boundary diffusion (Dirichlet walls/lid/inlets, half-cell
+        # distance); outlets are zero-gradient — no boundary term
         gb = self.nu * self.A / (0.5 * self.h)
-        for rows, mask, Ub in zip(self.patch_rows, self.patch_mask.T,
-                                  self.patch_Ub):
+        for rows, mask, Ub, kind in zip(self.patch_rows, self.patch_mask.T,
+                                        self.patch_Ub, self.patch_kind):
+            if kind == OUTLET:
+                continue
             diag = _add_rows(diag, rows, gb * mask[:, None])
-            source = _add_rows(source, rows,
-                               gb * mask[:, None, None] * Ub[None, None, :])
+            source = _add_rows(
+                source, rows,
+                gb * mask[:, None, None] * torch.atleast_2d(Ub)[None, ...])
 
         # pressure gradient source
         source = source - self.V * self.grad(p)
@@ -350,10 +392,20 @@ class CavityAssembly:
         upper = -g_int
         lower = -g_int
         iface = -g_if
+
+        # outlet Dirichlet-p conductances, (P, 2, B) plane pair
         g_b = self._zeros(P, 2, self.plane)
+        for slot, pi in self._z_patch.items():
+            if self.patch_kind[pi] != OUTLET:
+                continue
+            rows = self.if_rows[slot]
+            gb = rAU[:, rows] * (self.A / (0.5 * self.h))
+            g_b[:, slot] = gb * self.patch_mask[:, pi][:, None]
+            diag = _add_rows(diag, rows, g_b[:, slot])
 
         if self._needs_ref:
-            # reference cell: diag *= (1 + boost) at global cell 0
+            # reference cell: diag *= (1 + boost) at global cell 0 (an
+            # outlet pins the pressure level instead)
             boost = self._zeros(P, m)
             boost[0, 0] = ref_boost
             diag = diag * (1.0 + boost)
@@ -367,9 +419,11 @@ class CavityAssembly:
         """-laplacian(rAU, p) = -div(phiHbyA), SPD form for CG.
 
         Face conductance ``g_f = rAU_f * A / h`` with linear interpolation
-        of rAU.  The cavity's pressure is all-Neumann, so the global
-        reference cell (part 0, cell 0) gets its diagonal boosted
-        (``setReference``, refValue = 0), removing the nullspace.
+        of rAU.  Outlet patches carry a Dirichlet p = 0 at the half-cell
+        distance (``g_b = rAU * A / (h/2)`` on the diagonal only), which
+        pins the pressure level.  Cases without an outlet are all-Neumann:
+        there the global reference cell (part 0, cell 0) gets its diagonal
+        boosted (``setReference``, refValue = 0), removing the nullspace.
         """
         sys = self.assemble_pressure_matrix(rAU, ref_boost=ref_boost)
         return dataclasses.replace(
@@ -387,8 +441,12 @@ class CavityAssembly:
         return phi, phi_if * self.if_mask
 
     def correct_boundary_flux(self, sysP: PressureSystem, phiHbyA_b, p):
-        """phi_b = phiHbyA_b - g_b (p_b - p_o) with outlet p_b = 0 (``g_b``
-        is zero on every wall, so wall fluxes pass through unchanged)."""
+        """phi_b = phiHbyA_b - g_b (p_b - p_o) with outlet p_b = 0.
+
+        ``g_b`` is zero except on outlet planes, so inlet and wall fluxes
+        pass through unchanged; outlet fluxes pick up the Dirichlet
+        correction that keeps the corrected field conservative cell-wise.
+        """
         corr = torch.stack(
             [sysP.g_b[:, DOWN] * p[:, self.if_rows[DOWN]],
              sysP.g_b[:, UP] * p[:, self.if_rows[UP]]], dim=1)

@@ -5,8 +5,8 @@ per geometric boundary role plus a Reynolds-number parameterization — that
 :class:`~repro_torch.fvm.assembly.CavityAssembly` binds into assembly
 masks and boundary sources.  The case is a *registry key* the stack
 threads through: solver binding, launcher flags.  This is a numpy copy
-of the JAX package's registry; the port's assembly binds the wall-only
-cases (``cavity``) so far and refuses inlet/outlet cases.
+of the JAX package's registry; the port's assembly binds every
+registered case (walls, lid, inlets and outlets).
 
 Roles name the six box faces by outward normal: ``x0``/``x1``/``y0``/
 ``y1`` (±x, ±y) and ``z0``/``z1`` (±z).  The z-slab decomposition pins a

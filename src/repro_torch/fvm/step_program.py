@@ -1,18 +1,21 @@
-"""StepProgram — the PISO timestep as one declarative phase list.
+"""StepProgram — a segregated timestep as one declarative phase list.
 
 A :class:`StepProgram` is an ordered tuple of named :class:`Phase` entries —
 functions with declared env inputs/outputs and a cost-model phase tag —
-built once per solver binding by :func:`build_piso_program`.  The phase
-order is the paper's fig. 5/7 decomposition: ``assemble_mom → update_mom →
+built once per solver binding.  PISO (:func:`build_piso_program`) follows
+the paper's fig. 5/7 decomposition: ``assemble_mom → update_mom →
 solve_mom`` then, per corrector, ``assemble_p → update_p → solve_p →
-correct``.
+correct``; SIMPLE (:mod:`repro_torch.fvm.simple`) is another phase list
+over the same phase toolkit, with a convergence predicate.
 
 :class:`SerialExecutor` walks the phases in declared order: ``step(state,
-dt)`` advances one timestep and ``run_steps(state, dt, n)`` advances ``n``
-and returns per-step stacked :class:`~repro_torch.fvm.piso.StepStats` —
-the contract of the JAX package's ``FusedExecutor``.  PyTorch runs
-eagerly, so there is nothing to compile or donate; the pipelined, batched
-and instrumented executors are still to be ported.
+dt, *extra)`` advances one timestep, ``run_steps(state, dt, n, *extra)``
+advances ``n`` and returns per-step stacked stats, and ``run_converged``
+iterates a steady program until its ``converged`` predicate holds — the
+contract of the JAX package's ``FusedExecutor``.  PyTorch runs eagerly, so
+there is nothing to compile or donate.  Programs are registered by name
+(:class:`ProgramSpec`, :func:`get_program`).  The pipelined, batched and
+instrumented executors are still to be ported.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from typing import Callable
 import torch
 
 __all__ = ["Phase", "StepProgram", "SerialExecutor", "build_piso_program",
-           "health_flags", "PHASE_TAGS"]
+           "health_flags", "PHASE_TAGS", "ProgramSpec", "PROGRAMS",
+           "register_program", "program_names", "get_program"]
 
 # the cost-model buckets a phase may bill to
 PHASE_TAGS = ("assembly", "update", "halo", "solve")
@@ -69,9 +73,9 @@ def _bind(env: dict, phase: Phase, out) -> None:
 class StepProgram:
     """An ordered phase list + env seeding/finalization: one timestep.
 
-    ``seed(state, dt)`` produces the initial env dict (keys declared in
-    ``seed_keys``); phases then read/write named env slots in order;
-    ``finalize(env)`` folds the final env into ``(state, stats)``.
+    ``seed(state, dt, *extra)`` produces the initial env dict (keys
+    declared in ``seed_keys``); phases then read/write named env slots in
+    order; ``finalize(env)`` folds the final env into ``(state, stats)``.
     Construction validates the dataflow: every phase input must be
     produced by the seed or an earlier phase, and every tag must be one of
     :data:`PHASE_TAGS`.
@@ -81,6 +85,13 @@ class StepProgram:
     seed: Callable
     finalize: Callable
     seed_keys: tuple[str, ...]
+    # names of the extra per-step operands beyond (state, dt), in the
+    # order every executor entry point takes them (SIMPLE: its
+    # under-relaxation factors)
+    extra_keys: tuple[str, ...] = ()
+    # the outer-loop convergence predicate ``stats -> bool tensor`` of a
+    # steady program; None for a transient one (PISO)
+    converged: Callable | None = None
 
     def __post_init__(self):
         available = set(self.seed_keys)
@@ -96,9 +107,9 @@ class StepProgram:
                     f"nor produced by an earlier phase")
             available.update(ph.outputs)
 
-    def step(self, state, dt):
-        """One timestep: ``(state, dt) -> (state, stats)``."""
-        env = self.seed(state, dt)
+    def step(self, state, dt, *extra):
+        """One timestep: ``(state, dt, *extra) -> (state, stats)``."""
+        env = self.seed(state, dt, *extra)
         for ph in self.phases:
             _bind(env, ph, ph.fn(*(env[k] for k in ph.inputs)))
         return self.finalize(env)
@@ -110,22 +121,99 @@ class SerialExecutor:
     def __init__(self, program: StepProgram):
         self.program = program
 
-    def step(self, state, dt):
-        """One timestep; returns ``(state, StepStats)``."""
-        return self.program.step(state, dt)
+    def step(self, state, dt, *extra):
+        """One timestep; returns ``(state, stats)``."""
+        return self.program.step(state, dt, *extra)
 
-    def run_steps(self, state, dt, n_steps: int):
-        """``n_steps`` timesteps; every ``StepStats`` field comes back
-        stacked along a leading ``n_steps`` axis."""
+    def run_steps(self, state, dt, n_steps: int, *extra):
+        """``n_steps`` timesteps; every stats field comes back stacked
+        along a leading ``n_steps`` axis."""
         n = int(n_steps)
         if n < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
         history = []
         for _ in range(n):
-            state, stats = self.program.step(state, dt)
+            state, stats = self.program.step(state, dt, *extra)
             history.append(stats)
         stacked = type(history[0])(*(torch.stack(f) for f in zip(*history)))
         return state, stacked
+
+    def run_converged(self, state, dt, max_iters: int, *extra):
+        """Iterate a steady program until its ``converged`` predicate holds
+        on the step's stats, at most ``max_iters`` times.
+
+        The first step always runs; then the loop steps while ``k <
+        max_iters`` and the predicate is false — one host read per outer
+        iteration.  Returns ``(state, stats, n_outer)``: the last step's
+        stats and the number of steps run (the cap when unconverged).
+        """
+        n = int(max_iters)
+        if n < 1:
+            raise ValueError(f"max_iters must be >= 1, got {max_iters}")
+        conv = self.program.converged
+        if conv is None:
+            raise ValueError(
+                "program declares no convergence predicate (converged="
+                "None): run_converged is only meaningful for steady-state "
+                "programs")
+        state, stats = self.program.step(state, dt, *extra)
+        k = 1
+        while k < n and not bool(conv(stats)):
+            state, stats = self.program.step(state, dt, *extra)
+            k += 1
+        return state, stats, k
+
+
+# ---------------------------------------------------------------------------
+# The program registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ProgramSpec:
+    """Registry entry for a timestep program.
+
+    ``build(solver)`` binds a solver's plans + SolverOps into a
+    :class:`StepProgram`; ``transient`` tells time-marching programs
+    (PISO: fixed numbers of steps) from steady ones (SIMPLE: iterate to
+    ``converged``).
+    """
+
+    name: str
+    build: Callable
+    transient: bool = True
+    description: str = ""
+
+
+PROGRAMS: dict[str, ProgramSpec] = {}
+
+
+def register_program(spec: ProgramSpec) -> ProgramSpec:
+    if spec.name in PROGRAMS:
+        raise ValueError(f"program {spec.name!r} already registered")
+    PROGRAMS[spec.name] = spec
+    return spec
+
+
+def program_names() -> tuple[str, ...]:
+    get_program("simple")  # force the lazy registration
+    return tuple(sorted(PROGRAMS))
+
+
+def get_program(name: str) -> ProgramSpec:
+    """Look up a registered program spec by name.
+
+    :mod:`repro_torch.fvm.simple` registers on import; it is imported
+    lazily here (it imports this module).
+    """
+    if name not in PROGRAMS:
+        import importlib
+
+        importlib.import_module("repro_torch.fvm.simple")
+    try:
+        return PROGRAMS[name]
+    except KeyError:
+        raise KeyError(f"unknown program {name!r} "
+                       f"(registered: {tuple(sorted(PROGRAMS))})") from None
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +315,7 @@ def _phase_toolkit(solver) -> PhaseToolkit:
 # ---------------------------------------------------------------------------
 
 def build_piso_program(solver) -> StepProgram:
-    """Bind a ``PisoSolver``'s plans + SolverOps into the PISO phase list."""
+    """Bind a solver's plans + SolverOps into the PISO phase list."""
     from repro_torch.fvm.piso import PisoState, StepStats
 
     tk = _phase_toolkit(solver)
@@ -295,3 +383,13 @@ def build_piso_program(solver) -> StepProgram:
 
     return StepProgram(phases=tuple(phases), seed=seed, finalize=finalize,
                        seed_keys=("U", "p", "phi", "phi_if", "phi_b", "dt"))
+
+
+register_program(ProgramSpec(
+    name="piso",
+    build=build_piso_program,
+    transient=True,
+    description=("transient PISO: momentum predictor + n_correctors "
+                 "pressure corrections per timestep (the paper's fig. 5/7 "
+                 "decomposition)"),
+))

@@ -27,10 +27,16 @@ device and ``"reference"`` on the CPU, for every part size so far — the
 part-size crossover below which the reference path would win is still to
 be measured on the card.
 
-Both backends run in the bands' dtype (float64 on the main path).  The
-JAX package's mixed-precision policies (``solvers/precision.py``) need its
-outer iterative-refinement loop, which is still to be ported, so the
-bundle carries no policy yet.
+**Precision.**  Both constructors take a
+:class:`~repro_torch.solvers.precision.PrecisionPolicy`.  Under the
+default ``f64`` policy every cast below is a no-op and the op sequence is
+the plain f64 solver's.  Under a refined policy (``f32_ir`` /
+``bf16_ir``) the members run the *inner* sweep at the storage dtype with
+accum-dtype reductions, and the bundle carries ``matvec_hi``, the
+operator over the original f64 bands, for the outer residual replay
+``r = b - A x`` of the solvers' iterative-refinement loop.  In the fused
+backend that replay is the f64 ``spmv_dia_stacked`` kernel on a CUDA
+tensor (its plain version on the CPU).
 """
 from __future__ import annotations
 
@@ -38,6 +44,8 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from repro_torch.solvers.precision import F64, PrecisionPolicy, get_policy
 
 __all__ = ["SolverOps", "reference_ops", "fused_stacked_ops",
            "resolve_backend", "BACKENDS"]
@@ -59,6 +67,11 @@ class SolverOps:
     fused_step: Callable
     dots: Callable
     backend: str = "reference"   # informational (logs)
+    # the policy the members were built under and, for a refined policy,
+    # the full-precision operator of the outer residual replay (None
+    # falls back to ``matvec``: right for f64 only)
+    policy: PrecisionPolicy = F64
+    matvec_hi: Callable | None = None
 
 
 def resolve_backend(requested: str, device: torch.device | str) -> str:
@@ -70,55 +83,107 @@ def resolve_backend(requested: str, device: torch.device | str) -> str:
     return "fused" if torch.device(device).type == "cuda" else "reference"
 
 
-def _dots(*pairs):
-    return tuple(_vdot(a, b) for a, b in pairs)
+def _policy_dot(policy: PrecisionPolicy) -> Callable:
+    """Per-policy global dot: both operands upcast to the accum dtype.
+
+    The f64 policy returns the plain dot (no casts at all)."""
+    if policy.name == "f64":
+        return _vdot
+    acc = policy.accum_dtype
+
+    def dot(a, b):
+        return _vdot(a.to(acc), b.to(acc))
+
+    return dot
 
 
-def reference_ops(A: Callable, M: Callable | None = None) -> SolverOps:
-    """Plain-PyTorch backend over operator closures (any layout)."""
+def _policy_dots(policy: PrecisionPolicy) -> Callable:
+    """``dots(*pairs)``: a tuple of global dots under the policy."""
+    dot = _policy_dot(policy)
+
+    def dots(*pairs):
+        return tuple(dot(a, b) for a, b in pairs)
+
+    return dots
+
+
+def reference_ops(A: Callable, M: Callable | None = None, *,
+                  policy: PrecisionPolicy | str = F64,
+                  matvec_hi: Callable | None = None) -> SolverOps:
+    """Plain-PyTorch backend over operator closures (any layout).
+
+    Under a refined ``policy`` the caller passes closures over the
+    *downcast* operator (``A``/``M`` at the storage dtype) and a
+    ``matvec_hi`` over the original f64 bands; the reductions then
+    accumulate at the policy's accum dtype.
+    """
+    policy = get_policy(policy)
     M = M if M is not None else (lambda r: r)
+    dot = _policy_dot(policy)
 
     def matvec_dot(p):
         Ap = A(p)
-        return Ap, _vdot(p, Ap)
+        return Ap, dot(p, Ap)
 
     def fused_step(x, r, p, Ap, alpha):
-        xn = x + alpha * p
-        rn = r - alpha * Ap
+        a = alpha.to(x.dtype)  # accum scalar -> storage (f64: no-op)
+        xn = x + a * p
+        rn = r - a * Ap
         z = M(rn)
-        return xn, rn, z, _vdot(rn, z), _vdot(rn, rn)
+        return xn, rn, z, dot(rn, z), dot(rn, rn)
 
     return SolverOps(matvec=A, precond=M, matvec_dot=matvec_dot,
-                     fused_step=fused_step, dots=_dots, backend="reference")
+                     fused_step=fused_step, dots=_policy_dots(policy),
+                     backend="reference", policy=policy,
+                     matvec_hi=matvec_hi)
 
 
 def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
-                      offsets: tuple[int, ...], plane: int) -> SolverOps:
+                      offsets: tuple[int, ...], plane: int,
+                      policy: PrecisionPolicy | str = F64) -> SolverOps:
     """Fused-kernel backend on stacked DIA bands ``(P, nb, m)``.
 
     ``diag`` is the stacked matrix diagonal (P, m); its safe Jacobi inverse
     (zero entries invert to 0) is computed once and folded into the fused
-    update kernel.
+    update kernel.  Under a refined ``policy`` the bands and the diagonal
+    are downcast once to the storage dtype (the inverse is taken of the
+    downcast diagonal), the kernels accumulate at the accum dtype, and
+    ``matvec_hi`` is the f64 SpMV kernel over the original bands.
     """
     from repro_torch.kernels.krylov_fused.krylov_fused import (
         fused_matvec_dot, fused_update_step)
     from repro_torch.kernels.spmv_dia.spmv_dia import spmv_dia_stacked
     from repro_torch.solvers.jacobi import safe_jacobi_inverse
 
-    bands = bands.contiguous()
+    policy = get_policy(policy)
+    bands_hi = bands = bands.contiguous()
+    accum = None
+    if policy.name != "f64":
+        bands = bands.to(policy.storage_dtype).contiguous()
+        diag = diag.to(policy.storage_dtype)
+        accum = policy.accum_dtype
     inv = safe_jacobi_inverse(diag).contiguous()
 
     def matvec(x):
-        return spmv_dia_stacked(bands, x, offsets=offsets, plane=plane)
+        return spmv_dia_stacked(bands, x, offsets=offsets, plane=plane,
+                                accum_dtype=accum)
 
     def precond(r):
         return r * inv
 
     def matvec_dot(p):
-        return fused_matvec_dot(bands, p, offsets=offsets, plane=plane)
+        return fused_matvec_dot(bands, p, offsets=offsets, plane=plane,
+                                accum_dtype=accum)
 
     def fused_step(x, r, p, Ap, alpha):
-        return fused_update_step(x, r, p, Ap, inv, alpha)
+        return fused_update_step(x, r, p, Ap, inv, alpha, accum_dtype=accum)
+
+    matvec_hi = None
+    if policy.refine:
+        def matvec_hi(x):
+            return spmv_dia_stacked(bands_hi, x, offsets=offsets,
+                                    plane=plane)
 
     return SolverOps(matvec=matvec, precond=precond, matvec_dot=matvec_dot,
-                     fused_step=fused_step, dots=_dots, backend="fused")
+                     fused_step=fused_step, dots=_policy_dots(policy),
+                     backend="fused", policy=policy, matvec_hi=matvec_hi)

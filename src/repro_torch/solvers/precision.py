@@ -12,9 +12,12 @@ loop:
 * ``refine`` — whether an **outer f64 iterative-refinement loop** wraps
   the inner sweep.
 
-The port's kernels take every (storage, accum) pair below; the port's
-solvers run the ``f64`` policy only so far (the refinement loop is still
-to be ported and the solvers refuse a refined policy).
+The port's kernels take every (storage, accum) pair below, and
+``SolverOps`` carries a policy into ``cg``/``bicgstab``: under ``f32_ir``
+and ``bf16_ir`` they replay the true residual ``r = b - A_hi x`` in f64,
+solve the correction ``A_lo d = r`` with one sweep at the storage dtype
+to ``inner_tol``, apply ``x += d`` in f64, and repeat up to
+``max_outer`` times.
 """
 from __future__ import annotations
 
