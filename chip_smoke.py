@@ -13,19 +13,23 @@ result.  Phases, in order (any failure exits nonzero):
 2. the build of every kernel from ``src/repro_torch/csrc`` (``nvcc``, in
    parallel), with its seconds and, per kernel, the registers, stack frame
    and spills ``ptxas -v`` reports; every instantiation of the two DIA SpMV
-   kernels must have no stack frame and no spills;
+   kernels and of the axpy kernel must have no stack frame and no spills;
 3. each kernel against its plain PyTorch version on the card: the three
    Krylov kernels for every (storage, accum) pair at the main path's two
-   shapes and one small ragged shape, the SpMV and SpMV+dot vectors
-   bitwise and the SpMV+dot's per-256-row partials bitwise against
-   ``block_partials_plain`` (the kernels' tree order); the value-update
-   gather on the real 210^3 plans (pressure, alpha 30, and momentum,
-   alpha 1) and a ragged shape, for float64/float32/bfloat16, bitwise; the
-   momentum-assembly kernel at the coarse and fine 210^3 shapes, float64
-   and float32.  Then each kernel's time at the pressure shape (the two
-   SpMV kernels at the momentum shape too) beside its byte floor, the
-   plain version's time and, where one PyTorch call computes the same
-   function, that call's (a yardstick the port never calls);
+   shapes and one small ragged shape (``n`` not a multiple of 8), the
+   SpMV, SpMV+dot and axpy vectors bitwise, the SpMV+dot's and the axpy
+   kernel's per-256-row partials bitwise against ``block_partials_plain``
+   (the kernels' tree order) and the axpy wrapper's dots bitwise the sums
+   of those; the value-update gather on the real 210^3 plans (pressure,
+   alpha 30, and momentum, alpha 1) and a ragged shape, for
+   float64/float32/bfloat16, bitwise; the momentum-assembly kernel at the
+   coarse and fine 210^3 shapes, float64 and float32.  Then each kernel's
+   time at the pressure shape for each dtype pair it runs in (the SpMV
+   kernel at the momentum shape too, the SpMV+dot there in f64) beside its
+   byte floor, the plain version's time, the host's microseconds per
+   wrapper call and, where one PyTorch call computes the same function,
+   that call's (a yardstick the port never calls); the axpy kernel is
+   also timed alone, raw launches on preallocated outputs;
 4. the main path at full size: 3 PISO steps of the 210^3 cavity, 30 fine
    parts fused with alpha = 30, through the launcher's code path, with the
    kernels: the step's four kernels' launch counters must move (the
@@ -75,18 +79,21 @@ The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 
-With ``--compare``, only phases 1 and 2 run, and then this tree's two SpMV
-kernels are built beside those of each other ``csrc`` directory (another
-checkout's ``src/repro_torch/csrc``), checked bitwise against the plain
-versions, and timed in turns on this card (this tree, the others, the
-others again in reverse, this tree) at the pressure and momentum shapes,
-for every (storage, accum) pair; the last line is then the comparison as
-JSON.  With ``--step-timing``, only phases 1 and 2 run, and then the main
+With ``--compare``, only phases 1 and 2 run, and then this tree's three
+Krylov kernels are built beside those of each other ``csrc`` directory
+(another checkout's ``src/repro_torch/csrc``), checked bitwise against the
+plain versions, and timed in turns on this card (this tree, the others,
+the others again in reverse, this tree) for every (storage, accum) pair:
+the two SpMV kernels at the pressure and momentum shapes, the axpy kernel
+(raw launches) at the pressure shape; the last line is then the
+comparison as JSON.  With ``--step-timing``, only phases 1 and 2 run, and then the main
 path's first step from rest, walked phase by phase ``REPEATS`` times after
-one untimed step, gives the ms per pressure-CG iteration; the last line is
-those as JSON.  It uses only what the port has had since its first slice,
-so a copy of this script beside another checkout's ``src`` times that
-tree the same way.
+one untimed step, gives the ms per pressure-CG iteration, and phase 10's
+pressure solves alone the ms per inner iteration of each policy; the last
+line is those as JSON.  It uses only what the port has had since its
+fourth slice (the refinement loop and the channel), so a copy of this
+script beside another such checkout's ``src`` times that tree the same
+way.
 """
 from __future__ import annotations
 
@@ -145,8 +152,10 @@ REPLACES = {"spmv_dia": "src/repro/kernels/spmv_dia/spmv_dia.py:53",
 # the refactoring baseline's entry point (phase 8)
 STEP_KERNELS = ("spmv_dia", "spmv_dot", "axpy_precond", "coef_update")
 # kernels whose every instantiation must compile without a stack frame or
-# spills (ptxas -v): the band offsets are read at compile-time indices
-NO_FRAME_KERNELS = ("spmv_dia_kernel", "spmv_dot_kernel")
+# spills (ptxas -v): the SpMV kernels read the band offsets at compile-time
+# indices, the axpy kernel indexes its row arrays at compile-time indices
+NO_FRAME_KERNELS = ("spmv_dia_kernel", "spmv_dot_kernel",
+                    "axpy_precond_kernel")
 ASSEMBLY_PARITY = 1e-12  # momentum_bands vs assembly + update, elementwise
 #                          rtol = atol (tests/test_kernels.py's bar)
 # the policies whose 210^3 channel step must converge.  bf16_ir refines
@@ -306,11 +315,24 @@ def compare(torch, got, want) -> tuple[float, float]:
     return abs_err, rel
 
 
+AXPY_OPERANDS = ("x", "r", "p", "Ap", "inv")
+
+
+def plain_versions() -> dict:
+    """{kernel: plain PyTorch version} of the three Krylov kernels."""
+    from repro_torch.kernels.krylov_fused.krylov_fused import (
+        fused_axpy_precond_plain, spmv_dot_plain)
+    from repro_torch.kernels.spmv_dia.spmv_dia import spmv_dia_plain
+
+    return {"spmv_dia": spmv_dia_plain, "spmv_dot": spmv_dot_plain,
+            "axpy_precond": fused_axpy_precond_plain}
+
+
 def kernel_calls(kernels, plain, inputs, offsets, plane, storage, accum):
     """{kernel: (kernel call, plain call)} on ``inputs`` cast to storage."""
     b = inputs["bands"].to(storage)
     x = inputs["x"].to(storage)
-    vecs = [inputs[k].to(storage) for k in ("x", "r", "p", "Ap", "inv")]
+    vecs = [inputs[k].to(storage) for k in AXPY_OPERANDS]
     alpha = inputs["alpha"].to(accum)
     kw = dict(offsets=offsets, plane=plane, accum_dtype=accum)
     return {
@@ -322,6 +344,31 @@ def kernel_calls(kernels, plain, inputs, offsets, plane, storage, accum):
             lambda: kernels["axpy_precond"](*vecs, alpha, accum_dtype=accum),
             lambda: plain["axpy_precond"](*vecs, alpha, accum_dtype=accum)),
     }
+
+
+def axpy_launcher(torch, lib, vecs, alpha, accum):
+    """Raw launches of a loaded ``krylov_fused`` library's
+    ``axpy_precond_launch`` into preallocated outputs (no check, no
+    allocation, no sum, no launch count): a function that launches once and
+    returns ``(x', r', z, rz_partials, rr_partials)``."""
+    from repro_torch.kernels._build import dtype_code
+    from repro_torch.kernels.spmv_dia.spmv_dia import (KERNEL_BLOCK_ROWS,
+                                                       stream_ptr)
+
+    x = vecs[0]
+    n = x.numel()
+    outs = [torch.empty_like(x) for _ in range(3)] + [
+        torch.empty(-(-n // KERNEL_BLOCK_ROWS), dtype=accum, device=x.device)
+        for _ in range(2)]
+    a = alpha.to(accum)
+    args = (dtype_code(x.dtype, accum), *(v.data_ptr() for v in vecs),
+            a.data_ptr(), *(o.data_ptr() for o in outs), n, stream_ptr(x))
+
+    def launch(_operands=(a, *vecs)):
+        rc = lib.axpy_precond_launch(*args)
+        require(rc == 0, f"axpy_precond launch failed ({rc})")
+        return outs
+    return launch
 
 
 def time_ms(torch, fn, n=20, warmup=3) -> float:
@@ -336,6 +383,20 @@ def time_ms(torch, fn, n=20, warmup=3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
+
+
+def host_us(torch, fn, n=20) -> float:
+    """Host microseconds per call of ``fn``, called back to back with no
+    synchronisation: above the card's time per call, the host and not the
+    card bounds what :func:`time_ms` reads."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * secs / n
 
 
 def csr_of_bands(torch, bands, offsets):
@@ -368,17 +429,28 @@ def check_spmv_bitwise(torch, label, sname, y_dia, y_dot, part, y_want,
     require(all(same.values()), f"not bitwise at {label} {sname}: {same}")
 
 
+def axpy_bitwise(torch, part_out, wrap_out, want) -> dict:
+    """The axpy kernel against ``axpy_precond_partials_plain``'s ``want``
+    (x', r', z, r.z partials, r.r partials), bit for bit: ``part_out`` is
+    ``axpy_precond_partials``'s five outputs, ``wrap_out`` the wrapper's
+    (x', r', z, r.z, r.r), whose dots must be ``torch.sum`` of ``want``'s
+    partials.  ``{output: equal}``."""
+    same = {name: torch.equal(part_out[i], want[i])
+            and torch.equal(wrap_out[i], want[i])
+            for i, name in enumerate(("x'", "r'", "z"))}
+    for i, name in ((3, "r.z"), (4, "r.r")):
+        same[f"{name} partials"] = torch.equal(part_out[i], want[i])
+        same[name] = torch.equal(wrap_out[i], want[i].sum())
+    return same
+
+
 def check_kernels(torch, dev) -> dict:
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels.krylov_fused.krylov_fused import (
-        fused_axpy_precond_cost, fused_axpy_precond_plain, spmv_dot_cost,
-        spmv_dot_partials, spmv_dot_partials_plain, spmv_dot_plain)
-    from repro_torch.kernels.spmv_dia.spmv_dia import (KERNEL_BLOCK_ROWS,
-                                                       spmv_dia_cost,
-                                                       spmv_dia_plain)
+        axpy_precond_partials, axpy_precond_partials_plain,
+        spmv_dot_partials, spmv_dot_partials_plain)
 
-    plain = {"spmv_dia": spmv_dia_plain, "spmv_dot": spmv_dot_plain,
-             "axpy_precond": fused_axpy_precond_plain}
+    plain = plain_versions()
     pairs = policy_pairs()
     gen = torch.Generator(device=dev).manual_seed(0)
     report = {name: {} for name in plain}
@@ -409,37 +481,19 @@ def check_kernels(torch, dev) -> dict:
             check_spmv_bitwise(torch, label, sname, got_all["spmv_dia"][0],
                                got_all["spmv_dot"][0], part,
                                *spmv_dot_partials_plain(b, x, **kw))
-            del got_all, part, b, x
+            vecs = [inputs[k].to(storage) for k in AXPY_OPERANDS]
+            alpha = inputs["alpha"].to(accum)
+            same = axpy_bitwise(
+                torch, axpy_precond_partials(*vecs, alpha, accum_dtype=accum),
+                got_all["axpy_precond"],
+                axpy_precond_partials_plain(*vecs, alpha, accum_dtype=accum))
+            print(f"  bitwise {label:9s} {sname:8s}: axpy_precond "
+                  + ", ".join(f"{k} {v}" for k, v in same.items()))
+            require(all(same.values()),
+                    f"axpy_precond not bitwise at {label} {sname}: {same}")
+            del got_all, part, b, x, vecs
         if label != "ragged":
-            # f64, cold in the 50 MB L2: every kernel at the pressure shape,
-            # the two SpMV kernels at the momentum shape too
-            n = P * m
-            calls = kernel_calls(WRAPPERS, plain, inputs, offsets, plane,
-                                 torch.float64, torch.float64)
-            costs = {
-                "spmv_dia": spmv_dia_cost(7, n),
-                "spmv_dot": spmv_dot_cost(7, n, 0,
-                                          block_rows=KERNEL_BLOCK_ROWS),
-                "axpy_precond": fused_axpy_precond_cost(
-                    n, block_rows=KERNEL_BLOCK_ROWS),
-            }
-            csr = csr_of_bands(torch, inputs["bands"], offsets)
-            x_flat = inputs["x"].reshape(-1)
-            lib = {"spmv_dia": lambda: csr @ x_flat}
-            for name, (k_fn, p_fn) in calls.items():
-                if label == "momentum" and name == "axpy_precond":
-                    continue
-                rep = timing_report(torch, f"{name} @{label}", k_fn, p_fn,
-                                    costs[name], lib.get(name))
-                if label == "pressure":
-                    report[name].update(rep)
-                else:
-                    report[name]["momentum"] = rep
-            del csr, lib
-        if label == "pressure":
-            time_low_precision(torch, calls_for=lambda st, ac: kernel_calls(
-                WRAPPERS, plain, inputs, offsets, plane, st, ac),
-                n=P * m, pairs=pairs[1:], report=report)
+            time_kernels(torch, label, inputs, offsets, plane, pairs, report)
         del inputs
         torch.cuda.empty_cache()
     report["coef_update"] = check_coef_update(torch, dev)
@@ -449,15 +503,22 @@ def check_kernels(torch, dev) -> dict:
     return report
 
 
-def time_low_precision(torch, calls_for, n, pairs, report) -> None:
-    """The three Krylov kernels at the pressure shape for the refined
-    policies' (storage, accum) pairs: ``report[kernel][storage name]``,
-    the floor at that storage width."""
+def time_kernels(torch, label, inputs, offsets, plane, pairs, report) -> None:
+    """The Krylov kernels' times at ``label``'s shape (inputs far above the
+    50 MB L2) for every (storage, accum) pair, the floor at that storage
+    width: all three at the pressure shape (``report[kernel]`` for f64,
+    ``report[kernel][storage name]`` for the others), the SpMV kernel and,
+    in f64, the SpMV+dot at the momentum shape
+    (``report[kernel]["momentum"]``, the same way)."""
+    from repro_torch.kernels import WRAPPERS
+    from repro_torch.kernels._build import load
     from repro_torch.kernels.krylov_fused.krylov_fused import (
         fused_axpy_precond_cost, spmv_dot_cost)
     from repro_torch.kernels.spmv_dia.spmv_dia import (KERNEL_BLOCK_ROWS,
                                                        spmv_dia_cost)
 
+    P, _, m = inputs["bands"].shape
+    n = P * m
     for storage, accum in pairs:
         sname = str(storage).removeprefix("torch.")
         size, acc = (torch.finfo(t).bits // 8 for t in (storage, accum))
@@ -469,25 +530,68 @@ def time_low_precision(torch, calls_for, n, pairs, report) -> None:
             "axpy_precond": fused_axpy_precond_cost(
                 n, size, block_rows=KERNEL_BLOCK_ROWS, accum_itemsize=acc),
         }
-        for name, (k_fn, p_fn) in calls_for(storage, accum).items():
-            report[name][sname] = timing_report(
-                torch, f"{name} @pressure {sname}", k_fn, p_fn, costs[name],
-                dtype=sname)
+        calls = kernel_calls(WRAPPERS, plain_versions(), inputs, offsets,
+                             plane, storage, accum)
+        if label != "pressure":
+            calls = {k: calls[k] for k in (
+                ("spmv_dia", "spmv_dot") if storage == torch.float64
+                else ("spmv_dia",))}
+        # the SpMV's yardstick: a torch.sparse CSR product in its dtype
+        csr = csr_of_bands(torch, inputs["bands"].to(storage), offsets)
+        x_flat = inputs["x"].to(storage).reshape(-1)
+        for name, (k_fn, p_fn) in calls.items():
+            raw = None
+            if name == "axpy_precond":
+                raw = axpy_launcher(
+                    torch, load("krylov_fused"),
+                    [inputs[k].to(storage) for k in AXPY_OPERANDS],
+                    inputs["alpha"], accum)
+            rep = timing_report(
+                torch, f"{name} @{label} {sname}", k_fn, p_fn, costs[name],
+                (lambda: csr @ x_flat) if name == "spmv_dia" else None,
+                dtype=sname, raw=raw)
+            if raw is not None:
+                # the wrapper's two torch.sum of the partials, alone
+                part = raw()[3:]
+                sums = lambda: (part[0].sum(), part[1].sum())  # noqa: E731
+                rep["sums_ms"] = time_ms(torch, sums)
+                rep["sums_host_us"] = host_us(torch, sums)
+                print(f"    its two torch.sum of the partials: "
+                      f"{rep['sums_ms']:.4f} ms, host_us "
+                      f"{rep['sums_host_us']:.1f}")
+            slot = report[name]
+            if label != "pressure":
+                slot = slot.setdefault(label, {})
+            if storage == torch.float64:
+                slot.update(rep)
+            else:
+                slot[sname] = rep
+        del csr, x_flat, calls
 
 
 def timing_report(torch, name, k_fn, p_fn, cost, library=None,
-                  dtype="float64") -> dict:
-    """Kernel, plain and library times (CUDA events) beside the bound."""
+                  dtype="float64", raw=None) -> dict:
+    """Kernel (wrapper), plain and library times (CUDA events) beside the
+    bound, and the host's microseconds per wrapper call; with ``raw``, a
+    launch of the kernel alone, its time too."""
     t_bytes = cost["bytes_accessed"] / HBM_BYTES_PER_S * 1e3
     t_ops = cost["flops"] / FLOPS_PER_S[dtype] * 1e3
     rep = {"ms": time_ms(torch, k_fn), "plain_ms": time_ms(torch, p_fn),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None if library is None else time_ms(torch, library),
-           "bytes": cost["bytes_accessed"]}
-    print(f"  {name:22s} ms={rep['ms']:.4f} plain_ms={rep['plain_ms']:.4f} "
-          f"bound_ms={rep['bound_ms']:.4f} ({rep['bound_by']}, "
-          f"{rep['bytes']} B) library_ms={rep['library_ms']}")
+           "bytes": cost["bytes_accessed"], "host_us": host_us(torch, k_fn)}
+    alone = ""
+    if raw is not None:
+        rep["kernel_alone_ms"] = time_ms(torch, raw)
+        rep["kernel_alone_host_us"] = host_us(torch, raw)
+        alone = (f" kernel_alone_ms={rep['kernel_alone_ms']:.4f} "
+                 f"(host_us {rep['kernel_alone_host_us']:.1f})")
+    print(f"  {name:22s} ms={rep['ms']:.4f}{alone} "
+          f"plain_ms={rep['plain_ms']:.4f} bound_ms={rep['bound_ms']:.4f} "
+          f"({rep['bound_by']}, {rep['bytes']} B; "
+          f"{rep['bound_ms'] / rep['ms']:.1%} of floor) "
+          f"library_ms={rep['library_ms']} host_us={rep['host_us']:.1f}")
     return rep
 
 
@@ -592,27 +696,30 @@ def check_momentum_bands(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# --compare: this tree's SpMV kernels beside another checkout's
+# --compare: this tree's Krylov kernels beside another checkout's
 # ---------------------------------------------------------------------------
 
 def compare_builds(torch, dev, others: dict) -> dict:
-    """This tree's two SpMV kernels beside those of each csrc directory in
-    ``others`` (``{label: dir}``) on this card: each bitwise against the
+    """This tree's three Krylov kernels beside those of each csrc directory
+    in ``others`` (``{label: dir}``) on this card: each bitwise against the
     plain versions, then timed in turns (this tree, the others, the others
-    in reverse, this tree) at the pressure and momentum shapes, for every
-    (storage, accum) pair."""
+    in reverse, this tree) for every (storage, accum) pair: the two SpMV
+    kernels at the pressure and momentum shapes, the axpy kernel (raw
+    launches) at the pressure shape."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels._build import (BUILD_ROOT, build_sources,
                                             dtype_code, load, load_library)
     from repro_torch.kernels.krylov_fused.krylov_fused import (
-        spmv_dot_cost, spmv_dot_partials_plain)
+        axpy_precond_partials_plain, fused_axpy_precond_cost, spmv_dot_cost,
+        spmv_dot_partials_plain)
     from repro_torch.kernels.spmv_dia.spmv_dia import (KERNEL_BLOCK_ROWS,
                                                        _offsets_arg,
                                                        spmv_dia_cost,
                                                        stream_ptr)
 
     names = ("spmv_dia", "krylov_fused")
+    kernels = ("spmv_dia", "spmv_dot", "axpy_precond")
 
     def build(label, csrc):
         csrc = Path(csrc)
@@ -659,8 +766,23 @@ def compare_builds(torch, dev, others: dict) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     order = list(libs) + list(libs)[::-1]
-    result = {label: {"spmv_dia": {}, "spmv_dot": {}} for label in libs}
-    result["bound_ms"] = {"spmv_dia": {}, "spmv_dot": {}}
+    result = {label: {k: {} for k in kernels} for label in libs}
+    result["bound_ms"] = {k: {} for k in kernels}
+
+    def in_turns(kernel, cell, fns, cost):
+        bound = cost["bytes_accessed"] / HBM_BYTES_PER_S * 1e3
+        result["bound_ms"][kernel][cell] = bound
+        for label in order:
+            t = time_ms(torch, fns[label])
+            result[label][kernel].setdefault(cell, []).append(t)
+        for label in libs:
+            ts = result[label][kernel][cell]
+            mean = sum(ts) / len(ts)
+            print(f"  {kernel} {cell:18s} {label:12s} ms "
+                  + " ".join(f"{t:.4f}" for t in ts)
+                  + f" (mean {mean:.4f}; floor {bound:.4f} = "
+                    f"{bound / mean:.1%})")
+
     for shape, P, m, nx, plane in shapes()[:2]:
         inputs = make_inputs(torch, P, m, gen, dev)
         offsets = offsets_for(nx, plane)
@@ -679,28 +801,37 @@ def compare_builds(torch, dev, others: dict) -> dict:
                 check_spmv_bitwise(torch, f"{label}@{shape}", sname, y,
                                    y_dot, part, *want)
             size, acc_size = b.element_size(), torch.finfo(accum).bits // 8
-            for kernel, fn, cost in (
-                    ("spmv_dia", lambda lib: spmv(lib, code, b, x, offsets),
-                     spmv_dia_cost(7, n, size)),
-                    ("spmv_dot",
-                     lambda lib: spmv_dot(lib, code, b, x, offsets, accum),
-                     spmv_dot_cost(7, n, 0, size,
-                                   block_rows=KERNEL_BLOCK_ROWS,
-                                   accum_itemsize=acc_size))):
-                bound = cost["bytes_accessed"] / HBM_BYTES_PER_S * 1e3
-                result["bound_ms"][kernel][cell] = bound
-                for label in order:
-                    lib = libs[label]
-                    t = time_ms(torch, lambda: fn(lib))
-                    result[label][kernel].setdefault(cell, []).append(t)
-                for label in libs:
-                    ts = result[label][kernel][cell]
-                    mean = sum(ts) / len(ts)
-                    print(f"  {kernel} {cell:18s} {label:12s} ms "
-                          + " ".join(f"{t:.4f}" for t in ts)
-                          + f" (mean {mean:.4f}; floor {bound:.4f} = "
-                            f"{bound / mean:.1%})")
+            in_turns("spmv_dia", cell, {
+                label: (lambda lib=lib: spmv(lib, code, b, x, offsets))
+                for label, lib in libs.items()}, spmv_dia_cost(7, n, size))
+            in_turns("spmv_dot", cell, {
+                label: (lambda lib=lib: spmv_dot(lib, code, b, x, offsets,
+                                                 accum))
+                for label, lib in libs.items()},
+                spmv_dot_cost(7, n, 0, size, block_rows=KERNEL_BLOCK_ROWS,
+                              accum_itemsize=acc_size))
             del b, x, want
+            if shape == "pressure":
+                vecs = [inputs[k].to(storage) for k in AXPY_OPERANDS]
+                want = axpy_precond_partials_plain(
+                    *vecs, inputs["alpha"].to(accum), accum_dtype=accum)
+                launch = {label: axpy_launcher(torch, lib["krylov_fused"],
+                                               vecs, inputs["alpha"], accum)
+                          for label, lib in libs.items()}
+                for label, fn in launch.items():
+                    got = fn()
+                    torch.cuda.synchronize()
+                    same = [torch.equal(g, w) for g, w in zip(got, want)]
+                    print(f"  bitwise {label}@{shape} {sname:8s}: "
+                          f"axpy_precond x', r', z, r.z and r.r partials "
+                          f"{same}")
+                    require(all(same), f"{label}'s axpy_precond is not "
+                                       f"bitwise at {sname}: {same}")
+                in_turns("axpy_precond", cell, launch,
+                         fused_axpy_precond_cost(
+                             n, size, block_rows=KERNEL_BLOCK_ROWS,
+                             accum_itemsize=acc_size))
+                del vecs, want, launch
         del inputs
         torch.cuda.empty_cache()
     return result
@@ -763,19 +894,27 @@ def rel_diff(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
 
 
+# (wrapper module, plain version) of every kernel wrapper the step runs
+PLAIN_VERSIONS = (
+    ("spmv_dia", "spmv_dia_plain"), ("krylov_fused", "spmv_dot_plain"),
+    ("krylov_fused", "spmv_dot_partials_plain"),
+    ("krylov_fused", "fused_axpy_precond_plain"),
+    ("krylov_fused", "axpy_precond_partials_plain"),
+    ("coef_update", "coef_update_plain"))
+
+
 @contextlib.contextmanager
 def no_plain_versions():
     """Make every kernel wrapper's plain version raise inside the block:
     on the card the wrappers must launch their kernels."""
     import importlib
 
-    # the wrapper modules (each package re-exports a function of its name)
-    sd, kf, cu = (importlib.import_module(f"repro_torch.kernels.{m}.{m}")
-                  for m in ("spmv_dia", "krylov_fused", "coef_update"))
-    saved = [(mod, name, getattr(mod, name)) for mod, name in (
-        (sd, "spmv_dia_plain"), (kf, "spmv_dot_plain"),
-        (kf, "spmv_dot_partials_plain"), (kf, "fused_axpy_precond_plain"),
-        (cu, "coef_update_plain"))]
+    # the wrapper modules (each package re-exports a function of its name);
+    # an older tree, timed by a copy of this script, may lack a name
+    mods = {m: importlib.import_module(f"repro_torch.kernels.{m}.{m}")
+            for m in ("spmv_dia", "krylov_fused", "coef_update")}
+    saved = [(mods[m], name, getattr(mods[m], name))
+             for m, name in PLAIN_VERSIONS if hasattr(mods[m], name)]
 
     def refuse(name):
         def plain(*args, **kwargs):
@@ -1334,7 +1473,9 @@ def simple_phase(torch) -> dict:
 def step_timing(torch, repeats: int) -> dict:
     """The main path's first f64 step from rest, walked phase by phase
     ``repeats`` times after one untimed step: ms per pressure-CG
-    iteration (the ``solve_p`` walls over their iterations)."""
+    iteration (the ``solve_p`` walls over their iterations); then phase
+    10's first channel pressure system solved alone under each policy
+    (ms per inner iteration)."""
     from repro_torch.launch.case import build_parser, build_solver
 
     args = build_parser().parse_args(MAIN_ARGS)
@@ -1353,7 +1494,16 @@ def step_timing(torch, repeats: int) -> dict:
         ms.append(1e3 * cg_s / sum(p_iters))
     print(f"  step from rest, p_iters {p_iters}: ms per CG iteration "
           + " ".join(f"{t:.4f}" for t in ms))
-    return {"ms_per_cg_iter": ms, "p_iters": p_iters, "src": str(ROOT)}
+    del solver, state0
+    free_device(torch)
+    args = build_parser().parse_args(case_args("channel"))
+    solver = build_solver(args)
+    solves = pressure_solves(torch, solver, pressure_system(
+        solver, solver.initial_state(), args.co * solver.mesh.h))
+    return {"ms_per_cg_iter": ms, "p_iters": p_iters,
+            "ms_per_inner": {pol: rec["ms_per_inner"]
+                             for pol, rec in solves.items()},
+            "src": str(ROOT)}
 
 
 def free_device(torch) -> None:
@@ -1366,7 +1516,7 @@ def free_device(torch) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", metavar="LABEL=CSRC_DIR",
-                    help="time this tree's SpMV kernels beside another "
+                    help="time this tree's Krylov kernels beside another "
                          "csrc directory's, in turns (repeatable)")
     ap.add_argument("--step-timing", type=int, metavar="REPEATS",
                     help="time the main path's first step REPEATS times "
@@ -1435,7 +1585,10 @@ def main(argv=None) -> int:
                     "launches": launches[name],
                     **{k: report[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")}}
+                        "bound_by", "library_ms")},
+                    # the axpy kernel alone: raw launches, no wrapper
+                    **{k: report[name][k] for k in ("kernel_alone_ms",)
+                       if k in report[name]}}
                    for name in report]
         print(json.dumps({"kernels": kernels}))
         print(smi_line())

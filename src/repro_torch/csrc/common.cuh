@@ -41,21 +41,12 @@ __device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16, float>(float v) {
 template <typename S> struct Compute { using type = S; };
 template <> struct Compute<__nv_bfloat16> { using type = float; };
 
-// Block-wide sum of one value per thread in a fixed tree order (no
-// atomics), so a run reproduces its partials bit for bit.  `smem` holds
-// kThreads entries; the trailing barrier lets the caller reuse it at once.
-template <typename A>
-__device__ __forceinline__ A block_sum(A v, A* smem) {
-  smem[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) smem[threadIdx.x] = smem[threadIdx.x] + smem[threadIdx.x + s];
-    __syncthreads();
-  }
-  A total = smem[0];
-  __syncthreads();
-  return total;
-}
+// The reductions (spmv_dot_kernel, axpy_precond_kernel) write one
+// accum-width partial per kThreads consecutive flat rows v[0..kThreads-1]
+// (zero past the vector's end), summed in one fixed tree order: level s =
+// kThreads/2, ..., 2, 1 adds v[r + s] to v[r] for every r < s.  No atomics,
+// so a run reproduces its partials bit for bit, and
+// kernels/krylov_fused's block_partials_plain is that order in PyTorch.
 
 inline unsigned int n_blocks(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);

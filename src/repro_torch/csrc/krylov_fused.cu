@@ -13,13 +13,12 @@
 // 9.  spmv_dot is the streaming core of dia_rows.cuh (several rows per
 // thread, every load issued before the first multiply, offsets in the
 // parameter bank, streaming hints for the bands) with a p.Ap epilogue.
-// axpy_precond is one thread per row over all parts, with coalesced
-// neighbouring-thread accesses; its five loads are independent, so one row
-// per thread keeps enough bytes in flight.  The reductions write one
-// accum-width partial per kThreads (256) consecutive flat rows, summed in
-// block_sum's fixed tree order; the wrapper sums the partials with
-// torch.sum.  No atomics: the order of every sum is fixed, so Krylov
-// iteration counts reproduce from run to run.
+// axpy_precond gives each warp one partial's 256 rows as 16-byte vectors
+// and sums the partial inside the warp (notes at the kernel).  The
+// reductions write one accum-width partial per kThreads (256) consecutive
+// flat rows, summed in the tree order of common.cuh; the wrapper sums the
+// partials with torch.sum.  No atomics: the order of every sum is fixed, so
+// Krylov iteration counts reproduce from run to run.
 #include "dia_rows.cuh"
 
 using namespace repro;
@@ -27,8 +26,8 @@ using namespace repro;
 // ---------------------------------------------------------------------------
 // (A p, p . A p): the rows of dia_rows.cuh plus the p.Ap partial of each
 // 256-row block, from the accum-width row sums before they are narrowed.
-// The partial is summed in exactly block_sum's order over the block's rows
-// v[0..255]: level s adds v[r + s] to v[r] for r < s, s = 128, 64, ..., 1.
+// The partial is summed in the tree order of common.cuh over the block's
+// rows v[0..255]: level s adds v[r + s] to v[r] for r < s, s = 128, ..., 1.
 // Thread t of a group holds v[t + kDiaGroup*k], so the levels 128 down to
 // kDiaGroup are its own rows, the levels down to 32 cross the group's
 // warps through shared memory, and 16 down to 1 are warp shuffles.
@@ -72,45 +71,211 @@ spmv_dot_kernel(const S* __restrict__ bands, const S* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// The second half of a CG iteration.  alpha is read from device memory (the
-// accum-width gamma / pAp the solver just computed: no host round trip) and
-// narrowed to the storage dtype, as the TPU kernel's wrapper does.
+// The second half of a CG iteration: x' = x + alpha p, r' = r - alpha Ap,
+// z = r' * inv_diag, and the r'.z and r'.r' partials.  alpha is read from
+// device memory (the accum-width gamma / pAp the solver just computed: no
+// host round trip) and narrowed to the storage dtype, as the TPU kernel's
+// wrapper does.  Every product and sum is rounded to the storage dtype in
+// the plain version's order, so x', r' and z are bitwise the plain
+// version's and the partials bitwise block_partials_plain's.
+//
+// Bound: bytes, 8 values per row (five reads, three writes: 64 B in f64,
+// 32 B in f32, 16 B in bf16) against 9 flops.  What the design does:
+//
+//  * One warp per partial.  A warp owns the 256 rows of one partial and a
+//    thread kAxpyRows = 8 of them, as kAxpyRows / W vectors of W = 16 /
+//    sizeof(S) consecutive rows (2 f64, 4 f32, 8 bf16): vector w of lane l
+//    holds rows 32*W*w + W*l + [0, W) of the partial.  Every operand moves
+//    as 16-byte loads and stores, neighbouring lanes on neighbouring
+//    vectors, and every load of a thread is issued before its first
+//    multiply.
+//  * No barriers.  The partial is summed in the tree order of common.cuh
+//    inside its warp: the levels that pair two vectors of one thread are
+//    register adds, the five that pair lanes (16 down to 1 lanes apart) are
+//    __shfl_down_sync on each of the W values still live, and the levels
+//    below W are register adds again.  r.z and r.r take the same steps.
+//    One row per thread with a shared-memory tree per 256-row block costs
+//    20 __syncthreads() and up to ~50 shared-memory accesses a thread for
+//    the two dots, the same for 16 bytes of rows (bf16) as for 64 (f64):
+//    on the H100 that left bf16 at 48 % of its floor.
+//  * Checks.  Only the warp that holds the vector's end loads and stores
+//    row by row with bounds checks; a warp past the end returns at once
+//    (whole warps, so every shuffle has all 32 lanes).
+//  * Measured on the H100 (raw launches at 9,261,000 rows, in turns with
+//    the variants): 87-89 % of the floor in f64 and f32 and 82 % in bf16,
+//    against 88 / 85 / 48 % for one row per thread.  Read-only loads
+//    (__ldg) beat the streaming hint (__ldcs) by 1.5-2.5 % in every
+//    dtype; 128 threads per block instead of 256, or streaming stores,
+//    changed nothing beyond 1 %.
 // ---------------------------------------------------------------------------
-template <typename S, typename A>
-__global__ void axpy_precond_kernel(const S* __restrict__ x,
-                                    const S* __restrict__ r,
-                                    const S* __restrict__ p,
-                                    const S* __restrict__ ap,
-                                    const S* __restrict__ inv,
-                                    const A* __restrict__ alpha,
-                                    S* __restrict__ xo, S* __restrict__ ro,
-                                    S* __restrict__ zo, A* __restrict__ rz_part,
-                                    A* __restrict__ rr_part, long long n) {
-  using C = typename Compute<S>::type;
-  __shared__ A smem[kThreads];
-  const long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  A rz = A(0), rr = A(0);
-  if (g < n) {
-    // every product and sum is rounded to the storage dtype, as the plain
-    // version's separate element-wise ops are
-    const C a = cvt<C>(cvt<S>(*alpha));
-    const C ap_scaled = cvt<C>(cvt<S>(a * cvt<C>(ap[g])));
-    const C p_scaled = cvt<C>(cvt<S>(a * cvt<C>(p[g])));
-    const S xn = cvt<S>(cvt<C>(x[g]) + p_scaled);
-    const S rn = cvt<S>(cvt<C>(r[g]) - ap_scaled);
-    const S z = cvt<S>(cvt<C>(rn) * cvt<C>(inv[g]));
-    xo[g] = xn;
-    ro[g] = rn;
-    zo[g] = z;
-    const A rn_a = cvt<A>(rn);
-    rz = rn_a * cvt<A>(z);
-    rr = rn_a * rn_a;
+constexpr int kAxpyRows = 8;       // rows per thread
+constexpr int kAxpyThreads = 256;  // threads per block
+static_assert(32 * kAxpyRows == kThreads, "one warp per partial");
+
+// W = 16 / sizeof(S) consecutive values as one 16-byte load through the
+// read-only path, widened to the compute type; and back, from values
+// already rounded to S, as one plain 16-byte store.  bf16 pairs travel as
+// 32-bit words, the lower address in the low half.
+__device__ __forceinline__ void ld16(const double* p, double* v) {
+  const double2 t = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = t.x;
+  v[1] = t.y;
+}
+__device__ __forceinline__ void ld16(const float* p, float* v) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void ld16(const __nv_bfloat16* p, float* v) {
+  const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
   }
-  const A rz_total = block_sum(rz, smem);
-  const A rr_total = block_sum(rr, smem);
-  if (threadIdx.x == 0) {
-    rz_part[blockIdx.x] = rz_total;
-    rr_part[blockIdx.x] = rr_total;
+}
+__device__ __forceinline__ void st16(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+__device__ __forceinline__ void st16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+__device__ __forceinline__ void st16(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                 bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
+}
+
+// v rounded to the storage dtype and widened back
+template <typename S, typename C>
+__device__ __forceinline__ C rnd(C v) { return cvt<C>(cvt<S>(v)); }
+
+template <typename S, typename A>
+__global__ void __launch_bounds__(kAxpyThreads)
+axpy_precond_kernel(const S* __restrict__ x, const S* __restrict__ r,
+                    const S* __restrict__ p, const S* __restrict__ ap,
+                    const S* __restrict__ inv, const A* __restrict__ alpha,
+                    S* __restrict__ xo, S* __restrict__ ro,
+                    S* __restrict__ zo, A* __restrict__ rz_part,
+                    A* __restrict__ rr_part, long long n) {
+  using C = typename Compute<S>::type;
+  constexpr int W = 16 / sizeof(S);   // rows per 16-byte vector
+  constexpr int L = kAxpyRows / W;    // vectors per thread and operand
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * kAxpyThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  const long long base = warp * kThreads;  // the partial's first row
+  if (base >= n) return;
+  const bool edge = base + kThreads > n;
+  long long g[L];
+#pragma unroll
+  for (int w = 0; w < L; ++w) g[w] = base + (32 * w + lane) * W;
+  const C a = cvt<C>(cvt<S>(*alpha));
+  C xv[L][W], rv[L][W], pv[L][W], av[L][W], iv[L][W];
+  if (!edge) {
+#pragma unroll
+    for (int w = 0; w < L; ++w) {
+      ld16(x + g[w], xv[w]);
+      ld16(r + g[w], rv[w]);
+      ld16(p + g[w], pv[w]);
+      ld16(ap + g[w], av[w]);
+      ld16(inv + g[w], iv[w]);
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < L; ++w) {
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const long long i = g[w] + k;
+        const bool live = i < n;
+        xv[w][k] = live ? cvt<C>(x[i]) : C(0);
+        rv[w][k] = live ? cvt<C>(r[i]) : C(0);
+        pv[w][k] = live ? cvt<C>(p[i]) : C(0);
+        av[w][k] = live ? cvt<C>(ap[i]) : C(0);
+        iv[w][k] = live ? cvt<C>(inv[i]) : C(0);
+      }
+    }
+  }
+  // x' in xv, r' in rv, z in iv; the dots' terms at the accum width
+  A rz[L][W], rr[L][W];
+#pragma unroll
+  for (int w = 0; w < L; ++w) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const C ap_scaled = rnd<S>(a * av[w][k]);
+      const C p_scaled = rnd<S>(a * pv[w][k]);
+      xv[w][k] = rnd<S>(xv[w][k] + p_scaled);
+      rv[w][k] = rnd<S>(rv[w][k] - ap_scaled);
+      iv[w][k] = rnd<S>(rv[w][k] * iv[w][k]);
+      const A rn = cvt<A>(rv[w][k]);
+      rz[w][k] = rn * cvt<A>(iv[w][k]);
+      rr[w][k] = rn * rn;
+    }
+  }
+  if (!edge) {
+#pragma unroll
+    for (int w = 0; w < L; ++w) {
+      st16(xo + g[w], xv[w]);
+      st16(ro + g[w], rv[w]);
+      st16(zo + g[w], iv[w]);
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < L; ++w) {
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const long long i = g[w] + k;
+        if (i < n) {
+          xo[i] = cvt<S>(xv[w][k]);
+          ro[i] = cvt<S>(rv[w][k]);
+          zo[i] = cvt<S>(iv[w][k]);
+        } else {
+          rz[w][k] = rr[w][k] = A(0);  // the zero padding of the partial
+        }
+      }
+    }
+  }
+  // levels 128 .. 32W: the vectors of one thread
+#pragma unroll
+  for (int s = L / 2; s >= 1; s >>= 1) {
+#pragma unroll
+    for (int w = 0; w < s; ++w) {
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        rz[w][k] = rz[w][k] + rz[w + s][k];
+        rr[w][k] = rr[w][k] + rr[w + s][k];
+      }
+    }
+  }
+  // levels 16W .. W: lanes d apart (lanes >= d add what no level reads)
+#pragma unroll
+  for (int d = 16; d >= 1; d >>= 1) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      rz[0][k] = rz[0][k] + __shfl_down_sync(0xffffffffu, rz[0][k], d);
+      rr[0][k] = rr[0][k] + __shfl_down_sync(0xffffffffu, rr[0][k], d);
+    }
+  }
+  // levels W/2 .. 1: the rows of one vector
+#pragma unroll
+  for (int s = W / 2; s >= 1; s >>= 1) {
+#pragma unroll
+    for (int k = 0; k < s; ++k) {
+      rz[0][k] = rz[0][k] + rz[0][k + s];
+      rr[0][k] = rr[0][k] + rr[0][k + s];
+    }
+  }
+  if (lane == 0) {
+    rz_part[warp] = rz[0][0];
+    rr_part[warp] = rr[0][0];
   }
 }
 
@@ -136,7 +301,10 @@ template <typename S, typename A>
 static int launch_axpy(const void* const* in, const void* alpha,
                        void* const* out, long long n, cudaStream_t stream) {
   if (n == 0) return 0;
-  axpy_precond_kernel<S, A><<<n_blocks(n), kThreads, 0, stream>>>(
+  constexpr long long kRowsPerBlock = kAxpyThreads / 32 * kThreads;
+  const unsigned int blocks =
+      static_cast<unsigned int>((n + kRowsPerBlock - 1) / kRowsPerBlock);
+  axpy_precond_kernel<S, A><<<blocks, kAxpyThreads, 0, stream>>>(
       static_cast<const S*>(in[0]), static_cast<const S*>(in[1]),
       static_cast<const S*>(in[2]), static_cast<const S*>(in[3]),
       static_cast<const S*>(in[4]), static_cast<const A*>(alpha),
@@ -166,7 +334,8 @@ extern "C" int spmv_dot_launch(int dtype_code, const void* bands,
 }
 
 // x, r, p, Ap, inv_diag (n,) and a device scalar alpha (accum dtype) ->
-// x', r', z (n,) and the r.z, r.r partials (ceil(n / 256),) each.
+// x', r', z (n,) and the r.z, r.r partials (ceil(n / 256),) each.  The
+// five vectors and three outputs must start on 16-byte boundaries.
 extern "C" int axpy_precond_launch(int dtype_code, const void* x,
                                    const void* r, const void* p,
                                    const void* ap, const void* inv,

@@ -18,6 +18,9 @@ wrapper sums the partials with ``torch.sum``, a fixed order.  Beside each
 kernel is its plain PyTorch version (:func:`spmv_dot_plain`,
 :func:`fused_axpy_precond_plain`), which the wrappers take for CPU tensors
 only; for CUDA tensors they launch the kernel or raise.
+:func:`spmv_dot_partials` and :func:`axpy_precond_partials` return the
+partials themselves (their plain versions :func:`spmv_dot_partials_plain`,
+:func:`axpy_precond_partials_plain` compute them bit for bit).
 
 :func:`spmv_dot_cost` and :func:`fused_axpy_precond_cost` are the JAX
 package's byte and flop contracts, as ints.
@@ -32,8 +35,9 @@ from repro_torch.kernels.spmv_dia.spmv_dia import (
 from repro_torch.sparse.distributed import spmv_dia
 
 __all__ = ["fused_matvec_dot", "fused_update_step", "spmv_dot_partials",
-           "spmv_dot_plain", "spmv_dot_partials_plain",
-           "fused_axpy_precond_plain", "block_partials_plain", "spmv_dot_cost",
+           "axpy_precond_partials", "spmv_dot_plain", "spmv_dot_partials_plain",
+           "fused_axpy_precond_plain", "axpy_precond_partials_plain",
+           "block_partials_plain", "check_axpy_operands", "spmv_dot_cost",
            "fused_axpy_precond_cost", "DEFAULT_BLOCK_ROWS"]
 
 # the JAX kernels' row block, the default of the cost contracts below
@@ -93,7 +97,7 @@ def block_partials_plain(v: torch.Tensor,
     """The kernels' reduction partials of ``v`` in their order: ``v``
     flattened and zero-padded to whole blocks of ``block_rows`` (a power of
     two), each block summed pairwise, ``a[:, :h] + a[:, h:]`` for ``h`` =
-    ``block_rows / 2`` down to 1 (``block_sum`` in ``csrc/common.cuh``)."""
+    ``block_rows / 2`` down to 1 (the tree order of ``csrc/common.cuh``)."""
     v = v.reshape(-1)
     n_blocks = -(-v.numel() // block_rows)
     a = v.new_zeros(n_blocks * block_rows)
@@ -118,26 +122,37 @@ def spmv_dot_partials_plain(bands: torch.Tensor, x: torch.Tensor, *,
     return y.to(bands.dtype), block_partials_plain(xa * y)
 
 
+def _axpy_vectors(x, r, p, Ap, inv_diag, alpha):
+    a = alpha.to(x.dtype)
+    rn = r - a * Ap
+    return x + a * p, rn, rn * inv_diag
+
+
 def fused_axpy_precond_plain(x, r, p, Ap, inv_diag, alpha,
                              accum_dtype: torch.dtype | None = None):
     """``(x', r', z, r'.z, r'.r')`` over stacked parts."""
     acc = accum_dtype or x.dtype
-    a = alpha.to(x.dtype)
-    xn = x + a * p
-    rn = r - a * Ap
-    z = rn * inv_diag
+    xn, rn, z = _axpy_vectors(x, r, p, Ap, inv_diag, alpha)
     rn_a = rn.to(acc)
     return xn, rn, z, _vdot(rn_a, z.to(acc)), _vdot(rn_a, rn_a)
+
+
+def axpy_precond_partials_plain(x, r, p, Ap, inv_diag, alpha,
+                                accum_dtype: torch.dtype | None = None):
+    """``(x', r', z, rz_partials, rr_partials)`` as the kernel computes
+    them, bit for bit: the plain version's vectors and
+    :func:`block_partials_plain` of the accum-width ``r'.z`` and ``r'.r'``
+    terms."""
+    acc = accum_dtype or x.dtype
+    xn, rn, z = _axpy_vectors(x, r, p, Ap, inv_diag, alpha)
+    rn_a = rn.to(acc)
+    return (xn, rn, z, block_partials_plain(rn_a * z.to(acc)),
+            block_partials_plain(rn_a * rn_a))
 
 
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
-
-def _partials(n: int, dtype: torch.dtype, device) -> torch.Tensor:
-    return torch.empty((-(-n // KERNEL_BLOCK_ROWS),), dtype=dtype,
-                       device=device)
-
 
 def spmv_dot_partials(bands: torch.Tensor, x: torch.Tensor, *,
                       offsets: tuple[int, ...], plane: int,
@@ -153,7 +168,8 @@ def spmv_dot_partials(bands: torch.Tensor, x: torch.Tensor, *,
     code = dtype_code(bands.dtype, acc)
     P, nb, m = bands.shape
     y = torch.empty_like(x)
-    part = _partials(P * m, acc, x.device)
+    part = torch.empty((-(-P * m // KERNEL_BLOCK_ROWS),), dtype=acc,
+                       device=x.device)
     rc = load("krylov_fused").spmv_dot_launch(
         code, bands.data_ptr(), x.data_ptr(), y.data_ptr(), part.data_ptr(),
         P, m, _offsets_arg(offsets), nb, stream_ptr(x))
@@ -176,6 +192,76 @@ def fused_matvec_dot(bands: torch.Tensor, x: torch.Tensor, *,
     return y, part.sum()
 
 
+def check_axpy_operands(vecs, alpha: torch.Tensor) -> list[int]:
+    """Raise unless the five vectors (one shape, dtype and CUDA device;
+    contiguous; 16-byte aligned, for the kernel's vector loads) and the
+    one-element ``alpha`` on their device suit the kernel; returns the
+    vectors' data pointers."""
+    x = vecs[0]
+    dev, dtype, shape = x.device, x.dtype, x.shape
+    for v in vecs[1:]:
+        if v.device != dev or v.dtype != dtype or v.shape != shape:
+            raise ValueError("x, r, p, Ap, inv_diag must share device, dtype "
+                             "and shape")
+    if not all(v.is_contiguous() for v in vecs):
+        raise ValueError("kernel operands must be contiguous")
+    ptrs = [v.data_ptr() for v in vecs]
+    if any(ptr % 16 for ptr in ptrs):
+        raise ValueError("kernel operands must start on a 16-byte boundary")
+    if dev.type != "cuda" or alpha.device != dev or alpha.numel() != 1:
+        raise ValueError("alpha must be a one-element tensor on the vectors' "
+                         "CUDA device")
+    return ptrs
+
+
+# the partial rows' stride in elements: 512 bytes or more apart, so the r.r
+# row is aligned as a buffer of its own would be and torch.sum reduces it
+# in the same order
+_PARTIAL_STRIDE = 128
+
+
+def _axpy_launch(vecs, alpha: torch.Tensor, acc: torch.dtype):
+    """Launch the kernel on CUDA operands: ``(x', r', z, rz_partials,
+    rr_partials)``, the partials two rows of one buffer."""
+    x = vecs[0]
+    code = dtype_code(x.dtype, acc)
+    ptrs = check_axpy_operands(vecs, alpha)
+    if alpha.dtype != acc:
+        alpha = alpha.to(acc)
+    n = x.numel()
+    nb = -(-n // KERNEL_BLOCK_ROWS)
+    stride = -(-nb // _PARTIAL_STRIDE) * _PARTIAL_STRIDE
+    part = torch.empty(2 * stride, dtype=acc, device=x.device)
+    xo, ro, zo = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    rz_ptr = part.data_ptr()
+    rc = load("krylov_fused").axpy_precond_launch(
+        code, *ptrs, alpha.data_ptr(), xo.data_ptr(), ro.data_ptr(),
+        zo.data_ptr(), rz_ptr, rz_ptr + stride * part.element_size(), n,
+        stream_ptr(x))
+    if rc != 0:
+        raise RuntimeError(f"axpy_precond kernel launch failed (code {rc})")
+    fused_update_step.launches += 1
+    return xo, ro, zo, part[:nb], part[stride:stride + nb]
+
+
+def _on_cpu(vecs, alpha: torch.Tensor) -> bool:
+    return alpha.device.type == "cpu" and all(v.device.type == "cpu"
+                                              for v in vecs)
+
+
+def axpy_precond_partials(x, r, p, Ap, inv_diag, alpha,
+                          accum_dtype: torch.dtype | None = None):
+    """``(x', r', z, rz_partials, rr_partials)``: the vectors in the
+    storage dtype and the ``r'.z``, ``r'.r'`` partials, one per
+    :data:`KERNEL_BLOCK_ROWS` flat rows, in the accum dtype.  On CPU
+    tensors: :func:`axpy_precond_partials_plain`."""
+    vecs = (x, r, p, Ap, inv_diag)
+    if _on_cpu(vecs, alpha):
+        return axpy_precond_partials_plain(*vecs, alpha,
+                                           accum_dtype=accum_dtype)
+    return _axpy_launch(vecs, alpha, accum_dtype or x.dtype)
+
+
 def fused_update_step(x, r, p, Ap, inv_diag, alpha,
                       accum_dtype: torch.dtype | None = None):
     """Fused axpy pair + Jacobi apply + global ``(r'.z, r'.r')`` dots.
@@ -185,31 +271,9 @@ def fused_update_step(x, r, p, Ap, inv_diag, alpha,
     Returns ``(x', r', z, rz, rr)``, the dots in the accum dtype.
     """
     vecs = (x, r, p, Ap, inv_diag)
-    if all(v.device.type == "cpu" for v in vecs + (alpha,)):
-        return fused_axpy_precond_plain(x, r, p, Ap, inv_diag, alpha,
-                                        accum_dtype=accum_dtype)
-    acc = accum_dtype or x.dtype
-    code = dtype_code(x.dtype, acc)
-    for v in vecs:
-        if v.device != x.device or v.dtype != x.dtype or v.shape != x.shape:
-            raise ValueError("x, r, p, Ap, inv_diag must share device, dtype "
-                             "and shape")
-        if not v.is_contiguous():
-            raise ValueError("kernel operands must be contiguous")
-    if x.device.type != "cuda" or alpha.device != x.device or alpha.numel() != 1:
-        raise ValueError("alpha must be a one-element tensor on the vectors' "
-                         "CUDA device")
-    alpha = alpha.to(acc).contiguous()
-    n = x.numel()
-    xo, ro, zo = (torch.empty_like(x) for _ in range(3))
-    rz, rr = _partials(n, acc, x.device), _partials(n, acc, x.device)
-    rc = load("krylov_fused").axpy_precond_launch(
-        code, *(v.data_ptr() for v in vecs), alpha.data_ptr(),
-        xo.data_ptr(), ro.data_ptr(), zo.data_ptr(), rz.data_ptr(),
-        rr.data_ptr(), n, stream_ptr(x))
-    if rc != 0:
-        raise RuntimeError(f"axpy_precond kernel launch failed (code {rc})")
-    fused_update_step.launches += 1
+    if _on_cpu(vecs, alpha):
+        return fused_axpy_precond_plain(*vecs, alpha, accum_dtype=accum_dtype)
+    xo, ro, zo, rz, rr = _axpy_launch(vecs, alpha, accum_dtype or x.dtype)
     return xo, ro, zo, rz.sum(), rr.sum()
 
 

@@ -23,8 +23,12 @@ from repro_torch.kernels import WRAPPERS, launch_counts, reset_launch_counts
 from repro_torch.kernels._build import SOURCES, dtype_code
 from repro_torch.kernels.coef_update.coef_update import (
     check_gather_operands, coef_update_plain, coef_update_stacked)
+from repro_torch.fvm.mesh import CavityMesh
+from repro_torch.fvm.piso import make_solver
+from repro_torch.kernels.krylov_fused import krylov_fused as torch_kf
 from repro_torch.kernels.krylov_fused.krylov_fused import (
-    block_partials_plain, fused_axpy_precond_cost, fused_axpy_precond_plain,
+    axpy_precond_partials, axpy_precond_partials_plain, block_partials_plain,
+    check_axpy_operands, fused_axpy_precond_cost, fused_axpy_precond_plain,
     fused_matvec_dot, fused_update_step, spmv_dot_cost, spmv_dot_partials,
     spmv_dot_partials_plain, spmv_dot_plain)
 from repro_torch.kernels.spmv_dia.spmv_dia import (check_stacked_operands,
@@ -195,6 +199,153 @@ def test_spmv_dot_partials_on_cpu_are_the_plain_versions(storage, accum,
     for g, w in zip(spmv_dot_partials_plain(b, x, **kw), (y_want, part_want)):
         assert torch.equal(g, w)
     _close(float(part.sum()), float(dot), 10 * tol)
+
+
+def _axpy_kernel_partials(v, storage):
+    """The axpy kernel's partials (csrc/krylov_fused.cu) in its own order:
+    a warp per 256-row partial, lane l holding L = 8 / W vectors of W = 16 /
+    itemsize consecutive rows (vector w at rows 32*W*w + W*l + k); the
+    vectors of one thread added in registers (levels 128 .. 32W), then
+    five ``__shfl_down_sync`` levels 16 .. 1 lanes apart on each live
+    value (a lane past 31 reads its own value, as the hardware returns),
+    then the rows of one vector in registers (levels W/2 .. 1); lane 0's
+    first value is the partial."""
+    W = 16 // torch.empty((), dtype=storage).element_size()
+    L = 8 // W
+    n = v.numel()
+    nb = -(-n // 256)
+    a = v.new_zeros(nb * 256)
+    a[:n] = v
+    e = a.reshape(nb, L, 32, W)            # [warp, vector, lane, row]
+    s = L // 2
+    while s >= 1:
+        e = e[:, :s] + e[:, s:2 * s]
+        s //= 2
+    e = e[:, 0]                            # [warp, lane, row]
+    for d in (16, 8, 4, 2, 1):
+        down = torch.cat([e[:, d:], e[:, 32 - d:]], dim=1)
+        e = e + down
+    e = e[:, 0]                            # lane 0: [warp, row]
+    s = W // 2
+    while s >= 1:
+        e = e[:, :s] + e[:, s:2 * s]
+        s //= 2
+    return e[:, 0]
+
+
+@pytest.mark.parametrize("n", [256, 3 * 777, 4097])
+@pytest.mark.parametrize("storage,accum,tol", PAIRS)
+def test_axpy_kernel_order_is_block_partials_plain(n, storage, accum, tol):
+    """The axpy kernel's warp-shuffle order gives block_partials_plain's
+    partials bit for bit: a thread's vectors and the lanes pair the rows
+    of the tree's levels exactly, whatever the storage width."""
+    rng = np.random.default_rng(n)
+    r = _t(rng.standard_normal(n), storage).to(getattr(torch, accum))
+    z = _t(rng.standard_normal(n), storage).to(getattr(torch, accum))
+    for v in (r * z, r * r):
+        got = _axpy_kernel_partials(v, getattr(torch, storage))
+        want = block_partials_plain(v)
+        assert got.dtype == want.dtype == getattr(torch, accum)
+        assert torch.equal(got, want)
+    # a warp's lanes past the shuffle distance add values no level reads
+    v = torch.zeros(256, dtype=getattr(torch, accum))
+    v[255] = 1.0
+    assert float(_axpy_kernel_partials(v, getattr(torch, storage))[0]) == 1.0
+
+
+@pytest.mark.parametrize("P,m", [(1, 4096), (3, 777)])
+@pytest.mark.parametrize("storage,accum,tol", PAIRS)
+def test_fused_update_step_on_cpu_is_the_plain_version_and_ref(
+        P, m, storage, accum, tol):
+    """On CPU tensors the wrapper returns the plain version's results bit
+    for bit, launches nothing, and agrees with the JAX oracle."""
+    ops = _operands(P, m, storage, seed=5)
+    names = ("x", "r", "p", "Ap", "inv")
+    alpha = 0.37
+    vecs = [_t(ops[k], storage) for k in names]
+    a = torch.tensor(alpha, dtype=getattr(torch, accum))
+    reset_launch_counts()
+    got = fused_update_step(*vecs, a, accum_dtype=getattr(torch, accum))
+    assert launch_counts()["axpy_precond"] == 0
+    for g, w in zip(got, fused_axpy_precond_plain(
+            *vecs, a, accum_dtype=getattr(torch, accum))):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    want = fused_axpy_precond_ref(
+        *(_j(ops[k].reshape(-1), storage) for k in names),
+        jnp.asarray(alpha, getattr(jnp, accum)), accum_dtype=accum)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.shape == (P, m) and g.dtype == getattr(torch, storage)
+        _close(g.double().reshape(-1), w.astype(jnp.float64), tol)
+    for g, w in zip(got[3:], want[3:]):
+        assert g.dtype == getattr(torch, accum)
+        _close(float(g), float(w), 10 * tol)
+
+
+@pytest.mark.parametrize("storage,accum,tol", PAIRS)
+def test_axpy_precond_partials_on_cpu_are_the_plain_versions(storage, accum,
+                                                             tol):
+    """On CPU tensors the partials entry point returns the plain vectors
+    and the tree-order partials of the accum-width terms, whose sums are
+    the plain dots."""
+    ops = _operands(3, 777, storage, seed=6)
+    vecs = [_t(ops[k], storage) for k in ("x", "r", "p", "Ap", "inv")]
+    a = torch.tensor(0.29, dtype=getattr(torch, accum))
+    acc = getattr(torch, accum)
+    got = axpy_precond_partials(*vecs, a, accum_dtype=acc)
+    plain = fused_axpy_precond_plain(*vecs, a, accum_dtype=acc)
+    for g, w in zip(got[:3], plain[:3]):
+        assert torch.equal(g, w)
+    rn = plain[1].to(acc)
+    for g, term, dot in ((got[3], rn * plain[2].to(acc), plain[3]),
+                         (got[4], rn * rn, plain[4])):
+        assert g.shape == (-(-3 * 777 // 256),) and g.dtype == acc
+        assert torch.equal(g, block_partials_plain(term))
+        _close(float(g.sum()), float(dot), 10 * tol)
+    for g, w in zip(got, axpy_precond_partials_plain(*vecs, a,
+                                                     accum_dtype=acc)):
+        assert torch.equal(g, w)
+
+
+def test_check_axpy_operands_raise():
+    base = torch.zeros(2 * 64 + 1, dtype=torch.float64)
+    vecs = [torch.zeros((2, 64), dtype=torch.float64) for _ in range(5)]
+    alpha = torch.tensor(0.5, dtype=torch.float64)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        check_axpy_operands(vecs[:4] + [base[1:].reshape(2, 64)], alpha)
+    with pytest.raises(ValueError, match="share device, dtype and shape"):
+        check_axpy_operands(vecs[:4] + [vecs[4].float()], alpha)
+    with pytest.raises(ValueError, match="contiguous"):
+        check_axpy_operands(vecs[:4] + [base[:128].reshape(64, 2).T],
+                            alpha)
+    with pytest.raises(ValueError, match="CUDA"):
+        check_axpy_operands(vecs, alpha)
+    with pytest.raises(ValueError, match="CUDA"):
+        # neither all on the CPU (the plain version) nor on a card
+        fused_update_step(*vecs, alpha.to("meta"))
+
+
+@pytest.mark.parametrize("case,program,precision", [
+    ("cavity", "piso", "f64"), ("cavity", "piso", "f32_ir"),
+    ("channel", "piso", "bf16_ir"), ("channel", "simple", "f64")])
+def test_axpy_operands_are_16_byte_aligned_at_every_call_site(
+        monkeypatch, case, program, precision):
+    """Every vector the solvers hand the axpy wrapper starts on a 16-byte
+    boundary (the kernel's vector loads need it): a step of each program,
+    case and policy on the fused backend's CPU path, each call's operands
+    recorded."""
+    seen = []
+    plain = torch_kf.fused_axpy_precond_plain
+
+    def recording(*args, **kwargs):
+        seen.append([t.data_ptr() % 16 for t in args[:5]])
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(torch_kf, "fused_axpy_precond_plain", recording)
+    solver = make_solver(program, CavityMesh.cube(8, 4), alpha=2,
+                         case=case, precision=precision,
+                         solver_backend="fused", device="cpu")
+    solver.step(solver.initial_state(), 2e-4)
+    assert seen and all(m == [0] * 5 for m in seen)
 
 
 def test_wrappers_take_plain_versions_on_cpu_without_launching():
