@@ -4,6 +4,7 @@
   python3 chip_smoke.py
   python3 chip_smoke.py --compare LABEL=CSRC_DIR [LABEL=CSRC_DIR ...]
   python3 chip_smoke.py --step-timing REPEATS
+  python3 chip_smoke.py --profile-cg ITERS
 
 Runs from the root of a checkout and needs one CUDA card; with no card, or
 without the rest of the checkout beside it, it exits nonzero and prints no
@@ -29,12 +30,30 @@ result.  Phases, in order (any failure exits nonzero):
    byte floor, the plain version's time, the host's microseconds per
    wrapper call and, where one PyTorch call computes the same function,
    that call's (a yardstick the port never calls); the axpy kernel is
-   also timed alone, raw launches on preallocated outputs;
+   also timed alone, raw launches on preallocated outputs.  The device
+   loop's kernels and forms: ``cg_direction`` bitwise its plain version
+   and the eager ``z + beta.to(z.dtype) * p`` it replaces for every dtype
+   pair at the three shapes, unguarded, under a True flag and writing
+   nothing under a False one; the axpy kernel's in-place form and the
+   guarded SpMV+dot and SpMV likewise; ``cg_advance`` against its plain
+   version; ``cg_direction`` timed beside its byte floor (wrapper, alone,
+   the eager pair, the plain version, ``torch.add``), the in-place axpy
+   alone against the out-of-place one in turns, ``cg_advance``;
 4. the main path at full size: 3 PISO steps of the 210^3 cavity, 30 fine
    parts fused with alpha = 30, through the launcher's code path, with the
-   kernels: the step's four kernels' launch counters must move (the
-   value update 3 times a step), every step converge with a continuity
-   error below 1e-6;
+   kernels: the step's six kernels' launch counters must move (the value
+   update 3 times a step; the four CG kernels once per CG iteration: a
+   launch under the loop's guard is counted by its kernel on the device,
+   and every sweep's device counts must equal its iterations times the
+   loop body's launches), every step converge with a continuity error
+   below 1e-6, and every sweep of the device loop (route, K, its host
+   reads, capture ms printed) read the device at most ``ceil(iterations /
+   K) + 4`` times; then (4b) the device
+   loop against the former host loop from the main run's state, with the
+   kernels: the f64 pressure CG sweep, the three f64 momentum BiCGStab
+   sweeps and an ``f32_ir`` pressure solve, ``x`` bitwise and identical
+   counts and flags, and the pressure and momentum sweeps timed at
+   K = 1, 2, 4, 8, 32 and 128 (ms per iteration, capture ms, host reads);
 5. determinism: the kernel run again, step by step, bitwise equal;
 6. parity: the plain-PyTorch backend takes each step from the kernel run's
    state (step 0 from the shared initial state) and must agree within
@@ -43,7 +62,11 @@ result.  Phases, in order (any failure exits nonzero):
    tolerance (the two backends round their dot products in different
    orders, and a Krylov solve only pins its answer to its tolerance, so
    free runs drift apart at that level); a small mesh on the card is held
-   against the port's CPU run; one step is timed phase by phase;
+   against the port's CPU run; one step is timed phase by phase (a
+   synchronisation around each phase), and ``solver.timed_step`` (the
+   instrumented executor: CUDA events at the phase boundaries) from the
+   same state must give a bitwise equal state and a PhaseBreakdown whose
+   total lies within 10 % of that walk's;
 7. rebinding: from the main run's state, ``rebind_alpha(15)`` and one
    step, held to the alpha-30 step from the same state (1e-10, identical
    counts and flags); ``rebind_alpha(30)`` then builds nothing;
@@ -90,17 +113,23 @@ comparison as JSON.  With ``--step-timing``, only phases 1 and 2 run, and then t
 path's first step from rest, walked phase by phase ``REPEATS`` times after
 one untimed step, gives the ms per pressure-CG iteration, and phase 10's
 pressure solves alone the ms per inner iteration of each policy; the last
-line is those as JSON.  It uses only what the port has had since its
-fourth slice (the refinement loop and the channel), so a copy of this
-script beside another such checkout's ``src`` times that tree the same
+line is those as JSON.  With ``--profile-cg``, only phases 1 and 2 run,
+and then the main path's first pressure CG, capped at ``ITERS``
+iterations, under ``torch.profiler``: device time per iteration by part
+(SpMV+dot, axpy, partial sums, the p update, scalar ops, host reads) and
+the device's idle share.  Both modes use only what the port has had since
+its fourth slice (the refinement loop and the channel), so a copy of this
+script beside another such checkout's ``src`` measures that tree the same
 way.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import hashlib
+import itertools
 import json
 import re
 import subprocess
@@ -134,28 +163,44 @@ CONTINUITY = 1e-6
 # kernel vs plain version, relative to the output's max, per storage dtype
 TOLERANCE = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 2e-2}
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
+L2_BYTES = 50 * 2 ** 20             # H100 SXM L2
 FLOPS_PER_S = {"float64": 34e12,    # FP64 outside the tensor cores
                "float32": 67e12, "bfloat16": 67e12}
 SOURCES = {"spmv_dia": "src/repro_torch/csrc/spmv_dia.cu",
            "spmv_dot": "src/repro_torch/csrc/krylov_fused.cu",
            "axpy_precond": "src/repro_torch/csrc/krylov_fused.cu",
            "coef_update": "src/repro_torch/csrc/coef_update.cu",
-           "momentum_bands": "src/repro_torch/csrc/stencil_assembly.cu"}
+           "momentum_bands": "src/repro_torch/csrc/stencil_assembly.cu",
+           "cg_direction": "src/repro_torch/csrc/krylov_loop.cu",
+           "cg_advance": "src/repro_torch/csrc/krylov_loop.cu"}
 REPLACES = {"spmv_dia": "src/repro/kernels/spmv_dia/spmv_dia.py:53",
             "spmv_dot": "src/repro/kernels/krylov_fused/krylov_fused.py:118",
             "axpy_precond":
                 "src/repro/kernels/krylov_fused/krylov_fused.py:189",
             "coef_update": "src/repro/kernels/coef_update/coef_update.py:37",
             "momentum_bands": "src/repro/kernels/stencil_assembly/"
-                              "stencil_assembly.py:74"}
+                              "stencil_assembly.py:74",
+            # port-only kernels: no TPU kernel does this work; the JAX
+            # solver lines they replace
+            "cg_direction": "src/repro/solvers/cg.py:74",
+            "cg_advance": "src/repro/solvers/cg.py:78"}
+# the guarded launches one iteration of each device loop makes: every
+# sweep's device counters must read these times its iterations
+LOOP_LAUNCHES = {"cg": {"spmv_dot": 1, "axpy_precond": 1, "cg_direction": 1,
+                        "cg_advance": 1},
+                 "bicgstab": {"spmv_dia": 2}}
 # the kernels a PISO step launches; the momentum-assembly kernel belongs to
 # the refactoring baseline's entry point (phase 8)
-STEP_KERNELS = ("spmv_dia", "spmv_dot", "axpy_precond", "coef_update")
+STEP_KERNELS = ("spmv_dia", "spmv_dot", "axpy_precond", "coef_update",
+                "cg_direction", "cg_advance")
 # kernels whose every instantiation must compile without a stack frame or
 # spills (ptxas -v): the SpMV kernels read the band offsets at compile-time
 # indices, the axpy kernel indexes its row arrays at compile-time indices
 NO_FRAME_KERNELS = ("spmv_dia_kernel", "spmv_dot_kernel",
                     "axpy_precond_kernel")
+# ... and, since the device-resident loop, the axpy kernel's in-place form
+# and the CG direction update
+LOOP_NO_FRAME_KERNELS = ("axpy_precond_inplace_kernel", "cg_direction_kernel")
 ASSEMBLY_PARITY = 1e-12  # momentum_bands vs assembly + update, elementwise
 #                          rtol = atol (tests/test_kernels.py's bar)
 # the policies whose 210^3 channel step must converge.  bf16_ir refines
@@ -266,7 +311,12 @@ def build_phase() -> None:
             records[fn] = rec
             if "registers" in rec:
                 print_record(src, fn, rec)
-    counts = check_frames(records)
+    # a tree from before the device loop (timed by a copy of this script)
+    # has neither the in-place axpy nor krylov_loop.cu
+    from repro_torch.kernels._build import SOURCES as built
+    kernels = NO_FRAME_KERNELS + (LOOP_NO_FRAME_KERNELS
+                                  if "krylov_loop" in built else ())
+    counts = check_frames(records, kernels)
     print(f"  no stack frame, no spills: {counts} instantiations")
 
 
@@ -368,6 +418,69 @@ def axpy_launcher(torch, lib, vecs, alpha, accum):
         rc = lib.axpy_precond_launch(*args)
         require(rc == 0, f"axpy_precond launch failed ({rc})")
         return outs
+    return launch
+
+
+def axpy_inplace_launchers(torch, vecs, alpha, accum):
+    """The axpy kernel in the form the CG loop calls it, on copies of ``x``
+    and ``r`` that it updates in place: ``(wrapper, raw, partials)`` —
+    ``fused_update_step_into`` (the in-place launch and the two
+    ``torch.sum`` of the partials into fixed buffers), a raw launch of
+    ``axpy_precond_inplace_launch`` (no check, no sum, no launch count),
+    and the two partial rows both write."""
+    from repro_torch.kernels._build import dtype_code, load
+    from repro_torch.kernels.krylov_fused.krylov_fused import (
+        fused_update_step_into, partials_buffers)
+    from repro_torch.kernels.spmv_dia.spmv_dia import stream_ptr
+
+    x, r = vecs[0].clone(), vecs[1].clone()
+    n = x.numel()
+    z = torch.empty_like(x)
+    part = partials_buffers(n, accum, x.device)
+    rz, rr = (torch.empty((), dtype=accum, device=x.device) for _ in "ab")
+    a = alpha.to(accum)
+    lib = load("krylov_fused")
+    args = (dtype_code(x.dtype, accum), x.data_ptr(), r.data_ptr(),
+            *(v.data_ptr() for v in vecs[2:]), a.data_ptr(), z.data_ptr(),
+            part["rz"].data_ptr(), part["rr"].data_ptr(), n, 0, 0,
+            stream_ptr(x))
+
+    def wrapper():
+        fused_update_step_into(x, r, *vecs[2:], a, z, rz, rr, part,
+                               accum_dtype=accum)
+
+    def raw(_keep=(x, r, z, a, part, *vecs)):
+        rc = lib.axpy_precond_inplace_launch(*args)
+        require(rc == 0, f"axpy_precond in-place launch failed ({rc})")
+
+    return wrapper, raw, (part["rz"], part["rr"])
+
+
+def spmv_launcher(torch, name, bands, x, offsets, accum):
+    """Raw launches of this tree's ``spmv_dia_launch`` or
+    ``spmv_dot_launch`` (``name``: "spmv_dia" or "spmv_dot") into
+    preallocated outputs: a function that launches once."""
+    from repro_torch.kernels._build import dtype_code, load
+    from repro_torch.kernels.spmv_dia.spmv_dia import (KERNEL_BLOCK_ROWS,
+                                                       _offsets_arg,
+                                                       stream_ptr)
+
+    P, nb, m = bands.shape
+    y = torch.empty_like(x)
+    part = torch.empty(-(-P * m // KERNEL_BLOCK_ROWS), dtype=accum,
+                       device=x.device)
+    head = (dtype_code(bands.dtype, accum), bands.data_ptr(), x.data_ptr(),
+            y.data_ptr())
+    tail = (P, m, _offsets_arg(offsets), nb, stream_ptr(x))
+    if name == "spmv_dia":
+        fn, args = load("spmv_dia").spmv_dia_launch, head + tail
+    else:
+        fn = load("krylov_fused").spmv_dot_launch
+        args = head + (part.data_ptr(),) + tail
+
+    def launch(_keep=(bands, x, y, part)):
+        rc = fn(*args)
+        require(rc == 0, f"{name} launch failed ({rc})")
     return launch
 
 
@@ -500,7 +613,206 @@ def check_kernels(torch, dev) -> dict:
     torch.cuda.empty_cache()
     report["momentum_bands"] = check_momentum_bands(torch, dev)
     torch.cuda.empty_cache()
+    check_loop_kernels(torch, dev, report)
+    torch.cuda.empty_cache()
     return report
+
+
+def check_loop_kernels(torch, dev, report: dict) -> None:
+    """The device loop's kernels and forms on the card, for every dtype pair
+    at the three shapes: ``cg_direction`` bitwise its plain version and the
+    eager pair it replaces (``z + beta.to(z.dtype) * p``), unguarded and
+    under a True flag, and writing nothing under a False one; the axpy
+    kernel's in-place form, the guarded SpMV+dot and SpMV likewise;
+    ``cg_advance`` against its plain version.  Then, at the pressure shape,
+    ``cg_direction`` timed (wrapper, alone, the eager pair, the plain
+    version, ``torch.add(z, p, alpha=beta)``) beside its byte floor, the
+    in-place axpy alone against the out-of-place one in turns, and
+    ``cg_advance``; the entries go into ``report``."""
+    from repro_torch.kernels.krylov_fused.krylov_fused import (
+        axpy_precond_inplace, axpy_precond_partials_plain, spmv_dot_partials)
+    from repro_torch.kernels.krylov_loop.krylov_loop import (
+        cg_advance, cg_advance_plain, cg_direction, cg_direction_plain)
+    from repro_torch.kernels.spmv_dia.spmv_dia import (KERNEL_BLOCK_ROWS,
+                                                       spmv_dia_stacked)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    report["cg_direction"] = {"max_abs_err": 0.0}
+    report["cg_advance"] = {"max_abs_err": 0.0}
+    for label, P, m, nx, plane in shapes():
+        inputs = make_inputs(torch, P, m, gen, dev)
+        offsets = offsets_for(nx, plane)
+        for storage, accum in policy_pairs():
+            sname = str(storage).removeprefix("torch.")
+            p0, z = inputs["p"].to(storage), inputs["r"].to(storage)
+            g_new = torch.tensor(0.37, dtype=accum, device=dev)
+            g = torch.tensor(0.91, dtype=accum, device=dev)
+            want = cg_direction_plain(p0.clone(), z, g_new, g)
+            same = {"eager pair": torch.equal(
+                want, z + (g_new / g).to(storage) * p0)}
+            for tag, flag in (("unguarded", None), ("active", on)):
+                p = p0.clone()
+                cg_direction(p, z, g_new, g, flag)
+                same[tag] = torch.equal(p, want)
+            p = p0.clone()
+            cg_direction(p, z, g_new, g, off)
+            same["idle writes nothing"] = torch.equal(p, p0)
+            print(f"  bitwise {label:9s} {sname:8s}: cg_direction "
+                  + ", ".join(f"{k} {v}" for k, v in same.items()))
+            require(all(same.values()),
+                    f"cg_direction not bitwise at {label} {sname}: {same}")
+
+            vecs = [inputs[k].to(storage) for k in AXPY_OPERANDS]
+            alpha = inputs["alpha"].to(accum)
+            want = axpy_precond_partials_plain(*vecs, alpha,
+                                               accum_dtype=accum)
+            nb = -(-vecs[0].numel() // KERNEL_BLOCK_ROWS)
+            same = {}
+            for tag, flag in (("active", on), ("idle", off)):
+                x, r = vecs[0].clone(), vecs[1].clone()
+                outs = [torch.zeros_like(x)] + [
+                    torch.zeros(nb, dtype=accum, device=dev)
+                    for _ in range(2)]
+                axpy_precond_inplace(x, r, *vecs[2:], alpha, *outs,
+                                     accum_dtype=accum, active=flag)
+                if flag is on:
+                    same[tag] = all(torch.equal(a, b) for a, b in zip(
+                        (x, r, *outs), want))
+                else:
+                    same["idle writes nothing"] = (
+                        torch.equal(x, vecs[0]) and torch.equal(r, vecs[1])
+                        and not any(bool(o.any()) for o in outs))
+            b, xx = inputs["bands"].to(storage), inputs["x"].to(storage)
+            kw = dict(offsets=offsets, plane=plane, accum_dtype=accum)
+            y_w, part_w = spmv_dot_partials(b, xx, **kw)
+            ys_w = spmv_dia_stacked(b, xx, **kw)
+            for tag, flag in (("active", on), ("idle", off)):
+                y, part, ys = (torch.full_like(t, 7.0)
+                               for t in (y_w, part_w, ys_w))
+                spmv_dot_partials(b, xx, **kw, out=(y, part), active=flag)
+                spmv_dia_stacked(b, xx, **kw, out=ys, active=flag)
+                if flag is on:
+                    same[f"spmv {tag}"] = (torch.equal(y, y_w)
+                                           and torch.equal(part, part_w)
+                                           and torch.equal(ys, ys_w))
+                else:
+                    same["spmv idle writes nothing"] = all(
+                        bool((t == 7.0).all()) for t in (y, part, ys))
+            print(f"  bitwise {label:9s} {sname:8s}: axpy in place, guarded "
+                  "SpMVs: " + ", ".join(f"{k} {v}" for k, v in same.items()))
+            require(all(same.values()), f"the in-place axpy or a guarded SpMV "
+                                        f"is wrong at {label} {sname}: {same}")
+            if label == "pressure":
+                time_loop_kernels(torch, dev, report, sname, storage, accum,
+                                  p0, z, g_new, g, vecs, alpha)
+            del p0, z, vecs, want, b, xx, y_w, part_w, ys_w
+        del inputs
+        torch.cuda.empty_cache()
+    # cg_advance against its plain version: running, converging, capped,
+    # NaN, and under a False flag
+    for acc in (torch.float64, torch.float32):
+        for rr_new, k0, flag0 in ((2.0, 0, True), (0.5, 3, True),
+                                  (2.0, 8, True), (float("nan"), 0, True),
+                                  (2.0, 0, False)):
+            runs = []
+            for fn in (cg_advance, cg_advance_plain):
+                sc = [torch.tensor(v, dtype=acc, device=dev)
+                      for v in (1.5, 2.5, 3.5, rr_new)]
+                k = torch.tensor(k0, dtype=torch.int32, device=dev)
+                flag = torch.tensor(flag0, device=dev)
+                fn(*sc, k, flag, torch.tensor(1.0, dtype=acc, device=dev), 9)
+                runs.append([t.tolist() for t in (*sc, k, flag)])
+            require(str(runs[0]) == str(runs[1]),
+                    f"cg_advance {acc} differs from its plain version: {runs}")
+    print("  cg_advance == its plain version (running, converging, capped, "
+          "NaN, idle; float64 and float32)")
+
+
+def time_loop_kernels(torch, dev, report, sname, storage, accum, p, z, g_new,
+                      g, vecs, alpha) -> None:
+    """Phase 3's times of the loop kernels at the pressure shape.
+
+    ``cg_direction`` moves 3 values a row, and a (p, z) pair in bf16 or f32
+    (37 or 74 MB) could stay in the 50 MB L2 from one call to the next: its
+    calls rotate through copies of the pair, three times the L2 in all, so
+    that each call reads from HBM."""
+    from repro_torch.kernels._build import dtype_code, load
+    from repro_torch.kernels.krylov_loop.krylov_loop import (
+        cg_advance, cg_advance_cost, cg_advance_plain, cg_direction,
+        cg_direction_cost, cg_direction_plain)
+    from repro_torch.kernels.spmv_dia.spmv_dia import stream_ptr
+
+    n, size = p.numel(), p.element_size()
+    lib = load("krylov_loop")
+    code = dtype_code(storage, accum)
+    beta = float((g_new / g).to(storage))
+    n_sets = max(2, -(-3 * L2_BYTES // (2 * n * size)))
+    sets = [(p.clone(), z.clone()) for _ in range(n_sets)]
+    turn = itertools.cycle(sets)
+
+    def raw():
+        p_, z_ = next(turn)
+        rc = lib.cg_direction_launch(code, p_.data_ptr(), z_.data_ptr(),
+                                     g_new.data_ptr(), g.data_ptr(), n, 0, 0,
+                                     stream_ptr(p_))
+        require(rc == 0, f"cg_direction launch failed ({rc})")
+
+    def rotating(fn):
+        return lambda: fn(*next(turn))
+
+    rep = timing_report(
+        torch, f"cg_direction @pressure {sname}",
+        rotating(lambda p_, z_: cg_direction(p_, z_, g_new, g)),
+        rotating(lambda p_, z_: cg_direction_plain(p_, z_, g_new, g)),
+        cg_direction_cost(n, size),
+        library=rotating(lambda p_, z_: torch.add(z_, p_, alpha=beta)),
+        dtype=sname, raw=raw)
+    rep["eager_pair_ms"] = time_ms(torch, rotating(
+        lambda p_, z_: z_ + (g_new / g).to(storage) * p_))
+    rep["l2_rotation"] = n_sets
+    print(f"    the eager pair it replaces (z + beta.to(z.dtype) * p): "
+          f"{rep['eager_pair_ms']:.4f} ms; every call on the next of "
+          f"{n_sets} (p, z) copies")
+    del sets, turn
+    slot = report["cg_direction"]
+    if storage == torch.float64:
+        slot.update(rep)
+    else:
+        slot[sname] = rep
+
+    # the axpy kernel alone: in place (the loop's) against out of place
+    fns = {"out of place": axpy_launcher(torch, load("krylov_fused"), vecs,
+                                         alpha, accum),
+           "in place": axpy_inplace_launchers(torch, vecs, alpha, accum)[1]}
+    times = {k: [] for k in fns}
+    for k in ("out of place", "in place", "in place", "out of place"):
+        times[k].append(time_ms(torch, fns[k]))
+    means = {k: sum(v) / len(v) for k, v in times.items()}
+    slot = report["axpy_precond"]
+    if storage != torch.float64:
+        slot = slot[sname]
+    slot["inplace_alone"] = {"alone_ms": times, "mean_ms": means}
+    print(f"    axpy_precond alone, in turns: out of place "
+          f"{' '.join(f'{t:.4f}' for t in times['out of place'])}, in place "
+          f"{' '.join(f'{t:.4f}' for t in times['in place'])} ms")
+
+    if storage == torch.bfloat16:  # the guard has f32's accum dtype
+        return
+    sc = [torch.tensor(v, dtype=accum, device=dev) for v in (1., 1., 1., 1.)]
+    k = torch.zeros((), dtype=torch.int32, device=dev)
+    flag = torch.ones((), dtype=torch.bool, device=dev)
+    thr = torch.zeros((), dtype=accum, device=dev)
+    adv = timing_report(
+        torch, f"cg_advance {str(accum).removeprefix('torch.')}",
+        lambda: cg_advance(*sc, k, flag, thr, 2 ** 30),
+        lambda: cg_advance_plain(*sc, k, flag, thr, 2 ** 30),
+        cg_advance_cost(torch.finfo(accum).bits // 8), dtype=sname)
+    if storage == torch.float64:
+        report["cg_advance"].update(adv)
+    else:
+        report["cg_advance"][sname] = adv
 
 
 def time_kernels(torch, label, inputs, offsets, plane, pairs, report) -> None:
@@ -509,7 +821,9 @@ def time_kernels(torch, label, inputs, offsets, plane, pairs, report) -> None:
     width: all three at the pressure shape (``report[kernel]`` for f64,
     ``report[kernel][storage name]`` for the others), the SpMV kernel and,
     in f64, the SpMV+dot at the momentum shape
-    (``report[kernel]["momentum"]``, the same way)."""
+    (``report[kernel]["momentum"]``, the same way).  The axpy kernel is
+    timed in the in-place form the CG loop launches, the out-of-place form
+    beside it (``out_of_place``)."""
     from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels._build import load
     from repro_torch.kernels.krylov_fused.krylov_fused import (
@@ -540,19 +854,31 @@ def time_kernels(torch, label, inputs, offsets, plane, pairs, report) -> None:
         csr = csr_of_bands(torch, inputs["bands"].to(storage), offsets)
         x_flat = inputs["x"].to(storage).reshape(-1)
         for name, (k_fn, p_fn) in calls.items():
-            raw = None
             if name == "axpy_precond":
-                raw = axpy_launcher(
-                    torch, load("krylov_fused"),
-                    [inputs[k].to(storage) for k in AXPY_OPERANDS],
-                    inputs["alpha"], accum)
+                # the form the CG loop launches: x and r in place, into
+                # fixed buffers; the out-of-place wrapper and kernel (off
+                # the loop's path) are timed beside it for comparison
+                vecs = [inputs[k].to(storage) for k in AXPY_OPERANDS]
+                oop_fn = k_fn
+                oop_raw = axpy_launcher(torch, load("krylov_fused"), vecs,
+                                        inputs["alpha"], accum)
+                k_fn, raw, part = axpy_inplace_launchers(
+                    torch, vecs, inputs["alpha"], accum)
+            else:
+                raw = spmv_launcher(torch, name, inputs["bands"].to(storage),
+                                    inputs["x"].to(storage), offsets, accum)
             rep = timing_report(
                 torch, f"{name} @{label} {sname}", k_fn, p_fn, costs[name],
                 (lambda: csr @ x_flat) if name == "spmv_dia" else None,
                 dtype=sname, raw=raw)
-            if raw is not None:
+            if name == "axpy_precond":
+                rep["out_of_place"] = {
+                    "ms": time_ms(torch, oop_fn),
+                    "kernel_alone_ms": time_ms(torch, oop_raw)}
+                print(f"    out of place (off the loop's path): wrapper "
+                      f"{rep['out_of_place']['ms']:.4f} ms, alone "
+                      f"{rep['out_of_place']['kernel_alone_ms']:.4f} ms")
                 # the wrapper's two torch.sum of the partials, alone
-                part = raw()[3:]
                 sums = lambda: (part[0].sum(), part[1].sum())  # noqa: E731
                 rep["sums_ms"] = time_ms(torch, sums)
                 rep["sums_host_us"] = host_us(torch, sums)
@@ -600,8 +926,10 @@ def check_coef_update(torch, dev) -> dict:
     its plain version (a gather does no arithmetic) for every dtype."""
     from repro_torch.core.repartition import plan_for_mesh
     from repro_torch.fvm.mesh import CavityMesh
+    from repro_torch.kernels._build import load
     from repro_torch.kernels.coef_update.coef_update import (
         coef_update_cost, coef_update_plain, coef_update_stacked)
+    from repro_torch.kernels.spmv_dia.spmv_dia import stream_ptr
 
     mesh = CavityMesh.cube(N, PARTS)
     t0 = time.perf_counter()
@@ -639,11 +967,20 @@ def check_coef_update(torch, dev) -> dict:
         if label == "pressure":
             n_out = src.shape[0]
             src64 = src.long()
+            out = torch.empty((n_c, n_out), dtype=buf64.dtype, device=dev)
+            lib = load("coef_update")
+
+            def raw():
+                rc = lib.coef_update_launch(
+                    buf64.element_size(), buf64.data_ptr(), src.data_ptr(),
+                    out.data_ptr(), n_c, n_buf, n_out, stream_ptr(buf64))
+                require(rc == 0, f"coef_update launch failed ({rc})")
+
             rep.update(timing_report(
                 torch, "coef_update", lambda: coef_update_stacked(buf64, src),
                 lambda: coef_update_plain(buf64, src),
                 coef_update_cost(n_c, n_buf, n_out),
-                library=lambda: torch.index_select(buf64, 1, src)))
+                library=lambda: torch.index_select(buf64, 1, src), raw=raw))
             rep["int64_index_select_ms"] = time_ms(
                 torch, lambda: buf64.index_select(1, src64))
             print(f"    int64-index index_select (the update before the "
@@ -656,6 +993,8 @@ def check_coef_update(torch, dev) -> dict:
 def check_momentum_bands(torch, dev) -> dict:
     """The momentum-assembly kernel at the coarse (1 part) and fine (30
     parts) 210^3 shapes against its plain version."""
+    from repro_torch.kernels._build import DTYPE_CODES, load
+    from repro_torch.kernels.spmv_dia.spmv_dia import stream_ptr
     from repro_torch.kernels.stencil_assembly.stencil_assembly import (
         momentum_bands_cost, momentum_bands_plain, momentum_bands_stacked)
 
@@ -686,11 +1025,21 @@ def check_momentum_bands(torch, dev) -> dict:
                 rep["max_abs_err"] = abs_err
             del faces, got, want
         if label == "pressure":
+            out = torch.empty((P, 7, m), dtype=torch.float64, device=dev)
+            lib = load("stencil_assembly")
+
+            def raw():
+                rc = lib.momentum_bands_launch(
+                    DTYPE_CODES[(torch.float64, torch.float64)],
+                    *(f.data_ptr() for f in faces64), out.data_ptr(), P, m,
+                    nx, plane, float(kw["vdt"]), stream_ptr(out))
+                require(rc == 0, f"momentum_bands launch failed ({rc})")
+
             rep.update(timing_report(
                 torch, "momentum_bands",
                 lambda: momentum_bands_stacked(*faces64, **kw),
                 lambda: momentum_bands_plain(*faces64, **kw),
-                momentum_bands_cost(P * m)))
+                momentum_bands_cost(P * m), raw=raw))
         del faces64
     return rep
 
@@ -900,7 +1249,8 @@ PLAIN_VERSIONS = (
     ("krylov_fused", "spmv_dot_partials_plain"),
     ("krylov_fused", "fused_axpy_precond_plain"),
     ("krylov_fused", "axpy_precond_partials_plain"),
-    ("coef_update", "coef_update_plain"))
+    ("coef_update", "coef_update_plain"),
+    ("krylov_loop", "cg_direction_plain"), ("krylov_loop", "cg_advance_plain"))
 
 
 @contextlib.contextmanager
@@ -911,10 +1261,15 @@ def no_plain_versions():
 
     # the wrapper modules (each package re-exports a function of its name);
     # an older tree, timed by a copy of this script, may lack a name
-    mods = {m: importlib.import_module(f"repro_torch.kernels.{m}.{m}")
-            for m in ("spmv_dia", "krylov_fused", "coef_update")}
+    mods = {}
+    for m in {m for m, _ in PLAIN_VERSIONS}:
+        try:
+            mods[m] = importlib.import_module(f"repro_torch.kernels.{m}.{m}")
+        except ModuleNotFoundError:
+            continue
     saved = [(mods[m], name, getattr(mods[m], name))
-             for m, name in PLAIN_VERSIONS if hasattr(mods[m], name)]
+             for m, name in PLAIN_VERSIONS
+             if m in mods and hasattr(mods[m], name)]
 
     def refuse(name):
         def plain(*args, **kwargs):
@@ -958,16 +1313,28 @@ def main_path(torch) -> dict:
             log=lambda line: print(f"  {backend} from step {at}: {line}"))
 
     # the main drive: the launcher's loop with the kernels, counters from 0
+    from repro_torch.solvers.device_loop import (loop_records,
+                                                 reset_loop_records)
     state0 = solver.initial_state()
     reset_launch_counts()
+    reset_loop_records()
     state_f, stats_f, walls_f = steps("auto", state0, n)
     counts = launch_counts()
+    records = loop_records()
     print(f"  kernel launches over {n} steps: {counts}")
     require(all(counts[k] > 0 for k in STEP_KERNELS),
             f"a kernel of the main path was never launched: {counts}")
     require(counts["coef_update"] == 3 * n,
             f"the value update launched {counts['coef_update']} times in "
             f"{n} steps, not 3 a step")
+    cg_iters = int(stats_f.p_iters.sum())
+    require(counts["spmv_dot"] == counts["axpy_precond"]
+            == counts["cg_direction"] == counts["cg_advance"] == cg_iters,
+            f"the CG kernels' launches {counts} are not the {cg_iters} CG "
+            f"iterations the steps ran")
+    loop = loop_summary(records)
+    print(f"  device loop: {len(records)} sweeps, (iterations, blocks, host "
+          f"reads, capture ms) {loop['sweeps']}")
     check_steps(torch, stats_f, "fused")
     counts_f = {"mom_iters": stats_f.mom_iters.tolist(),
                 "p_iters": stats_f.p_iters.tolist()}
@@ -1042,7 +1409,9 @@ def main_path(torch) -> dict:
     print("  timed step: " + ", ".join(
         f"{k} {v:.4f}" for k, v in breakdown["walls"].items())
         + f" s; p_iters {breakdown['p_iters']}")
+    instrumented = instrumented_phase(torch, solver, state_f, dt, breakdown)
     summary = {
+        "loop": loop, "instrumented": instrumented,
         "plan_s": solver.plan_seconds,
         "s_per_step_fused": walls_f, "s_per_step_reference": walls_r,
         "mom_iters": stats_f.mom_iters.tolist(),
@@ -1060,11 +1429,216 @@ def main_path(torch) -> dict:
           f"(plain) {[round(w, 3) for w in walls_r]}; "
           f"{int(stats_f.p_iters.sum())} CG iterations; "
           f"{summary['ms_per_cg_iter']:.4f} ms per CG iteration (timed step)")
+    summary["loop_check"] = loop_phase(torch, solver, state_f, dt)
     summary["rebind"] = rebind_phase(torch, solver, state_f, dt, breakdown)
     summary["baseline"] = baseline_phase(torch, solver, state_f, dt)
     summary["precision"] = precision_phase(torch, solver, state_f, dt,
                                            breakdown)
     return summary
+
+
+def loop_summary(records) -> dict:
+    """The device loop's records of a run: each sweep's (iterations,
+    blocks, host reads, capture ms), every sweep's host reads held to
+    ``ceil(iterations / K) + 4``, and on the card every sweep's guarded
+    launches, as the kernels counted them on the device, held to
+    :data:`LOOP_LAUNCHES` times its iterations."""
+    for rec in records:
+        bound = -(-rec.iters // rec.K) + 4
+        require(rec.host_reads <= bound,
+                f"a sweep of {rec.iters} iterations read the device "
+                f"{rec.host_reads} times (bound {bound} at K = {rec.K})")
+        if rec.device == "cuda" and rec.iters:
+            want = {name: LOOP_LAUNCHES[rec.solver].get(name, 0) * rec.iters
+                    for name in rec.launches}
+            require(set(LOOP_LAUNCHES[rec.solver]) <= set(rec.launches)
+                    and rec.launches == want,
+                    f"a {rec.solver} sweep of {rec.iters} iterations counted "
+                    f"the launches {rec.launches} on the device, not {want}")
+    return {"sweeps": [(r.iters, r.blocks, r.host_reads,
+                        round(1e3 * r.capture_s, 3)) for r in records],
+            "host_reads": sum(r.host_reads for r in records),
+            "capture_ms": 1e3 * sum(r.capture_s for r in records),
+            "K": sorted({r.K for r in records})}
+
+
+def instrumented_phase(torch, solver, state, dt, walk) -> dict:
+    """``solver.timed_step`` (the instrumented executor: CUDA events at the
+    phase boundaries, one synchronisation) beside the synchronised walk
+    ``walk`` from the same state: the state bitwise equal, the
+    PhaseBreakdown's total within 10 % of the walk's."""
+    st, stats, pb = solver.timed_step(state, dt)
+    walk_s = sum(walk["walls"].values())
+    same = all(torch.equal(getattr(st, f), getattr(walk["state"], f))
+               for f in st._fields)
+    same = same and all(torch.equal(a, b) for a, b in zip(stats,
+                                                          walk["stats"]))
+    print(f"  instrumented timed_step: {pb} (total {pb.total:.4f} s against "
+          f"the synchronised walk's {walk_s:.4f} s); bitwise equal {same}")
+    require(same, "timed_step's state or stats differ from the walk's")
+    require(abs(pb.total - walk_s) <= 0.1 * walk_s,
+            f"the PhaseBreakdown total {pb.total:.4f} s is not within 10 % "
+            f"of the walk's {walk_s:.4f} s")
+    return {"breakdown": dataclasses.asdict(pb), "total_s": pb.total,
+            "walk_s": walk_s}
+
+
+@contextlib.contextmanager
+def host_sweeps():
+    """Inside the block the solvers run their former host loops
+    (``_cg_sweep_host``, ``_bicgstab_sweep_host``): the plain version of
+    the device loop."""
+    from repro_torch.solvers import bicgstab as bi_mod
+    from repro_torch.solvers import cg as cg_mod
+
+    saved = cg_mod._cg_sweep, bi_mod._bicgstab_sweep
+    cg_mod._cg_sweep = cg_mod._cg_sweep_host
+    bi_mod._bicgstab_sweep = bi_mod._bicgstab_sweep_host
+    try:
+        yield
+    finally:
+        cg_mod._cg_sweep, bi_mod._bicgstab_sweep = saved
+
+
+def momentum_system(solver, state, dt):
+    """The momentum ``(bands, sysM)`` of one step of ``solver`` from
+    ``state``."""
+    from repro_torch.fvm.step_program import _bind
+
+    prog = solver.program
+    env = prog.seed(state, dt, *solver._extras())
+    for ph in prog.phases:
+        if ph.name == "solve_mom":
+            break
+        _bind(env, ph, ph.fn(*(env[k] for k in ph.inputs)))
+    return env["bandsM"], env["sysM"]
+
+
+def synced(torch, fn):
+    """``(fn(), seconds)``, the call between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def loop_phase(torch, solver, state, dt) -> dict:
+    """Phase 4's device-loop check at full size, from ``state``: the f64
+    pressure CG sweep, an ``f32_ir`` pressure solve and the three f64
+    momentum BiCGStab sweeps, each on the device loop and on the host loop
+    with the kernels — ``x`` bitwise, identical counts and flags, the host
+    reads of every sweep within ``ceil(iterations / K) + 4`` — then the
+    f64 pressure sweep and one momentum sweep timed at K = 1, 2, 4, 8, 32
+    and 128 (ms per iteration and capture ms)."""
+    from repro_torch.solvers import device_loop
+    from repro_torch.solvers.bicgstab import (_bicgstab_sweep,
+                                              _bicgstab_sweep_host)
+    from repro_torch.solvers.cg import _cg_sweep, _cg_sweep_host, cg
+    from repro_torch.solvers.cg import threshold_sq
+
+    print(f"[4b] the device loop ({device_loop.ROUTE}, K = {device_loop.K}) "
+          f"against the host loop, {N}^3, kernels")
+    solver.solver_backend = "auto"
+    out = {"route": device_loop.ROUTE, "K": device_loop.K}
+    bands, b, x0, diag = pressure_system(solver, state, dt)
+    ops = solver._solver_ops(solver.plan_p, bands, diag)
+    (bb,) = ops.dots((b, b))
+    thr_p = threshold_sq(bb, solver.p_tol, 0.0)
+    bandsM, sysM = momentum_system(solver, state, dt)
+    opsM = solver._solver_ops(solver.plan_mom, bandsM, sysM.diag)
+    mom = []
+    for c in range(3):
+        bm = sysM.source[..., c].contiguous()
+        (bbm,) = opsM.dots((bm, bm))
+        mom.append((bm, state.U[..., c].contiguous(),
+                    threshold_sq(bbm, solver.mom_tol, 0.0)))
+
+    def held(tag, device_fn, host_fn):
+        device_loop.reset_loop_records()
+        with no_plain_versions():
+            (x_d, rr_d, k_d), s_d = synced(torch, device_fn)
+            recs = device_loop.loop_records()
+            (x_h, rr_h, k_h), s_h = synced(torch, host_fn)
+        same = (torch.equal(x_d, x_h) and torch.equal(rr_d, rr_h)
+                and int(k_d) == int(k_h))
+        summ = loop_summary(recs)
+        print(f"  {tag}: {int(k_d)} iterations, x and r.r bitwise {same}; "
+              f"device loop {s_d:.3f} s ({1e3 * s_d / max(int(k_d), 1):.4f}"
+              f" ms/iter), host loop {s_h:.3f} s "
+              f"({1e3 * s_h / max(int(k_h), 1):.4f} ms/iter); (iterations, "
+              f"blocks, host reads, capture ms) {summ['sweeps']}")
+        require(same, f"{tag}: the device loop differs from the host loop")
+        return {"iters": int(k_d), "s": s_d, "host_s": s_h, **summ}
+
+    out["p_f64"] = held(
+        "f64 pressure CG sweep",
+        lambda: _cg_sweep(ops, b, x0, thr_p, solver.p_maxiter),
+        lambda: _cg_sweep_host(ops, b, x0, thr_p, solver.p_maxiter))
+    for c, (bm, xm, thr_m) in enumerate(mom):
+        out[f"mom_{c}"] = held(
+            f"f64 momentum BiCGStab sweep, component {c}",
+            lambda: _bicgstab_sweep(opsM, bm, xm, thr_m, solver.mom_maxiter),
+            lambda: _bicgstab_sweep_host(opsM, bm, xm, thr_m,
+                                         solver.mom_maxiter))
+
+    # an f32_ir pressure solve: the whole refinement loop, its inner sweeps
+    # on the device loop and then on the host loop
+    solver.precision = "f32_ir"
+    try:
+        ops32 = solver._solver_ops(solver.plan_p, bands, diag)
+    finally:
+        solver.precision = "f64"
+    device_loop.reset_loop_records()
+    with no_plain_versions():
+        res_d, s_d = synced(torch, lambda: cg(ops32, b, x0, tol=solver.p_tol,
+                                              maxiter=solver.p_maxiter))
+        summ = loop_summary(device_loop.loop_records())
+        with host_sweeps():
+            res_h, s_h = synced(torch, lambda: cg(
+                ops32, b, x0, tol=solver.p_tol, maxiter=solver.p_maxiter))
+    fields = {f: (int(getattr(res_d, f)), int(getattr(res_h, f)))
+              for f in ("iters", "outer_iters", "converged", "hit_cap")}
+    same = (torch.equal(res_d.x, res_h.x)
+            and torch.equal(res_d.residual, res_h.residual)
+            and all(a == b_ for a, b_ in fields.values()))
+    print(f"  f32_ir pressure solve: (device, host) {fields}; x bitwise "
+          f"{same}; device loop {s_d:.3f} s "
+          f"({1e3 * s_d / max(fields['iters'][0], 1):.4f} ms per inner "
+          f"iteration), host loop {s_h:.3f} s; (iterations, blocks, host "
+          f"reads, capture ms) {summ['sweeps']}")
+    require(same, "f32_ir: the device loop differs from the host loop")
+    out["p_f32_ir"] = {"fields": fields, "s": s_d, "host_s": s_h, **summ}
+
+    # K: the f64 pressure sweep and momentum component 0 at six lengths
+    k0 = device_loop.K
+    out["K_trial"] = {}
+    try:
+        for k_len in (1, 2, 4, 8, 32, 128):
+            device_loop.K = {"cg": k_len, "bicgstab": k_len}
+            ops.loops.clear()  # each length captures anew
+            opsM.loops.clear()
+            rec = {}
+            for tag, fn in (
+                    ("pressure", lambda: _cg_sweep(ops, b, x0, thr_p,
+                                                   solver.p_maxiter)),
+                    ("momentum", lambda: _bicgstab_sweep(
+                        opsM, *mom[0][:2], mom[0][2], solver.mom_maxiter))):
+                device_loop.reset_loop_records()
+                (_, _, k), secs = synced(torch, fn)
+                (r,) = device_loop.loop_records()
+                rec[tag] = {"iters": int(k), "s": secs,
+                            "ms_per_iter": 1e3 * secs / int(k),
+                            "capture_ms": 1e3 * r.capture_s,
+                            "host_reads": r.host_reads, "blocks": r.blocks}
+            out["K_trial"][k_len] = rec
+            print(f"  K = {k_len:3d}: " + "; ".join(
+                f"{t} {v['ms_per_iter']:.4f} ms/iter ({v['iters']} iters, "
+                f"capture {v['capture_ms']:.1f} ms, {v['host_reads']} reads)"
+                for t, v in rec.items()))
+    finally:
+        device_loop.K = k0
+    return out
 
 
 def rebind_phase(torch, solver, state, dt, alpha30) -> dict:
@@ -1295,24 +1869,27 @@ def pressure_solves(torch, solver, system) -> dict:
         finally:
             solver.precision = "f64"
         counts = launch_counts()
-        rec = {"outer": res.outer_iters, "inner": res.iters, "s": secs,
-               "ms_per_inner": 1e3 * secs / max(res.iters, 1),
-               "launches": counts, "converged": res.converged}
+        # ints and bools: a tree before the device loop returns them as
+        # such, this one as 0-d tensors
+        outer, inner = int(res.outer_iters), int(res.iters)
+        converged, hit_cap = bool(res.converged), bool(res.hit_cap)
+        rec = {"outer": outer, "inner": inner, "s": secs,
+               "ms_per_inner": 1e3 * secs / max(inner, 1),
+               "launches": counts, "converged": converged}
         out[pol] = rec
-        print(f"  pressure solve alone, {pol:7s}: outer {res.outer_iters}, "
-              f"inner {res.iters}, {secs:.3f} s, "
+        print(f"  pressure solve alone, {pol:7s}: outer {outer}, "
+              f"inner {inner}, {secs:.3f} s, "
               f"{rec['ms_per_inner']:.4f} ms per inner iteration, "
-              f"converged {res.converged}, hit_cap {res.hit_cap}, residual "
+              f"converged {converged}, hit_cap {hit_cap}, residual "
               f"{float(res.residual):.3e}; launches {counts}")
         rec["residual"] = float(res.residual)
-        require(pol not in MUST_CONVERGE
-                or (res.converged and not res.hit_cap),
+        require(pol not in MUST_CONVERGE or (converged and not hit_cap),
                 f"the {pol} pressure solve did not converge")
-        replays = 2 * res.outer_iters + 1 if res.outer_iters else 1
+        replays = 2 * outer + 1 if outer else 1
         require(counts["spmv_dia"] == replays
-                and counts["spmv_dot"] == counts["axpy_precond"] == res.iters,
-                f"{pol}: launches {counts} for {res.outer_iters} outer and "
-                f"{res.iters} inner iterations")
+                and counts["spmv_dot"] == counts["axpy_precond"] == inner,
+                f"{pol}: launches {counts} for {outer} outer and "
+                f"{inner} inner iterations")
     return out
 
 
@@ -1483,7 +2060,7 @@ def step_timing(torch, repeats: int) -> dict:
     dt = args.co * solver.mesh.h
     state0 = solver.initial_state()
     solver.step(state0, dt)  # loads the kernels; not timed
-    ms, p_iters = [], None
+    ms, p_iters, step_s, mom_s = [], None, [], []
     for _ in range(repeats):
         bd = timed_step(torch, solver, state0, dt)
         require(p_iters in (None, bd["p_iters"]),
@@ -1492,18 +2069,95 @@ def step_timing(torch, repeats: int) -> dict:
         cg_s = sum(v for k, v in bd["walls"].items()
                    if k.startswith("solve_p"))
         ms.append(1e3 * cg_s / sum(p_iters))
+        step_s.append(sum(bd["walls"].values()))
+        mom_s.append(bd["walls"]["solve_mom"])
     print(f"  step from rest, p_iters {p_iters}: ms per CG iteration "
-          + " ".join(f"{t:.4f}" for t in ms))
+          + " ".join(f"{t:.4f}" for t in ms) + "; s per step (walk) "
+          + " ".join(f"{t:.4f}" for t in step_s) + "; solve_mom s "
+          + " ".join(f"{t:.4f}" for t in mom_s))
     del solver, state0
     free_device(torch)
     args = build_parser().parse_args(case_args("channel"))
     solver = build_solver(args)
     solves = pressure_solves(torch, solver, pressure_system(
         solver, solver.initial_state(), args.co * solver.mesh.h))
-    return {"ms_per_cg_iter": ms, "p_iters": p_iters,
+    return {"ms_per_cg_iter": ms, "p_iters": p_iters, "step_s": step_s,
+            "solve_mom_s": mom_s,
             "ms_per_inner": {pol: rec["ms_per_inner"]
                              for pol, rec in solves.items()},
             "src": str(ROOT)}
+
+
+# kernel-name fragments of the pressure CG's device work, in the order a
+# name is tried; elementwise kernels split by their mean time into vector
+# (the p update) and scalar work
+CG_PROFILE_PARTS = (("spmv_dot", ("spmv_dot_kernel",)),
+                    ("axpy_precond", ("axpy_precond",)),
+                    ("cg_direction", ("cg_direction_kernel",)),
+                    ("cg_advance", ("cg_advance_kernel",)),
+                    ("partial sums", ("reduce_kernel",)),
+                    ("host read", ("Memcpy DtoH", "memcpy32_post",
+                                   "Memcpy DtoD")))
+
+
+def profile_cg(torch, iters: int) -> dict:
+    """The main path's first pressure system (the cavity from rest), CG
+    capped at ``iters`` iterations under ``torch.profiler``: each kernel's
+    device time per iteration, sorted into the parts of an iteration, and
+    the device's idle share of the window (1 - the kernels' summed time
+    over the window's wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.case import build_parser, build_solver
+    from repro_torch.solvers.cg import cg
+
+    args = build_parser().parse_args(MAIN_ARGS)
+    solver = build_solver(args)
+    bands, b, x0, diag = pressure_system(solver, solver.initial_state(),
+                                         args.co * solver.mesh.h)
+    ops = solver._solver_ops(solver.plan_p, bands, diag)
+    cg(ops, b, x0, tol=solver.p_tol, maxiter=iters)  # loads and captures
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cg(ops, b, x0, tol=solver.p_tol, maxiter=iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = int(res.iters)
+    kernels = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0))
+        # device-side events only (a CPU op's device time repeats its
+        # kernels')
+        if dev_us and getattr(evt, "device_type", None) is not None \
+                and "CUDA" in str(evt.device_type):
+            kernels[evt.key] = (dev_us, evt.count)
+    parts = {}
+    for name, (us, count) in kernels.items():
+        part = next((p for p, keys in CG_PROFILE_PARTS
+                     if any(k in name for k in keys)), None)
+        if part is None:
+            part = ("p update (vector elementwise)" if us / count > 10
+                    else "scalar ops")
+        parts[part] = parts.get(part, 0.0) + us / 1e3 / n
+    busy = sum(us for us, _ in kernels.values()) / 1e6
+    out = {"iters": n, "wall_ms_per_iter": 1e3 * wall / n,
+           "device_ms_per_iter": parts, "busy_ms_per_iter": 1e3 * busy / n,
+           "idle_share": 1 - busy / wall,
+           "kernels": {k: {"us": us, "count": c}
+                       for k, (us, c) in sorted(kernels.items(),
+                                                key=lambda kv: -kv[1][0])}}
+    print(f"  CG capped at {iters}: {n} iterations, "
+          f"{out['wall_ms_per_iter']:.4f} ms per iteration (wall), device "
+          f"busy {out['busy_ms_per_iter']:.4f} ms, idle share "
+          f"{out['idle_share']:.1%}")
+    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        print(f"    {part:32s} {ms:.4f} ms per iteration")
+    for k, v in list(out["kernels"].items())[:14]:
+        print(f"    {v['count']:6d} x {k[:70]:70s} {v['us'] / 1e3:9.3f} ms")
+    return out
 
 
 def free_device(torch) -> None:
@@ -1521,6 +2175,9 @@ def main(argv=None) -> int:
     ap.add_argument("--step-timing", type=int, metavar="REPEATS",
                     help="time the main path's first step REPEATS times "
                          "(ms per CG iteration) instead of the smoke test")
+    ap.add_argument("--profile-cg", type=int, metavar="ITERS",
+                    help="profile ITERS iterations of the main path's "
+                         "first pressure CG instead of the smoke test")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1542,7 +2199,9 @@ def main(argv=None) -> int:
         dev = torch.device("cuda")
         smi = smi_line()
         print(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
-              f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+              f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}; "
+              f"conditional graph nodes (CUDAGraph.begin_capture_to_if_node)"
+              f": {hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
         print("[2] build")
         build_phase()
         if args.compare:
@@ -1555,6 +2214,11 @@ def main(argv=None) -> int:
             result = step_timing(torch, args.step_timing)
             print(smi_line())
             print(json.dumps({"step_timing": result}))
+            return 0
+        if args.profile_cg:
+            result = profile_cg(torch, args.profile_cg)
+            print(smi_line())
+            print(json.dumps({"profile_cg": result}))
             return 0
         print("[3] kernels vs plain versions")
         report = check_kernels(torch, dev)
@@ -1572,7 +2236,8 @@ def main(argv=None) -> int:
             name: report[name]["momentum"] for name in report
             if "momentum" in report[name]}
         summary["low_precision_times"] = {
-            name: {d: report[name][d] for d in ("float32", "bfloat16")}
+            name: {d: report[name][d] for d in ("float32", "bfloat16")
+                   if d in report[name]}
             for name in report if "float32" in report[name]}
         print("summary " + json.dumps(summary))
         # launches: the main path's counts; the momentum-assembly kernel's

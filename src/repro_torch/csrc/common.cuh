@@ -48,6 +48,15 @@ template <> struct Compute<__nv_bfloat16> { using type = float; };
 // so a run reproduces its partials bit for bit, and
 // kernels/krylov_fused's block_partials_plain is that order in PyTorch.
 
+// The Krylov loops' launch counters.  A launch that runs from a replayed
+// CUDA graph never passes through its Python wrapper, so a guarded kernel
+// counts itself: once its guard has passed, thread 0 of block 0 adds one
+// to `count` (null: not counted).  Launches on one stream do not overlap
+// and one thread writes, so no atomic is needed.
+__device__ __forceinline__ void count_launch(unsigned long long* count) {
+  if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *count += 1;
+}
+
 inline unsigned int n_blocks(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }

@@ -37,6 +37,11 @@
 //    loads already keep enough in flight.  The bf16 SpMV+dot, with a
 //    quarter of the bytes per row, reaches 60 / 67 / 64 % at 1 / 2 / 4
 //    rows, so a thread owns 2 rows (64 registers or fewer in f64).
+//  * The guard.  The Krylov loops replay captured blocks of iterations
+//    (solvers/device_loop.py); a kernel given a non-null DiaArgs::active
+//    reads that device flag first and, while it is false, returns without
+//    loading or writing anything; while it is true, the launch adds one to
+//    its device counter DiaArgs::count (common.cuh: count_launch).
 //
 #pragma once
 
@@ -57,12 +62,26 @@ struct DiaArgs {
   long long m;               // rows per part
   long long n;               // rows in all, P * m
   long long lo, hi;          // rows in [lo, hi) read x inside [0, n) only
+  const bool* active;        // the loop guard (null: unguarded)
+  unsigned long long* count; // a guarded launch's counter (null: none)
   int nb;
 };
 
+// True when a guarded launch's flag says the loop has stopped; a guarded
+// launch that goes on counts itself.
+__device__ __forceinline__ bool dia_idle(const DiaArgs& a) {
+  if (a.active == nullptr) return false;
+  if (!*a.active) return true;
+  count_launch(a.count);
+  return false;
+}
+
 inline DiaArgs make_dia_args(const long long* offsets, int nb, long long P,
-                             long long m) {
+                             long long m, const void* active = nullptr,
+                             void* count = nullptr) {
   DiaArgs a;
+  a.active = static_cast<const bool*>(active);
+  a.count = static_cast<unsigned long long*>(count);
   a.m = m;
   a.n = P * m;
   a.nb = nb;

@@ -19,6 +19,15 @@
 // flat rows, summed in the tree order of common.cuh; the wrapper sums the
 // partials with torch.sum.  No atomics: the order of every sum is fixed, so
 // Krylov iteration counts reproduce from run to run.
+//
+// The Krylov loops (solvers/device_loop.py) replay captured blocks of
+// iterations and guard them on a one-byte device flag: the guarded entry
+// points below pass it, and the kernel returns without reading or writing
+// anything while it is false.  The loops update x and r in place, through
+// axpy_precond_inplace_kernel: the same rows, loads and arithmetic with x
+// and r read through coherent loads and not declared __restrict__, since
+// they are written by the same kernel (aliasing a __restrict__ operand, or
+// reading a written location through the read-only path, is undefined).
 #include "dia_rows.cuh"
 
 using namespace repro;
@@ -37,6 +46,7 @@ __global__ void __launch_bounds__(kDiaThreads)
 spmv_dot_kernel(const S* __restrict__ bands, const S* __restrict__ x,
                 S* __restrict__ y, A* __restrict__ partials,
                 const __grid_constant__ DiaArgs a) {
+  if (dia_idle(a)) return;
   const long long blk = static_cast<long long>(blockIdx.x) * kDiaTile;
   const int t = threadIdx.x % kDiaGroup;
   const long long row0 = blk + (threadIdx.x / kDiaGroup) * kThreads;
@@ -158,14 +168,35 @@ __device__ __forceinline__ void st16(__nv_bfloat16* p, const float* v) {
 template <typename S, typename C>
 __device__ __forceinline__ C rnd(C v) { return cvt<C>(cvt<S>(v)); }
 
-template <typename S, typename A>
-__global__ void __launch_bounds__(kAxpyThreads)
-axpy_precond_kernel(const S* __restrict__ x, const S* __restrict__ r,
-                    const S* __restrict__ p, const S* __restrict__ ap,
-                    const S* __restrict__ inv, const A* __restrict__ alpha,
-                    S* __restrict__ xo, S* __restrict__ ro,
-                    S* __restrict__ zo, A* __restrict__ rz_part,
-                    A* __restrict__ rr_part, long long n) {
+// ... and the coherent 16-byte loads of the in-place form's x and r.
+__device__ __forceinline__ void ld16c(const double* p, double* v) {
+  const double2 t = *reinterpret_cast<const double2*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+}
+__device__ __forceinline__ void ld16c(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void ld16c(const __nv_bfloat16* p, float* v) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// The rows of one warp (both kernels below); kInPlace: xo == x, ro == r.
+template <typename S, typename A, bool kInPlace>
+__device__ __forceinline__ void axpy_precond_rows(
+    const S* x, const S* r, const S* p, const S* ap, const S* inv,
+    const A* alpha, S* xo, S* ro, S* zo, A* rz_part, A* rr_part,
+    long long n) {
   using C = typename Compute<S>::type;
   constexpr int W = 16 / sizeof(S);   // rows per 16-byte vector
   constexpr int L = kAxpyRows / W;    // vectors per thread and operand
@@ -183,8 +214,13 @@ axpy_precond_kernel(const S* __restrict__ x, const S* __restrict__ r,
   if (!edge) {
 #pragma unroll
     for (int w = 0; w < L; ++w) {
-      ld16(x + g[w], xv[w]);
-      ld16(r + g[w], rv[w]);
+      if constexpr (kInPlace) {
+        ld16c(x + g[w], xv[w]);
+        ld16c(r + g[w], rv[w]);
+      } else {
+        ld16(x + g[w], xv[w]);
+        ld16(r + g[w], rv[w]);
+      }
       ld16(p + g[w], pv[w]);
       ld16(ap + g[w], av[w]);
       ld16(inv + g[w], iv[w]);
@@ -280,6 +316,35 @@ axpy_precond_kernel(const S* __restrict__ x, const S* __restrict__ r,
 }
 
 template <typename S, typename A>
+__global__ void __launch_bounds__(kAxpyThreads)
+axpy_precond_kernel(const S* __restrict__ x, const S* __restrict__ r,
+                    const S* __restrict__ p, const S* __restrict__ ap,
+                    const S* __restrict__ inv, const A* __restrict__ alpha,
+                    S* __restrict__ xo, S* __restrict__ ro,
+                    S* __restrict__ zo, A* __restrict__ rz_part,
+                    A* __restrict__ rr_part, long long n) {
+  axpy_precond_rows<S, A, false>(x, r, p, ap, inv, alpha, xo, ro, zo, rz_part,
+                                 rr_part, n);
+}
+
+// x <- x + alpha p and r <- r - alpha Ap in place, under the loops' guard.
+template <typename S, typename A>
+__global__ void __launch_bounds__(kAxpyThreads)
+axpy_precond_inplace_kernel(S* x, S* r, const S* __restrict__ p,
+                            const S* __restrict__ ap,
+                            const S* __restrict__ inv,
+                            const A* __restrict__ alpha,
+                            S* __restrict__ zo, A* __restrict__ rz_part,
+                            A* __restrict__ rr_part, long long n,
+                            const bool* __restrict__ active,
+                            unsigned long long* count) {
+  if (active != nullptr && !*active) return;
+  count_launch(count);
+  axpy_precond_rows<S, A, true>(x, r, p, ap, inv, alpha, x, r, zo, rz_part,
+                                rr_part, n);
+}
+
+template <typename S, typename A>
 static int launch_spmv_dot(const void* bands, const void* x, void* y,
                            void* partials, const DiaArgs& a,
                            cudaStream_t stream) {
@@ -297,14 +362,17 @@ static int launch_spmv_dot(const void* bands, const void* x, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr long long kAxpyBlockRows = kAxpyThreads / 32 * kThreads;
+
+inline unsigned int axpy_blocks(long long n) {
+  return static_cast<unsigned int>((n + kAxpyBlockRows - 1) / kAxpyBlockRows);
+}
+
 template <typename S, typename A>
 static int launch_axpy(const void* const* in, const void* alpha,
                        void* const* out, long long n, cudaStream_t stream) {
   if (n == 0) return 0;
-  constexpr long long kRowsPerBlock = kAxpyThreads / 32 * kThreads;
-  const unsigned int blocks =
-      static_cast<unsigned int>((n + kRowsPerBlock - 1) / kRowsPerBlock);
-  axpy_precond_kernel<S, A><<<blocks, kAxpyThreads, 0, stream>>>(
+  axpy_precond_kernel<S, A><<<axpy_blocks(n), kAxpyThreads, 0, stream>>>(
       static_cast<const S*>(in[0]), static_cast<const S*>(in[1]),
       static_cast<const S*>(in[2]), static_cast<const S*>(in[3]),
       static_cast<const S*>(in[4]), static_cast<const A*>(alpha),
@@ -314,15 +382,30 @@ static int launch_axpy(const void* const* in, const void* alpha,
   return static_cast<int>(cudaGetLastError());
 }
 
+// in: x, r (updated in place), p, Ap, inv; out: z, rz, rr partials
+template <typename S, typename A>
+static int launch_axpy_inplace(void* const* xr, const void* const* in,
+                               const void* alpha, void* const* out,
+                               long long n, const void* active,
+                               void* count, cudaStream_t stream) {
+  if (n == 0) return 0;
+  axpy_precond_inplace_kernel<S, A>
+      <<<axpy_blocks(n), kAxpyThreads, 0, stream>>>(
+          static_cast<S*>(xr[0]), static_cast<S*>(xr[1]),
+          static_cast<const S*>(in[0]), static_cast<const S*>(in[1]),
+          static_cast<const S*>(in[2]), static_cast<const A*>(alpha),
+          static_cast<S*>(out[0]), static_cast<A*>(out[1]),
+          static_cast<A*>(out[2]), n, static_cast<const bool*>(active),
+          static_cast<unsigned long long*>(count));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // bands (P, nb, m), x (P, m) -> y (P, m), partials (ceil(P*m / 256),);
 // nb <= 8.
 // Returns cudaGetLastError() after the launch; -1 for an unknown dtype code.
-extern "C" int spmv_dot_launch(int dtype_code, const void* bands,
-                               const void* x, void* y, void* partials,
-                               long long P, long long m,
-                               const long long* offsets, int nb,
-                               void* stream) {
-  const DiaArgs a = make_dia_args(offsets, nb, P, m);
+static int dispatch_spmv_dot(int dtype_code, const void* bands,
+                             const void* x, void* y, void* partials,
+                             const DiaArgs& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
     case kF64: return launch_spmv_dot<double, double>(bands, x, y, partials, a, s);
@@ -331,6 +414,29 @@ extern "C" int spmv_dot_launch(int dtype_code, const void* bands,
       return launch_spmv_dot<__nv_bfloat16, float>(bands, x, y, partials, a, s);
     default: return -1;
   }
+}
+
+extern "C" int spmv_dot_launch(int dtype_code, const void* bands,
+                               const void* x, void* y, void* partials,
+                               long long P, long long m,
+                               const long long* offsets, int nb,
+                               void* stream) {
+  return dispatch_spmv_dot(dtype_code, bands, x, y, partials,
+                           make_dia_args(offsets, nb, P, m), stream);
+}
+
+// The same under the Krylov loops' guard: nothing is read or written while
+// the one-byte device flag `active` is false; a launch that runs adds one
+// to the device counter `count` (one unsigned 64-bit value).
+extern "C" int spmv_dot_guarded_launch(int dtype_code, const void* bands,
+                                       const void* x, void* y,
+                                       void* partials, long long P,
+                                       long long m, const long long* offsets,
+                                       int nb, const void* active,
+                                       void* count, void* stream) {
+  return dispatch_spmv_dot(dtype_code, bands, x, y, partials,
+                           make_dia_args(offsets, nb, P, m, active, count),
+                           stream);
 }
 
 // x, r, p, Ap, inv_diag (n,) and a device scalar alpha (accum dtype) ->
@@ -349,6 +455,36 @@ extern "C" int axpy_precond_launch(int dtype_code, const void* x,
     case kF64: return launch_axpy<double, double>(in, alpha, out, n, s);
     case kF32: return launch_axpy<float, float>(in, alpha, out, n, s);
     case kBF16F32: return launch_axpy<__nv_bfloat16, float>(in, alpha, out, n, s);
+    default: return -1;
+  }
+}
+
+// x, r (n,) updated in place; p, Ap, inv_diag (n,); a device scalar alpha
+// (accum dtype) -> z (n,) and the r.z, r.r partials (ceil(n / 256),) each;
+// active one byte or null; count (one unsigned 64-bit value, or null) gains
+// one when a guarded launch runs.  The vectors must start on 16-byte
+// boundaries.
+extern "C" int axpy_precond_inplace_launch(int dtype_code, void* x, void* r,
+                                           const void* p, const void* ap,
+                                           const void* inv, const void* alpha,
+                                           void* zo, void* rz_part,
+                                           void* rr_part, long long n,
+                                           const void* active, void* count,
+                                           void* stream) {
+  void* xr[2] = {x, r};
+  const void* in[3] = {p, ap, inv};
+  void* out[3] = {zo, rz_part, rr_part};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype_code) {
+    case kF64:
+      return launch_axpy_inplace<double, double>(xr, in, alpha, out, n, active,
+                                                 count, s);
+    case kF32:
+      return launch_axpy_inplace<float, float>(xr, in, alpha, out, n, active,
+                                               count, s);
+    case kBF16F32:
+      return launch_axpy_inplace<__nv_bfloat16, float>(xr, in, alpha, out, n,
+                                                       active, count, s);
     default: return -1;
   }
 }

@@ -23,6 +23,7 @@ template <typename S, typename A, int NB>
 __global__ void __launch_bounds__(kDiaThreads)
 spmv_dia_kernel(const S* __restrict__ bands, const S* __restrict__ x,
                 S* __restrict__ y, const __grid_constant__ DiaArgs a) {
+  if (dia_idle(a)) return;
   const long long blk = static_cast<long long>(blockIdx.x) * kDiaTile;
   const long long g0 = blk + (threadIdx.x / kDiaGroup) * kThreads +
                        threadIdx.x % kDiaGroup;
@@ -52,11 +53,8 @@ static int launch(const void* bands, const void* x, void* y,
 // bands (P, nb, m), x (P, m), y (P, m): all contiguous, on one device;
 // nb <= 8.  Returns cudaGetLastError() after the launch (0 on success); -1
 // for an unknown dtype code.
-extern "C" int spmv_dia_launch(int dtype_code, const void* bands,
-                               const void* x, void* y, long long P,
-                               long long m, const long long* offsets, int nb,
-                               void* stream) {
-  const DiaArgs a = make_dia_args(offsets, nb, P, m);
+static int dispatch(int dtype_code, const void* bands, const void* x, void* y,
+                    const DiaArgs& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
     case kF64: return launch<double, double>(bands, x, y, a, s);
@@ -64,4 +62,24 @@ extern "C" int spmv_dia_launch(int dtype_code, const void* bands,
     case kBF16F32: return launch<__nv_bfloat16, float>(bands, x, y, a, s);
     default: return -1;
   }
+}
+
+extern "C" int spmv_dia_launch(int dtype_code, const void* bands,
+                               const void* x, void* y, long long P,
+                               long long m, const long long* offsets, int nb,
+                               void* stream) {
+  return dispatch(dtype_code, bands, x, y, make_dia_args(offsets, nb, P, m),
+                  stream);
+}
+
+// The same under the Krylov loops' guard: nothing is read or written while
+// the one-byte device flag `active` is false; a launch that runs adds one
+// to the device counter `count` (one unsigned 64-bit value).
+extern "C" int spmv_dia_guarded_launch(int dtype_code, const void* bands,
+                                       const void* x, void* y, long long P,
+                                       long long m, const long long* offsets,
+                                       int nb, const void* active,
+                                       void* count, void* stream) {
+  return dispatch(dtype_code, bands, x, y,
+                  make_dia_args(offsets, nb, P, m, active, count), stream);
 }

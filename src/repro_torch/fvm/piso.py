@@ -11,7 +11,10 @@ Faithful to the paper's measured configuration (§4):
   (paper fig. 3b) — the create/update split means no symbolic work per step.
 
 The timestep is declared once as a :class:`~repro_torch.fvm.step_program.
-StepProgram` phase list and walked by the serial executor.
+StepProgram` phase list and walked by the serial executor
+(:meth:`SegregatedSolver.timed_step`: by the instrumented one, which bills
+each phase's time to its cost-model tag).  Step statistics stay device
+tensors; a caller reads them when it logs.
 :class:`SegregatedSolver` is the case- and program-agnostic binder: it owns
 the plans (built once, on the host), their device-resident gather indices,
 the SolverOps backend and precision dispatch and the assembly of a
@@ -38,7 +41,9 @@ from repro_torch.env import DTYPE, resolve_device
 from repro_torch.fvm.assembly import CavityAssembly
 from repro_torch.fvm.cases import FlowCase, get_case
 from repro_torch.fvm.mesh import CavityMesh
-from repro_torch.fvm.step_program import SerialExecutor, get_program
+from repro_torch.fvm.step_program import (InstrumentedExecutor,
+                                         SerialExecutor, get_program,
+                                         roll_schedule)
 from repro_torch.solvers.jacobi import jacobi_preconditioner
 from repro_torch.solvers.ops import (fused_stacked_ops, reference_ops,
                                      resolve_backend)
@@ -170,9 +175,10 @@ class SegregatedSolver:
             # the program build reads plan_p and n_coarse off the solver
             self.plan_p = self._plans[alpha]
             program = get_program(self.program_name).build(self)
-            binding = self._bindings[key] = (self.plan_p, program,
-                                             SerialExecutor(program))
-        self.plan_p, self.program, self._exec = binding
+            binding = self._bindings[key] = (
+                self.plan_p, program, SerialExecutor(program),
+                InstrumentedExecutor(program))
+        self.plan_p, self.program, self._exec, self._instrumented = binding
 
     def _bands(self, plan: RepartitionPlan, diag, upper, lower, iface):
         """LDU buffers → repartitioned DIA bands via the update pattern."""
@@ -244,10 +250,37 @@ class SegregatedSolver:
         """``n_steps`` timesteps; the stats fields stacked per step."""
         return self._exec.run_steps(state, dt, n_steps, *self._extras())
 
-    def run(self, n_steps: int, dt: float, state: PisoState | None = None):
-        """``run_steps`` from ``state`` (default: the initial state)."""
+    def timed_step(self, state: PisoState, dt: float):
+        """One step walked phase by phase with a timestamp at each phase
+        boundary (:class:`~repro_torch.fvm.step_program.
+        InstrumentedExecutor`); returns ``(state, stats, PhaseBreakdown)``.
+
+        Attribution follows the paper's two partitions: **assembly** is
+        the fine-partition share (the momentum predictor with its BiCGStab
+        solve, pressure assembly, the corrections), **update** the
+        coefficient update into the coarse plan, **solve** the pressure CG;
+        **halo** is 0 (no probe yet).  The state and stats are the ones
+        :meth:`step` gives, bit for bit.
+        """
+        return self._instrumented.timed_step(state, dt, *self._extras())
+
+    def run(self, n_steps: int, dt: float, state: PisoState | None = None,
+            scan_steps: int | None = None):
+        """``n_steps`` steps from ``state`` (default: the initial state).
+
+        By default one window (:meth:`run_steps`); ``scan_steps`` caps the
+        window length (``roll_schedule``, as the JAX package's ``run``
+        does), the per-step stats concatenated along the step axis.
+        """
         state = self.initial_state() if state is None else state
-        return self.run_steps(state, dt, n_steps)
+        if scan_steps is None:
+            return self.run_steps(state, dt, n_steps)
+        windows = []
+        for _sample, chunk in roll_schedule(0, n_steps, None, cap=scan_steps):
+            state, w = self.run_steps(state, dt, chunk)
+            windows.append(w)
+        return state, type(windows[0])(*(torch.cat(f)
+                                         for f in zip(*windows)))
 
     def run_steady(self, dt: float = 1.0, state: PisoState | None = None,
                    max_outer: int | None = None):

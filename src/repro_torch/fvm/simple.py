@@ -117,17 +117,12 @@ def build_simple_program(solver) -> StepProgram:
         state = PisoState(env["U"], env["p"], env["phi"], env["phi_if"],
                           env["phi_b"])
         krylov_ok, diverged, hit_cap = health_flags(
-            state, env["mom_ok"] and env["p_ok_0"],
-            env["mom_cap"] or env["p_cap_0"],
+            state, env["mom_ok"] & env["p_ok_0"],
+            env["mom_cap"] | env["p_cap_0"],
             env["cont"], env["p_res"], env["u_delta"])
-
-        def ints(*xs):
-            return torch.tensor(xs, dtype=torch.int32,
-                                device=env["cont"].device)
-
         stats = SimpleStats(
-            mom_iters=ints(env["mom_iters"])[0],
-            p_iters=ints(env["p_iters_0"]),
+            mom_iters=env["mom_iters"].to(torch.int32),
+            p_iters=env["p_iters_0"].reshape(1).to(torch.int32),
             continuity_err=env["cont"],
             p_residual=env["p_res"],
             u_delta=env["u_delta"],
@@ -135,6 +130,7 @@ def build_simple_program(solver) -> StepProgram:
         return state, stats
 
     def converged(stats):
+        # on the device: run_converged reads it once per outer iteration
         return (stats.continuity_err < tol_c) & (stats.u_delta < tol_u)
 
     return StepProgram(phases=phases, seed=seed, finalize=finalize,

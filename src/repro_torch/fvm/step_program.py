@@ -13,20 +13,32 @@ dt, *extra)`` advances one timestep, ``run_steps(state, dt, n, *extra)``
 advances ``n`` and returns per-step stacked stats, and ``run_converged``
 iterates a steady program until its ``converged`` predicate holds — the
 contract of the JAX package's ``FusedExecutor``.  PyTorch runs eagerly, so
-there is nothing to compile or donate.  Programs are registered by name
-(:class:`ProgramSpec`, :func:`get_program`).  The pipelined, batched and
-instrumented executors are still to be ported.
+there is nothing to compile or donate; what JAX's fused window keeps off
+the host is kept off it here too: every step statistic (Krylov counts,
+flags, residuals) stays a device tensor, and a window of steps reads the
+device only inside the Krylov solves, once per replayed block
+(:mod:`repro_torch.solvers.device_loop`).
+:class:`InstrumentedExecutor` walks the same phases with a CUDA event at
+each phase boundary and bills each phase to its cost-model tag
+(:class:`repro_torch.core.cost_model.PhaseBreakdown`); :func:`roll_schedule`
+is the window cadence of the JAX launcher and engine.  Programs are
+registered by name (:class:`ProgramSpec`, :func:`get_program`).  The
+pipelined and batched executors are still to be ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import torch
 
-__all__ = ["Phase", "StepProgram", "SerialExecutor", "build_piso_program",
-           "health_flags", "PHASE_TAGS", "ProgramSpec", "PROGRAMS",
-           "register_program", "program_names", "get_program"]
+from repro_torch.core.cost_model import PhaseBreakdown
+
+__all__ = ["Phase", "StepProgram", "SerialExecutor", "InstrumentedExecutor",
+           "build_piso_program", "health_flags", "roll_schedule",
+           "PHASE_TAGS", "ProgramSpec", "PROGRAMS", "register_program",
+           "program_names", "get_program"]
 
 # the cost-model buckets a phase may bill to
 PHASE_TAGS = ("assembly", "update", "halo", "solve")
@@ -164,6 +176,94 @@ class SerialExecutor:
         return state, stats, k
 
 
+class _PhaseClock:
+    """Timestamps at phase boundaries: CUDA events on the current stream of
+    a CUDA device (read after one synchronisation at the end), the host
+    clock on the CPU (where every phase is synchronous)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def seconds(self) -> list[float]:
+        """The seconds between consecutive marks."""
+        if self.cuda:
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) / 1e3
+                    for a, b in zip(self.marks, self.marks[1:])]
+        return [b - a for a, b in zip(self.marks, self.marks[1:])]
+
+
+class InstrumentedExecutor:
+    """Walk the serial phase list with a timestamp at every phase boundary.
+
+    The JAX package's ``InstrumentedExecutor``: the same phase functions in
+    the same order as :class:`SerialExecutor`, so the result is the one
+    ``step`` gives, bit for bit.  On a CUDA device the timestamps are CUDA
+    events on the current stream, read after one synchronisation at the
+    end of the step (the Krylov loops' own block reads aside, the walk adds
+    no host read); each phase's seconds are billed to its tag.  ``halo`` is
+    0: the port has no probe of the exchange yet (the stacked layout keeps
+    every part on one device).
+    """
+
+    def __init__(self, program: StepProgram):
+        self.program = program
+        self.calls = 0
+
+    def timed_step(self, state, dt, *extra):
+        """One step; returns ``(state, stats, PhaseBreakdown)``."""
+        self.calls += 1
+        prog = self.program
+        env = prog.seed(state, dt, *extra)
+        clock = _PhaseClock(state[0].device)
+        clock.mark()
+        for ph in prog.phases:
+            _bind(env, ph, ph.fn(*(env[k] for k in ph.inputs)))
+            clock.mark()
+        state, stats = prog.finalize(env)
+        times = dict.fromkeys(PHASE_TAGS, 0.0)
+        for ph, secs in zip(prog.phases, clock.seconds()):
+            times[ph.tag] += secs
+        return state, stats, PhaseBreakdown(**times)
+
+
+def roll_schedule(start: int, n_steps: int, every: int | None,
+                  cap: int | None = None):
+    """Yield the window cadence as ``(is_sample, chunk)`` stretches.
+
+    The JAX package's ``roll_schedule``, as it is: the sampling grid is
+    anchored at the absolute step index ``start`` (steps divisible by
+    ``every`` are single instrumented samples); ``every=None`` never
+    samples; other stretches run to the next sample point, at most ``cap``
+    steps per window.
+    """
+    if every is not None and every < 1:
+        raise ValueError("every must be >= 1")
+    done = 0
+    while done < n_steps:
+        step = start + done
+        if every is not None and step % every == 0:
+            yield True, 1
+            done += 1
+            continue
+        chunk = n_steps - done
+        if every is not None:
+            chunk = min(every - step % every, chunk)
+        if cap is not None:
+            chunk = min(chunk, cap)
+        yield False, chunk
+        done += chunk
+
+
 # ---------------------------------------------------------------------------
 # The program registry
 # ---------------------------------------------------------------------------
@@ -220,8 +320,12 @@ def get_program(name: str) -> ProgramSpec:
 # Health signals
 # ---------------------------------------------------------------------------
 
-def health_flags(state, solver_ok: bool, solver_cap: bool, *scalars):
-    """Reduce a step's health to three boolean 0-d tensors.
+def health_flags(state, solver_ok: torch.Tensor, solver_cap: torch.Tensor,
+                 *scalars):
+    """Reduce a step's health to three boolean 0-d tensors, on the device.
+
+    ``solver_ok`` and ``solver_cap`` are the step's Krylov flags reduced
+    over its solves (0-d bool tensors).
 
     ``finite`` is an ``isfinite`` reduction over every state leaf plus the
     extra per-step scalars (residuals, continuity error).  Returns
@@ -279,8 +383,10 @@ def _phase_toolkit(solver) -> PhaseToolkit:
                         U[..., c].contiguous(), tol=solver.mom_tol,
                         maxiter=solver.mom_maxiter) for c in range(3)]
         U_new = torch.stack([r.x for r in res], dim=2)
-        return (U_new, max(r.iters for r in res),
-                all(r.converged for r in res), any(r.hit_cap for r in res))
+        # reduced on the device: no host read
+        return (U_new, torch.stack([r.iters for r in res]).max(),
+                torch.stack([r.converged for r in res]).all(),
+                torch.stack([r.hit_cap for r in res]).any())
 
     # -- the pressure equation --------------------------------------------
     def assemble_p(sysM, U):
@@ -364,18 +470,16 @@ def build_piso_program(solver) -> StepProgram:
     def finalize(env):
         state = PisoState(env["U"], env["p"], env["phi"], env["phi_if"],
                           env["phi_b"])
-        ok = env["mom_ok"] and all(env[f"p_ok_{i}"] for i in range(n_corr))
-        cap = env["mom_cap"] or any(env[f"p_cap_{i}"] for i in range(n_corr))
+        ok, cap = env["mom_ok"], env["mom_cap"]
+        for i in range(n_corr):
+            ok = ok & env[f"p_ok_{i}"]
+            cap = cap | env[f"p_cap_{i}"]
         converged, diverged, hit_cap = health_flags(
             state, ok, cap, env["cont"], env["p_res"])
-        device = env["cont"].device
-
-        def ints(*xs):
-            return torch.tensor(xs, dtype=torch.int32, device=device)
-
         stats = StepStats(
-            mom_iters=ints(env["mom_iters"])[0],
-            p_iters=ints(*(env[f"p_iters_{i}"] for i in range(n_corr))),
+            mom_iters=env["mom_iters"].to(torch.int32),
+            p_iters=torch.stack([env[f"p_iters_{i}"]
+                                 for i in range(n_corr)]).to(torch.int32),
             continuity_err=env["cont"],
             p_residual=env["p_res"],
             converged=converged, diverged=diverged, hit_cap=hit_cap)

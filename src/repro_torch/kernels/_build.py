@@ -24,7 +24,8 @@ __all__ = ["SOURCES", "DTYPE_CODES", "build_all", "build_sources", "load",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("spmv_dia", "krylov_fused", "coef_update", "stencil_assembly")
+SOURCES = ("spmv_dia", "krylov_fused", "coef_update", "stencil_assembly",
+           "krylov_loop")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -39,12 +40,28 @@ DTYPE_CODES = {
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _SIGNATURES = {
-    "spmv_dia": {"spmv_dia_launch": [ctypes.c_int, _P, _P, _P, _I64, _I64,
-                                     ctypes.POINTER(_I64), ctypes.c_int, _P]},
+    "spmv_dia": {
+        "spmv_dia_launch": [ctypes.c_int, _P, _P, _P, _I64, _I64,
+                            ctypes.POINTER(_I64), ctypes.c_int, _P],
+        "spmv_dia_guarded_launch": [ctypes.c_int, _P, _P, _P, _I64, _I64,
+                                    ctypes.POINTER(_I64), ctypes.c_int, _P,
+                                    _P, _P],
+    },
     "krylov_fused": {
         "spmv_dot_launch": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64,
                             ctypes.POINTER(_I64), ctypes.c_int, _P],
+        "spmv_dot_guarded_launch": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64,
+                                    ctypes.POINTER(_I64), ctypes.c_int, _P,
+                                    _P, _P],
         "axpy_precond_launch": [ctypes.c_int] + [_P] * 11 + [_I64, _P],
+        "axpy_precond_inplace_launch": [ctypes.c_int] + [_P] * 9
+        + [_I64, _P, _P, _P],
+    },
+    "krylov_loop": {
+        "cg_direction_launch": [ctypes.c_int, _P, _P, _P, _P, _I64, _P, _P,
+                                _P],
+        "cg_advance_launch": [ctypes.c_int] + [_P] * 7
+        + [ctypes.c_int, _P, _P],
     },
     "coef_update": {"coef_update_launch": [ctypes.c_int, _P, _P, _P, _I64,
                                            _I64, _I64, _P]},
@@ -130,9 +147,13 @@ def build_all() -> dict:
 
 
 def load_library(path: Path, name: str) -> ctypes.CDLL:
-    """Load the library of ``<name>.cu`` at ``path``, its entry points typed."""
+    """Load the library of ``<name>.cu`` at ``path``, its entry points typed
+    (an entry point the library lacks, as another checkout's older build
+    may, is left out)."""
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in _SIGNATURES[name].items():
+        if not hasattr(lib, fn):
+            continue
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib

@@ -22,6 +22,15 @@ only; for CUDA tensors they launch the kernel or raise.
 partials themselves (their plain versions :func:`spmv_dot_partials_plain`,
 :func:`axpy_precond_partials_plain` compute them bit for bit).
 
+The Krylov loops of :mod:`repro_torch.solvers.device_loop` write into
+buffers they hold at fixed addresses and guard every iteration on a
+one-element device flag: :func:`fused_matvec_dot_into` and
+:func:`fused_update_step_into` are the two wrappers in that form (the
+latter updates ``x`` and ``r`` in place, through the kernel's in-place
+instantiation), with :func:`partials_buffers` for their scratch.  On the
+CPU they run the plain versions and store through
+:func:`~repro_torch.kernels.spmv_dia.spmv_dia.guarded_store`.
+
 :func:`spmv_dot_cost` and :func:`fused_axpy_precond_cost` are the JAX
 package's byte and flop contracts, as ints.
 """
@@ -30,12 +39,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._build import dtype_code, load
+from repro_torch.kernels.device_counts import count_ptr
 from repro_torch.kernels.spmv_dia.spmv_dia import (
-    KERNEL_BLOCK_ROWS, _offsets_arg, check_stacked_operands, stream_ptr)
+    KERNEL_BLOCK_ROWS, _offsets_arg, check_flag, check_out,
+    check_stacked_operands, guarded_store, stream_ptr)
 from repro_torch.sparse.distributed import spmv_dia
 
 __all__ = ["fused_matvec_dot", "fused_update_step", "spmv_dot_partials",
-           "axpy_precond_partials", "spmv_dot_plain", "spmv_dot_partials_plain",
+           "axpy_precond_partials", "fused_matvec_dot_into",
+           "fused_update_step_into", "axpy_precond_inplace",
+           "partials_buffers", "spmv_dot_plain", "spmv_dot_partials_plain",
            "fused_axpy_precond_plain", "axpy_precond_partials_plain",
            "block_partials_plain", "check_axpy_operands", "spmv_dot_cost",
            "fused_axpy_precond_cost", "DEFAULT_BLOCK_ROWS"]
@@ -156,26 +169,52 @@ def axpy_precond_partials_plain(x, r, p, Ap, inv_diag, alpha,
 
 def spmv_dot_partials(bands: torch.Tensor, x: torch.Tensor, *,
                       offsets: tuple[int, ...], plane: int,
-                      accum_dtype: torch.dtype | None = None):
+                      accum_dtype: torch.dtype | None = None,
+                      out: tuple | None = None,
+                      active: torch.Tensor | None = None):
     """``(A x, partials)``: ``A x`` in the storage dtype and the ``x . A x``
     partials, one per :data:`KERNEL_BLOCK_ROWS` flat rows, in the accum
-    dtype.  On CPU tensors: :func:`spmv_dot_partials_plain`."""
+    dtype.  ``out``: the two buffers ``(y, partials)`` to write (default:
+    new ones); ``active``: the loop guard (needs ``out``).  On CPU
+    tensors: :func:`spmv_dot_partials_plain`."""
     if bands.device.type == "cpu" and x.device.type == "cpu":
-        return spmv_dot_partials_plain(bands, x, offsets=offsets,
-                                       plane=plane, accum_dtype=accum_dtype)
+        y, part = spmv_dot_partials_plain(bands, x, offsets=offsets,
+                                          plane=plane,
+                                          accum_dtype=accum_dtype)
+        if out is None:
+            return guarded_store(None, y, active), part
+        return (guarded_store(out[0], y, active),
+                guarded_store(out[1], part, active))
     acc = accum_dtype or bands.dtype
     check_stacked_operands(bands, x, offsets, plane)
     code = dtype_code(bands.dtype, acc)
     P, nb, m = bands.shape
-    y = torch.empty_like(x)
-    part = torch.empty((-(-P * m // KERNEL_BLOCK_ROWS),), dtype=acc,
-                       device=x.device)
-    rc = load("krylov_fused").spmv_dot_launch(
-        code, bands.data_ptr(), x.data_ptr(), y.data_ptr(), part.data_ptr(),
-        P, m, _offsets_arg(offsets), nb, stream_ptr(x))
+    n_part = -(-P * m // KERNEL_BLOCK_ROWS)
+    if out is None:
+        if active is not None:
+            raise ValueError("a guarded call needs out=")
+        y = torch.empty_like(x)
+        part = torch.empty((n_part,), dtype=acc, device=x.device)
+    else:
+        y = check_out(out[0], x)
+        part = out[1]
+        if (part.shape != (n_part,) or part.dtype != acc
+                or part.device != x.device or not part.is_contiguous()):
+            raise ValueError(f"partials must be a contiguous ({n_part},) "
+                             f"{acc} tensor on {x.device}")
+    lib = load("krylov_fused")
+    args = (code, bands.data_ptr(), x.data_ptr(), y.data_ptr(),
+            part.data_ptr(), P, m, _offsets_arg(offsets), nb)
+    if active is None:
+        rc = lib.spmv_dot_launch(*args, stream_ptr(x))
+    else:
+        rc = lib.spmv_dot_guarded_launch(
+            *args, check_flag(active, x.device),
+            count_ptr("spmv_dot", x.device, active), stream_ptr(x))
     if rc != 0:
         raise RuntimeError(f"spmv_dot kernel launch failed (code {rc})")
-    fused_matvec_dot.launches += 1
+    if active is None:  # a guarded launch counts itself on the device
+        fused_matvec_dot.launches += 1
     return y, part
 
 
@@ -275,6 +314,103 @@ def fused_update_step(x, r, p, Ap, inv_diag, alpha,
         return fused_axpy_precond_plain(*vecs, alpha, accum_dtype=accum_dtype)
     xo, ro, zo, rz, rr = _axpy_launch(vecs, alpha, accum_dtype or x.dtype)
     return xo, ro, zo, rz.sum(), rr.sum()
+
+
+# ---------------------------------------------------------------------------
+# the Krylov loops' forms: fixed buffers, in place, guarded
+# ---------------------------------------------------------------------------
+
+def partials_buffers(n: int, accum_dtype: torch.dtype,
+                     device: torch.device) -> dict:
+    """The reductions' scratch for ``n`` flat rows: ``{"dot": the SpMV+dot
+    partials, "rz", "rr": the axpy kernel's two partial rows}`` (the rows
+    two views of one buffer laid out as :func:`fused_update_step`'s)."""
+    nb = -(-n // KERNEL_BLOCK_ROWS)
+    stride = -(-nb // _PARTIAL_STRIDE) * _PARTIAL_STRIDE
+    axpy = torch.empty(2 * stride, dtype=accum_dtype, device=device)
+    return {"dot": torch.empty(nb, dtype=accum_dtype, device=device),
+            "rz": axpy[:nb], "rr": axpy[stride:stride + nb]}
+
+
+def fused_matvec_dot_into(bands: torch.Tensor, x: torch.Tensor,
+                          y: torch.Tensor, dot: torch.Tensor, part: dict, *,
+                          offsets: tuple[int, ...], plane: int,
+                          accum_dtype: torch.dtype | None = None,
+                          active: torch.Tensor | None = None) -> None:
+    """:func:`fused_matvec_dot` into ``y`` and the 0-d ``dot`` (accum
+    dtype), through the partials of ``part`` (:func:`partials_buffers`),
+    under the loop guard ``active``.  On a CUDA device the sum of the
+    partials is ``torch.sum`` into ``dot``, unguarded: it only rewrites
+    scratch."""
+    if bands.device.type == "cpu" and x.device.type == "cpu":
+        yy, d = spmv_dot_plain(bands, x, offsets=offsets, plane=plane,
+                               accum_dtype=accum_dtype)
+        guarded_store(y, yy, active)
+        guarded_store(dot, d, active)
+        return
+    spmv_dot_partials(bands, x, offsets=offsets, plane=plane,
+                      accum_dtype=accum_dtype, out=(y, part["dot"]),
+                      active=active)
+    torch.sum(part["dot"], dim=0, out=dot)
+
+
+def axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, rz_part, rr_part,
+                         accum_dtype: torch.dtype | None = None,
+                         active: torch.Tensor | None = None) -> None:
+    """``x <- x + alpha p`` and ``r <- r - alpha Ap`` in place, ``z <- r' *
+    inv_diag`` and the ``r'.z``, ``r'.r'`` partials into ``rz_part``,
+    ``rr_part``; nothing is written while the guard ``active`` is False.
+    On CPU tensors: :func:`axpy_precond_partials_plain`, stored through
+    :func:`guarded_store`."""
+    vecs = (x, r, p, Ap, inv_diag)
+    acc = accum_dtype or x.dtype
+    if _on_cpu(vecs, alpha):
+        new = axpy_precond_partials_plain(*vecs, alpha, accum_dtype=acc)
+        for dst, val in zip((x, r, z, rz_part, rr_part), new):
+            guarded_store(dst, val, active)
+        return
+    code = dtype_code(x.dtype, acc)
+    ptrs = check_axpy_operands(vecs, alpha)
+    check_out(z, x)
+    if z.data_ptr() % 16:
+        raise ValueError("kernel operands must start on a 16-byte boundary")
+    nb = -(-x.numel() // KERNEL_BLOCK_ROWS)
+    for part in (rz_part, rr_part):
+        if (part.shape != (nb,) or part.dtype != acc
+                or part.device != x.device or not part.is_contiguous()):
+            raise ValueError(f"partials must be contiguous ({nb},) {acc} "
+                             f"tensors on {x.device}")
+    if alpha.dtype != acc:
+        raise TypeError(f"alpha must be {acc}, got {alpha.dtype}")
+    rc = load("krylov_fused").axpy_precond_inplace_launch(
+        code, *ptrs, alpha.data_ptr(), z.data_ptr(), rz_part.data_ptr(),
+        rr_part.data_ptr(), x.numel(), check_flag(active, x.device),
+        count_ptr("axpy_precond", x.device, active), stream_ptr(x))
+    if rc != 0:
+        raise RuntimeError(f"axpy_precond (in place) kernel launch failed "
+                           f"(code {rc})")
+    if active is None:  # a guarded launch counts itself on the device
+        fused_update_step.launches += 1
+
+
+def fused_update_step_into(x, r, p, Ap, inv_diag, alpha, z, rz, rr,
+                           part: dict, accum_dtype: torch.dtype | None = None,
+                           active: torch.Tensor | None = None) -> None:
+    """:func:`fused_update_step` with ``x`` and ``r`` updated in place,
+    ``z`` and the 0-d dots ``rz``, ``rr`` (accum dtype) written, through
+    the partials of ``part`` (:func:`partials_buffers`), under the loop
+    guard ``active``.  On a CUDA device the two sums of the partials are
+    ``torch.sum`` into ``rz`` and ``rr``, unguarded (scratch)."""
+    vecs = (x, r, p, Ap, inv_diag)
+    if _on_cpu(vecs, alpha):
+        new = fused_axpy_precond_plain(*vecs, alpha, accum_dtype=accum_dtype)
+        for dst, val in zip((x, r, z, rz, rr), new):
+            guarded_store(dst, val, active)
+        return
+    axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, part["rz"],
+                         part["rr"], accum_dtype=accum_dtype, active=active)
+    torch.sum(part["rz"], dim=0, out=rz)
+    torch.sum(part["rr"], dim=0, out=rr)
 
 
 fused_matvec_dot.launches = 0

@@ -89,11 +89,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _to_host(stats):
+    """A step's stats copied to the host: the one read of them per logged
+    step (the step itself keeps them on the device)."""
+    return type(stats)(*(t.cpu() for t in stats))
+
+
 def run_transient(solver: SegregatedSolver, dt: float, n_steps: int,
                   state: PisoState | None = None, log=print
                   ) -> tuple[PisoState, StepStats, list[float]]:
     """Advance ``n_steps`` one at a time; returns the final state, the
-    per-step stacked stats and each step's wall seconds (synchronised)."""
+    per-step stacked stats (on the solver's device) and each step's wall
+    seconds (synchronised)."""
     state = solver.initial_state() if state is None else state
     history, walls = [], []
     for i in range(n_steps):
@@ -103,10 +110,11 @@ def run_transient(solver: SegregatedSolver, dt: float, n_steps: int,
         _sync(solver.device)
         walls.append(time.perf_counter() - t0)
         history.append(stats)
-        log(f"step {i}: mom_iters={int(stats.mom_iters)} "
-            f"p_iters={stats.p_iters.tolist()} "
-            f"continuity={float(stats.continuity_err):.2e} "
-            f"converged={bool(stats.converged)} "
+        host = _to_host(stats)
+        log(f"step {i}: mom_iters={int(host.mom_iters)} "
+            f"p_iters={host.p_iters.tolist()} "
+            f"continuity={float(host.continuity_err):.2e} "
+            f"converged={bool(host.converged)} "
             f"({walls[-1]:.3f} s)")
     stacked = StepStats(*(torch.stack(f) for f in zip(*history)))
     return state, stacked, walls
@@ -125,15 +133,16 @@ def run_steady(solver: SegregatedSolver, dt: float,
     _sync(solver.device)
     wall = time.perf_counter() - t0
     done = bool(solver.program.converged(stats))
+    host = _to_host(stats)
     log(f"{solver.case}/{solver.program_name}: "
         f"{'converged' if done else 'CAPPED'} after {n_outer} outer "
         f"iterations in {wall:.2f}s "
         f"({wall / max(n_outer, 1) * 1e3:.1f} ms/outer)")
-    log(f"  continuity={float(stats.continuity_err):.2e} "
+    log(f"  continuity={float(host.continuity_err):.2e} "
         f"(tol {solver.tol_continuity:.0e}) "
-        f"u_delta={float(stats.u_delta):.2e} (tol {solver.tol_u:.0e}) "
-        f"mom_iters={int(stats.mom_iters)} "
-        f"p_iters={[int(i) for i in stats.p_iters]}")
+        f"u_delta={float(host.u_delta):.2e} (tol {solver.tol_u:.0e}) "
+        f"mom_iters={int(host.mom_iters)} "
+        f"p_iters={[int(i) for i in host.p_iters]}")
     log(f"  ({solver.mesh.n_cells_global} cells, alpha={solver.alpha}, "
         f"relax_u={solver.relax_u}, relax_p={solver.relax_p}, "
         f"solver_backend={solver.solver_backend}, "

@@ -14,6 +14,25 @@ the same control flow and the same convergence decisions:
 * ``dots(*pairs)``         — a tuple of global dots (initial residual,
   BiCGStab's rho/rv/ts/tt)
 
+and, for the device-resident loops of :mod:`repro_torch.solvers.
+device_loop`, the same work into buffers the loop holds, under its guard
+``active`` (a one-element bool tensor; nothing is written while it is
+False):
+
+* ``matvec_into(x, out, active)`` — ``out <- A x``
+* ``matvec_dot_into(p, Ap, pAp, active)`` — ``Ap <- A p``, ``pAp <- p.Ap``
+* ``fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active)`` — ``x`` and
+  ``r`` updated in place, ``z``, ``rz = r'.z``, ``rr = r'.r'`` written
+* ``direction(p, z, gamma_new, gamma, active)`` — ``p <- z + beta p`` in
+  place, ``beta = gamma_new / gamma`` on the device
+* ``advance(gamma, gamma_new, rr, rr_new, k, active, thr, maxiter)`` — the
+  CG loop's carry update and condition
+
+The fused backend's members are the guarded kernels (with the reductions'
+scratch allocated once per bundle); the reference backend's are plain
+PyTorch that writes through selects, so both run in one loop on every
+device.
+
 Backends:
 
 * :func:`reference_ops` — plain PyTorch over any ``A``/``M`` closures.
@@ -66,12 +85,21 @@ class SolverOps:
     matvec_dot: Callable
     fused_step: Callable
     dots: Callable
+    matvec_into: Callable
+    matvec_dot_into: Callable
+    fused_step_into: Callable
+    direction: Callable
+    advance: Callable
     backend: str = "reference"   # informational (logs)
     # the policy the members were built under and, for a refined policy,
     # the full-precision operator of the outer residual replay (None
     # falls back to ``matvec``: right for f64 only)
     policy: PrecisionPolicy = F64
     matvec_hi: Callable | None = None
+    # the device loops' buffers and captured blocks, kept per sweep shape
+    # for the bundle's later sweeps (solvers/cg.py, solvers/bicgstab.py)
+    loops: dict = dataclasses.field(default_factory=dict, compare=False,
+                                    repr=False)
 
 
 def resolve_backend(requested: str, device: torch.device | str) -> str:
@@ -107,6 +135,31 @@ def _policy_dots(policy: PrecisionPolicy) -> Callable:
     return dots
 
 
+def _plain_into(matvec: Callable, matvec_dot: Callable,
+                fused_step: Callable) -> dict:
+    """The loop members in plain PyTorch, over the bundle's own members:
+    each result stored through a select on the guard."""
+    from repro_torch.kernels.krylov_loop.krylov_loop import (
+        cg_advance_plain, cg_direction_plain)
+    from repro_torch.kernels.spmv_dia.spmv_dia import guarded_store
+
+    def matvec_into(x, out, active):
+        guarded_store(out, matvec(x), active)
+
+    def matvec_dot_into(p, Ap, pAp, active):
+        for dst, val in zip((Ap, pAp), matvec_dot(p)):
+            guarded_store(dst, val, active)
+
+    def fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active):
+        for dst, val in zip((x, r, z, rz, rr),
+                            fused_step(x, r, p, Ap, alpha)):
+            guarded_store(dst, val, active)
+
+    return {"matvec_into": matvec_into, "matvec_dot_into": matvec_dot_into,
+            "fused_step_into": fused_step_into,
+            "direction": cg_direction_plain, "advance": cg_advance_plain}
+
+
 def reference_ops(A: Callable, M: Callable | None = None, *,
                   policy: PrecisionPolicy | str = F64,
                   matvec_hi: Callable | None = None) -> SolverOps:
@@ -134,6 +187,7 @@ def reference_ops(A: Callable, M: Callable | None = None, *,
 
     return SolverOps(matvec=A, precond=M, matvec_dot=matvec_dot,
                      fused_step=fused_step, dots=_policy_dots(policy),
+                     **_plain_into(A, matvec_dot, fused_step),
                      backend="reference", policy=policy,
                      matvec_hi=matvec_hi)
 
@@ -151,7 +205,10 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
     ``matvec_hi`` is the f64 SpMV kernel over the original bands.
     """
     from repro_torch.kernels.krylov_fused.krylov_fused import (
-        fused_matvec_dot, fused_update_step)
+        fused_matvec_dot, fused_matvec_dot_into, fused_update_step,
+        fused_update_step_into, partials_buffers)
+    from repro_torch.kernels.krylov_loop.krylov_loop import (cg_advance,
+                                                             cg_direction)
     from repro_torch.kernels.spmv_dia.spmv_dia import spmv_dia_stacked
     from repro_torch.solvers.jacobi import safe_jacobi_inverse
 
@@ -178,6 +235,23 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
     def fused_step(x, r, p, Ap, alpha):
         return fused_update_step(x, r, p, Ap, inv, alpha, accum_dtype=accum)
 
+    # the reductions' scratch of the loop members, allocated here: never
+    # inside a captured graph
+    part = partials_buffers(bands.shape[0] * bands.shape[2],
+                            policy.accum_dtype, bands.device)
+
+    def matvec_into(x, out, active):
+        spmv_dia_stacked(bands, x, offsets=offsets, plane=plane,
+                         accum_dtype=accum, out=out, active=active)
+
+    def matvec_dot_into(p, Ap, pAp, active):
+        fused_matvec_dot_into(bands, p, Ap, pAp, part, offsets=offsets,
+                              plane=plane, accum_dtype=accum, active=active)
+
+    def fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active):
+        fused_update_step_into(x, r, p, Ap, inv, alpha, z, rz, rr, part,
+                               accum_dtype=accum, active=active)
+
     matvec_hi = None
     if policy.refine:
         def matvec_hi(x):
@@ -186,4 +260,8 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
 
     return SolverOps(matvec=matvec, precond=precond, matvec_dot=matvec_dot,
                      fused_step=fused_step, dots=_policy_dots(policy),
-                     backend="fused", policy=policy, matvec_hi=matvec_hi)
+                     matvec_into=matvec_into,
+                     matvec_dot_into=matvec_dot_into,
+                     fused_step_into=fused_step_into, direction=cg_direction,
+                     advance=cg_advance, backend="fused", policy=policy,
+                     matvec_hi=matvec_hi)

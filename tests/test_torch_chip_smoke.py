@@ -171,7 +171,8 @@ def test_no_plain_versions_refuses_every_plain_version_then_restores():
     import importlib
 
     mods = {m: importlib.import_module(f"repro_torch.kernels.{m}.{m}")
-            for m in ("spmv_dia", "krylov_fused", "coef_update")}
+            for m in ("spmv_dia", "krylov_fused", "coef_update",
+                      "krylov_loop")}
     # every listed plain version exists in this tree: none is skipped
     before = {name: getattr(mods[m], name)
               for m, name in chip_smoke.PLAIN_VERSIONS}
@@ -181,3 +182,71 @@ def test_no_plain_versions_refuses_every_plain_version_then_restores():
                 getattr(mods[m], name)()
     assert {name: getattr(mods[m], name)
             for m, name in chip_smoke.PLAIN_VERSIONS} == before
+
+
+def test_loop_summary_holds_every_sweep_to_its_read_bound():
+    """The device loop's records: each sweep's host reads at most
+    ceil(iterations / K) + 4, or the check fails."""
+    from repro_torch.solvers.device_loop import LoopRecord
+
+    ok = [LoopRecord(2460, 309, 310, 0.0031, 8, "cuda", "cg",
+                     _launches("cg", 2460)),
+          LoopRecord(0, 0, 1, 0.0, 8, "cuda", "cg")]
+    summ = chip_smoke.loop_summary(ok)
+    assert summ["sweeps"] == [(2460, 309, 310, 3.1), (0, 0, 1, 0.0)]
+    assert summ["host_reads"] == 311 and summ["K"] == [8]
+    too_many = ok + [LoopRecord(16, 3, 9, 0.0, 8, "cuda", "cg",
+                                _launches("cg", 16))]
+    with pytest.raises(chip_smoke.SmokeFailure, match="bound 6 at K = 8"):
+        chip_smoke.loop_summary(too_many)
+
+
+def _launches(solver, iters):
+    """The device counts of a sweep that launched what it should."""
+    from repro_torch.kernels.device_counts import SLOTS
+
+    return {name: chip_smoke.LOOP_LAUNCHES[solver].get(name, 0) * iters
+            for name in SLOTS}
+
+
+@pytest.mark.parametrize("solver,iters", [("cg", 2460), ("bicgstab", 21)])
+def test_loop_summary_holds_the_device_counted_launches(solver, iters):
+    """On the card each sweep's guarded launches, as the kernels counted
+    them, must be the body's launches times the iterations: a replay that
+    skipped a kernel, or ran one past the guard, fails the check."""
+    from repro_torch.solvers.device_loop import LoopRecord
+
+    good = _launches(solver, iters)
+    chip_smoke.loop_summary([LoopRecord(iters, 8, 9, 0.0, 4, "cuda", solver,
+                                        good)])
+    for name in good:
+        for delta in (-1, 1):
+            bad = dict(good, **{name: good[name] + delta})
+            with pytest.raises(chip_smoke.SmokeFailure,
+                               match="counted the launches"):
+                chip_smoke.loop_summary([LoopRecord(iters, 8, 9, 0.0, 4,
+                                                    "cuda", solver, bad)])
+    with pytest.raises(chip_smoke.SmokeFailure, match="counted the launches"):
+        chip_smoke.loop_summary([LoopRecord(iters, 8, 9, 0.0, 4, "cuda",
+                                            solver)])
+
+
+def test_check_frames_covers_the_loop_kernels_when_asked():
+    """The build phase adds the in-place axpy and cg_direction to the
+    checked kernels; a log without them then fails."""
+    kernels = chip_smoke.NO_FRAME_KERNELS + chip_smoke.LOOP_NO_FRAME_KERNELS
+    with pytest.raises(chip_smoke.SmokeFailure, match="no instance"):
+        chip_smoke.check_frames(chip_smoke.ptxas_report(CLEAN), kernels)
+    inplace = AXPY.replace("19axpy_precond_kernel",
+                           "27axpy_precond_inplace_kernel")
+    direction = "_Z19cg_direction_kernelIddEvPT_PKS0_PKT0_S6_PKbx"
+    extra = "".join(
+        f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {fn}\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        f"loads\nptxas info    : Used 29 registers, used 0 barriers\n"
+        for fn in (inplace, direction))
+    counts = chip_smoke.check_frames(chip_smoke.ptxas_report(CLEAN + extra),
+                                     kernels)
+    assert counts["axpy_precond_inplace_kernel"] == 1
+    assert counts["cg_direction_kernel"] == 1

@@ -29,8 +29,10 @@ from repro_torch.kernels.krylov_fused import krylov_fused as torch_kf
 from repro_torch.kernels.krylov_fused.krylov_fused import (
     axpy_precond_partials, axpy_precond_partials_plain, block_partials_plain,
     check_axpy_operands, fused_axpy_precond_cost, fused_axpy_precond_plain,
-    fused_matvec_dot, fused_update_step, spmv_dot_cost, spmv_dot_partials,
-    spmv_dot_partials_plain, spmv_dot_plain)
+    fused_matvec_dot, fused_matvec_dot_into, fused_update_step,
+    spmv_dot_cost, spmv_dot_partials, spmv_dot_partials_plain, spmv_dot_plain)
+from repro_torch.kernels.krylov_loop.krylov_loop import (
+    cg_advance, cg_direction, cg_direction_plain)
 from repro_torch.kernels.spmv_dia.spmv_dia import (check_stacked_operands,
                                                    spmv_dia_plain,
                                                    spmv_dia_stacked)
@@ -372,11 +374,26 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
     faces += [b[:, 0], b[:, 1]]
     assert torch.equal(momentum_bands_stacked(*faces, nx=5, plane=25, vdt=2.),
                        momentum_bands_plain(*faces, nx=5, plane=25, vdt=2.))
+    # the Krylov loops' kernels and forms
+    g_new, g = torch.tensor(0.7, dtype=torch.float64), alpha
+    p_k, p_p = vecs[2].clone(), vecs[2].clone()
+    assert torch.equal(cg_direction(p_k, vecs[1], g_new, g),
+                       cg_direction_plain(p_p, vecs[1], g_new, g))
+    scal = [torch.tensor(v, dtype=torch.float64) for v in (1., 2., 3., 4.)]
+    k, flag = torch.zeros((), dtype=torch.int32), torch.ones((), dtype=bool)
+    cg_advance(*scal, k, flag, torch.tensor(0.5, dtype=torch.float64), 9)
+    assert int(k) == 1 and bool(flag) and float(scal[0]) == 2.
+    y, d = torch.empty_like(x), torch.empty((), dtype=torch.float64)
+    fused_matvec_dot_into(b, x, y, d, {}, offsets=offsets, plane=25,
+                          active=flag)
+    y_w, d_w = spmv_dot_plain(b, x, offsets=offsets, plane=25)
+    assert torch.equal(y, y_w) and torch.equal(d, d_w)
     assert launch_counts() == {name: 0 for name in WRAPPERS}
     assert set(WRAPPERS) == {"spmv_dia", "spmv_dot", "axpy_precond",
-                             "coef_update", "momentum_bands"}
+                             "coef_update", "momentum_bands", "cg_direction",
+                             "cg_advance"}
     assert set(SOURCES) == {"spmv_dia", "krylov_fused", "coef_update",
-                            "stencil_assembly"}
+                            "stencil_assembly", "krylov_loop"}
 
 
 def test_kernel_operand_checks_raise():
