@@ -95,7 +95,37 @@ result.  Phases, in order (any failure exits nonzero):
     the plain backend taking each outer iteration from the kernel run's
     state (within 1e-10, identical counts and flags).
 
-In phases 9-11 every kernel wrapper's plain version is made to raise while
+12. control at 210^3, from the main run's state on a fresh cavity solver
+    with one ``PlanCache`` and the kernels: (12a) one ``timed_step`` at
+    every divisor of 30 through ``rebind_alpha`` on the shared cache
+    (alpha 30 first, bitwise the main path's timed step), printing each
+    alpha's plan build, four phases and total, ms per CG iteration, one
+    pressure value update alone and the counts, each held to the alpha-30
+    step (1e-10, identical counts and flags), then every alpha revisited
+    with the cache's misses held at 8; (12b) each field of the ``H100``
+    cost-model spec as this card measures it (the f64 SpMV kernel alone,
+    a least-squares line of the value update against alpha, the assembly
+    seconds per dof fitted to the model, ms per iteration against rows
+    per part as a bound on the knee, a pinned 256 MB host-to-device copy)
+    beside the shipped constant, failing a field off by more than 2x (a
+    bound: more than 2x above it); (12c) 6 steps (the 4th to the 9th from
+    rest) through ``run_adaptive`` at the main path's settings under a
+    controller over the divisors of 30 sampling every step from the
+    static pick (every step converged with continuity below 1e-6, the
+    kernels launched, every plan from the cache), printing the static
+    pick, the trajectory, the final calibration and the sweep's fastest
+    alpha; then the witness of the 10th step, whose continuity error
+    passes 1e-6 at ``p_tol`` 1e-10: that step with the kernels and with
+    plain PyTorch held to each other (1e-10, identical counts and flags),
+    and with the kernels at ``p_tol`` 1e-11 held below 1e-6; (12d) the
+    pressure CG for 50 iterations with the kernels and with plain PyTorch
+    on cube meshes with parts of 512 to 308,700 rows (ms per iteration,
+    and the rate per dof against the 210^3 mesh's), the kernels required
+    to win at every size, as "auto" takes them at every size on the
+    card.  Phase 12's checks are collected and fail the run after all
+    four parts have printed.
+
+In phases 9-12 every kernel wrapper's plain version is made to raise while
 the kernel runs go: the card's path launches the kernels only.
 
 The line before the last is the card's ``nvidia-smi`` name and power
@@ -1290,7 +1320,7 @@ def require_launched(counts: dict, tag: str) -> None:
             f"{tag}: a kernel of the path was never launched: {counts}")
 
 
-def main_path(torch) -> dict:
+def main_path(torch) -> tuple:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.case import (build_parser, build_solver,
                                          run_transient)
@@ -1434,7 +1464,7 @@ def main_path(torch) -> dict:
     summary["baseline"] = baseline_phase(torch, solver, state_f, dt)
     summary["precision"] = precision_phase(torch, solver, state_f, dt,
                                            breakdown)
-    return summary
+    return summary, state_f, breakdown
 
 
 def loop_summary(records) -> dict:
@@ -1500,17 +1530,24 @@ def host_sweeps():
         cg_mod._cg_sweep, bi_mod._bicgstab_sweep = saved
 
 
-def momentum_system(solver, state, dt):
-    """The momentum ``(bands, sysM)`` of one step of ``solver`` from
-    ``state``."""
+def env_before(solver, state, dt, name: str) -> dict:
+    """The env of one step of ``solver`` from ``state``, walked up to its
+    first phase called ``name``."""
     from repro_torch.fvm.step_program import _bind
 
     prog = solver.program
     env = prog.seed(state, dt, *solver._extras())
     for ph in prog.phases:
-        if ph.name == "solve_mom":
+        if ph.name == name:
             break
         _bind(env, ph, ph.fn(*(env[k] for k in ph.inputs)))
+    return env
+
+
+def momentum_system(solver, state, dt):
+    """The momentum ``(bands, sysM)`` of one step of ``solver`` from
+    ``state``."""
+    env = env_before(solver, state, dt, "solve_mom")
     return env["bandsM"], env["sysM"]
 
 
@@ -1828,14 +1865,7 @@ def precision_phase(torch, solver, state, dt, f64_step) -> dict:
 def pressure_system(solver, state, dt):
     """The first corrector's ``(bands, b, x0, diag)`` of one step of
     ``solver`` from ``state``, in the coarse layout."""
-    from repro_torch.fvm.step_program import _bind
-
-    prog = solver.program
-    env = prog.seed(state, dt, *solver._extras())
-    for ph in prog.phases:
-        if ph.name == "solve_p":
-            break
-        _bind(env, ph, ph.fn(*(env[k] for k in ph.inputs)))
+    env = env_before(solver, state, dt, "solve_p")
     n_c = solver.n_coarse
     sysP = env["sysP"]
     return (env["bandsP"], sysP.source.reshape(n_c, -1),
@@ -2160,6 +2190,435 @@ def profile_cg(torch, iters: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the control plane at 210^3
+# ---------------------------------------------------------------------------
+# the ratios of the sweep and of the adaptive run: every divisor of PARTS
+SWEEP_ALPHAS = (1, 2, 3, 5, 6, 10, 15, 30)
+# the adaptive run takes the 4th to the 9th step from rest at the main
+# path's settings: at its p_tol of 1e-10 the cavity's continuity error
+# passes the 1e-6 bar at the 10th step (PERF.md), which the witness after
+# the run takes with both backends and at WITNESS_P_TOL
+ADAPTIVE_STEPS = 6
+WITNESS_P_TOL = 1e-11
+UPDATE_REPS = 20         # CUDA-event reps of one pressure value update
+H2D_BYTES = 256 * 2 ** 20
+SPEC_FACTOR = 2.0        # a shipped H100 field within 2x of this card's
+# a sweep whose every part size keeps this share of the largest parts'
+# rate per iteration is flat: it bounds the knee, dofs_sat, from above
+FLAT_RATE = 0.95
+# the backend crossover: (n, parts) cube meshes whose fine parts have about
+# 512, 2048, 8192, 32768 and (the main path's) 308,700 rows, the pressure
+# CG on them at alpha 1 for CROSSOVER_ITERS iterations
+CROSSOVER_MESHES = ((16, 8), (32, 16), (64, 32), (128, 64), (N, PARTS))
+CROSSOVER_ITERS = 50
+
+
+def fit_line(xs, ys) -> tuple[float, float, float]:
+    """Least-squares ``y = c0 + c1 x``: ``(c0, c1, standard error of
+    c1)``."""
+    x = [float(v) for v in xs]
+    y = [float(v) for v in ys]
+    n = len(x)
+    mx, my = sum(x) / n, sum(y) / n
+    sxx = sum((a - mx) ** 2 for a in x)
+    c1 = sum((a - mx) * (b - my) for a, b in zip(x, y)) / sxx
+    c0 = my - c1 * mx
+    resid = sum((b - c0 - c1 * a) ** 2 for a, b in zip(x, y))
+    se = (resid / max(n - 2, 1) / sxx) ** 0.5
+    return c0, c1, se
+
+
+def measured_spec(sweep: list, n_dofs: int, parts: int, spmv_bytes: float,
+                  spmv_s: float, h2d_bytes: float, h2d_s: float) -> dict:
+    """What each measured field of the ``H100`` spec stands for, from this
+    run (``src/repro_torch/core/cost_model.py`` says how each is read).
+
+    ``sweep``: per alpha ``alpha``, ``rows`` per coarse part, ``assembly_s``
+    (the step's assembly phase), ``update_s`` (one pressure value update
+    alone) and ``ms_per_iter`` (the pressure CG).  Returns ``{field:
+    (value, kind)}``, kind ``"value"`` (a rate measured), ``"fitted"``
+    (the model solved for the field from a measured time) or, where the
+    measurement only bounds the field from above, ``"at most"``.
+    """
+    from repro_torch.core.cost_model import CostModel as M
+
+    bytes_per_dof, flops_per_dof = (M.assembly_bytes_per_dof,
+                                    M.assembly_flops_per_dof)
+    c0, c1, se = fit_line([r["alpha"] for r in sweep],
+                          [r["update_s"] for r in sweep])
+    # the model's bytes of one update (CostModel.t_repartition)
+    update_bytes = (M.nnz_per_row + 1) * n_dofs * M.bytes_per_val
+    assembly = sorted(r["assembly_s"] for r in sweep)[len(sweep) // 2]
+    host_bw = bytes_per_dof * n_dofs * (0.001 + 1 / parts) / assembly
+    # the ms per iteration at the largest parts is the saturated rate; a
+    # flat sweep puts the knee at or below its smallest parts, else the
+    # model's law (efficiency = sqrt(rows / dofs_sat)) places it
+    top = max(sweep, key=lambda r: r["rows"])
+    share = [(r["rows"], min(1.0, top["ms_per_iter"] / r["ms_per_iter"]))
+             for r in sweep]
+    if all(s >= FLAT_RATE for _, s in share):
+        sat = (min(rows for rows, _ in share), "at most")
+    else:
+        sat = (min(rows / s ** 2 for rows, s in share), "fitted")
+    resolved = c1 > 2 * se
+    return {
+        "hbm_bw": (spmv_bytes / spmv_s, "value"),
+        "link_bw": (update_bytes / c0, "value"),
+        "msg_latency": ((c1, "value") if resolved
+                        else (max(c1, 0.0) + 2 * se, "at most")),
+        "host_bw": (host_bw, "fitted"),
+        "host_flops": (host_bw * flops_per_dof / bytes_per_dof, "fitted"),
+        "dofs_sat": sat,
+        "h2d_bw": (h2d_bytes / h2d_s, "value"),
+    }
+
+
+def check_spec(measured: dict, shipped) -> list:
+    """The fields of ``shipped`` (a HardwareSpec) off by more than
+    SPEC_FACTOR from ``measured`` (:func:`measured_spec`): a measured or
+    fitted value must lie within a factor SPEC_FACTOR either way, a field
+    measured as "at most" a bound no higher than SPEC_FACTOR times the
+    bound."""
+    bad = []
+    for field, (value, kind) in measured.items():
+        ship = getattr(shipped, field)
+        if kind == "at most":
+            ok = 0.0 <= ship <= SPEC_FACTOR * value
+        else:
+            ok = value / SPEC_FACTOR <= ship <= SPEC_FACTOR * value
+        if not ok:
+            bad.append(f"{field}: shipped {ship:.4g}, measured {kind} "
+                       f"{value:.4g}")
+    return bad
+
+
+def crossover_rows(points: list) -> int | None:
+    """The smallest part size (rows) from which the kernels are no slower
+    than plain PyTorch at every larger size measured; ``points`` holds
+    ``(rows, kernel ms per iteration, plain ms per iteration)``.  None if
+    the kernels lose at the largest size."""
+    best = None
+    for rows, fused, ref in sorted(points, reverse=True):
+        if fused > ref:
+            break
+        best = rows
+    return best
+
+
+def update_alone_s(torch, solver, sysP) -> float:
+    """Seconds of one pressure value update (the bound program's
+    ``update_p`` phase) on the step's system ``sysP``, CUDA events over
+    UPDATE_REPS calls."""
+    fn = next(ph.fn for ph in solver.program.phases if ph.name == "update_p")
+    return time_ms(torch, lambda: fn(sysP), n=UPDATE_REPS) / 1e3
+
+
+def alpha_sweep(torch, solver, state, dt, main_step, problems) -> list:
+    """12a: one ``timed_step`` from ``state`` at every alpha of
+    SWEEP_ALPHAS through ``rebind_alpha`` on the shared cache, alpha 30
+    first; each held to the alpha-30 step (PARITY, identical counts and
+    flags), the alpha-30 step bitwise the main path's timed step."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    sysP = env_before(solver, state, dt, "update_p")["sysP"]
+    rows, ref = [], None
+    for alpha in sorted(SWEEP_ALPHAS, reverse=True):
+        secs = solver.plan_seconds
+        solver.rebind_alpha(alpha)
+        plan_s = solver.plan_seconds - secs
+        reset_launch_counts()
+        with no_plain_versions():
+            st, stats, pb = solver.timed_step(state, dt)
+        counts = launch_counts()
+        iters = int(stats.p_iters.sum())
+        rec = {"alpha": alpha, "rows": solver.plan_p.m_coarse,
+               "n_coarse": solver.n_coarse, "plan_s": plan_s,
+               "assembly_s": pb.assembly, "update_phase_s": pb.update,
+               "halo_s": pb.halo, "solve_s": pb.solve, "total_s": pb.total,
+               "ms_per_iter": 1e3 * pb.solve / iters,
+               "update_s": update_alone_s(torch, solver, sysP),
+               "mom_iters": int(stats.mom_iters),
+               "p_iters": stats.p_iters.tolist(),
+               "launches": counts}
+        if ref is None:
+            ref = (st, stats)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(tuple(st) + tuple(stats),
+                           tuple(main_step["state"])
+                           + tuple(main_step["stats"])))
+            rec["bitwise_main_step"] = same
+            if not same:
+                problems.append(f"alpha {alpha} from the cache is not "
+                                "bitwise the main path's timed step")
+        diffs = state_diffs(st, ref[0])
+        rec["diffs"] = diffs
+        rec["same_counts"] = all(
+            torch.equal(getattr(stats, f), getattr(ref[1], f))
+            for f in ("mom_iters", "p_iters", "converged", "hit_cap"))
+        if max(diffs.values()) > PARITY or not rec["same_counts"]:
+            problems.append(
+                f"alpha {alpha}: p_iters {rec['p_iters']} against "
+                f"{ref[1].p_iters.tolist()}, max|d|/max {diffs}")
+        if not all(counts[k] > 0 for k in STEP_KERNELS):
+            problems.append(f"alpha {alpha}: a kernel of the step was never "
+                            f"launched: {counts}")
+        print(f"  alpha {alpha:2d}: {solver.n_coarse:2d} x {rec['rows']:>9,} "
+              f"rows; plan {plan_s:.2f} s; assembly {pb.assembly:.4f} "
+              f"update {pb.update:.4f} halo {pb.halo:.4f} solve "
+              f"{pb.solve:.4f} total {pb.total:.4f} s; "
+              f"{rec['ms_per_iter']:.4f} ms per CG iteration; one value "
+              f"update {1e3 * rec['update_s']:.4f} ms; mom_iters "
+              f"{rec['mom_iters']} p_iters {rec['p_iters']}; vs alpha "
+              f"{SWEEP_ALPHAS[-1]}: max|d|/max "
+              f"{max(diffs.values()):.3e}, counts and flags identical "
+              f"{rec['same_counts']}")
+        rows.append(rec)
+    return rows
+
+
+def spec_phase(torch, sweep, report) -> dict:
+    """12b: each measured field of the ``H100`` spec beside the shipped
+    constant; a field off by more than SPEC_FACTOR fails."""
+    from repro_torch.core.cost_model import H100
+
+    src = torch.empty(H2D_BYTES // 8, dtype=torch.float64, pin_memory=True)
+    dst = torch.empty(src.shape, dtype=src.dtype, device="cuda")
+    h2d_s = time_ms(torch, lambda: dst.copy_(src, non_blocking=True),
+                    n=10, warmup=2) / 1e3
+    del src, dst
+    spmv = report["spmv_dia"]
+    measured = measured_spec(sweep, N ** 3, PARTS, spmv["bytes"],
+                             spmv["kernel_alone_ms"] / 1e3, H2D_BYTES, h2d_s)
+    c0, c1, se = fit_line([r["alpha"] for r in sweep],
+                          [r["update_s"] for r in sweep])
+    print(f"  value update against alpha: {1e3 * c0:.4f} ms + "
+          f"{1e6 * c1:.4f} us x alpha (standard error {1e6 * se:.4f} us)")
+    for field, (value, kind) in measured.items():
+        print(f"  {field:12s} {kind:8s} {value:.4g}, shipped "
+              f"{getattr(H100, field):.4g}")
+    print(f"  peak_flops   shipped {H100.peak_flops:.4g} (data sheet, not "
+          f"measured); oversub_penalty {H100.oversub_penalty} (one process)")
+    bad = check_spec(measured, H100)
+    return {"measured": {f: v for f, (v, _) in measured.items()},
+            "kinds": {f: k for f, (_, k) in measured.items()},
+            "shipped": dataclasses.asdict(H100),
+            "update_fit": {"c0_s": c0, "c1_s": c1, "se_s": se},
+            "off": bad}
+
+
+def adaptive_phase(torch, solver, state, dt, sweep, problems) -> dict:
+    """12c: ADAPTIVE_STEPS steps from ``state`` through ``run_adaptive``,
+    a controller over SWEEP_ALPHAS sampling every step from the static
+    pick; every step converged, the step's kernels launched, and every
+    plan served from the cache the sweep filled.  Then the witness of the
+    next step (:func:`continuity_witness`) from the run's last state."""
+    from repro_torch.core.controller import (ControllerConfig,
+                                             RepartitionController)
+    from repro_torch.core.cost_model import H100, CostModel
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.case import run_adaptive
+
+    cache = solver.plan_cache
+    model = CostModel(H100, n_dofs=N ** 3, fused_solver=True)
+    ctl = RepartitionController(
+        model, n_cpu=PARTS, n_gpu=1, alpha0=None,
+        config=ControllerConfig(alphas=SWEEP_ALPHAS, sample_every=1),
+        cache=cache, fixed_fine=True, pipelined=False)
+    static = ctl.alpha
+    fastest = min(sweep, key=lambda r: r["total_s"])["alpha"]
+    misses, secs = cache.misses, solver.plan_seconds
+    print(f"  static pick (cost model, H100 spec): alpha {static}; the "
+          f"sweep's fastest step: alpha {fastest}; p_tol {solver.p_tol}")
+    reset_launch_counts()
+    with no_plain_versions():
+        st, stats, windows = run_adaptive(
+            solver, ctl, dt, ADAPTIVE_STEPS, ADAPTIVE_STEPS, state=state,
+            log=lambda line: print(f"  adaptive: {line}"))
+    counts = launch_counts()
+    s = ctl.stats()
+    trajectory = [w[3] for w in windows]
+    print(f"  trajectory {trajectory}, final alpha {ctl.alpha}, switches "
+          f"{s['switches']}, calibration scales {s['scales']}, cache "
+          f"{s['cache']}; launches {counts}")
+    try:
+        check_steps(torch, stats, "adaptive run")
+        require_launched(counts, "adaptive run")
+    except SmokeFailure as e:
+        problems.append(str(e))
+    if cache.misses != misses or solver.plan_seconds != secs:
+        problems.append(f"the adaptive run built plans: misses {misses} -> "
+                        f"{cache.misses}")
+    return {"static_pick": static, "sweep_fastest": fastest,
+            "trajectory": trajectory, "stats": s, "launches": counts,
+            "p_iters": stats.p_iters.tolist(),
+            "continuity": stats.continuity_err.tolist(),
+            "witness": continuity_witness(torch, solver, st, dt, problems)}
+
+
+def continuity_witness(torch, solver, state, dt, problems) -> dict:
+    """The next step from ``state`` (the 10th from rest): with the kernels
+    and with plain PyTorch at the main path's ``p_tol``, held to each
+    other (PARITY, identical counts and flags), so a continuity error
+    above CONTINUITY there is the tolerance's and not the kernels'; and
+    with the kernels at WITNESS_P_TOL, held below CONTINUITY."""
+    tol = solver.p_tol
+    runs = {}
+    st, stt, wall, _ = kernel_step(torch, solver, state, dt, "kernels",
+                                   must_converge=False)
+    runs["kernels"] = (st, stt, wall)
+    solver.solver_backend = "reference"
+    try:
+        runs["plain"] = solver_step(torch, solver, state, dt)
+    finally:
+        solver.solver_backend = "auto"
+    solver.p_tol = WITNESS_P_TOL
+    try:
+        st, stt, wall, _ = kernel_step(torch, solver, state, dt, "tighter",
+                                       must_converge=False)
+    finally:
+        solver.p_tol = tol
+    runs["tighter"] = (st, stt, wall)
+    out = {}
+    for tag, (st, stt, wall) in runs.items():
+        out[tag] = {"p_tol": WITNESS_P_TOL if tag == "tighter" else tol,
+                    "continuity": float(stt.continuity_err[0]),
+                    "mom_iters": int(stt.mom_iters[0]),
+                    "p_iters": stt.p_iters[0].tolist(), "step_s": wall}
+        print(f"  witness, next step, {tag} at p_tol {out[tag]['p_tol']}: "
+              f"continuity {out[tag]['continuity']:.3e} (bar "
+              f"{CONTINUITY:.0e}); mom {out[tag]['mom_iters']} p "
+              f"{out[tag]['p_iters']}; {flags(stt)}; {wall:.3f} s")
+        if not bool(stt.converged.all()) or bool(stt.diverged.any()):
+            problems.append(f"witness {tag}: a solve did not converge")
+    (st_k, stt_k, _), (st_p, stt_p, _) = runs["kernels"], runs["plain"]
+    diffs = out["diffs"] = state_diffs(st_k, st_p)
+    same = all(torch.equal(getattr(stt_k, f), getattr(stt_p, f))
+               for f in ("mom_iters", "p_iters", "converged", "hit_cap"))
+    print(f"  witness, kernels vs plain: max|d|/max over U, p, phi, phi_if "
+          + ", ".join(f"{v:.3e}" for v in diffs.values())
+          + f" (bar {PARITY:.0e}); counts and flags identical {same}")
+    if max(diffs.values()) > PARITY or not same:
+        problems.append(f"witness: kernels vs plain differ by {diffs}, "
+                        f"counts and flags identical {same}")
+    if out["tighter"]["continuity"] >= CONTINUITY:
+        problems.append(f"witness: continuity {out['tighter']['continuity']:.3e}"
+                        f" at p_tol {WITNESS_P_TOL}")
+    return out
+
+
+def crossover_phase(torch, solver, state, dt, problems) -> dict:
+    """12d: the pressure CG for CROSSOVER_ITERS iterations with the kernels
+    and with plain PyTorch at alpha 1 on each mesh of CROSSOVER_MESHES (the
+    last is ``solver``'s, from ``state``): ms per iteration, and each
+    mesh's rate per dof against the last's.  "auto" takes the kernels at
+    every part size on the card, so they must win at every size."""
+    from repro_torch.fvm.mesh import CavityMesh
+    from repro_torch.fvm.piso import PisoSolver
+    from repro_torch.solvers.cg import cg
+
+    points, dofs = [], []
+    for n, parts in CROSSOVER_MESHES:
+        if (n, parts) == (N, PARTS):
+            s, st = solver, state
+            s.rebind_alpha(1)
+        else:
+            s = PisoSolver(CavityMesh.cube(n, parts), alpha=1,
+                           device=solver.device)
+            st = s.initial_state()
+        bands, b, x0, diag = pressure_system(s, st, 0.5 * s.mesh.h)
+        ms = {}
+        for backend in ("fused", "reference"):
+            s.solver_backend = backend
+            ops = s._solver_ops(s.plan_p, bands, diag)
+
+            def solve():
+                return cg(ops, b, x0, tol=0.0, maxiter=CROSSOVER_ITERS)
+
+            times = []
+            with (no_plain_versions() if backend == "fused"
+                  else contextlib.nullcontext()):
+                solve()  # captures the loop's block; not timed
+                for _ in range(3):
+                    res, secs = synced(torch, solve)
+                    times.append(secs)
+            if int(res.iters) != CROSSOVER_ITERS:
+                problems.append(f"crossover {n}^3/{parts}: {backend} ran "
+                                f"{int(res.iters)} iterations")
+            ms[backend] = 1e3 * sorted(times)[1] / CROSSOVER_ITERS
+        s.solver_backend = "auto"
+        rows = s.plan_p.m_coarse
+        points.append((rows, ms["fused"], ms["reference"]))
+        dofs.append(n ** 3)
+        print(f"  {n}^3 / {parts} parts, {rows:,} rows a part: kernels "
+              f"{ms['fused']:.4f}, plain PyTorch {ms['reference']:.4f} ms "
+              f"per CG iteration")
+        if s is not solver:
+            del s, st, bands, b, x0, diag, ops
+            free_device(torch)
+    # the kernels' rate per dof on each mesh against the largest's: how
+    # far below saturation the whole card runs at that size
+    full = points[-1][1] / dofs[-1]
+    rate = [full / (p[1] / d) for p, d in zip(points, dofs)]
+    print("  kernels' rate per dof against the " + f"{N}^3 mesh's: " + ", ".join(
+        f"{d:,} dofs {r:.3f}" for d, r in zip(dofs, rate)))
+    read = crossover_rows(points)
+    smallest = min(p[0] for p in points)
+    print(f"  the kernels win from {read} rows a part (smallest measured "
+          f"{smallest}); \"auto\" takes them at every size on the card")
+    if read != smallest:
+        problems.append(f"plain PyTorch beats the kernels below {read} "
+                        f"rows a part, where \"auto\" takes the kernels: "
+                        f"{points}")
+    return {"points": points, "dofs": dofs, "rate_vs_largest": rate,
+            "kernels_win_from_rows": read}
+
+
+def control_phase(torch, state, main_step, report) -> dict:
+    """Phase 12 (see the module docstring): from ``state`` (the main
+    path's after its steps), a fresh 210^3 cavity solver at the main ratio
+    with one PlanCache and the kernels."""
+    from repro_torch.core.controller import PlanCache
+    from repro_torch.launch.case import build_parser, build_solver
+
+    print(f"[12] control at {N}^3: alpha sweep, the H100 spec, the adaptive "
+          f"run, the backend crossover")
+    args = build_parser().parse_args(MAIN_ARGS)
+    cache = PlanCache()
+    # at alpha 1 (the momentum plan serves the pressure too), so the sweep
+    # times the build of every other alpha's plan, alpha 30's included
+    solver = build_solver(args, alpha=1, plan_cache=cache)
+    print(f"  [12a] alpha sweep; the alpha-1 plan built at setup in "
+          f"{solver.plan_seconds:.2f} s")
+    dt = args.co * solver.mesh.h
+    problems = []
+    out = {"alpha1_plan_s": solver.plan_seconds,
+           "sweep": alpha_sweep(torch, solver, state, dt, main_step,
+                                problems)}
+    built = cache.misses
+    secs = solver.plan_seconds
+    for alpha in SWEEP_ALPHAS:
+        solver.rebind_alpha(alpha)
+    print(f"  revisiting every alpha: cache {cache.stats()}")
+    if built != len(SWEEP_ALPHAS) or cache.misses != built \
+            or solver.plan_seconds != secs:
+        problems.append(f"the cache missed {cache.misses} times "
+                        f"(built {built}) over {len(SWEEP_ALPHAS)} ratios")
+    out["cache_after_sweep"] = cache.stats()
+    print("  [12b] the H100 spec against this card")
+    out["spec"] = spec_phase(torch, out["sweep"], report)
+    problems += [f"H100 spec {b}" for b in out["spec"]["off"]]
+    print("  [12c] adaptive run")
+    out["adaptive"] = adaptive_phase(torch, solver, state, dt, out["sweep"],
+                                     problems)
+    print("  [12d] backend crossover")
+    out["crossover"] = crossover_phase(torch, solver, state, dt, problems)
+    for p in problems:
+        print(f"  FAILED: {p}")
+    require(not problems, f"phase 12: {len(problems)} check(s) failed")
+    return out
+
+
 def free_device(torch) -> None:
     """Collect the solvers (their programs close over them) and give the
     cached blocks back."""
@@ -2225,11 +2684,14 @@ def main(argv=None) -> int:
         print("[4-6] main path: 210^3 cavity, 30 parts, alpha 30, 3 PISO "
               "steps; determinism; parity (then 7-8)")
         torch.cuda.reset_peak_memory_stats()
-        summary = main_path(torch)
+        summary, state3, main_step = main_path(torch)
         free_device(torch)
         summary["channel"] = channel_phase(torch)
         free_device(torch)
         summary["simple"] = simple_phase(torch)
+        free_device(torch)
+        summary["control"] = control_phase(torch, state3, main_step, report)
+        del state3, main_step
         free_device(torch)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         summary["momentum_shape_times"] = {

@@ -30,10 +30,15 @@ once per plan and device, as int32 (:meth:`RepartitionPlan.src_on`,
 :meth:`RepartitionPlan.ell_cols_on`).  At the paper's smallest mesh
 (210^3 cells, alpha = 30) the plan covers about 65M buffer entries, so the
 duplicate check uses a counting pass rather than a sort.
+
+:func:`layout_fingerprint` and :func:`mesh_fingerprint` are the plan
+cache's keys (:class:`repro_torch.core.controller.PlanCache`): the same
+strings as the JAX package's, character for character.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from functools import cached_property
 
 import numpy as np
@@ -42,7 +47,8 @@ import torch
 from repro_torch.core.ldu import LDULayout
 from repro_torch.fvm.mesh import CavityMesh
 
-__all__ = ["RepartitionPlan", "build_plan", "plan_for_mesh"]
+__all__ = ["RepartitionPlan", "build_plan", "plan_for_mesh",
+           "layout_fingerprint", "mesh_fingerprint", "fuse_parts_coo"]
 
 ELL_K = 8  # max row degree of a fused 7-point-stencil matrix (see _ell)
 
@@ -237,3 +243,59 @@ def build_plan(layout: LDULayout, alpha: int, *, nx: int | None = None,
 def plan_for_mesh(mesh: CavityMesh, alpha: int) -> RepartitionPlan:
     layout = LDULayout.from_mesh(mesh)
     return build_plan(layout, alpha, nx=mesh.nx, plane=mesh.plane)
+
+
+# ---------------------------------------------------------------------------
+# Fingerprints — stable keys for the controller's plan cache.
+# ---------------------------------------------------------------------------
+
+def layout_fingerprint(layout: LDULayout) -> str:
+    """Stable content hash of the symbolic sparsity structure.
+
+    Two layouts with the same fingerprint produce identical plans for any
+    alpha, so the plan cache can key on ``(fingerprint, alpha, target)``
+    and share plans across solvers and re-created mesh objects.  The
+    arrays are hashed in their stored dtypes (int32, and int8 for the part
+    offsets), which the JAX package's ``LDULayout`` shares.
+    """
+    h = hashlib.sha256()
+    h.update(f"n_cells={layout.n_cells};".encode())
+    for arr in (layout.owner, layout.neigh, layout.iface_rows,
+                layout.iface_remote_rows, layout.iface_part_offset):
+        h.update(np.ascontiguousarray(arr).tobytes())
+        h.update(b";")
+    return h.hexdigest()[:16]
+
+
+def mesh_fingerprint(mesh: CavityMesh) -> str:
+    """Structural mesh hash: geometry + decomposition (not field values)."""
+    h = hashlib.sha256(
+        f"cavity;{mesh.nx};{mesh.ny};{mesh.nz};{mesh.n_parts};{mesh.h}"
+        .encode())
+    return h.hexdigest()[:16]
+
+
+# ---------------------------------------------------------------------------
+# Generic COO fusion — the reference the property tests hold plans to.
+# ---------------------------------------------------------------------------
+
+def fuse_parts_coo(part_rows: list[np.ndarray], part_cols: list[np.ndarray],
+                   m_fine: int, alpha: int):
+    """Reference fusion of alpha parts' (local_row, global_col) COO patterns.
+
+    Returns (rows, cols, is_local) of the fused coarse part in fused-local
+    row numbering, with cols kept global.  ``is_local`` marks entries whose
+    column is owned by the coarse part (the paper's localization criterion:
+    ``j ∈ I_GPU(r) = ∪ I_CPU(alpha r + l)``).
+    """
+    if len(part_rows) != alpha or len(part_cols) != alpha:
+        raise ValueError(f"expected {alpha} parts' patterns, got "
+                         f"{len(part_rows)} and {len(part_cols)}")
+    rows, cols = [], []
+    for l in range(alpha):
+        rows.append(np.asarray(part_rows[l], dtype=np.int64) + l * m_fine)
+        cols.append(np.asarray(part_cols[l], dtype=np.int64))
+    rows = np.concatenate(rows)
+    cols = np.concatenate(cols)
+    is_local = (cols >= 0) & (cols < alpha * m_fine)
+    return rows, cols, is_local

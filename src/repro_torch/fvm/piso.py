@@ -23,7 +23,9 @@ program named by ``program_name``.  :class:`PisoSolver` (the transient
 PISO marcher) and :class:`SimpleSolver` (the steady under-relaxed SIMPLE
 iterator, ``run_steady``) are its registered specializations.
 ``rebind_alpha`` swaps the pressure side's ratio between steps and keeps
-every ratio it has bound.  The port runs the stacked layout (every coarse
+every ratio it has bound; with a shared
+:class:`~repro_torch.core.controller.PlanCache` (``plan_cache``) the plans
+come from the cache.  The port runs the stacked layout (every coarse
 part's rows on the one device).
 """
 from __future__ import annotations
@@ -84,9 +86,12 @@ class SegregatedSolver:
     :mod:`repro_torch.solvers.precision`) are read at every solve, so
     either may be changed between steps; "auto" is "fused" on a CUDA
     device.  Both the momentum BiCGStab and the pressure CG run under the
-    policy.  ``plan_seconds`` records the host time the repartition plans
-    took to build (kept out of the step time), :meth:`rebind_alpha`'s
-    included.
+    policy.  ``plan_cache``, when given, supplies every plan (the key
+    convention of the controller's ``plan``: the stacked mode, the
+    requested backend and the policy as key components).
+    ``plan_seconds`` records the host time the repartition plans took to
+    build (kept out of the step time; with a cache, only its misses),
+    :meth:`rebind_alpha`'s included.
     """
 
     mesh: CavityMesh
@@ -116,6 +121,8 @@ class SegregatedSolver:
     # an outer f64 iterative-refinement loop
     precision: str = "f64"
     device: str | torch.device = "cuda"
+    # an optional shared PlanCache (repro_torch.core.controller)
+    plan_cache: object | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -137,20 +144,34 @@ class SegregatedSolver:
                         if self.update_schedule == "device_direct"
                         else update_host_buffer)
         self.plan_seconds = 0.0
+        # without a cache, the plans per alpha; and per (program, alpha,
+        # backend, policy) the (plan, program, executor) binding, each
+        # built once
+        self._plans: dict[int, RepartitionPlan] = {}
+        self._bindings: dict[tuple[str, int, str, str], tuple] = {}
         # identity repartition for the momentum (fine-partition) matrix
-        self.plan_mom: RepartitionPlan = self._build_plan(1)
-        # pressure plans per alpha, and per (program, alpha) the
-        # (plan, program, executor) binding, each built once
-        self._plans: dict[int, RepartitionPlan] = {1: self.plan_mom}
-        self._bindings: dict[tuple[str, int], tuple] = {}
+        self.plan_mom: RepartitionPlan = self._plan_for(1)
         self.rebind_alpha(self.alpha)
 
-    def _build_plan(self, alpha: int) -> RepartitionPlan:
-        """A plan built on the host, its gather index copied to the
-        device once; the build's seconds go to ``plan_seconds``."""
+    def _plan_for(self, alpha: int) -> RepartitionPlan:
+        """The plan for ``alpha``: from ``plan_cache`` when given, else
+        built once per solver; a build runs on the host, its seconds go to
+        ``plan_seconds``, and the gather index is copied to the device
+        once."""
         t0 = time.perf_counter()
-        plan = plan_for_mesh(self.mesh, alpha)
-        self.plan_seconds += time.perf_counter() - t0
+        if self.plan_cache is not None:
+            misses = self.plan_cache.misses
+            plan = self.plan_cache.plan_for_mesh(
+                self.mesh, alpha, "dia", mode="stacked",
+                backend=self.solver_backend, precision=self.precision)
+            built = self.plan_cache.misses != misses
+        else:
+            plan = self._plans.get(alpha)
+            built = plan is None
+            if built:
+                plan = self._plans[alpha] = plan_for_mesh(self.mesh, alpha)
+        if built:
+            self.plan_seconds += time.perf_counter() - t0
         plan.src_on(self.device)
         return plan
 
@@ -159,21 +180,23 @@ class SegregatedSolver:
 
         The state is alpha-independent (fine-partition layout), so a
         running simulation may switch.  A new alpha builds its plan on the
-        host and the phase list of ``program_name``; a revisited ``(program,
-        alpha)`` reuses its plan, device index and program, and builds
-        nothing.
+        host (or takes it from ``plan_cache``, which counts a hit) and the
+        phase list of ``program_name``; a revisited ``(program, alpha,
+        solver_backend, precision)`` reuses its plan, device index and
+        program, and builds nothing.  The backend and the policy key the
+        binding as they key the cache, so the binding always holds the
+        plan the cache returned for them.
         """
         if self.mesh.n_parts % alpha != 0:
             raise ValueError("alpha must divide the number of fine parts")
+        plan = self._plan_for(alpha)
         self.alpha = alpha
         self.n_coarse = self.mesh.n_parts // alpha
-        key = (self.program_name, alpha)
+        key = (self.program_name, alpha, self.solver_backend, self.precision)
         binding = self._bindings.get(key)
         if binding is None:
-            if alpha not in self._plans:
-                self._plans[alpha] = self._build_plan(alpha)
             # the program build reads plan_p and n_coarse off the solver
-            self.plan_p = self._plans[alpha]
+            self.plan_p = plan
             program = get_program(self.program_name).build(self)
             binding = self._bindings[key] = (
                 self.plan_p, program, SerialExecutor(program),

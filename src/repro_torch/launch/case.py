@@ -2,15 +2,28 @@
 
   python -m repro_torch.launch.case --n 210 --parts 30 --alpha 30 --steps 3
   python -m repro_torch.launch.case --program simple --case channel --n 8
+  python -m repro_torch.launch.case --n 8 --parts 4 --adaptive --steps 6 \
+      --device cpu
 
 Builds ``CavityMesh.cube(n, parts)`` and the solver of ``--program`` (its
 repartition plans are built once, on the host, and timed apart from the
 steps).  A transient program (PISO) advances ``--steps`` timesteps of
-``dt = co * h``, printing one line per step; a steady program (SIMPLE)
+``dt = co * h`` in windows of at most ``--scan-steps`` steps
+(``roll_schedule``), printing one line per step; a steady program (SIMPLE)
 iterates to its convergence predicate, capped at ``--max-outer`` outer
 iterations, and prints the verdict and the last residuals.
-``--device`` defaults to ``cuda``; ``--device cpu`` runs the same path on
-the CPU.  ``python -m repro_torch.launch.cavity`` is the same launcher.
+
+``--alpha 0`` lets the cost model pick the ratio
+(``CostModel(H100, n_dofs=n^3).optimal_alpha``, the paper's
+parametrization: the pick need not divide ``--parts``, and the solver then
+refuses it).  ``--adaptive`` (transient programs) closes the loop
+(:func:`run_adaptive`): every ``--sample-every``-th step is an
+instrumented sample (``timed_step``) that feeds the repartitioning
+controller, which recalibrates the cost model online and rebinds alpha
+when the predicted gain clears ``--hysteresis``; plans come from one
+shared plan cache.  ``--device`` defaults to ``cuda``; ``--device cpu``
+runs the same path on the CPU.  ``python -m repro_torch.launch.cavity`` is
+the same launcher.
 """
 from __future__ import annotations
 
@@ -19,14 +32,18 @@ import time
 
 import torch
 
+from repro_torch.core.controller import (ControllerConfig, PlanCache,
+                                         RepartitionController)
+from repro_torch.core.cost_model import H100, CostModel
 from repro_torch.fvm.cases import case_names, get_case
 from repro_torch.fvm.mesh import CavityMesh
 from repro_torch.fvm.piso import (SOLVERS, PisoState, SegregatedSolver,
                                   StepStats, make_solver)
-from repro_torch.fvm.step_program import get_program
+from repro_torch.fvm.step_program import get_program, roll_schedule
+from repro_torch.solvers.ops import resolve_backend
 
-__all__ = ["build_parser", "build_solver", "run_transient", "run_steady",
-           "main"]
+__all__ = ["build_parser", "build_solver", "cost_model", "run_transient",
+           "run_adaptive", "run_steady", "main"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n", type=int, default=12, help="cells per axis")
     ap.add_argument("--parts", type=int, default=4, help="fine parts (n_CPU)")
     ap.add_argument("--alpha", type=int, default=2,
-                    help="repartitioning ratio (must divide --parts)")
+                    help="repartitioning ratio (must divide --parts; "
+                         "0 = pick via cost model)")
     ap.add_argument("--steps", type=int, default=10,
                     help="timesteps (transient programs)")
     ap.add_argument("--max-outer", type=int, default=0,
@@ -63,12 +81,37 @@ def build_parser() -> argparse.ArgumentParser:
                          "kernels (one-pass SpMV+dot, axpy-pair+Jacobi+"
                          "dots); reference = plain PyTorch; auto = fused "
                          "on a CUDA device")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="feedback-driven alpha (overrides --alpha; "
+                         "transient programs only)")
+    ap.add_argument("--hysteresis", type=float, default=0.10,
+                    help="min relative predicted gain to switch alpha")
+    ap.add_argument("--sample-every", type=int, default=4,
+                    help="adaptive mode: timesteps per instrumented "
+                         "per-phase sample; steps in between advance in "
+                         "windows")
+    ap.add_argument("--scan-steps", type=int, default=8,
+                    help="window length: up to this many timesteps per "
+                         "run_steps call — the whole run in non-adaptive "
+                         "mode, and the stretches between instrumented "
+                         "samples in adaptive mode")
     ap.add_argument("--device", default="cuda", help="cuda or cpu")
     return ap
 
 
-def build_solver(args) -> SegregatedSolver:
-    """The solver for parsed launcher ``args`` (plans built here)."""
+def cost_model(args) -> CostModel:
+    """The launcher's cost model: the H100 spec at ``n^3`` dofs, its
+    fused-iteration term set by what ``--solver-backend`` resolves to on
+    ``--device``."""
+    backend = resolve_backend(args.solver_backend, args.device)
+    return CostModel(H100, n_dofs=args.n ** 3,
+                     fused_solver=backend == "fused")
+
+
+def build_solver(args, alpha: int | None = None,
+                 plan_cache: PlanCache | None = None) -> SegregatedSolver:
+    """The solver for parsed launcher ``args`` at ``alpha`` (default
+    ``--alpha``); its plans are built here, or taken from ``plan_cache``."""
     mesh = CavityMesh.cube(args.n, args.parts)
     nu = args.nu
     if args.re > 0:
@@ -76,12 +119,13 @@ def build_solver(args) -> SegregatedSolver:
         nu = case.nu(args.n * mesh.h)
         print(f"Re={args.re:g}: derived nu={nu:.3e} "
               f"(u_ref={case.u_ref:g}, L={args.n * mesh.h:g})")
-    return make_solver(args.program, mesh, alpha=args.alpha, nu=nu,
+    return make_solver(args.program, mesh,
+                       alpha=args.alpha if alpha is None else alpha, nu=nu,
                        case=args.case, p_tol=args.p_tol,
                        p_maxiter=args.p_maxiter,
                        update_schedule=args.schedule,
                        solver_backend=args.solver_backend,
-                       device=args.device)
+                       device=args.device, plan_cache=plan_cache)
 
 
 def _sync(device: torch.device) -> None:
@@ -95,29 +139,105 @@ def _to_host(stats):
     return type(stats)(*(t.cpu() for t in stats))
 
 
+def _cat(windows):
+    """Per-window stacked stats concatenated along the step axis."""
+    return type(windows[0])(*(torch.cat(f) for f in zip(*windows)))
+
+
 def run_transient(solver: SegregatedSolver, dt: float, n_steps: int,
-                  state: PisoState | None = None, log=print
+                  state: PisoState | None = None, log=print,
+                  scan_steps: int = 1
                   ) -> tuple[PisoState, StepStats, list[float]]:
-    """Advance ``n_steps`` one at a time; returns the final state, the
-    per-step stacked stats (on the solver's device) and each step's wall
-    seconds (synchronised)."""
+    """Advance ``n_steps`` in windows of at most ``scan_steps`` steps
+    (``roll_schedule``, as the JAX launcher does); returns the final
+    state, the per-step stacked stats (on the solver's device) and each
+    window's wall seconds (synchronised; one per step by default)."""
     state = solver.initial_state() if state is None else state
     history, walls = [], []
-    for i in range(n_steps):
+    step = 0
+    for _sample, chunk in roll_schedule(0, n_steps, None,
+                                        cap=max(scan_steps, 1)):
         _sync(solver.device)
         t0 = time.perf_counter()
-        state, stats = solver.step(state, dt)
+        state, stats = solver.run_steps(state, dt, chunk)
         _sync(solver.device)
         walls.append(time.perf_counter() - t0)
         history.append(stats)
         host = _to_host(stats)
-        log(f"step {i}: mom_iters={int(host.mom_iters)} "
-            f"p_iters={host.p_iters.tolist()} "
-            f"continuity={float(host.continuity_err):.2e} "
-            f"converged={bool(host.converged)} "
-            f"({walls[-1]:.3f} s)")
-    stacked = StepStats(*(torch.stack(f) for f in zip(*history)))
-    return state, stacked, walls
+        window = f" for {chunk} steps" if chunk > 1 else ""
+        for j in range(chunk):
+            wall = f" ({walls[-1]:.3f} s{window})" if j == chunk - 1 else ""
+            log(f"step {step + j}: mom_iters={int(host.mom_iters[j])} "
+                f"p_iters={host.p_iters[j].tolist()} "
+                f"continuity={float(host.continuity_err[j]):.2e} "
+                f"converged={bool(host.converged[j])}{wall}")
+        step += chunk
+    return state, _cat(history), walls
+
+
+def run_adaptive(solver: SegregatedSolver,
+                 controller: RepartitionController, dt: float, n_steps: int,
+                 scan_steps: int, state: PisoState | None = None, log=print
+                 ) -> tuple[PisoState, StepStats, list[tuple]]:
+    """Advance ``n_steps`` under the repartitioning controller (the JAX
+    launcher's adaptive branch).
+
+    On the sampling grid of ``roll_schedule(0, n_steps,
+    controller.config.sample_every, cap=scan_steps)`` a step is one
+    instrumented ``timed_step`` whose ``PhaseBreakdown`` feeds
+    ``controller.step``; a switch rebinds the solver's alpha (its plan
+    from the solver's plan cache) for the steps after it.  The stretches
+    in between run as windows of ``run_steps``.  The solver starts at the
+    controller's alpha.  Returns the final state, the per-step stacked
+    stats and the windows as ``(first step, is_sample, steps, alpha the
+    window ran at)``.
+    """
+    cfg = controller.config
+    if solver.alpha != controller.alpha:
+        solver.rebind_alpha(controller.alpha)
+    log(f"controller start: alpha={controller.alpha} "
+        f"solver_backend={solver.solver_backend} "
+        f"sample_every={cfg.sample_every}")
+    state = solver.initial_state() if state is None else state
+    t0 = time.perf_counter()
+    history, windows = [], []
+    step = 0
+    for is_sample, chunk in roll_schedule(0, n_steps, cfg.sample_every,
+                                          cap=max(scan_steps, 1)):
+        windows.append((step, is_sample, chunk, solver.alpha))
+        if is_sample:
+            # instrumented sample: per-phase timers feed the controller
+            state, stats, sample = solver.timed_step(state, dt)
+            new_alpha = controller.step(sample)
+            if new_alpha != solver.alpha:
+                log(f"step {step}: controller switch alpha "
+                    f"{solver.alpha} -> {new_alpha}")
+                solver.rebind_alpha(new_alpha)
+            host = _to_host(stats)
+            log(f"step {step}: alpha={solver.alpha} "
+                f"p_iters={[int(i) for i in host.p_iters]} "
+                f"continuity={float(host.continuity_err):.2e} "
+                f"phases(ms)=[as {sample.assembly*1e3:.1f} "
+                f"up {sample.update*1e3:.1f} ha {sample.halo*1e3:.1f} "
+                f"so {sample.solve*1e3:.1f}]")
+            stats = type(stats)(*(t.unsqueeze(0) for t in stats))
+        else:
+            state, stats = solver.run_steps(state, dt, chunk)
+            host = _to_host(stats)
+            log(f"steps {step}..{step + chunk - 1}: "
+                f"alpha={solver.alpha} rolled x{chunk} "
+                f"p_iters={[int(i) for i in host.p_iters[-1]]} "
+                f"continuity={float(host.continuity_err[-1]):.2e}")
+        history.append(stats)
+        step += chunk
+    _sync(solver.device)
+    s = controller.stats()
+    log(f"{n_steps} steps in {time.perf_counter() - t0:.2f}s "
+        f"({solver.mesh.n_cells_global} cells); final alpha="
+        f"{controller.alpha}, {len(s['switches'])} switch(es), "
+        f"plan cache {s['cache']['hits']} hits / "
+        f"{s['cache']['misses']} misses")
+    return state, _cat(history), windows
 
 
 def run_steady(solver: SegregatedSolver, dt: float,
@@ -152,19 +272,47 @@ def run_steady(solver: SegregatedSolver, dt: float,
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    cm = cost_model(args)
+    transient = get_program(args.program).transient
+    alpha = None if args.alpha == 0 or args.adaptive else args.alpha
+    ctl = None
+    if args.adaptive and transient:
+        # fixed_fine: the fine part count is --parts and alpha fuses, so
+        # only divisors of --parts are feasible
+        cfg = ControllerConfig(hysteresis=args.hysteresis,
+                               sample_every=max(args.sample_every, 1))
+        ctl = RepartitionController(cm, n_cpu=args.parts, n_gpu=1,
+                                    alpha0=alpha, config=cfg,
+                                    cache=PlanCache(), fixed_fine=True,
+                                    solver_backend=args.solver_backend,
+                                    pipelined=False)
+        alpha = ctl.alpha
+    elif alpha is None:
+        if args.adaptive:
+            print("note: --adaptive applies to transient programs only; "
+                  "running the steady outer loop at the fixed alpha")
+        alpha = cm.optimal_alpha(n_cpu=args.parts, n_gpu=1)
+        print(f"cost model picked alpha={alpha}")
     t0 = time.perf_counter()
-    solver = build_solver(args)
+    solver = build_solver(args, alpha=alpha,
+                          plan_cache=None if ctl is None else ctl.cache)
     print(f"setup {time.perf_counter() - t0:.2f} s (repartition plans "
           f"{solver.plan_seconds:.2f} s) on {solver.device}")
     mesh = solver.mesh
     dt = args.co * mesh.h  # u_ref 1 -> dt = Co*h (steady programs: unused)
-    if not get_program(args.program).transient:
+    if not transient:
         state, stats, _, _ = run_steady(solver, dt, args.max_outer or None)
         return state, stats
-    state, stats, walls = run_transient(solver, dt, args.steps)
+    if ctl is not None:
+        state, stats, _ = run_adaptive(solver, ctl, dt, args.steps,
+                                       args.scan_steps)
+        return state, stats
+    state, stats, walls = run_transient(solver, dt, args.steps,
+                                        scan_steps=args.scan_steps)
     print(f"{args.steps} steps in {sum(walls):.2f} s "
           f"({mesh.n_cells_global} cells, alpha={solver.alpha}, "
-          f"solver_backend={args.solver_backend}, device={solver.device})")
+          f"solver_backend={args.solver_backend}, device={solver.device}, "
+          f"scan_steps={max(args.scan_steps, 1)})")
     return state, stats
 
 

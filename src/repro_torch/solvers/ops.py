@@ -42,9 +42,10 @@ Backends:
   exercise.
 
 Selection (:func:`resolve_backend`): ``"auto"`` is ``"fused"`` on a CUDA
-device and ``"reference"`` on the CPU, for every part size so far — the
-part-size crossover below which the reference path would win is still to
-be measured on the card.
+device, at every part size, and ``"reference"`` on the CPU.  The JAX
+package's part-size threshold (``FUSED_MIN_ROWS``) is not carried over:
+on the H100 the kernels beat plain PyTorch at every part size measured,
+512 to 308,700 rows (``chip_smoke.py`` phase 12d).
 
 **Precision.**  Both constructors take a
 :class:`~repro_torch.solvers.precision.PrecisionPolicy`.  Under the

@@ -9,6 +9,7 @@ to a 72-byte local-memory frame; the clean one is the checked kernels',
 with a made-up frame on the value-update kernel, which the check does not
 cover.
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -250,3 +251,106 @@ def test_check_frames_covers_the_loop_kernels_when_asked():
                                      kernels)
     assert counts["axpy_precond_inplace_kernel"] == 1
     assert counts["cg_direction_kernel"] == 1
+
+
+# ---------------------------------------------------------------------------
+# phase 12's pure helpers, on canned numbers
+# ---------------------------------------------------------------------------
+
+def test_fit_line_recovers_a_line_and_its_error():
+    xs = (1, 2, 3, 5, 6, 10, 15, 30)
+    c0, c1, se = chip_smoke.fit_line(xs, [2e-3 + 4e-6 * x for x in xs])
+    assert c0 == pytest.approx(2e-3, rel=1e-12)
+    assert c1 == pytest.approx(4e-6, rel=1e-9) and se < 1e-15
+    noisy = [2e-3 + 4e-6 * x + (1e-6 if i % 2 else -1e-6)
+             for i, x in enumerate(xs)]
+    c0n, c1n, sen = chip_smoke.fit_line(xs, noisy)
+    want = np.polyfit(np.array(xs, float), np.array(noisy), 1)
+    assert (c1n, c0n) == pytest.approx(tuple(want), rel=1e-9)
+    assert sen > 0
+
+
+def _sweep(update_s, ms_per_iter, assembly=0.40, n_dofs=210 ** 3, parts=30):
+    return [{"alpha": a, "rows": n_dofs * a // parts, "assembly_s": assembly,
+             "update_s": u, "ms_per_iter": ms}
+            for a, u, ms in zip(chip_smoke.SWEEP_ALPHAS, update_s,
+                                ms_per_iter)]
+
+
+def test_measured_spec_reads_each_field():
+    alphas = chip_smoke.SWEEP_ALPHAS
+    n = 210 ** 3
+    sweep = _sweep([0.7e-3 + 2e-6 * a for a in alphas],
+                   [0.60, 0.56, 0.55, 0.54, 0.54, 0.535, 0.535, 0.535])
+    spec = chip_smoke.measured_spec(sweep, n, 30, 666e6, 0.2239e-3,
+                                    256 * 2 ** 20, 5e-3)
+    assert spec["hbm_bw"] == (pytest.approx(666e6 / 0.2239e-3), "value")
+    assert spec["link_bw"][0] == pytest.approx(64 * n / 0.7e-3)
+    assert spec["msg_latency"] == (pytest.approx(2e-6), "value")
+    host_bw = 200 * n * (0.001 + 1 / 30) / 0.40
+    assert spec["host_bw"] == (pytest.approx(host_bw), "fitted")
+    assert spec["host_flops"] == (pytest.approx(host_bw * 250 / 200),
+                                  "fitted")
+    # the knee: the alpha-1 parts run at 0.535 / 0.60 of the saturated
+    # rate, which the model's square-root law places below the knee
+    assert spec["dofs_sat"] == (pytest.approx(n / 30 / (0.535 / 0.60) ** 2),
+                                "fitted")
+    assert spec["h2d_bw"][0] == pytest.approx(256 * 2 ** 20 / 5e-3)
+    # a flat update leaves only a bound on the latency
+    flat = chip_smoke.measured_spec(
+        _sweep([0.7e-3 + (1e-7 if a % 2 else -1e-7) for a in alphas],
+               [0.535] * 8), n, 30, 666e6, 0.2239e-3, 1.0, 1.0)
+    lat, kind = flat["msg_latency"]
+    assert kind == "at most" and 0 < lat < 1e-7
+    # a flat rate only bounds the knee: at or below the smallest parts,
+    # also where the smallest parts lose a little to noise
+    assert flat["dofs_sat"] == (n // 30, "at most")
+    near = chip_smoke.measured_spec(
+        _sweep([0.7e-3] * 8, [0.5265, 0.5248, 0.5254, 0.5268, 0.5251,
+                              0.5274, 0.5256, 0.5250]),
+        n, 30, 666e6, 0.2239e-3, 1.0, 1.0)
+    assert near["dofs_sat"] == (n // 30, "at most")
+
+
+def test_check_spec_fails_a_field_off_by_more_than_2x():
+    from repro_torch.core.cost_model import HardwareSpec
+
+    shipped = HardwareSpec(name="h100", peak_flops=34e12, hbm_bw=3.0e12,
+                           link_bw=8e11, host_flops=2e8, host_bw=1.6e8,
+                           h2d_bw=2.5e10, dofs_sat=3e5, oversub_penalty=0.0,
+                           msg_latency=1e-7)
+    good = {"hbm_bw": (2.9e12, "value"), "link_bw": (1.5e12, "value"),
+            "host_bw": (0.9e8, "fitted"), "host_flops": (1.1e8, "fitted"),
+            "h2d_bw": (4.9e10, "value"), "dofs_sat": (3.1e5, "at most"),
+            "msg_latency": (6e-8, "at most")}
+    assert chip_smoke.check_spec(good, shipped) == []
+    # a bound passes any knee below it, however far
+    assert chip_smoke.check_spec(dict(good, dofs_sat=(3.1e7, "at most")),
+                                 shipped) == []
+    # the TPU's link and a spec-sheet HBM rate are caught; a latency above
+    # twice its measured bound too, a fitted field off by 2x, and the JAX
+    # package's knee of 1e6 above twice the bound
+    bad = dict(good, link_bw=(5e10, "value"), hbm_bw=(1.4e12, "value"),
+               msg_latency=(4e-8, "at most"), host_bw=(3.3e8, "fitted"),
+               dofs_sat=(3.087e5, "at most"))
+    off = chip_smoke.check_spec(bad, dataclasses.replace(shipped,
+                                                         dofs_sat=1e6))
+    assert [o.split(":")[0] for o in off] == ["hbm_bw", "link_bw",
+                                              "host_bw", "dofs_sat",
+                                              "msg_latency"]
+
+
+@pytest.mark.parametrize("points,want", [
+    # the kernels win at every size: the smallest size measured
+    ([(512, 0.05, 0.09), (2048, 0.05, 0.10), (308700, 0.53, 1.4)], 512),
+    # plain PyTorch wins the small parts
+    ([(512, 0.09, 0.05), (2048, 0.07, 0.06), (8192, 0.07, 0.08),
+      (308700, 0.53, 1.4)], 8192),
+    # a loss above a win: the crossover starts above the loss
+    ([(512, 0.05, 0.09), (2048, 0.08, 0.06), (308700, 0.53, 1.4)], 308700),
+    # the kernels lose at the largest size: no crossover
+    ([(512, 0.05, 0.09), (308700, 1.5, 1.4)], None),
+])
+def test_crossover_rows_reads_the_smallest_winning_size(points, want):
+    assert chip_smoke.crossover_rows(points) == want
+    assert chip_smoke.crossover_rows(points[::-1]) == want
