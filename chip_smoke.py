@@ -5,6 +5,7 @@
   python3 chip_smoke.py --compare LABEL=CSRC_DIR [LABEL=CSRC_DIR ...]
   python3 chip_smoke.py --step-timing REPEATS
   python3 chip_smoke.py --profile-cg ITERS
+  python3 chip_smoke.py --serving
 
 Runs from the root of a checkout and needs one CUDA card; with no card, or
 without the rest of the checkout beside it, it exits nonzero and prints no
@@ -42,7 +43,9 @@ result.  Phases, in order (any failure exits nonzero):
 4. the main path at full size: 3 PISO steps of the 210^3 cavity, 30 fine
    parts fused with alpha = 30, through the launcher's code path, with the
    kernels: the step's six kernels' launch counters must move (the value
-   update 3 times a step; the four CG kernels once per CG iteration: a
+   update once a system a step: 3 serially, 2 on the pipelined schedule
+   the launcher takes by default, which updates the pressure matrix once;
+   the four CG kernels once per CG iteration: a
    launch under the loop's guard is counted by its kernel on the device,
    and every sweep's device counts must equal its iterations times the
    loop body's launches), every step converge with a continuity error
@@ -125,7 +128,35 @@ result.  Phases, in order (any failure exits nonzero):
     card.  Phase 12's checks are collected and fail the run after all
     four parts have printed.
 
-In phases 9-12 every kernel wrapper's plain version is made to raise while
+13. serving: (13a) the lane-extended kernels (``spmv_dia``, ``spmv_dot``,
+    the in-place ``axpy_precond``, ``cg_direction``, ``cg_advance``) with
+    3 lanes at the momentum shape per lane, for every (storage, accum)
+    pair: bitwise against their plain versions and against one launch per
+    lane alone, a lane whose flag is off left unwritten, NaN in one lane
+    leaving the other lanes bitwise; (13b) three tenants of the 210^3
+    cavity (the main path's settings, non-adaptive, pipeline "auto") from
+    the main run's state with dt = 0.5 h (1, 1.1, 1.2), each path warmed
+    by an untimed step: 2 steps through
+    the engine's ``step_all`` (one cohort, one dispatch a window) against
+    each tenant alone through ``step_session`` (1e-10, identical counts
+    and flags, continuity below 1e-6; whether each lane is bitwise
+    printed), session-steps per second and ``max_memory_allocated`` for
+    one tenant and three, then one tenant with pipeline "on" against
+    "off" (2 and 1 + n_correctors value updates a step); (13c) 8 tenants of the serving mesh mix
+    (64 x 64 x {32, 48, 64} in {8, 12, 16} parts, padded to 16 parts),
+    mixed dt, 8 steps alone unpadded, alone padded and as a cohort, each
+    warmed first (session-steps per second, dispatch counters, ms per CG
+    iteration; each lane held to its padded solo run), then 7 of them with lane classes (a filler lane) held to the
+    same solo runs; (13d) the serving launcher's arrivals mode in
+    process (16 Poisson arrivals, cavity and channel, PISO and SIMPLE,
+    lane classes): fewer dispatches than sessions, at least two
+    multi-session cohorts, per-class p50/p99, two co-batched tenants held
+    to their runs alone.  The launch counters are zeroed before 13b and
+    read after 13d: every kernel of the step must have launched.  Phase
+    13's checks are collected and fail the run after its parts have
+    printed.
+
+In phases 9-13 every kernel wrapper's plain version is made to raise while
 the kernel runs go: the card's path launches the kernels only.
 
 The line before the last is the card's ``nvidia-smi`` name and power
@@ -136,7 +167,9 @@ With ``--compare``, only phases 1 and 2 run, and then this tree's three
 Krylov kernels are built beside those of each other ``csrc`` directory
 (another checkout's ``src/repro_torch/csrc``), checked bitwise against the
 plain versions, and timed in turns on this card (this tree, the others,
-the others again in reverse, this tree) for every (storage, accum) pair:
+the others again in reverse, this tree) for every (storage, accum) pair
+(a tree from before the lane arguments is launched with its own entry
+points):
 the two SpMV kernels at the pressure and momentum shapes, the axpy kernel
 (raw launches) at the pressure shape; the last line is then the
 comparison as JSON.  With ``--step-timing``, only phases 1 and 2 run, and then the main
@@ -150,7 +183,8 @@ iterations, under ``torch.profiler``: device time per iteration by part
 the device's idle share.  Both modes use only what the port has had since
 its fourth slice (the refinement loop and the channel), so a copy of this
 script beside another such checkout's ``src`` measures that tree the same
-way.
+way.  With ``--serving``, phases 1 and 2 run, then phase 13 from the
+main path's 3-step state.
 """
 from __future__ import annotations
 
@@ -472,8 +506,8 @@ def axpy_inplace_launchers(torch, vecs, alpha, accum):
     lib = load("krylov_fused")
     args = (dtype_code(x.dtype, accum), x.data_ptr(), r.data_ptr(),
             *(v.data_ptr() for v in vecs[2:]), a.data_ptr(), z.data_ptr(),
-            part["rz"].data_ptr(), part["rr"].data_ptr(), n, 0, 0,
-            stream_ptr(x))
+            part["rz"].data_ptr(), part["rr"].data_ptr(), n, 1,
+            part["stride"], 0, 0, stream_ptr(x))
 
     def wrapper():
         fused_update_step_into(x, r, *vecs[2:], a, z, rz, rr, part,
@@ -501,12 +535,14 @@ def spmv_launcher(torch, name, bands, x, offsets, accum):
                        device=x.device)
     head = (dtype_code(bands.dtype, accum), bands.data_ptr(), x.data_ptr(),
             y.data_ptr())
-    tail = (P, m, _offsets_arg(offsets), nb, stream_ptr(x))
+    tail = (P, m, _offsets_arg(offsets), nb, 1)  # one lane
     if name == "spmv_dia":
-        fn, args = load("spmv_dia").spmv_dia_launch, head + tail
+        fn = load("spmv_dia").spmv_dia_launch
+        args = head + tail + (stream_ptr(x),)
     else:
         fn = load("krylov_fused").spmv_dot_launch
-        args = head + (part.data_ptr(),) + tail
+        args = (head + (part.data_ptr(),) + tail
+                + (part.numel(), stream_ptr(x)))
 
     def launch(_keep=(bands, x, y, part)):
         rc = fn(*args)
@@ -785,8 +821,8 @@ def time_loop_kernels(torch, dev, report, sname, storage, accum, p, z, g_new,
     def raw():
         p_, z_ = next(turn)
         rc = lib.cg_direction_launch(code, p_.data_ptr(), z_.data_ptr(),
-                                     g_new.data_ptr(), g.data_ptr(), n, 0, 0,
-                                     stream_ptr(p_))
+                                     g_new.data_ptr(), g.data_ptr(), n, 1, 0,
+                                     0, stream_ptr(p_))
         require(rc == 0, f"cg_direction launch failed ({rc})")
 
     def rotating(fn):
@@ -1078,6 +1114,26 @@ def check_momentum_bands(torch, dev) -> dict:
 # --compare: this tree's Krylov kernels beside another checkout's
 # ---------------------------------------------------------------------------
 
+def lane_abi(csrc) -> bool:
+    """Whether a ``csrc`` directory's SpMV entry points take a lane count
+    (this tree's) or not (trees from before the lane arguments)."""
+    return "long long lanes" in (Path(csrc) / "spmv_dia.cu").read_text()
+
+
+def single_lane_signatures() -> dict:
+    """The entry points --compare launches, as trees before the lane
+    arguments declare them."""
+    import ctypes
+
+    P, I64 = ctypes.c_void_p, ctypes.c_longlong
+    dia = [ctypes.c_int, P, P, P, I64, I64, ctypes.POINTER(I64),
+           ctypes.c_int, P]
+    return {"spmv_dia": {"spmv_dia_launch": dia},
+            "krylov_fused": {
+                "spmv_dot_launch": dia[:4] + [P] + dia[4:],
+                "axpy_precond_launch": [ctypes.c_int] + [P] * 11 + [I64, P]}}
+
+
 def compare_builds(torch, dev, others: dict) -> dict:
     """This tree's three Krylov kernels beside those of each csrc directory
     in ``others`` (``{label: dir}``) on this card: each bitwise against the
@@ -1108,14 +1164,18 @@ def compare_builds(torch, dev, others: dict) -> dict:
                 h.update(f.name.encode() + f.read_bytes())
         out = BUILD_ROOT.parent / "compare" / f"{label}-{h.hexdigest()[:12]}"
         info = build_sources(csrc, names, out)
-        return {n: load_library(out / f"lib{n}.so", n) for n in names}, info
+        lanes = lane_abi(csrc)
+        sigs = None if lanes else single_lane_signatures()
+        return ({n: load_library(out / f"lib{n}.so", n,
+                                 None if sigs is None else sigs[n])
+                 for n in names} | {"lanes": lanes}), info
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max(len(others), 1)) as pool:
         built = dict(zip(others, pool.map(lambda kv: build(*kv),
                                           others.items())))
     print(f"  built {list(others)} in {time.perf_counter() - t0:.1f} s")
-    libs = {"tree": {n: load(n) for n in names}}
+    libs = {"tree": {n: load(n) for n in names} | {"lanes": True}}
     for label, (lib, info) in built.items():
         libs[label] = lib
         for log in info["ptxas"].values():
@@ -1126,9 +1186,10 @@ def compare_builds(torch, dev, others: dict) -> dict:
     def spmv(lib, code, b, x, offsets):
         P, nb, m = b.shape
         y = torch.empty_like(x)
+        lanes = (1,) if lib["lanes"] else ()
         rc = lib["spmv_dia"].spmv_dia_launch(
             code, b.data_ptr(), x.data_ptr(), y.data_ptr(), P, m,
-            _offsets_arg(offsets), nb, stream_ptr(x))
+            _offsets_arg(offsets), nb, *lanes, stream_ptr(x))
         require(rc == 0, f"spmv_dia launch failed ({rc})")
         return y
 
@@ -1137,9 +1198,10 @@ def compare_builds(torch, dev, others: dict) -> dict:
         y = torch.empty_like(x)
         part = torch.empty(-(-P * m // KERNEL_BLOCK_ROWS), dtype=accum,
                            device=x.device)
+        lanes = (1, part.numel()) if lib["lanes"] else ()
         rc = lib["krylov_fused"].spmv_dot_launch(
             code, b.data_ptr(), x.data_ptr(), y.data_ptr(), part.data_ptr(),
-            P, m, _offsets_arg(offsets), nb, stream_ptr(x))
+            P, m, _offsets_arg(offsets), nb, *lanes, stream_ptr(x))
         require(rc == 0, f"spmv_dot launch failed ({rc})")
         return y, part
 
@@ -1354,9 +1416,12 @@ def main_path(torch) -> tuple:
     print(f"  kernel launches over {n} steps: {counts}")
     require(all(counts[k] > 0 for k in STEP_KERNELS),
             f"a kernel of the main path was never launched: {counts}")
-    require(counts["coef_update"] == 3 * n,
+    # a value update per system a step: the momentum and each corrector's
+    # pressure system serially, the pressure matrix once when pipelined
+    updates = 1 + (1 if solver.pipelined else solver.n_correctors)
+    require(counts["coef_update"] == updates * n,
             f"the value update launched {counts['coef_update']} times in "
-            f"{n} steps, not 3 a step")
+            f"{n} steps, not {updates} a step")
     cg_iters = int(stats_f.p_iters.sum())
     require(counts["spmv_dot"] == counts["axpy_precond"]
             == counts["cg_direction"] == counts["cg_advance"] == cg_iters,
@@ -2619,6 +2684,637 @@ def control_phase(torch, state, main_step, report) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: serving
+# ---------------------------------------------------------------------------
+
+LANES = 3                  # 13a: lanes of the lane kernels' cohort
+SERVE_STEPS = 2            # 13b: steps of the 210^3 cohort and solo runs
+SMALL_ARGS = ["--cfd-n", "64", "--parts", "16"]  # 13c, 13d: the mesh mix
+SMALL_TENANTS, SMALL_STEPS, SMALL_CLASS = 8, 8, 16
+ARRIVAL_ARGS = SMALL_ARGS + ["--sessions", "16", "--steps", "8",
+                             "--arrival-rate", "50", "--lane-classes",
+                             "--cases", "cavity,channel",
+                             "--programs", "piso,simple", "--seed", "0"]
+# the outputs of each lane kernel that are reduction partials (laid out per
+# lane, lane_partials); the others are vectors split evenly into lanes, or
+# (cg_advance) one scalar per lane
+LANE_PARTIALS = {"spmv_dot": (1,), "axpy_precond": (3, 4)}
+
+
+def lane_inputs(torch, dev, storage, accum, P, m, gen, lanes):
+    """``lanes`` lanes of (P, m) operands of every lane kernel at
+    ``storage``, the per-lane scalars at ``accum``."""
+    inp = make_inputs(torch, lanes * P, m, gen, dev)
+    out = {k: inp[k].to(storage) for k in ("bands", "x") + AXPY_OPERANDS}
+    k = torch.arange(lanes, dtype=torch.float64, device=dev)
+    out.update(alpha=(0.3 + 0.1 * k).to(accum), g=(1.0 + k).to(accum),
+               g_new=(0.5 + 0.25 * k).to(accum))
+    return out
+
+
+def lane_of(inp: dict, lane: int, lanes: int, P: int) -> dict:
+    """Lane ``lane`` of :func:`lane_inputs` as one system's operands."""
+    return {k: (v[lane:lane + 1] if v.dim() == 1 else
+                v.reshape(lanes, -1)[lane].reshape((P,) + tuple(v.shape[1:])))
+            for k, v in inp.items()}
+
+
+def lane_scalars(torch, inp, active):
+    """cg_advance's operands: gamma, gamma_new, rr, rr_new, k, the flags
+    and thr, one per lane."""
+    g, gn = inp["g"], inp["g_new"]
+    return [g.clone(), gn.clone(), g * 3, gn.clone(),
+            torch.zeros(g.shape, dtype=torch.int32, device=g.device),
+            active.clone(), g * 0.1]
+
+
+def lane_runs(torch, inp, offsets, plane, accum, active, lanes, plain=False):
+    """Every lane kernel once on copies of ``inp`` under the flags
+    ``active`` (fresh outputs start at 7.0, so an unwritten lane shows);
+    ``plain``: the plain versions, stored as the kernels store.  Returns
+    ``{kernel: outputs}``."""
+    from repro_torch.kernels.krylov_fused.krylov_fused import (
+        axpy_precond_inplace, axpy_precond_partials_plain, partials_buffers,
+        spmv_dot_partials, spmv_dot_partials_plain)
+    from repro_torch.kernels.krylov_loop.krylov_loop import (
+        cg_advance, cg_advance_plain, cg_direction, cg_direction_plain)
+    from repro_torch.kernels.spmv_dia.spmv_dia import (guarded_store,
+                                                       spmv_dia_plain,
+                                                       spmv_dia_stacked)
+
+    b, x = inp["bands"], inp["x"]
+    kw = dict(offsets=offsets, plane=plane, accum_dtype=accum)
+    part = partials_buffers(x.numel(), accum, x.device, lanes=lanes)
+    y, yd = torch.full_like(x, 7.0), torch.full_like(x, 7.0)
+    dot, rz, rr = (part[k].fill_(7.0) for k in ("dot", "rz", "rr"))
+    xs, rs, z = inp["x"].clone(), inp["r"].clone(), torch.full_like(x, 7.0)
+    p = inp["p"].clone()
+    sc = lane_scalars(torch, inp, active)
+    if plain:
+        guarded_store(y, spmv_dia_plain(b, x, lanes=lanes, **kw), active)
+        for dst, new in zip((yd, dot), spmv_dot_partials_plain(
+                b, x, lanes=lanes, **kw)):
+            guarded_store(dst, new, active)
+        new = axpy_precond_partials_plain(
+            xs, rs, inp["p"], inp["Ap"], inp["inv"], inp["alpha"],
+            accum_dtype=accum)
+        for dst, val in zip((xs, rs, z, rz, rr), new):
+            guarded_store(dst, val, active)
+        cg_direction_plain(p, inp["x"], inp["g_new"], inp["g"], active)
+        cg_advance_plain(*sc, 5)
+    else:
+        kw.update(active=active, lanes=lanes)
+        spmv_dia_stacked(b, x, out=y, **kw)
+        spmv_dot_partials(b, x, out=(yd, dot), **kw)
+        axpy_precond_inplace(xs, rs, inp["p"], inp["Ap"], inp["inv"],
+                             inp["alpha"], z, rz, rr, accum_dtype=accum,
+                             active=active, lanes=lanes)
+        cg_direction(p, inp["x"], inp["g_new"], inp["g"], active)
+        cg_advance(*sc, 5)
+        torch.cuda.synchronize()
+    return {"spmv_dia": (y,), "spmv_dot": (yd, dot.clone()),
+            "axpy_precond": (xs, rs, z, rz.clone(), rr.clone()),
+            "cg_direction": (p,), "cg_advance": tuple(sc)}
+
+
+def lane_part(name: str, outs: tuple, lane: int, lanes: int,
+              layout: tuple) -> list:
+    """Lane ``lane``'s part of each output of lane kernel ``name``:
+    ``layout`` is ``(partials per lane, stride)``."""
+    npl, stride = layout
+    return [t[lane * stride:lane * stride + npl]
+            if i in LANE_PARTIALS.get(name, ()) else
+            t.reshape(lanes, -1)[lane] for i, t in enumerate(outs)]
+
+
+def lane_kernel_phase(torch, dev, problems: list) -> dict:
+    """13a: each lane-extended kernel with ``LANES`` lanes at the momentum
+    shape per lane, for every (storage, accum) pair: bitwise against its
+    plain version and against one launch per lane alone, with every lane
+    on and with lane 1's flag off (that lane unwritten); NaN in lane 1
+    leaves the other lanes bitwise.  The kernel runs go with every plain
+    version refusing; the plain runs come after."""
+    from repro_torch.kernels.krylov_fused.krylov_fused import lane_partials
+
+    _, P, m, nx, plane = shapes()[1]
+    offsets = offsets_for(nx, plane)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B = LANES
+    cohort = lane_partials(B * P * m, B)
+    one = lane_partials(P * m, 1)
+    out = {}
+    for storage, accum in policy_pairs():
+        sname = str(storage).removeprefix("torch.")
+        inp = lane_inputs(torch, dev, storage, accum, P, m, gen, B)
+        on = torch.ones(B, dtype=torch.bool, device=dev)
+        off = on.clone()
+        off[1] = False
+        nan = dict(inp, x=inp["x"].clone(), bands=inp["bands"].clone())
+        nan["x"].view(B, -1)[1] = float("nan")
+        nan["bands"].view(B, -1)[1] = float("nan")
+        with no_plain_versions():
+            full = lane_runs(torch, inp, offsets, plane, accum, on, B)
+            masked = lane_runs(torch, inp, offsets, plane, accum, off, B)
+            solo = [lane_runs(torch, lane_of(inp, lane, B, P), offsets,
+                              plane, accum, on[:1], 1) for lane in range(B)]
+            poisoned = lane_runs(torch, nan, offsets, plane, accum, on, B)
+        plain = lane_runs(torch, inp, offsets, plane, accum, on, B, True)
+        plain_off = lane_runs(torch, inp, offsets, plane, accum, off, B,
+                              True)
+        untouched = lane_runs(torch, inp, offsets, plane, accum,
+                              torch.zeros_like(on), B, True)
+        row = {}
+        for name in full:
+            def same(a, b, lanes_=range(B)):
+                return all(torch.equal(g, w) for lane in lanes_
+                           for g, w in zip(
+                               lane_part(name, a, lane, B, cohort),
+                               lane_part(name, b, lane, B, cohort)))
+            checks = {
+                "vs_plain": same(full[name], plain[name])
+                and same(masked[name], plain_off[name]),
+                "vs_solo": all(
+                    torch.equal(g, w) for lane in range(B)
+                    for g, w in zip(
+                        lane_part(name, full[name], lane, B, cohort),
+                        lane_part(name, solo[lane][name], 0, 1, one))),
+                "flag_off_unwritten": same(masked[name], untouched[name],
+                                           [1]),
+                "nan_mates_bitwise": same(poisoned[name], full[name],
+                                          [0, 2])}
+            row[name] = checks
+            print(f"  [13a] {name:13s} {sname:8s} B={B}: "
+                  + ", ".join(f"{k} {v}" for k, v in checks.items()))
+            problems += [f"13a {name} {sname}: {k}"
+                         for k, v in checks.items() if not v]
+        out[sname] = row
+        del inp, nan, full, masked, solo, poisoned, plain, plain_off
+        del untouched
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_args(extra: list, dev):
+    """The serving launcher's args (``launch.serve``) on ``dev``."""
+    from repro_torch.launch.serve import build_parser
+
+    return build_parser().parse_args(extra + ["--device", str(dev)])
+
+
+def lane_report(torch, got, want, stats_got, stats_want, tag, problems):
+    """One lane against its solo run: fields within ``PARITY`` of each
+    field's max, identical counts and flags, continuity below 1e-6 (for
+    PISO); returns whether it is bitwise."""
+    diffs = {f: rel_diff(getattr(got, f), getattr(want, f))
+             for f in got._fields}
+    same = {f: torch.equal(getattr(got, f), getattr(want, f))
+            for f in got._fields}
+    counts = all(torch.equal(getattr(stats_got, f), getattr(stats_want, f))
+                 for f in ("mom_iters", "p_iters", "converged", "diverged",
+                           "hit_cap"))
+    bitwise = all(same.values()) and counts
+    worst = max(diffs.values())
+    if not worst <= PARITY:
+        problems.append(f"{tag}: {worst:.3e} from its solo run")
+    if not counts:
+        problems.append(f"{tag}: counts or flags differ from its solo run "
+                        f"({stats_got.mom_iters.tolist()}, "
+                        f"{stats_got.p_iters.tolist()} against "
+                        f"{stats_want.mom_iters.tolist()}, "
+                        f"{stats_want.p_iters.tolist()})")
+    return bitwise, worst
+
+
+def full_width_phase(torch, dev, state3, problems) -> dict:
+    """13b: three tenants of the 210^3 cavity (the main path's settings,
+    non-adaptive, pipeline "auto") from the main run's 3-step state with
+    dt = 0.5 h (1, 1.1, 1.2), each path warmed by one untimed step:
+    ``SERVE_STEPS`` steps through ``step_all`` (one cohort, one dispatch a
+    window) against each tenant alone through ``step_session`` from the
+    same state, with each run's device-loop sweeps; then one tenant's
+    ``SERVE_STEPS`` steps with pipeline "on" against "off", each
+    schedule's value updates counted exactly."""
+    from repro_torch.fvm.mesh import CavityMesh
+    from repro_torch.fvm.piso import PisoState, make_solver
+    from repro_torch.serving.engine import SimulationEngine
+    from repro_torch.solvers.device_loop import (loop_records,
+                                                 reset_loop_records)
+
+    mesh = CavityMesh.cube(N, PARTS)
+    h = mesh.h
+    eng = SimulationEngine(device=dev)
+    kw = dict(alpha0=ALPHA, adaptive=False, p_tol=1e-10, p_maxiter=6000)
+    sids = [f"t{i}" for i in range(3)]
+    t0 = time.perf_counter()
+    for i, sid in enumerate(sids):
+        eng.open_session(sid, mesh, dt=0.5 * h * (1 + 0.1 * i), **kw)
+    setup = time.perf_counter() - t0
+
+    def start():
+        for sid in sids:
+            s = eng.sessions[sid]
+            s.state = PisoState(*(t.clone() for t in state3))
+            s.steps_done = 0
+        eng.reset_stats()
+
+    def loops():
+        """The timed run's device-loop sweeps: count, iterations (the
+        slowest lane's), host reads, capture ms."""
+        recs = loop_records()
+        return {"sweeps": len(recs), "iters": sum(r.iters for r in recs),
+                "host_reads": sum(r.host_reads for r in recs),
+                "capture_ms": 1e3 * sum(r.capture_s for r in recs)}
+
+    out = {"setup_s": setup, "cohorts": [len(g) for g in
+                                         eng.cohorts().values()]}
+    # one untimed step as a cohort and alone warms both paths
+    start()
+    eng.step_all(1)
+    start()
+    for sid in sids:
+        eng.step_session(sid, 1)
+    start()
+    reset_loop_records()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with no_plain_versions():
+        last_c = eng.step_all(SERVE_STEPS)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    peak_c = torch.cuda.max_memory_allocated()
+    loops_c = loops()
+    cohort = {sid: eng.sessions[sid].state for sid in sids}
+    counters = dict(eng.counters)
+    windows = -(-SERVE_STEPS // eng.scan_window)
+    if counters["cohort_dispatches"] != windows or \
+            counters["solo_dispatches"]:
+        problems.append(f"13b: {counters} for {windows} window(s) of one "
+                        f"cohort")
+    start()
+    solo, last_s, wall_s = {}, {}, 0.0
+    reset_loop_records()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for sid in sids:
+        t0 = time.perf_counter()
+        with no_plain_versions():
+            last_s[sid] = eng.step_session(sid, SERVE_STEPS)
+        torch.cuda.synchronize()
+        wall_s += time.perf_counter() - t0
+        solo[sid] = eng.sessions[sid].state
+    peak_s = torch.cuda.max_memory_allocated()
+    loops_s = loops()
+    lanes = {}
+    for sid in sids:
+        bitwise, worst = lane_report(torch, cohort[sid], solo[sid],
+                                     last_c[sid], last_s[sid], f"13b {sid}",
+                                     problems)
+        cont = float(last_c[sid].continuity_err)
+        if not cont < CONTINUITY:
+            problems.append(f"13b {sid}: continuity {cont:.3e}")
+        lanes[sid] = {"bitwise": bitwise, "max_rel": worst,
+                      "continuity": cont,
+                      "mom_iters": int(last_c[sid].mom_iters),
+                      "p_iters": last_c[sid].p_iters.tolist()}
+        print(f"  [13b] {sid}: cohort lane bitwise its solo run {bitwise} "
+              f"(max rel {worst:.2e}), continuity {cont:.2e}, last step "
+              f"mom_iters {lanes[sid]['mom_iters']} p_iters "
+              f"{lanes[sid]['p_iters']}")
+    steps = len(sids) * SERVE_STEPS
+    out.update(lanes=lanes, counters=counters,
+               cohort_steps_per_s=steps / wall_c,
+               solo_steps_per_s=steps / wall_s, cohort_s=wall_c,
+               solo_s=wall_s, peak_gb={"1": peak_s / 2 ** 30,
+                                       "3": peak_c / 2 ** 30},
+               loops={"solo": loops_s, "cohort": loops_c})
+    print(f"  [13b] session-steps/s: solo {steps / wall_s:.4f} "
+          f"({wall_s:.2f} s), cohort {steps / wall_c:.4f} ({wall_c:.2f} s), "
+          f"ratio {wall_s / wall_c:.3f}; counters {counters}; "
+          f"max_memory_allocated 1 tenant {peak_s / 2 ** 30:.2f} GiB, 3 "
+          f"tenants {peak_c / 2 ** 30:.2f} GiB")
+    print(f"  [13b] device loops (sweeps, iterations, host reads, capture "
+          f"ms): solo {tuple(loops_s.values())}, cohort "
+          f"{tuple(loops_c.values())}")
+    # pipeline on against off, one tenant; each schedule's value updates
+    # counted exactly (1 + n_correctors a step serially, 2 pipelined)
+    from repro_torch.kernels import launch_counts
+
+    solvers = {mode: make_solver("piso", mesh, alpha=ALPHA, p_tol=1e-10,
+                                 p_maxiter=6000, pipeline=mode,
+                                 plan_cache=eng.plan_cache, device=dev)
+               for mode in ("off", "on")}
+    dt = 0.5 * h
+    runs = {}
+    for mode, solver in solvers.items():
+        st = PisoState(*(t.clone() for t in state3))
+        before = launch_counts()["coef_update"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_plain_versions():
+            st, stats = solver.run_steps(st, dt, SERVE_STEPS)
+        torch.cuda.synchronize()
+        runs[mode] = (st, stats, (time.perf_counter() - t0) / SERVE_STEPS)
+        updates = launch_counts()["coef_update"] - before
+        per_step = 2 if mode == "on" else 1 + solver.n_correctors
+        if updates != per_step * SERVE_STEPS:
+            problems.append(f"13b pipeline {mode}: {updates} value updates "
+                            f"in {SERVE_STEPS} steps, not {per_step} a step")
+    st, stats, secs = runs["on"]
+    bitwise, worst = lane_report(torch, st, runs["off"][0],
+                                 _last_step(stats), _last_step(runs["off"][1]),
+                                 "13b pipeline on", problems)
+    pipe = {"on": {"bitwise_vs_off": bitwise, "max_rel": worst,
+                   "s_per_step": secs},
+            "off": {"s_per_step": runs["off"][2]}}
+    print(f"  [13b] pipeline: s per step off {runs['off'][2]:.4f}, on "
+          f"{secs:.4f}; on bitwise off {bitwise} (max rel {worst:.2e})")
+    out["pipeline"] = pipe
+    del eng, solvers, runs, cohort, solo
+    return out
+
+
+def _last_step(stats):
+    return type(stats)(*(t[-1] for t in stats))
+
+
+def small_tenants_phase(torch, dev, problems) -> dict:
+    """13c: ``SMALL_TENANTS`` tenants of the serving mesh mix
+    (``mesh_mix`` at ``SMALL_ARGS``: 64 x 64 x {32, 48, 64} in {8, 12, 16}
+    parts) padded to class ``SMALL_CLASS``, mixed dt, cavity, f64:
+    ``SMALL_STEPS`` steps through ``step_session`` per tenant unpadded
+    and padded, then through ``step_all`` from the same states (each path
+    warmed by an untimed step), each lane held to its padded solo run;
+    then the same mix with ``lane_classes`` and one tenant fewer (a
+    filler lane) held to the same solo runs."""
+    from repro_torch.fvm.piso import PisoState
+    from repro_torch.launch.serve import mesh_mix
+    from repro_torch.serving.engine import SimulationEngine
+    from repro_torch.solvers.device_loop import (loop_records,
+                                                 reset_loop_records)
+
+    args = serve_args(SMALL_ARGS, dev)
+    meshes = mesh_mix(args)
+    out = {"meshes": [f"{m.nx}x{m.ny}x{m.nz}/{m.n_parts}" for m in meshes]}
+
+    def engine(n, lane_classes=False, pad=SMALL_CLASS):
+        eng = SimulationEngine(device=dev, lane_classes=lane_classes)
+        for i in range(n):
+            mesh = meshes[i % len(meshes)]
+            eng.open_session(f"s{i}", mesh, dt=0.5 * mesh.h * (1 + 0.05 * i),
+                             alpha0=1, adaptive=False, pad_to_class=pad)
+        return eng
+
+    def cg_iters():
+        return sum(r.iters for r in loop_records() if r.solver == "cg")
+
+    def restart(eng, init):
+        for sid, s in eng.sessions.items():
+            s.state = PisoState(*(t.clone() for t in init[sid]))
+            s.steps_done = 0
+        eng.reset_stats()
+
+    def solo_run(eng):
+        """Each tenant alone, ``SMALL_STEPS`` steps: states, last-step
+        stats, wall seconds, CG iterations, counters."""
+        state, last = {}, {}
+        reset_loop_records()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_plain_versions():
+            for sid in eng.sessions:
+                last[sid] = eng.step_session(sid, SMALL_STEPS)
+                state[sid] = eng.sessions[sid].state
+        torch.cuda.synchronize()
+        return (state, last, time.perf_counter() - t0, cg_iters(),
+                dict(eng.counters))
+
+    # each tenant unpadded through its own solver, warmed by one untimed
+    # step each (the first captures and device indices)
+    eng = engine(SMALL_TENANTS, pad=None)
+    init_u = {sid: PisoState(*(t.clone() for t in s.state))
+              for sid, s in eng.sessions.items()}
+    for sid in eng.sessions:
+        eng.step_session(sid, 1)
+    restart(eng, init_u)
+    state_u, last_u, wall_u, it_u, _ = solo_run(eng)
+    del eng
+    eng = engine(SMALL_TENANTS)
+    init = {sid: PisoState(*(t.clone() for t in s.state))
+            for sid, s in eng.sessions.items()}
+    # one untimed step each, alone and as a cohort, warms both paths
+    eng.step_all(1)
+    restart(eng, init)
+    for sid in eng.sessions:
+        eng.step_session(sid, 1)
+    restart(eng, init)
+    solo, last_s, wall_s, it_s, solo_counters = solo_run(eng)
+    restart(eng, init)
+    reset_loop_records()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_plain_versions():
+        last_c = eng.step_all(SMALL_STEPS)
+    torch.cuda.synchronize()
+    wall_c, it_c = time.perf_counter() - t0, cg_iters()
+    cohort_counters = dict(eng.counters)
+    bitwise = {}
+    for sid in eng.sessions:
+        bitwise[sid], _ = lane_report(torch, eng.sessions[sid].state,
+                                      solo[sid], last_c[sid], last_s[sid],
+                                      f"13c {sid}", problems)
+    # padded against unpadded alone (reported, not held: padding changes
+    # the grouping of each sum, so counts may move by round-off)
+    unpadded = {}
+    for sid, st in state_u.items():
+        real = st.p.shape[0]
+        unpadded[sid] = {
+            "max_rel": max(rel_diff(getattr(solo[sid], f)[:real],
+                                    getattr(st, f)) for f in st._fields),
+            "counts": {f: (getattr(last_u[sid], f).tolist(),
+                           getattr(last_s[sid], f).tolist())
+                       for f in ("mom_iters", "p_iters")}}
+    same_counts_u = all(a == b for u in unpadded.values()
+                        for a, b in u["counts"].values())
+    steps = SMALL_TENANTS * SMALL_STEPS
+    out.update(solo_steps_per_s=steps / wall_s,
+               unpadded_steps_per_s=steps / wall_u,
+               cohort_steps_per_s=steps / wall_c, solo_s=wall_s,
+               unpadded_s=wall_u, cohort_s=wall_c,
+               solo_counters=solo_counters, cohort_counters=cohort_counters,
+               solo_ms_per_cg_iter=1e3 * wall_s / it_s,
+               unpadded_ms_per_cg_iter=1e3 * wall_u / it_u,
+               cohort_ms_per_cg_iter=1e3 * wall_c / it_c,
+               solo_cg_iters=it_s, unpadded_cg_iters=it_u,
+               cohort_cg_iters=it_c, bitwise=bitwise,
+               unpadded_same_counts=same_counts_u, unpadded=unpadded,
+               cohorts=[len(g) for g in eng.cohorts().values()])
+    print(f"  [13c] {SMALL_TENANTS} tenants x {SMALL_STEPS} steps, meshes "
+          f"{out['meshes']}, warm: session-steps/s alone unpadded "
+          f"{steps / wall_u:.2f} ({wall_u:.2f} s, {it_u} CG iterations, "
+          f"{1e3 * wall_u / it_u:.4f} ms each; last-step counts those of "
+          f"the padded runs {same_counts_u}), alone padded to {SMALL_CLASS} "
+          f"{steps / wall_s:.2f} ({wall_s:.2f} s, {it_s} CG iterations, "
+          f"{1e3 * wall_s / it_s:.4f} ms each), cohort {steps / wall_c:.2f} "
+          f"({wall_c:.2f} s, {it_c} CG iterations of the cohort, "
+          f"{1e3 * wall_c / it_c:.4f} ms each); cohort ratio "
+          f"{wall_u / wall_c:.3f} against unpadded, {wall_s / wall_c:.3f} "
+          f"against padded")
+    print(f"  [13c] padded against unpadded alone: fields max rel "
+          f"{max(u['max_rel'] for u in unpadded.values()):.2e}; last-step "
+          f"(mom_iters, p_iters) unpadded / padded where they differ: "
+          + ("; ".join(f"{sid} {u['counts']}" for sid, u in unpadded.items()
+                       if any(a != b for a, b in u["counts"].values()))
+             or "none"))
+    print(f"  [13c] counters solo {solo_counters}, cohort {cohort_counters}; "
+          f"lanes bitwise their solo runs {sum(bitwise.values())}/"
+          f"{len(bitwise)}")
+    if cohort_counters["cohort_dispatches"] >= SMALL_TENANTS * SMALL_STEPS:
+        problems.append(f"13c: cohort dispatches {cohort_counters}")
+    # a filler lane: one tenant fewer, lane classes on
+    del eng
+    eng = engine(SMALL_TENANTS - 1, lane_classes=True)
+    for sid, s in eng.sessions.items():
+        s.state = PisoState(*(t.clone() for t in init[sid]))
+    with no_plain_versions():
+        last_f = eng.step_all(SMALL_STEPS)
+    torch.cuda.synchronize()
+    same = {}
+    for sid in eng.sessions:
+        same[sid], _ = lane_report(torch, eng.sessions[sid].state, solo[sid],
+                                   last_f[sid], last_s[sid],
+                                   f"13c filler cohort {sid}", problems)
+    out["filler"] = {"bitwise": same, "counters": dict(eng.counters)}
+    print(f"  [13c] {SMALL_TENANTS - 1} tenants with lane classes (one "
+          f"filler lane): bitwise their solo runs "
+          f"{sum(same.values())}/{len(same)}; counters {eng.counters}")
+    del eng
+    return out
+
+
+def arrivals_phase(torch, dev, problems) -> dict:
+    """13d: the port's ``serve_cfd_arrivals`` in process at
+    ``ARRIVAL_ARGS``; dispatches fewer than sessions, at least two
+    multi-session cohorts, per-class p50/p99 printed; two tenants that
+    shared a dispatch are run alone from the start and held to their
+    served states."""
+    from repro_torch.launch.serve import serve_cfd_arrivals
+    from repro_torch.serving.engine import SimulationEngine
+
+    args = serve_args(ARRIVAL_ARGS, dev)
+    opened, closed = {}, {}
+    open_session, close_session = (SimulationEngine.open_session,
+                                   SimulationEngine.close_session)
+
+    def spy_open(self, sid, mesh, **kw):
+        opened[sid] = (mesh, kw)
+        return open_session(self, sid, mesh, **kw)
+
+    def spy_close(self, sid):
+        s = self.sessions[sid]
+        closed[sid] = (s.state, s.steps_done)
+        return close_session(self, sid)
+
+    SimulationEngine.open_session = spy_open
+    SimulationEngine.close_session = spy_close
+    try:
+        with no_plain_versions():
+            stats = serve_cfd_arrivals(args, log=lambda m: print(f"  [13d] "
+                                                                 f"{m}"))
+    finally:
+        SimulationEngine.open_session = open_session
+        SimulationEngine.close_session = close_session
+    sched = stats.pop("sched")
+    multi = {}
+    for ev in sched.core.events:
+        if ev["kind"] == "dispatch" and len(ev["sids"]) > 1:
+            multi.setdefault(ev["key"], set()).update(ev["sids"])
+    out = {"dispatches": stats["dispatches"], "rounds": stats["rounds"],
+           "multi_session_cohorts": len(multi),
+           "latency": stats["latency"]["classes"],
+           "counters": stats["engine"]["counters"]}
+    if not stats["dispatches"] < args.sessions:
+        problems.append(f"13d: {stats['dispatches']} dispatches for "
+                        f"{args.sessions} sessions")
+    if len(multi) < 2:
+        problems.append(f"13d: {len(multi)} multi-session cohort(s)")
+    if len(closed) != args.sessions:
+        problems.append(f"13d: {len(closed)} of {args.sessions} sessions "
+                        f"finished")
+    # two tenants of multi-session dispatches, alone from the start
+    picks = sorted({sid for sids in multi.values() for sid in sids},
+                   key=lambda s: int(s.removeprefix("tenant")))[:2]
+    eng = SimulationEngine(device=dev)
+    held = {}
+    for sid in picks:
+        mesh, kw = opened[sid]
+        kw = {k: v for k, v in kw.items()
+              if k not in ("priority", "deadline_ms")}
+        s = eng.open_session(sid, mesh, **kw)
+        with no_plain_versions():
+            last = eng.step_session(sid, closed[sid][1])
+        state = eng.sessions[sid].state
+        got = closed[sid][0]
+        worst = max(rel_diff(getattr(got, f), getattr(state, f))
+                    for f in got._fields)
+        bitwise = all(torch.equal(getattr(got, f), getattr(state, f))
+                      for f in got._fields)
+        held[sid] = {"program": s.solver.program_name,
+                     "case": s.solver.case, "max_rel": worst,
+                     "bitwise": bitwise}
+        if not worst <= PARITY:
+            problems.append(f"13d {sid}: {worst:.3e} from its solo run")
+        del last
+    out["held"] = held
+    print(f"  [13d] multi-session cohorts {len(multi)}; held against solo "
+          f"runs: {held}")
+    return out
+
+
+def main_state(torch):
+    """The main path's state after its 3 steps from rest (the kernels)."""
+    from repro_torch.launch.case import build_parser, build_solver
+
+    args = build_parser().parse_args(MAIN_ARGS)
+    solver = build_solver(args)
+    dt = args.co * solver.mesh.h
+    state, _ = solver.run_steps(solver.initial_state(), dt, 3)
+    torch.cuda.synchronize()
+    del solver
+    free_device(torch)
+    return state
+
+
+def serving_phase(torch, dev, state3) -> dict:
+    """Phase 13 (see the module docstring); its checks are collected and
+    fail the run after all four parts have printed.  The launch counters
+    are zeroed before the serving runs (13b-13d) and read after them."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    print("[13] serving: lane kernels, 210^3 cohort, small tenants, "
+          "arrivals")
+    problems = []
+    out = {"lane_kernels": lane_kernel_phase(torch, dev, problems)}
+    free_device(torch)
+    reset_launch_counts()
+    out["full_width"] = full_width_phase(torch, dev, state3, problems)
+    free_device(torch)
+    out["small"] = small_tenants_phase(torch, dev, problems)
+    free_device(torch)
+    out["arrivals"] = arrivals_phase(torch, dev, problems)
+    free_device(torch)
+    out["launches"] = launch_counts()
+    print(f"  [13] serving path launches: {out['launches']}")
+    if not all(out["launches"][k] > 0 for k in STEP_KERNELS):
+        problems.append(f"a kernel of the serving path was never launched: "
+                        f"{out['launches']}")
+    for p in problems:
+        print(f"  FAILED: {p}")
+    require(not problems, f"phase 13: {len(problems)} check(s) failed")
+    return out
+
+
 def free_device(torch) -> None:
     """Collect the solvers (their programs close over them) and give the
     cached blocks back."""
@@ -2637,6 +3333,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-cg", type=int, metavar="ITERS",
                     help="profile ITERS iterations of the main path's "
                          "first pressure CG instead of the smoke test")
+    ap.add_argument("--serving", action="store_true",
+                    help="phase 13 alone (after phases 1-2), from a 3-step "
+                         "state of the main path's solver")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2679,6 +3378,12 @@ def main(argv=None) -> int:
             print(smi_line())
             print(json.dumps({"profile_cg": result}))
             return 0
+        if args.serving:
+            result = serving_phase(torch, dev, main_state(torch))
+            print(f"done in {time.perf_counter() - t_start:.1f} s")
+            print(smi_line())
+            print(json.dumps({"serving": result}, default=str))
+            return 0
         print("[3] kernels vs plain versions")
         report = check_kernels(torch, dev)
         print("[4-6] main path: 210^3 cavity, 30 parts, alpha 30, 3 PISO "
@@ -2691,6 +3396,8 @@ def main(argv=None) -> int:
         summary["simple"] = simple_phase(torch)
         free_device(torch)
         summary["control"] = control_phase(torch, state3, main_step, report)
+        free_device(torch)
+        summary["serving"] = serving_phase(torch, dev, state3)
         del state3, main_step
         free_device(torch)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
@@ -2701,7 +3408,7 @@ def main(argv=None) -> int:
             name: {d: report[name][d] for d in ("float32", "bfloat16")
                    if d in report[name]}
             for name in report if "float32" in report[name]}
-        print("summary " + json.dumps(summary))
+        print("summary " + json.dumps(summary, default=str))
         # launches: the main path's counts; the momentum-assembly kernel's
         # from the refactoring baseline's run (phase 8)
         launches = dict(summary["launches"],

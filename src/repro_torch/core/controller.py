@@ -305,10 +305,10 @@ class RepartitionController:
 
         ``pipelined`` scores candidates with the overlap objective
         ``max(assembly, solve + halo) + update`` instead of the serial sum
-        (the port has no pipelined executor yet, so its launcher passes
-        False).  ``precision`` names the session's mixed-precision policy;
-        it becomes a plan-cache key component and, when not "f64",
-        re-prices the model's bytes/iter term
+        (the launcher and the serving engine pass what the solver's
+        ``pipeline`` knob resolved to).  ``precision`` names the session's
+        mixed-precision policy; it becomes a plan-cache key component and,
+        when not "f64", re-prices the model's bytes/iter term
         (:meth:`CostModel.with_precision`).
         """
         if solve_mode not in ("stacked", "full_mesh"):

@@ -57,6 +57,23 @@ __device__ __forceinline__ void count_launch(unsigned long long* count) {
   if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *count += 1;
 }
 
+// Lanes.  A cohort of B systems of one shape (solvers/device_loop.py) runs
+// as one launch with gridDim.y = B: block row y works on lane y alone, at
+// lane offsets of its operands, exactly as a launch on that lane alone
+// would (same grid along x, same rows, same partials), and reads only
+// lane y's flag active[y].  Nothing crosses a lane border.  A guarded
+// launch counts once when any lane's flag is set: thread 0 of block (0, 0)
+// reads the B flags.  B = 1 is the single-system launch.
+__device__ __forceinline__ void count_lanes(const bool* active,
+                                            unsigned long long* count) {
+  if (count == nullptr || blockIdx.x != 0 || blockIdx.y != 0 ||
+      threadIdx.x != 0)
+    return;
+  bool any = false;
+  for (unsigned int l = 0; l < gridDim.y; ++l) any = any || active[l];
+  if (any) *count += 1;
+}
+
 inline unsigned int n_blocks(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }

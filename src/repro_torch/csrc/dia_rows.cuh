@@ -39,9 +39,19 @@
 //    rows, so a thread owns 2 rows (64 registers or fewer in f64).
 //  * The guard.  The Krylov loops replay captured blocks of iterations
 //    (solvers/device_loop.py); a kernel given a non-null DiaArgs::active
-//    reads that device flag first and, while it is false, returns without
-//    loading or writing anything; while it is true, the launch adds one to
-//    its device counter DiaArgs::count (common.cuh: count_launch).
+//    reads its lane's device flag first and, while it is false, returns
+//    without loading or writing anything; a launch in which any lane's flag
+//    is true adds one to its device counter DiaArgs::count (common.cuh:
+//    count_lanes).
+//  * Lanes.  gridDim.y = B stacked systems of P parts each (a cohort):
+//    block row y offsets bands, x, y (and the partials, by
+//    DiaArgs::part_stride) to lane y, whose rows are [0, n) as for a
+//    single system, so reads outside the lane are zero like reads outside
+//    the vector.  The kernels take kLanes as a template argument: a single
+//    system's launch (kLanes false) is the code before lanes, its
+//    operands read from the parameter bank; the offset pointers of a
+//    cohort's launch cost registers (the bf16 SpMV+dot went from 44 to 56
+//    and ran 5 % slower when one code served both).
 //
 #pragma once
 
@@ -62,24 +72,34 @@ struct DiaArgs {
   long long m;               // rows per part
   long long n;               // rows in all, P * m
   long long lo, hi;          // rows in [lo, hi) read x inside [0, n) only
-  const bool* active;        // the loop guard (null: unguarded)
+  long long part_stride;     // partials from one lane to the next
+  const bool* active;        // the loop guard, one flag per lane (null:
+                             // unguarded)
   unsigned long long* count; // a guarded launch's counter (null: none)
   int nb;
 };
 
-// True when a guarded launch's flag says the loop has stopped; a guarded
-// launch that goes on counts itself.
+// True when a guarded launch's flag says this block's lane has stopped; a
+// guarded launch in which some lane goes on counts itself once.
+template <bool kLanes>
 __device__ __forceinline__ bool dia_idle(const DiaArgs& a) {
   if (a.active == nullptr) return false;
-  if (!*a.active) return true;
-  count_launch(a.count);
-  return false;
+  if constexpr (kLanes) {
+    count_lanes(a.active, a.count);
+    return !a.active[blockIdx.y];
+  } else {
+    if (!*a.active) return true;
+    count_launch(a.count);
+    return false;
+  }
 }
 
 inline DiaArgs make_dia_args(const long long* offsets, int nb, long long P,
                              long long m, const void* active = nullptr,
-                             void* count = nullptr) {
+                             void* count = nullptr,
+                             long long part_stride = 0) {
   DiaArgs a;
+  a.part_stride = part_stride;
   a.active = static_cast<const bool*>(active);
   a.count = static_cast<unsigned long long*>(count);
   a.m = m;
@@ -96,8 +116,17 @@ inline DiaArgs make_dia_args(const long long* offsets, int nb, long long P,
   return a;
 }
 
-inline unsigned int dia_blocks(long long n) {
-  return static_cast<unsigned int>((n + kDiaTile - 1) / kDiaTile);
+inline dim3 dia_grid(long long n, long long lanes) {
+  return dim3(static_cast<unsigned int>((n + kDiaTile - 1) / kDiaTile),
+              static_cast<unsigned int>(lanes));
+}
+
+// The lane of a block, and an operand advanced to it (`per_lane` elements
+// from one lane to the next).
+__device__ __forceinline__ long long lane_of_block() { return blockIdx.y; }
+template <typename T>
+__device__ __forceinline__ T* lane_ptr(T* p, long long per_lane) {
+  return p + lane_of_block() * per_lane;
 }
 
 // Loads with cache hints: streaming (evict first) for data read once,

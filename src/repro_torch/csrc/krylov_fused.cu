@@ -23,11 +23,14 @@
 // The Krylov loops (solvers/device_loop.py) replay captured blocks of
 // iterations and guard them on a one-byte device flag: the guarded entry
 // points below pass it, and the kernel returns without reading or writing
-// anything while it is false.  The loops update x and r in place, through
-// axpy_precond_inplace_kernel: the same rows, loads and arithmetic with x
-// and r read through coherent loads and not declared __restrict__, since
-// they are written by the same kernel (aliasing a __restrict__ operand, or
-// reading a written location through the read-only path, is undefined).
+// anything while it is false.  A cohort of B systems of one shape runs as
+// one launch of B lanes (common.cuh: gridDim.y = B, one flag, one alpha and
+// one run of partials per lane; a lane's launch is the single system's).
+// The loops update x and r in place, through axpy_precond_inplace_kernel:
+// the same rows, loads and arithmetic with x and r read through coherent
+// loads and not declared __restrict__, since they are written by the same
+// kernel (aliasing a __restrict__ operand, or reading a written location
+// through the read-only path, is undefined).
 #include "dia_rows.cuh"
 
 using namespace repro;
@@ -41,12 +44,18 @@ using namespace repro;
 // kDiaGroup are its own rows, the levels down to 32 cross the group's
 // warps through shared memory, and 16 down to 1 are warp shuffles.
 // ---------------------------------------------------------------------------
-template <typename S, typename A, int NB>
+template <typename S, typename A, int NB, bool kLanes>
 __global__ void __launch_bounds__(kDiaThreads)
 spmv_dot_kernel(const S* __restrict__ bands, const S* __restrict__ x,
                 S* __restrict__ y, A* __restrict__ partials,
                 const __grid_constant__ DiaArgs a) {
-  if (dia_idle(a)) return;
+  if (dia_idle<kLanes>(a)) return;
+  if constexpr (kLanes) {
+    bands = lane_ptr(bands, a.n * a.nb);
+    x = lane_ptr(x, a.n);
+    y = lane_ptr(y, a.n);
+    partials = lane_ptr(partials, a.part_stride);
+  }
   const long long blk = static_cast<long long>(blockIdx.x) * kDiaTile;
   const int t = threadIdx.x % kDiaGroup;
   const long long row0 = blk + (threadIdx.x / kDiaGroup) * kThreads;
@@ -327,7 +336,8 @@ axpy_precond_kernel(const S* __restrict__ x, const S* __restrict__ r,
                                  rr_part, n);
 }
 
-// x <- x + alpha p and r <- r - alpha Ap in place, under the loops' guard.
+// x <- x + alpha p and r <- r - alpha Ap in place, under the loops' guard;
+// block row y is lane y (n rows, its own alpha, flag and partials).
 template <typename S, typename A>
 __global__ void __launch_bounds__(kAxpyThreads)
 axpy_precond_inplace_kernel(S* x, S* r, const S* __restrict__ p,
@@ -336,17 +346,37 @@ axpy_precond_inplace_kernel(S* x, S* r, const S* __restrict__ p,
                             const A* __restrict__ alpha,
                             S* __restrict__ zo, A* __restrict__ rz_part,
                             A* __restrict__ rr_part, long long n,
+                            long long part_stride,
                             const bool* __restrict__ active,
                             unsigned long long* count) {
-  if (active != nullptr && !*active) return;
-  count_launch(count);
-  axpy_precond_rows<S, A, true>(x, r, p, ap, inv, alpha, x, r, zo, rz_part,
-                                rr_part, n);
+  if (active != nullptr) {
+    count_lanes(active, count);
+    if (!active[blockIdx.y]) return;
+  }
+  x = lane_ptr(x, n);
+  r = lane_ptr(r, n);
+  axpy_precond_rows<S, A, true>(x, r, lane_ptr(p, n), lane_ptr(ap, n),
+                                lane_ptr(inv, n), lane_ptr(alpha, 1), x, r,
+                                lane_ptr(zo, n),
+                                lane_ptr(rz_part, part_stride),
+                                lane_ptr(rr_part, part_stride), n);
+}
+
+template <typename S, typename A, int NB>
+static void launch_spmv_dot_nb(const S* b, const S* x, S* y, A* part,
+                               const DiaArgs& a, long long lanes,
+                               cudaStream_t stream) {
+  if (lanes > 1)
+    spmv_dot_kernel<S, A, NB, true>
+        <<<dia_grid(a.n, lanes), kDiaThreads, 0, stream>>>(b, x, y, part, a);
+  else
+    spmv_dot_kernel<S, A, NB, false>
+        <<<dia_grid(a.n, 1), kDiaThreads, 0, stream>>>(b, x, y, part, a);
 }
 
 template <typename S, typename A>
 static int launch_spmv_dot(const void* bands, const void* x, void* y,
-                           void* partials, const DiaArgs& a,
+                           void* partials, const DiaArgs& a, long long lanes,
                            cudaStream_t stream) {
   if (a.n == 0) return 0;
   const S* b = static_cast<const S*>(bands);
@@ -354,11 +384,9 @@ static int launch_spmv_dot(const void* bands, const void* x, void* y,
   S* ys = static_cast<S*>(y);
   A* part = static_cast<A*>(partials);
   if (a.nb == 7)
-    spmv_dot_kernel<S, A, 7><<<dia_blocks(a.n), kDiaThreads, 0, stream>>>(
-        b, xs, ys, part, a);
+    launch_spmv_dot_nb<S, A, 7>(b, xs, ys, part, a, lanes, stream);
   else
-    spmv_dot_kernel<S, A, kMaxBands>
-        <<<dia_blocks(a.n), kDiaThreads, 0, stream>>>(b, xs, ys, part, a);
+    launch_spmv_dot_nb<S, A, kMaxBands>(b, xs, ys, part, a, lanes, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,6 +394,10 @@ constexpr long long kAxpyBlockRows = kAxpyThreads / 32 * kThreads;
 
 inline unsigned int axpy_blocks(long long n) {
   return static_cast<unsigned int>((n + kAxpyBlockRows - 1) / kAxpyBlockRows);
+}
+
+inline dim3 axpy_grid(long long n, long long lanes) {
+  return dim3(axpy_blocks(n), static_cast<unsigned int>(lanes));
 }
 
 template <typename S, typename A>
@@ -386,32 +418,41 @@ static int launch_axpy(const void* const* in, const void* alpha,
 template <typename S, typename A>
 static int launch_axpy_inplace(void* const* xr, const void* const* in,
                                const void* alpha, void* const* out,
-                               long long n, const void* active,
+                               long long n, long long lanes,
+                               long long part_stride, const void* active,
                                void* count, cudaStream_t stream) {
   if (n == 0) return 0;
+  if (lanes < 1 || lanes > 65535) return -1;
   axpy_precond_inplace_kernel<S, A>
-      <<<axpy_blocks(n), kAxpyThreads, 0, stream>>>(
+      <<<axpy_grid(n, lanes), kAxpyThreads, 0, stream>>>(
           static_cast<S*>(xr[0]), static_cast<S*>(xr[1]),
           static_cast<const S*>(in[0]), static_cast<const S*>(in[1]),
           static_cast<const S*>(in[2]), static_cast<const A*>(alpha),
           static_cast<S*>(out[0]), static_cast<A*>(out[1]),
-          static_cast<A*>(out[2]), n, static_cast<const bool*>(active),
+          static_cast<A*>(out[2]), n, part_stride,
+          static_cast<const bool*>(active),
           static_cast<unsigned long long*>(count));
   return static_cast<int>(cudaGetLastError());
 }
 
-// bands (P, nb, m), x (P, m) -> y (P, m), partials (ceil(P*m / 256),);
-// nb <= 8.
-// Returns cudaGetLastError() after the launch; -1 for an unknown dtype code.
+// bands (lanes*P, nb, m), x (lanes*P, m) -> y (lanes*P, m) and, per lane,
+// ceil(P*m / 256) partials, lane l's from partials + l * part_stride;
+// nb <= 8.  Returns cudaGetLastError() after the launch; -1 for an unknown
+// dtype code or lane count.
 static int dispatch_spmv_dot(int dtype_code, const void* bands,
                              const void* x, void* y, void* partials,
-                             const DiaArgs& a, void* stream) {
+                             const DiaArgs& a, long long lanes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes < 1 || lanes > 65535) return -1;
   switch (dtype_code) {
-    case kF64: return launch_spmv_dot<double, double>(bands, x, y, partials, a, s);
-    case kF32: return launch_spmv_dot<float, float>(bands, x, y, partials, a, s);
+    case kF64:
+      return launch_spmv_dot<double, double>(bands, x, y, partials, a, lanes,
+                                             s);
+    case kF32:
+      return launch_spmv_dot<float, float>(bands, x, y, partials, a, lanes, s);
     case kBF16F32:
-      return launch_spmv_dot<__nv_bfloat16, float>(bands, x, y, partials, a, s);
+      return launch_spmv_dot<__nv_bfloat16, float>(bands, x, y, partials, a,
+                                                   lanes, s);
     default: return -1;
   }
 }
@@ -420,23 +461,30 @@ extern "C" int spmv_dot_launch(int dtype_code, const void* bands,
                                const void* x, void* y, void* partials,
                                long long P, long long m,
                                const long long* offsets, int nb,
+                               long long lanes, long long part_stride,
                                void* stream) {
-  return dispatch_spmv_dot(dtype_code, bands, x, y, partials,
-                           make_dia_args(offsets, nb, P, m), stream);
+  return dispatch_spmv_dot(
+      dtype_code, bands, x, y, partials,
+      make_dia_args(offsets, nb, P, m, nullptr, nullptr, part_stride), lanes,
+      stream);
 }
 
-// The same under the Krylov loops' guard: nothing is read or written while
-// the one-byte device flag `active` is false; a launch that runs adds one
-// to the device counter `count` (one unsigned 64-bit value).
+// The same under the Krylov loops' guard: nothing of lane l is read or
+// written while the one-byte device flag active[l] is false; a launch in
+// which any lane runs adds one to the device counter `count` (one
+// unsigned 64-bit value).
 extern "C" int spmv_dot_guarded_launch(int dtype_code, const void* bands,
                                        const void* x, void* y,
                                        void* partials, long long P,
                                        long long m, const long long* offsets,
-                                       int nb, const void* active,
-                                       void* count, void* stream) {
-  return dispatch_spmv_dot(dtype_code, bands, x, y, partials,
-                           make_dia_args(offsets, nb, P, m, active, count),
-                           stream);
+                                       int nb, long long lanes,
+                                       long long part_stride,
+                                       const void* active, void* count,
+                                       void* stream) {
+  return dispatch_spmv_dot(
+      dtype_code, bands, x, y, partials,
+      make_dia_args(offsets, nb, P, m, active, count, part_stride), lanes,
+      stream);
 }
 
 // x, r, p, Ap, inv_diag (n,) and a device scalar alpha (accum dtype) ->
@@ -459,16 +507,19 @@ extern "C" int axpy_precond_launch(int dtype_code, const void* x,
   }
 }
 
-// x, r (n,) updated in place; p, Ap, inv_diag (n,); a device scalar alpha
-// (accum dtype) -> z (n,) and the r.z, r.r partials (ceil(n / 256),) each;
-// active one byte or null; count (one unsigned 64-bit value, or null) gains
-// one when a guarded launch runs.  The vectors must start on 16-byte
-// boundaries.
+// x, r (lanes*n,) updated in place; p, Ap, inv_diag (lanes*n,); one device
+// scalar alpha per lane (accum dtype) -> z (lanes*n,) and, per lane, the
+// r.z, r.r partials (ceil(n / 256),) each, lane l's at l * part_stride;
+// active one byte per lane or null; count (one unsigned 64-bit value, or
+// null) gains one when a guarded launch runs in any lane.  The vectors, and
+// every lane's rows, must start on 16-byte boundaries.
 extern "C" int axpy_precond_inplace_launch(int dtype_code, void* x, void* r,
                                            const void* p, const void* ap,
                                            const void* inv, const void* alpha,
                                            void* zo, void* rz_part,
                                            void* rr_part, long long n,
+                                           long long lanes,
+                                           long long part_stride,
                                            const void* active, void* count,
                                            void* stream) {
   void* xr[2] = {x, r};
@@ -477,14 +528,15 @@ extern "C" int axpy_precond_inplace_launch(int dtype_code, void* x, void* r,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
     case kF64:
-      return launch_axpy_inplace<double, double>(xr, in, alpha, out, n, active,
-                                                 count, s);
+      return launch_axpy_inplace<double, double>(xr, in, alpha, out, n, lanes,
+                                                 part_stride, active, count,
+                                                 s);
     case kF32:
-      return launch_axpy_inplace<float, float>(xr, in, alpha, out, n, active,
-                                               count, s);
+      return launch_axpy_inplace<float, float>(xr, in, alpha, out, n, lanes,
+                                               part_stride, active, count, s);
     case kBF16F32:
-      return launch_axpy_inplace<__nv_bfloat16, float>(xr, in, alpha, out, n,
-                                                       active, count, s);
+      return launch_axpy_inplace<__nv_bfloat16, float>(
+          xr, in, alpha, out, n, lanes, part_stride, active, count, s);
     default: return -1;
   }
 }

@@ -18,6 +18,11 @@
 // active <- (rr > thr) && (k < maxiter).  A NaN rr compares false, so a
 // NaN start runs 0 iterations.
 //
+// Lanes.  A cohort of B systems runs as one launch: cg_direction with
+// gridDim.y = B (block row y is lane y: its rows, its gamma pair and its
+// flag, common.cuh), cg_advance with one thread per lane.  Each launch
+// counts once when any lane's flag is set.
+//
 // Rounding.  cg_direction must give the bits of PyTorch's eager
 // `z + beta.to(z.dtype) * p`: beta is an IEEE division at the accum width,
 // rounded to the storage dtype; the product and the sum are each rounded
@@ -110,7 +115,8 @@ template <> struct Vec<__nv_bfloat16> {
 
 // p <- z + beta * p, beta = gamma_new / gamma (accum dtype) rounded to S.
 // Thread t owns rows [t*W, t*W + W): a 16-byte vector of each operand, or,
-// for the one thread at a ragged end, checked scalars.
+// for the one thread at a ragged end, checked scalars.  Block row y is lane
+// y (n rows each).
 template <typename S, typename A>
 __global__ void __launch_bounds__(kThreads)
 cg_direction_kernel(S* p, const S* __restrict__ z,
@@ -118,8 +124,15 @@ cg_direction_kernel(S* p, const S* __restrict__ z,
                     const A* __restrict__ gamma,
                     const bool* __restrict__ active,
                     unsigned long long* count, long long n) {
-  if (active != nullptr && !*active) return;
-  count_launch(count);
+  if (active != nullptr) {
+    count_lanes(active, count);
+    if (!active[blockIdx.y]) return;
+  }
+  const long long lane = blockIdx.y;
+  p += lane * n;
+  z += lane * n;
+  gamma_new += lane;
+  gamma += lane;
   using C = typename Compute<S>::type;
   constexpr int W = Vec<S>::W;
   const long long i0 =
@@ -144,31 +157,39 @@ cg_direction_kernel(S* p, const S* __restrict__ z,
   }
 }
 
-// The loop guard, one thread (see the notes at the top).
+// The loop guard, one thread per lane (see the notes at the top).  Every
+// thread reads its flag before any writes one, so thread 0 counts the
+// launch when any lane goes on.
 template <typename A>
 __global__ void cg_advance_kernel(A* gamma, const A* gamma_new, A* rr,
                                   const A* rr_new, int* k, bool* active,
                                   const A* thr, int maxiter,
                                   unsigned long long* count) {
-  if (!*active) return;
-  count_launch(count);
-  *gamma = *gamma_new;
-  const A r = *rr_new;
-  *rr = r;
-  const int kn = *k + 1;
-  *k = kn;
-  *active = r > *thr && kn < maxiter;
+  const int l = threadIdx.x;
+  const bool on = active[l];
+  const int any = __syncthreads_or(on);
+  if (l == 0 && any && count != nullptr) *count += 1;
+  if (!on) return;
+  gamma[l] = gamma_new[l];
+  const A r = rr_new[l];
+  rr[l] = r;
+  const int kn = k[l] + 1;
+  k[l] = kn;
+  active[l] = r > thr[l] && kn < maxiter;
 }
 
 template <typename S, typename A>
 static int launch_direction(void* p, const void* z, const void* gamma_new,
-                            const void* gamma, long long n,
+                            const void* gamma, long long n, long long lanes,
                             const void* active, void* count,
                             cudaStream_t stream) {
   if (n == 0) return 0;
+  if (lanes < 1 || lanes > 65535) return -1;
   constexpr long long W = Vec<S>::W;
   const long long vecs = (n + W - 1) / W;
-  cg_direction_kernel<S, A><<<n_blocks(vecs), kThreads, 0, stream>>>(
+  cg_direction_kernel<S, A><<<dim3(n_blocks(vecs),
+                                   static_cast<unsigned int>(lanes)),
+                              kThreads, 0, stream>>>(
       static_cast<S*>(p), static_cast<const S*>(z),
       static_cast<const A*>(gamma_new), static_cast<const A*>(gamma),
       static_cast<const bool*>(active),
@@ -179,9 +200,10 @@ static int launch_direction(void* p, const void* z, const void* gamma_new,
 template <typename A>
 static int launch_advance(void* gamma, const void* gamma_new, void* rr,
                           const void* rr_new, void* k, void* active,
-                          const void* thr, int maxiter, void* count,
-                          cudaStream_t stream) {
-  cg_advance_kernel<A><<<1, 1, 0, stream>>>(
+                          const void* thr, int maxiter, long long lanes,
+                          void* count, cudaStream_t stream) {
+  if (lanes < 1 || lanes > 1024) return -1;
+  cg_advance_kernel<A><<<1, static_cast<unsigned int>(lanes), 0, stream>>>(
       static_cast<A*>(gamma), static_cast<const A*>(gamma_new),
       static_cast<A*>(rr), static_cast<const A*>(rr_new), static_cast<int*>(k),
       static_cast<bool*>(active), static_cast<const A*>(thr), maxiter,
@@ -189,45 +211,48 @@ static int launch_advance(void* gamma, const void* gamma_new, void* rr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// p, z (n,) storage dtype, 16-byte aligned; gamma_new, gamma one accum
-// value each; active one byte or null (unguarded); count one unsigned
-// 64-bit value that a guarded launch which runs adds one to, or null.
-// Returns cudaGetLastError() after the launch; -1 for an unknown dtype code.
+// p, z (lanes*n,) storage dtype, 16-byte aligned at every lane; gamma_new,
+// gamma one accum value per lane; active one byte per lane or null
+// (unguarded); count one unsigned 64-bit value that a guarded launch which
+// runs in any lane adds one to, or null.  Returns cudaGetLastError() after
+// the launch; -1 for an unknown dtype code or lane count.
 extern "C" int cg_direction_launch(int dtype_code, void* p, const void* z,
                                    const void* gamma_new, const void* gamma,
-                                   long long n, const void* active,
-                                   void* count, void* stream) {
+                                   long long n, long long lanes,
+                                   const void* active, void* count,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
     case kF64:
-      return launch_direction<double, double>(p, z, gamma_new, gamma, n, active,
-                                              count, s);
+      return launch_direction<double, double>(p, z, gamma_new, gamma, n, lanes,
+                                              active, count, s);
     case kF32:
-      return launch_direction<float, float>(p, z, gamma_new, gamma, n, active,
-                                            count, s);
+      return launch_direction<float, float>(p, z, gamma_new, gamma, n, lanes,
+                                            active, count, s);
     case kBF16F32:
       return launch_direction<__nv_bfloat16, float>(p, z, gamma_new, gamma, n,
-                                                    active, count, s);
+                                                    lanes, active, count, s);
     default: return -1;
   }
 }
 
-// gamma, gamma_new, rr, rr_new, thr: one accum value each (code kF64:
-// double, kF32: float); k one int32; active one byte; count as for
-// cg_direction_launch.
+// gamma, gamma_new, rr, rr_new, thr: one accum value per lane (code kF64:
+// double, kF32: float); k one int32 per lane; active one byte per lane;
+// count as for cg_direction_launch; at most 1024 lanes.
 extern "C" int cg_advance_launch(int accum_code, void* gamma,
                                  const void* gamma_new, void* rr,
                                  const void* rr_new, void* k, void* active,
-                                 const void* thr, int maxiter, void* count,
+                                 const void* thr, int maxiter,
+                                 long long lanes, void* count,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (accum_code) {
     case kF64:
       return launch_advance<double>(gamma, gamma_new, rr, rr_new, k, active, thr,
-                                    maxiter, count, s);
+                                    maxiter, lanes, count, s);
     case kF32:
       return launch_advance<float>(gamma, gamma_new, rr, rr_new, k, active, thr,
-                                   maxiter, count, s);
+                                   maxiter, lanes, count, s);
     default: return -1;
   }
 }

@@ -19,11 +19,16 @@
 
 using namespace repro;
 
-template <typename S, typename A, int NB>
+template <typename S, typename A, int NB, bool kLanes>
 __global__ void __launch_bounds__(kDiaThreads)
 spmv_dia_kernel(const S* __restrict__ bands, const S* __restrict__ x,
                 S* __restrict__ y, const __grid_constant__ DiaArgs a) {
-  if (dia_idle(a)) return;
+  if (dia_idle<kLanes>(a)) return;
+  if constexpr (kLanes) {
+    bands = lane_ptr(bands, a.n * a.nb);
+    x = lane_ptr(x, a.n);
+    y = lane_ptr(y, a.n);
+  }
   const long long blk = static_cast<long long>(blockIdx.x) * kDiaTile;
   const long long g0 = blk + (threadIdx.x / kDiaGroup) * kThreads +
                        threadIdx.x % kDiaGroup;
@@ -34,32 +39,44 @@ spmv_dia_kernel(const S* __restrict__ bands, const S* __restrict__ x,
     dia_rows<S, A, NB, true, false>(bands, x, y, a, g0, acc, xg);
 }
 
+template <typename S, typename A, int NB>
+static void launch_nb(const S* b, const S* x, S* y, const DiaArgs& a,
+                      long long lanes, cudaStream_t stream) {
+  if (lanes > 1)
+    spmv_dia_kernel<S, A, NB, true>
+        <<<dia_grid(a.n, lanes), kDiaThreads, 0, stream>>>(b, x, y, a);
+  else
+    spmv_dia_kernel<S, A, NB, false>
+        <<<dia_grid(a.n, 1), kDiaThreads, 0, stream>>>(b, x, y, a);
+}
+
 template <typename S, typename A>
 static int launch(const void* bands, const void* x, void* y,
-                  const DiaArgs& a, cudaStream_t stream) {
+                  const DiaArgs& a, long long lanes, cudaStream_t stream) {
   if (a.n == 0) return 0;
   const S* b = static_cast<const S*>(bands);
   const S* xs = static_cast<const S*>(x);
   S* ys = static_cast<S*>(y);
   if (a.nb == 7)
-    spmv_dia_kernel<S, A, 7><<<dia_blocks(a.n), kDiaThreads, 0, stream>>>(
-        b, xs, ys, a);
+    launch_nb<S, A, 7>(b, xs, ys, a, lanes, stream);
   else
-    spmv_dia_kernel<S, A, kMaxBands>
-        <<<dia_blocks(a.n), kDiaThreads, 0, stream>>>(b, xs, ys, a);
+    launch_nb<S, A, kMaxBands>(b, xs, ys, a, lanes, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
-// bands (P, nb, m), x (P, m), y (P, m): all contiguous, on one device;
-// nb <= 8.  Returns cudaGetLastError() after the launch (0 on success); -1
-// for an unknown dtype code.
+// bands (lanes*P, nb, m), x (lanes*P, m), y (lanes*P, m): all contiguous,
+// on one device; nb <= 8; each lane of P parts a system of its own.
+// Returns cudaGetLastError() after the launch (0 on success); -1 for an
+// unknown dtype code or lane count.
 static int dispatch(int dtype_code, const void* bands, const void* x, void* y,
-                    const DiaArgs& a, void* stream) {
+                    const DiaArgs& a, long long lanes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes < 1 || lanes > 65535) return -1;
   switch (dtype_code) {
-    case kF64: return launch<double, double>(bands, x, y, a, s);
-    case kF32: return launch<float, float>(bands, x, y, a, s);
-    case kBF16F32: return launch<__nv_bfloat16, float>(bands, x, y, a, s);
+    case kF64: return launch<double, double>(bands, x, y, a, lanes, s);
+    case kF32: return launch<float, float>(bands, x, y, a, lanes, s);
+    case kBF16F32:
+      return launch<__nv_bfloat16, float>(bands, x, y, a, lanes, s);
     default: return -1;
   }
 }
@@ -67,19 +84,22 @@ static int dispatch(int dtype_code, const void* bands, const void* x, void* y,
 extern "C" int spmv_dia_launch(int dtype_code, const void* bands,
                                const void* x, void* y, long long P,
                                long long m, const long long* offsets, int nb,
-                               void* stream) {
+                               long long lanes, void* stream) {
   return dispatch(dtype_code, bands, x, y, make_dia_args(offsets, nb, P, m),
-                  stream);
+                  lanes, stream);
 }
 
-// The same under the Krylov loops' guard: nothing is read or written while
-// the one-byte device flag `active` is false; a launch that runs adds one
-// to the device counter `count` (one unsigned 64-bit value).
+// The same under the Krylov loops' guard: nothing of lane l is read or
+// written while the one-byte device flag active[l] is false; a launch in
+// which any lane runs adds one to the device counter `count` (one unsigned
+// 64-bit value).
 extern "C" int spmv_dia_guarded_launch(int dtype_code, const void* bands,
                                        const void* x, void* y, long long P,
                                        long long m, const long long* offsets,
-                                       int nb, const void* active,
-                                       void* count, void* stream) {
+                                       int nb, long long lanes,
+                                       const void* active, void* count,
+                                       void* stream) {
   return dispatch(dtype_code, bands, x, y,
-                  make_dia_args(offsets, nb, P, m, active, count), stream);
+                  make_dia_args(offsets, nb, P, m, active, count), lanes,
+                  stream);
 }

@@ -31,6 +31,7 @@ are unique within each add, which is a plain indexed update.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -170,6 +171,9 @@ class CavityAssembly:
         self.h = mesh.h
         self.plane = mesh.plane
         self.n_parts = P
+        # a cohort view (lane_view) stacks lanes of lane_parts parts each
+        self.lane_parts = P
+        self.n_lanes = 1
         self.m = mesh.n_cells
         self._patch_nz = [p.normal[2] for p in mesh.patches]
         # z-plane patches own the (P, 2, B) boundary-flux slots: slot DOWN
@@ -204,6 +208,67 @@ class CavityAssembly:
         return torch.atleast_2d(Ub).expand(self.plane, 3)
 
     # ------------------------------------------------------------------
+    # part-activity masks (size-class padding) and cohort views
+    # ------------------------------------------------------------------
+    def dynamic_masks(self, n_active) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(if_mask, patch_mask)`` as functions of ``n_active``.
+
+        ``n_active`` is the number of *real* leading parts of a lane;
+        parts at and beyond it are size-class zero padding (ghost slabs)
+        with no interfaces and no boundary patches.  The lid patch rides
+        on the last active part and the bottom wall on part 0, matching
+        the static masks of a :class:`~repro_torch.fvm.mesh.
+        PaddedCavityMesh`.  A 0-d ``n_active`` gives one lane's masks,
+        ``(P, 2, 1)`` and ``(P, n_patches)``; a ``(B,)`` tensor gives a
+        cohort's, one lane after another, ``(B*P, 2, 1)`` and ``(B*P,
+        n_patches)``.  They are computed on the device from the tensor, so
+        one program serves every real size of a size class.
+        """
+        n = torch.as_tensor(n_active, device=self.device).reshape(-1, 1)
+        ids = torch.arange(self.lane_parts, device=self.device)[None, :]
+        act = ids < n
+        down = act & (ids >= 1)
+        up = ids < (n - 1)
+        if_mask = torch.stack([down, up], dim=2).to(self.dtype)
+        cols = []
+        for nz in self._patch_nz:
+            if nz > 0:        # lid: last active part
+                cols.append(act & (ids == n - 1))
+            elif nz < 0:      # bottom wall: part 0
+                cols.append(act & (ids == 0))
+            else:             # side walls: every active part
+                cols.append(act)
+        patch_mask = torch.stack(cols, dim=2).to(self.dtype)
+        return (if_mask.reshape(-1, 2)[:, :, None],
+                patch_mask.reshape(-1, len(cols)))
+
+    def with_masks(self, if_mask: torch.Tensor,
+                   patch_mask: torch.Tensor) -> "CavityAssembly":
+        """A shallow view of this assembly with the activity masks swapped
+        (static addressing shared): how the padded program binds the masks
+        of its ``n_active`` operand."""
+        a = copy.copy(self)
+        a.if_mask = if_mask
+        a.patch_mask = patch_mask
+        return a
+
+    def lane_view(self, lanes: int) -> "CavityAssembly":
+        """A view of this assembly over a cohort of ``lanes`` lanes, fields
+        stacked ``(lanes * P, ...)``, one lane's parts after another.  Each
+        lane is assembled exactly as it is alone (the same per-part
+        operations): the halo is zero at every lane border, so nothing
+        reads a neighbouring lane; the static masks repeat per lane; each
+        lane's part 0 carries its own reference cell."""
+        if lanes < 1:
+            raise ValueError(f"lanes must be >= 1, got {lanes}")
+        a = copy.copy(self)
+        a.n_lanes = lanes
+        a.n_parts = lanes * self.lane_parts
+        a.if_mask = self.if_mask.repeat(lanes, 1, 1)
+        a.patch_mask = self.patch_mask.repeat(lanes, 1)
+        return a
+
+    # ------------------------------------------------------------------
     # face interpolation / fluxes
     # ------------------------------------------------------------------
     def face_flux(self, U: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -220,7 +285,8 @@ class CavityAssembly:
         phi = torch.gather(Uf, 2, axis)[..., 0] * self.A
         # interface: halo of w-velocity planes
         w = U[..., 2]
-        down, up = halo_exchange(w, self.plane)  # remote plane values
+        # remote plane values
+        down, up = halo_exchange(w, self.plane, self.lane_parts)
         phi_down = -self.A * 0.5 * (w[:, self.if_rows[DOWN]] + down)
         phi_up = +self.A * 0.5 * (w[:, self.if_rows[UP]] + up)
         phi_if = torch.stack([phi_down, phi_up], dim=1) * self.if_mask
@@ -261,7 +327,7 @@ class CavityAssembly:
         g = self.own_sum.add(g, contrib)
         g = self.ngb_sum.add(g, -contrib)
         # interfaces: S = ±A e_z outward
-        down, up = halo_exchange(p, self.plane)
+        down, up = halo_exchange(p, self.plane, self.lane_parts)
         pf_down = 0.5 * (p[:, self.if_rows[DOWN]] + down) * self.if_mask[:, DOWN]
         pf_up = 0.5 * (p[:, self.if_rows[UP]] + up) * self.if_mask[:, UP]
         g = _add_rows(g, self.if_rows[DOWN], -self.A * pf_down, comp=2)
@@ -295,14 +361,27 @@ class CavityAssembly:
     # momentum predictor
     # ------------------------------------------------------------------
     def assemble_momentum(self, U_old: torch.Tensor, phi: torch.Tensor,
-                          phi_if: torch.Tensor, p: torch.Tensor, dt: float,
-                          phi_b: torch.Tensor | None = None
+                          phi_if: torch.Tensor, p: torch.Tensor | None,
+                          dt, phi_b: torch.Tensor | None = None,
+                          gradp: torch.Tensor | None = None
                           ) -> MomentumSystem:
+        """``dt``: a float, or a tensor of one value per part (a cohort's
+        per-lane timesteps).  ``gradp`` short-circuits the
+        pressure-gradient source: a caller that already holds ``grad(p)``
+        (the pipelined executor carries it across the step boundary) passes
+        it with ``p=None``."""
         P, m = U_old.shape[:2]
         F = phi.shape[1]
-        diag = torch.full((P, m), self.V / dt, dtype=self.dtype,
-                          device=self.device)
-        source = (self.V / dt) * U_old
+        if torch.is_tensor(dt):
+            # a true division, as the float path's (``V / tensor`` would
+            # multiply by the reciprocal)
+            vdt = (torch.full_like(dt, self.V) / dt).reshape(P, 1)
+            diag = vdt.expand(P, m)
+            source = vdt[..., None] * U_old
+        else:
+            diag = torch.full((P, m), self.V / dt, dtype=self.dtype,
+                              device=self.device)
+            source = (self.V / dt) * U_old
         upper = self._zeros(P, F)
         lower = self._zeros(P, F)
         iface = torch.zeros_like(phi_if)
@@ -356,7 +435,7 @@ class CavityAssembly:
                 gb * mask[:, None, None] * torch.atleast_2d(Ub)[None, ...])
 
         # pressure gradient source
-        source = source - self.V * self.grad(p)
+        source = source - self.V * (self.grad(p) if gradp is None else gradp)
         return MomentumSystem(diag, upper, lower, iface, source)
 
     def offdiag_apply(self, sys, x: torch.Tensor) -> torch.Tensor:
@@ -364,7 +443,7 @@ class CavityAssembly:
         y = torch.zeros_like(x)
         y = self.own_sum.add(y, sys.upper * x[:, self.neigh])
         y = self.ngb_sum.add(y, sys.lower * x[:, self.owner])
-        down, up = halo_exchange(x, self.plane)
+        down, up = halo_exchange(x, self.plane, self.lane_parts)
         y = _add_rows(y, self.if_rows[DOWN], sys.iface[:, DOWN] * down)
         y = _add_rows(y, self.if_rows[UP], sys.iface[:, UP] * up)
         return y
@@ -379,7 +458,7 @@ class CavityAssembly:
         P, m = rAU.shape
         rAUf = 0.5 * (rAU[:, self.owner] + rAU[:, self.neigh])
         g_int = rAUf * self.A / self.h
-        down, up = halo_exchange(rAU, self.plane)
+        down, up = halo_exchange(rAU, self.plane, self.lane_parts)
         g_down = 0.5 * (rAU[:, self.if_rows[DOWN]] + down) * self.A / self.h
         g_up = 0.5 * (rAU[:, self.if_rows[UP]] + up) * self.A / self.h
         g_if = torch.stack([g_down, g_up], dim=1) * self.if_mask
@@ -404,10 +483,10 @@ class CavityAssembly:
             diag = _add_rows(diag, rows, g_b[:, slot])
 
         if self._needs_ref:
-            # reference cell: diag *= (1 + boost) at global cell 0 (an
-            # outlet pins the pressure level instead)
+            # reference cell: diag *= (1 + boost) at cell 0 of each lane
+            # (an outlet pins the pressure level instead)
             boost = self._zeros(P, m)
-            boost[0, 0] = ref_boost
+            boost[::self.lane_parts, 0] = ref_boost
             diag = diag * (1.0 + boost)
         return PressureSystem(diag, upper, lower, iface, self._zeros(P, m),
                               g_int, g_if, g_b)
@@ -433,7 +512,7 @@ class CavityAssembly:
         """phi = phiHbyA - g_f (p_n - p_o); conservative by construction."""
         dp = p[:, self.neigh] - p[:, self.owner]
         phi = phiHbyA - sysP.g_int * dp
-        down, up = halo_exchange(p, self.plane)
+        down, up = halo_exchange(p, self.plane, self.lane_parts)
         dp_down = down - p[:, self.if_rows[DOWN]]   # outward (-z): remote - local
         dp_up = up - p[:, self.if_rows[UP]]
         phi_if = phiHbyA_if - torch.stack(

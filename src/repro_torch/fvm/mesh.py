@@ -24,7 +24,8 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["CavityMesh", "IfaceSpec", "PatchSpec", "DOWN", "UP"]
+__all__ = ["CavityMesh", "PaddedCavityMesh", "IfaceSpec", "PatchSpec",
+           "DOWN", "UP"]
 
 DOWN, UP = 0, 1  # interface slots
 
@@ -209,3 +210,86 @@ class CavityMesh:
 
     def global_cell_ids(self, part: int) -> np.ndarray:
         return np.arange(self.n_cells, dtype=np.int64) + part * self.n_cells
+
+    @property
+    def n_parts_active(self) -> int:
+        """Physically meaningful parts (== ``n_parts`` for a plain mesh)."""
+        return self.n_parts
+
+    @property
+    def n_cells_active(self) -> int:
+        """Physically meaningful cells (== ``n_cells_global`` when plain)."""
+        return self.n_cells * self.n_parts_active
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedCavityMesh(CavityMesh):
+    """A cavity mesh zero-padded along the part axis to a **size class**.
+
+    The serving scheduler (:mod:`repro_torch.serving.scheduler`) co-batches
+    tenants whose meshes share a per-part structure ``(nx, ny, nzl, h)``
+    but differ in slab count by padding every such mesh to a common
+    ``n_parts`` class (power of two): parts ``[n_parts_real, n_parts)``
+    are **ghost slabs** — their state stays exactly zero because every
+    interface and boundary patch touching them is masked off.  Structure
+    (faces, interface addressing, patch rows) is the padded shape's, so
+    two padded meshes of one class are program-interchangeable regardless
+    of their real slab counts; only the activity masks differ, and those
+    are *functions of* ``n_parts_real`` evaluated inside the compiled
+    step (``CavityAssembly.dynamic_masks``), threaded through as a traced
+    per-session operand.
+
+    The static :meth:`iface_mask`/:meth:`patch_mask`/:meth:`patches`
+    views reflect the real slab count, so a padded mesh is also safe to
+    assemble the ordinary (non-dynamic) way: ghost parts decouple and a
+    solo run matches the unpadded mesh bitwise (the zero ghost rows
+    contribute exact zeros to every global reduction, and
+    ``safe_jacobi_inverse`` guards the ghost diagonals).
+    """
+
+    n_parts_real: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not (1 <= self.n_parts_real <= self.n_parts):
+            raise ValueError(
+                f"n_parts_real must be in [1, n_parts={self.n_parts}], "
+                f"got {self.n_parts_real}")
+
+    @staticmethod
+    def pad(mesh: "CavityMesh", n_parts: int) -> "PaddedCavityMesh":
+        """Pad ``mesh`` to an ``n_parts`` class (same per-part structure)."""
+        if isinstance(mesh, PaddedCavityMesh):
+            raise ValueError("mesh is already padded")
+        if n_parts < mesh.n_parts:
+            raise ValueError(
+                f"cannot pad {mesh.n_parts} parts down to {n_parts}")
+        return PaddedCavityMesh(nx=mesh.nx, ny=mesh.ny,
+                                nz=mesh.nzl * n_parts, n_parts=n_parts,
+                                h=mesh.h, n_parts_real=mesh.n_parts)
+
+    @property
+    def n_parts_active(self) -> int:
+        return self.n_parts_real
+
+    def iface_mask(self) -> np.ndarray:
+        """Ghost slabs have no interfaces; the last *real* part is the top."""
+        mask = np.zeros((self.n_parts, 2), dtype=bool)
+        mask[1:self.n_parts_real, DOWN] = True
+        mask[:self.n_parts_real - 1, UP] = True
+        return mask
+
+    @property
+    def patches(self) -> tuple[PatchSpec, ...]:
+        """The lid moves to the last *real* part; ghost parts are bare."""
+        out = []
+        for p in super().patches:
+            if p.only_part == self.n_parts - 1:
+                p = dataclasses.replace(p, only_part=self.n_parts_real - 1)
+            out.append(p)
+        return tuple(out)
+
+    def patch_mask(self) -> np.ndarray:
+        mask = super().patch_mask()
+        mask[self.n_parts_real:, :] = False
+        return mask

@@ -27,6 +27,14 @@ every ratio it has bound; with a shared
 :class:`~repro_torch.core.controller.PlanCache` (``plan_cache``) the plans
 come from the cache.  The port runs the stacked layout (every coarse
 part's rows on the one device).
+
+The serving surface: ``pipeline`` ("auto" | "on" | "off") picks the
+software-pipelined executor for a program that declares one (``_stepper``);
+a size-class :class:`~repro_torch.fvm.mesh.PaddedCavityMesh` makes the
+solver ``padded`` (its program takes ``n_active``); :func:`stack_states` /
+:func:`unstack_states` move sessions in and out of a cohort, and
+:meth:`SegregatedSolver.batched_executor` steps a cohort of sessions of
+this binding.
 """
 from __future__ import annotations
 
@@ -43,8 +51,7 @@ from repro_torch.env import DTYPE, resolve_device
 from repro_torch.fvm.assembly import CavityAssembly
 from repro_torch.fvm.cases import FlowCase, get_case
 from repro_torch.fvm.mesh import CavityMesh
-from repro_torch.fvm.step_program import (InstrumentedExecutor,
-                                         SerialExecutor, get_program,
+from repro_torch.fvm.step_program import (ProgramExecutors, get_program,
                                          roll_schedule)
 from repro_torch.solvers.jacobi import jacobi_preconditioner
 from repro_torch.solvers.ops import (fused_stacked_ops, reference_ops,
@@ -53,7 +60,10 @@ from repro_torch.solvers.precision import get_policy
 from repro_torch.sparse.distributed import spmv_dia
 
 __all__ = ["SegregatedSolver", "PisoSolver", "SimpleSolver", "PisoState",
-           "StepStats", "SOLVERS", "make_solver"]
+           "StepStats", "SOLVERS", "make_solver", "stack_states",
+           "unstack_states", "PIPELINE_MODES"]
+
+PIPELINE_MODES = ("auto", "on", "off")
 
 
 class PisoState(NamedTuple):
@@ -76,6 +86,38 @@ class StepStats(NamedTuple):
     hit_cap: torch.Tensor
 
 
+def stack_states(states, pad_to: int | None = None) -> PisoState:
+    """Stack per-session states along a new leading session axis: the
+    cohort form the batched executors take.  All states share leaf shapes
+    and dtypes (the cohort contract).
+
+    ``pad_to`` appends all-zero **filler lanes** until the leading axis
+    reaches that size, so a cohort can ride a lane-class executor (a
+    power-of-two batch).  With a padded program a filler lane carries
+    ``n_active=0``: every mask is zero and its Krylov loops stop at once.
+    """
+    states = list(states)
+    if not states:
+        raise ValueError("cannot stack an empty session list")
+    if pad_to is not None:
+        if pad_to < len(states):
+            raise ValueError(
+                f"pad_to={pad_to} below cohort size {len(states)}")
+        filler = PisoState(*(torch.zeros_like(t) for t in states[0]))
+        states = states + [filler] * (pad_to - len(states))
+    return PisoState(*(torch.stack(leaves) for leaves in zip(*states)))
+
+
+def unstack_states(stacked: PisoState, n: int | None = None):
+    """Split a cohort-stacked state back into per-session states (views),
+    the first ``n`` (default: all) — trailing filler lanes are dropped."""
+    lead = stacked[0].shape[0]
+    n = lead if n is None else n
+    if n > lead:
+        raise ValueError(f"requested {n} sessions from a stack of {lead}")
+    return [PisoState(*(t[i] for t in stacked)) for i in range(n)]
+
+
 @dataclasses.dataclass
 class SegregatedSolver:
     """Bind a mesh + flow case + repartitioning ratio alpha into a stepper
@@ -91,7 +133,10 @@ class SegregatedSolver:
     requested backend and the policy as key components).
     ``plan_seconds`` records the host time the repartition plans took to
     build (kept out of the step time; with a cache, only its misses),
-    :meth:`rebind_alpha`'s included.
+    :meth:`rebind_alpha`'s included.  ``pipeline`` ("auto" | "on" |
+    "off"): the software-pipelined executor whenever the program declares
+    a pipelined form ("auto"), always ("on": a program without one
+    raises), or never; the resolved boolean is ``pipelined``.
     """
 
     mesh: CavityMesh
@@ -123,12 +168,28 @@ class SegregatedSolver:
     device: str | torch.device = "cuda"
     # an optional shared PlanCache (repro_torch.core.controller)
     plan_cache: object | None = None
+    # software-pipelined stepping: "auto" | "on" | "off"
+    pipeline: str = "auto"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         resolve_backend(self.solver_backend, self.device)  # validates
         get_policy(self.precision)  # raises on an unknown policy name
-        get_program(self.program_name)  # raises on an unknown program
+        spec = get_program(self.program_name)  # raises on an unknown one
+        if self.pipeline not in PIPELINE_MODES:
+            raise ValueError(f"unknown pipeline mode {self.pipeline!r} "
+                             f"(choose auto|on|off)")
+        if self.pipeline == "on" and not spec.pipelined:
+            raise ValueError(
+                f"program {self.program_name!r} declares no pipelined form "
+                f"(steady programs cannot software-pipeline across an "
+                f"unknown outer trip count) — use pipeline='auto' or 'off'")
+        self.pipelined = (self.pipeline == "on"
+                          or (self.pipeline == "auto" and spec.pipelined))
+        # size-class serving: a PaddedCavityMesh carries ghost slabs whose
+        # activity follows the per-session n_active operand
+        self.padded = getattr(self.mesh, "n_parts_real", None) is not None
+        self.n_active = self.mesh.n_parts_active
         if self.update_schedule not in ("device_direct", "host_buffer"):
             raise ValueError(
                 f"unknown update schedule {self.update_schedule!r}")
@@ -145,10 +206,10 @@ class SegregatedSolver:
                         else update_host_buffer)
         self.plan_seconds = 0.0
         # without a cache, the plans per alpha; and per (program, alpha,
-        # backend, policy) the (plan, program, executor) binding, each
+        # backend, policy, pipelined) the (plan, executors) binding, each
         # built once
         self._plans: dict[int, RepartitionPlan] = {}
-        self._bindings: dict[tuple[str, int, str, str], tuple] = {}
+        self._bindings: dict[tuple, tuple] = {}
         # identity repartition for the momentum (fine-partition) matrix
         self.plan_mom: RepartitionPlan = self._plan_for(1)
         self.rebind_alpha(self.alpha)
@@ -192,16 +253,18 @@ class SegregatedSolver:
         plan = self._plan_for(alpha)
         self.alpha = alpha
         self.n_coarse = self.mesh.n_parts // alpha
-        key = (self.program_name, alpha, self.solver_backend, self.precision)
+        key = (self.program_name, alpha, self.solver_backend, self.precision,
+               self.pipelined)
         binding = self._bindings.get(key)
         if binding is None:
             # the program build reads plan_p and n_coarse off the solver
             self.plan_p = plan
             program = get_program(self.program_name).build(self)
-            binding = self._bindings[key] = (
-                self.plan_p, program, SerialExecutor(program),
-                InstrumentedExecutor(program))
-        self.plan_p, self.program, self._exec, self._instrumented = binding
+            binding = self._bindings[key] = (self.plan_p,
+                                             ProgramExecutors(program))
+        self.plan_p, self._exec = binding
+        self.program = self._exec.program
+        self._instrumented = self._exec.instrumented
 
     def _bands(self, plan: RepartitionPlan, diag, upper, lower, iface):
         """LDU buffers → repartitioned DIA bands via the update pattern."""
@@ -210,35 +273,36 @@ class SegregatedSolver:
         grouped = buffers.reshape(n_c, plan.alpha, plan.buffer_len)
         return self._update(plan, grouped)
 
-    def _solver_ops(self, plan: RepartitionPlan, bands, diag):
+    def _solver_ops(self, plan: RepartitionPlan, bands, diag,
+                    lanes: int | None = None):
         """Bind the (bands, diag) system into a SolverOps bundle under the
-        current backend and precision policy."""
+        current backend and precision policy; ``lanes``: the bands are a
+        cohort of that many lanes (:mod:`repro_torch.solvers.ops`)."""
         offsets = tuple(int(o) for o in plan.dia_offsets)
         policy = get_policy(self.precision)
         if resolve_backend(self.solver_backend, bands.device) == "fused":
             return fused_stacked_ops(bands, diag, offsets=offsets,
-                                     plane=plan.plane, policy=policy)
+                                     plane=plan.plane, policy=policy,
+                                     lanes=lanes)
+        n = 1 if lanes is None else lanes
+
+        def over(b):
+            def A(x):
+                return spmv_dia(b, x, offsets=offsets, plane=plan.plane,
+                                lanes=n)
+            return A
 
         if policy.refine:
             # inner sweep over downcast bands, outer f64 residual replay
             # over the originals
             bands_lo = bands.to(policy.storage_dtype)
             diag_lo = diag.to(policy.storage_dtype)
-
-            def A_lo(x):
-                return spmv_dia(bands_lo, x, offsets=offsets,
-                                plane=plan.plane)
-
-            def A_hi(x):
-                return spmv_dia(bands, x, offsets=offsets, plane=plan.plane)
-
-            return reference_ops(A_lo, jacobi_preconditioner(diag_lo),
-                                 policy=policy, matvec_hi=A_hi)
-
-        def A(x):
-            return spmv_dia(bands, x, offsets=offsets, plane=plan.plane)
-
-        return reference_ops(A, jacobi_preconditioner(diag))
+            return reference_ops(over(bands_lo),
+                                 jacobi_preconditioner(diag_lo),
+                                 policy=policy, matvec_hi=over(bands),
+                                 lanes=lanes)
+        return reference_ops(over(bands), jacobi_preconditioner(diag),
+                             lanes=lanes)
 
     def initial_state(self) -> PisoState:
         P, m, F = self.mesh.n_parts, self.mesh.n_cells, self.mesh.n_faces
@@ -258,20 +322,66 @@ class SegregatedSolver:
             phi_b=self.asm.boundary_flux(U),
         )
 
+    def _extra_value(self, key: str, filler: bool = False):
+        """One extra operand by name (``program.extra_keys``).
+
+        ``filler=True`` is the value a zero lane of a padded cohort carries
+        (``n_active=0`` deactivates every mask; the relaxation factors keep
+        their real values, harmless on a zeroed state)."""
+        if key == "n_active":
+            return 0 if filler else int(self.n_active)
+        if key in ("relax_u", "relax_p"):
+            return float(getattr(self, key))
+        raise KeyError(f"program asks for unknown extra operand {key!r}")
+
     def _extras(self) -> tuple:
         """The extra operands the bound program takes per step, by its
-        ``extra_keys`` (SIMPLE: the under-relaxation factors)."""
-        return tuple(float(getattr(self, k))
+        ``extra_keys``: a padded program's real slab count ``n_active``,
+        SIMPLE's under-relaxation factors."""
+        return tuple(self._extra_value(k) for k in self.program.extra_keys)
+
+    def _filler_extras(self) -> tuple:
+        """The extras a padded cohort's zero filler lane carries."""
+        return tuple(self._extra_value(k, filler=True)
                      for k in self.program.extra_keys)
+
+    def lane_extras(self, rows) -> tuple:
+        """Per-lane extras ``rows`` (one :meth:`_extras`-like tuple per
+        lane) as the cohort executors take them: one ``(B,)`` device tensor
+        per extra key (``n_active`` int32, the factors in the solver's
+        dtype)."""
+        out = []
+        for key, col in zip(self.program.extra_keys, zip(*rows)):
+            dtype = torch.int32 if key == "n_active" else self.dtype
+            out.append(torch.tensor(col, dtype=dtype, device=self.device))
+        return tuple(out)
+
+    @property
+    def _stepper(self):
+        """The advancing executor of this binding: the software-pipelined
+        one when the resolved ``pipeline`` knob says so, the serial one
+        otherwise (the same contract)."""
+        return self._exec.pipelined if self.pipelined else self._exec.serial
+
+    def batched_executor(self, batch: int):
+        """The cohort executor for ``batch`` stacked sessions of this
+        binding (pipelined when the knob resolved so), kept per cohort
+        size with the binding's other executors.  Any solver with an equal
+        binding on the same mesh computes the same cohort step, which is
+        what lets the serving engine step a cohort through one member's
+        executor."""
+        if self.pipelined:
+            return self._exec.batched_pipelined(batch)
+        return self._exec.batched(batch)
 
     def step(self, state: PisoState, dt: float):
         """One timestep (one outer iteration of a steady program);
         returns ``(state, stats)``."""
-        return self._exec.step(state, dt, *self._extras())
+        return self._stepper.step(state, dt, *self._extras())
 
     def run_steps(self, state: PisoState, dt: float, n_steps: int):
         """``n_steps`` timesteps; the stats fields stacked per step."""
-        return self._exec.run_steps(state, dt, n_steps, *self._extras())
+        return self._stepper.run_steps(state, dt, n_steps, *self._extras())
 
     def timed_step(self, state: PisoState, dt: float):
         """One step walked phase by phase with a timestamp at each phase
@@ -317,7 +427,8 @@ class SegregatedSolver:
         """
         state = self.initial_state() if state is None else state
         cap = self.max_outer if max_outer is None else max_outer
-        return self._exec.run_converged(state, dt, cap, *self._extras())
+        return self._exec.serial.run_converged(state, dt, cap,
+                                               *self._extras())
 
 
 @dataclasses.dataclass

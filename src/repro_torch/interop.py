@@ -4,8 +4,12 @@ The CFD system has no weights: what it carries is the field state
 ``PisoState(U, p, phi, phi_if, phi_b)`` and the repartition plan.  These
 helpers move both across as plain numpy arrays, so a state developed by
 another implementation (for example the JAX package, with ``np.asarray``
-on each leaf) can be stepped on by the port.  Nothing here imports that
-implementation.
+on each leaf) can be stepped on by the port.  A serving cohort's state is
+the same five fields with a leading lane axis (:func:`cohort_from_numpy`;
+:func:`state_to_numpy` takes it as it is), and a mesh travels as its
+defining fields (:func:`mesh_from_fields`, :func:`mesh_fields`; a
+size-class ``PaddedCavityMesh`` with its real part count).  Nothing here
+imports that implementation.
 """
 from __future__ import annotations
 
@@ -14,9 +18,13 @@ import torch
 
 from repro_torch.core.repartition import RepartitionPlan
 from repro_torch.env import DTYPE, resolve_device
+from repro_torch.fvm.mesh import CavityMesh, PaddedCavityMesh
 from repro_torch.fvm.piso import PisoState
 
-__all__ = ["state_from_numpy", "state_to_numpy", "plan_from_numpy"]
+__all__ = ["state_from_numpy", "state_to_numpy", "plan_from_numpy",
+           "cohort_from_numpy", "mesh_fields", "mesh_from_fields"]
+
+_MESH_FIELDS = ("nx", "ny", "nz", "n_parts", "h")
 
 _PLAN_INTS = ("alpha", "m_fine", "m_coarse", "plane", "buffer_len",
               "nnz_local", "nnz_localized", "nnz_halo")
@@ -38,6 +46,38 @@ def state_to_numpy(state: PisoState) -> dict:
     """``{field name: ndarray}`` of a :class:`PisoState` (copied to host)."""
     return {f: getattr(state, f).detach().cpu().numpy()
             for f in PisoState._fields}
+
+
+def cohort_from_numpy(arrays: dict, device="cuda",
+                      dtype: torch.dtype = DTYPE) -> PisoState:
+    """A cohort's stacked :class:`PisoState` from ``{field: ndarray}``,
+    every field with one leading lane axis of the same length."""
+    state = state_from_numpy(arrays, device=device, dtype=dtype)
+    lanes = {t.shape[0] for t in state}
+    if len(lanes) != 1 or state.U.dim() != 4:
+        raise ValueError(f"a cohort state needs one leading lane axis on "
+                         f"every field, got shapes "
+                         f"{[tuple(t.shape) for t in state]}")
+    return state
+
+
+def mesh_fields(mesh) -> dict:
+    """The fields that define a cavity mesh (``nx, ny, nz, n_parts, h``),
+    with ``n_parts_real`` for a size-class padded one."""
+    out = {k: getattr(mesh, k) for k in _MESH_FIELDS}
+    real = getattr(mesh, "n_parts_real", None)
+    if real is not None:
+        out["n_parts_real"] = real
+    return out
+
+
+def mesh_from_fields(fields: dict) -> CavityMesh:
+    """The port's mesh from :func:`mesh_fields`: a
+    :class:`PaddedCavityMesh` when ``n_parts_real`` is given."""
+    kw = {k: fields[k] for k in _MESH_FIELDS}
+    if fields.get("n_parts_real") is not None:
+        return PaddedCavityMesh(**kw, n_parts_real=int(fields["n_parts_real"]))
+    return CavityMesh(**kw)
 
 
 def plan_from_numpy(arrays: dict) -> RepartitionPlan:

@@ -42,26 +42,27 @@ _I64 = ctypes.c_longlong
 _SIGNATURES = {
     "spmv_dia": {
         "spmv_dia_launch": [ctypes.c_int, _P, _P, _P, _I64, _I64,
-                            ctypes.POINTER(_I64), ctypes.c_int, _P],
+                            ctypes.POINTER(_I64), ctypes.c_int, _I64, _P],
         "spmv_dia_guarded_launch": [ctypes.c_int, _P, _P, _P, _I64, _I64,
-                                    ctypes.POINTER(_I64), ctypes.c_int, _P,
-                                    _P, _P],
+                                    ctypes.POINTER(_I64), ctypes.c_int, _I64,
+                                    _P, _P, _P],
     },
     "krylov_fused": {
         "spmv_dot_launch": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64,
-                            ctypes.POINTER(_I64), ctypes.c_int, _P],
+                            ctypes.POINTER(_I64), ctypes.c_int, _I64, _I64,
+                            _P],
         "spmv_dot_guarded_launch": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64,
-                                    ctypes.POINTER(_I64), ctypes.c_int, _P,
-                                    _P, _P],
+                                    ctypes.POINTER(_I64), ctypes.c_int, _I64,
+                                    _I64, _P, _P, _P],
         "axpy_precond_launch": [ctypes.c_int] + [_P] * 11 + [_I64, _P],
         "axpy_precond_inplace_launch": [ctypes.c_int] + [_P] * 9
-        + [_I64, _P, _P, _P],
+        + [_I64, _I64, _I64, _P, _P, _P],
     },
     "krylov_loop": {
-        "cg_direction_launch": [ctypes.c_int, _P, _P, _P, _P, _I64, _P, _P,
-                                _P],
+        "cg_direction_launch": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64, _P,
+                                _P, _P],
         "cg_advance_launch": [ctypes.c_int] + [_P] * 7
-        + [ctypes.c_int, _P, _P],
+        + [ctypes.c_int, _I64, _P, _P],
     },
     "coef_update": {"coef_update_launch": [ctypes.c_int, _P, _P, _P, _I64,
                                            _I64, _I64, _P]},
@@ -146,12 +147,15 @@ def build_all() -> dict:
     return build_sources(CSRC, SOURCES, _build_dir())
 
 
-def load_library(path: Path, name: str) -> ctypes.CDLL:
+def load_library(path: Path, name: str,
+                 signatures: dict | None = None) -> ctypes.CDLL:
     """Load the library of ``<name>.cu`` at ``path``, its entry points typed
-    (an entry point the library lacks, as another checkout's older build
-    may, is left out)."""
+    by ``signatures`` (``{entry point: argtypes}``; default this tree's) —
+    an entry point the library lacks, as another checkout's older build
+    may, is left out."""
     lib = ctypes.CDLL(str(path))
-    for fn, argtypes in _SIGNATURES[name].items():
+    sigs = _SIGNATURES[name] if signatures is None else signatures
+    for fn, argtypes in sigs.items():
         if not hasattr(lib, fn):
             continue
         getattr(lib, fn).argtypes = argtypes

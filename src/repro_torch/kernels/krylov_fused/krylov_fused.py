@@ -29,7 +29,11 @@ one-element device flag: :func:`fused_matvec_dot_into` and
 latter updates ``x`` and ``r`` in place, through the kernel's in-place
 instantiation), with :func:`partials_buffers` for their scratch.  On the
 CPU they run the plain versions and store through
-:func:`~repro_torch.kernels.spmv_dia.spmv_dia.guarded_store`.
+:func:`~repro_torch.kernels.spmv_dia.spmv_dia.guarded_store`.  Given
+``lanes=B`` they run a cohort of ``B`` systems of one shape as one launch
+(:mod:`repro_torch.kernels.spmv_dia`): one flag, one ``alpha`` and one run
+of partials per lane (:func:`lane_partials`), each lane's dots the
+``torch.sum`` of its own partials — the call a lane alone makes.
 
 :func:`spmv_dot_cost` and :func:`fused_axpy_precond_cost` are the JAX
 package's byte and flop contracts, as ints.
@@ -41,7 +45,7 @@ import torch
 from repro_torch.kernels._build import dtype_code, load
 from repro_torch.kernels.device_counts import count_ptr
 from repro_torch.kernels.spmv_dia.spmv_dia import (
-    KERNEL_BLOCK_ROWS, _offsets_arg, check_flag, check_out,
+    KERNEL_BLOCK_ROWS, _offsets_arg, check_flag, check_lanes, check_out,
     check_stacked_operands, guarded_store, stream_ptr)
 from repro_torch.sparse.distributed import spmv_dia
 
@@ -50,7 +54,8 @@ __all__ = ["fused_matvec_dot", "fused_update_step", "spmv_dot_partials",
            "fused_update_step_into", "axpy_precond_inplace",
            "partials_buffers", "spmv_dot_plain", "spmv_dot_partials_plain",
            "fused_axpy_precond_plain", "axpy_precond_partials_plain",
-           "block_partials_plain", "check_axpy_operands", "spmv_dot_cost",
+           "block_partials_plain", "lane_block_partials", "lane_partials",
+           "lane_sums", "lane_vdot", "check_axpy_operands", "spmv_dot_cost",
            "fused_axpy_precond_cost", "DEFAULT_BLOCK_ROWS"]
 
 # the JAX kernels' row block, the default of the cost contracts below
@@ -95,14 +100,75 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
+def lane_vdot(a: torch.Tensor, b: torch.Tensor,
+              lanes: int | None = None) -> torch.Tensor:
+    """The dot of ``a`` and ``b``: 0-d for ``lanes=None``; else ``(lanes,)``,
+    lane ``l``'s the ``torch.dot`` of its own contiguous slices (the call
+    that lane makes alone)."""
+    if lanes is None:
+        return _vdot(a, b)
+    return torch.stack([torch.dot(u, v) for u, v in
+                        zip(a.reshape(lanes, -1), b.reshape(lanes, -1))])
+
+
+# the partial rows' stride in elements: 512 bytes or more apart, so the r.r
+# row (and each lane's run) is aligned as a buffer of its own would be and
+# torch.sum reduces it in the same order
+_PARTIAL_STRIDE = 128
+
+
+def lane_partials(n: int, lanes: int = 1) -> tuple[int, int]:
+    """``(partials per lane, elements from one lane's to the next)`` of a
+    reduction over ``n`` stacked rows in ``lanes`` lanes: one partial per
+    :data:`KERNEL_BLOCK_ROWS` rows of a lane; one lane packs them, a
+    cohort starts each lane's run at a multiple of 128."""
+    npl = -(-(n // lanes) // KERNEL_BLOCK_ROWS)
+    if lanes == 1:
+        return npl, npl
+    return npl, -(-npl // _PARTIAL_STRIDE) * _PARTIAL_STRIDE
+
+
+def lane_block_partials(v: torch.Tensor, lanes: int = 1) -> torch.Tensor:
+    """:func:`block_partials_plain` of each lane of ``v`` at its place in
+    the cohort layout of :func:`lane_partials` (zeros between runs)."""
+    if lanes == 1:
+        return block_partials_plain(v)
+    npl, stride = lane_partials(v.numel(), lanes)
+    out = v.new_zeros(lanes * stride)
+    for lane, vl in enumerate(v.reshape(lanes, -1)):
+        out[lane * stride:lane * stride + npl] = block_partials_plain(vl)
+    return out
+
+
+def lane_sums(part: torch.Tensor, npl: int, stride: int,
+              out: torch.Tensor) -> torch.Tensor:
+    """Each lane's partials summed into its element of ``out`` (one per
+    lane), lane by lane with ``torch.sum``: the reduction, on the same
+    length and alignment, that the lane makes alone."""
+    if out.numel() == 1 and part.numel() == npl:
+        # one system: its whole buffer, no views to make (the host's time
+        # per call is the wrapper's outside a captured graph)
+        torch.sum(part, dim=0, out=out if out.dim() == 0 else out.view(()))
+        return out
+    flat = out.view(-1)
+    for lane in range(flat.numel()):
+        torch.sum(part[lane * stride:lane * stride + npl], dim=0,
+                  out=flat[lane])
+    return out
+
+
 def spmv_dot_plain(bands: torch.Tensor, x: torch.Tensor, *,
                    offsets: tuple[int, ...], plane: int,
-                   accum_dtype: torch.dtype | None = None):
+                   accum_dtype: torch.dtype | None = None,
+                   lanes: int = 1):
     """``(A x, x . A x)`` over stacked parts; the dot consumes the
-    accum-width ``Ax`` before it is narrowed to the storage dtype."""
+    accum-width ``Ax`` before it is narrowed to the storage dtype.  With
+    ``lanes > 1`` the dot is one per lane, ``(lanes,)``."""
     acc = accum_dtype or bands.dtype
-    y = spmv_dia(bands.to(acc), x.to(acc), offsets=offsets, plane=plane)
-    return y.to(bands.dtype), _vdot(x.to(acc), y)
+    y = spmv_dia(bands.to(acc), x.to(acc), offsets=offsets, plane=plane,
+                 lanes=lanes)
+    return y.to(bands.dtype), lane_vdot(x.to(acc), y,
+                                        None if lanes == 1 else lanes)
 
 
 def block_partials_plain(v: torch.Tensor,
@@ -125,29 +191,44 @@ def block_partials_plain(v: torch.Tensor,
 
 def spmv_dot_partials_plain(bands: torch.Tensor, x: torch.Tensor, *,
                             offsets: tuple[int, ...], plane: int,
-                            accum_dtype: torch.dtype | None = None):
+                            accum_dtype: torch.dtype | None = None,
+                            lanes: int = 1):
     """``(A x, partials)`` as the kernel computes them, bit for bit: the
     SpMV at the accum width, narrowed, and :func:`block_partials_plain` of
-    ``x . A x``'s accum-width terms."""
+    ``x . A x``'s accum-width terms (per lane, laid out as
+    :func:`lane_partials` says)."""
     acc = accum_dtype or bands.dtype
     xa = x.to(acc)
-    y = spmv_dia(bands.to(acc), xa, offsets=offsets, plane=plane)
-    return y.to(bands.dtype), block_partials_plain(xa * y)
+    y = spmv_dia(bands.to(acc), xa, offsets=offsets, plane=plane,
+                 lanes=lanes)
+    return y.to(bands.dtype), lane_block_partials(xa * y, lanes)
 
 
 def _axpy_vectors(x, r, p, Ap, inv_diag, alpha):
-    a = alpha.to(x.dtype)
-    rn = r - a * Ap
-    return x + a * p, rn, rn * inv_diag
+    """``(x', r', z)`` with one ``alpha`` per lane (``alpha.numel()`` lanes,
+    each a contiguous run of the vectors)."""
+    lanes = alpha.numel()
+    a = alpha.to(x.dtype).reshape(lanes, 1)
+
+    def v(t):
+        return t.reshape(lanes, -1)
+
+    rn = v(r) - a * v(Ap)
+    xn = v(x) + a * v(p)
+    z = rn * v(inv_diag)
+    return xn.view(x.shape), rn.view(x.shape), z.view(x.shape)
 
 
 def fused_axpy_precond_plain(x, r, p, Ap, inv_diag, alpha,
                              accum_dtype: torch.dtype | None = None):
-    """``(x', r', z, r'.z, r'.r')`` over stacked parts."""
+    """``(x', r', z, r'.z, r'.r')`` over stacked parts; a 0-d ``alpha``
+    gives 0-d dots, a ``(B,)`` one the dots of ``B`` lanes."""
     acc = accum_dtype or x.dtype
     xn, rn, z = _axpy_vectors(x, r, p, Ap, inv_diag, alpha)
     rn_a = rn.to(acc)
-    return xn, rn, z, _vdot(rn_a, z.to(acc)), _vdot(rn_a, rn_a)
+    lanes = None if alpha.dim() == 0 else alpha.numel()
+    return (xn, rn, z, lane_vdot(rn_a, z.to(acc), lanes),
+            lane_vdot(rn_a, rn_a, lanes))
 
 
 def axpy_precond_partials_plain(x, r, p, Ap, inv_diag, alpha,
@@ -155,12 +236,14 @@ def axpy_precond_partials_plain(x, r, p, Ap, inv_diag, alpha,
     """``(x', r', z, rz_partials, rr_partials)`` as the kernel computes
     them, bit for bit: the plain version's vectors and
     :func:`block_partials_plain` of the accum-width ``r'.z`` and ``r'.r'``
-    terms."""
+    terms (per lane of ``alpha.numel()``, laid out as
+    :func:`lane_partials` says)."""
     acc = accum_dtype or x.dtype
+    lanes = alpha.numel()
     xn, rn, z = _axpy_vectors(x, r, p, Ap, inv_diag, alpha)
     rn_a = rn.to(acc)
-    return (xn, rn, z, block_partials_plain(rn_a * z.to(acc)),
-            block_partials_plain(rn_a * rn_a))
+    return (xn, rn, z, lane_block_partials(rn_a * z.to(acc), lanes),
+            lane_block_partials(rn_a * rn_a, lanes))
 
 
 # ---------------------------------------------------------------------------
@@ -171,16 +254,19 @@ def spmv_dot_partials(bands: torch.Tensor, x: torch.Tensor, *,
                       offsets: tuple[int, ...], plane: int,
                       accum_dtype: torch.dtype | None = None,
                       out: tuple | None = None,
-                      active: torch.Tensor | None = None):
+                      active: torch.Tensor | None = None,
+                      lanes: int = 1):
     """``(A x, partials)``: ``A x`` in the storage dtype and the ``x . A x``
-    partials, one per :data:`KERNEL_BLOCK_ROWS` flat rows, in the accum
-    dtype.  ``out``: the two buffers ``(y, partials)`` to write (default:
-    new ones); ``active``: the loop guard (needs ``out``).  On CPU
-    tensors: :func:`spmv_dot_partials_plain`."""
+    partials, one per :data:`KERNEL_BLOCK_ROWS` flat rows of a lane, in the
+    accum dtype (per lane as :func:`lane_partials` lays them out).
+    ``out``: the two buffers ``(y, partials)`` to write (default: new
+    ones); ``active``: the loop guard, one flag per lane (needs ``out``).
+    On CPU tensors: :func:`spmv_dot_partials_plain`."""
     if bands.device.type == "cpu" and x.device.type == "cpu":
         y, part = spmv_dot_partials_plain(bands, x, offsets=offsets,
                                           plane=plane,
-                                          accum_dtype=accum_dtype)
+                                          accum_dtype=accum_dtype,
+                                          lanes=lanes)
         if out is None:
             return guarded_store(None, y, active), part
         return (guarded_store(out[0], y, active),
@@ -189,7 +275,9 @@ def spmv_dot_partials(bands: torch.Tensor, x: torch.Tensor, *,
     check_stacked_operands(bands, x, offsets, plane)
     code = dtype_code(bands.dtype, acc)
     P, nb, m = bands.shape
-    n_part = -(-P * m // KERNEL_BLOCK_ROWS)
+    P_lane = check_lanes(P, lanes)
+    npl, stride = lane_partials(P * m, lanes)
+    n_part = lanes * stride if lanes > 1 else npl
     if out is None:
         if active is not None:
             raise ValueError("a guarded call needs out=")
@@ -204,12 +292,13 @@ def spmv_dot_partials(bands: torch.Tensor, x: torch.Tensor, *,
                              f"{acc} tensor on {x.device}")
     lib = load("krylov_fused")
     args = (code, bands.data_ptr(), x.data_ptr(), y.data_ptr(),
-            part.data_ptr(), P, m, _offsets_arg(offsets), nb)
+            part.data_ptr(), P_lane, m, _offsets_arg(offsets), nb, lanes,
+            stride)
     if active is None:
         rc = lib.spmv_dot_launch(*args, stream_ptr(x))
     else:
         rc = lib.spmv_dot_guarded_launch(
-            *args, check_flag(active, x.device),
+            *args, check_flag(active, x.device, lanes),
             count_ptr("spmv_dot", x.device, active), stream_ptr(x))
     if rc != 0:
         raise RuntimeError(f"spmv_dot kernel launch failed (code {rc})")
@@ -231,11 +320,12 @@ def fused_matvec_dot(bands: torch.Tensor, x: torch.Tensor, *,
     return y, part.sum()
 
 
-def check_axpy_operands(vecs, alpha: torch.Tensor) -> list[int]:
+def check_axpy_operands(vecs, alpha: torch.Tensor,
+                        lanes: int = 1) -> list[int]:
     """Raise unless the five vectors (one shape, dtype and CUDA device;
-    contiguous; 16-byte aligned, for the kernel's vector loads) and the
-    one-element ``alpha`` on their device suit the kernel; returns the
-    vectors' data pointers."""
+    contiguous; 16-byte aligned, for the kernel's vector loads) and
+    ``alpha``, one element per lane on their device, suit the kernel;
+    returns the vectors' data pointers."""
     x = vecs[0]
     dev, dtype, shape = x.device, x.dtype, x.shape
     for v in vecs[1:]:
@@ -247,16 +337,11 @@ def check_axpy_operands(vecs, alpha: torch.Tensor) -> list[int]:
     ptrs = [v.data_ptr() for v in vecs]
     if any(ptr % 16 for ptr in ptrs):
         raise ValueError("kernel operands must start on a 16-byte boundary")
-    if dev.type != "cuda" or alpha.device != dev or alpha.numel() != 1:
-        raise ValueError("alpha must be a one-element tensor on the vectors' "
-                         "CUDA device")
+    if (dev.type != "cuda" or alpha.device != dev
+            or alpha.numel() != lanes or not alpha.is_contiguous()):
+        raise ValueError(f"alpha must be a contiguous tensor of {lanes} "
+                         f"element(s) on the vectors' CUDA device")
     return ptrs
-
-
-# the partial rows' stride in elements: 512 bytes or more apart, so the r.r
-# row is aligned as a buffer of its own would be and torch.sum reduces it
-# in the same order
-_PARTIAL_STRIDE = 128
 
 
 def _axpy_launch(vecs, alpha: torch.Tensor, acc: torch.dtype):
@@ -321,70 +406,88 @@ def fused_update_step(x, r, p, Ap, inv_diag, alpha,
 # ---------------------------------------------------------------------------
 
 def partials_buffers(n: int, accum_dtype: torch.dtype,
-                     device: torch.device) -> dict:
-    """The reductions' scratch for ``n`` flat rows: ``{"dot": the SpMV+dot
-    partials, "rz", "rr": the axpy kernel's two partial rows}`` (the rows
-    two views of one buffer laid out as :func:`fused_update_step`'s)."""
-    nb = -(-n // KERNEL_BLOCK_ROWS)
-    stride = -(-nb // _PARTIAL_STRIDE) * _PARTIAL_STRIDE
-    axpy = torch.empty(2 * stride, dtype=accum_dtype, device=device)
-    return {"dot": torch.empty(nb, dtype=accum_dtype, device=device),
-            "rz": axpy[:nb], "rr": axpy[stride:stride + nb]}
+                     device: torch.device, lanes: int = 1) -> dict:
+    """The reductions' scratch for ``n`` flat rows in ``lanes`` lanes:
+    ``{"dot": the SpMV+dot partials, "rz", "rr": the axpy kernel's two
+    partial rows, "npl", "stride": partials per lane and the elements from
+    one lane's to the next}`` (:func:`lane_partials`; for one lane the
+    rows are two views of one buffer laid out as
+    :func:`fused_update_step`'s)."""
+    npl, stride = lane_partials(n, lanes)
+    if lanes == 1:
+        row = -(-npl // _PARTIAL_STRIDE) * _PARTIAL_STRIDE
+        axpy = torch.empty(2 * row, dtype=accum_dtype, device=device)
+        return {"dot": torch.empty(npl, dtype=accum_dtype, device=device),
+                "rz": axpy[:npl], "rr": axpy[row:row + npl], "npl": npl,
+                "stride": stride}
+    size = lanes * stride
+    axpy = torch.empty(2 * size, dtype=accum_dtype, device=device)
+    return {"dot": torch.empty(size, dtype=accum_dtype, device=device),
+            "rz": axpy[:size], "rr": axpy[size:], "npl": npl,
+            "stride": stride}
 
 
 def fused_matvec_dot_into(bands: torch.Tensor, x: torch.Tensor,
                           y: torch.Tensor, dot: torch.Tensor, part: dict, *,
                           offsets: tuple[int, ...], plane: int,
                           accum_dtype: torch.dtype | None = None,
-                          active: torch.Tensor | None = None) -> None:
-    """:func:`fused_matvec_dot` into ``y`` and the 0-d ``dot`` (accum
-    dtype), through the partials of ``part`` (:func:`partials_buffers`),
-    under the loop guard ``active``.  On a CUDA device the sum of the
-    partials is ``torch.sum`` into ``dot``, unguarded: it only rewrites
-    scratch."""
+                          active: torch.Tensor | None = None,
+                          lanes: int = 1) -> None:
+    """:func:`fused_matvec_dot` into ``y`` and ``dot`` (accum dtype, one
+    element per lane), through the partials of ``part``
+    (:func:`partials_buffers`), under the loop guard ``active``.  On a
+    CUDA device each lane's sum of its partials is ``torch.sum`` into its
+    element of ``dot``, unguarded: it only rewrites scratch."""
     if bands.device.type == "cpu" and x.device.type == "cpu":
         yy, d = spmv_dot_plain(bands, x, offsets=offsets, plane=plane,
-                               accum_dtype=accum_dtype)
+                               accum_dtype=accum_dtype, lanes=lanes)
         guarded_store(y, yy, active)
         guarded_store(dot, d, active)
         return
     spmv_dot_partials(bands, x, offsets=offsets, plane=plane,
                       accum_dtype=accum_dtype, out=(y, part["dot"]),
-                      active=active)
-    torch.sum(part["dot"], dim=0, out=dot)
+                      active=active, lanes=lanes)
+    lane_sums(part["dot"], part["npl"], part["stride"], dot)
 
 
 def axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, rz_part, rr_part,
                          accum_dtype: torch.dtype | None = None,
-                         active: torch.Tensor | None = None) -> None:
+                         active: torch.Tensor | None = None,
+                         lanes: int = 1) -> None:
     """``x <- x + alpha p`` and ``r <- r - alpha Ap`` in place, ``z <- r' *
     inv_diag`` and the ``r'.z``, ``r'.r'`` partials into ``rz_part``,
-    ``rr_part``; nothing is written while the guard ``active`` is False.
-    On CPU tensors: :func:`axpy_precond_partials_plain`, stored through
+    ``rr_part`` (per lane as :func:`lane_partials` lays them out); ``alpha``
+    and the guard ``active`` hold one element per lane, and nothing of a
+    lane is written while its flag is False.  On CPU tensors:
+    :func:`axpy_precond_partials_plain`, stored through
     :func:`guarded_store`."""
     vecs = (x, r, p, Ap, inv_diag)
     acc = accum_dtype or x.dtype
     if _on_cpu(vecs, alpha):
-        new = axpy_precond_partials_plain(*vecs, alpha, accum_dtype=acc)
+        new = axpy_precond_partials_plain(*vecs, alpha.reshape(lanes),
+                                          accum_dtype=acc)
         for dst, val in zip((x, r, z, rz_part, rr_part), new):
             guarded_store(dst, val, active)
         return
     code = dtype_code(x.dtype, acc)
-    ptrs = check_axpy_operands(vecs, alpha)
+    ptrs = check_axpy_operands(vecs, alpha, lanes)
     check_out(z, x)
     if z.data_ptr() % 16:
         raise ValueError("kernel operands must start on a 16-byte boundary")
-    nb = -(-x.numel() // KERNEL_BLOCK_ROWS)
+    n = check_lanes(x.numel(), lanes, x.element_size())
+    npl, stride = lane_partials(x.numel(), lanes)
+    size = lanes * stride if lanes > 1 else npl
     for part in (rz_part, rr_part):
-        if (part.shape != (nb,) or part.dtype != acc
+        if (part.shape != (size,) or part.dtype != acc
                 or part.device != x.device or not part.is_contiguous()):
-            raise ValueError(f"partials must be contiguous ({nb},) {acc} "
+            raise ValueError(f"partials must be contiguous ({size},) {acc} "
                              f"tensors on {x.device}")
     if alpha.dtype != acc:
         raise TypeError(f"alpha must be {acc}, got {alpha.dtype}")
     rc = load("krylov_fused").axpy_precond_inplace_launch(
         code, *ptrs, alpha.data_ptr(), z.data_ptr(), rz_part.data_ptr(),
-        rr_part.data_ptr(), x.numel(), check_flag(active, x.device),
+        rr_part.data_ptr(), n, lanes, stride,
+        check_flag(active, x.device, lanes),
         count_ptr("axpy_precond", x.device, active), stream_ptr(x))
     if rc != 0:
         raise RuntimeError(f"axpy_precond (in place) kernel launch failed "
@@ -395,22 +498,26 @@ def axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, rz_part, rr_part,
 
 def fused_update_step_into(x, r, p, Ap, inv_diag, alpha, z, rz, rr,
                            part: dict, accum_dtype: torch.dtype | None = None,
-                           active: torch.Tensor | None = None) -> None:
+                           active: torch.Tensor | None = None,
+                           lanes: int = 1) -> None:
     """:func:`fused_update_step` with ``x`` and ``r`` updated in place,
-    ``z`` and the 0-d dots ``rz``, ``rr`` (accum dtype) written, through
-    the partials of ``part`` (:func:`partials_buffers`), under the loop
-    guard ``active``.  On a CUDA device the two sums of the partials are
-    ``torch.sum`` into ``rz`` and ``rr``, unguarded (scratch)."""
+    ``z`` and the dots ``rz``, ``rr`` (accum dtype, one element per lane)
+    written, through the partials of ``part`` (:func:`partials_buffers`),
+    under the loop guard ``active``.  On a CUDA device each lane's two sums
+    of its partials are ``torch.sum`` into ``rz`` and ``rr``, unguarded
+    (scratch)."""
     vecs = (x, r, p, Ap, inv_diag)
     if _on_cpu(vecs, alpha):
-        new = fused_axpy_precond_plain(*vecs, alpha, accum_dtype=accum_dtype)
+        new = fused_axpy_precond_plain(*vecs, alpha.reshape(lanes),
+                                       accum_dtype=accum_dtype)
         for dst, val in zip((x, r, z, rz, rr), new):
             guarded_store(dst, val, active)
         return
     axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, part["rz"],
-                         part["rr"], accum_dtype=accum_dtype, active=active)
-    torch.sum(part["rz"], dim=0, out=rz)
-    torch.sum(part["rr"], dim=0, out=rr)
+                         part["rr"], accum_dtype=accum_dtype, active=active,
+                         lanes=lanes)
+    lane_sums(part["rz"], part["npl"], part["stride"], rz)
+    lane_sums(part["rr"], part["npl"], part["stride"], rr)
 
 
 fused_matvec_dot.launches = 0

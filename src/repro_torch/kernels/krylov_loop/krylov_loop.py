@@ -20,6 +20,11 @@ nothing while it is False; a guarded launch counts itself on the device
 take for CPU tensors only and the plain backend
 (:func:`~repro_torch.solvers.ops.reference_ops`) takes on every device: a
 select on ``active``, so it too runs inside a captured graph.
+
+**Lanes.**  A cohort of ``B`` systems of one shape (one contiguous run of
+``p`` and ``z`` each) runs as one launch: the scalars and the flag hold one
+element per lane, ``cg_direction`` runs ``B`` block rows and
+``cg_advance`` ``B`` threads, each lane's work exactly the single system's.
 """
 from __future__ import annotations
 
@@ -27,8 +32,8 @@ import torch
 
 from repro_torch.kernels._build import dtype_code, load
 from repro_torch.kernels.device_counts import count_ptr
-from repro_torch.kernels.spmv_dia.spmv_dia import (check_flag, guarded_store,
-                                                   stream_ptr)
+from repro_torch.kernels.spmv_dia.spmv_dia import (check_flag, check_lanes,
+                                                   guarded_store, stream_ptr)
 
 __all__ = ["cg_direction", "cg_direction_plain", "cg_advance",
            "cg_advance_plain", "cg_direction_cost", "cg_advance_cost"]
@@ -52,9 +57,12 @@ def cg_direction_plain(p: torch.Tensor, z: torch.Tensor,
                        gamma_new: torch.Tensor, gamma: torch.Tensor,
                        active: torch.Tensor | None = None) -> torch.Tensor:
     """``p <- z + (gamma_new / gamma).to(z.dtype) * p`` in place (under
-    the guard ``active``); returns ``p``."""
-    beta = gamma_new / gamma
-    return guarded_store(p, z + beta.to(z.dtype) * p, active)
+    the guard ``active``), one ``beta`` per lane (``gamma.numel()`` lanes);
+    returns ``p``."""
+    lanes = gamma.numel()
+    beta = (gamma_new / gamma).reshape(lanes, 1)
+    new = z.reshape(lanes, -1) + beta.to(z.dtype) * p.reshape(lanes, -1)
+    return guarded_store(p, new.view(p.shape), active)
 
 
 def cg_direction(p: torch.Tensor, z: torch.Tensor, gamma_new: torch.Tensor,
@@ -62,8 +70,9 @@ def cg_direction(p: torch.Tensor, z: torch.Tensor, gamma_new: torch.Tensor,
                  active: torch.Tensor | None = None) -> torch.Tensor:
     """The CG direction update in place: ``p`` and ``z`` one shape and
     storage dtype, contiguous and 16-byte aligned; ``gamma_new`` and
-    ``gamma`` 0-d in the accum dtype on their device.  On CPU tensors:
-    :func:`cg_direction_plain`."""
+    ``gamma`` in the accum dtype on their device, one element per lane
+    (``gamma.numel()`` lanes, each a contiguous run of ``p`` and ``z``, its
+    own guard flag).  On CPU tensors: :func:`cg_direction_plain`."""
     if p.device.type == "cpu" and z.device.type == "cpu":
         return cg_direction_plain(p, z, gamma_new, gamma, active)
     if (z.shape != p.shape or z.dtype != p.dtype or z.device != p.device
@@ -73,14 +82,17 @@ def cg_direction(p: torch.Tensor, z: torch.Tensor, gamma_new: torch.Tensor,
     if p.data_ptr() % 16 or z.data_ptr() % 16:
         raise ValueError("kernel operands must start on a 16-byte boundary")
     acc = gamma.dtype
+    lanes = gamma.numel()
     for s in (gamma_new, gamma):
-        if s.dtype != acc or s.numel() != 1 or s.device != p.device:
-            raise ValueError("gamma_new and gamma must be one-element "
-                             "tensors of one dtype on p's device")
+        if (s.dtype != acc or s.numel() != lanes or s.device != p.device
+                or not s.is_contiguous()):
+            raise ValueError("gamma_new and gamma must be contiguous tensors "
+                             "of one dtype and size on p's device")
+    n = check_lanes(p.numel(), lanes, p.element_size())
     rc = load("krylov_loop").cg_direction_launch(
         dtype_code(p.dtype, acc), p.data_ptr(), z.data_ptr(),
-        gamma_new.data_ptr(), gamma.data_ptr(), p.numel(),
-        check_flag(active, p.device),
+        gamma_new.data_ptr(), gamma.data_ptr(), n, lanes,
+        check_flag(active, p.device, lanes),
         count_ptr("cg_direction", p.device, active), stream_ptr(p))
     if rc != 0:
         raise RuntimeError(f"cg_direction kernel launch failed (code {rc})")
@@ -93,7 +105,8 @@ def cg_advance_plain(gamma, gamma_new, rr, rr_new, k, active, thr,
                      maxiter: int) -> None:
     """The loop guard in plain PyTorch: while ``active``, ``gamma <-
     gamma_new``, ``rr <- rr_new``, ``k += 1`` and ``active <- (rr > thr) &
-    (k < maxiter)``; nothing changes once ``active`` is False."""
+    (k < maxiter)``; nothing changes once ``active`` is False.  Every
+    operand holds one element per lane, element-wise."""
     torch.where(active, gamma_new, gamma, out=gamma)
     torch.where(active, rr_new, rr, out=rr)
     k.add_(active.to(k.dtype))
@@ -103,24 +116,29 @@ def cg_advance_plain(gamma, gamma_new, rr, rr_new, k, active, thr,
 def cg_advance(gamma, gamma_new, rr, rr_new, k, active, thr,
                maxiter: int) -> None:
     """The CG loop's carry update and condition on the device (see the
-    module doc): the five scalars one-element tensors of the accum dtype,
-    ``k`` int32, ``active`` bool, all on one device.  On CPU tensors:
+    module doc): the five scalars tensors of the accum dtype, ``k`` int32,
+    ``active`` bool, all on one device and contiguous, one element per lane
+    (``active.numel()`` lanes, at most 1024).  On CPU tensors:
     :func:`cg_advance_plain`."""
     scalars = (gamma, gamma_new, rr, rr_new, thr)
     if active.device.type == "cpu":
         return cg_advance_plain(gamma, gamma_new, rr, rr_new, k, active,
                                 thr, maxiter)
     acc = gamma.dtype
-    if any(s.dtype != acc or s.numel() != 1 or s.device != active.device
-           for s in scalars):
+    lanes = active.numel()
+    if any(s.dtype != acc or s.numel() != lanes or s.device != active.device
+           or not s.is_contiguous() for s in scalars):
         raise ValueError("gamma, gamma_new, rr, rr_new and thr must be "
-                         "one-element tensors of one dtype on one device")
-    if k.dtype != torch.int32 or k.numel() != 1 or k.device != active.device:
-        raise ValueError("k must be a one-element int32 tensor")
+                         "contiguous tensors of one dtype on one device, "
+                         "one element per lane")
+    if (k.dtype != torch.int32 or k.numel() != lanes
+            or k.device != active.device or not k.is_contiguous()):
+        raise ValueError("k must be an int32 tensor, one element per lane")
     rc = load("krylov_loop").cg_advance_launch(
         dtype_code(acc, acc), gamma.data_ptr(), gamma_new.data_ptr(),
         rr.data_ptr(), rr_new.data_ptr(), k.data_ptr(),
-        check_flag(active, active.device), thr.data_ptr(), int(maxiter),
+        check_flag(active, active.device, lanes), thr.data_ptr(),
+        int(maxiter), lanes,
         count_ptr("cg_advance", active.device, active), stream_ptr(active))
     if rc != 0:
         raise RuntimeError(f"cg_advance kernel launch failed (code {rc})")

@@ -13,6 +13,12 @@ device flag, :mod:`repro_torch.solvers.device_loop`) the kernel writes
 nothing while the flag is False and counts its own launch on the device
 (:mod:`repro_torch.kernels.device_counts`) while it is True; the plain
 versions model that guard with :func:`guarded_store`.
+
+**Lanes.**  ``lanes=B`` runs a cohort of ``B`` systems of one shape, their
+parts stacked one lane after another, as one launch (``gridDim.y = B``):
+each lane is computed exactly as a launch on it alone would compute it,
+its halo is zero at the lane's borders, and under a guard ``active``
+holds one flag per lane.  ``lanes=1`` is the single-system launch.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from repro_torch.sparse.distributed import spmv_dia as spmv_dia_plain
 
 __all__ = ["spmv_dia_stacked", "spmv_dia_plain", "spmv_dia_cost",
            "KERNEL_BLOCK_ROWS", "check_stacked_operands", "stream_ptr",
-           "check_out", "check_flag", "guarded_store"]
+           "check_out", "check_flag", "guarded_store", "check_lanes"]
 
 # rows of one reduction partial (csrc/common.cuh kThreads): the reductions
 # of the krylov_fused kernels write one partial per this many flat rows
@@ -45,6 +51,19 @@ def spmv_dia_cost(nb: int, n_rows: int, itemsize: int = 8) -> dict:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_lanes(n_rows: int, lanes: int, itemsize: int = 0) -> int:
+    """Rows per lane of ``n_rows`` split into ``lanes`` lanes; raises unless
+    they split evenly and (with ``itemsize``) every lane starts on a
+    16-byte boundary, for the kernels' vector loads."""
+    if lanes < 1 or n_rows % lanes:
+        raise ValueError(f"{n_rows} rows do not split into {lanes} lanes")
+    per = n_rows // lanes
+    if lanes > 1 and itemsize and (per * itemsize) % 16:
+        raise ValueError(f"a lane of {per} rows does not start on a 16-byte "
+                         f"boundary")
+    return per
 
 
 def check_stacked_operands(bands: torch.Tensor, x: torch.Tensor,
@@ -81,15 +100,16 @@ def check_out(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def check_flag(active: torch.Tensor | None, device: torch.device) -> int:
-    """The data pointer of a loop guard (0 for None): a one-element
-    ``torch.bool`` tensor on ``device``."""
+def check_flag(active: torch.Tensor | None, device: torch.device,
+               lanes: int = 1) -> int:
+    """The data pointer of a loop guard (0 for None): a contiguous
+    ``torch.bool`` tensor of one flag per lane on ``device``."""
     if active is None:
         return 0
-    if (active.dtype != torch.bool or active.numel() != 1
-            or active.device != device):
-        raise ValueError(f"active must be a one-element bool tensor on "
-                         f"{device}")
+    if (active.dtype != torch.bool or active.numel() != lanes
+            or active.device != device or not active.is_contiguous()):
+        raise ValueError(f"active must be a contiguous bool tensor of "
+                         f"{lanes} flag(s) on {device}")
     return active.data_ptr()
 
 
@@ -97,16 +117,20 @@ def guarded_store(out: torch.Tensor | None, new: torch.Tensor,
                   active: torch.Tensor | None) -> torch.Tensor:
     """A plain version's result ``new`` stored as its kernel stores it:
     returned as it is without ``out``; copied into ``out``; and under a
-    loop guard ``active`` written where the flag is True and ``out`` left
-    as it is where it is False (a select, so the same code runs inside a
-    captured CUDA graph)."""
+    loop guard ``active`` (one flag per lane; ``out`` split evenly into
+    that many lanes) written in the lanes whose flag is True and left as
+    it is in the others (a select, so the same code runs inside a captured
+    CUDA graph)."""
     if out is None:
         if active is not None:
             raise ValueError("a guarded call needs out=")
         return new
     if active is None:
         return out.copy_(new)
-    return torch.where(active, new, out, out=out)
+    lanes = active.numel()
+    o = out.view(lanes, -1)
+    torch.where(active.view(lanes, 1), new.reshape(o.shape), o, out=o)
+    return out
 
 
 def _offsets_arg(offsets) -> ctypes.Array:
@@ -117,32 +141,36 @@ def spmv_dia_stacked(bands: torch.Tensor, x: torch.Tensor, *,
                      offsets: tuple[int, ...], plane: int,
                      accum_dtype: torch.dtype | None = None,
                      out: torch.Tensor | None = None,
-                     active: torch.Tensor | None = None) -> torch.Tensor:
+                     active: torch.Tensor | None = None,
+                     lanes: int = 1) -> torch.Tensor:
     """Stacked SpMV: bands (P, nb, m), x (P, m) → y (P, m), storage dtype.
 
     Accumulates at ``accum_dtype`` (``None``: the storage dtype).  ``out``:
-    the buffer to write (default: a new one); ``active``: the loop guard
-    (needs ``out``).
+    the buffer to write (default: a new one); ``active``: the loop guard,
+    one flag per lane (needs ``out``); ``lanes``: the parts are that many
+    lanes of ``P / lanes`` parts (see the module doc).
     """
     if bands.device.type == "cpu" and x.device.type == "cpu":
         return guarded_store(out, spmv_dia_plain(bands, x, offsets=offsets,
                                                  plane=plane,
-                                                 accum_dtype=accum_dtype),
+                                                 accum_dtype=accum_dtype,
+                                                 lanes=lanes),
                              active)
     check_stacked_operands(bands, x, offsets, plane)
     code = dtype_code(bands.dtype, accum_dtype or bands.dtype)
     P, nb, m = bands.shape
+    P_lane = check_lanes(P, lanes)
     y = torch.empty_like(x) if out is None else check_out(out, x)
     lib = load("spmv_dia")
-    args = (code, bands.data_ptr(), x.data_ptr(), y.data_ptr(), P, m,
-            _offsets_arg(offsets), nb)
+    args = (code, bands.data_ptr(), x.data_ptr(), y.data_ptr(), P_lane, m,
+            _offsets_arg(offsets), nb, lanes)
     if active is None:
         rc = lib.spmv_dia_launch(*args, stream_ptr(x))
     else:
         if out is None:
             raise ValueError("a guarded call needs out=")
         rc = lib.spmv_dia_guarded_launch(
-            *args, check_flag(active, x.device),
+            *args, check_flag(active, x.device, lanes),
             count_ptr("spmv_dia", x.device, active), stream_ptr(x))
     if rc != 0:
         raise RuntimeError(f"spmv_dia kernel launch failed (code {rc})")

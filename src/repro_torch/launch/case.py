@@ -21,9 +21,12 @@ refuses it).  ``--adaptive`` (transient programs) closes the loop
 instrumented sample (``timed_step``) that feeds the repartitioning
 controller, which recalibrates the cost model online and rebinds alpha
 when the predicted gain clears ``--hysteresis``; plans come from one
-shared plan cache.  ``--device`` defaults to ``cuda``; ``--device cpu``
-runs the same path on the CPU.  ``python -m repro_torch.launch.cavity`` is
-the same launcher.
+shared plan cache.  ``--pipeline`` (``auto``, as in the JAX launcher)
+steps a program that declares a pipelined form (PISO) through the
+software-pipelined executor (``on`` demands it, ``off`` steps serially);
+the controller scores alphas with the matching objective.  ``--device``
+defaults to ``cuda``; ``--device cpu`` runs the same path on the CPU.
+``python -m repro_torch.launch.cavity`` is the same launcher.
 """
 from __future__ import annotations
 
@@ -42,8 +45,8 @@ from repro_torch.fvm.piso import (SOLVERS, PisoState, SegregatedSolver,
 from repro_torch.fvm.step_program import get_program, roll_schedule
 from repro_torch.solvers.ops import resolve_backend
 
-__all__ = ["build_parser", "build_solver", "cost_model", "run_transient",
-           "run_adaptive", "run_steady", "main"]
+__all__ = ["build_parser", "build_solver", "cost_model", "pipelined",
+           "run_transient", "run_adaptive", "run_steady", "main"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -95,8 +98,19 @@ def build_parser() -> argparse.ArgumentParser:
                          "run_steps call — the whole run in non-adaptive "
                          "mode, and the stretches between instrumented "
                          "samples in adaptive mode")
+    ap.add_argument("--pipeline", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="software-pipelined stepping (auto: whenever the "
+                         "program declares a pipelined form; off: serial)")
     ap.add_argument("--device", default="cuda", help="cuda or cpu")
     return ap
+
+
+def pipelined(args) -> bool:
+    """What ``--pipeline`` resolves to for ``--program`` (the solver
+    resolves it the same way, and raises for ``on`` without a form)."""
+    return args.pipeline == "on" or (args.pipeline == "auto"
+                                     and get_program(args.program).pipelined)
 
 
 def cost_model(args) -> CostModel:
@@ -125,7 +139,8 @@ def build_solver(args, alpha: int | None = None,
                        p_maxiter=args.p_maxiter,
                        update_schedule=args.schedule,
                        solver_backend=args.solver_backend,
-                       device=args.device, plan_cache=plan_cache)
+                       pipeline=args.pipeline, device=args.device,
+                       plan_cache=plan_cache)
 
 
 def _sync(device: torch.device) -> None:
@@ -149,9 +164,11 @@ def run_transient(solver: SegregatedSolver, dt: float, n_steps: int,
                   scan_steps: int = 1
                   ) -> tuple[PisoState, StepStats, list[float]]:
     """Advance ``n_steps`` in windows of at most ``scan_steps`` steps
-    (``roll_schedule``, as the JAX launcher does); returns the final
-    state, the per-step stacked stats (on the solver's device) and each
-    window's wall seconds (synchronised; one per step by default)."""
+    (``roll_schedule``, as the JAX launcher does) through the solver's
+    stepper (pipelined or serial, as its ``pipeline`` knob resolved);
+    returns the final state, the per-step stacked stats (on the solver's
+    device) and each window's wall seconds (synchronised; one per step by
+    default)."""
     state = solver.initial_state() if state is None else state
     history, walls = [], []
     step = 0
@@ -159,7 +176,8 @@ def run_transient(solver: SegregatedSolver, dt: float, n_steps: int,
                                         cap=max(scan_steps, 1)):
         _sync(solver.device)
         t0 = time.perf_counter()
-        state, stats = solver.run_steps(state, dt, chunk)
+        state, stats = solver._stepper.run_steps(state, dt, chunk,
+                                                 *solver._extras())
         _sync(solver.device)
         walls.append(time.perf_counter() - t0)
         history.append(stats)
@@ -222,7 +240,8 @@ def run_adaptive(solver: SegregatedSolver,
                 f"so {sample.solve*1e3:.1f}]")
             stats = type(stats)(*(t.unsqueeze(0) for t in stats))
         else:
-            state, stats = solver.run_steps(state, dt, chunk)
+            state, stats = solver._stepper.run_steps(state, dt, chunk,
+                                                     *solver._extras())
             host = _to_host(stats)
             log(f"steps {step}..{step + chunk - 1}: "
                 f"alpha={solver.alpha} rolled x{chunk} "
@@ -285,7 +304,7 @@ def main(argv=None):
                                     alpha0=alpha, config=cfg,
                                     cache=PlanCache(), fixed_fine=True,
                                     solver_backend=args.solver_backend,
-                                    pipelined=False)
+                                    pipelined=pipelined(args))
         alpha = ctl.alpha
     elif alpha is None:
         if args.adaptive:
@@ -312,7 +331,8 @@ def main(argv=None):
     print(f"{args.steps} steps in {sum(walls):.2f} s "
           f"({mesh.n_cells_global} cells, alpha={solver.alpha}, "
           f"solver_backend={args.solver_backend}, device={solver.device}, "
-          f"scan_steps={max(args.scan_steps, 1)})")
+          f"scan_steps={max(args.scan_steps, 1)}, "
+          f"pipelined={solver.pipelined})")
     return state, stats
 
 

@@ -1,0 +1,474 @@
+"""Multi-tenant CFD serving: many simulations, one card.
+
+The port of the CFD half of the JAX package's ``serving/engine.py``,
+unsupervised: :class:`SimulationEngine` hosts many concurrent segregated
+simulations ("solver-as-a-service") — any registered ``(program, case)``
+pair, transient PISO or steady SIMPLE — each with its **own**
+:class:`~repro_torch.core.controller.RepartitionController` (per-session
+calibration, so tenants adapt their alpha independently) while all
+sessions share one :class:`~repro_torch.core.controller.PlanCache` (plans
+are immutable and keyed by mesh fingerprint).
+
+Sessions advance one at a time (:meth:`SimulationEngine.step_session`) or
+— the throughput path — in **cohorts** (:meth:`SimulationEngine.step_all`):
+open sessions whose step is interchangeable (same mesh structure, alpha,
+backend, viscosity, program, case, pipelining, precision, ...) are stacked
+along a leading session axis and advance through one batched executor per
+window (:class:`~repro_torch.fvm.step_program.BatchedExecutor`), one set of
+launches per phase for the whole cohort instead of one per tenant: the
+batching cure for a card that one small tenant leaves mostly idle.
+
+Supervision (health state machine, rollback, precision fallback,
+snapshots) is not part of this module yet: ``supervise=True`` raises, and
+the cohort key's quarantine token is always None.  The LM half of the JAX
+module (``serve_step``, ``generate``) is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.core.controller import (ControllerConfig, PlanCache,
+                                         RepartitionController)
+from repro_torch.core.cost_model import H100, CostModel
+
+__all__ = ["SimulationSession", "SimulationEngine"]
+
+
+@dataclasses.dataclass
+class SimulationSession:
+    """One tenant: a solver, its private controller, and its flow state."""
+
+    sid: str
+    solver: object                      # a SegregatedSolver
+    controller: RepartitionController
+    state: object                       # PisoState
+    dt: float
+    mesh_fp: str = ""                   # structural mesh hash (cohort key)
+    adaptive: bool = True
+    steps_done: int = 0
+    # serving-policy metadata (consumed by serving.scheduler): priority
+    # class and, for deadline tenants, the per-session-step target
+    priority: str = "bulk"
+    deadline_ms: float | None = None
+    # per-session-step wall latencies (seconds), appended when the engine
+    # runs with track_latency=True; stats() folds them into p50/p99
+    latency_samples: list = dataclasses.field(default_factory=list)
+
+
+def _last(stats, index=(-1,)):
+    """One step's stats out of stacked stats (``index`` into every leaf)."""
+    return type(stats)(*(t[index] for t in stats))
+
+
+class SimulationEngine:
+    """Concurrent simulations with independent adaptive repartitioning.
+
+    Controller state is strictly per session; the :class:`PlanCache` is
+    shared.  ``device`` is where every session runs (``"cuda"`` by default;
+    ``"cpu"`` only when asked for).  ``scan_window`` caps the steps of one
+    window; ``lane_classes`` pads every padded (size-class) cohort's batch
+    to the next power of two with zero filler lanes (``n_active=0``), so a
+    cohort whose occupancy drifts reuses one of a few batch shapes;
+    ``track_latency`` books wall time per session-step (synchronising the
+    card after each dispatch) on ``clock``.
+    """
+
+    def __init__(self, plan_cache: PlanCache | None = None,
+                 config: ControllerConfig | None = None,
+                 scan_window: int = 8, lane_classes: bool = False,
+                 track_latency: bool = False, clock=None,
+                 supervise: bool = False,
+                 device: str | torch.device = "cuda"):
+        if supervise:
+            raise NotImplementedError(
+                "supervised serving (health state machine, rollback, "
+                "precision fallback, snapshots) is ROADMAP A7b, the next "
+                "slice of the port")
+        from repro_torch.env import resolve_device
+
+        self.device = resolve_device(device)
+        # explicit None test: an empty PlanCache is falsy (it has __len__)
+        self.plan_cache = PlanCache() if plan_cache is None else plan_cache
+        # per-instance default: a shared ControllerConfig() default would
+        # alias every engine built without a config to one object
+        self.config = ControllerConfig() if config is None else config
+        if scan_window < 1:
+            raise ValueError("scan_window must be >= 1")
+        self.scan_window = scan_window
+        self.lane_classes = lane_classes
+        self.track_latency = track_latency
+        self._clock = time.perf_counter if clock is None else clock
+        self.sessions: dict[str, SimulationSession] = {}
+        # dispatch accounting: "solo" counts single-session windows,
+        # "cohort" one per batched cohort window
+        self.counters = {"solo_dispatches": 0, "cohort_dispatches": 0,
+                         "sample_steps": 0, "rolled_windows": 0,
+                         "scheduling_rounds": 0}
+        # which executor served each window (sample steps always run the
+        # serial instrumented schedule and are not split here)
+        self.dispatch_paths = {"solo": 0, "cohort": 0,
+                               "pipelined_solo": 0, "pipelined_cohort": 0}
+
+    def open_session(self, sid: str, mesh, *, dt: float,
+                     alpha0: int | None = None, nu: float = 0.01,
+                     model: CostModel | None = None,
+                     adaptive: bool = True,
+                     solve_mode: str = "stacked",
+                     solver_backend: str = "auto",
+                     pad_to_class: int | None = None,
+                     priority: str = "bulk",
+                     deadline_ms: float | None = None,
+                     program: str = "piso",
+                     case: str = "cavity",
+                     pipeline: str = "auto",
+                     precision: str = "f64",
+                     **solver_kw) -> SimulationSession:
+        """Admit a simulation; its controller starts from the cost model's
+        static pick (``alpha0=None``) exactly like the non-adaptive
+        launcher, then departs from it as measurements arrive.
+
+        ``pad_to_class`` zero-pads the mesh's part axis to that **size
+        class** (:class:`~repro_torch.fvm.mesh.PaddedCavityMesh`) so
+        tenants whose meshes share a per-part structure but differ in slab
+        count land in one cohort.  ``priority`` ("bulk" | "deadline") and
+        ``deadline_ms`` feed the scheduling policy; they do not change the
+        numerics.  ``program``, ``case``, ``pipeline`` ("auto" | "on" |
+        "off") and ``precision`` pick the tenant's program, flow case,
+        stepping schedule and Krylov policy; each is a cohort-key
+        component.  ``solve_mode`` must be "stacked" (the port has no
+        full-mesh mode).  ``solver_kw`` are further solver settings
+        (``p_tol``, ``p_maxiter``, ``mom_tol``, ...).  The default cost
+        model is ``CostModel(H100, n_dofs=...)`` at the mesh's real dofs.
+        """
+        from repro_torch.core.repartition import mesh_fingerprint
+        from repro_torch.fvm.mesh import PaddedCavityMesh
+        from repro_torch.fvm.piso import PIPELINE_MODES, make_solver
+        from repro_torch.fvm.step_program import get_program
+
+        if sid in self.sessions:
+            raise ValueError(f"session {sid!r} already open")
+        if priority not in ("bulk", "deadline"):
+            raise ValueError(f"unknown priority {priority!r}")
+        if solve_mode != "stacked":
+            raise ValueError(
+                f"solve_mode {solve_mode!r}: the port runs the stacked "
+                f"layout only (the full-mesh mode is ROADMAP A8)")
+        if pad_to_class is not None:
+            mesh = PaddedCavityMesh.pad(mesh, pad_to_class)
+        # cost honesty for padded meshes: ghost slabs carry no dofs
+        n_dofs = getattr(mesh, "n_cells_active", mesh.n_cells_global)
+        model = model or CostModel(H100, n_dofs=n_dofs)
+        # resolve the pipeline knob against the program spec up front so
+        # the controller's initial alpha pick scores the overlap objective
+        if pipeline not in PIPELINE_MODES:
+            raise ValueError(f"unknown pipeline mode {pipeline!r} "
+                             "(choose auto|on|off)")
+        pipelined = (pipeline == "on"
+                     or (pipeline == "auto"
+                         and get_program(program).pipelined))
+        controller = RepartitionController(
+            model, n_cpu=mesh.n_parts, n_gpu=1, alpha0=alpha0,
+            config=self.config, cache=self.plan_cache, fixed_fine=True,
+            solve_mode=solve_mode, solver_backend=solver_backend,
+            pipelined=pipelined, precision=precision)
+        solver = make_solver(program, mesh, alpha=controller.alpha, nu=nu,
+                             case=case, plan_cache=self.plan_cache,
+                             solver_backend=solver_backend,
+                             pipeline=pipeline, precision=precision,
+                             device=self.device, **solver_kw)
+        sess = SimulationSession(sid=sid, solver=solver,
+                                 controller=controller,
+                                 state=solver.initial_state(), dt=dt,
+                                 mesh_fp=mesh_fingerprint(mesh),
+                                 adaptive=adaptive, priority=priority,
+                                 deadline_ms=deadline_ms)
+        self.sessions[sid] = sess
+        return sess
+
+    def step_session(self, sid: str, n_steps: int = 1):
+        """Advance one tenant; other sessions' controllers are untouched.
+
+        Non-sample steps advance in windows of the solver's stepper, and
+        every ``ControllerConfig.sample_every``-th step of an adaptive
+        session is an instrumented sample whose ``PhaseBreakdown`` feeds
+        its controller; the sampling grid is anchored to ``steps_done``
+        (:func:`~repro_torch.fvm.step_program.roll_schedule`) and windows
+        are capped at ``scan_window`` steps.  Returns the last step's
+        stats.
+        """
+        from repro_torch.fvm.step_program import roll_schedule
+
+        sess = self.sessions[sid]
+        every = self._every(sess)
+        stats = None
+        for is_sample, chunk in roll_schedule(sess.steps_done, n_steps,
+                                              every, cap=self.scan_window):
+            stats = self._advance_one(sess, is_sample, chunk)
+        return stats
+
+    def _every(self, sess: SimulationSession) -> int | None:
+        """The session's sampling cadence: ``sample_every`` for adaptive
+        sessions, None otherwise."""
+        return self.config.sample_every if sess.adaptive else None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---- cohort-batched stepping ----------------------------------------
+    def _advance_one(self, sess: SimulationSession, is_sample: bool,
+                     chunk: int):
+        """Advance one session through one schedule stretch (solo path)."""
+        t0 = self._clock() if self.track_latency else 0.0
+        sample = None
+        if is_sample:
+            sess.state, stats, sample = sess.solver.timed_step(sess.state,
+                                                               sess.dt)
+            self.counters["sample_steps"] += 1
+        else:
+            sess.state, window = sess.solver.run_steps(sess.state, sess.dt,
+                                                       chunk)
+            stats = _last(window)
+            self.counters["solo_dispatches"] += 1
+            self.counters["rolled_windows"] += 1
+            self.dispatch_paths[
+                "pipelined_solo" if sess.solver.pipelined else "solo"] += 1
+        if self.track_latency:
+            self._sync()
+            per_step = (self._clock() - t0) / chunk
+            sess.latency_samples.extend([per_step] * chunk)
+        sess.steps_done += chunk
+        if sample is not None:
+            alpha = sess.controller.step(sample)
+            if alpha != sess.solver.alpha:
+                sess.solver.rebind_alpha(alpha)
+        return stats
+
+    def _cohort_key(self, sess: SimulationSession) -> tuple:
+        """Interchangeability key: sessions with equal keys step through
+        ONE batched executor.
+
+        The mesh fingerprint, alpha, solve mode and backend are the
+        binding's identity (plus ``nu``/dtype, which the program closes
+        over); adaptive sessions also carry their sampling phase
+        (``steps_done mod sample_every``) so every member agrees on where
+        the next instrumented sample falls.  A padded session keys on its
+        class shape (a padded mesh fingerprints as a plain mesh of the
+        padded shape) and on ``padded`` (its program takes ``n_active``).
+        The Krylov tolerances and caps, the program, the case, the
+        resolved ``pipelined`` flag and the precision policy are key
+        components too: tenants that differ in any of them never share a
+        dispatch.  The last component is the supervision quarantine token
+        of the JAX engine, always None here (no supervision yet).
+        """
+        s = sess.solver
+        phase = (sess.steps_done % self.config.sample_every
+                 if sess.adaptive else -1)
+        tols = (s.mom_tol, s.p_tol, s.mom_maxiter, s.p_maxiter)
+        return (sess.mesh_fp, s.alpha, "stacked", s.solver_backend, s.nu,
+                str(s.dtype), sess.adaptive, phase, tols, s.padded,
+                s.program_name, s.case, s.pipelined, s.precision, None)
+
+    def step_all(self, n_steps: int = 1, sids=None) -> dict:
+        """Advance every open session (or ``sids``) by ``n_steps`` through
+        cohort-batched dispatches; returns the last stats per sid.
+
+        Scheduling runs in rounds: sessions are grouped by
+        :meth:`_cohort_key`, each cohort's states are stacked along a
+        leading session axis (:func:`~repro_torch.fvm.piso.stack_states`)
+        and the cohort advances through one stretch of the shared
+        ``roll_schedule`` cadence via the leader's
+        :meth:`~repro_torch.fvm.piso.SegregatedSolver.batched_executor`.
+        Per-session ``dt`` rides along as a tensor.  A sampled stretch runs
+        the cohort's instrumented walk and hands each tenant's controller
+        its own row; a session whose controller switches alpha rebinds at
+        once, and its changed key migrates it on the next round.
+        Singleton cohorts take the solo path inside the same schedule.
+        """
+        if n_steps < 0:
+            raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+        sids = list(self.sessions if sids is None else sids)
+        missing = [sid for sid in sids if sid not in self.sessions]
+        if missing:
+            raise KeyError(f"unknown session(s) {missing}")
+        target = {sid: self.sessions[sid].steps_done + n_steps
+                  for sid in sids}
+        last: dict[str, object] = {}
+        while True:
+            live = [sid for sid in target
+                    if sid in self.sessions
+                    and self.sessions[sid].steps_done < target[sid]]
+            if not live:
+                break
+            self.counters["scheduling_rounds"] += 1
+            cohorts: dict[tuple, list[str]] = {}
+            for sid in live:
+                key = self._cohort_key(self.sessions[sid])
+                cohorts.setdefault(key, []).append(sid)
+            for group in cohorts.values():
+                group = [sid for sid in group if sid in self.sessions]
+                if not group:
+                    continue
+                rem = min(target[sid] - self.sessions[sid].steps_done
+                          for sid in group)
+                self.advance_group(group, rem, last)
+        return last
+
+    def advance_group(self, group, n_steps: int, last=None) -> int:
+        """Advance one cohort ``group`` (sids sharing a cohort key) through
+        ONE stretch of the shared cadence; returns the stretch length.
+
+        The scheduling quantum of :mod:`repro_torch.serving.scheduler`.
+        ``last``, when given, collects each member's latest stats under its
+        sid.  A group whose members do not share the lead's key is
+        rejected (stacking it would step a tenant with another's program).
+        """
+        from repro_torch.fvm.step_program import roll_schedule
+
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        last = {} if last is None else last
+        lead = self.sessions[group[0]]
+        lead_key = self._cohort_key(lead)
+        bad = [sid for sid in group[1:]
+               if self._cohort_key(self.sessions[sid]) != lead_key]
+        if bad:
+            raise ValueError(
+                f"advance_group: session(s) {bad} are not cohort-"
+                f"compatible with lead {group[0]!r} (program/case/mesh/"
+                "alpha mismatch) — migration across cohort keys must go "
+                "through a new scheduling round, not a mixed dispatch")
+        every = self._every(lead)
+        is_sample, chunk = next(roll_schedule(
+            lead.steps_done, n_steps, every, cap=self.scan_window))
+        if len(group) == 1:
+            last[group[0]] = self._advance_one(lead, is_sample, chunk)
+        else:
+            self._advance_cohort(group, is_sample, chunk, last)
+        return chunk
+
+    def _advance_cohort(self, group, is_sample: bool, chunk: int,
+                        last) -> None:
+        """Advance one multi-session cohort through one schedule stretch.
+
+        A padded cohort passes the per-session ``n_active`` vector; with
+        ``lane_classes`` its batch is padded to the next power of two with
+        zero filler lanes (``n_active=0``, ``dt`` copied from the lead so
+        ``V/dt`` stays finite).
+        """
+        from repro_torch.fvm.piso import stack_states, unstack_states
+        from repro_torch.serving.scheduler import size_class
+
+        sessions = [self.sessions[sid] for sid in group]
+        lead = sessions[0]
+        n = len(group)
+        lanes = size_class(n) if self.lane_classes and lead.solver.padded \
+            else n
+        exe = lead.solver.batched_executor(lanes)
+        states = stack_states([s.state for s in sessions], pad_to=lanes)
+        dts = torch.tensor([s.dt for s in sessions] + [lead.dt] * (lanes - n),
+                           dtype=lead.solver.dtype, device=self.device)
+        rows = ([s.solver._extras() for s in sessions]
+                + [lead.solver._filler_extras()] * (lanes - n))
+        extras = lead.solver.lane_extras(rows)
+        t0 = self._clock() if self.track_latency else 0.0
+        if is_sample:
+            states, stats, samples = exe.timed_step(states, dts, *extras)
+            self.counters["sample_steps"] += 1
+            per_stats = [_last(stats, (i,)) for i in range(n)]
+        else:
+            states, window = exe.run_steps(states, dts, chunk, *extras)
+            self.counters["cohort_dispatches"] += 1
+            self.counters["rolled_windows"] += 1
+            self.dispatch_paths["pipelined_cohort" if lead.solver.pipelined
+                                else "cohort"] += 1
+            samples = None
+            per_stats = [_last(window, (-1, i)) for i in range(n)]
+        if self.track_latency:
+            self._sync()
+            per_step = (self._clock() - t0) / chunk
+        for i, (sess, state) in enumerate(zip(sessions,
+                                              unstack_states(states, n))):
+            sess.state = state
+            sess.steps_done += chunk
+            last[sess.sid] = per_stats[i]
+            if self.track_latency:
+                sess.latency_samples.extend([per_step] * chunk)
+            if samples is not None:
+                alpha = sess.controller.step(samples[i])
+                if alpha != sess.solver.alpha:
+                    # rebind now; the new cohort key migrates the session
+                    # on the next scheduling round
+                    sess.solver.rebind_alpha(alpha)
+
+    def close_session(self, sid: str) -> dict:
+        """Evict the tenant; returns its final controller stats."""
+        sess = self.sessions.pop(sid)
+        return sess.controller.stats()
+
+    def cohorts(self) -> dict:
+        """The current cohort map: cohort key -> open session ids (what
+        the next ``step_all`` round would batch together)."""
+        out: dict[tuple, list[str]] = {}
+        for sid, sess in self.sessions.items():
+            out.setdefault(self._cohort_key(sess), []).append(sid)
+        return out
+
+    def reset_stats(self) -> None:
+        """Zero the dispatch counters, latency samples and plan-cache
+        hit/miss meters (the cached plans are kept)."""
+        for k in self.counters:
+            self.counters[k] = 0
+        for k in self.dispatch_paths:
+            self.dispatch_paths[k] = 0
+        for sess in self.sessions.values():
+            sess.latency_samples.clear()
+        reset = getattr(self.plan_cache, "reset_stats", None)
+        if reset is not None:
+            reset()
+
+    def latency_stats(self) -> dict:
+        """p50/p99 session-step latency, per session and pooled per
+        priority class (nearest-rank percentiles; empty when the engine
+        runs without ``track_latency``)."""
+        from repro_torch.serving.scheduler import percentile
+
+        per_session, pooled = {}, {}
+        for sid, s in self.sessions.items():
+            if s.latency_samples:
+                per_session[sid] = {
+                    "n": len(s.latency_samples),
+                    "p50": percentile(s.latency_samples, 50),
+                    "p99": percentile(s.latency_samples, 99),
+                }
+            pooled.setdefault(s.priority, []).extend(s.latency_samples)
+        classes = {
+            prio: {"n": len(xs), "p50": percentile(xs, 50),
+                   "p99": percentile(xs, 99)}
+            for prio, xs in pooled.items() if xs
+        }
+        return {"per_session": per_session, "classes": classes}
+
+    def stats(self) -> dict:
+        return {
+            "sessions": {
+                sid: {"steps": s.steps_done, "alpha": s.controller.alpha,
+                      "solve_mode": s.controller.solve_mode,
+                      "solver_backend": s.controller.solver_backend,
+                      "switches": len(s.controller.switches),
+                      "priority": s.priority,
+                      "program": s.solver.program_name,
+                      "case": s.solver.case,
+                      "pipelined": s.solver.pipelined,
+                      "precision": s.solver.precision}
+                for sid, s in self.sessions.items()
+            },
+            "cohorts": [len(g) for g in self.cohorts().values()],
+            "counters": dict(self.counters),
+            "dispatch_paths": dict(self.dispatch_paths),
+            "plan_cache": self.plan_cache.stats(),
+            "latency": self.latency_stats(),
+        }

@@ -13,7 +13,9 @@ the former host loop (one host read per iteration) as the plain version.
 When the bundle's precision policy refines, the loop becomes the inner
 sweep of the same outer f64 iterative-refinement loop as CG's
 (true-residual replay ``r = b - A_hi x``, low-precision correction solve,
-f64 correction apply; one host read per outer pass).
+f64 correction apply; one host read per outer pass).  Over a cohort
+bundle (``ops.lanes``) every scalar and the flag hold one element per
+lane and every select is per lane, as in :mod:`repro_torch.solvers.cg`.
 """
 from __future__ import annotations
 
@@ -22,9 +24,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.solvers.cg import inner_threshold_sq, threshold_sq
+from repro_torch.solvers.cg import lane_results, refine, threshold_sq
 from repro_torch.solvers.device_loop import run_loop
-from repro_torch.solvers.ops import SolverOps, _vdot, reference_ops
+from repro_torch.solvers.ops import SolverOps, lanes_of, reference_ops
 
 __all__ = ["bicgstab", "BiCGStabResult"]
 
@@ -47,18 +49,21 @@ def _safe_div(num, den):
                        torch.zeros_like(num))
 
 
-def _bicgstab_buffers(b, thr: torch.Tensor) -> SimpleNamespace:
+def _bicgstab_buffers(b, thr: torch.Tensor,
+                      lanes: int | None) -> SimpleNamespace:
     """The BiCGStab loop's carry (``x, r, p, v, rho, alpha, omega, rr, k,
     active``), shadow residual, matvec outputs and threshold at fixed
-    addresses, and the block captured over them."""
+    addresses, one scalar per lane (0-d for one system: ``lanes`` None), and
+    the block captured over them."""
     vec = lambda: torch.empty_like(b)  # noqa: E731
-    scal = lambda: torch.empty((), dtype=thr.dtype, device=b.device)  # noqa: E731
+    shape = () if lanes is None else (lanes,)
+    scal = lambda: torch.empty(shape, dtype=thr.dtype, device=b.device)  # noqa: E731
     return SimpleNamespace(
         x=vec(), r=vec(), rhat=vec(), p=vec(), v=vec(), v_new=vec(),
         t=vec(), rho=scal(), alpha=scal(), omega=scal(), rr=scal(),
         thr=scal(), graph=None,
-        k=torch.empty((), dtype=torch.int32, device=b.device),
-        active=torch.empty((), dtype=torch.bool, device=b.device))
+        k=torch.empty(shape, dtype=torch.int32, device=b.device),
+        active=torch.empty(shape, dtype=torch.bool, device=b.device))
 
 
 def _bicgstab_body(ops: SolverOps, st: SimpleNamespace, maxiter: int):
@@ -68,34 +73,47 @@ def _bicgstab_body(ops: SolverOps, st: SimpleNamespace, maxiter: int):
     nothing.  Made per sweep, as :func:`~repro_torch.solvers.cg._cg_body`
     is."""
     carry = (st.x, st.r, st.p, st.v, st.rho, st.alpha, st.omega, st.rr)
+    n = lanes_of(ops)
+    shape = st.x.shape
+
+    def V(t):  # a vector as (lanes, rows of a lane)
+        return t.view(n, -1)
+
+    def S(t, dtype):  # a per-lane scalar against V(...), at dtype
+        return t.reshape(-1, 1).to(dtype)
 
     def body(flag):
         x, r, p, v, rho, alpha, omega, rr = carry
+        dt = r.dtype
         (rho_new,) = ops.dots((st.rhat, r))
         beta = _safe_div(rho_new * alpha, rho * omega)
-        p_new = r + beta.to(r.dtype) * (p - omega.to(r.dtype) * v)
-        phat = ops.precond(p_new)
+        p_new = V(r) + S(beta, dt) * (V(p) - S(omega, dt) * V(v))
+        phat = ops.precond(p_new.view(shape))
         ops.matvec_into(phat, st.v_new, flag)
         (rv,) = ops.dots((st.rhat, st.v_new))
         alpha_new = _safe_div(rho_new, rv)
-        a_lo = alpha_new.to(r.dtype)
-        s = r - a_lo * st.v_new
-        shat = ops.precond(s)
+        a_lo = S(alpha_new, dt)
+        s = V(r) - a_lo * V(st.v_new)
+        shat = ops.precond(s.view(shape))
         ops.matvec_into(shat, st.t, flag)
-        ts, tt = ops.dots((st.t, s), (st.t, st.t))
+        ts, tt = ops.dots((st.t, s.view(shape)), (st.t, st.t))
         omega_new = _safe_div(ts, tt)
-        o_lo = omega_new.to(r.dtype)
-        x_new = x + a_lo * phat + o_lo * shat
-        r_new = s - o_lo * st.t
-        (rr_new,) = ops.dots((r_new, r_new))
+        o_lo = S(omega_new, dt)
+        x_new = V(x) + a_lo * V(phat) + o_lo * V(shat)
+        r_new = s - o_lo * V(st.t)
+        (rr_new,) = ops.dots((r_new.view(shape), r_new.view(shape)))
         # rho or <rhat, v> hitting zero is a true breakdown: the step above
         # is no longer a Krylov update — keep the previous iterate and stop
         # (the iteration that found it still counts)
         brk = (rho_new == 0) | (rv == 0)
-        keep = ~flag | brk
+        keep = (~flag | brk).reshape(n)
         for old, new in zip(carry, (x_new, r_new, p_new, st.v_new, rho_new,
                                     alpha_new, omega_new, rr_new)):
-            torch.where(keep, old, new, out=old)
+            if old.dim() == 1 and old.numel() == n:
+                torch.where(keep, old, new.reshape(n), out=old)
+            else:
+                torch.where(keep.view(n, 1), V(old), new.reshape(n, -1),
+                            out=V(old))
         st.k.add_(flag.to(st.k.dtype))
         torch.logical_and(flag & ~brk, (rr > st.thr) & (st.k < maxiter),
                           out=flag)
@@ -104,21 +122,22 @@ def _bicgstab_body(ops: SolverOps, st: SimpleNamespace, maxiter: int):
 
 
 def _bicgstab_sweep(ops: SolverOps, b, x0, thr: torch.Tensor,
-                    maxiter: int):
+                    maxiter: int, start: torch.Tensor | None = None):
     """One breakdown-guarded BiCGStab loop at the storage dtype, on the
     device loop (see the module doc); the bundle keeps its buffers and
     captured graph for the next sweep, as :func:`~repro_torch.solvers.cg.
     _cg_sweep` does.
 
-    Returns ``(x, rr, k)``, copies, ``k`` 0-d int32; ``x0`` is not
-    written.  The scalars (rho/alpha/omega/rr) live at the accum dtype of
-    the bundle's dots and are cast down per vector use; every cast is a
-    no-op on the f64 policy, which runs this once.
+    Returns ``(x, rr, k)``, copies, one scalar per lane (``k`` int32);
+    ``x0`` is not written; ``start`` (one flag per lane) keeps the lanes it
+    clears from running.  The scalars (rho/alpha/omega/rr) live at the
+    accum dtype of the bundle's dots and are cast down per vector use;
+    every cast is a no-op on the f64 policy, which runs this once.
     """
     key = ("bicgstab", tuple(b.shape), b.dtype, thr.dtype, maxiter)
     st = ops.loops.get(key)
     if st is None:
-        st = ops.loops[key] = _bicgstab_buffers(b, thr)
+        st = ops.loops[key] = _bicgstab_buffers(b, thr, ops.lanes)
     st.x.copy_(x0)
     torch.sub(b, ops.matvec(x0), out=st.r)
     st.rhat.copy_(st.r)  # the shadow residual
@@ -131,16 +150,21 @@ def _bicgstab_sweep(ops: SolverOps, b, x0, thr: torch.Tensor,
     st.thr.copy_(thr)
     st.k.zero_()
     torch.logical_and(st.rr > st.thr, st.k < maxiter, out=st.active)
+    if start is not None:
+        st.active.logical_and_(start.reshape(st.active.shape))
     run_loop(_bicgstab_body(ops, st, maxiter), st, "bicgstab")
     return st.x.clone(), st.rr.clone(), st.k.clone()
 
 
 def _bicgstab_sweep_host(ops: SolverOps, b, x0, thr: torch.Tensor,
-                         maxiter: int):
+                         maxiter: int, start: torch.Tensor | None = None):
     """The former host loop of :func:`_bicgstab_sweep`: the same arithmetic,
     one host read per iteration (the carried residual and the breakdown
     test).  Returns ``(x, rr, k)`` with ``k`` a Python int.  The plain
-    version the device loop is held against; no solve calls it."""
+    version the device loop is held against; no solve calls it.  One
+    system only: ``start`` must be set (the refinement loop passes it)."""
+    if start is not None and not bool(start.all()):
+        raise ValueError("the host loop runs one started system")
     x = x0
     r = b - ops.matvec(x0)
     rhat = r  # shadow residual
@@ -187,36 +211,11 @@ def _bicgstab_sweep_host(ops: SolverOps, b, x0, thr: torch.Tensor,
 def _bicgstab_refined(ops: SolverOps, b, x0, *, tol, atol,
                       maxiter) -> BiCGStabResult:
     """Outer f64 refinement loop around low-precision inner sweeps."""
-    pol = ops.policy
-    A_hi = ops.matvec_hi if ops.matvec_hi is not None else ops.matvec
-    lo = pol.storage_dtype
-    thr = threshold_sq(_vdot(b, b), tol, atol)
-    x = x0
-    r = b - A_hi(x)
-    rr = _vdot(r, r)
-    k_out = 0
-    inner_total = torch.zeros((), dtype=torch.int32, device=b.device)
-    inner_capped = torch.zeros((), dtype=torch.bool, device=b.device)
-    # one host read per outer pass: the outer condition
-    while bool(rr > thr) and k_out < pol.max_outer:
-        r_lo = r.to(lo)
-        (rr_lo,) = ops.dots((r_lo, r_lo))
-        d, _, k_in = _bicgstab_sweep(ops, r_lo, torch.zeros_like(r_lo),
-                                     inner_threshold_sq(pol.inner_tol, rr_lo),
-                                     maxiter)
-        x = x + d.to(b.dtype)
-        r = b - A_hi(x)
-        rr = _vdot(r, r)
-        k_out += 1
-        inner_total = inner_total + k_in
-        inner_capped = inner_capped | (k_in >= maxiter)
-    converged = rr <= thr
-    hit_cap = (inner_capped | (k_out >= pol.max_outer)) & ~converged
-    return BiCGStabResult(x=x, iters=inner_total, residual=torch.sqrt(rr),
+    x, inner, rr, converged, hit_cap, k_out = refine(
+        ops, _bicgstab_sweep, b, x0, tol=tol, atol=atol, maxiter=maxiter)
+    return BiCGStabResult(x=x, iters=inner, residual=torch.sqrt(rr),
                           converged=converged, hit_cap=hit_cap,
-                          outer_iters=torch.full((), k_out,
-                                                 dtype=torch.int32,
-                                                 device=b.device))
+                          outer_iters=k_out)
 
 
 def bicgstab(A: Callable[[torch.Tensor], torch.Tensor] | SolverOps,
@@ -247,11 +246,13 @@ def bicgstab(A: Callable[[torch.Tensor], torch.Tensor] | SolverOps,
     (bb,) = ops.dots((b, b))
     thr = threshold_sq(bb, tol, atol)
     x, rr, k = _bicgstab_sweep(ops, b, x0, thr, maxiter)
+    rr, k = lane_results(ops, rr, k)
     # NaN rr yields converged=False and hit_cap=False; a breakdown exit
     # before the cap reports converged=False too
     converged = rr <= thr
     return BiCGStabResult(x=x, iters=k, residual=torch.sqrt(rr),
                           converged=converged,
                           hit_cap=(k >= maxiter) & ~converged,
-                          outer_iters=torch.zeros((), dtype=torch.int32,
+                          outer_iters=torch.zeros(rr.shape,
+                                                  dtype=torch.int32,
                                                   device=b.device))

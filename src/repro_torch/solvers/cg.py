@@ -29,6 +29,17 @@ in f64, and repeat until the caller's tolerance holds on the carried f64
 once per pass (its condition; at most ``max_outer`` reads).  The exit
 flags keep the plain path's health signature (NaN anywhere: ``converged``
 and ``hit_cap`` both False).
+
+**Lanes.**  Over a cohort bundle (``ops.lanes = B``,
+:mod:`repro_torch.solvers.ops`) the same loop solves ``B`` systems at once:
+the carried scalars, the count ``k`` and the flag ``active`` hold one
+element per lane, a lane whose flag has dropped is frozen exactly as one
+system is (its kernels return at once, its selects keep its carry), the
+host read stops when no flag is set, and the results are ``(B,)`` per
+lane.  The refinement loop freezes a lane whose outer loop has ended the
+same way: its inner sweep starts with its flag down and its iterate is
+kept.  A lane's dots are its own, so each lane computes what it computes
+alone.
 """
 from __future__ import annotations
 
@@ -37,8 +48,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.kernels.krylov_fused.krylov_fused import lane_vdot
 from repro_torch.solvers.device_loop import run_loop
-from repro_torch.solvers.ops import SolverOps, _vdot, reference_ops
+from repro_torch.solvers.ops import SolverOps, reference_ops
 
 __all__ = ["cg", "CGResult", "threshold_sq", "inner_threshold_sq"]
 
@@ -67,17 +79,37 @@ def inner_threshold_sq(inner_tol: float, rr_lo: torch.Tensor) -> torch.Tensor:
     return inner_tol ** 2 * rr_lo
 
 
-def _cg_buffers(b, thr: torch.Tensor) -> SimpleNamespace:
+def _cg_buffers(b, thr: torch.Tensor, lanes: int | None) -> SimpleNamespace:
     """The CG loop's carry (``x, r, p, gamma, rr, k, active``), scratch and
-    threshold at fixed addresses, and the block captured over them."""
+    threshold at fixed addresses, one scalar per lane (0-d for one
+    system: ``lanes`` None), and the block captured over them."""
     vec = lambda: torch.empty_like(b)  # noqa: E731
-    scal = lambda: torch.empty((), dtype=thr.dtype, device=b.device)  # noqa: E731
+    shape = () if lanes is None else (lanes,)
+    scal = lambda: torch.empty(shape, dtype=thr.dtype, device=b.device)  # noqa: E731
     return SimpleNamespace(
         x=vec(), r=vec(), p=vec(), Ap=vec(), z=vec(), gamma=scal(),
         rr=scal(), pAp=scal(), alpha=scal(), gamma_new=scal(),
         rr_new=scal(), thr=scal(), graph=None,
-        k=torch.empty((), dtype=torch.int32, device=b.device),
-        active=torch.empty((), dtype=torch.bool, device=b.device))
+        k=torch.empty(shape, dtype=torch.int32, device=b.device),
+        active=torch.empty(shape, dtype=torch.bool, device=b.device))
+
+
+def lane_results(ops: SolverOps, *ts):
+    """Per-lane loop results as the caller takes them: 0-d for one system
+    (``ops.lanes`` None), ``(B,)`` for a cohort (a host loop's Python int
+    count passes as it is)."""
+    if ops.lanes is None:
+        return tuple(t.reshape(()) if torch.is_tensor(t) else t for t in ts)
+    return ts
+
+
+def lane_select(flag: torch.Tensor, new: torch.Tensor,
+                old: torch.Tensor) -> torch.Tensor:
+    """``new`` in the lanes whose ``flag`` is set, ``old`` elsewhere
+    (``flag`` one element per lane, each lane a contiguous run)."""
+    n = flag.numel()
+    return torch.where(flag.reshape(n, 1), new.reshape(n, -1),
+                       old.reshape(n, -1)).view(old.shape)
 
 
 def _cg_body(ops: SolverOps, st: SimpleNamespace, maxiter: int):
@@ -98,7 +130,8 @@ def _cg_body(ops: SolverOps, st: SimpleNamespace, maxiter: int):
     return body
 
 
-def _cg_sweep(ops: SolverOps, b, x0, thr: torch.Tensor, maxiter: int):
+def _cg_sweep(ops: SolverOps, b, x0, thr: torch.Tensor, maxiter: int,
+              start: torch.Tensor | None = None):
     """One preconditioned-CG loop at the bundle's storage dtype, on the
     device loop (see the module doc).
 
@@ -106,14 +139,16 @@ def _cg_sweep(ops: SolverOps, b, x0, thr: torch.Tensor, maxiter: int):
     later sweep of the same bundle (the next refinement pass, the next
     velocity component) starts them anew in place and replays the graph
     already captured.  Returns ``(x, rr, k)``: the iterate, the carried
-    squared residual norm (accum dtype, 0-d) and the iteration count (0-d
-    int32), copies that the next sweep does not touch; ``x0`` is not
-    written.  The f64 policy runs this once; it is the plain solver.
+    squared residual norm (accum dtype) and the iteration count (int32),
+    one per lane (``(B,)``, ``(1,)`` for one system), copies that the next
+    sweep does not touch; ``x0`` is not written.  ``start`` (one flag per
+    lane) keeps the lanes it clears from running at all.  The f64 policy
+    runs this once; it is the plain solver.
     """
     key = ("cg", tuple(b.shape), b.dtype, thr.dtype, maxiter)
     st = ops.loops.get(key)
     if st is None:
-        st = ops.loops[key] = _cg_buffers(b, thr)
+        st = ops.loops[key] = _cg_buffers(b, thr, ops.lanes)
     st.x.copy_(x0)
     torch.sub(b, ops.matvec(x0), out=st.r)
     st.p.copy_(ops.precond(st.r))
@@ -123,15 +158,21 @@ def _cg_sweep(ops: SolverOps, b, x0, thr: torch.Tensor, maxiter: int):
     st.thr.copy_(thr)
     st.k.zero_()
     torch.logical_and(st.rr > st.thr, st.k < maxiter, out=st.active)
+    if start is not None:
+        st.active.logical_and_(start.reshape(st.active.shape))
     run_loop(_cg_body(ops, st, maxiter), st, "cg")
     return st.x.clone(), st.rr.clone(), st.k.clone()
 
 
-def _cg_sweep_host(ops: SolverOps, b, x0, thr: torch.Tensor, maxiter: int):
+def _cg_sweep_host(ops: SolverOps, b, x0, thr: torch.Tensor, maxiter: int,
+                   start: torch.Tensor | None = None):
     """The former host loop of :func:`_cg_sweep`: the same arithmetic, one
     host read of the carried ``r . r`` per iteration.  Returns ``(x, rr,
     k)`` with ``k`` a Python int.  The plain version the device loop is
-    held against (tests, ``chip_smoke.py``); no solve calls it."""
+    held against (tests, ``chip_smoke.py``); no solve calls it.  One
+    system only: ``start`` must be set (the refinement loop passes it)."""
+    if start is not None and not bool(start.all()):
+        raise ValueError("the host loop runs one started system")
     x = x0
     r = b - ops.matvec(x0)
     p = ops.precond(r)
@@ -148,39 +189,63 @@ def _cg_sweep_host(ops: SolverOps, b, x0, thr: torch.Tensor, maxiter: int):
     return x, rr, k
 
 
-def _cg_refined(ops: SolverOps, b, x0, *, tol, atol, maxiter) -> CGResult:
-    """Outer f64 refinement loop around low-precision inner sweeps."""
+def refine(ops: SolverOps, sweep, b, x0, *, tol, atol, maxiter):
+    """The outer f64 refinement loop around low-precision inner sweeps
+    (``sweep``: :func:`_cg_sweep` or BiCGStab's), per lane.
+
+    Returns ``(x, inner_total, rr, converged, hit_cap, k_out)``, the
+    scalars 0-d for one system and ``(B,)`` for a cohort.  A lane whose
+    outer condition has failed is frozen: its inner sweep starts with its
+    flag down and its iterate is kept (the other lanes' passes go on).
+    """
     pol = ops.policy
     A_hi = ops.matvec_hi if ops.matvec_hi is not None else ops.matvec
+
+    def dot(u, v):
+        return lane_vdot(u, v, ops.lanes)
+
     lo = pol.storage_dtype
-    thr = threshold_sq(_vdot(b, b), tol, atol)
+    thr = threshold_sq(dot(b, b), tol, atol)
     x = x0
     r = b - A_hi(x)
-    rr = _vdot(r, r)
-    k_out = 0
-    inner_total = torch.zeros((), dtype=torch.int32, device=b.device)
-    inner_capped = torch.zeros((), dtype=torch.bool, device=b.device)
+    rr = dot(r, r)
+    k_out = torch.zeros(rr.shape, dtype=torch.int32, device=b.device)
+    inner_total = torch.zeros(rr.shape, dtype=torch.int32, device=b.device)
+    inner_capped = torch.zeros(rr.shape, dtype=torch.bool, device=b.device)
+    going = (rr > thr) & (k_out < pol.max_outer)
     # one host read per outer pass: the outer condition
-    while bool(rr > thr) and k_out < pol.max_outer:
+    while bool(going.any()):
         # correction solve A_lo d = r at the storage dtype, from zero, to
         # the policy's loose relative tolerance
         r_lo = r.to(lo)
         (rr_lo,) = ops.dots((r_lo, r_lo))
-        d, _, k_in = _cg_sweep(ops, r_lo, torch.zeros_like(r_lo),
-                               inner_threshold_sq(pol.inner_tol, rr_lo),
-                               maxiter)
-        x = x + d.to(b.dtype)
+        d, _, k_in = sweep(ops, r_lo, torch.zeros_like(r_lo),
+                           inner_threshold_sq(pol.inner_tol, rr_lo),
+                           maxiter, start=going.reshape(-1))
+        (k_in,) = lane_results(ops, k_in)
+        k_in = torch.as_tensor(k_in, dtype=torch.int32, device=b.device)
+        if ops.lanes is None:  # one system: it is going inside the loop
+            x = x + d.to(b.dtype)
+        else:
+            x = lane_select(going, x + d.to(b.dtype), x)
+            k_in = torch.where(going, k_in, 0)
         r = b - A_hi(x)   # f64 replay: low precision never touches x
-        rr = _vdot(r, r)
-        k_out += 1
+        rr = dot(r, r)
+        k_out = k_out + going.to(torch.int32)
         inner_total = inner_total + k_in
-        inner_capped = inner_capped | (k_in >= maxiter)
+        inner_capped = inner_capped | (going & (k_in >= maxiter))
+        going = going & (rr > thr) & (k_out < pol.max_outer)
     converged = rr <= thr
     hit_cap = (inner_capped | (k_out >= pol.max_outer)) & ~converged
-    return CGResult(x=x, iters=inner_total, residual=torch.sqrt(rr),
-                    converged=converged, hit_cap=hit_cap,
-                    outer_iters=torch.full((), k_out, dtype=torch.int32,
-                                           device=b.device))
+    return x, inner_total, rr, converged, hit_cap, k_out
+
+
+def _cg_refined(ops: SolverOps, b, x0, *, tol, atol, maxiter) -> CGResult:
+    """Outer f64 refinement loop around low-precision inner sweeps."""
+    x, inner, rr, converged, hit_cap, k_out = refine(
+        ops, _cg_sweep, b, x0, tol=tol, atol=atol, maxiter=maxiter)
+    return CGResult(x=x, iters=inner, residual=torch.sqrt(rr),
+                    converged=converged, hit_cap=hit_cap, outer_iters=k_out)
 
 
 def cg(A: Callable[[torch.Tensor], torch.Tensor] | SolverOps,
@@ -193,7 +258,9 @@ def cg(A: Callable[[torch.Tensor], torch.Tensor] | SolverOps,
     preconditioner inverse) or a ready-made :class:`SolverOps` bundle
     (``M`` must then be None).  Converged means ``||r|| <= max(tol *
     ||b||, atol)``, on the true f64 residual when the bundle's policy
-    refines; ``maxiter`` then caps each inner sweep.
+    refines; ``maxiter`` then caps each inner sweep.  A cohort bundle
+    (``ops.lanes``) solves each lane to its own tolerance and returns
+    per-lane results.
     """
     if isinstance(A, SolverOps):
         if M is not None:
@@ -208,10 +275,11 @@ def cg(A: Callable[[torch.Tensor], torch.Tensor] | SolverOps,
     (bb,) = ops.dots((b, b))
     thr = threshold_sq(bb, tol, atol)
     x, rr, k = _cg_sweep(ops, b, x0, thr, maxiter)
+    rr, k = lane_results(ops, rr, k)
     # NaN compares False on both sides: converged and hit_cap both stay
     # False, which the step's health flags read as divergence
     converged = rr <= thr
     return CGResult(x=x, iters=k, residual=torch.sqrt(rr),
                     converged=converged, hit_cap=(k >= maxiter) & ~converged,
-                    outer_iters=torch.zeros((), dtype=torch.int32,
+                    outer_iters=torch.zeros(rr.shape, dtype=torch.int32,
                                             device=b.device))

@@ -49,6 +49,12 @@ counters before a sweep's first block, reads them with ``k`` at its end
 and adds them to the wrappers' ``launches``: the launches that did work,
 as the card counted them.
 
+**Lanes.**  A cohort's loop (``B`` systems of one shape,
+:mod:`repro_torch.solvers.ops`) carries one flag per lane: each guarded
+launch covers every lane and a lane whose flag has dropped is frozen, so
+the loop runs until no flag is set and the host read per block reads the
+``B`` flags.  The sweep's iterations are the most any lane ran.
+
 Every sweep appends a :class:`LoopRecord` to the records that
 :func:`loop_records` returns and :func:`reset_loop_records` clears.
 """
@@ -79,11 +85,12 @@ ROUTE = "in-kernel guard"
 
 @dataclasses.dataclass(frozen=True)
 class LoopRecord:
-    """One sweep: its iterations, the blocks replayed, the host reads
-    (flag reads plus the final read of ``k``), the seconds the capture
-    took (0 on the CPU), the block length, the device type, the solver
-    (``"cg"`` or ``"bicgstab"``) and, on a CUDA device, the launches of
-    each guarded kernel as its device counter read them."""
+    """One sweep: its iterations (the most any lane ran), the blocks
+    replayed, the host reads (flag reads plus the final read of ``k``), the
+    seconds the capture took (0 on the CPU), the block length, the device
+    type, the solver (``"cg"`` or ``"bicgstab"``), on a CUDA device the
+    launches of each guarded kernel as its device counter read them, and
+    the lanes (1 for one system)."""
 
     iters: int
     blocks: int
@@ -93,6 +100,7 @@ class LoopRecord:
     device: str
     solver: str
     launches: dict = dataclasses.field(default_factory=dict)
+    lanes: int = 1
 
 
 _records: list[LoopRecord] = []
@@ -148,7 +156,7 @@ def _capture(body: Callable, active: torch.Tensor, n: int):
     gc.disable()
     try:
         with torch.cuda.stream(side):
-            body(torch.zeros((), dtype=torch.bool, device=device))
+            body(torch.zeros_like(active))
             graph.capture_begin(pool=pool)
             try:
                 for _ in range(n):
@@ -176,17 +184,20 @@ def run_loop(body: Callable, st, solver: str) -> int:
     ``K[solver]`` (see the module doc); returns the iteration count, read
     once from the device counter ``st.k`` that the body advances.
 
-    ``st`` holds the loop's buffers: the flag ``active``, the count ``k``
-    and ``graph``, the captured block (None until the first sweep on a
-    CUDA device captures it; later sweeps over the same buffers replay
-    it).  The flag is read once first: a start that already stops the loop
-    (converged, NaN, ``maxiter`` 0) runs nothing.
+    ``st`` holds the loop's buffers: the flags ``active`` and counts ``k``
+    (one per lane) and ``graph``, the captured block (None until the first
+    sweep on a CUDA device captures it; later sweeps over the same buffers
+    replay it).  The flags are read once first: a start that already stops
+    every lane (converged, NaN, ``maxiter`` 0) runs nothing.  Returns the
+    most iterations any lane ran.
     """
     n_block = K[solver]
     active, k = st.active, st.k
+    lanes = active.numel()
     device = active.device.type
-    if not bool(active):
-        _records.append(LoopRecord(0, 0, 1, 0.0, n_block, device, solver))
+    if not bool(active.any()):
+        _records.append(LoopRecord(0, 0, 1, 0.0, n_block, device, solver,
+                                   lanes=lanes))
         return 0
     on_card = device == "cuda"
     capture_s = 0.0
@@ -196,7 +207,7 @@ def run_loop(body: Callable, st, solver: str) -> int:
         if st.graph is None:
             st.graph, capture_s = _capture(body, active, n_block)
         graph = st.graph
-        flags = [torch.empty((), dtype=torch.bool, pin_memory=True)
+        flags = [torch.empty(active.shape, dtype=torch.bool, pin_memory=True)
                  for _ in range(2)]
         done = [torch.cuda.Event(), torch.cuda.Event()]
     else:
@@ -221,18 +232,18 @@ def run_loop(body: Callable, st, solver: str) -> int:
         if on_card:
             done[i].synchronize()
         reads += 1
-        if not bool(flags[i]):
+        if not bool(flags[i].any()):
             break
         i = 1 - i
     # the last read waits for the block in flight: the graph is then idle
     if on_card:
-        iters, *launched = torch.cat((k.view(1).to(counts.dtype),
-                                      counts)).tolist()
-        launched = dict(zip(SLOTS, launched))
+        read = torch.cat((k.view(-1).to(counts.dtype), counts)).tolist()
+        iters = max(read[:lanes])
+        launched = dict(zip(SLOTS, read[lanes:]))
         for name, n in launched.items():
             WRAPPERS[name].launches += n
     else:
-        iters, launched = int(k), {}
+        iters, launched = int(k.max()), {}
     _records.append(LoopRecord(iters, blocks, reads + 1, capture_s, n_block,
-                               device, solver, launched))
+                               device, solver, launched, lanes))
     return iters

@@ -47,6 +47,17 @@ package's part-size threshold (``FUSED_MIN_ROWS``) is not carried over:
 on the H100 the kernels beat plain PyTorch at every part size measured,
 512 to 308,700 rows (``chip_smoke.py`` phase 12d).
 
+**Lanes.**  Both constructors take ``lanes``: ``None`` for one system (the
+dots are 0-d), or ``B`` for a cohort of ``B`` systems of one shape stacked
+one after another (the cohort executors of
+:mod:`repro_torch.fvm.step_program`).  Then every dot is ``(B,)``, lane
+``l``'s the dot of its own contiguous run (the call it makes alone), the
+operators never read across a lane border, the loop members take one
+``alpha``/``gamma`` and one guard flag per lane, and the kernels run the
+``B`` lanes as one launch.  :func:`lanes_of` gives ``B`` (1 for one
+system).  The unguarded ``matvec_dot``/``fused_step`` of the fused
+backend (the host loop's forms) take one system only.
+
 **Precision.**  Both constructors take a
 :class:`~repro_torch.solvers.precision.PrecisionPolicy`.  Under the
 default ``f64`` policy every cast below is a no-op and the op sequence is
@@ -65,10 +76,11 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels.krylov_fused.krylov_fused import lane_vdot
 from repro_torch.solvers.precision import F64, PrecisionPolicy, get_policy
 
 __all__ = ["SolverOps", "reference_ops", "fused_stacked_ops",
-           "resolve_backend", "BACKENDS"]
+           "resolve_backend", "lanes_of", "BACKENDS"]
 
 BACKENDS = ("auto", "fused", "reference")
 
@@ -101,6 +113,13 @@ class SolverOps:
     # for the bundle's later sweeps (solvers/cg.py, solvers/bicgstab.py)
     loops: dict = dataclasses.field(default_factory=dict, compare=False,
                                     repr=False)
+    # None: one system; B: a cohort of B lanes (module doc)
+    lanes: int | None = None
+
+
+def lanes_of(ops: SolverOps) -> int:
+    """The lane count of a bundle: 1 for one system."""
+    return 1 if ops.lanes is None else ops.lanes
 
 
 def resolve_backend(requested: str, device: torch.device | str) -> str:
@@ -112,23 +131,24 @@ def resolve_backend(requested: str, device: torch.device | str) -> str:
     return "fused" if torch.device(device).type == "cuda" else "reference"
 
 
-def _policy_dot(policy: PrecisionPolicy) -> Callable:
-    """Per-policy global dot: both operands upcast to the accum dtype.
-
-    The f64 policy returns the plain dot (no casts at all)."""
+def _policy_dot(policy: PrecisionPolicy, lanes: int | None = None
+                ) -> Callable:
+    """Per-policy dot (per lane with ``lanes``): both operands upcast to
+    the accum dtype.  The f64 policy returns the plain dot (no casts)."""
     if policy.name == "f64":
-        return _vdot
+        return lambda a, b: lane_vdot(a, b, lanes)
     acc = policy.accum_dtype
 
     def dot(a, b):
-        return _vdot(a.to(acc), b.to(acc))
+        return lane_vdot(a.to(acc), b.to(acc), lanes)
 
     return dot
 
 
-def _policy_dots(policy: PrecisionPolicy) -> Callable:
-    """``dots(*pairs)``: a tuple of global dots under the policy."""
-    dot = _policy_dot(policy)
+def _policy_dots(policy: PrecisionPolicy, lanes: int | None = None
+                 ) -> Callable:
+    """``dots(*pairs)``: a tuple of dots under the policy."""
+    dot = _policy_dot(policy, lanes)
 
     def dots(*pairs):
         return tuple(dot(a, b) for a, b in pairs)
@@ -163,39 +183,45 @@ def _plain_into(matvec: Callable, matvec_dot: Callable,
 
 def reference_ops(A: Callable, M: Callable | None = None, *,
                   policy: PrecisionPolicy | str = F64,
-                  matvec_hi: Callable | None = None) -> SolverOps:
+                  matvec_hi: Callable | None = None,
+                  lanes: int | None = None) -> SolverOps:
     """Plain-PyTorch backend over operator closures (any layout).
 
     Under a refined ``policy`` the caller passes closures over the
     *downcast* operator (``A``/``M`` at the storage dtype) and a
     ``matvec_hi`` over the original f64 bands; the reductions then
-    accumulate at the policy's accum dtype.
+    accumulate at the policy's accum dtype.  With ``lanes`` the closures
+    must keep each lane to itself (module doc).
     """
     policy = get_policy(policy)
     M = M if M is not None else (lambda r: r)
-    dot = _policy_dot(policy)
+    dot = _policy_dot(policy, lanes)
 
     def matvec_dot(p):
         Ap = A(p)
         return Ap, dot(p, Ap)
 
     def fused_step(x, r, p, Ap, alpha):
-        a = alpha.to(x.dtype)  # accum scalar -> storage (f64: no-op)
-        xn = x + a * p
-        rn = r - a * Ap
+        # one alpha per lane; accum scalar -> storage (f64: no-op)
+        n = alpha.numel()
+        a = alpha.to(x.dtype).reshape(n, 1)
+        xn = (x.reshape(n, -1) + a * p.reshape(n, -1)).view(x.shape)
+        rn = (r.reshape(n, -1) - a * Ap.reshape(n, -1)).view(x.shape)
         z = M(rn)
         return xn, rn, z, dot(rn, z), dot(rn, rn)
 
     return SolverOps(matvec=A, precond=M, matvec_dot=matvec_dot,
-                     fused_step=fused_step, dots=_policy_dots(policy),
+                     fused_step=fused_step,
+                     dots=_policy_dots(policy, lanes),
                      **_plain_into(A, matvec_dot, fused_step),
                      backend="reference", policy=policy,
-                     matvec_hi=matvec_hi)
+                     matvec_hi=matvec_hi, lanes=lanes)
 
 
 def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
                       offsets: tuple[int, ...], plane: int,
-                      policy: PrecisionPolicy | str = F64) -> SolverOps:
+                      policy: PrecisionPolicy | str = F64,
+                      lanes: int | None = None) -> SolverOps:
     """Fused-kernel backend on stacked DIA bands ``(P, nb, m)``.
 
     ``diag`` is the stacked matrix diagonal (P, m); its safe Jacobi inverse
@@ -204,6 +230,7 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
     are downcast once to the storage dtype (the inverse is taken of the
     downcast diagonal), the kernels accumulate at the accum dtype, and
     ``matvec_hi`` is the f64 SpMV kernel over the original bands.
+    ``lanes``: the parts are a cohort of that many lanes (module doc).
     """
     from repro_torch.kernels.krylov_fused.krylov_fused import (
         fused_matvec_dot, fused_matvec_dot_into, fused_update_step,
@@ -214,6 +241,7 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
     from repro_torch.solvers.jacobi import safe_jacobi_inverse
 
     policy = get_policy(policy)
+    B = 1 if lanes is None else lanes
     bands_hi = bands = bands.contiguous()
     accum = None
     if policy.name != "f64":
@@ -224,45 +252,53 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
 
     def matvec(x):
         return spmv_dia_stacked(bands, x, offsets=offsets, plane=plane,
-                                accum_dtype=accum)
+                                accum_dtype=accum, lanes=B)
 
     def precond(r):
         return r * inv
 
+    def one_system():
+        if lanes is not None:
+            raise ValueError("the unguarded matvec_dot / fused_step take "
+                             "one system; a cohort runs the loop members")
+
     def matvec_dot(p):
+        one_system()
         return fused_matvec_dot(bands, p, offsets=offsets, plane=plane,
                                 accum_dtype=accum)
 
     def fused_step(x, r, p, Ap, alpha):
+        one_system()
         return fused_update_step(x, r, p, Ap, inv, alpha, accum_dtype=accum)
 
     # the reductions' scratch of the loop members, allocated here: never
     # inside a captured graph
     part = partials_buffers(bands.shape[0] * bands.shape[2],
-                            policy.accum_dtype, bands.device)
+                            policy.accum_dtype, bands.device, lanes=B)
 
     def matvec_into(x, out, active):
         spmv_dia_stacked(bands, x, offsets=offsets, plane=plane,
-                         accum_dtype=accum, out=out, active=active)
+                         accum_dtype=accum, out=out, active=active, lanes=B)
 
     def matvec_dot_into(p, Ap, pAp, active):
         fused_matvec_dot_into(bands, p, Ap, pAp, part, offsets=offsets,
-                              plane=plane, accum_dtype=accum, active=active)
+                              plane=plane, accum_dtype=accum, active=active,
+                              lanes=B)
 
     def fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active):
         fused_update_step_into(x, r, p, Ap, inv, alpha, z, rz, rr, part,
-                               accum_dtype=accum, active=active)
+                               accum_dtype=accum, active=active, lanes=B)
 
     matvec_hi = None
     if policy.refine:
         def matvec_hi(x):
             return spmv_dia_stacked(bands_hi, x, offsets=offsets,
-                                    plane=plane)
+                                    plane=plane, lanes=B)
 
     return SolverOps(matvec=matvec, precond=precond, matvec_dot=matvec_dot,
-                     fused_step=fused_step, dots=_policy_dots(policy),
+                     fused_step=fused_step, dots=_policy_dots(policy, lanes),
                      matvec_into=matvec_into,
                      matvec_dot_into=matvec_dot_into,
                      fused_step_into=fused_step_into, direction=cg_direction,
                      advance=cg_advance, backend="fused", policy=policy,
-                     matvec_hi=matvec_hi)
+                     matvec_hi=matvec_hi, lanes=lanes)

@@ -20,7 +20,7 @@ import torch
 __all__ = ["halo_exchange", "spmv_dia", "spmv_ell", "x_pad", "x_ext"]
 
 
-def halo_exchange(x: torch.Tensor, plane: int
+def halo_exchange(x: torch.Tensor, plane: int, lane_parts: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Neighbour planes for every part: (down_halo, up_halo), each (P, plane).
 
@@ -28,7 +28,14 @@ def halo_exchange(x: torch.Tensor, plane: int
     ``up_halo[p] = x[p+1, :plane]`` (zeros for p=P-1).  At the physical
     boundary the halo is zero — matching the zero interface coefficients
     there, so the product is exact.
+
+    ``lane_parts``: the parts are a cohort of lanes of ``lane_parts``
+    parts each, stacked; the halo is zero at every lane border as at the
+    ends, so no part reads a neighbouring lane (``None``: one lane).
     """
+    P = x.shape[0]
+    if lane_parts is not None and lane_parts != P:
+        return _lane_halo(x, plane, lane_parts)
     zeros = torch.zeros((1, plane) + tuple(x.shape[2:]), dtype=x.dtype,
                         device=x.device)
     down = torch.cat([zeros, x[:-1, -plane:]], dim=0)
@@ -36,9 +43,24 @@ def halo_exchange(x: torch.Tensor, plane: int
     return down, up
 
 
-def x_pad(x: torch.Tensor, plane: int) -> torch.Tensor:
+def _lane_halo(x: torch.Tensor, plane: int, lane_parts: int):
+    """:func:`halo_exchange` per lane of ``lane_parts`` parts."""
+    P = x.shape[0]
+    if P % lane_parts:
+        raise ValueError(f"{P} parts are not lanes of {lane_parts}")
+    rest = tuple(x.shape[2:])
+    xl = x.reshape((P // lane_parts, lane_parts) + tuple(x.shape[1:]))
+    zeros = torch.zeros((P // lane_parts, 1, plane) + rest, dtype=x.dtype,
+                        device=x.device)
+    down = torch.cat([zeros, xl[:, :-1, -plane:]], dim=1)
+    up = torch.cat([xl[:, 1:, :plane], zeros], dim=1)
+    return (down.reshape((P, plane) + rest), up.reshape((P, plane) + rest))
+
+
+def x_pad(x: torch.Tensor, plane: int,
+          lane_parts: int | None = None) -> torch.Tensor:
     """[down-halo | x | up-halo] layout for DIA shifts; (P, m + 2*plane)."""
-    down, up = halo_exchange(x, plane)
+    down, up = halo_exchange(x, plane, lane_parts)
     return torch.cat([down, x, up], dim=1)
 
 
@@ -62,16 +84,20 @@ def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
 
 def spmv_dia(bands: torch.Tensor, x: torch.Tensor, *,
              offsets: tuple[int, ...], plane: int,
-             accum_dtype: torch.dtype | None = None) -> torch.Tensor:
+             accum_dtype: torch.dtype | None = None,
+             lanes: int = 1) -> torch.Tensor:
     """Banded SpMV: y[p, i] = sum_d bands[p, d, i] * x_pad[p, plane + i + off_d].
 
     bands: (P, n_bands, m); x: (P, m).  Accumulates in band order at
     ``accum_dtype`` (``None``: the storage dtype) and returns ``y`` in the
-    storage dtype.
+    storage dtype.  ``lanes``: the parts are that many lanes stacked (a
+    cohort), each a system of its own: no halo crosses a lane border.
     """
     P, nb, m = bands.shape
     acc = accum_dtype or bands.dtype
-    xp = x_pad(x, plane)
+    if P % lanes:
+        raise ValueError(f"{P} parts do not split into {lanes} lanes")
+    xp = x_pad(x, plane, P // lanes)
     y = torch.zeros((P, m), dtype=acc, device=x.device)
     for d, off in enumerate(offsets):
         xw = xp[:, plane + off: plane + off + m]

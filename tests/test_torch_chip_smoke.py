@@ -354,3 +354,98 @@ def test_check_spec_fails_a_field_off_by_more_than_2x():
 def test_crossover_rows_reads_the_smallest_winning_size(points, want):
     assert chip_smoke.crossover_rows(points) == want
     assert chip_smoke.crossover_rows(points[::-1]) == want
+
+
+# ---------------------------------------------------------------------------
+# phase 13's helpers
+# ---------------------------------------------------------------------------
+
+def test_lane_abi_tells_this_tree_from_an_older_one(tmp_path):
+    assert chip_smoke.lane_abi(ROOT / "src" / "repro_torch" / "csrc")
+    (tmp_path / "spmv_dia.cu").write_text(
+        'extern "C" int spmv_dia_launch(int c, const void* b, long long P,'
+        ' int nb, void* stream);')
+    assert not chip_smoke.lane_abi(tmp_path)
+    sigs = chip_smoke.single_lane_signatures()
+    assert len(sigs["spmv_dia"]["spmv_dia_launch"]) == 9
+    assert len(sigs["krylov_fused"]["spmv_dot_launch"]) == 10
+    assert len(sigs["krylov_fused"]["axpy_precond_launch"]) == 14
+
+
+def test_lane_part_slices_vectors_partials_and_scalars():
+    B, npl, stride = 3, 2, 4
+    vec = torch.arange(12.0).reshape(6, 2)
+    part = torch.arange(12.0)
+    scal = torch.arange(3.0)
+    got = chip_smoke.lane_part("spmv_dot", (vec, part), 1, B, (npl, stride))
+    assert torch.equal(got[0], torch.tensor([4.0, 5.0, 6.0, 7.0]))
+    assert torch.equal(got[1], torch.tensor([4.0, 5.0]))
+    (s,) = chip_smoke.lane_part("cg_advance", (scal,), 2, B, (npl, stride))
+    assert s.tolist() == [2.0]
+
+
+@pytest.fixture
+def tiny_phase13(monkeypatch):
+    """Phase 13a's shapes cut to a tiny mesh, on the CPU: the wrappers run
+    their plain versions there, so the kernel runs are plain too."""
+    monkeypatch.setattr(chip_smoke, "N", 8)
+    monkeypatch.setattr(chip_smoke, "PARTS", 4)
+    monkeypatch.setattr(chip_smoke, "ALPHA", 4)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "no_plain_versions",
+                        chip_smoke.contextlib.nullcontext)
+
+
+def test_lane_kernel_phase_checks_pass_on_plain_lanes(tiny_phase13):
+    problems = []
+    out = chip_smoke.lane_kernel_phase(torch, torch.device("cpu"), problems)
+    assert problems == []
+    assert set(out) == {"float64", "float32", "bfloat16"}
+    assert all(all(row.values()) for rows in out.values()
+               for row in rows.values())
+
+
+def test_lane_kernel_phase_catches_a_lane_leak(tiny_phase13, monkeypatch):
+    """A lane kernel that reads across a lane border (here: the SpMV taking
+    the cohort as one system) fails the solo and NaN checks."""
+    from repro_torch.kernels.spmv_dia import spmv_dia as mod
+
+    plain = mod.spmv_dia_plain
+
+    def leaky(bands, x, **kw):
+        kw.pop("lanes", None)
+        return plain(bands, x, **kw)
+
+    monkeypatch.setattr(mod, "spmv_dia_plain", leaky)
+    problems = []
+    chip_smoke.lane_kernel_phase(torch, torch.device("cpu"), problems)
+    assert any("spmv_dia" in p and "vs_solo" in p for p in problems)
+    assert any("spmv_dia" in p and "nan_mates" in p for p in problems)
+
+
+def test_lane_report_flags_drift_and_counts():
+    from repro_torch.fvm.piso import PisoState, StepStats
+
+    def state(v):
+        return PisoState(*(torch.full((2, 3), v, dtype=torch.float64)
+                           for _ in range(5)))
+
+    def stats(it):
+        t = torch.tensor
+        return StepStats(t(it), t([5, 5]), t(1e-9), t(1e-9), t(True),
+                         t(False), t(False))
+
+    problems = []
+    assert chip_smoke.lane_report(torch, state(1.0), state(1.0), stats(3),
+                                  stats(3), "x", problems) == (True, 0.0)
+    assert problems == []
+    bitwise, worst = chip_smoke.lane_report(torch, state(1.0 + 1e-12),
+                                            state(1.0), stats(3), stats(4),
+                                            "y", problems)
+    assert not bitwise and worst > 0
+    assert problems == ["y: counts or flags differ from its solo run "
+                        "(3, [5, 5] against 4, [5, 5])"]
+    chip_smoke.lane_report(torch, state(1.1), state(1.0), stats(3),
+                           stats(3), "z", problems)
+    assert problems[-1].startswith("z: ")
