@@ -156,8 +156,40 @@ result.  Phases, in order (any failure exits nonzero):
     13's checks are collected and fail the run after its parts have
     printed.
 
-In phases 9-13 every kernel wrapper's plain version is made to raise while
-the kernel runs go: the card's path launches the kernels only.
+14. supervision: (14a) three supervised tenants at 13b's settings
+    (windows of one step) from the main run's state, checkpointed there:
+    one cohort window, then NaN in t2's ``U`` and a second: t2's events
+    exactly a ``diverged`` fault and a degrade, ``DEGRADED`` at half dt
+    with 2 steps, its retry solo and within 1e-10 (identical counts) of
+    an unsupervised step at half dt from its checkpoint, converged with
+    continuity below 1e-6; t0 and t1 within 1e-10 of 13b's end states with
+    identical counts, healthy with no events; 2 cohort dispatches and 1
+    solo; the windows' seconds, ``max_memory_allocated`` and the
+    session-steps per second against 13b's warm cohort printed; (14b) one
+    supervised ``bf16_ir`` tenant of the same cavity: its first window
+    must fault by itself, the session climb to ``f32_ir`` (solver,
+    controller and cost model) and its retry at half dt converge, within
+    1e-10 (identical counts) of a tenant opened at ``f32_ir``; (14c) at
+    13c's class: a persistent cap fault (budget 2) ending in a clean
+    ``FAILED`` after exactly fault, degrade, fault, quarantine, fault,
+    fail, its mate healthy; NaN twice with the ``"reference"`` fallback,
+    then steps until healthy, the Krylov kernels' launch counters flat
+    over the quarantined request and moving after recovery (the value
+    update throughout), one cohort again; seeded ``blowup`` (recovers) and
+    ``slow`` (no event) faults; 13c's mix supervised against unsupervised
+    in turns; (14d) a snapshot of 14a's engine after its clean window
+    (bytes and seconds), restored after 14a into a fresh engine with a
+    fresh plan cache, one window: every tenant within 1e-10 of 13b's end
+    state, supervisor, controller and tolerances round-tripped; then the
+    serving launcher as subprocesses at ``--cfd-n 64 --parts 16``: an
+    uninterrupted supervised run and a killed-and-resumed one with equal
+    ``digest`` lines, and one seeded chaos run.  Phase 14's checks are
+    collected and fail the run after all four parts have printed.
+
+In phases 9-14 every kernel wrapper's plain version is made to raise while
+the kernel runs go: the card's path launches the kernels only (14c's
+quarantined request runs on the plain ``"reference"`` backend by
+configuration, which calls no wrapper).
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernel table as JSON; the last line is
@@ -183,8 +215,8 @@ iterations, under ``torch.profiler``: device time per iteration by part
 the device's idle share.  Both modes use only what the port has had since
 its fourth slice (the refinement loop and the channel), so a copy of this
 script beside another such checkout's ``src`` measures that tree the same
-way.  With ``--serving``, phases 1 and 2 run, then phase 13 from the
-main path's 3-step state.
+way.  With ``--serving``, phases 1 and 2 run, then phases 13 and 14
+from the main path's 3-step state.
 """
 from __future__ import annotations
 
@@ -2886,7 +2918,7 @@ def lane_report(torch, got, want, stats_got, stats_want, tag, problems):
     return bitwise, worst
 
 
-def full_width_phase(torch, dev, state3, problems) -> dict:
+def full_width_phase(torch, dev, state3, problems, ends) -> dict:
     """13b: three tenants of the 210^3 cavity (the main path's settings,
     non-adaptive, pipeline "auto") from the main run's 3-step state with
     dt = 0.5 h (1, 1.1, 1.2), each path warmed by one untimed step:
@@ -2894,7 +2926,8 @@ def full_width_phase(torch, dev, state3, problems) -> dict:
     window) against each tenant alone through ``step_session`` from the
     same state, with each run's device-loop sweeps; then one tenant's
     ``SERVE_STEPS`` steps with pipeline "on" against "off", each
-    schedule's value updates counted exactly."""
+    schedule's value updates counted exactly.  ``ends`` receives each
+    tenant's cohort end state and last-step stats (phase 14's reference)."""
     from repro_torch.fvm.mesh import CavityMesh
     from repro_torch.fvm.piso import PisoState, make_solver
     from repro_torch.serving.engine import SimulationEngine
@@ -2946,6 +2979,7 @@ def full_width_phase(torch, dev, state3, problems) -> dict:
     peak_c = torch.cuda.max_memory_allocated()
     loops_c = loops()
     cohort = {sid: eng.sessions[sid].state for sid in sids}
+    ends.update({sid: (cohort[sid], last_c[sid]) for sid in sids})
     counters = dict(eng.counters)
     windows = -(-SERVE_STEPS // eng.scan_window)
     if counters["cohort_dispatches"] != windows or \
@@ -3039,6 +3073,20 @@ def _last_step(stats):
     return type(stats)(*(t[-1] for t in stats))
 
 
+def mix_engine(dev, meshes, n, pad=SMALL_CLASS, **eng_kw):
+    """An engine of ``n`` tenants of the serving mesh ``meshes`` in turn,
+    padded to class ``pad`` (None: unpadded), mixed dt, non-adaptive at
+    alpha 1 (13c, 14c)."""
+    from repro_torch.serving.engine import SimulationEngine
+
+    eng = SimulationEngine(device=dev, **eng_kw)
+    for i in range(n):
+        mesh = meshes[i % len(meshes)]
+        eng.open_session(f"s{i}", mesh, dt=0.5 * mesh.h * (1 + 0.05 * i),
+                         alpha0=1, adaptive=False, pad_to_class=pad)
+    return eng
+
+
 def small_tenants_phase(torch, dev, problems) -> dict:
     """13c: ``SMALL_TENANTS`` tenants of the serving mesh mix
     (``mesh_mix`` at ``SMALL_ARGS``: 64 x 64 x {32, 48, 64} in {8, 12, 16}
@@ -3050,21 +3098,12 @@ def small_tenants_phase(torch, dev, problems) -> dict:
     filler lane) held to the same solo runs."""
     from repro_torch.fvm.piso import PisoState
     from repro_torch.launch.serve import mesh_mix
-    from repro_torch.serving.engine import SimulationEngine
     from repro_torch.solvers.device_loop import (loop_records,
                                                  reset_loop_records)
 
     args = serve_args(SMALL_ARGS, dev)
     meshes = mesh_mix(args)
     out = {"meshes": [f"{m.nx}x{m.ny}x{m.nz}/{m.n_parts}" for m in meshes]}
-
-    def engine(n, lane_classes=False, pad=SMALL_CLASS):
-        eng = SimulationEngine(device=dev, lane_classes=lane_classes)
-        for i in range(n):
-            mesh = meshes[i % len(meshes)]
-            eng.open_session(f"s{i}", mesh, dt=0.5 * mesh.h * (1 + 0.05 * i),
-                             alpha0=1, adaptive=False, pad_to_class=pad)
-        return eng
 
     def cg_iters():
         return sum(r.iters for r in loop_records() if r.solver == "cg")
@@ -3092,7 +3131,7 @@ def small_tenants_phase(torch, dev, problems) -> dict:
 
     # each tenant unpadded through its own solver, warmed by one untimed
     # step each (the first captures and device indices)
-    eng = engine(SMALL_TENANTS, pad=None)
+    eng = mix_engine(dev, meshes, SMALL_TENANTS, pad=None)
     init_u = {sid: PisoState(*(t.clone() for t in s.state))
               for sid, s in eng.sessions.items()}
     for sid in eng.sessions:
@@ -3100,7 +3139,7 @@ def small_tenants_phase(torch, dev, problems) -> dict:
     restart(eng, init_u)
     state_u, last_u, wall_u, it_u, _ = solo_run(eng)
     del eng
-    eng = engine(SMALL_TENANTS)
+    eng = mix_engine(dev, meshes, SMALL_TENANTS)
     init = {sid: PisoState(*(t.clone() for t in s.state))
             for sid, s in eng.sessions.items()}
     # one untimed step each, alone and as a cohort, warms both paths
@@ -3174,7 +3213,7 @@ def small_tenants_phase(torch, dev, problems) -> dict:
         problems.append(f"13c: cohort dispatches {cohort_counters}")
     # a filler lane: one tenant fewer, lane classes on
     del eng
-    eng = engine(SMALL_TENANTS - 1, lane_classes=True)
+    eng = mix_engine(dev, meshes, SMALL_TENANTS - 1, lane_classes=True)
     for sid, s in eng.sessions.items():
         s.state = PisoState(*(t.clone() for t in init[sid]))
     with no_plain_versions():
@@ -3272,6 +3311,570 @@ def arrivals_phase(torch, dev, problems) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: supervision
+# ---------------------------------------------------------------------------
+
+CAP_BUDGET = 2             # 14c: the persistent cap fault's retry budget
+SUP_WINDOW = 4             # 14c: steps a window (JAX tests/test_supervision)
+CHAOS_STEPS = 16           # 14c: steps of the seeded blowup/slow run
+CLI_ARGS = SMALL_ARGS + ["--sessions", "2", "--scan-steps", "4",
+                         "--adaptive"]                      # 14d
+CLI_STEPS, CLI_KILL = 8, 4
+CHAOS_ARGS = ["--chaos", "all", "--chaos-seed", "0", "--chaos-events", "2"]
+CLI_TIMEOUT = 300
+# the Krylov kernels: flat while a session is quarantined on "reference"
+KRYLOV_KERNELS = ("spmv_dia", "spmv_dot", "axpy_precond", "cg_direction",
+                  "cg_advance")
+
+
+def group_timer(torch, eng) -> list:
+    """Time every ``advance_group`` of ``eng`` (one cohort or solo window
+    each, synchronised at its end): a list of (sids, seconds) the engine's
+    ``step_all`` fills as it dispatches."""
+    windows = []
+    inner = eng.advance_group
+
+    def timed(group, n_steps, last=None):
+        t0 = time.perf_counter()
+        out = inner(group, n_steps, last)
+        torch.cuda.synchronize()
+        windows.append((list(group), time.perf_counter() - t0))
+        return out
+
+    eng.advance_group = timed
+    return windows
+
+
+def event_kinds(sup) -> list:
+    return [e.kind for e in sup.events]
+
+
+def seed_state(sess, state) -> None:
+    """Start a supervised session from a copy of ``state``, checkpointed
+    there (without the checkpoint, its first fault would roll it back to
+    rest)."""
+    from repro_torch.fvm.piso import PisoState
+
+    sess.state = PisoState(*(t.clone() for t in state))
+    sess.supervisor.checkpoint(sess.state, sess.steps_done)
+
+
+def hold_to_ends(torch, eng, last, ends, sids, tag, problems) -> dict:
+    """Each of ``sids`` against 13b's cohort end state and last-step stats
+    (1e-10, identical counts and flags); returns whether each is
+    bitwise."""
+    return {sid: lane_report(torch, eng.sessions[sid].state, ends[sid][0],
+                             last[sid], ends[sid][1], f"{tag} {sid}",
+                             problems)[0]
+            for sid in sids}
+
+
+def snapshot_posture(eng) -> dict:
+    """What a snapshot must carry back: per session its supervisor,
+    controller and tolerances."""
+    out = {}
+    for sid, s in eng.sessions.items():
+        c, v = s.controller, s.solver
+        out[sid] = {"supervisor": s.supervisor.to_dict(),
+                    "controller": (c.alpha, c.step_count, c.last_switch_step,
+                                   list(c.calibration._log_scales),
+                                   c.calibration.n_obs, len(c.history)),
+                    "tols": (v.mom_tol, v.p_tol, v.mom_maxiter,
+                             v.p_maxiter),
+                    "steps_done": s.steps_done}
+    return out
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def nan_cohort_phase(torch, dev, state3, ends, warm, snap, problems) -> dict:
+    """14a (and 14d's snapshot): three supervised 210^3 tenants at 13b's
+    settings from the main run's state, one cohort window, a snapshot of
+    the engine to ``snap``, then NaN into t2's ``U`` and a second window:
+    t2 rolled back, retried solo at half dt, held to an unsupervised step
+    from its checkpoint; t0 and t1 held to 13b's end states.  ``warm`` is
+    13b's warm cohort rate and peak memory."""
+    from repro_torch.faults import ChaosMonkey
+    from repro_torch.fvm.mesh import CavityMesh
+    from repro_torch.fvm.piso import PisoState
+    from repro_torch.serving.engine import SimulationEngine
+
+    mesh = CavityMesh.cube(N, PARTS)
+    eng = SimulationEngine(device=dev, supervise=True, scan_window=1)
+    for i in range(3):
+        sess = eng.open_session(f"t{i}", mesh,
+                                dt=0.5 * mesh.h * (1 + 0.1 * i),
+                                alpha0=ALPHA, adaptive=False, p_tol=1e-10,
+                                p_maxiter=6000)
+        seed_state(sess, state3)
+    windows = group_timer(torch, eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with no_plain_versions():
+        eng.step_all(1)
+    clean_s = windows[-1][1]
+    t0 = time.perf_counter()
+    eng.snapshot(snap)
+    write_s = time.perf_counter() - t0
+    posture = snapshot_posture(eng)
+    t2 = eng.sessions["t2"]
+    ckpt = PisoState(*(t.clone() for t in t2.supervisor.last_good[0]))
+    ChaosMonkey._inject_nan(t2)
+    with no_plain_versions():
+        last = eng.step_all(1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"windows": [(g, s) for g, s in windows], "clean_s": clean_s,
+           "counters": dict(eng.counters), "peak_gib": peak,
+           "steps_per_s": 3 / clean_s, "snapshot": {
+               "bytes": dir_bytes(snap), "write_s": write_s}}
+    if [g for g, _ in windows] != [["t0", "t1", "t2"], ["t0", "t1", "t2"],
+                                   ["t2"]]:
+        problems.append(f"14a: windows {[g for g, _ in windows]}, not two "
+                        f"cohort windows and t2's solo retry")
+    if (out["counters"]["cohort_dispatches"],
+            out["counters"]["solo_dispatches"]) != (2, 1):
+        problems.append(f"14a: counters {out['counters']}")
+    sup = t2.supervisor
+    kinds = [(e.kind, e.detail) for e in sup.events]
+    if [k for k, _ in kinds] != ["fault", "degrade"] or \
+            kinds[0][1] != "diverged":
+        problems.append(f"14a t2: events {kinds}")
+    if (sup.state, sup.dt_scale, t2.steps_done) != ("degraded", 0.5, 2):
+        problems.append(f"14a t2: {sup.state}, dt_scale {sup.dt_scale}, "
+                        f"{t2.steps_done} steps")
+    # the retry against an unsupervised solo step from the checkpoint
+    with no_plain_versions():
+        ref, ref_stats = t2.solver.run_steps(ckpt, 0.5 * t2.dt, 1)
+    torch.cuda.synchronize()
+    t2_bitwise, t2_rel = lane_report(torch, t2.state, ref, last["t2"],
+                                     _last_step(ref_stats), "14a t2 retry",
+                                     problems)
+    cont = float(last["t2"].continuity_err)
+    if not (bool(last["t2"].converged) and cont < CONTINUITY):
+        problems.append(f"14a t2 retry: converged "
+                        f"{bool(last['t2'].converged)}, continuity "
+                        f"{cont:.3e}")
+    mates = hold_to_ends(torch, eng, last, ends, ("t0", "t1"), "14a",
+                         problems)
+    for sid in ("t0", "t1"):
+        s = eng.sessions[sid].supervisor
+        if s.state != "healthy" or s.events:
+            problems.append(f"14a {sid}: {s.state}, events {s.events}")
+    poisoned_s, retry_s = (windows[1][1], windows[2][1]) \
+        if len(windows) == 3 else (float("nan"), float("nan"))
+    out.update(poisoned_s=poisoned_s, retry_s=retry_s,
+               t2={"bitwise": t2_bitwise, "max_rel": t2_rel,
+                   "continuity": cont, "events": kinds},
+               mates_bitwise=mates, posture=posture)
+    print(f"  [14a] windows: clean cohort {clean_s:.3f} s, poisoned cohort "
+          f"{poisoned_s:.3f} s ({poisoned_s / clean_s:.3f}x), t2's solo "
+          f"retry {retry_s:.3f} s; counters {out['counters']}")
+    print(f"  [14a] t2 events {kinds}, retry bitwise the unsupervised step "
+          f"{t2_bitwise} (max rel {t2_rel:.2e}), continuity {cont:.2e}; t0, "
+          f"t1 bitwise 13b's end states {mates}")
+    print(f"  [14a] session-steps/s supervised {3 / clean_s:.4f} against "
+          f"13b's warm cohort {warm['steps_per_s']:.4f} "
+          f"({3 / clean_s / warm['steps_per_s']:.4f}x); max_memory_allocated "
+          f"{peak:.2f} GiB against 13b's {warm['peak_gib']:.2f}")
+    print(f"  [14d] snapshot after the clean window: "
+          f"{out['snapshot']['bytes'] / 2 ** 30:.3f} GiB in {write_s:.2f} s")
+    del eng, ckpt, ref
+    return out
+
+
+def resume_phase(torch, dev, ends, snap, posture, problems) -> dict:
+    """14d in process: 14a's snapshot restored into a fresh engine with a
+    fresh plan cache, one window with no fault, every tenant held to 13b's
+    end state; supervisor, controller and tolerances round-tripped."""
+    from repro_torch.core.controller import PlanCache
+    from repro_torch.serving.engine import SimulationEngine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = SimulationEngine.restore(snap, plan_cache=PlanCache(), device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = snapshot_posture(eng)
+    if got != posture:
+        problems.append(f"14d: restored posture {got} != saved {posture}")
+    with no_plain_versions():
+        last = eng.step_all(1)
+    torch.cuda.synchronize()
+    bitwise = hold_to_ends(torch, eng, last, ends, ("t0", "t1", "t2"),
+                           "14d", problems)
+    out = {"restore_s": restore_s, "bitwise": bitwise,
+           "posture_round_trip": got == posture,
+           "counters": dict(eng.counters)}
+    print(f"  [14d] restored in {restore_s:.2f} s (fresh plan cache); after "
+          f"one window every tenant bitwise 13b's end state {bitwise}; "
+          f"supervisor, controller and tolerances round-trip {got == posture}")
+    del eng
+    return out
+
+
+def ladder_phase(torch, dev, state3, problems) -> dict:
+    """14b: one supervised ``bf16_ir`` tenant of the 210^3 cavity from the
+    main run's state, ``step_all(1)`` twice: the first window faults by
+    itself, the session climbs to ``f32_ir`` and retries at half dt, held
+    to an unsupervised tenant opened at ``f32_ir``."""
+    from repro_torch.fvm.mesh import CavityMesh
+    from repro_torch.serving.engine import SimulationEngine
+
+    mesh = CavityMesh.cube(N, PARTS)
+    kw = dict(alpha0=ALPHA, adaptive=False, p_tol=1e-10, p_maxiter=6000)
+    eng = SimulationEngine(device=dev, supervise=True, scan_window=1)
+    sess = eng.open_session("bf", mesh, dt=0.5 * mesh.h,
+                            precision="bf16_ir", **kw)
+    seed_state(sess, state3)
+    windows = group_timer(torch, eng)
+    with no_plain_versions():
+        first = eng.step_all(1)
+    sup, c = sess.supervisor, sess.controller
+    faulted_first = bool(sup.events)
+    # the rung the retry ran on (a second clean window restores bf16_ir)
+    rungs = (sess.solver.precision, c.precision, c.base_model.precision,
+             sup.orig_precision)
+    retry_state = type(state3)(*(t.clone() for t in sess.state))
+    with no_plain_versions():
+        second = eng.step_all(1)
+    kinds = [(e.kind, e.detail) for e in sup.events]
+    fault = kinds[0][1] if kinds else None
+    if not faulted_first or [k for k, _ in kinds[:2]] != ["fault",
+                                                          "degrade"]:
+        problems.append(f"14b: the first bf16_ir window did not fault "
+                        f"(events {kinds})")
+    if rungs != ("f32_ir", "f32_ir", "f32_ir", "bf16_ir"):
+        problems.append(f"14b: precision after the fault {rungs}")
+    # an unsupervised tenant opened at f32_ir, one step at half dt
+    ref = SimulationEngine(device=dev, plan_cache=eng.plan_cache)
+    r = ref.open_session("ref", mesh, dt=sess.dt * 0.5, precision="f32_ir",
+                         **kw)
+    r.state = type(state3)(*(t.clone() for t in state3))
+    with no_plain_versions():
+        ref_last = ref.step_session("ref", 1)
+    torch.cuda.synchronize()
+    bitwise, worst = lane_report(torch, retry_state, r.state, first["bf"],
+                                 ref_last, "14b retry", problems)
+    cont = float(first["bf"].continuity_err)
+    if not (bool(first["bf"].converged) and cont < CONTINUITY):
+        problems.append(f"14b retry: converged {bool(first['bf'].converged)}"
+                        f", continuity {cont:.3e}")
+    out = {"fault": fault, "faulted_first": faulted_first, "events": kinds,
+           "precision": rungs,
+           "windows": [(g, s) for g, s in windows], "retry_bitwise": bitwise,
+           "retry_max_rel": worst, "continuity": cont,
+           "second_window": {"converged": bool(second["bf"].converged),
+                             "continuity":
+                                 float(second["bf"].continuity_err),
+                             "precision": sess.solver.precision,
+                             "state": sup.state}}
+    secs = [round(w, 3) for _, w in windows]
+    print(f"  [14b] bf16_ir's first window: {fault}; climbed to {rungs}; "
+          f"f32_ir retry at half dt: continuity {cont:.2e}, bitwise the "
+          f"tenant opened at f32_ir {bitwise} (max rel {worst:.2e}); second "
+          f"window {out['second_window']}; window seconds (faulty, retry, "
+          f"second) {secs}")
+    del eng, ref
+    return out
+
+
+def krylov_moved(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in KRYLOV_KERNELS + ("coef_update",)}
+
+
+def escalation_phase(torch, dev, problems) -> dict:
+    """14c: at the 13c class, a persistent cap fault ending in a clean
+    FAILED; quarantine on the configured "reference" fallback and
+    recovery (the launch counters per request); seeded blowup and slow
+    faults; supervised against unsupervised session-steps per second on
+    13c's mix, in turns."""
+    from repro_torch.faults import ChaosMonkey, FaultEvent
+    from repro_torch.fvm.piso import PisoState
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import mesh_mix
+    from repro_torch.serving.supervisor import SupervisorConfig
+
+    meshes = mesh_mix(serve_args(SMALL_ARGS, dev))
+    out = {}
+    # a persistent cap fault: the budget burns down to a clean FAILED
+    eng = mix_engine(dev, meshes, 2, supervise=True, scan_window=SUP_WINDOW,
+                     supervisor_config=SupervisorConfig(
+                         retry_budget=CAP_BUDGET))
+    with no_plain_versions():
+        eng.step_all(SUP_WINDOW)
+        ChaosMonkey._inject_cap(eng.sessions["s0"])
+        eng.step_all(2 * SUP_WINDOW)
+    post = eng.failed.get("s0", {"events": []})
+    kinds = [e["kind"] for e in post["events"]]
+    faults = {e["detail"] for e in post["events"] if e["kind"] == "fault"}
+    mate = eng.sessions["s1"]
+    if kinds != ["fault", "degrade", "fault", "quarantine", "fault", "fail"] \
+            or faults != {"hit_cap"}:
+        problems.append(f"14c cap: events {post['events']}")
+    if "s0" in eng.sessions or eng.stats()["failed"] != ["s0"]:
+        problems.append(f"14c cap: failed {eng.stats()['failed']}")
+    if (mate.supervisor.state, mate.steps_done) != ("healthy",
+                                                    3 * SUP_WINDOW):
+        problems.append(f"14c cap: mate {mate.supervisor.state}, "
+                        f"{mate.steps_done} steps")
+    out["cap"] = {"events": kinds, "faults": sorted(faults),
+                  "failed": eng.stats()["failed"],
+                  "counters": dict(eng.counters)}
+    print(f"  [14c] persistent cap (budget {CAP_BUDGET}): events {kinds} "
+          f"({sorted(faults)}); failed {eng.stats()['failed']}; mate "
+          f"{mate.supervisor.state} at {mate.steps_done} steps")
+    del eng
+
+    # quarantine on "reference" and recovery, the kernels' counters per
+    # request (the mate waits, so only the quarantined tenant runs).  The
+    # second fault quarantines: its retry and the next request run on the
+    # plain "reference" backend by configuration, so those two requests
+    # run with the plain versions in place
+    eng = mix_engine(dev, meshes, 2, supervise=True, scan_window=SUP_WINDOW,
+                     supervisor_config=SupervisorConfig(
+                         retry_budget=10, recovery_windows=2,
+                         fallback_backend="reference"))
+    q = eng.sessions["s0"]
+    rows = []
+    with no_plain_versions():
+        eng.step_all(SUP_WINDOW)
+    for request in range(5):
+        if request < 2:
+            ChaosMonkey._inject_nan(q)
+        backend = q.solver.solver_backend
+        before = launch_counts()
+        with (contextlib.nullcontext() if request in (1, 2)
+              else no_plain_versions()):
+            eng.step_all(SUP_WINDOW, sids=["s0"])
+        torch.cuda.synchronize()
+        rows.append({"poisoned": request < 2, "backend_before": backend,
+                     "backend_after": q.solver.solver_backend,
+                     "state": q.supervisor.state,
+                     "launches": krylov_moved(before, launch_counts())})
+    with no_plain_versions():
+        rejoin = eng.step_all(SUP_WINDOW)
+    states = [r["state"] for r in rows]
+    want = ["degraded", "quarantined", "degraded", "degraded", "healthy"]
+    if states != want:
+        problems.append(f"14c quarantine: states {states}, not {want}")
+    if q.supervisor.orig_backend is not None or \
+            q.solver.solver_backend != "auto":
+        problems.append(f"14c quarantine: ends on {q.solver.solver_backend}")
+    # request 3 ran wholly on "reference": the Krylov kernels stay flat,
+    # the value update keeps moving; after recovery they move again
+    quarantined = rows[2]
+    if quarantined["backend_before"] != "reference" or any(
+            quarantined["launches"][k] for k in KRYLOV_KERNELS) or \
+            not quarantined["launches"]["coef_update"]:
+        problems.append(f"14c quarantine: the quarantined request's "
+                        f"launches {quarantined}")
+    for r in rows[3:]:
+        if not all(r["launches"][k] > 0 for k in KRYLOV_KERNELS):
+            problems.append(f"14c quarantine: after recovery {r}")
+    if not all(r["launches"]["coef_update"] > 0 for r in rows):
+        problems.append(f"14c quarantine: a request without value updates "
+                        f"{rows}")
+    if len(eng.cohorts()) != 1 or eng.counters["cohort_dispatches"] < 2:
+        problems.append(f"14c quarantine: no single cohort after recovery "
+                        f"({[len(g) for g in eng.cohorts().values()]}, "
+                        f"{eng.counters})")
+    out["quarantine"] = {"requests": rows,
+                         "events": event_kinds(q.supervisor),
+                         "rejoined": sorted(rejoin),
+                         "counters": dict(eng.counters)}
+    for i, r in enumerate(rows):
+        print(f"  [14c] quarantine request {i}: poisoned {r['poisoned']}, "
+              f"{r['backend_before']} -> {r['backend_after']}, {r['state']}, "
+              f"launches {r['launches']}")
+    print(f"  [14c] events {event_kinds(q.supervisor)}; one cohort again: "
+          f"{[len(g) for g in eng.cohorts().values()]}, counters "
+          f"{eng.counters}")
+    del eng
+
+    # seeded blowup and slow faults on adaptive tenants
+    eng = mix_engine(dev, meshes, 2, supervise=True, scan_window=SUP_WINDOW)
+    for s in eng.sessions.values():
+        s.adaptive = True
+    monkey = ChaosMonkey(0, sorted(eng.sessions), kinds=("blowup", "slow"))
+    monkey.events = [FaultEvent(SUP_WINDOW, "s0", "blowup"),
+                     FaultEvent(SUP_WINDOW, "s1", "slow")]
+    with no_plain_versions():
+        while any(s.steps_done < CHAOS_STEPS for s in eng.sessions.values()):
+            eng.step_all(SUP_WINDOW)
+            monkey.poke(eng)
+    blow, slow = eng.sessions["s0"], eng.sessions["s1"]
+    if "fault" not in event_kinds(blow.supervisor) or \
+            blow.supervisor.state != "healthy" or \
+            not bool(torch.isfinite(blow.state.U).all()):
+        problems.append(f"14c blowup: {blow.supervisor.state}, events "
+                        f"{blow.supervisor.events}")
+    if slow.supervisor.events:
+        problems.append(f"14c slow: events {slow.supervisor.events}")
+    out["chaos"] = {"applied": [(e.step, e.sid, e.kind)
+                                for e in monkey.applied],
+                    "blowup_events": event_kinds(blow.supervisor),
+                    "slow_events": event_kinds(slow.supervisor),
+                    "samples": eng.counters["sample_steps"]}
+    print(f"  [14c] chaos {out['chaos']['applied']}: blowup events "
+          f"{out['chaos']['blowup_events']} -> {blow.supervisor.state}; "
+          f"slow events {out['chaos']['slow_events']}; "
+          f"{eng.counters['sample_steps']} sampled steps")
+    del eng
+
+    # supervision's cost: 13c's mix, warm, in turns
+    engines = {"unsupervised": mix_engine(dev, meshes, SMALL_TENANTS),
+               "supervised": mix_engine(dev, meshes, SMALL_TENANTS,
+                                        supervise=True)}
+    init = {sid: PisoState(*(t.clone() for t in s.state))
+            for sid, s in engines["unsupervised"].sessions.items()}
+
+    def restart(eng):
+        for sid, s in eng.sessions.items():
+            s.steps_done = 0
+            if s.supervisor is not None:
+                seed_state(s, init[sid])
+            else:
+                s.state = PisoState(*(t.clone() for t in init[sid]))
+        eng.reset_stats()
+
+    rates = {k: [] for k in engines}
+    for name in ("unsupervised", "supervised", "supervised", "unsupervised",
+                 "unsupervised", "supervised"):
+        eng = engines[name]
+        restart(eng)
+        if not rates[name]:
+            eng.step_all(1)          # warm-up: captures, device indices
+            restart(eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_plain_versions():
+            eng.step_all(SMALL_STEPS)
+        torch.cuda.synchronize()
+        rates[name].append(SMALL_TENANTS * SMALL_STEPS
+                           / (time.perf_counter() - t0))
+    same = all(torch.equal(a, b) for sid in init for a, b in zip(
+        engines["supervised"].sessions[sid].state,
+        engines["unsupervised"].sessions[sid].state))
+    if not same:
+        problems.append("14c cost: the supervised mix is not bitwise the "
+                        "unsupervised one")
+    ratio = sum(rates["supervised"]) / sum(rates["unsupervised"])
+    out["cost"] = {"rates": rates, "ratio": ratio, "bitwise": same}
+    print(f"  [14c] {SMALL_TENANTS} tenants x {SMALL_STEPS} steps, "
+          f"session-steps/s in turns: unsupervised "
+          f"{[round(r, 3) for r in rates['unsupervised']]}, supervised "
+          f"{[round(r, 3) for r in rates['supervised']]}; ratio "
+          f"{ratio:.4f}; bitwise {same}")
+    del engines, eng
+    return out
+
+
+def serve_cli(extra: list):
+    """Start ``python -m repro_torch.launch.serve`` on the card."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *extra],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def finish(procs: dict) -> dict:
+    """Wait for every started process (killing one past ``CLI_TIMEOUT``);
+    name -> (returncode, stdout, stderr)."""
+    out = {}
+    for name, proc in procs.items():
+        try:
+            so, se = proc.communicate(timeout=CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            so, se = proc.communicate()
+        out[name] = (proc.returncode, so, se)
+    return out
+
+
+def digest_lines(text: str) -> list:
+    return sorted(line.split()[1:] for line in text.splitlines()
+                  if line.startswith("digest "))
+
+
+def cli_phase(torch, tmp, problems) -> dict:
+    """14d through the CLI: an uninterrupted supervised run with a
+    snapshot directory against a run killed at a window-aligned snapshot
+    and resumed, the ``digest`` lines equal; then one seeded chaos run."""
+    base = CLI_ARGS + ["--supervise"]
+    t0 = time.perf_counter()
+    runs = finish({
+        "full": serve_cli(base + ["--steps", str(CLI_STEPS), "--snapshot-dir",
+                                  str(Path(tmp) / "full")]),
+        "part": serve_cli(base + ["--steps", str(CLI_KILL), "--snapshot-dir",
+                                  str(Path(tmp) / "part")])})
+    runs.update(finish({
+        "resumed": serve_cli(CLI_ARGS + ["--resume", "--steps",
+                                         str(CLI_STEPS), "--snapshot-dir",
+                                         str(Path(tmp) / "part")]),
+        "chaos": serve_cli(CLI_ARGS + ["--steps", str(CLI_STEPS)]
+                           + CHAOS_ARGS)}))
+    wall = time.perf_counter() - t0
+    for name, (rc, so, se) in runs.items():
+        if rc != 0:
+            problems.append(f"14d CLI {name}: exit {rc}: {se[-2000:]}")
+    full, resumed = (digest_lines(runs[k][1]) for k in ("full", "resumed"))
+    if not full or full != resumed:
+        problems.append(f"14d CLI: digests {full} against resumed {resumed}")
+    lines = [line for line in runs["chaos"][1].splitlines()
+             if line.startswith(("chaos", "supervision:", "health "))]
+    for line in lines:
+        print(f"  [14d] CLI chaos: {line}")
+    print(f"  [14d] CLI kill and resume at {' '.join(SMALL_ARGS)}: digests "
+          f"equal {bool(full) and full == resumed} ({full}); four runs in "
+          f"{wall:.1f} s")
+    return {"digests": full, "resumed_equal": bool(full) and full == resumed,
+            "chaos": lines, "s": wall}
+
+
+def supervision_phase(torch, dev, state3, ends, warm) -> dict:
+    """Phase 14 (see the module docstring); its checks are collected and
+    fail the run after all four parts have printed."""
+    import shutil
+    import tempfile
+
+    print("[14] supervision: NaN in a 210^3 cohort, the precision ladder, "
+          "escalation and recovery, kill and resume")
+    problems = []
+    out = {}
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    try:
+        snap = str(Path(tmp) / "engine")
+        out["nan_cohort"] = nan_cohort_phase(torch, dev, state3, ends, warm,
+                                             snap, problems)
+        posture = out["nan_cohort"].pop("posture")
+        free_device(torch)
+        out["resume"] = resume_phase(torch, dev, ends, snap, posture,
+                                     problems)
+        shutil.rmtree(snap)
+        free_device(torch)
+        out["ladder"] = ladder_phase(torch, dev, state3, problems)
+        free_device(torch)
+        out["escalation"] = escalation_phase(torch, dev, problems)
+        free_device(torch)
+        out["cli"] = cli_phase(torch, tmp, problems)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  [14] {out['seconds']:.1f} s")
+    for p in problems:
+        print(f"  FAILED: {p}")
+    require(not problems, f"phase 14: {len(problems)} check(s) failed")
+    return out
+
+
 def main_state(torch):
     """The main path's state after its 3 steps from rest (the kernels)."""
     from repro_torch.launch.case import build_parser, build_solver
@@ -3286,10 +3889,12 @@ def main_state(torch):
     return state
 
 
-def serving_phase(torch, dev, state3) -> dict:
+def serving_phase(torch, dev, state3) -> tuple:
     """Phase 13 (see the module docstring); its checks are collected and
     fail the run after all four parts have printed.  The launch counters
-    are zeroed before the serving runs (13b-13d) and read after them."""
+    are zeroed before the serving runs (13b-13d) and read after them.
+    Returns the phase's record and 13b's cohort end states (tenant ->
+    (state, last-step stats))."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     print("[13] serving: lane kernels, 210^3 cohort, small tenants, "
@@ -3298,7 +3903,8 @@ def serving_phase(torch, dev, state3) -> dict:
     out = {"lane_kernels": lane_kernel_phase(torch, dev, problems)}
     free_device(torch)
     reset_launch_counts()
-    out["full_width"] = full_width_phase(torch, dev, state3, problems)
+    ends = {}
+    out["full_width"] = full_width_phase(torch, dev, state3, problems, ends)
     free_device(torch)
     out["small"] = small_tenants_phase(torch, dev, problems)
     free_device(torch)
@@ -3312,7 +3918,19 @@ def serving_phase(torch, dev, state3) -> dict:
     for p in problems:
         print(f"  FAILED: {p}")
     require(not problems, f"phase 13: {len(problems)} check(s) failed")
-    return out
+    return out, ends
+
+
+def serving_phases(torch, dev, state3) -> dict:
+    """Phases 13 and 14, from the main run's 3-step state."""
+    serving, ends = serving_phase(torch, dev, state3)
+    free_device(torch)
+    fw = serving["full_width"]
+    warm = {"steps_per_s": fw["cohort_steps_per_s"],
+            "peak_gib": fw["peak_gb"]["3"]}
+    serving["supervision"] = supervision_phase(torch, dev, state3, ends,
+                                               warm)
+    return serving
 
 
 def free_device(torch) -> None:
@@ -3334,8 +3952,8 @@ def main(argv=None) -> int:
                     help="profile ITERS iterations of the main path's "
                          "first pressure CG instead of the smoke test")
     ap.add_argument("--serving", action="store_true",
-                    help="phase 13 alone (after phases 1-2), from a 3-step "
-                         "state of the main path's solver")
+                    help="phases 13 and 14 alone (after phases 1-2), from a "
+                         "3-step state of the main path's solver")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3379,7 +3997,7 @@ def main(argv=None) -> int:
             print(json.dumps({"profile_cg": result}))
             return 0
         if args.serving:
-            result = serving_phase(torch, dev, main_state(torch))
+            result = serving_phases(torch, dev, main_state(torch))
             print(f"done in {time.perf_counter() - t_start:.1f} s")
             print(smi_line())
             print(json.dumps({"serving": result}, default=str))
@@ -3397,7 +4015,7 @@ def main(argv=None) -> int:
         free_device(torch)
         summary["control"] = control_phase(torch, state3, main_step, report)
         free_device(torch)
-        summary["serving"] = serving_phase(torch, dev, state3)
+        summary["serving"] = serving_phases(torch, dev, state3)
         del state3, main_step
         free_device(torch)
         print(f"done in {time.perf_counter() - t_start:.1f} s")

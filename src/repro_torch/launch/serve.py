@@ -8,6 +8,9 @@
   python -m repro_torch.launch.serve --sessions 16 --steps 8 --cfd-n 64 \
       --parts 16 --arrival-rate 50 --lane-classes --cases cavity,channel \
       --programs piso,simple
+  python -m repro_torch.launch.serve --device cpu --sessions 4 --steps 16 \
+      --cfd-n 4 --parts 2 --scan-steps 4 --chaos all --chaos-seed 0 \
+      --chaos-events 2
 
 ``--sessions N`` opens N concurrent PISO tenants (mixed timestep sizes) on
 the ``--cfd-n`` cube and advances them through the engine's
@@ -17,15 +20,17 @@ a whole cohort is one dispatch.  ``--arrival-rate R > 0`` switches to the
 open-loop mode: Poisson arrivals of a heterogeneous size-class mesh mix
 (:func:`mesh_mix`), flow cases and programs sampled per tenant, scheduled
 by :class:`~repro_torch.serving.scheduler.EngineScheduler` (size-class
-cohorts, deadline preemption, per-class p50/p99).
+cohorts, deadline preemption, per-class p50/p99).  ``--supervise``,
+``--chaos``, ``--snapshot-dir`` or ``--resume`` switch to the supervised
+mode (:func:`serve_cfd_supervised`): windows of ``--scan-steps`` through a
+supervised engine, a seeded fault schedule, engine snapshots, and a
+``digest`` line per surviving session that a killed and resumed run must
+reproduce.
 
 The flags are the JAX launcher's CFD flags with its defaults, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the same path on the CPU),
 ``--p-tol`` and ``--p-maxiter`` (the pressure CG's tolerance and cap, as
-in :mod:`repro_torch.launch.case`).  ``--supervise``, ``--chaos``,
-``--snapshot-dir`` and ``--resume`` (supervised serving) exit with an
-error: they come with the next slice of the port.  The LM serving mode is
-not ported.
+in :mod:`repro_torch.launch.case`).  The LM serving mode is not ported.
 """
 from __future__ import annotations
 
@@ -36,9 +41,7 @@ import time
 import numpy as np
 
 __all__ = ["build_parser", "mesh_mix", "serve_cfd", "serve_cfd_arrivals",
-           "main"]
-
-SUPERVISION_FLAGS = ("--supervise", "--chaos", "--snapshot-dir", "--resume")
+           "serve_cfd_supervised", "main"]
 
 
 def mesh_mix(args):
@@ -124,6 +127,116 @@ def serve_cfd_arrivals(args, log=print) -> dict:
     log(f"engine counters: {stats['engine']['counters']}")
     stats["sched"] = sched
     return stats
+
+
+def _state_digest(eng) -> dict:
+    """Per-session state digests (sha256 over each leaf's raw bytes, in
+    ``PisoState`` field order): the kill-and-resume parity gate compares
+    these across runs."""
+    import hashlib
+
+    out = {}
+    for sid in sorted(eng.sessions):
+        h = hashlib.sha256()
+        for leaf in eng.sessions[sid].state:
+            h.update(leaf.cpu().numpy().tobytes())
+        out[sid] = h.hexdigest()[:16]
+    return out
+
+
+def serve_cfd_supervised(args, log=print) -> dict:
+    """Supervised/chaos/checkpointed CFD serving (the correctness driver).
+
+    Windows of ``--scan-steps`` advance every session toward ``--steps``
+    **total** steps each; the :class:`~repro_torch.faults.ChaosMonkey`
+    pokes its seeded fault schedule between windows; ``--snapshot-dir``
+    checkpoints the engine (at ``--snapshot-every`` boundaries and at the
+    end) and ``--resume`` restores from it.  The ``digest`` lines printed
+    at the end are byte-exact state hashes: a killed run resumed from its
+    snapshot must reproduce the uninterrupted run's digests bit for bit.
+    Returns the engine (``engine``), the digests (``digests``) and the
+    health counts (``health``).
+    """
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.faults import ChaosMonkey, parse_kinds
+    from repro_torch.fvm.mesh import CavityMesh
+    from repro_torch.serving.engine import SimulationEngine
+    from repro_torch.serving.supervisor import SupervisorConfig
+
+    if args.resume:
+        if not args.snapshot_dir:
+            raise SystemExit("--resume needs --snapshot-dir")
+        eng = SimulationEngine.restore(args.snapshot_dir, device=args.device)
+        log(f"resumed {len(eng.sessions)} sessions from "
+            f"{args.snapshot_dir} at steps "
+            f"{sorted({s.steps_done for s in eng.sessions.values()})}")
+    else:
+        cfg = ControllerConfig(sample_every=max(args.sample_every, 1))
+        sup_cfg = SupervisorConfig(
+            fallback_backend=args.fallback_backend or None)
+        mesh = CavityMesh.cube(args.cfd_n, args.parts)
+        eng = SimulationEngine(config=cfg,
+                               scan_window=max(args.scan_steps, 1),
+                               supervise=True, supervisor_config=sup_cfg,
+                               device=args.device)
+        base_dt = args.co * mesh.h
+        for i in range(args.sessions):
+            eng.open_session(f"tenant{i}", mesh, dt=base_dt * (1 + 0.1 * i),
+                             alpha0=args.alpha or None, nu=args.nu,
+                             adaptive=args.adaptive,
+                             solver_backend=args.solver_backend,
+                             pipeline=args.pipeline, **_solver_kw(args))
+        log(f"opened {args.sessions} supervised sessions, cohorts="
+            f"{[len(g) for g in eng.cohorts().values()]}")
+
+    chaos = None
+    if args.chaos is not None:
+        seed = args.seed if args.chaos_seed is None else args.chaos_seed
+        chaos = ChaosMonkey(seed, sorted(eng.sessions),
+                            kinds=parse_kinds(args.chaos),
+                            n_events=args.chaos_events or None,
+                            horizon=max(2, args.steps))
+        log(f"chaos schedule: "
+            f"{[(e.step, e.sid, e.kind) for e in chaos.events]}")
+
+    window = max(args.scan_steps, 1)
+    next_snap = args.snapshot_every or 0
+    while True:
+        live = [s for s in eng.sessions.values()
+                if s.steps_done < args.steps]
+        if not live:
+            break
+        n = min([window] + [args.steps - s.steps_done for s in live])
+        eng.step_all(n, sids=[s.sid for s in live])
+        if chaos is not None:
+            for ev in chaos.poke(eng):
+                log(f"chaos: injected {ev.kind} into {ev.sid} "
+                    f"(scheduled step {ev.step})")
+        if (args.snapshot_dir and next_snap and eng.sessions
+                and min(s.steps_done for s in eng.sessions.values())
+                >= next_snap):
+            eng.snapshot(args.snapshot_dir)
+            log(f"snapshot @ step {next_snap} -> {args.snapshot_dir}")
+            next_snap += args.snapshot_every
+    if args.snapshot_dir:
+        eng.snapshot(args.snapshot_dir)
+        log(f"snapshot -> {args.snapshot_dir}")
+
+    counts = {"healthy": 0, "degraded": 0, "quarantined": 0,
+              "failed": len(eng.failed)}
+    for s in eng.sessions.values():
+        counts[s.supervisor.state] += 1
+    log("supervision: " + " ".join(f"{k}={v}" for k, v in counts.items()))
+    for sid, s in sorted(eng.sessions.items()):
+        log(f"health {sid} {s.supervisor.state} steps={s.steps_done} "
+            f"events={len(s.supervisor.events)}")
+    for sid in sorted(eng.failed):
+        log(f"health {sid} failed events={len(eng.failed[sid]['events'])}")
+    digests = _state_digest(eng)
+    for sid, h in digests.items():
+        log(f"digest {sid} {h}")
+    log(f"counters: {eng.stats()['counters']}")
+    return {"engine": eng, "digests": digests, "health": counts}
 
 
 def serve_cfd(args, log=print) -> dict:
@@ -224,29 +337,43 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma-separated timestep programs (piso,simple) "
                          "sampled per arrival")
     ap.add_argument("--seed", type=int, default=0)
-    # -- supervised serving: the next slice --------------------------------
+    # -- supervised serving ------------------------------------------------
     ap.add_argument("--supervise", action="store_true",
-                    help="supervised serving (not yet ported)")
+                    help="attach a SessionSupervisor to every session "
+                         "(divergence detection, backoff, quarantine)")
     ap.add_argument("--chaos", default=None, metavar="KINDS",
-                    help="fault injection (not yet ported)")
+                    help="deterministic fault injection: 'all' or a "
+                         "comma list of nan,blowup,cap,slow "
+                         "(implies --supervise)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="fault-schedule seed (defaults to --seed)")
+    ap.add_argument("--chaos-events", type=int, default=0,
+                    help="number of scheduled faults (0 = one per two "
+                         "sessions)")
+    ap.add_argument("--fallback-backend", default="",
+                    help="solver backend quarantined sessions fall back "
+                         "to (e.g. 'reference'; empty = keep backend)")
     ap.add_argument("--snapshot-dir", default="",
-                    help="engine checkpoints (not yet ported)")
+                    help="engine checkpoint directory (written at "
+                         "--snapshot-every boundaries and at exit)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot once all sessions pass each multiple "
+                         "of this step count (0 = only at exit)")
     ap.add_argument("--resume", action="store_true",
-                    help="restore from --snapshot-dir (not yet ported)")
+                    help="restore the engine from --snapshot-dir and "
+                         "continue to --steps total steps per session")
     return ap
 
 
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if (args.supervise or args.chaos is not None or args.snapshot_dir
-            or args.resume):
-        ap.error(f"{'/'.join(SUPERVISION_FLAGS)}: supervised serving "
-                 f"(supervision, fault injection, snapshots) comes with the "
-                 f"next slice of the port (ROADMAP A7b)")
-    if args.sessions < 1:
-        ap.error("--sessions N (N >= 1) is required: the port serves CFD "
-                 "sessions only (the LM mode is not ported)")
+    if args.sessions < 1 and not args.resume:
+        ap.error("--sessions N (N >= 1) or --resume is required: the port "
+                 "serves CFD sessions only (the LM mode is not ported)")
+    if (args.supervise or args.resume or args.chaos is not None
+            or args.snapshot_dir):
+        return serve_cfd_supervised(args)
     if args.arrival_rate > 0:
         return serve_cfd_arrivals(args)
     return serve_cfd(args)

@@ -1,7 +1,7 @@
 """Multi-tenant CFD serving: many simulations, one card.
 
-The port of the CFD half of the JAX package's ``serving/engine.py``,
-unsupervised: :class:`SimulationEngine` hosts many concurrent segregated
+The port of the CFD half of the JAX package's ``serving/engine.py``:
+:class:`SimulationEngine` hosts many concurrent segregated
 simulations ("solver-as-a-service") — any registered ``(program, case)``
 pair, transient PISO or steady SIMPLE — each with its **own**
 :class:`~repro_torch.core.controller.RepartitionController` (per-session
@@ -18,10 +18,16 @@ window (:class:`~repro_torch.fvm.step_program.BatchedExecutor`), one set of
 launches per phase for the whole cohort instead of one per tenant: the
 batching cure for a card that one small tenant leaves mostly idle.
 
-Supervision (health state machine, rollback, precision fallback,
-snapshots) is not part of this module yet: ``supervise=True`` raises, and
-the cohort key's quarantine token is always None.  The LM half of the JAX
-module (``serve_step``, ``generate``) is not ported.
+``supervise=True`` attaches a
+:class:`~repro_torch.serving.supervisor.SessionSupervisor` to every
+session: each window's health flags (one host read) roll a faulty session
+back to its last clean checkpoint, which stays on the device, and step it
+solo at a smaller dt, climbing the precision ladder (``bf16_ir → f32_ir →
+f64``) and, when configured, a fallback backend.  :meth:`SimulationEngine.
+snapshot` and :meth:`SimulationEngine.restore` checkpoint a whole engine
+to disk and resume it exactly, in the JAX package's format (plus each
+session's Krylov tolerances).  The LM half of the JAX module
+(``serve_step``, ``generate``) is not ported.
 """
 from __future__ import annotations
 
@@ -33,6 +39,9 @@ import torch
 from repro_torch.core.controller import (ControllerConfig, PlanCache,
                                          RepartitionController)
 from repro_torch.core.cost_model import H100, CostModel
+from repro_torch.serving.supervisor import (FAILED, SessionSupervisor,
+                                            SupervisorConfig, window_verdict)
+from repro_torch.solvers.precision import PRECISION_FALLBACK
 
 __all__ = ["SimulationSession", "SimulationEngine"]
 
@@ -56,6 +65,9 @@ class SimulationSession:
     # per-session-step wall latencies (seconds), appended when the engine
     # runs with track_latency=True; stats() folds them into p50/p99
     latency_samples: list = dataclasses.field(default_factory=list)
+    # health state machine (serving.supervisor) — None when the engine
+    # runs unsupervised (the default)
+    supervisor: SessionSupervisor | None = None
 
 
 def _last(stats, index=(-1,)):
@@ -73,20 +85,18 @@ class SimulationEngine:
     to the next power of two with zero filler lanes (``n_active=0``), so a
     cohort whose occupancy drifts reuses one of a few batch shapes;
     ``track_latency`` books wall time per session-step (synchronising the
-    card after each dispatch) on ``clock``.
+    card after each dispatch) on ``clock``.  ``supervise`` attaches a
+    supervisor under ``supervisor_config`` (a fresh
+    :class:`~repro_torch.serving.supervisor.SupervisorConfig` by default)
+    to every session.
     """
 
     def __init__(self, plan_cache: PlanCache | None = None,
                  config: ControllerConfig | None = None,
                  scan_window: int = 8, lane_classes: bool = False,
                  track_latency: bool = False, clock=None,
-                 supervise: bool = False,
+                 supervise: bool = False, supervisor_config=None,
                  device: str | torch.device = "cuda"):
-        if supervise:
-            raise NotImplementedError(
-                "supervised serving (health state machine, rollback, "
-                "precision fallback, snapshots) is ROADMAP A7b, the next "
-                "slice of the port")
         from repro_torch.env import resolve_device
 
         self.device = resolve_device(device)
@@ -101,6 +111,19 @@ class SimulationEngine:
         self.lane_classes = lane_classes
         self.track_latency = track_latency
         self._clock = time.perf_counter if clock is None else clock
+        # supervised mode: every session gets a SessionSupervisor that
+        # reads the health flags once a window, rolls faulty sessions back
+        # to their last clean checkpoint, and escalates degraded →
+        # quarantined → failed.  Opt-in: unsupervised engines are untouched
+        self.supervise = supervise
+        if supervise:
+            self.supervisor_config = (SupervisorConfig()
+                                      if supervisor_config is None
+                                      else supervisor_config)
+        else:
+            self.supervisor_config = supervisor_config
+        # failed sessions' post-mortems: sid -> final stats + event log
+        self.failed: dict[str, dict] = {}
         self.sessions: dict[str, SimulationSession] = {}
         # dispatch accounting: "solo" counts single-session windows,
         # "cohort" one per batched cohort window
@@ -185,6 +208,10 @@ class SimulationEngine:
                                  mesh_fp=mesh_fingerprint(mesh),
                                  adaptive=adaptive, priority=priority,
                                  deadline_ms=deadline_ms)
+        if self.supervise:
+            sess.supervisor = SessionSupervisor(self.supervisor_config)
+            # the initial condition is by definition a clean snapshot
+            sess.supervisor.checkpoint(sess.state, 0)
         self.sessions[sid] = sess
         return sess
 
@@ -197,11 +224,14 @@ class SimulationEngine:
         its controller; the sampling grid is anchored to ``steps_done``
         (:func:`~repro_torch.fvm.step_program.roll_schedule`) and windows
         are capped at ``scan_window`` steps.  Returns the last step's
-        stats.
+        stats.  A supervised session goes through :meth:`step_all`: a
+        rollback mid-request invalidates a precomputed schedule.
         """
         from repro_torch.fvm.step_program import roll_schedule
 
         sess = self.sessions[sid]
+        if sess.supervisor is not None:
+            return self.step_all(n_steps, sids=[sid]).get(sid)
         every = self._every(sess)
         stats = None
         for is_sample, chunk in roll_schedule(sess.steps_done, n_steps,
@@ -211,8 +241,12 @@ class SimulationEngine:
 
     def _every(self, sess: SimulationSession) -> int | None:
         """The session's sampling cadence: ``sample_every`` for adaptive
-        sessions, None otherwise."""
-        return self.config.sample_every if sess.adaptive else None
+        sessions, None otherwise — and None while a supervised session is
+        unhealthy (its retry timings would feed the controller noise, and
+        its rolled-back step counter would thrash the sampling phase)."""
+        healthy = sess.supervisor is None or sess.supervisor.healthy
+        return (self.config.sample_every
+                if (sess.adaptive and healthy) else None)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -223,13 +257,16 @@ class SimulationEngine:
                      chunk: int):
         """Advance one session through one schedule stretch (solo path)."""
         t0 = self._clock() if self.track_latency else 0.0
+        sup = sess.supervisor
+        dt = sess.dt if sup is None else sess.dt * sup.dt_scale
         sample = None
         if is_sample:
             sess.state, stats, sample = sess.solver.timed_step(sess.state,
-                                                               sess.dt)
+                                                               dt)
             self.counters["sample_steps"] += 1
+            window = stats
         else:
-            sess.state, window = sess.solver.run_steps(sess.state, sess.dt,
+            sess.state, window = sess.solver.run_steps(sess.state, dt,
                                                        chunk)
             stats = _last(window)
             self.counters["solo_dispatches"] += 1
@@ -241,7 +278,8 @@ class SimulationEngine:
             per_step = (self._clock() - t0) / chunk
             sess.latency_samples.extend([per_step] * chunk)
         sess.steps_done += chunk
-        if sample is not None:
+        verdict = self._supervise(sess, window) if sup is not None else None
+        if sample is not None and verdict is None:
             alpha = sess.controller.step(sample)
             if alpha != sess.solver.alpha:
                 sess.solver.rebind_alpha(alpha)
@@ -261,16 +299,21 @@ class SimulationEngine:
         The Krylov tolerances and caps, the program, the case, the
         resolved ``pipelined`` flag and the precision policy are key
         components too: tenants that differ in any of them never share a
-        dispatch.  The last component is the supervision quarantine token
-        of the JAX engine, always None here (no supervision yet).
+        dispatch.  The last component is the supervision token: an
+        unhealthy session keys on its own sid, so it steps solo (its
+        retries replay private windows at a scaled dt, perhaps on another
+        backend) while healthy cohort-mates keep their one-dispatch
+        window; recovery clears it and the session rejoins its cohort.
         """
         s = sess.solver
         phase = (sess.steps_done % self.config.sample_every
                  if sess.adaptive else -1)
+        quarantine = (None if sess.supervisor is None
+                      or sess.supervisor.healthy else sess.sid)
         tols = (s.mom_tol, s.p_tol, s.mom_maxiter, s.p_maxiter)
         return (sess.mesh_fp, s.alpha, "stacked", s.solver_backend, s.nu,
                 str(s.dtype), sess.adaptive, phase, tols, s.padded,
-                s.program_name, s.case, s.pipelined, s.precision, None)
+                s.program_name, s.case, s.pipelined, s.precision, quarantine)
 
     def step_all(self, n_steps: int = 1, sids=None) -> dict:
         """Advance every open session (or ``sids``) by ``n_steps`` through
@@ -287,6 +330,11 @@ class SimulationEngine:
         its own row; a session whose controller switches alpha rebinds at
         once, and its changed key migrates it on the next round.
         Singleton cohorts take the solo path inside the same schedule.
+
+        The accounting is by absolute targets: a supervised rollback moves
+        ``steps_done`` backwards and the session stays live until it
+        re-earns its target; a FAILED session leaves :attr:`sessions` and
+        drops out (its retry budget bounds the extra rounds).
         """
         if n_steps < 0:
             raise ValueError(f"n_steps must be >= 0, got {n_steps}")
@@ -309,6 +357,8 @@ class SimulationEngine:
                 key = self._cohort_key(self.sessions[sid])
                 cohorts.setdefault(key, []).append(sid)
             for group in cohorts.values():
+                # a supervised failure earlier in this round may have
+                # closed a member of a later group
                 group = [sid for sid in group if sid in self.sessions]
                 if not group:
                     continue
@@ -397,12 +447,279 @@ class SimulationEngine:
             last[sess.sid] = per_stats[i]
             if self.track_latency:
                 sess.latency_samples.extend([per_step] * chunk)
-            if samples is not None:
+            verdict = None
+            if sess.supervisor is not None:
+                # this lane's flags over the whole window: lanes are
+                # independent, so a poisoned neighbour never perturbs this
+                # verdict (or this lane's numerics)
+                lane_window = (per_stats[i] if samples is not None
+                               else _last(window, (slice(None), i)))
+                verdict = self._supervise(sess, lane_window)
+            if samples is not None and verdict is None:
                 alpha = sess.controller.step(samples[i])
                 if alpha != sess.solver.alpha:
                     # rebind now; the new cohort key migrates the session
                     # on the next scheduling round
                     sess.solver.rebind_alpha(alpha)
+
+    # ---- supervision -----------------------------------------------------
+    def _supervise(self, sess: SimulationSession, window_stats):
+        """Apply one window's health verdict to a supervised session.
+
+        Clean window: checkpoint the state and let the supervisor count
+        toward recovery (restoring the original backend on
+        QUARANTINED → DEGRADED and the original precision policy on
+        DEGRADED → HEALTHY).  Faulty window: roll the session back to
+        its last clean checkpoint and escalate.  Mixed-precision tenants
+        first climb the precision ladder (``bf16_ir → f32_ir → f64``,
+        one rung per fault) — a low-precision divergence is most often
+        cured by more mantissa; only once the ladder is exhausted does
+        "quarantine" rebind the configured fallback backend.  "fail"
+        closes the session and parks its post-mortem in :attr:`failed`.
+        Returns the supervisor directive (None for a clean window).
+        """
+        sup = sess.supervisor
+        if sup is None or sup.state == FAILED:
+            return None
+        kind = window_verdict(window_stats)
+        if kind is None:
+            act = sup.on_clean_window(sess.steps_done)
+            if act == "recover" and sup.orig_backend is not None:
+                self._rebind_backend(sess, sup.orig_backend)
+                sup.orig_backend = None
+            if act == "restore" and sup.orig_precision is not None:
+                self._rebind_precision(sess, sup.orig_precision)
+                sup.orig_precision = None
+            sup.checkpoint(sess.state, sess.steps_done)
+            return None
+        act = sup.on_fault(kind, sess.steps_done)
+        if act == "fail":
+            final = self.close_session(sess.sid)
+            self.failed[sess.sid] = {
+                "steps_done": sess.steps_done,
+                "controller": final,
+                "events": [dataclasses.asdict(e) for e in sup.events],
+            }
+            return act
+        # roll back to the pre-fault checkpoint; the halved dt (and any
+        # precision/backend rebind below) applies to the replay
+        sess.state, sess.steps_done = sup.rollback()
+        nxt = PRECISION_FALLBACK.get(sess.solver.precision)
+        if nxt is not None:
+            # precision ladder first: one rung toward f64 per fault
+            if sup.orig_precision is None:
+                sup.orig_precision = sess.solver.precision
+            self._rebind_precision(sess, nxt)
+        elif act == "quarantine" and sup.config.fallback_backend:
+            fb = sup.config.fallback_backend
+            if sess.solver.solver_backend != fb:
+                sup.orig_backend = sess.solver.solver_backend
+                self._rebind_backend(sess, fb)
+        return act
+
+    def _rebind_backend(self, sess: SimulationSession, backend: str):
+        """Swap the session's Krylov backend in place; the solver memoises
+        bindings per (program, alpha, backend, policy, pipelined), so a
+        backend the session used before rebinds without building."""
+        sess.solver.solver_backend = backend
+        sess.controller.solver_backend = backend
+        sess.solver.rebind_alpha(sess.solver.alpha)
+
+    def _rebind_precision(self, sess: SimulationSession, precision: str):
+        """Swap the session's precision policy in place.  Same memoised
+        binding mechanics as :meth:`_rebind_backend` — the policy keys the
+        binding and the plan — plus the cohort key: the session stops
+        co-batching with its old-policy cohort-mates on the next
+        dispatch."""
+        if sess.solver.precision == precision:
+            return
+        sess.solver.precision = precision
+        sess.controller.precision = precision
+        base = sess.controller.base_model
+        if base.precision != precision:
+            sess.controller.base_model = base.with_precision(precision)
+        sess.solver.rebind_alpha(sess.solver.alpha)
+
+    # ---- exact checkpoint/restore ---------------------------------------
+    def snapshot(self, path, scheduler=None) -> None:
+        """Serialize the whole engine to ``path`` (a directory): every
+        session's state leaves (plus its supervisor's ``last_good``
+        checkpoint), controller calibration and decision state,
+        supervisor state machine, Krylov tolerances, dispatch counters
+        and — when a scheduler is handed in — its bookkeeping.  The JAX
+        package's format 1: one ``arrays.npz`` of leaves (keys
+        ``"{sid}|state|{field}"`` and ``"{sid}|good|{field}"``) and one
+        ``manifest.json`` of everything else, written atomically (tmp +
+        rename), so :meth:`restore` resumes **exactly** — same states,
+        same controller decisions, same supervision posture.  Each
+        session's entry also carries its ``tols`` (``mom_tol``, ``p_tol``,
+        ``mom_maxiter``, ``p_maxiter``), a key the JAX package's restore
+        ignores.
+        """
+        import json
+        import os
+        import shutil
+
+        import numpy as np
+
+        from repro_torch.fvm.piso import PisoState
+        from repro_torch.interop import mesh_fields
+
+        arrays: dict[str, np.ndarray] = {}
+        sessions = []
+        for sid, sess in self.sessions.items():
+            for field, leaf in zip(PisoState._fields, sess.state):
+                arrays[f"{sid}|state|{field}"] = leaf.cpu().numpy()
+            sup = sess.supervisor
+            if sup is not None and sup.last_good is not None:
+                for field, leaf in zip(PisoState._fields, sup.last_good[0]):
+                    arrays[f"{sid}|good|{field}"] = leaf.cpu().numpy()
+            c = sess.controller
+            s = sess.solver
+            mesh = mesh_fields(s.mesh)
+            # the JAX package's restore reads the key for every mesh
+            mesh.setdefault("n_parts_real", None)
+            sessions.append({
+                "sid": sid,
+                "mesh": mesh,
+                "dt": sess.dt, "adaptive": sess.adaptive,
+                "steps_done": sess.steps_done,
+                "priority": sess.priority, "deadline_ms": sess.deadline_ms,
+                "program": s.program_name,
+                "case": s.case,
+                "nu": s.nu,
+                "alpha": s.alpha,
+                "solve_mode": c.solve_mode,
+                "solver_backend": s.solver_backend,
+                "pipeline": s.pipeline,
+                "precision": s.precision,
+                "tols": {"mom_tol": s.mom_tol, "p_tol": s.p_tol,
+                         "mom_maxiter": s.mom_maxiter,
+                         "p_maxiter": s.p_maxiter},
+                "latency_samples": list(sess.latency_samples),
+                "controller": {
+                    "alpha": c.alpha,
+                    "step_count": c.step_count,
+                    "last_switch_step": c.last_switch_step,
+                    "calibration": {
+                        "log_scales": list(c.calibration._log_scales),
+                        "n_obs": c.calibration.n_obs},
+                    "switches": [dataclasses.asdict(e) for e in c.switches],
+                    "history": [dataclasses.asdict(h) for h in c.history],
+                    "challenger": c._challenger,
+                    "challenger_wins": c._challenger_wins,
+                },
+                "supervisor": None if sup is None else sup.to_dict(),
+            })
+        manifest = {
+            "format": 1,
+            "engine": {
+                "scan_window": self.scan_window,
+                "lane_classes": self.lane_classes,
+                "track_latency": self.track_latency,
+                "supervise": self.supervise,
+                "supervisor_config": (
+                    None if self.supervisor_config is None
+                    else dataclasses.asdict(self.supervisor_config)),
+                "config": dataclasses.asdict(self.config),
+                "counters": dict(self.counters),
+                "dispatch_paths": dict(self.dispatch_paths),
+            },
+            "failed": self.failed,
+            "scheduler": (None if scheduler is None
+                          else scheduler.bookkeeping()),
+            "sessions": sessions,
+        }
+        path = os.fspath(path)
+        tmp = path.rstrip("/") + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1, default=float)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+
+    @classmethod
+    def restore(cls, path, plan_cache: PlanCache | None = None,
+                clock=None, device: str | torch.device = "cuda"
+                ) -> "SimulationEngine":
+        """Rebuild an engine from :meth:`snapshot` output (the port's or
+        the JAX package's) on ``device``.  Sessions are re-opened in
+        manifest order (so cohort stacking order matches the snapshotting
+        engine), then every leaf, counter and decision variable is
+        overwritten with the serialized value: the resumed engine's next
+        window is bit-identical to what the snapshotted engine would have
+        computed.  A manifest without ``tols`` (the JAX package writes
+        none) reopens its sessions at the solver's default tolerances."""
+        import json
+        import os
+
+        import numpy as np
+
+        from repro_torch.core.controller import SwitchEvent
+        from repro_torch.core.cost_model import PhaseBreakdown
+        from repro_torch.fvm.piso import PisoState
+        from repro_torch.interop import mesh_from_fields
+
+        with open(os.path.join(os.fspath(path), "manifest.json")) as f:
+            manifest = json.load(f)
+        arrs = np.load(os.path.join(os.fspath(path), "arrays.npz"))
+        e = manifest["engine"]
+        cfg = dict(e["config"])
+        cfg["alphas"] = tuple(cfg["alphas"])
+        sup_cfg = (None if e["supervisor_config"] is None
+                   else SupervisorConfig(**e["supervisor_config"]))
+        eng = cls(plan_cache=plan_cache, config=ControllerConfig(**cfg),
+                  scan_window=int(e["scan_window"]),
+                  lane_classes=e["lane_classes"],
+                  track_latency=e["track_latency"], clock=clock,
+                  supervise=e["supervise"], supervisor_config=sup_cfg,
+                  device=device)
+        eng.counters.update({k: int(v) for k, v in e["counters"].items()})
+        eng.dispatch_paths.update(
+            {k: int(v) for k, v in e.get("dispatch_paths", {}).items()})
+        eng.failed = dict(manifest["failed"])
+
+        def leaves(sid, kind):
+            return PisoState(*(
+                torch.tensor(arrs[f"{sid}|{kind}|{f}"], device=eng.device)
+                for f in PisoState._fields))
+
+        for m in manifest["sessions"]:
+            sid = m["sid"]
+            sess = eng.open_session(
+                sid, mesh_from_fields(m["mesh"]), dt=float(m["dt"]),
+                alpha0=int(m["alpha"]), nu=float(m["nu"]),
+                adaptive=m["adaptive"], solve_mode=m["solve_mode"],
+                solver_backend=m["solver_backend"],
+                priority=m["priority"], deadline_ms=m["deadline_ms"],
+                program=m["program"], case=m["case"],
+                pipeline=m.get("pipeline", "auto"),
+                precision=m.get("precision", "f64"), **m.get("tols", {}))
+            sess.state = leaves(sid, "state")
+            sess.steps_done = int(m["steps_done"])
+            sess.latency_samples = list(m["latency_samples"])
+            c, cd = sess.controller, m["controller"]
+            c.alpha = int(cd["alpha"])
+            c.step_count = int(cd["step_count"])
+            c.last_switch_step = int(cd["last_switch_step"])
+            c.calibration._log_scales = [
+                float(s) for s in cd["calibration"]["log_scales"]]
+            c.calibration.n_obs = int(cd["calibration"]["n_obs"])
+            c.switches = [SwitchEvent(**s) for s in cd["switches"]]
+            c.history = [PhaseBreakdown(**h) for h in cd["history"]]
+            c._challenger = cd["challenger"]
+            c._challenger_wins = int(cd["challenger_wins"])
+            if m["supervisor"] is not None:
+                sup = SessionSupervisor.from_dict(m["supervisor"])
+                if m["supervisor"]["last_good_step"] is not None:
+                    sup.last_good = (leaves(sid, "good"),
+                                     int(m["supervisor"]["last_good_step"]))
+                sess.supervisor = sup
+        return eng
 
     def close_session(self, sid: str) -> dict:
         """Evict the tenant; returns its final controller stats."""
@@ -463,12 +780,15 @@ class SimulationEngine:
                       "program": s.solver.program_name,
                       "case": s.solver.case,
                       "pipelined": s.solver.pipelined,
-                      "precision": s.solver.precision}
+                      "precision": s.solver.precision,
+                      "health": (None if s.supervisor is None
+                                 else s.supervisor.state)}
                 for sid, s in self.sessions.items()
             },
             "cohorts": [len(g) for g in self.cohorts().values()],
             "counters": dict(self.counters),
             "dispatch_paths": dict(self.dispatch_paths),
+            "failed": sorted(self.failed),
             "plan_cache": self.plan_cache.stats(),
             "latency": self.latency_stats(),
         }

@@ -1,8 +1,7 @@
 """Continuous-batching scheduler: size-class cohorts, arrivals, deadlines.
 
 The port's own copy of the JAX package's ``serving/scheduler.py`` policy
-core (plain Python, statement for statement; the engine snapshot hook is
-left out).  Cohort batching merges only sessions whose program key matches
+core (plain Python, statement for statement).  Cohort batching merges only sessions whose program key matches
 exactly, so a realistic tenant mix fragments into singleton cohorts — one
 dispatch per tenant, the undersubscribed regime the paper diagnoses for a
 single solver, at serving scale.  The cure, in three parts:
@@ -420,3 +419,7 @@ class EngineScheduler:
 
     def bookkeeping(self) -> dict:
         return self.core.bookkeeping()
+
+    def snapshot(self, path) -> None:
+        """Engine snapshot with this scheduler's bookkeeping attached."""
+        self.engine.snapshot(path, scheduler=self)

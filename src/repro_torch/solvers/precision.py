@@ -26,7 +26,8 @@ import dataclasses
 import torch
 
 __all__ = [
-    "PrecisionPolicy", "F64", "F32_IR", "BF16_IR", "POLICIES", "get_policy",
+    "PrecisionPolicy", "F64", "F32_IR", "BF16_IR", "POLICIES",
+    "PRECISION_FALLBACK", "get_policy",
 ]
 
 
@@ -78,6 +79,10 @@ BF16_IR = PrecisionPolicy(name="bf16_ir", storage="bfloat16", accum="float32",
 POLICIES: dict[str, PrecisionPolicy] = {
     p.name: p for p in (F64, F32_IR, BF16_IR)
 }
+
+# The supervisor's escalation ladder: one rung toward f64 per fault, tried
+# *before* any backend rebind (repro_torch.serving.engine._supervise).
+PRECISION_FALLBACK: dict[str, str] = {"bf16_ir": "f32_ir", "f32_ir": "f64"}
 
 
 def get_policy(precision: str | PrecisionPolicy) -> PrecisionPolicy:

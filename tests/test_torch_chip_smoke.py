@@ -449,3 +449,117 @@ def test_lane_report_flags_drift_and_counts():
     chip_smoke.lane_report(torch, state(1.1), state(1.0), stats(3),
                            stats(3), "z", problems)
     assert problems[-1].startswith("z: ")
+
+
+# ---------------------------------------------------------------------------
+# phase 14's helpers and parts, at a tiny size on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tiny_phase14(tiny_phase13, monkeypatch):
+    """Phase 14 cut to tiny meshes on the CPU (the 210^3 parts on
+    cube(8, 4), the 13c class on 4^3 in 2 parts, the launcher on the
+    CPU)."""
+    monkeypatch.setattr(chip_smoke, "SMALL_ARGS", ["--cfd-n", "4",
+                                                   "--parts", "2"])
+    monkeypatch.setattr(chip_smoke, "SMALL_CLASS", 2)
+    monkeypatch.setattr(chip_smoke, "SMALL_TENANTS", 2)
+    monkeypatch.setattr(chip_smoke, "SMALL_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "CLI_ARGS",
+                        ["--cfd-n", "4", "--parts", "2", "--sessions", "2",
+                         "--scan-steps", "4", "--adaptive", "--device",
+                         "cpu"])
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+
+
+def _tiny_state(steps):
+    from repro_torch.fvm.mesh import CavityMesh
+    from repro_torch.fvm.piso import make_solver
+
+    mesh = CavityMesh.cube(8, 4)
+    solver = make_solver("piso", mesh, alpha=4, p_tol=1e-10, p_maxiter=6000,
+                         device="cpu")
+    return solver.run_steps(solver.initial_state(), 0.5 * mesh.h, steps)[0] \
+        if steps else solver.initial_state()
+
+
+def test_phase14_cohort_fault_and_resume_hold_on_the_cpu(tiny_phase14,
+                                                         tmp_path):
+    """14a and 14d in process: t2 rolled back and retried solo, bitwise
+    an unsupervised step from its checkpoint; t0 and t1 bitwise 13b's
+    cohort; the snapshot restored into a fresh engine bitwise 13b's end
+    states, its posture round-tripped."""
+    dev = torch.device("cpu")
+    state3, problems, ends = _tiny_state(3), [], {}
+    chip_smoke.full_width_phase(torch, dev, state3, problems, ends)
+    assert set(ends) == {"t0", "t1", "t2"}
+    problems = []
+    snap = str(tmp_path / "engine")
+    out = chip_smoke.nan_cohort_phase(torch, dev, state3, ends,
+                                      {"steps_per_s": 1.0, "peak_gib": 0.0},
+                                      snap, problems)
+    assert problems == []
+    assert out["t2"]["bitwise"] and all(out["mates_bitwise"].values())
+    assert [g for g, _ in out["windows"]] == [["t0", "t1", "t2"]] * 2 + [
+        ["t2"]]
+    assert out["snapshot"]["bytes"] == chip_smoke.dir_bytes(snap) > 0
+    res = chip_smoke.resume_phase(torch, dev, ends, snap, out["posture"],
+                                  problems)
+    assert problems == [] and all(res["bitwise"].values())
+    # a posture that did not round-trip is caught
+    bad = dict(out["posture"], t0=dict(out["posture"]["t0"], tols=()))
+    chip_smoke.resume_phase(torch, dev, ends, snap, bad, problems)
+    assert len(problems) == 1 and problems[0].startswith("14d: restored")
+
+
+def test_phase14_ladder_climbs_from_a_faulting_start(tiny_phase14):
+    """14b from rest on cube(8, 4), where bf16_ir faults in its first
+    window: the f32_ir retry bitwise the tenant opened at f32_ir.  From
+    the developed state it first faults a window later, which the phase
+    reports."""
+    dev = torch.device("cpu")
+    problems = []
+    out = chip_smoke.ladder_phase(torch, dev, _tiny_state(0), problems)
+    assert problems == []
+    assert out["faulted_first"] and out["fault"] == "diverged"
+    assert out["retry_bitwise"]
+    assert out["precision"] == ("f32_ir", "f32_ir", "f32_ir", "bf16_ir")
+
+
+def test_phase14_escalation_on_the_cpu(tiny_phase14):
+    """14c on 4^3 tenants: every check but the launch counters (the CPU
+    runs the plain versions, which count nothing) passes."""
+    problems = []
+    out = chip_smoke.escalation_phase(torch, torch.device("cpu"), problems)
+    assert all("launches" in p or "after recovery" in p
+               or "value updates" in p for p in problems)
+    assert len(problems) == 4
+    assert out["cap"]["events"] == ["fault", "degrade", "fault",
+                                    "quarantine", "fault", "fail"]
+    assert [r["state"] for r in out["quarantine"]["requests"]] == [
+        "degraded", "quarantined", "degraded", "degraded", "healthy"]
+    assert [r["backend_before"] for r in out["quarantine"]["requests"]] == [
+        "auto", "auto", "reference", "auto", "auto"]
+    assert out["chaos"]["slow_events"] == []
+    assert out["chaos"]["blowup_events"][-1] == "restore"
+    assert out["cost"]["bitwise"]
+
+
+def test_phase14_cli_kill_and_resume_on_the_cpu(tiny_phase14, tmp_path):
+    problems = []
+    out = chip_smoke.cli_phase(torch, str(tmp_path), problems)
+    assert problems == [] and out["resumed_equal"]
+    assert any(line.startswith("supervision:") for line in out["chaos"])
+
+
+def test_phase14_helpers():
+    assert chip_smoke.digest_lines("x\ndigest b 2\ndigest a 1\n") == [
+        ["a", "1"], ["b", "2"]]
+    before = dict.fromkeys(chip_smoke.KRYLOV_KERNELS + ("coef_update",), 1)
+    after = dict(before, coef_update=4)
+    moved = chip_smoke.krylov_moved(before, after)
+    assert moved["coef_update"] == 3 and not any(
+        moved[k] for k in chip_smoke.KRYLOV_KERNELS)

@@ -21,6 +21,7 @@ from repro_torch.core.controller import ControllerConfig
 from repro_torch.fvm.mesh import CavityMesh
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.serving.engine import SimulationEngine
+from repro_torch.serving.supervisor import SupervisorConfig
 
 PARITY = 1e-10
 DTS = (2e-3, 2.2e-3, 2.4e-3)
@@ -150,8 +151,11 @@ def test_advance_group_rejections():
                          solve_mode="full_mesh")
     with pytest.raises(ValueError, match="pipeline mode"):
         eng.open_session("c", CavityMesh.cube(4, 2), dt=2e-3, pipeline="x")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        SimulationEngine(device="cpu", supervise=True)
+    # supervised engines take a fresh SupervisorConfig each
+    sup = [SimulationEngine(device="cpu", supervise=True) for _ in range(2)]
+    assert sup[0].supervisor_config == SupervisorConfig()
+    assert sup[0].supervisor_config is not sup[1].supervisor_config
+    assert eng.supervisor_config is None and eng.failed == {}
     with pytest.raises(ValueError, match="scan_window"):
         SimulationEngine(device="cpu", scan_window=0)
 
@@ -204,8 +208,7 @@ def test_serve_cli_on_the_cpu(capsys):
     # the warm-up request and the timed one: one cohort window each
     assert stats["counters"]["cohort_dispatches"] == 2
     assert stats["dispatch_paths"]["pipelined_cohort"] == 2
-    for flag in (["--supervise"], ["--chaos", "all"],
-                 ["--snapshot-dir", "x"], ["--resume"]):
-        with pytest.raises(SystemExit):
-            serve_main(["--device", "cpu", "--sessions", "1"] + flag)
-        assert "next slice" in capsys.readouterr().err
+    # no sessions and nothing to resume: nothing to serve
+    with pytest.raises(SystemExit):
+        serve_main(["--device", "cpu"])
+    assert "--sessions N" in capsys.readouterr().err
