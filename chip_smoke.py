@@ -14,8 +14,9 @@ result.  Phases, in order (any failure exits nonzero):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of every kernel from ``src/repro_torch/csrc`` (``nvcc``, in
    parallel), with its seconds and, per kernel, the registers, stack frame
-   and spills ``ptxas -v`` reports; every instantiation of the two DIA SpMV
-   kernels and of the axpy kernel must have no stack frame and no spills;
+   and spills ``ptxas -v`` reports; every instantiation of the DIA SpMV
+   kernels (the fold's too) and of the axpy kernels must have no stack
+   frame and no spills;
 3. each kernel against its plain PyTorch version on the card: the three
    Krylov kernels for every (storage, accum) pair at the main path's two
    shapes and one small ragged shape (``n`` not a multiple of 8), the
@@ -39,13 +40,22 @@ result.  Phases, in order (any failure exits nonzero):
    guarded SpMV+dot and SpMV likewise; ``cg_advance`` against its plain
    version; ``cg_direction`` timed beside its byte floor (wrapper, alone,
    the eager pair, the plain version, ``torch.add``), the in-place axpy
-   alone against the out-of-place one in turns, ``cg_advance``;
+   alone against the out-of-place one in turns, ``cg_advance``.  The
+   direction update folded into the SpMV+dot (``spmv_dot_direction``, the
+   CG loop's): bitwise its plain version and the unfused ``cg_direction``
+   + ``spmv_dot`` launches for every dtype pair at the three shapes and
+   the counts 0, 1, 2, unguarded, under a True flag and writing nothing
+   under a False one, a cohort of 3 lanes bitwise each lane alone; timed
+   at the pressure shape (wrapper, alone, plain, floor of 11 values a row)
+   and alone in turns against the unfused pair;
 4. the main path at full size: 3 PISO steps of the 210^3 cavity, 30 fine
    parts fused with alpha = 30, through the launcher's code path, with the
-   kernels: the step's six kernels' launch counters must move (the value
+   kernels: the step's five kernels' launch counters must move (the value
    update once a system a step: 3 serially, 2 on the pipelined schedule
    the launcher takes by default, which updates the pressure matrix once;
-   the four CG kernels once per CG iteration: a
+   the three CG kernels, the fold, the in-place axpy and ``cg_advance``,
+   once per CG iteration, the unfused ``spmv_dot`` and ``cg_direction``
+   never: a
    launch under the loop's guard is counted by its kernel on the device,
    and every sweep's device counts must equal its iterations times the
    loop body's launches), every step converge with a continuity error
@@ -129,7 +139,9 @@ result.  Phases, in order (any failure exits nonzero):
     four parts have printed.
 
 13. serving: (13a) the lane-extended kernels (``spmv_dia``, ``spmv_dot``,
-    the in-place ``axpy_precond``, ``cg_direction``, ``cg_advance``) with
+    the in-place ``axpy_precond``, ``cg_direction``, ``cg_advance``, the
+    fold ``spmv_dot_direction`` and the axpy reading its direction, at the
+    counts 0, 1, 2 a lane) with
     3 lanes at the momentum shape per lane, for every (storage, accum)
     pair: bitwise against their plain versions and against one launch per
     lane alone, a lane whose flag is off left unwritten, NaN in one lane
@@ -211,7 +223,8 @@ pressure solves alone the ms per inner iteration of each policy; the last
 line is those as JSON.  With ``--profile-cg``, only phases 1 and 2 run,
 and then the main path's first pressure CG, capped at ``ITERS``
 iterations, under ``torch.profiler``: device time per iteration by part
-(SpMV+dot, axpy, partial sums, the p update, scalar ops, host reads) and
+(the fold or SpMV+dot, axpy, partial sums, the p update, scalar ops, host
+reads) and
 the device's idle share.  Both modes use only what the port has had since
 its fourth slice (the refinement loop and the channel), so a copy of this
 script beside another such checkout's ``src`` measures that tree the same
@@ -268,7 +281,8 @@ SOURCES = {"spmv_dia": "src/repro_torch/csrc/spmv_dia.cu",
            "coef_update": "src/repro_torch/csrc/coef_update.cu",
            "momentum_bands": "src/repro_torch/csrc/stencil_assembly.cu",
            "cg_direction": "src/repro_torch/csrc/krylov_loop.cu",
-           "cg_advance": "src/repro_torch/csrc/krylov_loop.cu"}
+           "cg_advance": "src/repro_torch/csrc/krylov_loop.cu",
+           "spmv_dot_direction": "src/repro_torch/csrc/krylov_fused.cu"}
 REPLACES = {"spmv_dia": "src/repro/kernels/spmv_dia/spmv_dia.py:53",
             "spmv_dot": "src/repro/kernels/krylov_fused/krylov_fused.py:118",
             "axpy_precond":
@@ -279,16 +293,24 @@ REPLACES = {"spmv_dia": "src/repro/kernels/spmv_dia/spmv_dia.py:53",
             # port-only kernels: no TPU kernel does this work; the JAX
             # solver lines they replace
             "cg_direction": "src/repro/solvers/cg.py:74",
-            "cg_advance": "src/repro/solvers/cg.py:78"}
+            "cg_advance": "src/repro/solvers/cg.py:78",
+            # the SpMV+dot's TPU kernel with the direction update folded in
+            "spmv_dot_direction":
+                "src/repro/kernels/krylov_fused/krylov_fused.py:118 + "
+                "src/repro/solvers/cg.py:74"}
 # the guarded launches one iteration of each device loop makes: every
-# sweep's device counters must read these times its iterations
-LOOP_LAUNCHES = {"cg": {"spmv_dot": 1, "axpy_precond": 1, "cg_direction": 1,
+# sweep's device counters must read these times its iterations (the CG
+# loop's direction update runs inside spmv_dot_direction)
+LOOP_LAUNCHES = {"cg": {"spmv_dot_direction": 1, "axpy_precond": 1,
                         "cg_advance": 1},
                  "bicgstab": {"spmv_dia": 2}}
 # the kernels a PISO step launches; the momentum-assembly kernel belongs to
 # the refactoring baseline's entry point (phase 8)
-STEP_KERNELS = ("spmv_dia", "spmv_dot", "axpy_precond", "coef_update",
-                "cg_direction", "cg_advance")
+STEP_KERNELS = ("spmv_dia", "spmv_dot_direction", "axpy_precond",
+                "coef_update", "cg_advance")
+# the unfused pair the fold replaced on the CG loop: held against it in
+# phase 3 and 13a, never launched by a step
+UNFUSED_KERNELS = ("spmv_dot", "cg_direction")
 # kernels whose every instantiation must compile without a stack frame or
 # spills (ptxas -v): the SpMV kernels read the band offsets at compile-time
 # indices, the axpy kernel indexes its row arrays at compile-time indices
@@ -297,6 +319,8 @@ NO_FRAME_KERNELS = ("spmv_dia_kernel", "spmv_dot_kernel",
 # ... and, since the device-resident loop, the axpy kernel's in-place form
 # and the CG direction update
 LOOP_NO_FRAME_KERNELS = ("axpy_precond_inplace_kernel", "cg_direction_kernel")
+# ... and, since the fold, the SpMV+dot with the direction update
+FOLD_NO_FRAME_KERNELS = ("spmv_dot_direction_kernel",)
 ASSEMBLY_PARITY = 1e-12  # momentum_bands vs assembly + update, elementwise
 #                          rtol = atol (tests/test_kernels.py's bar)
 # the policies whose 210^3 channel step must converge.  bf16_ir refines
@@ -408,10 +432,13 @@ def build_phase() -> None:
             if "registers" in rec:
                 print_record(src, fn, rec)
     # a tree from before the device loop (timed by a copy of this script)
-    # has neither the in-place axpy nor krylov_loop.cu
+    # has neither the in-place axpy nor krylov_loop.cu, one from before the
+    # fold no spmv_dot_direction_kernel
+    from repro_torch.kernels import WRAPPERS
     from repro_torch.kernels._build import SOURCES as built
     kernels = NO_FRAME_KERNELS + (LOOP_NO_FRAME_KERNELS
-                                  if "krylov_loop" in built else ())
+                                  if "krylov_loop" in built else ()) + (
+        FOLD_NO_FRAME_KERNELS if "spmv_dot_direction" in WRAPPERS else ())
     counts = check_frames(records, kernels)
     print(f"  no stack frame, no spills: {counts} instantiations")
 
@@ -536,8 +563,9 @@ def axpy_inplace_launchers(torch, vecs, alpha, accum):
     rz, rr = (torch.empty((), dtype=accum, device=x.device) for _ in "ab")
     a = alpha.to(accum)
     lib = load("krylov_fused")
-    args = (dtype_code(x.dtype, accum), x.data_ptr(), r.data_ptr(),
-            *(v.data_ptr() for v in vecs[2:]), a.data_ptr(), z.data_ptr(),
+    p = vecs[2].data_ptr()
+    args = (dtype_code(x.dtype, accum), x.data_ptr(), r.data_ptr(), p, p, 0,
+            *(v.data_ptr() for v in vecs[3:]), a.data_ptr(), z.data_ptr(),
             part["rz"].data_ptr(), part["rr"].data_ptr(), n, 1,
             part["stride"], 0, 0, stream_ptr(x))
 
@@ -712,6 +740,8 @@ def check_kernels(torch, dev) -> dict:
     report["momentum_bands"] = check_momentum_bands(torch, dev)
     torch.cuda.empty_cache()
     check_loop_kernels(torch, dev, report)
+    torch.cuda.empty_cache()
+    check_fold(torch, dev, report)
     torch.cuda.empty_cache()
     return report
 
@@ -911,6 +941,252 @@ def time_loop_kernels(torch, dev, report, sname, storage, accum, p, z, g_new,
         report["cg_advance"].update(adv)
     else:
         report["cg_advance"][sname] = adv
+
+
+FOLD_LANES = 3     # phase 3: lanes of the fold's cohort check
+FOLD_KS = (0, 1, 2)  # counts: the first direction, then both parities
+
+
+def fold_operands(torch, inputs, storage, accum, lanes=1):
+    """The fold's operands from phase 3's inputs at ``storage``: bands,
+    ``z``, a direction pair (both buffers filled), ``gamma_new``,
+    ``gamma`` and ``beta = gamma_new / gamma`` per lane (accum)."""
+    dev = inputs["x"].device
+    pair = torch.stack((inputs["p"], inputs["Ap"])).to(storage)
+    g_new = torch.linspace(0.37, 0.61, lanes, dtype=torch.float64,
+                           device=dev).to(accum)
+    g = torch.linspace(0.91, 1.07, lanes, dtype=torch.float64,
+                       device=dev).to(accum)
+    if lanes == 1:
+        g_new, g = g_new.reshape(()), g.reshape(())
+    return {"bands": inputs["bands"].to(storage),
+            "z": inputs["r"].to(storage), "pair": pair, "g_new": g_new,
+            "g": g, "beta": g_new / g}
+
+
+def unfused_launches(torch, o, k: int, offsets, plane, accum):
+    """The pair the fold replaces, as kernel launches on one system: the
+    direction ``z`` (k = 0) or ``cg_direction`` on a copy of the pair's
+    buffer ``k % 2``, then ``spmv_dot_partials``; returns ``(p', A p',
+    partials)``."""
+    from repro_torch.kernels.krylov_fused.krylov_fused import (
+        spmv_dot_partials)
+    from repro_torch.kernels.krylov_loop.krylov_loop import cg_direction
+
+    p = o["pair"][k % 2].clone()
+    if k == 0:
+        p.copy_(o["z"])
+    else:
+        cg_direction(p, o["z"], o["g_new"], o["g"])
+    y, part = spmv_dot_partials(o["bands"], p, offsets=offsets, plane=plane,
+                                accum_dtype=accum)
+    return p, y, part
+
+
+def check_fold(torch, dev, report: dict) -> None:
+    """Phase 3's check of the direction update folded into the SpMV+dot
+    (``spmv_dot_direction``), for every dtype pair at the three shapes and
+    the counts 0, 1 and 2: the new direction, ``A p'`` and the partials
+    bitwise its plain version and the unfused launches it replaces
+    (``cg_direction`` then ``spmv_dot``), unguarded and under a True flag,
+    nothing written under a False one, the other buffer of the pair
+    untouched; at the momentum and ragged shapes a cohort of
+    ``FOLD_LANES`` lanes at the counts 0, 1, 2 bitwise the plain version
+    and each lane's launch alone.  Then, at the pressure shape, the fold
+    timed (:func:`time_fold`)."""
+    from repro_torch.kernels.krylov_fused.krylov_fused import (
+        spmv_dot_direction, spmv_dot_direction_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    report["spmv_dot_direction"] = {"max_abs_err": 0.0}
+    for label, P, m, nx, plane in shapes():
+        inputs = make_inputs(torch, P, m, gen, dev)
+        offsets = offsets_for(nx, plane)
+        kw = dict(offsets=offsets, plane=plane)
+        for storage, accum in policy_pairs():
+            sname = str(storage).removeprefix("torch.")
+            o = fold_operands(torch, inputs, storage, accum)
+            same = {}
+            for k in FOLD_KS:
+                kk = torch.tensor(k, dtype=torch.int32, device=dev)
+                new, y_w, part_w = spmv_dot_direction_plain(
+                    o["bands"], o["z"], o["pair"], o["beta"], kk,
+                    accum_dtype=accum, **kw)
+                p_u, y_u, part_u = unfused_launches(torch, o, k, offsets,
+                                                    plane, accum)
+                torch.cuda.synchronize()
+                same[f"k={k} plain vs unfused"] = (
+                    torch.equal(new, p_u) and torch.equal(y_w, y_u)
+                    and torch.equal(part_w, part_u))
+                for tag, flag in (("unguarded", None), ("active", on),
+                                  ("idle", off)):
+                    pair = o["pair"].clone()
+                    y, part = (torch.full_like(t, 7.0) for t in (y_w, part_w))
+                    spmv_dot_direction(o["bands"], o["z"], pair, o["beta"],
+                                       kk, accum_dtype=accum, out=(y, part),
+                                       active=flag, **kw)
+                    torch.cuda.synchronize()
+                    if flag is off:
+                        same[f"k={k} idle writes nothing"] = (
+                            torch.equal(pair, o["pair"])
+                            and bool((y == 7.0).all())
+                            and bool((part == 7.0).all()))
+                        continue
+                    same[f"k={k} {tag}"] = (
+                        torch.equal(pair[(k + 1) % 2], new)
+                        and torch.equal(pair[k % 2], o["pair"][k % 2])
+                        and torch.equal(y, y_w) and torch.equal(part, part_w))
+                    if label == "pressure" and storage == torch.float64:
+                        err = compare(torch, (pair[(k + 1) % 2], y, part),
+                                      (new, y_w, part_w))[0]
+                        slot = report["spmv_dot_direction"]
+                        slot["max_abs_err"] = max(slot["max_abs_err"], err)
+                del pair, y, part, new, y_w, part_w, p_u, y_u, part_u
+            if P % FOLD_LANES == 0:
+                same["lanes"] = fold_lanes_bitwise(torch, inputs, storage,
+                                                   accum, kw)
+            print(f"  bitwise {label:9s} {sname:8s}: spmv_dot_direction "
+                  + ", ".join(f"{k} {v}" for k, v in same.items()))
+            require(all(same.values()), f"spmv_dot_direction not bitwise at "
+                                        f"{label} {sname}: {same}")
+            if label == "pressure":
+                time_fold(torch, report, sname, storage, accum, o, kw)
+            del o
+        del inputs
+        torch.cuda.empty_cache()
+
+
+def fold_lanes_bitwise(torch, inputs, storage, accum, kw) -> bool:
+    """A cohort of ``FOLD_LANES`` lanes at the counts ``FOLD_KS`` under a
+    True flag each: the pair, ``A p'`` and each lane's partials bitwise the
+    plain version and the lane's launch alone."""
+    from repro_torch.kernels.krylov_fused.krylov_fused import (
+        lane_partials, spmv_dot_direction, spmv_dot_direction_plain)
+    from repro_torch.kernels.krylov_loop.krylov_loop import store_direction
+
+    B = FOLD_LANES
+    o = fold_operands(torch, inputs, storage, accum, B)
+    dev = o["z"].device
+    kk = torch.tensor(FOLD_KS, dtype=torch.int32, device=dev)
+    flags = torch.ones(B, dtype=torch.bool, device=dev)
+    pair = o["pair"].clone()
+    y, part = spmv_dot_direction(o["bands"], o["z"], pair, o["beta"], kk,
+                                 accum_dtype=accum, active=None, lanes=B,
+                                 **kw)
+    new, y_w, part_w = spmv_dot_direction_plain(
+        o["bands"], o["z"], o["pair"], o["beta"], kk, accum_dtype=accum,
+        lanes=B, **kw)
+    pair_w = o["pair"].clone()
+    store_direction(pair_w, new, kk, flags)
+    ok = torch.equal(pair, pair_w) and torch.equal(y, y_w)
+    P = o["bands"].shape[0] // B
+    npl, stride = lane_partials(o["z"].numel(), B)
+    for lane in range(B):
+        rows = slice(lane * P, (lane + 1) * P)
+        parts = slice(lane * stride, lane * stride + npl)  # a lane's run
+        one = o["pair"][:, rows].clone()
+        y1, part1 = spmv_dot_direction(
+            o["bands"][rows].contiguous(), o["z"][rows].contiguous(), one,
+            o["beta"][lane:lane + 1], kk[lane:lane + 1], accum_dtype=accum,
+            **kw)
+        ok = (ok and torch.equal(part[parts], part_w[parts])
+              and torch.equal(one, pair[:, rows]) and torch.equal(y1, y[rows])
+              and torch.equal(part1, part[parts]))
+    torch.cuda.synchronize()
+    return ok
+
+
+def time_fold(torch, report, sname, storage, accum, o, kw) -> None:
+    """Phase 3's times of the fold at the pressure shape (count 1: the
+    update's arithmetic runs): the wrapper, its kernel alone (raw
+    launches), the plain version, its floor (11 values a row), and in turns
+    the kernel alone against the unfused pair it replaces, raw
+    ``cg_direction`` then raw ``spmv_dot`` launches on the same operands
+    (fold, pair, pair, fold).  The calls rotate through copies of ``z``
+    and the pair, three times the 50 MB L2 in all (the bands stream past
+    with an evict-first hint, so ``z`` and ``p`` could otherwise stay in
+    L2 from one call to the next in bf16)."""
+    from repro_torch.kernels._build import dtype_code, load
+    from repro_torch.kernels.krylov_fused.krylov_fused import (
+        spmv_dot_direction, spmv_dot_direction_cost,
+        spmv_dot_direction_plain, lane_partials)
+    from repro_torch.kernels.spmv_dia.spmv_dia import (_offsets_arg,
+                                                       stream_ptr)
+
+    b, beta, g_new, g = o["bands"], o["beta"], o["g_new"], o["g"]
+    P, nb, m = b.shape
+    n, size = P * m, b.element_size()
+    acc_size = torch.finfo(accum).bits // 8
+    dev = b.device
+    k1 = torch.ones((), dtype=torch.int32, device=dev)
+    n_sets = max(2, -(-3 * L2_BYTES // (3 * n * size)))
+    sets = [(o["z"].clone(), o["pair"].clone()) for _ in range(n_sets)]
+    turn = itertools.cycle(sets)
+    npl, _ = lane_partials(n, 1)
+    y = torch.empty_like(o["z"])
+    part = torch.empty(npl, dtype=accum, device=dev)
+    code = dtype_code(storage, accum)
+    fused_lib, loop_lib = load("krylov_fused"), load("krylov_loop")
+    offs = _offsets_arg(kw["offsets"])
+
+    def fold_raw():
+        z, pair = next(turn)
+        rc = fused_lib.spmv_dot_direction_launch(
+            code, b.data_ptr(), z.data_ptr(), pair[0].data_ptr(),
+            pair[1].data_ptr(), y.data_ptr(), part.data_ptr(),
+            beta.data_ptr(), k1.data_ptr(), P, m, offs, nb, 1, npl, 0, 0,
+            stream_ptr(z))
+        require(rc == 0, f"spmv_dot_direction launch failed ({rc})")
+
+    def pair_raw():
+        z, pair = next(turn)
+        rc = loop_lib.cg_direction_launch(
+            code, pair[1].data_ptr(), z.data_ptr(), g_new.data_ptr(),
+            g.data_ptr(), n, 1, 0, 0, stream_ptr(z))
+        require(rc == 0, f"cg_direction launch failed ({rc})")
+        rc = fused_lib.spmv_dot_launch(
+            code, b.data_ptr(), pair[1].data_ptr(), y.data_ptr(),
+            part.data_ptr(), P, m, offs, nb, 1, npl, stream_ptr(z))
+        require(rc == 0, f"spmv_dot launch failed ({rc})")
+
+    def rotating(fn):
+        def call():
+            z, pair = next(turn)
+            return fn(z, pair)
+        return call
+
+    rep = timing_report(
+        torch, f"spmv_dot_direction @pressure {sname}",
+        rotating(lambda z, pair: spmv_dot_direction(
+            b, z, pair, beta, k1, accum_dtype=accum, out=(y, part), **kw)),
+        rotating(lambda z, pair: spmv_dot_direction_plain(
+            b, z, pair, beta, k1, accum_dtype=accum, **kw)),
+        spmv_dot_direction_cost(nb, n, size, acc_size), dtype=sname,
+        raw=fold_raw)
+    turns = {"fold": [], "pair": []}
+    for k in ("fold", "pair", "pair", "fold"):
+        turns[k].append(time_ms(torch, fold_raw if k == "fold"
+                                else pair_raw))
+    means = {k: sum(v) / len(v) for k, v in turns.items()}
+    rep.update(alone_in_turns_ms=turns, alone_mean_ms=means,
+               l2_rotation=n_sets,
+               pair_floor_ms=(12 * n * size + npl * acc_size)
+               / HBM_BYTES_PER_S * 1e3)
+    print(f"    alone in turns (fold, pair, pair, fold): fold "
+          f"{' '.join(f'{t:.4f}' for t in turns['fold'])}, unfused pair "
+          f"(cg_direction + spmv_dot) "
+          f"{' '.join(f'{t:.4f}' for t in turns['pair'])} ms: fold / pair "
+          f"{means['fold'] / means['pair']:.3f}; floors {rep['bound_ms']:.4f}"
+          f" / {rep['pair_floor_ms']:.4f} ms; every call on the next of "
+          f"{n_sets} (z, pair) copies")
+    slot = report["spmv_dot_direction"]
+    if storage == torch.float64:
+        slot.update(rep)
+    else:
+        slot[sname] = rep
+    del sets, turn
 
 
 def time_kernels(torch, label, inputs, offsets, plane, pairs, report) -> None:
@@ -1374,7 +1650,10 @@ PLAIN_VERSIONS = (
     ("krylov_fused", "fused_axpy_precond_plain"),
     ("krylov_fused", "axpy_precond_partials_plain"),
     ("coef_update", "coef_update_plain"),
-    ("krylov_loop", "cg_direction_plain"), ("krylov_loop", "cg_advance_plain"))
+    ("krylov_loop", "cg_direction_plain"), ("krylov_loop", "cg_advance_plain"),
+    ("krylov_fused", "spmv_dot_direction_plain"),
+    ("krylov_loop", "next_direction_plain"), ("krylov_loop", "store_direction"),
+    ("krylov_loop", "current_direction"))
 
 
 @contextlib.contextmanager
@@ -1455,10 +1734,11 @@ def main_path(torch) -> tuple:
             f"the value update launched {counts['coef_update']} times in "
             f"{n} steps, not {updates} a step")
     cg_iters = int(stats_f.p_iters.sum())
-    require(counts["spmv_dot"] == counts["axpy_precond"]
-            == counts["cg_direction"] == counts["cg_advance"] == cg_iters,
+    require(counts["spmv_dot_direction"] == counts["axpy_precond"]
+            == counts["cg_advance"] == cg_iters
+            and not any(counts[k] for k in UNFUSED_KERNELS),
             f"the CG kernels' launches {counts} are not the {cg_iters} CG "
-            f"iterations the steps ran")
+            f"iterations the steps ran, with the direction update folded")
     loop = loop_summary(records)
     print(f"  device loop: {len(records)} sweeps, (iterations, blocks, host "
           f"reads, capture ms) {loop['sweeps']}")
@@ -1772,6 +2052,88 @@ def loop_phase(torch, solver, state, dt) -> dict:
                 for t, v in rec.items()))
     finally:
         device_loop.K = k0
+    out["node_floor"] = node_floor(torch, ops, b, x0, thr_p,
+                                   solver.p_maxiter)
+    return out
+
+
+NODE_GRAPH = 256   # launches in the graph that times one node alone
+
+
+def graph_node_ms(torch, fn, n: int = NODE_GRAPH) -> float:
+    """ms per node of a CUDA graph of ``n`` calls of ``fn``, replayed."""
+    fn()  # loads the library outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return time_ms(torch, graph.replay) / n
+
+
+def node_floor(torch, ops, b, x0, thr, maxiter) -> dict:
+    """The floor of a node like ``cg_advance`` (one thread a lane) in the
+    CG loop's captured block: the f64 pressure sweep at the loop's K with
+    and without one more guarded node an iteration that does nothing
+    (``cg_advance`` under a flag that stays False: it reads the flag and
+    returns), in turns (without, with, with, without; each timed on its
+    second sweep, the block already captured); the difference per
+    iteration is what such a node costs in the block.  Then graphs of
+    ``NODE_GRAPH`` nodes alone: the empty node and a running
+    ``cg_advance``."""
+    from repro_torch.kernels.krylov_loop.krylov_loop import cg_advance
+    from repro_torch.solvers import cg as cg_mod
+    from repro_torch.solvers import device_loop
+
+    dev = b.device
+    idle = [torch.ones((), dtype=thr.dtype, device=dev) for _ in range(5)]
+    k_idle = torch.zeros((), dtype=torch.int32, device=dev)
+    never = torch.zeros((), dtype=torch.bool, device=dev)
+    body0 = cg_mod._cg_body
+
+    def empty_node():
+        cg_advance(*idle[:4], k_idle, never, idle[4], 1)
+
+    def with_node(ops_, st, maxiter_):
+        body = body0(ops_, st, maxiter_)
+
+        def run(flag):
+            body(flag)
+            empty_node()
+        return run
+
+    ms = {"without": [], "with": []}
+    iters = set()
+    try:
+        for tag in ("without", "with", "with", "without"):
+            cg_mod._cg_body = with_node if tag == "with" else body0
+            ops.loops.clear()
+            cg_mod._cg_sweep(ops, b, x0, thr, maxiter)  # captures
+            (_, _, k), secs = synced(torch, lambda: cg_mod._cg_sweep(
+                ops, b, x0, thr, maxiter))
+            iters.add(int(k))
+            ms[tag].append(1e3 * secs / int(k))
+    finally:
+        cg_mod._cg_body = body0
+        ops.loops.clear()
+    require(len(iters) == 1, f"the node changed the iterations: {iters}")
+    mean = {t: sum(v) / len(v) for t, v in ms.items()}
+    sc = [torch.ones((), dtype=thr.dtype, device=dev) for _ in range(4)]
+    thr0 = torch.zeros((), dtype=thr.dtype, device=dev)
+    k_run = torch.zeros((), dtype=torch.int32, device=dev)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    out = {"K": device_loop.K["cg"], "iters": iters.pop(),
+           "ms_per_iter": ms, "node_ms_in_block": mean["with"]
+           - mean["without"], "empty_node_ms": graph_node_ms(
+               torch, empty_node),
+           "advance_node_ms": graph_node_ms(
+               torch, lambda: cg_advance(*sc, k_run, on, thr0, 2 ** 30))}
+    print(f"  node floor: f64 pressure sweep ms/iter without "
+          f"{' '.join(f'{t:.4f}' for t in ms['without'])}, with an empty "
+          f"guarded node {' '.join(f'{t:.4f}' for t in ms['with'])}: "
+          f"{out['node_ms_in_block']:.4f} ms a node in the block; graphs "
+          f"of {NODE_GRAPH}: empty node {out['empty_node_ms']:.4f} ms, "
+          f"cg_advance {out['advance_node_ms']:.4f} ms")
     return out
 
 
@@ -2013,8 +2375,12 @@ def pressure_solves(torch, solver, system) -> dict:
         require(pol not in MUST_CONVERGE or (converged and not hit_cap),
                 f"the {pol} pressure solve did not converge")
         replays = 2 * outer + 1 if outer else 1
+        # the SpMV+dot of a CG iteration: the fold since it exists (a copy
+        # of this script times older trees)
+        dot = ("spmv_dot_direction" if "spmv_dot_direction" in counts
+               else "spmv_dot")
         require(counts["spmv_dia"] == replays
-                and counts["spmv_dot"] == counts["axpy_precond"] == inner,
+                and counts[dot] == counts["axpy_precond"] == inner,
                 f"{pol}: launches {counts} for {outer} outer and "
                 f"{inner} inner iterations")
     return out
@@ -2218,7 +2584,8 @@ def step_timing(torch, repeats: int) -> dict:
 # kernel-name fragments of the pressure CG's device work, in the order a
 # name is tried; elementwise kernels split by their mean time into vector
 # (the p update) and scalar work
-CG_PROFILE_PARTS = (("spmv_dot", ("spmv_dot_kernel",)),
+CG_PROFILE_PARTS = (("spmv_dot_direction", ("spmv_dot_direction_kernel",)),
+                    ("spmv_dot", ("spmv_dot_kernel",)),
                     ("axpy_precond", ("axpy_precond",)),
                     ("cg_direction", ("cg_direction_kernel",)),
                     ("cg_advance", ("cg_advance_kernel",)),
@@ -2731,7 +3098,9 @@ ARRIVAL_ARGS = SMALL_ARGS + ["--sessions", "16", "--steps", "8",
 # the outputs of each lane kernel that are reduction partials (laid out per
 # lane, lane_partials); the others are vectors split evenly into lanes, or
 # (cg_advance) one scalar per lane
-LANE_PARTIALS = {"spmv_dot": (1,), "axpy_precond": (3, 4)}
+LANE_PARTIALS = {"spmv_dot": (1,), "axpy_precond": (3, 4),
+                 "spmv_dot_direction": (3,), "axpy_precond_k": (3, 4)}
+LANE_KS = (0, 1, 2)  # 13a: the lanes' CG counts (the fold's parities)
 
 
 def lane_inputs(torch, dev, storage, accum, P, m, gen, lanes):
@@ -2741,15 +3110,24 @@ def lane_inputs(torch, dev, storage, accum, P, m, gen, lanes):
     out = {k: inp[k].to(storage) for k in ("bands", "x") + AXPY_OPERANDS}
     k = torch.arange(lanes, dtype=torch.float64, device=dev)
     out.update(alpha=(0.3 + 0.1 * k).to(accum), g=(1.0 + k).to(accum),
-               g_new=(0.5 + 0.25 * k).to(accum))
+               g_new=(0.5 + 0.25 * k).to(accum),
+               pair=torch.stack((out["p"], out["Ap"])),
+               kk=torch.tensor(LANE_KS[:lanes], dtype=torch.int32,
+                               device=dev))
+    out["beta"] = out["g_new"] / out["g"]
     return out
 
 
 def lane_of(inp: dict, lane: int, lanes: int, P: int) -> dict:
     """Lane ``lane`` of :func:`lane_inputs` as one system's operands."""
-    return {k: (v[lane:lane + 1] if v.dim() == 1 else
-                v.reshape(lanes, -1)[lane].reshape((P,) + tuple(v.shape[1:])))
-            for k, v in inp.items()}
+    def one(k, v):
+        if k == "pair":
+            return v.reshape(2, lanes, -1)[:, lane].reshape(
+                (2, P) + tuple(v.shape[2:]))
+        if v.dim() == 1:
+            return v[lane:lane + 1]
+        return v.reshape(lanes, -1)[lane].reshape((P,) + tuple(v.shape[1:]))
+    return {k: one(k, v) for k, v in inp.items()}
 
 
 def lane_scalars(torch, inp, active):
@@ -2768,9 +3146,11 @@ def lane_runs(torch, inp, offsets, plane, accum, active, lanes, plain=False):
     ``{kernel: outputs}``."""
     from repro_torch.kernels.krylov_fused.krylov_fused import (
         axpy_precond_inplace, axpy_precond_partials_plain, partials_buffers,
-        spmv_dot_partials, spmv_dot_partials_plain)
+        spmv_dot_direction, spmv_dot_direction_plain, spmv_dot_partials,
+        spmv_dot_partials_plain)
     from repro_torch.kernels.krylov_loop.krylov_loop import (
-        cg_advance, cg_advance_plain, cg_direction, cg_direction_plain)
+        cg_advance, cg_advance_plain, cg_direction, cg_direction_plain,
+        current_direction, store_direction)
     from repro_torch.kernels.spmv_dia.spmv_dia import (guarded_store,
                                                        spmv_dia_plain,
                                                        spmv_dia_stacked)
@@ -2783,6 +3163,13 @@ def lane_runs(torch, inp, offsets, plane, accum, active, lanes, plain=False):
     xs, rs, z = inp["x"].clone(), inp["r"].clone(), torch.full_like(x, 7.0)
     p = inp["p"].clone()
     sc = lane_scalars(torch, inp, active)
+    beta = torch.full_like(inp["g"], 7.0)
+    # the fold, then the in-place axpy reading the direction it wrote
+    pair, kk = inp["pair"].clone(), inp["kk"]
+    fold = partials_buffers(x.numel(), accum, x.device, lanes=lanes)
+    yf, dotf = torch.full_like(x, 7.0), fold["dot"].fill_(7.0)
+    xk, rk, zk = inp["x"].clone(), inp["r"].clone(), torch.full_like(x, 7.0)
+    rzk, rrk = fold["rz"].fill_(7.0), fold["rr"].fill_(7.0)
     if plain:
         guarded_store(y, spmv_dia_plain(b, x, lanes=lanes, **kw), active)
         for dst, new in zip((yd, dot), spmv_dot_partials_plain(
@@ -2794,7 +3181,16 @@ def lane_runs(torch, inp, offsets, plane, accum, active, lanes, plain=False):
         for dst, val in zip((xs, rs, z, rz, rr), new):
             guarded_store(dst, val, active)
         cg_direction_plain(p, inp["x"], inp["g_new"], inp["g"], active)
-        cg_advance_plain(*sc, 5)
+        cg_advance_plain(*sc, 5, beta=beta)
+        new, yy, pp = spmv_dot_direction_plain(b, inp["r"], pair, inp["beta"],
+                                               kk, lanes=lanes, **kw)
+        store_direction(pair, new, kk, active)
+        guarded_store(yf, yy, active)
+        guarded_store(dotf, pp, active)
+        for dst, val in zip((xk, rk, zk, rzk, rrk), axpy_precond_partials_plain(
+                xk, rk, current_direction(pair, kk), inp["Ap"], inp["inv"],
+                inp["alpha"], accum_dtype=accum)):
+            guarded_store(dst, val, active)
     else:
         kw.update(active=active, lanes=lanes)
         spmv_dia_stacked(b, x, out=y, **kw)
@@ -2803,11 +3199,18 @@ def lane_runs(torch, inp, offsets, plane, accum, active, lanes, plain=False):
                              inp["alpha"], z, rz, rr, accum_dtype=accum,
                              active=active, lanes=lanes)
         cg_direction(p, inp["x"], inp["g_new"], inp["g"], active)
-        cg_advance(*sc, 5)
+        cg_advance(*sc, 5, beta=beta)
+        spmv_dot_direction(b, inp["r"], pair, inp["beta"], kk, out=(yf, dotf),
+                           **kw)
+        axpy_precond_inplace(xk, rk, pair, inp["Ap"], inp["inv"],
+                             inp["alpha"], zk, rzk, rrk, accum_dtype=accum,
+                             active=active, lanes=lanes, k=kk)
         torch.cuda.synchronize()
     return {"spmv_dia": (y,), "spmv_dot": (yd, dot.clone()),
             "axpy_precond": (xs, rs, z, rz.clone(), rr.clone()),
-            "cg_direction": (p,), "cg_advance": tuple(sc)}
+            "cg_direction": (p,), "cg_advance": tuple(sc) + (beta,),
+            "spmv_dot_direction": (pair[0], pair[1], yf, dotf.clone()),
+            "axpy_precond_k": (xk, rk, zk, rzk.clone(), rrk.clone())}
 
 
 def lane_part(name: str, outs: tuple, lane: int, lanes: int,
@@ -3323,8 +3726,9 @@ CLI_ARGS = SMALL_ARGS + ["--sessions", "2", "--scan-steps", "4",
 CLI_STEPS, CLI_KILL = 8, 4
 CHAOS_ARGS = ["--chaos", "all", "--chaos-seed", "0", "--chaos-events", "2"]
 CLI_TIMEOUT = 300
-# the Krylov kernels: flat while a session is quarantined on "reference"
-KRYLOV_KERNELS = ("spmv_dia", "spmv_dot", "axpy_precond", "cg_direction",
+# the Krylov kernels of a step: flat while a session is quarantined on
+# "reference", moving after it recovers
+KRYLOV_KERNELS = ("spmv_dia", "spmv_dot_direction", "axpy_precond",
                   "cg_advance")
 
 

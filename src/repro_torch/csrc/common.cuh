@@ -41,6 +41,34 @@ __device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16, float>(float v) {
 template <typename S> struct Compute { using type = S; };
 template <> struct Compute<__nv_bfloat16> { using type = float; };
 
+// IEEE round-to-nearest arithmetic, never contracted.
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+
+// One value of the CG direction update p <- z + beta p in the compute type
+// C, with z, p and beta already rounded to the storage dtype S and widened:
+// the product rounded to S, then the sum, as PyTorch's eager
+// `z + beta.to(z.dtype) * p` rounds (cg_direction_kernel, krylov_loop.cu,
+// and the fold in spmv_dot_direction_kernel, krylov_fused.cu).
+template <typename S, typename C>
+__device__ __forceinline__ C cg_step(C z, C p, C beta) {
+  const C t = cvt<C>(cvt<S>(mul_rn(beta, p)));
+  return cvt<C>(cvt<S>(add_rn(z, t)));
+}
+
+// The CG loop's two direction buffers (solvers/cg.py): iteration k reads
+// the direction from buffer k % 2 and writes the next one to buffer
+// (k + 1) % 2, so no block overwrites a value that another block still
+// reads at a halo offset.
+template <typename T>
+__device__ __forceinline__ T* dir_buf(T* buf0, T* buf1, int k) {
+  return (k & 1) ? buf1 : buf0;
+}
+
 // The reductions (spmv_dot_kernel, axpy_precond_kernel) write one
 // accum-width partial per kThreads consecutive flat rows v[0..kThreads-1]
 // (zero past the vector's end), summed in one fixed tree order: level s =

@@ -1,6 +1,8 @@
-// The streaming core of the two DIA SpMV kernels: spmv_dia_kernel
+// The streaming core of the three DIA SpMV kernels: spmv_dia_kernel
 // (spmv_dia.cu) and spmv_dot_kernel (krylov_fused.cu) are this row loop,
-// without and with a p.Ap epilogue.
+// without and with a p.Ap epilogue; spmv_dot_direction_kernel
+// (krylov_fused.cu) is the second with the CG direction update folded into
+// its x loads (dia_rows_direction, at the end).
 //
 // y[g] = sum_d bands[p, d, i] * x[g + off_d] over the flat stacked vector
 // (g = p*m + i; reads outside [0, n) are zero), accumulated in band order
@@ -54,6 +56,8 @@
 //    and ran 5 % slower when one code served both).
 //
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -208,6 +212,96 @@ __device__ __forceinline__ void dia_rows(const S* __restrict__ bands,
 #pragma unroll
     for (int d = 0; d < NB; ++d) {
       if (d < nb) s = s + cvt<A>(bv[k][d]) * xv[k][d];
+    }
+    if (live[k]) st_stream(y + g[k], cvt<S>(s));
+    acc[k] = live[k] ? s : A(0);
+  }
+}
+
+// The rows of dia_rows with the CG direction update folded into the x
+// loads (spmv_dot_direction_kernel, krylov_fused.cu): x is the new
+// direction p' = z at the loop's first iteration (`first`: z's bits, no
+// arithmetic, no read of p), else z + beta p rounded as
+// cg_direction_kernel rounds it (common.cuh: cg_step; beta already rounded
+// to S).  It is formed at every shifted read (0 outside [0, n), whatever
+// beta is) and at the thread's own rows, whose p' it stores to p_new and
+// returns in xg[k] at the accum width.  The compute type of every dtype
+// pair is its accum type, so the sums take the values a launch of
+// cg_direction then dia_rows would read.  The rows, their parts and the
+// order of every load and sum are dia_rows'; every load (bands, z, and p
+// after the first iteration) is issued before the first multiply.
+template <typename S, typename A, int NB, bool kEdge>
+__device__ __forceinline__ void dia_rows_direction(
+    const S* __restrict__ bands, const S* __restrict__ z,
+    const S* __restrict__ p, S* __restrict__ p_new, S* __restrict__ y,
+    const DiaArgs& a, long long g0, bool first, A beta, A (&acc)[kDiaRows],
+    A (&xg)[kDiaRows]) {
+  static_assert(std::is_same<typename Compute<S>::type, A>::value,
+                "the direction is computed at the accum width");
+  const int nb = NB < kMaxBands ? NB : a.nb;
+  const long long m = a.m, n = a.n;
+  long long q = n <= 0x7fffffffLL
+                    ? static_cast<long long>(static_cast<unsigned int>(g0) /
+                                             static_cast<unsigned int>(m))
+                    : g0 / m;
+  long long i = g0 - q * m;
+  long long g[kDiaRows];
+  bool live[kDiaRows];
+  const S* b[kDiaRows];
+#pragma unroll
+  for (int k = 0; k < kDiaRows; ++k) {
+    if (k > 0) {
+      i += kDiaGroup;
+      while (i >= m) { i -= m; ++q; }
+    }
+    g[k] = g0 + static_cast<long long>(k) * kDiaGroup;
+    live[k] = !kEdge || g[k] < n;
+    b[k] = bands + g[k] + q * (nb - 1) * m;  // band 0 of row i of part q
+  }
+  // every load of every row first: the bands, then z and p at each
+  // shifted read (d < NB) and at the row itself (d = NB) ...
+  S bv[kDiaRows][NB];
+#pragma unroll
+  for (int k = 0; k < kDiaRows; ++k) {
+#pragma unroll
+    for (int d = 0; d < NB; ++d) {
+      if (d < nb) bv[k][d] = live[k] ? ld_stream(b[k] + d * m) : cvt<S>(A(0));
+    }
+  }
+  S zv[kDiaRows][NB + 1], pv[kDiaRows][NB + 1];
+#pragma unroll
+  for (int k = 0; k < kDiaRows; ++k) {
+#pragma unroll
+    for (int d = 0; d <= NB; ++d) {
+      if (d < nb || d == NB) {
+        const long long j = d < NB ? g[k] + a.off[d] : g[k];
+        const bool in = !kEdge || (live[k] && j >= 0 && j < n);
+        zv[k][d] = in ? ld_ro(z + j) : cvt<S>(A(0));
+        pv[k][d] = in && !first ? ld_ro(p + j) : cvt<S>(A(0));
+      }
+    }
+  }
+  // ... then the directions and the sums, in band order
+#pragma unroll
+  for (int k = 0; k < kDiaRows; ++k) {
+    A xv[NB + 1];
+#pragma unroll
+    for (int d = 0; d <= NB; ++d) {
+      if (d < nb || d == NB) {
+        const long long j = d < NB ? g[k] + a.off[d] : g[k];
+        const bool in = !kEdge || (live[k] && j >= 0 && j < n);
+        xv[d] = first ? cvt<A>(zv[k][d])
+                : in  ? cg_step<S>(cvt<A>(zv[k][d]), cvt<A>(pv[k][d]), beta)
+                      : A(0);
+      }
+    }
+    // the first direction is z's own bits (a NaN payload included)
+    if (live[k]) p_new[g[k]] = first ? zv[k][NB] : cvt<S>(xv[NB]);
+    xg[k] = live[k] ? xv[NB] : A(0);
+    A s = A(0);
+#pragma unroll
+    for (int d = 0; d < NB; ++d) {
+      if (d < nb) s = s + cvt<A>(bv[k][d]) * xv[d];
     }
     if (live[k]) st_stream(y + g[k], cvt<S>(s));
     acc[k] = live[k] ? s : A(0);

@@ -7,6 +7,9 @@
 //   * `fused_axpy_precond_single` (body `_axpy_precond_kernel`; stacked
 //     wrapper `fused_update_step`) — x' = x + alpha p, r' = r - alpha Ap,
 //     z = r' * inv_diag, and the r'.z and r'.r' dots.
+// The CG loop runs spmv_dot as spmv_dot_direction_kernel: the same rows
+// with the loop's direction update p <- z + beta p folded into the loads
+// of p (notes at the kernel).
 //
 // Bound: bytes.  spmv_dot moves 72 bytes per row in f64 (7 bands, p, Ap)
 // for 2*7 + 2 flops; axpy_precond moves 64 (five reads, three writes) for
@@ -44,26 +47,11 @@ using namespace repro;
 // kDiaGroup are its own rows, the levels down to 32 cross the group's
 // warps through shared memory, and 16 down to 1 are warp shuffles.
 // ---------------------------------------------------------------------------
-template <typename S, typename A, int NB, bool kLanes>
-__global__ void __launch_bounds__(kDiaThreads)
-spmv_dot_kernel(const S* __restrict__ bands, const S* __restrict__ x,
-                S* __restrict__ y, A* __restrict__ partials,
-                const __grid_constant__ DiaArgs a) {
-  if (dia_idle<kLanes>(a)) return;
-  if constexpr (kLanes) {
-    bands = lane_ptr(bands, a.n * a.nb);
-    x = lane_ptr(x, a.n);
-    y = lane_ptr(y, a.n);
-    partials = lane_ptr(partials, a.part_stride);
-  }
-  const long long blk = static_cast<long long>(blockIdx.x) * kDiaTile;
-  const int t = threadIdx.x % kDiaGroup;
-  const long long row0 = blk + (threadIdx.x / kDiaGroup) * kThreads;
-  A acc[kDiaRows], xg[kDiaRows];
-  if (blk >= a.lo && blk + kDiaTile <= a.hi)
-    dia_rows<S, A, NB, false, true>(bands, x, y, a, row0 + t, acc, xg);
-  else
-    dia_rows<S, A, NB, true, true>(bands, x, y, a, row0 + t, acc, xg);
+template <typename A>
+__device__ __forceinline__ void dot_partial(const A (&xg)[kDiaRows],
+                                            const A (&acc)[kDiaRows], int t,
+                                            long long row0, long long n,
+                                            A* __restrict__ partials) {
   A v[kDiaRows];
 #pragma unroll
   for (int k = 0; k < kDiaRows; ++k) v[k] = xg[k] * acc[k];
@@ -86,7 +74,96 @@ spmv_dot_kernel(const S* __restrict__ bands, const S* __restrict__ x,
 #pragma unroll
   for (int s = 16; s >= 1; s >>= 1)
     sum = sum + __shfl_down_sync(0xffffffffu, sum, s);
-  if (t == 0 && row0 < a.n) partials[row0 / kThreads] = sum;
+  if (t == 0 && row0 < n) partials[row0 / kThreads] = sum;
+}
+
+template <typename S, typename A, int NB, bool kLanes>
+__global__ void __launch_bounds__(kDiaThreads)
+spmv_dot_kernel(const S* __restrict__ bands, const S* __restrict__ x,
+                S* __restrict__ y, A* __restrict__ partials,
+                const __grid_constant__ DiaArgs a) {
+  if (dia_idle<kLanes>(a)) return;
+  if constexpr (kLanes) {
+    bands = lane_ptr(bands, a.n * a.nb);
+    x = lane_ptr(x, a.n);
+    y = lane_ptr(y, a.n);
+    partials = lane_ptr(partials, a.part_stride);
+  }
+  const long long blk = static_cast<long long>(blockIdx.x) * kDiaTile;
+  const int t = threadIdx.x % kDiaGroup;
+  const long long row0 = blk + (threadIdx.x / kDiaGroup) * kThreads;
+  A acc[kDiaRows], xg[kDiaRows];
+  if (blk >= a.lo && blk + kDiaTile <= a.hi)
+    dia_rows<S, A, NB, false, true>(bands, x, y, a, row0 + t, acc, xg);
+  else
+    dia_rows<S, A, NB, true, true>(bands, x, y, a, row0 + t, acc, xg);
+  dot_partial(xg, acc, t, row0, a.n, partials);
+}
+
+// ---------------------------------------------------------------------------
+// The CG direction update folded into the next iteration's SpMV+dot:
+// p' = z + beta p (p' = z at the loop's first iteration), then (A p',
+// p'.Ap') exactly as spmv_dot_kernel computes them from a stored p'.
+//
+// Replaces, on the CG loop (solvers/cg.py), the pair cg_direction_kernel
+// (krylov_loop.cu; JAX src/repro/solvers/cg.py:74) then spmv_dot_kernel
+// (JAX spmv_dot_single, src/repro/kernels/krylov_fused/krylov_fused.py:118).
+//
+//  * The race on p.  Blocks read p at halo offsets (+-1, +-nx, +-plane)
+//    while others write p', so p cannot be updated in place: the loop keeps
+//    two direction buffers per lane, and a lane at iteration k (its carried
+//    count, read on the device) reads buffer k % 2 and writes buffer
+//    (k + 1) % 2 (common.cuh: dir_buf).  Nothing ties the parity to a
+//    block's place in a captured graph, and a frozen lane keeps its own.
+//  * beta.  cg_advance has already replaced gamma by gamma_new when this
+//    kernel runs, so it keeps beta = gamma_new / gamma (accum width, one per
+//    lane) for it; this kernel rounds beta to S as cg_direction does.
+//  * Bits.  Every direction value is rounded as cg_direction rounds it and
+//    the sums and partials are spmv_dot_kernel's, so p', Ap and the
+//    partials are bitwise the pair's and the Krylov counts repeat.  At
+//    k == 0 p' takes z's bits with no arithmetic (0 * inf would be NaN).
+//  * Bytes: 11 values a row (7 bands, z, p, p', Ap): 88 B in f64, 44 B in
+//    f32, 22 B in bf16, against the pair's 12 (3 + 9) and two launches.  z
+//    and p go through the read-only path (neither is written here: p' is
+//    the other buffer), so their shifted reads hit L1/L2 as x's do in
+//    spmv_dot.  The rest is spmv_dot's design (dia_rows.cuh): NB a
+//    template argument, every load before the first multiply, offsets in
+//    the parameter bank, streaming bands, kLanes a template argument.
+// ---------------------------------------------------------------------------
+template <typename S, typename A, int NB, bool kLanes>
+__global__ void __launch_bounds__(kDiaThreads)
+spmv_dot_direction_kernel(const S* __restrict__ bands,
+                          const S* __restrict__ z, S* p0, S* p1,
+                          S* __restrict__ y, A* __restrict__ partials,
+                          const A* __restrict__ beta,
+                          const int* __restrict__ iter,
+                          const __grid_constant__ DiaArgs a) {
+  if (dia_idle<kLanes>(a)) return;
+  if constexpr (kLanes) {
+    bands = lane_ptr(bands, a.n * a.nb);
+    z = lane_ptr(z, a.n);
+    p0 = lane_ptr(p0, a.n);
+    p1 = lane_ptr(p1, a.n);
+    y = lane_ptr(y, a.n);
+    partials = lane_ptr(partials, a.part_stride);
+    beta = lane_ptr(beta, 1);
+    iter = lane_ptr(iter, 1);
+  }
+  const int k = *iter;
+  const A b = cvt<A>(cvt<S>(*beta));
+  const S* p = dir_buf(p0, p1, k);
+  S* p_new = dir_buf(p0, p1, k + 1);
+  const long long blk = static_cast<long long>(blockIdx.x) * kDiaTile;
+  const int t = threadIdx.x % kDiaGroup;
+  const long long row0 = blk + (threadIdx.x / kDiaGroup) * kThreads;
+  A acc[kDiaRows], xg[kDiaRows];
+  if (blk >= a.lo && blk + kDiaTile <= a.hi)
+    dia_rows_direction<S, A, NB, false>(bands, z, p, p_new, y, a, row0 + t,
+                                        k == 0, b, acc, xg);
+  else
+    dia_rows_direction<S, A, NB, true>(bands, z, p, p_new, y, a, row0 + t,
+                                       k == 0, b, acc, xg);
+  dot_partial(xg, acc, t, row0, a.n, partials);
 }
 
 // ---------------------------------------------------------------------------
@@ -337,10 +414,15 @@ axpy_precond_kernel(const S* __restrict__ x, const S* __restrict__ r,
 }
 
 // x <- x + alpha p and r <- r - alpha Ap in place, under the loops' guard;
-// block row y is lane y (n rows, its own alpha, flag and partials).
+// block row y is lane y (n rows, its own alpha, flag and partials).  With
+// iter (the CG loop's count k, one per lane), p is the direction the fold
+// just wrote, buffer (k + 1) % 2 of the pair (p, p1); cg_advance moves k
+// after this kernel.
 template <typename S, typename A>
 __global__ void __launch_bounds__(kAxpyThreads)
 axpy_precond_inplace_kernel(S* x, S* r, const S* __restrict__ p,
+                            const S* __restrict__ p1,
+                            const int* __restrict__ iter,
                             const S* __restrict__ ap,
                             const S* __restrict__ inv,
                             const A* __restrict__ alpha,
@@ -355,6 +437,7 @@ axpy_precond_inplace_kernel(S* x, S* r, const S* __restrict__ p,
   }
   x = lane_ptr(x, n);
   r = lane_ptr(r, n);
+  if (iter != nullptr) p = dir_buf(p, p1, iter[blockIdx.y] + 1);
   axpy_precond_rows<S, A, true>(x, r, lane_ptr(p, n), lane_ptr(ap, n),
                                 lane_ptr(inv, n), lane_ptr(alpha, 1), x, r,
                                 lane_ptr(zo, n),
@@ -390,6 +473,44 @@ static int launch_spmv_dot(const void* bands, const void* x, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename S, typename A, int NB>
+static void launch_direction_nb(const S* b, const S* z, S* p0, S* p1, S* y,
+                                A* part, const A* beta, const int* iter,
+                                const DiaArgs& a, long long lanes,
+                                cudaStream_t stream) {
+  if (lanes > 1)
+    spmv_dot_direction_kernel<S, A, NB, true>
+        <<<dia_grid(a.n, lanes), kDiaThreads, 0, stream>>>(
+            b, z, p0, p1, y, part, beta, iter, a);
+  else
+    spmv_dot_direction_kernel<S, A, NB, false>
+        <<<dia_grid(a.n, 1), kDiaThreads, 0, stream>>>(
+            b, z, p0, p1, y, part, beta, iter, a);
+}
+
+// in: bands, z, beta, iter; out: p0, p1 (the pair), y, partials
+template <typename S, typename A>
+static int launch_spmv_dot_direction(const void* const* in, void* const* out,
+                                     const DiaArgs& a, long long lanes,
+                                     cudaStream_t stream) {
+  if (a.n == 0) return 0;
+  const S* b = static_cast<const S*>(in[0]);
+  const S* z = static_cast<const S*>(in[1]);
+  const A* beta = static_cast<const A*>(in[2]);
+  const int* iter = static_cast<const int*>(in[3]);
+  S* p0 = static_cast<S*>(out[0]);
+  S* p1 = static_cast<S*>(out[1]);
+  S* y = static_cast<S*>(out[2]);
+  A* part = static_cast<A*>(out[3]);
+  if (a.nb == 7)
+    launch_direction_nb<S, A, 7>(b, z, p0, p1, y, part, beta, iter, a, lanes,
+                                 stream);
+  else
+    launch_direction_nb<S, A, kMaxBands>(b, z, p0, p1, y, part, beta, iter, a,
+                                         lanes, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
 constexpr long long kAxpyBlockRows = kAxpyThreads / 32 * kThreads;
 
 inline unsigned int axpy_blocks(long long n) {
@@ -414,7 +535,8 @@ static int launch_axpy(const void* const* in, const void* alpha,
   return static_cast<int>(cudaGetLastError());
 }
 
-// in: x, r (updated in place), p, Ap, inv; out: z, rz, rr partials
+// in: x, r (updated in place), p, the pair's second buffer p1, the loop
+// count iter (null: read p), Ap, inv; out: z, rz, rr partials
 template <typename S, typename A>
 static int launch_axpy_inplace(void* const* xr, const void* const* in,
                                const void* alpha, void* const* out,
@@ -427,7 +549,8 @@ static int launch_axpy_inplace(void* const* xr, const void* const* in,
       <<<axpy_grid(n, lanes), kAxpyThreads, 0, stream>>>(
           static_cast<S*>(xr[0]), static_cast<S*>(xr[1]),
           static_cast<const S*>(in[0]), static_cast<const S*>(in[1]),
-          static_cast<const S*>(in[2]), static_cast<const A*>(alpha),
+          static_cast<const int*>(in[2]), static_cast<const S*>(in[3]),
+          static_cast<const S*>(in[4]), static_cast<const A*>(alpha),
           static_cast<S*>(out[0]), static_cast<A*>(out[1]),
           static_cast<A*>(out[2]), n, part_stride,
           static_cast<const bool*>(active),
@@ -487,6 +610,36 @@ extern "C" int spmv_dot_guarded_launch(int dtype_code, const void* bands,
       stream);
 }
 
+// The CG direction update folded into the SpMV+dot, under the loops'
+// guard (active and count as for spmv_dot_guarded_launch; active may be
+// null: unguarded).  bands (lanes*P, nb, m), z (lanes*P, m), the direction
+// pair p0, p1 (lanes*P, m) each, one accum beta and one int32 iter per
+// lane: lane l reads its direction from buffer iter[l] % 2, writes
+// p' = z (iter 0) or z + beta p there to buffer (iter[l] + 1) % 2, and
+// writes y = A p' and the p'.Ap' partials as spmv_dot_launch does.
+extern "C" int spmv_dot_direction_launch(
+    int dtype_code, const void* bands, const void* z, void* p0, void* p1,
+    void* y, void* partials, const void* beta, const void* iter, long long P,
+    long long m, const long long* offsets, int nb, long long lanes,
+    long long part_stride, const void* active, void* count, void* stream) {
+  const void* in[4] = {bands, z, beta, iter};
+  void* out[4] = {p0, p1, y, partials};
+  const DiaArgs a =
+      make_dia_args(offsets, nb, P, m, active, count, part_stride);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes < 1 || lanes > 65535) return -1;
+  switch (dtype_code) {
+    case kF64:
+      return launch_spmv_dot_direction<double, double>(in, out, a, lanes, s);
+    case kF32:
+      return launch_spmv_dot_direction<float, float>(in, out, a, lanes, s);
+    case kBF16F32:
+      return launch_spmv_dot_direction<__nv_bfloat16, float>(in, out, a,
+                                                             lanes, s);
+    default: return -1;
+  }
+}
+
 // x, r, p, Ap, inv_diag (n,) and a device scalar alpha (accum dtype) ->
 // x', r', z (n,) and the r.z, r.r partials (ceil(n / 256),) each.  The
 // five vectors and three outputs must start on 16-byte boundaries.
@@ -511,10 +664,13 @@ extern "C" int axpy_precond_launch(int dtype_code, const void* x,
 // scalar alpha per lane (accum dtype) -> z (lanes*n,) and, per lane, the
 // r.z, r.r partials (ceil(n / 256),) each, lane l's at l * part_stride;
 // active one byte per lane or null; count (one unsigned 64-bit value, or
-// null) gains one when a guarded launch runs in any lane.  The vectors, and
-// every lane's rows, must start on 16-byte boundaries.
+// null) gains one when a guarded launch runs in any lane.  iter (one int32
+// per lane, or null): lane l reads its p from buffer (iter[l] + 1) % 2 of
+// the pair (p, p1).  The vectors, and every lane's rows, must start on
+// 16-byte boundaries.
 extern "C" int axpy_precond_inplace_launch(int dtype_code, void* x, void* r,
-                                           const void* p, const void* ap,
+                                           const void* p, const void* p1,
+                                           const void* iter, const void* ap,
                                            const void* inv, const void* alpha,
                                            void* zo, void* rz_part,
                                            void* rr_part, long long n,
@@ -523,7 +679,7 @@ extern "C" int axpy_precond_inplace_launch(int dtype_code, void* x, void* r,
                                            const void* active, void* count,
                                            void* stream) {
   void* xr[2] = {x, r};
-  const void* in[3] = {p, ap, inv};
+  const void* in[5] = {p, p1, iter, ap, inv};
   void* out[3] = {zo, rz_part, rr_part};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {

@@ -8,6 +8,11 @@
 // cg_direction_kernel) and the `lax.while_loop` carry update and condition
 // (`cond` :64, the loop :78; cg_advance_kernel).
 //
+// The CG loop itself no longer launches cg_direction: the update is folded
+// into the next iteration's SpMV+dot (spmv_dot_direction_kernel,
+// krylov_fused.cu), which reads the beta that cg_advance keeps.
+// cg_direction stays as the unfused form the fold is held against.
+//
 // The guard.  A captured block replays K iterations whether or not the
 // solve has converged, so every kernel that writes the loop's state reads
 // the one-byte device flag `active` first and returns at once when it is
@@ -43,13 +48,6 @@
 using namespace repro;
 
 namespace {
-
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 
 // One 16-byte vector of W = 16 / sizeof(S) values, widened to the compute
 // type: `ro` through the read-only path, `rw` through coherent loads (the
@@ -144,32 +142,30 @@ cg_direction_kernel(S* p, const S* __restrict__ z,
     Vec<S>::rw(p + i0, pv);
     Vec<S>::ro(z + i0, zv);
 #pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const C t = cvt<C>(cvt<S>(mul_rn(beta, pv[k])));
-      pv[k] = cvt<C>(cvt<S>(add_rn(zv[k], t)));
-    }
+    for (int k = 0; k < W; ++k) pv[k] = cg_step<S>(zv[k], pv[k], beta);
     Vec<S>::st(p + i0, pv);
   } else {
-    for (long long i = i0; i < n; ++i) {
-      const C t = cvt<C>(cvt<S>(mul_rn(beta, cvt<C>(p[i]))));
-      p[i] = cvt<S>(add_rn(cvt<C>(z[i]), t));
-    }
+    for (long long i = i0; i < n; ++i)
+      p[i] = cvt<S>(cg_step<S>(cvt<C>(z[i]), cvt<C>(p[i]), beta));
   }
 }
 
 // The loop guard, one thread per lane (see the notes at the top).  Every
 // thread reads its flag before any writes one, so thread 0 counts the
-// launch when any lane goes on.
+// launch when any lane goes on.  beta (null: not kept) takes gamma_new /
+// gamma before gamma is overwritten: the next iteration's direction update
+// reads it (spmv_dot_direction_kernel).
 template <typename A>
 __global__ void cg_advance_kernel(A* gamma, const A* gamma_new, A* rr,
                                   const A* rr_new, int* k, bool* active,
-                                  const A* thr, int maxiter,
+                                  const A* thr, int maxiter, A* beta,
                                   unsigned long long* count) {
   const int l = threadIdx.x;
   const bool on = active[l];
   const int any = __syncthreads_or(on);
   if (l == 0 && any && count != nullptr) *count += 1;
   if (!on) return;
+  if (beta != nullptr) beta[l] = div_rn(gamma_new[l], gamma[l]);
   gamma[l] = gamma_new[l];
   const A r = rr_new[l];
   rr[l] = r;
@@ -200,14 +196,14 @@ static int launch_direction(void* p, const void* z, const void* gamma_new,
 template <typename A>
 static int launch_advance(void* gamma, const void* gamma_new, void* rr,
                           const void* rr_new, void* k, void* active,
-                          const void* thr, int maxiter, long long lanes,
-                          void* count, cudaStream_t stream) {
+                          const void* thr, int maxiter, void* beta,
+                          long long lanes, void* count, cudaStream_t stream) {
   if (lanes < 1 || lanes > 1024) return -1;
   cg_advance_kernel<A><<<1, static_cast<unsigned int>(lanes), 0, stream>>>(
       static_cast<A*>(gamma), static_cast<const A*>(gamma_new),
       static_cast<A*>(rr), static_cast<const A*>(rr_new), static_cast<int*>(k),
       static_cast<bool*>(active), static_cast<const A*>(thr), maxiter,
-      static_cast<unsigned long long*>(count));
+      static_cast<A*>(beta), static_cast<unsigned long long*>(count));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -236,23 +232,24 @@ extern "C" int cg_direction_launch(int dtype_code, void* p, const void* z,
   }
 }
 
-// gamma, gamma_new, rr, rr_new, thr: one accum value per lane (code kF64:
-// double, kF32: float); k one int32 per lane; active one byte per lane;
-// count as for cg_direction_launch; at most 1024 lanes.
+// gamma, gamma_new, rr, rr_new, thr, beta: one accum value per lane (code
+// kF64: double, kF32: float; beta may be null); k one int32 per lane;
+// active one byte per lane; count as for cg_direction_launch; at most 1024
+// lanes.
 extern "C" int cg_advance_launch(int accum_code, void* gamma,
                                  const void* gamma_new, void* rr,
                                  const void* rr_new, void* k, void* active,
-                                 const void* thr, int maxiter,
+                                 const void* thr, int maxiter, void* beta,
                                  long long lanes, void* count,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (accum_code) {
     case kF64:
       return launch_advance<double>(gamma, gamma_new, rr, rr_new, k, active, thr,
-                                    maxiter, lanes, count, s);
+                                    maxiter, beta, lanes, count, s);
     case kF32:
       return launch_advance<float>(gamma, gamma_new, rr, rr_new, k, active, thr,
-                                   maxiter, lanes, count, s);
+                                   maxiter, beta, lanes, count, s);
     default: return -1;
   }
 }

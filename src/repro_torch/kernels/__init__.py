@@ -14,8 +14,8 @@ wrappers' once per sweep.
 from __future__ import annotations
 
 from repro_torch.kernels.coef_update.coef_update import coef_update_stacked
-from repro_torch.kernels.krylov_fused.krylov_fused import (fused_matvec_dot,
-                                                           fused_update_step)
+from repro_torch.kernels.krylov_fused.krylov_fused import (
+    fused_matvec_dot, fused_update_step, spmv_dot_direction)
 from repro_torch.kernels.krylov_loop.krylov_loop import (cg_advance,
                                                          cg_direction)
 from repro_torch.kernels.spmv_dia.spmv_dia import spmv_dia_stacked
@@ -33,6 +33,7 @@ WRAPPERS = {
     "momentum_bands": momentum_bands_stacked,
     "cg_direction": cg_direction,
     "cg_advance": cg_advance,
+    "spmv_dot_direction": spmv_dot_direction,
 }
 
 

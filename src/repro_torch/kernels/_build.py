@@ -55,14 +55,17 @@ _SIGNATURES = {
                                     ctypes.POINTER(_I64), ctypes.c_int, _I64,
                                     _I64, _P, _P, _P],
         "axpy_precond_launch": [ctypes.c_int] + [_P] * 11 + [_I64, _P],
-        "axpy_precond_inplace_launch": [ctypes.c_int] + [_P] * 9
+        "axpy_precond_inplace_launch": [ctypes.c_int] + [_P] * 11
         + [_I64, _I64, _I64, _P, _P, _P],
+        "spmv_dot_direction_launch": [ctypes.c_int] + [_P] * 8
+        + [_I64, _I64, ctypes.POINTER(_I64), ctypes.c_int, _I64, _I64, _P,
+           _P, _P],
     },
     "krylov_loop": {
         "cg_direction_launch": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64, _P,
                                 _P, _P],
         "cg_advance_launch": [ctypes.c_int] + [_P] * 7
-        + [ctypes.c_int, _I64, _P, _P],
+        + [ctypes.c_int, _P, _I64, _P, _P],
     },
     "coef_update": {"coef_update_launch": [ctypes.c_int, _P, _P, _P, _I64,
                                            _I64, _I64, _P]},

@@ -16,7 +16,8 @@ import torch
 __all__ = ["SLOTS", "device_counts", "count_ptr"]
 
 # the kernels that take the loop guard, one counter slot each
-SLOTS = ("spmv_dia", "spmv_dot", "axpy_precond", "cg_direction", "cg_advance")
+SLOTS = ("spmv_dia", "spmv_dot", "axpy_precond", "cg_direction", "cg_advance",
+         "spmv_dot_direction")
 
 _counts: dict = {}
 

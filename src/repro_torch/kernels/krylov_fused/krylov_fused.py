@@ -35,6 +35,17 @@ CPU they run the plain versions and store through
 of partials per lane (:func:`lane_partials`), each lane's dots the
 ``torch.sum`` of its own partials — the call a lane alone makes.
 
+The CG loop runs the SpMV+dot with its direction update folded in:
+:func:`spmv_dot_direction` (kernel ``spmv_dot_direction_kernel``) forms
+``p' = z + beta p`` (``z`` at the loop's first iteration) from the pair of
+direction buffers at each lane's count ``k`` (``p[k % 2]`` read,
+``p[(k + 1) % 2]`` written), then ``A p'`` and the ``p'.Ap'`` partials —
+bitwise ``cg_direction`` followed by :func:`spmv_dot_partials`, one
+launch and one round trip of ``p`` fewer.  Its plain version is
+:func:`spmv_dot_direction_plain`, its loop form
+:func:`fused_matvec_dot_direction_into`; given ``k``, the in-place axpy
+reads ``p[(k + 1) % 2]``.
+
 :func:`spmv_dot_cost` and :func:`fused_axpy_precond_cost` are the JAX
 package's byte and flop contracts, as ints.
 """
@@ -44,6 +55,9 @@ import torch
 
 from repro_torch.kernels._build import dtype_code, load
 from repro_torch.kernels.device_counts import count_ptr
+from repro_torch.kernels.krylov_loop.krylov_loop import (current_direction,
+                                                         next_direction_plain,
+                                                         store_direction)
 from repro_torch.kernels.spmv_dia.spmv_dia import (
     KERNEL_BLOCK_ROWS, _offsets_arg, check_flag, check_lanes, check_out,
     check_stacked_operands, guarded_store, stream_ptr)
@@ -52,6 +66,8 @@ from repro_torch.sparse.distributed import spmv_dia
 __all__ = ["fused_matvec_dot", "fused_update_step", "spmv_dot_partials",
            "axpy_precond_partials", "fused_matvec_dot_into",
            "fused_update_step_into", "axpy_precond_inplace",
+           "spmv_dot_direction", "spmv_dot_direction_plain",
+           "fused_matvec_dot_direction_into", "spmv_dot_direction_cost",
            "partials_buffers", "spmv_dot_plain", "spmv_dot_partials_plain",
            "fused_axpy_precond_plain", "axpy_precond_partials_plain",
            "block_partials_plain", "lane_block_partials", "lane_partials",
@@ -78,6 +94,19 @@ def spmv_dot_cost(nb: int, m: int, plane: int, itemsize: int = 8,
     return {"bytes_accessed": (nb * m + (m + 2 * plane) + m) * itemsize
             + n_blocks * acc,
             "flops": 2 * nb * m + 2 * m, "transcendentals": 0}
+
+
+def spmv_dot_direction_cost(nb: int, n: int, itemsize: int = 8,
+                            accum_itemsize: int | None = None) -> dict:
+    """Bytes and flops of the direction update folded into the SpMV+dot
+    on ``n`` stacked rows: the bands, ``z`` and the old direction read
+    once, the new one and ``A p'`` written once, one partial per
+    :data:`KERNEL_BLOCK_ROWS` rows; the flops of ``z + beta p`` counted
+    once a row."""
+    acc = accum_itemsize if accum_itemsize is not None else itemsize
+    return {"bytes_accessed": (nb + 4) * n * itemsize
+            + -(-n // KERNEL_BLOCK_ROWS) * acc,
+            "flops": 2 * nb * n + 2 * n + 2 * n, "transcendentals": 0}
 
 
 def fused_axpy_precond_cost(m: int, itemsize: int = 8,
@@ -204,6 +233,24 @@ def spmv_dot_partials_plain(bands: torch.Tensor, x: torch.Tensor, *,
     return y.to(bands.dtype), lane_block_partials(xa * y, lanes)
 
 
+def spmv_dot_direction_plain(bands: torch.Tensor, z: torch.Tensor,
+                             p: torch.Tensor, beta: torch.Tensor,
+                             k: torch.Tensor, *, offsets: tuple[int, ...],
+                             plane: int,
+                             accum_dtype: torch.dtype | None = None,
+                             lanes: int = 1):
+    """``(p', A p', partials)`` as :func:`spmv_dot_direction`'s kernel
+    computes them, bit for bit, nothing stored: ``p'`` of
+    :func:`~repro_torch.kernels.krylov_loop.krylov_loop.next_direction_plain`
+    (from the pair ``p`` at the counts ``k``, one ``beta`` and ``k`` per
+    lane), then :func:`spmv_dot_partials_plain` of ``p'``."""
+    new = next_direction_plain(p, z, beta, k)
+    y, part = spmv_dot_partials_plain(bands, new, offsets=offsets,
+                                      plane=plane, accum_dtype=accum_dtype,
+                                      lanes=lanes)
+    return new, y, part
+
+
 def _axpy_vectors(x, r, p, Ap, inv_diag, alpha):
     """``(x', r', z)`` with one ``alpha`` per lane (``alpha.numel()`` lanes,
     each a contiguous run of the vectors)."""
@@ -304,6 +351,87 @@ def spmv_dot_partials(bands: torch.Tensor, x: torch.Tensor, *,
         raise RuntimeError(f"spmv_dot kernel launch failed (code {rc})")
     if active is None:  # a guarded launch counts itself on the device
         fused_matvec_dot.launches += 1
+    return y, part
+
+
+def check_direction_pair(p: torch.Tensor, like: torch.Tensor) -> None:
+    """Raise unless ``p`` is a pair of direction buffers ``(2,
+    *like.shape)`` of ``like``'s dtype and device, each contiguous."""
+    if (p.shape != (2, *like.shape) or p.dtype != like.dtype
+            or p.device != like.device
+            or not (p[0].is_contiguous() and p[1].is_contiguous())):
+        raise ValueError(f"the direction pair must be two contiguous "
+                         f"{like.dtype} buffers of shape "
+                         f"{tuple(like.shape)} on {like.device}")
+
+
+def check_lane_scalars(lanes: int, device: torch.device,
+                       **scalars: tuple) -> None:
+    """Raise unless each named ``(tensor, dtype)`` holds one element of its
+    dtype per lane, contiguous, on ``device``."""
+    for name, (t, dtype) in scalars.items():
+        if (t.dtype != dtype or t.numel() != lanes or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor "
+                             f"of {lanes} element(s) on {device}")
+
+
+def spmv_dot_direction(bands: torch.Tensor, z: torch.Tensor,
+                       p: torch.Tensor, beta: torch.Tensor, k: torch.Tensor,
+                       *, offsets: tuple[int, ...], plane: int,
+                       accum_dtype: torch.dtype | None = None,
+                       out: tuple | None = None,
+                       active: torch.Tensor | None = None, lanes: int = 1):
+    """The CG direction update folded into the SpMV+dot (module doc): in
+    each lane, ``p' = z`` where its count ``k`` is 0 and ``z + beta p[k %
+    2]`` after, written to ``p[(k + 1) % 2]``; returns ``(A p',
+    partials)`` as :func:`spmv_dot_partials` lays them out.  ``z`` (P, m)
+    and the pair ``p`` (:func:`~repro_torch.kernels.krylov_loop.
+    krylov_loop.direction_pair`, (2, P, m)) in the bands' dtype; ``beta``
+    (accum dtype) and ``k`` (int32) one element per lane; ``out``, the
+    buffers ``(y, partials)`` to write (default: new ones); ``active``, the
+    loop guard (needs ``out``).  On CPU tensors:
+    :func:`spmv_dot_direction_plain`, stored as the kernel stores."""
+    if out is None and active is not None:
+        raise ValueError("a guarded call needs out=")
+    if bands.device.type == "cpu" and z.device.type == "cpu":
+        new, y, part = spmv_dot_direction_plain(
+            bands, z, p, beta, k, offsets=offsets, plane=plane,
+            accum_dtype=accum_dtype, lanes=lanes)
+        store_direction(p, new, k, active)
+        if out is None:
+            return y, part
+        return (guarded_store(out[0], y, active),
+                guarded_store(out[1], part, active))
+    acc = accum_dtype or bands.dtype
+    check_stacked_operands(bands, z, offsets, plane)
+    check_direction_pair(p, z)
+    code = dtype_code(bands.dtype, acc)
+    P, nb, m = bands.shape
+    P_lane = check_lanes(P, lanes)
+    check_lane_scalars(lanes, z.device, beta=(beta, acc),
+                       k=(k, torch.int32))
+    npl, stride = lane_partials(P * m, lanes)
+    n_part = lanes * stride if lanes > 1 else npl
+    if out is None:
+        out = (torch.empty_like(z),
+               torch.empty((n_part,), dtype=acc, device=z.device))
+    y, part = check_out(out[0], z), out[1]
+    if (part.shape != (n_part,) or part.dtype != acc
+            or part.device != z.device or not part.is_contiguous()):
+        raise ValueError(f"partials must be a contiguous ({n_part},) "
+                         f"{acc} tensor on {z.device}")
+    rc = load("krylov_fused").spmv_dot_direction_launch(
+        code, bands.data_ptr(), z.data_ptr(), p[0].data_ptr(),
+        p[1].data_ptr(), y.data_ptr(), part.data_ptr(), beta.data_ptr(),
+        k.data_ptr(), P_lane, m, _offsets_arg(offsets), nb, lanes, stride,
+        check_flag(active, z.device, lanes),
+        count_ptr("spmv_dot_direction", z.device, active), stream_ptr(z))
+    if rc != 0:
+        raise RuntimeError(f"spmv_dot_direction kernel launch failed "
+                           f"(code {rc})")
+    if active is None:  # a guarded launch counts itself on the device
+        spmv_dot_direction.launches += 1
     return y, part
 
 
@@ -450,17 +578,50 @@ def fused_matvec_dot_into(bands: torch.Tensor, x: torch.Tensor,
     lane_sums(part["dot"], part["npl"], part["stride"], dot)
 
 
+def fused_matvec_dot_direction_into(bands: torch.Tensor, z: torch.Tensor,
+                                    p: torch.Tensor, beta: torch.Tensor,
+                                    k: torch.Tensor, Ap: torch.Tensor,
+                                    pAp: torch.Tensor, part: dict, *,
+                                    offsets: tuple[int, ...], plane: int,
+                                    accum_dtype: torch.dtype | None = None,
+                                    active: torch.Tensor | None = None,
+                                    lanes: int = 1) -> None:
+    """:func:`spmv_dot_direction` into ``Ap`` and ``pAp`` (accum dtype, one
+    element per lane) through the partials of ``part``
+    (:func:`partials_buffers`), summed as :func:`fused_matvec_dot_into`
+    sums them; on the CPU, :func:`fused_matvec_dot_into` of the new
+    direction."""
+    if bands.device.type == "cpu" and z.device.type == "cpu":
+        new = next_direction_plain(p, z, beta, k)
+        store_direction(p, new, k, active)
+        fused_matvec_dot_into(bands, new, Ap, pAp, part, offsets=offsets,
+                              plane=plane, accum_dtype=accum_dtype,
+                              active=active, lanes=lanes)
+        return
+    spmv_dot_direction(bands, z, p, beta, k, offsets=offsets, plane=plane,
+                       accum_dtype=accum_dtype, out=(Ap, part["dot"]),
+                       active=active, lanes=lanes)
+    lane_sums(part["dot"], part["npl"], part["stride"], pAp)
+
+
 def axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, rz_part, rr_part,
                          accum_dtype: torch.dtype | None = None,
                          active: torch.Tensor | None = None,
-                         lanes: int = 1) -> None:
+                         lanes: int = 1, k: torch.Tensor | None = None
+                         ) -> None:
     """``x <- x + alpha p`` and ``r <- r - alpha Ap`` in place, ``z <- r' *
     inv_diag`` and the ``r'.z``, ``r'.r'`` partials into ``rz_part``,
     ``rr_part`` (per lane as :func:`lane_partials` lays them out); ``alpha``
     and the guard ``active`` hold one element per lane, and nothing of a
-    lane is written while its flag is False.  On CPU tensors:
+    lane is written while its flag is False.  With ``k`` (the CG loop's
+    count, int32, one per lane) ``p`` is the pair of direction buffers and
+    lane ``l`` reads ``p[(k[l] + 1) % 2]``, the direction
+    :func:`spmv_dot_direction` wrote.  On CPU tensors:
     :func:`axpy_precond_partials_plain`, stored through
     :func:`guarded_store`."""
+    pair = p
+    if k is not None:
+        p = current_direction(p, k) if p.device.type == "cpu" else p[0]
     vecs = (x, r, p, Ap, inv_diag)
     acc = accum_dtype or x.dtype
     if _on_cpu(vecs, alpha):
@@ -471,6 +632,14 @@ def axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, rz_part, rr_part,
         return
     code = dtype_code(x.dtype, acc)
     ptrs = check_axpy_operands(vecs, alpha, lanes)
+    p1, iter_ptr = ptrs[2], 0
+    if k is not None:
+        check_direction_pair(pair, x)
+        check_lane_scalars(lanes, x.device, k=(k, torch.int32))
+        p1, iter_ptr = pair[1].data_ptr(), k.data_ptr()
+        if p1 % 16:
+            raise ValueError("kernel operands must start on a 16-byte "
+                             "boundary")
     check_out(z, x)
     if z.data_ptr() % 16:
         raise ValueError("kernel operands must start on a 16-byte boundary")
@@ -485,7 +654,8 @@ def axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, rz_part, rr_part,
     if alpha.dtype != acc:
         raise TypeError(f"alpha must be {acc}, got {alpha.dtype}")
     rc = load("krylov_fused").axpy_precond_inplace_launch(
-        code, *ptrs, alpha.data_ptr(), z.data_ptr(), rz_part.data_ptr(),
+        code, *ptrs[:3], p1, iter_ptr, *ptrs[3:], alpha.data_ptr(),
+        z.data_ptr(), rz_part.data_ptr(),
         rr_part.data_ptr(), n, lanes, stride,
         check_flag(active, x.device, lanes),
         count_ptr("axpy_precond", x.device, active), stream_ptr(x))
@@ -499,14 +669,18 @@ def axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, rz_part, rr_part,
 def fused_update_step_into(x, r, p, Ap, inv_diag, alpha, z, rz, rr,
                            part: dict, accum_dtype: torch.dtype | None = None,
                            active: torch.Tensor | None = None,
-                           lanes: int = 1) -> None:
+                           lanes: int = 1,
+                           k: torch.Tensor | None = None) -> None:
     """:func:`fused_update_step` with ``x`` and ``r`` updated in place,
     ``z`` and the dots ``rz``, ``rr`` (accum dtype, one element per lane)
     written, through the partials of ``part`` (:func:`partials_buffers`),
-    under the loop guard ``active``.  On a CUDA device each lane's two sums
-    of its partials are ``torch.sum`` into ``rz`` and ``rr``, unguarded
-    (scratch)."""
-    vecs = (x, r, p, Ap, inv_diag)
+    under the loop guard ``active``; with ``k``, ``p`` is the direction
+    pair (:func:`axpy_precond_inplace`).  On a CUDA device each lane's two
+    sums of its partials are ``torch.sum`` into ``rz`` and ``rr``,
+    unguarded (scratch)."""
+    if k is not None and p.device.type == "cpu":
+        p, k = current_direction(p, k), None
+    vecs = (x, r, p if k is None else p[0], Ap, inv_diag)
     if _on_cpu(vecs, alpha):
         new = fused_axpy_precond_plain(*vecs, alpha.reshape(lanes),
                                        accum_dtype=accum_dtype)
@@ -515,10 +689,11 @@ def fused_update_step_into(x, r, p, Ap, inv_diag, alpha, z, rz, rr,
         return
     axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, part["rz"],
                          part["rr"], accum_dtype=accum_dtype, active=active,
-                         lanes=lanes)
+                         lanes=lanes, k=k)
     lane_sums(part["rz"], part["npl"], part["stride"], rz)
     lane_sums(part["rr"], part["npl"], part["stride"], rr)
 
 
 fused_matvec_dot.launches = 0
 fused_update_step.launches = 0
+spmv_dot_direction.launches = 0

@@ -5,13 +5,18 @@ written against :class:`repro_torch.solvers.ops.SolverOps`, so one control
 flow serves the plain-PyTorch and the fused-kernel backends.
 
 The JAX package's ``lax.while_loop`` becomes a device-resident loop
-(:mod:`repro_torch.solvers.device_loop`): the carry ``x, r, p, gamma, rr,
-k`` and a device flag ``active`` live at fixed addresses, one iteration is
-``matvec_dot``, ``alpha = gamma / pAp``, the in-place axpy with the
-Jacobi apply and both dots, ``direction`` (``p <- z + beta p``) and
-``advance`` (the carry update and ``active <- rr > thr & k < maxiter``),
-every write guarded on ``active``; on the card blocks of iterations replay
-from a captured CUDA graph with one host read per block.  The squared
+(:mod:`repro_torch.solvers.device_loop`): the carry ``x, r, z, p, gamma,
+beta, rr, k`` and a device flag ``active`` live at fixed addresses, one
+iteration is ``matvec_dot_direction`` (the direction update ``p <- z +
+beta p``, ``p = z`` at ``k == 0``, folded into ``(A p, p . A p)``),
+``alpha = gamma / pAp``, the in-place axpy with the Jacobi apply and both
+dots, and ``advance`` (``beta <- gamma_new / gamma``, the carry update and
+``active <- rr > thr & k < maxiter``), every write guarded on ``active``;
+on the card blocks of iterations replay from a captured CUDA graph with
+one host read per block.  The direction lives in two buffers (``p``, a
+pair): other blocks read the old direction at halo offsets while the new
+one is written, so iteration ``k`` reads ``p[k % 2]`` and writes ``p[(k +
+1) % 2]``, chosen on the device from each lane's own ``k``.  The squared
 residual norm ``r . r`` is **carried** (the fused step computes it) and
 the condition is evaluated on the initial state too, so a NaN residual
 gives 0 iterations with ``converged`` and ``hit_cap`` both False.  The
@@ -49,6 +54,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.kernels.krylov_fused.krylov_fused import lane_vdot
+from repro_torch.kernels.krylov_loop.krylov_loop import direction_pair
 from repro_torch.solvers.device_loop import run_loop
 from repro_torch.solvers.ops import SolverOps, reference_ops
 
@@ -80,16 +86,17 @@ def inner_threshold_sq(inner_tol: float, rr_lo: torch.Tensor) -> torch.Tensor:
 
 
 def _cg_buffers(b, thr: torch.Tensor, lanes: int | None) -> SimpleNamespace:
-    """The CG loop's carry (``x, r, p, gamma, rr, k, active``), scratch and
-    threshold at fixed addresses, one scalar per lane (0-d for one
-    system: ``lanes`` None), and the block captured over them."""
+    """The CG loop's carry (``x, r, z, p`` (the direction pair), ``gamma,
+    beta, rr, k, active``), scratch and threshold at fixed addresses, one
+    scalar per lane (0-d for one system: ``lanes`` None), and the block
+    captured over them."""
     vec = lambda: torch.empty_like(b)  # noqa: E731
     shape = () if lanes is None else (lanes,)
     scal = lambda: torch.empty(shape, dtype=thr.dtype, device=b.device)  # noqa: E731
     return SimpleNamespace(
-        x=vec(), r=vec(), p=vec(), Ap=vec(), z=vec(), gamma=scal(),
-        rr=scal(), pAp=scal(), alpha=scal(), gamma_new=scal(),
-        rr_new=scal(), thr=scal(), graph=None,
+        x=vec(), r=vec(), p=direction_pair(b), Ap=vec(), z=vec(),
+        gamma=scal(), beta=scal(), rr=scal(), pAp=scal(), alpha=scal(),
+        gamma_new=scal(), rr_new=scal(), thr=scal(), graph=None,
         k=torch.empty(shape, dtype=torch.int32, device=b.device),
         active=torch.empty(shape, dtype=torch.bool, device=b.device))
 
@@ -119,13 +126,13 @@ def _cg_body(ops: SolverOps, st: SimpleNamespace, maxiter: int):
     then be freed by the cycle collector at some later moment, perhaps in
     the middle of another capture.)"""
     def body(flag):
-        ops.matvec_dot_into(st.p, st.Ap, st.pAp, flag)
+        ops.matvec_dot_direction_into(st.p, st.z, st.beta, st.k, st.Ap,
+                                      st.pAp, flag)
         torch.div(st.gamma, st.pAp, out=st.alpha)
         ops.fused_step_into(st.x, st.r, st.p, st.Ap, st.alpha, st.z,
-                            st.gamma_new, st.rr_new, flag)
-        ops.direction(st.p, st.z, st.gamma_new, st.gamma, flag)
+                            st.gamma_new, st.rr_new, flag, st.k)
         ops.advance(st.gamma, st.gamma_new, st.rr, st.rr_new, st.k, flag,
-                    st.thr, maxiter)
+                    st.thr, maxiter, beta=st.beta)
 
     return body
 
@@ -151,8 +158,8 @@ def _cg_sweep(ops: SolverOps, b, x0, thr: torch.Tensor, maxiter: int,
         st = ops.loops[key] = _cg_buffers(b, thr, ops.lanes)
     st.x.copy_(x0)
     torch.sub(b, ops.matvec(x0), out=st.r)
-    st.p.copy_(ops.precond(st.r))
-    gamma, rr = ops.dots((st.r, st.p), (st.r, st.r))
+    st.z.copy_(ops.precond(st.r))
+    gamma, rr = ops.dots((st.r, st.z), (st.r, st.r))
     st.gamma.copy_(gamma)
     st.rr.copy_(rr)
     st.thr.copy_(thr)

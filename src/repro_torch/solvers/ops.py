@@ -20,13 +20,17 @@ device_loop`, the same work into buffers the loop holds, under its guard
 False):
 
 * ``matvec_into(x, out, active)`` — ``out <- A x``
-* ``matvec_dot_into(p, Ap, pAp, active)`` — ``Ap <- A p``, ``pAp <- p.Ap``
-* ``fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active)`` — ``x`` and
-  ``r`` updated in place, ``z``, ``rz = r'.z``, ``rr = r'.r'`` written
-* ``direction(p, z, gamma_new, gamma, active)`` — ``p <- z + beta p`` in
-  place, ``beta = gamma_new / gamma`` on the device
-* ``advance(gamma, gamma_new, rr, rr_new, k, active, thr, maxiter)`` — the
-  CG loop's carry update and condition
+* ``matvec_dot_direction_into(p, z, beta, k, Ap, pAp, active)`` — the CG
+  direction update folded into the SpMV+dot: per lane ``p' = z`` at count
+  ``k == 0``, else ``z + beta p[k % 2]``, written to ``p[(k + 1) % 2]`` of
+  the direction pair ``p``; ``Ap <- A p'``, ``pAp <- p'.Ap'``
+* ``fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active, k)`` — ``x``
+  and ``r`` updated in place, ``z``, ``rz = r'.z``, ``rr = r'.r'``
+  written, lane ``l`` reading its direction from ``p[(k[l] + 1) % 2]``
+  of the pair
+* ``advance(gamma, gamma_new, rr, rr_new, k, active, thr, maxiter,
+  beta=None)`` — the CG loop's carry update and condition, keeping ``beta
+  = gamma_new / gamma`` for the next direction update
 
 The fused backend's members are the guarded kernels (with the reductions'
 scratch allocated once per bundle); the reference backend's are plain
@@ -99,9 +103,8 @@ class SolverOps:
     fused_step: Callable
     dots: Callable
     matvec_into: Callable
-    matvec_dot_into: Callable
+    matvec_dot_direction_into: Callable
     fused_step_into: Callable
-    direction: Callable
     advance: Callable
     backend: str = "reference"   # informational (logs)
     # the policy the members were built under and, for a refined policy,
@@ -161,24 +164,27 @@ def _plain_into(matvec: Callable, matvec_dot: Callable,
     """The loop members in plain PyTorch, over the bundle's own members:
     each result stored through a select on the guard."""
     from repro_torch.kernels.krylov_loop.krylov_loop import (
-        cg_advance_plain, cg_direction_plain)
+        cg_advance_plain, current_direction, next_direction_plain,
+        store_direction)
     from repro_torch.kernels.spmv_dia.spmv_dia import guarded_store
 
     def matvec_into(x, out, active):
         guarded_store(out, matvec(x), active)
 
-    def matvec_dot_into(p, Ap, pAp, active):
-        for dst, val in zip((Ap, pAp), matvec_dot(p)):
+    def matvec_dot_direction_into(p, z, beta, k, Ap, pAp, active):
+        new = next_direction_plain(p, z, beta, k)
+        store_direction(p, new, k, active)
+        for dst, val in zip((Ap, pAp), matvec_dot(new)):
             guarded_store(dst, val, active)
 
-    def fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active):
-        for dst, val in zip((x, r, z, rz, rr),
-                            fused_step(x, r, p, Ap, alpha)):
+    def fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active, k):
+        for dst, val in zip((x, r, z, rz, rr), fused_step(
+                x, r, current_direction(p, k), Ap, alpha)):
             guarded_store(dst, val, active)
 
-    return {"matvec_into": matvec_into, "matvec_dot_into": matvec_dot_into,
-            "fused_step_into": fused_step_into,
-            "direction": cg_direction_plain, "advance": cg_advance_plain}
+    return {"matvec_into": matvec_into,
+            "matvec_dot_direction_into": matvec_dot_direction_into,
+            "fused_step_into": fused_step_into, "advance": cg_advance_plain}
 
 
 def reference_ops(A: Callable, M: Callable | None = None, *,
@@ -233,10 +239,9 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
     ``lanes``: the parts are a cohort of that many lanes (module doc).
     """
     from repro_torch.kernels.krylov_fused.krylov_fused import (
-        fused_matvec_dot, fused_matvec_dot_into, fused_update_step,
+        fused_matvec_dot, fused_matvec_dot_direction_into, fused_update_step,
         fused_update_step_into, partials_buffers)
-    from repro_torch.kernels.krylov_loop.krylov_loop import (cg_advance,
-                                                             cg_direction)
+    from repro_torch.kernels.krylov_loop.krylov_loop import cg_advance
     from repro_torch.kernels.spmv_dia.spmv_dia import spmv_dia_stacked
     from repro_torch.solvers.jacobi import safe_jacobi_inverse
 
@@ -280,14 +285,16 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
         spmv_dia_stacked(bands, x, offsets=offsets, plane=plane,
                          accum_dtype=accum, out=out, active=active, lanes=B)
 
-    def matvec_dot_into(p, Ap, pAp, active):
-        fused_matvec_dot_into(bands, p, Ap, pAp, part, offsets=offsets,
-                              plane=plane, accum_dtype=accum, active=active,
-                              lanes=B)
+    def matvec_dot_direction_into(p, z, beta, k, Ap, pAp, active):
+        fused_matvec_dot_direction_into(bands, z, p, beta, k, Ap, pAp, part,
+                                        offsets=offsets, plane=plane,
+                                        accum_dtype=accum, active=active,
+                                        lanes=B)
 
-    def fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active):
+    def fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active, k):
         fused_update_step_into(x, r, p, Ap, inv, alpha, z, rz, rr, part,
-                               accum_dtype=accum, active=active, lanes=B)
+                               accum_dtype=accum, active=active, lanes=B,
+                               k=k)
 
     matvec_hi = None
     if policy.refine:
@@ -298,7 +305,7 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
     return SolverOps(matvec=matvec, precond=precond, matvec_dot=matvec_dot,
                      fused_step=fused_step, dots=_policy_dots(policy, lanes),
                      matvec_into=matvec_into,
-                     matvec_dot_into=matvec_dot_into,
-                     fused_step_into=fused_step_into, direction=cg_direction,
-                     advance=cg_advance, backend="fused", policy=policy,
+                     matvec_dot_direction_into=matvec_dot_direction_into,
+                     fused_step_into=fused_step_into, advance=cg_advance,
+                     backend="fused", policy=policy,
                      matvec_hi=matvec_hi, lanes=lanes)

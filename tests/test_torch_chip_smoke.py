@@ -253,6 +253,63 @@ def test_check_frames_covers_the_loop_kernels_when_asked():
     assert counts["cg_direction_kernel"] == 1
 
 
+# two instantiations of the fold as ptxas names them on the H100 (CUDA
+# 12.8): f64 for one lane and bf16 for a cohort
+FOLD = ("_Z25spmv_dot_direction_kernelIddLi7ELb0EEvPKT_S2_PS0_S3_S3_PT0_"
+        "PKS4_PKiN5repro7DiaArgsE")
+FOLD_LANES = ("_Z25spmv_dot_direction_kernelI13__nv_bfloat16fLi7ELb1EEvPKT_"
+              "S3_PS1_S4_S4_PT0_PKS5_PKiN5repro7DiaArgsE")
+
+
+def _record(fn: str, frame: int = 0) -> str:
+    return (f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {fn}\n"
+            f"    {frame} bytes stack frame, {frame} bytes spill stores, "
+            f"{frame} bytes spill loads\n"
+            f"ptxas info    : Used 128 registers, used 1 barriers\n")
+
+
+def test_check_frames_covers_the_fold():
+    """Since the fold the build phase checks spmv_dot_direction_kernel too:
+    a log without it fails, every instantiation clean passes, and a frame
+    in any one of them fails."""
+    kernels = chip_smoke.NO_FRAME_KERNELS + chip_smoke.FOLD_NO_FRAME_KERNELS
+    assert chip_smoke.FOLD_NO_FRAME_KERNELS == ("spmv_dot_direction_kernel",)
+    assert chip_smoke.base_name(FOLD) == "spmv_dot_direction_kernel"
+    with pytest.raises(chip_smoke.SmokeFailure, match="no instance"):
+        chip_smoke.check_frames(chip_smoke.ptxas_report(CLEAN), kernels)
+    log = CLEAN + _record(FOLD) + _record(FOLD_LANES)
+    counts = chip_smoke.check_frames(chip_smoke.ptxas_report(log), kernels)
+    assert counts["spmv_dot_direction_kernel"] == 2
+    with pytest.raises(chip_smoke.SmokeFailure, match="8 bytes stack frame"):
+        chip_smoke.check_frames(chip_smoke.ptxas_report(
+            CLEAN + _record(FOLD) + _record(FOLD_LANES, 8)), kernels)
+
+
+def test_the_cg_loop_launches_the_fold_and_never_the_unfused_pair():
+    """A CG iteration is the fold, the in-place axpy and cg_advance once
+    each: a sweep whose device counters show a launch of the unfused
+    cg_direction or spmv_dot fails, and neither is a kernel the step must
+    launch."""
+    from repro_torch.solvers.device_loop import LoopRecord
+
+    assert chip_smoke.LOOP_LAUNCHES["cg"] == {
+        "spmv_dot_direction": 1, "axpy_precond": 1, "cg_advance": 1}
+    assert "spmv_dot_direction" in chip_smoke.STEP_KERNELS
+    assert not set(chip_smoke.UNFUSED_KERNELS) & set(chip_smoke.STEP_KERNELS)
+    assert not set(chip_smoke.UNFUSED_KERNELS) & set(
+        chip_smoke.KRYLOV_KERNELS)
+    good = _launches("cg", 100)
+    assert good["cg_direction"] == good["spmv_dot"] == 0
+    chip_smoke.loop_summary([LoopRecord(100, 14, 15, 0.0, 8, "cuda", "cg",
+                                        good)])
+    for name in chip_smoke.UNFUSED_KERNELS:
+        with pytest.raises(chip_smoke.SmokeFailure,
+                           match="counted the launches"):
+            chip_smoke.loop_summary([LoopRecord(
+                100, 14, 15, 0.0, 8, "cuda", "cg", dict(good, **{name: 100}))])
+
+
 # ---------------------------------------------------------------------------
 # phase 12's pure helpers, on canned numbers
 # ---------------------------------------------------------------------------
@@ -563,3 +620,37 @@ def test_phase14_helpers():
     moved = chip_smoke.krylov_moved(before, after)
     assert moved["coef_update"] == 3 and not any(
         moved[k] for k in chip_smoke.KRYLOV_KERNELS)
+
+
+def test_raw_launchers_pass_every_argument(monkeypatch):
+    """The raw launches phase 3 times (the in-place axpy, the two SpMVs)
+    pass as many arguments as each entry point's ctypes signature holds:
+    a library built from this tree would refuse any other count."""
+    import types
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.spmv_dia import spmv_dia as sd
+
+    seen = {}
+
+    def entry(lib, fn):
+        def call(*args):
+            seen[fn] = len(args) == len(_build._SIGNATURES[lib][fn])
+            return 0
+        return call
+
+    fake = {lib: types.SimpleNamespace(**{fn: entry(lib, fn) for fn in sigs})
+            for lib, sigs in _build._SIGNATURES.items()}
+    monkeypatch.setattr(_build, "load", lambda name: fake[name])
+    monkeypatch.setattr(sd, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    vecs = [torch.zeros(2, 256, dtype=torch.float64) for _ in range(5)]
+    alpha = torch.tensor(0.5, dtype=torch.float64)
+    chip_smoke.axpy_inplace_launchers(torch, vecs, alpha, torch.float64)[1]()
+    bands = torch.zeros(2, 7, 256, dtype=torch.float64)
+    for name in ("spmv_dia", "spmv_dot"):
+        chip_smoke.spmv_launcher(torch, name, bands, vecs[0],
+                                 (-16, -4, -1, 0, 1, 4, 16),
+                                 torch.float64)()
+    assert seen == {"axpy_precond_inplace_launch": True,
+                    "spmv_dia_launch": True, "spmv_dot_launch": True}

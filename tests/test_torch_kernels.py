@@ -30,9 +30,11 @@ from repro_torch.kernels.krylov_fused.krylov_fused import (
     axpy_precond_partials, axpy_precond_partials_plain, block_partials_plain,
     check_axpy_operands, fused_axpy_precond_cost, fused_axpy_precond_plain,
     fused_matvec_dot, fused_matvec_dot_into, fused_update_step,
-    spmv_dot_cost, spmv_dot_partials, spmv_dot_partials_plain, spmv_dot_plain)
+    spmv_dot_cost, spmv_dot_direction, spmv_dot_direction_plain,
+    spmv_dot_partials, spmv_dot_partials_plain, spmv_dot_plain)
 from repro_torch.kernels.krylov_loop.krylov_loop import (
-    cg_advance, cg_direction, cg_direction_plain)
+    cg_advance, cg_direction, cg_direction_plain, current_direction,
+    direction_pair)
 from repro_torch.kernels.spmv_dia.spmv_dia import (check_stacked_operands,
                                                    spmv_dia_plain,
                                                    spmv_dia_stacked)
@@ -388,10 +390,20 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
                           active=flag)
     y_w, d_w = spmv_dot_plain(b, x, offsets=offsets, plane=25)
     assert torch.equal(y, y_w) and torch.equal(d, d_w)
+    # the direction update folded into the SpMV+dot, from iteration 1
+    pair = direction_pair(x)
+    pair[1].copy_(vecs[2])
+    k = torch.ones((), dtype=torch.int32)
+    kw = dict(offsets=offsets, plane=25)
+    got = spmv_dot_direction(b, vecs[1], pair, g_new, k, **kw)
+    new, y_w, part_w = spmv_dot_direction_plain(b, vecs[1], pair, g_new, k,
+                                                **kw)
+    assert torch.equal(got[0], y_w) and torch.equal(got[1], part_w)
+    assert torch.equal(current_direction(pair, k), new)
     assert launch_counts() == {name: 0 for name in WRAPPERS}
     assert set(WRAPPERS) == {"spmv_dia", "spmv_dot", "axpy_precond",
                              "coef_update", "momentum_bands", "cg_direction",
-                             "cg_advance"}
+                             "cg_advance", "spmv_dot_direction"}
     assert set(SOURCES) == {"spmv_dia", "krylov_fused", "coef_update",
                             "stencil_assembly", "krylov_loop"}
 
@@ -434,3 +446,19 @@ def test_cost_contracts_match_jax_as_ints(nb, m, plane, itemsize, block, acc):
     got = fused_axpy_precond_cost(m, itemsize, block_rows=block,
                                   accum_itemsize=acc)
     assert got == {k: int(v) for k, v in want.items()}
+
+
+def test_ctypes_signatures_match_the_entry_points():
+    """Every entry point's ctypes signature has as many arguments as its C
+    declaration in ``csrc`` (a missing or extra argument would shift every
+    pointer after it)."""
+    import re
+
+    from repro_torch.kernels._build import _SIGNATURES, CSRC
+
+    for name, sigs in _SIGNATURES.items():
+        src = (CSRC / f"{name}.cu").read_text()
+        for fn, argtypes in sigs.items():
+            m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+            assert m, f"{fn} not declared in {name}.cu"
+            assert len(m.group(1).split(",")) == len(argtypes), fn
