@@ -4,8 +4,9 @@
   python3 chip_smoke.py
   python3 chip_smoke.py --compare LABEL=CSRC_DIR [LABEL=CSRC_DIR ...]
   python3 chip_smoke.py --step-timing REPEATS
-  python3 chip_smoke.py --profile-cg ITERS
+  python3 chip_smoke.py --profile-cg ITERS [--full-mesh]
   python3 chip_smoke.py --serving
+  python3 chip_smoke.py --full-mesh
 
 Runs from the root of a checkout and needs one CUDA card; with no card, or
 without the rest of the checkout beside it, it exits nonzero and prints no
@@ -64,8 +65,11 @@ result.  Phases, in order (any failure exits nonzero):
    K) + 4`` times; then (4b) the device
    loop against the former host loop from the main run's state, with the
    kernels: the f64 pressure CG sweep, the three f64 momentum BiCGStab
-   sweeps and an ``f32_ir`` pressure solve, ``x`` bitwise and identical
-   counts and flags, and the pressure and momentum sweeps timed at
+   sweeps and an ``f32_ir`` pressure solve, then the ``f32_ir`` solve of
+   the first pressure system from rest (its refinement diverges to NaN on
+   both loops alike), ``x`` bitwise (the same bits, NaN payloads
+   included: ``same_bits``) and identical counts and flags, and the
+   pressure and momentum sweeps timed at
    K = 1, 2, 4, 8, 32 and 128 (ms per iteration, capture ms, host reads);
 5. determinism: the kernel run again, step by step, bitwise equal;
 6. parity: the plain-PyTorch backend takes each step from the kernel run's
@@ -198,6 +202,25 @@ result.  Phases, in order (any failure exits nonzero):
     ``digest`` lines, and one seeded chaos run.  Phase 14's checks are
     collected and fail the run after all four parts have printed.
 
+15. the full mesh, from the main run's state: the main path's solver and
+    its full-mesh twin (``--solve-mode full_mesh``, the 30 row shards all
+    on ``cuda:0``) through the launcher; (15a) the shard SpMV, with and
+    without its dot, and the full-mesh bundle's SpMV+dot on the 210^3
+    pressure bands (``p`` and a seeded random vector) within 1e-12 of the
+    stacked kernels, each timed; (15b) one step at alpha 30 (1 x 30
+    shards) and at alpha 15 (2 x 15) against the stacked step from the
+    same state: identical counts and flags, ``U``, ``p``, ``phi`` within
+    1e-10, no plain version called, the counters from 0 (every kernel of
+    the step launched, every CG sweep's device counts its iterations
+    times the loop body's launches), the fold and the shard SpMV one lane
+    a shard; (15c) the full-mesh pressure sweep on the device loop
+    bitwise its host loop; (15d) the stacked and the full-mesh step in
+    turns (stacked, full, full, stacked): seconds a step, ms and guarded
+    launches per CG iteration; (15e) a refined policy (at construction,
+    and set later, at the step), a padded mesh and too few devices must
+    raise.  Phase 15's checks are collected and fail the run after its
+    parts have printed.
+
 In phases 9-14 every kernel wrapper's plain version is made to raise while
 the kernel runs go: the card's path launches the kernels only (14c's
 quarantined request runs on the plain ``"reference"`` backend by
@@ -228,8 +251,10 @@ reads) and
 the device's idle share.  Both modes use only what the port has had since
 its fourth slice (the refinement loop and the channel), so a copy of this
 script beside another such checkout's ``src`` measures that tree the same
-way.  With ``--serving``, phases 1 and 2 run, then phases 13 and 14
-from the main path's 3-step state.
+way; with ``--full-mesh`` beside it, ``--profile-cg`` profiles phase 15's
+full-mesh CG instead.  With ``--serving``, phases 1 and 2 run, then phases
+13 and 14 from the main path's 3-step state; with ``--full-mesh`` alone,
+phase 15.
 """
 from __future__ import annotations
 
@@ -1937,18 +1962,113 @@ def synced(torch, fn):
     return out, time.perf_counter() - t0
 
 
+def same_bits(torch, a, b) -> bool:
+    """``a`` and ``b`` hold the same bits: ``torch.equal`` of their integer
+    views, so a NaN matches a NaN of the same payload (``torch.equal``
+    never does) and -0.0 does not match +0.0."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        ints = {8: torch.int64, 4: torch.int32, 2: torch.int16}
+        a = a.view(ints[a.element_size()])
+        b = b.view(ints[b.element_size()])
+    return torch.equal(a, b)
+
+
+def loop_vs_host(torch, tag, device_fn, host_fn) -> dict:
+    """One sweep ``(x, rr, k)`` on the device loop (``device_fn``) and on
+    the host loop (``host_fn``): ``x`` and ``rr`` bit for bit, the same
+    count, every sweep's reads and device-counted launches held by
+    :func:`loop_summary`."""
+    from repro_torch.solvers import device_loop
+
+    device_loop.reset_loop_records()
+    with no_plain_versions():
+        (x_d, rr_d, k_d), s_d = synced(torch, device_fn)
+        recs = device_loop.loop_records()
+        (x_h, rr_h, k_h), s_h = synced(torch, host_fn)
+    same = (same_bits(torch, x_d, x_h)
+            and same_bits(torch, rr_d.reshape(()), rr_h.reshape(()))
+            and int(k_d) == int(k_h))
+    summ = loop_summary(recs)
+    print(f"  {tag}: {int(k_d)} iterations, x and r.r bitwise {same}; "
+          f"device loop {s_d:.3f} s ({1e3 * s_d / max(int(k_d), 1):.4f}"
+          f" ms/iter), host loop {s_h:.3f} s "
+          f"({1e3 * s_h / max(int(k_h), 1):.4f} ms/iter); (iterations, "
+          f"blocks, host reads, capture ms) {summ['sweeps']}")
+    require(same, f"{tag}: the device loop differs from the host loop")
+    return {"iters": int(k_d), "s": s_d, "host_s": s_h, **summ}
+
+
+def solves_match(torch, res_d, res_h) -> tuple[dict, bool]:
+    """Two solver results: their counts and flags side by side, and whether
+    they agree bit for bit (``x`` and ``residual`` by :func:`same_bits`)."""
+    fields = {f: (int(getattr(res_d, f)), int(getattr(res_h, f)))
+              for f in ("iters", "outer_iters", "converged", "hit_cap")}
+    same = (same_bits(torch, res_d.x, res_h.x)
+            and same_bits(torch, res_d.residual, res_h.residual)
+            and all(a == b for a, b in fields.values()))
+    return fields, same
+
+
+def refined_vs_host(torch, tag, solver, bands, b, x0, diag) -> dict:
+    """A whole ``f32_ir`` pressure solve of the system ``(bands, b, x0,
+    diag)``, its inner sweeps on the device loop and then on the host loop,
+    bit for bit (:func:`solves_match`)."""
+    from repro_torch.solvers import cg as cg_mod
+    from repro_torch.solvers import device_loop
+    from repro_torch.solvers.cg import cg
+
+    solver.precision = "f32_ir"
+    try:
+        ops32 = solver._solver_ops(solver.plan_p, bands, diag)
+    finally:
+        solver.precision = "f64"
+    device_loop.reset_loop_records()
+    sweep, rr_in = cg_mod._cg_sweep, []
+
+    def recorded(ops, rhs, *args, **kw):
+        # each pass's correction system: its right-hand side's r.r
+        rr_in.append(float(ops.dots((rhs, rhs))[0]))
+        return sweep(ops, rhs, *args, **kw)
+
+    with no_plain_versions():
+        cg_mod._cg_sweep = recorded
+        try:
+            res_d, s_d = synced(torch, lambda: cg(
+                ops32, b, x0, tol=solver.p_tol, maxiter=solver.p_maxiter))
+        finally:
+            cg_mod._cg_sweep = sweep
+        summ = loop_summary(device_loop.loop_records())
+        with host_sweeps():
+            res_h, s_h = synced(torch, lambda: cg(
+                ops32, b, x0, tol=solver.p_tol, maxiter=solver.p_maxiter))
+    fields, same = solves_match(torch, res_d, res_h)
+    finite = bool(torch.isfinite(res_d.x).all())
+    print(f"  {tag}: (device, host) {fields}; x bitwise {same}, finite "
+          f"{finite}; device loop {s_d:.3f} s "
+          f"({1e3 * s_d / max(fields['iters'][0], 1):.4f} ms per inner "
+          f"iteration), host loop {s_h:.3f} s; (iterations, blocks, host "
+          f"reads, capture ms) {summ['sweeps']}; each pass's correction "
+          f"r.r {[f'{v:.3e}' for v in rr_in]}")
+    require(same, f"{tag}: the device loop differs from the host loop")
+    return {"fields": fields, "s": s_d, "host_s": s_h, "x_finite": finite,
+            "correction_rr": rr_in, **summ}
+
+
 def loop_phase(torch, solver, state, dt) -> dict:
     """Phase 4's device-loop check at full size, from ``state``: the f64
-    pressure CG sweep, an ``f32_ir`` pressure solve and the three f64
-    momentum BiCGStab sweeps, each on the device loop and on the host loop
-    with the kernels — ``x`` bitwise, identical counts and flags, the host
-    reads of every sweep within ``ceil(iterations / K) + 4`` — then the
+    pressure CG sweep, the three f64 momentum BiCGStab sweeps and an
+    ``f32_ir`` pressure solve (from ``state`` and from rest), each on the
+    device loop and on the host loop with the kernels — ``x`` bitwise
+    (:func:`same_bits`), identical counts and flags, the host reads of
+    every sweep within ``ceil(iterations / K) + 4`` — then the
     f64 pressure sweep and one momentum sweep timed at K = 1, 2, 4, 8, 32
     and 128 (ms per iteration and capture ms)."""
     from repro_torch.solvers import device_loop
     from repro_torch.solvers.bicgstab import (_bicgstab_sweep,
                                               _bicgstab_sweep_host)
-    from repro_torch.solvers.cg import _cg_sweep, _cg_sweep_host, cg
+    from repro_torch.solvers.cg import _cg_sweep, _cg_sweep_host
     from repro_torch.solvers.cg import threshold_sq
 
     print(f"[4b] the device loop ({device_loop.ROUTE}, K = {device_loop.K}) "
@@ -1968,61 +2088,29 @@ def loop_phase(torch, solver, state, dt) -> dict:
         mom.append((bm, state.U[..., c].contiguous(),
                     threshold_sq(bbm, solver.mom_tol, 0.0)))
 
-    def held(tag, device_fn, host_fn):
-        device_loop.reset_loop_records()
-        with no_plain_versions():
-            (x_d, rr_d, k_d), s_d = synced(torch, device_fn)
-            recs = device_loop.loop_records()
-            (x_h, rr_h, k_h), s_h = synced(torch, host_fn)
-        same = (torch.equal(x_d, x_h) and torch.equal(rr_d, rr_h)
-                and int(k_d) == int(k_h))
-        summ = loop_summary(recs)
-        print(f"  {tag}: {int(k_d)} iterations, x and r.r bitwise {same}; "
-              f"device loop {s_d:.3f} s ({1e3 * s_d / max(int(k_d), 1):.4f}"
-              f" ms/iter), host loop {s_h:.3f} s "
-              f"({1e3 * s_h / max(int(k_h), 1):.4f} ms/iter); (iterations, "
-              f"blocks, host reads, capture ms) {summ['sweeps']}")
-        require(same, f"{tag}: the device loop differs from the host loop")
-        return {"iters": int(k_d), "s": s_d, "host_s": s_h, **summ}
-
-    out["p_f64"] = held(
-        "f64 pressure CG sweep",
+    out["p_f64"] = loop_vs_host(
+        torch, "f64 pressure CG sweep",
         lambda: _cg_sweep(ops, b, x0, thr_p, solver.p_maxiter),
         lambda: _cg_sweep_host(ops, b, x0, thr_p, solver.p_maxiter))
     for c, (bm, xm, thr_m) in enumerate(mom):
-        out[f"mom_{c}"] = held(
-            f"f64 momentum BiCGStab sweep, component {c}",
+        out[f"mom_{c}"] = loop_vs_host(
+            torch, f"f64 momentum BiCGStab sweep, component {c}",
             lambda: _bicgstab_sweep(opsM, bm, xm, thr_m, solver.mom_maxiter),
             lambda: _bicgstab_sweep_host(opsM, bm, xm, thr_m,
                                          solver.mom_maxiter))
 
     # an f32_ir pressure solve: the whole refinement loop, its inner sweeps
-    # on the device loop and then on the host loop
-    solver.precision = "f32_ir"
-    try:
-        ops32 = solver._solver_ops(solver.plan_p, bands, diag)
-    finally:
-        solver.precision = "f64"
-    device_loop.reset_loop_records()
-    with no_plain_versions():
-        res_d, s_d = synced(torch, lambda: cg(ops32, b, x0, tol=solver.p_tol,
-                                              maxiter=solver.p_maxiter))
-        summ = loop_summary(device_loop.loop_records())
-        with host_sweeps():
-            res_h, s_h = synced(torch, lambda: cg(
-                ops32, b, x0, tol=solver.p_tol, maxiter=solver.p_maxiter))
-    fields = {f: (int(getattr(res_d, f)), int(getattr(res_h, f)))
-              for f in ("iters", "outer_iters", "converged", "hit_cap")}
-    same = (torch.equal(res_d.x, res_h.x)
-            and torch.equal(res_d.residual, res_h.residual)
-            and all(a == b_ for a, b_ in fields.values()))
-    print(f"  f32_ir pressure solve: (device, host) {fields}; x bitwise "
-          f"{same}; device loop {s_d:.3f} s "
-          f"({1e3 * s_d / max(fields['iters'][0], 1):.4f} ms per inner "
-          f"iteration), host loop {s_h:.3f} s; (iterations, blocks, host "
-          f"reads, capture ms) {summ['sweeps']}")
-    require(same, "f32_ir: the device loop differs from the host loop")
-    out["p_f32_ir"] = {"fields": fields, "s": s_d, "host_s": s_h, **summ}
+    # on the device loop and then on the host loop; from this state and
+    # from rest (there the refinement diverges to NaN on both loops: the
+    # check compares bits)
+    out["p_f32_ir"] = refined_vs_host(torch, "f32_ir pressure solve", solver,
+                                      bands, b, x0, diag)
+    bands0, b0, x00, diag0 = pressure_system(solver, solver.initial_state(),
+                                             dt)
+    out["p_f32_ir_from_rest"] = refined_vs_host(
+        torch, "f32_ir pressure solve from rest", solver, bands0, b0, x00,
+        diag0)
+    del bands0, b0, x00, diag0
 
     # K: the f64 pressure sweep and momentum component 0 at six lengths
     k0 = device_loop.K
@@ -2594,18 +2682,21 @@ CG_PROFILE_PARTS = (("spmv_dot_direction", ("spmv_dot_direction_kernel",)),
                                    "Memcpy DtoD")))
 
 
-def profile_cg(torch, iters: int) -> dict:
+def profile_cg(torch, iters: int, full_mesh: bool = False) -> dict:
     """The main path's first pressure system (the cavity from rest), CG
     capped at ``iters`` iterations under ``torch.profiler``: each kernel's
     device time per iteration, sorted into the parts of an iteration, and
     the device's idle share of the window (1 - the kernels' summed time
-    over the window's wall)."""
+    over the window's wall).  ``full_mesh``: the solver of phase 15 (the
+    system's rows as 30 shards on ``MESH_DEVICE``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.case import build_parser, build_solver
     from repro_torch.solvers.cg import cg
 
-    args = build_parser().parse_args(MAIN_ARGS)
+    fm = (["--solve-mode", "full_mesh", "--mesh-devices",
+           ",".join([MESH_DEVICE] * PARTS)] if full_mesh else [])
+    args = build_parser().parse_args(MAIN_ARGS + fm)
     solver = build_solver(args)
     bands, b, x0, diag = pressure_system(solver, solver.initial_state(),
                                          args.co * solver.mesh.h)
@@ -4279,6 +4370,312 @@ def supervision_phase(torch, dev, state3, ends, warm) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the full-mesh solve mode at 210^3
+# ---------------------------------------------------------------------------
+# the full mesh's ratios: 1 x 30 and 2 x 15 shards of one fine part's rows
+FULL_MESH_ALPHAS = (30, 15)
+MESH_DEVICE = "cuda:0"       # every shard on the one card
+FULL_MESH_SPMV = 1e-12       # shard SpMV vs the stacked kernel, relative to
+#                              the output's max (the halo terms are added
+#                              after the local sum: another rounding order)
+FULL_MESH_TURNS = ("stacked", "full", "full", "stacked")
+
+
+class _LaneSpy:
+    """A kernel wrapper's stand-in that records ``(name, lanes)`` of each
+    call and forwards it; ``launches`` is the wrapper's own counter (the
+    wrapper adds to it through its module's name, now this object)."""
+
+    def __init__(self, name, fn, calls):
+        self.name, self.fn, self.calls = name, fn, calls
+
+    def __call__(self, *args, **kw):
+        self.calls.append((self.name, kw.get("lanes", 1)))
+        return self.fn(*args, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
+@contextlib.contextmanager
+def lane_spy():
+    """Record ``(kernel, lanes)`` of every call of the SpMV and fold
+    wrappers inside the block (:class:`_LaneSpy`)."""
+    from repro_torch.kernels.krylov_fused import krylov_fused as kf
+    from repro_torch.kernels.spmv_dia import spmv_dia as sd
+
+    calls = []
+    saved = [(sd, "spmv_dia_stacked"), (kf, "spmv_dot_direction")]
+    originals = [getattr(m, n) for m, n in saved]
+    try:
+        for (mod, name), fn in zip(saved, originals):
+            setattr(mod, name, _LaneSpy(name, fn, calls))
+        yield calls
+    finally:
+        for (mod, name), fn in zip(saved, originals):
+            setattr(mod, name, fn)
+
+
+def lane_problems(calls, n_shards: int) -> list:
+    """What the lane spy's record of a full-mesh step says went wrong: the
+    fold ran other than one lane a shard, or the shards' SpMV never ran as
+    one launch of ``n_shards`` lanes."""
+    out = []
+    fold = {lanes for name, lanes in calls if name == "spmv_dot_direction"}
+    if fold != {n_shards}:
+        out.append(f"the fold ran with lanes {sorted(fold)}, not "
+                   f"{n_shards} (one a shard)")
+    if n_shards not in {lanes for name, lanes in calls
+                        if name == "spmv_dia_stacked"}:
+        out.append(f"the shard SpMV never launched {n_shards} lanes")
+    return out
+
+
+def loop_launches_per_iter(records) -> dict:
+    """The guarded launches per iteration of a run's CG sweeps, as the
+    kernels counted them on the device."""
+    iters = sum(r.iters for r in records if r.solver == "cg")
+    total: dict = {}
+    for r in records:
+        if r.solver == "cg":
+            for name, n in r.launches.items():
+                total[name] = total.get(name, 0) + n
+    return {name: n / iters for name, n in total.items() if n} if iters \
+        else {}
+
+
+def full_mesh_solvers(torch) -> tuple:
+    """The main path's stacked solver and its full-mesh twin
+    (``--solve-mode full_mesh --mesh-devices``, every shard on
+    ``MESH_DEVICE``), both through the launcher, and ``dt``."""
+    from repro_torch.launch.case import build_parser, build_solver
+
+    args = build_parser().parse_args(MAIN_ARGS)
+    stacked = build_solver(args)
+    fm_args = build_parser().parse_args(
+        MAIN_ARGS + ["--solve-mode", "full_mesh", "--mesh-devices",
+                     ",".join([MESH_DEVICE] * PARTS)])
+    return stacked, build_solver(fm_args), args.co * stacked.mesh.h
+
+
+def full_mesh_spmv(torch, stacked, full, state, dt, problems) -> dict:
+    """15a: the shard SpMV (and its dot form) on the 210^3 pressure bands
+    from ``state``, and the fused bundle's ``matvec_dot``, against the
+    stacked kernels, each timed."""
+    from repro_torch.kernels.krylov_fused.krylov_fused import (
+        fused_matvec_dot)
+    from repro_torch.kernels.spmv_dia.spmv_dia import spmv_dia_stacked
+    from repro_torch.sparse.shardmap_spmv import (make_spmv_full_mesh,
+                                                  shard_bands)
+
+    bands, b, x0, diag = pressure_system(stacked, state, dt)
+    plan, mesh = full.plan_p, full.spmd_mesh
+    offsets = tuple(int(o) for o in plan.dia_offsets)
+    kw = dict(offsets=offsets, plane=plan.plane)
+    fm = make_spmv_full_mesh(mesh, n_coarse=full.n_coarse, alpha=plan.alpha,
+                             m_coarse=plan.m_coarse, with_dot=True, **kw)
+    b_sh = shard_bands(mesh, bands, plan.alpha)
+    ops = full._solver_ops(plan, bands, diag)
+    gen = torch.Generator(device=b.device).manual_seed(0)
+    out = {}
+    for tag, x in (("p", x0.contiguous()),
+                   ("random", torch.randn(b.shape, generator=gen,
+                                          dtype=b.dtype, device=b.device))):
+        with no_plain_versions():
+            y_ref = spmv_dia_stacked(bands, x, **kw)
+            _, dot_ref = fused_matvec_dot(bands, x, **kw)
+            y_fm, dot_fm = fm(b_sh, x)
+            y_op, dot_op = ops.matvec_dot(x)
+        torch.cuda.synchronize()
+        errs = {"spmv": rel_diff(y_fm, y_ref), "bundle": rel_diff(y_op, y_ref),
+                "dot": rel_diff(dot_fm, dot_ref),
+                "bundle_dot": rel_diff(dot_op, dot_ref)}
+        out[tag] = errs
+        print(f"  15a shard SpMV on x = {tag}: relative to the stacked "
+              f"kernels " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                      errs.items()))
+        if max(errs.values()) > FULL_MESH_SPMV:
+            problems.append(f"15a x = {tag}: the shard SpMV differs from "
+                            f"the stacked kernel by {errs}")
+    x = x0.contiguous()
+    out["ms"] = {"stacked_spmv": time_ms(torch, lambda: spmv_dia_stacked(
+        bands, x, **kw)), "shard_spmv": time_ms(torch, lambda: fm(b_sh, x)),
+        "stacked_spmv_dot": time_ms(torch, lambda: fused_matvec_dot(
+            bands, x, **kw)), "bundle_matvec_dot": time_ms(
+                torch, lambda: ops.matvec_dot(x))}
+    print("  15a ms per call: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                              out["ms"].items()))
+    return out
+
+
+def full_mesh_step(torch, stacked, full, state, dt, alpha, problems) -> dict:
+    """15b: one PISO step of each solver at ``alpha`` from ``state``, the
+    full-mesh one with its counters from 0, plain versions refused and the
+    wrappers' lanes recorded: identical counts and flags, the state within
+    1e-10, the fold one lane a shard, every CG sweep's device counts its
+    iterations times :data:`LOOP_LAUNCHES`."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solvers import device_loop
+
+    stacked.rebind_alpha(alpha)
+    full.rebind_alpha(alpha)
+    shape = dict(zip(full.spmd_mesh.axis_names, full.spmd_mesh.shape))
+    with no_plain_versions():
+        st_s, ss = stacked.step(state, dt)
+    reset_launch_counts()
+    device_loop.reset_loop_records()
+    with no_plain_versions(), lane_spy() as calls:
+        st_f, sf = full.step(state, dt)
+    torch.cuda.synchronize()
+    counts, records = launch_counts(), device_loop.loop_records()
+    tag = f"15b alpha {alpha} ({shape})"
+    try:
+        loop_summary(records)
+        require_launched(counts, tag)
+    except SmokeFailure as e:
+        problems.append(str(e))
+    problems.extend(f"{tag}: {p}" for p in
+                    lane_problems(calls, full.spmd_mesh.n_shards))
+    same = {f: torch.equal(getattr(sf, f), getattr(ss, f))
+            for f in ("mom_iters", "p_iters", "converged", "hit_cap")}
+    diffs = {f: rel_diff(getattr(st_f, f), getattr(st_s, f))
+             for f in ("U", "p", "phi")}
+    if not all(same.values()):
+        problems.append(f"{tag}: counts or flags differ from the stacked "
+                        f"step: {same}")
+    if max(diffs.values()) > PARITY:
+        problems.append(f"{tag}: the state differs from the stacked step's "
+                        f"by {diffs}")
+    per_iter = loop_launches_per_iter(records)
+    print(f"  {tag}: p_iters {sf.p_iters.tolist()} (stacked "
+          f"{ss.p_iters.tolist()}), mom_iters {int(sf.mom_iters)}, counts "
+          f"and flags equal {all(same.values())}; max|d|/max "
+          + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+          + f"; launches {counts}; per CG iteration {per_iter}; lanes "
+          f"{sorted(set(calls))}")
+    return {"mesh": shape, "p_iters": sf.p_iters.tolist(),
+            "same": same, "diffs": diffs, "launches": counts,
+            "launches_per_cg_iter": per_iter}
+
+
+def full_mesh_loop(torch, full, state, dt) -> dict:
+    """15c: the full-mesh pressure sweep on the device loop against the
+    host loop (:func:`loop_vs_host`)."""
+    from repro_torch.solvers.cg import _cg_sweep, _cg_sweep_host
+    from repro_torch.solvers.cg import threshold_sq
+
+    bands, b, x0, diag = pressure_system(full, state, dt)
+    ops = full._solver_ops(full.plan_p, bands, diag)
+    (bb,) = ops.dots((b, b))
+    thr = threshold_sq(bb, full.p_tol, 0.0)
+    return loop_vs_host(
+        torch, "15c full-mesh pressure CG sweep",
+        lambda: _cg_sweep(ops, b, x0, thr, full.p_maxiter),
+        lambda: _cg_sweep_host(ops, b, x0, thr, full.p_maxiter))
+
+
+def full_mesh_timing(torch, stacked, full, state, dt) -> dict:
+    """15d: the stacked and the full-mesh step from ``state`` walked phase
+    by phase in turns (:data:`FULL_MESH_TURNS`): seconds a step and ms per
+    CG iteration (the ``solve_p`` walls over their iterations), with the
+    full mesh's guarded launches per CG iteration."""
+    from repro_torch.solvers import device_loop
+
+    out = {"stacked": [], "full": []}
+    for tag in FULL_MESH_TURNS:
+        solver = stacked if tag == "stacked" else full
+        device_loop.reset_loop_records()
+        walk = timed_step(torch, solver, state, dt)
+        cg_s = sum(v for k, v in walk["walls"].items()
+                   if k.startswith("solve_p"))
+        out[tag].append({"step_s": sum(walk["walls"].values()),
+                         "ms_per_cg_iter": 1e3 * cg_s
+                         / sum(walk["p_iters"]),
+                         "launches_per_cg_iter": loop_launches_per_iter(
+                             device_loop.loop_records())})
+    for tag, rows in out.items():
+        print(f"  15d {tag}: s a step "
+              + " ".join(f"{r['step_s']:.4f}" for r in rows)
+              + ", ms per CG iteration "
+              + " ".join(f"{r['ms_per_cg_iter']:.4f}" for r in rows)
+              + f", guarded launches per CG iteration "
+              f"{rows[0]['launches_per_cg_iter']}")
+    return out
+
+
+def full_mesh_errors(torch, full, state, dt, problems) -> dict:
+    """15e: a refined policy (set on the full-mesh solver, and at
+    construction), a padded mesh and too few devices must raise."""
+    from repro_torch.core.comm import make_cfd_mesh
+    from repro_torch.fvm.mesh import CavityMesh, PaddedCavityMesh
+    from repro_torch.fvm.piso import PisoSolver
+
+    small = CavityMesh.cube(8, 4)
+    mesh4 = [MESH_DEVICE] * 4
+    cases = {
+        "f32_ir at the step": lambda: full.step(state, dt),
+        "f32_ir at construction": lambda: PisoSolver(
+            small, alpha=2, solve_mode="full_mesh", precision="f32_ir",
+            spmd_mesh=make_cfd_mesh(2, 2, devices=mesh4),
+            device=MESH_DEVICE),
+        "padded mesh": lambda: PisoSolver(
+            PaddedCavityMesh.pad(small, 8), alpha=2, solve_mode="full_mesh",
+            spmd_mesh=make_cfd_mesh(4, 2, devices=[MESH_DEVICE] * 8),
+            device=MESH_DEVICE),
+        "too few devices": lambda: make_cfd_mesh(
+            1, PARTS, devices=[MESH_DEVICE] * (PARTS - 1)),
+    }
+    out = {}
+    for tag, fn in cases.items():
+        if tag == "f32_ir at the step":
+            full.precision = "f32_ir"
+        try:
+            fn()
+            out[tag] = None
+        except ValueError as e:
+            out[tag] = str(e)
+        finally:
+            full.precision = "f64"
+        if out[tag] is None:
+            problems.append(f"15e: {tag} did not raise")
+    print("  15e raised: " + "; ".join(f"{k}: {v}" for k, v in out.items()))
+    return out
+
+
+def full_mesh_phase(torch, state3) -> dict:
+    """Phase 15 (see the module docstring); its checks are collected and
+    fail the run after its parts have printed."""
+    print(f"[15] the full mesh: {N}^3, {PARTS} shards on {MESH_DEVICE}")
+    t0 = time.perf_counter()
+    problems = []
+    stacked, full, dt = full_mesh_solvers(torch)
+    out = {"setup_s": time.perf_counter() - t0}
+    out["spmv"] = full_mesh_spmv(torch, stacked, full, state3, dt, problems)
+    out["steps"] = {alpha: full_mesh_step(torch, stacked, full, state3, dt,
+                                          alpha, problems)
+                    for alpha in FULL_MESH_ALPHAS}
+    stacked.rebind_alpha(FULL_MESH_ALPHAS[0])
+    full.rebind_alpha(FULL_MESH_ALPHAS[0])
+    try:
+        out["loop"] = full_mesh_loop(torch, full, state3, dt)
+    except SmokeFailure as e:
+        problems.append(str(e))
+    out["timing"] = full_mesh_timing(torch, stacked, full, state3, dt)
+    out["errors"] = full_mesh_errors(torch, full, state3, dt, problems)
+    out["s"] = time.perf_counter() - t0
+    print(f"  [15] {out['s']:.1f} s")
+    for p in problems:
+        print(f"  FAILED: {p}")
+    require(not problems, f"phase 15: {len(problems)} check(s) failed")
+    return out
+
+
 def main_state(torch):
     """The main path's state after its 3 steps from rest (the kernels)."""
     from repro_torch.launch.case import build_parser, build_solver
@@ -4358,6 +4755,10 @@ def main(argv=None) -> int:
     ap.add_argument("--serving", action="store_true",
                     help="phases 13 and 14 alone (after phases 1-2), from a "
                          "3-step state of the main path's solver")
+    ap.add_argument("--full-mesh", action="store_true",
+                    help="phase 15 alone (after phases 1-2), from a 3-step "
+                         "state of the main path's solver; with "
+                         "--profile-cg, profile the full-mesh CG instead")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -4396,7 +4797,7 @@ def main(argv=None) -> int:
             print(json.dumps({"step_timing": result}))
             return 0
         if args.profile_cg:
-            result = profile_cg(torch, args.profile_cg)
+            result = profile_cg(torch, args.profile_cg, args.full_mesh)
             print(smi_line())
             print(json.dumps({"profile_cg": result}))
             return 0
@@ -4405,6 +4806,12 @@ def main(argv=None) -> int:
             print(f"done in {time.perf_counter() - t_start:.1f} s")
             print(smi_line())
             print(json.dumps({"serving": result}, default=str))
+            return 0
+        if args.full_mesh:
+            result = full_mesh_phase(torch, main_state(torch))
+            print(f"done in {time.perf_counter() - t_start:.1f} s")
+            print(smi_line())
+            print(json.dumps({"full_mesh": result}, default=str))
             return 0
         print("[3] kernels vs plain versions")
         report = check_kernels(torch, dev)
@@ -4420,6 +4827,8 @@ def main(argv=None) -> int:
         summary["control"] = control_phase(torch, state3, main_step, report)
         free_device(torch)
         summary["serving"] = serving_phases(torch, dev, state3)
+        free_device(torch)
+        summary["full_mesh"] = full_mesh_phase(torch, state3)
         del state3, main_step
         free_device(torch)
         print(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -25,8 +25,12 @@ iterator, ``run_steady``) are its registered specializations.
 ``rebind_alpha`` swaps the pressure side's ratio between steps and keeps
 every ratio it has bound; with a shared
 :class:`~repro_torch.core.controller.PlanCache` (``plan_cache``) the plans
-come from the cache.  The port runs the stacked layout (every coarse
-part's rows on the one device).
+come from the cache.  ``solve_mode`` picks the pressure solve's layout:
+"stacked" (every coarse part's rows together on the solver's device) or
+"full_mesh" (the fused system's rows cut into ``n_coarse * alpha`` row
+shards over ``spmd_mesh``, :mod:`repro_torch.core.comm` and
+:mod:`repro_torch.sparse.shardmap_spmv`; the momentum solve, alpha 1, stays
+stacked).
 
 The serving surface: ``pipeline`` ("auto" | "on" | "off") picks the
 software-pipelined executor for a program that declares one (``_stepper``);
@@ -61,9 +65,10 @@ from repro_torch.sparse.distributed import spmv_dia
 
 __all__ = ["SegregatedSolver", "PisoSolver", "SimpleSolver", "PisoState",
            "StepStats", "SOLVERS", "make_solver", "stack_states",
-           "unstack_states", "PIPELINE_MODES"]
+           "unstack_states", "PIPELINE_MODES", "SOLVE_MODES"]
 
 PIPELINE_MODES = ("auto", "on", "off")
+SOLVE_MODES = ("stacked", "full_mesh")
 
 
 class PisoState(NamedTuple):
@@ -137,6 +142,16 @@ class SegregatedSolver:
     "off"): the software-pipelined executor whenever the program declares
     a pipelined form ("auto"), always ("on": a program without one
     raises), or never; the resolved boolean is ``pipelined``.
+
+    ``solve_mode="full_mesh"`` (``full_mesh_solve=True`` is the JAX
+    package's alias) solves the pressure system over ``spmd_mesh``, a
+    :class:`~repro_torch.core.comm.ShardMesh` whose first shard is on
+    ``device``; without one, the mesh is built from the distinct visible
+    devices of ``device``'s type and rebuilt at every
+    :meth:`rebind_alpha`, and too few devices raise.  An explicit mesh is
+    reshaped over the same devices when alpha changes.  The full mesh is
+    f64 only and unpadded, as in JAX: a refined ``precision`` raises at
+    construction and, set later, at the next solve.
     """
 
     mesh: CavityMesh
@@ -170,11 +185,22 @@ class SegregatedSolver:
     plan_cache: object | None = None
     # software-pipelined stepping: "auto" | "on" | "off"
     pipeline: str = "auto"
+    # the pressure solve's layout (class doc); full_mesh_solve is the JAX
+    # package's legacy alias for solve_mode="full_mesh"
+    solve_mode: str = "stacked"
+    spmd_mesh: object | None = None
+    full_mesh_solve: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         resolve_backend(self.solver_backend, self.device)  # validates
         get_policy(self.precision)  # raises on an unknown policy name
+        if self.full_mesh_solve and self.solve_mode == "stacked":
+            self.solve_mode = "full_mesh"
+        if self.solve_mode not in SOLVE_MODES:
+            raise ValueError(f"unknown solve_mode {self.solve_mode!r}")
+        self.full_mesh_solve = self.solve_mode == "full_mesh"
+        self._check_full_mesh_policy(self.precision)
         spec = get_program(self.program_name)  # raises on an unknown one
         if self.pipeline not in PIPELINE_MODES:
             raise ValueError(f"unknown pipeline mode {self.pipeline!r} "
@@ -190,6 +216,12 @@ class SegregatedSolver:
         # activity follows the per-session n_active operand
         self.padded = getattr(self.mesh, "n_parts_real", None) is not None
         self.n_active = self.mesh.n_parts_active
+        if self.padded and self.full_mesh_solve:
+            raise ValueError(
+                "padded (size-class) meshes require solve_mode='stacked'")
+        # an explicit mesh is kept (and reshaped); otherwise the full mesh
+        # builds its own at every ratio
+        self._auto_mesh = self.spmd_mesh is None
         if self.update_schedule not in ("device_direct", "host_buffer"):
             raise ValueError(
                 f"unknown update schedule {self.update_schedule!r}")
@@ -206,8 +238,8 @@ class SegregatedSolver:
                         else update_host_buffer)
         self.plan_seconds = 0.0
         # without a cache, the plans per alpha; and per (program, alpha,
-        # backend, policy, pipelined) the (plan, executors) binding, each
-        # built once
+        # mode, backend, policy, pipelined) the (plan, executors) binding,
+        # each built once
         self._plans: dict[int, RepartitionPlan] = {}
         self._bindings: dict[tuple, tuple] = {}
         # identity repartition for the momentum (fine-partition) matrix
@@ -223,7 +255,7 @@ class SegregatedSolver:
         if self.plan_cache is not None:
             misses = self.plan_cache.misses
             plan = self.plan_cache.plan_for_mesh(
-                self.mesh, alpha, "dia", mode="stacked",
+                self.mesh, alpha, "dia", mode=self.solve_mode,
                 backend=self.solver_backend, precision=self.precision)
             built = self.plan_cache.misses != misses
         else:
@@ -244,17 +276,22 @@ class SegregatedSolver:
         host (or takes it from ``plan_cache``, which counts a hit) and the
         phase list of ``program_name``; a revisited ``(program, alpha,
         solver_backend, precision)`` reuses its plan, device index and
-        program, and builds nothing.  The backend and the policy key the
-        binding as they key the cache, so the binding always holds the
-        plan the cache returned for them.
+        program, and builds nothing.  The mode, the backend and the policy
+        key the binding as they key the cache, so the binding always holds
+        the plan the cache returned for them.  In full-mesh mode the
+        automatic mesh is rebuilt at the new shape and an explicit one
+        reshaped over its devices.
         """
         if self.mesh.n_parts % alpha != 0:
             raise ValueError("alpha must divide the number of fine parts")
+        n_coarse = self.mesh.n_parts // alpha
+        if self.full_mesh_solve:
+            self.spmd_mesh = self._mesh_for(n_coarse, alpha)
         plan = self._plan_for(alpha)
         self.alpha = alpha
-        self.n_coarse = self.mesh.n_parts // alpha
-        key = (self.program_name, alpha, self.solver_backend, self.precision,
-               self.pipelined)
+        self.n_coarse = n_coarse
+        key = (self.program_name, alpha, self.solve_mode, self.solver_backend,
+               self.precision, self.pipelined)
         binding = self._bindings.get(key)
         if binding is None:
             # the program build reads plan_p and n_coarse off the solver
@@ -265,6 +302,38 @@ class SegregatedSolver:
         self.plan_p, self._exec = binding
         self.program = self._exec.program
         self._instrumented = self._exec.instrumented
+
+    def _mesh_for(self, n_coarse: int, alpha: int):
+        """The full mesh at ``(n_coarse, alpha)``: built from the visible
+        devices, or the explicit mesh reshaped over its devices; its first
+        shard must be on the solver's device."""
+        from repro_torch.core.comm import canonical_device, make_cfd_mesh
+
+        if self._auto_mesh:
+            mesh = make_cfd_mesh(n_coarse, alpha,
+                                 device_type=self.device.type)
+        elif tuple(self.spmd_mesh.shape) != (n_coarse, alpha):
+            mesh = make_cfd_mesh(n_coarse, alpha,
+                                 devices=self.spmd_mesh.flat())
+        else:
+            mesh = self.spmd_mesh
+        first, home = mesh.flat()[0], canonical_device(self.device)
+        if first != home:
+            raise ValueError(f"the mesh's first shard is on {first}, the "
+                             f"solver's state on {home}")
+        return mesh
+
+    def _check_full_mesh_policy(self, precision: str) -> None:
+        if precision != "f64" and self.full_mesh_solve:
+            raise ValueError(
+                "mixed-precision policies require solve_mode='stacked' "
+                "(the full-mesh backend is f64-only)")
+
+    def _use_full_mesh(self, plan: RepartitionPlan) -> bool:
+        """The full-mesh SpMV serves multi-part fused systems only: the
+        momentum (alpha 1, fine-partition) solve keeps the stacked path."""
+        return (self.full_mesh_solve and self.spmd_mesh is not None
+                and plan.alpha > 1)
 
     def _bands(self, plan: RepartitionPlan, diag, upper, lower, iface):
         """LDU buffers → repartitioned DIA bands via the update pattern."""
@@ -280,6 +349,11 @@ class SegregatedSolver:
         cohort of that many lanes (:mod:`repro_torch.solvers.ops`)."""
         offsets = tuple(int(o) for o in plan.dia_offsets)
         policy = get_policy(self.precision)
+        # read at every solve: a full-mesh solver never runs a refined
+        # policy, nor quietly the stacked layout instead
+        self._check_full_mesh_policy(policy.name)
+        if self._use_full_mesh(plan):
+            return self._full_mesh_ops(plan, bands, diag, offsets, lanes)
         if resolve_backend(self.solver_backend, bands.device) == "fused":
             return fused_stacked_ops(bands, diag, offsets=offsets,
                                      plane=plan.plane, policy=policy,
@@ -303,6 +377,33 @@ class SegregatedSolver:
                                  lanes=lanes)
         return reference_ops(over(bands), jacobi_preconditioner(diag),
                              lanes=lanes)
+
+    def _full_mesh_ops(self, plan: RepartitionPlan, bands, diag, offsets,
+                       lanes):
+        """The full-mesh bundle (:mod:`repro_torch.sparse.shardmap_spmv`):
+        the fused backend's kernels over the shards, or the reference
+        backend's plain PyTorch (on a mesh of several devices, its host
+        loop)."""
+        from repro_torch.sparse.shardmap_spmv import (
+            make_fused_ops_full_mesh, make_jacobi_full_mesh,
+            make_spmv_full_mesh, shard_bands)
+
+        if lanes is not None:
+            raise ValueError("a full-mesh system steps alone: it has no "
+                             "cohort form")
+        mesh = self.spmd_mesh
+        kw = dict(offsets=offsets, plane=plan.plane,
+                  n_coarse=self.mesh.n_parts // plan.alpha, alpha=plan.alpha,
+                  m_coarse=plan.m_coarse)
+        if resolve_backend(self.solver_backend, bands.device) == "fused":
+            return make_fused_ops_full_mesh(mesh, bands, diag, **kw)
+        fm = make_spmv_full_mesh(mesh, use_kernel=False, **kw)
+        b_sh = shard_bands(mesh, bands, plan.alpha)
+        ops = reference_ops(lambda x: fm(b_sh, x),
+                            make_jacobi_full_mesh(mesh, diag))
+        if mesh.one_device is None:
+            ops = dataclasses.replace(ops, host_loop=True)
+        return ops
 
     def initial_state(self) -> PisoState:
         P, m, F = self.mesh.n_parts, self.mesh.n_cells, self.mesh.n_faces

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.fvm.step_program import (Phase, ProgramSpec, StepProgram,
                                          _binding, _phase_toolkit,
+                                         cohort_form,
                                          final_state, health_flags,
                                          register_program, seed_env)
 
@@ -164,7 +165,7 @@ def build_simple_program(solver, lanes: int | None = None,
     return StepProgram(phases=phases, seed=seed, finalize=finalize,
                        seed_keys=seed_keys, extra_keys=extra_keys,
                        converged=converged,
-                       lanes_of=lanes_of if lanes is None else None)
+                       lanes_of=cohort_form(solver, lanes, lanes_of))
 
 
 register_program(ProgramSpec(

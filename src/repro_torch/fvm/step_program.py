@@ -58,7 +58,8 @@ __all__ = ["Phase", "StepProgram", "SerialExecutor", "InstrumentedExecutor",
            "BatchedPipelinedExecutor", "ProgramExecutors", "PipelineForm",
            "build_piso_program", "health_flags", "roll_schedule",
            "PHASE_TAGS", "ProgramSpec", "PROGRAMS", "register_program",
-           "program_names", "get_program", "PhaseToolkit", "LaneLayout"]
+           "program_names", "get_program", "PhaseToolkit", "LaneLayout",
+           "cohort_form"]
 
 # the cost-model buckets a phase may bill to
 PHASE_TAGS = PhaseBreakdown.TIME_FIELDS
@@ -520,7 +521,9 @@ class BatchedExecutor:
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         if program.lanes_of is None:
-            raise ValueError("program has no cohort form (lanes_of)")
+            raise ValueError("program has no cohort form (lanes_of): a "
+                             "cohort build, or a full-mesh binding, which "
+                             "steps alone")
         self.program = program
         self.batch = batch
         self.lanes = program.lanes_of(batch)
@@ -839,6 +842,15 @@ class PhaseToolkit:
     grad_p: Callable
 
 
+def cohort_form(solver, lanes: int | None, lanes_of: Callable):
+    """A program build's ``lanes_of``: None for a cohort build (it is one)
+    and for a full-mesh binding, which steps alone (its pressure system
+    spans the shard mesh; the JAX engine never batches it either)."""
+    if lanes is not None or getattr(solver, "full_mesh_solve", False):
+        return None
+    return lanes_of
+
+
 def _binding(solver) -> tuple:
     """What a program closes over at its build: the momentum and pressure
     plans and the coarse part count (a later ``rebind_alpha`` changes the
@@ -1126,7 +1138,7 @@ def build_piso_program(solver, lanes: int | None = None,
     return StepProgram(phases=tuple(phases), seed=seed, finalize=finalize,
                        seed_keys=seed_keys, extra_keys=extra_keys,
                        pipeline=pipeline,
-                       lanes_of=lanes_of if lanes is None else None)
+                       lanes_of=cohort_form(solver, lanes, lanes_of))
 
 
 register_program(ProgramSpec(

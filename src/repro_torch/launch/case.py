@@ -24,8 +24,12 @@ when the predicted gain clears ``--hysteresis``; plans come from one
 shared plan cache.  ``--pipeline`` (``auto``, as in the JAX launcher)
 steps a program that declares a pipelined form (PISO) through the
 software-pipelined executor (``on`` demands it, ``off`` steps serially);
-the controller scores alphas with the matching objective.  ``--device``
-defaults to ``cuda``; ``--device cpu`` runs the same path on the CPU.
+the controller scores alphas with the matching objective.
+``--solve-mode full_mesh`` solves the pressure system over ``--parts`` row
+shards, one per fine part, on ``--mesh-devices`` (a comma list, repeats
+allowed: ``cuda:0`` thirty times puts 30 shards on one card; default: the
+visible devices, and too few raise).  ``--device`` defaults to ``cuda``;
+``--device cpu`` runs the same path on the CPU.
 ``python -m repro_torch.launch.cavity`` is the same launcher.
 """
 from __future__ import annotations
@@ -35,6 +39,7 @@ import time
 
 import torch
 
+from repro_torch.core.comm import make_cfd_mesh
 from repro_torch.core.controller import (ControllerConfig, PlanCache,
                                          RepartitionController)
 from repro_torch.core.cost_model import H100, CostModel
@@ -78,6 +83,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="pressure CG iteration cap")
     ap.add_argument("--schedule", default="device_direct",
                     choices=["device_direct", "host_buffer"])
+    ap.add_argument("--solve-mode", default="stacked",
+                    choices=["stacked", "full_mesh"],
+                    help="pressure solve layout: stacked keeps each coarse "
+                         "part's rows together; full_mesh cuts them into "
+                         "--parts row shards over --mesh-devices")
+    ap.add_argument("--mesh-devices", default=None,
+                    help="full_mesh: comma list of the shards' devices, one "
+                         "per fine part, repeats allowed (e.g. cuda:0 "
+                         "repeated, or cpu,cpu,...); default: the visible "
+                         "devices of --device's type, which must be "
+                         "--parts many")
     ap.add_argument("--solver-backend", default="auto",
                     choices=["auto", "fused", "reference"],
                     help="Krylov per-iteration backend: fused = the CUDA "
@@ -127,20 +143,25 @@ def build_solver(args, alpha: int | None = None,
     """The solver for parsed launcher ``args`` at ``alpha`` (default
     ``--alpha``); its plans are built here, or taken from ``plan_cache``."""
     mesh = CavityMesh.cube(args.n, args.parts)
+    alpha = args.alpha if alpha is None else alpha
+    spmd_mesh = None
+    if args.mesh_devices:
+        spmd_mesh = make_cfd_mesh(args.parts // alpha, alpha,
+                                  devices=args.mesh_devices.split(","))
     nu = args.nu
     if args.re > 0:
         case = get_case(args.case, reynolds=args.re)
         nu = case.nu(args.n * mesh.h)
         print(f"Re={args.re:g}: derived nu={nu:.3e} "
               f"(u_ref={case.u_ref:g}, L={args.n * mesh.h:g})")
-    return make_solver(args.program, mesh,
-                       alpha=args.alpha if alpha is None else alpha, nu=nu,
+    return make_solver(args.program, mesh, alpha=alpha, nu=nu,
                        case=args.case, p_tol=args.p_tol,
                        p_maxiter=args.p_maxiter,
                        update_schedule=args.schedule,
                        solver_backend=args.solver_backend,
                        pipeline=args.pipeline, device=args.device,
-                       plan_cache=plan_cache)
+                       plan_cache=plan_cache, solve_mode=args.solve_mode,
+                       spmd_mesh=spmd_mesh)
 
 
 def _sync(device: torch.device) -> None:
@@ -214,6 +235,7 @@ def run_adaptive(solver: SegregatedSolver,
     if solver.alpha != controller.alpha:
         solver.rebind_alpha(controller.alpha)
     log(f"controller start: alpha={controller.alpha} "
+        f"solve_mode={solver.solve_mode} "
         f"solver_backend={solver.solver_backend} "
         f"sample_every={cfg.sample_every}")
     state = solver.initial_state() if state is None else state
@@ -303,6 +325,7 @@ def main(argv=None):
         ctl = RepartitionController(cm, n_cpu=args.parts, n_gpu=1,
                                     alpha0=alpha, config=cfg,
                                     cache=PlanCache(), fixed_fine=True,
+                                    solve_mode=args.solve_mode,
                                     solver_backend=args.solver_backend,
                                     pipelined=pipelined(args))
         alpha = ctl.alpha
@@ -330,7 +353,8 @@ def main(argv=None):
                                         scan_steps=args.scan_steps)
     print(f"{args.steps} steps in {sum(walls):.2f} s "
           f"({mesh.n_cells_global} cells, alpha={solver.alpha}, "
-          f"solver_backend={args.solver_backend}, device={solver.device}, "
+          f"solver_backend={args.solver_backend}, "
+          f"solve_mode={solver.solve_mode}, device={solver.device}, "
           f"scan_steps={max(args.scan_steps, 1)}, "
           f"pipelined={solver.pipelined})")
     return state, stats

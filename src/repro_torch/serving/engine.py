@@ -75,6 +75,18 @@ def _last(stats, index=(-1,)):
     return type(stats)(*(t[index] for t in stats))
 
 
+def _restored_mesh(m: dict, device: torch.device):
+    """A snapshotted session's explicit full mesh on the restoring engine's
+    ``device``: each recorded shard device of another type (a snapshot
+    taken on the card, restored on the CPU) becomes ``device``."""
+    from repro_torch.core.comm import make_cfd_mesh
+
+    devs = [d if torch.device(d).type == device.type else device
+            for d in m["mesh_devices"]]
+    alpha = int(m["alpha"])
+    return make_cfd_mesh(len(devs) // alpha, alpha, devices=devs)
+
+
 class SimulationEngine:
     """Concurrent simulations with independent adaptive repartitioning.
 
@@ -161,8 +173,11 @@ class SimulationEngine:
         numerics.  ``program``, ``case``, ``pipeline`` ("auto" | "on" |
         "off") and ``precision`` pick the tenant's program, flow case,
         stepping schedule and Krylov policy; each is a cohort-key
-        component.  ``solve_mode`` must be "stacked" (the port has no
-        full-mesh mode).  ``solver_kw`` are further solver settings
+        component.  ``solve_mode`` ("stacked" | "full_mesh") is one too,
+        and a full-mesh session always steps alone; its shards' devices
+        come in ``solver_kw`` as ``spmd_mesh``
+        (:func:`~repro_torch.core.comm.make_cfd_mesh`), or from the
+        visible devices.  ``solver_kw`` are further solver settings
         (``p_tol``, ``p_maxiter``, ``mom_tol``, ...).  The default cost
         model is ``CostModel(H100, n_dofs=...)`` at the mesh's real dofs.
         """
@@ -175,10 +190,6 @@ class SimulationEngine:
             raise ValueError(f"session {sid!r} already open")
         if priority not in ("bulk", "deadline"):
             raise ValueError(f"unknown priority {priority!r}")
-        if solve_mode != "stacked":
-            raise ValueError(
-                f"solve_mode {solve_mode!r}: the port runs the stacked "
-                f"layout only (the full-mesh mode is ROADMAP A8)")
         if pad_to_class is not None:
             mesh = PaddedCavityMesh.pad(mesh, pad_to_class)
         # cost honesty for padded meshes: ghost slabs carry no dofs
@@ -201,7 +212,8 @@ class SimulationEngine:
                              case=case, plan_cache=self.plan_cache,
                              solver_backend=solver_backend,
                              pipeline=pipeline, precision=precision,
-                             device=self.device, **solver_kw)
+                             device=self.device, solve_mode=solve_mode,
+                             **solver_kw)
         sess = SimulationSession(sid=sid, solver=solver,
                                  controller=controller,
                                  state=solver.initial_state(), dt=dt,
@@ -311,7 +323,7 @@ class SimulationEngine:
         quarantine = (None if sess.supervisor is None
                       or sess.supervisor.healthy else sess.sid)
         tols = (s.mom_tol, s.p_tol, s.mom_maxiter, s.p_maxiter)
-        return (sess.mesh_fp, s.alpha, "stacked", s.solver_backend, s.nu,
+        return (sess.mesh_fp, s.alpha, s.solve_mode, s.solver_backend, s.nu,
                 str(s.dtype), sess.adaptive, phase, tols, s.padded,
                 s.program_name, s.case, s.pipelined, s.precision, quarantine)
 
@@ -394,8 +406,11 @@ class SimulationEngine:
         every = self._every(lead)
         is_sample, chunk = next(roll_schedule(
             lead.steps_done, n_steps, every, cap=self.scan_window))
-        if len(group) == 1:
-            last[group[0]] = self._advance_one(lead, is_sample, chunk)
+        if len(group) == 1 or lead.solver.full_mesh_solve:
+            # a full-mesh tenant steps alone (as in the JAX engine)
+            for sid in group:
+                last[sid] = self._advance_one(self.sessions[sid], is_sample,
+                                              chunk)
         else:
             self._advance_cohort(group, is_sample, chunk, last)
         return chunk
@@ -590,6 +605,10 @@ class SimulationEngine:
                 "nu": s.nu,
                 "alpha": s.alpha,
                 "solve_mode": c.solve_mode,
+                # the port's key (JAX ignores it): the shards' devices of an
+                # explicit full mesh
+                "mesh_devices": (None if s.spmd_mesh is None or s._auto_mesh
+                                 else [str(d) for d in s.spmd_mesh.flat()]),
                 "solver_backend": s.solver_backend,
                 "pipeline": s.pipeline,
                 "precision": s.precision,
@@ -690,6 +709,9 @@ class SimulationEngine:
 
         for m in manifest["sessions"]:
             sid = m["sid"]
+            mesh_kw = {}
+            if m.get("mesh_devices"):
+                mesh_kw["spmd_mesh"] = _restored_mesh(m, eng.device)
             sess = eng.open_session(
                 sid, mesh_from_fields(m["mesh"]), dt=float(m["dt"]),
                 alpha0=int(m["alpha"]), nu=float(m["nu"]),
@@ -698,7 +720,8 @@ class SimulationEngine:
                 priority=m["priority"], deadline_ms=m["deadline_ms"],
                 program=m["program"], case=m["case"],
                 pipeline=m.get("pipeline", "auto"),
-                precision=m.get("precision", "f64"), **m.get("tols", {}))
+                precision=m.get("precision", "f64"), **m.get("tols", {}),
+                **mesh_kw)
             sess.state = leaves(sid, "state")
             sess.steps_done = int(m["steps_done"])
             sess.latency_samples = list(m["latency_samples"])

@@ -281,7 +281,11 @@ def cg(A: Callable[[torch.Tensor], torch.Tensor] | SolverOps,
 
     (bb,) = ops.dots((b, b))
     thr = threshold_sq(bb, tol, atol)
-    x, rr, k = _cg_sweep(ops, b, x0, thr, maxiter)
+    if ops.host_loop:
+        x, rr, k = _cg_sweep_host(ops, b, x0, thr, maxiter)
+        k = torch.tensor([k], dtype=torch.int32, device=b.device)
+    else:
+        x, rr, k = _cg_sweep(ops, b, x0, thr, maxiter)
     rr, k = lane_results(ops, rr, k)
     # NaN compares False on both sides: converged and hit_cap both stay
     # False, which the step's health flags read as divergence

@@ -118,6 +118,9 @@ class SolverOps:
                                     repr=False)
     # None: one system; B: a cohort of B lanes (module doc)
     lanes: int | None = None
+    # the solvers run their host loops over this bundle: its operators
+    # span several devices, which one CUDA graph cannot capture
+    host_loop: bool = False
 
 
 def lanes_of(ops: SolverOps) -> int:

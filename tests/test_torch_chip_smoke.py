@@ -654,3 +654,134 @@ def test_raw_launchers_pass_every_argument(monkeypatch):
                                  torch.float64)()
     assert seen == {"axpy_precond_inplace_launch": True,
                     "spmv_dia_launch": True, "spmv_dot_launch": True}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b's bitwise comparison, and phase 15 at a tiny size on the CPU
+# ---------------------------------------------------------------------------
+
+def test_same_bits_matches_nan_payloads_and_signed_zeros():
+    nan = torch.tensor([float("nan"), 1.0, -0.0], dtype=torch.float64)
+    assert not torch.equal(nan, nan.clone())
+    assert chip_smoke.same_bits(torch, nan, nan.clone())
+    assert not chip_smoke.same_bits(torch, nan, nan.abs())  # -0.0 vs +0.0
+    other = nan.clone()
+    other.view(torch.int64)[0] += 1  # another NaN payload
+    assert not chip_smoke.same_bits(torch, nan, other)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert chip_smoke.same_bits(torch, nan.to(dtype), nan.to(dtype))
+    assert chip_smoke.same_bits(torch, torch.tensor(3), torch.tensor(3))
+    assert not chip_smoke.same_bits(torch, nan, nan.to(torch.float32))
+
+
+def _refined_system(nan_start: bool):
+    from repro_torch.fvm.mesh import CavityMesh
+    from repro_torch.fvm.piso import make_solver
+
+    mesh = CavityMesh.cube(8, 4)
+    solver = make_solver("piso", mesh, alpha=4, p_tol=1e-10, p_maxiter=40,
+                         solver_backend="fused", device="cpu")
+    bands, b, x0, diag = chip_smoke.pressure_system(
+        solver, solver.initial_state(), 0.5 * mesh.h)
+    if nan_start:
+        x0 = x0.clone()
+        x0[0, 0] = float("nan")
+    return solver, bands, b, x0, diag
+
+
+@pytest.mark.parametrize("nan_start", [False, True])
+def test_refined_vs_host_holds_loops_bitwise_through_nan(tiny_phase13,
+                                                         nan_start):
+    """4b's f32_ir comparison from rest: the device loop against the host
+    loop by bits, so a solve that ends in NaN on both loops alike (the
+    210^3 one from rest diverges) passes, and a NaN start as well."""
+    solver, bands, b, x0, diag = _refined_system(nan_start)
+    out = chip_smoke.refined_vs_host(torch, "f32_ir", solver, bands, b, x0,
+                                     diag)
+    assert out["x_finite"] is not nan_start
+    assert solver.precision == "f64"
+
+
+def test_solves_match_reads_counts_flags_and_bits():
+    from repro_torch.solvers.cg import CGResult
+
+    def res(x, iters=5):
+        t = torch.tensor
+        return CGResult(x, t(iters), t(float("nan")), t(False), t(True),
+                        t(3))
+
+    x = torch.tensor([float("nan"), 2.0], dtype=torch.float64)
+    fields, same = chip_smoke.solves_match(torch, res(x), res(x.clone()))
+    assert same and fields["iters"] == (5, 5)
+    assert not chip_smoke.solves_match(torch, res(x), res(x, 6))[1]
+    assert not chip_smoke.solves_match(torch, res(x), res(x + 1))[1]
+
+
+def test_lane_problems_and_launches_per_iteration():
+    assert chip_smoke.lane_problems(
+        [("spmv_dot_direction", 30), ("spmv_dia_stacked", 1),
+         ("spmv_dia_stacked", 30)], 30) == []
+    probs = chip_smoke.lane_problems(
+        [("spmv_dot_direction", 1), ("spmv_dia_stacked", 1)], 30)
+    assert len(probs) == 2
+    from repro_torch.solvers.device_loop import LoopRecord
+
+    recs = [LoopRecord(10, 3, 4, 0.0, 8, "cuda", "cg",
+                       {"spmv_dot_direction": 10, "axpy_precond": 10,
+                        "cg_advance": 10, "spmv_dia": 0}),
+            LoopRecord(6, 2, 3, 0.0, 8, "cuda", "cg",
+                       {"spmv_dot_direction": 6, "axpy_precond": 6,
+                        "cg_advance": 6, "spmv_dia": 0}),
+            LoopRecord(4, 2, 3, 0.0, 2, "cuda", "bicgstab",
+                       {"spmv_dia": 8})]
+    assert chip_smoke.loop_launches_per_iter(recs) == {
+        name: 1.0 for name in chip_smoke.LOOP_LAUNCHES["cg"]}
+    assert chip_smoke.loop_launches_per_iter([]) == {}
+
+
+def test_shard_sum_is_one_fixed_order():
+    from repro_torch.sparse.shardmap_spmv import shard_dots, shard_sum
+
+    rng = np.random.default_rng(0)
+    parts = torch.tensor(rng.standard_normal(30))
+    assert torch.equal(shard_sum(parts), shard_sum(parts.clone()))
+    a, b = (torch.tensor(rng.standard_normal((2, 60))) for _ in range(2))
+    per = torch.stack([torch.sum(u * v) for u, v in
+                       zip(a.reshape(30, -1), b.reshape(30, -1))])
+    assert torch.allclose(shard_dots(a, b, 30), per.sum(), rtol=1e-14)
+
+
+@pytest.fixture
+def tiny_phase15(tiny_phase13, monkeypatch):
+    """Phase 15 cut to cube(8, 4) with its shards on the CPU: the fused
+    full-mesh bundle runs the wrappers' plain versions there (the launch
+    counters stay at 0, so that check is the card's alone)."""
+    monkeypatch.setattr(chip_smoke, "MAIN_ARGS", [
+        "--n", "8", "--parts", "4", "--alpha", "4", "--steps", "3",
+        "--co", "0.5", "--p-tol", "1e-10", "--p-maxiter", "6000",
+        "--solver-backend", "fused", "--device", "cpu"])
+    monkeypatch.setattr(chip_smoke, "FULL_MESH_ALPHAS", (4, 2))
+    monkeypatch.setattr(chip_smoke, "MESH_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda torch, fn, **k: 0.0)
+    monkeypatch.setattr(chip_smoke, "require_launched", lambda *a: None)
+
+
+def test_phase15_holds_on_the_cpu(tiny_phase15, capsys):
+    out = chip_smoke.full_mesh_phase(torch, _tiny_state(3))
+    assert {a: s["mesh"] for a, s in out["steps"].items()} == {
+        4: {"solve": 1, "assemble": 4}, 2: {"solve": 2, "assemble": 2}}
+    assert all(all(s["same"].values()) for s in out["steps"].values())
+    assert out["loop"]["iters"] > 0
+    assert all(v is not None for v in out["errors"].values())
+    assert len(out["timing"]["full"]) == 2
+    assert "[15] the full mesh" in capsys.readouterr().out
+
+
+def test_phase15_catches_dropped_halo_terms(tiny_phase15, monkeypatch):
+    """A full mesh that drops the halo terms (each shard solved as if cut
+    off from its neighbours) fails the SpMV check and the step checks."""
+    from repro_torch.sparse import shardmap_spmv
+
+    monkeypatch.setattr(shardmap_spmv, "_add_halo", lambda *a, **k: None)
+    with pytest.raises(chip_smoke.SmokeFailure, match="phase 15"):
+        chip_smoke.full_mesh_phase(torch, _tiny_state(3))
