@@ -7,6 +7,7 @@
   python3 chip_smoke.py --profile-cg ITERS [--full-mesh]
   python3 chip_smoke.py --serving
   python3 chip_smoke.py --full-mesh
+  python3 chip_smoke.py --lm
 
 Runs from the root of a checkout and needs one CUDA card; with no card, or
 without the rest of the checkout beside it, it exits nonzero and prints no
@@ -221,6 +222,35 @@ result.  Phases, in order (any failure exits nonzero):
     raise.  Phase 15's checks are collected and fail the run after its
     parts have printed.
 
+16. LM serving, with TF32 off for matmuls and cuDNN (printed): (16a)
+    every registry ``SMOKE`` config, float32, one set of parameters from
+    a CPU ``torch.Generator`` through prefill and 4 greedy decode steps
+    on the CPU and on the card: logits within 1e-4 of the largest
+    |logit|, greedy tokens equal; (16b) qwen3-0.6b at full width and all
+    28 layers in bfloat16 (parameters from a ``torch.Generator`` seed 0
+    on the card), batch 8, prompt 512: ``generate`` of 64 new tokens
+    (max_len 576), then two stepped runs that must give bitwise-equal
+    tokens and logits, equal to ``generate``'s tokens; prefill seconds,
+    decode ms a step and tokens/s, ``max_memory_allocated`` and the
+    decode step's byte floor (every weight and the whole K/V cache read
+    once); 4 decode steps under ``torch.profiler`` (launches and device
+    busy ms a step, the idle share, device time by part, the five largest
+    operations); a float32 copy of the weights: prefill plus 8 decode
+    steps within 1e-4 of ``forward`` over the same sequence at each
+    position with equal greedy tokens, and the bf16 prefill logits within
+    5e-2 of the f32 copy's; (16c) mixtral-8x22b (depth cut to 1 layer),
+    jamba-v0.1 (to its 8-layer period), rwkv6-1.6b, whisper-medium and
+    paligemma-3b (whole) at full width in float32 (the largest, jamba,
+    53 GB), batch 2, prompt 64: prefill plus 4 decode steps against
+    ``forward`` within 1e-4 with equal greedy tokens (rwkv6 within 1e-3
+    at 24 layers, its rounding growing with depth, and within 1e-4 cut to
+    one layer); the MoE families' routes that differ between the two
+    printed; jamba again in bfloat16, reported and not held (a top-2
+    route flips on one bf16 rounding).  Each cut is printed.
+    Phase 16's checks are collected and fail the run after its parts have
+    printed; its results also go on a line of their own (``lm {...}``)
+    before the summary.
+
 In phases 9-14 every kernel wrapper's plain version is made to raise while
 the kernel runs go: the card's path launches the kernels only (14c's
 quarantined request runs on the plain ``"reference"`` backend by
@@ -254,7 +284,7 @@ script beside another such checkout's ``src`` measures that tree the same
 way; with ``--full-mesh`` beside it, ``--profile-cg`` profiles phase 15's
 full-mesh CG instead.  With ``--serving``, phases 1 and 2 run, then phases
 13 and 14 from the main path's 3-step state; with ``--full-mesh`` alone,
-phase 15.
+phase 15; with ``--lm``, phase 16.
 """
 from __future__ import annotations
 
@@ -4676,6 +4706,516 @@ def full_mesh_phase(torch, state3) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: LM serving (qwen3-0.6b at full width, every family on the card)
+# ---------------------------------------------------------------------------
+LM_TOL = 1e-4            # of the largest |logit|: f32 on the card against the
+#                          CPU (16a), decode against forward (16b, 16c)
+LM_BF16_TOL = 5e-2       # 16b: bf16 prefill logits against the f32 copy's
+#                          (~6 bf16 ulps; 1.2-1.4e-2 on the CPU at 2-8
+#                          layers of qwen3's width)
+FAMILY_TOL = {"rwkv6-1.6b": 1e-3}  # 16c: f32 decode against forward where
+#                          LM_TOL does not hold at the published depth: 24
+#                          layers of f32 WKV state and per-head group norm
+#                          (eps 6.4e-4) amplify rounding with depth; the
+#                          family's 1-layer cut is held to LM_TOL too
+BF16_FAMILY = "jamba-v0.1-52b"  # 16c: also run in bf16, its published dtype;
+#                          no logit bound holds there (a top-2 router
+#                          decision flips on one bf16 rounding and the
+#                          token's error spreads through the recurrence),
+#                          so it reports the error and the flipped routes
+LM_SMOKE_BATCH, LM_SMOKE_PROMPT, LM_SMOKE_STEPS = 2, 12, 4  # 16a; the prompt
+#                          is longer than mixtral-smoke's window of 8
+QWEN = "qwen3-0.6b"
+QWEN_BATCH, QWEN_PROMPT, QWEN_NEW = 8, 512, 64   # 16b: max_len 576
+QWEN_CHECK_STEPS = 8     # 16b: f32 decode steps held to forward
+PROFILE_STEPS = 4        # 16b: decode steps under torch.profiler
+F32_WEIGHT_LIMIT = 60e9  # 16c: every family's f32 weights must fit in this
+#                          many bytes of the card's 80 GB (jamba's 53 GB)
+# 16c: each family at full width with its depth cut to these layers (the
+# published depth where it is whole)
+FAMILY_LAYERS = {"mixtral-8x22b": 1, "jamba-v0.1-52b": 8, "rwkv6-1.6b": 24,
+                 "whisper-medium": 24, "paligemma-3b": 18}
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS = 2, 64, 4
+# 16b: the decode step's device time by part (lower-case fragments of the
+# kernels' names)
+DECODE_PARTS = (("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90_",
+                            "splitk")),
+                ("softmax", ("softmax",)),
+                ("reductions", ("reduce",)),
+                ("copies and casts", ("copy", "memcpy", "memset")),
+                ("indexing", ("index", "gather", "scatter", "embedding",
+                              "arange", "where")),
+                ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def tree_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tree_leaves(v)
+        else:
+            yield v
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def tree_numel(tree) -> int:
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def kv_cache_bytes(cfg, batch: int, max_len: int) -> int:
+    """Bytes of the attention layers' K and V caches (a ring buffer of the
+    window where the arch has one)."""
+    itemsize = {"float32": 4, "bfloat16": 2, "float16": 2}[cfg.dtype]
+    klen = min(max_len, cfg.sliding_window or max_len)
+    n_attn = cfg.attn_layers_per_period() * cfg.n_periods
+    return n_attn * 2 * batch * klen * cfg.n_kv_heads * cfg.hd * itemsize
+
+
+def decode_floor(cfg, batch: int, max_len: int, weight_bytes: int) -> dict:
+    """A decode step's byte floor: every weight and the whole K/V cache
+    read once (``attn_decode`` attends over every slot, masked), over the
+    card's memory rate."""
+    kv = kv_cache_bytes(cfg, batch, max_len)
+    return {"weight_bytes": weight_bytes, "kv_bytes": kv,
+            "bytes": weight_bytes + kv,
+            "ms": 1e3 * (weight_bytes + kv) / HBM_BYTES_PER_S}
+
+
+def family_config(arch: str, layers: int | None = None,
+                  dtype: str = "float32"):
+    """16c's config: the published widths with the depth cut to
+    ``layers`` (default ``FAMILY_LAYERS``), in ``dtype``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.config import validate
+
+    return validate(dataclasses.replace(
+        get_config(arch), n_layers=layers or FAMILY_LAYERS[arch],
+        dtype=dtype))
+
+
+def lm_inputs(cfg, batch: int, length: int, seed: int = 0):
+    """Seeded tokens (batch, length) and, for a stub frontend, its
+    embeddings, as numpy (the JAX launcher's draws)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, length))
+    frontend = None
+    if cfg.frontend:
+        frontend = (rng.standard_normal((batch, cfg.frontend_len,
+                                         cfg.d_model)) * 0.02
+                    ).astype(np.float32)
+    return tokens, frontend
+
+
+def greedy(torch, logits):
+    """The engine's greedy pick: the first maximum, (B, 1) int32."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
+def on(torch, dev, tokens, frontend):
+    return (torch.as_tensor(tokens, dtype=torch.int32, device=dev),
+            None if frontend is None
+            else torch.as_tensor(frontend, device=dev))
+
+
+def n_prefix(cfg) -> int:
+    return cfg.frontend_len if cfg.frontend == "vision_stub" else 0
+
+
+def greedy_run(torch, cfg, params, prompts, frontend, n_new: int,
+               dev) -> dict:
+    """Prefill, then ``n_new - 1`` greedy decode steps (the engine's
+    ``generate``, with every step's logits kept), timed: prefill seconds
+    and decode ms a step, each ending in a synchronisation."""
+    from repro_torch.models import lm
+
+    max_len = prompts.shape[1] + n_new + n_prefix(cfg)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(cfg, params, prompts, max_len, frontend)
+    toks = [greedy(torch, logits)]
+    sync()
+    t1 = time.perf_counter()
+    all_logits = [logits]
+    pos = prompts.shape[1] + n_prefix(cfg)
+    for i in range(n_new - 1):
+        logits, cache = lm.decode_step(cfg, params, cache, toks[-1], pos + i)
+        toks.append(greedy(torch, logits))
+        all_logits.append(logits)
+    sync()
+    t2 = time.perf_counter()
+    return {"tokens": torch.cat(toks, dim=1), "logits": all_logits,
+            "prefill_s": t1 - t0,
+            "decode_ms": 1e3 * (t2 - t1) / max(n_new - 1, 1),
+            "cache": cache}
+
+
+def logit_err(torch, got, want) -> float:
+    """max |got - want| over max |want|, in float64."""
+    got, want = got.double(), want.double().to(got.device)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def decode_vs_forward(torch, cfg, params, tokens, frontend, n_steps: int,
+                      dev) -> dict:
+    """Prefill the first ``len - n_steps`` tokens, then decode the rest
+    (teacher-forced); each of the ``n_steps + 1`` logits against
+    ``forward`` over the whole sequence at its position: the largest
+    error over the largest |logit| there, and whether the greedy tokens
+    agree."""
+    from repro_torch.models import lm
+
+    t, f = on(torch, dev, tokens, frontend)
+    S = t.shape[1] - n_steps
+    full = lm.forward(cfg, params, t, f)               # (B, len, V)
+    logits, cache = lm.prefill(cfg, params, t[:, :S],
+                               t.shape[1] + n_prefix(cfg), f)
+    steps = [logits]
+    for i in range(n_steps):
+        logits, cache = lm.decode_step(cfg, params, cache, t[:, S + i:S + i + 1],
+                                       S + n_prefix(cfg) + i)
+        steps.append(logits)
+    got = torch.stack(steps, dim=1)                     # (B, n+1, V)
+    want = full[:, S - 1:]
+    return {"err": logit_err(torch, got, want),
+            "tokens_equal": bool(torch.equal(got.argmax(-1),
+                                             want.argmax(-1))),
+            "positions": int(got.shape[1]), "prefill_logits": steps[0]}
+
+
+def smoke_arch_check(torch, arch: str, dev, ref_dev) -> dict:
+    """16a for one arch: one set of float32 parameters (made on the CPU)
+    through prefill and greedy decode steps on ``ref_dev`` and ``dev``;
+    the largest logit error over the largest |logit| and whether every
+    greedy token agrees."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = get_smoke_config(arch)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens, frontend = lm_inputs(cfg, LM_SMOKE_BATCH, LM_SMOKE_PROMPT)
+    runs = []
+    for d in (ref_dev, dev):
+        p = tree_map(lambda x: x.to(d), params)
+        runs.append(greedy_run(torch, cfg, p, *on(torch, d, tokens, frontend),
+                               LM_SMOKE_STEPS + 1, d))
+    ref, got = runs
+    return {"err": max(logit_err(torch, a.cpu(), b.cpu())
+                       for a, b in zip(got["logits"], ref["logits"])),
+            "tokens_equal": bool(torch.equal(got["tokens"].cpu(),
+                                             ref["tokens"].cpu()))}
+
+
+def smoke_archs_phase(torch, dev, problems, ref_dev="cpu") -> dict:
+    """16a: every registry SMOKE config on ``dev`` against ``ref_dev``."""
+    from repro_torch.configs.registry import SMOKES
+
+    out = {}
+    for arch in SMOKES:
+        r = smoke_arch_check(torch, arch, torch.device(dev),
+                             torch.device(ref_dev))
+        out[arch] = r
+        print(f"  [16a] {arch:22s} prefill + {LM_SMOKE_STEPS} decode steps, "
+              f"f32: logits {r['err']:.3e} of max|logit| (<= {LM_TOL:g}), "
+              f"greedy tokens equal {r['tokens_equal']}")
+        if not (r["err"] <= LM_TOL and r["tokens_equal"]):
+            problems.append(f"16a {arch}: {r}")
+    return out
+
+
+def decode_part(name: str) -> str:
+    """The part of a decode step a device kernel belongs to."""
+    name = name.lower()
+    for part, keys in DECODE_PARTS:
+        if any(k in name for k in keys):
+            return part
+    return "other"
+
+
+def profile_decode(torch, cfg, params, state, n_steps: int) -> dict:
+    """``n_steps`` decode steps under ``torch.profiler``: kernel launches
+    and device busy ms a step, the device's idle share of the window (1 -
+    the kernels' summed time over its wall), device ms a step by part, and
+    the five largest device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+
+    cache, last, pos = state
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            logits, cache = lm.decode_step(cfg, params, cache, last, pos + i)
+            last = greedy(torch, logits)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0))
+        if dev_us and getattr(evt, "device_type", None) is not None \
+                and "CUDA" in str(evt.device_type):
+            kernels[evt.key] = (dev_us, evt.count)
+    parts = {}
+    for name, (us, _) in kernels.items():
+        part = decode_part(name)
+        parts[part] = parts.get(part, 0.0) + us / 1e3 / n_steps
+    busy = sum(us for us, _ in kernels.values()) / 1e6
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"launches_per_step": sum(c for _, c in kernels.values())
+            / n_steps,
+            "wall_ms_per_step": 1e3 * wall / n_steps,
+            "busy_ms_per_step": 1e3 * busy / n_steps,
+            "idle_share": 1 - busy / wall,
+            "device_ms_per_step": parts,
+            "top5": [{"op": k[:120], "ms_per_step": us / 1e3 / n_steps,
+                      "count_per_step": c / n_steps}
+                     for k, (us, c) in top]}
+
+
+def qwen_phase(torch, dev, problems) -> dict:
+    """16b: qwen3-0.6b at full width and depth, bfloat16, on ``dev``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import generate
+
+    cfg = get_config(QWEN)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    n_params, w_bytes = tree_numel(params), tree_bytes(params)
+    max_len = QWEN_PROMPT + QWEN_NEW
+    floor = decode_floor(cfg, QWEN_BATCH, max_len, w_bytes)
+    tokens, _ = lm_inputs(cfg, QWEN_BATCH, QWEN_PROMPT + QWEN_CHECK_STEPS)
+    prompts, _ = on(torch, dev, tokens[:, :QWEN_PROMPT], None)
+    print(f"  [16b] {QWEN}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {n_params:,} parameters "
+          f"({w_bytes / 1e9:.4f} GB {cfg.dtype}; config total_params "
+          f"{int(cfg.total_params()):,}); batch {QWEN_BATCH}, prompt "
+          f"{QWEN_PROMPT}, {QWEN_NEW} new tokens (max_len {max_len})")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_tokens = generate(cfg, params, prompts, QWEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    runs = [greedy_run(torch, cfg, params, prompts, None, QWEN_NEW, dev)
+            for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    a, b = runs
+    same = (torch.equal(a["tokens"], b["tokens"])
+            and all(torch.equal(x, y) for x, y in zip(a["logits"],
+                                                      b["logits"])))
+    gen_same = torch.equal(gen_tokens, a["tokens"])
+    out = {"params": n_params, "weight_bytes": w_bytes,
+           "floor": floor, "generate_s": gen_s,
+           "generate_tok_per_s": QWEN_BATCH * QWEN_NEW / gen_s,
+           "prefill_s": [r["prefill_s"] for r in runs],
+           "decode_ms_per_step": [r["decode_ms"] for r in runs],
+           "decode_tok_per_s": [1e3 * QWEN_BATCH / r["decode_ms"]
+                                for r in runs],
+           "peak_bytes": peak, "bitwise_repeat": same,
+           "generate_equal": gen_same}
+    print(f"  [16b] generate: {gen_s:.3f} s "
+          f"({out['generate_tok_per_s']:.1f} tok/s end to end); prefill "
+          f"{out['prefill_s'][0]:.4f} / {out['prefill_s'][1]:.4f} s; decode "
+          f"{out['decode_ms_per_step'][0]:.3f} / "
+          f"{out['decode_ms_per_step'][1]:.3f} ms a step "
+          f"({out['decode_tok_per_s'][0]:.1f} tok/s) against a byte floor "
+          f"of {floor['ms']:.4f} ms ({floor['weight_bytes'] / 1e9:.4f} GB "
+          f"weights + {floor['kv_bytes'] / 1e9:.4f} GB K/V); "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB")
+    print(f"  [16b] two runs bitwise (tokens and all {QWEN_NEW} logits): "
+          f"{same}; generate's tokens equal theirs: {gen_same}")
+    if not (same and gen_same):
+        problems.append("16b: the bf16 runs are not deterministic or "
+                        "generate differs from the stepped run")
+    bf16_prefill = b["logits"][0]
+    del runs, a, b
+    free_device(torch)
+    # the decode step under the profiler, from a fresh prefill
+    logits, cache = lm.prefill(cfg, params, prompts, max_len)
+    state = (cache, greedy(torch, logits), QWEN_PROMPT)
+    prof = profile_decode(torch, cfg, params, state, PROFILE_STEPS)
+    out["profile"] = prof
+    print(f"  [16b] profile of {PROFILE_STEPS} decode steps: "
+          f"{prof['launches_per_step']:.0f} kernel launches a step, device "
+          f"busy {prof['busy_ms_per_step']:.3f} ms of "
+          f"{prof['wall_ms_per_step']:.3f} ms a step, idle share "
+          f"{prof['idle_share']:.1%}")
+    for part, ms in sorted(prof["device_ms_per_step"].items(),
+                           key=lambda kv: -kv[1]):
+        print(f"    {part:20s} {ms:.4f} ms a step")
+    for t in prof["top5"]:
+        print(f"    {t['count_per_step']:6.1f} x {t['op'][:72]:72s} "
+              f"{t['ms_per_step']:.4f} ms a step")
+    del state, cache, logits
+    free_device(torch)
+    # a float32 copy of the same weights: decode against forward
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda x: x.float(), params)
+    del params
+    dvf = decode_vs_forward(torch, cfg32, params32, tokens, None,
+                            QWEN_CHECK_STEPS, dev)
+    out["bf16_vs_f32_prefill"] = logit_err(torch, bf16_prefill,
+                                           dvf.pop("prefill_logits"))
+    out["f32_decode_vs_forward"] = dvf
+    print(f"  [16b] f32 copy: prefill + {QWEN_CHECK_STEPS} decode steps "
+          f"against forward: {dvf['err']:.3e} of max|logit| (<= {LM_TOL:g}), "
+          f"greedy tokens equal {dvf['tokens_equal']}; bf16 prefill logits "
+          f"against the f32 copy's {out['bf16_vs_f32_prefill']:.3e} "
+          f"(<= {LM_BF16_TOL:g})")
+    if not (dvf["err"] <= LM_TOL and dvf["tokens_equal"]):
+        problems.append(f"16b: f32 decode against forward {dvf}")
+    if not out["bf16_vs_f32_prefill"] <= LM_BF16_TOL:
+        problems.append(f"16b: bf16 prefill against f32 "
+                        f"{out['bf16_vs_f32_prefill']:.3e}")
+    return out
+
+
+@contextlib.contextmanager
+def router_record(torch, calls: list):
+    """Record each MoE layer's routes (the sorted top-k expert ids of
+    every token, recomputed from the same router product) while the LM
+    stack runs."""
+    from repro_torch.models import lm
+
+    real = lm.moe_apply
+
+    def spy(p, x, *, top_k, act):
+        idx = torch.topk(x.float() @ p["router"], top_k, dim=-1).indices
+        calls.append(idx.sort(dim=-1).values)
+        return real(p, x, top_k=top_k, act=act)
+
+    lm.moe_apply = spy
+    try:
+        yield calls
+    finally:
+        lm.moe_apply = real
+
+
+def routing_flips(calls: list, n_moe: int, S: int, n_steps: int) -> dict:
+    """Tokens whose route differs between ``forward`` (the first
+    ``n_moe`` records) and the prefill of ``S`` tokens plus ``n_steps``
+    decode steps that follow it, over every MoE layer."""
+    fwd, pre = calls[:n_moe], calls[n_moe:2 * n_moe]
+    flips = routed = 0
+    for li in range(n_moe):
+        flips += int((fwd[li][:, :S] != pre[li]).any(-1).sum())
+        for i in range(n_steps):
+            dec = calls[(2 + i) * n_moe + li]
+            flips += int((fwd[li][:, S + i] != dec[:, 0]).any(-1).sum())
+        routed += fwd[li].shape[0] * (S + n_steps)
+    return {"flips": flips, "routed": routed}
+
+
+def family_check(torch, cfg, dev, count_routes: bool = False) -> dict:
+    """16c for one config: decode against forward on ``dev``; with
+    ``count_routes``, the MoE routes that differ between the two."""
+    from repro_torch.models import lm
+
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tokens, frontend = lm_inputs(cfg, FAMILY_BATCH,
+                                 FAMILY_PROMPT + FAMILY_STEPS)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls = []
+    with (router_record(torch, calls) if count_routes
+          else contextlib.nullcontext()):
+        r = decode_vs_forward(torch, cfg, params, tokens, frontend,
+                              FAMILY_STEPS, dev)
+    r["finite"] = bool(torch.isfinite(r.pop("prefill_logits")).all())
+    if count_routes:
+        n_moe = sum(s.moe for s in cfg.period()) * cfg.n_periods
+        r.update(routing_flips(calls, n_moe, FAMILY_PROMPT, FAMILY_STEPS))
+    r.update(layers=cfg.n_layers, encoder_layers=cfg.encoder_layers,
+             dtype=cfg.dtype, weight_bytes=tree_bytes(params),
+             seconds=time.perf_counter() - t0)
+    return r
+
+
+def families_phase(torch, dev, problems) -> dict:
+    """16c: the other families at full width in f32, each depth cut
+    listed; a family with a looser bound also at one layer; jamba also in
+    bf16 (reported)."""
+    from repro_torch.configs.registry import get_config
+
+    def report(arch, tag, r, tol):
+        full = get_config(arch)
+        cut = ("whole" if r["layers"] == full.n_layers
+               else f"depth cut {full.n_layers} -> {r['layers']} layers")
+        enc = f" + {r['encoder_layers']} encoder" if r["encoder_layers"] \
+            else ""
+        bound = (f"<= {tol:g}" if tol is not None else "not held")
+        routes = (f", routes differing {r['flips']} of {r['routed']}"
+                  if "flips" in r else "")
+        print(f"  [16c] {tag:22s} {r['layers']}{enc} layers ({cut}), "
+              f"{r['dtype']}, {r['weight_bytes'] / 1e9:.2f} GB: prefill "
+              f"{FAMILY_PROMPT} + {FAMILY_STEPS} decode steps against "
+              f"forward {r['err']:.3e} of max|logit| ({bound}), greedy "
+              f"tokens equal {r['tokens_equal']}{routes}, "
+              f"{r['seconds']:.1f} s")
+        if tol is not None and not (r["err"] <= tol and r["tokens_equal"]):
+            problems.append(f"16c {tag}: {r}")
+        if not r["finite"]:
+            problems.append(f"16c {tag}: non-finite logits")
+
+    out = {}
+    for arch in FAMILY_LAYERS:
+        cfg = family_config(arch)
+        require(4 * cfg.total_params() <= F32_WEIGHT_LIMIT,
+                f"16c: {arch}'s f32 weights do not fit")
+        runs = [(arch, cfg, FAMILY_TOL.get(arch, LM_TOL))]
+        if arch in FAMILY_TOL:
+            runs.append((f"{arch} (1 layer)", family_config(arch, layers=1),
+                         LM_TOL))
+        if arch == BF16_FAMILY:
+            runs.append((f"{arch} (bf16)",
+                         family_config(arch, dtype="bfloat16"), None))
+        for tag, c, tol in runs:
+            r = family_check(torch, c, dev, count_routes=c.n_experts > 0)
+            out[tag] = dict(r, tol=tol)
+            free_device(torch)
+            report(arch, tag, r, tol)
+    return out
+
+
+def lm_phase(torch, dev) -> dict:
+    """Phase 16 (see the module docstring).  Its checks are collected and
+    fail the run after its parts have printed."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[16] LM serving: every SMOKE arch against the CPU, {QWEN} at "
+          f"full width, the families at full width; TF32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}")
+    problems = []
+    out = {"archs": smoke_archs_phase(torch, dev, problems)}
+    free_device(torch)
+    out["qwen3"] = qwen_phase(torch, dev, problems)
+    free_device(torch)
+    out["families"] = families_phase(torch, dev, problems)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  [16] {out['seconds']:.1f} s")
+    for p in problems:
+        print(f"  FAILED: {p}")
+    require(not problems, f"phase 16: {len(problems)} check(s) failed")
+    return out
+
+
 def main_state(torch):
     """The main path's state after its 3 steps from rest (the kernels)."""
     from repro_torch.launch.case import build_parser, build_solver
@@ -4741,7 +5281,7 @@ def free_device(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", metavar="LABEL=CSRC_DIR",
                     help="time this tree's Krylov kernels beside another "
@@ -4759,7 +5299,13 @@ def main(argv=None) -> int:
                     help="phase 15 alone (after phases 1-2), from a 3-step "
                          "state of the main path's solver; with "
                          "--profile-cg, profile the full-mesh CG instead")
-    args = ap.parse_args(argv)
+    ap.add_argument("--lm", action="store_true",
+                    help="phase 16 (LM serving) alone, after phases 1-2")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -4813,6 +5359,13 @@ def main(argv=None) -> int:
             print(smi_line())
             print(json.dumps({"full_mesh": result}, default=str))
             return 0
+        if args.lm:
+            result = lm_phase(torch, dev)
+            print(f"done in {time.perf_counter() - t_start:.1f} s")
+            print("lm " + json.dumps(result, default=str))
+            print(smi_line())
+            print(json.dumps({"lm": result}, default=str))
+            return 0
         print("[3] kernels vs plain versions")
         report = check_kernels(torch, dev)
         print("[4-6] main path: 210^3 cavity, 30 parts, alpha 30, 3 PISO "
@@ -4831,7 +5384,10 @@ def main(argv=None) -> int:
         summary["full_mesh"] = full_mesh_phase(torch, state3)
         del state3, main_step
         free_device(torch)
+        summary["lm"] = lm_phase(torch, dev)
+        free_device(torch)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print("lm " + json.dumps(summary["lm"], default=str))
         summary["momentum_shape_times"] = {
             name: report[name]["momentum"] for name in report
             if "momentum" in report[name]}

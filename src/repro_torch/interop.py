@@ -8,8 +8,13 @@ on each leaf) can be stepped on by the port.  A serving cohort's state is
 the same five fields with a leading lane axis (:func:`cohort_from_numpy`;
 :func:`state_to_numpy` takes it as it is), and a mesh travels as its
 defining fields (:func:`mesh_from_fields`, :func:`mesh_fields`; a
-size-class ``PaddedCavityMesh`` with its real part count).  Nothing here
-imports that implementation.
+size-class ``PaddedCavityMesh`` with its real part count).  The LM side
+carries its parameter and decode-cache trees (nested dicts, the JAX
+package's keys and layouts) leaf by leaf, each leaf in its own dtype
+(:func:`lm_params_from_numpy`, :func:`lm_cache_from_numpy` and their
+inverses); a bfloat16 leaf travels as numpy's ``ml_dtypes`` bfloat16,
+which JAX's ``np.asarray`` gives.  Nothing here imports that
+implementation.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ from repro_torch.fvm.mesh import CavityMesh, PaddedCavityMesh
 from repro_torch.fvm.piso import PisoState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "plan_from_numpy",
-           "cohort_from_numpy", "mesh_fields", "mesh_from_fields"]
+           "cohort_from_numpy", "mesh_fields", "mesh_from_fields",
+           "lm_params_from_numpy", "lm_params_to_numpy",
+           "lm_cache_from_numpy", "lm_cache_to_numpy"]
 
 _MESH_FIELDS = ("nx", "ny", "nz", "n_parts", "h")
 
@@ -99,3 +106,56 @@ def plan_from_numpy(arrays: dict) -> RepartitionPlan:
         **{k: int(arrays[k]) for k in _PLAN_INTS},
         dia_offsets=np.asarray(arrays["dia_offsets"], dtype=np.int32),
         dia_src=np.asarray(arrays["dia_src"], dtype=np.int64), **ell)
+
+
+def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: same bits as torch's
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # only a bfloat16 leaf needs numpy's bfloat16
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _tree_from_numpy(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, dev) for k, v in tree.items()}
+    return _leaf_from_numpy(tree, dev)
+
+
+def _tree_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    return _leaf_to_numpy(tree)
+
+
+def lm_params_from_numpy(tree: dict, device="cuda") -> dict:
+    """An LM parameter tree of tensors from nested dicts of arrays (e.g.
+    ``jax.tree.map(np.asarray, params)``), every leaf in its own dtype."""
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def lm_params_to_numpy(tree: dict) -> dict:
+    """Nested dicts of numpy arrays (host copies) of an LM parameter tree,
+    every leaf in its own dtype."""
+    return _tree_to_numpy(tree)
+
+
+def lm_cache_from_numpy(tree: dict, device="cuda") -> dict:
+    """A decode cache (``lm.init_cache``'s tree, leaves stacked over
+    periods) from nested dicts of arrays, so another implementation's
+    cache can be decoded on."""
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def lm_cache_to_numpy(tree: dict) -> dict:
+    """Nested dicts of numpy arrays (host copies) of a decode cache."""
+    return _tree_to_numpy(tree)

@@ -1,6 +1,9 @@
-"""Multi-tenant CFD serving launcher (the CFD modes of the JAX package's
-``launch/serve.py``).
+"""Serving launcher: batched LM generation and multi-tenant CFD serving
+(the port of the JAX package's ``launch/serve.py``).
 
+  python -m repro_torch.launch.serve --arch qwen3-0.6b
+  python -m repro_torch.launch.serve --device cpu --arch qwen3-0.6b \
+      --smoke --n-new 4
   python -m repro_torch.launch.serve --sessions 8 --steps 32 --cfd-n 64 \
       --parts 16
   python -m repro_torch.launch.serve --device cpu --sessions 3 --steps 4 \
@@ -12,8 +15,15 @@
       --cfd-n 4 --parts 2 --scan-steps 4 --chaos all --chaos-seed 0 \
       --chaos-events 2
 
-``--sessions N`` opens N concurrent PISO tenants (mixed timestep sizes) on
-the ``--cfd-n`` cube and advances them through the engine's
+``--arch NAME`` (with ``--smoke`` for the registry's small config) makes
+random parameters from ``torch.Generator`` seed 0 on ``--device``, draws
+``--batch`` prompts of ``--prompt-len`` tokens (and a stub frontend's
+embeddings) from ``np.random.default_rng(0)`` as the JAX launcher does,
+and greedily generates ``--n-new`` tokens
+(:func:`~repro_torch.serving.engine.generate`); it prints the JAX
+launcher's ``generated (B, n) in s (tok/s)`` line and the first two
+rows.  ``--sessions N`` opens N concurrent PISO tenants (mixed timestep
+sizes) on the ``--cfd-n`` cube and advances them through the engine's
 cohort-batched ``step_all`` (:class:`~repro_torch.serving.engine.
 SimulationEngine`): same-shape sessions stack into cohorts and a window of
 a whole cohort is one dispatch.  ``--arrival-rate R > 0`` switches to the
@@ -30,7 +40,7 @@ reproduce.
 The flags are the JAX launcher's CFD flags with its defaults, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the same path on the CPU),
 ``--p-tol`` and ``--p-maxiter`` (the pressure CG's tolerance and cap, as
-in :mod:`repro_torch.launch.case`).  The LM serving mode is not ported.
+in :mod:`repro_torch.launch.case`).
 """
 from __future__ import annotations
 
@@ -40,8 +50,42 @@ import time
 
 import numpy as np
 
-__all__ = ["build_parser", "mesh_mix", "serve_cfd", "serve_cfd_arrivals",
-           "serve_cfd_supervised", "main"]
+__all__ = ["build_parser", "mesh_mix", "serve_lm", "serve_cfd",
+           "serve_cfd_arrivals", "serve_cfd_supervised", "main"]
+
+
+def serve_lm(args, log=print):
+    """Greedy generation on ``--arch`` with seeded random parameters.
+    Returns the (batch, n_new) tokens."""
+    import torch
+
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.env import resolve_device
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import generate
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
+        dtype=torch.int32, device=dev)
+    frontend = None
+    if cfg.frontend:
+        frontend = torch.as_tensor(
+            rng.standard_normal((args.batch, cfg.frontend_len, cfg.d_model))
+            * 0.02, dtype=torch.float32, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    out = generate(cfg, params, prompts, args.n_new, frontend=frontend)
+    out = out.cpu().numpy()  # waits for the device
+    dt = time.time() - t0
+    log(f"generated {out.shape} in {dt:.2f}s "
+        f"({args.batch * args.n_new / dt:.1f} tok/s)")
+    log(out[:2])
+    return out
 
 
 def mesh_mix(args):
@@ -288,6 +332,12 @@ def serve_cfd(args, log=print) -> dict:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None,
+                    help="LM serving: architecture from the registry")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--n-new", type=int, default=16)
     ap.add_argument("--sessions", type=int, default=0,
                     help="open N concurrent sessions and advance them via "
                          "cohort-batched step_all")
@@ -368,15 +418,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.sessions < 1 and not args.resume:
-        ap.error("--sessions N (N >= 1) or --resume is required: the port "
-                 "serves CFD sessions only (the LM mode is not ported)")
-    if (args.supervise or args.resume or args.chaos is not None
-            or args.snapshot_dir):
-        return serve_cfd_supervised(args)
-    if args.arrival_rate > 0:
-        return serve_cfd_arrivals(args)
-    return serve_cfd(args)
+    if args.sessions > 0 or args.resume:
+        if (args.supervise or args.resume or args.chaos is not None
+                or args.snapshot_dir):
+            return serve_cfd_supervised(args)
+        if args.arrival_rate > 0:
+            return serve_cfd_arrivals(args)
+        return serve_cfd(args)
+    if args.arch is None:
+        ap.error("--arch is required (or use --sessions N for CFD mode)")
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,430 @@
+"""Unified language model over the period-structured layer stack.
+
+The port of the serving half of the JAX package's ``models/lm.py``; one
+implementation serves all 10 assigned architectures:
+
+* ``init_params``  — random initialization from a ``torch.Generator``, on
+  the generator's device;
+* ``forward``      — full-sequence logits (also Whisper enc-dec and the
+  stub-frontend VLM prefix);
+* ``prefill``      — the prompt's last logits and the decode cache;
+* ``decode_step``  — one token through the stack against the cache.
+
+Parameter and cache trees are the JAX package's: the same keys, a leading
+``n_periods`` axis on ``blocks`` and on every cache leaf (``n_layers``
+on ``encoder``), ``x @ W`` layouts, each leaf in its own dtype (Mamba's
+``dt_bias``/``A_log``/``D``, RWKV's ``w0``/``u`` and the MoE ``router`` are
+f32 in any model).  A tree carries across as a map over its leaves
+(:mod:`repro_torch.interop`).  The stack is a loop over periods; prefill
+and decode write each period's new cache leaves into the stacked cache in
+place, and decode writes the attention K/V slot in place.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.env import resolve_device
+from repro_torch.models.attention import (AttnSpec, attention_init,
+                                          attn_decode, attn_train,
+                                          flash_attention)
+from repro_torch.models.config import LayerKind, ModelConfig
+from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
+                                       moe_apply, moe_apply_sorted, moe_init,
+                                       rms_norm, torch_dtype)
+from repro_torch.models.rwkv import (rwkv_apply, rwkv_ffn_apply,
+                                     rwkv_ffn_init, rwkv_init)
+from repro_torch.models.ssm import mamba_apply, mamba_init
+
+__all__ = ["D_CONV", "attn_spec", "init_params", "init_cache", "encode",
+           "hidden_states", "forward", "prefill", "decode_step"]
+
+D_CONV = 4
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+def attn_spec(cfg: ModelConfig, *, cross: bool = False,
+              causal: bool | None = None) -> AttnSpec:
+    if causal is None:
+        causal = False if cross else cfg.causal  # cross-attn is never causal
+    return AttnSpec(
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        causal=causal,
+        use_rope=not cross and cfg.frontend != "audio_stub",
+        rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm and not cross,
+        sliding_window=None if cross else cfg.sliding_window,
+        norm_eps=cfg.norm_eps, swa_chunk_skip=cfg.swa_chunk_skip)
+
+
+# ---------------------------------------------------------------------------
+# trees
+# ---------------------------------------------------------------------------
+
+def _stack(trees: list):
+    """Stack same-shaped trees along a new leading axis (one tree: a view)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if len(trees) == 1:
+        return trees[0].unsqueeze(0)
+    return torch.stack(trees)
+
+
+def _index(tree, i: int):
+    """The ``i``-th slice of every leaf (views)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _write_back(old: dict, new: dict) -> None:
+    """Copy a period's new cache leaves into its slice of the stacked
+    cache, unless a leaf was written there in place."""
+    for k, o in old.items():
+        if isinstance(o, dict):
+            _write_back(o, new[k])
+        elif new[k] is not o:
+            o.copy_(new[k])
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Random parameters on ``gen.device``, drawn in a fixed order."""
+    dt = _dtype(cfg)
+    dev = gen.device
+    d = cfg.d_model
+
+    def ones():
+        return torch.ones((d,), dtype=dt, device=dev)
+
+    params: dict[str, Any] = {
+        "embed": dense_init(gen, (cfg.vocab_size, d), dt, scale=0.02),
+        "final_ln": ones(),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dt)
+
+    def one_layer(spec):
+        p = {"ln1": ones(), "ln2": ones()}
+        if spec.kind == LayerKind.ATTN:
+            p["attn"] = attention_init(gen, d, attn_spec(cfg), dt)
+        elif spec.kind == LayerKind.MAMBA:
+            p["mix"] = mamba_init(gen, d, cfg.d_inner, cfg.ssm_d_state,
+                                  D_CONV, dt)
+        else:
+            p["mix"] = rwkv_init(gen, d, cfg.rwkv_head_dim, dt)
+        if cfg.cross_attention:
+            p["cross"] = attention_init(gen, d, attn_spec(cfg, cross=True),
+                                        dt)
+            p["ln_x"] = ones()
+        if spec.kind == LayerKind.RWKV:
+            p["ffn"] = rwkv_ffn_init(gen, d, cfg.d_ff, dt)
+        elif spec.moe:
+            p["ffn"] = moe_init(gen, d, cfg.d_ff, cfg.n_experts,
+                                cfg.act_gated, dt)
+        else:
+            p["ffn"] = mlp_init(gen, d, cfg.d_ff, cfg.act_gated, dt)
+        return p
+
+    params["blocks"] = _stack([
+        {f"l{i}": one_layer(s) for i, s in enumerate(cfg.period())}
+        for _ in range(cfg.n_periods)])
+
+    if cfg.encoder_layers:
+        espec = attn_spec(cfg, causal=False)
+        params["encoder"] = _stack([
+            {"ln1": ones(), "ln2": ones(),
+             "attn": attention_init(gen, d, espec, dt),
+             "ffn": mlp_init(gen, d, cfg.d_ff, False, dt)}
+            for _ in range(cfg.encoder_layers)])
+        params["encoder_ln"] = ones()
+    return params
+
+
+# ---------------------------------------------------------------------------
+# cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               memory_len: int = 0, device="cuda") -> dict:
+    """Decode cache tree, leaves stacked over periods (axis 0), zeros."""
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    P = cfg.n_periods
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros((P,) + shape, dtype=dtype, device=dev)
+
+    def one_layer(spec):
+        c = {}
+        if spec.kind == LayerKind.ATTN:
+            # sliding-window archs keep a ring buffer of W slots
+            klen = min(max_len, cfg.sliding_window or max_len)
+            kv = (batch, klen, cfg.n_kv_heads, cfg.hd)
+            c["k"] = zeros(kv)
+            c["v"] = zeros(kv)
+        elif spec.kind == LayerKind.MAMBA:
+            c["conv"] = zeros((batch, D_CONV - 1, cfg.d_inner))
+            c["ssm"] = zeros((batch, cfg.d_inner, cfg.ssm_d_state),
+                             torch.float32)
+        else:  # rwkv
+            hd = cfg.rwkv_head_dim
+            c["S"] = zeros((batch, d // hd, hd, hd), torch.float32)
+            c["last"] = zeros((batch, d))
+            c["ffn_last"] = zeros((batch, d))
+        if cfg.cross_attention:
+            mkv = (batch, memory_len, cfg.n_kv_heads, cfg.hd)
+            c["ck"] = zeros(mkv)
+            c["cv"] = zeros(mkv)
+        return c
+
+    return {f"l{i}": one_layer(s) for i, s in enumerate(cfg.period())}
+
+
+# ---------------------------------------------------------------------------
+# block application (one period)
+# ---------------------------------------------------------------------------
+
+def _apply_period(cfg: ModelConfig, pparams, x, positions, cache, mode,
+                  memory=None, memory_pos=None, pos=None):
+    """Run one period of layers.  mode: train | prefill | decode."""
+    new_cache = {}
+    for i, spec in enumerate(cfg.period()):
+        p = pparams[f"l{i}"]
+        c = cache[f"l{i}"] if cache is not None else None
+        nc = {}
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if spec.kind == LayerKind.ATTN:
+            if mode == "decode":
+                y, kv = attn_decode(p["attn"], h, pos,
+                                    {"k": c["k"], "v": c["v"]},
+                                    attn_spec(cfg))
+                nc.update(kv)
+            else:
+                y, (k, v) = attn_train(p["attn"], h, positions,
+                                       attn_spec(cfg))
+                if mode == "prefill":
+                    nc["k"] = _prefill_write(c["k"], k)
+                    nc["v"] = _prefill_write(c["v"], v)
+        elif spec.kind == LayerKind.MAMBA:
+            y, st = mamba_apply(p["mix"], h,
+                                state=c if mode == "decode" else None)
+            if mode in ("prefill", "decode"):
+                nc.update({"conv": st["conv"].to(c["conv"].dtype),
+                           "ssm": st["ssm"]})
+        else:  # RWKV
+            y, st = rwkv_apply(p["mix"], h,
+                               state={"S": c["S"], "last": c["last"]}
+                               if mode == "decode" else None)
+            if mode in ("prefill", "decode"):
+                nc.update({"S": st["S"], "last": st["last"].to(x.dtype)})
+        x = x + y
+
+        if cfg.cross_attention:
+            hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+            cspec = attn_spec(cfg, cross=True)
+            if mode == "decode":
+                yx = _cross_decode(p["cross"], hx, c["ck"], c["cv"], cspec)
+                nc["ck"], nc["cv"] = c["ck"], c["cv"]
+            else:
+                yx, (ck, cv) = _cross_attn(p["cross"], hx, positions,
+                                           cspec, memory, memory_pos)
+                if mode == "prefill":
+                    nc["ck"], nc["cv"] = (ck.to(c["ck"].dtype),
+                                          cv.to(c["cv"].dtype))
+            x = x + yx
+
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if spec.kind == LayerKind.RWKV:
+            y2, st = rwkv_ffn_apply(p["ffn"], h2,
+                                    state={"last": c["ffn_last"]}
+                                    if mode == "decode" else None)
+            if mode in ("prefill", "decode"):
+                nc["ffn_last"] = st["last"].to(x.dtype)
+        elif spec.moe:
+            if cfg.moe_dispatch == "sorted":
+                y2 = moe_apply_sorted(p["ffn"], h2,
+                                      top_k=cfg.experts_per_token,
+                                      act=cfg.act,
+                                      capacity_factor=cfg.moe_capacity_factor)
+            else:
+                y2 = moe_apply(p["ffn"], h2, top_k=cfg.experts_per_token,
+                               act=cfg.act)
+        else:
+            y2 = mlp_apply(p["ffn"], h2, cfg.act)
+        x = x + y2
+        new_cache[f"l{i}"] = nc if nc else (c if c is not None else {})
+    return x, new_cache
+
+
+def _prefill_write(cache_leaf, new):
+    """Write prefill k/v into the cache slice; ring-rolled if the cache is
+    a sliding-window buffer shorter than the prompt."""
+    W = cache_leaf.shape[1]
+    S = new.shape[1]
+    new = new.to(cache_leaf.dtype)
+    if S <= W:
+        cache_leaf[:, :S] = new
+        return cache_leaf
+    last = new[:, -W:]                   # positions S-W .. S-1
+    start = (S - W) % W                  # slot of position S-W
+    return torch.roll(last, start, dims=1)
+
+
+def _cross_decode(p, x, ck, cv, spec):
+    """Single-token cross-attention against the cached encoder memory."""
+    B = x.shape[0]
+    H, hd = spec.n_heads, spec.head_dim
+    q = (x @ p["wq"]).reshape(B, 1, H, hd)
+    q_pos = torch.zeros((1,), dtype=torch.int64, device=x.device)
+    kv_pos = torch.arange(ck.shape[1], dtype=torch.int64, device=x.device)
+    out = flash_attention(q, ck, cv, q_pos, kv_pos, spec)
+    return out.reshape(B, 1, H * hd) @ p["wo"]
+
+
+def _cross_attn(p, x, positions, spec, memory, memory_pos):
+    """Cross-attention: queries from x, keys/values from the encoder memory."""
+    B, M, _ = memory.shape
+    Hk, hd = spec.n_kv_heads, spec.head_dim
+    k = (memory @ p["wk"]).reshape(B, M, Hk, hd)
+    v = (memory @ p["wv"]).reshape(B, M, Hk, hd)
+    H = spec.n_heads
+    q = (x @ p["wq"]).reshape(B, x.shape[1], H, hd)
+    out = flash_attention(q, k, v, positions, memory_pos, spec)
+    y = out.reshape(B, x.shape[1], H * hd) @ p["wo"]
+    return y, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# encoder (Whisper) & frontends (stubs)
+# ---------------------------------------------------------------------------
+
+def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over precomputed frame embeddings (the conv
+    frontend is a stub: the caller provides the embeddings)."""
+    x = frames + _sinusoidal(frames.shape[1], cfg.d_model, frames.dtype,
+                             frames.device)
+    espec = attn_spec(cfg, causal=False)
+    positions = torch.arange(frames.shape[1], dtype=torch.int64,
+                             device=frames.device)
+    for i in range(cfg.encoder_layers):
+        lp = _index(params["encoder"], i)
+        y, _ = attn_train(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
+                          positions, espec)
+        x = x + y
+        x = x + mlp_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps),
+                          "gelu")
+    return rms_norm(x, params["encoder_ln"], cfg.norm_eps)
+
+
+def _sinusoidal(S: int, d: int, dtype, device) -> torch.Tensor:
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10_000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# full model entry points
+# ---------------------------------------------------------------------------
+
+def _run_stack(cfg, params, x, positions, cache, mode, memory=None,
+               memory_pos=None, pos=None):
+    for i in range(cfg.n_periods):
+        pcache = _index(cache, i) if cache is not None else None
+        x, nc = _apply_period(cfg, _index(params["blocks"], i), x, positions,
+                              pcache, mode, memory=memory,
+                              memory_pos=memory_pos, pos=pos)
+        if pcache is not None:
+            _write_back(pcache, nc)
+    return x, cache
+
+
+def _embed(cfg, params, tokens):
+    return params["embed"][tokens].to(_dtype(cfg))
+
+
+def _inputs(cfg, params, tokens, frontend):
+    """Embedded inputs, the encoder memory and the number of prefix rows."""
+    dt = _dtype(cfg)
+    x = _embed(cfg, params, tokens)
+    memory = memory_pos = None
+    n_prefix = 0
+    if cfg.encoder_layers:
+        memory = encode(cfg, params, frontend.to(dt))
+        memory_pos = torch.arange(memory.shape[1], dtype=torch.int64,
+                                  device=x.device)
+    elif cfg.frontend == "vision_stub":
+        x = torch.cat([frontend.to(dt), x], dim=1)
+        n_prefix = frontend.shape[1]
+    if cfg.frontend == "audio_stub" and not cfg.encoder_layers:
+        x = x + _sinusoidal(x.shape[1], cfg.d_model, dt, x.device)
+    return x, memory, memory_pos, n_prefix
+
+
+def hidden_states(cfg: ModelConfig, params, tokens: torch.Tensor,
+                  frontend: torch.Tensor | None = None) -> torch.Tensor:
+    """Final-norm hidden states (B, S_text, d) for the full sequence.
+
+    tokens: (B, S) integers.  frontend: precomputed modality embeddings —
+    Whisper: (B, F, d) encoder frames; VLM: (B, Np, d) patch embeddings
+    prepended to the text sequence.
+    """
+    x, memory, memory_pos, n_prefix = _inputs(cfg, params, tokens, frontend)
+    positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+    x, _ = _run_stack(cfg, params, x, positions, None, "train",
+                      memory=memory, memory_pos=memory_pos)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:, :]
+    return x
+
+
+def _head(cfg, params):
+    return (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(_dtype(cfg))
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
+            frontend: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence logits (B, S, V)."""
+    return hidden_states(cfg, params, tokens, frontend) @ _head(cfg, params)
+
+
+def prefill(cfg: ModelConfig, params, tokens, max_len: int,
+            frontend: torch.Tensor | None = None):
+    """Run the prompt, build the decode cache.  Returns (logits (B, V),
+    cache)."""
+    B = tokens.shape[0]
+    x, memory, memory_pos, _ = _inputs(cfg, params, tokens, frontend)
+    mem_len = memory.shape[1] if memory is not None else 0
+    cache = init_cache(cfg, B, max_len, memory_len=mem_len, device=x.device)
+    positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+    x, cache = _run_stack(cfg, params, x, positions, cache, "prefill",
+                          memory=memory, memory_pos=memory_pos)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    return x[:, -1] @ _head(cfg, params), cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens_last: torch.Tensor,
+                pos):
+    """One decode step.  tokens_last: (B, 1); pos: the position (an int).
+
+    Returns (logits (B, V), cache), the cache updated in place."""
+    pos = int(pos)
+    dt = _dtype(cfg)
+    x = _embed(cfg, params, tokens_last)
+    if cfg.frontend == "audio_stub" and not cfg.encoder_layers:
+        x = x + _sinusoidal(1, cfg.d_model, dt, x.device)
+    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    x, cache = _run_stack(cfg, params, x, positions, cache, "decode",
+                          pos=pos)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    return x[:, 0] @ _head(cfg, params), cache

@@ -1,6 +1,10 @@
-"""Multi-tenant CFD serving: many simulations, one card.
+"""Batched LM serving, and multi-tenant CFD serving: many simulations,
+one card.
 
-The port of the CFD half of the JAX package's ``serving/engine.py``:
+The port of the JAX package's ``serving/engine.py``.  Its LM half:
+``start`` prefills a batch of prompts into a decode cache, ``serve_step``
+decodes one greedy token for the whole batch, ``generate`` drives both
+(``launch/serve.py --arch``).  Its CFD half:
 :class:`SimulationEngine` hosts many concurrent segregated
 simulations ("solver-as-a-service") — any registered ``(program, case)``
 pair, transient PISO or steady SIMPLE — each with its **own**
@@ -26,13 +30,13 @@ solo at a smaller dt, climbing the precision ladder (``bf16_ir → f32_ir →
 f64``) and, when configured, a fallback backend.  :meth:`SimulationEngine.
 snapshot` and :meth:`SimulationEngine.restore` checkpoint a whole engine
 to disk and resume it exactly, in the JAX package's format (plus each
-session's Krylov tolerances).  The LM half of the JAX module
-(``serve_step``, ``generate``) is not ported.
+session's Krylov tolerances).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -41,9 +45,70 @@ from repro_torch.core.controller import (ControllerConfig, PlanCache,
 from repro_torch.core.cost_model import H100, CostModel
 from repro_torch.serving.supervisor import (FAILED, SessionSupervisor,
                                             SupervisorConfig, window_verdict)
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
 from repro_torch.solvers.precision import PRECISION_FALLBACK
 
-__all__ = ["SimulationSession", "SimulationEngine"]
+__all__ = ["ServeState", "serve_step", "start", "generate",
+           "SimulationSession", "SimulationEngine"]
+
+
+class ServeState(NamedTuple):
+    cache: dict
+    last_tokens: torch.Tensor  # (B, 1) int32
+    pos: int                   # next write position
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    # torch.argmax, like jnp.argmax, returns the first maximum
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
+def serve_step(cfg: ModelConfig, params, state: ServeState):
+    """One greedy decode step for the whole batch (the cache in place)."""
+    logits, cache = lm.decode_step(cfg, params, state.cache,
+                                   state.last_tokens, state.pos)
+    nxt = _greedy(logits)
+    return ServeState(cache=cache, last_tokens=nxt, pos=state.pos + 1), nxt
+
+
+def start(cfg: ModelConfig, params, prompts: torch.Tensor, max_len: int,
+          frontend=None) -> tuple[ServeState, torch.Tensor]:
+    """Prefill the prompts and return the initial serve state."""
+    logits, cache = lm.prefill(cfg, params, prompts, max_len,
+                               frontend=frontend)
+    first = _greedy(logits)
+    n_prefix = cfg.frontend_len if cfg.frontend == "vision_stub" else 0
+    pos = prompts.shape[1] + n_prefix
+    return ServeState(cache=cache, last_tokens=first, pos=pos), first
+
+
+def generate(cfg: ModelConfig, params, prompts: torch.Tensor, n_new: int,
+             frontend=None) -> torch.Tensor:
+    """Greedy generation of ``n_new`` tokens.  Returns (B, n_new) int32 on
+    the prompts' device.
+
+    ``n_new=0`` is a pure no-op: no prefill, no decode loop, an empty
+    ``(B, 0)`` token block.
+    """
+    if n_new < 0:
+        raise ValueError(f"n_new must be >= 0, got {n_new}")
+    if n_new == 0:
+        return torch.zeros((prompts.shape[0], 0), dtype=torch.int32,
+                           device=prompts.device)
+    max_len = prompts.shape[1] + n_new + (
+        cfg.frontend_len if cfg.frontend == "vision_stub" else 0)
+    state, first = start(cfg, params, prompts, max_len, frontend)
+    outs = [first]
+    for _ in range(n_new - 1):
+        state, nxt = serve_step(cfg, params, state)
+        outs.append(nxt)
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# CFD simulation serving — multi-tenant PISO with per-session adaptation.
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

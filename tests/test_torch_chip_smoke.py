@@ -785,3 +785,140 @@ def test_phase15_catches_dropped_halo_terms(tiny_phase15, monkeypatch):
     monkeypatch.setattr(shardmap_spmv, "_add_halo", lambda *a, **k: None)
     with pytest.raises(chip_smoke.SmokeFailure, match="phase 15"):
         chip_smoke.full_mesh_phase(torch, _tiny_state(3))
+
+
+# ---------------------------------------------------------------------------
+# phase 16: LM serving
+# ---------------------------------------------------------------------------
+
+def test_phase16_byte_floor_and_parameter_count():
+    """qwen3-0.6b's decode floor: 2 bytes a parameter (595,984,384 by the
+    config's count) and 28 x 2 x 8 x 576 x 8 x 128 x 2 bytes of K/V,
+    1.72 GB at 3.35 TB/s: 0.51 ms a step."""
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen3-0.6b")
+    assert int(cfg.total_params()) == 595_984_384
+    floor = chip_smoke.decode_floor(cfg, 8, 576, 2 * 595_984_384)
+    assert floor["kv_bytes"] == 28 * 2 * 8 * 576 * 8 * 128 * 2
+    assert floor["bytes"] == 2 * 595_984_384 + floor["kv_bytes"]
+    assert floor["ms"] == pytest.approx(0.5136, abs=5e-4)
+    # the windowed cache is a ring of W slots
+    mixtral = get_smoke_config("mixtral-8x22b")
+    assert chip_smoke.kv_cache_bytes(mixtral, 2, 100) == \
+        2 * 2 * 2 * 8 * 2 * 16 * 4
+    # the tree's count is the config's plus the norms' gains it leaves out
+    smoke = get_smoke_config("qwen3-0.6b")
+    params = lm.init_params(smoke, torch.Generator().manual_seed(0))
+    norms = smoke.n_layers * (2 * smoke.d_model + 2 * smoke.hd) + smoke.d_model
+    assert chip_smoke.tree_numel(params) == int(smoke.total_params()) + norms
+    assert chip_smoke.tree_bytes(params) == 4 * chip_smoke.tree_numel(params)
+
+
+def test_phase16_depth_cuts_keep_the_widths():
+    from repro_torch.configs.registry import get_config
+
+    want = {"mixtral-8x22b": 1, "jamba-v0.1-52b": 8, "rwkv6-1.6b": 24,
+            "whisper-medium": 24, "paligemma-3b": 18}
+    assert chip_smoke.FAMILY_LAYERS == want
+    for arch, layers in want.items():
+        cut, full = chip_smoke.family_config(arch), get_config(arch)
+        assert (cut.n_layers, cut.dtype) == (layers, "float32"), arch
+        assert dataclasses.replace(cut, n_layers=full.n_layers,
+                                   dtype=full.dtype) == full, arch
+        # every family's f32 weights fit the card (jamba's ~53 GB)
+        assert 4 * cut.total_params() <= chip_smoke.F32_WEIGHT_LIMIT
+    assert 4 * chip_smoke.family_config(
+        "jamba-v0.1-52b").total_params() > 50e9
+    # only mixtral and jamba are cut; jamba to one period of its stack
+    assert chip_smoke.family_config("jamba-v0.1-52b").n_periods == 1
+    assert [a for a in want if chip_smoke.family_config(a).n_layers
+            < get_config(a).n_layers] == ["mixtral-8x22b", "jamba-v0.1-52b"]
+
+
+def test_lm_flag_parses():
+    assert chip_smoke.build_parser().parse_args(["--lm"]).lm
+    assert not chip_smoke.build_parser().parse_args([]).lm
+
+
+def test_phase16a_on_the_cpu(capsys):
+    """Every SMOKE arch through 16a's runs, the CPU as both devices."""
+    problems = []
+    out = chip_smoke.smoke_archs_phase(torch, torch.device("cpu"), problems)
+    assert not problems
+    assert len(out) == 10 and all(r["tokens_equal"] for r in out.values())
+    assert "[16a] whisper-medium" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "jamba-v0.1-52b",
+                                  "whisper-medium", "paligemma-3b"])
+def test_phase16_decode_vs_forward_on_the_cpu(arch, monkeypatch):
+    """16b/16c's check on the SMOKE configs, and a decode at the wrong
+    positions (one off) failing it."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = get_smoke_config(arch)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(1))
+    tokens, frontend = chip_smoke.lm_inputs(cfg, 2, 14)
+    cpu = torch.device("cpu")
+    r = chip_smoke.decode_vs_forward(torch, cfg, params, tokens, frontend, 4,
+                                     cpu)
+    assert r["err"] <= chip_smoke.LM_TOL and r["tokens_equal"]
+    assert r["positions"] == 5
+    if cfg.frontend != "audio_stub":  # whisper's decoder has no positions
+        real = chip_smoke.n_prefix
+        monkeypatch.setattr(chip_smoke, "n_prefix", lambda c: real(c) + 1)
+        bad = chip_smoke.decode_vs_forward(torch, cfg, params, tokens,
+                                           frontend, 4, cpu)
+        assert bad["err"] > 10 * chip_smoke.LM_TOL
+
+
+def test_decode_parts():
+    assert chip_smoke.decode_part(
+        "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize64x64x64") == "matmul"
+    assert chip_smoke.decode_part("void cutlass::Kernel2<cutlass_80_wmma>") \
+        == "matmul"
+    assert chip_smoke.decode_part(
+        "void at::native::(anonymous namespace)::cunn_SoftMaxForward<4>") \
+        == "softmax"
+    assert chip_smoke.decode_part("void rotary_something()") == "other"
+    assert chip_smoke.decode_part(
+        "void at::native::reduce_kernel<512, 1>") == "reductions"
+    assert chip_smoke.decode_part("Memcpy DtoD (Device -> Device)") \
+        == "copies and casts"
+    assert chip_smoke.decode_part(
+        "void at::native::vectorized_elementwise_kernel<4>") == "elementwise"
+
+
+def test_phase16c_on_the_cpu(monkeypatch, capsys):
+    """16c's flow on the SMOKE configs: every family's check, rwkv6's
+    one-layer cut, jamba's bf16 run with its routes counted (f32: none
+    differ)."""
+    from repro_torch.configs import registry
+
+    monkeypatch.setattr(registry, "get_config", registry.get_smoke_config)
+    monkeypatch.setattr(chip_smoke, "FAMILY_LAYERS", {
+        "mixtral-8x22b": 1, "jamba-v0.1-52b": 8, "rwkv6-1.6b": 2,
+        "whisper-medium": 2, "paligemma-3b": 2})
+    monkeypatch.setattr(chip_smoke, "FAMILY_PROMPT", 10)
+    problems = []
+    out = chip_smoke.families_phase(torch, torch.device("cpu"), problems)
+    assert not problems
+    assert set(out) == {"mixtral-8x22b", "jamba-v0.1-52b", "rwkv6-1.6b",
+                        "rwkv6-1.6b (1 layer)", "whisper-medium",
+                        "paligemma-3b", "jamba-v0.1-52b (bf16)"}
+    assert out["jamba-v0.1-52b"]["flips"] == 0
+    assert out["jamba-v0.1-52b"]["routed"] == 4 * 2 * (10 + 4)
+    assert out["jamba-v0.1-52b (bf16)"]["tol"] is None
+    assert out["rwkv6-1.6b (1 layer)"]["layers"] == 1
+    assert "depth cut 56 -> 1" not in capsys.readouterr().out  # smoke: 2
+
+
+def test_routing_flips_counts_differing_routes():
+    fwd = [torch.tensor([[[0, 1], [1, 2], [0, 3], [2, 3]]])]  # (1, 4, 2)
+    pre = [torch.tensor([[[0, 1], [1, 3]]])]                  # S = 2
+    dec = [torch.tensor([[[0, 3]]]), torch.tensor([[[1, 3]]])]
+    got = chip_smoke.routing_flips(fwd + pre + dec, 1, 2, 2)
+    assert got == {"flips": 2, "routed": 4}
