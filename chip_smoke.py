@@ -8,6 +8,7 @@
   python3 chip_smoke.py --serving
   python3 chip_smoke.py --full-mesh
   python3 chip_smoke.py --lm
+  python3 chip_smoke.py --train
 
 Runs from the root of a checkout and needs one CUDA card; with no card, or
 without the rest of the checkout beside it, it exits nonzero and prints no
@@ -251,6 +252,39 @@ result.  Phases, in order (any failure exits nonzero):
     printed; its results also go on a line of their own (``lm {...}``)
     before the summary.
 
+17. LM training, with TF32 off for matmuls and cuDNN (printed): (17a)
+    every registry ``SMOKE`` config, float32, one set of parameters from
+    a CPU ``torch.Generator``, two steps of ``make_train_step(accum=2)``
+    on ``batch_at(seed 0)`` on the CPU and on the card, compression off
+    and on: loss and grad_norm within 1e-5 relative (grad_norm 1e-4 with
+    compression: a value at a .5 tie rounds to the other int8 step on one
+    device), the parameters by AdamW's rule (within 2 lr a step; without compression within 1e-2 lr
+    where the gradient stayed above noise); (17b) qwen3-0.6b at full
+    width and all 28 layers in bfloat16 (596,049,920 parameters from a
+    ``torch.Generator`` seed 0 on the card), ``seq_len`` 4096 (train_4k's),
+    global batch 8 (cut from train_4k's 256), ``accum`` 2, ``AdamW()``:
+    one warm step and 3 timed steps, all on ``batch_at(seed 0, step 0)``
+    (tests/test_training.py's fixed batch: its loss must fall over them),
+    and a second run of the first step, bitwise the first run's in its
+    loss, grad_norm and every parameter leaf; s a step, tokens/s, 6 N
+    tokens against the dense bf16 peak, ``max_memory_allocated`` against
+    the prediction; one microbatch under ``torch.profiler`` (the device
+    traced alone: launches, busy ms, idle share, device time by part, the
+    five largest operations), the loss head and the AdamW update alone;
+    one int8-compressed step (finite, error buffers filled); (17c) remat
+    on the card: qwen3-0.6b cut to 2 layers
+    (``seq_len`` 4096, batch 4) and rwkv6-1.6b cut to 2 layers
+    (``seq_len`` 2048, batch 2: the 256-step time chunks), gradients with
+    remat bitwise those without, ``max_memory_allocated`` of each; (17d)
+    the full-width state written and restored in process (bytes, seconds,
+    bitwise), then ``python -m repro_torch.launch.train`` (qwen3-0.6b,
+    28 layers, ``--seq-len 512 --batch 8``) run uninterrupted to step 4
+    and, in another directory, to step 2 and resumed to step 4: it must
+    print ``resumed from step 2`` and the two step-4 checkpoints must
+    hold the same bytes.  Phase 17's checks are collected and fail the
+    run after its parts have printed; its results also go on a line of
+    their own (``train {...}``) before the summary.
+
 In phases 9-14 every kernel wrapper's plain version is made to raise while
 the kernel runs go: the card's path launches the kernels only (14c's
 quarantined request runs on the plain ``"reference"`` backend by
@@ -284,7 +318,7 @@ script beside another such checkout's ``src`` measures that tree the same
 way; with ``--full-mesh`` beside it, ``--profile-cg`` profiles phase 15's
 full-mesh CG instead.  With ``--serving``, phases 1 and 2 run, then phases
 13 and 14 from the main path's 3-step state; with ``--full-mesh`` alone,
-phase 15; with ``--lm``, phase 16.
+phase 15; with ``--lm``, phase 16; with ``--train``, phase 17.
 """
 from __future__ import annotations
 
@@ -295,7 +329,10 @@ import gc
 import hashlib
 import itertools
 import json
+import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -4933,45 +4970,62 @@ def smoke_archs_phase(torch, dev, problems, ref_dev="cpu") -> dict:
     return out
 
 
-def decode_part(name: str) -> str:
-    """The part of a decode step a device kernel belongs to."""
+def device_part(name: str, parts=DECODE_PARTS) -> str:
+    """The part (of ``parts``: the first whose fragments the lower-case
+    name holds) a device kernel belongs to."""
     name = name.lower()
-    for part, keys in DECODE_PARTS:
+    for part, keys in parts:
         if any(k in name for k in keys):
             return part
     return "other"
 
 
 def profile_decode(torch, cfg, params, state, n_steps: int) -> dict:
-    """``n_steps`` decode steps under ``torch.profiler``: kernel launches
-    and device busy ms a step, the device's idle share of the window (1 -
-    the kernels' summed time over its wall), device ms a step by part, and
-    the five largest device operations."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``n_steps`` decode steps under ``torch.profiler`` (see
+    :func:`profile_device`)."""
     from repro_torch.models import lm
 
     cache, last, pos = state
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    at = {"cache": cache, "last": last, "i": 0}
+
+    def step():
+        logits, at["cache"] = lm.decode_step(cfg, params, at["cache"],
+                                             at["last"], pos + at["i"])
+        at["last"] = greedy(torch, logits)
+        at["i"] += 1
+
+    return profile_device(torch, step, n_steps, DECODE_PARTS)
+
+
+def profile_device(torch, step, n_steps: int, parts, host=True) -> dict:
+    """``n_steps`` calls of ``step`` under ``torch.profiler``: kernel
+    launches and device busy ms a step, the device's idle share of the
+    window (1 - the kernels' summed time over its wall), device ms a step
+    by part (``parts``), and the five largest device operations.  Without
+    ``host`` only the device is traced.  The device's activities are read
+    from the raw trace: the profiler's own event tree (``key_averages``)
+    takes over a minute to build for a window of ~10^5 launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(n_steps):
-            logits, cache = lm.decode_step(cfg, params, cache, last, pos + i)
-            last = greedy(torch, logits)
+        for _ in range(n_steps):
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total",
-                         getattr(evt, "cuda_time_total", 0))
-        if dev_us and getattr(evt, "device_type", None) is not None \
-                and "CUDA" in str(evt.device_type):
-            kernels[evt.key] = (dev_us, evt.count)
-    parts = {}
+    kernels = {}                      # name -> (device us, count)
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            us, count = kernels.get(evt.name(), (0.0, 0))
+            kernels[evt.name()] = (us + evt.duration_ns() / 1e3, count + 1)
+    by_part = {}
     for name, (us, _) in kernels.items():
-        part = decode_part(name)
-        parts[part] = parts.get(part, 0.0) + us / 1e3 / n_steps
+        part = device_part(name, parts)
+        by_part[part] = by_part.get(part, 0.0) + us / 1e3 / n_steps
     busy = sum(us for us, _ in kernels.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
     return {"launches_per_step": sum(c for _, c in kernels.values())
@@ -4979,7 +5033,7 @@ def profile_decode(torch, cfg, params, state, n_steps: int) -> dict:
             "wall_ms_per_step": 1e3 * wall / n_steps,
             "busy_ms_per_step": 1e3 * busy / n_steps,
             "idle_share": 1 - busy / wall,
-            "device_ms_per_step": parts,
+            "device_ms_per_step": by_part,
             "top5": [{"op": k[:120], "ms_per_step": us / 1e3 / n_steps,
                       "count_per_step": c / n_steps}
                      for k, (us, c) in top]}
@@ -5216,6 +5270,518 @@ def lm_phase(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: LM training (every arch on the card against the CPU, qwen3-0.6b
+# at full width, remat, kill and resume through the launcher)
+# ---------------------------------------------------------------------------
+TRAIN_SMOKE_SEQ, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_STEPS = 32, 4, 2  # 17a
+TRAIN_REL = 1e-5         # 17a: loss and grad_norm, the card against the CPU
+TRAIN_REL_INT8 = 1e-4    # 17a: grad_norm with int8 compression: where a
+#                          value sits at a .5 tie on one device, its int8
+#                          step rounds the other way on the other, moving
+#                          the dequantised gradient by one scale
+#                          (1.34e-5 seen on rwkv6-smoke)
+TRAIN_NOISE = 1e-3       # 17a: sqrt(v_hat) below this share of its leaf's
+#                          largest marks a gradient as rounding noise
+TRAIN_TIGHT = 1e-2       # 17a: x lr, the parameters whose gradient stayed
+#                          above noise (no compression); every other one
+#                          within 2 lr a step (AdamW's first update is about
+#                          sign(g); a noise gradient may take either sign)
+TRAIN_SEQ = 4096         # 17b: the train_4k shape's length (configs/shapes.py)
+TRAIN_BATCH, TRAIN_ACCUM = 8, 2   # 17b: global batch cut from train_4k's 256;
+#                          microbatch 4
+TRAIN_TIMED = 3          # 17b: timed steps after one warm step, all on
+#                          batch_at(seed 0, step 0): tests/test_training.py's
+#                          fixed batch, whose loss must fall over them
+TRAIN_REPEAT = 1         # 17b: the second run's steps (cut from 4: a step
+#                          takes 21-27 s on the card)
+TRAIN_MEM_GB = (35.0, 55.0)  # 17b: predicted max_memory_allocated (PERF.md)
+BF16_DENSE_FLOPS = 989e12    # H100 SXM dense bf16 peak (NVIDIA data sheet,
+#                              at 700 W)
+# 17c: (arch, layers, seq_len, batch) — full width, depth cut
+REMAT_RUNS = (("qwen3-0.6b", 2, 4096, 4), ("rwkv6-1.6b", 2, 2048, 2))
+RESUME_ARGS = ["--arch", QWEN, "--seq-len", "512", "--batch", "8"]  # 17d
+# 17b: a microbatch's device time by part (lower-case fragments of the
+# kernels' names; the first part that matches takes the kernel)
+TRAIN_PARTS = (("f32 products", ("sgemm", "f32f32", "sss")),
+               ("bf16 products", ("bf16", "gemm", "nvjet", "xmma",
+                                  "cutlass", "gemv")),
+               ("softmax", ("softmax",)),
+               ("reductions", ("reduce",)),
+               ("copies and casts", ("copy", "memcpy", "memset", "cat")),
+               ("indexing", ("index", "gather", "scatter", "embedding",
+                             "where")),
+               ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def train_flops(n_params: int, tokens: int) -> float:
+    """A step's model FLOPs, 6 N tokens (forward 2 N, backward 4 N; the
+    remat's recompute and the attention products not counted)."""
+    return 6.0 * n_params * tokens
+
+
+def train_static_bytes(n_params: int, param_bytes: int, accum: int) -> int:
+    """The state a step holds besides its activations: the parameters,
+    their gradients (the microbatch's, in the parameters' dtype), the f32
+    accumulator when ``accum > 1``, and AdamW's two f32 moments."""
+    return n_params * (2 * param_bytes + (4 if accum > 1 else 0) + 8)
+
+
+def logits_bytes(cfg, micro_batch: int, seq_len: int) -> dict:
+    """The loss's logits for one microbatch: in the model dtype and as
+    the f32 upcast ``logsumexp`` reads (and its backward makes again)."""
+    n = micro_batch * seq_len * cfg.vocab_size
+    return {"model_dtype": 2 * n if cfg.dtype == "bfloat16" else 4 * n,
+            "f32": 4 * n}
+
+
+def params_problems(got, want, want_v, lr: float, k: int, above: list,
+                    tight: bool) -> list:
+    """AdamW's rule for two runs of ``k`` steps: every parameter within
+    2 lr k; with ``tight``, those whose gradient stayed above noise at
+    every step (``above``, updated here from ``want_v``) within
+    ``TRAIN_TIGHT`` lr.  Returns the leaves that break it."""
+    import numpy as np
+
+    out = []
+    bc2 = 1 - 0.95 ** k
+    for i, (g, w, v) in enumerate(zip(got, want, want_v)):
+        g = g.detach().cpu().double().numpy()
+        w = w.detach().cpu().double().numpy()
+        d = np.abs(g - w)
+        sv = np.sqrt(v.detach().cpu().double().numpy() / bc2)
+        a = sv >= TRAIN_NOISE * sv.max()
+        above[i] = a if above[i] is None else above[i] & a
+        if d.max() > 2 * lr * k + 1e-7:
+            out.append(f"leaf {i}: {d.max():.3e} > 2 lr k")
+        elif tight and above[i].any() and d[above[i]].max() > TRAIN_TIGHT * lr:
+            out.append(f"leaf {i}: {d[above[i]].max():.3e} above noise")
+    return out
+
+
+def smoke_train_check(torch, arch: str, dev, ref_dev, compress: bool) -> dict:
+    """17a for one arch: one set of float32 parameters (made on the CPU)
+    through ``TRAIN_SMOKE_STEPS`` steps of ``make_train_step(accum=2)``
+    on ``ref_dev`` and ``dev``; the largest relative loss and grad_norm
+    differences and the parameters' problems under AdamW's rule."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.grad_compress import init_error
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import TrainState, make_train_step
+    from repro_torch.training.tree import leaves, tree_map as tmap
+
+    cfg = get_smoke_config(arch)
+    opt = AdamW()
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    state0 = TrainState(params, opt.init(params),
+                        init_error(params) if compress else None)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SMOKE_SEQ,
+                      global_batch=TRAIN_SMOKE_BATCH,
+                      frontend_len=cfg.frontend_len if cfg.frontend else 0,
+                      d_model=cfg.d_model)
+    step = make_train_step(cfg, opt, compress=compress, accum=2)
+    runs = []
+    for d in (ref_dev, dev):
+        st, out = tmap(lambda t: t.to(d), state0), []
+        for k in range(TRAIN_SMOKE_STEPS):
+            st, m = step(st, batch_at(dcfg, k, device=d))
+            out.append((float(m["loss"]), float(m["grad_norm"]), st))
+        runs.append(out)
+    ref, got = runs
+    problems, above = [], [None] * len(leaves(params))
+    for k, ((l0, g0, s0), (l1, g1, s1)) in enumerate(zip(ref, got), 1):
+        problems += params_problems(leaves(s1.params), leaves(s0.params),
+                                    leaves(s0.opt.v), opt.lr, k, above,
+                                    tight=not compress)
+    return {"loss_rel": max(abs(a[0] - b[0]) / abs(b[0])
+                            for a, b in zip(got, ref)),
+            "gnorm_rel": max(abs(a[1] - b[1]) / abs(b[1])
+                             for a, b in zip(got, ref)),
+            "param_problems": problems}
+
+
+def smoke_train_phase(torch, dev, problems, ref_dev="cpu") -> dict:
+    """17a: every registry SMOKE config's train step on ``dev`` against
+    ``ref_dev``, with compression off and on."""
+    from repro_torch.configs.registry import SMOKES
+
+    out = {}
+    for arch in SMOKES:
+        for compress in (False, True):
+            r = smoke_train_check(torch, arch, torch.device(dev),
+                                  torch.device(ref_dev), compress)
+            tag = f"{arch}{' +int8' if compress else ''}"
+            out[tag] = r
+            gbound = TRAIN_REL_INT8 if compress else TRAIN_REL
+            print(f"  [17a] {tag:28s} {TRAIN_SMOKE_STEPS} steps, accum 2, "
+                  f"f32: loss {r['loss_rel']:.2e} (<= {TRAIN_REL:g}), "
+                  f"grad_norm {r['gnorm_rel']:.2e} (<= {gbound:g}), "
+                  f"parameters by AdamW's rule: "
+                  f"{r['param_problems'] or 'ok'}")
+            if not (r["loss_rel"] <= TRAIN_REL and r["gnorm_rel"] <= gbound
+                    and not r["param_problems"]):
+                problems.append(f"17a {tag}: {r}")
+    return out
+
+
+def same_leaves(torch, a, b) -> bool:
+    """Whether two lists of tensors are equal bit for bit."""
+    return all(same_bits(torch, x, y) for x, y in zip(a, b))
+
+
+def train_run(torch, step, state, batches) -> tuple:
+    """The steps on ``batches`` (each ending in a synchronisation):
+    ``(state, [(loss, grad_norm) tensors], [seconds])``."""
+    metrics, secs = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append((m["loss"], m["grad_norm"]))
+    return state, metrics, secs
+
+
+def microbatch_parts(torch, cfg, opt, state, batch) -> dict:
+    """17b's profile: one microbatch's loss and gradients under
+    ``torch.profiler`` (the device traced alone); the loss head (logits,
+    ``logsumexp``, the gold rows) forward and backward alone and the
+    AdamW update alone, each by CUDA events."""
+    from repro_torch.models import lm
+    from repro_torch.training.tree import leaves, tree_map as tmap, unflatten
+
+    def microbatch():
+        req = [p.detach().requires_grad_() for p in leaves(state.params)]
+        loss = lm.loss_fn(cfg, unflatten(state.params, req), batch["tokens"],
+                          batch["labels"])
+        torch.autograd.grad(loss, req, materialize_grads=True)
+
+    t0 = time.perf_counter()
+    prof = profile_device(torch, microbatch, 1, TRAIN_PARTS, host=False)
+    prof["trace_and_sort_s"] = time.perf_counter() - t0
+    with torch.no_grad():
+        x = lm.hidden_states(cfg, state.params, batch["tokens"])
+
+    def head():
+        heads = {k: state.params[k].detach().requires_grad_()
+                 for k in ("embed", "lm_head") if k in state.params}
+        xr = x.detach().requires_grad_()
+        loss = lm.head_loss(cfg, dict(state.params, **heads), xr,
+                            batch["labels"])
+        torch.autograd.grad(loss, [xr, *heads.values()])
+
+    # the update's cost does not depend on the gradients' values
+    grads = tmap(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device), state.params)
+    prof["head_ms"] = time_ms(torch, head, n=2, warmup=1)
+    prof["adamw_ms"] = time_ms(
+        torch, lambda: opt.update(grads, state.opt, state.params), n=3,
+        warmup=1)
+    return prof
+
+
+def full_train_phase(torch, dev, problems) -> dict:
+    """17b: qwen3-0.6b at full width and depth, bfloat16, on ``dev``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import init_state, make_train_step
+    from repro_torch.training.tree import leaves
+
+    cfg = get_config(QWEN)
+    opt = AdamW()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    batch = batch_at(dcfg, 0, device=dev)
+    state0 = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+    n = tree_numel(state0.params)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    static = train_static_bytes(n, 2, TRAIN_ACCUM)
+    logit = logits_bytes(cfg, TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ)
+    print(f"  [17b] {QWEN}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n:,} parameters ({cfg.dtype}); seq_len {TRAIN_SEQ} (train_4k), "
+          f"global batch {TRAIN_BATCH} (cut from train_4k's 256), accum "
+          f"{TRAIN_ACCUM} (microbatch {TRAIN_BATCH // TRAIN_ACCUM}); "
+          f"AdamW() defaults; state besides activations "
+          f"{static / 1e9:.2f} GB, a microbatch's logits "
+          f"{logit['model_dtype'] / 1e9:.2f} GB ({logit['f32'] / 1e9:.2f} GB "
+          f"as f32)")
+    step = make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+    torch.cuda.reset_peak_memory_stats()
+    st, m1, s1 = train_run(torch, step, state0, [batch] * TRAIN_REPEAT)
+    p1 = leaves(st.params)           # after the steps the second run takes
+    st, more, later = train_run(torch, step, st,
+                                [batch] * (1 + TRAIN_TIMED - TRAIN_REPEAT))
+    m1, s1 = m1 + more, s1 + later
+    st2, m2, s2 = train_run(torch, step, state0, [batch] * TRAIN_REPEAT)
+    peak = torch.cuda.max_memory_allocated()
+    same = (same_leaves(torch, p1, leaves(st2.params))
+            and all(same_bits(torch, a[0], b[0]) and same_bits(
+                torch, a[1], b[1]) for a, b in zip(m1, m2)))
+    del st2, p1
+    losses = [float(m[0]) for m in m1]
+    gnorms = [float(m[1]) for m in m1]
+    finite = all(map(math.isfinite, losses + gnorms))
+    timed = s1[1:] + s2      # the second run's steps are warm too
+    s_step = sum(timed) / len(timed)
+    out = {"params": n, "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+           "accum": TRAIN_ACCUM, "losses": losses, "grad_norms": gnorms,
+           "step_s": timed, "warm_step_s": [s1[0], s2[0]],
+           "s_per_step": s_step, "tokens_per_s": tokens / s_step,
+           "flops_per_step": train_flops(n, tokens),
+           "model_flops_share": train_flops(n, tokens) / s_step
+           / BF16_DENSE_FLOPS,
+           "peak_bytes": peak, "bitwise_repeat": same,
+           "repeat_steps": TRAIN_REPEAT}
+    free_device(torch)
+    print(f"  [17b] {1 + TRAIN_TIMED} steps on batch 0: losses "
+          f"{[f'{x:.4f}' for x in losses]}, grad_norms "
+          f"{[f'{x:.3f}' for x in gnorms]}; warm step {s1[0]:.3f} s; "
+          f"timed steps {[f'{x:.3f}' for x in timed]} s: "
+          f"{s_step:.3f} s a step, {out['tokens_per_s']:.0f} tokens/s, "
+          f"6 N tokens = {out['flops_per_step'] / 1e12:.1f} TFLOP a step, "
+          f"{out['model_flops_share']:.2%} of the dense bf16 peak "
+          f"({BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s, H100 SXM data sheet)")
+    print(f"  [17b] max_memory_allocated {peak / 1e9:.2f} GB (predicted "
+          f"{TRAIN_MEM_GB[0]:g}-{TRAIN_MEM_GB[1]:g}); a second run of the "
+          f"first {TRAIN_REPEAT} step(s) bitwise the first run's (every "
+          f"loss, grad_norm and parameter leaf): {same}")
+    if not (same and finite):
+        problems.append(f"17b: bitwise {same}, finite {finite}")
+    # three updates on the same batch lower its loss
+    if not losses[-1] < losses[0]:
+        problems.append(f"17b: the loss did not fall on a fixed batch "
+                        f"{losses}")
+    half = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
+    prof = microbatch_parts(torch, cfg, opt, st, half)
+    out["profile"] = prof
+    del st
+    free_device(torch)
+    print(f"  [17b] profile of one microbatch (loss and gradients, "
+          f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ}): "
+          f"{prof['launches_per_step']:.0f} kernel launches, device busy "
+          f"{prof['busy_ms_per_step']:.1f} ms of {prof['wall_ms_per_step']:.1f}"
+          f" ms, idle share {prof['idle_share']:.1%} (traced and sorted in "
+          f"{prof['trace_and_sort_s']:.1f} s); the loss head alone "
+          f"{prof['head_ms']:.1f} ms, the AdamW update {prof['adamw_ms']:.1f}"
+          f" ms")
+    for part, ms in sorted(prof["device_ms_per_step"].items(),
+                           key=lambda kv: -kv[1]):
+        print(f"    {part:20s} {ms:.1f} ms")
+    for t in prof["top5"]:
+        print(f"    {t['count_per_step']:8.0f} x {t['op'][:72]:72s} "
+              f"{t['ms_per_step']:.1f} ms")
+    # one compressed step: finite, error buffers filled
+    cstate = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0),
+                        compress=True)
+    del state0
+    free_device(torch)
+    cstate, m = make_train_step(cfg, opt, compress=True,
+                                accum=TRAIN_ACCUM)(cstate, batch)
+    err_max = max(float(e.abs().max()) for e in leaves(cstate.err))
+    out["compressed"] = {"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "err_max": err_max}
+    print(f"  [17b] one int8-compressed step: loss {float(m['loss']):.4f}, "
+          f"grad_norm {float(m['grad_norm']):.3f}, largest |error| "
+          f"{err_max:.3e}")
+    if not (math.isfinite(float(m["loss"])) and err_max > 0):
+        problems.append(f"17b: compressed step {out['compressed']}")
+    return out
+
+
+@contextlib.contextmanager
+def saving_everything():
+    """Remat off: the LM stack's and the time scans' checkpoints call
+    their function directly, so autograd saves every activation (17c's
+    reference run)."""
+    from repro_torch.models import lm, scan_utils
+
+    def direct(fn, *args, use_reentrant, preserve_rng_state, **kw):
+        return fn(*args, **kw)
+
+    real = lm.checkpoint, scan_utils.checkpoint
+    lm.checkpoint = scan_utils.checkpoint = direct
+    try:
+        yield
+    finally:
+        lm.checkpoint, scan_utils.checkpoint = real
+
+
+def remat_check(torch, dev, arch: str, layers: int, seq_len: int,
+                batch: int) -> dict:
+    """17c for one cut: one batch's loss and gradients with remat and
+    without, bitwise, and ``max_memory_allocated`` of each."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.config import validate
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.tree import leaves, unflatten
+
+    cfg = validate(dataclasses.replace(get_config(arch), n_layers=layers))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    b = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                            global_batch=batch), 0, device=dev)
+    runs = {}
+    for remat in (True, False):
+        free_device(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        req = [p.detach().requires_grad_() for p in leaves(params)]
+        with contextlib.nullcontext() if remat else saving_everything():
+            loss = lm.loss_fn(cfg, unflatten(params, req), b["tokens"],
+                              b["labels"])
+            grads = torch.autograd.grad(loss, req, materialize_grads=True)
+        torch.cuda.synchronize()
+        runs[remat] = (loss.detach(), grads,
+                       torch.cuda.max_memory_allocated() - base)
+        del loss, req
+    (l1, g1, m1), (l0, g0, m0) = runs[True], runs[False]
+    return {"arch": arch, "layers": layers, "seq_len": seq_len,
+            "batch": batch, "dtype": cfg.dtype,
+            "bitwise": same_bits(torch, l1, l0) and same_leaves(torch, g1, g0),
+            "peak_remat_bytes": m1, "peak_saved_bytes": m0}
+
+
+def remat_phase(torch, dev, problems) -> list:
+    """17c: remat on the card, each cut listed."""
+    out = []
+    for run in REMAT_RUNS:
+        r = remat_check(torch, dev, *run)
+        out.append(r)
+        free_device(torch)
+        print(f"  [17c] {r['arch']} at full width, depth cut to "
+              f"{r['layers']} layers, seq_len {r['seq_len']}, batch "
+              f"{r['batch']}, {r['dtype']}: gradients with remat bitwise "
+              f"those without {r['bitwise']}; max_memory_allocated above "
+              f"the parameters {r['peak_remat_bytes'] / 1e9:.2f} GB with "
+              f"remat, {r['peak_saved_bytes'] / 1e9:.2f} GB without")
+        if not r["bitwise"]:
+            problems.append(f"17c {r['arch']}: remat changes the gradients")
+    return out
+
+
+def train_cli(extra: list, ckpt: str) -> subprocess.Popen:
+    """The training launcher started as a subprocess on the card."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *RESUME_ARGS,
+         "--ckpt", ckpt, *extra], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
+def same_checkpoint(a, b) -> bool:
+    """Whether two checkpoint directories hold the same arrays, byte for
+    byte (bfloat16 words included)."""
+    import numpy as np
+
+    with np.load(Path(a) / "shard-0.npz") as za, \
+            np.load(Path(b) / "shard-0.npz") as zb:
+        return za.files == zb.files and all(
+            za[k].dtype == zb[k].dtype and np.array_equal(
+                za[k].reshape(-1).view(np.uint8),
+                zb[k].reshape(-1).view(np.uint8))
+            for k in za.files)
+
+
+def train_resume_phase(torch, dev, problems) -> dict:
+    """17d: a checkpoint of the full-width state written and restored in
+    process (bytes, seconds, bitwise), then the launcher killed after
+    step 2 and resumed against an uninterrupted run."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import init_state
+    from repro_torch.training.tree import leaves
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"  [17d] {shutil.disk_usage(tmp).free / 1e9:.0f} GB free "
+              f"under {tmp}")
+        state = init_state(get_config(QWEN), AdamW(),
+                           torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt_lib.save(os.path.join(tmp, "inproc"), 1, state)
+        t1 = time.perf_counter()
+        back, _ = ckpt_lib.restore(os.path.join(tmp, "inproc"), state)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out["checkpoint"] = {
+            "bytes": dir_bytes(path), "write_s": t1 - t0, "restore_s": t2 - t1,
+            "bitwise": same_leaves(torch, leaves(state), leaves(back))}
+        del state, back
+        free_device(torch)
+        shutil.rmtree(path)
+        c = out["checkpoint"]
+        print(f"  [17d] {QWEN} state (bf16 parameters, f32 moments): "
+              f"{c['bytes'] / 1e9:.3f} GB written in {c['write_s']:.2f} s, "
+              f"restored in {c['restore_s']:.2f} s, bitwise {c['bitwise']}")
+        if not c["bitwise"]:
+            problems.append("17d: the restored state differs")
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        # A and B1 share the card (two states of ~20 GB each); B2 resumes
+        # B1's checkpoint
+        procs = {"A": train_cli(["--steps", "4", "--ckpt-every", "4"], a),
+                 "B1": train_cli(["--steps", "2", "--ckpt-every", "2"], b)}
+        runs = finish(procs)
+        runs.update(finish({"B2": train_cli(["--steps", "4",
+                                             "--ckpt-every", "2"], b)}))
+        for tag, (rc, stdout, stderr) in runs.items():
+            print(f"  [17d] launcher {tag}: rc {rc}; "
+                  + " | ".join(stdout.strip().splitlines()))
+            if rc != 0:
+                problems.append(f"17d {tag}: rc {rc}: {stderr[-2000:]}")
+        resumed = "resumed from step 2" in runs["B2"][1].splitlines()
+        try:
+            equal = same_checkpoint(os.path.join(a, "step-4"),
+                                    os.path.join(b, "step-4"))
+        except OSError as e:
+            equal = False
+            problems.append(f"17d: no step-4 checkpoint ({e})")
+        out["launcher"] = {"resumed": resumed, "step4_equal": equal}
+        print(f"  [17d] B resumed from step 2: {resumed}; A's and B's step-4 "
+              f"checkpoints bitwise equal: {equal}")
+        if not (resumed and equal):
+            problems.append(f"17d: {out['launcher']}")
+    return out
+
+
+def train_phase(torch, dev) -> dict:
+    """Phase 17 (see the module docstring).  Its checks are collected and
+    fail the run after its parts have printed."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[17] LM training: every SMOKE arch's train step against the "
+          f"CPU, {QWEN} at full width, remat, kill and resume; TF32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}")
+    print(f"  [17] memory_allocated at the start "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    problems = []
+    out = {"part_s": {}}
+    for key, part in (("archs", smoke_train_phase),
+                      ("qwen3", full_train_phase),
+                      ("remat", remat_phase), ("resume", train_resume_phase)):
+        t1 = time.perf_counter()
+        out[key] = part(torch, dev, problems)
+        free_device(torch)
+        out["part_s"][key] = time.perf_counter() - t1
+        print(f"  [17] {key}: {out['part_s'][key]:.1f} s")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  [17] {out['seconds']:.1f} s")
+    for p in problems:
+        print(f"  FAILED: {p}")
+    require(not problems, f"phase 17: {len(problems)} check(s) failed")
+    return out
+
+
 def main_state(torch):
     """The main path's state after its 3 steps from rest (the kernels)."""
     from repro_torch.launch.case import build_parser, build_solver
@@ -5301,6 +5867,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "--profile-cg, profile the full-mesh CG instead")
     ap.add_argument("--lm", action="store_true",
                     help="phase 16 (LM serving) alone, after phases 1-2")
+    ap.add_argument("--train", action="store_true",
+                    help="phase 17 (LM training) alone, after phases 1-2")
     return ap
 
 
@@ -5366,6 +5934,13 @@ def main(argv=None) -> int:
             print(smi_line())
             print(json.dumps({"lm": result}, default=str))
             return 0
+        if args.train:
+            result = train_phase(torch, dev)
+            print(f"done in {time.perf_counter() - t_start:.1f} s")
+            print("train " + json.dumps(result, default=str))
+            print(smi_line())
+            print(ok_line(torch))
+            return 0
         print("[3] kernels vs plain versions")
         report = check_kernels(torch, dev)
         print("[4-6] main path: 210^3 cavity, 30 parts, alpha 30, 3 PISO "
@@ -5386,8 +5961,11 @@ def main(argv=None) -> int:
         free_device(torch)
         summary["lm"] = lm_phase(torch, dev)
         free_device(torch)
+        summary["train"] = train_phase(torch, dev)
+        free_device(torch)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         print("lm " + json.dumps(summary["lm"], default=str))
+        print("train " + json.dumps(summary["train"], default=str))
         summary["momentum_shape_times"] = {
             name: report[name]["momentum"] for name in report
             if "momentum" in report[name]}
@@ -5417,10 +5995,14 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print("FAIL", file=sys.stderr)
         return 1
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(ok_line(torch))
     return 0
+
+
+def ok_line(torch) -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":

@@ -13,7 +13,10 @@ carries its parameter and decode-cache trees (nested dicts, the JAX
 package's keys and layouts) leaf by leaf, each leaf in its own dtype
 (:func:`lm_params_from_numpy`, :func:`lm_cache_from_numpy` and their
 inverses); a bfloat16 leaf travels as numpy's ``ml_dtypes`` bfloat16,
-which JAX's ``np.asarray`` gives.  Nothing here imports that
+which JAX's ``np.asarray`` gives.  A training state travels the same way
+(:func:`train_state_from_numpy`, :func:`train_state_to_numpy`): the
+parameters, the optimizer's ``step``, ``m`` and ``v``, and the error
+buffers, each leaf in its dtype.  Nothing here imports that
 implementation.
 """
 from __future__ import annotations
@@ -25,11 +28,14 @@ from repro_torch.core.repartition import RepartitionPlan
 from repro_torch.env import DTYPE, resolve_device
 from repro_torch.fvm.mesh import CavityMesh, PaddedCavityMesh
 from repro_torch.fvm.piso import PisoState
+from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.train_step import TrainState
 
 __all__ = ["state_from_numpy", "state_to_numpy", "plan_from_numpy",
            "cohort_from_numpy", "mesh_fields", "mesh_from_fields",
            "lm_params_from_numpy", "lm_params_to_numpy",
-           "lm_cache_from_numpy", "lm_cache_to_numpy"]
+           "lm_cache_from_numpy", "lm_cache_to_numpy",
+           "train_state_from_numpy", "train_state_to_numpy"]
 
 _MESH_FIELDS = ("nx", "ny", "nz", "n_parts", "h")
 
@@ -159,3 +165,30 @@ def lm_cache_from_numpy(tree: dict, device="cuda") -> dict:
 def lm_cache_to_numpy(tree: dict) -> dict:
     """Nested dicts of numpy arrays (host copies) of a decode cache."""
     return _tree_to_numpy(tree)
+
+
+def train_state_from_numpy(state, device="cuda") -> TrainState:
+    """The port's :class:`TrainState` from one whose leaves are arrays
+    (e.g. ``jax.tree.map(np.asarray, state)`` of a JAX ``TrainState``):
+    anything with ``params``, ``opt.step``, ``opt.m``, ``opt.v`` and
+    ``err`` (``None`` when compression is off)."""
+    dev = resolve_device(device)
+
+    def tree(t):
+        return None if t is None else _tree_from_numpy(t, dev)
+
+    opt = AdamWState(step=_leaf_from_numpy(state.opt.step, dev),
+                     m=tree(state.opt.m), v=tree(state.opt.v))
+    return TrainState(params=tree(state.params), opt=opt,
+                      err=tree(state.err))
+
+
+def train_state_to_numpy(state: TrainState) -> TrainState:
+    """A :class:`TrainState` of numpy arrays (host copies)."""
+    def tree(t):
+        return None if t is None else _tree_to_numpy(t)
+
+    opt = AdamWState(step=_leaf_to_numpy(state.opt.step),
+                     m=tree(state.opt.m), v=tree(state.opt.v))
+    return TrainState(params=tree(state.params), opt=opt,
+                      err=tree(state.err))

@@ -1,0 +1,108 @@
+"""Training launcher: the train loop with checkpoints and a failure path
+(the port of the JAX package's ``launch/train.py`` on one device).
+
+  python -m repro_torch.launch.train --arch qwen3-0.6b --seq-len 512 \\
+      --batch 8 --steps 4 --ckpt /path/to/ckpt --ckpt-every 2
+  python -m repro_torch.launch.train --device cpu --arch qwen3-0.6b \\
+      --smoke --steps 6 --ckpt /path/to/ckpt --ckpt-every 3
+
+The flags are the JAX launcher's, with its defaults, plus ``--device``
+(default ``cuda``; without a card it raises and never falls back to the
+CPU).  Parameters come from ``torch.Generator`` seed 0 on the device (as
+``launch/serve.py --arch`` makes them), data from the stateless
+``batch_at(DataConfig(seed=0), step)``.  With ``--ckpt`` the state is
+restored from the newest checkpoint there (``resumed from step N``) and
+saved every ``--ckpt-every`` steps (``checkpointed → path``); a resumed
+run is bitwise the uninterrupted one.  It prints ``step k: loss=…
+gnorm=… (…s)`` every 5th step and at the last.  A step that raises is
+reported, the newest checkpoint restored, and the loop goes on with the
+next step, as JAX's launcher does: the steps between that checkpoint and
+the failure are not re-run (its docstring promises a replay its code
+does not make).  ``--mesh`` belongs to the multi-card LM work (ROADMAP
+A9c) and is refused.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+__all__ = ["build_parser", "main"]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--mesh", default="",
+                    help="not supported: a mesh of cards (ROADMAP A9c)")
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs on the CPU)")
+    return ap
+
+
+def main(argv=None, log=print) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.mesh:
+        ap.error(f"--mesh {args.mesh!r}: a mesh of cards is the multi-card "
+                 "LM work, not ported (ROADMAP A9c); run without --mesh")
+    import torch
+
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.env import resolve_device
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import init_state, make_train_step
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    opt = AdamW(lr=args.lr)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                      global_batch=args.batch,
+                      frontend_len=cfg.frontend_len if cfg.frontend else 0,
+                      d_model=cfg.d_model)
+
+    state = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0),
+                       compress=args.compress_grads)
+    start_step = 0
+    if args.ckpt:
+        restored, step = ckpt_lib.restore(args.ckpt, state)
+        if restored is not None:
+            state, start_step = restored, step
+            log(f"resumed from step {step}")
+
+    step_fn = make_train_step(cfg, opt, compress=args.compress_grads)
+
+    t0 = time.time()
+    for step in range(start_step, args.steps):
+        batch = batch_at(dcfg, step, device=dev)
+        try:
+            state, metrics = step_fn(state, batch)
+        except Exception as e:  # noqa: BLE001 — node failure path
+            log(f"step {step} failed ({e}); restoring last checkpoint")
+            restored, rstep = ckpt_lib.restore(args.ckpt, state)
+            if restored is None:
+                raise
+            state = restored
+            continue
+        if step % 5 == 0 or step == args.steps - 1:
+            log(f"step {step}: loss={float(metrics['loss']):.4f} "
+                f"gnorm={float(metrics['grad_norm']):.3f} "
+                f"({time.time() - t0:.1f}s)")
+        if args.ckpt and (step + 1) % args.ckpt_every == 0:
+            path = ckpt_lib.save(args.ckpt, step + 1, state)
+            log(f"checkpointed → {path}")
+    log("done")
+
+
+if __name__ == "__main__":
+    main()

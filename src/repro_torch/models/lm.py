@@ -1,14 +1,15 @@
 """Unified language model over the period-structured layer stack.
 
-The port of the serving half of the JAX package's ``models/lm.py``; one
-implementation serves all 10 assigned architectures:
+The port of the JAX package's ``models/lm.py``; one implementation serves
+all 10 assigned architectures:
 
 * ``init_params``  — random initialization from a ``torch.Generator``, on
   the generator's device;
 * ``forward``      — full-sequence logits (also Whisper enc-dec and the
   stub-frontend VLM prefix);
 * ``prefill``      — the prompt's last logits and the decode cache;
-* ``decode_step``  — one token through the stack against the cache.
+* ``decode_step``  — one token through the stack against the cache;
+* ``loss_fn``      — the masked next-token cross-entropy (training).
 
 Parameter and cache trees are the JAX package's: the same keys, a leading
 ``n_periods`` axis on ``blocks`` and on every cache leaf (``n_layers``
@@ -17,13 +18,19 @@ on ``encoder``), ``x @ W`` layouts, each leaf in its own dtype (Mamba's
 f32 in any model).  A tree carries across as a map over its leaves
 (:mod:`repro_torch.interop`).  The stack is a loop over periods; prefill
 and decode write each period's new cache leaves into the stacked cache in
-place, and decode writes the attention K/V slot in place.
+place, and decode writes the attention K/V slot in place.  When autograd
+records (training), each period runs under ``torch.utils.checkpoint``
+(non-reentrant: the period reads its parameters from its arguments'
+trees, which a reentrant checkpoint would give no gradient), as JAX's
+``jax.checkpoint(policy=nothing_saveable)``: only the period inputs are
+saved and the backward recomputes each period.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.env import resolve_device
 from repro_torch.models.attention import (AttnSpec, attention_init,
@@ -37,10 +44,12 @@ from repro_torch.models.rwkv import (rwkv_apply, rwkv_ffn_apply,
                                      rwkv_ffn_init, rwkv_init)
 from repro_torch.models.ssm import mamba_apply, mamba_init
 
-__all__ = ["D_CONV", "attn_spec", "init_params", "init_cache", "encode",
-           "hidden_states", "forward", "prefill", "decode_step"]
+__all__ = ["D_CONV", "MASK_LABEL", "attn_spec", "init_params",
+           "init_cache", "encode", "hidden_states", "forward", "loss_fn",
+           "head_loss", "prefill", "decode_step"]
 
 D_CONV = 4
+MASK_LABEL = -100
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -335,13 +344,37 @@ def _sinusoidal(S: int, d: int, dtype, device) -> torch.Tensor:
 # full model entry points
 # ---------------------------------------------------------------------------
 
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _records(x, params) -> bool:
+    """Whether autograd records the stack: grad mode on and the input or
+    a block parameter requires grad."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad
+        or any(t.requires_grad for t in _leaves(params["blocks"])))
+
+
 def _run_stack(cfg, params, x, positions, cache, mode, memory=None,
                memory_pos=None, pos=None):
+    """The periods in order.  In mode ``train`` with autograd recording,
+    each period is recomputed in the backward pass (and so are the
+    recurrences' time chunks inside it)."""
+    remat = mode == "train" and _records(x, params)
     for i in range(cfg.n_periods):
         pcache = _index(cache, i) if cache is not None else None
-        x, nc = _apply_period(cfg, _index(params["blocks"], i), x, positions,
-                              pcache, mode, memory=memory,
-                              memory_pos=memory_pos, pos=pos)
+        args = (cfg, _index(params["blocks"], i), x, positions, pcache, mode)
+        kw = dict(memory=memory, memory_pos=memory_pos, pos=pos)
+        if remat:
+            x, nc = checkpoint(_apply_period, *args, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
+        else:
+            x, nc = _apply_period(*args, **kw)
         if pcache is not None:
             _write_back(pcache, nc)
     return x, cache
@@ -375,7 +408,9 @@ def hidden_states(cfg: ModelConfig, params, tokens: torch.Tensor,
 
     tokens: (B, S) integers.  frontend: precomputed modality embeddings —
     Whisper: (B, F, d) encoder frames; VLM: (B, Np, d) patch embeddings
-    prepended to the text sequence.
+    prepended to the text sequence.  When autograd records, only each
+    period's input (and each recurrence's chunk-boundary states) is
+    saved, and the rest is recomputed in the backward pass.
     """
     x, memory, memory_pos, n_prefix = _inputs(cfg, params, tokens, frontend)
     positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
@@ -396,6 +431,38 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
             frontend: torch.Tensor | None = None) -> torch.Tensor:
     """Full-sequence logits (B, S, V)."""
     return hidden_states(cfg, params, tokens, frontend) @ _head(cfg, params)
+
+
+def loss_fn(cfg: ModelConfig, params, tokens: torch.Tensor,
+            labels: torch.Tensor,
+            frontend: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy; labels == ``MASK_LABEL`` are masked.
+
+    JAX's ``lm.loss_fn`` term for term: the logits in the model dtype,
+    ``logsumexp`` of their f32 upcast, and the gold logit from the
+    label's head *row* (an (B, S, d) gather, then a dot with the hidden
+    state upcast to f32), never a gather from the (B, S, V) logits.
+    """
+    x = hidden_states(cfg, params, tokens, frontend)
+    return head_loss(cfg, params, x, labels)
+
+
+def head_loss(cfg: ModelConfig, params, x: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """``loss_fn`` from the final hidden states ``x`` (B, S, d) on."""
+    dt = _dtype(cfg)
+    logits = x @ _head(cfg, params)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    del logits
+    valid = labels != MASK_LABEL
+    safe = torch.where(valid, labels, 0)
+    if cfg.tie_embeddings:
+        rows = params["embed"][safe].to(dt)                     # (B, S, d)
+    else:
+        rows = torch.movedim(params["lm_head"][:, safe], 0, -1).to(dt)
+    gold = torch.einsum("bsd,bsd->bs", x, rows).float()
+    nll = (lse - gold) * valid
+    return nll.sum() / valid.sum().clamp_min(1)
 
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int,

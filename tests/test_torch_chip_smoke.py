@@ -876,19 +876,19 @@ def test_phase16_decode_vs_forward_on_the_cpu(arch, monkeypatch):
 
 
 def test_decode_parts():
-    assert chip_smoke.decode_part(
+    assert chip_smoke.device_part(
         "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize64x64x64") == "matmul"
-    assert chip_smoke.decode_part("void cutlass::Kernel2<cutlass_80_wmma>") \
+    assert chip_smoke.device_part("void cutlass::Kernel2<cutlass_80_wmma>") \
         == "matmul"
-    assert chip_smoke.decode_part(
+    assert chip_smoke.device_part(
         "void at::native::(anonymous namespace)::cunn_SoftMaxForward<4>") \
         == "softmax"
-    assert chip_smoke.decode_part("void rotary_something()") == "other"
-    assert chip_smoke.decode_part(
+    assert chip_smoke.device_part("void rotary_something()") == "other"
+    assert chip_smoke.device_part(
         "void at::native::reduce_kernel<512, 1>") == "reductions"
-    assert chip_smoke.decode_part("Memcpy DtoD (Device -> Device)") \
+    assert chip_smoke.device_part("Memcpy DtoD (Device -> Device)") \
         == "copies and casts"
-    assert chip_smoke.decode_part(
+    assert chip_smoke.device_part(
         "void at::native::vectorized_elementwise_kernel<4>") == "elementwise"
 
 
@@ -922,3 +922,155 @@ def test_routing_flips_counts_differing_routes():
     dec = [torch.tensor([[[0, 3]]]), torch.tensor([[[1, 3]]])]
     got = chip_smoke.routing_flips(fwd + pre + dec, 1, 2, 2)
     assert got == {"flips": 2, "routed": 4}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: LM training
+# ---------------------------------------------------------------------------
+
+def test_train_flag_parses():
+    assert chip_smoke.build_parser().parse_args(["--train"]).train
+    assert not chip_smoke.build_parser().parse_args([]).train
+
+
+def test_phase17_flops_and_state_bytes():
+    """qwen3-0.6b trains 596,049,920 parameters (the config's count plus
+    the norms' gains it leaves out); 6 N tokens for 8 x 4096 tokens is
+    117.2 TFLOP; the state besides activations is 16 bytes a parameter
+    (bf16 parameters and gradients, the f32 accumulator, two f32
+    moments), 9.54 GB; a microbatch's logits 4.98 GB in bf16, 9.96 GB as
+    f32."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("qwen3-0.6b")
+    # the tree's count (test_phase16_byte_floor_and_parameter_count holds
+    # the formula to the tree)
+    norms = cfg.n_layers * (2 * cfg.d_model + 2 * cfg.hd) + cfg.d_model
+    n = int(cfg.total_params()) + norms
+    assert n == 596_049_920
+    tokens = chip_smoke.TRAIN_BATCH * chip_smoke.TRAIN_SEQ
+    assert tokens == 32_768
+    assert chip_smoke.train_flops(n, tokens) == 6 * n * tokens
+    assert chip_smoke.train_flops(n, tokens) == pytest.approx(117.2e12,
+                                                              rel=1e-3)
+    static = chip_smoke.train_static_bytes(n, 2, chip_smoke.TRAIN_ACCUM)
+    assert static == 16 * n and static == pytest.approx(9.54e9, rel=1e-3)
+    assert chip_smoke.train_static_bytes(n, 2, 1) == 12 * n
+    logits = chip_smoke.logits_bytes(cfg, 4, 4096)
+    assert logits == {"model_dtype": 2 * 4 * 4096 * 151_936,
+                      "f32": 4 * 4 * 4096 * 151_936}
+    assert logits["f32"] == pytest.approx(9.96e9, rel=1e-3)
+    lo, hi = chip_smoke.TRAIN_MEM_GB
+    assert lo * 1e9 > static + logits["f32"] and hi * 1e9 < 80e9
+
+
+def test_phase17_cuts_keep_the_widths():
+    """17b: train_4k's length with its global batch cut 256 -> 8 (accum
+    2); 17c: qwen3 and rwkv6 at full width cut to 2 layers; 17d: the
+    full-width model at seq_len 512, batch 8."""
+    from repro_torch.configs.registry import SHAPES, get_config
+    from repro_torch.models import scan_utils
+
+    assert chip_smoke.TRAIN_SEQ == SHAPES["train_4k"].seq_len == 4096
+    assert SHAPES["train_4k"].global_batch == 256
+    assert (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_ACCUM) == (8, 2)
+    assert chip_smoke.REMAT_RUNS == (("qwen3-0.6b", 2, 4096, 4),
+                                     ("rwkv6-1.6b", 2, 2048, 2))
+    for arch, layers, seq, _ in chip_smoke.REMAT_RUNS:
+        assert get_config(arch).n_layers > layers
+    # rwkv6's cut spans several 256-step time chunks
+    assert chip_smoke.REMAT_RUNS[1][2] > 2 * scan_utils.DEFAULT_CHUNK
+    args = chip_smoke.RESUME_ARGS
+    assert "--smoke" not in args and args[:2] == ["--arch", "qwen3-0.6b"]
+    assert args[args.index("--seq-len") + 1] == "512"
+    assert args[args.index("--batch") + 1] == "8"
+
+
+def test_train_parts():
+    part = chip_smoke.device_part
+    parts = chip_smoke.TRAIN_PARTS
+    assert part("cutlass_80_simt_sgemm_128x64_8x5_nn_align1", parts) \
+        == "f32 products"
+    assert part("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n", parts) \
+        == "f32 products"
+    assert part("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", parts) \
+        == "bf16 products"
+    assert part("nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_NNN", parts) \
+        == "bf16 products"
+    assert part("void at::native::reduce_kernel<512, 1>", parts) \
+        == "reductions"
+    assert part("void at::native::vectorized_elementwise_kernel<4>",
+                parts) == "elementwise"
+    assert part("void at::native::indexing_backward_kernel<float>", parts) \
+        == "indexing"
+
+
+def test_params_problems_applies_adamw_s_rule():
+    lr, k = 1e-3, 1
+    want = [torch.zeros(4)]
+    v = [torch.tensor([1.0, 1.0, 1e-12, 1.0])]     # element 2: noise
+    ok = [torch.tensor([5e-6, 0.0, 2e-3, 0.0])]   # noise moved 2 lr
+    assert chip_smoke.params_problems(ok, want, v, lr, k, [None],
+                                      tight=True) == []
+    tight = [torch.tensor([2e-5, 0.0, 0.0, 0.0])]  # > 1e-2 lr above noise
+    assert chip_smoke.params_problems(tight, want, v, lr, k, [None],
+                                      tight=True)
+    assert chip_smoke.params_problems(tight, want, v, lr, k, [None],
+                                      tight=False) == []
+    far = [torch.tensor([0.0, 0.0, 3e-3, 0.0])]    # > 2 lr k anywhere
+    assert chip_smoke.params_problems(far, want, v, lr, k, [None],
+                                      tight=False)
+    # an element below noise at an earlier step stays loose
+    above = [None]
+    chip_smoke.params_problems(want, want, v, lr, 1, above, tight=True)
+    v2 = [torch.ones(4)]
+    late = [torch.tensor([0.0, 0.0, 1e-3, 0.0])]
+    assert chip_smoke.params_problems(late, want, v2, lr, 2, above,
+                                      tight=True) == []
+
+
+def test_phase17a_on_the_cpu(capsys):
+    """17a's runs with the CPU as both devices: every arch, both modes,
+    equal."""
+    problems = []
+    out = chip_smoke.smoke_train_phase(torch, torch.device("cpu"), problems)
+    assert not problems
+    assert len(out) == 20
+    assert all(r["loss_rel"] == 0 and not r["param_problems"]
+               for r in out.values())
+    assert "[17a] whisper-medium +int8" in capsys.readouterr().out
+
+
+def test_phase17c_on_the_cpu(monkeypatch):
+    """17c's check on qwen3-smoke and rwkv6-smoke over 300 tokens (two
+    time chunks), one CPU thread; the memory counters stubbed."""
+    from repro_torch.configs import registry
+
+    monkeypatch.setattr(registry, "get_config", registry.get_smoke_config)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for arch, seq in (("qwen3-0.6b", 40), ("rwkv6-1.6b", 300)):
+            r = chip_smoke.remat_check(torch, torch.device("cpu"), arch, 2,
+                                       seq, 2)
+            assert r["bitwise"] and r["layers"] == 2, arch
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_each_top_level_name_is_defined_once():
+    """A later phase's helper must not shadow an earlier phase's (the
+    last definition wins, silently)."""
+    import ast
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    names += [t.id for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name)]
+    dup = sorted({n for n in names if names.count(n) > 1})
+    assert not dup, dup

@@ -2,7 +2,7 @@
 
 Reads every module of ``src/repro_torch`` and ``chip_smoke.py`` for an
 import of ``jax`` or ``repro``, and imports the launchers, the converters
-and the LM stack in a fresh interpreter to show that neither lands in
+the LM stack and the train step in a fresh interpreter to show that neither lands in
 ``sys.modules``.
 """
 import os
@@ -39,7 +39,8 @@ def test_forbidden_pattern_catches_what_it_should():
 
 def test_launcher_import_loads_no_jax():
     code = ("import sys, repro_torch.launch.case, repro_torch.interop, "
-            "repro_torch.models.lm, repro_torch.launch.serve; "
+            "repro_torch.models.lm, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.training.train_step; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
