@@ -285,6 +285,34 @@ result.  Phases, in order (any failure exits nonzero):
     run after its parts have printed; its results also go on a line of
     their own (``train {...}``) before the summary.
 
+18. the LM side over a device mesh, every position on ``cuda:0`` (one
+    process's mesh; copies between positions are device-local), TF32 off:
+    (18a) qwen3-0.6b's full state (28 layers, bf16, ``torch.Generator``
+    seed 0) laid out on ``make_debug_mesh(2, 4)`` by ``param_shardings``:
+    every position's bytes must equal the specs' shard shapes (188,022,784
+    parameter bytes, twice that for each AdamW moment) and the state
+    gathered back must be bitwise the original; (18b) qwen3-0.6b at full
+    width cut 28 -> 4 layers, ``seq_len`` 1024, global batch 8, accum 1
+    on the (2, 4) mesh, 2 steps on ``batch_at(seed 0, k)``: every loss,
+    grad_norm, parameter and moment bitwise the one-device step at accum
+    2 from the same state, the mesh run twice bitwise; s a step for both,
+    ``max_memory_allocated``, the bytes a step moves (gather, reduce,
+    scatter); then ``launch/train.py --smoke`` on the mesh to step 2 and
+    resumed to step 4 on the mesh and on one device, both step-4
+    checkpoints bitwise a one-device ``--accum 2`` run's; (18c) the GPipe
+    forward of the same cut, 8 x 1024 on a (pod 2, data 2, model 2) mesh
+    with 4 microbatches: bitwise ``hidden_states`` per slice, within 1e-2
+    of the full batch's largest |value|, ms against ``hidden_states``;
+    (18d) 16b's prefill cache (qwen3-0.6b, 28 layers, batch 8, prompt
+    512, max_len 576) laid out by ``fine_spec`` and moved by
+    ``repartition_cache`` under both schedules: bitwise the identity,
+    coarse shard shapes, bytes moved between positions > 0 and equal to
+    the count derived from the two specs (``host_buffer`` at least
+    ``device_direct``'s), 8 decode steps giving the original cache's
+    tokens, ms and bytes per schedule.  Phase 18's checks are collected
+    and fail the run after its parts have printed; its results also go
+    on a line of their own (``lm_mesh {...}``) before the summary.
+
 In phases 9-14 every kernel wrapper's plain version is made to raise while
 the kernel runs go: the card's path launches the kernels only (14c's
 quarantined request runs on the plain ``"reference"`` backend by
@@ -318,7 +346,8 @@ script beside another such checkout's ``src`` measures that tree the same
 way; with ``--full-mesh`` beside it, ``--profile-cg`` profiles phase 15's
 full-mesh CG instead.  With ``--serving``, phases 1 and 2 run, then phases
 13 and 14 from the main path's 3-step state; with ``--full-mesh`` alone,
-phase 15; with ``--lm``, phase 16; with ``--train``, phase 17.
+phase 15; with ``--lm``, phase 16; with ``--train``, phase 17; with
+``--lm-mesh``, phase 18.
 """
 from __future__ import annotations
 
@@ -5782,6 +5811,424 @@ def train_phase(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the LM side over a device mesh (every position on the card)
+# ---------------------------------------------------------------------------
+MESH_SHAPE = (2, 4)          # 18a, 18b, 18d: (data, model)
+PIPE_MESH = (2, 2, 2)        # 18c: (pod, data, model)
+MESH_QWEN_BYTES = 188_022_784  # 18a: qwen3-0.6b's parameter bytes at one
+#                          (2, 4) position (JAX's shard_shape of its
+#                          param_shardings; tests/test_torch_lm_sharding.py)
+MESH_LAYERS = 4              # 18b, 18c: qwen3-0.6b's depth cut 28 -> 4
+MESH_SEQ, MESH_BATCH = 1024, 8   # 18b, 18c
+MESH_STEPS = 2               # 18b: steps from one state
+PIPE_MICRO = 4               # 18c: microbatches (a slice is 1 row)
+PIPE_TOL = 1e-2              # 18c: bf16 pipelined against the full batch's
+#                          hidden_states, of its largest |value| (the
+#                          microbatch products round differently)
+KV_FINE, KV_ALPHA = 8, 4     # 18d: KVRepartitionPlan.build(8, 8, 4)
+KV_DECODE = 8                # 18d: greedy decode steps from each cache
+MESH_RESUME_ARGS = ["--arch", QWEN, "--smoke", "--batch", "8"]  # 18b
+
+
+def mesh_devices(n: int) -> list:
+    """Every position of a mesh on the one card."""
+    return ["cuda:0"] * n
+
+
+def spec_move_bytes(src, dst, shape, itemsize: int) -> int:
+    """The bytes a layout change from sharding ``src`` to ``dst`` must move
+    between positions, from the two specs alone: each position's
+    destination slice less its overlap with the slice it already holds."""
+    total = 0
+    for c in src.mesh.positions():
+        d, s = dst.box(c, shape), src.box(c, shape)
+        inter = math.prod(max(0, min(d1, s1) - max(d0, s0))
+                          for (d0, d1), (s0, s1) in zip(d, s))
+        total += (math.prod(d1 - d0 for d0, d1 in d) - inter) * itemsize
+    return total
+
+
+def spec_position_bytes(specs: dict, shardings: dict) -> int:
+    """The bytes one position holds of a tree of (meta) tensors laid out
+    by a sharding tree, from the specs' shard shapes."""
+    return sum(math.prod(shardings[k].shard_shape(tuple(v.shape)))
+               * v.element_size() for k, v in specs.items())
+
+
+def flat(tree, path=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, path + (k,)))
+        return out
+    return {path: tree}
+
+
+def mesh_policy_phase(torch, dev, problems) -> dict:
+    """18a: qwen3-0.6b's full state laid out on the (2, 4) mesh."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import param_shardings
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import (init_state, shard_state,
+                                                 unshard_state)
+    from repro_torch.training.tree import leaves
+
+    cfg = get_config(QWEN)
+    mesh = make_debug_mesh(*MESH_SHAPE, devices=mesh_devices(8))
+    specs = flat(lm.param_specs(cfg))
+    sh = flat(param_shardings(mesh, lm.param_specs(cfg)))
+    want = spec_position_bytes(specs, sh)
+    state = init_state(cfg, AdamW(),
+                       torch.Generator(device=dev).manual_seed(0))
+    whole = {"params": tree_bytes(state.params), "m": tree_bytes(state.opt.m),
+             "v": tree_bytes(state.opt.v)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = shard_state(state, mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    per_pos = {}
+    for name, tree in (("params", placed.params), ("m", placed.opt.m),
+                       ("v", placed.opt.v)):
+        ls = leaves(tree)
+        per_pos[name] = [sum(s.shards[k].numel() * s.shards[k].element_size()
+                             for s in ls) for k in range(mesh.size)]
+    back = unshard_state(placed, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bitwise = same_leaves(torch, leaves(state), leaves(back))
+    out = {"mesh": list(MESH_SHAPE), "param_bytes_a_position":
+           per_pos["params"][0], "spec_param_bytes": want,
+           "whole_bytes": whole, "moment_bytes_a_position":
+           [per_pos["m"][0], per_pos["v"][0]],
+           "shard_s": t1 - t0, "unshard_s": t2 - t1, "bitwise": bitwise}
+    print(f"  [18a] {QWEN}, {cfg.n_layers} layers, {cfg.dtype}, on a "
+          f"{MESH_SHAPE} mesh naming cuda:0 8 times: "
+          f"{per_pos['params'][0]:,} of {whole['params']:,} parameter bytes "
+          f"a position ({whole['params'] / per_pos['params'][0]:.2f}x less; "
+          f"the spec's shard shapes {want:,}), AdamW m and v "
+          f"{per_pos['m'][0]:,} + {per_pos['v'][0]:,} of {whole['m']:,} + "
+          f"{whole['v']:,}; laid out in {t1 - t0:.3f} s, gathered back in "
+          f"{t2 - t1:.3f} s, bitwise {bitwise}")
+    ok = (all(b == want for b in per_pos["params"]) and want == MESH_QWEN_BYTES
+          and all(b == 2 * want for b in per_pos["m"] + per_pos["v"])
+          and bitwise)
+    if not ok:
+        problems.append(f"18a: {out}, every position {per_pos}")
+    return out
+
+
+def mesh_train_cli(extra: list, ckpt: str) -> subprocess.Popen:
+    """The training launcher (``--smoke``) as a subprocess on the card."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *MESH_RESUME_ARGS,
+         "--ckpt", ckpt, *extra], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
+def mesh_train_phase(torch, dev, problems) -> dict:
+    """18b: the sharded train step at full width (4 layers) against the
+    one-device step at accum 2, twice; then the launcher on the mesh."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.config import validate
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import (data_rows, init_state,
+                                                 make_train_step, shard_state,
+                                                 unshard_state)
+    from repro_torch.training.tree import leaves
+
+    cfg = validate(dataclasses.replace(get_config(QWEN),
+                                       n_layers=MESH_LAYERS))
+    opt = AdamW()
+    mesh = make_debug_mesh(*MESH_SHAPE, devices=mesh_devices(8))
+    D = len(data_rows(mesh))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
+                      global_batch=MESH_BATCH, seed=0)
+    batches = [batch_at(dcfg, k, device=dev) for k in range(MESH_STEPS)]
+    state0 = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    one, m_one, s_one = train_run(torch, make_train_step(cfg, opt, accum=D),
+                                  state0, batches)
+    peak_one = torch.cuda.max_memory_allocated()
+    runs, moved = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        state = shard_state(state0, mesh)
+        step = make_train_step(cfg, opt, accum=1)
+        metrics, secs = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            metrics.append((m["loss"], m["grad_norm"]))
+            moved = m["moved"]
+        runs.append((unshard_state(state, dev), metrics, secs))
+        del state
+    peak_mesh = torch.cuda.max_memory_allocated()
+
+    def same_run(a, b):
+        return (same_leaves(torch, leaves(a[0]), leaves(b[0]))
+                and all(same_bits(torch, x[0], y[0])
+                        and same_bits(torch, x[1], y[1])
+                        for x, y in zip(a[1], b[1])))
+
+    vs_one = same_run(runs[0], (one, m_one))
+    repeat = same_run(runs[0], runs[1])
+    out = {"layers": MESH_LAYERS, "seq_len": MESH_SEQ, "batch": MESH_BATCH,
+           "losses": [float(x[0]) for x in m_one],
+           "grad_norms": [float(x[1]) for x in m_one],
+           "one_device_step_s": s_one, "mesh_step_s": [r[2] for r in runs],
+           "peak_bytes_one_device": peak_one, "peak_bytes_mesh": peak_mesh,
+           "moved": {k: list(v) for k, v in moved._asdict().items()},
+           "bitwise_vs_accum2": vs_one, "bitwise_repeat": repeat}
+    del one, runs, state0
+    free_device(torch)
+    print(f"  [18b] {QWEN} cut to {MESH_LAYERS} layers at full width, "
+          f"{cfg.dtype}, seq_len {MESH_SEQ}, global batch {MESH_BATCH}: "
+          f"losses {[f'{x:.4f}' for x in out['losses']]}; one device at "
+          f"accum {D}: {[f'{x:.3f}' for x in s_one]} s a step, peak "
+          f"{peak_one / 1e9:.2f} GB; the {MESH_SHAPE} mesh at accum 1: "
+          f"{[[f'{x:.3f}' for x in r] for r in out['mesh_step_s']]} s a step "
+          f"(two runs), peak {peak_mesh / 1e9:.2f} GB; bitwise the one-device "
+          f"step (every loss, grad_norm and leaf): {vs_one}; the two mesh "
+          f"runs bitwise: {repeat}")
+    print(f"  [18b] bytes a mesh step moves between positions (between "
+          f"devices): gather {moved.gather[0]:,} ({moved.gather[1]:,}), "
+          f"reduce {moved.reduce[0]:,} ({moved.reduce[1]:,}), scatter "
+          f"{moved.scatter[0]:,} ({moved.scatter[1]:,})")
+    if not (vs_one and repeat):
+        problems.append(f"18b: bitwise vs accum {D} {vs_one}, repeat "
+                        f"{repeat}")
+    mesh_args = ["--mesh", ",".join(map(str, MESH_SHAPE)), "--mesh-devices",
+                 ",".join(mesh_devices(8))]
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b, c = (os.path.join(tmp, x) for x in "abc")
+        procs = finish({
+            "A": mesh_train_cli(["--steps", "4", "--ckpt-every", "2",
+                                 "--accum", str(D)], a),
+            "B1": mesh_train_cli(["--steps", "2", "--ckpt-every", "2",
+                                  *mesh_args], b)})
+        if os.path.isdir(os.path.join(b, "step-2")):
+            shutil.copytree(b, c)
+        procs.update(finish({
+            "B2": mesh_train_cli(["--steps", "4", "--ckpt-every", "2",
+                                  *mesh_args], b),
+            "C": mesh_train_cli(["--steps", "4", "--ckpt-every", "2",
+                                 "--accum", str(D)], c)}))
+        for tag, (rc, so, se) in procs.items():
+            print(f"  [18b] launcher {tag}: rc {rc}; "
+                  + " | ".join(so.strip().splitlines()))
+            if rc != 0:
+                problems.append(f"18b launcher {tag}: rc {rc}: {se[-2000:]}")
+        resumed = all("resumed from step 2" in procs.get(t, (0, ""))[1]
+                      .splitlines() for t in ("B2", "C"))
+        try:
+            equal = [same_checkpoint(os.path.join(a, "step-4"),
+                                     os.path.join(d, "step-4"))
+                     for d in (b, c)]
+        except OSError as e:
+            equal = [False]
+            problems.append(f"18b: a step-4 checkpoint is missing ({e})")
+    out["launcher"] = {"resumed": resumed, "step4_equal": equal}
+    print(f"  [18b] the mesh run resumed on the mesh (B) and one device (C) "
+          f"from step 2: {resumed}; their step-4 checkpoints bitwise the "
+          f"one-device run's at --accum {D}: {equal}")
+    if not (resumed and all(equal)):
+        problems.append(f"18b launcher: {out['launcher']}")
+    return out
+
+
+def pipeline_phase(torch, dev, problems) -> dict:
+    """18c: the GPipe forward on the (pod, data, model) mesh against
+    ``hidden_states`` per slice (bitwise) and on the full batch."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.config import validate
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.pipeline import pipelined_forward
+
+    cfg = validate(dataclasses.replace(get_config(QWEN),
+                                       n_layers=MESH_LAYERS))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tokens = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
+                                 global_batch=MESH_BATCH, seed=0), 0,
+                      device=dev)["tokens"]
+    mesh = make_mesh(PIPE_MESH, ("pod", "data", "model"), mesh_devices(8))
+    D = mesh.shape["data"]
+    b = MESH_BATCH // PIPE_MICRO // D
+    stats = {}
+    with torch.no_grad():
+        def pipe():
+            return pipelined_forward(cfg, params, tokens, mesh=mesh,
+                                     n_micro=PIPE_MICRO, stats=stats)
+
+        def full():
+            return lm.hidden_states(cfg, params, tokens)
+
+        y, ref = pipe(), full()          # warm
+        ms = {"pipelined": [], "hidden_states": []}
+        for _ in range(2):
+            for name, fn in (("pipelined", pipe), ("hidden_states", full)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+                if name == "pipelined":
+                    y = out
+        slices = torch.cat([lm.hidden_states(cfg, params,
+                                             tokens[j * b:(j + 1) * b])
+                            for j in range(PIPE_MICRO * D)], 0)
+    bitwise = same_bits(torch, y, slices)
+    err = float((y.float() - ref.float()).abs().max()
+                / ref.float().abs().max())
+    res = {"mesh": list(PIPE_MESH), "n_micro": PIPE_MICRO, "ms": ms,
+           "bitwise_per_slice": bitwise, "err_vs_full": err,
+           "tol": PIPE_TOL, "moved": stats}
+    print(f"  [18c] {QWEN} ({MESH_LAYERS} layers, {cfg.dtype}), "
+          f"{MESH_BATCH} x {MESH_SEQ} on a (pod, data, model) {PIPE_MESH} "
+          f"mesh, {PIPE_MICRO} microbatches: pipelined "
+          f"{[f'{x:.1f}' for x in ms['pipelined']]} ms against hidden_states "
+          f"{[f'{x:.1f}' for x in ms['hidden_states']]} ms; bitwise "
+          f"hidden_states per slice: {bitwise}; against the full batch "
+          f"{err:.3e} of max (bound {PIPE_TOL:g}); bytes handed between "
+          f"stages {stats['hop_bytes']:,}, broadcast "
+          f"{stats['broadcast_bytes']:,}")
+    if not (bitwise and err <= PIPE_TOL):
+        problems.append(f"18c: {res}")
+    return res
+
+
+def kv_mesh_phase(torch, dev, problems) -> dict:
+    """18d: the prefill cache repartitioned from the fine to the coarse
+    layout under both schedules, then decoded."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import (NamedSharding, P, shard,
+                                             unshard, unshard_tree)
+    from repro_torch.serving.repartition_kv import (KVRepartitionPlan,
+                                                    repartition_cache)
+
+    cfg = get_config(QWEN)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    prompts, _ = on(torch, dev, *lm_inputs(cfg, QWEN_BATCH, QWEN_PROMPT))
+    max_len = QWEN_PROMPT + QWEN_NEW
+    with torch.no_grad():
+        logits, cache = lm.prefill(cfg, params, prompts, max_len)
+    mesh = make_debug_mesh(*MESH_SHAPE, devices=mesh_devices(8))
+    plan = KVRepartitionPlan.build(QWEN_BATCH, KV_FINE, KV_ALPHA)
+    fine = NamedSharding(mesh, plan.fine_spec())
+    coarse = NamedSharding(mesh, plan.coarse_spec())
+    staged = NamedSharding(mesh, P(None, "data", None, None, None))
+    placed = tree_map(lambda t: shard(t, fine), cache)
+    kv = list(tree_leaves(cache))
+    derived = {
+        "device_direct": sum(spec_move_bytes(fine, coarse, tuple(t.shape),
+                                             t.element_size()) for t in kv),
+        "host_buffer": sum(spec_move_bytes(fine, staged, tuple(t.shape),
+                                           t.element_size())
+                           + spec_move_bytes(staged, coarse, tuple(t.shape),
+                                             t.element_size()) for t in kv)}
+
+    def decode(c):
+        toks = [greedy(torch, logits)]
+        with torch.no_grad():
+            for i in range(KV_DECODE):
+                lg, c = lm.decode_step(cfg, params, c, toks[-1],
+                                       QWEN_PROMPT + i)
+                toks.append(greedy(torch, lg))
+        return torch.cat(toks, 1)
+
+    want_tokens = decode(tree_map(lambda t: t.clone(), cache))
+    out = {"bytes_whole": sum(t.numel() * t.element_size() for t in kv)}
+    for schedule in ("device_direct", "host_buffer"):
+        ms = []
+        for _ in range(3):
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            moved = repartition_cache(plan, mesh, placed, schedule,
+                                      stats=stats)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        got = list(tree_leaves(moved))
+        identity = all(same_bits(torch, unshard(g, dev), t)
+                       for g, t in zip(got, kv))
+        shapes = all(tuple(s.shape) == coarse.shard_shape(g.shape)
+                     for g in got for s in g.shards)
+        tokens = decode(unshard_tree(moved, dev))
+        same_tokens = bool(torch.equal(tokens, want_tokens))
+        n = stats["moved"].positions
+        out[schedule] = {"ms": ms, "bytes_moved": n,
+                         "bytes_between_devices": stats["moved"].devices,
+                         "derived_bytes": derived[schedule],
+                         "identity": identity, "coarse_shapes": shapes,
+                         "same_tokens": same_tokens}
+        print(f"  [18d] {schedule}: {[f'{x:.2f}' for x in ms]} ms, "
+              f"{n:,} bytes moved between positions (derived from the specs "
+              f"{derived[schedule]:,}; between devices "
+              f"{stats['moved'].devices:,}) of {out['bytes_whole']:,}; "
+              f"identity {identity}, coarse shard shapes {shapes}, "
+              f"{KV_DECODE} decode steps give the original's tokens: "
+              f"{same_tokens}")
+        if not (identity and shapes and same_tokens and n > 0
+                and n == derived[schedule]):
+            problems.append(f"18d {schedule}: {out[schedule]}")
+        del moved, got
+    if out["host_buffer"]["bytes_moved"] < out["device_direct"]["bytes_moved"]:
+        problems.append("18d: host_buffer moved less than device_direct")
+    print(f"  [18d] {QWEN}, {cfg.n_layers} layers, batch {QWEN_BATCH}, prompt "
+          f"{QWEN_PROMPT}, max_len {max_len}: the cache laid out by "
+          f"{plan.fine_spec()} and moved to {plan.coarse_spec()} "
+          f"(KVRepartitionPlan.build({QWEN_BATCH}, {KV_FINE}, {KV_ALPHA}): "
+          f"{plan.n_coarse} decode groups); device-local copies on one card, "
+          f"a floor of the copy cost, not an interconnect figure")
+    return out
+
+
+def lm_mesh_phase(torch, dev) -> dict:
+    """Phase 18 (see the module docstring).  Its checks are collected and
+    fail the run after its parts have printed."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[18] the LM side over a device mesh: every position on cuda:0; "
+          f"policy and layout, the sharded train step, the GPipe forward, "
+          f"the KV repartition")
+    problems = []
+    out = {"part_s": {}}
+    for key, part in (("policy", mesh_policy_phase),
+                      ("train", mesh_train_phase),
+                      ("pipeline", pipeline_phase), ("kv", kv_mesh_phase)):
+        t1 = time.perf_counter()
+        try:
+            out[key] = part(torch, dev, problems)
+        except Exception as e:  # noqa: BLE001 — collected, fails the phase
+            traceback.print_exc()
+            problems.append(f"18 {key}: {type(e).__name__}: {e}")
+        free_device(torch)
+        out["part_s"][key] = time.perf_counter() - t1
+        print(f"  [18] {key}: {out['part_s'][key]:.1f} s")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  [18] {out['seconds']:.1f} s")
+    for p in problems:
+        print(f"  FAILED: {p}")
+    require(not problems, f"phase 18: {len(problems)} check(s) failed")
+    return out
+
+
 def main_state(torch):
     """The main path's state after its 3 steps from rest (the kernels)."""
     from repro_torch.launch.case import build_parser, build_solver
@@ -5869,6 +6316,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="phase 16 (LM serving) alone, after phases 1-2")
     ap.add_argument("--train", action="store_true",
                     help="phase 17 (LM training) alone, after phases 1-2")
+    ap.add_argument("--lm-mesh", action="store_true",
+                    help="phase 18 (the LM side over a device mesh) alone, "
+                         "after phases 1-2")
     return ap
 
 
@@ -5941,6 +6391,13 @@ def main(argv=None) -> int:
             print(smi_line())
             print(ok_line(torch))
             return 0
+        if args.lm_mesh:
+            result = lm_mesh_phase(torch, dev)
+            print(f"done in {time.perf_counter() - t_start:.1f} s")
+            print("lm_mesh " + json.dumps(result, default=str))
+            print(smi_line())
+            print(ok_line(torch))
+            return 0
         print("[3] kernels vs plain versions")
         report = check_kernels(torch, dev)
         print("[4-6] main path: 210^3 cavity, 30 parts, alpha 30, 3 PISO "
@@ -5963,9 +6420,12 @@ def main(argv=None) -> int:
         free_device(torch)
         summary["train"] = train_phase(torch, dev)
         free_device(torch)
+        summary["lm_mesh"] = lm_mesh_phase(torch, dev)
+        free_device(torch)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         print("lm " + json.dumps(summary["lm"], default=str))
         print("train " + json.dumps(summary["train"], default=str))
+        print("lm_mesh " + json.dumps(summary["lm_mesh"], default=str))
         summary["momentum_shape_times"] = {
             name: report[name]["momentum"] for name in report
             if "momentum" in report[name]}

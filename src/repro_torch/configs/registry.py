@@ -1,10 +1,12 @@
-"""Architecture registry: the ten assigned configs and their smoke cuts.
+"""Architecture registry: the ten assigned configs, their smoke cuts, and
+allocation-free input specs for every cell.
 
-The port's copy of the JAX package's ``configs/registry.py`` without its
-allocation-free input specs (``input_specs``), which stand in for the
-TPU dry-run's lowered inputs and have no counterpart here.
-``cell_is_skipped`` encodes the long_500k policy (skip pure
-full-attention archs).
+The port's copy of the JAX package's ``configs/registry.py``.
+``input_specs(arch, shape)`` returns ``meta`` tensors standing in for
+every input of a cell's step (tokens/labels for train, token+cache for
+decode), so the sharding policy can lay out every full ``CONFIG`` without
+allocating it.  ``cell_is_skipped`` encodes the long_500k policy (skip
+pure full-attention archs).
 """
 from __future__ import annotations
 
@@ -22,7 +24,11 @@ from repro_torch.configs.rwkv6_1b6 import CONFIG as _rwkv, SMOKE as _rwkv_s
 from repro_torch.configs.starcoder2_7b import CONFIG as _sc2, SMOKE as _sc2_s
 from repro_torch.configs.whisper_medium import (CONFIG as _whisper,
                                                 SMOKE as _whisper_s)
+import torch
+
+from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import torch_dtype
 
 SHAPES = _shapes.SHAPES
 
@@ -71,3 +77,40 @@ def cell_is_skipped(arch: str, shape: str) -> str | None:
     if shape == "long_500k" and arch in FULL_ATTENTION:
         return "long_500k needs sub-quadratic attention; pure full-attention arch"
     return None
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _frontend_spec(cfg: ModelConfig, batch: int):
+    if cfg.frontend is None:
+        return None
+    return _meta((batch, cfg.frontend_len, cfg.d_model),
+                 torch_dtype(cfg.dtype))
+
+
+def input_specs(arch: str, shape: str, cfg: ModelConfig | None = None) -> dict:
+    """``meta`` tensors standing in for the step inputs of one cell."""
+    cfg = cfg or get_config(arch)
+    spec = SHAPES[shape]
+    B, S = spec.global_batch, spec.seq_len
+    i32 = torch.int32
+    out: dict = {}
+    if spec.kind == "train":
+        out["tokens"] = _meta((B, S), i32)
+        out["labels"] = _meta((B, S), i32)
+        fe = _frontend_spec(cfg, B)
+        if fe is not None:
+            out["frontend"] = fe
+    elif spec.kind == "prefill":
+        out["tokens"] = _meta((B, S), i32)
+        fe = _frontend_spec(cfg, B)
+        if fe is not None:
+            out["frontend"] = fe
+    else:  # decode: one new token against a cache of seq_len
+        out["tokens_last"] = _meta((B, 1), i32)
+        out["pos"] = _meta((), i32)
+        mem_len = cfg.frontend_len if cfg.cross_attention else 0
+        out["cache"] = lm.cache_specs(cfg, B, S, memory_len=mem_len)
+    return out

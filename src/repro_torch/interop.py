@@ -16,7 +16,9 @@ inverses); a bfloat16 leaf travels as numpy's ``ml_dtypes`` bfloat16,
 which JAX's ``np.asarray`` gives.  A training state travels the same way
 (:func:`train_state_from_numpy`, :func:`train_state_to_numpy`): the
 parameters, the optimizer's ``step``, ``m`` and ``v``, and the error
-buffers, each leaf in its dtype.  Nothing here imports that
+buffers, each leaf in its dtype; a state on a mesh is gathered whole
+(``unshard``) on the way out and, with ``mesh=``, laid out by
+``param_shardings`` on the way in.  Nothing here imports that
 implementation.
 """
 from __future__ import annotations
@@ -28,8 +30,9 @@ from repro_torch.core.repartition import RepartitionPlan
 from repro_torch.env import DTYPE, resolve_device
 from repro_torch.fvm.mesh import CavityMesh, PaddedCavityMesh
 from repro_torch.fvm.piso import PisoState
+from repro_torch.models.sharding import Sharded, unshard
 from repro_torch.training.optimizer import AdamWState
-from repro_torch.training.train_step import TrainState
+from repro_torch.training.train_step import TrainState, shard_state
 
 __all__ = ["state_from_numpy", "state_to_numpy", "plan_from_numpy",
            "cohort_from_numpy", "mesh_fields", "mesh_from_fields",
@@ -122,8 +125,8 @@ def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
-def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+def _leaf_to_numpy(t) -> np.ndarray:
+    t = unshard(t, "cpu") if isinstance(t, Sharded) else t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes  # only a bfloat16 leaf needs numpy's bfloat16
 
@@ -167,11 +170,15 @@ def lm_cache_to_numpy(tree: dict) -> dict:
     return _tree_to_numpy(tree)
 
 
-def train_state_from_numpy(state, device="cuda") -> TrainState:
+def train_state_from_numpy(state, device="cuda", mesh=None) -> TrainState:
     """The port's :class:`TrainState` from one whose leaves are arrays
     (e.g. ``jax.tree.map(np.asarray, state)`` of a JAX ``TrainState``):
     anything with ``params``, ``opt.step``, ``opt.m``, ``opt.v`` and
-    ``err`` (``None`` when compression is off)."""
+    ``err`` (``None`` when compression is off).  With ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.DeviceMesh`), the state is placed on
+    it by ``shard_state`` and ``device`` is not used."""
+    if mesh is not None:
+        return shard_state(train_state_from_numpy(state, device="cpu"), mesh)
     dev = resolve_device(device)
 
     def tree(t):
@@ -184,7 +191,8 @@ def train_state_from_numpy(state, device="cuda") -> TrainState:
 
 
 def train_state_to_numpy(state: TrainState) -> TrainState:
-    """A :class:`TrainState` of numpy arrays (host copies)."""
+    """A :class:`TrainState` of numpy arrays (host copies; a sharded leaf
+    gathered whole)."""
     def tree(t):
         return None if t is None else _tree_to_numpy(t)
 

@@ -13,9 +13,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense_init", "rms_norm", "rope", "act_fn", "mlp_init",
-           "mlp_apply", "moe_init", "moe_apply", "moe_apply_sorted",
-           "torch_dtype"]
+__all__ = ["MetaGenerator", "dense_init", "rms_norm", "rope", "act_fn",
+           "mlp_init", "mlp_apply", "moe_init", "moe_apply",
+           "moe_apply_sorted", "torch_dtype"]
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -27,9 +27,21 @@ def torch_dtype(name) -> torch.dtype:
 # init helpers
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device (torch
+    has none there): the init functions then build a tree of shapes and
+    dtypes without allocating or drawing (``lm.param_specs``)."""
+
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
     """Normal draws in f32 times ``scale`` (default ``shape[0] ** -0.5``,
-    as in JAX, also for stacked expert weights), cast to ``dtype``."""
+    as in JAX, also for stacked expert weights), cast to ``dtype``; an
+    empty ``meta`` tensor for a :class:`MetaGenerator`."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=torch_dtype(dtype),
+                           device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,

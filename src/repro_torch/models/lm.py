@@ -4,7 +4,8 @@ The port of the JAX package's ``models/lm.py``; one implementation serves
 all 10 assigned architectures:
 
 * ``init_params``  — random initialization from a ``torch.Generator``, on
-  the generator's device;
+  the generator's device (``param_specs``: the same tree on the ``meta``
+  device, allocation-free);
 * ``forward``      — full-sequence logits (also Whisper enc-dec and the
   stub-frontend VLM prefix);
 * ``prefill``      — the prompt's last logits and the decode cache;
@@ -37,16 +38,18 @@ from repro_torch.models.attention import (AttnSpec, attention_init,
                                           attn_decode, attn_train,
                                           flash_attention)
 from repro_torch.models.config import LayerKind, ModelConfig
-from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
-                                       moe_apply, moe_apply_sorted, moe_init,
-                                       rms_norm, torch_dtype)
+from repro_torch.models.layers import (MetaGenerator, dense_init,
+                                       mlp_apply, mlp_init, moe_apply,
+                                       moe_apply_sorted, moe_init, rms_norm,
+                                       torch_dtype)
 from repro_torch.models.rwkv import (rwkv_apply, rwkv_ffn_apply,
                                      rwkv_ffn_init, rwkv_init)
 from repro_torch.models.ssm import mamba_apply, mamba_init
 
 __all__ = ["D_CONV", "MASK_LABEL", "attn_spec", "init_params",
-           "init_cache", "encode", "hidden_states", "forward", "loss_fn",
-           "head_loss", "prefill", "decode_step"]
+           "param_specs", "init_cache", "cache_specs", "encode",
+           "hidden_states", "forward", "loss_fn", "head_loss", "prefill",
+           "decode_step"]
 
 D_CONV = 4
 MASK_LABEL = -100
@@ -156,14 +159,22 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return params
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """Allocation-free parameter tree: ``init_params``'s shapes and dtypes
+    as ``meta`` tensors (JAX's ``eval_shape`` of ``init_params``)."""
+    return init_params(cfg, MetaGenerator())
+
+
 # ---------------------------------------------------------------------------
 # cache
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                memory_len: int = 0, device="cuda") -> dict:
-    """Decode cache tree, leaves stacked over periods (axis 0), zeros."""
-    dev = resolve_device(device)
+    """Decode cache tree, leaves stacked over periods (axis 0), zeros
+    (``meta`` tensors for ``device="meta"``)."""
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     dt = _dtype(cfg)
     d = cfg.d_model
     P = cfg.n_periods
@@ -195,6 +206,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         return c
 
     return {f"l{i}": one_layer(s) for i, s in enumerate(cfg.period())}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                memory_len: int = 0) -> dict:
+    """Allocation-free decode cache tree (``meta`` tensors)."""
+    return init_cache(cfg, batch, max_len, memory_len, device="meta")
 
 
 # ---------------------------------------------------------------------------

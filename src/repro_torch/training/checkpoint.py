@@ -13,6 +13,12 @@ manifest's dtype (the words viewed as ``torch.bfloat16``), so no numpy
 bfloat16 type is needed.  Either package reads the other's float32
 checkpoints, and the port also reads JAX's bfloat16 ones, which JAX's own
 ``restore`` refuses (``jnp.asarray`` of a ``|V2`` array raises).
+
+A state on a mesh (:class:`~repro_torch.models.sharding.Sharded` leaves)
+is written whole, in the same format, and a sharded template restores
+each leaf onto its sharding: a sharded run resumes an unsharded one's
+checkpoint and the reverse (JAX's "restore re-shards onto whatever mesh
+the restart got").
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.models.sharding import Sharded, shard, unshard
 from repro_torch.training.tree import key_paths, unflatten
 
 __all__ = ["save", "latest_step", "restore"]
@@ -30,8 +37,8 @@ __all__ = ["save", "latest_step", "restore"]
 BF16_WORDS = np.dtype("V2")
 
 
-def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    t = t.detach().cpu()
+def _to_numpy(t) -> tuple[np.ndarray, str]:
+    t = unshard(t, "cpu") if isinstance(t, Sharded) else t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(BF16_WORDS), "bfloat16"
     arr = t.numpy()
@@ -83,7 +90,8 @@ def latest_step(ckpt_dir: str) -> int | None:
 def restore(ckpt_dir: str, state_template):
     """``(state, step)`` from the newest complete checkpoint, in
     ``state_template``'s structure, each leaf on its template leaf's
-    device; ``(None, None)`` when there is none."""
+    device (a :class:`Sharded` template leaf: laid out by its sharding);
+    ``(None, None)`` when there is none."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None, None
@@ -95,8 +103,13 @@ def restore(ckpt_dir: str, state_template):
     with np.load(os.path.join(d, "shard-0.npz")) as data:
         for name, leaf in key_paths(state_template):
             entry = by_path[name]
-            out.append(_from_numpy(data[entry["key"]], entry["dtype"],
-                                   leaf.device))
+            if isinstance(leaf, Sharded):
+                out.append(shard(_from_numpy(data[entry["key"]],
+                                             entry["dtype"], "cpu"),
+                                 leaf.sharding))
+            else:
+                out.append(_from_numpy(data[entry["key"]], entry["dtype"],
+                                       leaf.device))
     return unflatten(state_template, out), step
 
 

@@ -1,29 +1,58 @@
 """The train step: loss → grads (accumulated over microbatches) →
-(optional int8 compression) → AdamW.
+(optional int8 compression) → AdamW, on one device or over a mesh.
 
-The port of the JAX package's ``training/train_step.py`` on one device.
-Each microbatch's gradients come from ``torch.autograd.grad`` on detached
+The port of the JAX package's ``training/train_step.py``.  Each
+microbatch's gradients come from ``torch.autograd.grad`` on detached
 copies of the parameters that require grad, never through ``.grad``
 (which would accumulate bf16 gradients in bf16).  With ``accum > 1`` they
 are added as ``g.float() / accum`` into f32 buffers and the loss as
 ``l / accum``, as JAX's scan does; with ``accum == 1`` they stay in the
-parameters' dtype.  The mesh's gradient shardings and the dry-run's
-``state_specs`` belong to the multi-device work and have no counterpart.
+parameters' dtype.
+
+**On a mesh.**  A state placed by :func:`shard_state` holds, at every
+position of a :class:`~repro_torch.launch.mesh.DeviceMesh`, only its
+shard (``param_shardings``) of every parameter, of AdamW's ``m`` and
+``v`` and, with compression, of the error buffers.  The step is
+data-parallel over ``dp_axes(mesh)``: with ``D`` data rows, microbatch
+``i`` of ``accum`` spans the rows, as JAX's reshape of the globally
+sharded batch does, and row ``r`` takes its contiguous slice of it (the
+``batch_shardings`` layout) on its first device, where the parameters are
+gathered from the shards once a step.  The rows' gradients are summed on
+the mesh's first device in a fixed order, microbatch outer and row inner,
+``g.float() / (accum * D)`` each (no atomics), so a mesh step performs
+the arithmetic of the one-device step at ``accum * D`` bitwise.  The sum
+(compressed there, against the gathered error buffers, when ``compress``)
+gives the global norm over whole leaves, is scattered to
+``grad_shardings`` (default: the parameters' shardings; JAX's meaning:
+where the reduced gradient lives before the update), and AdamW updates
+each shard on its own device.  The ``model`` axis splits storage only:
+tensor-parallel products over ``model`` (Megatron-style column/row
+splits with their reductions) are the next item of the LM mesh work
+(ROADMAP), so every row computes with whole parameters.
 """
 from __future__ import annotations
 
+import itertools
+import math
 from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import MetaGenerator
+from repro_torch.models.sharding import (MoveStats, Sharded, dp_axes,
+                                         param_shardings, reshard, shard,
+                                         sharded_leaves, unshard,
+                                         unshard_moves)
 from repro_torch.training.grad_compress import (compress_tree,
                                                 decompress_tree, init_error)
-from repro_torch.training.optimizer import AdamW, AdamWState
-from repro_torch.training.tree import leaves, unflatten
+from repro_torch.training.optimizer import AdamW, AdamWState, global_norm
+from repro_torch.training.tree import leaves, tree_map, unflatten
 
-__all__ = ["TrainState", "make_train_step", "init_state"]
+__all__ = ["TrainState", "MeshStepStats", "make_train_step", "init_state",
+           "state_specs", "shard_state", "unshard_state", "data_rows"]
 
 
 class TrainState(NamedTuple):
@@ -32,14 +61,42 @@ class TrainState(NamedTuple):
     err: Any | None  # error-feedback buffers (None if compression off)
 
 
+class MeshStepStats(NamedTuple):
+    """Bytes one mesh step copied between positions (``MoveStats``):
+    ``gather`` the parameters onto the data rows' devices, ``reduce`` the
+    rows' gradients to the mesh's first device (and, with compression,
+    the error buffers gathered there), ``scatter`` the reduced gradient
+    (and new error buffers) to their shards, ``relayout`` the gradient
+    from ``grad_shardings`` to the parameters' shardings."""
+
+    gather: MoveStats
+    reduce: MoveStats
+    scatter: MoveStats
+    relayout: MoveStats
+
+
+def data_rows(mesh: DeviceMesh) -> list[tuple[int, ...]]:
+    """The first position of each data row, in row order: the ``dp_axes``
+    coordinates in mixed radix (``pod`` major), every other axis at 0."""
+    dp = dp_axes(mesh)
+    return list(itertools.product(*(
+        range(mesh.shape[a]) if a in dp else range(1)
+        for a in mesh.axis_names)))
+
+
 def make_train_step(cfg: ModelConfig, optimizer: AdamW,
-                    compress: bool = False, accum: int | None = None):
+                    compress: bool = False, accum: int | None = None,
+                    grad_shardings=None):
     """Returns train_step(state, batch) → (state, metrics).
 
     ``accum`` microbatches (default: ``cfg.train_accum``) split the batch
     (its frontend too) along axis 0 into equal consecutive parts; live
     activation memory scales with B/accum.  ``metrics`` holds ``loss``,
-    ``grad_norm`` and ``step`` as tensors on the parameters' device.
+    ``grad_norm`` and ``step`` as tensors on the parameters' device (the
+    mesh's first device), and, on a mesh, ``moved`` (:class:`MeshStepStats`).
+    A state of :class:`Sharded` leaves (:func:`shard_state`) steps on its
+    mesh; ``grad_shardings`` (a params-shaped ``NamedSharding`` tree) needs
+    one.
     """
     accum = cfg.train_accum if accum is None else accum
 
@@ -52,24 +109,36 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
                                         materialize_grads=True)
         return loss.detach(), list(grads)
 
-    def train_step(state: TrainState, batch: dict):
-        if accum == 1:
-            loss_val, grads = value_and_grad(state.params, batch)
-        else:
-            mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
-                  for k, v in batch.items()}
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
-                     for p in leaves(state.params)]
-            loss_val = torch.zeros((), dtype=torch.float32,
-                                   device=grads[0].device)
-            for i in range(accum):
-                loss_i, g = value_and_grad(state.params,
-                                           {k: v[i] for k, v in mb.items()})
-                for acc, gi in zip(grads, g):
-                    acc += gi.float() / accum
-                del g
-                loss_val = loss_val + loss_i / accum
+    def accumulate(slices, n, dev, like):
+        """``(loss, grads)`` of ``n`` consecutive microbatch slices, each
+        ``(params, batch)``, summed on ``dev`` in order: as they are for
+        ``n == 1``, else ``g.float() / n`` into f32 buffers shaped as the
+        leaves of ``like``, allocated before the first slice runs."""
+        if n == 1:
+            params, b = next(slices)
+            loss, g = value_and_grad(params, b)
+            return loss.to(dev), [x.to(dev) for x in g]
+        grads = [torch.zeros(tuple(p.shape), dtype=torch.float32, device=dev)
+                 for p in like]
+        loss_val = torch.zeros((), dtype=torch.float32, device=dev)
+        for params, b in slices:
+            loss_i, g = value_and_grad(params, b)
+            for acc, gi in zip(grads, g):
+                acc += gi.to(dev).float() / n
+            del g
+            loss_val = loss_val + loss_i.to(dev) / n
+        return loss_val, grads
+
+    def one_device(state: TrainState, batch: dict):
+        if grad_shardings is not None:
+            raise ValueError("grad_shardings need a state placed on a mesh "
+                             "(shard_state)")
+        dev = leaves(state.params)[0].device
+        mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+              for k, v in batch.items()}
+        loss_val, grads = accumulate(
+            ((state.params, {k: v[i] for k, v in mb.items()})
+             for i in range(accum)), accum, dev, leaves(state.params))
         grads = unflatten(state.params, grads)
         err = state.err
         if compress:
@@ -79,7 +148,98 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
         metrics = {"loss": loss_val, "grad_norm": gnorm, "step": opt.step}
         return TrainState(params, opt, err), metrics
 
+    def on_mesh(state: TrainState, batch: dict):
+        p_leaves = leaves(state.params)
+        mesh = p_leaves[0].mesh
+        pos = mesh.positions()
+        devs = mesh.device_list()
+        home = devs[0]
+        rows = data_rows(mesh)
+        D = len(rows)
+        B = next(iter(batch.values())).shape[0]
+        if B % (accum * D):
+            raise ValueError(f"a global batch of {B} does not split into "
+                             f"{accum} microbatches over {D} data rows")
+        b = B // (accum * D)
+        # the whole parameters, once per distinct row device
+        gather, full = MoveStats(), {}
+        for c in rows:
+            dev = mesh.device(c)
+            if dev in full:
+                continue
+            home_k = pos.index(c)
+            full[dev] = unflatten(state.params,
+                                  [unshard(s, dev) for s in p_leaves])
+            for s in p_leaves:
+                gather += unshard_moves(s, dev, home_k)
+
+        def slices():
+            for i in range(accum):
+                for r, c in enumerate(rows):
+                    dev = mesh.device(c)
+                    j = i * D + r
+                    yield full[dev], {k: v[j * b:(j + 1) * b].to(dev)
+                                      for k, v in batch.items()}
+
+        n = accum * D
+        loss_val, grads = accumulate(slices(), n, home, p_leaves)
+        del full
+        # each row's microbatch gradients (the parameters' dtype) go to
+        # the first position; those of rows on other devices cross
+        g_bytes = sum(math.prod(p.shape) * p.shards[0].element_size()
+                      for p in p_leaves)
+        off_home = sum(1 for c in rows if mesh.device(c) != home)
+        reduce = MoveStats(accum * (D - 1) * g_bytes,
+                           accum * off_home * g_bytes)
+        grads = unflatten(state.params, grads)
+        scatter = MoveStats()
+        err = state.err
+        if compress:
+            e_leaves = leaves(state.err)
+            for e in e_leaves:
+                reduce += unshard_moves(e, home, 0)
+            q, s, new_err = compress_tree(grads, unflatten(
+                state.err, [unshard(e, home) for e in e_leaves]))
+            grads = decompress_tree(q, s)
+            err = unflatten(state.err, [
+                shard(t, e.sharding) for t, e in zip(leaves(new_err),
+                                                     e_leaves)])
+            scatter += _scatter_bytes(leaves(err))
+        gnorm = global_norm(grads)
+        g_sh = (leaves(grad_shardings) if grad_shardings is not None
+                else [p.sharding for p in p_leaves])
+        g_sharded = [shard(g, sh) for g, sh in zip(leaves(grads), g_sh)]
+        scatter += _scatter_bytes(g_sharded)
+        del grads
+        relayout = MoveStats()
+        for k, (g, p) in enumerate(zip(g_sharded, p_leaves)):
+            if g.sharding.spec != p.sharding.spec:
+                g_sharded[k], moved = reshard(g, p.sharding)
+                relayout += moved
+        params, opt = optimizer.apply(unflatten(state.params, g_sharded),
+                                      state.opt, state.params, gnorm)
+        metrics = {"loss": loss_val, "grad_norm": gnorm, "step": opt.step,
+                   "moved": MeshStepStats(gather, reduce, scatter, relayout)}
+        return TrainState(params, opt, err), metrics
+
+    def train_step(state: TrainState, batch: dict):
+        if sharded_leaves(state.params):
+            return on_mesh(state, batch)
+        return one_device(state, batch)
+
     return train_step
+
+
+def _scatter_bytes(sharded: list) -> MoveStats:
+    """Bytes :func:`shard` copied from the mesh's first position (where
+    the whole tensor was) to the others, and across devices."""
+    out = MoveStats()
+    for s in sharded:
+        devs = s.mesh.device_list()
+        n = s.position_bytes()
+        for k in range(1, len(devs)):
+            out += MoveStats(n, n if devs[k] != devs[0] else 0)
+    return out
 
 
 def init_state(cfg: ModelConfig, optimizer: AdamW, gen: torch.Generator,
@@ -89,3 +249,40 @@ def init_state(cfg: ModelConfig, optimizer: AdamW, gen: torch.Generator,
     params = lm.init_params(cfg, gen)
     return TrainState(params, optimizer.init(params),
                       init_error(params) if compress else None)
+
+
+def state_specs(cfg: ModelConfig, optimizer: AdamW,
+                compress: bool = False) -> TrainState:
+    """Allocation-free :class:`TrainState` (``meta`` tensors; JAX's
+    ``eval_shape`` of ``init_state``)."""
+    return init_state(cfg, optimizer, MetaGenerator(), compress=compress)
+
+
+def shard_state(state: TrainState, mesh: DeviceMesh) -> TrainState:
+    """``state`` placed on ``mesh``: the parameters, ``m``, ``v`` and the
+    error buffers by ``param_shardings`` (a copy at every position of a
+    replicated leaf), the step counter on the mesh's first device."""
+    sh = leaves(param_shardings(mesh, state.params))
+
+    def place(tree):
+        if tree is None:
+            return None
+        return unflatten(tree, [shard(t, s) for t, s in zip(leaves(tree),
+                                                             sh)])
+
+    opt = AdamWState(step=state.opt.step.to(mesh.device_list()[0]),
+                     m=place(state.opt.m), v=place(state.opt.v))
+    return TrainState(place(state.params), opt, place(state.err))
+
+
+def unshard_state(state: TrainState, device) -> TrainState:
+    """A sharded state gathered whole onto ``device`` (bitwise)."""
+    def whole(x):
+        return unshard(x, device) if isinstance(x, Sharded) else x.to(device)
+
+    return TrainState(
+        tree_map(whole, state.params),
+        AdamWState(step=state.opt.step.to(device),
+                   m=tree_map(whole, state.opt.m),
+                   v=tree_map(whole, state.opt.v)),
+        tree_map(whole, state.err))

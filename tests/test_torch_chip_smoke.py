@@ -10,6 +10,7 @@ with a made-up frame on the value-update kernel, which the check does not
 cover.
 """
 import dataclasses
+import math
 import sys
 from pathlib import Path
 
@@ -1074,3 +1075,138 @@ def test_each_top_level_name_is_defined_once():
               for t in n.targets if isinstance(t, ast.Name)]
     dup = sorted({n for n in names if names.count(n) > 1})
     assert not dup, dup
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the LM side over a device mesh
+# ---------------------------------------------------------------------------
+
+def test_lm_mesh_flag_parses():
+    assert chip_smoke.build_parser().parse_args(["--lm-mesh"]).lm_mesh
+    assert not chip_smoke.build_parser().parse_args([]).lm_mesh
+
+
+def test_phase18_bytes_from_the_specs():
+    """18a's bar: 188,022,784 of qwen3-0.6b's parameter bytes at one (2, 4)
+    position, from the meta specs alone; 18d's derived counts: the fine to
+    coarse move takes 3/4 of the cache, the host-buffer hops 3x."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import NamedSharding, P, param_shardings
+    from repro_torch.serving.repartition_kv import KVRepartitionPlan
+
+    cfg = get_config("qwen3-0.6b")
+    mesh = DeviceMesh(chip_smoke.MESH_SHAPE, ("data", "model"))
+    specs = chip_smoke.flat(lm.param_specs(cfg))
+    sh = chip_smoke.flat(param_shardings(mesh, lm.param_specs(cfg)))
+    assert chip_smoke.spec_position_bytes(specs, sh) \
+        == chip_smoke.MESH_QWEN_BYTES == 188_022_784
+    plan = KVRepartitionPlan.build(8, chip_smoke.KV_FINE, chip_smoke.KV_ALPHA)
+    fine = NamedSharding(mesh, plan.fine_spec())
+    coarse = NamedSharding(mesh, plan.coarse_spec())
+    staged = NamedSharding(mesh, P(None, "data", None, None, None))
+    shape = (28, 8, 576, 8, 128)                 # 18d's K (or V) leaf
+    whole = math.prod(shape) * 2
+    assert chip_smoke.spec_move_bytes(fine, coarse, shape, 2) \
+        == 3 * whole // 4
+    assert chip_smoke.spec_move_bytes(fine, staged, shape, 2) == 3 * whole
+    assert chip_smoke.spec_move_bytes(staged, coarse, shape, 2) == 0
+    assert chip_smoke.spec_move_bytes(fine, fine, shape, 2) == 0
+
+
+def test_spec_move_bytes_is_what_reshard_moves():
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.sharding import NamedSharding, P, reshard, shard
+
+    mesh = make_debug_mesh(2, 4, ["cpu"] * 8)
+    x = torch.arange(4 * 8 * 8, dtype=torch.float32).reshape(4, 8, 8)
+    specs = (P(None, ("data", "model")), P(None, "data", "model"),
+             P("data"), P(), P(None, None, ("model", "data")))
+    for a in specs:
+        for b in specs:
+            src, dst = NamedSharding(mesh, a), NamedSharding(mesh, b)
+            _, moved = reshard(shard(x, src), dst)
+            assert moved.positions == chip_smoke.spec_move_bytes(
+                src, dst, tuple(x.shape), 4), (a, b)
+
+
+def test_phase18_cuts_keep_the_widths():
+    """18b/18c: qwen3-0.6b at full width cut 28 -> 4 layers (2 periods a
+    pipeline stage), 8 x 1024; 18d: 16b's batch, prompt and max_len; the
+    meshes hold 8 positions, all on the card."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("qwen3-0.6b")
+    assert cfg.n_layers == 28 > chip_smoke.MESH_LAYERS == 4
+    assert chip_smoke.MESH_LAYERS % chip_smoke.PIPE_MESH[0] == 0
+    assert (chip_smoke.MESH_SEQ, chip_smoke.MESH_BATCH) == (1024, 8)
+    assert chip_smoke.MESH_BATCH % (chip_smoke.PIPE_MICRO
+                                    * chip_smoke.PIPE_MESH[1]) == 0
+    assert math.prod(chip_smoke.MESH_SHAPE) == math.prod(
+        chip_smoke.PIPE_MESH) == 8
+    assert chip_smoke.mesh_devices(8) == ["cuda:0"] * 8
+    assert (chip_smoke.QWEN_BATCH, chip_smoke.QWEN_PROMPT,
+            chip_smoke.QWEN_PROMPT + chip_smoke.QWEN_NEW) == (8, 512, 576)
+    args = chip_smoke.MESH_RESUME_ARGS
+    assert "--smoke" in args and args[:2] == ["--arch", "qwen3-0.6b"]
+
+
+def stub_card(monkeypatch):
+    """The card's counters and synchronisation stubbed; the positions on
+    the CPU; the qwen3 config its SMOKE cut."""
+    from repro_torch.configs import registry
+
+    real = registry.get_config
+    monkeypatch.setattr(registry, "get_config", lambda a: (
+        registry.get_smoke_config(a) if a == "qwen3-0.6b" else real(a)))
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "mesh_devices", lambda n: ["cpu"] * n)
+
+
+def test_phase18cd_on_the_cpu(monkeypatch, capsys):
+    """18c and 18d on qwen3-smoke: the pipeline bitwise per slice, both
+    schedules the identity with the derived bytes and the original's
+    tokens."""
+    stub_card(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "MESH_SEQ", 32)
+    monkeypatch.setattr(chip_smoke, "QWEN_PROMPT", 24)
+    monkeypatch.setattr(chip_smoke, "QWEN_NEW", 8)
+    problems = []
+    pipe = chip_smoke.pipeline_phase(torch, torch.device("cpu"), problems)
+    kv = chip_smoke.kv_mesh_phase(torch, torch.device("cpu"), problems)
+    assert not problems
+    assert pipe["bitwise_per_slice"] and pipe["err_vs_full"] <= 1e-5
+    for schedule in ("device_direct", "host_buffer"):
+        r = kv[schedule]
+        assert r["bytes_moved"] == r["derived_bytes"] > 0
+        assert r["identity"] and r["coarse_shapes"] and r["same_tokens"]
+    assert kv["host_buffer"]["bytes_moved"] == 4 * kv["device_direct"][
+        "bytes_moved"]
+    assert "[18d] host_buffer" in capsys.readouterr().out
+
+
+def test_phase18b_on_the_cpu(monkeypatch):
+    """18b's in-process runs on qwen3-smoke (one CPU thread): the mesh
+    step bitwise the one-device step at accum 2 and repeatable; the
+    launcher runs are left to the card (tests/test_torch_lm_mesh_train.py
+    runs them on the CPU)."""
+    stub_card(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "MESH_SEQ", 32)
+    monkeypatch.setattr(chip_smoke, "finish", lambda procs: {})
+    monkeypatch.setattr(chip_smoke, "mesh_train_cli", lambda *a: None)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    problems = []
+    try:
+        out = chip_smoke.mesh_train_phase(torch, torch.device("cpu"),
+                                          problems)
+    finally:
+        torch.set_num_threads(n)
+    assert out["bitwise_vs_accum2"] and out["bitwise_repeat"]
+    assert out["moved"]["reduce"][0] > 0 and out["moved"]["gather"][1] == 0
+    # no launcher ran: its checks are the only ones that fail
+    assert problems and all("launcher" in p or "step-4" in p
+                            for p in problems)

@@ -1,9 +1,9 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
 Reads every module of ``src/repro_torch`` and ``chip_smoke.py`` for an
-import of ``jax`` or ``repro``, and imports the launchers, the converters
-the LM stack and the train step in a fresh interpreter to show that neither lands in
-``sys.modules``.
+import of ``jax`` or ``repro``, and imports the launchers, the converters,
+the LM stack, the train step and the mesh modules in a fresh interpreter
+to show that neither lands in ``sys.modules``.
 """
 import os
 import re
@@ -40,7 +40,10 @@ def test_forbidden_pattern_catches_what_it_should():
 def test_launcher_import_loads_no_jax():
     code = ("import sys, repro_torch.launch.case, repro_torch.interop, "
             "repro_torch.models.lm, repro_torch.launch.serve, "
-            "repro_torch.launch.train, repro_torch.training.train_step; "
+            "repro_torch.launch.train, repro_torch.training.train_step, "
+            "repro_torch.launch.mesh, repro_torch.models.sharding, "
+            "repro_torch.training.pipeline, "
+            "repro_torch.serving.repartition_kv; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
