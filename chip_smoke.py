@@ -9,6 +9,8 @@
   python3 chip_smoke.py --full-mesh
   python3 chip_smoke.py --lm
   python3 chip_smoke.py --train
+  python3 chip_smoke.py --lm-mesh
+  python3 chip_smoke.py --assembly-mesh
 
 Runs from the root of a checkout and needs one CUDA card; with no card, or
 without the rest of the checkout beside it, it exits nonzero and prints no
@@ -267,8 +269,10 @@ result.  Phases, in order (any failure exits nonzero):
     (tests/test_training.py's fixed batch: its loss must fall over them),
     and a second run of the first step, bitwise the first run's in its
     loss, grad_norm and every parameter leaf; s a step, tokens/s, 6 N
-    tokens against the dense bf16 peak, ``max_memory_allocated`` against
-    the prediction; one microbatch under ``torch.profiler`` (the device
+    tokens against the dense bf16 peak, and the analytical FLOPs of
+    ``launch/analysis.py`` (train_4k's total and ideal, scaled linearly
+    from its global batch of 256 to the 8 run here) against it too,
+    ``max_memory_allocated`` against the prediction; one microbatch under ``torch.profiler`` (the device
     traced alone: launches, busy ms, idle share, device time by part, the
     five largest operations), the loss head and the AdamW update alone;
     one int8-compressed step (finite, error buffers filled); (17c) remat
@@ -313,6 +317,23 @@ result.  Phases, in order (any failure exits nonzero):
     and fail the run after its parts have printed; its results also go
     on a line of their own (``lm_mesh {...}``) before the summary.
 
+19. the stacked solve over a ``(solve, assemble)`` mesh, from the main
+    run's 3-step state, every position on ``cuda:0``: at alpha 30, 15
+    and 6 the main path's solver without a mesh and over the ``(30 /
+    alpha, alpha)`` mesh (``--mesh-devices``) under ``device_direct`` and
+    ``host_buffer``, one step each (without and with the mesh in turns),
+    the mesh ones on the state in the assembly layout, plain versions
+    refused and the launch counters from 0 for each step: every mesh step
+    bitwise the step without a mesh (state, counts and flags, launch
+    counters), its state back in the assembly layout, and its move record
+    equal to the closed forms (a pressure update 499,964,640 /
+    482,724,480 / 431,004,000 B between positions under ``device_direct``,
+    0 between devices; ``host_buffer`` at least as much), beside the cost
+    model's ``t_repartition`` volume and JAX's replicated solve layout;
+    s a step with and without the mesh.  Its checks are collected and
+    fail the run after it has printed; its results go on a line of their
+    own (``assembly_mesh {...}``).
+
 In phases 9-14 every kernel wrapper's plain version is made to raise while
 the kernel runs go: the card's path launches the kernels only (14c's
 quarantined request runs on the plain ``"reference"`` backend by
@@ -347,7 +368,8 @@ way; with ``--full-mesh`` beside it, ``--profile-cg`` profiles phase 15's
 full-mesh CG instead.  With ``--serving``, phases 1 and 2 run, then phases
 13 and 14 from the main path's 3-step state; with ``--full-mesh`` alone,
 phase 15; with ``--lm``, phase 16; with ``--train``, phase 17; with
-``--lm-mesh``, phase 18.
+``--lm-mesh``, phase 18; with ``--assembly-mesh``, phase 19 from the main
+path's 3-step state.
 """
 from __future__ import annotations
 
@@ -4773,6 +4795,198 @@ def full_mesh_phase(torch, state3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the stacked solve over a (solve, assemble) mesh
+# ---------------------------------------------------------------------------
+ASSEMBLY_MESH_ALPHAS = (30, 15, 6)
+# bytes between positions a pressure update moves on the (30 / alpha,
+# alpha) mesh under device_direct, (alpha - 1) * n_coarse * L * 8 with L =
+# 2,155,020 values a fine part (plan_for_mesh(CavityMesh.cube(210, 30)))
+ASSEMBLY_MESH_BYTES = {30: 499_964_640, 15: 482_724_480, 6: 431_004_000}
+MOVE_KINDS = ("update_mom", "update_p", "b_c", "x0_c", "diag_c", "x_back")
+
+
+def mesh_move_forms(n_c: int, alpha: int, L: int, Lm: int, m: int,
+                    updates: int, solves: int, itemsize: int = 8) -> dict:
+    """Each move kind's bytes between positions in one step over the
+    ``(n_c, alpha)`` mesh, by schedule, from the closed forms: a pressure
+    update ``(alpha - 1) * n_c * L`` values (device_direct) or ``2 * n_c *
+    alpha * L`` (host_buffer: to the host and on to the owner); the
+    momentum update 0 (it stays in the fine layout) or ``2 * n_c * alpha *
+    Lm``; each solve's ``b_c``, ``x0_c``, ``diag_c`` and the solution back
+    ``(alpha - 1) * n_c * m`` values each."""
+    P = n_c * alpha
+    operand = solves * (alpha - 1) * n_c * m * itemsize
+    same = dict.fromkeys(("b_c", "x0_c", "diag_c", "x_back"), operand)
+    return {"device_direct": dict(same, update_mom=0, update_p=updates * (
+        alpha - 1) * n_c * L * itemsize),
+        "host_buffer": dict(same, update_mom=2 * P * Lm * itemsize,
+                            update_p=updates * 2 * P * L * itemsize)}
+
+
+def move_problems(got: dict, want: dict, tag: str) -> list:
+    """What a step's move record says went wrong against the closed forms
+    (``got``: kind -> MoveStats)."""
+    out = [f"{tag}: {k} moved {got[k].positions if k in got else None} B "
+           f"between positions, not {want[k]}"
+           for k in MOVE_KINDS
+           if k not in got or got[k].positions != want[k]]
+    if "halo" not in got or got["halo"].positions <= 0:
+        out.append(f"{tag}: no halo planes counted")
+    return out
+
+
+def assembly_mesh_solvers(alpha: int, cache) -> tuple:
+    """The main path's solver at ``alpha`` without a mesh, and over the
+    ``(30 / alpha, alpha)`` mesh on ``MESH_DEVICE`` under each schedule,
+    all through the launcher (``--mesh-devices``), plans from ``cache``."""
+    from repro_torch.launch.case import build_parser, build_solver
+
+    base = list(MAIN_ARGS)
+    base[base.index("--alpha") + 1] = str(alpha)
+    mesh = ["--mesh-devices", ",".join([MESH_DEVICE] * PARTS)]
+    args = build_parser().parse_args(base)
+    plain = build_solver(args, plan_cache=cache)
+    return (plain, build_solver(build_parser().parse_args(base + mesh),
+                                plan_cache=cache),
+            build_solver(build_parser().parse_args(
+                base + mesh + ["--schedule", "host_buffer"]),
+                plan_cache=cache), args.co * plain.mesh.h)
+
+
+def assembly_mesh_alpha(torch, alpha, cache, state3, turn, problems) -> dict:
+    """19 at one ``alpha``: a step of the solver without a mesh and of the
+    mesh solvers from ``state3`` (the mesh ones on it in the assembly
+    layout), plain versions refused, launch counters from 0 for each."""
+    from repro_torch.core.comm import assembly_layout, assembly_sharding
+    from repro_torch.core.cost_model import H100, CostModel
+    from repro_torch.core.layout import Sharded, unshard
+    from repro_torch.fvm.piso import PisoState
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    plain, mesh, hb, dt = assembly_mesh_solvers(alpha, cache)
+    n_c = PARTS // alpha
+    grid = mesh.spmd_mesh
+    laid = PisoState(*(assembly_layout(t, grid) for t in state3))
+    order = ("plain", "mesh") if turn % 2 == 0 else ("mesh", "plain")
+    runs = {}
+    for tag in order + ("host_buffer",):
+        solver = {"plain": plain, "mesh": mesh, "host_buffer": hb}[tag]
+        st_in = state3 if tag == "plain" else laid
+        reset_launch_counts()
+        with no_plain_versions():
+            (st, stats), s = synced(torch, lambda: solver.step(st_in, dt))
+        if tag != "plain":
+            if not all(isinstance(t, Sharded) and t.sharding
+                       == assembly_sharding(grid, t.ndim - 1) for t in st):
+                problems.append(f"19 alpha {alpha} {tag}: the state did not "
+                                f"come back in the assembly layout")
+            st = PisoState(*(unshard(t, MESH_DEVICE) for t in st))
+        runs[tag] = {"state": st, "stats": stats, "s": s,
+                     "launches": launch_counts(),
+                     "moves": (None if solver.moves is None
+                               else dict(solver.moves.kinds))}
+    torch.cuda.synchronize()
+    ref = runs["plain"]
+    tag0 = f"19 alpha {alpha} ({n_c}, {alpha})"
+    try:
+        require_launched(ref["launches"], tag0)
+    except SmokeFailure as e:
+        problems.append(str(e))
+    same = {}
+    for tag in ("mesh", "host_buffer"):
+        r = runs[tag]
+        same[tag] = {
+            "state": all(same_bits(torch, a, b)
+                         for a, b in zip(r["state"], ref["state"])),
+            "stats": all(same_bits(torch, a, b)
+                         for a, b in zip(r["stats"], ref["stats"])),
+            "launches": r["launches"] == ref["launches"]}
+        if not all(same[tag].values()):
+            problems.append(f"{tag0} {tag}: not the step without a mesh: "
+                            f"{same[tag]}")
+    plan = mesh.plan_p
+    forms = mesh_move_forms(n_c, alpha, plan.buffer_len,
+                            mesh.plan_mom.buffer_len, mesh.mesh.n_cells,
+                            updates=1 if mesh.pipelined else
+                            mesh.n_correctors, solves=mesh.n_correctors)
+    dd, hbm = runs["mesh"]["moves"], runs["host_buffer"]["moves"]
+    problems.extend(move_problems(dd, forms["device_direct"],
+                                  f"{tag0} device_direct"))
+    problems.extend(move_problems(hbm, forms["host_buffer"],
+                                  f"{tag0} host_buffer"))
+    if dd["update_p"].positions != ASSEMBLY_MESH_BYTES[alpha]:
+        problems.append(f"{tag0}: a pressure update moved "
+                        f"{dd['update_p'].positions:,} B, not "
+                        f"{ASSEMBLY_MESH_BYTES[alpha]:,}")
+    if any(v.devices for v in dd.values()):
+        problems.append(f"{tag0}: device_direct moved bytes between "
+                        f"devices: {dd}")
+    if any(hbm[k].positions < dd[k].positions for k in dd):
+        problems.append(f"{tag0}: host_buffer moved less than "
+                        f"device_direct")
+    model = CostModel(H100, n_dofs=N ** 3)
+    owner = dd["update_p"].positions
+    out = {
+        "mesh": [n_c, alpha], "p_iters": ref["stats"].p_iters.tolist(),
+        "mom_iters": int(ref["stats"].mom_iters),
+        "same": same, "launches": runs["mesh"]["launches"],
+        "s_plain": ref["s"], "s_mesh": runs["mesh"]["s"],
+        "s_host_buffer": runs["host_buffer"]["s"],
+        "moves": {tag: {k: v._asdict() for k, v in m.items()}
+                  for tag, m in (("device_direct", dd),
+                                 ("host_buffer", hbm))},
+        "update_p_bytes": owner,
+        # JAX's solve layout holds the row at every "assemble" position
+        "replicated_update_p_bytes": alpha * owner,
+        "model_bytes": (model.nnz_per_row + 1) * model.n_dofs
+        * model.bytes_per_val,
+        "model_t_repartition_s": model.t_repartition(PARTS, n_c),
+        "total_moved": {tag: sum(v.positions for v in m.values())
+                        for tag, m in (("device_direct", dd),
+                                       ("host_buffer", hbm))}}
+    print(f"  {tag0}: p_iters {out['p_iters']}, every step bitwise the step "
+          f"without a mesh {same}; s a step without / with the mesh "
+          f"{ref['s']:.4f} / {runs['mesh']['s']:.4f} (host_buffer "
+          f"{runs['host_buffer']['s']:.4f}); a pressure update moves "
+          f"{owner:,} B between positions (JAX's replicated layout "
+          f"{alpha * owner:,}; t_repartition's volume "
+          f"{out['model_bytes']:,}); host_buffer {hbm['update_p'].positions:,}"
+          f" ({hbm['update_p'].devices:,} between devices); halo "
+          f"{dd['halo'].positions:,}; the step in all "
+          f"{out['total_moved']['device_direct']:,} B")
+    return out
+
+
+def assembly_mesh_phase(torch, state3) -> dict:
+    """Phase 19 (see the module docstring); its checks are collected and
+    fail the run after its parts have printed."""
+    from repro_torch.core.controller import PlanCache
+
+    print(f"[19] the stacked solve over a (solve, assemble) mesh: {N}^3, "
+          f"{PARTS} positions on {MESH_DEVICE}, alpha "
+          f"{ASSEMBLY_MESH_ALPHAS}")
+    t0 = time.perf_counter()
+    problems = []
+    cache = PlanCache()
+    out = {"alphas": {}}
+    for turn, alpha in enumerate(ASSEMBLY_MESH_ALPHAS):
+        try:
+            out["alphas"][alpha] = assembly_mesh_alpha(
+                torch, alpha, cache, state3, turn, problems)
+        except Exception as e:  # noqa: BLE001 — collected, fails the phase
+            traceback.print_exc()
+            problems.append(f"19 alpha {alpha}: {type(e).__name__}: {e}")
+        free_device(torch)
+    out["s"] = time.perf_counter() - t0
+    print("assembly_mesh " + json.dumps(out, default=str))
+    print(f"  [19] {out['s']:.1f} s")
+    for p in problems:
+        print(f"  FAILED: {p}")
+    require(not problems, f"phase 19: {len(problems)} check(s) failed")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 16: LM serving (qwen3-0.6b at full width, every family on the card)
 # ---------------------------------------------------------------------------
 LM_TOL = 1e-4            # of the largest |logit|: f32 on the card against the
@@ -5349,6 +5563,22 @@ def train_flops(n_params: int, tokens: int) -> float:
     return 6.0 * n_params * tokens
 
 
+def analytical_step_flops(cfg, batch: int, shape: str = "train_4k") -> dict:
+    """``launch/analysis.py``'s FLOPs of a step at ``shape``, scaled
+    linearly from the shape's global batch to ``batch`` (every term counts
+    tokens, and a row's attention spans the shape's whole sequence, so the
+    scale is exact): ``total`` (the implementation: the full masked S x S
+    attention, remat's recompute), ``ideal`` (the causal half) and
+    ``model_flops_6nd`` (6 N_active tokens)."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.analysis import analytical_flops
+
+    rep = analytical_flops(cfg, shape)
+    k = batch / SHAPES[shape].global_batch
+    return {"total": rep.total * k, "ideal": rep.ideal * k,
+            "model_flops_6nd": rep.model_flops_6nd * k}
+
+
 def train_static_bytes(n_params: int, param_bytes: int, accum: int) -> int:
     """The state a step holds besides its activations: the parameters,
     their gradients (the microbatch's, in the parameters' dtype), the f32
@@ -5565,6 +5795,10 @@ def full_train_phase(torch, dev, problems) -> dict:
            / BF16_DENSE_FLOPS,
            "peak_bytes": peak, "bitwise_repeat": same,
            "repeat_steps": TRAIN_REPEAT}
+    ana = analytical_step_flops(cfg, TRAIN_BATCH)
+    out["analytical"] = dict(ana, **{
+        f"{k}_share": ana[k] / s_step / BF16_DENSE_FLOPS
+        for k in ("total", "ideal")})
     free_device(torch)
     print(f"  [17b] {1 + TRAIN_TIMED} steps on batch 0: losses "
           f"{[f'{x:.4f}' for x in losses]}, grad_norms "
@@ -5574,6 +5808,13 @@ def full_train_phase(torch, dev, problems) -> dict:
           f"6 N tokens = {out['flops_per_step'] / 1e12:.1f} TFLOP a step, "
           f"{out['model_flops_share']:.2%} of the dense bf16 peak "
           f"({BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s, H100 SXM data sheet)")
+    print(f"  [17b] launch/analysis.py at train_4k scaled linearly from its "
+          f"global batch 256 to {TRAIN_BATCH}: total "
+          f"{ana['total'] / 1e12:.1f} TFLOP a step "
+          f"({out['analytical']['total_share']:.2%} of the peak), ideal "
+          f"{ana['ideal'] / 1e12:.1f} "
+          f"({out['analytical']['ideal_share']:.2%}), its 6 N_active tokens "
+          f"{ana['model_flops_6nd'] / 1e12:.1f}")
     print(f"  [17b] max_memory_allocated {peak / 1e9:.2f} GB (predicted "
           f"{TRAIN_MEM_GB[0]:g}-{TRAIN_MEM_GB[1]:g}); a second run of the "
           f"first {TRAIN_REPEAT} step(s) bitwise the first run's (every "
@@ -6319,6 +6560,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lm-mesh", action="store_true",
                     help="phase 18 (the LM side over a device mesh) alone, "
                          "after phases 1-2")
+    ap.add_argument("--assembly-mesh", action="store_true",
+                    help="phase 19 (the stacked solve over a (solve, "
+                         "assemble) mesh) alone, after phases 1-2, from a "
+                         "3-step state of the main path's solver")
     return ap
 
 
@@ -6377,6 +6622,12 @@ def main(argv=None) -> int:
             print(smi_line())
             print(json.dumps({"full_mesh": result}, default=str))
             return 0
+        if args.assembly_mesh:
+            result = assembly_mesh_phase(torch, main_state(torch))
+            print(f"done in {time.perf_counter() - t_start:.1f} s")
+            print(smi_line())
+            print(ok_line(torch))
+            return 0
         if args.lm:
             result = lm_phase(torch, dev)
             print(f"done in {time.perf_counter() - t_start:.1f} s")
@@ -6414,6 +6665,8 @@ def main(argv=None) -> int:
         summary["serving"] = serving_phases(torch, dev, state3)
         free_device(torch)
         summary["full_mesh"] = full_mesh_phase(torch, state3)
+        free_device(torch)
+        summary["assembly_mesh"] = assembly_mesh_phase(torch, state3)
         del state3, main_step
         free_device(torch)
         summary["lm"] = lm_phase(torch, dev)

@@ -25,11 +25,24 @@ Two communication schedules mirror the paper's fig. 9:
 
 :class:`UpdaterPool` shares one output buffer and one bound update between
 plans of equal shape, and rebinds each plan's own index.
+
+Over a ``(solve, assemble)`` mesh (:mod:`repro_torch.core.comm`) the fine
+buffers start in the assembly layout, fine part ``f`` on its position, and
+coarse part ``c``'s ``alpha`` buffers go to its owner, the position
+``(row, 0)`` of the solve layout: the paper's active rank.  The port keeps
+a device's consecutive positions as one tensor, so on one device the
+update runs as above and nothing is copied between positions;
+:func:`update_moves` counts what each schedule carries between positions
+and between devices (:class:`~repro_torch.core.layout.MoveStats`), the
+traffic a mesh over distinct cards would carry.  :func:`owner_moves` and
+:func:`halo_moves` count the solve operands' and the assembly's neighbour
+planes' moves, and :class:`MoveRecord` keeps one step's moves by kind.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.layout import MoveStats
 from repro_torch.core.repartition import RepartitionPlan
 from repro_torch.kernels.coef_update.coef_update import coef_update
 
@@ -41,6 +54,12 @@ __all__ = [
     "update_host_buffer",
     "plan_shape_signature",
     "UpdaterPool",
+    "part_positions",
+    "owner_positions",
+    "owner_moves",
+    "update_moves",
+    "halo_moves",
+    "MoveRecord",
 ]
 
 
@@ -150,3 +169,122 @@ class UpdaterPool:
         else:
             self.hits += 1
         return lambda buffers: entry(plan, buffers)
+
+
+# ---------------------------------------------------------------------------
+# Moves over a (solve, assemble) mesh
+#
+# Positions are indices in the mesh's C order (``mesh.positions()``), so
+# position ``(c, j)`` of an ``(n_solve, n_assemble)`` mesh is ``c *
+# n_assemble + j``.
+# ---------------------------------------------------------------------------
+
+def part_positions(mesh, n_parts: int) -> list[int]:
+    """The position holding each fine part in the assembly layout
+    (``P(("solve", "assemble"), ...)``): blocks of ``n_parts / mesh.size``
+    consecutive parts, in position order."""
+    if n_parts % mesh.size:
+        raise ValueError(f"{n_parts} fine parts do not lay out over "
+                         f"{mesh.size} positions")
+    block = n_parts // mesh.size
+    return [f // block for f in range(n_parts)]
+
+
+def owner_positions(mesh, n_coarse: int) -> list[int]:
+    """The position owning each coarse part in the solve layout
+    (``P("solve", ...)``): JAX's block rule on the ``"solve"`` axis,
+    ``ceil(n_coarse / n_solve)`` parts a row (rows past the last part hold
+    nothing, as JAX pads an uneven dim), at ``"assemble"`` coordinate 0,
+    the row's active position."""
+    n_solve, n_assemble = tuple(mesh.shape)
+    block = -(-n_coarse // n_solve)
+    return [(c // block) * n_assemble for c in range(n_coarse)]
+
+
+def _owners_of_parts(mesh, n_parts: int, alpha: int) -> list[int]:
+    """Each fine part's coarse owner (coarse part ``f // alpha``)."""
+    own = owner_positions(mesh, n_parts // alpha)
+    return [own[f // alpha] for f in range(n_parts)]
+
+
+def _carry(devs, pairs, nbytes: int) -> MoveStats:
+    """``nbytes`` for each ``(source, destination)`` pair of distinct
+    places, counted between devices where their devices differ."""
+    out = MoveStats()
+    for a, b in pairs:
+        if a != b:
+            out += MoveStats(nbytes, nbytes if devs[a] != devs[b] else 0)
+    return out
+
+
+def owner_moves(mesh, n_parts: int, alpha: int, part_bytes: int
+                ) -> MoveStats:
+    """The bytes that take each fine part's ``part_bytes`` from its
+    position to its coarse part's owner (coarse part ``f // alpha``); the
+    way back, owner to fine positions, carries as many."""
+    return _carry(mesh.device_list(),
+                  zip(part_positions(mesh, n_parts),
+                      _owners_of_parts(mesh, n_parts, alpha)), part_bytes)
+
+
+def update_moves(mesh, n_parts: int, alpha: int, part_bytes: int,
+                 schedule: str = "device_direct", *,
+                 solve_layout: bool = True) -> MoveStats:
+    """What one value update carries: ``part_bytes`` of coefficients a fine
+    part, to its coarse part's owner (``solve_layout``) or, for a solve
+    that stays in the fine layout (the momentum, alpha 1), back to its own
+    position.
+
+    ``device_direct`` is one hop, fine position to destination:
+    ``(alpha - 1) * n_coarse * part_bytes`` between positions on an
+    ``(n_coarse, alpha)`` mesh.  ``host_buffer`` is two: every buffer to
+    the host's staging copy, then each to its destination; the host is a
+    place of its own on the CPU, so both hops count between positions,
+    ``2 * n_parts * part_bytes``, and between devices where a position is
+    not on the CPU.
+    """
+    devs = mesh.device_list()
+    fine = part_positions(mesh, n_parts)
+    to = _owners_of_parts(mesh, n_parts, alpha) if solve_layout else fine
+    if schedule == "device_direct":
+        return _carry(devs, zip(fine, to), part_bytes)
+    if schedule != "host_buffer":
+        raise ValueError(f"unknown update schedule {schedule!r}")
+    h = len(devs)   # the host's place, one past the positions
+    devs = devs + [torch.device("cpu")]
+    return (_carry(devs, ((a, h) for a in fine), part_bytes)
+            + _carry(devs, ((h, b) for b in to), part_bytes))
+
+
+def halo_moves(mesh, n_parts: int, plane_bytes: int) -> MoveStats:
+    """One neighbour-plane exchange of the fine partition (each part reads
+    its neighbours' facing planes, ``plane_bytes`` each way), counted
+    where the two parts are on distinct positions."""
+    devs = mesh.device_list()
+    fine = part_positions(mesh, n_parts)
+    return _carry(devs, ((fine[f], fine[f + 1]) for f in range(n_parts - 1)),
+                  2 * plane_bytes)
+
+
+class MoveRecord:
+    """One step's moves over a mesh, by kind (``kinds``: kind ->
+    :class:`~repro_torch.core.layout.MoveStats`); the step's seed clears
+    it and its phases add to it."""
+
+    def __init__(self):
+        self.kinds: dict[str, MoveStats] = {}
+
+    def reset(self) -> None:
+        self.kinds = {}
+
+    def add(self, kind: str, stats: MoveStats) -> None:
+        self.kinds[kind] = self.kinds.get(kind, MoveStats()) + stats
+
+    def total(self) -> MoveStats:
+        return sum(self.kinds.values(), MoveStats())
+
+    def as_dict(self) -> dict:
+        """``{kind: {"positions": B, "devices": B}}`` with a ``"total"``
+        entry."""
+        rows = dict(self.kinds, total=self.total())
+        return {k: v._asdict() for k, v in rows.items()}

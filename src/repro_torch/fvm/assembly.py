@@ -181,6 +181,16 @@ class CavityAssembly:
         self._z_patch = {DOWN if nz < 0 else UP: pi
                          for pi, nz in enumerate(self._patch_nz) if nz != 0}
         self._needs_ref = self.case.needs_ref
+        # called with each field whose neighbour planes are read across
+        # parts (a solver over a mesh counts those moves); None: no one
+        self.on_halo = None
+
+    def _halo(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The neighbour planes of ``x`` (:func:`halo_exchange`), reported
+        to ``on_halo`` first."""
+        if self.on_halo is not None:
+            self.on_halo(x)
+        return halo_exchange(x, self.plane, self.lane_parts)
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
@@ -286,7 +296,7 @@ class CavityAssembly:
         # interface: halo of w-velocity planes
         w = U[..., 2]
         # remote plane values
-        down, up = halo_exchange(w, self.plane, self.lane_parts)
+        down, up = self._halo(w)
         phi_down = -self.A * 0.5 * (w[:, self.if_rows[DOWN]] + down)
         phi_up = +self.A * 0.5 * (w[:, self.if_rows[UP]] + up)
         phi_if = torch.stack([phi_down, phi_up], dim=1) * self.if_mask
@@ -327,7 +337,7 @@ class CavityAssembly:
         g = self.own_sum.add(g, contrib)
         g = self.ngb_sum.add(g, -contrib)
         # interfaces: S = ±A e_z outward
-        down, up = halo_exchange(p, self.plane, self.lane_parts)
+        down, up = self._halo(p)
         pf_down = 0.5 * (p[:, self.if_rows[DOWN]] + down) * self.if_mask[:, DOWN]
         pf_up = 0.5 * (p[:, self.if_rows[UP]] + up) * self.if_mask[:, UP]
         g = _add_rows(g, self.if_rows[DOWN], -self.A * pf_down, comp=2)
@@ -443,7 +453,7 @@ class CavityAssembly:
         y = torch.zeros_like(x)
         y = self.own_sum.add(y, sys.upper * x[:, self.neigh])
         y = self.ngb_sum.add(y, sys.lower * x[:, self.owner])
-        down, up = halo_exchange(x, self.plane, self.lane_parts)
+        down, up = self._halo(x)
         y = _add_rows(y, self.if_rows[DOWN], sys.iface[:, DOWN] * down)
         y = _add_rows(y, self.if_rows[UP], sys.iface[:, UP] * up)
         return y
@@ -458,7 +468,7 @@ class CavityAssembly:
         P, m = rAU.shape
         rAUf = 0.5 * (rAU[:, self.owner] + rAU[:, self.neigh])
         g_int = rAUf * self.A / self.h
-        down, up = halo_exchange(rAU, self.plane, self.lane_parts)
+        down, up = self._halo(rAU)
         g_down = 0.5 * (rAU[:, self.if_rows[DOWN]] + down) * self.A / self.h
         g_up = 0.5 * (rAU[:, self.if_rows[UP]] + up) * self.A / self.h
         g_if = torch.stack([g_down, g_up], dim=1) * self.if_mask
@@ -512,7 +522,7 @@ class CavityAssembly:
         """phi = phiHbyA - g_f (p_n - p_o); conservative by construction."""
         dp = p[:, self.neigh] - p[:, self.owner]
         phi = phiHbyA - sysP.g_int * dp
-        down, up = halo_exchange(p, self.plane, self.lane_parts)
+        down, up = self._halo(p)
         dp_down = down - p[:, self.if_rows[DOWN]]   # outward (-z): remote - local
         dp_up = up - p[:, self.if_rows[UP]]
         phi_if = phiHbyA_if - torch.stack(

@@ -30,7 +30,10 @@ come from the cache.  ``solve_mode`` picks the pressure solve's layout:
 "full_mesh" (the fused system's rows cut into ``n_coarse * alpha`` row
 shards over ``spmd_mesh``, :mod:`repro_torch.core.comm` and
 :mod:`repro_torch.sparse.shardmap_spmv`; the momentum solve, alpha 1, stays
-stacked).
+stacked).  "stacked" with an explicit ``spmd_mesh`` is the paper's own
+layout: the fine state in the assembly layout over the ``(solve,
+assemble)`` mesh, the pressure system pinned to the solve layout, and each
+step's moves between the two counted in ``moves``.
 
 The serving surface: ``pipeline`` ("auto" | "on" | "off") picks the
 software-pipelined executor for a program that declares one (``_stepper``);
@@ -48,9 +51,15 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.comm import (ShardMesh, assembly_layout,
+                                   canonical_device, make_cfd_mesh,
+                                   solve_constraint, stacked_layout)
+from repro_torch.core.layout import Sharded
 from repro_torch.core.ldu import buffer_from_parts
 from repro_torch.core.repartition import RepartitionPlan, plan_for_mesh
-from repro_torch.core.update import update_device_direct, update_host_buffer
+from repro_torch.core.update import (MoveRecord, halo_moves, owner_moves,
+                                     update_device_direct, update_host_buffer,
+                                     update_moves)
 from repro_torch.env import DTYPE, resolve_device
 from repro_torch.fvm.assembly import CavityAssembly
 from repro_torch.fvm.cases import FlowCase, get_case
@@ -152,6 +161,27 @@ class SegregatedSolver:
     reshaped over the same devices when alpha changes.  The full mesh is
     f64 only and unpadded, as in JAX: a refined ``precision`` raises at
     construction and, set later, at the next solve.
+
+    ``solve_mode="stacked"`` with an explicit ``spmd_mesh`` (a
+    :class:`~repro_torch.core.comm.ShardMesh`, or a ``DeviceMesh`` with
+    the axes ``("solve", "assemble")``) runs the paper's layout: fine part
+    ``f`` on its position of the assembly layout, coarse part ``c`` solved
+    at its owner (:func:`~repro_torch.core.update.owner_positions`).  Its
+    positions must all be on ``device``, the first one included: the
+    device's positions are one tensor there, so the step is the stacked
+    step, launch for launch and bit for bit (a mesh over distinct devices
+    is not ported).  The mesh keeps its shape across :meth:`rebind_alpha`,
+    as JAX's does, and the owners follow JAX's block rule.  ``moves``
+    records what each step carries between positions and between devices,
+    by kind (:class:`~repro_torch.core.update.MoveRecord`: the two value
+    updates, the solve operands ``b_c``, ``x0_c`` and ``diag_c`` to the
+    owners, the solution back, the assembly's neighbour planes); it is
+    None without such a mesh.  :meth:`step`, :meth:`run_steps`,
+    :meth:`run`, :meth:`timed_step` and :meth:`run_steady` take a state
+    whose leaves are in the assembly layout
+    (:func:`~repro_torch.core.comm.assembly_layout`, every position on
+    ``device``) as well as a stacked one, and hand the state back in the
+    layout it came in.
     """
 
     mesh: CavityMesh
@@ -219,9 +249,15 @@ class SegregatedSolver:
         if self.padded and self.full_mesh_solve:
             raise ValueError(
                 "padded (size-class) meshes require solve_mode='stacked'")
-        # an explicit mesh is kept (and reshaped); otherwise the full mesh
-        # builds its own at every ratio
+        # an explicit mesh is kept (the full mesh reshapes it); otherwise
+        # the full mesh builds its own at every ratio
         self._auto_mesh = self.spmd_mesh is None
+        self.moves = None
+        if self.spmd_mesh is not None:
+            self.spmd_mesh = ShardMesh.from_device_mesh(self.spmd_mesh)
+            if not self.full_mesh_solve:
+                self._check_stacked_mesh(self.spmd_mesh)
+                self.moves = MoveRecord()
         if self.update_schedule not in ("device_direct", "host_buffer"):
             raise ValueError(
                 f"unknown update schedule {self.update_schedule!r}")
@@ -233,6 +269,8 @@ class SegregatedSolver:
         self.asm = CavityAssembly(self.mesh, nu=self.nu,
                                   lid_speed=self.lid_speed, dtype=self.dtype,
                                   case=asm_case, device=self.device)
+        if self.moves is not None:
+            self.asm.on_halo = self._count_halo
         self._update = (update_device_direct
                         if self.update_schedule == "device_direct"
                         else update_host_buffer)
@@ -280,7 +318,9 @@ class SegregatedSolver:
         key the binding as they key the cache, so the binding always holds
         the plan the cache returned for them.  In full-mesh mode the
         automatic mesh is rebuilt at the new shape and an explicit one
-        reshaped over its devices.
+        reshaped over its devices; in stacked mode an explicit mesh keeps
+        its shape (JAX's), and the coarse parts go to its solve rows by the
+        block rule.
         """
         if self.mesh.n_parts % alpha != 0:
             raise ValueError("alpha must divide the number of fine parts")
@@ -307,8 +347,6 @@ class SegregatedSolver:
         """The full mesh at ``(n_coarse, alpha)``: built from the visible
         devices, or the explicit mesh reshaped over its devices; its first
         shard must be on the solver's device."""
-        from repro_torch.core.comm import canonical_device, make_cfd_mesh
-
         if self._auto_mesh:
             mesh = make_cfd_mesh(n_coarse, alpha,
                                  device_type=self.device.type)
@@ -323,6 +361,50 @@ class SegregatedSolver:
                              f"solver's state on {home}")
         return mesh
 
+    def _check_stacked_mesh(self, mesh: ShardMesh) -> None:
+        """A stacked solve's mesh: every position on the solver's device
+        (the first one named in the error when it is not), the fine parts
+        in equal blocks over the positions."""
+        first, home = mesh.flat()[0], canonical_device(self.device)
+        if first != home:
+            raise ValueError(f"the mesh's first position is on {first}, "
+                             f"the solver's state on {home}")
+        if mesh.one_device is None:
+            raise ValueError(
+                "the stacked solve over a mesh runs with every position on "
+                "the solver's device; a mesh over distinct devices "
+                f"({sorted(set(map(str, mesh.flat())))}) is not ported")
+        if self.mesh.n_parts % mesh.size:
+            raise ValueError(f"{self.mesh.n_parts} fine parts do not lay "
+                             f"out over {mesh.size} mesh positions")
+
+    def _count_halo(self, x: torch.Tensor) -> None:
+        """The assembly's neighbour planes of ``x`` across positions."""
+        plane_bytes = self.mesh.plane * x.element_size() * x[0, 0].numel()
+        self.moves.add("halo", halo_moves(self.spmd_mesh, self.mesh.n_parts,
+                                          plane_bytes))
+
+    def _solve_constraint(self, x: torch.Tensor, kind: str | None = None
+                          ) -> torch.Tensor:
+        """Pin a solve-phase tensor ``(n_c, ...)`` to the solve layout
+        (:func:`~repro_torch.core.comm.solve_constraint`, a no-op off a
+        mesh).  ``kind`` names the move that takes it there from the fine
+        layout, each fine part's share to its owner, added to ``moves``."""
+        x = solve_constraint(self.spmd_mesh, x, full_mesh=self.full_mesh_solve)
+        if kind is not None:
+            self._count_owner(kind, x)
+        return x
+
+    def _count_owner(self, kind: str, x: torch.Tensor) -> None:
+        """Each fine part's share of the coarse ``x`` between its position
+        and its owner, added to ``moves`` (off a mesh: nothing)."""
+        if self.moves is None:
+            return
+        P = self.mesh.n_parts
+        self.moves.add(kind, owner_moves(
+            self.spmd_mesh, P, P // x.shape[0],
+            x.numel() * x.element_size() // P))
+
     def _check_full_mesh_policy(self, precision: str) -> None:
         if precision != "f64" and self.full_mesh_solve:
             raise ValueError(
@@ -335,11 +417,20 @@ class SegregatedSolver:
         return (self.full_mesh_solve and self.spmd_mesh is not None
                 and plan.alpha > 1)
 
-    def _bands(self, plan: RepartitionPlan, diag, upper, lower, iface):
-        """LDU buffers → repartitioned DIA bands via the update pattern."""
+    def _bands(self, plan: RepartitionPlan, diag, upper, lower, iface,
+               kind: str | None = None):
+        """LDU buffers → repartitioned DIA bands via the update pattern.
+        ``kind`` ("update_mom": the bands stay in the fine layout;
+        "update_p": they go to the solve layout) counts the update's moves
+        in ``moves``."""
         buffers = buffer_from_parts(diag, upper, lower, iface)  # (P_f, L)
         n_c = buffers.shape[0] // plan.alpha
         grouped = buffers.reshape(n_c, plan.alpha, plan.buffer_len)
+        if kind is not None and self.moves is not None:
+            self.moves.add(kind, update_moves(
+                self.spmd_mesh, buffers.shape[0], plan.alpha,
+                plan.buffer_len * buffers.element_size(),
+                self.update_schedule, solve_layout=kind != "update_mom"))
         return self._update(plan, grouped)
 
     def _solver_ops(self, plan: RepartitionPlan, bands, diag,
@@ -475,14 +566,48 @@ class SegregatedSolver:
             return self._exec.batched_pipelined(batch)
         return self._exec.batched(batch)
 
+    def _enter(self, state: PisoState):
+        """``state`` as the stepper takes it, and the function that hands a
+        resulting state back in the layout ``state`` came in.  A stacked
+        state passes as it is; a state in the assembly layout
+        (:func:`~repro_torch.core.comm.assembly_layout`, every position on
+        the solver's device, and over the solver's mesh when it has one) is
+        joined into the stacked tensors, bitwise; any other layout
+        raises."""
+        leaves = tuple(state)
+        if not any(isinstance(t, Sharded) for t in leaves):
+            return state, lambda st: st
+        if not all(isinstance(t, Sharded) for t in leaves):
+            raise ValueError("a state is in the assembly layout in every "
+                             "leaf or in none")
+        mesh, home = leaves[0].mesh, canonical_device(self.device)
+        for t in leaves:
+            if t.mesh != mesh:
+                raise ValueError("the state's leaves lie on distinct meshes")
+            if any(canonical_device(sh.device) != home for sh in t.shards):
+                raise ValueError(f"a state position off the solver's device "
+                                 f"{home}: {t!r}")
+        if self.moves is not None and mesh != self.spmd_mesh:
+            raise ValueError(f"the state is laid out over {mesh!r}, the "
+                             f"solver's mesh is {self.spmd_mesh!r}")
+        stacked = type(state)(*(stacked_layout(t, self.device)
+                                for t in leaves))
+        return stacked, lambda st: type(st)(*(assembly_layout(t, mesh)
+                                              for t in st))
+
     def step(self, state: PisoState, dt: float):
         """One timestep (one outer iteration of a steady program);
         returns ``(state, stats)``."""
-        return self._stepper.step(state, dt, *self._extras())
+        state, back = self._enter(state)
+        state, stats = self._stepper.step(state, dt, *self._extras())
+        return back(state), stats
 
     def run_steps(self, state: PisoState, dt: float, n_steps: int):
         """``n_steps`` timesteps; the stats fields stacked per step."""
-        return self._stepper.run_steps(state, dt, n_steps, *self._extras())
+        state, back = self._enter(state)
+        state, stats = self._stepper.run_steps(state, dt, n_steps,
+                                               *self._extras())
+        return back(state), stats
 
     def timed_step(self, state: PisoState, dt: float):
         """One step walked phase by phase with a timestamp at each phase
@@ -496,7 +621,10 @@ class SegregatedSolver:
         **halo** is 0 (no probe yet).  The state and stats are the ones
         :meth:`step` gives, bit for bit.
         """
-        return self._instrumented.timed_step(state, dt, *self._extras())
+        state, back = self._enter(state)
+        state, stats, row = self._instrumented.timed_step(state, dt,
+                                                          *self._extras())
+        return back(state), stats, row
 
     def run(self, n_steps: int, dt: float, state: PisoState | None = None,
             scan_steps: int | None = None):
@@ -509,12 +637,14 @@ class SegregatedSolver:
         state = self.initial_state() if state is None else state
         if scan_steps is None:
             return self.run_steps(state, dt, n_steps)
+        state, back = self._enter(state)
         windows = []
         for _sample, chunk in roll_schedule(0, n_steps, None, cap=scan_steps):
-            state, w = self.run_steps(state, dt, chunk)
+            state, w = self._stepper.run_steps(state, dt, chunk,
+                                               *self._extras())
             windows.append(w)
-        return state, type(windows[0])(*(torch.cat(f)
-                                         for f in zip(*windows)))
+        return back(state), type(windows[0])(*(torch.cat(f)
+                                               for f in zip(*windows)))
 
     def run_steady(self, dt: float = 1.0, state: PisoState | None = None,
                    max_outer: int | None = None):
@@ -527,9 +657,11 @@ class SegregatedSolver:
         run (the cap, ``max_outer`` or the solver's, when unconverged).
         """
         state = self.initial_state() if state is None else state
+        state, back = self._enter(state)
         cap = self.max_outer if max_outer is None else max_outer
-        return self._exec.serial.run_converged(state, dt, cap,
-                                               *self._extras())
+        state, stats, n_outer = self._exec.serial.run_converged(
+            state, dt, cap, *self._extras())
+        return back(state), stats, n_outer
 
 
 @dataclasses.dataclass

@@ -165,7 +165,8 @@ def build_simple_program(solver, lanes: int | None = None,
     return StepProgram(phases=phases, seed=seed, finalize=finalize,
                        seed_keys=seed_keys, extra_keys=extra_keys,
                        converged=converged,
-                       lanes_of=cohort_form(solver, lanes, lanes_of))
+                       lanes_of=cohort_form(solver, lanes, lanes_of),
+                       moves=tk.moves)
 
 
 register_program(ProgramSpec(

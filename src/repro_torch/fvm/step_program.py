@@ -224,6 +224,10 @@ class StepProgram:
     # a (B,) dt and (B,) extras, and its stats carry a leading lane axis);
     # None for a cohort form itself
     lanes_of: Callable | None = None
+    # the binding's per-step move record over a (solve, assemble) mesh
+    # (repro_torch.core.update.MoveRecord: the seed clears it, the phases
+    # add to it); None off a mesh
+    moves: object | None = None
 
     def __post_init__(self):
         self._validate_phases(self.phases, set(self.seed_keys))
@@ -406,11 +410,14 @@ class InstrumentedExecutor:
     0: the port has no probe of the exchange yet (the stacked layout keeps
     every part on one device).  The walk is always the serial schedule,
     also for a pipelined session: every breakdown has ``overlapped=False``.
+    ``last_moves`` is the walked step's move record over a mesh
+    (``{kind: MoveStats}``, None off a mesh).
     """
 
     def __init__(self, program: StepProgram):
         self.program = program
         self.calls = 0
+        self.last_moves = None
 
     def timed_step(self, state, dt, *extra):
         """One step; returns ``(state, stats, PhaseBreakdown)``."""
@@ -419,6 +426,8 @@ class InstrumentedExecutor:
         env = prog.seed(state, dt, *extra)
         (row,) = _timed_walk(prog, env, state[0].device, 1)
         state, stats = prog.finalize(env)
+        if prog.moves is not None:
+            self.last_moves = dict(prog.moves.kinds)
         return state, stats, PhaseBreakdown(**row)
 
 
@@ -522,8 +531,8 @@ class BatchedExecutor:
             raise ValueError(f"batch must be >= 1, got {batch}")
         if program.lanes_of is None:
             raise ValueError("program has no cohort form (lanes_of): a "
-                             "cohort build, or a full-mesh binding, which "
-                             "steps alone")
+                             "cohort build, or a binding over a mesh, "
+                             "which steps alone")
         self.program = program
         self.batch = batch
         self.lanes = program.lanes_of(batch)
@@ -827,6 +836,7 @@ class PhaseToolkit:
     mask_keys: tuple[str, ...]
     asm_of: Callable            # (*masks) -> assembly view
     layout: LaneLayout
+    moves: object | None        # the solver's MoveRecord over a mesh
     assemble_mom: Callable
     update_mom: Callable
     solve_mom: Callable
@@ -844,9 +854,10 @@ class PhaseToolkit:
 
 def cohort_form(solver, lanes: int | None, lanes_of: Callable):
     """A program build's ``lanes_of``: None for a cohort build (it is one)
-    and for a full-mesh binding, which steps alone (its pressure system
-    spans the shard mesh; the JAX engine never batches it either)."""
-    if lanes is not None or getattr(solver, "full_mesh_solve", False):
+    and for a binding over a mesh, which steps alone (a full-mesh pressure
+    system spans the shard mesh, a stacked one over a mesh keeps its state
+    in the mesh's layout; the JAX engine batches neither)."""
+    if lanes is not None or solver.spmd_mesh is not None:
         return None
     return lanes_of
 
@@ -885,8 +896,9 @@ def _phase_toolkit(solver, lanes: int | None = None,
                                                 phi_b=phi_b)
 
     def update_mom(sysM):
+        # the momentum system stays in the fine layout (alpha 1)
         return solver._bands(plan_m, sysM.diag, sysM.upper, sysM.lower,
-                             sysM.iface)
+                             sysM.iface, kind="update_mom")
 
     def solve_mom(bandsM, sysM, U):
         # the three velocity components one after another, each its own
@@ -912,16 +924,23 @@ def _phase_toolkit(solver, lanes: int | None = None,
         sysP = a.assemble_pressure(rAU, phiH, phiH_if, phiH_b)
         return rAU, HbyA, phiH, phiH_if, phiH_b, sysP
 
+    # over a mesh, the pressure operands are pinned to the solve layout
+    # (the fine parts' shares go to their coarse part's owner, counted in
+    # the solver's move record) and the solution comes back to the fine
+    # layout for the correctors
+    pin = solver._solve_constraint
+
     def update_p(sysP):
-        return solver._bands(plan_p, sysP.diag, sysP.upper, sysP.lower,
-                             sysP.iface)
+        return pin(solver._bands(plan_p, sysP.diag, sysP.upper, sysP.lower,
+                                 sysP.iface, kind="update_p"))
 
     def solve_p(bandsP, sysP, p):
-        b_c = sysP.source.reshape(n_c, -1)
-        x0_c = p.reshape(n_c, -1)
-        diag_c = sysP.diag.reshape(n_c, -1)
+        b_c = pin(sysP.source.reshape(n_c, -1), "b_c")
+        x0_c = pin(p.reshape(n_c, -1), "x0_c")
+        diag_c = pin(sysP.diag.reshape(n_c, -1), "diag_c")
         opsP = solver._solver_ops(plan_p, bandsP, diag_c, lanes=lanes)
         sol = cg(opsP, b_c, x0_c, tol=solver.p_tol, maxiter=solver.p_maxiter)
+        solver._count_owner("x_back", sol.x)
         return (sol.x.reshape(p.shape), sol.iters, sol.residual,
                 sol.converged, sol.hit_cap)
 
@@ -954,7 +973,8 @@ def _phase_toolkit(solver, lanes: int | None = None,
 
     return PhaseToolkit(
         asm=asm, padded=padded, mask_keys=mask_keys, asm_of=asm_of,
-        layout=layout, assemble_mom=assemble_mom, update_mom=update_mom,
+        layout=layout, moves=solver.moves, assemble_mom=assemble_mom,
+        update_mom=update_mom,
         solve_mom=solve_mom, assemble_p=assemble_p, update_p=update_p,
         solve_p=solve_p, assemble_mom_g=assemble_mom_g,
         assemble_p_mat=assemble_p_mat, assemble_p_src=assemble_p_src,
@@ -967,6 +987,8 @@ def seed_env(tk: PhaseToolkit, state, dt, n_active=None) -> dict:
     padded program, ``n_active`` with the activity masks derived from
     it."""
     lay = tk.layout
+    if tk.moves is not None:
+        tk.moves.reset()
     U, p, phi, phi_if, phi_b = (lay.flat(t) for t in state)
     if lay.lanes is not None:
         dt = dt.repeat_interleave(lay.parts)
@@ -1138,7 +1160,8 @@ def build_piso_program(solver, lanes: int | None = None,
     return StepProgram(phases=tuple(phases), seed=seed, finalize=finalize,
                        seed_keys=seed_keys, extra_keys=extra_keys,
                        pipeline=pipeline,
-                       lanes_of=cohort_form(solver, lanes, lanes_of))
+                       lanes_of=cohort_form(solver, lanes, lanes_of),
+                       moves=tk.moves)
 
 
 register_program(ProgramSpec(

@@ -28,7 +28,11 @@ the controller scores alphas with the matching objective.
 ``--solve-mode full_mesh`` solves the pressure system over ``--parts`` row
 shards, one per fine part, on ``--mesh-devices`` (a comma list, repeats
 allowed: ``cuda:0`` thirty times puts 30 shards on one card; default: the
-visible devices, and too few raise).  ``--device`` defaults to ``cuda``;
+visible devices, and too few raise).  ``--mesh-devices`` with the stacked
+mode runs the paper's layout over the ``(parts / alpha, alpha)`` mesh:
+the fine state in the assembly layout, the pressure system at each coarse
+part's owner, and the bytes a step moves between positions (and between
+devices) on the summary line; every position must be on ``--device``.  ``--device`` defaults to ``cuda``;
 ``--device cpu`` runs the same path on the CPU.
 ``python -m repro_torch.launch.cavity`` is the same launcher.
 """
@@ -51,7 +55,8 @@ from repro_torch.fvm.step_program import get_program, roll_schedule
 from repro_torch.solvers.ops import resolve_backend
 
 __all__ = ["build_parser", "build_solver", "cost_model", "pipelined",
-           "run_transient", "run_adaptive", "run_steady", "main"]
+           "moved_note", "run_transient", "run_adaptive", "run_steady",
+           "main"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -89,11 +94,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "part's rows together; full_mesh cuts them into "
                          "--parts row shards over --mesh-devices")
     ap.add_argument("--mesh-devices", default=None,
-                    help="full_mesh: comma list of the shards' devices, one "
-                         "per fine part, repeats allowed (e.g. cuda:0 "
-                         "repeated, or cpu,cpu,...); default: the visible "
-                         "devices of --device's type, which must be "
-                         "--parts many")
+                    help="comma list of the (parts/alpha, alpha) mesh's "
+                         "devices, one per fine part, repeats allowed (e.g. "
+                         "cuda:0 repeated, or cpu,cpu,...).  full_mesh: the "
+                         "row shards' devices (default: the visible devices "
+                         "of --device's type, which must be --parts many); "
+                         "stacked: the assembly layout's positions, all on "
+                         "--device (default: no mesh)")
     ap.add_argument("--solver-backend", default="auto",
                     choices=["auto", "fused", "reference"],
                     help="Krylov per-iteration backend: fused = the CUDA "
@@ -162,6 +169,17 @@ def build_solver(args, alpha: int | None = None,
                        pipeline=args.pipeline, device=args.device,
                        plan_cache=plan_cache, solve_mode=args.solve_mode,
                        spmd_mesh=spmd_mesh)
+
+
+def moved_note(solver: SegregatedSolver) -> str:
+    """The last step's moves over the solver's mesh for the summary line
+    (nothing without one)."""
+    if solver.moves is None:
+        return ""
+    total = solver.moves.total()
+    return (f", mesh={tuple(solver.spmd_mesh.shape)}, moved "
+            f"{total.positions} B between positions ({total.devices} B "
+            f"between devices) in the last step")
 
 
 def _sync(device: torch.device) -> None:
@@ -356,7 +374,7 @@ def main(argv=None):
           f"solver_backend={args.solver_backend}, "
           f"solve_mode={solver.solve_mode}, device={solver.device}, "
           f"scan_steps={max(args.scan_steps, 1)}, "
-          f"pipelined={solver.pipelined})")
+          f"pipelined={solver.pipelined}{moved_note(solver)})")
     return state, stats
 
 

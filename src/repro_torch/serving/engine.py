@@ -242,7 +242,7 @@ class SimulationEngine:
         and a full-mesh session always steps alone; its shards' devices
         come in ``solver_kw`` as ``spmd_mesh``
         (:func:`~repro_torch.core.comm.make_cfd_mesh`), or from the
-        visible devices.  ``solver_kw`` are further solver settings
+        visible devices; a stacked session takes no mesh (raises).  ``solver_kw`` are further solver settings
         (``p_tol``, ``p_maxiter``, ``mom_tol``, ...).  The default cost
         model is ``CostModel(H100, n_dofs=...)`` at the mesh's real dofs.
         """
@@ -253,6 +253,11 @@ class SimulationEngine:
 
         if sid in self.sessions:
             raise ValueError(f"session {sid!r} already open")
+        if (solve_mode == "stacked"
+                and solver_kw.get("spmd_mesh") is not None):
+            raise ValueError("a stacked tenant takes no spmd_mesh: the "
+                             "engine steps stacked tenants in cohorts on "
+                             "its device")
         if priority not in ("bulk", "deadline"):
             raise ValueError(f"unknown priority {priority!r}")
         if pad_to_class is not None:

@@ -1210,3 +1210,91 @@ def test_phase18b_on_the_cpu(monkeypatch):
     # no launcher ran: its checks are the only ones that fail
     assert problems and all("launcher" in p or "step-4" in p
                             for p in problems)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the stacked solve over a (solve, assemble) mesh; 17b's
+# analytical FLOPs
+# ---------------------------------------------------------------------------
+
+def test_assembly_mesh_flag_parses():
+    assert chip_smoke.build_parser().parse_args(
+        ["--assembly-mesh"]).assembly_mesh
+    assert not chip_smoke.build_parser().parse_args([]).assembly_mesh
+
+
+def test_assembly_mesh_bytes_are_the_closed_form_at_210():
+    """Phase 19's bars: ``(alpha - 1) * n_coarse * L * 8`` with L the
+    210^3 fine part's LDU buffer (cells, both sides of its faces, both
+    interface planes), the length ``plan_for_mesh`` gives at any size."""
+    from repro_torch.core.repartition import plan_for_mesh
+    from repro_torch.fvm.mesh import CavityMesh
+
+    def buffer_len(mesh):
+        return mesh.n_cells + 2 * mesh.n_faces + 2 * mesh.plane
+
+    small = CavityMesh.cube(8, 4)
+    assert plan_for_mesh(small, 2).buffer_len == buffer_len(small)
+    big = CavityMesh.cube(chip_smoke.N, chip_smoke.PARTS)
+    L = buffer_len(big)
+    assert L == 2_155_020
+    for alpha, want in chip_smoke.ASSEMBLY_MESH_BYTES.items():
+        n_c = chip_smoke.PARTS // alpha
+        assert want == (alpha - 1) * n_c * L * 8
+        forms = chip_smoke.mesh_move_forms(n_c, alpha, L, L, big.n_cells,
+                                           updates=1, solves=2)
+        assert forms["device_direct"]["update_p"] == want
+        assert forms["host_buffer"]["update_p"] >= want
+    assert chip_smoke.mesh_move_forms(1, 30, L, L, big.n_cells, 1, 2)[
+        "device_direct"]["x_back"] == 2 * 29 * 308_700 * 8
+
+
+@pytest.mark.parametrize("pipeline", ["auto", "off"])
+@pytest.mark.parametrize("schedule", ["device_direct", "host_buffer"])
+def test_mesh_move_forms_are_the_solver_record(schedule, pipeline):
+    """The closed forms phase 19 holds a step to are what a solver over
+    a mesh records, on a small cavity on the CPU."""
+    from repro_torch.core.comm import assembly_layout, make_cfd_mesh
+    from repro_torch.fvm.mesh import CavityMesh
+    from repro_torch.fvm.piso import PisoSolver, PisoState
+
+    cube = CavityMesh.cube(8, 8)
+    mesh = make_cfd_mesh(2, 4, devices=["cpu"] * 8)
+    solver = PisoSolver(cube, alpha=4, spmd_mesh=mesh, device="cpu",
+                        update_schedule=schedule, pipeline=pipeline)
+    state = PisoState(*(assembly_layout(t, mesh)
+                        for t in solver.initial_state()))
+    solver.step(state, 2e-4)
+    forms = chip_smoke.mesh_move_forms(
+        2, 4, solver.plan_p.buffer_len, solver.plan_mom.buffer_len,
+        cube.n_cells, updates=1 if solver.pipelined else 2, solves=2)
+    got = solver.moves.kinds
+    assert chip_smoke.move_problems(got, forms[schedule], "t") == []
+    other = ("host_buffer" if schedule == "device_direct"
+             else "device_direct")
+    assert chip_smoke.move_problems(got, forms[other], "t")
+
+
+def test_move_problems_names_what_differs():
+    from repro_torch.core.layout import MoveStats
+
+    want = dict.fromkeys(chip_smoke.MOVE_KINDS, 10)
+    got = {k: MoveStats(10, 0) for k in chip_smoke.MOVE_KINDS}
+    assert chip_smoke.move_problems(dict(got, halo=MoveStats(4, 0)), want,
+                                    "t") == []
+    bad = chip_smoke.move_problems(dict(got, b_c=MoveStats(9, 0)), want, "t")
+    assert len(bad) == 2 and "b_c moved 9" in bad[0] and "halo" in bad[1]
+
+
+def test_analytical_step_flops_scale_train_4k_to_the_cut_batch():
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.analysis import analytical_flops
+
+    cfg = get_config("qwen3-0.6b")
+    got = chip_smoke.analytical_step_flops(cfg, chip_smoke.TRAIN_BATCH)
+    full = analytical_flops(cfg, "train_4k")
+    k = chip_smoke.TRAIN_BATCH / 256
+    assert got == {"total": full.total * k, "ideal": full.ideal * k,
+                   "model_flops_6nd": full.model_flops_6nd * k}
+    # exact: every term counts tokens at the shape's sequence length
+    assert got["total"] == 269182780309504.0 and got["total"] > got["ideal"]

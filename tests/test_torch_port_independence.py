@@ -43,7 +43,8 @@ def test_launcher_import_loads_no_jax():
             "repro_torch.launch.train, repro_torch.training.train_step, "
             "repro_torch.launch.mesh, repro_torch.models.sharding, "
             "repro_torch.training.pipeline, "
-            "repro_torch.serving.repartition_kv; "
+            "repro_torch.serving.repartition_kv, "
+            "repro_torch.launch.analysis, repro_torch.core.layout; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
