@@ -9,8 +9,9 @@
   python3 chip_smoke.py --full-mesh
   python3 chip_smoke.py --lm
   python3 chip_smoke.py --train
-  python3 chip_smoke.py --lm-mesh
+  python3 chip_smoke.py --lm-mesh [--dryrun]
   python3 chip_smoke.py --assembly-mesh
+  python3 chip_smoke.py --dryrun
 
 Runs from the root of a checkout and needs one CUDA card; with no card, or
 without the rest of the checkout beside it, it exits nonzero and prints no
@@ -332,7 +333,15 @@ result.  Phases, in order (any failure exits nonzero):
     model's ``t_repartition`` volume and JAX's replicated solve layout;
     s a step with and without the mesh.  Its checks are collected and
     fail the run after it has printed; its results go on a line of their
-    own (``assembly_mesh {...}``).
+    own (``assembly_mesh {...}``);
+20. the port's dry-run on the card's host (``python -m
+    repro_torch.launch.dryrun --all --mesh both`` into a temporary
+    directory; it touches no device): 80 records, 66 ``ok``, 14
+    ``skipped``, none in error, each under JAX's file name, the command's
+    seconds; then the ``moves`` it composes at 18b's configuration
+    (qwen3-0.6b cut to 4 layers, a (2, 4) mesh naming ``cuda:0`` 8 times,
+    accum 1) against the ``MeshStepStats`` 18b measured, integer for
+    integer.  Its results go on a line of their own (``dryrun {...}``).
 
 In phases 9-14 every kernel wrapper's plain version is made to raise while
 the kernel runs go: the card's path launches the kernels only (14c's
@@ -369,7 +378,8 @@ full-mesh CG instead.  With ``--serving``, phases 1 and 2 run, then phases
 13 and 14 from the main path's 3-step state; with ``--full-mesh`` alone,
 phase 15; with ``--lm``, phase 16; with ``--train``, phase 17; with
 ``--lm-mesh``, phase 18; with ``--assembly-mesh``, phase 19 from the main
-path's 3-step state.
+path's 3-step state; with ``--dryrun``, phase 20 (after phase 18 when
+``--lm-mesh`` is given too, else without 18b's bytes to compare).
 """
 from __future__ import annotations
 
@@ -6528,6 +6538,105 @@ def serving_phases(torch, dev, state3) -> dict:
     return serving
 
 
+DRYRUN_STATUS = {"ok": 66, "skipped": 14, "error": 0}  # 20: 10 archs x 4
+#                          shapes x 2 meshes; long_500k skipped for the 7
+#                          full-attention archs on each mesh
+DRYRUN_TIMEOUT = 300     # 20: s for the whole dry-run (about 11 s on one
+#                          host core)
+
+
+def dryrun_status(records: list) -> dict:
+    return {k: sum(1 for r in records if r.get("status") == k)
+            for k in DRYRUN_STATUS}
+
+
+def dryrun_problems(records: list, names: list) -> list:
+    """What is wrong with the dry-run's records (``names``: their file
+    names): the count by status, a record in error, a name that is not
+    JAX's ``{arch}__{shape}__{mesh}.json``."""
+    out = []
+    got = dryrun_status(records)
+    if got != DRYRUN_STATUS or len(records) != sum(DRYRUN_STATUS.values()):
+        out.append(f"20: {len(records)} records, {got}, want "
+                   f"{DRYRUN_STATUS}")
+    for r, name in zip(records, names):
+        want = f"{r.get('arch')}__{r.get('shape')}__{r.get('mesh')}.json"
+        if name != want:
+            out.append(f"20: {name} holds the record of {want}")
+        if r.get("status") == "error":
+            out.append(f"20: {name}: {r.get('error')}")
+    return out
+
+
+def composed_18b_moves() -> dict:
+    """The moves :func:`mesh_step_moves` composes at 18b's configuration,
+    as 18b reports what it measured."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.config import validate
+    from repro_torch.training.train_step import mesh_step_moves
+
+    cfg = validate(dataclasses.replace(get_config(QWEN),
+                                       n_layers=MESH_LAYERS))
+    mesh = make_debug_mesh(*MESH_SHAPE, devices=mesh_devices(8))
+    moved = mesh_step_moves(lm.param_specs(cfg), mesh, 1,
+                            global_batch=MESH_BATCH)
+    return {k: list(v) for k, v in moved._asdict().items()}
+
+
+def dryrun_phase(lm_mesh: dict | None = None) -> dict:
+    """Phase 20 (see the module docstring): the whole dry-run as a user
+    runs it, then, with phase 18's result, 18b's bytes."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    print("[20] the port's dry-run: every (arch x shape x mesh) cell on the "
+          "production meshes, on the host")
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "both", "--out", tmp], capture_output=True, text=True,
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            timeout=DRYRUN_TIMEOUT)
+        paths = sorted(Path(tmp).glob("*.json"))
+        records = [json.loads(p.read_text()) for p in paths]
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        problems.append(f"20: the dry-run exited {proc.returncode}: "
+                        f"{proc.stderr[-2000:]}")
+    problems += dryrun_problems(records, [p.name for p in paths])
+    status = dryrun_status(records)
+    out = {"records": len(records), "status": status, "dryrun_s": seconds,
+           "moves_reason": sorted(f"{r['arch']} x {r['mesh']}"
+                                  for r in records if "moves_reason" in r)}
+    print(f"  [20] {len(records)} records {status} in {seconds:.1f} s "
+          f"(the command, interpreter start included); train cells whose "
+          f"batch does not split over the data rows: {out['moves_reason']}")
+    measured = (lm_mesh or {}).get("train", {}).get("moved")
+    if measured is None:
+        print("  [20] 18b did not run in this invocation: its bytes are "
+              "not compared")
+    else:
+        composed = composed_18b_moves()
+        equal = composed == measured
+        if not equal:
+            problems.append(f"20: 18b's moves composed {composed}, "
+                            f"measured {measured}")
+        out["moves_18b"] = {"composed": composed, "measured": measured,
+                            "equal": equal}
+        print(f"  [20] 18b's mesh step, [between positions, between "
+              f"devices] B: composed {composed}, measured {measured}; "
+              f"equal {equal}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  [20] {out['seconds']:.1f} s")
+    for p in problems:
+        print(f"  FAILED: {p}")
+    require(not problems, f"phase 20: {len(problems)} check(s) failed")
+    return out
+
+
 def free_device(torch) -> None:
     """Collect the solvers (their programs close over them) and give the
     cached blocks back."""
@@ -6564,6 +6673,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="phase 19 (the stacked solve over a (solve, "
                          "assemble) mesh) alone, after phases 1-2, from a "
                          "3-step state of the main path's solver")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="phase 20 (the port's dry-run of every cell) "
+                         "alone, after phases 1-2; with --lm-mesh, after "
+                         "phase 18, checking 18b's bytes too")
     return ap
 
 
@@ -6642,10 +6755,14 @@ def main(argv=None) -> int:
             print(smi_line())
             print(ok_line(torch))
             return 0
-        if args.lm_mesh:
-            result = lm_mesh_phase(torch, dev)
+        if args.lm_mesh or args.dryrun:
+            result = lm_mesh_phase(torch, dev) if args.lm_mesh else None
+            ran = dryrun_phase(result) if args.dryrun else None
             print(f"done in {time.perf_counter() - t_start:.1f} s")
-            print("lm_mesh " + json.dumps(result, default=str))
+            if result is not None:
+                print("lm_mesh " + json.dumps(result, default=str))
+            if ran is not None:
+                print("dryrun " + json.dumps(ran, default=str))
             print(smi_line())
             print(ok_line(torch))
             return 0
@@ -6675,10 +6792,12 @@ def main(argv=None) -> int:
         free_device(torch)
         summary["lm_mesh"] = lm_mesh_phase(torch, dev)
         free_device(torch)
+        summary["dryrun"] = dryrun_phase(summary["lm_mesh"])
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         print("lm " + json.dumps(summary["lm"], default=str))
         print("train " + json.dumps(summary["train"], default=str))
         print("lm_mesh " + json.dumps(summary["lm_mesh"], default=str))
+        print("dryrun " + json.dumps(summary["dryrun"], default=str))
         summary["momentum_shape_times"] = {
             name: report[name]["momentum"] for name in report
             if "momentum" in report[name]}

@@ -29,6 +29,8 @@ each shard on its own device.  The ``model`` axis splits storage only:
 tensor-parallel products over ``model`` (Megatron-style column/row
 splits with their reductions) are the next item of the LM mesh work
 (ROADMAP), so every row computes with whole parameters.
+:func:`mesh_step_moves` composes the bytes a mesh step moves from the
+specs alone, without running it (the dry-run's ``moves``).
 """
 from __future__ import annotations
 
@@ -43,8 +45,8 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MetaGenerator
 from repro_torch.models.sharding import (MoveStats, Sharded, dp_axes,
-                                         param_shardings, reshard, shard,
-                                         sharded_leaves, unshard,
+                                         move_plan, param_shardings, reshard,
+                                         shard, sharded_leaves, unshard,
                                          unshard_moves)
 from repro_torch.training.grad_compress import (compress_tree,
                                                 decompress_tree, init_error)
@@ -52,7 +54,8 @@ from repro_torch.training.optimizer import AdamW, AdamWState, global_norm
 from repro_torch.training.tree import leaves, tree_map, unflatten
 
 __all__ = ["TrainState", "MeshStepStats", "make_train_step", "init_state",
-           "state_specs", "shard_state", "unshard_state", "data_rows"]
+           "state_specs", "shard_state", "unshard_state", "data_rows",
+           "mesh_step_moves"]
 
 
 class TrainState(NamedTuple):
@@ -82,6 +85,16 @@ def data_rows(mesh: DeviceMesh) -> list[tuple[int, ...]]:
     return list(itertools.product(*(
         range(mesh.shape[a]) if a in dp else range(1)
         for a in mesh.axis_names)))
+
+
+def _microbatch_rows(B: int, accum: int, D: int) -> int:
+    """The rows of one data row's microbatch slice; raises when a global
+    batch of ``B`` does not split into ``accum`` microbatches over ``D``
+    data rows."""
+    if B % (accum * D):
+        raise ValueError(f"a global batch of {B} does not split into "
+                         f"{accum} microbatches over {D} data rows")
+    return B // (accum * D)
 
 
 def make_train_step(cfg: ModelConfig, optimizer: AdamW,
@@ -156,11 +169,7 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
         home = devs[0]
         rows = data_rows(mesh)
         D = len(rows)
-        B = next(iter(batch.values())).shape[0]
-        if B % (accum * D):
-            raise ValueError(f"a global batch of {B} does not split into "
-                             f"{accum} microbatches over {D} data rows")
-        b = B // (accum * D)
+        b = _microbatch_rows(next(iter(batch.values())).shape[0], accum, D)
         # the whole parameters, once per distinct row device
         gather, full = MoveStats(), {}
         for c in rows:
@@ -240,6 +249,92 @@ def _scatter_bytes(sharded: list) -> MoveStats:
         for k in range(1, len(devs)):
             out += MoveStats(n, n if devs[k] != devs[0] else 0)
     return out
+
+
+def mesh_step_moves(params, mesh: DeviceMesh, accum: int,
+                    global_batch: int | None = None, grad_shardings=None,
+                    compress: bool = False) -> MeshStepStats:
+    """The :class:`MeshStepStats` one step of ``make_train_step(...,
+    accum=accum, compress=compress, grad_shardings=grad_shardings)`` counts
+    on a state of ``params`` placed on ``mesh`` by :func:`shard_state`,
+    composed from the leaves' shapes and dtypes (``meta`` tensors will do)
+    and the shardings alone, without running the step.
+
+    An abstract mesh (no devices) counts each position as a device of its
+    own, as the production meshes' chips are.  With ``global_batch``, raises
+    as the step does when it does not split over the data rows.
+    """
+    pos = mesh.positions()
+    devs = (list(range(len(pos))) if mesh.abstract
+            else mesh.device_list())
+    home = devs[0]
+    rows = data_rows(mesh)
+    D = len(rows)
+    if global_batch is not None:
+        _microbatch_rows(global_batch, accum, D)
+    p_leaves = leaves(params)
+    p_sh = leaves(param_shardings(mesh, params))
+    shapes = [tuple(p.shape) for p in p_leaves]
+
+    def gathers(shapes_items, shardings, targets):
+        """:func:`unshard_moves` of each ``(shape, itemsize)`` leaf laid
+        out by ``shardings`` onto each ``(device, home index)`` of
+        ``targets``."""
+        blocks = crossing = 0
+        for (shape, item), sh in zip(shapes_items, shardings):
+            n = math.prod(sh.shard_shape(shape)) * item
+            held: dict = {}
+            for k, c in enumerate(pos):
+                held.setdefault(sh.block(c, len(shape)), set()).add(devs[k])
+            for dev, k in targets:
+                # every block but the home's own, from another device
+                # where no holder is on ``dev``
+                blocks += (len(held) - 1) * n
+                crossing += n * sum(1 for on in held.values()
+                                    if dev not in on)
+        return MoveStats(blocks, crossing)
+
+    def scatters(shapes_items, shardings):
+        """:func:`_scatter_bytes` of ``(shape, itemsize)`` leaves laid out
+        by ``shardings``."""
+        off = sum(1 for d in devs[1:] if d != home)
+        out = MoveStats()
+        for (shape, item), sh in zip(shapes_items, shardings):
+            n = math.prod(sh.shard_shape(shape)) * item
+            out += MoveStats((len(pos) - 1) * n, off * n)
+        return out
+
+    targets, seen = [], set()
+    for c in rows:
+        k = pos.index(c)
+        if devs[k] not in seen:
+            seen.add(devs[k])
+            targets.append((devs[k], k))
+    gather = gathers([(s, p.element_size()) for s, p in zip(shapes, p_leaves)],
+                     p_sh, targets)
+    g_bytes = sum(math.prod(p.shape) * p.element_size() for p in p_leaves)
+    off_home = sum(1 for c in rows if devs[pos.index(c)] != home)
+    reduce = MoveStats(accum * (D - 1) * g_bytes, accum * off_home * g_bytes)
+    scatter = MoveStats()
+    f32 = torch.float32.itemsize
+    if compress:   # the f32 error buffers, gathered home and scattered
+        reduce += gathers([(s, f32) for s in shapes], p_sh, [(home, 0)])
+        scatter += scatters([(s, f32) for s in shapes], p_sh)
+    # the reduced gradient: f32 once summed over microbatches or rows, or
+    # decompressed; else the parameters' dtype
+    g_item = [f32 if compress or accum * D > 1 else p.element_size()
+              for p in p_leaves]
+    g_sh = leaves(grad_shardings) if grad_shardings is not None else p_sh
+    scatter += scatters(list(zip(shapes, g_item)), g_sh)
+    relayout = MoveStats()
+    for shape, item, g, s in zip(shapes, g_item, g_sh, p_sh):
+        if g.spec == s.spec:
+            continue
+        for kd, ks, piece in move_plan(g, s, shape):
+            if ks != kd:
+                n = math.prod(hi - lo for lo, hi in piece) * item
+                relayout += MoveStats(n, n if devs[ks] != devs[kd] else 0)
+    return MeshStepStats(gather, reduce, scatter, relayout)
 
 
 def init_state(cfg: ModelConfig, optimizer: AdamW, gen: torch.Generator,

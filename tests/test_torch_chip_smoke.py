@@ -11,6 +11,7 @@ cover.
 """
 import dataclasses
 import math
+import subprocess
 import sys
 from pathlib import Path
 
@@ -1298,3 +1299,66 @@ def test_analytical_step_flops_scale_train_4k_to_the_cut_batch():
                    "model_flops_6nd": full.model_flops_6nd * k}
     # exact: every term counts tokens at the shape's sequence length
     assert got["total"] == 269182780309504.0 and got["total"] > got["ideal"]
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the port's dry-run
+# ---------------------------------------------------------------------------
+
+def test_dryrun_flag_parses():
+    ap = chip_smoke.build_parser()
+    assert ap.parse_args(["--dryrun"]).dryrun
+    both = ap.parse_args(["--lm-mesh", "--dryrun"])
+    assert both.dryrun and both.lm_mesh
+    assert not ap.parse_args([]).dryrun
+
+
+def test_dryrun_problems_names_what_differs():
+    def rec(arch, status, **kw):
+        return dict(arch=arch, shape="train_4k", mesh="single_pod",
+                    status=status, **kw)
+
+    good = ([rec(f"a{i}", "ok") for i in range(66)]
+            + [rec(f"s{i}", "skipped") for i in range(14)])
+    names = [f"{r['arch']}__train_4k__single_pod.json" for r in good]
+    assert chip_smoke.dryrun_status(good) == chip_smoke.DRYRUN_STATUS
+    assert chip_smoke.dryrun_problems(good, names) == []
+    bad = good[:-1] + [rec("e", "error", error="KeyError: 'e'")]
+    out = chip_smoke.dryrun_problems(bad, names[:-1] + [
+        "e__train_4k__single_pod.json"])
+    assert len(out) == 2 and "'error': 1" in out[0] and "KeyError" in out[1]
+    out = chip_smoke.dryrun_problems(good, names[:-1] + ["x.json"])
+    assert out == ["20: x.json holds the record of "
+                   "s13__train_4k__single_pod.json"]
+    assert chip_smoke.dryrun_problems(good[:79], names[:79])
+
+
+def test_composed_18b_moves_are_18b_s_measured_bytes(monkeypatch):
+    """The bytes the card measured in 18b (PERF.md, PR 24), composed from
+    the specs with the positions on the CPU."""
+    monkeypatch.setattr(chip_smoke, "mesh_devices", lambda n: ["cpu"] * n)
+    assert chip_smoke.composed_18b_moves() == {
+        "gather": [343_474_176, 0], "reduce": [437_014_528, 0],
+        "scatter": [1_309_564_928, 0], "relayout": [0, 0]}
+
+
+def test_phase20_on_the_cpu(monkeypatch, capsys):
+    """The whole dry-run as a subprocess, then 18b's bytes: equal to a
+    measured record, and a differing one fails the phase."""
+    monkeypatch.setattr(chip_smoke, "mesh_devices", lambda n: ["cpu"] * n)
+    measured = chip_smoke.composed_18b_moves()
+    out = chip_smoke.dryrun_phase({"train": {"moved": measured}})
+    assert out["records"] == 80 and out["status"] == chip_smoke.DRYRUN_STATUS
+    assert out["moves_18b"]["equal"]
+    assert out["moves_reason"] == ["jamba-v0.1-52b x multi_pod",
+                                   "mixtral-8x22b x multi_pod"]
+    assert "[20] 80 records" in capsys.readouterr().out
+    # no records and differing bytes: both named, the phase fails
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k:
+                        subprocess.CompletedProcess(a, 0, "", ""))
+    monkeypatch.setattr(chip_smoke, "composed_18b_moves", lambda: dict(
+        measured, reduce=[1, 0]))
+    with pytest.raises(chip_smoke.SmokeFailure, match="2 check"):
+        chip_smoke.dryrun_phase({"train": {"moved": measured}})
+    printed = capsys.readouterr().out
+    assert "18b's moves composed" in printed and "0 records" in printed

@@ -2,8 +2,8 @@
 
 Reads every module of ``src/repro_torch`` and ``chip_smoke.py`` for an
 import of ``jax`` or ``repro``, and imports the launchers, the converters,
-the LM stack, the train step and the mesh modules in a fresh interpreter
-to show that neither lands in ``sys.modules``.
+the LM stack, the train step, the mesh modules and the dry-run in a fresh
+interpreter to show that neither lands in ``sys.modules``.
 """
 import os
 import re
@@ -44,7 +44,8 @@ def test_launcher_import_loads_no_jax():
             "repro_torch.launch.mesh, repro_torch.models.sharding, "
             "repro_torch.training.pipeline, "
             "repro_torch.serving.repartition_kv, "
-            "repro_torch.launch.analysis, repro_torch.core.layout; "
+            "repro_torch.launch.analysis, repro_torch.core.layout, "
+            "repro_torch.launch.dryrun; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
