@@ -21,8 +21,8 @@ result.  Phases, in order (any failure exits nonzero):
 2. the build of every kernel from ``src/repro_torch/csrc`` (``nvcc``, in
    parallel), with its seconds and, per kernel, the registers, stack frame
    and spills ``ptxas -v`` reports; every instantiation of the DIA SpMV
-   kernels (the fold's too) and of the axpy kernels must have no stack
-   frame and no spills;
+   kernels (the fold's too), of the axpy kernels and of the CG tail's
+   cluster kernels must have no stack frame and no spills;
 3. each kernel against its plain PyTorch version on the card: the three
    Krylov kernels for every (storage, accum) pair at the main path's two
    shapes and one small ragged shape (``n`` not a multiple of 8), the
@@ -43,25 +43,33 @@ result.  Phases, in order (any failure exits nonzero):
    and the eager ``z + beta.to(z.dtype) * p`` it replaces for every dtype
    pair at the three shapes, unguarded, under a True flag and writing
    nothing under a False one; the axpy kernel's in-place form and the
-   guarded SpMV+dot and SpMV likewise; ``cg_advance`` against its plain
-   version; ``cg_direction`` timed beside its byte floor (wrapper, alone,
-   the eager pair, the plain version, ``torch.add``), the in-place axpy
-   alone against the out-of-place one in turns, ``cg_advance``.  The
-   direction update folded into the SpMV+dot (``spmv_dot_direction``, the
+   guarded SpMV+dot and SpMV likewise; ``cg_direction`` timed beside its
+   byte floor (wrapper, alone, the eager pair, the plain version,
+   ``torch.add``), the in-place axpy alone against the out-of-place one
+   in turns.  The direction update folded into the SpMV+dot (``spmv_dot_direction``, the
    CG loop's): bitwise its plain version and the unfused ``cg_direction``
    + ``spmv_dot`` launches for every dtype pair at the three shapes and
    the counts 0, 1, 2, unguarded, under a True flag and writing nothing
    under a False one, a cohort of 3 lanes bitwise each lane alone; timed
    at the pressure shape (wrapper, alone, plain, floor of 11 values a row)
-   and alone in turns against the unfused pair;
+   and alone in turns against the unfused pair.  (3c) The CG iteration's
+   scalar tail, ``cg_alpha`` and ``cg_advance`` with the partials (one
+   thread-block cluster a lane): bitwise their plain versions for f64 and
+   f32 partials at 1, 3 and 30 lanes (36,176, 36,176 and 1,206 partials a
+   lane) and 3 lanes of 7, each lane running, converging at its
+   threshold, capped, NaN or frozen, two runs bitwise equal, the device
+   counters once a launch (``cg_advance`` once in each lane that ran);
+   then each timed at the main path's 36,176 partials (wrapper, alone,
+   plain, as graph nodes) against the library calls it replaced
+   (``torch.sum`` + ``torch.div``; two ``torch.sum``);
 4. the main path at full size: 3 PISO steps of the 210^3 cavity, 30 fine
    parts fused with alpha = 30, through the launcher's code path, with the
-   kernels: the step's five kernels' launch counters must move (the value
+   kernels: the step's six kernels' launch counters must move (the value
    update once a system a step: 3 serially, 2 on the pipelined schedule
    the launcher takes by default, which updates the pressure matrix once;
-   the three CG kernels, the fold, the in-place axpy and ``cg_advance``,
-   once per CG iteration, the unfused ``spmv_dot`` and ``cg_direction``
-   never: a
+   the four CG kernels, the fold, ``cg_alpha``, the in-place axpy and
+   ``cg_advance``, once per CG iteration, the unfused ``spmv_dot`` and
+   ``cg_direction`` never: a
    launch under the loop's guard is counted by its kernel on the device,
    and every sweep's device counts must equal its iterations times the
    loop body's launches), every step converge with a continuity error
@@ -148,10 +156,10 @@ result.  Phases, in order (any failure exits nonzero):
     four parts have printed.
 
 13. serving: (13a) the lane-extended kernels (``spmv_dia``, ``spmv_dot``,
-    the in-place ``axpy_precond``, ``cg_direction``, ``cg_advance``, the
-    fold ``spmv_dot_direction`` and the axpy reading its direction, at the
-    counts 0, 1, 2 a lane) with
-    3 lanes at the momentum shape per lane, for every (storage, accum)
+    the in-place ``axpy_precond``, ``cg_direction``, the fold
+    ``spmv_dot_direction`` and the axpy reading its direction, at the
+    counts 0, 1, 2 a lane, then ``cg_alpha`` and ``cg_advance`` on their
+    partials) with 3 lanes at the momentum shape per lane, for every (storage, accum)
     pair: bitwise against their plain versions and against one launch per
     lane alone, a lane whose flag is off left unwritten, NaN in one lane
     leaving the other lanes bitwise; (13b) three tenants of the 210^3
@@ -416,7 +424,7 @@ MAIN_ARGS = ["--n", str(N), "--parts", str(PARTS), "--alpha", str(ALPHA),
 # the Krylov counts of the main path on the H100 (PERF.md): the SpMV
 # kernels compute y and the p.Ap partials bit for bit as their plain
 # versions do, so other counts mean the solver, not the speed, changed
-MAIN_COUNTS = {"mom_iters": [59, 62, 62],
+MAIN_COUNTS = {"mom_iters": [59, 62, 68],
                "p_iters": [[2125, 2160], [2460, 2486], [2444, 2490]]}
 PARITY = 1e-10        # fused vs plain backend, one step from one state,
 #                       relative to the field's max
@@ -435,7 +443,8 @@ SOURCES = {"spmv_dia": "src/repro_torch/csrc/spmv_dia.cu",
            "momentum_bands": "src/repro_torch/csrc/stencil_assembly.cu",
            "cg_direction": "src/repro_torch/csrc/krylov_loop.cu",
            "cg_advance": "src/repro_torch/csrc/krylov_loop.cu",
-           "spmv_dot_direction": "src/repro_torch/csrc/krylov_fused.cu"}
+           "spmv_dot_direction": "src/repro_torch/csrc/krylov_fused.cu",
+           "cg_alpha": "src/repro_torch/csrc/krylov_loop.cu"}
 REPLACES = {"spmv_dia": "src/repro/kernels/spmv_dia/spmv_dia.py:53",
             "spmv_dot": "src/repro/kernels/krylov_fused/krylov_fused.py:118",
             "axpy_precond":
@@ -446,20 +455,24 @@ REPLACES = {"spmv_dia": "src/repro/kernels/spmv_dia/spmv_dia.py:53",
             # port-only kernels: no TPU kernel does this work; the JAX
             # solver lines they replace
             "cg_direction": "src/repro/solvers/cg.py:74",
-            "cg_advance": "src/repro/solvers/cg.py:78",
+            "cg_advance": "src/repro/solvers/cg.py:78 + "
+                          "src/repro/kernels/krylov_fused/ops.py:68",
+            "cg_alpha": "src/repro/solvers/cg.py:74 + "
+                        "src/repro/kernels/krylov_fused/ops.py:47",
             # the SpMV+dot's TPU kernel with the direction update folded in
             "spmv_dot_direction":
                 "src/repro/kernels/krylov_fused/krylov_fused.py:118 + "
                 "src/repro/solvers/cg.py:74"}
 # the guarded launches one iteration of each device loop makes: every
 # sweep's device counters must read these times its iterations (the CG
-# loop's direction update runs inside spmv_dot_direction)
-LOOP_LAUNCHES = {"cg": {"spmv_dot_direction": 1, "axpy_precond": 1,
-                        "cg_advance": 1},
+# loop's direction update runs inside spmv_dot_direction, its partial sums
+# inside cg_alpha and cg_advance)
+LOOP_LAUNCHES = {"cg": {"spmv_dot_direction": 1, "cg_alpha": 1,
+                        "axpy_precond": 1, "cg_advance": 1},
                  "bicgstab": {"spmv_dia": 2}}
 # the kernels a PISO step launches; the momentum-assembly kernel belongs to
 # the refactoring baseline's entry point (phase 8)
-STEP_KERNELS = ("spmv_dia", "spmv_dot_direction", "axpy_precond",
+STEP_KERNELS = ("spmv_dia", "spmv_dot_direction", "cg_alpha", "axpy_precond",
                 "coef_update", "cg_advance")
 # the unfused pair the fold replaced on the CG loop: held against it in
 # phase 3 and 13a, never launched by a step
@@ -474,6 +487,8 @@ NO_FRAME_KERNELS = ("spmv_dia_kernel", "spmv_dot_kernel",
 LOOP_NO_FRAME_KERNELS = ("axpy_precond_inplace_kernel", "cg_direction_kernel")
 # ... and, since the fold, the SpMV+dot with the direction update
 FOLD_NO_FRAME_KERNELS = ("spmv_dot_direction_kernel",)
+# ... and, since the scalar tail's cluster kernels, both of them
+TAIL_NO_FRAME_KERNELS = ("cg_alpha_kernel", "cg_advance_kernel")
 ASSEMBLY_PARITY = 1e-12  # momentum_bands vs assembly + update, elementwise
 #                          rtol = atol (tests/test_kernels.py's bar)
 # the policies whose 210^3 channel step must converge.  bf16_ir refines
@@ -565,6 +580,48 @@ def check_frames(report: dict, kernels=NO_FRAME_KERNELS) -> dict:
     return counts
 
 
+# an atomic or reduction instruction in cuobjdump's SASS (ATOM, ATOMS,
+# ATOMG, RED with their suffixes)
+ATOMIC_SASS = re.compile(r"\b(?:ATOM|ATOMS|ATOMG|RED)\.")
+
+
+def sass_atomics(sass: str, kernels) -> dict:
+    """``{kernel: atomic instructions}`` over every instantiation of
+    ``kernels`` in ``cuobjdump -sass`` text; requires code for each."""
+    counts = {k: 0 for k in kernels}
+    seen, current = set(), None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = base_name(m.group(1))
+            if current in counts:
+                seen.add(current)
+        elif current in counts and ATOMIC_SASS.search(line):
+            counts[current] += 1
+    require(seen == set(counts), f"cuobjdump printed no code for "
+                                 f"{sorted(set(counts) - seen)}")
+    return counts
+
+
+def check_tail_atomics() -> None:
+    """The tail kernels' SASS holds no atomic instruction (their sums'
+    order is fixed by the code alone), read by the ``cuobjdump`` beside
+    ``nvcc`` or else on ``PATH``; fails when there is none."""
+    from repro_torch.kernels._build import _lib_path, _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        tool = shutil.which("cuobjdump")
+    require(tool is not None, "no cuobjdump beside nvcc or on PATH: the "
+                              "tail kernels' SASS cannot be read")
+    sass = subprocess.run([str(tool), "-sass", str(_lib_path("krylov_loop"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = sass_atomics(sass, TAIL_NO_FRAME_KERNELS)
+    print(f"  atomic instructions in the tail kernels' SASS: {counts}")
+    require(not any(counts.values()),
+            f"the tail kernels use atomics: {counts}")
+
+
 def print_record(label: str, fn: str, rec: dict) -> None:
     print(f"  {label}: {fn} {rec.get('registers')} registers, "
           f"{rec.get('stack')} B stack, {rec.get('spill_stores')}/"
@@ -591,9 +648,12 @@ def build_phase() -> None:
     from repro_torch.kernels._build import SOURCES as built
     kernels = NO_FRAME_KERNELS + (LOOP_NO_FRAME_KERNELS
                                   if "krylov_loop" in built else ()) + (
-        FOLD_NO_FRAME_KERNELS if "spmv_dot_direction" in WRAPPERS else ())
+        FOLD_NO_FRAME_KERNELS if "spmv_dot_direction" in WRAPPERS else ()) + (
+        TAIL_NO_FRAME_KERNELS if "cg_alpha" in WRAPPERS else ())
     counts = check_frames(records, kernels)
     print(f"  no stack frame, no spills: {counts} instantiations")
+    if "cg_alpha" in WRAPPERS:
+        check_tail_atomics()
 
 
 # ---------------------------------------------------------------------------
@@ -700,10 +760,10 @@ def axpy_launcher(torch, lib, vecs, alpha, accum):
 def axpy_inplace_launchers(torch, vecs, alpha, accum):
     """The axpy kernel in the form the CG loop calls it, on copies of ``x``
     and ``r`` that it updates in place: ``(wrapper, raw, partials)`` —
-    ``fused_update_step_into`` (the in-place launch and the two
-    ``torch.sum`` of the partials into fixed buffers), a raw launch of
-    ``axpy_precond_inplace_launch`` (no check, no sum, no launch count),
-    and the two partial rows both write."""
+    ``fused_update_step_into`` (the in-place launch into fixed buffers of
+    partials, which the loop's ``cg_advance`` sums), a raw launch of
+    ``axpy_precond_inplace_launch`` (no check, no launch count), and the
+    two partial rows both write."""
     from repro_torch.kernels._build import dtype_code, load
     from repro_torch.kernels.krylov_fused.krylov_fused import (
         fused_update_step_into, partials_buffers)
@@ -713,7 +773,6 @@ def axpy_inplace_launchers(torch, vecs, alpha, accum):
     n = x.numel()
     z = torch.empty_like(x)
     part = partials_buffers(n, accum, x.device)
-    rz, rr = (torch.empty((), dtype=accum, device=x.device) for _ in "ab")
     a = alpha.to(accum)
     lib = load("krylov_fused")
     p = vecs[2].data_ptr()
@@ -723,7 +782,7 @@ def axpy_inplace_launchers(torch, vecs, alpha, accum):
             part["stride"], 0, 0, stream_ptr(x))
 
     def wrapper():
-        fused_update_step_into(x, r, *vecs[2:], a, z, rz, rr, part,
+        fused_update_step_into(x, r, *vecs[2:], a, z, part,
                                accum_dtype=accum)
 
     def raw(_keep=(x, r, z, a, part, *vecs)):
@@ -896,6 +955,8 @@ def check_kernels(torch, dev) -> dict:
     torch.cuda.empty_cache()
     check_fold(torch, dev, report)
     torch.cuda.empty_cache()
+    check_tail(torch, dev, report)
+    torch.cuda.empty_cache()
     return report
 
 
@@ -904,16 +965,15 @@ def check_loop_kernels(torch, dev, report: dict) -> None:
     at the three shapes: ``cg_direction`` bitwise its plain version and the
     eager pair it replaces (``z + beta.to(z.dtype) * p``), unguarded and
     under a True flag, and writing nothing under a False one; the axpy
-    kernel's in-place form, the guarded SpMV+dot and SpMV likewise;
-    ``cg_advance`` against its plain version.  Then, at the pressure shape,
-    ``cg_direction`` timed (wrapper, alone, the eager pair, the plain
-    version, ``torch.add(z, p, alpha=beta)``) beside its byte floor, the
-    in-place axpy alone against the out-of-place one in turns, and
-    ``cg_advance``; the entries go into ``report``."""
+    kernel's in-place form, the guarded SpMV+dot and SpMV likewise.  Then,
+    at the pressure shape, ``cg_direction`` timed (wrapper, alone, the eager pair, the plain
+    version, ``torch.add(z, p, alpha=beta)``) beside its byte floor and
+    the in-place axpy alone against the out-of-place one in turns; the
+    entries go into ``report``."""
     from repro_torch.kernels.krylov_fused.krylov_fused import (
         axpy_precond_inplace, axpy_precond_partials_plain, spmv_dot_partials)
     from repro_torch.kernels.krylov_loop.krylov_loop import (
-        cg_advance, cg_advance_plain, cg_direction, cg_direction_plain)
+        cg_direction, cg_direction_plain)
     from repro_torch.kernels.spmv_dia.spmv_dia import (KERNEL_BLOCK_ROWS,
                                                        spmv_dia_stacked)
 
@@ -921,7 +981,6 @@ def check_loop_kernels(torch, dev, report: dict) -> None:
     on = torch.ones((), dtype=torch.bool, device=dev)
     off = torch.zeros((), dtype=torch.bool, device=dev)
     report["cg_direction"] = {"max_abs_err": 0.0}
-    report["cg_advance"] = {"max_abs_err": 0.0}
     for label, P, m, nx, plane in shapes():
         inputs = make_inputs(torch, P, m, gen, dev)
         offsets = offsets_for(nx, plane)
@@ -991,24 +1050,6 @@ def check_loop_kernels(torch, dev, report: dict) -> None:
             del p0, z, vecs, want, b, xx, y_w, part_w, ys_w
         del inputs
         torch.cuda.empty_cache()
-    # cg_advance against its plain version: running, converging, capped,
-    # NaN, and under a False flag
-    for acc in (torch.float64, torch.float32):
-        for rr_new, k0, flag0 in ((2.0, 0, True), (0.5, 3, True),
-                                  (2.0, 8, True), (float("nan"), 0, True),
-                                  (2.0, 0, False)):
-            runs = []
-            for fn in (cg_advance, cg_advance_plain):
-                sc = [torch.tensor(v, dtype=acc, device=dev)
-                      for v in (1.5, 2.5, 3.5, rr_new)]
-                k = torch.tensor(k0, dtype=torch.int32, device=dev)
-                flag = torch.tensor(flag0, device=dev)
-                fn(*sc, k, flag, torch.tensor(1.0, dtype=acc, device=dev), 9)
-                runs.append([t.tolist() for t in (*sc, k, flag)])
-            require(str(runs[0]) == str(runs[1]),
-                    f"cg_advance {acc} differs from its plain version: {runs}")
-    print("  cg_advance == its plain version (running, converging, capped, "
-          "NaN, idle; float64 and float32)")
 
 
 def time_loop_kernels(torch, dev, report, sname, storage, accum, p, z, g_new,
@@ -1021,8 +1062,7 @@ def time_loop_kernels(torch, dev, report, sname, storage, accum, p, z, g_new,
     that each call reads from HBM."""
     from repro_torch.kernels._build import dtype_code, load
     from repro_torch.kernels.krylov_loop.krylov_loop import (
-        cg_advance, cg_advance_cost, cg_advance_plain, cg_direction,
-        cg_direction_cost, cg_direction_plain)
+        cg_direction, cg_direction_cost, cg_direction_plain)
     from repro_torch.kernels.spmv_dia.spmv_dia import stream_ptr
 
     n, size = p.numel(), p.element_size()
@@ -1079,21 +1119,199 @@ def time_loop_kernels(torch, dev, report, sname, storage, accum, p, z, g_new,
           f"{' '.join(f'{t:.4f}' for t in times['out of place'])}, in place "
           f"{' '.join(f'{t:.4f}' for t in times['in place'])} ms")
 
-    if storage == torch.bfloat16:  # the guard has f32's accum dtype
-        return
-    sc = [torch.tensor(v, dtype=accum, device=dev) for v in (1., 1., 1., 1.)]
-    k = torch.zeros((), dtype=torch.int32, device=dev)
-    flag = torch.ones((), dtype=torch.bool, device=dev)
-    thr = torch.zeros((), dtype=accum, device=dev)
-    adv = timing_report(
-        torch, f"cg_advance {str(accum).removeprefix('torch.')}",
-        lambda: cg_advance(*sc, k, flag, thr, 2 ** 30),
-        lambda: cg_advance_plain(*sc, k, flag, thr, 2 ** 30),
-        cg_advance_cost(torch.finfo(accum).bits // 8), dtype=sname)
-    if storage == torch.float64:
-        report["cg_advance"].update(adv)
-    else:
-        report["cg_advance"][sname] = adv
+
+# phase 3, the CG iteration's scalar tail: (lanes, partials a lane) — one
+# 210^3 pressure system, a cohort of three, the full mesh's 30 shards
+# (308,700 rows each); and the lane states each lane count goes through
+TAIL_CELLS = ((1, 36176), (3, 36176), (30, 1206), (3, 7))
+TAIL_STATES = ("running", "converging", "capped", "nan", "frozen")
+TAIL_MAXITER = 50
+
+
+def tail_operands(torch, dev, acc, lanes, npl, shift, gen) -> dict:
+    """The tail kernels' operands for ``lanes`` lanes of ``npl`` partials
+    (a cohort's runs 128 elements apart), lane ``l`` in state
+    ``TAIL_STATES[(l + shift) % 5]``: converging lanes get their ``r.r``
+    sum as the threshold, capped lanes ``k = maxiter - 1``, NaN lanes a
+    NaN partial in every run, frozen lanes a False flag."""
+    from repro_torch.kernels.krylov_loop.krylov_loop import (
+        lane_tree_sums_plain)
+
+    stride = npl if lanes == 1 else -(-npl // 128) * 128
+    size = lanes * stride
+
+    def rnd(positive=False):
+        v = torch.randn(size, generator=gen, device=dev, dtype=torch.float64)
+        return (v.abs() + 0.1 if positive else v).to(acc)
+
+    part = {"dot": rnd(True), "rz": rnd(True), "rr": rnd(True),
+            "npl": npl, "stride": stride}
+    states = [TAIL_STATES[(lane + shift) % 5] for lane in range(lanes)]
+    rr_sum = lane_tree_sums_plain(part["rr"], npl, stride, lanes)
+    thr = 0.5 * rr_sum
+    k = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    active = torch.ones(lanes, dtype=torch.bool, device=dev)
+    for lane, st in enumerate(states):
+        if st == "converging":
+            thr[lane] = rr_sum[lane]
+        elif st == "capped":
+            k[lane] = TAIL_MAXITER - 1
+        elif st == "nan":
+            for key in ("dot", "rz", "rr"):
+                part[key][lane * stride + npl // 2] = float("nan")
+        elif st == "frozen":
+            active[lane] = False
+    gamma = torch.rand(lanes, generator=gen, device=dev,
+                       dtype=torch.float64).to(acc) + 0.5
+    return {"part": part, "states": states, "thr": thr, "k": k,
+            "active": active, "gamma": gamma}
+
+
+def tail_runs(torch, o, plain=False) -> list:
+    """``cg_alpha`` then ``cg_advance`` (guarded, with the partials) on
+    fresh copies of ``o``'s carry, outputs starting at 7.0 (an unwritten
+    lane shows), or their plain versions; returns every output."""
+    from repro_torch.kernels.krylov_loop.krylov_loop import (
+        cg_advance, cg_advance_plain, cg_alpha, cg_alpha_plain)
+
+    alpha_fn, adv_fn = ((cg_alpha_plain, cg_advance_plain) if plain
+                        else (cg_alpha, cg_advance))
+    part, gamma = o["part"], o["gamma"]
+    pAp, alpha, g_new, rr, rr_new, beta = (torch.full_like(gamma, 7.0)
+                                           for _ in range(6))
+    g, k, active = gamma.clone(), o["k"].clone(), o["active"].clone()
+    alpha_fn(part["dot"], part["npl"], part["stride"], pAp, g, alpha, active)
+    adv_fn(g, g_new, rr, rr_new, k, active, o["thr"], TAIL_MAXITER,
+           beta=beta, part=part)
+    torch.cuda.synchronize()
+    return [pAp, alpha, g, g_new, rr, rr_new, beta, k, active]
+
+
+def check_tail(torch, dev, report: dict) -> None:
+    """Phase 3c: ``cg_alpha`` and ``cg_advance`` (the CG iteration's scalar
+    tail, one cluster a lane) bitwise their plain versions for f64 and f32
+    partials, at 1, 3 and 30 lanes with every lane state of
+    :data:`TAIL_STATES` at every lane count, two runs bitwise equal, the
+    launch counters (``cg_alpha`` once, ``cg_advance`` once in each lane
+    that ran), then :func:`time_tail`."""
+    from repro_torch.kernels.device_counts import (SLOTS, device_counts,
+                                                   launched)
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    counts = device_counts(dev)
+    for acc in (torch.float64, torch.float32):
+        aname = str(acc).removeprefix("torch.")
+        for lanes, npl in TAIL_CELLS:
+            checks = {"vs_plain": True, "repeat": True, "counted": True}
+            for shift in range(len(TAIL_STATES)):
+                o = tail_operands(torch, dev, acc, lanes, npl, shift, gen)
+                counts.zero_()
+                with no_plain_versions():
+                    got = tail_runs(torch, o)
+                read = launched(counts.tolist(), lanes)
+                again = tail_runs(torch, o)
+                want = tail_runs(torch, o, plain=True)
+                checks["vs_plain"] &= all(same_bits(torch, a, b)
+                                          for a, b in zip(got, want))
+                checks["repeat"] &= all(same_bits(torch, a, b)
+                                        for a, b in zip(got, again))
+                any_on = bool(o["active"].any())
+                checks["counted"] &= (read["cg_alpha"] == int(any_on)
+                                      and read["cg_advance"] == int(any_on)
+                                      and sum(read[k] for k in SLOTS
+                                              if k not in ("cg_alpha",
+                                                           "cg_advance"))
+                                      == 0)
+            print(f"  [3c] cg_alpha + cg_advance {aname:7s} lanes={lanes:2d} "
+                  f"npl={npl}: " + ", ".join(f"{k} {v}"
+                                             for k, v in checks.items()))
+            require(all(checks.values()), f"the tail kernels are wrong at "
+                                          f"{aname}, {lanes} lanes: {checks}")
+    for name in ("cg_alpha", "cg_advance"):
+        report.setdefault(name, {})["max_abs_err"] = 0.0
+    for acc in (torch.float64, torch.float32):
+        time_tail(torch, dev, report, acc)
+
+
+def time_tail(torch, dev, report: dict, acc) -> None:
+    """The tail kernels at the 210^3 pressure system's 36,176 partials a
+    run, one lane: each wrapper in the loop's guarded form, the kernel
+    alone (raw launches), its plain version, and the library calls it
+    replaced (its ``library_ms``) — ``torch.sum`` + ``torch.div`` for
+    ``cg_alpha``, two ``torch.sum`` for ``cg_advance`` — as CUDA-event
+    times of 20 calls after 3, and the wrapper and the library calls as nodes of a captured graph
+    (``node_ms``, ``library_node_ms``)."""
+    from repro_torch.kernels._build import dtype_code, load
+    from repro_torch.kernels.device_counts import count_ptr
+    from repro_torch.kernels.krylov_loop.krylov_loop import (
+        cg_advance, cg_advance_cost, cg_advance_plain, cg_alpha,
+        cg_alpha_cost, cg_alpha_plain)
+    from repro_torch.kernels.spmv_dia.spmv_dia import stream_ptr
+
+    aname = str(acc).removeprefix("torch.")
+    npl = TAIL_CELLS[0][1]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    o = tail_operands(torch, dev, acc, 1, npl, 0, gen)
+    part, lib, code = o["part"], load("krylov_loop"), dtype_code(acc, acc)
+    size = torch.finfo(acc).bits // 8
+    one = lambda v: torch.full((1,), v, dtype=acc, device=dev)  # noqa: E731
+    pAp, alpha, gamma = one(1.0), one(1.0), one(2.0)
+    flag = torch.ones(1, dtype=torch.bool, device=dev)
+    g, g_new, rr, rr_new, beta = (one(1.0) for _ in range(5))
+    thr, k = one(0.0), torch.zeros(1, dtype=torch.int32, device=dev)
+    s = stream_ptr(pAp)
+
+    def alpha_wrapper():
+        cg_alpha(part["dot"], npl, npl, pAp, gamma, alpha, flag)
+
+    def alpha_raw():
+        rc = lib.cg_alpha_launch(code, part["dot"].data_ptr(), npl, npl,
+                            pAp.data_ptr(), gamma.data_ptr(),
+                            alpha.data_ptr(), 1, flag.data_ptr(),
+                            count_ptr("cg_alpha", dev, flag), s)
+        require(rc == 0, f"cg_alpha launch failed ({rc})")
+
+    def alpha_library():
+        torch.div(gamma, torch.sum(part["dot"], dim=0, out=pAp[0]), out=alpha)
+
+    def adv_wrapper():
+        cg_advance(g, g_new, rr, rr_new, k, flag, thr, 2 ** 30, beta=beta,
+                   part=part)
+
+    def adv_raw():
+        rc = lib.cg_advance_launch(code, g.data_ptr(), g_new.data_ptr(),
+                              rr.data_ptr(), rr_new.data_ptr(), k.data_ptr(),
+                              flag.data_ptr(), thr.data_ptr(), 2 ** 30,
+                              beta.data_ptr(), part["rz"].data_ptr(),
+                              part["rr"].data_ptr(), npl, npl, 1,
+                              count_ptr("cg_advance", dev, flag), s)
+        require(rc == 0, f"cg_advance launch failed ({rc})")
+
+    def adv_sums():
+        torch.sum(part["rz"], dim=0, out=g_new[0])
+        torch.sum(part["rr"], dim=0, out=rr_new[0])
+
+    rows = {
+        "cg_alpha": (alpha_wrapper, alpha_raw, lambda: cg_alpha_plain(
+            part["dot"], npl, npl, pAp, gamma, alpha, flag),
+            alpha_library, cg_alpha_cost(npl, 1, size)),
+        "cg_advance": (adv_wrapper, adv_raw, lambda: cg_advance_plain(
+            g, g_new, rr, rr_new, k, flag, thr, 2 ** 30, beta=beta,
+            part=part), adv_sums, cg_advance_cost(npl, 1, size))}
+    for name, (wrap, raw, plain, library, cost) in rows.items():
+        rep = timing_report(torch, f"{name} {aname} npl={npl}", wrap, plain,
+                            cost, library=library, dtype=aname, raw=raw)
+        rep["node_ms"] = graph_node_ms(torch, wrap)
+        rep["library_node_ms"] = graph_node_ms(torch, library)
+        require(bool(flag.all()), f"{name}: the timed lane stopped")
+        print(f"    {name} {aname}: as graph nodes {rep['node_ms']:.4f} ms, "
+              f"the library calls it replaced "
+              f"{rep['library_node_ms']:.4f} ms")
+        slot = report.setdefault(name, {})
+        if acc == torch.float64:
+            slot.update(rep)
+        else:
+            slot[aname] = rep
 
 
 FOLD_LANES = 3     # phase 3: lanes of the fold's cohort check
@@ -1806,7 +2024,8 @@ PLAIN_VERSIONS = (
     ("krylov_loop", "cg_direction_plain"), ("krylov_loop", "cg_advance_plain"),
     ("krylov_fused", "spmv_dot_direction_plain"),
     ("krylov_loop", "next_direction_plain"), ("krylov_loop", "store_direction"),
-    ("krylov_loop", "current_direction"))
+    ("krylov_loop", "current_direction"), ("krylov_loop", "cg_alpha_plain"),
+    ("krylov_loop", "lane_tree_sums_plain"))
 
 
 @contextlib.contextmanager
@@ -1887,8 +2106,8 @@ def main_path(torch) -> tuple:
             f"the value update launched {counts['coef_update']} times in "
             f"{n} steps, not {updates} a step")
     cg_iters = int(stats_f.p_iters.sum())
-    require(counts["spmv_dot_direction"] == counts["axpy_precond"]
-            == counts["cg_advance"] == cg_iters
+    require(counts["spmv_dot_direction"] == counts["cg_alpha"]
+            == counts["axpy_precond"] == counts["cg_advance"] == cg_iters
             and not any(counts[k] for k in UNFUSED_KERNELS),
             f"the CG kernels' launches {counts} are not the {cg_iters} CG "
             f"iterations the steps ran, with the direction update folded")
@@ -2288,7 +2507,7 @@ def graph_node_ms(torch, fn, n: int = NODE_GRAPH) -> float:
 
 
 def node_floor(torch, ops, b, x0, thr, maxiter) -> dict:
-    """The floor of a node like ``cg_advance`` (one thread a lane) in the
+    """The floor of a node like ``cg_advance`` (a cluster a lane) in the
     CG loop's captured block: the f64 pressure sweep at the loop's K with
     and without one more guarded node an iteration that does nothing
     (``cg_advance`` under a flag that stays False: it reads the flag and
@@ -2296,7 +2515,7 @@ def node_floor(torch, ops, b, x0, thr, maxiter) -> dict:
     second sweep, the block already captured); the difference per
     iteration is what such a node costs in the block.  Then graphs of
     ``NODE_GRAPH`` nodes alone: the empty node and a running
-    ``cg_advance``."""
+    ``cg_advance`` on runs of one partial (the full mesh's form)."""
     from repro_torch.kernels.krylov_loop.krylov_loop import cg_advance
     from repro_torch.solvers import cg as cg_mod
     from repro_torch.solvers import device_loop
@@ -2305,10 +2524,13 @@ def node_floor(torch, ops, b, x0, thr, maxiter) -> dict:
     idle = [torch.ones((), dtype=thr.dtype, device=dev) for _ in range(5)]
     k_idle = torch.zeros((), dtype=torch.int32, device=dev)
     never = torch.zeros((), dtype=torch.bool, device=dev)
+    one = {"rz": torch.ones(1, dtype=thr.dtype, device=dev),
+           "rr": torch.ones(1, dtype=thr.dtype, device=dev),
+           "npl": 1, "stride": 1}
     body0 = cg_mod._cg_body
 
     def empty_node():
-        cg_advance(*idle[:4], k_idle, never, idle[4], 1)
+        cg_advance(*idle[:4], k_idle, never, idle[4], 1, part=one)
 
     def with_node(ops_, st, maxiter_):
         body = body0(ops_, st, maxiter_)
@@ -2343,7 +2565,8 @@ def node_floor(torch, ops, b, x0, thr, maxiter) -> dict:
            - mean["without"], "empty_node_ms": graph_node_ms(
                torch, empty_node),
            "advance_node_ms": graph_node_ms(
-               torch, lambda: cg_advance(*sc, k_run, on, thr0, 2 ** 30))}
+               torch, lambda: cg_advance(*sc, k_run, on, thr0, 2 ** 30,
+                                         part=one))}
     print(f"  node floor: f64 pressure sweep ms/iter without "
           f"{' '.join(f'{t:.4f}' for t in ms['without'])}, with an empty "
           f"guarded node {' '.join(f'{t:.4f}' for t in ms['with'])}: "
@@ -2804,6 +3027,7 @@ CG_PROFILE_PARTS = (("spmv_dot_direction", ("spmv_dot_direction_kernel",)),
                     ("spmv_dot", ("spmv_dot_kernel",)),
                     ("axpy_precond", ("axpy_precond",)),
                     ("cg_direction", ("cg_direction_kernel",)),
+                    ("cg_alpha", ("cg_alpha_kernel",)),
                     ("cg_advance", ("cg_advance_kernel",)),
                     ("partial sums", ("reduce_kernel",)),
                     ("host read", ("Memcpy DtoH", "memcpy32_post",
@@ -3316,7 +3540,7 @@ ARRIVAL_ARGS = SMALL_ARGS + ["--sessions", "16", "--steps", "8",
                              "--programs", "piso,simple", "--seed", "0"]
 # the outputs of each lane kernel that are reduction partials (laid out per
 # lane, lane_partials); the others are vectors split evenly into lanes, or
-# (cg_advance) one scalar per lane
+# (cg_alpha, cg_advance) one scalar per lane
 LANE_PARTIALS = {"spmv_dot": (1,), "axpy_precond": (3, 4),
                  "spmv_dot_direction": (3,), "axpy_precond_k": (3, 4)}
 LANE_KS = (0, 1, 2)  # 13a: the lanes' CG counts (the fold's parities)
@@ -3368,8 +3592,8 @@ def lane_runs(torch, inp, offsets, plane, accum, active, lanes, plain=False):
         spmv_dot_direction, spmv_dot_direction_plain, spmv_dot_partials,
         spmv_dot_partials_plain)
     from repro_torch.kernels.krylov_loop.krylov_loop import (
-        cg_advance, cg_advance_plain, cg_direction, cg_direction_plain,
-        current_direction, store_direction)
+        cg_advance, cg_advance_plain, cg_alpha, cg_alpha_plain, cg_direction,
+        cg_direction_plain, current_direction, store_direction)
     from repro_torch.kernels.spmv_dia.spmv_dia import (guarded_store,
                                                        spmv_dia_plain,
                                                        spmv_dia_stacked)
@@ -3381,14 +3605,18 @@ def lane_runs(torch, inp, offsets, plane, accum, active, lanes, plain=False):
     dot, rz, rr = (part[k].fill_(7.0) for k in ("dot", "rz", "rr"))
     xs, rs, z = inp["x"].clone(), inp["r"].clone(), torch.full_like(x, 7.0)
     p = inp["p"].clone()
-    sc = lane_scalars(torch, inp, active)
-    beta = torch.full_like(inp["g"], 7.0)
     # the fold, then the in-place axpy reading the direction it wrote
     pair, kk = inp["pair"].clone(), inp["kk"]
     fold = partials_buffers(x.numel(), accum, x.device, lanes=lanes)
     yf, dotf = torch.full_like(x, 7.0), fold["dot"].fill_(7.0)
     xk, rk, zk = inp["x"].clone(), inp["r"].clone(), torch.full_like(x, 7.0)
     rzk, rrk = fold["rz"].fill_(7.0), fold["rr"].fill_(7.0)
+    # then the scalar tail on the fold's and the axpy's partials
+    pa, al = torch.full_like(inp["g"], 7.0), torch.full_like(inp["g"], 7.0)
+    sc = lane_scalars(torch, inp, active)
+    beta = torch.full_like(inp["g"], 7.0)
+    tail = (fold["dot"], fold["npl"], fold["stride"], pa, inp["g"], al,
+            active)
     if plain:
         guarded_store(y, spmv_dia_plain(b, x, lanes=lanes, **kw), active)
         for dst, new in zip((yd, dot), spmv_dot_partials_plain(
@@ -3400,7 +3628,6 @@ def lane_runs(torch, inp, offsets, plane, accum, active, lanes, plain=False):
         for dst, val in zip((xs, rs, z, rz, rr), new):
             guarded_store(dst, val, active)
         cg_direction_plain(p, inp["x"], inp["g_new"], inp["g"], active)
-        cg_advance_plain(*sc, 5, beta=beta)
         new, yy, pp = spmv_dot_direction_plain(b, inp["r"], pair, inp["beta"],
                                                kk, lanes=lanes, **kw)
         store_direction(pair, new, kk, active)
@@ -3410,6 +3637,8 @@ def lane_runs(torch, inp, offsets, plane, accum, active, lanes, plain=False):
                 xk, rk, current_direction(pair, kk), inp["Ap"], inp["inv"],
                 inp["alpha"], accum_dtype=accum)):
             guarded_store(dst, val, active)
+        cg_alpha_plain(*tail)
+        cg_advance_plain(*sc, 5, beta=beta, part=fold)
     else:
         kw.update(active=active, lanes=lanes)
         spmv_dia_stacked(b, x, out=y, **kw)
@@ -3418,18 +3647,20 @@ def lane_runs(torch, inp, offsets, plane, accum, active, lanes, plain=False):
                              inp["alpha"], z, rz, rr, accum_dtype=accum,
                              active=active, lanes=lanes)
         cg_direction(p, inp["x"], inp["g_new"], inp["g"], active)
-        cg_advance(*sc, 5, beta=beta)
         spmv_dot_direction(b, inp["r"], pair, inp["beta"], kk, out=(yf, dotf),
                            **kw)
         axpy_precond_inplace(xk, rk, pair, inp["Ap"], inp["inv"],
                              inp["alpha"], zk, rzk, rrk, accum_dtype=accum,
                              active=active, lanes=lanes, k=kk)
+        cg_alpha(*tail)
+        cg_advance(*sc, 5, beta=beta, part=fold)
         torch.cuda.synchronize()
     return {"spmv_dia": (y,), "spmv_dot": (yd, dot.clone()),
             "axpy_precond": (xs, rs, z, rz.clone(), rr.clone()),
-            "cg_direction": (p,), "cg_advance": tuple(sc) + (beta,),
+            "cg_direction": (p,),
             "spmv_dot_direction": (pair[0], pair[1], yf, dotf.clone()),
-            "axpy_precond_k": (xk, rk, zk, rzk.clone(), rrk.clone())}
+            "axpy_precond_k": (xk, rk, zk, rzk.clone(), rrk.clone()),
+            "cg_alpha": (pa, al), "cg_advance": tuple(sc) + (beta,)}
 
 
 def lane_part(name: str, outs: tuple, lane: int, lanes: int,
@@ -6766,33 +6997,56 @@ def main(argv=None) -> int:
             print(smi_line())
             print(ok_line(torch))
             return 0
+        # the seconds of each phase (1-2: the card's query and the build)
+        marks = [("build", time.perf_counter())]
+
+        def mark(name):
+            marks.append((name, time.perf_counter()))
+
         print("[3] kernels vs plain versions")
         report = check_kernels(torch, dev)
+        mark("3")
         print("[4-6] main path: 210^3 cavity, 30 parts, alpha 30, 3 PISO "
               "steps; determinism; parity (then 7-8)")
         torch.cuda.reset_peak_memory_stats()
         summary, state3, main_step = main_path(torch)
         free_device(torch)
+        mark("4-8")
         summary["channel"] = channel_phase(torch)
         free_device(torch)
+        mark("10")
         summary["simple"] = simple_phase(torch)
         free_device(torch)
+        mark("11")
         summary["control"] = control_phase(torch, state3, main_step, report)
         free_device(torch)
+        mark("12")
         summary["serving"] = serving_phases(torch, dev, state3)
         free_device(torch)
+        mark("13-14")
         summary["full_mesh"] = full_mesh_phase(torch, state3)
         free_device(torch)
+        mark("15")
         summary["assembly_mesh"] = assembly_mesh_phase(torch, state3)
         del state3, main_step
         free_device(torch)
+        mark("19")
         summary["lm"] = lm_phase(torch, dev)
         free_device(torch)
+        mark("16")
         summary["train"] = train_phase(torch, dev)
         free_device(torch)
+        mark("17")
         summary["lm_mesh"] = lm_mesh_phase(torch, dev)
         free_device(torch)
+        mark("18")
         summary["dryrun"] = dryrun_phase(summary["lm_mesh"])
+        mark("20")
+        summary["phase_s"] = {"1-2": marks[0][1] - t_start, **{
+            name: t - marks[i][1]
+            for i, (name, t) in enumerate(marks[1:])}}
+        print("seconds by phase: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in summary["phase_s"].items()))
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         print("lm " + json.dumps(summary["lm"], default=str))
         print("train " + json.dumps(summary["train"], default=str))

@@ -1,17 +1,22 @@
 // Device-side control of the Krylov loops that solvers/device_loop.py runs
-// as captured CUDA-graph blocks: the CG direction update and the CG loop
-// guard.
+// as captured CUDA-graph blocks: the CG direction update and the CG
+// iteration's scalar tail.
 //
 // Port-only kernels: no TPU kernel does this work.  They replace, in the
 // JAX solver src/repro/solvers/cg.py, the body line
 // `p = z + beta.astype(z.dtype) * p` with beta = gamma_new / gamma (:74;
-// cg_direction_kernel) and the `lax.while_loop` carry update and condition
-// (`cond` :64, the loop :78; cg_advance_kernel).
+// cg_direction_kernel), `alpha = gamma / pAp` with the `jnp.sum` of the
+// SpMV+dot's partials (:74 and src/repro/kernels/krylov_fused/ops.py:47;
+// cg_alpha_kernel), and the `jnp.sum` of the axpy's partials (ops.py:68)
+// with the `lax.while_loop` carry update and condition (`cond` :64, the
+// loop :78; cg_advance_kernel).
 //
 // The CG loop itself no longer launches cg_direction: the update is folded
 // into the next iteration's SpMV+dot (spmv_dot_direction_kernel,
 // krylov_fused.cu), which reads the beta that cg_advance keeps.
-// cg_direction stays as the unfused form the fold is held against.
+// cg_direction stays as the unfused form the fold is held against.  An
+// iteration is four launches: the fold, cg_alpha, the in-place axpy and
+// cg_advance.
 //
 // The guard.  A captured block replays K iterations whether or not the
 // solve has converged, so every kernel that writes the loop's state reads
@@ -23,10 +28,34 @@
 // active <- (rr > thr) && (k < maxiter).  A NaN rr compares false, so a
 // NaN start runs 0 iterations.
 //
+// The tail's sums.  The SpMV+dot and the axpy kernel leave one partial per
+// kThreads rows of a lane (common.cuh); cg_alpha sums a lane's p.Ap
+// partials into pAp and forms alpha = gamma / pAp, cg_advance sums its r.z
+// and r.r partials into gamma_new and rr_new before the carry update.
+// Each lane is one thread-block cluster of kTailCtas CTAs (grid
+// (kTailCtas, lanes)).  Of a lane's n partials, CTA c takes the contiguous
+// run [c L, c L + L), L = J kThreads W, J = ceil(n / (kTailCtas kThreads
+// W)), W = 16 / sizeof(A) (zeros past n); thread t adds, in rounds j = 0
+// .. J-1, the W values of the 16-byte vector at c L + (j kThreads + t) W
+// to its sum, one after another from +0.0; a warp then adds down a shuffle
+// tree (lane i takes lane i + h, h = 16, 8, 4, 2, 1), the CTA adds its 8
+// warp sums down a tree (w[i] += w[i + h], h = 4, 2, 1), and rank 0 adds
+// the kTailCtas CTA sums in rank order through distributed shared memory.
+// No atomics: the order depends on n and these constants only, so a sum
+// repeats bit for bit, a lane of a cohort gives its solo run's bits, and
+// kernels/krylov_loop's lane_tree_sums_plain is the same order in PyTorch.
+// (A thread's sum starts at +0.0 and so is never -0.0; the zeros past n
+// change nothing, and a run of -0.0 alone sums to +0.0.)
+//
 // Lanes.  A cohort of B systems runs as one launch: cg_direction with
 // gridDim.y = B (block row y is lane y: its rows, its gamma pair and its
-// flag, common.cuh), cg_advance with one thread per lane.  Each launch
-// counts once when any lane's flag is set.
+// flag, common.cuh), cg_alpha and cg_advance with cluster row y.  All CTAs
+// of a lane read its flag, so a cluster returns whole.  cg_direction and
+// cg_alpha count once when any lane's flag is set.  cg_advance rewrites
+// the flags, so no thread can read every lane's flag before some lane has
+// rewritten its own: it counts per lane (count[y] += 1), and the loop takes
+// the most any lane counted, the launches that ran (kernels/
+// device_counts.py).
 //
 // Rounding.  cg_direction must give the bits of PyTorch's eager
 // `z + beta.to(z.dtype) * p`: beta is an IEEE division at the accum width,
@@ -34,16 +63,21 @@
 // to the storage dtype, with no contraction (__dmul_rn / __dadd_rn,
 // __fmul_rn / __fadd_rn; bf16 widens to float and rounds back after the
 // multiply and again after the add, as PyTorch's bf16 element-wise kernels
-// do).
+// do).  alpha and beta are div_rn of the accum dtype, as torch.div.
 //
 // Bound: bytes.  cg_direction reads z and p and writes p: 3 values per row
 // (222 MB in f64 at the 210^3 pressure shape, a 0.066 ms floor at
 // 3.35 TB/s) against 2 flops; each thread moves one 16-byte vector of each
 // operand, z through the read-only path and p, which the kernel writes,
 // through plain coherent loads.  The eager pair it replaces launches two
-// kernels and moves 5 values per row.  cg_advance is one thread: its time
-// is the launch.
+// kernels and moves 5 values per row.  cg_alpha reads one run of partials
+// a lane, cg_advance two (289 KB and 579 KB in f64 at 210^3, well under a
+// microsecond at 3.35 TB/s): their time is the launch and the cluster's
+// round trips.
 #include "common.cuh"
+
+#include <cooperative_groups.h>
+#include <cstdint>
 
 using namespace repro;
 
@@ -150,28 +184,157 @@ cg_direction_kernel(S* p, const S* __restrict__ z,
   }
 }
 
-// The loop guard, one thread per lane (see the notes at the top).  Every
-// thread reads its flag before any writes one, so thread 0 counts the
-// launch when any lane goes on.  beta (null: not kept) takes gamma_new /
-// gamma before gamma is overwritten: the next iteration's direction update
-// reads it (spmv_dot_direction_kernel).
+// CTAs of one lane's cluster in the tail kernels (portable cluster size)
+constexpr int kTailCtas = 8;
+// vectors each thread has in flight per run of partials
+constexpr int kTailUnroll = 4;
+static_assert(kThreads == 256, "the CTA tree adds 8 warp sums");
+
+// Values i .. i + W - 1 of a run of n partials, zeros past n or when the
+// round is past the last (live false): one 16-byte load when the run is
+// aligned and the vector whole, else checked scalars.  The values, not the
+// loads, fix the order of the sums.
 template <typename A>
-__global__ void cg_advance_kernel(A* gamma, const A* gamma_new, A* rr,
-                                  const A* rr_new, int* k, bool* active,
-                                  const A* thr, int maxiter, A* beta,
-                                  unsigned long long* count) {
-  const int l = threadIdx.x;
-  const bool on = active[l];
-  const int any = __syncthreads_or(on);
-  if (l == 0 && any && count != nullptr) *count += 1;
-  if (!on) return;
-  if (beta != nullptr) beta[l] = div_rn(gamma_new[l], gamma[l]);
-  gamma[l] = gamma_new[l];
-  const A r = rr_new[l];
-  rr[l] = r;
-  const int kn = k[l] + 1;
-  k[l] = kn;
-  active[l] = r > thr[l] && kn < maxiter;
+__device__ __forceinline__ void run_values(const A* run, long long i,
+                                           long long n, bool live, A* v) {
+  constexpr int W = Vec<A>::W;
+  if (live && i + W <= n &&
+      (reinterpret_cast<std::uintptr_t>(run) & 15) == 0) {
+    Vec<A>::ro(run + i, v);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < W; ++e)
+    v[e] = (live && i + e < n) ? __ldg(run + i + e) : A(0);
+}
+
+// The sums of NS runs of n partials each in the tree at the top of this
+// file, one cluster for all NS; every thread of the cluster calls it.  The
+// sums are in `out` of rank 0's thread 0 only.
+template <typename A, int NS>
+__device__ __forceinline__ void tree_sums(const A* const (&runs)[NS],
+                                          long long n, A (&out)[NS]) {
+  namespace cg = cooperative_groups;
+  constexpr int W = Vec<A>::W;
+  constexpr int U = kTailUnroll;
+  __shared__ A warp_sum[NS][kThreads / 32];
+  __shared__ A cta_sum[NS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned int c = cluster.block_rank();
+  const int t = threadIdx.x;
+  const long long per = static_cast<long long>(kTailCtas) * kThreads * W;
+  const long long J = (n + per - 1) / per;
+  const long long L = J * kThreads * W;
+  A acc[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) acc[s] = A(0);
+  for (long long j0 = 0; j0 < J; j0 += U) {
+    A v[NS][U][W];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long i = c * L + ((j0 + u) * kThreads + t) * W;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        run_values<A>(runs[s], i, n, j0 + u < J, v[s][u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int e = 0; e < W; ++e) acc[s] = add_rn(acc[s], v[s][u][e]);
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+#pragma unroll
+    for (int h = 16; h >= 1; h >>= 1)
+      acc[s] = add_rn(acc[s], __shfl_down_sync(0xffffffffu, acc[s], h));
+    if ((t & 31) == 0) warp_sum[s][t >> 5] = acc[s];
+  }
+  __syncthreads();
+  if (t == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      A w[kThreads / 32];
+#pragma unroll
+      for (int i = 0; i < kThreads / 32; ++i) w[i] = warp_sum[s][i];
+#pragma unroll
+      for (int h = kThreads / 64; h >= 1; h >>= 1)
+#pragma unroll
+        for (int i = 0; i < h; ++i) w[i] = add_rn(w[i], w[i + h]);
+      cta_sum[s] = w[0];
+    }
+  }
+  cluster.sync();
+  if (c == 0 && t == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      A sum = cta_sum[s];
+#pragma unroll
+      for (int r = 1; r < kTailCtas; ++r)
+        sum = add_rn(sum, cluster.map_shared_rank(&cta_sum[0], r)[s]);
+      out[s] = sum;
+    }
+  }
+  // every CTA's shared memory stays until rank 0 has read it
+  cluster.sync();
+}
+
+__device__ __forceinline__ bool tail_writer() {
+  return cooperative_groups::this_cluster().block_rank() == 0 &&
+         threadIdx.x == 0;
+}
+
+// pAp <- the sum of lane y's p.Ap partials (part + y * stride, npl of
+// them) and, with gamma, alpha <- gamma / pAp; under the guard `active`
+// (null: unguarded) nothing of a lane whose flag is false is written.
+template <typename A>
+__global__ void __cluster_dims__(kTailCtas, 1, 1) __launch_bounds__(kThreads)
+cg_alpha_kernel(const A* __restrict__ part, long long npl, long long stride,
+                A* pAp, const A* __restrict__ gamma, A* alpha,
+                const bool* __restrict__ active, unsigned long long* count) {
+  const long long lane = blockIdx.y;
+  if (active != nullptr) {
+    count_lanes(active, count);
+    if (!active[lane]) return;
+  }
+  const A* const runs[1] = {part + lane * stride};
+  A sum[1];
+  tree_sums<A, 1>(runs, npl, sum);
+  if (!tail_writer()) return;
+  pAp[lane] = sum[0];
+  if (gamma != nullptr) alpha[lane] = div_rn(gamma[lane], sum[0]);
+}
+
+// The loop guard (see the notes at the top), lane y by cluster row y:
+// gamma_new and rr_new <- the sums of the lane's r.z and r.r partials
+// first.  beta (null: not kept) takes gamma_new / gamma before gamma is
+// overwritten: the next iteration's direction update reads it
+// (spmv_dot_direction_kernel).  Every CTA of the lane has read the flag
+// before rank 0 rewrites it (the sums' first cluster barrier).  count: one
+// counter per lane.
+template <typename A>
+__global__ void __cluster_dims__(kTailCtas, 1, 1) __launch_bounds__(kThreads)
+cg_advance_kernel(A* gamma, A* gamma_new, A* rr, A* rr_new, int* k,
+                  bool* active, const A* __restrict__ thr, int maxiter,
+                  A* beta, const A* __restrict__ rz_part,
+                  const A* __restrict__ rr_part, long long npl,
+                  long long stride, unsigned long long* count) {
+  const long long lane = blockIdx.y;
+  if (!active[lane]) return;
+  const A* const runs[2] = {rz_part + lane * stride, rr_part + lane * stride};
+  A sums[2];
+  tree_sums<A, 2>(runs, npl, sums);
+  if (!tail_writer()) return;
+  if (count != nullptr) count[lane] += 1;
+  gamma_new[lane] = sums[0];
+  rr_new[lane] = sums[1];
+  if (beta != nullptr) beta[lane] = div_rn(sums[0], gamma[lane]);
+  gamma[lane] = sums[0];
+  rr[lane] = sums[1];
+  const int kn = k[lane] + 1;
+  k[lane] = kn;
+  active[lane] = sums[1] > thr[lane] && kn < maxiter;
 }
 
 template <typename S, typename A>
@@ -194,16 +357,38 @@ static int launch_direction(void* p, const void* z, const void* gamma_new,
 }
 
 template <typename A>
-static int launch_advance(void* gamma, const void* gamma_new, void* rr,
-                          const void* rr_new, void* k, void* active,
+static int launch_alpha(const void* part, long long npl, long long stride,
+                        void* pAp, const void* gamma, void* alpha,
+                        long long lanes, const void* active, void* count,
+                        cudaStream_t stream) {
+  if (lanes < 1 || lanes > 65535 || npl < 1) return -1;
+  cg_alpha_kernel<A><<<dim3(kTailCtas, static_cast<unsigned int>(lanes)),
+                       kThreads, 0, stream>>>(
+      static_cast<const A*>(part), npl, stride, static_cast<A*>(pAp),
+      static_cast<const A*>(gamma), static_cast<A*>(alpha),
+      static_cast<const bool*>(active),
+      static_cast<unsigned long long*>(count));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename A>
+static int launch_advance(void* gamma, void* gamma_new, void* rr,
+                          void* rr_new, void* k, void* active,
                           const void* thr, int maxiter, void* beta,
-                          long long lanes, void* count, cudaStream_t stream) {
-  if (lanes < 1 || lanes > 1024) return -1;
-  cg_advance_kernel<A><<<1, static_cast<unsigned int>(lanes), 0, stream>>>(
-      static_cast<A*>(gamma), static_cast<const A*>(gamma_new),
-      static_cast<A*>(rr), static_cast<const A*>(rr_new), static_cast<int*>(k),
+                          const void* rz_part, const void* rr_part,
+                          long long npl, long long stride, long long lanes,
+                          void* count, cudaStream_t stream) {
+  if (lanes < 1 || lanes > 65535 || npl < 1 || rz_part == nullptr ||
+      rr_part == nullptr)
+    return -1;
+  cg_advance_kernel<A><<<dim3(kTailCtas, static_cast<unsigned int>(lanes)),
+                         kThreads, 0, stream>>>(
+      static_cast<A*>(gamma), static_cast<A*>(gamma_new), static_cast<A*>(rr),
+      static_cast<A*>(rr_new), static_cast<int*>(k),
       static_cast<bool*>(active), static_cast<const A*>(thr), maxiter,
-      static_cast<A*>(beta), static_cast<unsigned long long*>(count));
+      static_cast<A*>(beta), static_cast<const A*>(rz_part),
+      static_cast<const A*>(rr_part), npl, stride,
+      static_cast<unsigned long long*>(count));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -232,24 +417,49 @@ extern "C" int cg_direction_launch(int dtype_code, void* p, const void* z,
   }
 }
 
-// gamma, gamma_new, rr, rr_new, thr, beta: one accum value per lane (code
-// kF64: double, kF32: float; beta may be null); k one int32 per lane;
-// active one byte per lane; count as for cg_direction_launch; at most 1024
-// lanes.
-extern "C" int cg_advance_launch(int accum_code, void* gamma,
-                                 const void* gamma_new, void* rr,
-                                 const void* rr_new, void* k, void* active,
-                                 const void* thr, int maxiter, void* beta,
-                                 long long lanes, void* count,
-                                 void* stream) {
+// part: lane y's npl partials at part + y * stride (accum code kF64:
+// double, kF32: float); pAp, gamma, alpha one accum value per lane (gamma
+// null: pAp only, alpha unused); active one byte per lane or null
+// (unguarded); count as for cg_direction_launch; at most 65535 lanes.
+extern "C" int cg_alpha_launch(int accum_code, const void* part,
+                               long long npl, long long stride, void* pAp,
+                               const void* gamma, void* alpha,
+                               long long lanes, const void* active,
+                               void* count, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (accum_code) {
     case kF64:
-      return launch_advance<double>(gamma, gamma_new, rr, rr_new, k, active, thr,
-                                    maxiter, beta, lanes, count, s);
+      return launch_alpha<double>(part, npl, stride, pAp, gamma, alpha, lanes,
+                                  active, count, s);
     case kF32:
-      return launch_advance<float>(gamma, gamma_new, rr, rr_new, k, active, thr,
-                                   maxiter, beta, lanes, count, s);
+      return launch_alpha<float>(part, npl, stride, pAp, gamma, alpha, lanes,
+                                 active, count, s);
+    default: return -1;
+  }
+}
+
+// gamma, gamma_new, rr, rr_new, thr, beta: one accum value per lane (code
+// kF64: double, kF32: float; beta may be null); k one int32 per lane;
+// active one byte per lane; rz_part, rr_part: the r.z and r.r partials as
+// cg_alpha_launch takes its part; count: null or one unsigned 64-bit
+// counter per lane.
+extern "C" int cg_advance_launch(int accum_code, void* gamma, void* gamma_new,
+                                 void* rr, void* rr_new, void* k,
+                                 void* active, const void* thr, int maxiter,
+                                 void* beta, const void* rz_part,
+                                 const void* rr_part, long long npl,
+                                 long long stride, long long lanes,
+                                 void* count, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (accum_code) {
+    case kF64:
+      return launch_advance<double>(gamma, gamma_new, rr, rr_new, k, active,
+                                    thr, maxiter, beta, rz_part, rr_part, npl,
+                                    stride, lanes, count, s);
+    case kF32:
+      return launch_advance<float>(gamma, gamma_new, rr, rr_new, k, active,
+                                   thr, maxiter, beta, rz_part, rr_part, npl,
+                                   stride, lanes, count, s);
     default: return -1;
   }
 }

@@ -17,6 +17,7 @@ from repro_torch.kernels.coef_update.coef_update import coef_update_stacked
 from repro_torch.kernels.krylov_fused.krylov_fused import (
     fused_matvec_dot, fused_update_step, spmv_dot_direction)
 from repro_torch.kernels.krylov_loop.krylov_loop import (cg_advance,
+                                                         cg_alpha,
                                                          cg_direction)
 from repro_torch.kernels.spmv_dia.spmv_dia import spmv_dia_stacked
 from repro_torch.kernels.stencil_assembly.stencil_assembly import (
@@ -34,6 +35,7 @@ WRAPPERS = {
     "cg_direction": cg_direction,
     "cg_advance": cg_advance,
     "spmv_dot_direction": spmv_dot_direction,
+    "cg_alpha": cg_alpha,
 }
 
 

@@ -64,8 +64,10 @@ _SIGNATURES = {
     "krylov_loop": {
         "cg_direction_launch": [ctypes.c_int, _P, _P, _P, _P, _I64, _I64, _P,
                                 _P, _P],
+        "cg_alpha_launch": [ctypes.c_int, _P, _I64, _I64, _P, _P, _P, _I64,
+                            _P, _P, _P],
         "cg_advance_launch": [ctypes.c_int] + [_P] * 7
-        + [ctypes.c_int, _P, _I64, _P, _P],
+        + [ctypes.c_int, _P, _P, _P, _I64, _I64, _I64, _P, _P],
     },
     "coef_update": {"coef_update_launch": [ctypes.c_int, _P, _P, _P, _I64,
                                            _I64, _I64, _P]},

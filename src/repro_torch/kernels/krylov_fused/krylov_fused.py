@@ -14,7 +14,8 @@ Two kernels (``csrc/krylov_fused.cu``) replace the TPU kernels of
 Both are bound by bytes.  Each reduction writes one accum-width partial per
 :data:`KERNEL_BLOCK_ROWS` consecutive flat rows, summed in a fixed tree
 order (:func:`block_partials_plain` is that order in plain PyTorch); the
-wrapper sums the partials with ``torch.sum``, a fixed order.  Beside each
+out-of-place wrappers sum the partials with ``torch.sum``, a fixed order.
+Beside each
 kernel is its plain PyTorch version (:func:`spmv_dot_plain`,
 :func:`fused_axpy_precond_plain`), which the wrappers take for CPU tensors
 only; for CUDA tensors they launch the kernel or raise.
@@ -24,16 +25,17 @@ partials themselves (their plain versions :func:`spmv_dot_partials_plain`,
 
 The Krylov loops of :mod:`repro_torch.solvers.device_loop` write into
 buffers they hold at fixed addresses and guard every iteration on a
-one-element device flag: :func:`fused_matvec_dot_into` and
-:func:`fused_update_step_into` are the two wrappers in that form (the
-latter updates ``x`` and ``r`` in place, through the kernel's in-place
-instantiation), with :func:`partials_buffers` for their scratch.  On the
-CPU they run the plain versions and store through
+one-element device flag: the guarded, ``out=`` forms of the wrappers
+(:func:`axpy_precond_inplace` updates ``x`` and ``r`` in place, through
+the kernel's in-place instantiation), with :func:`partials_buffers` for
+their scratch.  On the CPU they run the plain versions and store through
 :func:`~repro_torch.kernels.spmv_dia.spmv_dia.guarded_store`.  Given
 ``lanes=B`` they run a cohort of ``B`` systems of one shape as one launch
 (:mod:`repro_torch.kernels.spmv_dia`): one flag, one ``alpha`` and one run
-of partials per lane (:func:`lane_partials`), each lane's dots the
-``torch.sum`` of its own partials — the call a lane alone makes.
+of partials per lane (:func:`lane_partials`).  The CG loop leaves its
+partials to the loop's tail kernels, ``cg_alpha`` and ``cg_advance``
+(:mod:`repro_torch.kernels.krylov_loop`), which sum them in their own
+fixed tree.
 
 The CG loop runs the SpMV+dot with its direction update folded in:
 :func:`spmv_dot_direction` (kernel ``spmv_dot_direction_kernel``) forms
@@ -42,9 +44,9 @@ direction buffers at each lane's count ``k`` (``p[k % 2]`` read,
 ``p[(k + 1) % 2]`` written), then ``A p'`` and the ``p'.Ap'`` partials —
 bitwise ``cg_direction`` followed by :func:`spmv_dot_partials`, one
 launch and one round trip of ``p`` fewer.  Its plain version is
-:func:`spmv_dot_direction_plain`, its loop form
-:func:`fused_matvec_dot_direction_into`; given ``k``, the in-place axpy
-reads ``p[(k + 1) % 2]``.
+:func:`spmv_dot_direction_plain`; the loop's forms are
+:func:`fused_matvec_dot_direction_into` and :func:`fused_update_step_into`
+(partials only); given ``k``, the in-place axpy reads ``p[(k + 1) % 2]``.
 
 :func:`spmv_dot_cost` and :func:`fused_axpy_precond_cost` are the JAX
 package's byte and flop contracts, as ints.
@@ -64,14 +66,14 @@ from repro_torch.kernels.spmv_dia.spmv_dia import (
 from repro_torch.sparse.distributed import spmv_dia
 
 __all__ = ["fused_matvec_dot", "fused_update_step", "spmv_dot_partials",
-           "axpy_precond_partials", "fused_matvec_dot_into",
+           "axpy_precond_partials",
            "fused_update_step_into", "axpy_precond_inplace",
            "spmv_dot_direction", "spmv_dot_direction_plain",
            "fused_matvec_dot_direction_into", "spmv_dot_direction_cost",
            "partials_buffers", "spmv_dot_plain", "spmv_dot_partials_plain",
            "fused_axpy_precond_plain", "axpy_precond_partials_plain",
            "block_partials_plain", "lane_block_partials", "lane_partials",
-           "lane_sums", "lane_vdot", "check_axpy_operands", "spmv_dot_cost",
+           "lane_vdot", "check_axpy_operands", "spmv_dot_cost",
            "fused_axpy_precond_cost", "DEFAULT_BLOCK_ROWS"]
 
 # the JAX kernels' row block, the default of the cost contracts below
@@ -166,23 +168,6 @@ def lane_block_partials(v: torch.Tensor, lanes: int = 1) -> torch.Tensor:
     out = v.new_zeros(lanes * stride)
     for lane, vl in enumerate(v.reshape(lanes, -1)):
         out[lane * stride:lane * stride + npl] = block_partials_plain(vl)
-    return out
-
-
-def lane_sums(part: torch.Tensor, npl: int, stride: int,
-              out: torch.Tensor) -> torch.Tensor:
-    """Each lane's partials summed into its element of ``out`` (one per
-    lane), lane by lane with ``torch.sum``: the reduction, on the same
-    length and alignment, that the lane makes alone."""
-    if out.numel() == 1 and part.numel() == npl:
-        # one system: its whole buffer, no views to make (the host's time
-        # per call is the wrapper's outside a captured graph)
-        torch.sum(part, dim=0, out=out if out.dim() == 0 else out.view(()))
-        return out
-    flat = out.view(-1)
-    for lane in range(flat.numel()):
-        torch.sum(part[lane * stride:lane * stride + npl], dim=0,
-                  out=flat[lane])
     return out
 
 
@@ -555,53 +540,22 @@ def partials_buffers(n: int, accum_dtype: torch.dtype,
             "stride": stride}
 
 
-def fused_matvec_dot_into(bands: torch.Tensor, x: torch.Tensor,
-                          y: torch.Tensor, dot: torch.Tensor, part: dict, *,
-                          offsets: tuple[int, ...], plane: int,
-                          accum_dtype: torch.dtype | None = None,
-                          active: torch.Tensor | None = None,
-                          lanes: int = 1) -> None:
-    """:func:`fused_matvec_dot` into ``y`` and ``dot`` (accum dtype, one
-    element per lane), through the partials of ``part``
-    (:func:`partials_buffers`), under the loop guard ``active``.  On a
-    CUDA device each lane's sum of its partials is ``torch.sum`` into its
-    element of ``dot``, unguarded: it only rewrites scratch."""
-    if bands.device.type == "cpu" and x.device.type == "cpu":
-        yy, d = spmv_dot_plain(bands, x, offsets=offsets, plane=plane,
-                               accum_dtype=accum_dtype, lanes=lanes)
-        guarded_store(y, yy, active)
-        guarded_store(dot, d, active)
-        return
-    spmv_dot_partials(bands, x, offsets=offsets, plane=plane,
-                      accum_dtype=accum_dtype, out=(y, part["dot"]),
-                      active=active, lanes=lanes)
-    lane_sums(part["dot"], part["npl"], part["stride"], dot)
-
-
 def fused_matvec_dot_direction_into(bands: torch.Tensor, z: torch.Tensor,
                                     p: torch.Tensor, beta: torch.Tensor,
                                     k: torch.Tensor, Ap: torch.Tensor,
-                                    pAp: torch.Tensor, part: dict, *,
+                                    part: dict, *,
                                     offsets: tuple[int, ...], plane: int,
                                     accum_dtype: torch.dtype | None = None,
                                     active: torch.Tensor | None = None,
                                     lanes: int = 1) -> None:
-    """:func:`spmv_dot_direction` into ``Ap`` and ``pAp`` (accum dtype, one
-    element per lane) through the partials of ``part``
-    (:func:`partials_buffers`), summed as :func:`fused_matvec_dot_into`
-    sums them; on the CPU, :func:`fused_matvec_dot_into` of the new
-    direction."""
-    if bands.device.type == "cpu" and z.device.type == "cpu":
-        new = next_direction_plain(p, z, beta, k)
-        store_direction(p, new, k, active)
-        fused_matvec_dot_into(bands, new, Ap, pAp, part, offsets=offsets,
-                              plane=plane, accum_dtype=accum_dtype,
-                              active=active, lanes=lanes)
-        return
+    """:func:`spmv_dot_direction` into ``Ap`` and the ``p'.Ap'`` partials
+    ``part["dot"]`` (:func:`partials_buffers`), under the loop guard: the
+    CG loop's fold.  The partials are summed by the loop's next launch,
+    :func:`~repro_torch.kernels.krylov_loop.krylov_loop.cg_alpha`; on the
+    CPU, the plain version stored as the kernel stores."""
     spmv_dot_direction(bands, z, p, beta, k, offsets=offsets, plane=plane,
                        accum_dtype=accum_dtype, out=(Ap, part["dot"]),
                        active=active, lanes=lanes)
-    lane_sums(part["dot"], part["npl"], part["stride"], pAp)
 
 
 def axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, rz_part, rr_part,
@@ -666,32 +620,21 @@ def axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, rz_part, rr_part,
         fused_update_step.launches += 1
 
 
-def fused_update_step_into(x, r, p, Ap, inv_diag, alpha, z, rz, rr,
-                           part: dict, accum_dtype: torch.dtype | None = None,
+def fused_update_step_into(x, r, p, Ap, inv_diag, alpha, z, part: dict,
+                           accum_dtype: torch.dtype | None = None,
                            active: torch.Tensor | None = None,
                            lanes: int = 1,
                            k: torch.Tensor | None = None) -> None:
-    """:func:`fused_update_step` with ``x`` and ``r`` updated in place,
-    ``z`` and the dots ``rz``, ``rr`` (accum dtype, one element per lane)
-    written, through the partials of ``part`` (:func:`partials_buffers`),
-    under the loop guard ``active``; with ``k``, ``p`` is the direction
-    pair (:func:`axpy_precond_inplace`).  On a CUDA device each lane's two
-    sums of its partials are ``torch.sum`` into ``rz`` and ``rr``,
-    unguarded (scratch)."""
-    if k is not None and p.device.type == "cpu":
-        p, k = current_direction(p, k), None
-    vecs = (x, r, p if k is None else p[0], Ap, inv_diag)
-    if _on_cpu(vecs, alpha):
-        new = fused_axpy_precond_plain(*vecs, alpha.reshape(lanes),
-                                       accum_dtype=accum_dtype)
-        for dst, val in zip((x, r, z, rz, rr), new):
-            guarded_store(dst, val, active)
-        return
+    """:func:`axpy_precond_inplace` into the partials of ``part``
+    (:func:`partials_buffers`): ``x`` and ``r`` updated in place, ``z``
+    and the ``r'.z``, ``r'.r'`` partials written under the loop guard
+    ``active``; with ``k``, ``p`` is the direction pair.  The CG loop's
+    axpy: the loop's next launch,
+    :func:`~repro_torch.kernels.krylov_loop.krylov_loop.cg_advance`, sums
+    the partials."""
     axpy_precond_inplace(x, r, p, Ap, inv_diag, alpha, z, part["rz"],
                          part["rr"], accum_dtype=accum_dtype, active=active,
                          lanes=lanes, k=k)
-    lane_sums(part["rz"], part["npl"], part["stride"], rz)
-    lane_sums(part["rr"], part["npl"], part["stride"], rr)
 
 
 fused_matvec_dot.launches = 0

@@ -9,11 +9,16 @@ The JAX package's ``lax.while_loop`` becomes a device-resident loop
 beta, rr, k`` and a device flag ``active`` live at fixed addresses, one
 iteration is ``matvec_dot_direction`` (the direction update ``p <- z +
 beta p``, ``p = z`` at ``k == 0``, folded into ``(A p, p . A p)``),
-``alpha = gamma / pAp``, the in-place axpy with the Jacobi apply and both
-dots, and ``advance`` (``beta <- gamma_new / gamma``, the carry update and
-``active <- rr > thr & k < maxiter``), every write guarded on ``active``;
-on the card blocks of iterations replay from a captured CUDA graph with
-one host read per block.  The direction lives in two buffers (``p``, a
+``alpha_into`` (``alpha = gamma / pAp``), the in-place axpy with the
+Jacobi apply and both dots, and ``advance`` (``beta <- gamma_new /
+gamma``, the carry update and ``active <- rr > thr & k < maxiter``), every
+write of the carry guarded on ``active``.  On the fused backend these are
+four kernel launches an iteration, for one system and for any number of
+lanes: the fold and the axpy write their dots' partials, and the tail
+kernels ``cg_alpha`` and ``cg_advance`` sum them on the way
+(:mod:`repro_torch.kernels.krylov_loop`).  On the card blocks of
+iterations replay from a captured CUDA graph with one host read per
+block.  The direction lives in two buffers (``p``, a
 pair): other blocks read the old direction at halo offsets while the new
 one is written, so iteration ``k`` reads ``p[k % 2]`` and writes ``p[(k +
 1) % 2]``, chosen on the device from each lane's own ``k``.  The squared
@@ -128,7 +133,7 @@ def _cg_body(ops: SolverOps, st: SimpleNamespace, maxiter: int):
     def body(flag):
         ops.matvec_dot_direction_into(st.p, st.z, st.beta, st.k, st.Ap,
                                       st.pAp, flag)
-        torch.div(st.gamma, st.pAp, out=st.alpha)
+        ops.alpha_into(st.gamma, st.pAp, st.alpha, flag)
         ops.fused_step_into(st.x, st.r, st.p, st.Ap, st.alpha, st.z,
                             st.gamma_new, st.rr_new, flag, st.k)
         ops.advance(st.gamma, st.gamma_new, st.rr, st.rr_new, st.k, flag,

@@ -44,10 +44,11 @@ guarded kernels model the guard with a select.
 
 **Launch counters.**  A replay makes no Python call, so a guarded kernel
 counts its own launches on the device, only those that pass the guard
-(:mod:`repro_torch.kernels.device_counts`).  :func:`run_loop` zeroes those
-counters before a sweep's first block, reads them with ``k`` at its end
-and adds them to the wrappers' ``launches``: the launches that did work,
-as the card counted them.
+(:mod:`repro_torch.kernels.device_counts`; ``cg_advance`` per lane, the
+most any lane counted).  :func:`run_loop` zeroes those counters before a
+sweep's first block, reads them with ``k`` at its end and adds them to the
+wrappers' ``launches``: the launches that did work, as the card counted
+them.
 
 **Lanes.**  A cohort's loop (``B`` systems of one shape,
 :mod:`repro_torch.solvers.ops`) carries one flag per lane: each guarded
@@ -69,7 +70,8 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import WRAPPERS, launch_counts
-from repro_torch.kernels.device_counts import SLOTS, device_counts
+from repro_torch.kernels.device_counts import (device_counts,
+                                               launched as launched_counts)
 
 __all__ = ["K", "ROUTE", "LoopRecord", "run_loop", "loop_records",
            "reset_loop_records"]
@@ -239,7 +241,7 @@ def run_loop(body: Callable, st, solver: str) -> int:
     if on_card:
         read = torch.cat((k.view(-1).to(counts.dtype), counts)).tolist()
         iters = max(read[:lanes])
-        launched = dict(zip(SLOTS, read[lanes:]))
+        launched = launched_counts(read[lanes:], lanes)
         for name, n in launched.items():
             WRAPPERS[name].launches += n
     else:

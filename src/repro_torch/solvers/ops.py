@@ -23,19 +23,29 @@ False):
 * ``matvec_dot_direction_into(p, z, beta, k, Ap, pAp, active)`` — the CG
   direction update folded into the SpMV+dot: per lane ``p' = z`` at count
   ``k == 0``, else ``z + beta p[k % 2]``, written to ``p[(k + 1) % 2]`` of
-  the direction pair ``p``; ``Ap <- A p'``, ``pAp <- p'.Ap'``
+  the direction pair ``p``; ``Ap <- A p'`` and ``p'.Ap'``
+* ``alpha_into(gamma, pAp, alpha, active)`` — ``pAp`` holds ``p'.Ap'``
+  and ``alpha <- gamma / pAp``
 * ``fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active, k)`` — ``x``
-  and ``r`` updated in place, ``z``, ``rz = r'.z``, ``rr = r'.r'``
-  written, lane ``l`` reading its direction from ``p[(k[l] + 1) % 2]``
+  and ``r`` updated in place, ``z`` written and ``r'.z``, ``r'.r'``
+  formed, lane ``l`` reading its direction from ``p[(k[l] + 1) % 2]``
   of the pair
 * ``advance(gamma, gamma_new, rr, rr_new, k, active, thr, maxiter,
-  beta=None)`` — the CG loop's carry update and condition, keeping ``beta
-  = gamma_new / gamma`` for the next direction update
+  beta=None)`` — ``gamma_new``, ``rr_new`` hold ``r'.z``, ``r'.r'``; the
+  CG loop's carry update and condition, keeping ``beta = gamma_new /
+  gamma`` for the next direction update
 
-The fused backend's members are the guarded kernels (with the reductions'
-scratch allocated once per bundle); the reference backend's are plain
-PyTorch that writes through selects, so both run in one loop on every
-device.
+The reference backend's members are plain PyTorch that writes through
+selects: its fold writes ``pAp``, its axpy ``rz`` and ``rr``.  The fused
+backend's are the guarded kernels, one launch each (with the reductions'
+scratch allocated once per bundle): its fold and axpy leave their
+partials in that scratch, and the tail kernels sum them, ``cg_alpha``
+into ``pAp`` in ``alpha_into`` and ``cg_advance`` into ``gamma_new`` and
+``rr_new`` in ``advance`` (:mod:`repro_torch.kernels.krylov_loop`).  So
+both run in one loop on every device, and the fused loop is four launches
+an iteration for any number of lanes.  The fused bundle's host-loop forms
+(``matvec_dot``, ``fused_step``) sum their partials in the same tree, so
+the host loop is bitwise the device loop.
 
 Backends:
 
@@ -104,6 +114,7 @@ class SolverOps:
     dots: Callable
     matvec_into: Callable
     matvec_dot_direction_into: Callable
+    alpha_into: Callable
     fused_step_into: Callable
     advance: Callable
     backend: str = "reference"   # informational (logs)
@@ -180,6 +191,10 @@ def _plain_into(matvec: Callable, matvec_dot: Callable,
         for dst, val in zip((Ap, pAp), matvec_dot(new)):
             guarded_store(dst, val, active)
 
+    def alpha_into(gamma, pAp, alpha, active):
+        # scratch: the axpy reads alpha only in a lane that goes on
+        torch.div(gamma, pAp, out=alpha)
+
     def fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active, k):
         for dst, val in zip((x, r, z, rz, rr), fused_step(
                 x, r, current_direction(p, k), Ap, alpha)):
@@ -187,7 +202,8 @@ def _plain_into(matvec: Callable, matvec_dot: Callable,
 
     return {"matvec_into": matvec_into,
             "matvec_dot_direction_into": matvec_dot_direction_into,
-            "fused_step_into": fused_step_into, "advance": cg_advance_plain}
+            "alpha_into": alpha_into, "fused_step_into": fused_step_into,
+            "advance": cg_advance_plain}
 
 
 def reference_ops(A: Callable, M: Callable | None = None, *,
@@ -242,9 +258,11 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
     ``lanes``: the parts are a cohort of that many lanes (module doc).
     """
     from repro_torch.kernels.krylov_fused.krylov_fused import (
-        fused_matvec_dot, fused_matvec_dot_direction_into, fused_update_step,
-        fused_update_step_into, partials_buffers)
-    from repro_torch.kernels.krylov_loop.krylov_loop import cg_advance
+        axpy_precond_partials, fused_matvec_dot_direction_into,
+        fused_update_step_into, partials_buffers, spmv_dot_partials)
+    from repro_torch.kernels.krylov_loop.krylov_loop import (cg_advance,
+                                                             cg_alpha,
+                                                             partials_sum)
     from repro_torch.kernels.spmv_dia.spmv_dia import spmv_dia_stacked
     from repro_torch.solvers.jacobi import safe_jacobi_inverse
 
@@ -270,14 +288,18 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
             raise ValueError("the unguarded matvec_dot / fused_step take "
                              "one system; a cohort runs the loop members")
 
+    # the host loop's forms: the partials summed in the tail kernels' tree
     def matvec_dot(p):
         one_system()
-        return fused_matvec_dot(bands, p, offsets=offsets, plane=plane,
-                                accum_dtype=accum)
+        y, dot = spmv_dot_partials(bands, p, offsets=offsets, plane=plane,
+                                   accum_dtype=accum)
+        return y, partials_sum(dot)
 
     def fused_step(x, r, p, Ap, alpha):
         one_system()
-        return fused_update_step(x, r, p, Ap, inv, alpha, accum_dtype=accum)
+        *vecs, rz, rr = axpy_precond_partials(x, r, p, Ap, inv, alpha,
+                                              accum_dtype=accum)
+        return (*vecs, partials_sum(rz), partials_sum(rr))
 
     # the reductions' scratch of the loop members, allocated here: never
     # inside a captured graph
@@ -288,16 +310,28 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
         spmv_dia_stacked(bands, x, offsets=offsets, plane=plane,
                          accum_dtype=accum, out=out, active=active, lanes=B)
 
+    # the loop members: the fold and the axpy leave their partials in
+    # part, the tail kernels sum them (pAp, rz and rr: written by alpha_into
+    # and advance)
     def matvec_dot_direction_into(p, z, beta, k, Ap, pAp, active):
-        fused_matvec_dot_direction_into(bands, z, p, beta, k, Ap, pAp, part,
+        fused_matvec_dot_direction_into(bands, z, p, beta, k, Ap, part,
                                         offsets=offsets, plane=plane,
                                         accum_dtype=accum, active=active,
                                         lanes=B)
 
+    def alpha_into(gamma, pAp, alpha, active):
+        cg_alpha(part["dot"], part["npl"], part["stride"], pAp, gamma, alpha,
+                 active)
+
     def fused_step_into(x, r, p, Ap, alpha, z, rz, rr, active, k):
-        fused_update_step_into(x, r, p, Ap, inv, alpha, z, rz, rr, part,
+        fused_update_step_into(x, r, p, Ap, inv, alpha, z, part,
                                accum_dtype=accum, active=active, lanes=B,
                                k=k)
+
+    def advance(gamma, gamma_new, rr, rr_new, k, active, thr, maxiter,
+                beta=None):
+        cg_advance(gamma, gamma_new, rr, rr_new, k, active, thr, maxiter,
+                   beta=beta, part=part)
 
     matvec_hi = None
     if policy.refine:
@@ -309,6 +343,6 @@ def fused_stacked_ops(bands: torch.Tensor, diag: torch.Tensor, *,
                      fused_step=fused_step, dots=_policy_dots(policy, lanes),
                      matvec_into=matvec_into,
                      matvec_dot_direction_into=matvec_dot_direction_into,
-                     fused_step_into=fused_step_into, advance=cg_advance,
-                     backend="fused", policy=policy,
+                     alpha_into=alpha_into, fused_step_into=fused_step_into,
+                     advance=advance, backend="fused", policy=policy,
                      matvec_hi=matvec_hi, lanes=lanes)

@@ -36,11 +36,15 @@ the device loop's guarded members.  Its CG iteration keeps the stacked
 loop's structure: the direction update ``p' = z + beta p`` folded into
 the SpMV+dot kernel (``spmv_dot_direction``, one lane a shard, over the
 loop's pair of direction buffers), the boundary add from ``p'``'s planes,
-the axpy kernel in place (one lane a shard) and ``cg_advance``.  Its
-``p' . A p'`` is each lane's partials of ``p' . A_local p'`` (written by
-the same kernel) plus the boundary rows' ``p' . (A p' - A_local p')``,
-per shard, summed in shard order: the per-shard dot after the boundary
-add, without another pass over ``p'`` and ``A p'``.  The host loop's form
+the axpy kernel in place (one lane a shard), ``cg_alpha`` and
+``cg_advance``.  Its ``p' . A p'`` is each lane's partials of ``p' .
+A_local p'`` (written by the same kernel) plus the boundary rows' ``p' .
+(A p' - A_local p')``, per shard, summed in shard order: the per-shard
+dot after the boundary add, without another pass over ``p'`` and ``A
+p'``.  The bundle keeps those sums (and the axpy's, each shard's partials
+then the shards in order), each in a run of one partial, whose sum is the
+value itself: ``cg_alpha`` takes ``p' . A p'`` so, ``cg_advance`` ``r'.z``
+and ``r'.r'``.  The host loop's form
 (``matvec_dot``) computes the same values through the unfused SpMV+dot
 kernel, so the device loop stays bitwise the host loop.  The lane kernels
 take one flag, ``beta``, ``k`` and ``alpha`` per lane; the bundle fills
@@ -334,7 +338,8 @@ def make_fused_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
     in JAX; one system (no cohort lanes)."""
     from repro_torch.kernels.krylov_fused.krylov_fused import (
         partials_buffers, spmv_dot_direction, spmv_dot_partials)
-    from repro_torch.kernels.krylov_loop.krylov_loop import cg_advance
+    from repro_torch.kernels.krylov_loop.krylov_loop import (cg_advance,
+                                                             cg_alpha)
     from repro_torch.solvers.jacobi import safe_jacobi_inverse
     from repro_torch.solvers.ops import SolverOps
 
@@ -364,6 +369,10 @@ def make_fused_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
     betas = torch.empty(S, dtype=dtype, device=dev)
     alphas = torch.empty(S, dtype=dtype, device=dev)
     per = torch.empty(S, dtype=dtype, device=dev)
+    # p'.Ap', r'.z and r'.r', each the tail kernels' run of one partial
+    pap_sum, rz_sum, rr_sum = (torch.empty(1, dtype=dtype, device=dev)
+                               for _ in range(3))
+    tail_part = {"rz": rz_sum, "rr": rr_sum, "npl": 1, "stride": 1}
     kw = dict(offsets=offsets, plane=plane)
 
     def vec(t):
@@ -417,7 +426,10 @@ def make_fused_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
         hi = torch.where(odd, pair[0, :, m - plane:], pair[1, :, m - plane:])
         dc, uc = _halo_terms(b_sh, lo, hi, down, up, m, plane)
         _add_halo(y, dc, uc, m, active)
-        dot_after_halo(part["dot"], lo, hi, dc, uc, out=pAp.view(()))
+        dot_after_halo(part["dot"], lo, hi, dc, uc, out=pap_sum.view(()))
+
+    def alpha_into(gamma, pAp, a, active):
+        cg_alpha(pap_sum, 1, 1, pAp, gamma, a, active)
 
     def fused_step_into(x, r, p, Ap, a, z, rz, rr, active, k):
         flags.copy_(active.reshape(1).expand(S))
@@ -425,11 +437,16 @@ def make_fused_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
         alphas.copy_(a.reshape(1).expand(S))
         rz_s, rr_s = _axpy_lanes(x, r, p, Ap, inv, alphas, z, part, S,
                                  active=flags, k=ks)
-        shard_sum(rz_s, out=rz.view(()))
-        shard_sum(rr_s, out=rr.view(()))
+        shard_sum(rz_s, out=rz_sum.view(()))
+        shard_sum(rr_s, out=rr_sum.view(()))
+
+    def advance(gamma, gamma_new, rr, rr_new, k, active, thr, maxiter,
+                beta=None):
+        cg_advance(gamma, gamma_new, rr, rr_new, k, active, thr, maxiter,
+                   beta=beta, part=tail_part)
 
     return SolverOps(matvec=matvec, precond=precond, matvec_dot=matvec_dot,
                      fused_step=step, dots=dots, matvec_into=matvec_into,
                      matvec_dot_direction_into=matvec_dot_direction_into,
-                     fused_step_into=fused_step_into, advance=cg_advance,
-                     backend="fused")
+                     alpha_into=alpha_into, fused_step_into=fused_step_into,
+                     advance=advance, backend="fused")

@@ -271,6 +271,66 @@ def _record(fn: str, frame: int = 0) -> str:
             f"ptxas info    : Used 128 registers, used 1 barriers\n")
 
 
+TAIL_ALPHA = "_Z15cg_alpha_kernelIdEvPKT_xxPS0_S2_S3_PKbPy"
+TAIL_ADVANCE = "_Z17cg_advance_kernelIfEvPT_S1_S1_S1_PiPbPKS0_iS1_S5_S5_xxPy"
+
+
+def _sass(name: str, *instructions: str) -> str:
+    body = "".join(f"        /*{16 * i:04x}*/   {op} ;\n"
+                   for i, op in enumerate(instructions))
+    return f"\t\tFunction : {name}\n\t.headerflags @\"EF_CUDA_SM90\"\n{body}"
+
+
+@pytest.mark.parametrize("bad", ["ATOMG.E.ADD.STRONG.GPU PT, R2, [R2.64], R5",
+                                 "RED.E.ADD.F64.RN.STRONG.GPU [R2.64], R4",
+                                 "ATOMS.ADD RZ, [R3], R4"])
+def test_sass_atomics_counts_atomics_in_the_tail_kernels_only(bad):
+    """The build phase reads the tail kernels' SASS: every instantiation
+    counted, an atomic or reduction instruction in either found, one in
+    another kernel ignored, a kernel without code an error."""
+    kernels = chip_smoke.TAIL_NO_FRAME_KERNELS
+    clean = (_sass(TAIL_ALPHA, "LDG.E.128.CONSTANT R4, [R2.64]",
+                   "UCGABAR_ARV", "DADD R4, R4, R6")
+             + _sass(TAIL_ADVANCE, "SHFL.DOWN PT, R5, R4, 0x10, 0x1f",
+                     "STG.E.64 [R2.64], R4")
+             + _sass(FOLD, bad))
+    assert chip_smoke.sass_atomics(clean, kernels) == {
+        "cg_alpha_kernel": 0, "cg_advance_kernel": 0}
+    got = chip_smoke.sass_atomics(clean + _sass(TAIL_ADVANCE, "EXIT", bad),
+                                  kernels)
+    assert got == {"cg_alpha_kernel": 0, "cg_advance_kernel": 1}
+    with pytest.raises(chip_smoke.SmokeFailure, match="no code"):
+        chip_smoke.sass_atomics(_sass(TAIL_ALPHA, "EXIT"), kernels)
+
+
+@pytest.mark.parametrize("tool", ["missing", "clean", "atomic"])
+def test_check_tail_atomics_reads_the_sass_or_fails(tool, tmp_path,
+                                                    monkeypatch):
+    """The build phase's atomics check runs the ``cuobjdump`` beside
+    ``nvcc`` on the tail kernels' library: clean SASS passes, an atomic in
+    a tail kernel fails, and no ``cuobjdump`` (beside ``nvcc`` or on
+    ``PATH``) fails rather than passing unread."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "nvcc"))
+    monkeypatch.setattr(chip_smoke.shutil, "which", lambda name: None)
+    if tool != "missing":
+        body = (_sass(TAIL_ALPHA, "DADD R4, R4, R6")
+                + _sass(TAIL_ADVANCE, "ATOMG.E.ADD.STRONG.GPU PT, R2, "
+                                      "[R2.64], R5" if tool == "atomic"
+                        else "EXIT"))
+        (tmp_path / "sass.txt").write_text(body)
+        fake = tmp_path / "cuobjdump"
+        fake.write_text(f"#!/bin/sh\ncat {tmp_path / 'sass.txt'}\n")
+        fake.chmod(0o755)
+    if tool == "clean":
+        chip_smoke.check_tail_atomics()
+        return
+    match = "no cuobjdump" if tool == "missing" else "use atomics"
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_tail_atomics()
+
+
 def test_check_frames_covers_the_fold():
     """Since the fold the build phase checks spmv_dot_direction_kernel too:
     a log without it fails, every instantiation clean passes, and a frame
@@ -289,15 +349,16 @@ def test_check_frames_covers_the_fold():
 
 
 def test_the_cg_loop_launches_the_fold_and_never_the_unfused_pair():
-    """A CG iteration is the fold, the in-place axpy and cg_advance once
-    each: a sweep whose device counters show a launch of the unfused
-    cg_direction or spmv_dot fails, and neither is a kernel the step must
-    launch."""
+    """A CG iteration is the fold, cg_alpha, the in-place axpy and
+    cg_advance once each: a sweep whose device counters show a launch of
+    the unfused cg_direction or spmv_dot fails, and neither is a kernel
+    the step must launch."""
     from repro_torch.solvers.device_loop import LoopRecord
 
     assert chip_smoke.LOOP_LAUNCHES["cg"] == {
-        "spmv_dot_direction": 1, "axpy_precond": 1, "cg_advance": 1}
-    assert "spmv_dot_direction" in chip_smoke.STEP_KERNELS
+        "spmv_dot_direction": 1, "cg_alpha": 1, "axpy_precond": 1,
+        "cg_advance": 1}
+    assert {"spmv_dot_direction", "cg_alpha"} <= set(chip_smoke.STEP_KERNELS)
     assert not set(chip_smoke.UNFUSED_KERNELS) & set(chip_smoke.STEP_KERNELS)
     assert not set(chip_smoke.UNFUSED_KERNELS) & set(
         chip_smoke.KRYLOV_KERNELS)
@@ -729,11 +790,12 @@ def test_lane_problems_and_launches_per_iteration():
     from repro_torch.solvers.device_loop import LoopRecord
 
     recs = [LoopRecord(10, 3, 4, 0.0, 8, "cuda", "cg",
-                       {"spmv_dot_direction": 10, "axpy_precond": 10,
-                        "cg_advance": 10, "spmv_dia": 0}),
+                       {"spmv_dot_direction": 10, "cg_alpha": 10,
+                        "axpy_precond": 10, "cg_advance": 10,
+                        "spmv_dia": 0}),
             LoopRecord(6, 2, 3, 0.0, 8, "cuda", "cg",
-                       {"spmv_dot_direction": 6, "axpy_precond": 6,
-                        "cg_advance": 6, "spmv_dia": 0}),
+                       {"spmv_dot_direction": 6, "cg_alpha": 6,
+                        "axpy_precond": 6, "cg_advance": 6, "spmv_dia": 0}),
             LoopRecord(4, 2, 3, 0.0, 2, "cuda", "bicgstab",
                        {"spmv_dia": 8})]
     assert chip_smoke.loop_launches_per_iter(recs) == {

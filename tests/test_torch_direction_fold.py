@@ -178,8 +178,10 @@ def test_first_direction_is_z_bit_for_bit(storage, accum):
 @pytest.mark.parametrize("storage,accum", PAIRS, ids=PAIR_IDS)
 def test_loop_form_sums_the_partials_of_the_new_direction(storage, accum):
     """``fused_matvec_dot_direction_into`` on the CPU: the new direction in
-    the pair and ``(A p', p'.Ap')`` per lane as ``spmv_dot_plain`` of that
-    direction, under per-lane flags (lane 1 off: nothing of it written)."""
+    the pair, ``A p'`` and the ``p'.Ap'`` partials per lane as
+    ``spmv_dot_partials_plain`` of that direction, under per-lane flags
+    (lane 1 off: nothing of it written); ``cg_alpha``, the loop's next
+    launch, sums each lane's partials in the tail kernels' tree."""
     P, m, nx, plane = SHAPES[2]
     lanes = 3
     d = _inputs(P, m, nx, plane, storage, accum, lanes, (1, 2, 0))
@@ -189,20 +191,27 @@ def test_loop_form_sums_the_partials_of_the_new_direction(storage, accum):
     pAp = torch.full((lanes,), 7.0, dtype=accum)
     part = partials_buffers(d["z"].numel(), accum, torch.device("cpu"),
                             lanes=lanes)
+    part["dot"].fill_(7.0)
     fused_matvec_dot_direction_into(
-        d["bands"], d["z"], d["pair"], d["beta"], d["k"], Ap, pAp, part,
+        d["bands"], d["z"], d["pair"], d["beta"], d["k"], Ap, part,
         offsets=d["offsets"], plane=plane, accum_dtype=accum, active=active,
         lanes=lanes)
-    y_w, dots = torch_kf.spmv_dot_plain(d["bands"], new, offsets=d["offsets"],
-                                        plane=plane, accum_dtype=accum,
-                                        lanes=lanes)
+    npl, stride = part["npl"], part["stride"]
+    torch_kl.cg_alpha(part["dot"], npl, stride, pAp, active=active)
+    y_w, part_w = torch_kf.spmv_dot_partials_plain(
+        d["bands"], new, offsets=d["offsets"], plane=plane,
+        accum_dtype=accum, lanes=lanes)
+    sums = torch_kl.lane_tree_sums_plain(part_w, npl, stride, lanes)
     assert _same_bits(d["pair"], pair_u)
     for lane in range(lanes):
         sl = slice(lane * P, (lane + 1) * P)
+        run = slice(lane * stride, lane * stride + npl)
         on = bool(active[lane])
         assert _same_bits(Ap[sl], y_w[sl] if on
                           else torch.full_like(Ap[sl], 7.0))
-        assert _same_bits(pAp[lane], dots[lane] if on
+        assert _same_bits(part["dot"][run], part_w[run] if on
+                          else torch.full((npl,), 7.0, dtype=accum))
+        assert _same_bits(pAp[lane], sums[lane] if on
                           else torch.tensor(7.0, dtype=accum))
 
 

@@ -29,12 +29,12 @@ from repro_torch.kernels.krylov_fused import krylov_fused as torch_kf
 from repro_torch.kernels.krylov_fused.krylov_fused import (
     axpy_precond_partials, axpy_precond_partials_plain, block_partials_plain,
     check_axpy_operands, fused_axpy_precond_cost, fused_axpy_precond_plain,
-    fused_matvec_dot, fused_matvec_dot_into, fused_update_step,
+    fused_matvec_dot, fused_update_step,
     spmv_dot_cost, spmv_dot_direction, spmv_dot_direction_plain,
     spmv_dot_partials, spmv_dot_partials_plain, spmv_dot_plain)
 from repro_torch.kernels.krylov_loop.krylov_loop import (
-    cg_advance, cg_direction, cg_direction_plain, current_direction,
-    direction_pair)
+    cg_advance, cg_alpha, cg_direction, cg_direction_plain, current_direction,
+    direction_pair, lane_tree_sums_plain)
 from repro_torch.kernels.spmv_dia.spmv_dia import (check_stacked_operands,
                                                    spmv_dia_plain,
                                                    spmv_dia_stacked)
@@ -338,13 +338,13 @@ def test_axpy_operands_are_16_byte_aligned_at_every_call_site(
     case and policy on the fused backend's CPU path, each call's operands
     recorded."""
     seen = []
-    plain = torch_kf.fused_axpy_precond_plain
+    plain = torch_kf.axpy_precond_partials_plain
 
     def recording(*args, **kwargs):
         seen.append([t.data_ptr() % 16 for t in args[:5]])
         return plain(*args, **kwargs)
 
-    monkeypatch.setattr(torch_kf, "fused_axpy_precond_plain", recording)
+    monkeypatch.setattr(torch_kf, "axpy_precond_partials_plain", recording)
     solver = make_solver(program, CavityMesh.cube(8, 4), alpha=2,
                          case=case, precision=precision,
                          solver_backend="fused", device="cpu")
@@ -385,11 +385,6 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
     k, flag = torch.zeros((), dtype=torch.int32), torch.ones((), dtype=bool)
     cg_advance(*scal, k, flag, torch.tensor(0.5, dtype=torch.float64), 9)
     assert int(k) == 1 and bool(flag) and float(scal[0]) == 2.
-    y, d = torch.empty_like(x), torch.empty((), dtype=torch.float64)
-    fused_matvec_dot_into(b, x, y, d, {}, offsets=offsets, plane=25,
-                          active=flag)
-    y_w, d_w = spmv_dot_plain(b, x, offsets=offsets, plane=25)
-    assert torch.equal(y, y_w) and torch.equal(d, d_w)
     # the direction update folded into the SpMV+dot, from iteration 1
     pair = direction_pair(x)
     pair[1].copy_(vecs[2])
@@ -400,10 +395,17 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
                                                 **kw)
     assert torch.equal(got[0], y_w) and torch.equal(got[1], part_w)
     assert torch.equal(current_direction(pair, k), new)
+    # the CG iteration's scalar tail
+    part = torch.cat((part_w, part_w.flip(0)))
+    pAp, al = (torch.empty((2,), dtype=torch.float64) for _ in "ab")
+    gam = torch.tensor([0.5, 2.0], dtype=torch.float64)
+    cg_alpha(part, part_w.numel(), part_w.numel(), pAp, gam, al)
+    sums = lane_tree_sums_plain(part, part_w.numel(), part_w.numel(), 2)
+    assert torch.equal(pAp, sums) and torch.equal(al, gam / sums)
     assert launch_counts() == {name: 0 for name in WRAPPERS}
     assert set(WRAPPERS) == {"spmv_dia", "spmv_dot", "axpy_precond",
                              "coef_update", "momentum_bands", "cg_direction",
-                             "cg_advance", "spmv_dot_direction"}
+                             "cg_advance", "spmv_dot_direction", "cg_alpha"}
     assert set(SOURCES) == {"spmv_dia", "krylov_fused", "coef_update",
                             "stencil_assembly", "krylov_loop"}
 
