@@ -274,7 +274,7 @@ result.  Phases, in order (any failure exits nonzero):
     width and all 28 layers in bfloat16 (596,049,920 parameters from a
     ``torch.Generator`` seed 0 on the card), ``seq_len`` 4096 (train_4k's),
     global batch 8 (cut from train_4k's 256), ``accum`` 2, ``AdamW()``:
-    one warm step and 3 timed steps, all on ``batch_at(seed 0, step 0)``
+    one warm step and 2 timed steps, all on ``batch_at(seed 0, step 0)``
     (tests/test_training.py's fixed batch: its loss must fall over them),
     and a second run of the first step, bitwise the first run's in its
     loss, grad_norm and every parameter leaf; s a step, tokens/s, 6 N
@@ -291,9 +291,9 @@ result.  Phases, in order (any failure exits nonzero):
     remat bitwise those without, ``max_memory_allocated`` of each; (17d)
     the full-width state written and restored in process (bytes, seconds,
     bitwise), then ``python -m repro_torch.launch.train`` (qwen3-0.6b,
-    28 layers, ``--seq-len 512 --batch 8``) run uninterrupted to step 4
-    and, in another directory, to step 2 and resumed to step 4: it must
-    print ``resumed from step 2`` and the two step-4 checkpoints must
+    28 layers, ``--seq-len 512 --batch 8``) run uninterrupted to step 2
+    and, in another directory, to step 1 and resumed to step 2: it must
+    print ``resumed from step 1`` and the two step-2 checkpoints must
     hold the same bytes.  Phase 17's checks are collected and fail the
     run after its parts have printed; its results also go on a line of
     their own (``train {...}``) before the summary.
@@ -327,8 +327,8 @@ result.  Phases, in order (any failure exits nonzero):
     on a line of their own (``lm_mesh {...}``) before the summary.
 
 19. the stacked solve over a ``(solve, assemble)`` mesh, from the main
-    run's 3-step state, every position on ``cuda:0``: at alpha 30, 15
-    and 6 the main path's solver without a mesh and over the ``(30 /
+    run's 3-step state, every position on ``cuda:0``: at alpha 30 and
+    15 the main path's solver without a mesh and over the ``(30 /
     alpha, alpha)`` mesh (``--mesh-devices``) under ``device_direct`` and
     ``host_buffer``, one step each (without and with the mesh in turns),
     the mesh ones on the state in the assembly layout, plain versions
@@ -336,12 +336,23 @@ result.  Phases, in order (any failure exits nonzero):
     bitwise the step without a mesh (state, counts and flags, launch
     counters), its state back in the assembly layout, and its move record
     equal to the closed forms (a pressure update 499,964,640 /
-    482,724,480 / 431,004,000 B between positions under ``device_direct``,
+    482,724,480 B between positions under ``device_direct``,
     0 between devices; ``host_buffer`` at least as much), beside the cost
     model's ``t_repartition`` volume and JAX's replicated solve layout;
-    s a step with and without the mesh.  Its checks are collected and
-    fail the run after it has printed; its results go on a line of their
-    own (``assembly_mesh {...}``);
+    s a step with and without the mesh.  19b then runs the alpha-30
+    ``(1, 30)`` and alpha-15 ``(2, 15)`` meshes over the card and the
+    host's CPU (positions 28-29, and 14 and 29, on ``cpu``; every owner on
+    the card), both schedules, one timed step each from the same state,
+    plain versions refused on the card only: each field within 1e-10 of
+    its maximum of 19's step of the same mesh on the card alone, counts,
+    flags and the card's launch counters equal, every kind's bytes copied
+    between devices equal to its count between devices; it prints s a
+    step, each rank's fine-phase, solve and update seconds (and the part
+    spent waiting at collectives), each kind's bytes and seconds between
+    devices (the pressure update host -> card above all) beside the
+    card's name and power limit, and the host's cores.  Its checks are
+    collected and fail the run after it has printed; its results go on a
+    line of their own (``assembly_mesh {...}``);
 20. the port's dry-run on the card's host (``python -m
     repro_torch.launch.dryrun --all --mesh both`` into a temporary
     directory; it touches no device): 80 records, 66 ``ok``, 14
@@ -2029,10 +2040,14 @@ PLAIN_VERSIONS = (
 
 
 @contextlib.contextmanager
-def no_plain_versions():
+def no_plain_versions(cuda_only: bool = False):
     """Make every kernel wrapper's plain version raise inside the block:
-    on the card the wrappers must launch their kernels."""
+    on the card the wrappers must launch their kernels.  ``cuda_only``:
+    raise only when a plain version is given a CUDA tensor (a mesh's CPU
+    positions run the plain versions on their own tensors)."""
     import importlib
+
+    import torch
 
     # the wrapper modules (each package re-exports a function of its name);
     # an older tree, timed by a copy of this script, may lack a name
@@ -2046,14 +2061,18 @@ def no_plain_versions():
              for m, name in PLAIN_VERSIONS
              if m in mods and hasattr(mods[m], name)]
 
-    def refuse(name):
+    def refuse(name, fn):
         def plain(*args, **kwargs):
-            raise SmokeFailure(f"{name} ran on the card's path")
+            if not cuda_only or any(
+                    isinstance(a, torch.Tensor) and a.is_cuda
+                    for a in (*args, *kwargs.values())):
+                raise SmokeFailure(f"{name} ran on the card's path")
+            return fn(*args, **kwargs)
         return plain
 
     try:
-        for mod, name, _ in saved:
-            setattr(mod, name, refuse(name))
+        for mod, name, fn in saved:
+            setattr(mod, name, refuse(name, fn))
         yield
     finally:
         for mod, name, fn in saved:
@@ -5038,11 +5057,11 @@ def full_mesh_phase(torch, state3) -> dict:
 # ---------------------------------------------------------------------------
 # phase 19: the stacked solve over a (solve, assemble) mesh
 # ---------------------------------------------------------------------------
-ASSEMBLY_MESH_ALPHAS = (30, 15, 6)
+ASSEMBLY_MESH_ALPHAS = (30, 15)     # 19b's references
 # bytes between positions a pressure update moves on the (30 / alpha,
 # alpha) mesh under device_direct, (alpha - 1) * n_coarse * L * 8 with L =
 # 2,155,020 values a fine part (plan_for_mesh(CavityMesh.cube(210, 30)))
-ASSEMBLY_MESH_BYTES = {30: 499_964_640, 15: 482_724_480, 6: 431_004_000}
+ASSEMBLY_MESH_BYTES = {30: 499_964_640, 15: 482_724_480}
 MOVE_KINDS = ("update_mom", "update_p", "b_c", "x0_c", "diag_c", "x_back")
 
 
@@ -5094,10 +5113,12 @@ def assembly_mesh_solvers(alpha: int, cache) -> tuple:
                 plan_cache=cache), args.co * plain.mesh.h)
 
 
-def assembly_mesh_alpha(torch, alpha, cache, state3, turn, problems) -> dict:
+def assembly_mesh_alpha(torch, alpha, cache, state3, turn, problems,
+                        keep=None) -> dict:
     """19 at one ``alpha``: a step of the solver without a mesh and of the
     mesh solvers from ``state3`` (the mesh ones on it in the assembly
-    layout), plain versions refused, launch counters from 0 for each."""
+    layout), plain versions refused, launch counters from 0 for each.
+    ``keep`` receives the mesh runs by schedule, 19b's references."""
     from repro_torch.core.comm import assembly_layout, assembly_sharding
     from repro_torch.core.cost_model import H100, CostModel
     from repro_torch.core.layout import Sharded, unshard
@@ -5127,6 +5148,9 @@ def assembly_mesh_alpha(torch, alpha, cache, state3, turn, problems) -> dict:
                      "moves": (None if solver.moves is None
                                else dict(solver.moves.kinds))}
     torch.cuda.synchronize()
+    if keep is not None:
+        keep.update(device_direct=runs["mesh"],
+                    host_buffer=runs["host_buffer"])
     ref = runs["plain"]
     tag0 = f"19 alpha {alpha} ({n_c}, {alpha})"
     try:
@@ -5198,6 +5222,151 @@ def assembly_mesh_alpha(torch, alpha, cache, state3, turn, problems) -> dict:
     return out
 
 
+# 19b: (30 / alpha, alpha) meshes whose positions name the card and the
+# host's CPU; every owner stays on the card, so the pressure CG is the
+# card's and the CPU positions assemble, update and solve their momentum
+DISTINCT_MESH_DEVICES = {
+    30: [MESH_DEVICE] * 28 + ["cpu"] * 2,                             # (1, 30)
+    15: [MESH_DEVICE] * 14 + ["cpu"] + [MESH_DEVICE] * 14 + ["cpu"],  # (2, 15)
+}
+DISTINCT_PARITY = 1e-10     # of each field's maximum, against the same mesh
+#                             on the card alone: the momentum solve's dots
+#                             are summed over the two devices
+FINE_PHASES = ("assemble_mom", "assemble_p_mat", "assemble_p", "correct",
+               "grad_p")
+FIELD_NAMES = ("U", "p", "phi", "phi_if", "phi_b")
+
+
+def distinct_problems(torch, run: dict, ref: dict, tag: str) -> list:
+    """What a step over distinct devices says went wrong against the same
+    mesh on the card alone (``run``/``ref``: ``state``, ``stats``,
+    ``launches``; ``run`` also ``kinds`` (kind -> MoveStats) and
+    ``carried`` (kind -> [bytes, s])): each field within
+    :data:`DISTINCT_PARITY` of its maximum, the counts and flags equal,
+    the card's launches the card-alone step's, and every kind's bytes
+    copied between devices its count between devices."""
+    out = []
+    for name, a, b in zip(FIELD_NAMES, run["state"], ref["state"]):
+        b = b.to(a.device)
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+        if not err <= DISTINCT_PARITY:
+            out.append(f"{tag}: {name} off by {err:.3e} of its maximum")
+    for f in ("mom_iters", "p_iters", "converged", "diverged", "hit_cap"):
+        a, b = getattr(run["stats"], f), getattr(ref["stats"], f)
+        if not torch.equal(a.cpu(), b.cpu()):
+            out.append(f"{tag}: {f} {a.tolist()} against {b.tolist()}")
+    if run["launches"] != ref["launches"]:
+        out.append(f"{tag}: the card launched {run['launches']}, alone "
+                   f"{ref['launches']}")
+    carried = {k: v[0] for k, v in run["carried"].items() if k != "scalars"}
+    counted = {k: v.devices for k, v in run["kinds"].items() if v.devices}
+    if carried != counted:
+        out.append(f"{tag}: carried {carried} between devices, counted "
+                   f"{counted}")
+    return out
+
+
+def rank_seconds(last_ranks) -> list:
+    """Each rank's seconds from a timed step's phase records: the fine
+    phases' (and the part of them spent waiting at collectives), the
+    momentum and pressure solves', the updates', the whole step's."""
+    out = []
+    for r in last_ranks:
+        ph = r["phases"]
+
+        def total(names, i=2):
+            return sum(p[i] for p in ph if p[0].split("[")[0] in names)
+
+        out.append({
+            "device": r["device"], "parts": r["parts"],
+            "fine_s": total(FINE_PHASES),
+            "fine_waited_s": total(FINE_PHASES, 3),
+            "solve_mom_s": total(("solve_mom",)),
+            "solve_p_s": total(("solve_p",)),
+            "update_s": total(("update_mom", "update_p")),
+            "step_s": sum(p[2] for p in ph),
+            "waited_s": sum(p[3] for p in ph)})
+    return out
+
+
+def distinct_mesh_run(torch, alpha, schedule, cache, state3, ref,
+                      problems) -> dict:
+    """19b at one mesh and schedule: the main path's solver over the mesh
+    of :data:`DISTINCT_MESH_DEVICES` through the launcher, one timed step
+    from ``state3`` in the assembly layout (the card synchronised at each
+    phase boundary and before each collective, so a copy's seconds are
+    the copy's), plain versions refused on the card, launch counters from
+    0, held to ``ref``, the same mesh's step on the card alone."""
+    from repro_torch.core.comm import assembly_layout, assembly_sharding
+    from repro_torch.core.layout import Sharded, unshard
+    from repro_torch.fvm.piso import PisoState
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.case import build_parser, build_solver
+
+    n_c = PARTS // alpha
+    tag = f"19b ({n_c}, {alpha}) {schedule}"
+    base = list(MAIN_ARGS)
+    base[base.index("--alpha") + 1] = str(alpha)
+    args = build_parser().parse_args(base + [
+        "--mesh-devices", ",".join(DISTINCT_MESH_DEVICES[alpha]),
+        "--schedule", schedule])
+    solver = build_solver(args, plan_cache=cache)
+    dt = args.co * solver.mesh.h
+    grid = solver.spmd_mesh
+    laid = PisoState(*(assembly_layout(t, grid) for t in state3))
+    solver._distinct.timing = True
+    reset_launch_counts()
+    with no_plain_versions(cuda_only=True):
+        (st, stats), s = synced(torch, lambda: solver.step(laid, dt))
+    launches = launch_counts()
+    if not all(isinstance(t, Sharded) and t.sharding
+               == assembly_sharding(grid, t.ndim - 1) for t in st):
+        problems.append(f"{tag}: the state did not come back in the "
+                        f"assembly layout")
+    on_cpu = [k for k, d in enumerate(grid.flat()) if d.type == "cpu"]
+    if any(st.U.shards[k].device.type != "cpu" for k in on_cpu):
+        problems.append(f"{tag}: a CPU position's state came back elsewhere")
+    run = {"state": PisoState(*(unshard(t, MESH_DEVICE) for t in st)),
+           "stats": stats, "launches": launches,
+           "kinds": dict(solver.moves.kinds),
+           "carried": {k: list(v) for k, v in solver.moves.carried.items()}}
+    problems.extend(distinct_problems(torch, run, ref, tag))
+    same = {name: same_bits(torch, a, b) for name, a, b in
+            zip(FIELD_NAMES, run["state"], ref["state"])}
+    ranks = rank_seconds(solver._distinct.last_ranks)
+    moves = {k: {"bytes": v[0], "s": v[1],
+                 "GB_per_s": v[0] / v[1] / 1e9 if v[1] > 0 else None}
+             for k, v in run["carried"].items()}
+    out = {"mesh": [n_c, alpha], "schedule": schedule,
+           "cpu_positions": on_cpu, "s": s, "s_card_alone": ref["s"],
+           "p_iters": stats.p_iters.tolist(),
+           "mom_iters": int(stats.mom_iters),
+           "bitwise": same, "launches": launches, "ranks": ranks,
+           "carried": moves,
+           "counted_devices": {k: v.devices for k, v in run["kinds"].items()},
+           "max_err": {name: float((a - b).abs().max())
+                       / max(float(b.abs().max()), 1e-300)
+                       for name, a, b in zip(FIELD_NAMES, run["state"],
+                                             ref["state"])}}
+    upd = moves.get("update_p", {})
+    print(f"  {tag}: CPU positions {on_cpu}; {s:.3f} s a step (card alone "
+          f"{ref['s']:.3f} s); p_iters {out['p_iters']}, mom_iters "
+          f"{out['mom_iters']}; bitwise {same}; max err "
+          f"{max(out['max_err'].values()):.2e}")
+    for r in ranks:
+        print(f"    rank {r['device']} ({r['parts']} parts): fine phases "
+              f"{r['fine_s']:.3f} s ({r['fine_waited_s']:.3f} s of it "
+              f"waiting), momentum solve {r['solve_mom_s']:.3f} s, pressure "
+              f"solve {r['solve_p_s']:.3f} s, updates {r['update_s']:.3f} s,"
+              f" the step {r['step_s']:.3f} s ({r['waited_s']:.3f} s "
+              f"waiting)")
+    print(f"    carried between devices by kind: " + ", ".join(
+        f"{k} {v['bytes']:,} B in {v['s']:.4f} s" for k, v in moves.items())
+        + f"; the pressure update host->card {upd.get('bytes', 0):,} B at "
+        f"{upd.get('GB_per_s') or 0:.2f} GB/s  [{smi_line()}]")
+    return out
+
+
 def assembly_mesh_phase(torch, state3) -> dict:
     """Phase 19 (see the module docstring); its checks are collected and
     fail the run after its parts have printed."""
@@ -5209,15 +5378,36 @@ def assembly_mesh_phase(torch, state3) -> dict:
     t0 = time.perf_counter()
     problems = []
     cache = PlanCache()
-    out = {"alphas": {}}
+    out = {"alphas": {}, "distinct": {}}
+    refs = {alpha: {} for alpha in DISTINCT_MESH_DEVICES}
     for turn, alpha in enumerate(ASSEMBLY_MESH_ALPHAS):
         try:
             out["alphas"][alpha] = assembly_mesh_alpha(
-                torch, alpha, cache, state3, turn, problems)
+                torch, alpha, cache, state3, turn, problems,
+                keep=refs.get(alpha))
         except Exception as e:  # noqa: BLE001 — collected, fails the phase
             traceback.print_exc()
             problems.append(f"19 alpha {alpha}: {type(e).__name__}: {e}")
         free_device(torch)
+    print(f"[19b] the same meshes over distinct devices: positions on "
+          f"{MESH_DEVICE} and the host's CPU ({os.cpu_count()} cores, "
+          f"{torch.get_num_threads()} threads), one step each schedule")
+    for alpha, devices in DISTINCT_MESH_DEVICES.items():
+        for schedule in ("device_direct", "host_buffer"):
+            tag = f"19b ({PARTS // alpha}, {alpha}) {schedule}"
+            ref = refs[alpha].get(schedule)
+            if ref is None:
+                problems.append(f"{tag}: no run on {MESH_DEVICE} alone")
+                continue
+            try:
+                out["distinct"][f"{alpha} {schedule}"] = distinct_mesh_run(
+                    torch, alpha, schedule, cache, state3, ref, problems)
+            except Exception as e:  # noqa: BLE001 — collected
+                traceback.print_exc()
+                problems.append(f"{tag}: {type(e).__name__}: {e}")
+            free_device(torch)
+    refs.clear()
+    free_device(torch)
     out["s"] = time.perf_counter() - t0
     print("assembly_mesh " + json.dumps(out, default=str))
     print(f"  [19] {out['s']:.1f} s")
@@ -5774,7 +5964,7 @@ TRAIN_TIGHT = 1e-2       # 17a: x lr, the parameters whose gradient stayed
 TRAIN_SEQ = 4096         # 17b: the train_4k shape's length (configs/shapes.py)
 TRAIN_BATCH, TRAIN_ACCUM = 8, 2   # 17b: global batch cut from train_4k's 256;
 #                          microbatch 4
-TRAIN_TIMED = 3          # 17b: timed steps after one warm step, all on
+TRAIN_TIMED = 2          # 17b: timed steps after one warm step, all on
 #                          batch_at(seed 0, step 0): tests/test_training.py's
 #                          fixed batch, whose loss must fall over them
 TRAIN_REPEAT = 1         # 17b: the second run's steps (cut from 4: a step
@@ -5785,6 +5975,7 @@ BF16_DENSE_FLOPS = 989e12    # H100 SXM dense bf16 peak (NVIDIA data sheet,
 # 17c: (arch, layers, seq_len, batch) — full width, depth cut
 REMAT_RUNS = (("qwen3-0.6b", 2, 4096, 4), ("rwkv6-1.6b", 2, 2048, 2))
 RESUME_ARGS = ["--arch", QWEN, "--seq-len", "512", "--batch", "8"]  # 17d
+RESUME_STEPS, RESUME_KILL = 2, 1   # 17d: run to step 2; killed after 1
 # 17b: a microbatch's device time by part (lower-case fragments of the
 # kernels' names; the first part that matches takes the kernel)
 TRAIN_PARTS = (("f32 products", ("sgemm", "f32f32", "sss")),
@@ -6238,26 +6429,31 @@ def train_resume_phase(torch, dev, problems) -> dict:
         a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
         # A and B1 share the card (two states of ~20 GB each); B2 resumes
         # B1's checkpoint
-        procs = {"A": train_cli(["--steps", "4", "--ckpt-every", "4"], a),
-                 "B1": train_cli(["--steps", "2", "--ckpt-every", "2"], b)}
+        procs = {"A": train_cli(["--steps", str(RESUME_STEPS),
+                                 "--ckpt-every", str(RESUME_STEPS)], a),
+                 "B1": train_cli(["--steps", str(RESUME_KILL),
+                                  "--ckpt-every", str(RESUME_KILL)], b)}
         runs = finish(procs)
-        runs.update(finish({"B2": train_cli(["--steps", "4",
-                                             "--ckpt-every", "2"], b)}))
+        runs.update(finish({"B2": train_cli(
+            ["--steps", str(RESUME_STEPS), "--ckpt-every",
+             str(RESUME_KILL)], b)}))
         for tag, (rc, stdout, stderr) in runs.items():
             print(f"  [17d] launcher {tag}: rc {rc}; "
                   + " | ".join(stdout.strip().splitlines()))
             if rc != 0:
                 problems.append(f"17d {tag}: rc {rc}: {stderr[-2000:]}")
-        resumed = "resumed from step 2" in runs["B2"][1].splitlines()
+        resumed = (f"resumed from step {RESUME_KILL}"
+                   in runs["B2"][1].splitlines())
+        last = f"step-{RESUME_STEPS}"
         try:
-            equal = same_checkpoint(os.path.join(a, "step-4"),
-                                    os.path.join(b, "step-4"))
+            equal = same_checkpoint(os.path.join(a, last),
+                                    os.path.join(b, last))
         except OSError as e:
             equal = False
-            problems.append(f"17d: no step-4 checkpoint ({e})")
-        out["launcher"] = {"resumed": resumed, "step4_equal": equal}
-        print(f"  [17d] B resumed from step 2: {resumed}; A's and B's step-4 "
-              f"checkpoints bitwise equal: {equal}")
+            problems.append(f"17d: no {last} checkpoint ({e})")
+        out["launcher"] = {"resumed": resumed, "last_equal": equal}
+        print(f"  [17d] B resumed from step {RESUME_KILL}: {resumed}; A's "
+              f"and B's {last} checkpoints bitwise equal: {equal}")
         if not (resumed and equal):
             problems.append(f"17d: {out['launcher']}")
     return out

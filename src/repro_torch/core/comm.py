@@ -190,24 +190,43 @@ def solve_sharding(mesh: DeviceMesh, extra_dims: int = 1,
 
 
 def solve_constraint(mesh: DeviceMesh | None, x: torch.Tensor, *,
-                     full_mesh: bool = False) -> torch.Tensor:
+                     full_mesh: bool = False, parts=None, n_coarse=None,
+                     device=None) -> torch.Tensor:
     """Pin a solve-phase tensor to the solve layout (``x`` itself off a
     mesh).
 
     JAX applies it between the coefficient update and the solve so that
     the compiler keeps the solver operands in the solve layout.  In the
-    port a solve-phase tensor is the stacked ``(n_c, ..., m_c)`` tensor on
-    the device of the mesh's first position, where the solve runs (the
-    stacked solve's owners share that device; the full mesh cuts it into
-    its shards there); anywhere else it raises.  Returns ``x``.
+    port a solve-phase tensor holds whole coarse parts ``(n, ..., m_c)``
+    at the device of their owner, the position where each is solved
+    (:func:`~repro_torch.core.update.owner_positions`): on a mesh of one
+    device all ``n_coarse`` parts (default ``x.shape[0]``), over distinct
+    devices the coarse parts ``parts`` that one owner's device holds.
+    ``device`` is the mesh device ``x`` is at (default ``x.device``; a CPU
+    tensor cannot tell ``cpu`` from ``cpu:0``).  The full mesh cuts the
+    whole stacked tensor into its shards at the first position.  Anywhere
+    else it raises.  Returns ``x``.
     """
     if mesh is None:
         return x
     solve_sharding(mesh, x.dim() - 1, full_mesh)   # a spec the mesh names
-    home = mesh.device_list()[0]
-    if canonical_device(x.device) != home:
-        raise ValueError(f"a solve-phase tensor on {x.device}, the solve "
-                         f"layout's first position on {home}")
+    devs = mesh.device_list()
+    parts = range(x.shape[0]) if parts is None else parts
+    if full_mesh:
+        owners = [0] * len(parts)
+    else:
+        from repro_torch.core.update import owner_positions
+
+        own = owner_positions(mesh, x.shape[0] if n_coarse is None
+                              else n_coarse)
+        owners = [own[c] for c in parts]
+    here = canonical_device(x.device if device is None else device)
+    for c, pos in zip(parts, owners):
+        if devs[pos] != here:
+            where = ("the solve layout's first position" if pos == 0
+                     else f"position {pos}")
+            raise ValueError(f"a solve-phase tensor on {here}, the owner of "
+                             f"its coarse part {c} ({where}) on {devs[pos]}")
     return x
 
 

@@ -30,13 +30,17 @@ Over a ``(solve, assemble)`` mesh (:mod:`repro_torch.core.comm`) the fine
 buffers start in the assembly layout, fine part ``f`` on its position, and
 coarse part ``c``'s ``alpha`` buffers go to its owner, the position
 ``(row, 0)`` of the solve layout: the paper's active rank.  The port keeps
-a device's consecutive positions as one tensor, so on one device the
-update runs as above and nothing is copied between positions;
+a device's positions as one tensor, so on one device the update runs as
+above and nothing is copied between positions; over distinct devices
+(:mod:`repro_torch.fvm.distinct`) each device's buffers are copied to the
+owners' devices, in one hop or staged through the host.
 :func:`update_moves` counts what each schedule carries between positions
-and between devices (:class:`~repro_torch.core.layout.MoveStats`), the
-traffic a mesh over distinct cards would carry.  :func:`owner_moves` and
-:func:`halo_moves` count the solve operands' and the assembly's neighbour
-planes' moves, and :class:`MoveRecord` keeps one step's moves by kind.
+and between devices (:class:`~repro_torch.core.layout.MoveStats`).
+:func:`owner_moves` and :func:`halo_moves` count the solve operands' and
+the assembly's neighbour planes' moves, :func:`solve_halo_moves` a Krylov
+product's planes where a solve spans devices, and :class:`MoveRecord`
+keeps one step's moves by kind, with the bytes and seconds the copies
+between devices really took (``carried``).
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ __all__ = [
     "owner_moves",
     "update_moves",
     "halo_moves",
+    "solve_halo_moves",
     "MoveRecord",
 ]
 
@@ -266,19 +271,39 @@ def halo_moves(mesh, n_parts: int, plane_bytes: int) -> MoveStats:
                   2 * plane_bytes)
 
 
+def solve_halo_moves(mesh, owners, plane_bytes: int) -> MoveStats:
+    """One Krylov product's neighbour planes when the system's parts sit at
+    the positions ``owners`` (one per part, in part order): ``plane_bytes``
+    each way between consecutive parts on distinct positions."""
+    return _carry(mesh.device_list(),
+                  ((owners[i], owners[i + 1]) for i in range(len(owners) - 1)),
+                  2 * plane_bytes)
+
+
 class MoveRecord:
     """One step's moves over a mesh, by kind (``kinds``: kind ->
     :class:`~repro_torch.core.layout.MoveStats`); the step's seed clears
-    it and its phases add to it."""
+    it and its phases add to it.  ``carried`` (kind -> ``[bytes,
+    seconds]``) is what the copies between devices of a step over
+    distinct devices really moved, and the seconds they took, added by
+    :meth:`carry`; ``"scalars"`` is the collectives' scalars, which no
+    kind counts."""
 
     def __init__(self):
         self.kinds: dict[str, MoveStats] = {}
+        self.carried: dict[str, list] = {}
 
     def reset(self) -> None:
         self.kinds = {}
+        self.carried = {}
 
     def add(self, kind: str, stats: MoveStats) -> None:
         self.kinds[kind] = self.kinds.get(kind, MoveStats()) + stats
+
+    def carry(self, kind: str, nbytes: int, seconds: float) -> None:
+        got = self.carried.setdefault(kind, [0, 0.0])
+        got[0] += nbytes
+        got[1] += seconds
 
     def total(self) -> MoveStats:
         return sum(self.kinds.values(), MoveStats())

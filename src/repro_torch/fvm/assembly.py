@@ -184,12 +184,20 @@ class CavityAssembly:
         # called with each field whose neighbour planes are read across
         # parts (a solver over a mesh counts those moves); None: no one
         self.on_halo = None
+        # a block view's neighbour planes (block_view); None: the parts
+        # here are all the parts
+        self._block_halo = None
+        # the rows whose cell 0 is the pressure reference (None: part 0 of
+        # every lane)
+        self.ref_rows = None
 
     def _halo(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """The neighbour planes of ``x`` (:func:`halo_exchange`), reported
-        to ``on_halo`` first."""
+        """The neighbour planes of ``x`` (:func:`halo_exchange`, or a block
+        view's exchange), reported to ``on_halo`` first."""
         if self.on_halo is not None:
             self.on_halo(x)
+        if self._block_halo is not None:
+            return self._block_halo(x)
         return halo_exchange(x, self.plane, self.lane_parts)
 
     def _zeros(self, *shape) -> torch.Tensor:
@@ -276,6 +284,44 @@ class CavityAssembly:
         a.n_parts = lanes * self.lane_parts
         a.if_mask = self.if_mask.repeat(lanes, 1, 1)
         a.patch_mask = self.patch_mask.repeat(lanes, 1)
+        return a
+
+    def block_view(self, parts, device, halo) -> "CavityAssembly":
+        """A view of this assembly over the fine parts ``parts`` (sorted
+        global part indices) on ``device``, fields stacked ``(len(parts),
+        ...)``: the static addressing copied there, the masks of those
+        parts, the pressure reference on global part 0 where the block
+        holds it, and ``halo(x) -> (down, up)`` giving each part's
+        neighbour planes (some held elsewhere).  Each part is assembled
+        exactly as in the whole, the same per-part operations."""
+        dev = torch.device(device)
+
+        def to(t):
+            return t.to(dev)
+
+        def cells(cs):
+            c = copy.copy(cs)
+            c.columns = [to(col) for col in cs.columns]
+            return c
+
+        idx = torch.as_tensor(list(parts), dtype=torch.int64)
+        a = copy.copy(self)
+        a.device = dev
+        a.owner, a.neigh, a.face_axis = (to(self.owner), to(self.neigh),
+                                         to(self.face_axis))
+        a.own_sum, a.ngb_sum = cells(self.own_sum), cells(self.ngb_sum)
+        a.if_rows = to(self.if_rows)
+        a.if_mask = to(self.if_mask.index_select(0, idx.to(
+            self.if_mask.device)))
+        a.patch_rows = [to(r) for r in self.patch_rows]
+        a.patch_mask = to(self.patch_mask.index_select(0, idx.to(
+            self.patch_mask.device)))
+        a.patch_Ub = [to(u) for u in self.patch_Ub]
+        a.patch_normal = [to(n) for n in self.patch_normal]
+        a.n_parts = a.lane_parts = len(parts)
+        a.ref_rows = [i for i, f in enumerate(parts) if f == 0]
+        a._block_halo = halo
+        a.on_halo = None
         return a
 
     # ------------------------------------------------------------------
@@ -496,7 +542,9 @@ class CavityAssembly:
             # reference cell: diag *= (1 + boost) at cell 0 of each lane
             # (an outlet pins the pressure level instead)
             boost = self._zeros(P, m)
-            boost[::self.lane_parts, 0] = ref_boost
+            rows = (slice(None, None, self.lane_parts)
+                    if self.ref_rows is None else self.ref_rows)
+            boost[rows, 0] = ref_boost
             diag = diag * (1.0 + boost)
         return PressureSystem(diag, upper, lower, iface, self._zeros(P, m),
                               g_int, g_if, g_b)

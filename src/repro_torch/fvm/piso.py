@@ -33,7 +33,8 @@ shards over ``spmd_mesh``, :mod:`repro_torch.core.comm` and
 stacked).  "stacked" with an explicit ``spmd_mesh`` is the paper's own
 layout: the fine state in the assembly layout over the ``(solve,
 assemble)`` mesh, the pressure system pinned to the solve layout, and each
-step's moves between the two counted in ``moves``.
+step's moves between the two counted in ``moves`` (and, over distinct
+devices, carried: :mod:`repro_torch.fvm.distinct`).
 
 The serving surface: ``pipeline`` ("auto" | "on" | "off") picks the
 software-pipelined executor for a program that declares one (``_stepper``);
@@ -62,6 +63,7 @@ from repro_torch.core.update import (MoveRecord, halo_moves, owner_moves,
                                      update_moves)
 from repro_torch.env import DTYPE, resolve_device
 from repro_torch.fvm.assembly import CavityAssembly
+from repro_torch.fvm.distinct import DistinctSteps
 from repro_torch.fvm.cases import FlowCase, get_case
 from repro_torch.fvm.mesh import CavityMesh
 from repro_torch.fvm.step_program import (ProgramExecutors, get_program,
@@ -167,11 +169,14 @@ class SegregatedSolver:
     the axes ``("solve", "assemble")``) runs the paper's layout: fine part
     ``f`` on its position of the assembly layout, coarse part ``c`` solved
     at its owner (:func:`~repro_torch.core.update.owner_positions`).  Its
-    positions must all be on ``device``, the first one included: the
-    device's positions are one tensor there, so the step is the stacked
-    step, launch for launch and bit for bit (a mesh over distinct devices
-    is not ported).  The mesh keeps its shape across :meth:`rebind_alpha`,
-    as JAX's does, and the owners follow JAX's block rule.  ``moves``
+    first position must be on ``device``.  On a mesh of one device the
+    device's positions are one tensor, so the step is the stacked step,
+    launch for launch and bit for bit.  A mesh whose positions name
+    distinct devices steps through :mod:`repro_torch.fvm.distinct` (a
+    thread a device, each on its own parts; the updates, operands and
+    solution carried between devices; f64 and unpadded).  The mesh keeps
+    its shape across :meth:`rebind_alpha`, as JAX's does, and the owners
+    follow JAX's block rule.  ``moves``
     records what each step carries between positions and between devices,
     by kind (:class:`~repro_torch.core.update.MoveRecord`: the two value
     updates, the solve operands ``b_c``, ``x0_c`` and ``diag_c`` to the
@@ -179,9 +184,9 @@ class SegregatedSolver:
     None without such a mesh.  :meth:`step`, :meth:`run_steps`,
     :meth:`run`, :meth:`timed_step` and :meth:`run_steady` take a state
     whose leaves are in the assembly layout
-    (:func:`~repro_torch.core.comm.assembly_layout`, every position on
-    ``device``) as well as a stacked one, and hand the state back in the
-    layout it came in.
+    (:func:`~repro_torch.core.comm.assembly_layout`, each shard on its
+    position's device) as well as a stacked one, and hand the state back
+    in the layout it came in.
     """
 
     mesh: CavityMesh
@@ -253,6 +258,7 @@ class SegregatedSolver:
         # the full mesh builds its own at every ratio
         self._auto_mesh = self.spmd_mesh is None
         self.moves = None
+        self._distinct = None
         if self.spmd_mesh is not None:
             self.spmd_mesh = ShardMesh.from_device_mesh(self.spmd_mesh)
             if not self.full_mesh_solve:
@@ -283,6 +289,8 @@ class SegregatedSolver:
         # identity repartition for the momentum (fine-partition) matrix
         self.plan_mom: RepartitionPlan = self._plan_for(1)
         self.rebind_alpha(self.alpha)
+        if self.moves is not None and self.spmd_mesh.one_device is None:
+            self._distinct = DistinctSteps(self)
 
     def _plan_for(self, alpha: int) -> RepartitionPlan:
         """The plan for ``alpha``: from ``plan_cache`` when given, else
@@ -362,21 +370,24 @@ class SegregatedSolver:
         return mesh
 
     def _check_stacked_mesh(self, mesh: ShardMesh) -> None:
-        """A stacked solve's mesh: every position on the solver's device
-        (the first one named in the error when it is not), the fine parts
-        in equal blocks over the positions."""
+        """A stacked solve's mesh: the first position on the solver's
+        device, the fine parts in equal blocks over the positions; over
+        distinct devices (:mod:`repro_torch.fvm.distinct`) an unpadded mesh
+        and the f64 policy."""
         first, home = mesh.flat()[0], canonical_device(self.device)
         if first != home:
             raise ValueError(f"the mesh's first position is on {first}, "
                              f"the solver's state on {home}")
-        if mesh.one_device is None:
-            raise ValueError(
-                "the stacked solve over a mesh runs with every position on "
-                "the solver's device; a mesh over distinct devices "
-                f"({sorted(set(map(str, mesh.flat())))}) is not ported")
         if self.mesh.n_parts % mesh.size:
             raise ValueError(f"{self.mesh.n_parts} fine parts do not lay "
                              f"out over {mesh.size} mesh positions")
+        if mesh.one_device is None:
+            if self.padded:
+                raise ValueError("a padded (size-class) mesh steps on one "
+                                 "device, not over distinct devices")
+            if self.precision != "f64":
+                raise ValueError("a mesh over distinct devices runs the f64 "
+                                 f"policy only, not {self.precision!r}")
 
     def _count_halo(self, x: torch.Tensor) -> None:
         """The assembly's neighbour planes of ``x`` across positions."""
@@ -398,12 +409,29 @@ class SegregatedSolver:
     def _count_owner(self, kind: str, x: torch.Tensor) -> None:
         """Each fine part's share of the coarse ``x`` between its position
         and its owner, added to ``moves`` (off a mesh: nothing)."""
-        if self.moves is None:
-            return
         P = self.mesh.n_parts
-        self.moves.add(kind, owner_moves(
-            self.spmd_mesh, P, P // x.shape[0],
-            x.numel() * x.element_size() // P))
+        self._count_owner_bytes(kind, P // x.shape[0],
+                                x.numel() * x.element_size() // P)
+
+    def _count_owner_bytes(self, kind: str, alpha: int,
+                           part_bytes: int) -> None:
+        """``part_bytes`` of each fine part between its position and its
+        coarse part's owner at ratio ``alpha``, added to ``moves``."""
+        if self.moves is not None:
+            self.moves.add(kind, owner_moves(self.spmd_mesh,
+                                             self.mesh.n_parts, alpha,
+                                             part_bytes))
+
+    def _count_update(self, kind: str, plan: RepartitionPlan,
+                      itemsize: int) -> None:
+        """What one value update of ``plan`` carries, added to ``moves``
+        (``kind`` "update_mom": the bands stay in the fine layout;
+        "update_p": they go to the solve layout)."""
+        if self.moves is not None:
+            self.moves.add(kind, update_moves(
+                self.spmd_mesh, self.mesh.n_parts, plan.alpha,
+                plan.buffer_len * itemsize, self.update_schedule,
+                solve_layout=kind != "update_mom"))
 
     def _check_full_mesh_policy(self, precision: str) -> None:
         if precision != "f64" and self.full_mesh_solve:
@@ -426,11 +454,8 @@ class SegregatedSolver:
         buffers = buffer_from_parts(diag, upper, lower, iface)  # (P_f, L)
         n_c = buffers.shape[0] // plan.alpha
         grouped = buffers.reshape(n_c, plan.alpha, plan.buffer_len)
-        if kind is not None and self.moves is not None:
-            self.moves.add(kind, update_moves(
-                self.spmd_mesh, buffers.shape[0], plan.alpha,
-                plan.buffer_len * buffers.element_size(),
-                self.update_schedule, solve_layout=kind != "update_mom"))
+        if kind is not None:
+            self._count_update(kind, plan, buffers.element_size())
         return self._update(plan, grouped)
 
     def _solver_ops(self, plan: RepartitionPlan, bands, diag,
@@ -598,12 +623,16 @@ class SegregatedSolver:
     def step(self, state: PisoState, dt: float):
         """One timestep (one outer iteration of a steady program);
         returns ``(state, stats)``."""
+        if self._distinct is not None:
+            return self._distinct.call("step", state, dt)
         state, back = self._enter(state)
         state, stats = self._stepper.step(state, dt, *self._extras())
         return back(state), stats
 
     def run_steps(self, state: PisoState, dt: float, n_steps: int):
         """``n_steps`` timesteps; the stats fields stacked per step."""
+        if self._distinct is not None:
+            return self._distinct.call("run_steps", state, dt, n_steps)
         state, back = self._enter(state)
         state, stats = self._stepper.run_steps(state, dt, n_steps,
                                                *self._extras())
@@ -619,8 +648,12 @@ class SegregatedSolver:
         solve, pressure assembly, the corrections), **update** the
         coefficient update into the coarse plan, **solve** the pressure CG;
         **halo** is 0 (no probe yet).  The state and stats are the ones
-        :meth:`step` gives, bit for bit.
+        :meth:`step` gives, bit for bit.  Over distinct devices the walk
+        is rank 0's, and ``_distinct.last_ranks`` keeps each rank's phase
+        seconds and the seconds it waited at collectives in each.
         """
+        if self._distinct is not None:
+            return self._distinct.call("timed", state, dt)
         state, back = self._enter(state)
         state, stats, row = self._instrumented.timed_step(state, dt,
                                                           *self._extras())
@@ -637,6 +670,14 @@ class SegregatedSolver:
         state = self.initial_state() if state is None else state
         if scan_steps is None:
             return self.run_steps(state, dt, n_steps)
+        if self._distinct is not None:
+            windows = []
+            for _sample, chunk in roll_schedule(0, n_steps, None,
+                                                cap=scan_steps):
+                state, w = self.run_steps(state, dt, chunk)
+                windows.append(w)
+            return state, type(windows[0])(*(torch.cat(f)
+                                             for f in zip(*windows)))
         state, back = self._enter(state)
         windows = []
         for _sample, chunk in roll_schedule(0, n_steps, None, cap=scan_steps):
@@ -657,8 +698,10 @@ class SegregatedSolver:
         run (the cap, ``max_outer`` or the solver's, when unconverged).
         """
         state = self.initial_state() if state is None else state
-        state, back = self._enter(state)
         cap = self.max_outer if max_outer is None else max_outer
+        if self._distinct is not None:
+            return self._distinct.call("steady", state, dt, cap)
+        state, back = self._enter(state)
         state, stats, n_outer = self._exec.serial.run_converged(
             state, dt, cap, *self._extras())
         return back(state), stats, n_outer

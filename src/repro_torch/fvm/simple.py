@@ -145,7 +145,8 @@ def build_simple_program(solver, lanes: int | None = None,
         krylov_ok, diverged, hit_cap = health_flags(
             state, env["mom_ok"] & env["p_ok_0"],
             env["mom_cap"] | env["p_cap_0"],
-            env["cont"], env["p_res"], env["u_delta"], lanes=lay.lanes)
+            env["cont"], env["p_res"], env["u_delta"], lanes=lay.lanes,
+            across=lay.across)
         stats = SimpleStats(
             mom_iters=env["mom_iters"].to(torch.int32),
             p_iters=env["p_iters_0"].unsqueeze(-1).to(torch.int32),

@@ -761,7 +761,8 @@ def get_program(name: str) -> ProgramSpec:
 # ---------------------------------------------------------------------------
 
 def health_flags(state, solver_ok: torch.Tensor, solver_cap: torch.Tensor,
-                 *scalars, lanes: int | None = None):
+                 *scalars, lanes: int | None = None,
+                 across: Callable | None = None):
     """Reduce a step's health to three boolean tensors, on the device.
 
     ``solver_ok`` and ``solver_cap`` are the step's Krylov flags reduced
@@ -774,7 +775,9 @@ def health_flags(state, solver_ok: torch.Tensor, solver_cap: torch.Tensor,
     non-finite value appeared; ``hit_cap`` means some solve exited at its
     iteration cap on an otherwise finite state.  0-d for one system; with
     ``lanes`` one flag per lane, each reduced over that lane alone (every
-    leaf carries a leading lane axis).
+    leaf carries a leading lane axis).  ``across`` combines ``finite``
+    over the places one system's state is split across (the ranks of a
+    mesh over distinct devices, :meth:`LaneLayout.across`).
     """
     if lanes is None:
         finite = torch.stack([torch.isfinite(t).all()
@@ -782,6 +785,8 @@ def health_flags(state, solver_ok: torch.Tensor, solver_cap: torch.Tensor,
     else:
         finite = torch.stack([torch.isfinite(t).reshape(lanes, -1).all(1)
                               for t in (*state, *scalars)]).all(0)
+    if across is not None:
+        finite = across(finite)
     return solver_ok & finite, ~finite, solver_cap & finite
 
 
@@ -823,6 +828,11 @@ class LaneLayout:
         if self.lanes is None:
             return torch.max(x)
         return x.reshape(self.lanes, -1).amax(1)
+
+    def across(self, flag: torch.Tensor) -> torch.Tensor:
+        """A flag of this place's share combined over the places the system
+        is split across: here the system is whole, the flag itself."""
+        return flag
 
 
 @dataclasses.dataclass
@@ -971,7 +981,7 @@ def _phase_toolkit(solver, lanes: int | None = None,
     def grad_p(p, *masks):
         return asm_of(*masks).grad(p)
 
-    return PhaseToolkit(
+    tk = PhaseToolkit(
         asm=asm, padded=padded, mask_keys=mask_keys, asm_of=asm_of,
         layout=layout, moves=solver.moves, assemble_mom=assemble_mom,
         update_mom=update_mom,
@@ -979,6 +989,10 @@ def _phase_toolkit(solver, lanes: int | None = None,
         solve_p=solve_p, assemble_mom_g=assemble_mom_g,
         assemble_p_mat=assemble_p_mat, assemble_p_src=assemble_p_src,
         grad_p=grad_p)
+    # a rank of a mesh over distinct devices (repro_torch.fvm.distinct)
+    # swaps in its layout and its update and solve phases
+    rank = getattr(solver, "rank", None)
+    return tk if rank is None else rank.toolkit(tk, plan_m, plan_p, n_c)
 
 
 def seed_env(tk: PhaseToolkit, state, dt, n_active=None) -> dict:
@@ -1095,7 +1109,8 @@ def build_piso_program(solver, lanes: int | None = None,
             ok = ok & env[f"p_ok_{i}"]
             cap = cap | env[f"p_cap_{i}"]
         converged, diverged, hit_cap = health_flags(
-            state, ok, cap, env["cont"], env["p_res"], lanes=lay.lanes)
+            state, ok, cap, env["cont"], env["p_res"], lanes=lay.lanes,
+            across=lay.across)
         stats = StepStats(
             mom_iters=env["mom_iters"].to(torch.int32),
             p_iters=torch.stack([env[f"p_iters_{i}"] for i in range(n_corr)],

@@ -9,7 +9,9 @@ device flag ``active``, the vector and scalar updates written into the
 carry through a select (JAX's ``keep(old, new)``, plus the flag), and the
 condition ``rr > thr & k < maxiter & ~breakdown`` formed on the device.
 The results are 0-d device tensors.  :func:`_bicgstab_sweep_host` keeps
-the former host loop (one host read per iteration) as the plain version.
+the former host loop (one host read per iteration) as the plain version;
+a bundle whose operators span several devices (``ops.host_loop``) runs
+it.
 When the bundle's precision policy refines, the loop becomes the inner
 sweep of the same outer f64 iterative-refinement loop as CG's
 (true-residual replay ``r = b - A_hi x``, low-precision correction solve,
@@ -161,8 +163,9 @@ def _bicgstab_sweep_host(ops: SolverOps, b, x0, thr: torch.Tensor,
     """The former host loop of :func:`_bicgstab_sweep`: the same arithmetic,
     one host read per iteration (the carried residual and the breakdown
     test).  Returns ``(x, rr, k)`` with ``k`` a Python int.  The plain
-    version the device loop is held against; no solve calls it.  One
-    system only: ``start`` must be set (the refinement loop passes it)."""
+    version the device loop is held against, and the loop of a bundle
+    whose operators span several devices (``ops.host_loop``).  One system
+    only: ``start`` must be set (the refinement loop passes it)."""
     if start is not None and not bool(start.all()):
         raise ValueError("the host loop runs one started system")
     x = x0
@@ -245,7 +248,11 @@ def bicgstab(A: Callable[[torch.Tensor], torch.Tensor] | SolverOps,
 
     (bb,) = ops.dots((b, b))
     thr = threshold_sq(bb, tol, atol)
-    x, rr, k = _bicgstab_sweep(ops, b, x0, thr, maxiter)
+    if ops.host_loop:
+        x, rr, k = _bicgstab_sweep_host(ops, b, x0, thr, maxiter)
+        k = torch.tensor([k], dtype=torch.int32, device=b.device)
+    else:
+        x, rr, k = _bicgstab_sweep(ops, b, x0, thr, maxiter)
     rr, k = lane_results(ops, rr, k)
     # NaN rr yields converged=False and hit_cap=False; a breakdown exit
     # before the cap reports converged=False too

@@ -85,19 +85,23 @@ def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
 def spmv_dia(bands: torch.Tensor, x: torch.Tensor, *,
              offsets: tuple[int, ...], plane: int,
              accum_dtype: torch.dtype | None = None,
-             lanes: int = 1) -> torch.Tensor:
+             lanes: int = 1, halo=None) -> torch.Tensor:
     """Banded SpMV: y[p, i] = sum_d bands[p, d, i] * x_pad[p, plane + i + off_d].
 
     bands: (P, n_bands, m); x: (P, m).  Accumulates in band order at
     ``accum_dtype`` (``None``: the storage dtype) and returns ``y`` in the
     storage dtype.  ``lanes``: the parts are that many lanes stacked (a
     cohort), each a system of its own: no halo crosses a lane border.
+    ``halo``: the ``(down, up)`` neighbour planes, each ``(P, plane)``, in
+    place of :func:`halo_exchange`'s (parts whose neighbours are held
+    elsewhere).
     """
     P, nb, m = bands.shape
     acc = accum_dtype or bands.dtype
     if P % lanes:
         raise ValueError(f"{P} parts do not split into {lanes} lanes")
-    xp = x_pad(x, plane, P // lanes)
+    xp = (x_pad(x, plane, P // lanes) if halo is None
+          else torch.cat([halo[0], x, halo[1]], dim=1))
     y = torch.zeros((P, m), dtype=acc, device=x.device)
     for d, off in enumerate(offsets):
         xw = xp[:, plane + off: plane + off + m]

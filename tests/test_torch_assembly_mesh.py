@@ -314,8 +314,8 @@ def test_owner_moves_are_the_move_plan_to_the_active_positions(n_c, alpha):
 
 
 def test_move_counts_between_devices():
-    """Counted where the two places' devices differ (the rules alone: a
-    solver refuses a mesh over distinct devices)."""
+    """Counted where the two places' devices differ (the rules alone; a
+    solver over such a mesh: ``tests/test_torch_distinct_mesh.py``)."""
     two = make_cfd_mesh(2, 2, devices=["cpu"] * 2 + ["cpu:0"] * 2)
     assert part_positions(two, 4) == [0, 1, 2, 3]
     assert owner_positions(two, 2) == [0, 2]
@@ -370,9 +370,11 @@ def test_errors():
     with pytest.raises(ValueError, match="first position"):
         PisoSolver(cube, alpha=4, device="cpu",
                    spmd_mesh=make_cfd_mesh(2, 4, devices=["cpu:0"] * 8))
-    with pytest.raises(ValueError, match="not ported"):
-        PisoSolver(cube, alpha=4, device="cpu", spmd_mesh=make_cfd_mesh(
-            2, 4, devices=["cpu"] * 4 + ["cpu:0"] * 4))
+    # a mesh over distinct devices runs (it raised before the port ran it)
+    two = make_cfd_mesh(2, 4, devices=["cpu"] * 4 + ["cpu:0"] * 4)
+    run = PisoSolver(cube, alpha=4, device="cpu", spmd_mesh=two)
+    st, stats = run.step(_laid_out(run.initial_state(), two), DT)
+    assert st.U.mesh == two and bool(stats.converged)
     with pytest.raises(ValueError, match="do not lay out"):
         PisoSolver(cube, alpha=4, device="cpu",
                    spmd_mesh=make_cfd_mesh(1, 3, devices=["cpu"] * 3))

@@ -1349,6 +1349,146 @@ def test_move_problems_names_what_differs():
     assert len(bad) == 2 and "b_c moved 9" in bad[0] and "halo" in bad[1]
 
 
+# ---------------------------------------------------------------------------
+# phase 19b: the same meshes over the card and its host
+# ---------------------------------------------------------------------------
+
+def test_19b_meshes_keep_every_owner_on_the_card():
+    from repro_torch.core.comm import make_cfd_mesh
+    from repro_torch.core.update import owner_positions
+
+    assert sorted(chip_smoke.DISTINCT_MESH_DEVICES) == [15, 30]
+    for alpha, devs in chip_smoke.DISTINCT_MESH_DEVICES.items():
+        n_c = chip_smoke.PARTS // alpha
+        mesh = make_cfd_mesh(n_c, alpha, devices=devs)
+        assert len(devs) == chip_smoke.PARTS and len(mesh.groups()) > 1
+        owners = owner_positions(mesh, n_c)
+        assert all(devs[k] == chip_smoke.MESH_DEVICE for k in owners)
+        cpu = [k for k, d in enumerate(devs) if d == "cpu"]
+        # two CPU positions, none an owner, one in each solve row
+        assert len(cpu) == 2 and not set(cpu) & set(owners)
+        assert len({k // alpha for k in cpu}) == n_c
+
+
+@pytest.fixture
+def tiny_19b(monkeypatch):
+    """19b at a (2, 4) mesh of an 8^3 cavity on the CPU, ``cpu:0`` in the
+    card's place: each schedule's reference is the mesh on ``cpu`` alone,
+    stepped from the 8-part state of one step."""
+    from repro_torch.core.comm import assembly_layout
+    from repro_torch.core.layout import unshard
+    from repro_torch.fvm.piso import PisoState
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.case import build_parser, build_solver
+
+    args = ["--n", "8", "--parts", "8", "--alpha", "4", "--steps", "1",
+            "--co", "0.5", "--device", "cpu"]
+    monkeypatch.setattr(chip_smoke, "PARTS", 8)
+    monkeypatch.setattr(chip_smoke, "MAIN_ARGS", args)
+    monkeypatch.setattr(chip_smoke, "MESH_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "DISTINCT_MESH_DEVICES", {
+        4: ["cpu"] * 3 + ["cpu:0"] + ["cpu"] * 3 + ["cpu:0"]})
+    monkeypatch.setattr(chip_smoke, "smi_line", lambda: "CPU, no card")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    plain = build_solver(build_parser().parse_args(args))
+    dt = 0.5 * plain.mesh.h
+    state = plain.run(1, dt)[0]
+    refs = {}
+    for schedule in ("device_direct", "host_buffer"):
+        solver = build_solver(build_parser().parse_args(
+            args + ["--mesh-devices", ",".join(["cpu"] * 8),
+                    "--schedule", schedule]))
+        laid = PisoState(*(assembly_layout(t, solver.spmd_mesh)
+                           for t in state))
+        st, stats = solver.step(laid, dt)
+        refs[schedule] = {"state": PisoState(*(unshard(t, "cpu")
+                                               for t in st)),
+                          "stats": stats, "launches": launch_counts(),
+                          "s": 0.0}
+    return state, refs
+
+
+@pytest.mark.parametrize("schedule", ["device_direct", "host_buffer"])
+def test_19b_run_on_the_cpu_holds_and_prints_its_record(tiny_19b, schedule,
+                                                        capsys):
+    from repro_torch.core.controller import PlanCache
+
+    state, refs = tiny_19b
+    problems = []
+    out = chip_smoke.distinct_mesh_run(torch, 4, schedule, PlanCache(),
+                                       state, refs[schedule], problems)
+    assert problems == []
+    assert out["mesh"] == [2, 4] and out["cpu_positions"] == list(range(8))
+    assert max(out["max_err"].values()) <= chip_smoke.DISTINCT_PARITY
+    assert [r["device"] for r in out["ranks"]] == ["cpu", "cpu:0"]
+    assert [r["parts"] for r in out["ranks"]] == [6, 2]
+    assert all(r["step_s"] >= r["fine_s"] > 0 for r in out["ranks"])
+    carried = {k: v["bytes"] for k, v in out["carried"].items()
+               if k != "scalars"}
+    assert carried == {k: v for k, v in out["counted_devices"].items() if v}
+    assert ("update_mom" in carried) == (schedule == "host_buffer")
+    printed = capsys.readouterr().out
+    assert f"19b (2, 4) {schedule}" in printed
+    assert "rank cpu:0 (2 parts): fine phases" in printed
+    assert "the pressure update host->card" in printed
+    assert "CPU, no card" in printed
+
+
+def test_19b_problems_name_what_differs(tiny_19b):
+    from repro_torch.core.layout import MoveStats
+
+    _, refs = tiny_19b
+    ref = refs["device_direct"]
+    run = dict(ref, kinds={"halo": MoveStats(10, 4)},
+               carried={"halo": [4, 0.0], "scalars": [9, 0.0]})
+    assert chip_smoke.distinct_problems(torch, run, ref, "t") == []
+    U = ref["state"].U * (1 + 1e-9)
+    bad = dict(run, state=ref["state"]._replace(U=U),
+               stats=ref["stats"]._replace(
+                   mom_iters=ref["stats"].mom_iters + 1),
+               launches=dict(ref["launches"], spmv_dia=1),
+               carried={"halo": [5, 0.0]})
+    got = chip_smoke.distinct_problems(torch, bad, ref, "t")
+    assert len(got) == 4
+    assert "U off by" in got[0] and "mom_iters" in got[1]
+    assert "launched" in got[2] and "carried" in got[3]
+
+
+def test_19b_rank_seconds_sum_the_phase_records():
+    ranks = [{"device": "cuda:0", "parts": 28, "phases": [
+        ("assemble_mom", "assembly", 0.5, 0.4),
+        ("update_mom", "assembly", 0.1, 0.0),
+        ("solve_mom", "assembly", 2.0, 1.5),
+        ("assemble_p[0]", "assembly", 0.25, 0.125),
+        ("update_p", "update", 0.125, 0.0),
+        ("solve_p[0]", "solve", 1.0, 0.0),
+        ("correct[0]", "assembly", 0.25, 0.0),
+        ("grad_p", "assembly", 0.125, 0.0)]}]
+    (r,) = chip_smoke.rank_seconds(ranks)
+    assert r == {"device": "cuda:0", "parts": 28, "fine_s": 1.125,
+                 "fine_waited_s": 0.525, "solve_mom_s": 2.0,
+                 "solve_p_s": 1.0, "update_s": 0.225, "step_s": 4.35,
+                 "waited_s": 2.025}
+
+
+def test_19b_plain_versions_stay_on_the_cpu():
+    import importlib
+
+    mod = importlib.import_module("repro_torch.kernels.spmv_dia.spmv_dia")
+    before = mod.spmv_dia_plain
+    with chip_smoke.no_plain_versions(cuda_only=True):
+        assert mod.spmv_dia_plain is not before
+        b = torch.ones(1, 3, 4, dtype=torch.float64)
+        x = torch.ones(1, 4, dtype=torch.float64)
+        assert torch.equal(mod.spmv_dia_plain(b, x, offsets=(-1, 0, 1),
+                                              plane=1),
+                           before(b, x, offsets=(-1, 0, 1), plane=1))
+    assert mod.spmv_dia_plain is before
+    with chip_smoke.no_plain_versions():
+        with pytest.raises(chip_smoke.SmokeFailure, match="card's path"):
+            mod.spmv_dia_plain(b, x, offsets=(-1, 0, 1), plane=1)
+
+
 def test_analytical_step_flops_scale_train_4k_to_the_cut_batch():
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.analysis import analytical_flops
