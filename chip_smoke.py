@@ -342,17 +342,37 @@ result.  Phases, in order (any failure exits nonzero):
     s a step with and without the mesh.  19b then runs the alpha-30
     ``(1, 30)`` and alpha-15 ``(2, 15)`` meshes over the card and the
     host's CPU (positions 28-29, and 14 and 29, on ``cpu``; every owner on
-    the card), both schedules, one timed step each from the same state,
-    plain versions refused on the card only: each field within 1e-10 of
+    the card), one timed step each from the same state, ``device_direct``
+    on the first and ``host_buffer`` on the second (the CPU tests run both
+    on every mesh), plain versions refused on the card only: each field
+    within 1e-10 of
     its maximum of 19's step of the same mesh on the card alone, counts,
     flags and the card's launch counters equal, every kind's bytes copied
     between devices equal to its count between devices; it prints s a
     step, each rank's fine-phase, solve and update seconds (and the part
     spent waiting at collectives), each kind's bytes and seconds between
     devices (the pressure update host -> card above all) beside the
-    card's name and power limit, and the host's cores.  Its checks are
-    collected and fail the run after it has printed; its results go on a
-    line of their own (``assembly_mesh {...}``);
+    card's name and power limit, and the host's cores.  19c runs the
+    refined policies and a padded mesh over the card and its host, every
+    owner on the card: (a) the main path's solver under ``f32_ir`` on the
+    ``(1, 30)`` mesh (``device_direct``), one timed step from the same
+    state, held to phase 9's ``f32_ir`` step from it (with
+    ``--assembly-mesh``, to the same mesh naming ``cuda:0`` alone): each
+    field within 1e-5 of its maximum, the flags and each refined solve's
+    passes equal, each inner total within 25 %, the card's launch counters
+    equal where every count is, carried = counted by kind and
+    ``solve_halo`` equal to the closed form at 8 B (the f64 replays) and 4
+    B (the inner sweeps); it prints what 19b prints and the momentum's
+    share of the step; (b) 13c's 64 x 64 x 48 mesh of 12 parts padded to
+    16, f64, alpha 4, on ``(4, 4)`` with positions 11 (real) and 15
+    (padding) on ``cpu``, 2 steps: within 1e-10 of the same mesh on the
+    card alone, counts and flags equal, the padding parts bitwise; (c) the
+    same mesh unpadded under ``bf16_ir`` on ``(3, 4)`` with 7 and 11 on
+    ``cpu``, ``p_maxiter`` 200, one step: the verdict and each solve's
+    passes equal the card alone's, the fields compared where both are
+    finite.  Its checks are collected and fail the run after it has
+    printed; its results go on a line of their own (``assembly_mesh
+    {...}``);
 20. the port's dry-run on the card's host (``python -m
     repro_torch.launch.dryrun --all --mesh both`` into a temporary
     directory; it touches no device): 80 records, 66 ``ok``, 14
@@ -2079,6 +2099,33 @@ def no_plain_versions(cuda_only: bool = False):
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def refined_solves():
+    """Each refined solve run while the block is open, by thread (a rank's
+    thread ``rank<r>`` of a mesh over distinct devices, else
+    ``MainThread``): ``(kind, passes, inner total)``, ``kind`` ``"cg"`` or
+    ``"bicgstab"``; read around the solvers' refinement loop."""
+    import threading
+
+    from repro_torch.solvers import bicgstab, cg
+
+    got, lock, orig = {}, threading.Lock(), cg.refine
+
+    def recorded(ops, sweep, *args, **kwargs):
+        out = orig(ops, sweep, *args, **kwargs)
+        row = ("cg" if "_cg_" in sweep.__name__ else "bicgstab",
+               int(out[5]), int(out[1]))
+        with lock:
+            got.setdefault(threading.current_thread().name, []).append(row)
+        return out
+
+    cg.refine = bicgstab.refine = recorded
+    try:
+        yield got
+    finally:
+        cg.refine = bicgstab.refine = orig
+
+
 def require_launched(counts: dict, tag: str) -> None:
     require(all(counts[k] > 0 for k in STEP_KERNELS),
             f"{tag}: a kernel of the path was never launched: {counts}")
@@ -2230,9 +2277,9 @@ def main_path(torch) -> tuple:
     summary["loop_check"] = loop_phase(torch, solver, state_f, dt)
     summary["rebind"] = rebind_phase(torch, solver, state_f, dt, breakdown)
     summary["baseline"] = baseline_phase(torch, solver, state_f, dt)
-    summary["precision"] = precision_phase(torch, solver, state_f, dt,
-                                           breakdown)
-    return summary, state_f, breakdown
+    summary["precision"], f32_step = precision_phase(torch, solver, state_f,
+                                                     dt, breakdown)
+    return summary, state_f, breakdown, f32_step
 
 
 def loop_summary(records) -> dict:
@@ -2754,16 +2801,20 @@ def flags(stats) -> str:
                      for f in ("converged", "diverged", "hit_cap"))
 
 
-def precision_phase(torch, solver, state, dt, f64_step) -> dict:
+def precision_phase(torch, solver, state, dt, f64_step) -> tuple:
     """Phase 9: one f32_ir cavity step from ``state`` against the f64 step
-    from it (``f64_step``: the timed step)."""
+    from it (``f64_step``: the timed step).  Returns its record and the
+    step itself (the state on the host, the stats, the launches, the
+    seconds and each refined solve's passes and inner total), 19c(a)'s
+    card-alone reference."""
     print(f"[9] precision on the main path: f32_ir, {N}^3 cavity, "
           f"alpha {ALPHA}")
     require(solver.alpha == ALPHA, "the solver is not at the main ratio")
     solver.precision = "f32_ir"
     try:
-        st, stt, wall, counts = kernel_step(torch, solver, state, dt,
-                                            "f32_ir")
+        with refined_solves() as solves:
+            st, stt, wall, counts = kernel_step(torch, solver, state, dt,
+                                                "f32_ir")
     finally:
         solver.precision = "f64"
     ref_st, ref_stats = f64_step["state"], f64_step["stats"]
@@ -2773,10 +2824,13 @@ def precision_phase(torch, solver, state, dt, f64_step) -> dict:
           f"f32_ir mom {int(stt.mom_iters[0])} p {stt.p_iters[0].tolist()}"
           f", f64 mom {int(ref_stats.mom_iters)} p "
           f"{ref_stats.p_iters.tolist()}; launches {counts}")
+    step = {"state": type(st)(*(t.cpu() for t in st)),
+            "stats": type(stt)(*(t[0] for t in stt)), "launches": counts,
+            "s": wall, "solves": solves.get("MainThread", [])}
     return {"step_s": wall, "diffs_vs_f64": diffs, "launches": counts,
             "mom_iters": int(stt.mom_iters[0]),
             "p_iters": stt.p_iters[0].tolist(),
-            "continuity": float(stt.continuity_err[0])}
+            "continuity": float(stt.continuity_err[0])}, step
 
 
 def pressure_system(solver, state, dt):
@@ -5232,6 +5286,9 @@ DISTINCT_MESH_DEVICES = {
 DISTINCT_PARITY = 1e-10     # of each field's maximum, against the same mesh
 #                             on the card alone: the momentum solve's dots
 #                             are summed over the two devices
+# 19b's schedule a mesh: both stay exercised on the card (the CPU tests
+# run both on every mesh)
+DISTINCT_SCHEDULES = {30: "device_direct", 15: "host_buffer"}
 FINE_PHASES = ("assemble_mom", "assemble_p_mat", "assemble_p", "correct",
                "grad_p")
 FIELD_NAMES = ("U", "p", "phi", "phi_if", "phi_b")
@@ -5258,12 +5315,7 @@ def distinct_problems(torch, run: dict, ref: dict, tag: str) -> list:
     if run["launches"] != ref["launches"]:
         out.append(f"{tag}: the card launched {run['launches']}, alone "
                    f"{ref['launches']}")
-    carried = {k: v[0] for k, v in run["carried"].items() if k != "scalars"}
-    counted = {k: v.devices for k, v in run["kinds"].items() if v.devices}
-    if carried != counted:
-        out.append(f"{tag}: carried {carried} between devices, counted "
-                   f"{counted}")
-    return out
+    return out + moved_problems(run, tag)
 
 
 def rank_seconds(last_ranks) -> list:
@@ -5287,6 +5339,38 @@ def rank_seconds(last_ranks) -> list:
             "step_s": sum(p[2] for p in ph),
             "waited_s": sum(p[3] for p in ph)})
     return out
+
+
+def moved_problems(run: dict, tag: str) -> list:
+    """Every kind's bytes copied between devices its count between
+    devices (``run``: ``kinds``, kind -> MoveStats, and ``carried``, kind
+    -> [bytes, s])."""
+    carried = {k: v[0] for k, v in run["carried"].items() if k != "scalars"}
+    counted = {k: v.devices for k, v in run["kinds"].items() if v.devices}
+    return ([] if carried == counted else
+            [f"{tag}: carried {carried} between devices, counted {counted}"])
+
+
+def carried_rates(carried: dict) -> dict:
+    """kind -> bytes, seconds and GB/s copied between devices."""
+    return {k: {"bytes": v[0], "s": v[1],
+                "GB_per_s": v[0] / v[1] / 1e9 if v[1] > 0 else None}
+            for k, v in carried.items()}
+
+
+def print_ranks(ranks, moves, tail: str) -> None:
+    """Each rank's seconds (:func:`rank_seconds`) and the bytes and
+    seconds carried between devices by kind, ``tail`` after them."""
+    for r in ranks:
+        print(f"    rank {r['device']} ({r['parts']} parts): fine phases "
+              f"{r['fine_s']:.3f} s ({r['fine_waited_s']:.3f} s of it "
+              f"waiting), momentum solve {r['solve_mom_s']:.3f} s, pressure "
+              f"solve {r['solve_p_s']:.3f} s, updates {r['update_s']:.3f} s,"
+              f" the step {r['step_s']:.3f} s ({r['waited_s']:.3f} s "
+              f"waiting)")
+    print(f"    carried between devices by kind: " + ", ".join(
+        f"{k} {v['bytes']:,} B in {v['s']:.4f} s" for k, v in moves.items())
+        + tail)
 
 
 def distinct_mesh_run(torch, alpha, schedule, cache, state3, ref,
@@ -5334,9 +5418,7 @@ def distinct_mesh_run(torch, alpha, schedule, cache, state3, ref,
     same = {name: same_bits(torch, a, b) for name, a, b in
             zip(FIELD_NAMES, run["state"], ref["state"])}
     ranks = rank_seconds(solver._distinct.last_ranks)
-    moves = {k: {"bytes": v[0], "s": v[1],
-                 "GB_per_s": v[0] / v[1] / 1e9 if v[1] > 0 else None}
-             for k, v in run["carried"].items()}
+    moves = carried_rates(run["carried"])
     out = {"mesh": [n_c, alpha], "schedule": schedule,
            "cpu_positions": on_cpu, "s": s, "s_card_alone": ref["s"],
            "p_iters": stats.p_iters.tolist(),
@@ -5353,23 +5435,304 @@ def distinct_mesh_run(torch, alpha, schedule, cache, state3, ref,
           f"{ref['s']:.3f} s); p_iters {out['p_iters']}, mom_iters "
           f"{out['mom_iters']}; bitwise {same}; max err "
           f"{max(out['max_err'].values()):.2e}")
-    for r in ranks:
-        print(f"    rank {r['device']} ({r['parts']} parts): fine phases "
-              f"{r['fine_s']:.3f} s ({r['fine_waited_s']:.3f} s of it "
-              f"waiting), momentum solve {r['solve_mom_s']:.3f} s, pressure "
-              f"solve {r['solve_p_s']:.3f} s, updates {r['update_s']:.3f} s,"
-              f" the step {r['step_s']:.3f} s ({r['waited_s']:.3f} s "
-              f"waiting)")
-    print(f"    carried between devices by kind: " + ", ".join(
-        f"{k} {v['bytes']:,} B in {v['s']:.4f} s" for k, v in moves.items())
-        + f"; the pressure update host->card {upd.get('bytes', 0):,} B at "
-        f"{upd.get('GB_per_s') or 0:.2f} GB/s  [{smi_line()}]")
+    print_ranks(ranks, moves, f"; the pressure update host->card "
+                f"{upd.get('bytes', 0):,} B at {upd.get('GB_per_s') or 0:.2f}"
+                f" GB/s  [{smi_line()}]")
     return out
 
 
-def assembly_mesh_phase(torch, state3) -> dict:
+# 19c: the refined policies and a padded mesh over the card and its host,
+# every owner on the card
+REFINED_ALPHA = 30       # (a): 19b's (1, 30) mesh under f32_ir
+REFINED_PARITY = 1e-5    # (a): of each field's maximum against the card
+#                          alone (PERF.md §2: the card's refined bar)
+REFINED_REL_SLACK = 0.25  # (a): a solve's inner total within this share of
+#                          the card alone's (tests/test_torch_precision.py's
+#                          PISO-level P_ITERS_REL_SLACK): the momentum's f32
+#                          dots are summed over two devices
+MIX_PARTS, MIX_ALPHA = 12, 4  # (b), (c): 13c's mix mesh of 12 parts
+PADDED_HOST_POSITIONS = (11, 15)  # (b): (4, 4) padded to SMALL_CLASS: one
+#                          real part and one padding part on the host
+BF16_HOST_POSITIONS = (7, 11)    # (c): (3, 4), unpadded
+BF16_P_MAXITER = 200
+HOST_DEVICE = "cpu"
+
+
+def host_mesh_devices(n: int, on_host) -> list:
+    """``n`` positions on ``MESH_DEVICE``, those of ``on_host`` on
+    ``HOST_DEVICE``."""
+    return [HOST_DEVICE if k in on_host else MESH_DEVICE for k in range(n)]
+
+
+def mix_mesh(padded: bool):
+    """(b), (c): the ``MIX_PARTS``-part mesh of 13c's serving mix
+    (``mesh_mix`` at ``SMALL_ARGS``), padded to ``SMALL_CLASS`` parts for
+    (b)."""
+    from repro_torch.fvm.mesh import PaddedCavityMesh
+    from repro_torch.launch.serve import mesh_mix
+
+    (mesh,) = [m for m in mesh_mix(serve_args(SMALL_ARGS, "cpu"))
+               if m.n_parts == MIX_PARTS]
+    return PaddedCavityMesh.pad(mesh, SMALL_CLASS) if padded else mesh
+
+
+def refined_halo_bytes(solves, mesh, owners, plane: int,
+                       itemsize: int) -> int:
+    """The bytes between devices the ``solve_halo`` closed form counts for
+    the refined solves ``solves`` (``refined_solves`` rows) of a system
+    whose parts sit at the positions ``owners``: each solve's f64 replays
+    (one, then one a pass) at 8 B a value, its inner sweeps' products (one
+    a pass, then one a CG iteration or two a BiCGStab iteration) at
+    ``itemsize``."""
+    from repro_torch.core.update import solve_halo_moves
+
+    f64 = solve_halo_moves(mesh, owners, plane * 8).devices
+    low = solve_halo_moves(mesh, owners, plane * itemsize).devices
+    return sum((1 + passes) * f64 + (passes + (1 if kind == "cg" else 2)
+                                     * inner) * low
+               for kind, passes, inner in solves)
+
+
+def mesh_step(torch, solver, state, dt, steps: int):
+    """``steps`` steps of ``solver`` from ``state`` (laid out over its
+    mesh), plain versions refused on the card's tensors, the launch
+    counters from 0: the state unsharded on ``MESH_DEVICE``,
+    the stats (one step's; a step axis for more), the launches, the
+    seconds, the refined solves of the card's rank, the moves."""
+    from repro_torch.core.comm import assembly_layout
+    from repro_torch.core.layout import unshard
+    from repro_torch.fvm.piso import PisoState
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    laid = PisoState(*(assembly_layout(t, solver.spmd_mesh) for t in state))
+    if solver._distinct is not None:
+        solver._distinct.timing = True
+
+    def go():
+        if steps == 1:
+            return solver.step(laid, dt)
+        return solver.run(steps, dt, laid)
+
+    reset_launch_counts()
+    with refined_solves() as solves, no_plain_versions(cuda_only=True):
+        (st, stats), s = synced(torch, go)
+    return {"state": PisoState(*(unshard(t, MESH_DEVICE) for t in st)),
+            "stats": stats, "launches": launch_counts(), "s": s,
+            "solves": solves.get("rank0", solves.get("MainThread", [])),
+            "kinds": dict(solver.moves.kinds),
+            "carried": {k: list(v) for k, v in solver.moves.carried.items()}}
+
+
+def field_errors(torch, run: dict, ref: dict, finite_only=False) -> dict:
+    """Each field's largest difference over its largest value (where both
+    are finite with ``finite_only``)."""
+    out = {}
+    for name, a, b in zip(FIELD_NAMES, run["state"], ref["state"]):
+        b = b.to(a.device)
+        if finite_only:
+            keep = torch.isfinite(a) & torch.isfinite(b)
+            a, b = a[keep], b[keep]
+        out[name] = (float((a - b).abs().max())
+                     / max(float(b.abs().max()), 1e-300)) if a.numel() \
+            else None
+    return out
+
+
+def refined_main_run(torch, cache, state3, ref, problems) -> dict:
+    """19c(a): the main path's solver under ``f32_ir`` over 19b's ``(1,
+    30)`` mesh (``device_direct``), one timed step from ``state3``, held
+    to ``ref`` (phase 9's ``f32_ir`` step from the same state; run here on
+    the same mesh naming ``MESH_DEVICE`` alone when phase 9 did not run):
+    each field within ``REFINED_PARITY`` of its maximum, the flags and
+    each solve's passes equal, each inner total within
+    ``REFINED_REL_SLACK``, the card's launches equal where every count is,
+    carried = counted by kind and ``solve_halo`` the closed form at 8 and
+    4 B."""
+    from repro_torch.core.update import owner_positions, part_positions
+    from repro_torch.launch.case import build_parser, build_solver
+
+    alpha = REFINED_ALPHA
+    n_c = PARTS // alpha
+    tag = f"19c(a) ({n_c}, {alpha}) f32_ir"
+    base = list(MAIN_ARGS)
+    base[base.index("--alpha") + 1] = str(alpha)
+
+    def build(devices):
+        args = build_parser().parse_args(base + [
+            "--mesh-devices", ",".join(devices)])
+        solver = build_solver(args, plan_cache=cache)
+        solver.precision = "f32_ir"
+        return solver, args.co * solver.mesh.h
+
+    if ref is None:
+        alone, dt = build([MESH_DEVICE] * PARTS)
+        ref = mesh_step(torch, alone, state3, dt, 1)
+        del alone
+        free_device(torch)
+    solver, dt = build(DISTINCT_MESH_DEVICES[alpha])
+    grid = solver.spmd_mesh
+    run = mesh_step(torch, solver, state3, dt, 1)
+    errs = field_errors(torch, run, ref)
+    out = []
+    for name, err in errs.items():
+        if not err <= REFINED_PARITY:
+            out.append(f"{tag}: {name} off by {err:.3e} of its maximum")
+    for f in ("converged", "diverged", "hit_cap"):
+        a, b = getattr(run["stats"], f), getattr(ref["stats"], f)
+        if not torch.equal(a.cpu(), b.cpu()):
+            out.append(f"{tag}: {f} {a.tolist()} against {b.tolist()}")
+    rows, ref_rows = run["solves"], ref["solves"]
+    if [r[:2] for r in rows] != [r[:2] for r in ref_rows]:
+        out.append(f"{tag}: solves (kind, passes) {[r[:2] for r in rows]} "
+                   f"against {[r[:2] for r in ref_rows]}")
+    for r, w in zip(rows, ref_rows):
+        if abs(r[2] - w[2]) > REFINED_REL_SLACK * w[2]:
+            out.append(f"{tag}: a {r[0]} solve's inner total {r[2]} "
+                       f"against {w[2]}")
+    counts_equal = rows == ref_rows
+    if counts_equal and run["launches"] != ref["launches"]:
+        out.append(f"{tag}: the card launched {run['launches']}, alone "
+                   f"{ref['launches']}")
+    out += moved_problems(run, tag)
+    plane = solver.mesh.plane
+    co = solver._distinct.group.coarse(n_c)
+    halo = refined_halo_bytes([r for r in rows if r[0] == "bicgstab"], grid,
+                              part_positions(grid, PARTS), plane, 4)
+    if co["local"] is None:
+        halo += refined_halo_bytes([r for r in rows if r[0] == "cg"], grid,
+                                   owner_positions(grid, n_c), plane, 4)
+    got = run["carried"].get("solve_halo", [0])[0]
+    if got != halo:
+        out.append(f"{tag}: solve_halo carried {got:,} B, the closed forms "
+                   f"at 8 and 4 B give {halo:,}")
+    problems += out
+    ranks = rank_seconds(solver._distinct.last_ranks)
+    moves = carried_rates(run["carried"])
+    stats = run["stats"]
+    rec = {"mesh": [n_c, alpha], "schedule": solver.update_schedule,
+           "s": run["s"], "s_card_alone": ref["s"],
+           "p_iters": stats.p_iters.tolist(),
+           "mom_iters": int(stats.mom_iters), "solves": rows,
+           "solves_card_alone": ref_rows, "counts_equal": counts_equal,
+           "launches": run["launches"], "launches_card_alone":
+           ref["launches"], "max_err": errs, "ranks": ranks,
+           "carried": moves, "solve_halo_closed_form": halo,
+           "momentum_share": ranks[0]["solve_mom_s"] / ranks[0]["step_s"]
+           if ranks[0]["step_s"] > 0 else None}
+    print(f"  {tag}: {run['s']:.3f} s a step (card alone {ref['s']:.3f} s);"
+          f" p_iters {rec['p_iters']}, mom_iters {rec['mom_iters']}; "
+          f"(kind, passes, inner) {rows} against {ref_rows}; max err "
+          f"{max(errs.values()):.2e}; launches {run['launches']} (alone "
+          f"{ref['launches']}); the momentum's share of the card's step "
+          f"{rec['momentum_share'] or 0:.3f}")
+    print_ranks(ranks, moves, f"; solve_halo's closed form at 8 and 4 B "
+                f"{halo:,} B  [{smi_line()}; host {os.cpu_count()} cores]")
+    return rec
+
+
+def mix_mesh_runs(torch, tag, cfd, n_c, on_host, steps, problems,
+                  **kw) -> tuple:
+    """(b), (c): ``cfd`` stepped ``steps`` times from rest over the ``(n_c,
+    MIX_ALPHA)`` mesh naming ``MESH_DEVICE`` alone and with the positions
+    ``on_host`` on ``HOST_DEVICE`` (every owner checked to be on the
+    card), ``kw`` the solvers' settings; the two runs."""
+    from repro_torch.core.comm import make_cfd_mesh
+    from repro_torch.core.update import owner_positions
+    from repro_torch.fvm.piso import PisoSolver
+
+    n = n_c * MIX_ALPHA
+    devices = host_mesh_devices(n, on_host)
+    owners = owner_positions(make_cfd_mesh(n_c, MIX_ALPHA, devices=devices),
+                             n_c)
+    if any(devices[k] != MESH_DEVICE for k in owners):
+        problems.append(f"{tag}: an owner off {MESH_DEVICE}: {owners}")
+    dt = 0.5 * cfd.h
+    runs = []
+    for devs in ([MESH_DEVICE] * n, devices):
+        solver = PisoSolver(cfd, alpha=MIX_ALPHA, device=MESH_DEVICE,
+                            spmd_mesh=make_cfd_mesh(n_c, MIX_ALPHA,
+                                                    devices=devs), **kw)
+        runs.append(mesh_step(torch, solver, solver.initial_state(), dt,
+                              steps))
+        del solver
+    return runs
+
+
+def padded_mix_run(torch, problems) -> dict:
+    """19c(b): the mix mesh padded to ``SMALL_CLASS``, f64, 2 steps, one
+    real and one padding position on the host: within
+    ``DISTINCT_PARITY`` of the card alone, counts and flags equal, the
+    padding parts' fields bitwise the card alone's."""
+    cfd = mix_mesh(padded=True)
+    n_c = cfd.n_parts // MIX_ALPHA
+    tag = f"19c(b) ({n_c}, {MIX_ALPHA}) padded {cfd.n_parts_real}->" \
+          f"{cfd.n_parts}"
+    ref, run = mix_mesh_runs(torch, tag, cfd, n_c, PADDED_HOST_POSITIONS, 2,
+                             problems)
+    errs = field_errors(torch, run, ref)
+    out = [f"{tag}: {k} off by {v:.3e} of its maximum"
+           for k, v in errs.items() if not v <= DISTINCT_PARITY]
+    for f in ("mom_iters", "p_iters", "converged", "diverged", "hit_cap"):
+        a, b = getattr(run["stats"], f), getattr(ref["stats"], f)
+        if not torch.equal(a.cpu(), b.cpu()):
+            out.append(f"{tag}: {f} {a.tolist()} against {b.tolist()}")
+    real = cfd.n_parts_real
+    padding = all(same_bits(torch, a[real:], b[real:].to(a.device))
+                  for a, b in zip(run["state"], ref["state"]))
+    if not padding:
+        out.append(f"{tag}: the padding parts' fields moved")
+    out += moved_problems(run, tag)
+    problems += out
+    rec = {"mesh": [n_c, MIX_ALPHA], "parts": [real, cfd.n_parts],
+           "host_positions": list(PADDED_HOST_POSITIONS), "s": run["s"],
+           "s_card_alone": ref["s"], "p_iters": run["stats"].p_iters.tolist(),
+           "mom_iters": run["stats"].mom_iters.tolist(), "max_err": errs,
+           "padding_bitwise": padding}
+    print(f"  {tag}: host positions {list(PADDED_HOST_POSITIONS)}; 2 steps "
+          f"{run['s']:.3f} s (card alone {ref['s']:.3f} s); p_iters "
+          f"{rec['p_iters']}; max err {max(errs.values()):.2e}; padding "
+          f"parts bitwise {padding}")
+    return rec
+
+
+def bf16_mix_run(torch, problems) -> dict:
+    """19c(c): the mix mesh unpadded under ``bf16_ir``, the pressure capped
+    at ``BF16_P_MAXITER``, one step: its verdict and each solve's passes
+    equal the card alone's; the fields compared where both are finite
+    (reported, no bar)."""
+    cfd = mix_mesh(padded=False)
+    n_c = cfd.n_parts // MIX_ALPHA
+    tag = f"19c(c) ({n_c}, {MIX_ALPHA}) bf16_ir"
+    ref, run = mix_mesh_runs(torch, tag, cfd, n_c, BF16_HOST_POSITIONS, 1,
+                             problems, precision="bf16_ir",
+                             p_maxiter=BF16_P_MAXITER)
+    out = []
+    for f in ("converged", "diverged", "hit_cap"):
+        a, b = getattr(run["stats"], f), getattr(ref["stats"], f)
+        if not torch.equal(a.cpu(), b.cpu()):
+            out.append(f"{tag}: {f} {a.tolist()} against {b.tolist()}")
+    passes = [r[:2] for r in run["solves"]]
+    if passes != [r[:2] for r in ref["solves"]]:
+        out.append(f"{tag}: solves (kind, passes) {passes} against "
+                   f"{[r[:2] for r in ref['solves']]}")
+    out += moved_problems(run, tag)
+    problems += out
+    errs = field_errors(torch, run, ref, finite_only=True)
+    rec = {"mesh": [n_c, MIX_ALPHA], "verdict": flags(run["stats"]),
+           "solves": run["solves"], "solves_card_alone": ref["solves"],
+           "s": run["s"], "s_card_alone": ref["s"], "max_err_finite": errs}
+    print(f"  {tag}: {rec['verdict']} (card alone {flags(ref['stats'])}); "
+          f"(kind, passes, inner) {run['solves']} against {ref['solves']}; "
+          f"{run['s']:.3f} s (card alone {ref['s']:.3f} s); max err where "
+          f"both are finite {errs}")
+    return rec
+
+
+def assembly_mesh_phase(torch, state3, f32_step=None) -> dict:
     """Phase 19 (see the module docstring); its checks are collected and
-    fail the run after its parts have printed."""
+    fail the run after its parts have printed.  ``f32_step``: phase 9's
+    ``f32_ir`` step from ``state3``, 19c(a)'s reference (None: 19c(a) runs
+    its own)."""
     from repro_torch.core.controller import PlanCache
 
     print(f"[19] the stacked solve over a (solve, assemble) mesh: {N}^3, "
@@ -5378,7 +5741,7 @@ def assembly_mesh_phase(torch, state3) -> dict:
     t0 = time.perf_counter()
     problems = []
     cache = PlanCache()
-    out = {"alphas": {}, "distinct": {}}
+    out = {"alphas": {}, "distinct": {}, "refined": {}}
     refs = {alpha: {} for alpha in DISTINCT_MESH_DEVICES}
     for turn, alpha in enumerate(ASSEMBLY_MESH_ALPHAS):
         try:
@@ -5391,23 +5754,39 @@ def assembly_mesh_phase(torch, state3) -> dict:
         free_device(torch)
     print(f"[19b] the same meshes over distinct devices: positions on "
           f"{MESH_DEVICE} and the host's CPU ({os.cpu_count()} cores, "
-          f"{torch.get_num_threads()} threads), one step each schedule")
-    for alpha, devices in DISTINCT_MESH_DEVICES.items():
-        for schedule in ("device_direct", "host_buffer"):
-            tag = f"19b ({PARTS // alpha}, {alpha}) {schedule}"
-            ref = refs[alpha].get(schedule)
-            if ref is None:
-                problems.append(f"{tag}: no run on {MESH_DEVICE} alone")
-                continue
-            try:
-                out["distinct"][f"{alpha} {schedule}"] = distinct_mesh_run(
-                    torch, alpha, schedule, cache, state3, ref, problems)
-            except Exception as e:  # noqa: BLE001 — collected
-                traceback.print_exc()
-                problems.append(f"{tag}: {type(e).__name__}: {e}")
-            free_device(torch)
+          f"{torch.get_num_threads()} threads), one step a mesh")
+    for alpha, schedule in DISTINCT_SCHEDULES.items():
+        tag = f"19b ({PARTS // alpha}, {alpha}) {schedule}"
+        ref = refs[alpha].get(schedule)
+        if ref is None:
+            problems.append(f"{tag}: no run on {MESH_DEVICE} alone")
+            continue
+        try:
+            out["distinct"][f"{alpha} {schedule}"] = distinct_mesh_run(
+                torch, alpha, schedule, cache, state3, ref, problems)
+        except Exception as e:  # noqa: BLE001 — collected
+            traceback.print_exc()
+            problems.append(f"{tag}: {type(e).__name__}: {e}")
+        free_device(torch)
     refs.clear()
     free_device(torch)
+    print(f"[19c] the refined policies and a padded mesh over "
+          f"{MESH_DEVICE} and the host's CPU, every owner on the card")
+    t19c = time.perf_counter()
+    for key, part in (("a", lambda: refined_main_run(
+            torch, cache, state3, f32_step, problems)),
+                      ("b", lambda: padded_mix_run(torch, problems)),
+                      ("c", lambda: bf16_mix_run(torch, problems))):
+        t1 = time.perf_counter()
+        try:
+            out["refined"][key] = part()
+            out["refined"][key]["phase_s"] = time.perf_counter() - t1
+        except Exception as e:  # noqa: BLE001 — collected
+            traceback.print_exc()
+            problems.append(f"19c({key}): {type(e).__name__}: {e}")
+        free_device(torch)
+    out["refined"]["s"] = time.perf_counter() - t19c
+    print(f"  [19c] {out['refined']['s']:.1f} s")
     out["s"] = time.perf_counter() - t0
     print("assembly_mesh " + json.dumps(out, default=str))
     print(f"  [19] {out['s']:.1f} s")
@@ -7205,7 +7584,7 @@ def main(argv=None) -> int:
         print("[4-6] main path: 210^3 cavity, 30 parts, alpha 30, 3 PISO "
               "steps; determinism; parity (then 7-8)")
         torch.cuda.reset_peak_memory_stats()
-        summary, state3, main_step = main_path(torch)
+        summary, state3, main_step, f32_step = main_path(torch)
         free_device(torch)
         mark("4-8")
         summary["channel"] = channel_phase(torch)
@@ -7223,8 +7602,9 @@ def main(argv=None) -> int:
         summary["full_mesh"] = full_mesh_phase(torch, state3)
         free_device(torch)
         mark("15")
-        summary["assembly_mesh"] = assembly_mesh_phase(torch, state3)
-        del state3, main_step
+        summary["assembly_mesh"] = assembly_mesh_phase(torch, state3,
+                                                       f32_step)
+        del state3, main_step, f32_step
         free_device(torch)
         mark("19")
         summary["lm"] = lm_phase(torch, dev)

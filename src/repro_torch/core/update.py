@@ -274,7 +274,9 @@ def halo_moves(mesh, n_parts: int, plane_bytes: int) -> MoveStats:
 def solve_halo_moves(mesh, owners, plane_bytes: int) -> MoveStats:
     """One Krylov product's neighbour planes when the system's parts sit at
     the positions ``owners`` (one per part, in part order): ``plane_bytes``
-    each way between consecutive parts on distinct positions."""
+    each way between consecutive parts on distinct positions, a plane at
+    the itemsize of the vector the product multiplies (a refined solve's
+    inner products at the storage dtype's, its f64 replays at 8 B)."""
     return _carry(mesh.device_list(),
                   ((owners[i], owners[i + 1]) for i in range(len(owners) - 1)),
                   2 * plane_bytes)

@@ -190,6 +190,9 @@ class CavityAssembly:
         # the rows whose cell 0 is the pressure reference (None: part 0 of
         # every lane)
         self.ref_rows = None
+        # a block view's global part indices (block_view; None: the parts
+        # here are parts 0, 1, ... of each lane)
+        self.part_ids = None
 
     def _halo(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The neighbour planes of ``x`` (:func:`halo_exchange`, or a block
@@ -240,10 +243,13 @@ class CavityAssembly:
         ``(P, 2, 1)`` and ``(P, n_patches)``; a ``(B,)`` tensor gives a
         cohort's, one lane after another, ``(B*P, 2, 1)`` and ``(B*P,
         n_patches)``.  They are computed on the device from the tensor, so
-        one program serves every real size of a size class.
+        one program serves every real size of a size class.  A block view
+        (:meth:`block_view`) gives its own parts' rows, each part's by its
+        global index.
         """
         n = torch.as_tensor(n_active, device=self.device).reshape(-1, 1)
-        ids = torch.arange(self.lane_parts, device=self.device)[None, :]
+        ids = (torch.arange(self.lane_parts, device=self.device)
+               if self.part_ids is None else self.part_ids)[None, :]
         act = ids < n
         down = act & (ids >= 1)
         up = ids < (n - 1)
@@ -293,7 +299,9 @@ class CavityAssembly:
         parts, the pressure reference on global part 0 where the block
         holds it, and ``halo(x) -> (down, up)`` giving each part's
         neighbour planes (some held elsewhere).  Each part is assembled
-        exactly as in the whole, the same per-part operations."""
+        exactly as in the whole, the same per-part operations; a padded
+        program's activity masks (:meth:`dynamic_masks`) follow the parts'
+        global indices."""
         dev = torch.device(device)
 
         def to(t):
@@ -320,6 +328,7 @@ class CavityAssembly:
         a.patch_normal = [to(n) for n in self.patch_normal]
         a.n_parts = a.lane_parts = len(parts)
         a.ref_rows = [i for i, f in enumerate(parts) if f == 0]
+        a.part_ids = idx.to(dev)
         a._block_halo = halo
         a.on_halo = None
         return a

@@ -46,7 +46,19 @@ rank launches the kernels.  Against the run on one device the fine
 phases, the updates and a solve on one device are bit for bit; a solve
 whose dots are summed over devices rounds its dots in another order (the
 ranks' partial sums added in rank order), as the JAX package's mesh of
-distinct devices does.  The mesh runs f64 and unpadded.
+distinct devices does.
+
+Every precision policy runs over the ranks, as JAX's stacked mode runs it:
+under ``f32_ir`` and ``bf16_ir`` each rank downcasts its own bands on its
+own device (the value updates and the solve operands still travel in
+f64), a solve on one device is the stacked refined solve, and a solve over
+the ranks runs the refinement loop over :func:`rank_ops`'s refined bundle,
+its inner sweep the host loop and its f64 dots summed over the ranks; the
+neighbour planes of a product travel at the itemsize of the vector it
+multiplies.  A padded (size-class) mesh passes its real part count to
+every rank, and each rank's activity masks follow its parts' global
+indices (:meth:`~repro_torch.fvm.assembly.CavityAssembly.block_view`), so
+a rank may hold padding parts only.
 """
 from __future__ import annotations
 
@@ -65,6 +77,7 @@ from repro_torch.core.update import (concat_group_buffers, owner_positions,
 from repro_torch.fvm.step_program import (LaneLayout, ProgramExecutors,
                                          get_program)
 from repro_torch.kernels.coef_update.coef_update import coef_update
+from repro_torch.kernels.krylov_fused.krylov_fused import lane_vdot
 from repro_torch.sparse.distributed import halo_exchange, spmv_dia
 
 __all__ = ["DistinctSteps", "MeshRanks", "RankLayout", "rank_ops"]
@@ -238,39 +251,57 @@ def rank_ops(view, group: MeshRanks, rank: int, plan, bands, diag, ids,
     ``rank``'s rows of a system whose parts (fine or coarse, ``len(rank_of)``
     of them) sit on several devices: ``ids`` the parts this rank holds
     (sorted; ``bands`` ``(len(ids), nb, m)`` and ``diag`` ``(len(ids),
-    m)`` theirs), ``rank_of``/``index`` where each part is held,
+    m)`` theirs, f64), ``rank_of``/``index`` where each part is held,
     ``owners`` each part's position (the closed form of the product's
-    planes, added to ``moves`` under ``solve_halo`` once a product).
+    planes, added to ``moves`` under ``solve_halo`` once a product, at the
+    itemsize of the vector it multiplies).
 
     Each product first takes the neighbour planes (:meth:`MeshRanks.
-    planes`).  On the fused backend (a card) it runs over the rank's rows
-    stacked with a zero-band ghost part beside each run that has a
-    neighbour, the ghost's facing plane the neighbour's: one launch of the
-    stacked SpMV kernel.  On the reference backend (a CPU rank) the plain
-    SpMV takes the planes directly (``halo=``).  Either way each row's
-    product is its product in the whole, bit for bit.  The Jacobi apply
-    and the axpy step run on the rank's rows (the axpy kernel on a card);
-    each dot is the rank's partial summed over the ranks.  ``host_loop``:
-    the solvers run their host loops, every rank the same iterations.
+    planes`), in the dtype of the vector.  On the fused backend (a card) it
+    runs over the rank's rows stacked with a zero-band ghost part beside
+    each run that has a neighbour, the ghost's facing plane the
+    neighbour's: one launch of the stacked SpMV kernel.  On the reference
+    backend (a CPU rank) the plain SpMV takes the planes directly
+    (``halo=``).  Either way each row's product is its product in the
+    whole, bit for bit.  The Jacobi apply and the axpy step run on the
+    rank's rows (the axpy kernel on a card); each dot is the rank's
+    partial summed over the ranks.  ``host_loop``: the solvers run their
+    host loops, every rank the same iterations.
+
+    Under a refined policy the bundle is the one
+    :meth:`~repro_torch.fvm.piso.SegregatedSolver._solver_ops` builds on
+    one device, over the rank's rows: ``matvec`` over the bands downcast
+    on the rank's device to the storage dtype, ``matvec_hi`` over the f64
+    bands, the dots at the accum dtype and ``dots_hi`` (the outer loop's
+    f64 dots), each summed over the ranks.
     """
     from repro_torch.solvers.ops import reference_ops, resolve_backend
+    from repro_torch.solvers.precision import get_policy
 
+    policy = get_policy(view.precision)
     plane, m = plan.plane, bands.shape[-1]
-    per_product = solve_halo_moves(group.mesh, owners,
-                                   plane * bands.element_size())
     planes = group.planes(rank, ids, rank_of, index, plane, "solve_halo")
+    per_product = {}
 
     def halo(x):
         got = planes(x.reshape(-1, m))
         if moves is not None:
-            moves.add("solve_halo", per_product)
+            size = x.element_size()
+            if size not in per_product:
+                per_product[size] = solve_halo_moves(group.mesh, owners,
+                                                     plane * size)
+            moves.add("solve_halo", per_product[size])
         return got
 
     def total(*vals):
         return group.ranks.sum(rank, vals)
 
+    def dots_hi(*pairs):
+        return total(*(lane_vdot(a, b) for a, b in pairs))
+
+    acc = policy.accum_dtype
     if not ids:   # a rank holding none of the parts takes part in each sum
-        local = reference_ops(lambda x: x)
+        local = reference_ops(lambda x: x, policy=policy)
 
         def matvec(x):
             halo(x)
@@ -278,14 +309,17 @@ def rank_ops(view, group: MeshRanks, rank: int, plan, bands, diag, ids,
 
         def matvec_dot(p):
             halo(p)
-            return p, total(p.new_zeros(()))[0]
+            return p, total(p.new_zeros((), dtype=acc))[0]
 
         def fused_step(x, r, p, Ap, alpha):
             return (x.clone(), r.clone(), r.clone(),
-                    *total(r.new_zeros(()), r.new_zeros(())))
+                    *total(r.new_zeros((), dtype=acc),
+                           r.new_zeros((), dtype=acc)))
 
         def dots(*pairs):
-            return total(*(a.new_zeros(()) for a, _ in pairs))
+            return total(*(a.new_zeros((), dtype=acc) for a, _ in pairs))
+
+        matvec_hi = matvec
     else:
         local = view._solver_ops(plan, bands, diag)
 
@@ -299,10 +333,15 @@ def rank_ops(view, group: MeshRanks, rank: int, plan, bands, diag, ids,
     if ids and resolve_backend(view.solver_backend,
                                bands.device) != "fused":
         offsets = tuple(int(o) for o in plan.dia_offsets)
+        bands_lo = bands.to(policy.storage_dtype)
 
-        def matvec(x):
-            return spmv_dia(bands, x, offsets=offsets, plane=plane,
-                            halo=halo(x))
+        def over(b):
+            def A(x):
+                return spmv_dia(b, x, offsets=offsets, plane=plane,
+                                halo=halo(x))
+            return A
+
+        matvec, matvec_hi = over(bands_lo), over(bands)
 
         def matvec_dot(p):
             Ap = matvec(p)
@@ -326,20 +365,28 @@ def rank_ops(view, group: MeshRanks, rank: int, plan, bands, diag, ids,
         diag_ext = diag.new_ones((n_ext, m))
         diag_ext.index_copy_(0, idx, diag.reshape(-1, m))
         inner = view._solver_ops(plan, bands_ext, diag_ext)
-        x_ext = bands.new_zeros((n_ext, m))
+        x_ext = {}    # one buffer a dtype: the inner sweep's and the f64's
 
         def fill(x):
             down, up = halo(x)
-            x_ext.index_copy_(0, idx, x.reshape(-1, m))
+            buf = x_ext.get(x.dtype)
+            if buf is None:
+                buf = x_ext[x.dtype] = x.new_zeros((n_ext, m))
+            buf.index_copy_(0, idx, x.reshape(-1, m))
             for row, i, below in ghosts:
                 if below:
-                    x_ext[row, m - plane:] = down[i]
+                    buf[row, m - plane:] = down[i]
                 else:
-                    x_ext[row, :plane] = up[i]
-            return x_ext
+                    buf[row, :plane] = up[i]
+            return buf
 
-        def matvec(x):
-            return inner.matvec(fill(x)).index_select(0, idx).view(x.shape)
+        def over(A):
+            def product(x):
+                return A(fill(x)).index_select(0, idx).view(x.shape)
+            return product
+
+        matvec = over(inner.matvec)
+        matvec_hi = over(inner.matvec_hi or inner.matvec)
 
         def matvec_dot(p):
             y, d = inner.matvec_dot(fill(p))
@@ -349,7 +396,8 @@ def rank_ops(view, group: MeshRanks, rank: int, plan, bands, diag, ids,
         local, matvec=matvec, matvec_dot=matvec_dot, fused_step=fused_step,
         dots=dots, matvec_into=_refuse, matvec_dot_direction_into=_refuse,
         alpha_into=_refuse, fused_step_into=_refuse, advance=_refuse,
-        loops={}, host_loop=True)
+        loops={}, host_loop=True,
+        matvec_hi=matvec_hi if policy.refine else None, dots_hi=dots_hi)
 
 
 class _RankView:
@@ -532,9 +580,6 @@ class DistinctSteps:
                s.pipelined)
         execs = self._execs.get(key)
         if execs is None:
-            if s.precision != "f64":
-                raise ValueError("a mesh over distinct devices runs the f64 "
-                                 f"policy only, not {s.precision!r}")
             execs = self._execs[key] = [self._rank(r)
                                         for r in range(self.group.ranks.n)]
         return execs

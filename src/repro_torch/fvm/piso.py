@@ -174,14 +174,15 @@ class SegregatedSolver:
     launch for launch and bit for bit.  A mesh whose positions name
     distinct devices steps through :mod:`repro_torch.fvm.distinct` (a
     thread a device, each on its own parts; the updates, operands and
-    solution carried between devices; f64 and unpadded).  The mesh keeps
-    its shape across :meth:`rebind_alpha`, as JAX's does, and the owners
-    follow JAX's block rule.  ``moves``
-    records what each step carries between positions and between devices,
-    by kind (:class:`~repro_torch.core.update.MoveRecord`: the two value
-    updates, the solve operands ``b_c``, ``x0_c`` and ``diag_c`` to the
-    owners, the solution back, the assembly's neighbour planes); it is
-    None without such a mesh.  :meth:`step`, :meth:`run_steps`,
+    solution carried between devices), in every precision policy and on a
+    padded (size-class) mesh, as JAX's stacked mode runs them.  The mesh
+    keeps its shape across :meth:`rebind_alpha`, as JAX's does, and the
+    owners follow JAX's block rule.  ``moves`` records what each step
+    carries between positions and between devices, by kind
+    (:class:`~repro_torch.core.update.MoveRecord`: the two value updates,
+    the solve operands ``b_c``, ``x0_c`` and ``diag_c`` to the owners, the
+    solution back, the assembly's neighbour planes); it is None without
+    such a mesh.  :meth:`step`, :meth:`run_steps`,
     :meth:`run`, :meth:`timed_step` and :meth:`run_steady` take a state
     whose leaves are in the assembly layout
     (:func:`~repro_torch.core.comm.assembly_layout`, each shard on its
@@ -371,9 +372,7 @@ class SegregatedSolver:
 
     def _check_stacked_mesh(self, mesh: ShardMesh) -> None:
         """A stacked solve's mesh: the first position on the solver's
-        device, the fine parts in equal blocks over the positions; over
-        distinct devices (:mod:`repro_torch.fvm.distinct`) an unpadded mesh
-        and the f64 policy."""
+        device, the fine parts in equal blocks over the positions."""
         first, home = mesh.flat()[0], canonical_device(self.device)
         if first != home:
             raise ValueError(f"the mesh's first position is on {first}, "
@@ -381,13 +380,6 @@ class SegregatedSolver:
         if self.mesh.n_parts % mesh.size:
             raise ValueError(f"{self.mesh.n_parts} fine parts do not lay "
                              f"out over {mesh.size} mesh positions")
-        if mesh.one_device is None:
-            if self.padded:
-                raise ValueError("a padded (size-class) mesh steps on one "
-                                 "device, not over distinct devices")
-            if self.precision != "f64":
-                raise ValueError("a mesh over distinct devices runs the f64 "
-                                 f"policy only, not {self.precision!r}")
 
     def _count_halo(self, x: torch.Tensor) -> None:
         """The assembly's neighbour planes of ``x`` across positions."""

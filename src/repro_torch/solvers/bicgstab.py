@@ -15,7 +15,8 @@ it.
 When the bundle's precision policy refines, the loop becomes the inner
 sweep of the same outer f64 iterative-refinement loop as CG's
 (true-residual replay ``r = b - A_hi x``, low-precision correction solve,
-f64 correction apply; one host read per outer pass).  Over a cohort
+f64 correction apply; one host read per outer pass; over a bundle whose
+operators span devices the inner sweep is the host loop).  Over a cohort
 bundle (``ops.lanes``) every scalar and the flag hold one element per
 lane and every select is per lane, as in :mod:`repro_torch.solvers.cg`.
 """
@@ -214,8 +215,9 @@ def _bicgstab_sweep_host(ops: SolverOps, b, x0, thr: torch.Tensor,
 def _bicgstab_refined(ops: SolverOps, b, x0, *, tol, atol,
                       maxiter) -> BiCGStabResult:
     """Outer f64 refinement loop around low-precision inner sweeps."""
+    sweep = _bicgstab_sweep_host if ops.host_loop else _bicgstab_sweep
     x, inner, rr, converged, hit_cap, k_out = refine(
-        ops, _bicgstab_sweep, b, x0, tol=tol, atol=atol, maxiter=maxiter)
+        ops, sweep, b, x0, tol=tol, atol=atol, maxiter=maxiter)
     return BiCGStabResult(x=x, iters=inner, residual=torch.sqrt(rr),
                           converged=converged, hit_cap=hit_cap,
                           outer_iters=k_out)

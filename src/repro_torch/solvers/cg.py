@@ -38,7 +38,9 @@ in f64, and repeat until the caller's tolerance holds on the carried f64
 ``r . r`` or ``max_outer`` passes ran.  The outer loop reads the device
 once per pass (its condition; at most ``max_outer`` reads).  The exit
 flags keep the plain path's health signature (NaN anywhere: ``converged``
-and ``hit_cap`` both False).
+and ``hit_cap`` both False).  Over a bundle whose operators span several
+devices (``ops.host_loop``) the inner sweep is the host loop and the f64
+dots are the bundle's ``dots_hi``, summed over the devices.
 
 **Lanes.**  Over a cohort bundle (``ops.lanes = B``,
 :mod:`repro_torch.solvers.ops`) the same loop solves ``B`` systems at once:
@@ -181,8 +183,10 @@ def _cg_sweep_host(ops: SolverOps, b, x0, thr: torch.Tensor, maxiter: int,
     """The former host loop of :func:`_cg_sweep`: the same arithmetic, one
     host read of the carried ``r . r`` per iteration.  Returns ``(x, rr,
     k)`` with ``k`` a Python int.  The plain version the device loop is
-    held against (tests, ``chip_smoke.py``); no solve calls it.  One
-    system only: ``start`` must be set (the refinement loop passes it)."""
+    held against (tests, ``chip_smoke.py``), and the loop of a bundle
+    whose operators span several devices (``ops.host_loop``), the
+    refinement loop's inner sweep there too.  One system only: ``start``
+    must be set (the refinement loop passes it)."""
     if start is not None and not bool(start.all()):
         raise ValueError("the host loop runs one started system")
     x = x0
@@ -209,11 +213,16 @@ def refine(ops: SolverOps, sweep, b, x0, *, tol, atol, maxiter):
     scalars 0-d for one system and ``(B,)`` for a cohort.  A lane whose
     outer condition has failed is frozen: its inner sweep starts with its
     flag down and its iterate is kept (the other lanes' passes go on).
+    The f64 dots are ``ops.dots_hi``'s where the bundle has them (a
+    bundle whose rows span devices: every device then holds the same
+    sums, so every one takes the same passes).
     """
     pol = ops.policy
     A_hi = ops.matvec_hi if ops.matvec_hi is not None else ops.matvec
 
     def dot(u, v):
+        if ops.dots_hi is not None:
+            return ops.dots_hi((u, v))[0]
         return lane_vdot(u, v, ops.lanes)
 
     lo = pol.storage_dtype
@@ -254,8 +263,9 @@ def refine(ops: SolverOps, sweep, b, x0, *, tol, atol, maxiter):
 
 def _cg_refined(ops: SolverOps, b, x0, *, tol, atol, maxiter) -> CGResult:
     """Outer f64 refinement loop around low-precision inner sweeps."""
+    sweep = _cg_sweep_host if ops.host_loop else _cg_sweep
     x, inner, rr, converged, hit_cap, k_out = refine(
-        ops, _cg_sweep, b, x0, tol=tol, atol=atol, maxiter=maxiter)
+        ops, sweep, b, x0, tol=tol, atol=atol, maxiter=maxiter)
     return CGResult(x=x, iters=inner, residual=torch.sqrt(rr),
                     converged=converged, hit_cap=hit_cap, outer_iters=k_out)
 

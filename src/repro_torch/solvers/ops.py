@@ -13,6 +13,9 @@ the same control flow and the same convergence decisions:
   half of a CG iteration
 * ``dots(*pairs)``         — a tuple of global dots (initial residual,
   BiCGStab's rho/rv/ts/tt)
+* ``dots_hi(*pairs)``      — the refinement loop's f64 dots (None: the
+  plain dot of the bundle's rows; a bundle whose rows span devices sums
+  them over the devices)
 
 and, for the device-resident loops of :mod:`repro_torch.solvers.
 device_loop`, the same work into buffers the loop holds, under its guard
@@ -123,6 +126,9 @@ class SolverOps:
     # falls back to ``matvec``: right for f64 only)
     policy: PrecisionPolicy = F64
     matvec_hi: Callable | None = None
+    # the outer refinement loop's f64 dots ``dots_hi(*pairs)`` (None: the
+    # plain dot of the bundle's own rows)
+    dots_hi: Callable | None = None
     # the device loops' buffers and captured blocks, kept per sweep shape
     # for the bundle's later sweeps (solvers/cg.py, solvers/bicgstab.py)
     loops: dict = dataclasses.field(default_factory=dict, compare=False,

@@ -1489,6 +1489,161 @@ def test_19b_plain_versions_stay_on_the_cpu():
             mod.spmv_dia_plain(b, x, offsets=(-1, 0, 1), plane=1)
 
 
+def test_19b_runs_one_schedule_a_mesh():
+    assert set(chip_smoke.DISTINCT_SCHEDULES) == set(
+        chip_smoke.DISTINCT_MESH_DEVICES)
+    assert sorted(chip_smoke.DISTINCT_SCHEDULES.values()) == [
+        "device_direct", "host_buffer"]
+
+
+# ---------------------------------------------------------------------------
+# phase 19c: the refined policies and a padded mesh over the card and host
+# ---------------------------------------------------------------------------
+
+def test_19c_meshes_keep_every_owner_on_the_card():
+    from repro_torch.core.comm import make_cfd_mesh
+    from repro_torch.core.update import owner_positions
+
+    card = chip_smoke.MESH_DEVICE
+    alpha = chip_smoke.REFINED_ALPHA
+    devs = chip_smoke.DISTINCT_MESH_DEVICES[alpha]
+    n_c = chip_smoke.PARTS // alpha
+    assert all(devs[k] == card for k in owner_positions(
+        make_cfd_mesh(n_c, alpha, devices=devs), n_c))
+    padded = chip_smoke.mix_mesh(padded=True)
+    plain = chip_smoke.mix_mesh(padded=False)
+    assert (padded.n_parts_real, padded.n_parts) == (12, 16)
+    assert (plain.nx, plain.ny, plain.nz, plain.n_parts) == (64, 64, 48, 12)
+    for cfd, on_host in ((padded, chip_smoke.PADDED_HOST_POSITIONS),
+                         (plain, chip_smoke.BF16_HOST_POSITIONS)):
+        n = cfd.n_parts
+        devs = chip_smoke.host_mesh_devices(n, on_host)
+        n_c = n // chip_smoke.MIX_ALPHA
+        mesh = make_cfd_mesh(n_c, chip_smoke.MIX_ALPHA, devices=devs)
+        owners = owner_positions(mesh, n_c)
+        assert all(devs[k] == card for k in owners)
+        assert [k for k, d in enumerate(devs) if d == "cpu"] == list(on_host)
+        assert len(set(mesh.flat())) == 2
+    # (b): one real part and one padding part on the host
+    real = padded.n_parts_real
+    assert [k < real for k in chip_smoke.PADDED_HOST_POSITIONS] == [True,
+                                                                    False]
+
+
+def test_refined_halo_bytes_is_the_closed_form_per_product():
+    from repro_torch.core.comm import make_cfd_mesh
+    from repro_torch.core.update import part_positions, solve_halo_moves
+
+    mesh = make_cfd_mesh(2, 4, devices=["cpu"] * 3 + ["cpu:0"] * 5)
+    owners = part_positions(mesh, 8)
+    f8 = solve_halo_moves(mesh, owners, 10 * 8).devices
+    f4 = solve_halo_moves(mesh, owners, 10 * 4).devices
+    assert f8 == 2 * f4 > 0
+    rows = [("bicgstab", 2, 5), ("cg", 3, 7), ("bicgstab", 0, 0)]
+    assert chip_smoke.refined_halo_bytes(rows, mesh, owners, 10, 4) == (
+        3 * f8 + (2 + 10) * f4 + 4 * f8 + (3 + 7) * f4 + f8)
+
+
+@pytest.fixture
+def tiny_19c(monkeypatch):
+    """19c on the CPU: ``cpu`` in the card's place and ``cpu:0`` in the
+    host's; (a) at a (2, 4) mesh of an 8^3 cavity from the 8-part state of
+    one step, (b) and (c) at the 12-part mesh of a 16^3 serving mix (the
+    bf16 pressure capped at 20)."""
+    from repro_torch.launch.case import build_parser, build_solver
+
+    args = ["--n", "8", "--parts", "8", "--alpha", "4", "--steps", "1",
+            "--co", "0.5", "--device", "cpu"]
+    monkeypatch.setattr(chip_smoke, "PARTS", 8)
+    monkeypatch.setattr(chip_smoke, "MAIN_ARGS", args)
+    monkeypatch.setattr(chip_smoke, "MESH_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "HOST_DEVICE", "cpu:0")
+    monkeypatch.setattr(chip_smoke, "REFINED_ALPHA", 4)
+    monkeypatch.setattr(chip_smoke, "DISTINCT_MESH_DEVICES", {
+        4: ["cpu"] * 3 + ["cpu:0"] + ["cpu"] * 3 + ["cpu:0"]})
+    monkeypatch.setattr(chip_smoke, "SMALL_ARGS", ["--cfd-n", "16",
+                                                   "--parts", "16"])
+    monkeypatch.setattr(chip_smoke, "BF16_P_MAXITER", 20)
+    monkeypatch.setattr(chip_smoke, "smi_line", lambda: "CPU, no card")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    plain = build_solver(build_parser().parse_args(args))
+    return plain.run(1, 0.5 * plain.mesh.h)[0]
+
+
+def test_19c_a_on_the_cpu_holds_and_prints_its_record(tiny_19c, capsys):
+    from repro_torch.core.controller import PlanCache
+
+    problems = []
+    rec = chip_smoke.refined_main_run(torch, PlanCache(), tiny_19c, None,
+                                      problems)
+    assert problems == []
+    assert rec["mesh"] == [2, 4] and rec["schedule"] == "device_direct"
+    assert max(rec["max_err"].values()) <= chip_smoke.REFINED_PARITY
+    kinds = [r[0] for r in rec["solves"]]
+    assert kinds == ["bicgstab"] * 3 + ["cg"] * 2
+    assert [r[:2] for r in rec["solves"]] == [
+        r[:2] for r in rec["solves_card_alone"]]
+    assert all(r[1] > 0 for r in rec["solves"] if r[0] == "cg")
+    assert rec["carried"]["solve_halo"]["bytes"] \
+        == rec["solve_halo_closed_form"] > 0
+    assert [r["device"] for r in rec["ranks"]] == ["cpu", "cpu:0"]
+    assert 0 < rec["momentum_share"] < 1
+    printed = capsys.readouterr().out
+    assert "19c(a) (2, 4) f32_ir" in printed
+    assert "rank cpu:0 (2 parts): fine phases" in printed
+    assert "solve_halo's closed form at 8 and 4 B" in printed
+    assert "CPU, no card" in printed
+
+
+def test_19c_a_names_what_differs(tiny_19c, monkeypatch):
+    """Against a reference whose passes, flags and state differ, 19c(a)
+    names each."""
+    from repro_torch.core.controller import PlanCache
+
+    alone = chip_smoke.refined_main_run(torch, PlanCache(), tiny_19c, None,
+                                        [])
+    assert alone["counts_equal"] in (True, False)
+    seen = {}
+    real = chip_smoke.mesh_step
+
+    def keep(torch_, solver, state, dt, steps):
+        out = real(torch_, solver, state, dt, steps)
+        seen.setdefault("run", out)
+        return out
+
+    monkeypatch.setattr(chip_smoke, "mesh_step", keep)
+    chip_smoke.refined_main_run(torch, PlanCache(), tiny_19c, None, [])
+    ref = dict(seen["run"])
+    ref["state"] = ref["state"]._replace(U=ref["state"].U * 1.01)
+    ref["stats"] = ref["stats"]._replace(hit_cap=~ref["stats"].hit_cap)
+    ref["solves"] = [(k, n + 1, i) for k, n, i in ref["solves"]]
+    problems = []
+    chip_smoke.refined_main_run(torch, PlanCache(), tiny_19c, ref, problems)
+    text = "\n".join(problems)
+    assert "U off by" in text and "hit_cap" in text
+    assert "solves (kind, passes)" in text
+
+
+def test_19c_b_padded_on_the_cpu(tiny_19c, capsys):
+    problems = []
+    rec = chip_smoke.padded_mix_run(torch, problems)
+    assert problems == []
+    assert rec["mesh"] == [4, 4] and rec["parts"] == [12, 16]
+    assert rec["padding_bitwise"]
+    assert max(rec["max_err"].values()) <= chip_smoke.DISTINCT_PARITY
+    assert "19c(b) (4, 4) padded 12->16" in capsys.readouterr().out
+
+
+def test_19c_c_bf16_on_the_cpu(tiny_19c, capsys):
+    problems = []
+    rec = chip_smoke.bf16_mix_run(torch, problems)
+    assert problems == []
+    assert rec["mesh"] == [3, 4]
+    assert [r[:2] for r in rec["solves"]] == [
+        r[:2] for r in rec["solves_card_alone"]]
+    assert "19c(c) (3, 4) bf16_ir" in capsys.readouterr().out
+
+
 def test_analytical_step_flops_scale_train_4k_to_the_cut_batch():
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.analysis import analytical_flops

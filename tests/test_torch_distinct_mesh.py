@@ -346,18 +346,28 @@ def test_distinct_mesh_errors():
     with pytest.raises(ValueError, match="first position"):
         PisoSolver(_cube(), alpha=4, device="cpu", spmd_mesh=make_cfd_mesh(
             2, 4, devices=[B] + [A] * 7))
-    with pytest.raises(ValueError, match="f64 policy"):
-        PisoSolver(_cube(), alpha=4, device="cpu", spmd_mesh=mesh,
-                   precision="f32_ir")
-    with pytest.raises(ValueError, match="padded"):
-        PisoSolver(PaddedCavityMesh.pad(CavityMesh.cube(4, 4), 8),
-                   alpha=4, device="cpu", spmd_mesh=mesh)
-    solver = PisoSolver(_cube(), alpha=4, device="cpu", spmd_mesh=mesh)
+    # a refined policy and a padded mesh step over distinct devices, as
+    # JAX's stacked mode runs them; their state comes back on the mesh
+    refined = PisoSolver(_cube(), alpha=4, device="cpu", spmd_mesh=mesh,
+                         precision="f32_ir")
+    st, stats = refined.step(_laid_out(refined.initial_state(), mesh), DT)
+    assert st.U.mesh == mesh and bool(stats.converged)
+    padded = PisoSolver(PaddedCavityMesh.pad(CavityMesh.cube(4, 4), 8),
+                        alpha=4, device="cpu", spmd_mesh=mesh)
+    st, stats = padded.step(_laid_out(padded.initial_state(), mesh), DT)
+    assert st.U.mesh == mesh and bool(stats.converged)
+    assert not bool(unshard(st.U, "cpu")[4:].any())
+    solver = PisoSolver(_cube(), alpha=4, device="cpu", spmd_mesh=mesh,
+                        p_maxiter=20)
     state = solver.initial_state()
-    solver.precision = "bf16_ir"
-    with pytest.raises(ValueError, match="f64 policy"):
-        solver.step(state, DT)
+    solver.precision = "bf16_ir"   # set later: read at the next step
+    st, stats = solver.step(_laid_out(state, mesh), DT)
+    assert st.U.mesh == mesh and bool(stats.hit_cap)
     solver.precision = "f64"
+    # the full mesh stays f64, as in JAX
+    with pytest.raises(ValueError, match="mixed-precision"):
+        PisoSolver(_cube(), alpha=4, device="cpu", spmd_mesh=mesh,
+                   solve_mode="full_mesh", precision="f32_ir")
     with pytest.raises(ValueError, match="laid out over"):
         solver.step(_laid_out(state, _mesh(4, 2)), DT)
     with pytest.raises(ValueError, match="every leaf"):
