@@ -231,8 +231,26 @@ result.  Phases, in order (any failure exits nonzero):
     turns (stacked, full, full, stacked): seconds a step, ms and guarded
     launches per CG iteration; (15e) a refined policy (at construction,
     and set later, at the step), a padded mesh and too few devices must
-    raise.  Phase 15's checks are collected and fail the run after its
-    parts have printed.
+    raise; (15f) the fused full mesh over the card and the host's CPU (a
+    rank a device, each holding its shards' rows): (a) 15b's alpha-30
+    pressure system, one CG from ``x0 = p`` capped at 200 iterations, on
+    the ``(1, 30)`` mesh with shards 28-29 on ``cpu``, against the
+    one-device bundle's host loop on the same system and cap: iterations
+    and flags equal, ``x`` within 1e-10 of max|x|, ``r.r`` within 1e-10
+    relative, one SpMV+dot and one axpy launch an iteration on the card,
+    each with its 28 lanes (the counters from 0 and a spy on the
+    wrappers), the bytes carried between devices by kind the closed forms
+    (705,600 B a product of ``solve_halo``; bands, diagonal, ``b``,
+    ``x0`` and the solution back once) and the record's counts; ms per CG
+    iteration against the card alone's, each rank's seconds and waits;
+    (b) 19c's 12-part 64 x 64 x 48 mix mesh at alpha 4 on a ``(3, 4)``
+    full mesh with shards 10-11 on ``cpu``, two PISO steps from rest
+    (``make_solver``, the default backend) against every shard on
+    ``cuda:0``: counts and flags equal, ``U``, ``p``, ``phi`` within 1e-10
+    of their maxima, continuity below 1e-6, the last step's copies the
+    closed forms (65,536 B a product); s a step against the card alone.
+    Phase 15's checks are collected and fail the run after its parts have
+    printed.
 
 16. LM serving, with TF32 off for matmuls and cuDNN (printed): (16a)
     every registry ``SMOKE`` config, float32, one set of parameters from
@@ -4903,8 +4921,8 @@ def full_mesh_spmv(torch, stacked, full, state, dt, problems) -> dict:
     from repro_torch.kernels.krylov_fused.krylov_fused import (
         fused_matvec_dot)
     from repro_torch.kernels.spmv_dia.spmv_dia import spmv_dia_stacked
-    from repro_torch.sparse.shardmap_spmv import (make_spmv_full_mesh,
-                                                  shard_bands)
+    from repro_torch.core.comm import to_shards
+    from repro_torch.sparse.shardmap_spmv import make_spmv_full_mesh
 
     bands, b, x0, diag = pressure_system(stacked, state, dt)
     plan, mesh = full.plan_p, full.spmd_mesh
@@ -4912,7 +4930,7 @@ def full_mesh_spmv(torch, stacked, full, state, dt, problems) -> dict:
     kw = dict(offsets=offsets, plane=plan.plane)
     fm = make_spmv_full_mesh(mesh, n_coarse=full.n_coarse, alpha=plan.alpha,
                              m_coarse=plan.m_coarse, with_dot=True, **kw)
-    b_sh = shard_bands(mesh, bands, plan.alpha)
+    b_sh = to_shards(bands, plan.alpha)
     ops = full._solver_ops(plan, bands, diag)
     gen = torch.Generator(device=b.device).manual_seed(0)
     out = {}
@@ -5080,6 +5098,318 @@ def full_mesh_errors(torch, full, state, dt, problems) -> dict:
     return out
 
 
+# 15f: the full mesh over the card and its host
+RANKS_HOST_POSITIONS = (28, 29)     # (a): (1, 30), two shards on the host
+RANKS_CAP = 200                     # (a): the CG's iterations, capped
+RANKS_PARITY = 1e-10                # (a): x of max|x|, r.r relative; (b)
+#                                     each field of its maximum: the dots
+#                                     are summed per shard on the host
+RANKS_MIX_HOST_POSITIONS = (10, 11)  # (b): (3, 4) of the 12-part mix mesh
+RANKS_MIX_STEPS = 2
+RANKS_KERNELS = ("spmv_dot", "axpy_precond")  # (a): one launch an iteration
+
+
+def ranks_forms(devices, m_loc: int, nb: int, plane: int, products: int,
+                solves: int = 1) -> dict:
+    """kind -> the bytes ``solves`` full-mesh CGs over ``devices`` (one a
+    shard, in shard order) copy between devices: each shard off the first
+    shard's device takes its bands (``nb`` values a row), diagonal, ``b``
+    and ``x0`` rows and hands its solution rows back, 8 B a value; each of
+    the ``products`` moves one plane each way across every boundary
+    between two devices."""
+    off = sum(d != devices[0] for d in devices)
+    cuts = sum(a != b for a, b in zip(devices, devices[1:]))
+    rows = 8 * m_loc * off * solves
+    return {"bands_p": nb * rows, "diag_c": rows, "b_c": rows, "x0_c": rows,
+            "x_back": rows, "solve_halo": products * cuts * 2 * plane * 8}
+
+
+def carried_problems(carried: dict, forms: dict, tag: str) -> list:
+    """A run's bytes carried between devices by kind (``carried``: kind ->
+    [bytes, s]; the collectives' ``scalars`` aside) against ``forms``."""
+    got = {k: v[0] for k, v in carried.items() if k != "scalars"}
+    return [] if got == forms else [f"{tag}: carried {got} between devices, "
+                                    f"the closed forms {forms}"]
+
+
+def ranks_cg_problems(run: dict, ref: dict, forms: dict, tag: str) -> list:
+    """What 15f(a)'s CG over the ranks says went wrong against ``ref``, the
+    one-device bundle's host loop (each: ``x``, ``rr``, ``k``, ``flags``
+    (converged, hit_cap); ``run`` also ``kinds`` (kind -> MoveStats) and
+    ``carried``): the count and flags equal, ``x`` within
+    :data:`RANKS_PARITY` of ``max|x|``, ``r.r`` within it relatively, the
+    bytes carried the closed forms and the record's counts."""
+    out = []
+    if run["k"] != ref["k"] or run["flags"] != ref["flags"]:
+        out.append(f"{tag}: {run['k']} iterations, flags {run['flags']}, "
+                   f"against {ref['k']}, {ref['flags']}")
+    x, x_ref = run["x"], ref["x"].to(run["x"].device)
+    err = float((x - x_ref).abs().max()) / max(float(x_ref.abs().max()),
+                                               1e-300)
+    rr, rr_ref = float(run["rr"]), float(ref["rr"])
+    rr_err = abs(rr - rr_ref) / max(abs(rr_ref), 1e-300)
+    if not err <= RANKS_PARITY:
+        out.append(f"{tag}: x off by {err:.3e} of max|x|")
+    if not rr_err <= RANKS_PARITY:
+        out.append(f"{tag}: r.r {rr!r} against {rr_ref!r}")
+    return (out + carried_problems(run["carried"], forms, tag)
+            + moved_problems(run, tag))
+
+
+def ranks_launch_problems(launches: dict, calls, k: int, lanes: int,
+                          tag: str) -> list:
+    """The card rank's launches of a CG over the ranks: one SpMV+dot and
+    one axpy an iteration (``launches``, the counters from 0), every call
+    of their wrappers on the card with the rank's ``lanes`` (``calls``,
+    the lane spy's ``(kernel, lanes)``)."""
+    out = [f"{tag}: {name} launched {launches.get(name, 0)} times in {k} "
+           f"iterations" for name in RANKS_KERNELS
+           if launches.get(name, 0) != k]
+    seen = {lanes_ for _, lanes_ in calls}
+    if seen != {lanes}:
+        out.append(f"{tag}: the card's kernels ran with lanes "
+                   f"{sorted(seen)}, not {lanes} (one a shard it holds)")
+    return out
+
+
+@contextlib.contextmanager
+def card_lane_spy():
+    """Record ``(kernel, lanes)`` of every call of the SpMV+dot and axpy
+    wrappers on CUDA tensors inside the block (a CPU rank's calls of the
+    same wrappers take the plain versions, and are left out)."""
+    from repro_torch.kernels.krylov_fused import krylov_fused as kf
+
+    calls = []
+    names = ("spmv_dot_partials", "axpy_precond_inplace")
+    originals = [getattr(kf, n) for n in names]
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            if any(getattr(a, "is_cuda", False) for a in args):
+                calls.append((name, kw.get("lanes", 1)))
+            return fn(*args, **kw)
+        return call
+
+    try:
+        for name, fn in zip(names, originals):
+            setattr(kf, name, spy(name, fn))
+        yield calls
+    finally:
+        for name, fn in zip(names, originals):
+            setattr(kf, name, fn)
+
+
+HOST_ALONE_ITERS = 20    # (a): the host's shards' CG alone, iterations
+
+
+def host_share_ms(torch, bands, diag, b, x0, plan, sel) -> float:
+    """ms per CG iteration of the host rank's shards ``sel`` (a slice of
+    the shard layout) alone: the same rows, bands and plain versions as a
+    one-device fused bundle of those shards on ``HOST_DEVICE``, its host
+    loop run for :data:`HOST_ALONE_ITERS` iterations, no card and no
+    barrier."""
+    from repro_torch.core.comm import from_shards, make_cfd_mesh, to_shards
+    from repro_torch.solvers.cg import _cg_sweep_host
+    from repro_torch.sparse.shardmap_spmv import make_fused_ops_full_mesh
+
+    alpha = plan.alpha
+    n = sel.stop - sel.start
+    m_loc = plan.m_coarse // alpha
+
+    def rows(t):
+        return t.reshape(-1, m_loc)[sel].reshape(1, n * m_loc).to("cpu")
+
+    bands_h = from_shards(to_shards(bands, alpha)[sel].to("cpu"), n)
+    ops = make_fused_ops_full_mesh(
+        make_cfd_mesh(1, n, devices=[HOST_DEVICE] * n), bands_h, rows(diag),
+        offsets=tuple(int(o) for o in plan.dia_offsets), plane=plan.plane,
+        n_coarse=1, alpha=n, m_coarse=n * m_loc)
+    zero = torch.zeros((), dtype=bands.dtype)
+    t0 = time.perf_counter()
+    *_, k = _cg_sweep_host(ops, rows(b), rows(x0), zero, HOST_ALONE_ITERS)
+    return 1e3 * (time.perf_counter() - t0) / max(k, 1)
+
+
+def ranks_cg_run(torch, full, state, dt, problems) -> dict:
+    """15f(a): phase 15's first pressure system from ``state`` at alpha 30,
+    one CG from ``x0 = p`` capped at :data:`RANKS_CAP`, on the one-device
+    fused bundle's host loop and over the ``(1, 30)`` mesh with
+    :data:`RANKS_HOST_POSITIONS` on the host (the fused bundle over the
+    ranks, its copies booked), plain versions refused on the card, the
+    counters from 0."""
+    from repro_torch.core.comm import make_cfd_mesh
+    from repro_torch.core.update import MoveRecord
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solvers.cg import (_cg_sweep_host, _cg_sweep_ranks,
+                                        threshold_sq)
+    from repro_torch.sparse.shardmap_spmv import make_fused_ops_full_mesh
+
+    plan, n = full.plan_p, full.spmd_mesh.n_shards
+    bands, b, x0, diag = pressure_system(full, state, dt)
+    one = full._solver_ops(plan, bands, diag)
+    (bb,) = one.dots((b, b))
+    thr = threshold_sq(bb, full.p_tol, 0.0)
+
+    def result(x, rr, k):
+        conv = bool(rr <= thr)
+        return {"x": x, "rr": rr, "k": int(k),
+                "flags": (conv, int(k) >= RANKS_CAP and not conv)}
+
+    with no_plain_versions():
+        got, s_ref = synced(torch, lambda: _cg_sweep_host(one, b, x0, thr,
+                                                          RANKS_CAP))
+    ref = result(*got)
+    del one
+    devices = host_mesh_devices(n, RANKS_HOST_POSITIONS)
+    mesh = make_cfd_mesh(full.n_coarse, plan.alpha, devices=devices)
+    tag = f"15f(a) {tuple(mesh.shape)}, shards {list(RANKS_HOST_POSITIONS)}" \
+          f" on {HOST_DEVICE}"
+    moves = MoveRecord()
+    ops, s_build = synced(torch, lambda: make_fused_ops_full_mesh(
+        mesh, bands, diag, offsets=tuple(int(o) for o in plan.dia_offsets),
+        plane=plan.plane, n_coarse=full.n_coarse, alpha=plan.alpha,
+        m_coarse=plan.m_coarse, moves=moves))
+    reset_launch_counts()
+    with no_plain_versions(cuda_only=True), card_lane_spy() as calls:
+        got, s = synced(torch, lambda: _cg_sweep_ranks(ops.ranks, b, x0, thr,
+                                                      RANKS_CAP))
+    launches = launch_counts()
+    run = dict(result(*got), kinds=dict(moves.kinds),
+               carried={k: list(v) for k, v in moves.carried.items()})
+    m_loc = plan.m_coarse // plan.alpha
+    host_ms = host_share_ms(torch, bands, diag, b, x0, plan,
+                            ops.ranks.sel[-1])
+    forms = ranks_forms(devices, m_loc,
+                        len(plan.dia_offsets), plan.plane, 1 + run["k"])
+    card = ops.ranks.group.parts[0]
+    problems += ranks_cg_problems(run, ref, forms, tag)
+    problems += ranks_launch_problems(launches, calls, run["k"], len(card),
+                                      tag)
+    ranks = ops.ranks.last_ranks
+    rec = {"mesh": list(mesh.shape), "host_positions":
+           list(RANKS_HOST_POSITIONS), "iters": run["k"],
+           "flags": run["flags"], "s": s, "build_s": s_build,
+           "ms_per_iter": 1e3 * s / max(run["k"], 1),
+           "ms_per_iter_card_alone": 1e3 * s_ref / max(ref["k"], 1),
+           "ms_per_iter_host_alone": host_ms,
+           "x_err": float((run["x"] - ref["x"]).abs().max())
+           / max(float(ref["x"].abs().max()), 1e-300),
+           "launches": {k: launches[k] for k in RANKS_KERNELS},
+           "ranks": ranks, "carried": carried_rates(run["carried"]),
+           "forms": forms}
+    print(f"  {tag}: {run['k']} iterations (card alone {ref['k']}), flags "
+          f"{run['flags']}; {rec['ms_per_iter']:.4f} ms per CG iteration "
+          f"against {rec['ms_per_iter_card_alone']:.4f} on the card "
+          f"alone's host loop and {host_ms:.4f} for the host's shards "
+          f"alone; the copies {s_build:.3f} s; x off by {rec['x_err']:.3e} of max|x|; card "
+          f"launches {rec['launches']} over {len(card)} lanes")
+    for r in ranks:
+        print(f"    rank {r['device']} ({r['shards']} shards): "
+              f"{r['s']:.3f} s, {r['waited_s']:.3f} s of it waiting")
+    print("    carried between devices by kind: " + ", ".join(
+        f"{k} {v['bytes']:,} B in {v['s']:.4f} s"
+        for k, v in rec["carried"].items())
+        + f"; solve_halo's closed form {forms['solve_halo']:,} B "
+        f"({1 + run['k']} products)  [{smi_line()}; host "
+        f"{os.cpu_count()} cores]")
+    return rec
+
+
+def ranks_mix_run(torch, problems) -> dict:
+    """15f(b): 19c's mix mesh unpadded (``mix_mesh(False)``), alpha
+    ``MIX_ALPHA``, full mesh, f64, :data:`RANKS_MIX_STEPS` PISO steps from
+    rest, the solver made by the launcher's registry (``make_solver``) on
+    the default backend, every shard on ``MESH_DEVICE`` and then with
+    :data:`RANKS_MIX_HOST_POSITIONS` on the host: counts and flags equal,
+    each field within :data:`RANKS_PARITY` of its maximum, continuity
+    below ``CONTINUITY``, the last step's copies between devices the
+    closed forms."""
+    from repro_torch.core.comm import make_cfd_mesh
+    from repro_torch.fvm.piso import make_solver
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfd = mix_mesh(padded=False)
+    n_c = cfd.n_parts // MIX_ALPHA
+    devices = host_mesh_devices(cfd.n_parts, RANKS_MIX_HOST_POSITIONS)
+    tag = f"15f(b) ({n_c}, {MIX_ALPHA}) full mesh, shards " \
+          f"{list(RANKS_MIX_HOST_POSITIONS)} on {HOST_DEVICE}"
+    dt = 0.5 * cfd.h
+    runs = []
+    for devs in ([MESH_DEVICE] * cfd.n_parts, devices):
+        solver = make_solver("piso", cfd, alpha=MIX_ALPHA, device=MESH_DEVICE,
+                             solve_mode="full_mesh", spmd_mesh=make_cfd_mesh(
+                                 n_c, MIX_ALPHA, devices=devs))
+        st0 = solver.initial_state()
+        reset_launch_counts()
+        with no_plain_versions(cuda_only=True):
+            (st, stats), s = synced(torch, lambda: solver.run(
+                RANKS_MIX_STEPS, dt, st0))
+        moves = solver.moves
+        runs.append({"state": st, "stats": stats, "s": s,
+                     "launches": launch_counts(),
+                     "kinds": {} if moves is None else dict(moves.kinds),
+                     "carried": {} if moves is None else
+                     {k: list(v) for k, v in moves.carried.items()},
+                     "plan": solver.plan_p})
+        del solver
+        free_device(torch)
+    ref, run = runs
+    out = []
+    for f in ("mom_iters", "p_iters", "converged", "hit_cap"):
+        a, b = getattr(run["stats"], f), getattr(ref["stats"], f)
+        if not torch.equal(a.cpu(), b.cpu()):
+            out.append(f"{tag}: {f} {a.tolist()} against {b.tolist()}")
+    errs = field_errors(torch, run, ref)
+    out += [f"{tag}: {k} off by {v:.3e} of its maximum"
+            for k, v in errs.items() if not v <= RANKS_PARITY]
+    cont = run["stats"].continuity_err.tolist()
+    if not max(cont) < CONTINUITY:
+        out.append(f"{tag}: continuity {cont}")
+    plan = run["plan"]
+    last = run["stats"].p_iters[-1].tolist()
+    forms = ranks_forms(devices, plan.m_coarse // MIX_ALPHA,
+                        len(plan.dia_offsets), plan.plane,
+                        sum(1 + k for k in last), solves=len(last))
+    out += carried_problems(run["carried"], forms, tag)
+    out += moved_problems(run, tag)
+    problems += out
+    rec = {"mesh": [n_c, MIX_ALPHA], "host_positions":
+           list(RANKS_MIX_HOST_POSITIONS), "s": run["s"],
+           "s_card_alone": ref["s"], "p_iters": run["stats"].p_iters.tolist(),
+           "mom_iters": run["stats"].mom_iters.tolist(), "continuity": cont,
+           "max_err": errs, "carried": carried_rates(run["carried"]),
+           "forms": forms, "launches": run["launches"]}
+    print(f"  {tag}: {RANKS_MIX_STEPS} steps {run['s']:.3f} s, "
+          f"{run['s'] / RANKS_MIX_STEPS:.3f} s a step (card alone "
+          f"{ref['s'] / RANKS_MIX_STEPS:.3f} s); p_iters {rec['p_iters']}, "
+          f"mom_iters {rec['mom_iters']}; max err "
+          f"{max(errs.values()):.2e}; continuity {max(cont):.2e}; "
+          f"solve_halo {run['carried'].get('solve_halo', [0])[0]:,} B in the "
+          f"last step (closed form {forms['solve_halo']:,})")
+    return rec
+
+
+def full_mesh_ranks(torch, full, state, dt, problems) -> dict:
+    """15f: (a) and (b), each timed; a part that raises is a problem."""
+    out = {}
+    print(f"  15f the full mesh over {MESH_DEVICE} and the host's CPU "
+          f"({os.cpu_count()} cores, {torch.get_num_threads()} threads)")
+    for key, part in (("a", lambda: ranks_cg_run(torch, full, state, dt,
+                                                 problems)),
+                      ("b", lambda: ranks_mix_run(torch, problems))):
+        t0 = time.perf_counter()
+        try:
+            out[key] = part()
+            out[key]["phase_s"] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — collected, fails the phase
+            traceback.print_exc()
+            problems.append(f"15f({key}): {type(e).__name__}: {e}")
+        free_device(torch)
+    out["s"] = sum(v["phase_s"] for v in out.values())
+    print(f"  15f {out['s']:.1f} s")
+    return out
+
+
 def full_mesh_phase(torch, state3) -> dict:
     """Phase 15 (see the module docstring); its checks are collected and
     fail the run after its parts have printed."""
@@ -5100,6 +5430,7 @@ def full_mesh_phase(torch, state3) -> dict:
         problems.append(str(e))
     out["timing"] = full_mesh_timing(torch, stacked, full, state3, dt)
     out["errors"] = full_mesh_errors(torch, full, state3, dt, problems)
+    out["ranks"] = full_mesh_ranks(torch, full, state3, dt, problems)
     out["s"] = time.perf_counter() - t0
     print(f"  [15] {out['s']:.1f} s")
     for p in problems:
@@ -7465,8 +7796,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="phases 13 and 14 alone (after phases 1-2), from a "
                          "3-step state of the main path's solver")
     ap.add_argument("--full-mesh", action="store_true",
-                    help="phase 15 alone (after phases 1-2), from a 3-step "
-                         "state of the main path's solver; with "
+                    help="phase 15 alone (after phases 1-2; 15f the fused "
+                         "full mesh over the card and its host), from a "
+                         "3-step state of the main path's solver; with "
                          "--profile-cg, profile the full-mesh CG instead")
     ap.add_argument("--lm", action="store_true",
                     help="phase 16 (LM serving) alone, after phases 1-2")

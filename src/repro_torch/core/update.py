@@ -38,7 +38,9 @@ owners' devices, in one hop or staged through the host.
 and between devices (:class:`~repro_torch.core.layout.MoveStats`).
 :func:`owner_moves` and :func:`halo_moves` count the solve operands' and
 the assembly's neighbour planes' moves, :func:`solve_halo_moves` a Krylov
-product's planes where a solve spans devices, and :class:`MoveRecord`
+product's planes where a solve spans devices, :func:`shard_moves` a
+full-mesh solve's rows between the first position and each shard's, and
+:class:`MoveRecord`
 keeps one step's moves by kind, with the bytes and seconds the copies
 between devices really took (``carried``).
 """
@@ -64,6 +66,7 @@ __all__ = [
     "update_moves",
     "halo_moves",
     "solve_halo_moves",
+    "shard_moves",
     "MoveRecord",
 ]
 
@@ -280,6 +283,14 @@ def solve_halo_moves(mesh, owners, plane_bytes: int) -> MoveStats:
     return _carry(mesh.device_list(),
                   ((owners[i], owners[i + 1]) for i in range(len(owners) - 1)),
                   2 * plane_bytes)
+
+
+def shard_moves(mesh, shard_bytes: int) -> MoveStats:
+    """``shard_bytes`` of each row shard of a full mesh between the first
+    position, where the stacked solve operands sit, and the shard's own
+    position (the solution back carries as many)."""
+    return _carry(mesh.device_list(),
+                  ((0, s) for s in range(mesh.size)), shard_bytes)
 
 
 class MoveRecord:

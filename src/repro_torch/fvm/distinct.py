@@ -71,16 +71,15 @@ from repro_torch.core.comm import (assembly_layout, assembly_sharding,
                                    canonical_device, solve_constraint)
 from repro_torch.core.layout import Sharded
 from repro_torch.core.ldu import buffer_from_parts
-from repro_torch.core.ranks import HOST, Ranks
-from repro_torch.core.update import (concat_group_buffers, owner_positions,
-                                     part_positions, solve_halo_moves)
+from repro_torch.core.ranks import HOST, MeshRanks
+from repro_torch.core.update import concat_group_buffers, solve_halo_moves
 from repro_torch.fvm.step_program import (LaneLayout, ProgramExecutors,
                                          get_program)
 from repro_torch.kernels.coef_update.coef_update import coef_update
 from repro_torch.kernels.krylov_fused.krylov_fused import lane_vdot
-from repro_torch.sparse.distributed import halo_exchange, spmv_dia
+from repro_torch.sparse.distributed import spmv_dia
 
-__all__ = ["DistinctSteps", "MeshRanks", "RankLayout", "rank_ops"]
+__all__ = ["DistinctSteps", "RankLayout", "rank_ops"]
 
 
 def _runs(ids) -> list[tuple[int, int]]:
@@ -92,19 +91,6 @@ def _runs(ids) -> list[tuple[int, int]]:
             out[-1] = (out[-1][0], i + 1)
         else:
             out.append((i, i + 1))
-    return out
-
-
-def _pieces(rows, rank_of, index) -> list[tuple[int, int, int]]:
-    """``rows`` (global indices, in order) as ``(rank, i0, i1)`` runs of
-    consecutive rows of one rank's block."""
-    out = []
-    for f in rows:
-        s, i = rank_of[f], index[f]
-        if out and out[-1][0] == s and out[-1][2] == i:
-            out[-1] = (s, out[-1][1], i + 1)
-        else:
-            out.append((s, i, i + 1))
     return out
 
 
@@ -123,124 +109,6 @@ class RankLayout(LaneLayout):
         return self.group.ranks.all(self.rank, flag)
 
 
-class MeshRanks:
-    """A mesh's ranks and who holds what: ``devices`` (rank order, rank 0
-    the first position's), ``parts[r]`` the fine parts rank ``r`` holds
-    (sorted), ``positions[r]`` its positions, and per coarse partition
-    (:meth:`coarse`) each coarse part's owner rank."""
-
-    def __init__(self, mesh, n_parts: int, ledger=None):
-        self.mesh = mesh
-        self.n_parts = n_parts
-        devs = [canonical_device(d) for d in mesh.flat()]
-        self.devices = list(dict.fromkeys(devs))
-        n = len(self.devices)
-        self.rank_of_pos = [self.devices.index(d) for d in devs]
-        self.positions = [[k for k, r in enumerate(self.rank_of_pos)
-                           if r == rank] for rank in range(n)]
-        self.part_pos = part_positions(mesh, n_parts)
-        self.rank_of_part = [self.rank_of_pos[k] for k in self.part_pos]
-        self.parts = [[f for f in range(n_parts)
-                       if self.rank_of_part[f] == r] for r in range(n)]
-        self.index = {f: i for ps in self.parts for i, f in enumerate(ps)}
-        self.ranks = Ranks(self.devices, ledger=ledger)
-        self._coarse: dict[int, dict] = {}
-
-    def coarse(self, n_coarse: int) -> dict:
-        """The coarse partition's layout: ``owner_pos`` and ``rank_of`` per
-        coarse part, ``parts[r]`` the coarse parts rank ``r`` owns,
-        ``index`` a coarse part's row in its owner's block, ``local`` the
-        one rank owning them all (None when owners span devices)."""
-        got = self._coarse.get(n_coarse)
-        if got is None:
-            own = owner_positions(self.mesh, n_coarse)
-            rank_of = [self.rank_of_pos[k] for k in own]
-            parts = [[c for c in range(n_coarse) if rank_of[c] == r]
-                     for r in range(self.ranks.n)]
-            owners = {r for r in rank_of}
-            got = self._coarse[n_coarse] = dict(
-                owner_pos=own, rank_of=rank_of, parts=parts,
-                index={c: i for ps in parts for i, c in enumerate(ps)},
-                local=owners.pop() if len(owners) == 1 else None)
-        return got
-
-    # -- neighbour planes ----------------------------------------------------
-    def planes(self, rank: int, ids, rank_of, index, plane: int,
-               kind: str):
-        """``halo(x) -> (down, up)`` of rank ``rank``'s block of the parts
-        ``ids`` (sorted, of ``len(rank_of)``; ``rank_of``/``index`` where
-        each part is held): in-block neighbours as
-        :func:`~repro_torch.sparse.distributed.halo_exchange` takes them,
-        each run's outer neighbour copied in from the rank holding it (a
-        collective, its copies under ``kind``)."""
-        n_tot, ranks = len(rank_of), self.ranks
-        down_fix = [(i, f - 1) for i, f in enumerate(ids)
-                    if f > 0 and (i == 0 or ids[i - 1] != f - 1)]
-        up_fix = [(i, f + 1) for i, f in enumerate(ids) if f < n_tot - 1
-                  and (i == len(ids) - 1 or ids[i + 1] != f + 1)]
-        dev, devs = ranks.devices[rank], ranks.devices
-
-        def halo(x):
-            down, up = halo_exchange(x, plane) if ids else (None, None)
-            m = x.shape[1]
-
-            def take(slots):
-                for i, g in down_fix:
-                    s = rank_of[g]
-                    down[i] = ranks.carry(slots[s][index[g], m - plane:],
-                                          devs[s], dev, kind)
-                for i, g in up_fix:
-                    s = rank_of[g]
-                    up[i] = ranks.carry(slots[s][index[g], :plane], devs[s],
-                                        dev, kind)
-
-            ranks.exchange(rank, x, take)
-            return down, up
-
-        return halo
-
-    def asm_halo(self, rank: int, plane: int):
-        """The assembly's :meth:`planes` of rank ``rank``'s fine parts."""
-        return self.planes(rank, self.parts[rank], self.rank_of_part,
-                           self.index, plane, "halo")
-
-    # -- rows to the owners and back ---------------------------------------
-    def gather(self, rank: int, block: torch.Tensor, at, rows, kind: str):
-        """Rank ``rank``'s rows ``rows`` (global fine parts, in order) from
-        the blocks the ranks hand in (``block``, held at ``at``: the rank's
-        device, or the host for a staged copy), as one tensor on the rank's
-        device (None without rows)."""
-        dev = self.devices[rank]
-        plan = _pieces(rows, self.rank_of_part, self.index)
-
-        def take(slots):
-            if not plan:
-                return None
-            got = [self.ranks.carry(slots[s][0][i0:i1], slots[s][1], dev,
-                                    kind) for s, i0, i1 in plan]
-            return got[0] if len(got) == 1 else torch.cat(got)
-
-        return self.ranks.exchange(rank, (block, at), take)
-
-    def scatter(self, rank: int, coarse_rows, co: dict, alpha: int,
-                kind: str) -> torch.Tensor:
-        """Each owner's fine rows ``coarse_rows`` (``(n_owned * alpha,
-        ...)``, None on a rank owning nothing) back to the rank of each
-        fine part: rank ``rank``'s block ``(len(parts), ...)``."""
-        dev = self.devices[rank]
-        rank_of = [co["rank_of"][f // alpha] for f in range(self.n_parts)]
-        index = {f: co["index"][f // alpha] * alpha + f % alpha
-                 for f in range(self.n_parts)}
-        plan = _pieces(self.parts[rank], rank_of, index)
-
-        def take(slots):
-            got = [self.ranks.carry(slots[s][i0:i1], self.devices[s], dev,
-                                    kind) for s, i0, i1 in plan]
-            return got[0] if len(got) == 1 else torch.cat(got)
-
-        return self.ranks.exchange(rank, coarse_rows, take)
-
-
 def _refuse(*_args, **_kwargs):
     raise RuntimeError("a bundle over ranks runs the host loops")
 
@@ -256,8 +124,8 @@ def rank_ops(view, group: MeshRanks, rank: int, plan, bands, diag, ids,
     planes, added to ``moves`` under ``solve_halo`` once a product, at the
     itemsize of the vector it multiplies).
 
-    Each product first takes the neighbour planes (:meth:`MeshRanks.
-    planes`), in the dtype of the vector.  On the fused backend (a card) it
+    Each product first takes the neighbour planes (:meth:`~repro_torch.
+    core.ranks.MeshRanks.planes`), in the dtype of the vector.  On the fused backend (a card) it
     runs over the rank's rows stacked with a zero-band ghost part beside
     each run that has a neighbour, the ghost's facing plane the
     neighbour's: one launch of the stacked SpMV kernel.  On the reference

@@ -162,7 +162,13 @@ class SegregatedSolver:
     :meth:`rebind_alpha`, and too few devices raise.  An explicit mesh is
     reshaped over the same devices when alpha changes.  The full mesh is
     f64 only and unpadded, as in JAX: a refined ``precision`` raises at
-    construction and, set later, at the next solve.
+    construction and, set later, at the next solve.  Where an explicit
+    mesh's shards name several distinct devices, each pressure CG runs one
+    host loop a device over that device's rows
+    (:class:`~repro_torch.sparse.shardmap_spmv.ShardRanks`, either
+    backend), and ``moves`` books what it carries between devices (the
+    rows of ``b_c``, ``x0_c``, ``diag_c`` and the bands, ``bands_p``, to
+    each device, the solution back, a product's planes, ``solve_halo``).
 
     ``solve_mode="stacked"`` with an explicit ``spmd_mesh`` (a
     :class:`~repro_torch.core.comm.ShardMesh`, or a ``DeviceMesh`` with
@@ -260,10 +266,14 @@ class SegregatedSolver:
         self._auto_mesh = self.spmd_mesh is None
         self.moves = None
         self._distinct = None
+        stacked_mesh = False
         if self.spmd_mesh is not None:
             self.spmd_mesh = ShardMesh.from_device_mesh(self.spmd_mesh)
-            if not self.full_mesh_solve:
+            stacked_mesh = not self.full_mesh_solve
+            if stacked_mesh:
                 self._check_stacked_mesh(self.spmd_mesh)
+            # a full mesh over several devices books what its solves carry
+            if stacked_mesh or self.spmd_mesh.one_device is None:
                 self.moves = MoveRecord()
         if self.update_schedule not in ("device_direct", "host_buffer"):
             raise ValueError(
@@ -276,7 +286,7 @@ class SegregatedSolver:
         self.asm = CavityAssembly(self.mesh, nu=self.nu,
                                   lid_speed=self.lid_speed, dtype=self.dtype,
                                   case=asm_case, device=self.device)
-        if self.moves is not None:
+        if stacked_mesh:
             self.asm.on_halo = self._count_halo
         self._update = (update_device_direct
                         if self.update_schedule == "device_direct"
@@ -290,7 +300,7 @@ class SegregatedSolver:
         # identity repartition for the momentum (fine-partition) matrix
         self.plan_mom: RepartitionPlan = self._plan_for(1)
         self.rebind_alpha(self.alpha)
-        if self.moves is not None and self.spmd_mesh.one_device is None:
+        if stacked_mesh and self.spmd_mesh.one_device is None:
             self._distinct = DistinctSteps(self)
 
     def _plan_for(self, alpha: int) -> RepartitionPlan:
@@ -408,8 +418,9 @@ class SegregatedSolver:
     def _count_owner_bytes(self, kind: str, alpha: int,
                            part_bytes: int) -> None:
         """``part_bytes`` of each fine part between its position and its
-        coarse part's owner at ratio ``alpha``, added to ``moves``."""
-        if self.moves is not None:
+        coarse part's owner at ratio ``alpha``, added to ``moves`` (the
+        stacked layout's)."""
+        if self.moves is not None and not self.full_mesh_solve:
             self.moves.add(kind, owner_moves(self.spmd_mesh,
                                              self.mesh.n_parts, alpha,
                                              part_bytes))
@@ -418,8 +429,8 @@ class SegregatedSolver:
                       itemsize: int) -> None:
         """What one value update of ``plan`` carries, added to ``moves``
         (``kind`` "update_mom": the bands stay in the fine layout;
-        "update_p": they go to the solve layout)."""
-        if self.moves is not None:
+        "update_p": they go to the solve layout; the stacked layout's)."""
+        if self.moves is not None and not self.full_mesh_solve:
             self.moves.add(kind, update_moves(
                 self.spmd_mesh, self.mesh.n_parts, plan.alpha,
                 plan.buffer_len * itemsize, self.update_schedule,
@@ -490,11 +501,13 @@ class SegregatedSolver:
                        lanes):
         """The full-mesh bundle (:mod:`repro_torch.sparse.shardmap_spmv`):
         the fused backend's kernels over the shards, or the reference
-        backend's plain PyTorch (on a mesh of several devices, its host
-        loop)."""
+        backend's plain PyTorch; over several devices either runs a host
+        loop a device on the device's own rows, its copies booked in
+        ``moves``."""
+        from repro_torch.core.comm import to_shards
         from repro_torch.sparse.shardmap_spmv import (
             make_fused_ops_full_mesh, make_jacobi_full_mesh,
-            make_spmv_full_mesh, shard_bands)
+            make_rank_ops_full_mesh, make_spmv_full_mesh)
 
         if lanes is not None:
             raise ValueError("a full-mesh system steps alone: it has no "
@@ -504,14 +517,15 @@ class SegregatedSolver:
                   n_coarse=self.mesh.n_parts // plan.alpha, alpha=plan.alpha,
                   m_coarse=plan.m_coarse)
         if resolve_backend(self.solver_backend, bands.device) == "fused":
-            return make_fused_ops_full_mesh(mesh, bands, diag, **kw)
-        fm = make_spmv_full_mesh(mesh, use_kernel=False, **kw)
-        b_sh = shard_bands(mesh, bands, plan.alpha)
-        ops = reference_ops(lambda x: fm(b_sh, x),
-                            make_jacobi_full_mesh(mesh, diag))
+            return make_fused_ops_full_mesh(mesh, bands, diag,
+                                            moves=self.moves, **kw)
         if mesh.one_device is None:
-            ops = dataclasses.replace(ops, host_loop=True)
-        return ops
+            return make_rank_ops_full_mesh(mesh, bands, diag, kernels=False,
+                                           moves=self.moves, **kw)
+        fm = make_spmv_full_mesh(mesh, use_kernel=False, **kw)
+        b_sh = to_shards(bands, plan.alpha)
+        return reference_ops(lambda x: fm(b_sh, x),
+                             make_jacobi_full_mesh(mesh, diag))
 
     def initial_state(self) -> PisoState:
         P, m, F = self.mesh.n_parts, self.mesh.n_cells, self.mesh.n_faces

@@ -40,7 +40,10 @@ once per pass (its condition; at most ``max_outer`` reads).  The exit
 flags keep the plain path's health signature (NaN anywhere: ``converged``
 and ``hit_cap`` both False).  Over a bundle whose operators span several
 devices (``ops.host_loop``) the inner sweep is the host loop and the f64
-dots are the bundle's ``dots_hi``, summed over the devices.
+dots are the bundle's ``dots_hi``, summed over the devices.  Over a
+bundle that keeps its rows on several devices (``ops.ranks``, the full
+mesh's) the f64 host loop runs on every device over its own rows
+(:func:`_cg_sweep_ranks`).
 
 **Lanes.**  Over a cohort bundle (``ops.lanes = B``,
 :mod:`repro_torch.solvers.ops`) the same loop solves ``B`` systems at once:
@@ -205,6 +208,22 @@ def _cg_sweep_host(ops: SolverOps, b, x0, thr: torch.Tensor, maxiter: int,
     return x, rr, k
 
 
+def _cg_sweep_ranks(rows, b, x0, thr: torch.Tensor, maxiter: int):
+    """:func:`_cg_sweep_host` on every rank of ``rows`` (a bundle's
+    ``ranks``, :class:`~repro_torch.sparse.shardmap_spmv.ShardRanks`), each
+    over its own rows with its own bundle, one thread a rank
+    (:meth:`~repro_torch.core.ranks.Ranks.run`).  Returns ``(x, rr, k)``
+    with ``x`` on ``b``'s device: the ranks' dots are summed on the host,
+    so every rank ends with the same ``rr`` and ``k``."""
+    def work(r):
+        b_r, x_r, thr_r = rows.take(r, b, x0, thr)
+        x, rr, k = _cg_sweep_host(rows.ops[r], b_r, x_r, thr_r, maxiter)
+        return rows.give(r, x), rr, k
+
+    outs = rows.run(work)
+    return rows.join(b, [x for x, _, _ in outs]), outs[0][1], outs[0][2]
+
+
 def refine(ops: SolverOps, sweep, b, x0, *, tol, atol, maxiter):
     """The outer f64 refinement loop around low-precision inner sweeps
     (``sweep``: :func:`_cg_sweep` or BiCGStab's), per lane.
@@ -297,7 +316,10 @@ def cg(A: Callable[[torch.Tensor], torch.Tensor] | SolverOps,
     (bb,) = ops.dots((b, b))
     thr = threshold_sq(bb, tol, atol)
     if ops.host_loop:
-        x, rr, k = _cg_sweep_host(ops, b, x0, thr, maxiter)
+        if ops.ranks is not None:
+            x, rr, k = _cg_sweep_ranks(ops.ranks, b, x0, thr, maxiter)
+        else:
+            x, rr, k = _cg_sweep_host(ops, b, x0, thr, maxiter)
         k = torch.tensor([k], dtype=torch.int32, device=b.device)
     else:
         x, rr, k = _cg_sweep(ops, b, x0, thr, maxiter)

@@ -138,6 +138,11 @@ class SolverOps:
     # the solvers run their host loops over this bundle: its operators
     # span several devices, which one CUDA graph cannot capture
     host_loop: bool = False
+    # a bundle that keeps its rows on several devices: one host-loop
+    # bundle a device over that device's rows (``ranks.ops``), which the
+    # solver's loop runs over the ranks (sparse/shardmap_spmv.py
+    # ShardRanks, solvers/cg.py _cg_sweep_ranks)
+    ranks: object | None = None
 
 
 def lanes_of(ops: SolverOps) -> int:

@@ -11,8 +11,7 @@ shard's lower and the last shard's upper halo are zero.
 The per-shard apply is split as JAX splits it so the exchange can overlap
 the compute:
 
-1. the halo planes are taken (on one device, slices of the neighbouring
-   shards; across devices, plane copies issued first, non-blocking);
+1. the halo planes are taken (slices of the neighbouring shards);
 2. every row against the shard's own rows with zero halos: the shards on
    one device are the lanes of **one** launch of the DIA SpMV kernel
    (:func:`~repro_torch.kernels.spmv_dia.spmv_dia_stacked`, ``lanes =``
@@ -25,7 +24,7 @@ the compute:
 
 :func:`make_spmv_full_mesh` is that apply, with (``with_dot``) the dot
 ``x . A x`` as per-shard dots taken after the boundary add and summed in
-shard order (:func:`shard_sum`, on the first shard's device).
+shard order (:func:`shard_sum`), on a mesh whose shards share one device.
 :func:`make_jacobi_full_mesh` and :func:`make_fused_step_full_mesh` are the
 shard-local Jacobi apply and axpy/precondition/dots step, the latter with
 its ``r . z`` and ``r . r`` per shard summed in shard order.
@@ -51,23 +50,42 @@ take one flag, ``beta``, ``k`` and ``alpha`` per lane; the bundle fills
 its ``(n_shards,)`` buffers of them from the loop's one value before each
 launch.
 
-A mesh over several distinct devices runs :func:`make_spmv_full_mesh`
-(each device's shards one launch, halo planes copied between devices) and
-the reference backend's host loop; a CUDA graph cannot capture it, and
-the fused bundle takes one device only.  Neither branch has run on more
-than one card.
+A mesh whose shards sit on several distinct devices takes
+:func:`make_rank_ops_full_mesh`'s bundle (the fused one's, and the
+reference backend's with the kernels' plain versions): one *rank* a
+distinct device (:class:`ShardRanks`, a thread a device as in
+:mod:`repro_torch.fvm.distinct`, rank 0 the first shard's), a device
+holding several runs of shards one rank.  Each rank holds its shards'
+rows of ``x``, ``r``, ``p``, ``z`` and ``A p``, their bands and safe
+Jacobi inverse for the whole solve, copied from rank 0 once, and runs the
+CG host loop over them; a CUDA graph cannot capture a loop across
+devices, so the device loop's members refuse.  A product first copies
+the one plane each way at every boundary between shards on two devices
+(move kind ``solve_halo``), then runs the rank's shards as the lanes of
+one launch of the SpMV+dot kernel (its plain version on a CPU rank), then
+the halo terms as above, from the neighbour planes (a zero plane past
+the first and the last shard).  The axpy runs in place, one lane a
+shard.  Every dot hands the rank's per-shard values to the host, which
+puts them in shard order and sums them there with :func:`shard_sum`: on
+the CPU the bundle is bit for bit the one-device bundle's host loop.
+:func:`~repro_torch.solvers.cg.cg` runs that loop over the ranks: the
+bundle's ``ranks`` hands each rank its rows and bundle, and takes the
+solution rows back.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
 
 from repro_torch.core.comm import ShardMesh, to_shards
+from repro_torch.core.ranks import HOST, MeshRanks
 
 __all__ = ["make_spmv_full_mesh", "make_jacobi_full_mesh",
            "make_fused_step_full_mesh", "make_fused_ops_full_mesh",
-           "shard_sum", "shard_dots", "shard_bands", "halo_bands",
+           "make_rank_ops_full_mesh", "ShardRanks",
+           "shard_sum", "shard_dots", "halo_bands",
            "check_full_mesh"]
 
 
@@ -117,22 +135,23 @@ def shard_dots(a: torch.Tensor, b: torch.Tensor, n_shards: int,
     return shard_sum(per, out)
 
 
-def _halo_terms(b_sh: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                down: list, up: list, m: int, plane: int):
-    """``(dc, uc)``: the halo terms of the rows ``[0, wd)`` of shards 1..S-1
-    (from the last planes ``hi`` of shards 0..S-2) and of the rows ``[m -
-    wu, m)`` of shards 0..S-2 (from the first planes ``lo`` of shards
-    1..S-1); ``lo``, ``hi``: ``(S, plane)``.  None for a side no band
-    reaches."""
+def _neighbour_terms(b_dn, below, b_up, above, down: list, up: list,
+                     m: int, plane: int):
+    """``(dc, uc)``: the halo terms of the rows ``[0, wd)`` of the shards
+    whose bands are ``b_dn`` from the planes ``below`` them (each the last
+    plane of the shard below), and of the rows ``[m - wu, m)`` of the
+    shards ``b_up`` from the planes ``above`` them (each the first plane of
+    the shard above); ``below``, ``above``: ``(n, plane)``.  None for a
+    side no band reaches."""
     dc = uc = None
     for d, w in down:
-        t = (b_sh[1:, d, :w], hi[:-1, plane - w:])
+        t = (b_dn[:, d, :w], below[:, plane - w:])
         if dc is None:
             dc = t[0] * t[1]
         else:
             dc[:, :w].addcmul_(*t)
     for d, w in up:
-        t = (b_sh[:-1, d, m - w:], lo[1:, :w])
+        t = (b_up[:, d, m - w:], above[:, :w])
         if uc is None:
             uc = t[0] * t[1]
         else:
@@ -140,13 +159,23 @@ def _halo_terms(b_sh: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     return dc, uc
 
 
-def _add_halo(y: torch.Tensor, dc, uc, m: int,
-              active: torch.Tensor | None = None) -> None:
-    """``y[1:, :wd] += dc`` and ``y[:-1, m - wu:] += uc`` in place (``y``
-    ``(S, m)``); under the loop guard ``active`` through selects, so nothing
-    changes while it is False."""
-    for win, t in ((None if dc is None else y[1:, :dc.shape[1]], dc),
-                   (None if uc is None else y[:-1, m - uc.shape[1]:], uc)):
+def _halo_terms(b_sh: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                down: list, up: list, m: int, plane: int):
+    """:func:`_neighbour_terms` of consecutive shards: the rows ``[0, wd)``
+    of shards 1..S-1 (from the last planes ``hi`` of shards 0..S-2) and the
+    rows ``[m - wu, m)`` of shards 0..S-2 (from the first planes ``lo`` of
+    shards 1..S-1); ``lo``, ``hi``: ``(S, plane)``."""
+    return _neighbour_terms(b_sh[1:], hi[:-1], b_sh[:-1], lo[1:], down, up,
+                            m, plane)
+
+
+def _add_terms(y_dn, y_up, dc, uc, m: int,
+               active: torch.Tensor | None = None) -> None:
+    """``y_dn[:, :wd] += dc`` and ``y_up[:, m - wu:] += uc`` in place; under
+    the loop guard ``active`` through selects, so nothing changes while it
+    is False."""
+    for win, t in ((None if dc is None else y_dn[:, :dc.shape[1]], dc),
+                   (None if uc is None else y_up[:, m - uc.shape[1]:], uc)):
         if t is None:
             continue
         if active is None:
@@ -155,15 +184,22 @@ def _add_halo(y: torch.Tensor, dc, uc, m: int,
             torch.where(active, win + t, win, out=win)
 
 
-def _boundary_dots(lo, hi, dc, uc, m: int, plane: int,
-                   per: torch.Tensor) -> None:
+def _add_halo(y: torch.Tensor, dc, uc, m: int,
+              active: torch.Tensor | None = None) -> None:
+    """:func:`_add_terms` of :func:`_halo_terms`: ``y[1:, :wd] += dc`` and
+    ``y[:-1, m - wu:] += uc`` (``y`` ``(S, m)``)."""
+    _add_terms(y[1:], y[:-1], dc, uc, m, active)
+
+
+def _terms_dots(lo_dn, hi_up, dc, uc, plane: int, per_dn, per_up) -> None:
     """Add each boundary row's ``x . (A x - A_local x)`` to its shard's
-    partial in ``per`` ``(S,)``: ``lo``/``hi`` the shards' first and last
-    planes of ``x``, ``dc``/``uc`` of :func:`_halo_terms`."""
+    partial: ``lo_dn`` the first planes of ``x`` of the shards ``dc``
+    reaches (partials ``per_dn``), ``hi_up`` the last planes of those
+    ``uc`` reaches (``per_up``)."""
     if dc is not None:
-        per[1:] += (lo[1:, :dc.shape[1]] * dc).sum(1)
+        per_dn += (lo_dn[:, :dc.shape[1]] * dc).sum(1)
     if uc is not None:
-        per[:-1] += (hi[:-1, plane - uc.shape[1]:] * uc).sum(1)
+        per_up += (hi_up[:, plane - uc.shape[1]:] * uc).sum(1)
 
 
 def _local_apply(b_sh, x_sh, offsets, plane, use_kernel, out=None,
@@ -188,91 +224,36 @@ def make_spmv_full_mesh(mesh: ShardMesh, *, offsets: tuple[int, ...],
                         plane: int, n_coarse: int, alpha: int, m_coarse: int,
                         with_dot: bool = False,
                         use_kernel: bool | None = None) -> Callable:
-    """``A(bands_sh, x)`` with rows sharded over ``(solve, assemble)``.
+    """``A(bands_sh, x)`` with rows sharded over ``(solve, assemble)``, on
+    a mesh whose shards share one device (over several, the rows live on
+    the ranks: :class:`ShardRanks`).
 
     ``bands_sh``: the bands in the shard layout (``to_shards(bands,
-    alpha)``, ``(n_shards, nb, m_loc)``; a list of per-device blocks for a
-    mesh of several devices, :func:`shard_bands`); ``x``: the stacked
-    ``(n_c, m_c)`` vector (or ``(n_shards, m_loc)``) on the first shard's
-    device.  Returns ``A x`` shaped as ``x``, and with ``with_dot`` also
-    ``x . A x`` (per-shard dots after the boundary add, summed in shard
-    order).  ``use_kernel``: None or True, the DIA SpMV kernel for the
-    local apply (its plain version for CPU tensors); False, the plain
-    shift loop.
+    alpha)``, ``(n_shards, nb, m_loc)``); ``x``: the stacked ``(n_c,
+    m_c)`` vector (or ``(n_shards, m_loc)``).  Returns ``A x`` shaped as
+    ``x``, and with ``with_dot`` also ``x . A x`` (per-shard dots after the
+    boundary add, summed in shard order).  ``use_kernel``: None or True,
+    the DIA SpMV kernel for the local apply (its plain version for CPU
+    tensors); False, the plain shift loop.
     """
     S, m = check_full_mesh(mesh, offsets=offsets, plane=plane,
                            n_coarse=n_coarse, alpha=alpha, m_coarse=m_coarse)
+    if mesh.one_device is None:
+        raise ValueError("the shards sit on several devices: their rows "
+                         "live on the ranks (ShardRanks)")
     down, up = halo_bands(offsets)
-    groups = mesh.groups()
 
-    def one(b_sh, x_sh):
+    def spmv(b_sh, x):
+        x_sh = x.reshape(S, m)
         y = _local_apply(b_sh, x_sh, offsets, plane, use_kernel)
         dc, uc = _halo_terms(b_sh, x_sh[:, :plane], x_sh[:, m - plane:],
                              down, up, m, plane)
         _add_halo(y, dc, uc, m)
-        return y
-
-    def several(blocks, x_sh):
-        # the halo planes first, each copied (non-blocking) to the device
-        # of the shard that reads it, with each device's own rows
-        moved = []
-        for dev, s0, s1 in groups:
-            below = (x_sh[s0 - 1, m - plane:].to(dev, non_blocking=True)
-                     if s0 > 0 else None)
-            above = (x_sh[s1, :plane].to(dev, non_blocking=True)
-                     if s1 < S else None)
-            moved.append((x_sh[s0:s1].to(dev, non_blocking=True), below,
-                          above))
-        y = torch.empty_like(x_sh)
-        for (dev, s0, s1), b_ext, (xg, below, above) in zip(groups, blocks,
-                                                            moved):
-            # the block's shards between a zero-band shard for each
-            # neighbour, which holds only the plane it lends
-            f = 0 if below is None else 1
-            n = s1 - s0
-            y_ext = torch.zeros((n + f + (above is not None), m),
-                                dtype=xg.dtype, device=dev)
-            y_ext[f:f + n] = _local_apply(b_ext[f:f + n], xg, offsets, plane,
-                                          use_kernel)
-            zero = torch.zeros((1, plane), dtype=xg.dtype, device=dev)
-            lo = [xg[:, :plane]]
-            hi = [xg[:, m - plane:]]
-            if below is not None:
-                lo, hi = [zero] + lo, [below[None]] + hi
-            if above is not None:
-                lo, hi = lo + [above[None]], hi + [zero]
-            dc, uc = _halo_terms(b_ext, torch.cat(lo), torch.cat(hi), down,
-                                 up, m, plane)
-            _add_halo(y_ext, dc, uc, m)
-            y[s0:s1].copy_(y_ext[f:f + n], non_blocking=True)
-        return y
-
-    def spmv(bands_sh, x):
-        x_sh = x.reshape(S, m)
-        y = (one(bands_sh, x_sh) if len(groups) == 1
-             else several(bands_sh, x_sh))
         if not with_dot:
             return y.view(x.shape)
         return y.view(x.shape), shard_dots(x_sh, y, S)
 
     return spmv
-
-
-def shard_bands(mesh: ShardMesh, bands: torch.Tensor, alpha: int):
-    """The stacked bands ``(n_c, nb, m_c)`` in the shard layout that
-    :func:`make_spmv_full_mesh` takes: one tensor when every shard is on
-    the bands' device, else one block per device
-    (:meth:`~repro_torch.core.comm.ShardMesh.groups`), copied there, with a
-    zero-band shard before it (after it) when it has a lower (upper)
-    neighbour."""
-    b_sh = to_shards(bands, alpha)
-    groups = mesh.groups()
-    if len(groups) == 1 and groups[0][0] == bands.device:
-        return b_sh
-    S = b_sh.shape[0]
-    zero = torch.zeros_like(b_sh[:1])
-    return [torch.cat([zero] * (s0 > 0) + [b_sh[s0:s1]] + [zero] * (s1 < S))
-            .to(dev) for dev, s0, s1 in groups]
 
 
 def make_jacobi_full_mesh(mesh: ShardMesh, diag: torch.Tensor) -> Callable:
@@ -331,11 +312,14 @@ def make_fused_step_full_mesh(mesh: ShardMesh,
 def make_fused_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
                              diag: torch.Tensor, *, offsets: tuple[int, ...],
                              plane: int, n_coarse: int, alpha: int,
-                             m_coarse: int):
+                             m_coarse: int, moves=None):
     """The full-mesh fused :class:`~repro_torch.solvers.ops.SolverOps`
     bundle (module doc) over the stacked bands ``(n_c, nb, m_c)`` and
-    diagonal ``(n_c, m_c)``, all shards on the bands' device.  f64 only, as
-    in JAX; one system (no cohort lanes)."""
+    diagonal ``(n_c, m_c)`` on the device of the mesh's first shard.  f64
+    only, as in JAX; one system (no cohort lanes).  A mesh over several
+    distinct devices gives :func:`make_rank_ops_full_mesh`'s bundle, its
+    copies between devices booked in ``moves`` (a
+    :class:`~repro_torch.core.update.MoveRecord`, optional)."""
     from repro_torch.kernels.krylov_fused.krylov_fused import (
         partials_buffers, spmv_dot_direction, spmv_dot_partials)
     from repro_torch.kernels.krylov_loop.krylov_loop import (cg_advance,
@@ -345,14 +329,12 @@ def make_fused_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
 
     S, m = check_full_mesh(mesh, offsets=offsets, plane=plane,
                            n_coarse=n_coarse, alpha=alpha, m_coarse=m_coarse)
+    if mesh.one_device is None:
+        return make_rank_ops_full_mesh(
+            mesh, bands, diag, offsets=offsets, plane=plane,
+            n_coarse=n_coarse, alpha=alpha, m_coarse=m_coarse, moves=moves)
+    _check_home(mesh, bands)
     dev = bands.device
-    if mesh.one_device != dev:
-        raise NotImplementedError(
-            f"the fused full-mesh bundle takes every shard on the bands' "
-            f"device {dev}; mesh devices {sorted(set(map(str, mesh.flat())))}"
-            f" (a mesh of several devices: solver_backend='reference')")
-    if bands.dtype != torch.float64:
-        raise ValueError("the full-mesh solve is f64 only")
     down, up = halo_bands(offsets)
     b_sh = to_shards(bands.contiguous(), alpha)
     inv = safe_jacobi_inverse(diag).contiguous()
@@ -382,7 +364,7 @@ def make_fused_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
         """``p' . A p'``: each lane's partials ``dot_part`` of ``p' .
         A_local p'`` plus its boundary rows, summed in shard order."""
         _lane_part_sums(dot_part, part, out=per)
-        _boundary_dots(lo, hi, dc, uc, m, plane, per)
+        _terms_dots(lo[1:], hi[:-1], dc, uc, plane, per[1:], per[:-1])
         return shard_sum(per, out)
 
     def matvec(x):
@@ -450,3 +432,242 @@ def make_fused_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
                      matvec_dot_direction_into=matvec_dot_direction_into,
                      alpha_into=alpha_into, fused_step_into=fused_step_into,
                      advance=advance, backend="fused")
+
+
+def _check_home(mesh: ShardMesh, bands: torch.Tensor) -> None:
+    """Raise unless the bands are f64 and on the mesh's first shard's
+    device (a CPU tensor on any CPU place)."""
+    first = mesh.flat()[0]
+    if bands.device.type != first.type or (first.type == "cuda"
+                                           and bands.device != first):
+        raise ValueError(f"the mesh's first shard is on {first}, the bands "
+                         f"on {bands.device}")
+    if bands.dtype != torch.float64:
+        raise ValueError("the full-mesh solve is f64 only")
+
+
+def _on_ranks(*_args, **_kwargs):
+    raise RuntimeError("a full-mesh bundle over several devices holds its "
+                       "rows on its ranks: solvers.cg runs the host loop "
+                       "of each rank's bundle (ops.ranks.ops)")
+
+
+class ShardRanks:
+    """A full mesh's CG over its distinct devices (module doc): one rank a
+    device (:class:`~repro_torch.core.ranks.MeshRanks`, a row shard in
+    the place of a fine part), rank 0 the first shard's.  Built from the
+    stacked system on rank 0's device, it gives each rank its shards'
+    bands (move kind ``bands_p``), diagonal (``diag_c``) and safe Jacobi
+    inverse, once, and its host-loop bundle ``ops[r]``.  A solve over the
+    ranks (:attr:`~repro_torch.solvers.ops.SolverOps.ranks`,
+    :func:`~repro_torch.solvers.cg._cg_sweep_ranks`) runs one loop a rank
+    through :meth:`run`: :meth:`take` gives the rank its rows of ``b`` and
+    ``x0`` (``b_c``, ``x0_c``), :meth:`give` hands its rows of the
+    solution back (``x_back``), :meth:`join` stacks them.  ``kernels``: a
+    card's
+    rank launches the SpMV+dot and the axpy kernels (the wrappers, which
+    take their plain versions for a CPU rank's tensors); False, the plain
+    versions everywhere (the reference backend).  ``moves`` (a
+    :class:`~repro_torch.core.update.MoveRecord`, optional) books each
+    copy between devices and each kind's closed form.  ``last_ranks``:
+    the last call's ``{"device", "shards", "s", "waited_s"}`` a rank."""
+
+    def __init__(self, mesh: ShardMesh, bands, diag, *, offsets, plane: int,
+                 alpha: int, kernels: bool = True, moves=None):
+        from repro_torch.core.update import shard_moves, solve_halo_moves
+        from repro_torch.solvers.jacobi import safe_jacobi_inverse
+
+        _check_home(mesh, bands)
+        S, m = mesh.n_shards, bands.shape[-1] // alpha
+        self.mesh, self.S, self.m, self.plane = mesh, S, m, plane
+        self.offsets = tuple(int(o) for o in offsets)
+        self.kernels, self.moves = kernels, moves
+        self.itemsize = bands.element_size()
+        self.group = g = MeshRanks(mesh, S, ledger=moves)
+        self.sel = [slice(ids[0], ids[-1] + 1)
+                    if ids[-1] + 1 - ids[0] == len(ids) else ids
+                    for ids in g.parts]
+        b_sh = to_shards(bands.contiguous(), alpha)
+        d_sh = diag.reshape(S, m)
+        home = g.devices[0]
+        if moves is not None:
+            for kind, t in (("bands_p", b_sh), ("diag_c", d_sh)):
+                moves.add(kind, shard_moves(mesh, t[0].numel()
+                                            * t.element_size()))
+        self.halo_form = solve_halo_moves(mesh, list(range(S)),
+                                          plane * bands.element_size())
+        self.ops = []
+        for r, dev in enumerate(g.devices):
+            bands_r = g.ranks.carry(b_sh[self.sel[r]], home, dev, "bands_p")
+            diag_r = g.ranks.carry(d_sh[self.sel[r]], home, dev, "diag_c")
+            self.ops.append(self._rank_ops(
+                r, bands_r.contiguous(),
+                safe_jacobi_inverse(diag_r).contiguous()))
+        self.last_ranks = None
+        self._seconds = [0.0] * g.ranks.n
+
+    def _total(self, r: int, pers) -> tuple:
+        """Each of ``pers`` (rank ``r``'s per-shard values, ``(n,)``) over
+        every shard: the ranks' values put in shard order on the host and
+        summed there by :func:`shard_sum`, on every rank the same bits."""
+        ranks, dev = self.group.ranks, self.group.devices[r]
+        mine = ranks.carry(torch.stack(list(pers)), dev, HOST, "scalars")
+
+        def take(slots):
+            full = slots[0].new_empty((len(pers), self.S))
+            for sel, got in zip(self.sel, slots):
+                full[:, sel] = got
+            sums = torch.stack([shard_sum(row) for row in full])
+            return ranks.carry(sums, HOST, dev, "scalars")
+
+        return tuple(ranks.exchange(r, mine, take).unbind())
+
+    def _rank_ops(self, r: int, bands, inv):
+        """Rank ``r``'s bundle over its ``n`` shards' rows ``(n, m)``."""
+        from repro_torch.kernels.krylov_fused import krylov_fused as kf
+        from repro_torch.solvers.ops import SolverOps
+
+        g, S, m, plane = self.group, self.S, self.m, self.plane
+        ids, dev = g.parts[r], g.devices[r]
+        n = len(ids)
+        # the shards a halo term reaches: not the first shard's lower rows,
+        # not the last shard's upper ones
+        d0, nu = int(ids[0] == 0), n - int(ids[-1] == S - 1)
+        down, up = halo_bands(self.offsets)
+        planes = g.planes(r, ids, g.rank_of_part, g.index, plane,
+                          "solve_halo")
+        npl, stride = kf.lane_partials(n * m, n)
+        part = (kf.partials_buffers(n * m, bands.dtype, dev, lanes=n)
+                if self.kernels else {"npl": npl, "stride": stride})
+        kw = dict(offsets=self.offsets, plane=plane, lanes=n)
+
+        def product(x, with_dot: bool):
+            """``A x`` over the rank's rows and (``with_dot``) each shard's
+            ``x . A x``: the neighbour planes first, then one launch over
+            the shards as lanes, then the halo terms."""
+            if r == 0 and self.moves is not None:
+                self.moves.add("solve_halo", self.halo_form)
+            below, above = planes(x)
+            per = None
+            if with_dot:
+                spmv_dot = (kf.spmv_dot_partials if self.kernels
+                            else kf.spmv_dot_partials_plain)
+                y, dot_part = spmv_dot(bands, x, **kw)
+                per = _lane_part_sums(dot_part, part)
+            else:
+                y = _local_apply(bands, x, self.offsets, plane,
+                                 None if self.kernels else False)
+            dc, uc = _neighbour_terms(bands[d0:], below[d0:], bands[:nu],
+                                      above[:nu], down, up, m, plane)
+            _add_terms(y[d0:], y[:nu], dc, uc, m)
+            if with_dot:
+                _terms_dots(x[d0:, :plane], x[:nu, m - plane:], dc, uc,
+                            plane, per[d0:], per[:nu])
+            return y, per
+
+        def matvec_dot(p):
+            y, per = product(p, True)
+            return y, self._total(r, (per,))[0]
+
+        def fused_step(x, rv, p, Ap, a):
+            # x and r in place: the rank's own rows
+            alphas = a.reshape(1).expand(n).contiguous()
+            if self.kernels:
+                z = torch.empty_like(x)
+                rz, rr = _axpy_lanes(x, rv, p, Ap, inv, alphas, z, part, n)
+            else:
+                x, rv, z, *got = kf.axpy_precond_partials_plain(
+                    x, rv, p, Ap, inv, alphas)
+                rz, rr = (_lane_part_sums(t, part) for t in got)
+            return (x, rv, z, *self._total(r, (rz, rr)))
+
+        def dots(*pairs):
+            return self._total(r, [(a.reshape(n, -1) * b.reshape(n, -1))
+                                   .sum(1) for a, b in pairs])
+
+        return SolverOps(
+            matvec=lambda x: product(x, False)[0], precond=lambda v: v * inv,
+            matvec_dot=matvec_dot, fused_step=fused_step, dots=dots,
+            matvec_into=_on_ranks, matvec_dot_direction_into=_on_ranks,
+            alpha_into=_on_ranks, fused_step_into=_on_ranks,
+            advance=_on_ranks, host_loop=True,
+            backend="fused" if self.kernels else "reference")
+
+    def take(self, r: int, b, x0, thr):
+        """Rank ``r``'s rows of the stacked ``b`` and ``x0`` and the
+        threshold ``thr`` (on rank 0's device) on its device, ``x0``'s a
+        copy the loop may write; starts the rank's clock."""
+        ranks, sel = self.group.ranks, self.sel[r]
+        self._seconds[r] = time.perf_counter()
+        home, dev = ranks.devices[0], ranks.devices[r]
+        rows = (self.S, self.m)
+        return (ranks.carry(b.reshape(rows)[sel], home, dev, "b_c"),
+                ranks.carry(x0.reshape(rows)[sel], home, dev, "x0_c",
+                            copy=True),
+                ranks.carry(thr, home, dev, "scalars"))
+
+    def give(self, r: int, x):
+        """Rank ``r``'s rows of the solution on rank 0's device; stops the
+        rank's clock."""
+        ranks = self.group.ranks
+        x = ranks.carry(x, ranks.devices[r], ranks.devices[0], "x_back")
+        self._seconds[r] = time.perf_counter() - self._seconds[r]
+        return x
+
+    def run(self, work) -> list:
+        """``[work(0), ..., work(n - 1)]``, one thread a rank
+        (:meth:`~repro_torch.core.ranks.Ranks.run`), the solve's closed
+        forms booked and each rank's seconds and waits kept in
+        ``last_ranks``."""
+        from repro_torch.core.update import shard_moves
+
+        ranks = self.group.ranks
+        if self.moves is not None:
+            form = shard_moves(self.mesh, self.m * self.itemsize)
+            for kind in ("b_c", "x0_c", "x_back"):
+                self.moves.add(kind, form)
+        outs = ranks.run(work)
+        self.last_ranks = [
+            {"device": str(d), "shards": len(ids), "s": s, "waited_s": w}
+            for d, ids, s, w in zip(ranks.devices, self.group.parts,
+                                    self._seconds, ranks.waited)]
+        return outs
+
+    def join(self, b, xs):
+        """The ranks' solution rows ``xs`` (rank order, on rank 0's
+        device) stacked as ``b``."""
+        x = torch.empty((self.S, self.m), dtype=b.dtype, device=b.device)
+        for sel, x_r in zip(self.sel, xs):
+            x[sel] = x_r
+        return x.view(b.shape)
+
+
+def make_rank_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
+                            diag: torch.Tensor, *, offsets: tuple[int, ...],
+                            plane: int, n_coarse: int, alpha: int,
+                            m_coarse: int, kernels: bool = True, moves=None):
+    """The full-mesh :class:`~repro_torch.solvers.ops.SolverOps` bundle of a
+    mesh whose shards sit on several distinct devices: a
+    :class:`ShardRanks` as its ``ranks`` (``kernels``: the fused
+    backend's kernels on a card's rank, else the plain versions; ``moves``
+    books the copies), ``host_loop``, and ``dots`` on the stacked vectors
+    (per shard, in shard order: the threshold of :func:`~repro_torch.
+    solvers.cg.cg`).  Its other members refuse: its rows live on the
+    ranks."""
+    from repro_torch.solvers.ops import SolverOps
+
+    S, _ = check_full_mesh(mesh, offsets=offsets, plane=plane,
+                           n_coarse=n_coarse, alpha=alpha, m_coarse=m_coarse)
+    ranks = ShardRanks(mesh, bands, diag, offsets=offsets, plane=plane,
+                       alpha=alpha, kernels=kernels, moves=moves)
+
+    def dots(*pairs):
+        return tuple(shard_dots(a, b, S) for a, b in pairs)
+
+    return SolverOps(matvec=_on_ranks, precond=_on_ranks,
+                     matvec_dot=_on_ranks, fused_step=_on_ranks, dots=dots,
+                     matvec_into=_on_ranks,
+                     matvec_dot_direction_into=_on_ranks,
+                     alpha_into=_on_ranks, fused_step_into=_on_ranks,
+                     advance=_on_ranks, host_loop=True, ranks=ranks,
+                     backend="fused" if kernels else "reference")

@@ -9,6 +9,7 @@ to a 72-byte local-memory frame; the clean one is the checked kernels',
 with a made-up frame on the value-update kernel, which the check does not
 cover.
 """
+import contextlib
 import dataclasses
 import math
 import subprocess
@@ -819,7 +820,10 @@ def test_shard_sum_is_one_fixed_order():
 def tiny_phase15(tiny_phase13, monkeypatch):
     """Phase 15 cut to cube(8, 4) with its shards on the CPU: the fused
     full-mesh bundle runs the wrappers' plain versions there (the launch
-    counters stay at 0, so that check is the card's alone)."""
+    counters stay at 0, so that check is the card's alone).  15f: ``cpu``
+    in the card's place and ``cpu:0`` in the host's, (a) on the (1, 4)
+    mesh with shard 3 on ``cpu:0``, (b) at the 12-part mesh of a 16^3
+    serving mix."""
     monkeypatch.setattr(chip_smoke, "MAIN_ARGS", [
         "--n", "8", "--parts", "4", "--alpha", "4", "--steps", "3",
         "--co", "0.5", "--p-tol", "1e-10", "--p-maxiter", "6000",
@@ -828,6 +832,15 @@ def tiny_phase15(tiny_phase13, monkeypatch):
     monkeypatch.setattr(chip_smoke, "MESH_DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "time_ms", lambda torch, fn, **k: 0.0)
     monkeypatch.setattr(chip_smoke, "require_launched", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "HOST_DEVICE", "cpu:0")
+    monkeypatch.setattr(chip_smoke, "RANKS_HOST_POSITIONS", (3,))
+    monkeypatch.setattr(chip_smoke, "SMALL_ARGS", ["--cfd-n", "16",
+                                                   "--parts", "16"])
+    monkeypatch.setattr(chip_smoke, "ranks_launch_problems",
+                        lambda *a: [])
+    monkeypatch.setattr(chip_smoke, "smi_line", lambda: "CPU, no card")
+    monkeypatch.setattr(chip_smoke, "no_plain_versions",
+                        lambda cuda_only=False: contextlib.nullcontext())
 
 
 def test_phase15_holds_on_the_cpu(tiny_phase15, capsys):
@@ -838,7 +851,16 @@ def test_phase15_holds_on_the_cpu(tiny_phase15, capsys):
     assert out["loop"]["iters"] > 0
     assert all(v is not None for v in out["errors"].values())
     assert len(out["timing"]["full"]) == 2
-    assert "[15] the full mesh" in capsys.readouterr().out
+    ranks = out["ranks"]
+    assert ranks["a"]["mesh"] == [1, 4] and ranks["a"]["iters"] > 0
+    assert [r["device"] for r in ranks["a"]["ranks"]] == ["cpu", "cpu:0"]
+    assert ranks["b"]["mesh"] == [3, 4]
+    assert ranks["b"]["carried"]["solve_halo"]["bytes"] \
+        == ranks["b"]["forms"]["solve_halo"] > 0
+    printed = capsys.readouterr().out
+    assert "[15] the full mesh" in printed
+    assert "15f(a) (1, 4), shards [3] on cpu:0" in printed
+    assert "rank cpu:0 (1 shards)" in printed
 
 
 def test_phase15_catches_dropped_halo_terms(tiny_phase15, monkeypatch):
@@ -849,6 +871,82 @@ def test_phase15_catches_dropped_halo_terms(tiny_phase15, monkeypatch):
     monkeypatch.setattr(shardmap_spmv, "_add_halo", lambda *a, **k: None)
     with pytest.raises(chip_smoke.SmokeFailure, match="phase 15"):
         chip_smoke.full_mesh_phase(torch, _tiny_state(3))
+
+
+def test_15f_closed_forms_at_210_and_on_the_mix_mesh():
+    """(a): the 210^3 (1, 30) mesh with shards 28-29 on the host, 308,700
+    rows a shard, 7 bands, planes of 44,100; (b): the 12-part 64 x 64 x 48
+    mix mesh on (3, 4) with 10-11 on the host, 16,384 rows a shard,
+    planes of 4,096, two solves a step."""
+    a = chip_smoke.host_mesh_devices(30, chip_smoke.RANKS_HOST_POSITIONS)
+    rows = 2 * 308_700 * 8
+    assert chip_smoke.ranks_forms(a, 308_700, 7, 44_100, 1) == {
+        "bands_p": 7 * rows, "diag_c": rows, "b_c": rows, "x0_c": rows,
+        "x_back": rows, "solve_halo": 705_600}
+    assert chip_smoke.ranks_forms(a, 308_700, 7, 44_100, 201)[
+        "solve_halo"] == 201 * 705_600
+    b = chip_smoke.host_mesh_devices(12, chip_smoke.RANKS_MIX_HOST_POSITIONS)
+    forms = chip_smoke.ranks_forms(b, 16_384, 7, 4_096, 10, solves=2)
+    assert forms["solve_halo"] == 10 * 65_536
+    assert forms["b_c"] == 2 * 2 * 16_384 * 8
+    # every shard on the card: nothing between devices
+    assert set(chip_smoke.ranks_forms(["cuda:0"] * 12, 16_384, 7, 4_096,
+                                      10).values()) == {0}
+    plain = chip_smoke.mix_mesh(padded=False)
+    assert (plain.n_parts, plain.nx, plain.ny, plain.nz) == (12, 64, 64, 48)
+
+
+def test_15f_problems_name_what_differs():
+    """15f(a)'s check on synthetic runs: a clean run passes; another count,
+    a flag, x off, r.r off and bytes off the closed forms are each
+    named."""
+    from repro_torch.core.layout import MoveStats
+
+    x = torch.linspace(-1.0, 1.0, 12, dtype=torch.float64)
+    forms = {"b_c": 16, "solve_halo": 32}
+    ref = {"x": x, "rr": torch.tensor(4.0, dtype=torch.float64), "k": 200,
+           "flags": (False, True)}
+    run = dict(ref, kinds={"b_c": MoveStats(16, 16),
+                           "solve_halo": MoveStats(64, 32)},
+               carried={"b_c": [16, 0.1], "solve_halo": [32, 0.2],
+                        "scalars": [99, 0.0]})
+    assert chip_smoke.ranks_cg_problems(run, ref, forms, "t") == []
+    bad = dict(run, k=199, flags=(True, False), x=x * (1 + 1e-9),
+               rr=torch.tensor(4.0 * (1 + 1e-9), dtype=torch.float64),
+               carried=dict(run["carried"], solve_halo=[31, 0.2]))
+    text = "\n".join(chip_smoke.ranks_cg_problems(bad, ref, forms, "t"))
+    assert "199 iterations, flags (True, False), against 200" in text
+    assert "x off by" in text and "r.r" in text
+    assert "the closed forms" in text and "counted" in text
+    # within the bar: no problem
+    near = dict(run, x=x * (1 + 1e-12))
+    assert chip_smoke.ranks_cg_problems(near, ref, forms, "t") == []
+
+
+def test_15f_launch_problems_count_the_card_rank():
+    ok = {"spmv_dot": 7, "axpy_precond": 7, "spmv_dia": 1}
+    calls = [("spmv_dot_partials", 28)] * 7 + [
+        ("axpy_precond_inplace", 28)] * 7
+    assert chip_smoke.ranks_launch_problems(ok, calls, 7, 28, "t") == []
+    probs = chip_smoke.ranks_launch_problems(
+        dict(ok, axpy_precond=8), calls + [("spmv_dot_partials", 30)], 7, 28,
+        "t")
+    assert any("axpy_precond launched 8 times in 7" in p for p in probs)
+    assert any("lanes [28, 30], not 28" in p for p in probs)
+    assert chip_smoke.ranks_launch_problems({}, [], 0, 28, "t") == [
+        "t: the card's kernels ran with lanes [], not 28 (one a shard it "
+        "holds)"]
+
+
+def test_card_lane_spy_records_card_calls_only():
+    from repro_torch.kernels.krylov_fused import krylov_fused as kf
+
+    before = kf.spmv_dot_partials
+    bands = torch.ones((2, 3, 8), dtype=torch.float64)
+    x = torch.ones((2, 8), dtype=torch.float64)
+    with chip_smoke.card_lane_spy() as calls:
+        kf.spmv_dot_partials(bands, x, offsets=(-1, 0, 1), plane=1, lanes=2)
+    assert calls == [] and kf.spmv_dot_partials is before
 
 
 # ---------------------------------------------------------------------------

@@ -30,11 +30,10 @@ from test_torch_assembly_mesh import DT, FIELDS, PARITY, STATS, ref  # noqa: F40
 from repro_torch.core.comm import (assembly_layout, assembly_sharding,
                                    make_cfd_mesh, stacked_layout)
 from repro_torch.core.layout import Sharded, unshard
-from repro_torch.core.ranks import Ranks
+from repro_torch.core.ranks import MeshRanks, Ranks
 from repro_torch.core.update import (halo_moves, owner_moves,
                                      owner_positions, part_positions,
                                      solve_halo_moves, update_moves)
-from repro_torch.fvm.distinct import MeshRanks
 from repro_torch.fvm.mesh import CavityMesh, PaddedCavityMesh
 from repro_torch.fvm.piso import PisoSolver, PisoState, SimpleSolver
 from repro_torch.launch.case import main as launch_main

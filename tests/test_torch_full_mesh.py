@@ -31,17 +31,21 @@ from repro_torch.solvers import device_loop
 from repro_torch.solvers.jacobi import jacobi_preconditioner
 from repro_torch.solvers.ops import reference_ops
 from repro_torch.sparse.distributed import spmv_dia
-from repro_torch.sparse.shardmap_spmv import (halo_bands,
+from repro_torch.core.update import MoveRecord
+from repro_torch.sparse.shardmap_spmv import (ShardRanks, halo_bands,
                                               make_fused_ops_full_mesh,
                                               make_jacobi_full_mesh,
-                                              make_spmv_full_mesh,
-                                              shard_bands)
+                                              make_spmv_full_mesh)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARITY = 1e-10
 DT = 2e-4
 ALPHAS = (2, 4)
 CPU8 = ["cpu"] * 8
+# two distinct devices to a mesh (a tensor on either is a CPU tensor): the
+# shards split into two runs, and alternating, one shard a run
+LAYOUTS = {"contiguous": ["cpu"] * 5 + ["cpu:0"] * 3,
+           "alternating": ["cpu", "cpu:0"] * 4}
 
 JAX_SIDE = textwrap.dedent("""
     import sys
@@ -174,7 +178,7 @@ def test_spmv_and_jacobi_match_jax(ref, alpha, use_kernel):
               alpha=alpha, m_coarse=plan.m_coarse, use_kernel=use_kernel)
     bands = torch.tensor(inp[f"bands{alpha}"])
     x = torch.tensor(inp[f"x{alpha}"])
-    b_sh = shard_bands(mesh, bands, alpha)
+    b_sh = to_shards(bands, alpha)
     y = make_spmv_full_mesh(mesh, **kw)(b_sh, x)
     yd, dot = make_spmv_full_mesh(mesh, with_dot=True, **kw)(b_sh, x)
     assert _err(y, out[f"y{alpha}"]) <= PARITY
@@ -413,12 +417,12 @@ def test_loop_members_write_nothing_under_a_false_flag():
     assert n == x.numel()
 
 
-def test_several_devices_run_the_host_loop():
+def test_several_devices_run_the_host_loop(port_runs, distinct_runs):
     """A mesh whose shards name two distinct devices (on the CPU, ``cpu``
-    and ``cpu:0``) runs each device's shards as one launch with plane
-    copies between them, and the reference backend's host loop; the fused
-    bundle takes one device only."""
-    mesh = CavityMesh.cube(8, 8)
+    and ``cpu:0``): each rank's product over its own shards' rows, the
+    planes copied between the ranks, is the stacked SpMV (the standalone
+    shard SpMV refuses such a mesh), and the solve runs a host loop a
+    device on either backend."""
     two = make_cfd_mesh(2, 4, devices=["cpu", "cpu:0"] * 4)
     assert len(two.groups()) == 8 and two.one_device is None
     plan, offsets = _plan(4)
@@ -427,20 +431,22 @@ def test_several_devices_run_the_host_loop():
     x = torch.tensor(rng.standard_normal((2, plan.m_coarse)))
     kw = dict(offsets=offsets, plane=plan.plane, n_coarse=2, alpha=4,
               m_coarse=plan.m_coarse)
-    y = make_spmv_full_mesh(two, **kw)(shard_bands(two, bands, 4), x)
-    assert _err(y, spmv_dia(bands, x, offsets=offsets,
-                            plane=plan.plane)) <= 1e-13
-    s = PisoSolver(mesh, alpha=4, solve_mode="full_mesh", spmd_mesh=two,
-                   solver_backend="reference", device="cpu")
-    st, stats = s.run(1, DT)
-    s1 = PisoSolver(mesh, alpha=4, solve_mode="full_mesh",
-                    spmd_mesh=_mesh(4), solver_backend="reference",
-                    device="cpu")
-    st1, stats1 = s1.run(1, DT)
-    assert _err(st.p, st1.p) <= PARITY
-    assert stats.p_iters.tolist() == stats1.p_iters.tolist()
-    with pytest.raises(NotImplementedError, match="reference"):
-        make_fused_ops_full_mesh(two, bands, x, **kw)
+    want = spmv_dia(bands, x, offsets=offsets, plane=plan.plane)
+    for kernels in (True, False):
+        sr = ShardRanks(two, bands, torch.ones_like(x), offsets=offsets,
+                        plane=plan.plane, alpha=4, kernels=kernels)
+        x_sh = x.reshape(8, -1)
+        ys = sr.group.ranks.run(lambda r: sr.ops[r].matvec(x_sh[sr.sel[r]]))
+        assert _err(sr.join(x, ys), want) <= 1e-13
+    with pytest.raises(ValueError, match="several devices"):
+        make_spmv_full_mesh(two, **kw)
+    # both backends' PISO over the same two devices (two steps)
+    _, st_ref, stats_ref = port_runs["reference"]
+    for backend in ("reference", "alternating"):
+        solver, st, stats = distinct_runs[backend]
+        assert solver.spmd_mesh == two
+        assert _err(st.p, st_ref.p) <= PARITY
+        assert stats.p_iters.tolist() == stats_ref.p_iters.tolist()
 
 
 def test_layout_helpers():
@@ -496,3 +502,193 @@ def test_controller_plans_and_stats_carry_the_mode():
     plan = ctl.plan(mesh)
     assert plan.alpha == 2 and ctl.stats()["solve_mode"] == "full_mesh"
     assert [k[3:] for k in cache._entries] == [("full_mesh",)]
+
+
+# ---------------------------------------------------------------------------
+# over distinct devices: a rank a device, each holding its shards' rows
+# ---------------------------------------------------------------------------
+
+def _cg_bundles(inp, devices, moves=None):
+    """JAX's CG system on the one-device fused bundle and on the fused
+    bundle over ``devices``; ``(one, several, b, thr)``."""
+    plan, offsets = _plan(4)
+    kw = dict(offsets=offsets, plane=plan.plane, n_coarse=2, alpha=4,
+              m_coarse=plan.m_coarse)
+    bands, diag = torch.tensor(inp["cg_bands"]), torch.tensor(inp["cg_diag"])
+    one = make_fused_ops_full_mesh(_mesh(4), bands, diag, **kw)
+    several = make_fused_ops_full_mesh(_mesh(4, devices), bands, diag,
+                                       moves=moves, **kw)
+    b = torch.tensor(inp["cg_b"])
+    (bb,) = one.dots((b, b))
+    return one, several, b, cg_mod.threshold_sq(bb, 1e-10, 0.0)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_distinct_fused_cg_matches_jax(ref, layout):
+    inp, out = ref
+    _, several, b, _ = _cg_bundles(inp, LAYOUTS[layout])
+    res = cg_mod.cg(several, b, torch.zeros_like(b), tol=1e-10, maxiter=500)
+    assert int(res.iters) == int(out["cg_iters"])
+    assert [bool(res.converged), bool(res.hit_cap)] == out["cg_flags"].tolist()
+    assert _err(res.x, out["cg_x"]) <= PARITY
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_distinct_cg_is_bitwise_the_one_device_host_loop(ref, layout):
+    """Each rank's dots hand their per-shard values to the host, which sums
+    them in shard order: the one-device bundle's sums, bit for bit."""
+    one, several, b, thr = _cg_bundles(ref[0], LAYOUTS[layout])
+    x0 = torch.zeros_like(b)
+    xh, rrh, kh = cg_mod._cg_sweep_host(one, b, x0, thr, 500)
+    x, rr, k = cg_mod._cg_sweep_ranks(several.ranks, b, x0, thr, 500)
+    assert k == kh > 0
+    assert torch.equal(x, xh) and torch.equal(rr, rrh)
+    assert torch.equal(x0, torch.zeros_like(b))
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_distinct_cg_carries_the_closed_forms(ref, layout):
+    """Each kind's bytes copied between devices: every shard off the first
+    shard's device takes its bands, diagonal, b and x0 rows once and hands
+    its solution back; a product moves one plane each way across each
+    device boundary."""
+    devices = LAYOUTS[layout]
+    moves = MoveRecord()
+    *_, several, b, thr = _cg_bundles(ref[0], devices, moves)
+    _, _, k = cg_mod._cg_sweep_ranks(several.ranks, b, torch.zeros_like(b),
+                                     thr, 500)
+    plan, offsets = _plan(4)
+    m_loc = plan.m_coarse // 4
+    off = sum(d != devices[0] for d in devices)
+    cuts = sum(a != c for a, c in zip(devices, devices[1:]))
+    rows = 8 * m_loc * off
+    want = {"bands_p": len(offsets) * rows, "diag_c": rows, "b_c": rows,
+            "x0_c": rows, "x_back": rows,
+            "solve_halo": (1 + k) * cuts * 2 * plan.plane * 8}
+    got = {kind: v[0] for kind, v in moves.carried.items()
+           if kind != "scalars"}
+    assert got == want
+    assert {kind: v.devices for kind, v in moves.kinds.items()} == want
+    assert moves.carried["scalars"][0] > 0
+
+
+def test_distinct_bundle_runs_the_host_loop_only(ref):
+    one, several, b, _ = _cg_bundles(ref[0], LAYOUTS["alternating"])
+    assert several.host_loop and not one.host_loop
+    assert several.ranks is not None and one.ranks is None
+    flag = torch.ones((), dtype=torch.bool)
+    k = torch.zeros((), dtype=torch.int32)
+    pair = torch.stack([b, b])
+    calls = {"matvec_into": (b, b.clone(), flag),
+             "matvec_dot_direction_into": (pair, b, k, k, b.clone(), k,
+                                           flag),
+             "alpha_into": (k, k, k, flag),
+             "fused_step_into": (b, b, pair, b, k, b, k, k, flag, k),
+             "advance": (k, k, k, k, k, flag, k, 5)}
+    for name, args in calls.items():
+        with pytest.raises(RuntimeError, match="ranks"):
+            getattr(several, name)(*args)
+    with pytest.raises(RuntimeError, match="ranks"):
+        several.matvec(b)
+    # the stacked dots (cg's threshold) are the one-device bundle's
+    assert torch.equal(several.dots((b, b))[0], one.dots((b, b))[0])
+
+
+@pytest.fixture(scope="module")
+def distinct_runs():
+    """Two full-mesh PISO steps (alpha 4) on the fused backend over each
+    layout, and on the reference backend over the alternating one (key
+    ``"reference"``)."""
+    mesh = CavityMesh.cube(8, 8)
+    runs = {}
+    cases = [(layout, devices, "fused") for layout, devices in LAYOUTS.items()]
+    for key, devices, backend in cases + [
+            ("reference", LAYOUTS["alternating"], "reference")]:
+        s = PisoSolver(mesh, alpha=4, solve_mode="full_mesh",
+                       spmd_mesh=_mesh(4, devices), solver_backend=backend,
+                       device="cpu")
+        runs[key] = (s, *s.run(2, DT))
+    return runs
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_distinct_piso_matches_jax(ref, distinct_runs, layout):
+    _, out = ref
+    _, st, stats = distinct_runs[layout]
+    assert _err(st.U, out["U"]) <= PARITY
+    assert _err(st.p, out["p"]) <= PARITY
+    assert stats.p_iters.tolist() == out["p_iters"].tolist()
+    assert stats.mom_iters.tolist() == out["mom_iters"].tolist()
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_distinct_piso_is_bitwise_the_one_device_run(port_runs,
+                                                     distinct_runs, layout):
+    _, st1, stats1 = port_runs["fused"]
+    solver, st, stats = distinct_runs[layout]
+    assert all(torch.equal(a, c) for a, c in zip(st, st1))
+    assert all(torch.equal(a, c) for a, c in zip(stats, stats1))
+    # the step's record: the last step's two pressure solves
+    halo = solver.moves.kinds["solve_halo"].devices
+    assert halo == solver.moves.carried["solve_halo"][0] > 0
+
+
+def test_distinct_reference_backend_matches_jax(ref, port_runs,
+                                               distinct_runs):
+    """The reference backend's rank form (the kernels' plain versions on
+    every rank) against JAX and the one-device runs: its dots are summed
+    per shard in shard order, as the one-device fused bundle sums them, so
+    it is that run bit for bit; the one-device reference sums each dot
+    over the whole vector, so it agrees with that one to rounding."""
+    _, out = ref
+    solver, st, stats = distinct_runs["reference"]
+    assert solver.solver_backend == "reference"
+    assert _err(st.U, out["U"]) <= PARITY
+    assert _err(st.p, out["p"]) <= PARITY
+    assert stats.p_iters.tolist() == out["p_iters"].tolist()
+    assert stats.mom_iters.tolist() == out["mom_iters"].tolist()
+    _, st1, stats1 = port_runs["reference"]
+    for f in ("U", "p", "phi"):
+        assert _err(getattr(st, f), getattr(st1, f)) <= PARITY
+    for f in ("mom_iters", "p_iters", "converged", "hit_cap"):
+        assert torch.equal(getattr(stats, f), getattr(stats1, f))
+    _, st_f, stats_f = port_runs["fused"]
+    assert all(torch.equal(a, c) for a, c in zip(st, st_f))
+    assert all(torch.equal(a, c) for a, c in zip(stats, stats_f))
+    # the rank form: each rank took its shards' bands once a solve, and a
+    # product copies planes only
+    carried = solver.moves.carried
+    assert carried["bands_p"][0] > 0
+    assert solver.moves.kinds["solve_halo"].devices \
+        == carried["solve_halo"][0] > 0
+
+
+def test_distinct_rebind_alpha_keeps_the_devices(port_runs, distinct_runs):
+    solver, st, _ = distinct_runs["contiguous"]
+    one, st1, _ = port_runs["fused"]
+    solver.rebind_alpha(2)
+    one.rebind_alpha(2)
+    try:
+        assert tuple(solver.spmd_mesh.shape) == (4, 2)
+        assert solver.spmd_mesh.flat() == _mesh(2, LAYOUTS["contiguous"]) \
+            .flat()
+        st2, stats2 = solver.run(1, DT, st)
+        st1b, stats1b = one.run(1, DT, st1)
+        for f in ("U", "p", "phi"):
+            assert _err(getattr(st2, f), getattr(st1b, f)) <= PARITY
+        assert stats2.p_iters.tolist() == stats1b.p_iters.tolist()
+    finally:
+        solver.rebind_alpha(4)
+        one.rebind_alpha(4)
+
+
+def test_launcher_full_mesh_over_distinct_devices(capsys):
+    base = ["--n", "8", "--parts", "4", "--alpha", "2", "--steps", "2",
+            "--device", "cpu", "--solve-mode", "full_mesh"]
+    _, stats1 = launch_main(base + ["--mesh-devices", "cpu,cpu,cpu,cpu"])
+    _, stats2 = launch_main(base + ["--mesh-devices", "cpu,cpu,cpu:0,cpu:0",
+                                    "--solver-backend", "fused"])
+    assert stats2.p_iters.tolist() == stats1.p_iters.tolist()
+    assert stats2.mom_iters.tolist() == stats1.mom_iters.tolist()
+    out = capsys.readouterr().out
+    assert "solve_mode=full_mesh" in out and "B between devices)" in out
