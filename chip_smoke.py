@@ -233,7 +233,7 @@ result.  Phases, in order (any failure exits nonzero):
     and set later, at the step), a padded mesh and too few devices must
     raise; (15f) the fused full mesh over the card and the host's CPU (a
     rank a device, each holding its shards' rows): (a) 15b's alpha-30
-    pressure system, one CG from ``x0 = p`` capped at 200 iterations, on
+    pressure system, one CG from ``x0 = p`` capped at 100 iterations, on
     the ``(1, 30)`` mesh with shards 28-29 on ``cpu``, against the
     one-device bundle's host loop on the same system and cap: iterations
     and flags equal, ``x`` within 1e-10 of max|x|, ``r.r`` within 1e-10
@@ -244,7 +244,7 @@ result.  Phases, in order (any failure exits nonzero):
     ``x0`` and the solution back once) and the record's counts; ms per CG
     iteration against the card alone's, each rank's seconds and waits;
     (b) 19c's 12-part 64 x 64 x 48 mix mesh at alpha 4 on a ``(3, 4)``
-    full mesh with shards 10-11 on ``cpu``, two PISO steps from rest
+    full mesh with shards 10-11 on ``cpu``, one PISO step from rest
     (``make_solver``, the default backend) against every shard on
     ``cuda:0``: counts and flags equal, ``U``, ``p``, ``phi`` within 1e-10
     of their maxima, continuity below 1e-6, the last step's copies the
@@ -289,8 +289,9 @@ result.  Phases, in order (any failure exits nonzero):
     compression: a value at a .5 tie rounds to the other int8 step on one
     device), the parameters by AdamW's rule (within 2 lr a step; without compression within 1e-2 lr
     where the gradient stayed above noise); (17b) qwen3-0.6b at full
-    width and all 28 layers in bfloat16 (596,049,920 parameters from a
-    ``torch.Generator`` seed 0 on the card), ``seq_len`` 4096 (train_4k's),
+    width, its depth cut from 28 layers to 8, in bfloat16 (281,431,040
+    parameters from a ``torch.Generator`` seed 0 on the card),
+    ``seq_len`` 4096 (train_4k's),
     global batch 8 (cut from train_4k's 256), ``accum`` 2, ``AdamW()``:
     one warm step and 2 timed steps, all on ``batch_at(seed 0, step 0)``
     (tests/test_training.py's fixed batch: its loss must fall over them),
@@ -307,9 +308,9 @@ result.  Phases, in order (any failure exits nonzero):
     (``seq_len`` 4096, batch 4) and rwkv6-1.6b cut to 2 layers
     (``seq_len`` 2048, batch 2: the 256-step time chunks), gradients with
     remat bitwise those without, ``max_memory_allocated`` of each; (17d)
-    the full-width state written and restored in process (bytes, seconds,
-    bitwise), then ``python -m repro_torch.launch.train`` (qwen3-0.6b,
-    28 layers, ``--seq-len 512 --batch 8``) run uninterrupted to step 2
+    17b's full-width state (8 layers) written and restored in process
+    (bytes, seconds, bitwise), then ``python -m repro_torch.launch.train``
+    (qwen3-0.6b, ``--layers 8 --seq-len 512 --batch 8``) run uninterrupted to step 2
     and, in another directory, to step 1 and resumed to step 2: it must
     print ``resumed from step 1`` and the two step-2 checkpoints must
     hold the same bytes.  Phase 17's checks are collected and fail the
@@ -324,13 +325,20 @@ result.  Phases, in order (any failure exits nonzero):
     parameter bytes, twice that for each AdamW moment) and the state
     gathered back must be bitwise the original; (18b) qwen3-0.6b at full
     width cut 28 -> 4 layers, ``seq_len`` 1024, global batch 8, accum 1
-    on the (2, 4) mesh, 2 steps on ``batch_at(seed 0, k)``: every loss,
-    grad_norm, parameter and moment bitwise the one-device step at accum
-    2 from the same state, the mesh run twice bitwise; s a step for both,
-    ``max_memory_allocated``, the bytes a step moves (gather, reduce,
-    scatter); then ``launch/train.py --smoke`` on the mesh to step 2 and
-    resumed to step 4 on the mesh and on one device, both step-4
-    checkpoints bitwise a one-device ``--accum 2`` run's; (18c) the GPipe
+    on the (2, 4) mesh, 2 steps on ``batch_at(seed 0, k)``, the step's
+    parameters gathered a period at a time and its attention, MLP and
+    vocabulary split over ``model``: every loss and grad_norm within
+    ``PIPE_TOL`` of the one-device step's at accum 2 from the same state,
+    every parameter within 2 lr k and the k bf16 roundings of its value
+    each run may differ by, the mesh run twice bitwise; s a step
+    for both, ``max_memory_allocated`` both ways and the step's peak above
+    the state it starts from (the mesh's less than the whole-parameter
+    copy above the one-device step's), the bytes a step moves by kind
+    (gather below the earlier whole-parameter gather of 343,474,176 B);
+    then ``launch/train.py --smoke`` on one device (A) and on the mesh
+    (M) to step 4, and on the mesh to step 2 resumed to step 4 on the
+    mesh (B) and on one device (C): B's step-4 checkpoint bitwise M's,
+    M's and C's parameters within 2 lr k of A's; (18c) the GPipe
     forward of the same cut, 8 x 1024 on a (pod 2, data 2, model 2) mesh
     with 4 microbatches: bitwise ``hidden_states`` per slice, within 1e-2
     of the full batch's largest |value|, ms against ``hidden_states``;
@@ -393,12 +401,13 @@ result.  Phases, in order (any failure exits nonzero):
     {...}``);
 20. the port's dry-run on the card's host (``python -m
     repro_torch.launch.dryrun --all --mesh both`` into a temporary
-    directory; it touches no device): 80 records, 66 ``ok``, 14
+    directory; it touches no device; the whole run starts it beside the
+    kernels' build and waits for it before phase 3): 80 records, 66 ``ok``, 14
     ``skipped``, none in error, each under JAX's file name, the command's
     seconds; then the ``moves`` it composes at 18b's configuration
     (qwen3-0.6b cut to 4 layers, a (2, 4) mesh naming ``cuda:0`` 8 times,
-    accum 1) against the ``MeshStepStats`` 18b measured, integer for
-    integer.  Its results go on a line of their own (``dryrun {...}``).
+    accum 1, 8 x 1024) against the ``MeshStepStats`` 18b measured (every
+    kind, ``model`` too), integer for integer.  Its results go on a line of their own (``dryrun {...}``).
 
 In phases 9-14 every kernel wrapper's plain version is made to raise while
 the kernel runs go: the card's path launches the kernels only (14c's
@@ -5100,12 +5109,15 @@ def full_mesh_errors(torch, full, state, dt, problems) -> dict:
 
 # 15f: the full mesh over the card and its host
 RANKS_HOST_POSITIONS = (28, 29)     # (a): (1, 30), two shards on the host
-RANKS_CAP = 200                     # (a): the CG's iterations, capped
+RANKS_CAP = 100                     # (a): the CG's iterations, capped
+#                                     (cut from 200 to keep the script
+#                                     inside its time)
 RANKS_PARITY = 1e-10                # (a): x of max|x|, r.r relative; (b)
 #                                     each field of its maximum: the dots
 #                                     are summed per shard on the host
 RANKS_MIX_HOST_POSITIONS = (10, 11)  # (b): (3, 4) of the 12-part mix mesh
-RANKS_MIX_STEPS = 2
+RANKS_MIX_STEPS = 1                 # (b): cut from 2 to keep the script
+#                                     inside its time as phase 18 grew
 RANKS_KERNELS = ("spmv_dot", "axpy_precond")  # (a): one launch an iteration
 
 
@@ -6678,13 +6690,18 @@ TRAIN_TIMED = 2          # 17b: timed steps after one warm step, all on
 #                          batch_at(seed 0, step 0): tests/test_training.py's
 #                          fixed batch, whose loss must fall over them
 TRAIN_REPEAT = 1         # 17b: the second run's steps (cut from 4: a step
-#                          takes 21-27 s on the card)
-TRAIN_MEM_GB = (35.0, 55.0)  # 17b: predicted max_memory_allocated (PERF.md)
+#                          of all 28 layers took 21-27 s on the card)
+TRAIN_LAYERS = 8         # 17b: qwen3-0.6b's depth cut 28 -> 8 to keep the
+#                          script inside its time (a step of all 28 took
+#                          21-27 s, host-bound)
+TRAIN_MEM_GB = (43.0, 52.0)  # 17b: predicted max_memory_allocated (PERF.md)
 BF16_DENSE_FLOPS = 989e12    # H100 SXM dense bf16 peak (NVIDIA data sheet,
 #                              at 700 W)
 # 17c: (arch, layers, seq_len, batch) — full width, depth cut
 REMAT_RUNS = (("qwen3-0.6b", 2, 4096, 4), ("rwkv6-1.6b", 2, 2048, 2))
-RESUME_ARGS = ["--arch", QWEN, "--seq-len", "512", "--batch", "8"]  # 17d
+RESUME_ARGS = ["--arch", QWEN, "--layers", str(TRAIN_LAYERS), "--seq-len",
+               "512", "--batch", "8"]   # 17d: 17b's depth cut (28 layers
+#                          wrote 6 GB a checkpoint, 118-142 s of phase)
 RESUME_STEPS, RESUME_KILL = 2, 1   # 17d: run to step 2; killed after 1
 # 17b: a microbatch's device time by part (lower-case fragments of the
 # kernels' names; the first part that matches takes the kernel)
@@ -6885,14 +6902,17 @@ def microbatch_parts(torch, cfg, opt, state, batch) -> dict:
 
 
 def full_train_phase(torch, dev, problems) -> dict:
-    """17b: qwen3-0.6b at full width and depth, bfloat16, on ``dev``."""
+    """17b: qwen3-0.6b at full width, its depth cut to
+    :data:`TRAIN_LAYERS`, bfloat16, on ``dev``."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.models.config import validate
     from repro_torch.training.data import DataConfig, batch_at
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.train_step import init_state, make_train_step
     from repro_torch.training.tree import leaves
 
-    cfg = get_config(QWEN)
+    cfg = validate(dataclasses.replace(get_config(QWEN),
+                                       n_layers=TRAIN_LAYERS))
     opt = AdamW()
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH, seed=0)
@@ -6902,7 +6922,8 @@ def full_train_phase(torch, dev, problems) -> dict:
     tokens = TRAIN_BATCH * TRAIN_SEQ
     static = train_static_bytes(n, 2, TRAIN_ACCUM)
     logit = logits_bytes(cfg, TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ)
-    print(f"  [17b] {QWEN}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"  [17b] {QWEN}: {cfg.n_layers} layers (depth cut from "
+          f"{get_config(QWEN).n_layers}), d_model {cfg.d_model}, "
           f"{n:,} parameters ({cfg.dtype}); seq_len {TRAIN_SEQ} (train_4k), "
           f"global batch {TRAIN_BATCH} (cut from train_4k's 256), accum "
           f"{TRAIN_ACCUM} (microbatch {TRAIN_BATCH // TRAIN_ACCUM}); "
@@ -7100,12 +7121,14 @@ def same_checkpoint(a, b) -> bool:
 
 
 def train_resume_phase(torch, dev, problems) -> dict:
-    """17d: a checkpoint of the full-width state written and restored in
-    process (bytes, seconds, bitwise), then the launcher killed after
-    step 2 and resumed against an uninterrupted run."""
+    """17d: a checkpoint of 17b's full-width state (its depth cut to
+    :data:`TRAIN_LAYERS`) written and restored in process (bytes,
+    seconds, bitwise), then the launcher at the same cut killed after
+    step 1 and resumed against an uninterrupted run."""
     import tempfile
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.models.config import validate
     from repro_torch.training import checkpoint as ckpt_lib
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.train_step import init_state
@@ -7115,7 +7138,9 @@ def train_resume_phase(torch, dev, problems) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         print(f"  [17d] {shutil.disk_usage(tmp).free / 1e9:.0f} GB free "
               f"under {tmp}")
-        state = init_state(get_config(QWEN), AdamW(),
+        cfg = validate(dataclasses.replace(get_config(QWEN),
+                                           n_layers=TRAIN_LAYERS))
+        state = init_state(cfg, AdamW(),
                            torch.Generator(device=dev).manual_seed(0))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -7131,7 +7156,8 @@ def train_resume_phase(torch, dev, problems) -> dict:
         free_device(torch)
         shutil.rmtree(path)
         c = out["checkpoint"]
-        print(f"  [17d] {QWEN} state (bf16 parameters, f32 moments): "
+        print(f"  [17d] {QWEN} state, {TRAIN_LAYERS} layers (bf16 "
+              f"parameters, f32 moments): "
               f"{c['bytes'] / 1e9:.3f} GB written in {c['write_s']:.2f} s, "
               f"restored in {c['restore_s']:.2f} s, bitwise {c['bitwise']}")
         if not c["bitwise"]:
@@ -7217,6 +7243,11 @@ PIPE_TOL = 1e-2              # 18c: bf16 pipelined against the full batch's
 KV_FINE, KV_ALPHA = 8, 4     # 18d: KVRepartitionPlan.build(8, 8, 4)
 KV_DECODE = 8                # 18d: greedy decode steps from each cache
 MESH_RESUME_ARGS = ["--arch", QWEN, "--smoke", "--batch", "8"]  # 18b
+MESH_WHOLE_GATHER = 343_474_176  # 18b: the bytes the step gathered a step
+#                          when each data row gathered every parameter
+#                          whole (the earlier schedule; PERF.md)
+MESH_WHOLE_COPY = 437_014_528   # 18b: the whole-parameter copy that
+#                          schedule held on the row's device (4 layers)
 
 
 def mesh_devices(n: int) -> list:
@@ -7318,9 +7349,61 @@ def mesh_train_cli(extra: list, ckpt: str) -> subprocess.Popen:
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
 
 
+def checkpoint_params_err(a, b) -> float:
+    """The largest |difference| between two float32 checkpoints'
+    parameter leaves (by their manifests), or inf where they differ in
+    shape."""
+    import numpy as np
+
+    def params(path):
+        meta = json.loads((Path(path) / "manifest.json").read_text())
+        with np.load(Path(path) / "shard-0.npz") as z:
+            return [z[leaf["key"]] for leaf in meta["leaves"]
+                    if leaf["path"].startswith(".params")]
+
+    pa, pb = params(a), params(b)
+    if len(pa) != len(pb) or any(x.shape != y.shape for x, y in zip(pa, pb)):
+        return math.inf
+    return max(float(np.abs(x.astype(np.float64) - y).max())
+               for x, y in zip(pa, pb))
+
+
+def storage_ulp(torch, t):
+    """The spacing of ``t``'s dtype at each of its values' magnitude (a
+    normal value's last mantissa bit)."""
+    bits = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23,
+            torch.float64: 52}[t.dtype]
+    tiny = torch.finfo(t.dtype).tiny
+    _, e = torch.frexp(t.double().abs().clamp_min(tiny))
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float64),
+                       e.to(torch.float64) - 1 - bits)
+
+
+def params_within(torch, got, want, lr: float, k: int) -> dict:
+    """Each leaf of ``got`` against ``want`` after ``k`` AdamW steps:
+    within 2 lr k (each update moves a parameter by at most lr), plus the
+    k roundings of its storage dtype each run may differ by (one unit in
+    the last place of its larger value a step).  ``max`` the largest
+    |difference|, ``excess`` the largest by which one passes the bound,
+    ``over_2lrk`` how many elements pass 2 lr k alone."""
+    out = {"max": 0.0, "excess": -math.inf, "over_2lrk": 0}
+    for g, w in zip(got, want):
+        d = (g.double() - w.double()).abs()
+        ulp = storage_ulp(torch, torch.maximum(g.abs(), w.abs()))
+        out["max"] = max(out["max"], float(d.max()))
+        out["excess"] = max(out["excess"],
+                            float((d - 2 * lr * k - k * ulp).max()))
+        out["over_2lrk"] += int((d > 2 * lr * k).sum())
+    return out
+
+
 def mesh_train_phase(torch, dev, problems) -> dict:
-    """18b: the sharded train step at full width (4 layers) against the
-    one-device step at accum 2, twice; then the launcher on the mesh."""
+    """18b: the sharded train step at full width (4 layers), its products
+    split over ``model`` and its parameters gathered a period at a time,
+    against the one-device step at accum 2 (within ``PIPE_TOL`` of its
+    losses and grad_norms, every parameter within 2 lr k and a bf16
+    rounding a step: :func:`params_within`), twice (bitwise); then the
+    launcher on the mesh."""
     import tempfile
 
     from repro_torch.configs.registry import get_config
@@ -7342,14 +7425,17 @@ def mesh_train_phase(torch, dev, problems) -> dict:
                       global_batch=MESH_BATCH, seed=0)
     batches = [batch_at(dcfg, k, device=dev) for k in range(MESH_STEPS)]
     state0 = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+    resident_one = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     one, m_one, s_one = train_run(torch, make_train_step(cfg, opt, accum=D),
                                   state0, batches)
     peak_one = torch.cuda.max_memory_allocated()
-    runs, moved = [], None
-    torch.cuda.reset_peak_memory_stats()
+    runs, moved, resident_mesh, peak_mesh = [], None, [], []
     for _ in range(2):
         state = shard_state(state0, mesh)
+        torch.cuda.synchronize()
+        resident_mesh.append(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
         step = make_train_step(cfg, opt, accum=1)
         metrics, secs = [], []
         for b in batches:
@@ -7360,9 +7446,9 @@ def mesh_train_phase(torch, dev, problems) -> dict:
             secs.append(time.perf_counter() - t0)
             metrics.append((m["loss"], m["grad_norm"]))
             moved = m["moved"]
+        peak_mesh.append(torch.cuda.max_memory_allocated())
         runs.append((unshard_state(state, dev), metrics, secs))
         del state
-    peak_mesh = torch.cuda.max_memory_allocated()
 
     def same_run(a, b):
         return (same_leaves(torch, leaves(a[0]), leaves(b[0]))
@@ -7370,40 +7456,82 @@ def mesh_train_phase(torch, dev, problems) -> dict:
                         and same_bits(torch, x[1], y[1])
                         for x, y in zip(a[1], b[1])))
 
-    vs_one = same_run(runs[0], (one, m_one))
+    rel = [max(abs(float(x[i]) - float(y[i])) / abs(float(y[i]))
+               for x, y in zip(runs[0][1], m_one)) for i in (0, 1)]
+    bar = params_within(torch, leaves(runs[0][0].params), leaves(one.params),
+                        opt.lr, MESH_STEPS)
+    param_err = bar["max"]
+    bound = 2 * opt.lr * MESH_STEPS
     repeat = same_run(runs[0], runs[1])
+    # the step's own memory: its peak above the state it starts from
+    step_one = peak_one - resident_one
+    step_mesh = max(p - r for p, r in zip(peak_mesh, resident_mesh))
     out = {"layers": MESH_LAYERS, "seq_len": MESH_SEQ, "batch": MESH_BATCH,
            "losses": [float(x[0]) for x in m_one],
            "grad_norms": [float(x[1]) for x in m_one],
+           "mesh_losses": [float(x[0]) for x in runs[0][1]],
+           "mesh_grad_norms": [float(x[1]) for x in runs[0][1]],
+           "rel_loss": rel[0], "rel_grad_norm": rel[1],
+           "param_err": param_err, "param_bound": bound,
+           "param_excess": bar["excess"], "over_2lrk": bar["over_2lrk"],
            "one_device_step_s": s_one, "mesh_step_s": [r[2] for r in runs],
            "peak_bytes_one_device": peak_one, "peak_bytes_mesh": peak_mesh,
+           "resident_bytes_one_device": resident_one,
+           "resident_bytes_mesh": resident_mesh,
+           "step_peak_one_device": step_one, "step_peak_mesh": step_mesh,
+           "whole_gather_before": MESH_WHOLE_GATHER,
            "moved": {k: list(v) for k, v in moved._asdict().items()},
-           "bitwise_vs_accum2": vs_one, "bitwise_repeat": repeat}
+           "bitwise_repeat": repeat}
     del one, runs, state0
     free_device(torch)
     print(f"  [18b] {QWEN} cut to {MESH_LAYERS} layers at full width, "
           f"{cfg.dtype}, seq_len {MESH_SEQ}, global batch {MESH_BATCH}: "
-          f"losses {[f'{x:.4f}' for x in out['losses']]}; one device at "
-          f"accum {D}: {[f'{x:.3f}' for x in s_one]} s a step, peak "
-          f"{peak_one / 1e9:.2f} GB; the {MESH_SHAPE} mesh at accum 1: "
+          f"losses {[f'{x:.4f}' for x in out['losses']]} one device, "
+          f"{[f'{x:.4f}' for x in out['mesh_losses']]} on the mesh; one "
+          f"device at accum {D}: {[f'{x:.3f}' for x in s_one]} s a step; the "
+          f"{MESH_SHAPE} mesh at accum 1 (split products, a period's "
+          f"gather at a time): "
           f"{[[f'{x:.3f}' for x in r] for r in out['mesh_step_s']]} s a step "
-          f"(two runs), peak {peak_mesh / 1e9:.2f} GB; bitwise the one-device "
-          f"step (every loss, grad_norm and leaf): {vs_one}; the two mesh "
-          f"runs bitwise: {repeat}")
+          f"(two runs); loss and grad_norm within {rel[0]:.2e} / "
+          f"{rel[1]:.2e} of the one-device step's (bar {PIPE_TOL}), every "
+          f"parameter within {param_err:.3e} (2 lr k = {bound:.1e}, passed "
+          f"by {bar['over_2lrk']} elements; with {MESH_STEPS} bf16 "
+          f"roundings the bar is passed by {bar['excess']:.3e}); the two "
+          f"mesh runs bitwise: {repeat}")
+    print(f"  [18b] peak memory: one device {peak_one:,} B ({resident_one:,} "
+          f"resident, the step {step_one:,} above it); the mesh "
+          f"{peak_mesh} B ({resident_mesh} resident, the step {step_mesh:,} "
+          f"above it); the mesh step's above the one-device step's "
+          f"{step_mesh - step_one:,} B (bar: the whole-parameter copy "
+          f"{MESH_WHOLE_COPY:,} B)")
     print(f"  [18b] bytes a mesh step moves between positions (between "
-          f"devices): gather {moved.gather[0]:,} ({moved.gather[1]:,}), "
-          f"reduce {moved.reduce[0]:,} ({moved.reduce[1]:,}), scatter "
-          f"{moved.scatter[0]:,} ({moved.scatter[1]:,})")
-    if not (vs_one and repeat):
-        problems.append(f"18b: bitwise vs accum {D} {vs_one}, repeat "
-                        f"{repeat}")
+          f"devices): gather {moved.gather[0]:,} ({moved.gather[1]:,}; the "
+          f"whole-parameter gather before: {MESH_WHOLE_GATHER:,}), reduce "
+          f"{moved.reduce[0]:,} ({moved.reduce[1]:,}), scatter "
+          f"{moved.scatter[0]:,} ({moved.scatter[1]:,}), relayout "
+          f"{moved.relayout[0]:,}, model {moved.model[0]:,} "
+          f"({moved.model[1]:,})")
+    if not (max(rel) <= PIPE_TOL and bar["excess"] <= 0 and repeat):
+        problems.append(f"18b: within {rel} of the one-device step's "
+                        f"losses and grad_norms (bar {PIPE_TOL}), parameters "
+                        f"{bar} (bar 2 lr k = {bound} and a storage "
+                        f"rounding a step), repeat {repeat}")
+    if not moved.gather[0] < MESH_WHOLE_GATHER:
+        problems.append(f"18b: gather {moved.gather[0]} B, not below the "
+                        f"whole-parameter gather {MESH_WHOLE_GATHER}")
+    if not step_mesh - step_one < MESH_WHOLE_COPY:
+        problems.append(f"18b: the mesh step's memory exceeds the one-device "
+                        f"step's by {step_mesh - step_one} B, not less than "
+                        f"{MESH_WHOLE_COPY}")
     mesh_args = ["--mesh", ",".join(map(str, MESH_SHAPE)), "--mesh-devices",
                  ",".join(mesh_devices(8))]
     with tempfile.TemporaryDirectory() as tmp:
-        a, b, c = (os.path.join(tmp, x) for x in "abc")
+        a, b, c, m = (os.path.join(tmp, x) for x in "abcm")
         procs = finish({
             "A": mesh_train_cli(["--steps", "4", "--ckpt-every", "2",
                                  "--accum", str(D)], a),
+            "M": mesh_train_cli(["--steps", "4", "--ckpt-every", "2",
+                                 *mesh_args], m),
             "B1": mesh_train_cli(["--steps", "2", "--ckpt-every", "2",
                                   *mesh_args], b)})
         if os.path.isdir(os.path.join(b, "step-2")):
@@ -7420,18 +7548,24 @@ def mesh_train_phase(torch, dev, problems) -> dict:
                 problems.append(f"18b launcher {tag}: rc {rc}: {se[-2000:]}")
         resumed = all("resumed from step 2" in procs.get(t, (0, ""))[1]
                       .splitlines() for t in ("B2", "C"))
+        lr_bound = 2 * AdamW().lr * 4
         try:
-            equal = [same_checkpoint(os.path.join(a, "step-4"),
-                                     os.path.join(d, "step-4"))
-                     for d in (b, c)]
+            equal = same_checkpoint(os.path.join(m, "step-4"),
+                                    os.path.join(b, "step-4"))
+            errs = [checkpoint_params_err(os.path.join(a, "step-4"),
+                                          os.path.join(d, "step-4"))
+                    for d in (m, c)]
         except OSError as e:
-            equal = [False]
+            equal, errs = False, [math.inf]
             problems.append(f"18b: a step-4 checkpoint is missing ({e})")
-    out["launcher"] = {"resumed": resumed, "step4_equal": equal}
-    print(f"  [18b] the mesh run resumed on the mesh (B) and one device (C) "
-          f"from step 2: {resumed}; their step-4 checkpoints bitwise the "
-          f"one-device run's at --accum {D}: {equal}")
-    if not (resumed and all(equal)):
+    out["launcher"] = {"resumed": resumed, "resumed_equal": equal,
+                       "param_errs": errs, "bound": lr_bound}
+    print(f"  [18b] the mesh run resumed on the mesh (B) and on one device "
+          f"(C) from step 2: {resumed}; B's step-4 checkpoint bitwise the "
+          f"uninterrupted mesh run's (M): {equal}; M's and C's parameters "
+          f"within {errs} of the one-device run's at --accum {D} (bar "
+          f"{lr_bound:.1e})")
+    if not (resumed and equal and max(errs) <= lr_bound):
         problems.append(f"18b launcher: {out['launcher']}")
     return out
 
@@ -7717,20 +7851,17 @@ def composed_18b_moves() -> dict:
     cfg = validate(dataclasses.replace(get_config(QWEN),
                                        n_layers=MESH_LAYERS))
     mesh = make_debug_mesh(*MESH_SHAPE, devices=mesh_devices(8))
-    moved = mesh_step_moves(lm.param_specs(cfg), mesh, 1,
-                            global_batch=MESH_BATCH)
+    moved = mesh_step_moves(cfg, mesh, 1, MESH_BATCH, MESH_SEQ)
     return {k: list(v) for k, v in moved._asdict().items()}
 
 
-def dryrun_phase(lm_mesh: dict | None = None) -> dict:
-    """Phase 20 (see the module docstring): the whole dry-run as a user
-    runs it, then, with phase 18's result, 18b's bytes."""
+def run_dryrun() -> tuple:
+    """``python -m repro_torch.launch.dryrun --all --mesh both`` into a
+    temporary directory: (the finished process, the records' file names,
+    the records, its seconds)."""
     import tempfile
 
     t0 = time.perf_counter()
-    print("[20] the port's dry-run: every (arch x shape x mesh) cell on the "
-          "production meshes, on the host")
-    problems = []
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
@@ -7739,11 +7870,37 @@ def dryrun_phase(lm_mesh: dict | None = None) -> dict:
             timeout=DRYRUN_TIMEOUT)
         paths = sorted(Path(tmp).glob("*.json"))
         records = [json.loads(p.read_text()) for p in paths]
-    seconds = time.perf_counter() - t0
+    return proc, [p.name for p in paths], records, time.perf_counter() - t0
+
+
+def start_dryrun():
+    """:func:`run_dryrun` on a thread of its own (the whole run starts it
+    beside the kernels' build, both host work, and waits for it before
+    phase 3 times anything); a future of its result."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        return pool.submit(run_dryrun)
+    finally:
+        pool.shutdown(wait=False)
+
+
+def dryrun_phase(lm_mesh: dict | None = None, pending=None) -> dict:
+    """Phase 20 (see the module docstring): the whole dry-run as a user
+    runs it (``pending``: the future :func:`start_dryrun` gave, else run
+    here), then, with phase 18's result, 18b's bytes."""
+    t0 = time.perf_counter()
+    print("[20] the port's dry-run: every (arch x shape x mesh) cell on the "
+          "production meshes, on the host"
+          + (" (run beside the kernels' build)" if pending else ""))
+    problems = []
+    proc, names, records, seconds = (pending.result() if pending
+                                     else run_dryrun())
     if proc.returncode != 0:
         problems.append(f"20: the dry-run exited {proc.returncode}: "
                         f"{proc.stderr[-2000:]}")
-    problems += dryrun_problems(records, [p.name for p in paths])
+    problems += dryrun_problems(records, names)
     status = dryrun_status(records)
     out = {"records": len(records), "status": status, "dryrun_s": seconds,
            "moves_reason": sorted(f"{r['arch']} x {r['mesh']}"
@@ -7844,7 +8001,13 @@ def main(argv=None) -> int:
               f"conditional graph nodes (CUDAGraph.begin_capture_to_if_node)"
               f": {hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
         print("[2] build")
+        alone = any(getattr(args, k) for k in (
+            "compare", "step_timing", "profile_cg", "serving", "full_mesh",
+            "assembly_mesh", "lm", "train", "lm_mesh", "dryrun"))
+        dryrun = None if alone else start_dryrun()
         build_phase()
+        if dryrun is not None:
+            dryrun.exception()      # finished before phase 3 times anything
         if args.compare:
             others = dict(item.split("=", 1) for item in args.compare)
             result = compare_builds(torch, dev, others)
@@ -7948,7 +8111,7 @@ def main(argv=None) -> int:
         summary["lm_mesh"] = lm_mesh_phase(torch, dev)
         free_device(torch)
         mark("18")
-        summary["dryrun"] = dryrun_phase(summary["lm_mesh"])
+        summary["dryrun"] = dryrun_phase(summary["lm_mesh"], dryrun)
         mark("20")
         summary["phase_s"] = {"1-2": marks[0][1] - t_start, **{
             name: t - marks[i][1]

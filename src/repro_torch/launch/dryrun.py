@@ -21,10 +21,13 @@ under ``--out`` with what can be composed exactly from it:
   times its itemsize;
 * ``moves`` (train cells): the bytes one step of the port's mesh train
   step (``training/train_step.py``) copies between positions and between
-  devices, by kind (``gather``, ``reduce``, ``scatter``, ``relayout``, as
-  ``MeshStepStats`` counts them when the step runs), at ``cfg.train_accum``
-  (:func:`~repro_torch.training.train_step.mesh_step_moves`).  They are
-  the port's schedule, not GSPMD's collectives.  Where the global batch
+  devices, by kind (``gather``, ``reduce``, ``scatter``, ``relayout``,
+  ``model``, as ``MeshStepStats`` counts them when the step runs), at
+  ``cfg.train_accum`` and the shape's batch and sequence length
+  (:func:`~repro_torch.training.train_step.mesh_step_moves`): each
+  period's parameters gathered in the forward and again in the backward
+  pass, the dense family's products split over ``model``.  They are the
+  port's schedule, not GSPMD's collectives.  Where the global batch
   does not split into ``train_accum`` microbatches over the mesh's data
   rows, the step raises and the record says so under ``moves_reason``
   instead.  Prefill and decode have no mesh step in the port: no
@@ -85,7 +88,9 @@ _SHAPE_RE = re.compile(r"(f64|f32|f16|bf16|f8e4m3|f8e5m2|s64|s32|s16|s8|u64"
 
 MOVES_SCHEDULE = ("repro_torch mesh train step (MeshStepStats): bytes "
                   "copied between positions and between devices, not "
-                  "GSPMD collectives")
+                  "GSPMD collectives; parameters gathered a period at a "
+                  "time (forward and recomputation), the dense family's "
+                  "products split over model (kind model)")
 
 
 def _shape_bytes(text: str) -> int:
@@ -210,15 +215,16 @@ def argument_bytes(args, shardings) -> int:
             * args.element_size())
 
 
-def _moves(params, cfg, shape_name: str, mesh) -> dict:
+def _moves(cfg, shape_name: str, mesh) -> dict:
     """``{"moves": ...}`` of a train cell at the step's default
     accumulation, or ``{"moves_reason": ...}`` where the step raises."""
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.training.train_step import mesh_step_moves
 
     try:
-        moved = mesh_step_moves(params, mesh, cfg.train_accum,
-                                global_batch=SHAPES[shape_name].global_batch)
+        shape = SHAPES[shape_name]
+        moved = mesh_step_moves(cfg, mesh, cfg.train_accum,
+                                shape.global_batch, shape.seq_len)
     except ValueError as e:
         return {"moves_reason": str(e)}
     return {"moves": {"schedule": MOVES_SCHEDULE, "accum": cfg.train_accum,
@@ -253,7 +259,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
     _, args, shardings, _, _ = build_lowerable(arch, shape_name, mesh, cfg)
     record["argument_size_in_bytes"] = argument_bytes(args, shardings)
     if SHAPES[shape_name].kind == "train":
-        record.update(_moves(args[0].params, cfg, shape_name, mesh))
+        record.update(_moves(cfg, shape_name, mesh))
     record["n_devices"] = mesh.size
 
     fr = analytical_flops(cfg, shape_name)

@@ -10,7 +10,8 @@ a failure path (the port of the JAX package's ``launch/train.py``).
 
 The flags are the JAX launcher's, with its defaults, plus ``--device``
 (default ``cuda``; without a card it raises and never falls back to the
-CPU), ``--mesh-devices`` and ``--accum``. ``--mesh D,M`` places the state
+CPU), ``--mesh-devices``, ``--accum`` and ``--layers`` (the config's depth
+cut to that many layers, its widths kept; default: the config's). ``--mesh D,M`` places the state
 on a ``(data, model)`` mesh (``param_shardings``; the train step's
 docstring says how it runs there) over ``--mesh-devices``, a comma list in
 which entries may repeat (default: the visible devices of ``--device``'s
@@ -33,6 +34,7 @@ promises a replay its code does not make).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 __all__ = ["build_parser", "main"]
@@ -55,6 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--accum", type=int, default=None,
                     help="microbatches a step (default: the config's "
                          "train_accum)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers "
+                         "(default: the config's)")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--compress-grads", action="store_true")
@@ -72,6 +77,7 @@ def main(argv=None, log=print) -> None:
     from repro_torch.configs.registry import get_config, get_smoke_config
     from repro_torch.env import resolve_device
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import validate
     from repro_torch.models.sharding import set_activation_mesh
     from repro_torch.training import checkpoint as ckpt_lib
     from repro_torch.training.data import DataConfig, batch_at
@@ -81,6 +87,8 @@ def main(argv=None, log=print) -> None:
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = validate(dataclasses.replace(cfg, n_layers=args.layers))
     opt = AdamW(lr=args.lr)
 
     mesh = None

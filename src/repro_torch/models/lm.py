@@ -25,15 +25,23 @@ records (training), each period runs under ``torch.utils.checkpoint``
 trees, which a reentrant checkpoint would give no gradient), as JAX's
 ``jax.checkpoint(policy=nothing_saveable)``: only the period inputs are
 saved and the backward recomputes each period.
+
+The mesh train step runs ``loss_fn`` on a data row's view of a sharded
+tree (:mod:`repro_torch.models.tensor_parallel`): each period gathers its
+leaves inside the period (so the backward pass gathers them again, the
+recomputation running to the period's end), the embedding and head where
+they are used, and the dense family's attention, MLP and vocabulary run
+split over the row's ``model`` positions where their specs split.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.env import resolve_device
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.attention import (AttnSpec, attention_init,
                                           attn_decode, attn_train,
                                           flash_attention)
@@ -221,6 +229,7 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
 def _apply_period(cfg: ModelConfig, pparams, x, positions, cache, mode,
                   memory=None, memory_pos=None, pos=None):
     """Run one period of layers.  mode: train | prefill | decode."""
+    pparams = tp.materialize(cfg, pparams)
     new_cache = {}
     for i, spec in enumerate(cfg.period()):
         p = pparams[f"l{i}"]
@@ -234,8 +243,9 @@ def _apply_period(cfg: ModelConfig, pparams, x, positions, cache, mode,
                                     attn_spec(cfg))
                 nc.update(kv)
             else:
-                y, (k, v) = attn_train(p["attn"], h, positions,
-                                       attn_spec(cfg))
+                y, (k, v) = (tp.attn_train if tp.is_split(p["attn"])
+                             else attn_train)(p["attn"], h, positions,
+                                              attn_spec(cfg))
                 if mode == "prefill":
                     nc["k"] = _prefill_write(c["k"], k)
                     nc["v"] = _prefill_write(c["v"], v)
@@ -284,7 +294,8 @@ def _apply_period(cfg: ModelConfig, pparams, x, positions, cache, mode,
                 y2 = moe_apply(p["ffn"], h2, top_k=cfg.experts_per_token,
                                act=cfg.act)
         else:
-            y2 = mlp_apply(p["ffn"], h2, cfg.act)
+            y2 = (tp.mlp_apply if tp.is_split(p["ffn"])
+                  else mlp_apply)(p["ffn"], h2, cfg.act)
         x = x + y2
         new_cache[f"l{i}"] = nc if nc else (c if c is not None else {})
     return x, new_cache
@@ -341,13 +352,13 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     positions = torch.arange(frames.shape[1], dtype=torch.int64,
                              device=frames.device)
     for i in range(cfg.encoder_layers):
-        lp = _index(params["encoder"], i)
+        lp = tp.whole(_index(params["encoder"], i))
         y, _ = attn_train(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
                           positions, espec)
         x = x + y
         x = x + mlp_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps),
                           "gelu")
-    return rms_norm(x, params["encoder_ln"], cfg.norm_eps)
+    return rms_norm(x, tp.whole(params["encoder_ln"]), cfg.norm_eps)
 
 
 def _sinusoidal(S: int, d: int, dtype, device) -> torch.Tensor:
@@ -381,15 +392,19 @@ def _run_stack(cfg, params, x, positions, cache, mode, memory=None,
                memory_pos=None, pos=None):
     """The periods in order.  In mode ``train`` with autograd recording,
     each period is recomputed in the backward pass (and so are the
-    recurrences' time chunks inside it)."""
+    recurrences' time chunks inside it); on a data row's view the
+    recomputation runs to the period's end, so each gathers (and books)
+    what its forward did."""
     remat = mode == "train" and _records(x, params)
+    row = isinstance(tp.first_leaf(params["blocks"]), tp.RowLeaf)
     for i in range(cfg.n_periods):
         pcache = _index(cache, i) if cache is not None else None
         args = (cfg, _index(params["blocks"], i), x, positions, pcache, mode)
         kw = dict(memory=memory, memory_pos=memory_pos, pos=pos)
         if remat:
-            x, nc = checkpoint(_apply_period, *args, use_reentrant=False,
-                               preserve_rng_state=False, **kw)
+            with set_checkpoint_early_stop(not row):
+                x, nc = checkpoint(_apply_period, *args, use_reentrant=False,
+                                   preserve_rng_state=False, **kw)
         else:
             x, nc = _apply_period(*args, **kw)
         if pcache is not None:
@@ -398,7 +413,10 @@ def _run_stack(cfg, params, x, positions, cache, mode, memory=None,
 
 
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens].to(_dtype(cfg))
+    e = params["embed"]
+    if tp.splits_vocab(e):
+        return tp.vocab_lookup(e, tokens).to(_dtype(cfg))
+    return tp.whole(e)[tokens].to(_dtype(cfg))
 
 
 def _inputs(cfg, params, tokens, frontend):
@@ -433,7 +451,7 @@ def hidden_states(cfg: ModelConfig, params, tokens: torch.Tensor,
     positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
     x, _ = _run_stack(cfg, params, x, positions, None, "train",
                       memory=memory, memory_pos=memory_pos)
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = rms_norm(x, tp.whole(params["final_ln"]), cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:, :]
     return x
@@ -468,15 +486,19 @@ def head_loss(cfg: ModelConfig, params, x: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
     """``loss_fn`` from the final hidden states ``x`` (B, S, d) on."""
     dt = _dtype(cfg)
-    logits = x @ _head(cfg, params)
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    valid = labels != MASK_LABEL
+    if tp.splits_vocab(w):
+        return tp.vocab_head_loss(w, x, labels, valid, dt)
+    w = tp.whole(w)
+    logits = x @ (w.T if cfg.tie_embeddings else w).to(dt)
     lse = torch.logsumexp(logits.float(), dim=-1)
     del logits
-    valid = labels != MASK_LABEL
     safe = torch.where(valid, labels, 0)
     if cfg.tie_embeddings:
-        rows = params["embed"][safe].to(dt)                     # (B, S, d)
+        rows = w[safe].to(dt)                                   # (B, S, d)
     else:
-        rows = torch.movedim(params["lm_head"][:, safe], 0, -1).to(dt)
+        rows = torch.movedim(w[:, safe], 0, -1).to(dt)
     gold = torch.einsum("bsd,bsd->bs", x, rows).float()
     nll = (lse - gold) * valid
     return nll.sum() / valid.sum().clamp_min(1)

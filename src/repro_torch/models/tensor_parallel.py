@@ -1,0 +1,661 @@
+"""A data row's view of a sharded parameter tree: the parameters gathered
+where they are used, and the dense family's products split over
+``model``.
+
+The mesh train step (:mod:`repro_torch.training.train_step`) runs
+:func:`~repro_torch.models.lm.loss_fn` once for each (microbatch, data
+row) on :func:`row_view`'s tree, whose leaves are :class:`RowLeaf`\\s of
+the state's :class:`~repro_torch.core.layout.Sharded` leaves.  Nothing is
+gathered up front.  A leaf is fetched where the model uses it: a period's
+leaves inside the period (which runs under ``checkpoint``, so the
+backward pass fetches them again and no fetched leaf is saved for it),
+the embedding for the lookup, the head for the loss.  Each use is either
+
+* **whole**: every block, on the position that computes (the row's first
+  position, or a position that computes a replicated piece); or
+* **part**: the position's ``model`` slice, every block along the other
+  axes (the FSDP gather over the data axes): a leaf's dim whose spec is
+  ``"model"`` stays at the position's own block.
+
+A fetch takes a block the position holds from itself, and any other block
+from the first position holding it on the same device, else from the
+first holding it (the :func:`~repro_torch.core.layout.unshard` rule); its
+bytes are booked as ``gather`` (``MoveStats``: between positions, and
+between devices).  Every use of one (leaf, period, position, box) feeds
+one *sink*: a zero-stride leaf that requires grad, through which the
+piece's gradient comes back from ``torch.autograd.grad`` on the
+position's device; the step adds it at its box (:meth:`Row.pieces`).
+
+**Split products (``family == "dense"``).**  As ``param_shardings`` lays
+the leaves out (the JAX package's column/row rules), position ``(r, m)``
+computes with its slices:
+
+* attention: ``wq`` (and ``wk``/``wv``) give its heads, ``wo`` its rows;
+  q/k norms, RoPE and the chunked attention run on whole heads locally.
+  Where ``n_heads`` does not split over ``model`` the sublayer runs whole
+  on the row's first position; where only ``n_kv_heads`` does not, each
+  position fetches ``wk``/``wv`` whole and takes the one kv head its
+  query heads share (when they share one), else the sublayer runs whole.
+  No head is ever cut;
+* the MLP: ``w_up``/``w_gate`` give its ``d_ff`` slice, ``w_down`` its
+  rows;
+* the vocabulary: the embedding lookup sums each slice's masked rows; the
+  loss takes each slice's ``logsumexp``, combines them (the max over the
+  slices, then the sum of exponentials against it), and the gold logit
+  from the slice owning the label's row (the JAX package's row
+  formulation); the ``(B, S, V)`` logits are never whole.
+
+The sublayer input goes to each position and the positions' partial
+outputs come back to the row's first position, where they are summed in
+f32 in position order (no atomics) and cast once to the model dtype; the
+backward pass sends the output's gradient out and sums the input's
+gradients back the same way.  These copies, with the tokens, labels,
+positions and the loss's per-slice ``logsumexp`` and gold logits, are
+booked as ``model``.  A position on the row's first device copies nothing (a view)
+and is still booked between positions.  :func:`row_moves` composes what
+one row books from the specs alone.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import itertools
+import math
+import threading
+
+import torch
+
+from repro_torch.core.layout import MoveStats, Sharded
+from repro_torch.models.attention import attn_train as _attn_train
+from repro_torch.models.layers import mlp_apply as _mlp_apply
+from repro_torch.models.layers import torch_dtype
+
+__all__ = ["RowLeaf", "Row", "row_view", "first_leaf", "whole",
+           "materialize", "splits_vocab", "is_split", "attn_train",
+           "mlp_apply", "vocab_lookup", "vocab_head_loss", "fetch_moves",
+           "row_moves"]
+
+_ATTN_PARTS = ("wq", "wk", "wv", "wo")
+
+
+# ---------------------------------------------------------------------------
+# what a use fetches
+# ---------------------------------------------------------------------------
+
+def _spec(sharding, ndim: int) -> list:
+    return list(sharding.spec) + [None] * (ndim - len(sharding.spec))
+
+
+def _model_dim(sharding, ndim: int, off: int) -> int | None:
+    """The dim (after the ``off`` stack dims) whose spec is ``"model"``."""
+    for d, e in enumerate(_spec(sharding, ndim)[off:]):
+        if e == "model":
+            return d
+    return None
+
+
+@functools.lru_cache(maxsize=4096)
+def _holders(sharding, ndim: int) -> tuple:
+    """``(block of each position, {block: positions holding it})``."""
+    blocks = [sharding.block(c, ndim) for c in sharding.mesh.positions()]
+    held: dict = {}
+    for k, b in enumerate(blocks):
+        held.setdefault(b, []).append(k)
+    return blocks, held
+
+
+def _fetch_plan(sharding, shape, q: int, part: bool, devs) -> tuple:
+    """``(blocks, index)`` of position ``q``'s use: each needed block as
+    ``(block index, source position)`` in C order of the block indices
+    (``None`` as the source of ``q``'s own), and the use's index in the
+    leaf (slices, the stack dims whole)."""
+    ndim = len(shape)
+    tiles = sharding.tiling(ndim)
+    of, held = _holders(sharding, ndim)
+    own = of[q]
+    fixed = [part and e == "model" for e in _spec(sharding, ndim)]
+
+    def source(b):
+        ks = held[b]
+        return next((k for k in ks if devs[k] == devs[q]), ks[0])
+
+    ranges = [[own[d]] if fixed[d] else range(tiles[d]) for d in range(ndim)]
+    blocks = [(b, None if b == own else source(b))
+              for b in itertools.product(*ranges)]
+    ss = sharding.shard_shape(shape)
+    index = tuple(slice(own[d] * ss[d], (own[d] + 1) * ss[d]) if fixed[d]
+                  else slice(None) for d in range(ndim))
+    return blocks, index
+
+
+def _fetch_moves(blocks, nbytes: int, devs, q: int) -> MoveStats:
+    out = MoveStats()
+    for _, k in blocks:
+        if k is not None:
+            out += MoveStats(nbytes, nbytes if devs[k] != devs[q] else 0)
+    return out
+
+
+def fetch_moves(sharding, shape, itemsize: int, q: int, part: bool,
+                devs) -> MoveStats:
+    """What position ``q``'s use (``part``: its ``model`` slice, else the
+    whole leaf) of a leaf of ``shape`` laid out by ``sharding`` copies
+    (``devs``: the device of each position)."""
+    blocks, _ = _fetch_plan(sharding, tuple(shape), q, part, devs)
+    n = math.prod(sharding.shard_shape(tuple(shape))) * itemsize
+    return _fetch_moves(blocks, n, devs, q)
+
+
+class _Fetch(torch.autograd.Function):
+    """The tensor ``fetch()`` builds; its gradient goes to ``sink``."""
+
+    @staticmethod
+    def forward(ctx, sink, fetch):
+        return fetch()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+# ---------------------------------------------------------------------------
+# the model axis's sums and copies
+# ---------------------------------------------------------------------------
+
+class _Broadcast(torch.autograd.Function):
+    """``t`` (on ``devs[0]``) at every device of ``devs``; the backward
+    sums the gradients in f32 in order and casts once."""
+
+    @staticmethod
+    def forward(ctx, row, t, devs):
+        ctx.row, ctx.devs, ctx.dtype = row, devs, t.dtype
+        outs = []
+        for m, dev in enumerate(devs):
+            if m:
+                row.book_model(t, devs[0], dev)
+            outs.append(t.view_as(t) if dev == devs[0] else t.to(dev))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        home, total = ctx.devs[0], None
+        for m, g in enumerate(gs):
+            if m:
+                ctx.row.book_model(g, ctx.devs[m], home)
+            g = g.to(home).float()
+            total = g if total is None else total + g
+        return None, total.to(ctx.dtype), None
+
+
+# ---------------------------------------------------------------------------
+# a data row's view
+# ---------------------------------------------------------------------------
+
+class _Collect(torch.autograd.Function):
+    """Each of ``ts`` (one on each device of ``devs``) on ``devs[0]``; the
+    backward sends each gradient back."""
+
+    @staticmethod
+    def forward(ctx, row, devs, *ts):
+        ctx.row, ctx.devs = row, devs
+        outs = []
+        for m, t in enumerate(ts):
+            if m:
+                row.book_model(t, devs[m], devs[0])
+            outs.append(t.view_as(t) if devs[m] == devs[0] else t.to(devs[0]))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        outs = []
+        for m, (g, dev) in enumerate(zip(gs, ctx.devs)):
+            if m:
+                ctx.row.book_model(g, ctx.devs[0], dev)
+            outs.append(g if dev == ctx.devs[0] else g.to(dev))
+        return (None, None, *outs)
+
+
+class Row:
+    """One data row of a mesh for one (microbatch, row) slice: its
+    positions along ``model`` (``ks``, indices in position order, the
+    row's first position first), their devices, whether its products
+    split (``family == "dense"`` and ``model`` > 1), the sinks, and the
+    step's move counts (``stats``: ``{"gather": MoveStats, "model":
+    MoveStats}``, shared by the rows; a lock guards them against the
+    backward pass's device threads)."""
+
+    def __init__(self, cfg, mesh, first, stats: dict):
+        pos = mesh.positions()
+        axes = mesh.axis_names
+        M = mesh.shape["model"] if "model" in axes else 1
+        mi = axes.index("model") if "model" in axes else None
+        coords = [tuple(m if i == mi else c for i, c in enumerate(first))
+                  for m in range(M)]
+        self.M = M
+        self.all_devs = mesh.device_list()
+        self.ks = [pos.index(c) for c in coords]
+        self.devs = tuple(self.all_devs[k] for k in self.ks)
+        self.home = self.devs[0]
+        self.split = cfg.family == "dense" and M > 1
+        self.stats = stats
+        self.lock = threading.Lock()
+        self.sinks: dict = {}
+
+    # -- moves -----------------------------------------------------------
+    def _book(self, kind: str, moved: MoveStats) -> None:
+        with self.lock:
+            self.stats[kind] = self.stats[kind] + moved
+
+    def book_model(self, t, src, dst) -> None:
+        n = t.numel() * t.element_size()
+        self._book("model", MoveStats(n, n if src != dst else 0))
+
+    def send(self, t, m: int):
+        """``t`` (no gradient) from the row's first position to position
+        ``m``, booked as ``model``."""
+        if m == 0:
+            return t
+        self.book_model(t, self.home, self.devs[m])
+        return t.to(self.devs[m])
+
+    def broadcast(self, t) -> tuple:
+        return _Broadcast.apply(self, t, self.devs)
+
+    def reduce(self, parts):
+        """The partials (one a position) summed on the row's first
+        position in f32 in position order, cast once to their dtype."""
+        total = None
+        for t in self.collect(parts):
+            total = t.float() if total is None else total + t.float()
+        return total.to(parts[0].dtype)
+
+    def collect(self, ts) -> tuple:
+        return _Collect.apply(self, self.devs, *ts)
+
+    # -- fetches ---------------------------------------------------------
+    def fetch(self, leaf: "RowLeaf", q: int, part: bool) -> torch.Tensor:
+        """``leaf`` (a period of it) as position ``q`` uses it, through
+        the sink of that (leaf, period, position, box)."""
+        s, period = leaf.s, leaf.period
+        blocks, index = _fetch_plan(s.sharding, s.shape, q, part,
+                                    self.all_devs)
+        if period is not None:
+            index = (period,) + index[1:]
+        key = (leaf.k, q, tuple((i.start, i.stop) if isinstance(i, slice)
+                                else i for i in index))
+        dev = self.all_devs[q]
+        if key not in self.sinks:
+            shape = tuple(torch.empty(s.shape, device="meta")[index].shape)
+            sink = torch.empty_strided(shape, (0,) * len(shape),
+                                       dtype=s.dtype, device=dev)
+            self.sinks[key] = (leaf.k, index, q, sink.requires_grad_())
+        sink = self.sinks[key][3]
+        ndim = s.ndim
+        nbytes = s.position_bytes() // (s.shape[0] if period is not None
+                                        else 1)
+
+        def fetch():
+            self._book("gather", _fetch_moves(blocks, nbytes,
+                                              self.all_devs, q))
+            got = {}
+            for b, k in blocks:
+                t = s.shards[q if k is None else k]
+                got[b] = (t if period is None else t[period]).to(dev)
+            off = 0 if period is None else 1
+
+            def join(prefix, d):
+                if d == ndim:
+                    return got[prefix]
+                parts = sorted({b[d] for b in got if b[:d] == prefix})
+                ts = [join(prefix + (i,), d + 1) for i in parts]
+                return ts[0] if len(ts) == 1 else torch.cat(ts, d - off)
+
+            out = join((), 0)
+            return out.view_as(out)
+
+        return _Fetch.apply(sink, fetch)
+
+    def pieces(self) -> list:
+        """``[(leaf index, index, position, sink)]``: every piece the row
+        computed with, in the order of first use."""
+        return list(self.sinks.values())
+
+
+class RowLeaf:
+    """A :class:`Sharded` leaf (``k``-th of the tree; ``period`` of a
+    stacked one) as a data row uses it."""
+
+    requires_grad = True
+
+    def __init__(self, row: Row, s: Sharded, k: int, period=None):
+        self.row, self.s, self.k, self.period = row, s, k, period
+
+    def __getitem__(self, i: int) -> "RowLeaf":
+        return RowLeaf(self.row, self.s, self.k, int(i))
+
+    @property
+    def off(self) -> int:
+        return 0 if self.period is None else 1
+
+    def model_dim(self) -> int | None:
+        """The dim of the (period's) leaf split over ``model``."""
+        return _model_dim(self.s.sharding, self.s.ndim, self.off)
+
+    def whole(self, m: int = 0) -> torch.Tensor:
+        """Every block, on position ``m`` of the row."""
+        return self.row.fetch(self, self.row.ks[m], False)
+
+    def part(self, m: int) -> torch.Tensor:
+        """Position ``m``'s ``model`` slice, on its device."""
+        return self.row.fetch(self, self.row.ks[m], True)
+
+    def start(self, m: int) -> int:
+        """Where position ``m``'s slice starts along :meth:`model_dim`."""
+        d = self.model_dim()
+        sh = self.s.sharding
+        pos = sh.mesh.positions()[self.row.ks[m]]
+        n = sh.shard_shape(self.s.shape)[d + self.off]
+        return sh.block(pos, self.s.ndim)[d + self.off] * n
+
+
+def row_view(cfg, params, first, stats: dict) -> tuple:
+    """``(tree, row)``: ``params`` (a tree of :class:`Sharded` leaves) as
+    the data row whose first position is ``first`` uses it."""
+    from repro_torch.training.tree import leaves, unflatten
+
+    ls = leaves(params)
+    row = Row(cfg, ls[0].mesh, first, stats)
+    return unflatten(params, [RowLeaf(row, s, k)
+                              for k, s in enumerate(ls)]), row
+
+
+def first_leaf(tree):
+    """The first leaf of a tree of nested dicts."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def whole(tree):
+    """``tree`` with every :class:`RowLeaf` fetched whole on its row's
+    first position; tensors pass through."""
+    if isinstance(tree, dict):
+        return {k: whole(v) for k, v in tree.items()}
+    return tree.whole() if isinstance(tree, RowLeaf) else tree
+
+
+# ---------------------------------------------------------------------------
+# which products split
+# ---------------------------------------------------------------------------
+
+def _attn_mode(n_heads: int, n_kv: int, M: int, mdim) -> str | None:
+    """``"kv"`` (q and kv heads split), ``"pick"`` (q heads split, each
+    position's sharing one kv head, fetched whole) or ``None`` (whole);
+    ``mdim(name)`` the model dim of the sublayer's leaf ``name``."""
+    if n_heads % M or mdim("wq") != 1 or mdim("wo") != 0:
+        return None
+    if n_kv % M == 0 and mdim("wk") == 1 and mdim("wv") == 1:
+        return "kv"
+    return "pick" if (n_heads // n_kv) % (n_heads // M) == 0 else None
+
+
+def _mlp_splits(mdim) -> bool:
+    return (mdim("w_up") == 1 and mdim("w_down") == 0
+            and mdim("w_gate") in (1, "absent"))
+
+
+def _sublayer_modes(cfg, M: int, layer_mdim) -> dict:
+    """``{"attn": mode, "ffn": bool}`` of one layer of the dense family
+    (``layer_mdim(sub, name)``: the model dim, ``"absent"`` for a leaf
+    the layer does not have)."""
+    return {"attn": _attn_mode(cfg.n_heads, cfg.n_kv_heads, M,
+                               lambda n: layer_mdim("attn", n)),
+            "ffn": _mlp_splits(lambda n: layer_mdim("ffn", n))}
+
+
+@dataclasses.dataclass
+class _Split:
+    """A sublayer whose products split over ``model``: its leaves
+    (:class:`RowLeaf`), ``mode`` as :func:`_attn_mode` gives it for
+    attention."""
+
+    row: Row
+    p: dict
+    mode: str | None = None
+
+
+def is_split(p) -> bool:
+    return isinstance(p, _Split)
+
+
+def materialize(cfg, pparams):
+    """One period's leaves as ``_apply_period`` runs them, fetched here
+    (inside the period): a dense row's attention and MLP as split
+    sublayers (:func:`attn_train`, :func:`mlp_apply`) where their specs
+    split, every other leaf whole.  Tensors pass through."""
+    sample = first_leaf(pparams)
+    if not isinstance(sample, RowLeaf):
+        return pparams
+    row = sample.row
+    out = {}
+    for name, layer in pparams.items():
+        def mdim(sub, leaf, layer=layer):
+            t = layer.get(sub, {}).get(leaf)
+            return "absent" if t is None else t.model_dim()
+
+        modes = (_sublayer_modes(cfg, row.M, mdim) if row.split
+                 else {"attn": None, "ffn": False})
+        lay = {}
+        for sub, tree in layer.items():
+            if sub == "attn" and modes["attn"]:
+                lay[sub] = _Split(row, tree, modes["attn"])
+            elif sub == "ffn" and modes["ffn"]:
+                lay[sub] = _Split(row, tree)
+            else:
+                lay[sub] = whole(tree)
+        out[name] = lay
+    return out
+
+
+def attn_train(sp: _Split, h, positions, spec):
+    """``attn_train`` with the heads split over the row's positions: the
+    partial outputs summed on the row's first position.  Returns ``(y,
+    (None, None))`` (no cache: train mode only)."""
+    row, M = sp.row, sp.row.M
+    Hq, hd = spec.n_heads // M, spec.head_dim
+    G = spec.n_heads // spec.n_kv_heads
+    hs = row.broadcast(h)
+    ys = []
+    for m in range(M):
+        p = {"wq": sp.p["wq"].part(m), "wo": sp.p["wo"].part(m)}
+        if sp.mode == "kv":
+            p["wk"], p["wv"] = sp.p["wk"].part(m), sp.p["wv"].part(m)
+            sub = dataclasses.replace(spec, n_heads=Hq,
+                                      n_kv_heads=spec.n_kv_heads // M)
+        else:   # the one kv head position m's query heads share
+            j = m * Hq // G
+            cols = slice(j * hd, (j + 1) * hd)
+            p["wk"] = sp.p["wk"].whole(m)[:, cols]
+            p["wv"] = sp.p["wv"].whole(m)[:, cols]
+            sub = dataclasses.replace(spec, n_heads=Hq, n_kv_heads=1)
+        for g in ("q_gamma", "k_gamma"):
+            if g in sp.p:
+                p[g] = sp.p[g].whole(m)
+        y, _ = _attn_train(p, hs[m], row.send(positions, m), sub)
+        ys.append(y)
+    return row.reduce(ys), (None, None)
+
+
+def mlp_apply(sp: _Split, h, act: str):
+    """``mlp_apply`` with ``d_ff`` split over the row's positions."""
+    row = sp.row
+    hs = row.broadcast(h)
+    return row.reduce([_mlp_apply({k: v.part(m) for k, v in sp.p.items()},
+                                  hs[m], act) for m in range(row.M)])
+
+
+def splits_vocab(w) -> bool:
+    """Whether ``w`` (the embedding or the head) is a dense row's leaf
+    whose vocabulary splits over ``model``."""
+    return isinstance(w, RowLeaf) and w.row.split and w.model_dim() is not None
+
+
+def vocab_lookup(e: RowLeaf, tokens):
+    """``embed[tokens]`` as the sum of each position's masked rows."""
+    row = e.row
+    parts = []
+    for m in range(row.M):
+        w = e.part(m)
+        local = row.send(tokens, m) - e.start(m)
+        own = (local >= 0) & (local < w.shape[0])
+        rows = w[torch.where(own, local, 0)]
+        parts.append(torch.where(own[..., None], rows, 0))
+    return row.reduce(parts)
+
+
+def vocab_head_loss(w: RowLeaf, x, labels, valid, dt):
+    """``lm.head_loss`` with the head's vocabulary split over the row's
+    positions (``w``: the tied embedding ``(V, d)`` or ``lm_head`` ``(d,
+    V)``; ``valid``: the labels not masked): each position's
+    ``logsumexp`` of its f32 logits, combined on the row's first position
+    (the max over the slices, then the sum of exponentials against it),
+    and the gold logit from the slice that owns the label's row."""
+    row, M = w.row, w.row.M
+    vdim = w.model_dim()
+    xs = row.broadcast(x)
+    ws = [w.part(m) for m in range(M)]
+    lses = []
+    for m, wm in enumerate(ws):
+        wm = wm.to(dt)
+        logits = xs[m] @ (wm.T if vdim == 0 else wm)
+        lses.append(torch.logsumexp(logits.float(), dim=-1))
+        del logits
+    lse = torch.logsumexp(torch.stack(row.collect(lses)), dim=0)
+    golds = []
+    for m, wm in enumerate(ws):
+        lab = row.send(torch.where(valid, labels, -1), m)
+        local = lab - w.start(m)
+        own = (lab >= 0) & (local >= 0) & (local < wm.shape[vdim])
+        safe = torch.where(own, local, 0)
+        rows = (wm[safe] if vdim == 0
+                else torch.movedim(wm[:, safe], 0, -1)).to(dt)
+        gold = torch.einsum("bsd,bsd->bs", xs[m], rows).float()
+        golds.append(torch.where(own, gold, 0.0))
+    nll = (lse - row.reduce(golds)) * valid
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+# ---------------------------------------------------------------------------
+# composed from the specs
+# ---------------------------------------------------------------------------
+
+def row_moves(cfg, params, shardings, first, devs, batch: int,
+              seq_len: int) -> tuple:
+    """What one (microbatch, row) slice of ``batch`` rows of ``seq_len``
+    tokens books on a mesh, from the leaves' shapes and dtypes
+    (``params``, ``meta`` tensors will do), their ``shardings`` and the
+    mesh's device of each position (``devs``): ``(gather, model,
+    pieces)``, ``pieces`` as ``[(bytes, position)]``, a stacked leaf's
+    periods (or encoder layers) as one."""
+    from repro_torch.training.tree import leaves
+
+    ls, shs = leaves(params), leaves(shardings)
+    paths = _paths(params)
+    mesh = shs[0].mesh
+    axes = mesh.axis_names
+    M = mesh.shape["model"] if "model" in axes else 1
+    mi = axes.index("model") if "model" in axes else None
+    pos = mesh.positions()
+    ks = [pos.index(tuple(m if i == mi else c for i, c in enumerate(first)))
+          for m in range(M)]
+    split = cfg.family == "dense" and M > 1
+    gather, pieces = MoveStats(), []
+
+    def use(k, m, part, times):
+        """Position ``m`` of the row uses leaf ``k`` (each of its periods)
+        ``times`` times."""
+        nonlocal gather
+        t, sh = ls[k], shs[k]
+        blocks, index = _fetch_plan(sh, tuple(t.shape), ks[m], part, devs)
+        n = math.prod(sh.shard_shape(tuple(t.shape))) * t.element_size()
+        moved = _fetch_moves(blocks, n, devs, ks[m])
+        gather += MoveStats(moved.positions * times, moved.devices * times)
+        box = math.prod(len(range(*i.indices(d)))
+                        for i, d in zip(index, t.shape))
+        pieces.append((box * t.element_size(), ks[m]))
+
+    by_path = {p: k for k, p in enumerate(paths)}
+
+    def mdim_of(path):
+        k = by_path[path]
+        return _model_dim(shs[k], ls[k].ndim, 1 if path[0] == "blocks"
+                          else 0)
+
+    n_split = {"attn": 0, "ffn": 0}
+    for layer in sorted({p[1] for p in paths if p[0] == "blocks"}):
+        def lmdim(sub, name, layer=layer):
+            path = ("blocks", layer, sub, name)
+            return mdim_of(path) if path in by_path else "absent"
+
+        modes = (_sublayer_modes(cfg, M, lmdim) if split
+                 else {"attn": None, "ffn": False})
+        for sub in ("attn", "ffn"):
+            n_split[sub] += bool(modes[sub]) * cfg.n_periods
+        for k, path in enumerate(paths):
+            if path[0] != "blocks" or path[1] != layer:
+                continue
+            sub, name = path[2], path[-1]
+            # each period: its forward and its recomputation
+            if sub == "attn" and modes["attn"]:
+                kv_whole = modes["attn"] == "pick" and name in ("wk", "wv")
+                part = name in _ATTN_PARTS and not kv_whole
+                for m in range(M):
+                    use(k, m, part, 2)
+            elif sub == "ffn" and modes["ffn"]:
+                for m in range(M):
+                    use(k, m, True, 2)
+            else:
+                use(k, 0, False, 2)
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    vocab = {}
+    for k, path in enumerate(paths):
+        name = path[0]
+        if name == "blocks":
+            continue
+        vocab[name] = split and name in ("embed", "lm_head") and (
+            mdim_of(path) is not None)
+        # the tied embedding: the lookup and the head
+        uses = 2 if name == "embed" and name == head else 1
+        for m in (range(M) if vocab[name] else (0,)):
+            use(k, m, vocab[name], uses)
+
+    # the model axis: each position other than the row's first, and those
+    # of them on another device than the first
+    e = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+    # tokens and labels are int32 (training/data.py), positions int64,
+    # the loss's maxima, sums and gold logits f32
+    T = batch * seq_len
+    act = T * cfg.d_model * e
+    tok = T * torch.int32.itemsize
+    f32 = T * torch.float32.itemsize
+    # forward, recomputation and backward: the input out and the partials
+    # back, then their gradients; the positions in the first two
+    per = (3 * 2 * act * (n_split["attn"] + n_split["ffn"])
+           + 2 * seq_len * torch.int64.itemsize * n_split["attn"])
+    if vocab.get("embed"):   # the tokens; the rows and their gradient
+        per += tok + 2 * act
+    if vocab.get(head):      # x and its gradient, the labels; each
+        #                      slice's logsumexp and gold logits, and their
+        #                      gradients
+        per += 2 * act + tok + 4 * f32
+    model = MoveStats(per * (M - 1),
+                      per * sum(1 for k in ks[1:] if devs[k] != devs[ks[0]]))
+    return gather, model, pieces
+
+
+def _paths(tree, path=()) -> list:
+    """Each leaf's keys, in :func:`~repro_torch.training.tree.leaves`'
+    order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], path + (k,))]
+    return [path]

@@ -23,8 +23,10 @@ the compute:
    o, m_loc)``, the widest band first and the others in band order.
 
 :func:`make_spmv_full_mesh` is that apply, with (``with_dot``) the dot
-``x . A x`` as per-shard dots taken after the boundary add and summed in
-shard order (:func:`shard_sum`), on a mesh whose shards share one device.
+``x . A x`` as each shard's partials of ``x . A_local x`` (the SpMV+dot
+kernel's) plus its boundary rows' terms, summed in shard order
+(:func:`shard_sum`); over several devices it runs the ranks' product
+(below), bit for bit the one-device operator on the CPU.
 :func:`make_jacobi_full_mesh` and :func:`make_fused_step_full_mesh` are the
 shard-local Jacobi apply and axpy/precondition/dots step, the latter with
 its ``r . z`` and ``r . r`` per shard summed in shard order.
@@ -79,7 +81,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.comm import ShardMesh, to_shards
+from repro_torch.core.comm import ShardMesh, from_shards, to_shards
 from repro_torch.core.ranks import HOST, MeshRanks
 
 __all__ = ["make_spmv_full_mesh", "make_jacobi_full_mesh",
@@ -224,34 +226,81 @@ def make_spmv_full_mesh(mesh: ShardMesh, *, offsets: tuple[int, ...],
                         plane: int, n_coarse: int, alpha: int, m_coarse: int,
                         with_dot: bool = False,
                         use_kernel: bool | None = None) -> Callable:
-    """``A(bands_sh, x)`` with rows sharded over ``(solve, assemble)``, on
-    a mesh whose shards share one device (over several, the rows live on
-    the ranks: :class:`ShardRanks`).
+    """``A(bands_sh, x)`` with rows sharded over ``(solve, assemble)``.
 
     ``bands_sh``: the bands in the shard layout (``to_shards(bands,
     alpha)``, ``(n_shards, nb, m_loc)``); ``x``: the stacked ``(n_c,
     m_c)`` vector (or ``(n_shards, m_loc)``).  Returns ``A x`` shaped as
-    ``x``, and with ``with_dot`` also ``x . A x`` (per-shard dots after the
-    boundary add, summed in shard order).  ``use_kernel``: None or True,
-    the DIA SpMV kernel for the local apply (its plain version for CPU
-    tensors); False, the plain shift loop.
+    ``x``, and with ``with_dot`` also ``x . A x``: each shard's partials
+    of ``x . A_local x`` (the SpMV+dot kernel's, which computes ``A x``
+    too) plus its boundary rows' terms, summed in shard order.
+    ``use_kernel``: None or True, the DIA SpMV (or SpMV+dot) kernel for
+    the local apply (its plain version for CPU tensors); False, the plain
+    shift loop (the SpMV+dot's plain version).
+
+    On a mesh whose shards sit on several distinct devices (f64 only, both
+    tensors on the first shard's device), each call lays the bands out on
+    a :class:`ShardRanks` and runs its ranks' product: the halo planes
+    copied between devices, each rank's shards as the lanes of one launch,
+    the dot's per-shard values summed in shard order on the host; ``A x``
+    comes back on the first shard's device.
     """
     S, m = check_full_mesh(mesh, offsets=offsets, plane=plane,
                            n_coarse=n_coarse, alpha=alpha, m_coarse=m_coarse)
     if mesh.one_device is None:
-        raise ValueError("the shards sit on several devices: their rows "
-                         "live on the ranks (ShardRanks)")
+        return _spmv_on_ranks(mesh, S, m, offsets, plane, alpha, with_dot,
+                              use_kernel)
+    from repro_torch.kernels.krylov_fused import krylov_fused as kf
+
     down, up = halo_bands(offsets)
+    spmv_dot = (kf.spmv_dot_partials_plain if use_kernel is False
+                else kf.spmv_dot_partials)
+    npl, stride = kf.lane_partials(S * m, S)
+    part = {"npl": npl, "stride": stride}
 
     def spmv(b_sh, x):
         x_sh = x.reshape(S, m)
-        y = _local_apply(b_sh, x_sh, offsets, plane, use_kernel)
-        dc, uc = _halo_terms(b_sh, x_sh[:, :plane], x_sh[:, m - plane:],
-                             down, up, m, plane)
+        if with_dot:
+            y, dot_part = spmv_dot(b_sh, x_sh, offsets=offsets, plane=plane,
+                                   lanes=S)
+        else:
+            y = _local_apply(b_sh, x_sh, offsets, plane, use_kernel)
+        lo, hi = x_sh[:, :plane], x_sh[:, m - plane:]
+        dc, uc = _halo_terms(b_sh, lo, hi, down, up, m, plane)
         _add_halo(y, dc, uc, m)
         if not with_dot:
             return y.view(x.shape)
-        return y.view(x.shape), shard_dots(x_sh, y, S)
+        per = _lane_part_sums(dot_part, part)
+        _terms_dots(lo[1:], hi[:-1], dc, uc, plane, per[1:], per[:-1])
+        return y.view(x.shape), shard_sum(per)
+
+    return spmv
+
+
+def _spmv_on_ranks(mesh, S, m, offsets, plane, alpha, with_dot,
+                   use_kernel) -> Callable:
+    """:func:`make_spmv_full_mesh` over several devices: the product of a
+    :class:`ShardRanks` built from the call's bands (a unit diagonal: the
+    product takes no Jacobi apply)."""
+    def spmv(b_sh, x):
+        sr = ShardRanks(mesh, from_shards(b_sh, alpha),
+                        b_sh.new_ones((S, m)), offsets=offsets, plane=plane,
+                        alpha=alpha, kernels=use_kernel is not False)
+        x_sh = x.reshape(S, m)
+        home = sr.group.devices[0]
+
+        def work(r):
+            ranks, dev = sr.group.ranks, sr.group.devices[r]
+            x_r = ranks.carry(x_sh[sr.sel[r]], home, dev, "b_c")
+            if with_dot:
+                y_r, dot = sr.ops[r].matvec_dot(x_r)
+            else:
+                y_r, dot = sr.ops[r].matvec(x_r), None
+            return ranks.carry(y_r, dev, home, "x_back"), dot
+
+        outs = sr.group.ranks.run(work)
+        y = sr.join(x_sh, [y_r for y_r, _ in outs]).view(x.shape)
+        return (y, outs[0][1]) if with_dot else y
 
     return spmv
 
@@ -321,7 +370,7 @@ def make_fused_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
     copies between devices booked in ``moves`` (a
     :class:`~repro_torch.core.update.MoveRecord`, optional)."""
     from repro_torch.kernels.krylov_fused.krylov_fused import (
-        partials_buffers, spmv_dot_direction, spmv_dot_partials)
+        partials_buffers, spmv_dot_direction)
     from repro_torch.kernels.krylov_loop.krylov_loop import (cg_advance,
                                                              cg_alpha)
     from repro_torch.solvers.jacobi import safe_jacobi_inverse
@@ -338,9 +387,9 @@ def make_fused_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
     down, up = halo_bands(offsets)
     b_sh = to_shards(bands.contiguous(), alpha)
     inv = safe_jacobi_inverse(diag).contiguous()
-    plain = make_spmv_full_mesh(mesh, offsets=offsets, plane=plane,
-                                n_coarse=n_coarse, alpha=alpha,
-                                m_coarse=m_coarse)
+    plain, plain_dot = (make_spmv_full_mesh(
+        mesh, offsets=offsets, plane=plane, n_coarse=n_coarse, alpha=alpha,
+        m_coarse=m_coarse, with_dot=d) for d in (False, True))
     step = make_fused_step_full_mesh(mesh, diag)
     dtype = bands.dtype
     # the loop members' scratch, allocated here (never inside a capture):
@@ -374,12 +423,7 @@ def make_fused_ops_full_mesh(mesh: ShardMesh, bands: torch.Tensor,
         return r * inv
 
     def matvec_dot(p):
-        y, dot_part = spmv_dot_partials(b_sh, vec(p), lanes=S, **kw)
-        p_sh = vec(p)
-        lo, hi = p_sh[:, :plane], p_sh[:, m - plane:]
-        dc, uc = _halo_terms(b_sh, lo, hi, down, up, m, plane)
-        _add_halo(y, dc, uc, m)
-        return y.view(p.shape), dot_after_halo(dot_part, lo, hi, dc, uc)
+        return plain_dot(b_sh, p)
 
     def dots(*pairs):
         return tuple(shard_dots(a, b, S) for a, b in pairs)

@@ -16,21 +16,25 @@ shard (``param_shardings``) of every parameter, of AdamW's ``m`` and
 data-parallel over ``dp_axes(mesh)``: with ``D`` data rows, microbatch
 ``i`` of ``accum`` spans the rows, as JAX's reshape of the globally
 sharded batch does, and row ``r`` takes its contiguous slice of it (the
-``batch_shardings`` layout) on its first device, where the parameters are
-gathered from the shards once a step.  The rows' gradients are summed on
-the mesh's first device in a fixed order, microbatch outer and row inner,
-``g.float() / (accum * D)`` each (no atomics), so a mesh step performs
-the arithmetic of the one-device step at ``accum * D`` bitwise.  The sum
-(compressed there, against the gathered error buffers, when ``compress``)
-gives the global norm over whole leaves, is scattered to
-``grad_shardings`` (default: the parameters' shardings; JAX's meaning:
-where the reduced gradient lives before the update), and AdamW updates
-each shard on its own device.  The ``model`` axis splits storage only:
-tensor-parallel products over ``model`` (Megatron-style column/row
-splits with their reductions) are the next item of the LM mesh work
-(ROADMAP), so every row computes with whole parameters.
-:func:`mesh_step_moves` composes the bytes a mesh step moves from the
-specs alone, without running it (the dry-run's ``moves``).
+``batch_shardings`` layout) on its first device.  Each (microbatch, row)
+slice runs on the row's view of the state
+(:mod:`repro_torch.models.tensor_parallel`): no row holds the parameters
+gathered at once; each period gathers its leaves inside the period (and
+again in the backward pass), the embedding and head where they are used,
+and the dense family's attention, MLP and vocabulary compute on each
+``model`` position's slice, their partial outputs summed over ``model``
+in f32 in a fixed order.  Every other family computes whole products, so
+its mesh step performs the arithmetic of the one-device step at ``accum *
+D`` bitwise.  Each piece's gradient (a (row, position) slice) is added at
+its box into f32 buffers on the mesh's first device in a fixed order,
+microbatch outer and row inner, ``g.float() / (accum * D)`` each (no
+atomics).  The sum (compressed there, against the gathered error
+buffers, when ``compress``) gives the global norm over whole leaves, is
+scattered to ``grad_shardings`` (default: the parameters' shardings;
+JAX's meaning: where the reduced gradient lives before the update), and
+AdamW updates each shard on its own device.  :func:`mesh_step_moves`
+composes the bytes a mesh step moves from the specs alone, without
+running it (the dry-run's ``moves``).
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ import torch
 
 from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models import lm
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MetaGenerator
 from repro_torch.models.sharding import (MoveStats, Sharded, dp_axes,
@@ -66,16 +71,20 @@ class TrainState(NamedTuple):
 
 class MeshStepStats(NamedTuple):
     """Bytes one mesh step copied between positions (``MoveStats``):
-    ``gather`` the parameters onto the data rows' devices, ``reduce`` the
-    rows' gradients to the mesh's first device (and, with compression,
-    the error buffers gathered there), ``scatter`` the reduced gradient
-    (and new error buffers) to their shards, ``relayout`` the gradient
-    from ``grad_shardings`` to the parameters' shardings."""
+    ``gather`` the parameters each position computes with, where it uses
+    them (each period's forward and recomputation), ``reduce`` the pieces'
+    gradients to the mesh's first device (and, with compression, the
+    error buffers gathered there), ``scatter`` the reduced gradient (and
+    new error buffers) to their shards, ``relayout`` the gradient from
+    ``grad_shardings`` to the parameters' shardings, ``model`` the
+    activations, partial outputs and their gradients between a data row's
+    positions along ``model`` (the split products' sums)."""
 
     gather: MoveStats
     reduce: MoveStats
     scatter: MoveStats
     relayout: MoveStats
+    model: MoveStats
 
 
 def data_rows(mesh: DeviceMesh) -> list[tuple[int, ...]]:
@@ -161,45 +170,54 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
         metrics = {"loss": loss_val, "grad_norm": gnorm, "step": opt.step}
         return TrainState(params, opt, err), metrics
 
+    def row_grads(tree, row, b):
+        """``(loss, [(leaf index, index, position, gradient)])`` of one
+        data row's slice ``b`` on its view ``tree``: each piece it computed
+        with, its gradient on its position's device."""
+        with torch.enable_grad():
+            loss = lm.loss_fn(cfg, tree, b["tokens"], b["labels"],
+                              b.get("frontend"))
+            pieces = row.pieces()
+            grads = torch.autograd.grad(loss, [p[3] for p in pieces],
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        return loss.detach(), [(k, idx, q, g) for (k, idx, q, _), g
+                               in zip(pieces, grads)]
+
     def on_mesh(state: TrainState, batch: dict):
         p_leaves = leaves(state.params)
         mesh = p_leaves[0].mesh
-        pos = mesh.positions()
         devs = mesh.device_list()
         home = devs[0]
         rows = data_rows(mesh)
         D = len(rows)
         b = _microbatch_rows(next(iter(batch.values())).shape[0], accum, D)
-        # the whole parameters, once per distinct row device
-        gather, full = MoveStats(), {}
-        for c in rows:
-            dev = mesh.device(c)
-            if dev in full:
-                continue
-            home_k = pos.index(c)
-            full[dev] = unflatten(state.params,
-                                  [unshard(s, dev) for s in p_leaves])
-            for s in p_leaves:
-                gather += unshard_moves(s, dev, home_k)
-
-        def slices():
-            for i in range(accum):
-                for r, c in enumerate(rows):
-                    dev = mesh.device(c)
-                    j = i * D + r
-                    yield full[dev], {k: v[j * b:(j + 1) * b].to(dev)
-                                      for k, v in batch.items()}
-
         n = accum * D
-        loss_val, grads = accumulate(slices(), n, home, p_leaves)
-        del full
-        # each row's microbatch gradients (the parameters' dtype) go to
-        # the first position; those of rows on other devices cross
-        g_bytes = sum(math.prod(p.shape) * p.shards[0].element_size()
-                      for p in p_leaves)
-        off_home = sum(1 for c in rows if mesh.device(c) != home)
-        reduce = MoveStats(accum * (D - 1) * g_bytes,
-                           accum * off_home * g_bytes)
+        # f32 buffers for a sum, allocated before the first slice runs; a
+        # single slice's pieces in the parameters' dtype
+        grads = [torch.zeros(tuple(p.shape), dtype=torch.float32 if n > 1
+                             else p.dtype, device=home) for p in p_leaves]
+        loss_val = torch.zeros((), dtype=torch.float32, device=home)
+        booked = {"gather": MoveStats(), "model": MoveStats()}
+        reduce = MoveStats()
+        for i in range(accum):
+            for r, c in enumerate(rows):
+                tree, row = tp.row_view(cfg, state.params, c, booked)
+                j = i * D + r
+                loss_i, pieces = row_grads(tree, row, {
+                    k: v[j * b:(j + 1) * b].to(row.home)
+                    for k, v in batch.items()})
+                for k, idx, q, g in pieces:
+                    # a piece computed away from the first position goes
+                    # there
+                    if q:
+                        nb = g.numel() * g.element_size()
+                        reduce += MoveStats(nb, nb if devs[q] != home else 0)
+                    g = g.to(home)
+                    grads[k][idx] += g.float() / n if n > 1 else g
+                del pieces
+                loss_val = (loss_val + loss_i.to(home) / n if n > 1
+                            else loss_i.to(home))
         grads = unflatten(state.params, grads)
         scatter = MoveStats()
         err = state.err
@@ -228,7 +246,8 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
         params, opt = optimizer.apply(unflatten(state.params, g_sharded),
                                       state.opt, state.params, gnorm)
         metrics = {"loss": loss_val, "grad_norm": gnorm, "step": opt.step,
-                   "moved": MeshStepStats(gather, reduce, scatter, relayout)}
+                   "moved": MeshStepStats(booked["gather"], reduce, scatter,
+                                          relayout, booked["model"])}
         return TrainState(params, opt, err), metrics
 
     def train_step(state: TrainState, batch: dict):
@@ -251,18 +270,20 @@ def _scatter_bytes(sharded: list) -> MoveStats:
     return out
 
 
-def mesh_step_moves(params, mesh: DeviceMesh, accum: int,
-                    global_batch: int | None = None, grad_shardings=None,
+def mesh_step_moves(cfg: ModelConfig, mesh: DeviceMesh, accum: int,
+                    global_batch: int, seq_len: int, grad_shardings=None,
                     compress: bool = False) -> MeshStepStats:
-    """The :class:`MeshStepStats` one step of ``make_train_step(...,
-    accum=accum, compress=compress, grad_shardings=grad_shardings)`` counts
-    on a state of ``params`` placed on ``mesh`` by :func:`shard_state`,
-    composed from the leaves' shapes and dtypes (``meta`` tensors will do)
-    and the shardings alone, without running the step.
+    """The :class:`MeshStepStats` one step of ``make_train_step(cfg, ...,
+    accum=accum, compress=compress, grad_shardings=grad_shardings)``
+    counts on a state placed on ``mesh`` by :func:`shard_state`, for a
+    batch of ``global_batch`` sequences of ``seq_len`` tokens, composed
+    from ``cfg``'s parameter shapes and dtypes and the shardings alone
+    (:func:`~repro_torch.models.tensor_parallel.row_moves` for each data
+    row), without running the step.
 
     An abstract mesh (no devices) counts each position as a device of its
-    own, as the production meshes' chips are.  With ``global_batch``, raises
-    as the step does when it does not split over the data rows.
+    own, as the production meshes' chips are.  Raises as the step does
+    when the batch does not split over the data rows.
     """
     pos = mesh.positions()
     devs = (list(range(len(pos))) if mesh.abstract
@@ -270,29 +291,15 @@ def mesh_step_moves(params, mesh: DeviceMesh, accum: int,
     home = devs[0]
     rows = data_rows(mesh)
     D = len(rows)
-    if global_batch is not None:
-        _microbatch_rows(global_batch, accum, D)
+    b = _microbatch_rows(global_batch, accum, D)
+    params = lm.param_specs(cfg)
     p_leaves = leaves(params)
-    p_sh = leaves(param_shardings(mesh, params))
+    shardings = param_shardings(mesh, params)
+    p_sh = leaves(shardings)
     shapes = [tuple(p.shape) for p in p_leaves]
 
-    def gathers(shapes_items, shardings, targets):
-        """:func:`unshard_moves` of each ``(shape, itemsize)`` leaf laid
-        out by ``shardings`` onto each ``(device, home index)`` of
-        ``targets``."""
-        blocks = crossing = 0
-        for (shape, item), sh in zip(shapes_items, shardings):
-            n = math.prod(sh.shard_shape(shape)) * item
-            held: dict = {}
-            for k, c in enumerate(pos):
-                held.setdefault(sh.block(c, len(shape)), set()).add(devs[k])
-            for dev, k in targets:
-                # every block but the home's own, from another device
-                # where no holder is on ``dev``
-                blocks += (len(held) - 1) * n
-                crossing += n * sum(1 for on in held.values()
-                                    if dev not in on)
-        return MoveStats(blocks, crossing)
+    def times(m: MoveStats, n: int) -> MoveStats:
+        return MoveStats(m.positions * n, m.devices * n)
 
     def scatters(shapes_items, shardings):
         """:func:`_scatter_bytes` of ``(shape, itemsize)`` leaves laid out
@@ -304,21 +311,22 @@ def mesh_step_moves(params, mesh: DeviceMesh, accum: int,
             out += MoveStats((len(pos) - 1) * n, off * n)
         return out
 
-    targets, seen = [], set()
+    gather = model = reduce = MoveStats()
     for c in rows:
-        k = pos.index(c)
-        if devs[k] not in seen:
-            seen.add(devs[k])
-            targets.append((devs[k], k))
-    gather = gathers([(s, p.element_size()) for s, p in zip(shapes, p_leaves)],
-                     p_sh, targets)
-    g_bytes = sum(math.prod(p.shape) * p.element_size() for p in p_leaves)
-    off_home = sum(1 for c in rows if devs[pos.index(c)] != home)
-    reduce = MoveStats(accum * (D - 1) * g_bytes, accum * off_home * g_bytes)
+        g, mo, pieces = tp.row_moves(cfg, params, shardings, c, devs, b,
+                                     seq_len)
+        gather += times(g, accum)
+        model += times(mo, accum)
+        # a piece computed away from the first position goes there
+        for nb, q in pieces:
+            if q:
+                reduce += times(MoveStats(nb, nb if devs[q] != home else 0),
+                                accum)
     scatter = MoveStats()
     f32 = torch.float32.itemsize
     if compress:   # the f32 error buffers, gathered home and scattered
-        reduce += gathers([(s, f32) for s in shapes], p_sh, [(home, 0)])
+        for s, sh in zip(shapes, p_sh):
+            reduce += tp.fetch_moves(sh, s, f32, 0, False, devs)
         scatter += scatters([(s, f32) for s in shapes], p_sh)
     # the reduced gradient: f32 once summed over microbatches or rows, or
     # decompressed; else the parameters' dtype
@@ -334,7 +342,7 @@ def mesh_step_moves(params, mesh: DeviceMesh, accum: int,
             if ks != kd:
                 n = math.prod(hi - lo for lo, hi in piece) * item
                 relayout += MoveStats(n, n if devs[ks] != devs[kd] else 0)
-    return MeshStepStats(gather, reduce, scatter, relayout)
+    return MeshStepStats(gather, reduce, scatter, relayout, model)
 
 
 def init_state(cfg: ModelConfig, optimizer: AdamW, gen: torch.Generator,

@@ -1128,12 +1128,14 @@ def test_phase17_flops_and_state_bytes():
 
 def test_phase17_cuts_keep_the_widths():
     """17b: train_4k's length with its global batch cut 256 -> 8 (accum
-    2); 17c: qwen3 and rwkv6 at full width cut to 2 layers; 17d: the
-    full-width model at seq_len 512, batch 8."""
+    2), qwen3-0.6b's depth cut 28 -> 8; 17c: qwen3 and rwkv6 at full
+    width cut to 2 layers; 17d: the full-width model at 17b's depth,
+    seq_len 512, batch 8."""
     from repro_torch.configs.registry import SHAPES, get_config
     from repro_torch.models import scan_utils
 
     assert chip_smoke.TRAIN_SEQ == SHAPES["train_4k"].seq_len == 4096
+    assert 1 < chip_smoke.TRAIN_LAYERS < get_config("qwen3-0.6b").n_layers
     assert SHAPES["train_4k"].global_batch == 256
     assert (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_ACCUM) == (8, 2)
     assert chip_smoke.REMAT_RUNS == (("qwen3-0.6b", 2, 4096, 4),
@@ -1144,6 +1146,7 @@ def test_phase17_cuts_keep_the_widths():
     assert chip_smoke.REMAT_RUNS[1][2] > 2 * scan_utils.DEFAULT_CHUNK
     args = chip_smoke.RESUME_ARGS
     assert "--smoke" not in args and args[:2] == ["--arch", "qwen3-0.6b"]
+    assert args[args.index("--layers") + 1] == str(chip_smoke.TRAIN_LAYERS)
     assert args[args.index("--seq-len") + 1] == "512"
     assert args[args.index("--batch") + 1] == "8"
 
@@ -1323,7 +1326,8 @@ def stub_card(monkeypatch):
         registry.get_smoke_config(a) if a == "qwen3-0.6b" else real(a)))
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
     monkeypatch.setattr(chip_smoke, "mesh_devices", lambda n: ["cpu"] * n)
 
 
@@ -1351,9 +1355,9 @@ def test_phase18cd_on_the_cpu(monkeypatch, capsys):
 
 def test_phase18b_on_the_cpu(monkeypatch):
     """18b's in-process runs on qwen3-smoke (one CPU thread): the mesh
-    step bitwise the one-device step at accum 2 and repeatable; the
-    launcher runs are left to the card (tests/test_torch_lm_mesh_train.py
-    runs them on the CPU)."""
+    step (split products) within its bars of the one-device step at accum
+    2 and repeatable; the launcher runs are left to the card
+    (tests/test_torch_lm_mesh_train.py runs them on the CPU)."""
     stub_card(monkeypatch)
     monkeypatch.setattr(chip_smoke, "MESH_SEQ", 32)
     monkeypatch.setattr(chip_smoke, "finish", lambda procs: {})
@@ -1366,8 +1370,11 @@ def test_phase18b_on_the_cpu(monkeypatch):
                                           problems)
     finally:
         torch.set_num_threads(n)
-    assert out["bitwise_vs_accum2"] and out["bitwise_repeat"]
+    assert out["bitwise_repeat"]
+    assert max(out["rel_loss"], out["rel_grad_norm"]) <= chip_smoke.PIPE_TOL
+    assert out["param_err"] <= out["param_bound"] and out["param_excess"] <= 0
     assert out["moved"]["reduce"][0] > 0 and out["moved"]["gather"][1] == 0
+    assert out["moved"]["model"][0] > 0 == out["moved"]["model"][1]
     # no launcher ran: its checks are the only ones that fail
     assert problems and all("launcher" in p or "step-4" in p
                             for p in problems)
@@ -1788,13 +1795,53 @@ def test_dryrun_problems_names_what_differs():
     assert chip_smoke.dryrun_problems(good[:79], names[:79])
 
 
+def test_params_within_counts_a_storage_rounding_a_step():
+    """18b's parameter bar: 2 lr k, plus one unit in the last place of
+    the larger value a step (bf16: 2 ** -7 of the binade's start)."""
+    want = torch.tensor([0.2, 1.0, -0.03, 0.0], dtype=torch.bfloat16)
+    ulp = chip_smoke.storage_ulp(torch, want)
+    assert ulp.tolist() == [2.0 ** -10, 2.0 ** -7, 2.0 ** -13,
+                            float(torch.finfo(torch.bfloat16).tiny) * 2 ** -7]
+    got = want.double() + torch.tensor([2.0 ** -10, 0.0, 0.0, 0.0],
+                                       dtype=torch.float64)
+    one = chip_smoke.params_within(torch, [got.bfloat16()], [want], 1e-5, 1)
+    assert one["max"] == 2.0 ** -10 and one["over_2lrk"] == 1
+    assert one["excess"] <= 0
+    two = chip_smoke.params_within(torch, [(want.double() + 3 * 2.0 ** -10)
+                                           .bfloat16()], [want], 1e-5, 1)
+    assert two["excess"] > 0
+
+
 def test_composed_18b_moves_are_18b_s_measured_bytes(monkeypatch):
-    """The bytes the card measured in 18b (PERF.md, PR 24), composed from
-    the specs with the positions on the CPU."""
+    """The bytes the card measured in 18b (PERF.md), composed from
+    the specs with the positions on the CPU; the gather below the
+    whole-parameter gather of the earlier schedule."""
     monkeypatch.setattr(chip_smoke, "mesh_devices", lambda n: ["cpu"] * n)
-    assert chip_smoke.composed_18b_moves() == {
-        "gather": [343_474_176, 0], "reduce": [437_014_528, 0],
-        "scatter": [1_309_564_928, 0], "relayout": [0, 0]}
+    got = chip_smoke.composed_18b_moves()
+    assert got == {
+        "gather": [251_658_240, 0], "reduce": [764_772_352, 0],
+        "scatter": [1_309_564_928, 0], "relayout": [0, 0],
+        "model": [2_618_228_736, 0]}
+    assert got["gather"][0] < chip_smoke.MESH_WHOLE_GATHER
+
+
+def test_phase20_reads_a_dryrun_started_earlier(monkeypatch, capsys):
+    """The whole run starts the dry-run beside the build: phase 20 takes
+    that run's records and does not run the command again."""
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 3, "", "boom")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
+    pending = chip_smoke.start_dryrun()
+    assert pending.exception() is None and len(calls) == 1
+    with pytest.raises(chip_smoke.SmokeFailure, match="2 check"):
+        chip_smoke.dryrun_phase(None, pending)
+    printed = capsys.readouterr().out
+    assert len(calls) == 1 and "beside the kernels' build" in printed
+    assert "the dry-run exited 3: boom" in printed and "0 records" in printed
 
 
 def test_phase20_on_the_cpu(monkeypatch, capsys):

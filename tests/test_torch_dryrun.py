@@ -16,8 +16,9 @@ composed from JAX's ``build_lowerable`` and ``launch/analysis.py``:
 ``status``, ``reason``, ``n_devices``, ``argument_size_in_bytes`` (every
 argument leaf's ``shard_shape`` times its itemsize) and the analytical
 fields.  The composed ``moves`` equal the ``MeshStepStats`` a real mesh
-train step counts, and at 18b's configuration of ``chip_smoke.py`` the
-bytes the card measured.  Then the command line and
+train step counts (parameters gathered a period at a time, the dense
+family's products split over ``model``), and at 18b's configuration of
+``chip_smoke.py`` the bytes the card measured.  Then the command line and
 ``benchmarks/roofline.py``'s ``derive`` on a port record.
 """
 import dataclasses
@@ -291,9 +292,13 @@ def test_skips_and_moves_over_the_whole_grid(tmp_path):
             assert mv["schedule"] == tdry.MOVES_SCHEDULE
             # on the production mesh every position is its own chip
             assert all(mv[k]["positions"] == mv[k]["devices"]
-                       for k in ("gather", "reduce", "scatter", "relayout"))
+                       for k in ("gather", "reduce", "scatter", "relayout",
+                                 "model"))
             assert mv["relayout"]["positions"] == 0   # grads as params
             assert mv["gather"]["positions"] > 0
+            # the model axis's sums: the dense family's split products
+            dense = treg.ARCHS[r["arch"]].family == "dense"
+            assert (mv["model"]["positions"] > 0) == dense
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +310,8 @@ def mesh_of(name):
         return make_mesh((2, 4), ("data", "model"), CPU8)
     if name == "2x2x2":
         return make_mesh((2, 2, 2), ("pod", "data", "model"), CPU8)
+    if name == "alternating":   # a row's model positions on two devices
+        return make_mesh((2, 4), ("data", "model"), ["cpu", "cpu:0"] * 4)
     # two devices to the port: data row 0 on one, row 1 on the other
     return make_mesh((2, 4), ("data", "model"), ["cpu"] * 4 + ["cpu:0"] * 4)
 
@@ -328,7 +335,9 @@ MOVE_CASES = [("qwen3-0.6b", "2x4", 1, False, False, "bfloat16"),
               ("mixtral-8x22b", "2x2x2", 1, True, False, None),
               ("glm4-9b", "two_devices", 2, False, False, "bfloat16"),
               ("rwkv6-1.6b", "two_devices", 1, True, True, None),
-              ("whisper-medium", "2x4", 1, False, True, None)]
+              ("whisper-medium", "2x4", 1, False, True, None),
+              ("starcoder2-7b", "alternating", 1, False, False, None),
+              ("qwen3-0.6b", "alternating", 2, True, True, "bfloat16")]
 
 
 @pytest.mark.parametrize("arch,mesh_name,accum,compress,regridded,dtype",
@@ -351,40 +360,48 @@ def test_composed_moves_equal_a_real_mesh_step(arch, mesh_name, accum,
     step = tts.make_train_step(cfg, opt, compress=compress, accum=accum,
                                grad_shardings=g_sh)
     _, m = step(tts.shard_state(state, mesh), batch)
-    got = tts.mesh_step_moves(tlm.param_specs(cfg), mesh, accum,
-                              global_batch=2 * accum * D,
+    got = tts.mesh_step_moves(cfg, mesh, accum, 2 * accum * D, 16,
                               grad_shardings=g_sh, compress=compress)
     assert got == m["moved"]
     assert got.reduce.positions > 0 and got.gather.positions > 0
     assert (got.relayout.positions > 0) == regridded
-    assert (got.gather.devices > 0) == (mesh_name == "two_devices")
+    assert (got.gather.devices > 0) == (mesh_name != "2x4"
+                                        and mesh_name != "2x2x2")
+    # the model axis's copies: the dense family's, across devices where
+    # a row's positions are on two
+    assert (got.model.positions > 0) == (cfg.family == "dense")
+    assert (got.model.devices > 0) == (cfg.family == "dense"
+                                       and mesh_name == "alternating")
     # the step and the composition refuse a batch that does not split
     odd = {k: v[:2 * accum * D - 1] for k, v in batch.items()}
     with pytest.raises(ValueError, match="does not split") as e1:
         step(tts.shard_state(state, mesh), odd)
     with pytest.raises(ValueError, match="does not split") as e2:
-        tts.mesh_step_moves(tlm.param_specs(cfg), mesh, accum,
-                            global_batch=2 * accum * D - 1)
+        tts.mesh_step_moves(cfg, mesh, accum, 2 * accum * D - 1, 16)
     assert str(e1.value) == str(e2.value)
 
 
 def test_composed_moves_are_18b_measured_bytes():
     """chip_smoke.py's 18b: qwen3-0.6b at full width cut to 4 layers, 8 x
     1024 on a (2, 4) mesh naming the card 8 times, accum 1; the card
-    measured gather / reduce / scatter 343,474,176 / 437,014,528 /
-    1,309,564,928 B (PERF.md, PR 24).  On the abstract mesh every
-    position is a device of its own."""
+    measured gather / reduce / scatter / relayout / model 251,658,240 /
+    764,772,352 / 1,309,564,928 / 0 / 2,618,228,736 B (PERF.md):
+    each position fetches the other data half of its model slice of each
+    block matrix (31,457,280 B a layer over the 8 positions) in the
+    forward and the recomputation, and nothing of the vocabulary (split
+    over model, replicated over data).  On the abstract mesh every
+    position is a device of its own: the same bytes, all between
+    devices."""
     cfg = validate(dataclasses.replace(treg.ARCHS["qwen3-0.6b"], n_layers=4))
-    specs = tlm.param_specs(cfg)
-    want = [343_474_176, 437_014_528, 1_309_564_928, 0]
-    got = tts.mesh_step_moves(specs, make_mesh((2, 4), ("data", "model"),
-                                               CPU8), 1, global_batch=8)
+    want = [251_658_240, 764_772_352, 1_309_564_928, 0, 2_618_228_736]
+    assert want[0] == 2 * 4 * 31_457_280
+    got = tts.mesh_step_moves(cfg, make_mesh((2, 4), ("data", "model"),
+                                             CPU8), 1, 8, 1024)
     assert got == tts.MeshStepStats(*(MoveStats(w, 0) for w in want))
-    abstract = tts.mesh_step_moves(specs, DeviceMesh((2, 4),
-                                                     ("data", "model")), 1)
-    # both rows gather on chips of their own; the rest as before
-    assert abstract.gather == MoveStats(2 * want[0], 2 * want[0])
-    assert abstract[1:] == tuple(MoveStats(w, w) for w in want[1:])
+    abstract = tts.mesh_step_moves(cfg, DeviceMesh((2, 4),
+                                                   ("data", "model")),
+                                   1, 8, 1024)
+    assert abstract == tts.MeshStepStats(*(MoveStats(w, w) for w in want))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -395,8 +412,11 @@ def test_two_point_extrapolation_gives_the_full_depth(arch):
     cfg = treg.ARCHS[arch]
     mesh = DeviceMesh(*PRODUCTION["single_pod"])
 
+    shape = treg.SHAPES["train_4k"]
+
     def moves(c):
-        got = tts.mesh_step_moves(tlm.param_specs(c), mesh, c.train_accum)
+        got = tts.mesh_step_moves(c, mesh, c.train_accum,
+                                  shape.global_batch, shape.seq_len)
         return np.array([list(x) for x in got], dtype=object)
 
     plen = len(cfg.period())

@@ -421,8 +421,8 @@ def test_several_devices_run_the_host_loop(port_runs, distinct_runs):
     """A mesh whose shards name two distinct devices (on the CPU, ``cpu``
     and ``cpu:0``): each rank's product over its own shards' rows, the
     planes copied between the ranks, is the stacked SpMV (the standalone
-    shard SpMV refuses such a mesh), and the solve runs a host loop a
-    device on either backend."""
+    shard SpMV runs that product over such a mesh), and the solve runs a
+    host loop a device on either backend."""
     two = make_cfd_mesh(2, 4, devices=["cpu", "cpu:0"] * 4)
     assert len(two.groups()) == 8 and two.one_device is None
     plan, offsets = _plan(4)
@@ -438,8 +438,11 @@ def test_several_devices_run_the_host_loop(port_runs, distinct_runs):
         x_sh = x.reshape(8, -1)
         ys = sr.group.ranks.run(lambda r: sr.ops[r].matvec(x_sh[sr.sel[r]]))
         assert _err(sr.join(x, ys), want) <= 1e-13
-    with pytest.raises(ValueError, match="several devices"):
-        make_spmv_full_mesh(two, **kw)
+    y, dot = make_spmv_full_mesh(two, with_dot=True, **kw)(
+        to_shards(bands, 4), x)
+    assert _err(y, want) <= 1e-13
+    assert abs(float(dot) - float((x * want).sum())) <= 1e-10 * abs(
+        float(dot))
     # both backends' PISO over the same two devices (two steps)
     _, st_ref, stats_ref = port_runs["reference"]
     for backend in ("reference", "alternating"):
@@ -447,6 +450,38 @@ def test_several_devices_run_the_host_loop(port_runs, distinct_runs):
         assert solver.spmd_mesh == two
         assert _err(st.p, st_ref.p) <= PARITY
         assert stats.p_iters.tolist() == stats_ref.p_iters.tolist()
+
+
+@pytest.mark.parametrize("use_kernel", [None, False])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("alpha", ALPHAS)
+def test_spmv_over_several_devices_is_the_one_device_operator(
+        alpha, layout, use_kernel):
+    """The standalone operator over a mesh of ``cpu`` and ``cpu:0``: ``A
+    x`` and ``x . A x`` bitwise the one-device operator's, ``A x`` within
+    1e-10 of the stacked ``spmv_dia`` (JAX's
+    ``test_full_mesh_spmv_matches_stacked`` bar)."""
+    plan, offsets = _plan(alpha)
+    rng = np.random.default_rng(alpha)
+    n_c = 8 // alpha
+    bands = torch.tensor(rng.standard_normal((n_c, len(offsets),
+                                              plan.m_coarse)))
+    x = torch.tensor(rng.standard_normal((n_c, plan.m_coarse)))
+    kw = dict(offsets=offsets, plane=plan.plane, n_coarse=n_c, alpha=alpha,
+              m_coarse=plan.m_coarse, use_kernel=use_kernel)
+    b_sh = to_shards(bands, alpha)
+    want = spmv_dia(bands, x, offsets=offsets, plane=plan.plane)
+    several = _mesh(alpha, LAYOUTS[layout])
+    assert several.one_device is None
+    for with_dot in (False, True):
+        one = make_spmv_full_mesh(_mesh(alpha), with_dot=with_dot, **kw)
+        got = make_spmv_full_mesh(several, with_dot=with_dot, **kw)(b_sh, x)
+        ref = one(b_sh, x)
+        if not with_dot:
+            got, ref = (got,), (ref,)
+        assert got[0].shape == x.shape
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        assert _err(got[0], want) <= PARITY
 
 
 def test_layout_helpers():

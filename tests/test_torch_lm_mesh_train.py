@@ -1,18 +1,27 @@
 """The port's train step on a device mesh, on the CPU.
 
-Two bars.  (1) Bitwise: a mesh step with ``D`` data rows and ``accum``
+Two bars.  (1) Against the one-device step: every family but the dense
+one computes whole products on the mesh (its parameters gathered a period
+at a time), so a mesh step with ``D`` data rows and ``accum``
 microbatches performs the one-device step's arithmetic at ``accum * D``
-(the same slices, shapes and f32 adds in the same order), so after 3
+(the same slices, shapes and f32 adds in the same order), and after 3
 steps every loss, grad_norm, parameter, moment and error buffer equals
-the one-device run's bit for bit: glm4-9b (JAX's own case in
-tests/test_distributed.py), mixtral-8x22b (MoE) and rwkv6-1.6b SMOKE,
-compression off and on, on (2, 4) meshes naming the CPU 8 times, and on
-a (2, 2, 2) mesh with a ``pod`` axis (4 data rows).  The runs use one CPU
-thread (a multithreaded CPU product may round differently run to run).
-(2) Against JAX: its sharded step (``param_shardings`` on an Auto-axis
-(2, 4) mesh of 8 forced host devices, one subprocess for the module, as
-tests/test_torch_full_mesh.py runs JAX) from its ``init_state(key 0)``
-with ``AdamW()``'s lr,
+the one-device run's bit for bit: mixtral-8x22b (MoE) and rwkv6-1.6b
+SMOKE, compression off and on, on (2, 4) meshes naming the CPU 8 times,
+and on a (2, 2, 2) mesh with a ``pod`` axis (4 data rows).  The dense
+family (glm4-9b, JAX's own case in tests/test_distributed.py) computes
+its products on each ``model`` position's slice and sums the partials, so
+its cases (and qwen3-0.6b's and starcoder2-7b's, whose 6 heads do not
+split over 4 positions) hold three bars instead: bitwise the same step
+on a mesh alternating ``cpu`` and ``cpu:0``, bitwise on a repeat, and
+within (2)'s
+bar of the one-device step (loss and grad_norm 1e-5 relative, 1e-4 for
+grad_norm with compression; every parameter within 2 lr k).  The runs use
+one CPU thread (a multithreaded CPU product may round differently run to
+run).  (2) Against JAX: its sharded step (``param_shardings`` on an
+Auto-axis (2, 4) mesh of 8 forced host devices, one subprocess for the
+module, as tests/test_torch_full_mesh.py runs JAX) from its
+``init_state(key 0)`` with ``AdamW()``'s lr,
 carried across by ``train_state_from_numpy(..., mesh=)``; after each of 3
 steps on ``batch_at(DataConfig(seed=0), k)``, loss and grad_norm within
 1e-5 relative (1e-4 for grad_norm with compression, as
@@ -20,14 +29,19 @@ tests/test_torch_train_step.py allows), every parameter within that
 file's bounds (2 lr k; 1e-2 lr where the gradient stayed above noise,
 without compression, for qwen3: glm4's one-device step is outside that
 rule against JAX's one-device step too; the moments and error buffers
-as there).  JAX's step computes the whole batch at once and
+as there): glm4-9b, qwen3-0.6b and starcoder2-7b (whose 6 heads do not
+split over 4 positions).  JAX's step computes the whole batch at once and
 the port's two rows' halves, so the two differ by rounding only.  Then
-the launcher: ``--mesh 2,4`` resumes an unsharded run's checkpoint and
-the reverse, both bitwise an unsharded run at ``--accum 2``; a mesh with
-too few devices raises.
+the launcher (qwen3-0.6b): a mesh run resumed on the mesh is bitwise an
+uninterrupted mesh run; ``--mesh 2,4`` resumes an unsharded run's
+checkpoint and the reverse, and both, like the mesh run, are within (1)'s
+bar of an unsharded run at ``--accum 2``; a mesh with too few devices
+raises.
 """
+import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -52,7 +66,8 @@ CPU8 = ["cpu"] * 8
 STEPS, LR, SEQ, BATCH = 3, 1e-2, 32, 4
 JAX_LR = 3e-4   # AdamW()'s: the lr tests/test_torch_train_step.py's
 #                 parameter bounds were chosen at
-JAX_CASES = [("glm4-9b", False), ("glm4-9b", True), ("qwen3-0.6b", False)]
+JAX_CASES = [("glm4-9b", False), ("glm4-9b", True), ("qwen3-0.6b", False),
+             ("starcoder2-7b", False)]
 # the archs whose one-device step meets the 1e-2 lr rule against JAX's
 # (tests/test_torch_train_step.py); glm4's does not: 3 of its 16,384
 # w_gate elements sit at 1.29e-2 lr after 3 one-device steps, a rounding
@@ -146,8 +161,24 @@ def run(step, state, batches):
     for b in batches:
         state, m = step(state, b)
         metrics.append((bits(m["loss"]), bits(m["grad_norm"]),
-                        int(m["step"])))
+                        int(m["step"]), float(m["loss"]),
+                        float(m["grad_norm"])))
     return state, metrics
+
+
+def within_bar(on, m_on, one, m_one, compress, lr):
+    """``on`` (a sharded state) within the JAX comparison's bar of
+    ``one``: loss and grad_norm 1e-5 relative (1e-4 for grad_norm with
+    compression), every parameter within 2 lr k after k steps."""
+    for a, b in zip(m_on, m_one):
+        assert a[2] == b[2]
+        assert abs(a[3] - b[3]) <= 1e-5 * abs(b[3])
+        assert abs(a[4] - b[4]) <= (1e-4 if compress else 1e-5) * abs(b[4])
+    got = leaves(tts.unshard_state(on, "cpu").params)
+    for g, w in zip(got, leaves(one.params)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert float((g.double() - w.double()).abs().max()) <= (
+            2 * lr * len(m_on))
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +188,8 @@ def run(step, state, batches):
 MESH_CASES = [(arch, compress, "2x4", accum)
               for arch in ("glm4-9b", "mixtral-8x22b", "rwkv6-1.6b")
               for compress in (False, True) for accum in (1,)] + [
-    ("glm4-9b", False, "2x4", 2), ("mixtral-8x22b", True, "2x2x2", 1)]
+    ("glm4-9b", False, "2x4", 2), ("mixtral-8x22b", True, "2x2x2", 1),
+    ("qwen3-0.6b", False, "2x4", 1), ("starcoder2-7b", False, "2x4", 1)]
 
 
 def mesh_of(name):
@@ -169,6 +201,8 @@ def mesh_of(name):
 @pytest.mark.parametrize("arch,compress,mesh_name,accum", MESH_CASES)
 def test_mesh_step_is_bitwise_the_one_device_step(arch, compress, mesh_name,
                                                   accum, one_thread):
+    """Bitwise the one-device step at accum * D for every family whose
+    products stay whole; the dense family (glm4) to its three bars."""
     cfg = treg.SMOKES[arch]
     opt = topt.AdamW(lr=LR)
     mesh = mesh_of(mesh_name)
@@ -183,10 +217,18 @@ def test_mesh_step_is_bitwise_the_one_device_step(arch, compress, mesh_name,
     placed = tts.shard_state(state, mesh)
     assert all(isinstance(x, Sharded) for x in leaves(placed.params))
     assert same_state(placed, state)
-    on, m_on = run(tts.make_train_step(cfg, opt, compress=compress,
-                                       accum=accum), placed, batches)
-    assert m_on == m_one
-    assert same_state(on, one)
+    step = tts.make_train_step(cfg, opt, compress=compress, accum=accum)
+    on, m_on = run(step, placed, batches)
+    if cfg.family == "dense":
+        again, m_again = run(step, placed, batches)
+        assert m_again == m_on and same_state(again, on)
+        alt = make_debug_mesh(2, 4, ["cpu", "cpu:0"] * 4)
+        moved, m_moved = run(step, tts.shard_state(state, alt), batches)
+        assert m_moved == m_on and same_state(moved, on)
+        within_bar(on, m_on, one, m_one, compress, LR)
+    else:
+        assert m_on == m_one
+        assert same_state(on, one)
     assert all(isinstance(x, Sharded) for x in leaves(on.opt.m))
     assert (on.err is None) == (not compress)
     # each position holds only its shards
@@ -198,10 +240,25 @@ def test_mesh_step_is_bitwise_the_one_device_step(arch, compress, mesh_name,
 
 
 def test_mesh_step_counts_the_bytes_it_moves(one_thread):
-    """On a (2, 4) mesh: the parameters gathered once (both rows share
-    the CPU) from every block but the first position's, the second row's
-    gradients reduced to the first position, the reduced gradient
-    scattered to the 7 other positions; nothing crosses a device."""
+    """glm4 on a (2, 4) mesh, both rows on the CPU (nothing crosses a
+    device), 2 rows of 16 tokens a data row:
+
+    * gather, each period's forward and recomputation: the split leaves
+      (``wq``, ``wo`` and the MLP's, ``(data, model)`` or ``(model,
+      data)``) the other data block of each position's slice; ``wk`` and
+      ``wv`` (one kv head, 4 query heads: each position's one query head
+      shares it) whole at every position, 7 of 8 blocks; the norms
+      (replicated) and the vocabulary slices (``(model, None)``) nothing;
+    * reduce: every piece but the first position's goes there: a split
+      leaf's 8 slices of a quarter, ``wk``/``wv`` whole from 8 positions,
+      the norms whole from the second row's first position;
+    * scatter: the reduced gradient to the 7 other positions;
+    * model: at each of the 3 other positions of each row, a split
+      sublayer's input out and partial back in the forward, the
+      recomputation and the backward pass, the positions twice an
+      attention, the tokens and the looked-up rows (and their gradient),
+      and the head's input (and its gradient), labels, each slice's
+      logsumexp and gold logits (and theirs)."""
     cfg = treg.SMOKES["glm4-9b"]
     opt = topt.AdamW(lr=LR)
     mesh = make_debug_mesh(2, 4, CPU8)
@@ -210,16 +267,33 @@ def test_mesh_step_counts_the_bytes_it_moves(one_thread):
     batch = tdata.batch_at(dcfg(cfg, seq=16), 0, device="cpu")
     _, m = tts.make_train_step(cfg, opt, accum=1)(state, batch)
     moved = m["moved"]
-    ps = leaves(state.params)
-    whole = sum(int(np.prod(p.shape)) * p.shards[0].element_size()
-                for p in ps)
-    gather = sum((int(np.prod(p.sharding.tiling(p.ndim))) - 1)
-                 * p.position_bytes() for p in ps)
-    assert moved.gather == MoveStats(gather, 0)
-    assert moved.reduce == MoveStats(whole, 0)
+    ps = state.params
+    blocks = ps["blocks"]["l0"]
+
+    def nbytes(s):
+        return int(np.prod(s.shape)) * s.shards[0].element_size()
+
+    part = [blocks["attn"]["wq"], blocks["attn"]["wo"]] + list(
+        blocks["ffn"].values())
+    kv = [blocks["attn"]["wk"], blocks["attn"]["wv"]]
+    norms = [blocks["ln1"], blocks["ln2"], ps["final_ln"]]
+    vocab = [ps["embed"], ps["lm_head"]]
+    assert all(p.sharding.spec[1:] in (P("data", "model"), P("model", "data"))
+               for p in part + kv)
+    assert moved.gather == MoveStats(
+        2 * sum(nbytes(p) for p in part)
+        + 2 * 2 * 4 * 7 * sum(p.position_bytes() for p in kv), 0)
+    assert moved.reduce == MoveStats(
+        sum(nbytes(p) * 7 // 4 for p in part + vocab)
+        + sum(nbytes(p) * 7 for p in kv) + sum(nbytes(p) for p in norms), 0)
     assert moved.scatter == MoveStats(7 * sum(p.position_bytes()
-                                              for p in ps), 0)
+                                              for p in leaves(ps)), 0)
     assert moved.relayout == MoveStats(0, 0)
+    T, f32, tok = 2 * 16, 4, 4
+    act = T * cfg.d_model * f32
+    per = (6 * act * 2 * cfg.n_periods + 2 * 16 * 8 * cfg.n_periods
+           + T * tok + 2 * act + 2 * act + T * tok + 4 * T * f32)
+    assert moved.model == MoveStats(2 * 3 * per, 0)
 
 
 def test_grad_shardings_relayout_and_need_a_mesh(one_thread):
@@ -313,26 +387,55 @@ def npz(path):
         return {k: z[k].tobytes() for k in z.files}
 
 
+def params_of(path) -> list:
+    """The parameter leaves of a (float32) checkpoint, by its manifest."""
+    with open(path / "manifest.json") as f:
+        meta = json.load(f)
+    with np.load(path / "shard-0.npz") as z:
+        return [z[leaf["key"]] for leaf in meta["leaves"]
+                if leaf["path"].startswith(".params")]
+
+
 def test_launcher_resumes_across_meshes(tmp_path, one_thread):
-    """An unsharded run to step 2 resumed on the mesh to step 4, and a
-    mesh run to step 2 resumed unsharded, both bitwise an unsharded run
-    to step 4 at ``--accum 2`` (the mesh's 2 data rows at accum 1)."""
-    whole, a, b = tmp_path / "whole", tmp_path / "a", tmp_path / "b"
+    """qwen3 (dense: its mesh step computes split products).  A mesh run
+    to step 2 resumed on the mesh to step 4 is bitwise an uninterrupted
+    mesh run, and its step 2 bitwise that run's; an unsharded run to step
+    2 resumed on the mesh, the mesh run resumed unsharded and the
+    uninterrupted mesh run are each, at step 4, within the bar of an
+    unsharded run at ``--accum 2`` (the mesh's 2 data rows at accum 1):
+    every parameter within 2 lr k of its."""
+    whole, mesh, a, b, c = (tmp_path / x for x in
+                            ("whole", "mesh", "a", "b", "c"))
     launch("--steps", "4", "--accum", "2", "--ckpt", str(whole),
            "--ckpt-every", "2")
+    out = launch("--steps", "4", "--ckpt", str(mesh), "--ckpt-every", "2",
+                 *MESH)
+    assert out[-1] == "done"
     launch("--steps", "2", "--accum", "2", "--ckpt", str(a),
            "--ckpt-every", "2")
     out = launch("--steps", "4", "--ckpt", str(a), "--ckpt-every", "2",
                  *MESH)
     assert out[0] == "resumed from step 2" and out[-1] == "done"
     launch("--steps", "2", "--ckpt", str(b), "--ckpt-every", "2", *MESH)
+    shutil.copytree(b, c)
     out = launch("--steps", "4", "--accum", "2", "--ckpt", str(b),
                  "--ckpt-every", "2")
     assert out[0] == "resumed from step 2"
-    ref = npz(whole / "step-4")
-    assert npz(a / "step-4") == ref
-    assert npz(b / "step-4") == ref
-    assert npz(b / "step-2") == npz(whole / "step-2")
+    out = launch("--steps", "4", "--ckpt", str(c), "--ckpt-every", "2",
+                 *MESH)
+    assert out[0] == "resumed from step 2"
+    assert npz(b / "step-2") == npz(mesh / "step-2")
+    assert npz(c / "step-4") == npz(mesh / "step-4")
+    assert npz(a / "step-2") == npz(whole / "step-2")
+    ref = params_of(whole / "step-4")
+    bound = 2 * JAX_LR * 4   # the launcher's lr (AdamW()'s), 4 steps
+    for run_dir in (a, b, mesh):
+        got = params_of(run_dir / "step-4")
+        assert len(got) == len(ref)
+        for g, w in zip(got, ref):
+            assert g.dtype == w.dtype == np.float32 and g.shape == w.shape
+            assert np.abs(g.astype(np.float64) - w).max() <= bound
+    assert npz(mesh / "step-4") != npz(whole / "step-4")
 
 
 def test_launcher_mesh_needs_its_devices():

@@ -1,0 +1,319 @@
+"""A data row's view of a sharded parameter tree
+(``repro_torch.models.tensor_parallel``) against the whole computation and
+the JAX package's, on the CPU.
+
+The dense family's SMOKE configs are laid out by ``param_shardings`` on
+meshes naming the CPU; a row's view then runs each split sublayer on its
+``model`` positions' slices:
+
+* attention with the q and kv heads split (qwen3 on (2, 2)), with each
+  position's query heads sharing one kv head fetched whole (qwen3 and
+  glm4 on (2, 4)), and replicated where the heads do not split
+  (starcoder2's 6 heads over 4 positions);
+* the gated (glm4) and the plain (starcoder2) MLP;
+* the vocabulary: the lookup (bitwise the whole one: one slice owns each
+  row) and the loss, tied (qwen3) and untied (glm4), with masked labels
+  and a row whose labels are all masked.
+
+Each against the whole sublayer on one device and JAX's, the same inputs
+from numpy seeds, within 2e-6 of the largest |value| (float32; the two
+sums' orders differ).  Then a row's loss and every gradient (the pieces
+added at their boxes) against JAX's ``loss_fn`` and ``jax.grad`` within
+1e-5 (``tests/test_torch_train_loss.py``'s bar); the model axis's sum in
+f32, cast once, in position order; and a period under ``checkpoint``:
+every leaf of the period fetched once in the forward and once more in the
+backward pass, no fetched leaf saved for the backward.
+"""
+import collections
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jreg
+from repro.models import attention as jatt
+from repro.models import layers as jlay
+from repro.models import lm as jlm
+from repro_torch.configs import registry as treg
+from repro_torch.interop import lm_params_from_numpy
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import lm as tlm
+from repro_torch.models import tensor_parallel as tp
+from repro_torch.models.layers import mlp_apply
+from repro_torch.models.sharding import MoveStats, param_shardings, shard
+from repro_torch.training.tree import key_paths, leaves, unflatten
+
+F32 = 2e-6
+LOSS_TOL = GRAD_TOL = 1e-5
+B, S = 2, 16
+
+
+def rel_err(got, want) -> float:
+    got = np.asarray(torch.as_tensor(got).detach().double())
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def setup(arch, mesh_shape, seed=0):
+    """JAX's SMOKE parameters (key ``seed``), the port's copy, and the
+    port's laid out on a mesh naming the CPU."""
+    jcfg, cfg = jreg.SMOKES[arch], treg.SMOKES[arch]
+    jp = jlm.init_params(jcfg, jax.random.key(seed))
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, jp),
+                                  device="cpu")
+    mesh = make_debug_mesh(*mesh_shape, ["cpu"] * math.prod(mesh_shape))
+    sh = leaves(param_shardings(mesh, params))
+    placed = unflatten(params, [shard(t, s) for t, s in
+                                zip(leaves(params), sh)])
+    return jcfg, cfg, jp, params, placed
+
+
+def view(cfg, placed):
+    stats = {"gather": MoveStats(), "model": MoveStats()}
+    tree, row = tp.row_view(cfg, placed, (0,) * 2, stats)
+    return tree, row, stats
+
+
+def period(cfg, tree, layer="l0"):
+    return tp.materialize(cfg, tlm._index(tree["blocks"], 0))[layer]
+
+
+def hidden(cfg, seed=1):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+
+
+def at0(tree):
+    """Period 0 of a stacked parameter subtree."""
+    return {k: v[0] for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# the sublayers
+# ---------------------------------------------------------------------------
+
+ATTN_CASES = [("qwen3-0.6b", (2, 2), "kv"), ("qwen3-0.6b", (2, 4), "pick"),
+              ("glm4-9b", (2, 4), "pick"), ("starcoder2-7b", (2, 4), None)]
+
+
+@pytest.mark.parametrize("arch,mesh_shape,mode", ATTN_CASES)
+def test_split_attention_matches_whole_and_jax(arch, mesh_shape, mode):
+    jcfg, cfg, jp, params, placed = setup(arch, mesh_shape)
+    tree, row, stats = view(cfg, placed)
+    sub = period(cfg, tree)["attn"]
+    assert (sub.mode if tp.is_split(sub) else None) == mode
+    h = hidden(cfg)
+    th = torch.as_tensor(h)
+    pos = torch.arange(S)
+    spec = tlm.attn_spec(cfg)
+    if mode:
+        y, _ = tp.attn_train(sub, th, pos, spec)
+        assert stats["model"].positions > 0
+    else:   # the sublayer runs whole on the row's first position
+        y, _ = tlm.attn_train(sub, th, pos, spec)
+        assert stats["model"] == MoveStats()
+    whole, _ = tlm.attn_train(at0(params["blocks"]["l0"]["attn"]), th, pos,
+                              spec)
+    want, _ = jax.jit(jatt.attn_train, static_argnums=3)(
+        at0(jp["blocks"]["l0"]["attn"]), jnp.asarray(h),
+        jnp.arange(S, dtype=jnp.int32), jlm.attn_spec(jcfg))
+    assert rel_err(y, whole.numpy()) <= F32
+    assert rel_err(y, np.asarray(want)) <= F32
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "starcoder2-7b"])
+def test_split_mlp_matches_whole_and_jax(arch):
+    jcfg, cfg, jp, params, placed = setup(arch, (2, 4))
+    tree, row, stats = view(cfg, placed)
+    sub = period(cfg, tree)["ffn"]
+    assert tp.is_split(sub)
+    assert ("w_gate" in sub.p) == cfg.act_gated
+    h = hidden(cfg)
+    y = tp.mlp_apply(sub, torch.as_tensor(h), cfg.act)
+    whole = mlp_apply(at0(params["blocks"]["l0"]["ffn"]), torch.as_tensor(h),
+                      cfg.act)
+    want = jlay.mlp_apply(at0(jp["blocks"]["l0"]["ffn"]), jnp.asarray(h),
+                          jcfg.act)
+    assert rel_err(y, whole.numpy()) <= F32
+    assert rel_err(y, np.asarray(want)) <= F32
+    # the input out to 3 positions and the partials back
+    act = B * S * cfg.d_model * 4
+    assert stats["model"] == MoveStats(2 * 3 * act, 0)
+
+
+def labels_of(cfg, seed=2, masked_row=False):
+    """Labels, a quarter masked (and, with ``masked_row``, all of the
+    second row)."""
+    rng = np.random.default_rng(seed)
+    lab = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    lab[rng.random((B, S)) < 0.25] = tlm.MASK_LABEL
+    if masked_row:
+        lab[1] = tlm.MASK_LABEL
+    return lab
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "glm4-9b"])
+def test_vocab_lookup_and_head_loss(arch):
+    """Tied (qwen3) and untied (glm4): the lookup bitwise the whole one;
+    the loss and its gradients (x, the head's slices) within 2e-6 of the
+    whole head's, with masked labels, and a second batch whose second row
+    is all masked."""
+    _, cfg, _, params, placed = setup(arch, (2, 4))
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    rng = np.random.default_rng(5)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)))
+    tree, _, _ = view(cfg, placed)
+    assert tp.splits_vocab(tree["embed"]) and tp.splits_vocab(tree[head])
+    assert torch.equal(tlm._embed(cfg, tree, tokens),
+                       params["embed"][tokens])
+    for seed, masked_row in ((2, False), (3, True)):
+        tree, row, _ = view(cfg, placed)
+        labels = torch.as_tensor(labels_of(cfg, seed, masked_row))
+        assert (labels == tlm.MASK_LABEL).any()
+        x = torch.as_tensor(hidden(cfg, seed)).requires_grad_()
+        loss = tlm.head_loss(cfg, tree, x, labels)
+        pieces = row.pieces()
+        got = torch.autograd.grad(loss, [x] + [p[3] for p in pieces])
+        w = params[head].clone().requires_grad_()
+        want = tlm.head_loss(cfg, {**params, head: w}, x, labels)
+        gx, gw = torch.autograd.grad(want, [x, w])
+        assert abs(float(loss.detach()) - float(want.detach())) <= F32 * abs(
+            float(want.detach()))
+        assert rel_err(got[0], gx.numpy()) <= F32
+        k_head = [k for k, _ in key_paths(params)].index(f"[{head!r}]")
+        assembled = torch.zeros_like(w)
+        for (k, idx, _, _), g in zip(pieces, got[1:]):
+            assert k == k_head
+            assembled[idx] += g
+        assert rel_err(assembled, gw.numpy()) <= F32
+
+
+# ---------------------------------------------------------------------------
+# a row's loss and gradients
+# ---------------------------------------------------------------------------
+
+ROW_CASES = [("glm4-9b", (2, 4)), ("qwen3-0.6b", (2, 4)),
+             ("qwen3-0.6b", (2, 2)), ("starcoder2-7b", (2, 4)),
+             ("granite-3-8b", (2, 4))]
+
+
+@pytest.mark.parametrize("arch,mesh_shape", ROW_CASES)
+def test_row_loss_and_gradients_match_jax(arch, mesh_shape):
+    jcfg, cfg, jp, params, placed = setup(arch, mesh_shape, seed=4)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels = labels_of(cfg)
+    tree, row, stats = view(cfg, placed)
+    with torch.enable_grad():
+        loss = tlm.loss_fn(cfg, tree, torch.as_tensor(tokens),
+                           torch.as_tensor(labels))
+        pieces = row.pieces()
+        got = torch.autograd.grad(loss, [p[3] for p in pieces])
+    grads = [torch.zeros_like(t) for t in leaves(params)]
+    for (k, idx, _, _), g in zip(pieces, got):
+        grads[k][idx] += g
+    assert stats["gather"].positions > 0 and stats["model"].positions > 0
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        functools.partial(jlm.loss_fn, jcfg)))(
+        jp, jnp.asarray(tokens), jnp.asarray(labels))
+    assert abs(float(loss.detach()) - float(jloss)) <= LOSS_TOL * abs(
+        float(jloss))
+    for (name, w), g in zip(key_paths(jax.tree.map(np.asarray, jgrads)),
+                            grads):
+        assert g.shape == w.shape, name
+        assert rel_err(g, w) <= GRAD_TOL, name
+
+
+# ---------------------------------------------------------------------------
+# the model axis's sum and the period's fetches
+# ---------------------------------------------------------------------------
+
+def test_model_sum_is_f32_in_position_order_cast_once():
+    """bfloat16 partials: their f32 sum in position order, cast once; the
+    backward sends the output's gradient to every position, and sums the
+    input's gradients from them the same way."""
+    _, cfg, _, _, placed = setup("qwen3-0.6b", (2, 4))
+    _, row, stats = view(cfg, placed)
+    rng = np.random.default_rng(7)
+    parts = [torch.as_tensor(rng.standard_normal((3, 5)).astype(np.float32)
+                             ).bfloat16().requires_grad_() for _ in range(4)]
+    y = row.reduce(parts)
+    want = parts[0].float()
+    for p in parts[1:]:
+        want = want + p.float()
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, want.bfloat16())
+    g = torch.as_tensor(rng.standard_normal((3, 5)).astype(np.float32)
+                        ).bfloat16()
+    assert all(torch.equal(gi, g)
+               for gi in torch.autograd.grad(y, parts, g))
+    t = torch.zeros((3, 5), dtype=torch.bfloat16, requires_grad=True)
+    outs = row.broadcast(t)
+    gs = [torch.as_tensor(rng.standard_normal((3, 5)).astype(np.float32)
+                          ).bfloat16() for _ in outs]
+    (gt,) = torch.autograd.grad(outs, [t], gs)
+    total = gs[0].float()
+    for x in gs[1:]:
+        total = total + x.float()
+    assert torch.equal(gt, total.bfloat16())
+    # 3 partials in, 3 gradients out, 3 copies out, 3 gradients in
+    assert stats["model"] == MoveStats(12 * 15 * 2, 0)
+
+
+def test_period_gathers_twice_and_saves_no_gathered_leaf(monkeypatch):
+    """qwen3 on (2, 4), remat on: each (block leaf, period, position) is
+    fetched once by the forward and once more by the backward pass, and
+    no tensor saved for the backward outside the periods shares storage
+    with a tensor a period fetched."""
+    _, cfg, _, _, placed = setup("qwen3-0.6b", (2, 4))
+    tree, row, _ = view(cfg, placed)
+    fetched, count = [], collections.Counter()
+    real = tp.Row.fetch
+
+    def spy(self, leaf, q, part):
+        out = real(self, leaf, q, part)
+        if leaf.period is not None:
+            count[(leaf.k, leaf.period, q)] += 1
+            fetched.append(out)   # alive: no later tensor takes its memory
+        return out
+
+    monkeypatch.setattr(tp.Row, "fetch", spy)
+    packed = []
+
+    def pack(t):
+        packed.append(t.untyped_storage().data_ptr())
+        return t
+
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)))
+    labels = torch.as_tensor(labels_of(cfg))
+    with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+            pack, lambda t: t):
+        loss = tlm.loss_fn(cfg, tree, tokens, labels)
+    assert count and set(count.values()) == {1}
+    assert not set(packed) & {t.untyped_storage().data_ptr()
+                              for t in fetched}
+    torch.autograd.grad(loss, [p[3] for p in row.pieces()])
+    assert set(count.values()) == {2}
+    # every block leaf of every period, on every position that uses it
+    per_period = collections.Counter(p for _, p, _ in count)
+    assert sorted(per_period) == list(range(cfg.n_periods))
+
+
+def test_other_families_compute_whole_products():
+    """mixtral's attention and MoE on a (2, 4) row: every leaf whole on the
+    row's first position; no model-axis copy."""
+    _, cfg, _, _, placed = setup("mixtral-8x22b", (2, 4))
+    tree, row, stats = view(cfg, placed)
+    assert not row.split
+    lay = period(cfg, tree)
+    assert all(not tp.is_split(v) for v in lay.values())
+    assert all(isinstance(t, torch.Tensor)
+               for t in leaves(lay))
+    assert stats["model"] == MoveStats()
+    assert {q for _, _, q, _ in row.pieces()} == {0}

@@ -221,6 +221,28 @@ def test_cli_resumes_bitwise(tmp_path):
             == json.loads((b / "step-9" / "manifest.json").read_text()))
 
 
+def test_cli_layers_cuts_the_depth(tmp_path):
+    """``--layers 1`` trains the smoke config with one layer: each block
+    leaf of the checkpoint holds one layer, the other leaves are the
+    whole run's."""
+    cut, whole = tmp_path / "cut", tmp_path / "whole"
+    for d, extra in ((cut, ["--layers", "1"]), (whole, [])):
+        tlaunch.main(SMOKE_ARGS + ["--device", "cpu", "--steps", "1",
+                                   "--ckpt", str(d), "--ckpt-every", "1",
+                                   *extra], log=lambda line: None)
+    man = [json.loads((d / "step-1" / "manifest.json").read_text())
+           ["leaves"] for d in (cut, whole)]
+    assert [e["path"] for e in man[0]] == [e["path"] for e in man[1]]
+    blocks = 0
+    for c, w in zip(*man):
+        if "['blocks']" in w["path"]:
+            blocks += 1
+            assert w["shape"][0] == 2 and c["shape"] == [1] + w["shape"][1:]
+        else:
+            assert c["shape"] == w["shape"], w["path"]
+    assert blocks > 0
+
+
 def test_cli_mesh_is_refused(capsys):
     """``--mesh`` without the devices it needs raises (the CPU is one
     device unless ``--mesh-devices`` names it 8 times); it never runs on
