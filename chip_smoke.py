@@ -138,16 +138,16 @@ result.  Phases, in order (any failure exits nonzero):
     seconds per dof fitted to the model, ms per iteration against rows
     per part as a bound on the knee, a pinned 256 MB host-to-device copy)
     beside the shipped constant, failing a field off by more than 2x (a
-    bound: more than 2x above it); (12c) 6 steps (the 4th to the 9th from
+    bound: more than 2x above it); (12c) 3 steps (the 4th to the 6th from
     rest) through ``run_adaptive`` at the main path's settings under a
     controller over the divisors of 30 sampling every step from the
     static pick (every step converged with continuity below 1e-6, the
     kernels launched, every plan from the cache), printing the static
     pick, the trajectory, the final calibration and the sweep's fastest
-    alpha; then the witness of the 10th step, whose continuity error
-    passes 1e-6 at ``p_tol`` 1e-10: that step with the kernels and with
-    plain PyTorch held to each other (1e-10, identical counts and flags),
-    and with the kernels at ``p_tol`` 1e-11 held below 1e-6; (12d) the
+    alpha; then the witness of the 7th step: that step with the kernels
+    and with plain PyTorch held to each other (1e-10, identical counts and
+    flags), and with the kernels at ``p_tol`` 1e-11 held below 1e-6 (at
+    ``p_tol`` 1e-10 the continuity error passes 1e-6 at the 10th); (12d) the
     pressure CG for 50 iterations with the kernels and with plain PyTorch
     on cube meshes with parts of 512 to 308,700 rows (ms per iteration,
     and the rate per dof against the 210^3 mesh's), the kernels required
@@ -308,9 +308,10 @@ result.  Phases, in order (any failure exits nonzero):
     (``seq_len`` 4096, batch 4) and rwkv6-1.6b cut to 2 layers
     (``seq_len`` 2048, batch 2: the 256-step time chunks), gradients with
     remat bitwise those without, ``max_memory_allocated`` of each; (17d)
-    17b's full-width state (8 layers) written and restored in process
-    (bytes, seconds, bitwise), then ``python -m repro_torch.launch.train``
-    (qwen3-0.6b, ``--layers 8 --seq-len 512 --batch 8``) run uninterrupted to step 2
+    qwen3-0.6b's full-width state cut to 2 layers written and restored
+    in process (bytes, seconds, bitwise), then ``python -m
+    repro_torch.launch.train`` (qwen3-0.6b, ``--layers 2 --seq-len 512
+    --batch 8``) run uninterrupted to step 2
     and, in another directory, to step 1 and resumed to step 2: it must
     print ``resumed from step 1`` and the two step-2 checkpoints must
     hold the same bytes.  Phase 17's checks are collected and fail the
@@ -338,7 +339,24 @@ result.  Phases, in order (any failure exits nonzero):
     then ``launch/train.py --smoke`` on one device (A) and on the mesh
     (M) to step 4, and on the mesh to step 2 resumed to step 4 on the
     mesh (B) and on one device (C): B's step-4 checkpoint bitwise M's,
-    M's and C's parameters within 2 lr k of A's; (18c) the GPipe
+    M's and C's parameters within 2 lr k of A's; (18e) phi3.5-moe at full
+    width (d 4096, 16 experts, ``d_ff`` 6400, vocab 32064) cut 32 -> 1
+    layer (its whole period), 18b's batches and mesh: its attention, MoE
+    (the experts over ``data``, their ``d_ff`` over ``model``) and
+    vocabulary split, to 18b's bars against the one-device step at accum
+    2, the mesh run twice bitwise; the tokens whose routes differ between
+    the two runs (bf16: one rounding can flip a top-2 route), s a step,
+    both peaks, and the bytes a step moves by kind beside what
+    ``mesh_step_moves`` composed for the schedule that ran the MoE whole
+    (``MOE_WHOLE_MOVES``); the gather must fall below it and ``model``
+    be above 0; (18f) jamba's Mamba mixer (``d_inner`` 8192, ``d_state``
+    16, ``dt_rank`` 256) and MoE sublayer (16 experts, ``d_ff`` 14336) at
+    full width in f32, 2 x 512, on one (2, 4) row: each split over
+    ``model`` against the whole sublayer, the output and the gradients of
+    the input and of every parameter within 1e-4 of each whole one's
+    largest |value| (jamba's whole period does not fit the card twice for
+    a train step; its mesh step runs at SMOKE width in the CPU tests);
+    (18c) the GPipe
     forward of the same cut, 8 x 1024 on a (pod 2, data 2, model 2) mesh
     with 4 microbatches: bitwise ``hidden_states`` per slice, within 1e-2
     of the full batch's largest |value|, ms against ``hidden_states``;
@@ -404,10 +422,12 @@ result.  Phases, in order (any failure exits nonzero):
     directory; it touches no device; the whole run starts it beside the
     kernels' build and waits for it before phase 3): 80 records, 66 ``ok``, 14
     ``skipped``, none in error, each under JAX's file name, the command's
-    seconds; then the ``moves`` it composes at 18b's configuration
-    (qwen3-0.6b cut to 4 layers, a (2, 4) mesh naming ``cuda:0`` 8 times,
-    accum 1, 8 x 1024) against the ``MeshStepStats`` 18b measured (every
-    kind, ``model`` too), integer for integer.  Its results go on a line of their own (``dryrun {...}``).
+    seconds, ``moves`` on every ``ok`` train cell; then the ``moves`` it
+    composes at 18b's and 18e's configurations (qwen3-0.6b cut to 4
+    layers, phi3.5-moe cut to 1, a (2, 4) mesh naming ``cuda:0`` 8 times,
+    accum 1, 8 x 1024) against the ``MeshStepStats`` 18b and 18e measured
+    (every kind, ``model`` too), integer for integer.  Its results go on
+    a line of their own (``dryrun {...}``).
 
 In phases 9-14 every kernel wrapper's plain version is made to raise while
 the kernel runs go: the card's path launches the kernels only (14c's
@@ -445,7 +465,8 @@ full-mesh CG instead.  With ``--serving``, phases 1 and 2 run, then phases
 phase 15; with ``--lm``, phase 16; with ``--train``, phase 17; with
 ``--lm-mesh``, phase 18; with ``--assembly-mesh``, phase 19 from the main
 path's 3-step state; with ``--dryrun``, phase 20 (after phase 18 when
-``--lm-mesh`` is given too, else without 18b's bytes to compare).
+``--lm-mesh`` is given too, else without 18b's and 18e's bytes to
+compare).
 """
 from __future__ import annotations
 
@@ -3202,11 +3223,12 @@ def profile_cg(torch, iters: int, full_mesh: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 # the ratios of the sweep and of the adaptive run: every divisor of PARTS
 SWEEP_ALPHAS = (1, 2, 3, 5, 6, 10, 15, 30)
-# the adaptive run takes the 4th to the 9th step from rest at the main
-# path's settings: at its p_tol of 1e-10 the cavity's continuity error
-# passes the 1e-6 bar at the 10th step (PERF.md), which the witness after
-# the run takes with both backends and at WITNESS_P_TOL
-ADAPTIVE_STEPS = 6
+# the adaptive run takes the 4th to the 6th step from rest at the main
+# path's settings (cut from 6 steps to hold the whole script's time); the
+# witness after it takes the 7th with both backends and at WITNESS_P_TOL
+# (at its p_tol of 1e-10 the cavity's continuity error passes the 1e-6 bar
+# at the 10th step, PERF.md)
+ADAPTIVE_STEPS = 3
 WITNESS_P_TOL = 1e-11
 UPDATE_REPS = 20         # CUDA-event reps of one pressure value update
 H2D_BYTES = 256 * 2 ** 20
@@ -3464,7 +3486,7 @@ def adaptive_phase(torch, solver, state, dt, sweep, problems) -> dict:
 
 
 def continuity_witness(torch, solver, state, dt, problems) -> dict:
-    """The next step from ``state`` (the 10th from rest): with the kernels
+    """The next step from ``state`` (the 7th from rest): with the kernels
     and with plain PyTorch at the main path's ``p_tol``, held to each
     other (PARITY, identical counts and flags), so a continuity error
     above CONTINUITY there is the tolerance's and not the kernels'; and
@@ -4696,8 +4718,8 @@ def escalation_phase(torch, dev, problems) -> dict:
         eng.reset_stats()
 
     rates = {k: [] for k in engines}
-    for name in ("unsupervised", "supervised", "supervised", "unsupervised",
-                 "unsupervised", "supervised"):
+    # ABBA (cut from ABBAAB to hold the whole script's time)
+    for name in ("unsupervised", "supervised", "supervised", "unsupervised"):
         eng = engines[name]
         restart(eng)
         if not rates[name]:
@@ -6536,23 +6558,24 @@ def qwen_phase(torch, dev, problems) -> dict:
 
 @contextlib.contextmanager
 def router_record(torch, calls: list):
-    """Record each MoE layer's routes (the sorted top-k expert ids of
-    every token, recomputed from the same router product) while the LM
-    stack runs."""
-    from repro_torch.models import lm
+    """Record each MoE routing's routes (the sorted top-k expert ids of
+    every token) while the LM stack runs: the whole sublayer's and the
+    split one's (``moe_route`` in both modules)."""
+    from repro_torch.models import layers
+    from repro_torch.models import tensor_parallel as tp
 
-    real = lm.moe_apply
+    real = layers.moe_route
 
-    def spy(p, x, *, top_k, act):
-        idx = torch.topk(x.float() @ p["router"], top_k, dim=-1).indices
-        calls.append(idx.sort(dim=-1).values)
-        return real(p, x, top_k=top_k, act=act)
+    def spy(router, x, top_k):
+        combine, idx = real(router, x, top_k)
+        calls.append(idx.detach().sort(dim=-1).values)
+        return combine, idx
 
-    lm.moe_apply = spy
+    layers.moe_route = tp.moe_route = spy
     try:
         yield calls
     finally:
-        lm.moe_apply = real
+        layers.moe_route = tp.moe_route = real
 
 
 def routing_flips(calls: list, n_moe: int, S: int, n_steps: int) -> dict:
@@ -6699,9 +6722,11 @@ BF16_DENSE_FLOPS = 989e12    # H100 SXM dense bf16 peak (NVIDIA data sheet,
 #                              at 700 W)
 # 17c: (arch, layers, seq_len, batch) — full width, depth cut
 REMAT_RUNS = (("qwen3-0.6b", 2, 4096, 4), ("rwkv6-1.6b", 2, 2048, 2))
-RESUME_ARGS = ["--arch", QWEN, "--layers", str(TRAIN_LAYERS), "--seq-len",
-               "512", "--batch", "8"]   # 17d: 17b's depth cut (28 layers
-#                          wrote 6 GB a checkpoint, 118-142 s of phase)
+RESUME_LAYERS = 2            # 17d: qwen3-0.6b's depth cut 28 -> 2 (28 layers
+#                          wrote 6 GB a checkpoint, 118-142 s of phase; 8
+#                          layers 2.8 GB, 92-105 s)
+RESUME_ARGS = ["--arch", QWEN, "--layers", str(RESUME_LAYERS), "--seq-len",
+               "512", "--batch", "8"]   # 17d
 RESUME_STEPS, RESUME_KILL = 2, 1   # 17d: run to step 2; killed after 1
 # 17b: a microbatch's device time by part (lower-case fragments of the
 # kernels' names; the first part that matches takes the kernel)
@@ -7121,8 +7146,8 @@ def same_checkpoint(a, b) -> bool:
 
 
 def train_resume_phase(torch, dev, problems) -> dict:
-    """17d: a checkpoint of 17b's full-width state (its depth cut to
-    :data:`TRAIN_LAYERS`) written and restored in process (bytes,
+    """17d: a checkpoint of qwen3-0.6b's full-width state (its depth cut
+    to :data:`RESUME_LAYERS`) written and restored in process (bytes,
     seconds, bitwise), then the launcher at the same cut killed after
     step 1 and resumed against an uninterrupted run."""
     import tempfile
@@ -7139,7 +7164,7 @@ def train_resume_phase(torch, dev, problems) -> dict:
         print(f"  [17d] {shutil.disk_usage(tmp).free / 1e9:.0f} GB free "
               f"under {tmp}")
         cfg = validate(dataclasses.replace(get_config(QWEN),
-                                           n_layers=TRAIN_LAYERS))
+                                           n_layers=RESUME_LAYERS))
         state = init_state(cfg, AdamW(),
                            torch.Generator(device=dev).manual_seed(0))
         torch.cuda.synchronize()
@@ -7156,7 +7181,7 @@ def train_resume_phase(torch, dev, problems) -> dict:
         free_device(torch)
         shutil.rmtree(path)
         c = out["checkpoint"]
-        print(f"  [17d] {QWEN} state, {TRAIN_LAYERS} layers (bf16 "
+        print(f"  [17d] {QWEN} state, {RESUME_LAYERS} layers (bf16 "
               f"parameters, f32 moments): "
               f"{c['bytes'] / 1e9:.3f} GB written in {c['write_s']:.2f} s, "
               f"restored in {c['restore_s']:.2f} s, bitwise {c['bitwise']}")
@@ -7248,6 +7273,18 @@ MESH_WHOLE_GATHER = 343_474_176  # 18b: the bytes the step gathered a step
 #                          whole (the earlier schedule; PERF.md)
 MESH_WHOLE_COPY = 437_014_528   # 18b: the whole-parameter copy that
 #                          schedule held on the row's device (4 layers)
+PHI = "phi3.5-moe-42b-a6.6b"   # 18e
+MOE_LAYERS = 1               # 18e: phi3.5-moe's depth cut 32 -> 1 (its
+#                          whole period: attention and a 16-expert MoE)
+MOE_WHOLE_MOVES = {          # 18e: what mesh_step_moves composes at 18e's
+    "gather": [9_889_644_544, 0],   # configuration for the schedule that
+    "reduce": [3_126_091_776, 0],   # ran the MoE family's products whole
+    "scatter": [6_391_676_928, 0],  # on the row's first position
+    "relayout": [0, 0], "model": [0, 0]}
+JAMBA = "jamba-v0.1-52b"     # 18f
+MIXER_BATCH, MIXER_SEQ = 2, 512  # 18f: the sublayers' input
+MIXER_TOL = 1e-4             # 18f: f32 split against whole, of the largest
+#                          |value| of each whole output or gradient
 
 
 def mesh_devices(n: int) -> list:
@@ -7397,6 +7434,89 @@ def params_within(torch, got, want, lr: float, k: int) -> dict:
     return out
 
 
+def mesh_step_runs(torch, dev, cfg, opt, batches, routes=None) -> dict:
+    """18b's and 18e's runs, each from ``init_state`` (seed 0) on ``dev``:
+    the one-device step at accum D (the (2, 4) mesh's data rows), then
+    the mesh step at accum 1 twice.  Returns both runs' losses and
+    grad_norms (the first mesh run's), their largest relative
+    differences (``rel``), :func:`params_within` of the first mesh run's
+    parameters (``bar``), whether the two mesh runs are bitwise equal
+    (state, losses, grad_norms),
+    seconds a step, raw peaks, the resident state before each run and
+    the last step's ``moved``.  With ``routes`` (two lists), the MoE
+    routes of the one-device run and of the first mesh run."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.sharding import Sharded, unshard
+    from repro_torch.training.train_step import (data_rows, init_state,
+                                                 make_train_step, shard_state)
+    from repro_torch.training.tree import leaves
+
+    mesh = make_debug_mesh(*MESH_SHAPE, devices=mesh_devices(8))
+    D = len(data_rows(mesh))
+
+    def fresh():
+        return init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+
+    def record(i):
+        return (router_record(torch, routes[i]) if routes is not None
+                else contextlib.nullcontext())
+
+    state = fresh()
+    resident_one = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with record(0):
+        state, m_one, s_one = train_run(
+            torch, make_train_step(cfg, opt, accum=D), state, batches)
+    peak_one = torch.cuda.max_memory_allocated()
+    want = leaves(state.params)
+    del state
+    free_device(torch)
+    step = make_train_step(cfg, opt, accum=1)
+    out = {"D": D, "resident_one": resident_one, "peak_one": peak_one,
+           "s_one": s_one, "secs": [], "resident": [], "peaks": []}
+    for rep in range(2):
+        state = shard_state(fresh(), mesh)
+        torch.cuda.synchronize()
+        out["resident"].append(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        metrics, secs = [], []
+        with record(1) if rep == 0 else contextlib.nullcontext():
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                metrics.append((m["loss"], m["grad_norm"]))
+                out["moved"] = m["moved"]
+        out["peaks"].append(torch.cuda.max_memory_allocated())
+        out["secs"].append(secs)
+        shards = [t for x in leaves(state)
+                  for t in (x.shards if isinstance(x, Sharded) else [x])]
+        if rep == 0:
+            out["bar"] = params_within(
+                torch, [unshard(p, dev) for p in leaves(state.params)],
+                want, opt.lr, len(batches))
+            first, m_mesh = shards, metrics
+            del want
+        else:
+            out["repeat"] = (
+                all(same_bits(torch, x[i], y[i]) for x, y in
+                    zip(metrics, m_mesh) for i in (0, 1))
+                and all(same_bits(torch, t, f)
+                        for t, f in zip(shards, first)))
+            del first, shards
+        del state
+        free_device(torch)
+    out["rel"] = [max(abs(float(x[i]) - float(y[i])) / abs(float(y[i]))
+                      for x, y in zip(m_mesh, m_one)) for i in (0, 1)]
+    out.update(losses=[float(x[0]) for x in m_one],
+               grad_norms=[float(x[1]) for x in m_one],
+               mesh_losses=[float(x[0]) for x in m_mesh],
+               mesh_grad_norms=[float(x[1]) for x in m_mesh])
+    return out
+
+
 def mesh_train_phase(torch, dev, problems) -> dict:
     """18b: the sharded train step at full width (4 layers), its products
     split over ``model`` and its parameters gathered a period at a time,
@@ -7407,103 +7527,58 @@ def mesh_train_phase(torch, dev, problems) -> dict:
     import tempfile
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.config import validate
     from repro_torch.training.data import DataConfig, batch_at
     from repro_torch.training.optimizer import AdamW
-    from repro_torch.training.train_step import (data_rows, init_state,
-                                                 make_train_step, shard_state,
-                                                 unshard_state)
-    from repro_torch.training.tree import leaves
 
     cfg = validate(dataclasses.replace(get_config(QWEN),
                                        n_layers=MESH_LAYERS))
     opt = AdamW()
-    mesh = make_debug_mesh(*MESH_SHAPE, devices=mesh_devices(8))
-    D = len(data_rows(mesh))
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
                       global_batch=MESH_BATCH, seed=0)
     batches = [batch_at(dcfg, k, device=dev) for k in range(MESH_STEPS)]
-    state0 = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
-    resident_one = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    one, m_one, s_one = train_run(torch, make_train_step(cfg, opt, accum=D),
-                                  state0, batches)
-    peak_one = torch.cuda.max_memory_allocated()
-    runs, moved, resident_mesh, peak_mesh = [], None, [], []
-    for _ in range(2):
-        state = shard_state(state0, mesh)
-        torch.cuda.synchronize()
-        resident_mesh.append(torch.cuda.memory_allocated())
-        torch.cuda.reset_peak_memory_stats()
-        step = make_train_step(cfg, opt, accum=1)
-        metrics, secs = [], []
-        for b in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, b)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            metrics.append((m["loss"], m["grad_norm"]))
-            moved = m["moved"]
-        peak_mesh.append(torch.cuda.max_memory_allocated())
-        runs.append((unshard_state(state, dev), metrics, secs))
-        del state
-
-    def same_run(a, b):
-        return (same_leaves(torch, leaves(a[0]), leaves(b[0]))
-                and all(same_bits(torch, x[0], y[0])
-                        and same_bits(torch, x[1], y[1])
-                        for x, y in zip(a[1], b[1])))
-
-    rel = [max(abs(float(x[i]) - float(y[i])) / abs(float(y[i]))
-               for x, y in zip(runs[0][1], m_one)) for i in (0, 1)]
-    bar = params_within(torch, leaves(runs[0][0].params), leaves(one.params),
-                        opt.lr, MESH_STEPS)
-    param_err = bar["max"]
+    r = mesh_step_runs(torch, dev, cfg, opt, batches)
+    D, moved, bar, rel = r["D"], r["moved"], r["bar"], r["rel"]
     bound = 2 * opt.lr * MESH_STEPS
-    repeat = same_run(runs[0], runs[1])
     # the step's own memory: its peak above the state it starts from
-    step_one = peak_one - resident_one
-    step_mesh = max(p - r for p, r in zip(peak_mesh, resident_mesh))
+    step_one = r["peak_one"] - r["resident_one"]
+    step_mesh = max(p - x for p, x in zip(r["peaks"], r["resident"]))
     out = {"layers": MESH_LAYERS, "seq_len": MESH_SEQ, "batch": MESH_BATCH,
-           "losses": [float(x[0]) for x in m_one],
-           "grad_norms": [float(x[1]) for x in m_one],
-           "mesh_losses": [float(x[0]) for x in runs[0][1]],
-           "mesh_grad_norms": [float(x[1]) for x in runs[0][1]],
+           "losses": r["losses"], "grad_norms": r["grad_norms"],
+           "mesh_losses": r["mesh_losses"],
+           "mesh_grad_norms": r["mesh_grad_norms"],
            "rel_loss": rel[0], "rel_grad_norm": rel[1],
-           "param_err": param_err, "param_bound": bound,
+           "param_err": bar["max"], "param_bound": bound,
            "param_excess": bar["excess"], "over_2lrk": bar["over_2lrk"],
-           "one_device_step_s": s_one, "mesh_step_s": [r[2] for r in runs],
-           "peak_bytes_one_device": peak_one, "peak_bytes_mesh": peak_mesh,
-           "resident_bytes_one_device": resident_one,
-           "resident_bytes_mesh": resident_mesh,
+           "one_device_step_s": r["s_one"], "mesh_step_s": r["secs"],
+           "peak_bytes_one_device": r["peak_one"],
+           "peak_bytes_mesh": r["peaks"],
+           "resident_bytes_one_device": r["resident_one"],
+           "resident_bytes_mesh": r["resident"],
            "step_peak_one_device": step_one, "step_peak_mesh": step_mesh,
            "whole_gather_before": MESH_WHOLE_GATHER,
            "moved": {k: list(v) for k, v in moved._asdict().items()},
-           "bitwise_repeat": repeat}
-    del one, runs, state0
-    free_device(torch)
+           "bitwise_repeat": r["repeat"]}
     print(f"  [18b] {QWEN} cut to {MESH_LAYERS} layers at full width, "
           f"{cfg.dtype}, seq_len {MESH_SEQ}, global batch {MESH_BATCH}: "
           f"losses {[f'{x:.4f}' for x in out['losses']]} one device, "
           f"{[f'{x:.4f}' for x in out['mesh_losses']]} on the mesh; one "
-          f"device at accum {D}: {[f'{x:.3f}' for x in s_one]} s a step; the "
-          f"{MESH_SHAPE} mesh at accum 1 (split products, a period's "
-          f"gather at a time): "
-          f"{[[f'{x:.3f}' for x in r] for r in out['mesh_step_s']]} s a step "
+          f"device at accum {D}: {[f'{x:.3f}' for x in r['s_one']]} s a "
+          f"step; the {MESH_SHAPE} mesh at accum 1 (split products, a "
+          f"period's gather at a time): "
+          f"{[[f'{x:.3f}' for x in s] for s in r['secs']]} s a step "
           f"(two runs); loss and grad_norm within {rel[0]:.2e} / "
           f"{rel[1]:.2e} of the one-device step's (bar {PIPE_TOL}), every "
-          f"parameter within {param_err:.3e} (2 lr k = {bound:.1e}, passed "
+          f"parameter within {bar['max']:.3e} (2 lr k = {bound:.1e}, passed "
           f"by {bar['over_2lrk']} elements; with {MESH_STEPS} bf16 "
           f"roundings the bar is passed by {bar['excess']:.3e}); the two "
-          f"mesh runs bitwise: {repeat}")
-    print(f"  [18b] peak memory: one device {peak_one:,} B ({resident_one:,} "
-          f"resident, the step {step_one:,} above it); the mesh "
-          f"{peak_mesh} B ({resident_mesh} resident, the step {step_mesh:,} "
-          f"above it); the mesh step's above the one-device step's "
-          f"{step_mesh - step_one:,} B (bar: the whole-parameter copy "
-          f"{MESH_WHOLE_COPY:,} B)")
+          f"mesh runs bitwise: {r['repeat']}")
+    print(f"  [18b] peak memory: one device {r['peak_one']:,} B "
+          f"({r['resident_one']:,} resident, the step {step_one:,} above "
+          f"it); the mesh {r['peaks']} B ({r['resident']} resident, the "
+          f"step {step_mesh:,} above it); the mesh step's above the "
+          f"one-device step's {step_mesh - step_one:,} B (bar: the "
+          f"whole-parameter copy {MESH_WHOLE_COPY:,} B)")
     print(f"  [18b] bytes a mesh step moves between positions (between "
           f"devices): gather {moved.gather[0]:,} ({moved.gather[1]:,}; the "
           f"whole-parameter gather before: {MESH_WHOLE_GATHER:,}), reduce "
@@ -7511,11 +7586,11 @@ def mesh_train_phase(torch, dev, problems) -> dict:
           f"{moved.scatter[0]:,} ({moved.scatter[1]:,}), relayout "
           f"{moved.relayout[0]:,}, model {moved.model[0]:,} "
           f"({moved.model[1]:,})")
-    if not (max(rel) <= PIPE_TOL and bar["excess"] <= 0 and repeat):
+    if not (max(rel) <= PIPE_TOL and bar["excess"] <= 0 and r["repeat"]):
         problems.append(f"18b: within {rel} of the one-device step's "
                         f"losses and grad_norms (bar {PIPE_TOL}), parameters "
                         f"{bar} (bar 2 lr k = {bound} and a storage "
-                        f"rounding a step), repeat {repeat}")
+                        f"rounding a step), repeat {r['repeat']}")
     if not moved.gather[0] < MESH_WHOLE_GATHER:
         problems.append(f"18b: gather {moved.gather[0]} B, not below the "
                         f"whole-parameter gather {MESH_WHOLE_GATHER}")
@@ -7567,6 +7642,193 @@ def mesh_train_phase(torch, dev, problems) -> dict:
           f"{lr_bound:.1e})")
     if not (resumed and equal and max(errs) <= lr_bound):
         problems.append(f"18b launcher: {out['launcher']}")
+    return out
+
+
+def moe_mesh_config():
+    """18e's configuration: phi3.5-moe at full width, one layer."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.config import validate
+
+    return validate(dataclasses.replace(get_config(PHI), n_layers=MOE_LAYERS))
+
+
+def moe_mesh_phase(torch, dev, problems) -> dict:
+    """18e: phi3.5-moe at full width cut to one layer (its period), its
+    attention, MoE (the experts over ``data``, their ``d_ff`` over
+    ``model``) and vocabulary split on the (2, 4) mesh, against the
+    one-device step at accum 2 with 18b's bars; the tokens whose routes
+    differ between the two counted."""
+    from repro_torch.models import lm
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.optimizer import AdamW
+
+    cfg = moe_mesh_config()
+    opt = AdamW()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
+                      global_batch=MESH_BATCH, seed=0)
+    batches = [batch_at(dcfg, k, device=dev) for k in range(MESH_STEPS)]
+    routes = ([], [])
+    r = mesh_step_runs(torch, dev, cfg, opt, batches, routes)
+    D, moved, bar, rel = r["D"], r["moved"], r["bar"], r["rel"]
+    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(*routes))
+    routed = sum(a.shape[0] * a.shape[1] for a in routes[0])
+    bound = 2 * opt.lr * MESH_STEPS
+    n_params = sum(math.prod(t.shape) for t in tree_leaves(
+        lm.param_specs(cfg)))
+    out = {"layers": cfg.n_layers, "params": n_params, "seq_len": MESH_SEQ,
+           "batch": MESH_BATCH, "losses": r["losses"],
+           "grad_norms": r["grad_norms"], "mesh_losses": r["mesh_losses"],
+           "mesh_grad_norms": r["mesh_grad_norms"], "rel_loss": rel[0],
+           "rel_grad_norm": rel[1], "param_err": bar["max"],
+           "param_bound": bound, "param_excess": bar["excess"],
+           "over_2lrk": bar["over_2lrk"], "route_flips": flips,
+           "routed": routed, "route_calls": len(routes[0]),
+           "one_device_step_s": r["s_one"], "mesh_step_s": r["secs"],
+           "peak_bytes_one_device": r["peak_one"],
+           "peak_bytes_mesh": r["peaks"],
+           "resident_bytes_one_device": r["resident_one"],
+           "resident_bytes_mesh": r["resident"],
+           "moved": {k: list(v) for k, v in moved._asdict().items()},
+           "whole_moves": MOE_WHOLE_MOVES, "bitwise_repeat": r["repeat"]}
+    print(f"  [18e] {PHI} at full width (d {cfg.d_model}, {cfg.n_experts} "
+          f"experts, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) cut to "
+          f"{cfg.n_layers} layer(s), {n_params:,} parameters, {cfg.dtype}, "
+          f"seq_len {MESH_SEQ}, global batch {MESH_BATCH}: losses "
+          f"{[f'{x:.4f}' for x in r['losses']]} one device at accum {D}, "
+          f"{[f'{x:.4f}' for x in r['mesh_losses']]} on the {MESH_SHAPE} "
+          f"mesh at accum 1; within {rel[0]:.2e} / {rel[1]:.2e} (loss / "
+          f"grad_norm; bar {PIPE_TOL}); every parameter within "
+          f"{bar['max']:.3e} (2 lr k = {bound:.1e}, passed by "
+          f"{bar['over_2lrk']} elements; with {MESH_STEPS} bf16 roundings "
+          f"passed by {bar['excess']:.3e}); tokens whose routes differ "
+          f"{flips} of {routed} routed ({len(routes[0])} routings each way, "
+          f"forward and recomputation); the two mesh runs bitwise: "
+          f"{r['repeat']}")
+    print(f"  [18e] s a step: one device "
+          f"{[f'{x:.3f}' for x in r['s_one']]}, the mesh "
+          f"{[[f'{x:.3f}' for x in s] for s in r['secs']]} (two runs); "
+          f"peak memory one device {r['peak_one']:,} B "
+          f"({r['resident_one']:,} resident), the mesh {r['peaks']} B "
+          f"({r['resident']} resident)")
+    print(f"  [18e] bytes a mesh step moves between positions (between "
+          f"devices), against the whole-product schedule's composed "
+          f"moves: " + ", ".join(
+              f"{k} {v[0]:,} ({v[1]:,}; whole {MOE_WHOLE_MOVES[k][0]:,})"
+              for k, v in out["moved"].items()))
+    if not (max(rel) <= PIPE_TOL and bar["excess"] <= 0 and r["repeat"]):
+        problems.append(f"18e: within {rel} of the one-device step's "
+                        f"losses and grad_norms (bar {PIPE_TOL}), parameters "
+                        f"{bar} (bar 2 lr k = {bound} and a storage "
+                        f"rounding a step), repeat {r['repeat']}")
+    if not (moved.model[0] > 0
+            and moved.gather[0] < MOE_WHOLE_MOVES["gather"][0]):
+        problems.append(f"18e: gather {moved.gather[0]} B (whole "
+                        f"{MOE_WHOLE_MOVES['gather'][0]}), model "
+                        f"{moved.model[0]} B")
+    return out
+
+
+def mixer_split_phase(torch, dev, problems) -> dict:
+    """18f: jamba's Mamba mixer and MoE sublayer at full width in f32 on
+    one (2, 4) row, split over ``model``, against the whole sublayers on
+    the same inputs: the output and the gradients of the input and of
+    every parameter (a random cotangent) within ``MIXER_TOL`` of the
+    largest |value| of each whole one."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.layers import moe_apply, moe_init
+    from repro_torch.models.sharding import MoveStats, param_shardings, shard
+    from repro_torch.models.ssm import mamba_apply, mamba_init
+    from repro_torch.training.tree import leaves, unflatten
+
+    cfg = dataclasses.replace(get_config(JAMBA), dtype="float32")
+    d, f32 = cfg.d_model, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    names = [f"l{i}" for i, s in enumerate(cfg.period())]
+    mix = next(n for n, s in zip(names, cfg.period())
+               if s.kind.value == "mamba")
+    moe = next(n for n, s in zip(names, cfg.period()) if s.moe)
+    mesh = make_debug_mesh(*MESH_SHAPE, devices=mesh_devices(8))
+    out = {"d_model": d, "d_inner": cfg.d_inner,
+           "d_state": cfg.ssm_d_state, "n_experts": cfg.n_experts,
+           "d_ff": cfg.d_ff, "batch": MIXER_BATCH, "seq_len": MIXER_SEQ}
+
+    def one(sub, layer, init, whole_fn, split_fn):
+        t0 = time.perf_counter()
+        params = {"blocks": {layer: {sub: {
+            k: v.unsqueeze(0) for k, v in init().items()}}}}
+        x = torch.randn((MIXER_BATCH, MIXER_SEQ, d), generator=gen,
+                        dtype=f32, device=dev)
+        g = torch.randn(x.shape, generator=gen, dtype=f32, device=dev)
+        ls = leaves(params)
+        placed = unflatten(params, [shard(t, s) for t, s in zip(
+            ls, leaves(param_shardings(mesh, params)))])
+        # the whole sublayer: its output and gradients, kept
+        req = [t.requires_grad_() for t in ls]
+        xw = x.clone().requires_grad_()
+        p = lm._index(unflatten(params, req)["blocks"], 0)[layer][sub]
+        y = whole_fn(p, xw)
+        want = [y.detach()] + list(torch.autograd.grad((y * g).sum(),
+                                                       [xw] + req))
+        del params, ls, req, p, y, xw
+        free_device(torch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats = {"gather": MoveStats(), "model": MoveStats()}
+        tree, row = tp.row_view(cfg, placed, (0, 0), stats)
+        sp = tp.materialize(cfg, lm._index(tree["blocks"], 0))[layer][sub]
+        xs = x.clone().requires_grad_()
+        y = split_fn(sp, xs)
+        pieces = row.pieces()
+        got = torch.autograd.grad((y * g).sum(),
+                                  [xs] + [q[3] for q in pieces])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+
+        def err(a, w):
+            return float((a - w).abs().max() / w.abs().max())
+
+        errs = {"y": err(y.detach(), want[0]), "x": err(got[0], want[1])}
+        for (k, idx, _, _), gk in zip(pieces, got[1:]):
+            name = f"param{k}"
+            w = want[2 + k]
+            e = float((gk - w[idx]).abs().max() / w.abs().max())
+            errs[name] = max(errs.get(name, 0.0), e)
+        r = {"split": tp.is_split(sp), "errs": errs,
+             "max_err": max(errs.values()), "whole_s": t1 - t0,
+             "split_s": t2 - t1, "pieces": len(pieces),
+             "gather": list(stats["gather"]), "model": list(stats["model"])}
+        print(f"  [18f] {sub} ({layer}) split over {MESH_SHAPE[1]} "
+              f"positions: {r['split']}; output, input gradient and "
+              f"{len(errs) - 2} parameter gradients within "
+              f"{r['max_err']:.2e} of the whole sublayer's largest |value| "
+              f"(bar {MIXER_TOL}); {len(pieces)} pieces, gather "
+              f"{r['gather'][0]:,} B, model {r['model'][0]:,} B; "
+              f"whole {t1 - t0:.2f} s, split {t2 - t1:.2f} s")
+        if not (r["split"] and r["max_err"] <= MIXER_TOL):
+            problems.append(f"18f {sub}: {r}")
+        del placed, tree, row, sp, y, got, want, pieces
+        free_device(torch)
+        return r
+
+    out["mamba"] = one(
+        "mix", mix, lambda: mamba_init(gen, d, cfg.d_inner, cfg.ssm_d_state,
+                                       lm.D_CONV, f32),
+        lambda p, x: mamba_apply(p, x)[0],
+        lambda p, x: tp.mamba_apply(p, x)[0])
+    kw = {"top_k": cfg.experts_per_token, "act": cfg.act}
+    out["moe"] = one(
+        "ffn", moe, lambda: moe_init(gen, d, cfg.d_ff, cfg.n_experts,
+                                     cfg.act_gated, f32),
+        lambda p, x: moe_apply(p, x, **kw),
+        lambda p, x: tp.moe_apply(p, x, **kw))
+    print(f"  [18f] {JAMBA}'s sublayers at full width (d {d}, d_inner "
+          f"{cfg.d_inner}, d_state {cfg.ssm_d_state}, {cfg.n_experts} "
+          f"experts, d_ff {cfg.d_ff}) in f32, {MIXER_BATCH} x {MIXER_SEQ}, "
+          f"on one {MESH_SHAPE} row")
     return out
 
 
@@ -7727,12 +7989,13 @@ def lm_mesh_phase(torch, dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[18] the LM side over a device mesh: every position on cuda:0; "
-          f"policy and layout, the sharded train step, the GPipe forward, "
-          f"the KV repartition")
+          f"policy and layout, the sharded train step (dense, MoE), jamba's "
+          f"split sublayers, the GPipe forward, the KV repartition")
     problems = []
     out = {"part_s": {}}
     for key, part in (("policy", mesh_policy_phase),
                       ("train", mesh_train_phase),
+                      ("moe", moe_mesh_phase), ("mixer", mixer_split_phase),
                       ("pipeline", pipeline_phase), ("kv", kv_mesh_phase)):
         t1 = time.perf_counter()
         try:
@@ -7839,20 +8102,30 @@ def dryrun_problems(records: list, names: list) -> list:
     return out
 
 
-def composed_18b_moves() -> dict:
-    """The moves :func:`mesh_step_moves` composes at 18b's configuration,
-    as 18b reports what it measured."""
-    from repro_torch.configs.registry import get_config
+def composed_moves(cfg) -> dict:
+    """The moves :func:`mesh_step_moves` composes for 18b's and 18e's
+    step of ``cfg`` (the (2, 4) mesh on the card, accum 1, 8 x 1024), as
+    those parts report what they measured."""
     from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models import lm
-    from repro_torch.models.config import validate
     from repro_torch.training.train_step import mesh_step_moves
 
-    cfg = validate(dataclasses.replace(get_config(QWEN),
-                                       n_layers=MESH_LAYERS))
     mesh = make_debug_mesh(*MESH_SHAPE, devices=mesh_devices(8))
     moved = mesh_step_moves(cfg, mesh, 1, MESH_BATCH, MESH_SEQ)
     return {k: list(v) for k, v in moved._asdict().items()}
+
+
+def composed_18b_moves() -> dict:
+    """:func:`composed_moves` at 18b's configuration."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.config import validate
+
+    return composed_moves(validate(dataclasses.replace(
+        get_config(QWEN), n_layers=MESH_LAYERS)))
+
+
+def composed_18e_moves() -> dict:
+    """:func:`composed_moves` at 18e's configuration."""
+    return composed_moves(moe_mesh_config())
 
 
 def run_dryrun() -> tuple:
@@ -7906,21 +8179,26 @@ def dryrun_phase(lm_mesh: dict | None = None, pending=None) -> dict:
            "moves_reason": sorted(f"{r['arch']} x {r['mesh']}"
                                   for r in records if "moves_reason" in r)}
     print(f"  [20] {len(records)} records {status} in {seconds:.1f} s "
-          f"(the command, interpreter start included); train cells whose "
-          f"batch does not split over the data rows: {out['moves_reason']}")
-    measured = (lm_mesh or {}).get("train", {}).get("moved")
-    if measured is None:
-        print("  [20] 18b did not run in this invocation: its bytes are "
-              "not compared")
-    else:
-        composed = composed_18b_moves()
+          f"(the command, interpreter start included); train cells without "
+          f"moves: {out['moves_reason']}")
+    if out["moves_reason"]:
+        problems.append(f"20: train cells without moves: "
+                        f"{out['moves_reason']}")
+    for part, tag, compose in (("train", "18b", composed_18b_moves),
+                               ("moe", "18e", composed_18e_moves)):
+        measured = (lm_mesh or {}).get(part, {}).get("moved")
+        if measured is None:
+            print(f"  [20] {tag} did not run in this invocation: its bytes "
+                  f"are not compared")
+            continue
+        composed = compose()
         equal = composed == measured
         if not equal:
-            problems.append(f"20: 18b's moves composed {composed}, "
+            problems.append(f"20: {tag}'s moves composed {composed}, "
                             f"measured {measured}")
-        out["moves_18b"] = {"composed": composed, "measured": measured,
-                            "equal": equal}
-        print(f"  [20] 18b's mesh step, [between positions, between "
+        out[f"moves_{tag}"] = {"composed": composed, "measured": measured,
+                               "equal": equal}
+        print(f"  [20] {tag}'s mesh step, [between positions, between "
               f"devices] B: composed {composed}, measured {measured}; "
               f"equal {equal}")
     out["seconds"] = time.perf_counter() - t0
@@ -7971,7 +8249,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dryrun", action="store_true",
                     help="phase 20 (the port's dry-run of every cell) "
                          "alone, after phases 1-2; with --lm-mesh, after "
-                         "phase 18, checking 18b's bytes too")
+                         "phase 18, checking 18b's and 18e's bytes too")
     return ap
 
 

@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["MetaGenerator", "dense_init", "rms_norm", "rope", "act_fn",
-           "mlp_init", "mlp_apply", "moe_init", "moe_apply",
+           "mlp_init", "mlp_apply", "moe_init", "moe_route", "moe_chunks",
+           "moe_expert", "moe_apply",
            "moe_apply_sorted", "torch_dtype"]
 
 
@@ -119,13 +120,36 @@ def moe_init(gen, d: int, ff: int, n_experts: int, gated: bool, dtype):
     return p
 
 
-def _expert(p, e: int, xb: torch.Tensor, act: str) -> torch.Tensor:
+def moe_expert(p, e: int, xb: torch.Tensor, act: str) -> torch.Tensor:
+    """Expert ``e``'s MLP on ``xb`` (its ``d_ff`` whole or a slice of it)."""
     up = xb @ p["w_up"][e]
     if "w_gate" in p:
         up = up * act_fn(act)(xb @ p["w_gate"][e])
     else:
         up = act_fn(act)(up)
     return up @ p["w_down"][e]
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor, top_k: int) -> tuple:
+    """``(combine, idx)``: each token's weight for every expert (B, S, E)
+    in ``x``'s dtype, and its top-k experts (B, S, k).  The router
+    product, ``top_k`` and softmax in f32."""
+    E = router.shape[1]
+    logits = x.float() @ router
+    weights, idx = torch.topk(logits, top_k, dim=-1)      # (B,S,k)
+    weights = torch.softmax(weights, dim=-1)
+    combine = torch.sum(F.one_hot(idx, E).float() * weights[..., None],
+                        dim=2).to(x.dtype)                 # (B,S,E)
+    return combine, idx
+
+
+def moe_chunks(S: int) -> list:
+    """The ``[lo, hi)`` position ranges the expert loop runs over: chunks
+    of 4096 where ``S`` is a longer multiple of it, as in JAX."""
+    cs = 4096  # seq-chunk the pointwise expert loop: per-chunk transients
+    if S > cs and S % cs == 0:
+        return [(i, i + cs) for i in range(0, S, cs)]
+    return [(0, S)]
 
 
 def moe_apply(p, x: torch.Tensor, *, top_k: int, act: str) -> torch.Tensor:
@@ -137,23 +161,18 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int, act: str) -> torch.Tensor:
     4096 positions, as in JAX.
     """
     E = p["w_up"].shape[0]
-    logits = x.float() @ p["router"]
-    weights, idx = torch.topk(logits, top_k, dim=-1)      # (B,S,k)
-    weights = torch.softmax(weights, dim=-1)
-    combine = torch.sum(F.one_hot(idx, E).float() * weights[..., None],
-                        dim=2).to(x.dtype)                 # (B,S,E)
+    combine, _ = moe_route(p["router"], x, top_k)
 
     def block(xb, cb):  # (B, cs, d), (B, cs, E)
         ob = torch.zeros_like(xb)
         for e in range(E):
-            ob = ob + cb[..., e, None] * _expert(p, e, xb, act)
+            ob = ob + cb[..., e, None] * moe_expert(p, e, xb, act)
         return ob
 
-    B, S, d = x.shape
-    cs = 4096  # seq-chunk the pointwise expert loop: per-chunk transients
-    if S > cs and S % cs == 0:
-        return torch.cat([block(x[:, i:i + cs], combine[:, i:i + cs])
-                          for i in range(0, S, cs)], dim=1)
+    chunks = moe_chunks(x.shape[1])
+    if len(chunks) > 1:
+        return torch.cat([block(x[:, lo:hi], combine[:, lo:hi])
+                          for lo, hi in chunks], dim=1)
     return block(x, combine)
 
 

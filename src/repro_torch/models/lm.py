@@ -30,8 +30,9 @@ The mesh train step runs ``loss_fn`` on a data row's view of a sharded
 tree (:mod:`repro_torch.models.tensor_parallel`): each period gathers its
 leaves inside the period (so the backward pass gathers them again, the
 recomputation running to the period's end), the embedding and head where
-they are used, and the dense family's attention, MLP and vocabulary run
-split over the row's ``model`` positions where their specs split.
+they are used, and the attention, dense MLP, MoE (dense dispatch), Mamba
+mixer and vocabulary of the dense, moe and hybrid families run split over
+the row's ``model`` positions where their specs split.
 """
 from __future__ import annotations
 
@@ -250,8 +251,9 @@ def _apply_period(cfg: ModelConfig, pparams, x, positions, cache, mode,
                     nc["k"] = _prefill_write(c["k"], k)
                     nc["v"] = _prefill_write(c["v"], v)
         elif spec.kind == LayerKind.MAMBA:
-            y, st = mamba_apply(p["mix"], h,
-                                state=c if mode == "decode" else None)
+            y, st = (tp.mamba_apply if tp.is_split(p["mix"])
+                     else mamba_apply)(p["mix"], h,
+                                       state=c if mode == "decode" else None)
             if mode in ("prefill", "decode"):
                 nc.update({"conv": st["conv"].to(c["conv"].dtype),
                            "ssm": st["ssm"]})
@@ -285,7 +287,10 @@ def _apply_period(cfg: ModelConfig, pparams, x, positions, cache, mode,
             if mode in ("prefill", "decode"):
                 nc["ffn_last"] = st["last"].to(x.dtype)
         elif spec.moe:
-            if cfg.moe_dispatch == "sorted":
+            if tp.is_split(p["ffn"]):
+                y2 = tp.moe_apply(p["ffn"], h2, top_k=cfg.experts_per_token,
+                                  act=cfg.act)
+            elif cfg.moe_dispatch == "sorted":
                 y2 = moe_apply_sorted(p["ffn"], h2,
                                       top_k=cfg.experts_per_token,
                                       act=cfg.act,

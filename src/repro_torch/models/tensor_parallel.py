@@ -1,6 +1,6 @@
 """A data row's view of a sharded parameter tree: the parameters gathered
-where they are used, and the dense family's products split over
-``model``.
+where they are used, and the dense, moe and hybrid families' products
+split over ``model``.
 
 The mesh train step (:mod:`repro_torch.training.train_step`) runs
 :func:`~repro_torch.models.lm.loss_fn` once for each (microbatch, data
@@ -12,10 +12,12 @@ backward pass fetches them again and no fetched leaf is saved for it),
 the embedding for the lookup, the head for the loss.  Each use is either
 
 * **whole**: every block, on the position that computes (the row's first
-  position, or a position that computes a replicated piece); or
+  position, or a position that computes a replicated piece);
 * **part**: the position's ``model`` slice, every block along the other
   axes (the FSDP gather over the data axes): a leaf's dim whose spec is
-  ``"model"`` stays at the position's own block.
+  ``"model"`` stays at the position's own block; or
+* **span**: a range along the ``model`` dim, every block along the others
+  (the Mamba mixer's ``in_proj`` columns), each block cut to its overlap.
 
 A fetch takes a block the position holds from itself, and any other block
 from the first position holding it on the same device, else from the
@@ -26,19 +28,28 @@ one *sink*: a zero-stride leaf that requires grad, through which the
 piece's gradient comes back from ``torch.autograd.grad`` on the
 position's device; the step adds it at its box (:meth:`Row.pieces`).
 
-**Split products (``family == "dense"``).**  As ``param_shardings`` lays
-the leaves out (the JAX package's column/row rules), position ``(r, m)``
-computes with its slices:
+**Split products** (:func:`splits`: the dense, moe and hybrid families,
+``model`` > 1).  As ``param_shardings`` lays the leaves out (the JAX
+package's column/row rules), position ``(r, m)`` computes with its
+slices:
 
 * attention: ``wq`` (and ``wk``/``wv``) give its heads, ``wo`` its rows;
-  q/k norms, RoPE and the chunked attention run on whole heads locally.
-  Where ``n_heads`` does not split over ``model`` the sublayer runs whole
-  on the row's first position; where only ``n_kv_heads`` does not, each
-  position fetches ``wk``/``wv`` whole and takes the one kv head its
-  query heads share (when they share one), else the sublayer runs whole.
-  No head is ever cut;
-* the MLP: ``w_up``/``w_gate`` give its ``d_ff`` slice, ``w_down`` its
-  rows;
+  q/k norms, RoPE and the chunked attention (a sliding window, its chunk
+  skip) run on whole heads locally.  Where ``n_heads`` does not split
+  over ``model`` the sublayer runs whole on the row's first position;
+  where only ``n_kv_heads`` does not, each position fetches ``wk``/``wv``
+  whole and takes the one kv head its query heads share (when they share
+  one), else the sublayer runs whole.  No head is ever cut;
+* the dense MLP: ``w_up``/``w_gate`` give its ``d_ff`` slice, ``w_down``
+  its rows;
+* the MoE (dense dispatch; :func:`moe_apply`): each expert's ``d_ff``
+  slice, the experts over the data axes (EP) or ``d`` over them (FSDP)
+  gathered; the routing once on the row's first position, ``combine``
+  sent out; the sorted dispatch (``moe_dispatch="sorted"``, which no
+  registry config sets) runs whole;
+* the Mamba mixer (:func:`mamba_apply`): ``d_inner`` (where ``model``
+  divides it): each position's channels through the conv and the scan;
+  ``x_proj``'s partial products summed and sent back;
 * the vocabulary: the embedding lookup sums each slice's masked rows; the
   loss takes each slice's ``logsumexp``, combines them (the max over the
   slices, then the sum of exponentials against it), and the gold logit
@@ -47,13 +58,15 @@ computes with its slices:
 
 The sublayer input goes to each position and the positions' partial
 outputs come back to the row's first position, where they are summed in
-f32 in position order (no atomics) and cast once to the model dtype; the
-backward pass sends the output's gradient out and sums the input's
-gradients back the same way.  These copies, with the tokens, labels,
-positions and the loss's per-slice ``logsumexp`` and gold logits, are
-booked as ``model``.  A position on the row's first device copies nothing (a view)
-and is still booked between positions.  :func:`row_moves` composes what
-one row books from the specs alone.
+f32 in position order (no atomics) and cast once to the model dtype (the
+MoE's partials come back in f32); the backward pass sends the output's
+gradient out and sums the input's gradients back the same way.  These
+copies, with the tokens, labels, positions, the MoE's ``combine``, the
+mixer's ``x_proj`` partials and their sum, and the loss's per-slice
+``logsumexp`` and gold logits, are booked as ``model``.  A position on
+the row's first device copies nothing (a view) and is still booked
+between positions.  :func:`row_moves` composes what one row books from
+the specs alone.
 """
 from __future__ import annotations
 
@@ -68,14 +81,17 @@ import torch
 from repro_torch.core.layout import MoveStats, Sharded
 from repro_torch.models.attention import attn_train as _attn_train
 from repro_torch.models.layers import mlp_apply as _mlp_apply
-from repro_torch.models.layers import torch_dtype
+from repro_torch.models.layers import (moe_chunks, moe_expert, moe_route,
+                                       torch_dtype)
+from repro_torch.models.ssm import mamba_conv, mamba_scan
 
-__all__ = ["RowLeaf", "Row", "row_view", "first_leaf", "whole",
-           "materialize", "splits_vocab", "is_split", "attn_train",
-           "mlp_apply", "vocab_lookup", "vocab_head_loss", "fetch_moves",
-           "row_moves"]
+__all__ = ["SPLIT_FAMILIES", "RowLeaf", "Row", "row_view", "first_leaf",
+           "whole", "splits", "materialize", "splits_vocab", "is_split",
+           "attn_train", "mlp_apply", "moe_apply", "mamba_apply",
+           "vocab_lookup", "vocab_head_loss", "fetch_moves", "row_moves"]
 
 _ATTN_PARTS = ("wq", "wk", "wv", "wo")
+SPLIT_FAMILIES = ("dense", "moe", "hybrid")
 
 
 # ---------------------------------------------------------------------------
@@ -104,15 +120,21 @@ def _holders(sharding, ndim: int) -> tuple:
     return blocks, held
 
 
-def _fetch_plan(sharding, shape, q: int, part: bool, devs) -> tuple:
+def _fetch_plan(sharding, shape: tuple, q: int, part: bool, devs,
+                span=None) -> tuple:
     """``(blocks, index)`` of position ``q``'s use: each needed block as
-    ``(block index, source position)`` in C order of the block indices
-    (``None`` as the source of ``q``'s own), and the use's index in the
-    leaf (slices, the stack dims whole)."""
+    ``(block index, source position, cut)`` in C order of the block
+    indices (``None`` as the source of ``q``'s own), and the use's index
+    in the leaf (slices, the stack dims whole).  ``span`` ``(dim, lo,
+    hi)``: only ``[lo, hi)`` along ``dim``, every block along the others;
+    ``cut`` is then each block's ``[lo, hi)`` along ``dim``, relative to
+    the block (else ``None``: the whole block).  ``devs``: the device of
+    each position."""
     ndim = len(shape)
     tiles = sharding.tiling(ndim)
     of, held = _holders(sharding, ndim)
     own = of[q]
+    ss = sharding.shard_shape(shape)
     fixed = [part and e == "model" for e in _spec(sharding, ndim)]
 
     def source(b):
@@ -120,30 +142,50 @@ def _fetch_plan(sharding, shape, q: int, part: bool, devs) -> tuple:
         return next((k for k in ks if devs[k] == devs[q]), ks[0])
 
     ranges = [[own[d]] if fixed[d] else range(tiles[d]) for d in range(ndim)]
-    blocks = [(b, None if b == own else source(b))
-              for b in itertools.product(*ranges)]
+    index = [slice(own[d] * ss[d], (own[d] + 1) * ss[d]) if fixed[d]
+             else slice(None) for d in range(ndim)]
+    if span is not None:
+        d, lo, hi = span
+        ranges[d] = range(lo // ss[d], -(-hi // ss[d]))
+        index[d] = slice(lo, hi)
+    blocks = []
+    for b in itertools.product(*ranges):
+        cut = None
+        if span is not None:
+            cut = (max(lo - b[d] * ss[d], 0), min(hi - b[d] * ss[d], ss[d]))
+        blocks.append((b, None if b == own else source(b), cut))
+    return blocks, tuple(index)
+
+
+@functools.lru_cache(maxsize=65536)
+def _fetch_elements(sharding, shape: tuple, q: int, part: bool, devs: tuple,
+                    span=None) -> tuple:
+    """``(copied, across devices, used)``: the elements
+    :func:`_fetch_plan`'s use copies from other positions and, of them,
+    from other devices (a cut block: its share), and the elements of its
+    index in the leaf."""
+    blocks, index = _fetch_plan(sharding, shape, q, part, devs, span)
     ss = sharding.shard_shape(shape)
-    index = tuple(slice(own[d] * ss[d], (own[d] + 1) * ss[d]) if fixed[d]
-                  else slice(None) for d in range(ndim))
-    return blocks, index
-
-
-def _fetch_moves(blocks, nbytes: int, devs, q: int) -> MoveStats:
-    out = MoveStats()
-    for _, k in blocks:
+    n = math.prod(ss)
+    pos = dev = 0
+    for _, k, cut in blocks:
         if k is not None:
-            out += MoveStats(nbytes, nbytes if devs[k] != devs[q] else 0)
-    return out
+            e = n if cut is None else n // ss[span[0]] * (cut[1] - cut[0])
+            pos += e
+            dev += e if devs[k] != devs[q] else 0
+    used = math.prod(len(range(*i.indices(d))) for i, d in zip(index, shape))
+    return pos, dev, used
 
 
 def fetch_moves(sharding, shape, itemsize: int, q: int, part: bool,
-                devs) -> MoveStats:
+                devs, span=None) -> MoveStats:
     """What position ``q``'s use (``part``: its ``model`` slice, else the
-    whole leaf) of a leaf of ``shape`` laid out by ``sharding`` copies
-    (``devs``: the device of each position)."""
-    blocks, _ = _fetch_plan(sharding, tuple(shape), q, part, devs)
-    n = math.prod(sharding.shard_shape(tuple(shape))) * itemsize
-    return _fetch_moves(blocks, n, devs, q)
+    whole leaf; ``span`` as :func:`_fetch_plan` takes it) of a leaf of
+    ``shape`` laid out by ``sharding`` copies (``devs``: the device of
+    each position)."""
+    pos, dev, _ = _fetch_elements(sharding, tuple(shape), q, part,
+                                  tuple(devs), span)
+    return MoveStats(pos * itemsize, dev * itemsize)
 
 
 class _Fetch(torch.autograd.Function):
@@ -219,7 +261,7 @@ class Row:
     """One data row of a mesh for one (microbatch, row) slice: its
     positions along ``model`` (``ks``, indices in position order, the
     row's first position first), their devices, whether its products
-    split (``family == "dense"`` and ``model`` > 1), the sinks, and the
+    split (:func:`splits`), the sinks, and the
     step's move counts (``stats``: ``{"gather": MoveStats, "model":
     MoveStats}``, shared by the rows; a lock guards them against the
     backward pass's device threads)."""
@@ -232,11 +274,11 @@ class Row:
         coords = [tuple(m if i == mi else c for i, c in enumerate(first))
                   for m in range(M)]
         self.M = M
-        self.all_devs = mesh.device_list()
+        self.all_devs = tuple(mesh.device_list())
         self.ks = [pos.index(c) for c in coords]
         self.devs = tuple(self.all_devs[k] for k in self.ks)
         self.home = self.devs[0]
-        self.split = cfg.family == "dense" and M > 1
+        self.split = splits(cfg, M)
         self.stats = stats
         self.lock = threading.Lock()
         self.sinks: dict = {}
@@ -261,24 +303,27 @@ class Row:
     def broadcast(self, t) -> tuple:
         return _Broadcast.apply(self, t, self.devs)
 
-    def reduce(self, parts):
+    def reduce(self, parts, dtype=None):
         """The partials (one a position) summed on the row's first
-        position in f32 in position order, cast once to their dtype."""
+        position in f32 in position order, cast once to ``dtype``
+        (default: theirs)."""
         total = None
         for t in self.collect(parts):
             total = t.float() if total is None else total + t.float()
-        return total.to(parts[0].dtype)
+        return total.to(dtype or parts[0].dtype)
 
     def collect(self, ts) -> tuple:
         return _Collect.apply(self, self.devs, *ts)
 
     # -- fetches ---------------------------------------------------------
-    def fetch(self, leaf: "RowLeaf", q: int, part: bool) -> torch.Tensor:
-        """``leaf`` (a period of it) as position ``q`` uses it, through
-        the sink of that (leaf, period, position, box)."""
+    def fetch(self, leaf: "RowLeaf", q: int, part: bool,
+              span=None) -> torch.Tensor:
+        """``leaf`` (a period of it) as position ``q`` uses it (``span``:
+        as :func:`_fetch_plan` takes it), through the sink of that (leaf,
+        period, position, box)."""
         s, period = leaf.s, leaf.period
         blocks, index = _fetch_plan(s.sharding, s.shape, q, part,
-                                    self.all_devs)
+                                    self.all_devs, span)
         if period is not None:
             index = (period,) + index[1:]
         key = (leaf.k, q, tuple((i.start, i.stop) if isinstance(i, slice)
@@ -291,17 +336,22 @@ class Row:
             self.sinks[key] = (leaf.k, index, q, sink.requires_grad_())
         sink = self.sinks[key][3]
         ndim = s.ndim
-        nbytes = s.position_bytes() // (s.shape[0] if period is not None
-                                        else 1)
+        off = 0 if period is None else 1
+        # a period's share of the stacked leaf's copies
+        moved = fetch_moves(s.sharding, s.shape, s.dtype.itemsize, q, part,
+                            self.all_devs, span)
+        per = s.shape[0] if off else 1
+        moved = MoveStats(moved.positions // per, moved.devices // per)
 
         def fetch():
-            self._book("gather", _fetch_moves(blocks, nbytes,
-                                              self.all_devs, q))
+            self._book("gather", moved)
             got = {}
-            for b, k in blocks:
+            for b, k, cut in blocks:
                 t = s.shards[q if k is None else k]
-                got[b] = (t if period is None else t[period]).to(dev)
-            off = 0 if period is None else 1
+                t = t if period is None else t[period]
+                if cut is not None:
+                    t = t.narrow(span[0] - off, cut[0], cut[1] - cut[0])
+                got[b] = t.to(dev)
 
             def join(prefix, d):
                 if d == ndim:
@@ -348,6 +398,12 @@ class RowLeaf:
     def part(self, m: int) -> torch.Tensor:
         """Position ``m``'s ``model`` slice, on its device."""
         return self.row.fetch(self, self.row.ks[m], True)
+
+    def span(self, m: int, lo: int, hi: int) -> torch.Tensor:
+        """``[lo, hi)`` along :meth:`model_dim` (every block along the
+        others), on position ``m``'s device."""
+        return self.row.fetch(self, self.row.ks[m], False,
+                              (self.off + self.model_dim(), lo, hi))
 
     def start(self, m: int) -> int:
         """Where position ``m``'s slice starts along :meth:`model_dim`."""
@@ -404,13 +460,47 @@ def _mlp_splits(mdim) -> bool:
             and mdim("w_gate") in (1, "absent"))
 
 
-def _sublayer_modes(cfg, M: int, layer_mdim) -> dict:
-    """``{"attn": mode, "ffn": bool}`` of one layer of the dense family
-    (``layer_mdim(sub, name)``: the model dim, ``"absent"`` for a leaf
-    the layer does not have)."""
+def _moe_splits(cfg, mdim) -> bool:
+    """The experts' ``d_ff`` over ``model`` (``w_up``/``w_gate`` ``(E, d,
+    ff)``, ``w_down`` ``(E, ff, d)``), the dense dispatch only."""
+    return (cfg.moe_dispatch != "sorted" and mdim("w_up") == 2
+            and mdim("w_down") == 1 and mdim("w_gate") in (2, "absent"))
+
+
+# the Mamba mixer's leaves and the dim of each that holds d_inner
+_MIX_DIMS = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0,
+             "dt_proj": 1, "dt_bias": 0, "A_log": 0, "D": 0, "out_proj": 0}
+
+
+def _mix_splits(cfg, M: int, mdim) -> bool:
+    return cfg.d_inner % M == 0 and all(mdim(n) == d
+                                        for n, d in _MIX_DIMS.items())
+
+
+_WHOLE = {"attn": None, "ffn": False, "moe": False, "mix": False}
+
+
+def splits(cfg, M: int) -> bool:
+    """Whether a data row of ``M`` positions along ``model`` splits
+    ``cfg``'s products: the dense, moe and hybrid families, ``M`` > 1."""
+    return cfg.family in SPLIT_FAMILIES and M > 1
+
+
+def _sublayer_modes(cfg, M: int, spec, layer_mdim) -> dict:
+    """``{"attn": mode, "ffn": bool, "moe": bool, "mix": bool}`` of one
+    layer (``spec``: its :class:`~repro_torch.models.config.LayerSpec`)
+    of a family that :func:`splits` (``layer_mdim(sub, name)``: the model
+    dim, ``"absent"`` for a leaf the layer does not have): attention, the
+    dense MLP, the MoE and the Mamba mixer."""
+    if not splits(cfg, M):
+        return _WHOLE
+    ffn = functools.partial(layer_mdim, "ffn")
     return {"attn": _attn_mode(cfg.n_heads, cfg.n_kv_heads, M,
-                               lambda n: layer_mdim("attn", n)),
-            "ffn": _mlp_splits(lambda n: layer_mdim("ffn", n))}
+                               functools.partial(layer_mdim, "attn")),
+            "ffn": not spec.moe and _mlp_splits(ffn),
+            "moe": spec.moe and _moe_splits(cfg, ffn),
+            "mix": _mix_splits(cfg, M, functools.partial(layer_mdim,
+                                                         "mix"))}
 
 
 @dataclasses.dataclass
@@ -430,27 +520,29 @@ def is_split(p) -> bool:
 
 def materialize(cfg, pparams):
     """One period's leaves as ``_apply_period`` runs them, fetched here
-    (inside the period): a dense row's attention and MLP as split
-    sublayers (:func:`attn_train`, :func:`mlp_apply`) where their specs
-    split, every other leaf whole.  Tensors pass through."""
+    (inside the period): a row's attention, dense MLP, MoE and Mamba
+    mixer as split sublayers (:func:`attn_train`, :func:`mlp_apply`,
+    :func:`moe_apply`, :func:`mamba_apply`) where :func:`_sublayer_modes`
+    splits them, every other leaf whole.  Tensors pass through."""
     sample = first_leaf(pparams)
     if not isinstance(sample, RowLeaf):
         return pparams
     row = sample.row
+    specs = {f"l{i}": spec for i, spec in enumerate(cfg.period())}
     out = {}
     for name, layer in pparams.items():
         def mdim(sub, leaf, layer=layer):
             t = layer.get(sub, {}).get(leaf)
             return "absent" if t is None else t.model_dim()
 
-        modes = (_sublayer_modes(cfg, row.M, mdim) if row.split
-                 else {"attn": None, "ffn": False})
+        modes = _sublayer_modes(cfg, row.M, specs[name], mdim)
+        split = {"attn": modes["attn"], "ffn": modes["ffn"] or modes["moe"],
+                 "mix": modes["mix"]}
         lay = {}
         for sub, tree in layer.items():
-            if sub == "attn" and modes["attn"]:
-                lay[sub] = _Split(row, tree, modes["attn"])
-            elif sub == "ffn" and modes["ffn"]:
-                lay[sub] = _Split(row, tree)
+            if split.get(sub):
+                lay[sub] = _Split(row, tree, modes["attn"] if sub == "attn"
+                                  else None)
             else:
                 lay[sub] = whole(tree)
         out[name] = lay
@@ -494,9 +586,82 @@ def mlp_apply(sp: _Split, h, act: str):
                                   hs[m], act) for m in range(row.M)])
 
 
+def moe_apply(sp: _Split, x, *, top_k: int, act: str):
+    """``moe_apply`` (dense dispatch) with each expert's ``d_ff`` split
+    over the row's positions.  The routing runs once, on the row's first
+    position (the replicated router, in f32, as ``moe_route``); ``x`` and
+    ``combine`` go to each position.  Position ``m`` fetches its ``d_ff``
+    slice of every expert (the EP or FSDP gather over the data axes),
+    runs each expert on it and accumulates ``combine[..., e] * y_e`` over
+    the experts in f32, 4096 positions at a time as the whole form does.
+    The partials are summed once for the sublayer (:meth:`Row.reduce`,
+    f32 in position order, cast once to ``x``'s dtype): one sum where
+    JAX's XLA may sum each expert's output over ``model``."""
+    row = sp.row
+    combine, _ = moe_route(sp.p["router"].whole(), x, top_k)
+    xs, cs = row.broadcast(x), row.broadcast(combine)
+    chunks = moe_chunks(x.shape[1])
+    parts = []
+    for m in range(row.M):
+        p = {k: v.part(m) for k, v in sp.p.items() if k != "router"}
+        outs = []
+        for lo, hi in chunks:
+            xb, cb = xs[m][:, lo:hi], cs[m][:, lo:hi].float()
+            ob = None
+            for e in range(p["w_up"].shape[0]):
+                y = cb[..., e, None] * moe_expert(p, e, xb, act).float()
+                ob = y if ob is None else ob + y
+            outs.append(ob)
+        parts.append(outs[0] if len(outs) == 1 else torch.cat(outs, 1))
+    return row.reduce(parts, x.dtype)
+
+
+def mamba_apply(sp: _Split, x, state=None):
+    """``mamba_apply`` (train mode: no state) with ``d_inner`` split over
+    the row's positions, ``c = d_inner / M`` channels each.  ``in_proj``
+    ``(d, 2 d_inner)`` is laid out in blocks of ``2c`` columns, which do
+    not pair a position's ``xin`` channels with its ``z`` channels:
+    position ``m`` fetches the two column ranges ``[m c, (m + 1) c)`` and
+    ``[d_inner + m c, d_inner + (m + 1) c)`` from the positions holding
+    them (booked as ``gather``).  The conv, ``dt_proj``, the scan (its
+    state f32 per channel) and the gate run on its own channels;
+    ``x_proj``'s rows give each position a partial ``(dt_in, B, C)``,
+    summed on the row's first position (f32 in position order, cast
+    once) and sent back; ``out_proj``'s rows give partial outputs, summed
+    the same way.  Returns ``(y, None)``."""
+    if state is not None:
+        raise ValueError("a data row's split Mamba mixer runs in train "
+                         "mode only (no decode state)")
+    row, p = sp.row, sp.p
+    B = x.shape[0]
+    di = p["D"].s.shape[-1]
+    c = di // row.M
+    xs = row.broadcast(x)
+    mine, projs = [], []
+    for m in range(row.M):
+        q = {k: v.part(m) for k, v in p.items() if k != "in_proj"}
+        w = torch.cat([p["in_proj"].span(m, m * c, (m + 1) * c),
+                       p["in_proj"].span(m, di + m * c, di + (m + 1) * c)],
+                      -1)
+        xin, z = torch.chunk(xs[m] @ w, 2, dim=-1)
+        prev = torch.zeros((B, q["conv_w"].shape[0] - 1, c), dtype=x.dtype,
+                           device=xin.device)
+        xin, _ = mamba_conv(q, xin, prev)
+        mine.append((q, xin, z))
+        projs.append(xin @ q["x_proj"])
+    ps = row.broadcast(row.reduce(projs))
+    outs = []
+    for (q, xin, z), proj in zip(mine, ps):
+        ssm0 = torch.zeros((B, c, q["A_log"].shape[1]), dtype=torch.float32,
+                           device=xin.device)
+        y, _ = mamba_scan(q, xin, z, proj, ssm0)
+        outs.append(y @ q["out_proj"])
+    return row.reduce(outs), None
+
+
 def splits_vocab(w) -> bool:
-    """Whether ``w`` (the embedding or the head) is a dense row's leaf
-    whose vocabulary splits over ``model``."""
+    """Whether ``w`` (the embedding or the head) is the leaf of a row
+    that :func:`splits` whose vocabulary splits over ``model``."""
     return isinstance(w, RowLeaf) and w.row.split and w.model_dim() is not None
 
 
@@ -560,6 +725,7 @@ def row_moves(cfg, params, shardings, first, devs, batch: int,
     from repro_torch.training.tree import leaves
 
     ls, shs = leaves(params), leaves(shardings)
+    devs = tuple(devs)
     paths = _paths(params)
     mesh = shs[0].mesh
     axes = mesh.axis_names
@@ -568,21 +734,19 @@ def row_moves(cfg, params, shardings, first, devs, batch: int,
     pos = mesh.positions()
     ks = [pos.index(tuple(m if i == mi else c for i, c in enumerate(first)))
           for m in range(M)]
-    split = cfg.family == "dense" and M > 1
+    split = splits(cfg, M)
     gather, pieces = MoveStats(), []
 
-    def use(k, m, part, times):
+    def use(k, m, part, times, span=None):
         """Position ``m`` of the row uses leaf ``k`` (each of its periods)
-        ``times`` times."""
+        ``times`` times (``span`` as :func:`_fetch_plan` takes it)."""
         nonlocal gather
         t, sh = ls[k], shs[k]
-        blocks, index = _fetch_plan(sh, tuple(t.shape), ks[m], part, devs)
-        n = math.prod(sh.shard_shape(tuple(t.shape))) * t.element_size()
-        moved = _fetch_moves(blocks, n, devs, ks[m])
-        gather += MoveStats(moved.positions * times, moved.devices * times)
-        box = math.prod(len(range(*i.indices(d)))
-                        for i, d in zip(index, t.shape))
-        pieces.append((box * t.element_size(), ks[m]))
+        n = t.element_size()
+        pos, dev, used = _fetch_elements(sh, tuple(t.shape), ks[m], part,
+                                         devs, span)
+        gather += MoveStats(pos * n * times, dev * n * times)
+        pieces.append((used * n, ks[m]))
 
     by_path = {p: k for k, p in enumerate(paths)}
 
@@ -591,15 +755,15 @@ def row_moves(cfg, params, shardings, first, devs, batch: int,
         return _model_dim(shs[k], ls[k].ndim, 1 if path[0] == "blocks"
                           else 0)
 
-    n_split = {"attn": 0, "ffn": 0}
+    n_split = dict.fromkeys(_WHOLE, 0)
+    specs = {f"l{i}": spec for i, spec in enumerate(cfg.period())}
     for layer in sorted({p[1] for p in paths if p[0] == "blocks"}):
         def lmdim(sub, name, layer=layer):
             path = ("blocks", layer, sub, name)
             return mdim_of(path) if path in by_path else "absent"
 
-        modes = (_sublayer_modes(cfg, M, lmdim) if split
-                 else {"attn": None, "ffn": False})
-        for sub in ("attn", "ffn"):
+        modes = _sublayer_modes(cfg, M, specs[layer], lmdim)
+        for sub in n_split:
             n_split[sub] += bool(modes[sub]) * cfg.n_periods
         for k, path in enumerate(paths):
             if path[0] != "blocks" or path[1] != layer:
@@ -611,9 +775,18 @@ def row_moves(cfg, params, shardings, first, devs, batch: int,
                 part = name in _ATTN_PARTS and not kv_whole
                 for m in range(M):
                     use(k, m, part, 2)
-            elif sub == "ffn" and modes["ffn"]:
+            elif sub == "ffn" and modes["moe"] and name == "router":
+                use(k, 0, False, 2)
+            elif (sub == "ffn" and (modes["ffn"] or modes["moe"])
+                  or sub == "mix" and modes["mix"] and name != "in_proj"):
                 for m in range(M):
                     use(k, m, True, 2)
+            elif sub == "mix" and modes["mix"]:   # in_proj: xin's, z's
+                di = cfg.d_inner
+                c = di // M
+                for m in range(M):
+                    for lo in (m * c, di + m * c):
+                        use(k, m, False, 2, (2, lo, lo + c))
             else:
                 use(k, 0, False, 2)
     head = "embed" if cfg.tie_embeddings else "lm_head"
@@ -639,9 +812,16 @@ def row_moves(cfg, params, shardings, first, devs, batch: int,
     tok = T * torch.int32.itemsize
     f32 = T * torch.float32.itemsize
     # forward, recomputation and backward: the input out and the partials
-    # back, then their gradients; the positions in the first two
+    # back, then their gradients; the positions in the first two.  The
+    # MoE also sends combine out and takes f32 partials back; the Mamba
+    # mixer also takes x_proj's partials back and sends their sum out
+    comb = T * cfg.n_experts * e
+    dt_rank = max(1, math.ceil(cfg.d_model / 16))    # ssm.mamba_init's
+    proj = T * (dt_rank + 2 * cfg.ssm_d_state) * e
     per = (3 * 2 * act * (n_split["attn"] + n_split["ffn"])
-           + 2 * seq_len * torch.int64.itemsize * n_split["attn"])
+           + 2 * seq_len * torch.int64.itemsize * n_split["attn"]
+           + 3 * (act + comb + f32 * cfg.d_model) * n_split["moe"]
+           + 3 * 2 * (act + proj) * n_split["mix"])
     if vocab.get("embed"):   # the tokens; the rows and their gradient
         per += tok + 2 * act
     if vocab.get(head):      # x and its gradient, the labels; each

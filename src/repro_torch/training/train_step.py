@@ -13,28 +13,35 @@ parameters' dtype.
 position of a :class:`~repro_torch.launch.mesh.DeviceMesh`, only its
 shard (``param_shardings``) of every parameter, of AdamW's ``m`` and
 ``v`` and, with compression, of the error buffers.  The step is
-data-parallel over ``dp_axes(mesh)``: with ``D`` data rows, microbatch
-``i`` of ``accum`` spans the rows, as JAX's reshape of the globally
-sharded batch does, and row ``r`` takes its contiguous slice of it (the
-``batch_shardings`` layout) on its first device.  Each (microbatch, row)
-slice runs on the row's view of the state
-(:mod:`repro_torch.models.tensor_parallel`): no row holds the parameters
-gathered at once; each period gathers its leaves inside the period (and
-again in the backward pass), the embedding and head where they are used,
-and the dense family's attention, MLP and vocabulary compute on each
-``model`` position's slice, their partial outputs summed over ``model``
-in f32 in a fixed order.  Every other family computes whole products, so
-its mesh step performs the arithmetic of the one-device step at ``accum *
-D`` bitwise.  Each piece's gradient (a (row, position) slice) is added at
+data-parallel over ``dp_axes(mesh)``, as JAX's reshape of the globally
+sharded batch into ``accum`` microbatches is: microbatch ``i``'s ``B /
+accum`` rows go to the ``D'`` data rows :func:`microbatch_rows` gives
+(JAX's ``_fit`` of that dim over the data axes, the leading ``pod`` axis
+dropped first, 1 where none divides), row ``r`` taking its contiguous
+slice (the ``batch_shardings`` layout) on its first device.  The rows
+along a dropped axis would hold the same slice, as JAX's replicated batch
+dim does: each distinct slice runs once, on the row of the lowest index,
+and the other rows compute nothing (their shards are fetched as any
+shard is).  Each (microbatch, row) slice runs on the row's view of the
+state (:mod:`repro_torch.models.tensor_parallel`): no row holds the
+parameters gathered at once; each period gathers its leaves inside the
+period (and again in the backward pass), the embedding and head where
+they are used, and the dense, moe and hybrid families' attention, MLP,
+MoE, Mamba mixer and vocabulary compute on each ``model`` position's
+slice, their partial outputs summed over ``model`` in f32 in a fixed
+order.  Every other family computes whole products, so its mesh step
+performs the arithmetic of the one-device step at ``accum * D'``
+bitwise.  Each piece's gradient (a (row, position) slice) is added at
 its box into f32 buffers on the mesh's first device in a fixed order,
-microbatch outer and row inner, ``g.float() / (accum * D)`` each (no
+microbatch outer and row inner, ``g.float() / (accum * D')`` each (no
 atomics).  The sum (compressed there, against the gathered error
 buffers, when ``compress``) gives the global norm over whole leaves, is
 scattered to ``grad_shardings`` (default: the parameters' shardings;
 JAX's meaning: where the reduced gradient lives before the update), and
-AdamW updates each shard on its own device.  :func:`mesh_step_moves`
-composes the bytes a mesh step moves from the specs alone, without
-running it (the dry-run's ``moves``).
+AdamW updates each shard on its own device.  Only a batch that ``accum``
+does not divide raises.  :func:`mesh_step_moves` composes the bytes a
+mesh step moves from the specs alone, without running it (the dry-run's
+``moves``).
 """
 from __future__ import annotations
 
@@ -49,10 +56,10 @@ from repro_torch.models import lm
 from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MetaGenerator
-from repro_torch.models.sharding import (MoveStats, Sharded, dp_axes,
-                                         move_plan, param_shardings, reshard,
-                                         shard, sharded_leaves, unshard,
-                                         unshard_moves)
+from repro_torch.models.sharding import (MoveStats, Sharded, _axsize, _fit,
+                                         dp_axes, move_plan, param_shardings,
+                                         reshard, shard, sharded_leaves,
+                                         unshard, unshard_moves)
 from repro_torch.training.grad_compress import (compress_tree,
                                                 decompress_tree, init_error)
 from repro_torch.training.optimizer import AdamW, AdamWState, global_norm
@@ -60,7 +67,7 @@ from repro_torch.training.tree import leaves, tree_map, unflatten
 
 __all__ = ["TrainState", "MeshStepStats", "make_train_step", "init_state",
            "state_specs", "shard_state", "unshard_state", "data_rows",
-           "mesh_step_moves"]
+           "microbatch_rows", "mesh_step_moves"]
 
 
 class TrainState(NamedTuple):
@@ -96,14 +103,23 @@ def data_rows(mesh: DeviceMesh) -> list[tuple[int, ...]]:
         for a in mesh.axis_names)))
 
 
-def _microbatch_rows(B: int, accum: int, D: int) -> int:
-    """The rows of one data row's microbatch slice; raises when a global
-    batch of ``B`` does not split into ``accum`` microbatches over ``D``
-    data rows."""
-    if B % (accum * D):
+def microbatch_rows(mesh: DeviceMesh, B: int, accum: int) -> tuple:
+    """``(D', b)``: the data rows that compute a microbatch of a global
+    batch of ``B`` in ``accum`` microbatches, and the rows of each one's
+    slice.  A microbatch's ``m = B / accum`` rows go to ``D'`` data rows,
+    ``D'`` the size of the data axes JAX's ``_fit`` keeps for a dim of
+    ``m`` (dropping the leading ``pod`` axis first; 1 where none
+    divides).  The rows along a dropped axis hold the same slice, as
+    JAX's replicated batch dim does: each distinct slice runs once, on
+    the row of the lowest index, so the first ``D'`` of
+    :func:`data_rows` compute.  Raises where ``accum`` does not divide
+    ``B``, as JAX's reshape would."""
+    if B % accum:
         raise ValueError(f"a global batch of {B} does not split into "
-                         f"{accum} microbatches over {D} data rows")
-    return B // (accum * D)
+                         f"{accum} microbatches")
+    m = B // accum
+    D = _axsize(mesh, _fit(mesh, m, dp_axes(mesh)))
+    return D, m // D
 
 
 def make_train_step(cfg: ModelConfig, optimizer: AdamW,
@@ -189,9 +205,9 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
         mesh = p_leaves[0].mesh
         devs = mesh.device_list()
         home = devs[0]
-        rows = data_rows(mesh)
-        D = len(rows)
-        b = _microbatch_rows(next(iter(batch.values())).shape[0], accum, D)
+        D, b = microbatch_rows(mesh, next(iter(batch.values())).shape[0],
+                               accum)
+        rows = data_rows(mesh)[:D]
         n = accum * D
         # f32 buffers for a sum, allocated before the first slice runs; a
         # single slice's pieces in the parameters' dtype
@@ -283,15 +299,14 @@ def mesh_step_moves(cfg: ModelConfig, mesh: DeviceMesh, accum: int,
 
     An abstract mesh (no devices) counts each position as a device of its
     own, as the production meshes' chips are.  Raises as the step does
-    when the batch does not split over the data rows.
+    when ``accum`` does not divide the batch.
     """
     pos = mesh.positions()
     devs = (list(range(len(pos))) if mesh.abstract
             else mesh.device_list())
     home = devs[0]
-    rows = data_rows(mesh)
-    D = len(rows)
-    b = _microbatch_rows(global_batch, accum, D)
+    D, b = microbatch_rows(mesh, global_batch, accum)
+    rows = data_rows(mesh)[:D]
     params = lm.param_specs(cfg)
     p_leaves = leaves(params)
     shardings = param_shardings(mesh, params)

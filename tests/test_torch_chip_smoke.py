@@ -1129,8 +1129,8 @@ def test_phase17_flops_and_state_bytes():
 def test_phase17_cuts_keep_the_widths():
     """17b: train_4k's length with its global batch cut 256 -> 8 (accum
     2), qwen3-0.6b's depth cut 28 -> 8; 17c: qwen3 and rwkv6 at full
-    width cut to 2 layers; 17d: the full-width model at 17b's depth,
-    seq_len 512, batch 8."""
+    width cut to 2 layers; 17d: the full-width model cut below 17b's
+    depth, seq_len 512, batch 8."""
     from repro_torch.configs.registry import SHAPES, get_config
     from repro_torch.models import scan_utils
 
@@ -1146,7 +1146,8 @@ def test_phase17_cuts_keep_the_widths():
     assert chip_smoke.REMAT_RUNS[1][2] > 2 * scan_utils.DEFAULT_CHUNK
     args = chip_smoke.RESUME_ARGS
     assert "--smoke" not in args and args[:2] == ["--arch", "qwen3-0.6b"]
-    assert args[args.index("--layers") + 1] == str(chip_smoke.TRAIN_LAYERS)
+    assert args[args.index("--layers") + 1] == str(chip_smoke.RESUME_LAYERS)
+    assert 1 < chip_smoke.RESUME_LAYERS < chip_smoke.TRAIN_LAYERS
     assert args[args.index("--seq-len") + 1] == "512"
     assert args[args.index("--batch") + 1] == "8"
 
@@ -1316,6 +1317,45 @@ def test_phase18_cuts_keep_the_widths():
     assert "--smoke" in args and args[:2] == ["--arch", "qwen3-0.6b"]
 
 
+def test_phase18ef_cuts_keep_the_widths():
+    """18e: phi3.5-moe at its published widths cut 32 -> 1 layer, its
+    whole period (attention and a 16-expert MoE), on 18b's mesh and
+    batches; 18f: jamba's mixer and MoE at their published widths."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(chip_smoke.PHI)
+    small = chip_smoke.moe_mesh_config()
+    assert cfg.n_layers == 32 > chip_smoke.MOE_LAYERS == small.n_layers == 1
+    assert len(cfg.period()) == 1 and cfg.period()[0].moe
+    assert (small.d_model, small.n_experts, small.d_ff, small.vocab_size,
+            small.n_heads, small.n_kv_heads, small.dtype) == (
+        4096, 16, 6400, 32064, 32, 8, "bfloat16")
+    jamba = get_config(chip_smoke.JAMBA)
+    assert (jamba.d_model, jamba.d_inner, jamba.ssm_d_state,
+            math.ceil(jamba.d_model / 16), jamba.n_experts, jamba.d_ff) == (
+        4096, 8192, 16, 256, 16, 14336)
+    assert (chip_smoke.MIXER_BATCH, chip_smoke.MIXER_SEQ) == (2, 512)
+    assert chip_smoke.MIXER_TOL == 1e-4
+
+
+def test_moe_whole_moves_are_the_whole_product_schedule(monkeypatch):
+    """``MOE_WHOLE_MOVES``: what ``mesh_step_moves`` composes at 18e's
+    configuration when the moe family's products run whole (the split
+    families cut to the dense one); the split schedule's gather below it,
+    its ``model`` bytes above 0, composed from the specs."""
+    from repro_torch.models import tensor_parallel as tp
+
+    monkeypatch.setattr(chip_smoke, "mesh_devices", lambda n: ["cpu"] * n)
+    got = chip_smoke.composed_18e_moves()
+    assert got == {
+        "gather": [5_200_936_960, 0], "reduce": [5_470_445_568, 0],
+        "scatter": [6_391_676_928, 0], "relayout": [0, 0],
+        "model": [3_828_252_672, 0]}
+    assert got["gather"][0] < chip_smoke.MOE_WHOLE_MOVES["gather"][0]
+    monkeypatch.setattr(tp, "SPLIT_FAMILIES", ("dense",))
+    assert chip_smoke.composed_18e_moves() == chip_smoke.MOE_WHOLE_MOVES
+
+
 def stub_card(monkeypatch):
     """The card's counters and synchronisation stubbed; the positions on
     the CPU; the qwen3 config its SMOKE cut."""
@@ -1378,6 +1418,61 @@ def test_phase18b_on_the_cpu(monkeypatch):
     # no launcher ran: its checks are the only ones that fail
     assert problems and all("launcher" in p or "step-4" in p
                             for p in problems)
+
+
+def test_phase18e_on_the_cpu(monkeypatch, capsys):
+    """18e on phi3.5-smoke (one CPU thread): the mesh step (the MoE's
+    experts split) within 18b's bars of the one-device step at accum 2,
+    repeatable, the routes recorded both ways; its bytes the composed
+    ones."""
+    from repro_torch.configs import registry
+    from repro_torch.models.config import validate
+
+    stub_card(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "MESH_SEQ", 32)
+    monkeypatch.setattr(chip_smoke, "moe_mesh_config", lambda: validate(
+        registry.get_smoke_config(chip_smoke.PHI)))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    problems = []
+    try:
+        out = chip_smoke.moe_mesh_phase(torch, torch.device("cpu"),
+                                        problems)
+    finally:
+        torch.set_num_threads(n)
+    assert not problems
+    assert out["bitwise_repeat"] and out["route_flips"] == 0
+    # 2 MoE layers, 2 slices a step (a microbatch or a data row), forward
+    # and recomputation
+    assert out["route_calls"] == 2 * 2 * 2 * chip_smoke.MESH_STEPS
+    assert out["routed"] == out["route_calls"] * 4 * 32
+    assert max(out["rel_loss"], out["rel_grad_norm"]) <= 1e-5
+    assert out["moved"] == chip_smoke.composed_18e_moves()
+    assert out["moved"]["model"][0] > 0
+    assert "tokens whose routes differ 0 of" in capsys.readouterr().out
+
+
+def test_phase18f_on_the_cpu(monkeypatch, capsys):
+    """18f on jamba-smoke's widths: the split mixer and MoE within
+    ``MIXER_TOL`` of the whole sublayers, output and every gradient."""
+    from repro_torch.configs import registry
+
+    stub_card(monkeypatch)
+    real = registry.get_config
+    monkeypatch.setattr(registry, "get_config", lambda a: (
+        registry.get_smoke_config(a) if a == chip_smoke.JAMBA else real(a)))
+    monkeypatch.setattr(chip_smoke, "MIXER_SEQ", 16)
+    problems = []
+    out = chip_smoke.mixer_split_phase(torch, torch.device("cpu"), problems)
+    assert not problems
+    for sub in ("mamba", "moe"):
+        r = out[sub]
+        assert r["split"] and r["max_err"] <= chip_smoke.MIXER_TOL
+        assert r["model"][0] > 0 and r["gather"][0] > 0
+    # the mixer: the output, x and its 9 leaves; the MoE: 4 leaves
+    assert len(out["mamba"]["errs"]) == 11 and len(out["moe"]["errs"]) == 6
+    assert "[18f] mix (l0) split over 4 positions: True" in (
+        capsys.readouterr().out)
 
 
 # ---------------------------------------------------------------------------
@@ -1852,8 +1947,7 @@ def test_phase20_on_the_cpu(monkeypatch, capsys):
     out = chip_smoke.dryrun_phase({"train": {"moved": measured}})
     assert out["records"] == 80 and out["status"] == chip_smoke.DRYRUN_STATUS
     assert out["moves_18b"]["equal"]
-    assert out["moves_reason"] == ["jamba-v0.1-52b x multi_pod",
-                                   "mixtral-8x22b x multi_pod"]
+    assert out["moves_reason"] == []
     assert "[20] 80 records" in capsys.readouterr().out
     # no records and differing bytes: both named, the phase fails
     monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k:

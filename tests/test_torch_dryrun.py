@@ -16,8 +16,9 @@ composed from JAX's ``build_lowerable`` and ``launch/analysis.py``:
 ``status``, ``reason``, ``n_devices``, ``argument_size_in_bytes`` (every
 argument leaf's ``shard_shape`` times its itemsize) and the analytical
 fields.  The composed ``moves`` equal the ``MeshStepStats`` a real mesh
-train step counts (parameters gathered a period at a time, the dense
-family's products split over ``model``), and at 18b's configuration of
+train step counts (parameters gathered a period at a time, the dense, moe
+and hybrid families' products split over ``model``; a microbatch over the
+data rows ``_fit`` gives it), and at 18b's configuration of
 ``chip_smoke.py`` the bytes the card measured.  Then the command line and
 ``benchmarks/roofline.py``'s ``derive`` on a port record.
 """
@@ -44,6 +45,7 @@ from repro_torch.launch import dryrun as tdry
 from repro_torch.launch.mesh import DeviceMesh, make_mesh
 from repro_torch.models import lm as tlm
 from repro_torch.models import sharding as tsh
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.config import validate
 from repro_torch.models.sharding import MoveStats, NamedSharding, P
 from repro_torch.training import data as tdata
@@ -271,20 +273,19 @@ def test_build_lowerable_and_records_equal_jax(jdry, arch, tmp_path):
 
 def test_skips_and_moves_over_the_whole_grid(tmp_path):
     """80 records: 14 skipped (the 7 full-attention archs' long_500k on
-    each mesh), 66 ok; ``moves`` on every train cell but the two whose
-    ``train_accum`` of 16 does not split 256 over 32 data rows."""
+    each mesh), 66 ok; ``moves`` on every ok train cell (mixtral's and
+    jamba's 16 rows a microbatch over 2x16x16's 32 data rows too: ``pod``
+    dropped), ``moves_reason`` on none; ``model`` bytes for the families
+    whose products split."""
     recs = [tdry.run_cell(a, s, k, str(tmp_path)) for a in ARCHS
             for s in SHAPES for k in MESH_KINDS]
     assert len(recs) == len(list(tmp_path.iterdir())) == 80
     status = [r["status"] for r in recs]
     assert status.count("ok") == 66 and status.count("skipped") == 14
-    reasons = {(r["arch"], r["mesh"]): r["moves_reason"] for r in recs
-               if "moves_reason" in r}
-    assert sorted(reasons) == [("jamba-v0.1-52b", "multi_pod"),
-                               ("mixtral-8x22b", "multi_pod")]
-    assert set(reasons.values()) == {
-        "a global batch of 256 does not split into 16 microbatches over "
-        "32 data rows"}
+    assert not [r for r in recs if "moves_reason" in r]
+    train = [r for r in recs if r["shape"].startswith("train")
+             and r["status"] == "ok"]
+    assert len(train) == 20 and all("moves" in r for r in train)
     for r in recs:
         if "moves" in r:
             mv = r["moves"]
@@ -296,9 +297,10 @@ def test_skips_and_moves_over_the_whole_grid(tmp_path):
                                  "model"))
             assert mv["relayout"]["positions"] == 0   # grads as params
             assert mv["gather"]["positions"] > 0
-            # the model axis's sums: the dense family's split products
-            dense = treg.ARCHS[r["arch"]].family == "dense"
-            assert (mv["model"]["positions"] > 0) == dense
+            # the model axis's sums: the dense, moe and hybrid families'
+            # split products
+            split = treg.ARCHS[r["arch"]].family in tp.SPLIT_FAMILIES
+            assert (mv["model"]["positions"] > 0) == split
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +339,10 @@ MOVE_CASES = [("qwen3-0.6b", "2x4", 1, False, False, "bfloat16"),
               ("rwkv6-1.6b", "two_devices", 1, True, True, None),
               ("whisper-medium", "2x4", 1, False, True, None),
               ("starcoder2-7b", "alternating", 1, False, False, None),
-              ("qwen3-0.6b", "alternating", 2, True, True, "bfloat16")]
+              ("qwen3-0.6b", "alternating", 2, True, True, "bfloat16"),
+              ("phi3.5-moe-42b-a6.6b", "two_devices", 2, False, False,
+               "bfloat16"),
+              ("jamba-v0.1-52b", "alternating", 1, False, False, None)]
 
 
 @pytest.mark.parametrize("arch,mesh_name,accum,compress,regridded,dtype",
@@ -367,18 +372,89 @@ def test_composed_moves_equal_a_real_mesh_step(arch, mesh_name, accum,
     assert (got.relayout.positions > 0) == regridded
     assert (got.gather.devices > 0) == (mesh_name != "2x4"
                                         and mesh_name != "2x2x2")
-    # the model axis's copies: the dense family's, across devices where
+    # the model axis's copies: the split families', across devices where
     # a row's positions are on two
-    assert (got.model.positions > 0) == (cfg.family == "dense")
-    assert (got.model.devices > 0) == (cfg.family == "dense"
-                                       and mesh_name == "alternating")
-    # the step and the composition refuse a batch that does not split
+    split = cfg.family in tp.SPLIT_FAMILIES
+    assert (got.model.positions > 0) == split
+    assert (got.model.devices > 0) == (split and mesh_name == "alternating")
+    # the step and the composition refuse a batch that 2 microbatches do
+    # not split, with one message
     odd = {k: v[:2 * accum * D - 1] for k, v in batch.items()}
     with pytest.raises(ValueError, match="does not split") as e1:
-        step(tts.shard_state(state, mesh), odd)
+        tts.make_train_step(cfg, opt, compress=compress, accum=2)(
+            tts.shard_state(state, mesh), odd)
     with pytest.raises(ValueError, match="does not split") as e2:
-        tts.mesh_step_moves(cfg, mesh, accum, 2 * accum * D - 1, 16)
-    assert str(e1.value) == str(e2.value)
+        tts.mesh_step_moves(cfg, mesh, 2, 2 * accum * D - 1, 16,
+                            compress=compress)
+    assert str(e1.value) == str(e2.value) == (
+        f"a global batch of {2 * accum * D - 1} does not split into 2 "
+        f"microbatches")
+
+
+def bits(t):
+    t = t.detach()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16
+            else t).numpy().tobytes()
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "mixtral-8x22b"])
+def test_a_microbatch_over_fewer_data_rows(arch):
+    """The (2, 2, 2) pod/data/model mesh, a global batch of 4 in 2
+    microbatches: 2 rows a microbatch over 4 data rows.  JAX's ``_fit``
+    drops ``pod``: the 2 rows of ``pod`` 0 compute a row each, those of
+    ``pod`` 1 hold the same slices and run nothing.  Two steps are the
+    one-device step's at accum 2 x 2: bitwise for rwkv6 (whole products);
+    for mixtral (split products) bitwise on a repeat and with the
+    positions on two devices, and within 1e-5 of its loss and grad_norm,
+    every parameter within 2 lr k.  The composed moves equal the
+    measured ones (one thread: a multithreaded CPU product may round
+    differently run to run)."""
+    cfg = treg.SMOKES[arch]
+    mesh = mesh_of("2x2x2")
+    assert tts.microbatch_rows(mesh, 4, 2) == (2, 1)
+    opt = topt.AdamW(lr=1e-2)
+    state = tts.init_state(cfg, opt, torch.Generator().manual_seed(0))
+    batches = [tdata.batch_at(tdata.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=4, seed=0), k,
+        device="cpu") for k in range(2)]
+
+    def run(step, s):
+        out = []
+        for b in batches:
+            s, m = step(s, b)
+            out.append(m)
+        return tts.unshard_state(s, "cpu"), out
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one, m_one = run(tts.make_train_step(cfg, opt, accum=4), state)
+        step = tts.make_train_step(cfg, opt, accum=2)
+        runs = [run(step, tts.shard_state(state, make_mesh(
+            (2, 2, 2), ("pod", "data", "model"), devs)))
+            for devs in (CPU8, CPU8, ["cpu", "cpu:0"] * 4)]
+    finally:
+        torch.set_num_threads(n)
+    on, m_on = runs[0]
+    assert m_on[-1]["moved"] == tts.mesh_step_moves(cfg, mesh, 2, 4, 16)
+    keys = ("loss", "grad_norm")
+
+    def same(a, b):
+        return (all(bits(x[k]) == bits(y[k]) for x, y in zip(a[1], b[1])
+                    for k in keys)
+                and all(bits(x) == bits(y)
+                        for x, y in zip(leaves(a[0]), leaves(b[0]))))
+
+    if cfg.family in tp.SPLIT_FAMILIES:
+        assert same(runs[1], runs[0]) and same(runs[2], runs[0])
+        for x, y in zip(m_on, m_one):
+            for k in keys:
+                assert abs(float(x[k]) - float(y[k])) <= 1e-5 * abs(
+                    float(y[k]))
+        for g, w in zip(leaves(on.params), leaves(one.params)):
+            assert float((g - w).abs().max()) <= 2 * opt.lr * len(batches)
+    else:
+        assert same(runs[0], (one, m_one))
 
 
 def test_composed_moves_are_18b_measured_bytes():

@@ -1,42 +1,42 @@
 """The port's train step on a device mesh, on the CPU.
 
-Two bars.  (1) Against the one-device step: every family but the dense
-one computes whole products on the mesh (its parameters gathered a period
-at a time), so a mesh step with ``D`` data rows and ``accum``
-microbatches performs the one-device step's arithmetic at ``accum * D``
-(the same slices, shapes and f32 adds in the same order), and after 3
-steps every loss, grad_norm, parameter, moment and error buffer equals
-the one-device run's bit for bit: mixtral-8x22b (MoE) and rwkv6-1.6b
-SMOKE, compression off and on, on (2, 4) meshes naming the CPU 8 times,
-and on a (2, 2, 2) mesh with a ``pod`` axis (4 data rows).  The dense
-family (glm4-9b, JAX's own case in tests/test_distributed.py) computes
-its products on each ``model`` position's slice and sums the partials, so
-its cases (and qwen3-0.6b's and starcoder2-7b's, whose 6 heads do not
-split over 4 positions) hold three bars instead: bitwise the same step
-on a mesh alternating ``cpu`` and ``cpu:0``, bitwise on a repeat, and
-within (2)'s
-bar of the one-device step (loss and grad_norm 1e-5 relative, 1e-4 for
-grad_norm with compression; every parameter within 2 lr k).  The runs use
-one CPU thread (a multithreaded CPU product may round differently run to
-run).  (2) Against JAX: its sharded step (``param_shardings`` on an
-Auto-axis (2, 4) mesh of 8 forced host devices, one subprocess for the
-module, as tests/test_torch_full_mesh.py runs JAX) from its
-``init_state(key 0)`` with ``AdamW()``'s lr,
-carried across by ``train_state_from_numpy(..., mesh=)``; after each of 3
-steps on ``batch_at(DataConfig(seed=0), k)``, loss and grad_norm within
-1e-5 relative (1e-4 for grad_norm with compression, as
+Two bars.  (1) Against the one-device step: the families whose products
+stay whole on the mesh (rwkv6-1.6b's ssm here; its parameters gathered a
+period at a time) perform the one-device step's arithmetic at ``accum *
+D`` with ``D`` data rows and ``accum`` microbatches (the same slices,
+shapes and f32 adds in the same order), and after 3 steps every loss,
+grad_norm, parameter, moment and error buffer equals the one-device
+run's bit for bit, compression off and on, on (2, 4) meshes naming the
+CPU 8 times.  The dense, moe and hybrid families compute their products
+on each ``model`` position's slice and sum the partials, so their cases
+(glm4-9b, JAX's own case in tests/test_distributed.py, qwen3-0.6b,
+starcoder2-7b, whose 6 heads do not split over 4 positions, and
+mixtral-8x22b, also on a (2, 2, 2) mesh with a ``pod`` axis, 4 data
+rows) hold three bars instead: bitwise the same step on a mesh of the
+same shape alternating ``cpu`` and ``cpu:0``, bitwise on a repeat, and
+within (2)'s bar of the one-device step (loss and grad_norm 1e-5
+relative, 1e-4 for grad_norm with compression; every parameter within 2
+lr k).  The runs use one CPU thread (a multithreaded CPU product may
+round differently run to run).  (2) Against JAX: its sharded step
+(``param_shardings`` on an Auto-axis (2, 4) mesh of 8 forced host
+devices, one subprocess for the module, as tests/test_torch_full_mesh.py
+runs JAX) from its ``init_state(key 0)`` with ``AdamW()``'s lr, carried
+across by ``train_state_from_numpy(..., mesh=)``; after each of 3 steps
+on ``batch_at(DataConfig(seed=0), k)``, loss and grad_norm within 1e-5
+relative (1e-4 for grad_norm with compression, as
 tests/test_torch_train_step.py allows), every parameter within that
 file's bounds (2 lr k; 1e-2 lr where the gradient stayed above noise,
 without compression, for qwen3: glm4's one-device step is outside that
 rule against JAX's one-device step too; the moments and error buffers
-as there): glm4-9b, qwen3-0.6b and starcoder2-7b (whose 6 heads do not
-split over 4 positions).  JAX's step computes the whole batch at once and
-the port's two rows' halves, so the two differ by rounding only.  Then
-the launcher (qwen3-0.6b): a mesh run resumed on the mesh is bitwise an
-uninterrupted mesh run; ``--mesh 2,4`` resumes an unsharded run's
-checkpoint and the reverse, and both, like the mesh run, are within (1)'s
-bar of an unsharded run at ``--accum 2``; a mesh with too few devices
-raises.
+as there): glm4-9b, qwen3-0.6b, starcoder2-7b (whose 6 heads do not
+split over 4 positions), mixtral-8x22b (its experts' ``d_ff`` split,
+EP), phi3.5-moe and jamba (its Mamba mixer's ``d_inner`` and its MoE
+split).  JAX's step computes the whole batch at once and the port's two
+rows' halves, so the two differ by rounding only.  Then the launcher
+(qwen3-0.6b): a mesh run resumed on the mesh is bitwise an uninterrupted
+mesh run; ``--mesh 2,4`` resumes an unsharded run's checkpoint and the
+reverse, and both, like the mesh run, are within (1)'s bar of an
+unsharded run at ``--accum 2``; a mesh with too few devices raises.
 """
 import json
 import os
@@ -54,6 +54,7 @@ from repro_torch.configs import registry as treg
 from repro_torch.interop import train_state_from_numpy, train_state_to_numpy
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.mesh import make_debug_mesh, make_mesh
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.sharding import (MoveStats, NamedSharding, P,
                                          Sharded, param_shardings)
 from repro_torch.training import data as tdata
@@ -67,7 +68,8 @@ STEPS, LR, SEQ, BATCH = 3, 1e-2, 32, 4
 JAX_LR = 3e-4   # AdamW()'s: the lr tests/test_torch_train_step.py's
 #                 parameter bounds were chosen at
 JAX_CASES = [("glm4-9b", False), ("glm4-9b", True), ("qwen3-0.6b", False),
-             ("starcoder2-7b", False)]
+             ("starcoder2-7b", False), ("mixtral-8x22b", False),
+             ("phi3.5-moe-42b-a6.6b", False), ("jamba-v0.1-52b", False)]
 # the archs whose one-device step meets the 1e-2 lr rule against JAX's
 # (tests/test_torch_train_step.py); glm4's does not: 3 of its 16,384
 # w_gate elements sit at 1.29e-2 lr after 3 one-device steps, a rounding
@@ -192,17 +194,18 @@ MESH_CASES = [(arch, compress, "2x4", accum)
     ("qwen3-0.6b", False, "2x4", 1), ("starcoder2-7b", False, "2x4", 1)]
 
 
-def mesh_of(name):
+def mesh_of(name, devices=CPU8):
     if name == "2x4":
-        return make_debug_mesh(2, 4, CPU8)
-    return make_mesh((2, 2, 2), ("pod", "data", "model"), CPU8)
+        return make_debug_mesh(2, 4, devices)
+    return make_mesh((2, 2, 2), ("pod", "data", "model"), devices)
 
 
 @pytest.mark.parametrize("arch,compress,mesh_name,accum", MESH_CASES)
 def test_mesh_step_is_bitwise_the_one_device_step(arch, compress, mesh_name,
                                                   accum, one_thread):
     """Bitwise the one-device step at accum * D for every family whose
-    products stay whole; the dense family (glm4) to its three bars."""
+    products stay whole (rwkv6); the families whose products split (glm4,
+    mixtral) to their three bars."""
     cfg = treg.SMOKES[arch]
     opt = topt.AdamW(lr=LR)
     mesh = mesh_of(mesh_name)
@@ -219,10 +222,10 @@ def test_mesh_step_is_bitwise_the_one_device_step(arch, compress, mesh_name,
     assert same_state(placed, state)
     step = tts.make_train_step(cfg, opt, compress=compress, accum=accum)
     on, m_on = run(step, placed, batches)
-    if cfg.family == "dense":
+    if cfg.family in tp.SPLIT_FAMILIES:
         again, m_again = run(step, placed, batches)
         assert m_again == m_on and same_state(again, on)
-        alt = make_debug_mesh(2, 4, ["cpu", "cpu:0"] * 4)
+        alt = mesh_of(mesh_name, ["cpu", "cpu:0"] * 4)
         moved, m_moved = run(step, tts.shard_state(state, alt), batches)
         assert m_moved == m_on and same_state(moved, on)
         within_bar(on, m_on, one, m_one, compress, LR)

@@ -2,15 +2,20 @@
 (``repro_torch.models.tensor_parallel``) against the whole computation and
 the JAX package's, on the CPU.
 
-The dense family's SMOKE configs are laid out by ``param_shardings`` on
-meshes naming the CPU; a row's view then runs each split sublayer on its
-``model`` positions' slices:
+The dense, moe and hybrid families' SMOKE configs are laid out by
+``param_shardings`` on meshes naming the CPU; a row's view then runs each
+split sublayer on its ``model`` positions' slices:
 
 * attention with the q and kv heads split (qwen3 on (2, 2)), with each
   position's query heads sharing one kv head fetched whole (qwen3 and
   glm4 on (2, 4)), and replicated where the heads do not split
   (starcoder2's 6 heads over 4 positions);
 * the gated (glm4) and the plain (starcoder2) MLP;
+* the MoE, each expert's ``d_ff`` split: the experts over the data axes
+  (EP: mixtral and phi3.5 on (2, 4)) and ``d`` over them (FSDP: mixtral's
+  4 experts on an (8, 2) mesh's 8 data rows);
+* jamba's Mamba mixer, ``d_inner`` 128 over 4 positions, and whole where
+  3 do not divide it;
 * the vocabulary: the lookup (bitwise the whole one: one slice owns each
   row) and the loss, tied (qwen3) and untied (glm4), with masked labels
   and a row whose labels are all masked.
@@ -19,10 +24,12 @@ Each against the whole sublayer on one device and JAX's, the same inputs
 from numpy seeds, within 2e-6 of the largest |value| (float32; the two
 sums' orders differ).  Then a row's loss and every gradient (the pieces
 added at their boxes) against JAX's ``loss_fn`` and ``jax.grad`` within
-1e-5 (``tests/test_torch_train_loss.py``'s bar); the model axis's sum in
-f32, cast once, in position order; and a period under ``checkpoint``:
-every leaf of the period fetched once in the forward and once more in the
-backward pass, no fetched leaf saved for the backward.
+1e-5 (``tests/test_torch_train_loss.py``'s bar, 1e-4 for jamba's gradients
+as there), the dense archs, mixtral, phi3.5 and jamba; the model axis's
+sum in f32, cast once, in position order; and a period under
+``checkpoint`` (qwen3, mixtral, jamba): every leaf of the period fetched
+once in the forward and once more in the backward pass, no fetched leaf
+saved for the backward.
 """
 import collections
 import functools
@@ -43,12 +50,16 @@ from repro_torch.interop import lm_params_from_numpy
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import lm as tlm
 from repro_torch.models import tensor_parallel as tp
-from repro_torch.models.layers import mlp_apply
+from repro_torch.models.layers import mlp_apply, moe_apply
 from repro_torch.models.sharding import MoveStats, param_shardings, shard
 from repro_torch.training.tree import key_paths, leaves, unflatten
 
 F32 = 2e-6
 LOSS_TOL = GRAD_TOL = 1e-5
+# tests/test_torch_train_loss.py's gradient bar for the Mamba family: its
+# recurrence's gradients sit at up to 5.2e-6 of JAX's on one device and at
+# 1.06e-5 with d_inner split (jamba-smoke, key 4)
+MAMBA_GRAD_TOL = 1e-4
 B, S = 2, 16
 
 
@@ -146,6 +157,78 @@ def test_split_mlp_matches_whole_and_jax(arch):
     assert stats["model"] == MoveStats(2 * 3 * act, 0)
 
 
+# (arch, mesh, branch): the experts over the data axes where they divide
+# them (EP), else FSDP on d (mixtral-smoke's 4 experts over 8 data rows)
+MOE_CASES = [("mixtral-8x22b", (2, 4), "ep"),
+             ("phi3.5-moe-42b-a6.6b", (2, 4), "ep"),
+             ("mixtral-8x22b", (8, 2), "fsdp")]
+
+
+def layer_of(cfg, kind=None, moe=None):
+    """The name of the first layer of the period of that kind and MoE."""
+    return next(f"l{i}" for i, s in enumerate(cfg.period())
+                if (kind is None or s.kind.value == kind)
+                and (moe is None or s.moe == moe))
+
+
+@pytest.mark.parametrize("arch,mesh_shape,branch", MOE_CASES)
+def test_split_moe_matches_whole_and_jax(arch, mesh_shape, branch):
+    """Each expert's d_ff over model: the routing once on the row's first
+    position, each position's experts on its slice, the partials summed
+    once; x and combine out, the f32 partials back."""
+    jcfg, cfg, jp, params, placed = setup(arch, mesh_shape)
+    tree, row, stats = view(cfg, placed)
+    name = layer_of(cfg, moe=True)
+    sub = period(cfg, tree, name)["ffn"]
+    assert tp.is_split(sub)
+    spec = sub.p["w_up"].s.sharding.spec
+    assert spec[1 if branch == "ep" else 2] == "data" and spec[3] == "model"
+    h = hidden(cfg)
+    kw = dict(top_k=cfg.experts_per_token, act=cfg.act)
+    y = tp.moe_apply(sub, torch.as_tensor(h), **kw)
+    whole = moe_apply(at0(params["blocks"][name]["ffn"]), torch.as_tensor(h),
+                      **kw)
+    want = jlay.moe_apply(at0(jp["blocks"][name]["ffn"]), jnp.asarray(h), **kw)
+    assert rel_err(y, whole.numpy()) <= F32
+    assert rel_err(y, np.asarray(want)) <= F32
+    M, T = mesh_shape[1], B * S
+    act, comb = T * cfg.d_model * 4, T * cfg.n_experts * 4
+    assert stats["model"] == MoveStats((M - 1) * (2 * act + comb), 0)
+
+
+@pytest.mark.parametrize("mesh_shape,splits", [((2, 4), True),
+                                               ((2, 3), False)])
+def test_split_mamba_matches_whole_and_jax(mesh_shape, splits):
+    """jamba-smoke's mixer: d_inner 128 over 4 positions, each fetching
+    its xin and z columns of in_proj; over 3, which do not divide it, the
+    mixer runs whole on the row's first position."""
+    from repro.models import ssm as jssm
+    from repro_torch.models.ssm import mamba_apply
+
+    jcfg, cfg, jp, params, placed = setup("jamba-v0.1-52b", mesh_shape)
+    tree, row, stats = view(cfg, placed)
+    name = layer_of(cfg, kind="mamba")
+    sub = period(cfg, tree, name)["mix"]
+    assert tp.is_split(sub) == splits
+    h = hidden(cfg)
+    th = torch.as_tensor(h)
+    if splits:
+        y, st = tp.mamba_apply(sub, th)
+        assert st is None
+        M, T = mesh_shape[1], B * S
+        act = T * cfg.d_model * 4
+        proj = T * (math.ceil(cfg.d_model / 16) + 2 * cfg.ssm_d_state) * 4
+        assert stats["model"] == MoveStats((M - 1) * 2 * (act + proj), 0)
+    else:
+        y, _ = mamba_apply(sub, th)
+        assert stats["model"] == MoveStats()
+    whole, _ = mamba_apply(at0(params["blocks"][name]["mix"]), th)
+    want, _ = jssm.mamba_apply(at0(jp["blocks"][name]["mix"]),
+                               jnp.asarray(h))
+    assert rel_err(y, whole.detach().numpy()) <= F32
+    assert rel_err(y, np.asarray(want)) <= F32
+
+
 def labels_of(cfg, seed=2, masked_row=False):
     """Labels, a quarter masked (and, with ``masked_row``, all of the
     second row)."""
@@ -199,7 +282,8 @@ def test_vocab_lookup_and_head_loss(arch):
 
 ROW_CASES = [("glm4-9b", (2, 4)), ("qwen3-0.6b", (2, 4)),
              ("qwen3-0.6b", (2, 2)), ("starcoder2-7b", (2, 4)),
-             ("granite-3-8b", (2, 4))]
+             ("granite-3-8b", (2, 4)), ("mixtral-8x22b", (2, 4)),
+             ("phi3.5-moe-42b-a6.6b", (2, 4)), ("jamba-v0.1-52b", (2, 4))]
 
 
 @pytest.mark.parametrize("arch,mesh_shape", ROW_CASES)
@@ -226,7 +310,8 @@ def test_row_loss_and_gradients_match_jax(arch, mesh_shape):
     for (name, w), g in zip(key_paths(jax.tree.map(np.asarray, jgrads)),
                             grads):
         assert g.shape == w.shape, name
-        assert rel_err(g, w) <= GRAD_TOL, name
+        assert rel_err(g, w) <= (MAMBA_GRAD_TOL if cfg.ssm_kind == "mamba"
+                                 else GRAD_TOL), name
 
 
 # ---------------------------------------------------------------------------
@@ -265,20 +350,23 @@ def test_model_sum_is_f32_in_position_order_cast_once():
     assert stats["model"] == MoveStats(12 * 15 * 2, 0)
 
 
-def test_period_gathers_twice_and_saves_no_gathered_leaf(monkeypatch):
-    """qwen3 on (2, 4), remat on: each (block leaf, period, position) is
-    fetched once by the forward and once more by the backward pass, and
-    no tensor saved for the backward outside the periods shares storage
-    with a tensor a period fetched."""
-    _, cfg, _, _, placed = setup("qwen3-0.6b", (2, 4))
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mixtral-8x22b",
+                                  "jamba-v0.1-52b"])
+def test_period_gathers_twice_and_saves_no_gathered_leaf(monkeypatch, arch):
+    """qwen3, mixtral (the experts' slices) and jamba (the mixer's, its
+    in_proj columns) on (2, 4), remat on: each (block leaf, period,
+    position) is fetched once by the forward and once more by the
+    backward pass, and no tensor saved for the backward outside the
+    periods shares storage with a tensor a period fetched."""
+    _, cfg, _, _, placed = setup(arch, (2, 4))
     tree, row, _ = view(cfg, placed)
     fetched, count = [], collections.Counter()
     real = tp.Row.fetch
 
-    def spy(self, leaf, q, part):
-        out = real(self, leaf, q, part)
+    def spy(self, leaf, q, part, span=None):
+        out = real(self, leaf, q, part, span)
         if leaf.period is not None:
-            count[(leaf.k, leaf.period, q)] += 1
+            count[(leaf.k, leaf.period, q, span)] += 1
             fetched.append(out)   # alive: no later tensor takes its memory
         return out
 
@@ -301,14 +389,15 @@ def test_period_gathers_twice_and_saves_no_gathered_leaf(monkeypatch):
     torch.autograd.grad(loss, [p[3] for p in row.pieces()])
     assert set(count.values()) == {2}
     # every block leaf of every period, on every position that uses it
-    per_period = collections.Counter(p for _, p, _ in count)
+    per_period = collections.Counter(p for _, p, _, _ in count)
     assert sorted(per_period) == list(range(cfg.n_periods))
 
 
 def test_other_families_compute_whole_products():
-    """mixtral's attention and MoE on a (2, 4) row: every leaf whole on the
-    row's first position; no model-axis copy."""
-    _, cfg, _, _, placed = setup("mixtral-8x22b", (2, 4))
+    """rwkv6's time mix and channel mix on a (2, 4) row (the ssm family
+    splits nothing yet): every leaf whole on the row's first position; no
+    model-axis copy."""
+    _, cfg, _, _, placed = setup("rwkv6-1.6b", (2, 4))
     tree, row, stats = view(cfg, placed)
     assert not row.split
     lay = period(cfg, tree)
