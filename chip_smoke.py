@@ -210,9 +210,10 @@ result.  Phases, in order (any failure exits nonzero):
     (bytes and seconds), restored after 14a into a fresh engine with a
     fresh plan cache, one window: every tenant within 1e-10 of 13b's end
     state, supervisor, controller and tolerances round-tripped; then the
-    serving launcher as subprocesses at ``--cfd-n 64 --parts 16``: an
-    uninterrupted supervised run and a killed-and-resumed one with equal
-    ``digest`` lines, and one seeded chaos run.  Phase 14's checks are
+    serving launcher at ``--cfd-n 64 --parts 16``: an uninterrupted
+    supervised run and one killed at a snapshot (its ``main`` in this
+    process) and resumed in a process of its own, with equal ``digest``
+    lines, and one seeded chaos run (in this process).  Phase 14's checks are
     collected and fail the run after all four parts have printed.
 
 15. the full mesh, from the main run's state: the main path's solver and
@@ -293,7 +294,7 @@ result.  Phases, in order (any failure exits nonzero):
     parameters from a ``torch.Generator`` seed 0 on the card),
     ``seq_len`` 4096 (train_4k's),
     global batch 8 (cut from train_4k's 256), ``accum`` 2, ``AdamW()``:
-    one warm step and 2 timed steps, all on ``batch_at(seed 0, step 0)``
+    one warm step and a timed step, all on ``batch_at(seed 0, step 0)``
     (tests/test_training.py's fixed batch: its loss must fall over them),
     and a second run of the first step, bitwise the first run's in its
     loss, grad_norm and every parameter leaf; s a step, tokens/s, 6 N
@@ -306,15 +307,14 @@ result.  Phases, in order (any failure exits nonzero):
     one int8-compressed step (finite, error buffers filled); (17c) remat
     on the card: qwen3-0.6b cut to 2 layers
     (``seq_len`` 4096, batch 4) and rwkv6-1.6b cut to 2 layers
-    (``seq_len`` 2048, batch 2: the 256-step time chunks), gradients with
+    (``seq_len`` 768, batch 2: three 256-step time chunks), gradients with
     remat bitwise those without, ``max_memory_allocated`` of each; (17d)
     qwen3-0.6b's full-width state cut to 2 layers written and restored
-    in process (bytes, seconds, bitwise), then ``python -m
-    repro_torch.launch.train`` (qwen3-0.6b, ``--layers 2 --seq-len 512
-    --batch 8``) run uninterrupted to step 2
-    and, in another directory, to step 1 and resumed to step 2: it must
-    print ``resumed from step 1`` and the two step-2 checkpoints must
-    hold the same bytes.  Phase 17's checks are collected and fail the
+    in process (bytes, seconds, bitwise), then the training launcher's
+    ``main`` in this process (qwen3-0.6b, ``--layers 2 --seq-len 512
+    --batch 8``) run uninterrupted to step 2 and, in another directory,
+    to step 1 and resumed to step 2: it must print ``resumed from step
+    1`` and the two step-2 checkpoints must hold the same bytes.  Phase 17's checks are collected and fail the
     run after its parts have printed; its results also go on a line of
     their own (``train {...}``) before the summary.
 
@@ -336,9 +336,10 @@ result.  Phases, in order (any failure exits nonzero):
     the state it starts from (the mesh's less than the whole-parameter
     copy above the one-device step's), the bytes a step moves by kind
     (gather below the earlier whole-parameter gather of 343,474,176 B);
-    then ``launch/train.py --smoke`` on one device (A) and on the mesh
-    (M) to step 4, and on the mesh to step 2 resumed to step 4 on the
-    mesh (B) and on one device (C): B's step-4 checkpoint bitwise M's,
+    then ``launch/train.py --smoke`` (its ``main``, in this process) on
+    one device (A) and on the mesh (M) to step 4, and on the mesh to
+    step 2 resumed to step 4 on the mesh (B) and on one device (C): B's
+    step-4 checkpoint bitwise M's,
     M's and C's parameters within 2 lr k of A's; (18e) phi3.5-moe at full
     width (d 4096, 16 experts, ``d_ff`` 6400, vocab 32064) cut 32 -> 1
     layer (its whole period), 18b's batches and mesh: its attention, MoE
@@ -356,6 +357,17 @@ result.  Phases, in order (any failure exits nonzero):
     the input and of every parameter within 1e-4 of each whole one's
     largest |value| (jamba's whole period does not fit the card twice for
     a train step; its mesh step runs at SMOKE width in the CPU tests);
+    (18g) the ssm, vlm and audio families at full width cut to one layer
+    on 18b's mesh and batches: rwkv6-1.6b (its heads through the WKV scan
+    and its channel mix's ``d_ff`` over ``model``), paligemma-3b (its
+    MQA attention, geglu MLP and tied vocabulary of 257,216 rows over
+    its 256 patch rows and the 1024 tokens) and whisper-medium (one
+    decoder and one encoder layer over 1500 frames: the encoder's
+    attention and MLP, self- and cross-attention and MLP split), each to
+    18b's bars against the one-device step at accum 2, the mesh run
+    twice bitwise; s a step, both peaks, the bytes a step moves by kind
+    beside the whole-product schedule's (``FAMILY_WHOLE_MOVES``): the
+    gather below it, ``model`` above 0;
     (18c) the GPipe
     forward of the same cut, 8 x 1024 on a (pod 2, data 2, model 2) mesh
     with 4 microbatches: bitwise ``hidden_states`` per slice, within 1e-2
@@ -423,9 +435,10 @@ result.  Phases, in order (any failure exits nonzero):
     kernels' build and waits for it before phase 3): 80 records, 66 ``ok``, 14
     ``skipped``, none in error, each under JAX's file name, the command's
     seconds, ``moves`` on every ``ok`` train cell; then the ``moves`` it
-    composes at 18b's and 18e's configurations (qwen3-0.6b cut to 4
-    layers, phi3.5-moe cut to 1, a (2, 4) mesh naming ``cuda:0`` 8 times,
-    accum 1, 8 x 1024) against the ``MeshStepStats`` 18b and 18e measured
+    composes at 18b's, 18e's and 18g's configurations (qwen3-0.6b cut to
+    4 layers, phi3.5-moe cut to 1, rwkv6, paligemma and whisper cut to 1,
+    a (2, 4) mesh naming ``cuda:0`` 8 times, accum 1, 8 x 1024) against
+    the ``MeshStepStats`` 18b, 18e and 18g measured
     (every kind, ``model`` too), integer for integer.  Its results go on
     a line of their own (``dryrun {...}``).
 
@@ -465,7 +478,7 @@ full-mesh CG instead.  With ``--serving``, phases 1 and 2 run, then phases
 phase 15; with ``--lm``, phase 16; with ``--train``, phase 17; with
 ``--lm-mesh``, phase 18; with ``--assembly-mesh``, phase 19 from the main
 path's 3-step state; with ``--dryrun``, phase 20 (after phase 18 when
-``--lm-mesh`` is given too, else without 18b's and 18e's bytes to
+``--lm-mesh`` is given too, else without 18b's, 18e's and 18g's bytes to
 compare).
 """
 from __future__ import annotations
@@ -473,6 +486,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import itertools
@@ -4760,6 +4774,26 @@ def serve_cli(extra: list):
         text=True)
 
 
+def serve_main(args: list) -> tuple:
+    """The serving launcher's ``main`` (what its command line runs) in
+    this process: ``(returncode, what it printed, the error)``, as
+    :func:`finish` gives a process's."""
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            serve.main(args)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            return 1, buf.getvalue(), f"SystemExit: {e}"
+    except Exception as e:  # noqa: BLE001 — reported as the run's failure
+        return 1, buf.getvalue(), f"{type(e).__name__}: {e}"
+    return 0, buf.getvalue(), ""
+
+
 def finish(procs: dict) -> dict:
     """Wait for every started process (killing one past ``CLI_TIMEOUT``);
     name -> (returncode, stdout, stderr)."""
@@ -4780,22 +4814,24 @@ def digest_lines(text: str) -> list:
 
 
 def cli_phase(torch, tmp, problems) -> dict:
-    """14d through the CLI: an uninterrupted supervised run with a
-    snapshot directory against a run killed at a window-aligned snapshot
-    and resumed, the ``digest`` lines equal; then one seeded chaos run."""
+    """14d through the serving launcher: an uninterrupted supervised run
+    with a snapshot directory against a run killed at a window-aligned
+    snapshot (both its ``main`` in this process) and resumed by ``python
+    -m repro_torch.launch.serve`` (a process of its own, beside a seeded
+    chaos run in this process), the ``digest`` lines equal."""
     base = CLI_ARGS + ["--supervise"]
     t0 = time.perf_counter()
-    runs = finish({
-        "full": serve_cli(base + ["--steps", str(CLI_STEPS), "--snapshot-dir",
-                                  str(Path(tmp) / "full")]),
-        "part": serve_cli(base + ["--steps", str(CLI_KILL), "--snapshot-dir",
-                                  str(Path(tmp) / "part")])})
-    runs.update(finish({
-        "resumed": serve_cli(CLI_ARGS + ["--resume", "--steps",
-                                         str(CLI_STEPS), "--snapshot-dir",
-                                         str(Path(tmp) / "part")]),
-        "chaos": serve_cli(CLI_ARGS + ["--steps", str(CLI_STEPS)]
-                           + CHAOS_ARGS)}))
+    runs = {"full": serve_main(base + ["--steps", str(CLI_STEPS),
+                                       "--snapshot-dir",
+                                       str(Path(tmp) / "full")]),
+            "part": serve_main(base + ["--steps", str(CLI_KILL),
+                                       "--snapshot-dir",
+                                       str(Path(tmp) / "part")])}
+    proc = serve_cli(CLI_ARGS + ["--resume", "--steps", str(CLI_STEPS),
+                                 "--snapshot-dir", str(Path(tmp) / "part")])
+    runs["chaos"] = serve_main(CLI_ARGS + ["--steps", str(CLI_STEPS)]
+                               + CHAOS_ARGS)
+    runs.update(finish({"resumed": proc}))
     wall = time.perf_counter() - t0
     for name, (rc, so, se) in runs.items():
         if rc != 0:
@@ -4809,7 +4845,7 @@ def cli_phase(torch, tmp, problems) -> dict:
         print(f"  [14d] CLI chaos: {line}")
     print(f"  [14d] CLI kill and resume at {' '.join(SMALL_ARGS)}: digests "
           f"equal {bool(full) and full == resumed} ({full}); four runs in "
-          f"{wall:.1f} s")
+          f"{wall:.1f} s (the resumed one a process of its own)")
     return {"digests": full, "resumed_equal": bool(full) and full == resumed,
             "chaos": lines, "s": wall}
 
@@ -6709,9 +6745,10 @@ TRAIN_TIGHT = 1e-2       # 17a: x lr, the parameters whose gradient stayed
 TRAIN_SEQ = 4096         # 17b: the train_4k shape's length (configs/shapes.py)
 TRAIN_BATCH, TRAIN_ACCUM = 8, 2   # 17b: global batch cut from train_4k's 256;
 #                          microbatch 4
-TRAIN_TIMED = 2          # 17b: timed steps after one warm step, all on
+TRAIN_TIMED = 1          # 17b: timed steps after one warm step, all on
 #                          batch_at(seed 0, step 0): tests/test_training.py's
-#                          fixed batch, whose loss must fall over them
+#                          fixed batch, whose loss must fall over them (cut
+#                          from 2; the second run's step is timed too)
 TRAIN_REPEAT = 1         # 17b: the second run's steps (cut from 4: a step
 #                          of all 28 layers took 21-27 s on the card)
 TRAIN_LAYERS = 8         # 17b: qwen3-0.6b's depth cut 28 -> 8 to keep the
@@ -6721,7 +6758,9 @@ TRAIN_MEM_GB = (43.0, 52.0)  # 17b: predicted max_memory_allocated (PERF.md)
 BF16_DENSE_FLOPS = 989e12    # H100 SXM dense bf16 peak (NVIDIA data sheet,
 #                              at 700 W)
 # 17c: (arch, layers, seq_len, batch) — full width, depth cut
-REMAT_RUNS = (("qwen3-0.6b", 2, 4096, 4), ("rwkv6-1.6b", 2, 2048, 2))
+REMAT_RUNS = (("qwen3-0.6b", 2, 4096, 4), ("rwkv6-1.6b", 2, 768, 2))
+#                          rwkv6's 2048 cut to 768: three 256-step time
+#                          chunks still (its time loop runs eagerly)
 RESUME_LAYERS = 2            # 17d: qwen3-0.6b's depth cut 28 -> 2 (28 layers
 #                          wrote 6 GB a checkpoint, 118-142 s of phase; 8
 #                          layers 2.8 GB, 92-105 s)
@@ -7009,7 +7048,7 @@ def full_train_phase(torch, dev, problems) -> dict:
           f"loss, grad_norm and parameter leaf): {same}")
     if not (same and finite):
         problems.append(f"17b: bitwise {same}, finite {finite}")
-    # three updates on the same batch lower its loss
+    # an update on the same batch lowers its loss
     if not losses[-1] < losses[0]:
         problems.append(f"17b: the loss did not fall on a fixed batch "
                         f"{losses}")
@@ -7122,13 +7161,18 @@ def remat_phase(torch, dev, problems) -> list:
     return out
 
 
-def train_cli(extra: list, ckpt: str) -> subprocess.Popen:
-    """The training launcher started as a subprocess on the card."""
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", *RESUME_ARGS,
-         "--ckpt", ckpt, *extra], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+def train_main(args: list) -> tuple:
+    """The training launcher's ``main`` (what its command line runs) in
+    this process, on ``args``: ``(returncode, its lines, the error)``, as
+    :func:`finish` gives a process's."""
+    from repro_torch.launch import train
+
+    lines = []
+    try:
+        train.main(args, log=lines.append)
+    except Exception as e:  # noqa: BLE001 — reported as the run's failure
+        return 1, "\n".join(lines), f"{type(e).__name__}: {e}"
+    return 0, "\n".join(lines), ""
 
 
 def same_checkpoint(a, b) -> bool:
@@ -7148,8 +7192,9 @@ def same_checkpoint(a, b) -> bool:
 def train_resume_phase(torch, dev, problems) -> dict:
     """17d: a checkpoint of qwen3-0.6b's full-width state (its depth cut
     to :data:`RESUME_LAYERS`) written and restored in process (bytes,
-    seconds, bitwise), then the launcher at the same cut killed after
-    step 1 and resumed against an uninterrupted run."""
+    seconds, bitwise), then the launcher's ``main`` at the same cut
+    stopped after step 1 and resumed against an uninterrupted run, in
+    this process."""
     import tempfile
 
     from repro_torch.configs.registry import get_config
@@ -7188,16 +7233,15 @@ def train_resume_phase(torch, dev, problems) -> dict:
         if not c["bitwise"]:
             problems.append("17d: the restored state differs")
         a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
-        # A and B1 share the card (two states of ~20 GB each); B2 resumes
-        # B1's checkpoint
-        procs = {"A": train_cli(["--steps", str(RESUME_STEPS),
-                                 "--ckpt-every", str(RESUME_STEPS)], a),
-                 "B1": train_cli(["--steps", str(RESUME_KILL),
-                                  "--ckpt-every", str(RESUME_KILL)], b)}
-        runs = finish(procs)
-        runs.update(finish({"B2": train_cli(
-            ["--steps", str(RESUME_STEPS), "--ckpt-every",
-             str(RESUME_KILL)], b)}))
+        # in this process, one after the other; B2 resumes B1's checkpoint
+        runs = {}
+        for tag, ckpt, steps, every in (
+                ("A", a, RESUME_STEPS, RESUME_STEPS),
+                ("B1", b, RESUME_KILL, RESUME_KILL),
+                ("B2", b, RESUME_STEPS, RESUME_KILL)):
+            runs[tag] = train_main([*RESUME_ARGS, "--ckpt", ckpt, "--steps",
+                                    str(steps), "--ckpt-every", str(every)])
+            free_device(torch)
         for tag, (rc, stdout, stderr) in runs.items():
             print(f"  [17d] launcher {tag}: rc {rc}; "
                   + " | ".join(stdout.strip().splitlines()))
@@ -7285,6 +7329,27 @@ JAMBA = "jamba-v0.1-52b"     # 18f
 MIXER_BATCH, MIXER_SEQ = 2, 512  # 18f: the sublayers' input
 MIXER_TOL = 1e-4             # 18f: f32 split against whole, of the largest
 #                          |value| of each whole output or gradient
+FAMILIES = ("rwkv6-1.6b", "paligemma-3b", "whisper-medium")  # 18g: the ssm,
+#                          vlm and audio families, each cut to one layer
+#                          (whisper: one decoder and one encoder layer), at
+#                          full width on 18b's mesh and batches (paligemma's
+#                          256 patch rows and whisper's 1500 encoder frames
+#                          besides the 1024 tokens)
+FAMILY_SEQ = {"rwkv6-1.6b": 256}  # 18g: rwkv6's sequence cut 1024 -> 256
+#                          (its time loop runs eagerly, each position
+#                          scanning its own heads: a mesh step of 1024
+#                          tokens took 18-25 s on the card); the others 18b's
+FAMILY_WHOLE_MOVES = {       # 18g: what mesh_step_moves composes at 18g's
+    "rwkv6-1.6b": {          # configurations for the schedule that ran
+        "gather": [1_188_298_752, 0],   # these families' products whole
+        "reduce": [646_508_544, 0],     # on the row's first position
+        "scatter": [2_073_387_008, 0], "relayout": [0, 0], "model": [0, 0]},
+    "paligemma-3b": {
+        "gather": [3_931_373_568, 0], "reduce": [1_273_769_984, 0],
+        "scatter": [4_072_972_288, 0], "relayout": [0, 0], "model": [0, 0]},
+    "whisper-medium": {
+        "gather": [161_480_704, 0], "reduce": [271_173_632, 0],
+        "scatter": [3_077_107_712, 0], "relayout": [0, 0], "model": [0, 0]}}
 
 
 def mesh_devices(n: int) -> list:
@@ -7377,13 +7442,11 @@ def mesh_policy_phase(torch, dev, problems) -> dict:
     return out
 
 
-def mesh_train_cli(extra: list, ckpt: str) -> subprocess.Popen:
-    """The training launcher (``--smoke``) as a subprocess on the card."""
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", *MESH_RESUME_ARGS,
-         "--ckpt", ckpt, *extra], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+def mesh_train_run(extra: list, ckpt: str) -> tuple:
+    """The training launcher (``--smoke``) in this process on the card:
+    :func:`train_main`."""
+    return train_main([*MESH_RESUME_ARGS, "--device", mesh_devices(1)[0],
+                       "--ckpt", ckpt, *extra])
 
 
 def checkpoint_params_err(a, b) -> float:
@@ -7602,20 +7665,22 @@ def mesh_train_phase(torch, dev, problems) -> dict:
                  ",".join(mesh_devices(8))]
     with tempfile.TemporaryDirectory() as tmp:
         a, b, c, m = (os.path.join(tmp, x) for x in "abcm")
-        procs = finish({
-            "A": mesh_train_cli(["--steps", "4", "--ckpt-every", "2",
+        t0 = time.perf_counter()
+        procs = {
+            "A": mesh_train_run(["--steps", "4", "--ckpt-every", "2",
                                  "--accum", str(D)], a),
-            "M": mesh_train_cli(["--steps", "4", "--ckpt-every", "2",
+            "M": mesh_train_run(["--steps", "4", "--ckpt-every", "2",
                                  *mesh_args], m),
-            "B1": mesh_train_cli(["--steps", "2", "--ckpt-every", "2",
-                                  *mesh_args], b)})
+            "B1": mesh_train_run(["--steps", "2", "--ckpt-every", "2",
+                                  *mesh_args], b)}
         if os.path.isdir(os.path.join(b, "step-2")):
             shutil.copytree(b, c)
-        procs.update(finish({
-            "B2": mesh_train_cli(["--steps", "4", "--ckpt-every", "2",
+        procs.update({
+            "B2": mesh_train_run(["--steps", "4", "--ckpt-every", "2",
                                   *mesh_args], b),
-            "C": mesh_train_cli(["--steps", "4", "--ckpt-every", "2",
-                                 "--accum", str(D)], c)}))
+            "C": mesh_train_run(["--steps", "4", "--ckpt-every", "2",
+                                 "--accum", str(D)], c)})
+        launch_s = time.perf_counter() - t0
         for tag, (rc, so, se) in procs.items():
             print(f"  [18b] launcher {tag}: rc {rc}; "
                   + " | ".join(so.strip().splitlines()))
@@ -7634,12 +7699,12 @@ def mesh_train_phase(torch, dev, problems) -> dict:
             equal, errs = False, [math.inf]
             problems.append(f"18b: a step-4 checkpoint is missing ({e})")
     out["launcher"] = {"resumed": resumed, "resumed_equal": equal,
-                       "param_errs": errs, "bound": lr_bound}
+                       "param_errs": errs, "bound": lr_bound, "s": launch_s}
     print(f"  [18b] the mesh run resumed on the mesh (B) and on one device "
           f"(C) from step 2: {resumed}; B's step-4 checkpoint bitwise the "
           f"uninterrupted mesh run's (M): {equal}; M's and C's parameters "
           f"within {errs} of the one-device run's at --accum {D} (bar "
-          f"{lr_bound:.1e})")
+          f"{lr_bound:.1e}); the five runs in process in {launch_s:.1f} s")
     if not (resumed and equal and max(errs) <= lr_bound):
         problems.append(f"18b launcher: {out['launcher']}")
     return out
@@ -7832,6 +7897,108 @@ def mixer_split_phase(torch, dev, problems) -> dict:
     return out
 
 
+def family_mesh_config(arch: str):
+    """18g's configuration of ``arch``: full width, one layer (and at most
+    one encoder layer)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.config import validate
+
+    cfg = get_config(arch)
+    return validate(dataclasses.replace(
+        cfg, n_layers=1, encoder_layers=min(1, cfg.encoder_layers)))
+
+
+def family_mesh_phase(torch, dev, problems) -> dict:
+    """18g: rwkv6-1.6b (its heads and channel mix), paligemma-3b (its
+    attention, MLP and vocabulary over its patch rows and text) and
+    whisper-medium (its encoder, self- and cross-attention) at full width
+    cut to one layer, their products split over ``model`` on 18b's mesh
+    and batches (the patches and frames as the batch's frontend), each
+    against the one-device step at accum 2 with 18b's bars, the mesh run
+    twice bitwise; s a step, both peaks, the bytes a step moves by kind
+    beside the whole-product schedule's (``FAMILY_WHOLE_MOVES``): the
+    gather must fall below it and ``model`` be above 0."""
+    from repro_torch.models import lm
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.optimizer import AdamW
+
+    out = {}
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = family_mesh_config(arch)
+        seq = FAMILY_SEQ.get(arch, MESH_SEQ)
+        opt = AdamW()
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                          global_batch=MESH_BATCH, seed=0,
+                          frontend_len=cfg.frontend_len if cfg.frontend
+                          else 0, d_model=cfg.d_model)
+        batches = [batch_at(dcfg, k, device=dev) for k in range(MESH_STEPS)]
+        r = mesh_step_runs(torch, dev, cfg, opt, batches)
+        del batches
+        free_device(torch)
+        D, moved, bar, rel = r["D"], r["moved"], r["bar"], r["rel"]
+        bound = 2 * opt.lr * MESH_STEPS
+        whole = FAMILY_WHOLE_MOVES[arch]
+        n_params = sum(math.prod(t.shape) for t in tree_leaves(
+            lm.param_specs(cfg)))
+        rows = seq + (cfg.frontend_len if cfg.frontend == "vision_stub"
+                      else 0)
+        out[arch] = {
+            "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+            "params": n_params, "seq_len": seq, "stack_rows": rows,
+            "frontend_len": cfg.frontend_len, "batch": MESH_BATCH,
+            "losses": r["losses"], "grad_norms": r["grad_norms"],
+            "mesh_losses": r["mesh_losses"],
+            "mesh_grad_norms": r["mesh_grad_norms"], "rel_loss": rel[0],
+            "rel_grad_norm": rel[1], "param_err": bar["max"],
+            "param_bound": bound, "param_excess": bar["excess"],
+            "over_2lrk": bar["over_2lrk"], "one_device_step_s": r["s_one"],
+            "mesh_step_s": r["secs"], "peak_bytes_one_device": r["peak_one"],
+            "peak_bytes_mesh": r["peaks"],
+            "resident_bytes_one_device": r["resident_one"],
+            "resident_bytes_mesh": r["resident"],
+            "moved": {k: list(v) for k, v in moved._asdict().items()},
+            "whole_moves": whole, "bitwise_repeat": r["repeat"],
+            "s": time.perf_counter() - t0}
+        print(f"  [18g] {arch} ({cfg.family}) at full width (d "
+              f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} heads, vocab "
+              f"{cfg.vocab_size}) cut to {cfg.n_layers} layer(s)"
+              + (f" and {cfg.encoder_layers} encoder layer(s) over "
+                 f"{cfg.frontend_len} frames" if cfg.encoder_layers else "")
+              + f", {n_params:,} parameters, {cfg.dtype}, {MESH_BATCH} x "
+              f"{rows} rows{' (patches and text)' if rows != seq else ''}"
+              f": losses {[f'{x:.4f}' for x in r['losses']]} one device at "
+              f"accum {D}, {[f'{x:.4f}' for x in r['mesh_losses']]} on the "
+              f"{MESH_SHAPE} mesh at accum 1; within {rel[0]:.2e} / "
+              f"{rel[1]:.2e} (loss / grad_norm; bar {PIPE_TOL}); every "
+              f"parameter within {bar['max']:.3e} (2 lr k = {bound:.1e}, "
+              f"passed by {bar['over_2lrk']} elements; with {MESH_STEPS} "
+              f"bf16 roundings passed by {bar['excess']:.3e}); the two mesh "
+              f"runs bitwise: {r['repeat']}")
+        print(f"  [18g] {arch} s a step: one device "
+              f"{[f'{x:.3f}' for x in r['s_one']]}, the mesh "
+              f"{[[f'{x:.3f}' for x in s] for s in r['secs']]} (two runs); "
+              f"peak memory one device {r['peak_one']:,} B "
+              f"({r['resident_one']:,} resident), the mesh {r['peaks']} B "
+              f"({r['resident']} resident); {out[arch]['s']:.1f} s in all")
+        print(f"  [18g] {arch} bytes a mesh step moves between positions "
+              f"(between devices), against the whole-product schedule's "
+              f"composed moves: " + ", ".join(
+                  f"{k} {v[0]:,} ({v[1]:,}; whole {whole[k][0]:,})"
+                  for k, v in out[arch]["moved"].items()))
+        if not (max(rel) <= PIPE_TOL and bar["excess"] <= 0 and r["repeat"]):
+            problems.append(f"18g {arch}: within {rel} of the one-device "
+                            f"step's losses and grad_norms (bar {PIPE_TOL}), "
+                            f"parameters {bar} (bar 2 lr k = {bound} and a "
+                            f"storage rounding a step), repeat {r['repeat']}")
+        if not (moved.model[0] > 0 and moved.gather[0] < whole["gather"][0]):
+            problems.append(f"18g {arch}: gather {moved.gather[0]} B (whole "
+                            f"{whole['gather'][0]}), model {moved.model[0]} B")
+        del r
+        free_device(torch)
+    return out
+
+
 def pipeline_phase(torch, dev, problems) -> dict:
     """18c: the GPipe forward on the (pod, data, model) mesh against
     ``hidden_states`` per slice (bitwise) and on the full batch."""
@@ -7990,12 +8157,14 @@ def lm_mesh_phase(torch, dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     print(f"[18] the LM side over a device mesh: every position on cuda:0; "
           f"policy and layout, the sharded train step (dense, MoE), jamba's "
-          f"split sublayers, the GPipe forward, the KV repartition")
+          f"split sublayers, the ssm, vlm and audio families' steps, the "
+          f"GPipe forward, the KV repartition")
     problems = []
     out = {"part_s": {}}
     for key, part in (("policy", mesh_policy_phase),
                       ("train", mesh_train_phase),
                       ("moe", moe_mesh_phase), ("mixer", mixer_split_phase),
+                      ("families", family_mesh_phase),
                       ("pipeline", pipeline_phase), ("kv", kv_mesh_phase)):
         t1 = time.perf_counter()
         try:
@@ -8102,15 +8271,17 @@ def dryrun_problems(records: list, names: list) -> list:
     return out
 
 
-def composed_moves(cfg) -> dict:
-    """The moves :func:`mesh_step_moves` composes for 18b's and 18e's
-    step of ``cfg`` (the (2, 4) mesh on the card, accum 1, 8 x 1024), as
-    those parts report what they measured."""
+def composed_moves(cfg, seq=None) -> dict:
+    """The moves :func:`mesh_step_moves` composes for 18b's, 18e's and
+    18g's step of ``cfg`` (the (2, 4) mesh on the card, accum 1, 8 x
+    ``seq``, default ``MESH_SEQ``), as those parts report what they
+    measured."""
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.training.train_step import mesh_step_moves
 
     mesh = make_debug_mesh(*MESH_SHAPE, devices=mesh_devices(8))
-    moved = mesh_step_moves(cfg, mesh, 1, MESH_BATCH, MESH_SEQ)
+    moved = mesh_step_moves(cfg, mesh, 1, MESH_BATCH,
+                            MESH_SEQ if seq is None else seq)
     return {k: list(v) for k, v in moved._asdict().items()}
 
 
@@ -8162,7 +8333,7 @@ def start_dryrun():
 def dryrun_phase(lm_mesh: dict | None = None, pending=None) -> dict:
     """Phase 20 (see the module docstring): the whole dry-run as a user
     runs it (``pending``: the future :func:`start_dryrun` gave, else run
-    here), then, with phase 18's result, 18b's bytes."""
+    here), then, with phase 18's result, 18b's, 18e's and 18g's bytes."""
     t0 = time.perf_counter()
     print("[20] the port's dry-run: every (arch x shape x mesh) cell on the "
           "production meshes, on the host"
@@ -8184,9 +8355,16 @@ def dryrun_phase(lm_mesh: dict | None = None, pending=None) -> dict:
     if out["moves_reason"]:
         problems.append(f"20: train cells without moves: "
                         f"{out['moves_reason']}")
-    for part, tag, compose in (("train", "18b", composed_18b_moves),
-                               ("moe", "18e", composed_18e_moves)):
-        measured = (lm_mesh or {}).get(part, {}).get("moved")
+    runs = [(("train",), "18b", composed_18b_moves),
+            (("moe",), "18e", composed_18e_moves)] + [
+        (("families", arch), f"18g {arch}", functools.partial(
+            composed_moves, family_mesh_config(arch),
+            FAMILY_SEQ.get(arch, MESH_SEQ))) for arch in FAMILIES]
+    for keys, tag, compose in runs:
+        part = lm_mesh or {}
+        for k in keys:
+            part = part.get(k, {})
+        measured = part.get("moved")
         if measured is None:
             print(f"  [20] {tag} did not run in this invocation: its bytes "
                   f"are not compared")
@@ -8249,7 +8427,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dryrun", action="store_true",
                     help="phase 20 (the port's dry-run of every cell) "
                          "alone, after phases 1-2; with --lm-mesh, after "
-                         "phase 18, checking 18b's and 18e's bytes too")
+                         "phase 18, checking 18b's, 18e's and 18g's bytes too")
     return ap
 
 

@@ -26,8 +26,8 @@ under ``--out`` with what can be composed exactly from it:
   ``cfg.train_accum`` and the shape's batch and sequence length
   (:func:`~repro_torch.training.train_step.mesh_step_moves`): each
   period's parameters gathered in the forward and again in the backward
-  pass, the dense, moe and hybrid families' products split over
-  ``model``, a microbatch over the data rows JAX's ``_fit`` gives it
+  pass, every family's products split over ``model`` (the sorted MoE
+  dispatch, which no registry config sets, whole), a microbatch over the data rows JAX's ``_fit`` gives it
   (mixtral's and jamba's 16 rows over 2x16x16's ``data`` rows, ``pod``
   dropped).  They are the port's schedule, not GSPMD's collectives.
   Where ``train_accum`` does not divide the global batch, the step
@@ -91,8 +91,8 @@ _SHAPE_RE = re.compile(r"(f64|f32|f16|bf16|f8e4m3|f8e5m2|s64|s32|s16|s8|u64"
 MOVES_SCHEDULE = ("repro_torch mesh train step (MeshStepStats): bytes "
                   "copied between positions and between devices, not "
                   "GSPMD collectives; parameters gathered a period at a "
-                  "time (forward and recomputation), the dense, moe and "
-                  "hybrid families' products split over model (kind "
+                  "time (forward and recomputation), the encoder's once, "
+                  "every family's products split over model (kind "
                   "model); a microbatch over the data rows _fit gives it, "
                   "each distinct slice run once, on the lowest row")
 

@@ -18,10 +18,9 @@ which entries may repeat (default: the visible devices of ``--device``'s
 type); with fewer devices than ``D * M`` it raises. ``--accum`` is the
 microbatches a step (default: the config's ``train_accum``, as JAX's step
 takes it); a mesh step whose ``D'`` data rows compute (the train step's
-``microbatch_rows``) is the one-device step at ``accum * D'``: bitwise
-for the families whose products stay whole (ssm, vlm, audio), within
-rounding for the dense, moe and hybrid ones, whose products split over
-``model``. Parameters come from ``torch.Generator`` seed 0 on the
+``microbatch_rows``) is the one-device step at ``accum * D'`` within
+rounding where its products split over ``model`` (every family, where
+``model`` divides them), bitwise where they stay whole. Parameters come from ``torch.Generator`` seed 0 on the
 device (as ``launch/serve.py --arch`` makes them), data from the stateless
 ``batch_at(DataConfig(seed=0), step)``. With ``--ckpt`` the state is
 restored from the newest checkpoint there (``resumed from step N``) and

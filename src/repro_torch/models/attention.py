@@ -19,7 +19,7 @@ import torch
 from repro_torch.models.layers import dense_init, rms_norm, rope, torch_dtype
 
 __all__ = ["NEG_INF", "AttnSpec", "attention_init", "flash_attention",
-           "attn_train", "attn_decode"]
+           "attn_train", "cross_attn", "attn_decode"]
 
 NEG_INF = -1e30
 
@@ -173,6 +173,20 @@ def attn_train(p, x, positions, spec: AttnSpec, memory=None, memory_pos=None):
     B, S = x.shape[:2]
     y = out.reshape(B, S, spec.n_heads * spec.head_dim) @ p["wo"]
     return y, kv
+
+
+def cross_attn(p, x, positions, spec: AttnSpec, memory, memory_pos):
+    """Cross-attention: queries from ``x``, keys and values from the
+    encoder ``memory`` (B, M, d).  Returns (y, (k, v))."""
+    B, M, _ = memory.shape
+    Hk, hd = spec.n_kv_heads, spec.head_dim
+    k = (memory @ p["wk"]).reshape(B, M, Hk, hd)
+    v = (memory @ p["wv"]).reshape(B, M, Hk, hd)
+    H = spec.n_heads
+    q = (x @ p["wq"]).reshape(B, x.shape[1], H, hd)
+    out = flash_attention(q, k, v, positions, memory_pos, spec)
+    y = out.reshape(B, x.shape[1], H * hd) @ p["wo"]
+    return y, (k, v)
 
 
 def attn_decode(p, x, pos: int, cache, spec: AttnSpec):

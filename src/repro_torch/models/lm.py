@@ -31,8 +31,10 @@ tree (:mod:`repro_torch.models.tensor_parallel`): each period gathers its
 leaves inside the period (so the backward pass gathers them again, the
 recomputation running to the period's end), the embedding and head where
 they are used, and the attention, dense MLP, MoE (dense dispatch), Mamba
-mixer and vocabulary of the dense, moe and hybrid families run split over
-the row's ``model`` positions where their specs split.
+mixer, RWKV time and channel mix, cross-attention, the encoder's layers
+(fetched once: the encoder runs outside the periods' checkpoints) and
+vocabulary run split over the row's ``model`` positions where their
+specs split.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ from repro_torch.env import resolve_device
 from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.attention import (AttnSpec, attention_init,
                                           attn_decode, attn_train,
-                                          flash_attention)
+                                          cross_attn, flash_attention)
 from repro_torch.models.config import LayerKind, ModelConfig
 from repro_torch.models.layers import (MetaGenerator, dense_init,
                                        mlp_apply, mlp_init, moe_apply,
@@ -258,9 +260,10 @@ def _apply_period(cfg: ModelConfig, pparams, x, positions, cache, mode,
                 nc.update({"conv": st["conv"].to(c["conv"].dtype),
                            "ssm": st["ssm"]})
         else:  # RWKV
-            y, st = rwkv_apply(p["mix"], h,
-                               state={"S": c["S"], "last": c["last"]}
-                               if mode == "decode" else None)
+            y, st = (tp.rwkv_apply if tp.is_split(p["mix"])
+                     else rwkv_apply)(p["mix"], h,
+                                      state={"S": c["S"], "last": c["last"]}
+                                      if mode == "decode" else None)
             if mode in ("prefill", "decode"):
                 nc.update({"S": st["S"], "last": st["last"].to(x.dtype)})
         x = x + y
@@ -272,8 +275,9 @@ def _apply_period(cfg: ModelConfig, pparams, x, positions, cache, mode,
                 yx = _cross_decode(p["cross"], hx, c["ck"], c["cv"], cspec)
                 nc["ck"], nc["cv"] = c["ck"], c["cv"]
             else:
-                yx, (ck, cv) = _cross_attn(p["cross"], hx, positions,
-                                           cspec, memory, memory_pos)
+                yx, (ck, cv) = (tp.cross_attn if tp.is_split(p["cross"])
+                                else cross_attn)(p["cross"], hx, positions,
+                                                 cspec, memory, memory_pos)
                 if mode == "prefill":
                     nc["ck"], nc["cv"] = (ck.to(c["ck"].dtype),
                                           cv.to(c["cv"].dtype))
@@ -281,9 +285,10 @@ def _apply_period(cfg: ModelConfig, pparams, x, positions, cache, mode,
 
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if spec.kind == LayerKind.RWKV:
-            y2, st = rwkv_ffn_apply(p["ffn"], h2,
-                                    state={"last": c["ffn_last"]}
-                                    if mode == "decode" else None)
+            y2, st = (tp.rwkv_ffn_apply if tp.is_split(p["ffn"])
+                      else rwkv_ffn_apply)(p["ffn"], h2,
+                                           state={"last": c["ffn_last"]}
+                                           if mode == "decode" else None)
             if mode in ("prefill", "decode"):
                 nc["ffn_last"] = st["last"].to(x.dtype)
         elif spec.moe:
@@ -331,19 +336,6 @@ def _cross_decode(p, x, ck, cv, spec):
     return out.reshape(B, 1, H * hd) @ p["wo"]
 
 
-def _cross_attn(p, x, positions, spec, memory, memory_pos):
-    """Cross-attention: queries from x, keys/values from the encoder memory."""
-    B, M, _ = memory.shape
-    Hk, hd = spec.n_kv_heads, spec.head_dim
-    k = (memory @ p["wk"]).reshape(B, M, Hk, hd)
-    v = (memory @ p["wv"]).reshape(B, M, Hk, hd)
-    H = spec.n_heads
-    q = (x @ p["wq"]).reshape(B, x.shape[1], H, hd)
-    out = flash_attention(q, k, v, positions, memory_pos, spec)
-    y = out.reshape(B, x.shape[1], H * hd) @ p["wo"]
-    return y, (k, v)
-
-
 # ---------------------------------------------------------------------------
 # encoder (Whisper) & frontends (stubs)
 # ---------------------------------------------------------------------------
@@ -357,12 +349,13 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     positions = torch.arange(frames.shape[1], dtype=torch.int64,
                              device=frames.device)
     for i in range(cfg.encoder_layers):
-        lp = tp.whole(_index(params["encoder"], i))
-        y, _ = attn_train(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-                          positions, espec)
+        lp = tp.materialize_encoder(cfg, _index(params["encoder"], i))
+        y, _ = (tp.attn_train if tp.is_split(lp["attn"]) else attn_train)(
+            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), positions,
+            espec)
         x = x + y
-        x = x + mlp_apply(lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps),
-                          "gelu")
+        x = x + (tp.mlp_apply if tp.is_split(lp["ffn"]) else mlp_apply)(
+            lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps), "gelu")
     return rms_norm(x, tp.whole(params["encoder_ln"]), cfg.norm_eps)
 
 

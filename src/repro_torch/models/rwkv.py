@@ -5,7 +5,9 @@ data-dependent decay ``w_t = exp(-exp(w0 + lora(x)))``, token-shift input
 mixing, a matrix-valued per-head state ``S ∈ (hd, hd)`` with bonus ``u``,
 and a gated, group-normalized readout.  Time mixing is a loop over time;
 the state (S, last token) is the decode cache.  The channel-mix FFN is
-RWKV's squared-ReLU form.
+RWKV's squared-ReLU form.  :func:`time_mix` and :func:`channel_mix` run
+on any slice of the heads or of ``d_ff`` (the mesh's split forms,
+:mod:`repro_torch.models.tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import torch.nn.functional as F
 from repro_torch.models.layers import dense_init, torch_dtype
 from repro_torch.models.scan_utils import chunked_scan
 
-__all__ = ["rwkv_init", "rwkv_apply", "rwkv_ffn_init", "rwkv_ffn_apply"]
+__all__ = ["rwkv_init", "rwkv_apply", "rwkv_ffn_init", "rwkv_ffn_apply",
+           "shift", "time_mix", "channel_mix"]
 
 
 def rwkv_init(gen, d_model: int, head_dim: int, dtype, lora_rank: int = 64):
@@ -44,18 +47,34 @@ def rwkv_apply(p, x: torch.Tensor, state=None):
     state: {"S": (B, H, hd, hd) f32, "last": (B, d)} (decode cache).
     """
     B, S, d = x.shape
-    dtype = x.dtype
     hd = p["u"].shape[1]
     H = d // hd
 
     if state is None:
-        last = torch.zeros((B, d), dtype=dtype, device=x.device)
+        last = torch.zeros((B, d), dtype=x.dtype, device=x.device)
         S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
     else:
         last, S0 = state["last"], state["S"]
+    out, S_last = time_mix(p, x, shift(x, last), S0)
+    return out, {"S": S_last, "last": x[:, -1, :]}
 
-    # token shift: x_{t-1} per position
-    xprev = torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
+
+def shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """The token shift: x_{t-1} per position (``last`` before the first)."""
+    return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def time_mix(p, x: torch.Tensor, xprev: torch.Tensor, S0: torch.Tensor):
+    """The time mix of the heads ``p`` holds: ``(y @ wo, S_last)``.
+
+    ``p``'s ``wr``/``wk``/``wv``/``wg`` and ``wB`` hold the heads' ``H
+    hd`` columns, ``w0`` and ``ln_g`` their channels, ``u`` their rows,
+    ``wo`` their rows (all heads: the whole block; a slice of the heads:
+    that slice's partial output); ``mu`` and ``wA`` are whole.
+    """
+    B, S, _ = x.shape
+    dtype = x.dtype
+    H, hd = p["u"].shape
 
     def mix(i):
         return x + (xprev - x) * p["mu"][i]
@@ -87,10 +106,9 @@ def rwkv_apply(p, x: torch.Tensor, state=None):
     y = ys.transpose(0, 1).reshape(B, S, H, hd)
     mean = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
-    y = ((y - mean) * torch.rsqrt(var + 1e-5 * hd)).reshape(B, S, d)
+    y = ((y - mean) * torch.rsqrt(var + 1e-5 * hd)).reshape(B, S, H * hd)
     y = (y.to(dtype) * p["ln_g"]) * F.silu(g)
-    out = y @ p["wo"]
-    return out, {"S": S_last, "last": x[:, -1, :]}
+    return y @ p["wo"], S_last
 
 
 # ---- channel mix (RWKV FFN): squared-relu K, sigmoid receptance gate -------
@@ -111,10 +129,16 @@ def rwkv_ffn_apply(p, x: torch.Tensor, state=None):
         last = torch.zeros((B, d), dtype=x.dtype, device=x.device)
     else:
         last = state["last"]
-    xprev = torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
+    vv, rr = channel_mix(p, x, shift(x, last))
+    return rr * vv, {"last": x[:, -1, :]}
+
+
+def channel_mix(p, x: torch.Tensor, xprev: torch.Tensor) -> tuple:
+    """``(kk @ wv, sigmoid(xr @ wr))`` of the channel mix, ``kk`` the
+    squared ReLU of ``xk @ wk``: on ``p``'s ``d_ff`` columns of ``wk``
+    with the matching rows of ``wv`` (all of them: the whole product; a
+    slice: its partial) and its columns of ``wr``."""
     xk = x + (xprev - x) * p["mu"][0]
     xr = x + (xprev - x) * p["mu"][1]
     kk = torch.square(F.relu(xk @ p["wk"]))
-    vv = kk @ p["wv"]
-    rr = torch.sigmoid(xr @ p["wr"])
-    return rr * vv, {"last": x[:, -1, :]}
+    return kk @ p["wv"], torch.sigmoid(xr @ p["wr"])

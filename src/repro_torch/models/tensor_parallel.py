@@ -1,6 +1,5 @@
 """A data row's view of a sharded parameter tree: the parameters gathered
-where they are used, and the dense, moe and hybrid families' products
-split over ``model``.
+where they are used, and every family's products split over ``model``.
 
 The mesh train step (:mod:`repro_torch.training.train_step`) runs
 :func:`~repro_torch.models.lm.loss_fn` once for each (microbatch, data
@@ -9,15 +8,18 @@ the state's :class:`~repro_torch.core.layout.Sharded` leaves.  Nothing is
 gathered up front.  A leaf is fetched where the model uses it: a period's
 leaves inside the period (which runs under ``checkpoint``, so the
 backward pass fetches them again and no fetched leaf is saved for it),
-the embedding for the lookup, the head for the loss.  Each use is either
+the embedding for the lookup, the head for the loss; an encoder layer
+inside the encoder, which runs outside the periods' checkpoints (as JAX's
+plain ``lax.scan``), so each is fetched once.  Each use is either
 
 * **whole**: every block, on the position that computes (the row's first
   position, or a position that computes a replicated piece);
 * **part**: the position's ``model`` slice, every block along the other
   axes (the FSDP gather over the data axes): a leaf's dim whose spec is
   ``"model"`` stays at the position's own block; or
-* **span**: a range along the ``model`` dim, every block along the others
-  (the Mamba mixer's ``in_proj`` columns), each block cut to its overlap.
+* **span**: a range along one dim, every block along the others (the
+  Mamba mixer's ``in_proj`` columns along ``model``, RWKV's channel-mix
+  ``wv`` rows along ``d_ff``), each block cut to its overlap.
 
 A fetch takes a block the position holds from itself, and any other block
 from the first position holding it on the same device, else from the
@@ -28,10 +30,9 @@ one *sink*: a zero-stride leaf that requires grad, through which the
 piece's gradient comes back from ``torch.autograd.grad`` on the
 position's device; the step adds it at its box (:meth:`Row.pieces`).
 
-**Split products** (:func:`splits`: the dense, moe and hybrid families,
-``model`` > 1).  As ``param_shardings`` lays the leaves out (the JAX
-package's column/row rules), position ``(r, m)`` computes with its
-slices:
+**Split products** (:func:`splits`: every family, ``model`` > 1).  As
+``param_shardings`` lays the leaves out (the JAX package's column/row
+rules), position ``(r, m)`` computes with its slices:
 
 * attention: ``wq`` (and ``wk``/``wv``) give its heads, ``wo`` its rows;
   q/k norms, RoPE and the chunked attention (a sliding window, its chunk
@@ -50,6 +51,14 @@ slices:
 * the Mamba mixer (:func:`mamba_apply`): ``d_inner`` (where ``model``
   divides it): each position's channels through the conv and the scan;
   ``x_proj``'s partial products summed and sent back;
+* RWKV's time mix (:func:`rwkv_apply`): its heads (where ``model``
+  divides them), each position's through the WKV scan, the group norm
+  and the gate, ``wo``'s rows giving partial outputs; the channel mix
+  (:func:`rwkv_ffn_apply`): ``d_ff``, ``wv``'s matching rows fetched as a
+  span, ``wr``'s columns collected;
+* the cross-attention (:func:`cross_attn`) as attention, ``k``/``v`` from
+  the encoder memory, which goes to each position; the encoder's layers
+  (:func:`materialize_encoder`) as a period's attention and MLP;
 * the vocabulary: the embedding lookup sums each slice's masked rows; the
   loss takes each slice's ``logsumexp``, combines them (the max over the
   slices, then the sum of exponentials against it), and the gold logit
@@ -62,10 +71,13 @@ f32 in position order (no atomics) and cast once to the model dtype (the
 MoE's partials come back in f32); the backward pass sends the output's
 gradient out and sums the input's gradients back the same way.  These
 copies, with the tokens, labels, positions, the MoE's ``combine``, the
-mixer's ``x_proj`` partials and their sum, and the loss's per-slice
-``logsumexp`` and gold logits, are booked as ``model``.  A position on
-the row's first device copies nothing (a view) and is still booked
-between positions.  :func:`row_moves` composes what one row books from
+mixer's ``x_proj`` partials and their sum, the channel mix's ``rr``
+slices, the encoder memory and its gradient, and the loss's per-slice
+``logsumexp`` and gold logits, are booked as ``model``.  A VLM's stack
+runs on its patch rows and its text, so its sublayers' copies count both.
+A position on the row's first device copies nothing (a view) and is still
+booked between positions.  The split forms run in train mode only: a
+decode state raises.  :func:`row_moves` composes what one row books from
 the specs alone.
 """
 from __future__ import annotations
@@ -80,18 +92,23 @@ import torch
 
 from repro_torch.core.layout import MoveStats, Sharded
 from repro_torch.models.attention import attn_train as _attn_train
+from repro_torch.models.attention import cross_attn as _cross_attn
+from repro_torch.models.config import LayerKind, LayerSpec
 from repro_torch.models.layers import mlp_apply as _mlp_apply
 from repro_torch.models.layers import (moe_chunks, moe_expert, moe_route,
                                        torch_dtype)
+from repro_torch.models.rwkv import channel_mix, shift, time_mix
 from repro_torch.models.ssm import mamba_conv, mamba_scan
 
 __all__ = ["SPLIT_FAMILIES", "RowLeaf", "Row", "row_view", "first_leaf",
-           "whole", "splits", "materialize", "splits_vocab", "is_split",
-           "attn_train", "mlp_apply", "moe_apply", "mamba_apply",
-           "vocab_lookup", "vocab_head_loss", "fetch_moves", "row_moves"]
+           "whole", "splits", "materialize", "materialize_encoder",
+           "splits_vocab", "is_split", "attn_train", "cross_attn",
+           "mlp_apply", "moe_apply", "mamba_apply", "rwkv_apply",
+           "rwkv_ffn_apply", "vocab_lookup", "vocab_head_loss",
+           "fetch_moves", "row_moves"]
 
 _ATTN_PARTS = ("wq", "wk", "wv", "wo")
-SPLIT_FAMILIES = ("dense", "moe", "hybrid")
+SPLIT_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
 # ---------------------------------------------------------------------------
@@ -399,11 +416,13 @@ class RowLeaf:
         """Position ``m``'s ``model`` slice, on its device."""
         return self.row.fetch(self, self.row.ks[m], True)
 
-    def span(self, m: int, lo: int, hi: int) -> torch.Tensor:
-        """``[lo, hi)`` along :meth:`model_dim` (every block along the
-        others), on position ``m``'s device."""
+    def span(self, m: int, lo: int, hi: int, dim=None) -> torch.Tensor:
+        """``[lo, hi)`` along ``dim`` of the (period's) leaf (default:
+        :meth:`model_dim`), every block along the others, on position
+        ``m``'s device."""
+        d = self.model_dim() if dim is None else dim
         return self.row.fetch(self, self.row.ks[m], False,
-                              (self.off + self.model_dim(), lo, hi))
+                              (self.off + d, lo, hi))
 
     def start(self, m: int) -> int:
         """Where position ``m``'s slice starts along :meth:`model_dim`."""
@@ -477,37 +496,66 @@ def _mix_splits(cfg, M: int, mdim) -> bool:
                                         for n, d in _MIX_DIMS.items())
 
 
-_WHOLE = {"attn": None, "ffn": False, "moe": False, "mix": False}
+# RWKV's time mix: the dim of each leaf that holds its heads' channels
+# (``wA`` whole: ``(data, None)``), and the channel mix's (``wv`` ``(d_ff,
+# d)`` takes the attention rule by name: ``model`` on ``d``)
+_RWKV_DIMS = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "wB": 1, "wo": 0,
+              "wA": None}
+_RWKV_PARTS = ("wr", "wk", "wv", "wg", "wB", "wo")
+_CMIX_DIMS = {"wk": 1, "wv": 1, "wr": 1}
+
+
+def _rwkv_splits(cfg, M: int, mdim) -> bool:
+    return cfg.rwkv_heads % M == 0 and all(mdim(n) == d
+                                           for n, d in _RWKV_DIMS.items())
+
+
+def _cmix_splits(mdim) -> bool:
+    return all(mdim(n) == d for n, d in _CMIX_DIMS.items())
+
+
+_WHOLE = {"attn": None, "ffn": False, "moe": False, "mix": False,
+          "rwkv": False, "cmix": False, "cross": None}
+# an encoder layer: attention and a dense MLP
+_ENCODER = LayerSpec(LayerKind.ATTN, moe=False)
 
 
 def splits(cfg, M: int) -> bool:
     """Whether a data row of ``M`` positions along ``model`` splits
-    ``cfg``'s products: the dense, moe and hybrid families, ``M`` > 1."""
+    ``cfg``'s products: every family of :data:`SPLIT_FAMILIES`, ``M`` >
+    1."""
     return cfg.family in SPLIT_FAMILIES and M > 1
 
 
 def _sublayer_modes(cfg, M: int, spec, layer_mdim) -> dict:
-    """``{"attn": mode, "ffn": bool, "moe": bool, "mix": bool}`` of one
-    layer (``spec``: its :class:`~repro_torch.models.config.LayerSpec`)
-    of a family that :func:`splits` (``layer_mdim(sub, name)``: the model
-    dim, ``"absent"`` for a leaf the layer does not have): attention, the
-    dense MLP, the MoE and the Mamba mixer."""
+    """``{"attn": mode, "ffn", "moe", "mix", "rwkv", "cmix": bool,
+    "cross": mode}`` of one layer (``spec``: its
+    :class:`~repro_torch.models.config.LayerSpec`; an encoder layer's
+    is :data:`_ENCODER`) of a family that :func:`splits`
+    (``layer_mdim(sub, name)``: the model dim, ``"absent"`` for a leaf
+    the layer does not have): attention, the dense MLP, the MoE, the
+    Mamba mixer, RWKV's time mix and channel mix, the cross-attention."""
     if not splits(cfg, M):
         return _WHOLE
     ffn = functools.partial(layer_mdim, "ffn")
+    mix = functools.partial(layer_mdim, "mix")
+    rwkv = spec.kind == LayerKind.RWKV
     return {"attn": _attn_mode(cfg.n_heads, cfg.n_kv_heads, M,
                                functools.partial(layer_mdim, "attn")),
-            "ffn": not spec.moe and _mlp_splits(ffn),
+            "ffn": not spec.moe and not rwkv and _mlp_splits(ffn),
             "moe": spec.moe and _moe_splits(cfg, ffn),
-            "mix": _mix_splits(cfg, M, functools.partial(layer_mdim,
-                                                         "mix"))}
+            "mix": not rwkv and _mix_splits(cfg, M, mix),
+            "rwkv": rwkv and _rwkv_splits(cfg, M, mix),
+            "cmix": rwkv and _cmix_splits(ffn),
+            "cross": _attn_mode(cfg.n_heads, cfg.n_kv_heads, M,
+                                functools.partial(layer_mdim, "cross"))}
 
 
 @dataclasses.dataclass
 class _Split:
     """A sublayer whose products split over ``model``: its leaves
     (:class:`RowLeaf`), ``mode`` as :func:`_attn_mode` gives it for
-    attention."""
+    attention and cross-attention."""
 
     row: Row
     p: dict
@@ -518,62 +566,114 @@ def is_split(p) -> bool:
     return isinstance(p, _Split)
 
 
+def _layer_mdim(layer):
+    def mdim(sub, leaf):
+        t = layer.get(sub, {}).get(leaf)
+        return "absent" if t is None else t.model_dim()
+    return mdim
+
+
+def _materialize_layer(row: Row, layer: dict, modes: dict) -> dict:
+    """One layer's sublayers: split where ``modes`` split them, every
+    other leaf fetched whole."""
+    split = {"attn": modes["attn"], "cross": modes["cross"],
+             "ffn": modes["ffn"] or modes["moe"] or modes["cmix"],
+             "mix": modes["mix"] or modes["rwkv"]}
+    out = {}
+    for sub, tree in layer.items():
+        if split.get(sub):
+            out[sub] = _Split(row, tree, modes[sub] if sub in ("attn", "cross")
+                              else None)
+        else:
+            out[sub] = whole(tree)
+    return out
+
+
 def materialize(cfg, pparams):
     """One period's leaves as ``_apply_period`` runs them, fetched here
-    (inside the period): a row's attention, dense MLP, MoE and Mamba
-    mixer as split sublayers (:func:`attn_train`, :func:`mlp_apply`,
-    :func:`moe_apply`, :func:`mamba_apply`) where :func:`_sublayer_modes`
-    splits them, every other leaf whole.  Tensors pass through."""
+    (inside the period): a row's attention, dense MLP, MoE, Mamba mixer,
+    RWKV time and channel mix and cross-attention as split sublayers
+    (:func:`attn_train`, :func:`mlp_apply`, :func:`moe_apply`,
+    :func:`mamba_apply`, :func:`rwkv_apply`, :func:`rwkv_ffn_apply`,
+    :func:`cross_attn`) where :func:`_sublayer_modes` splits them, every
+    other leaf whole.  Tensors pass through."""
     sample = first_leaf(pparams)
     if not isinstance(sample, RowLeaf):
         return pparams
     row = sample.row
     specs = {f"l{i}": spec for i, spec in enumerate(cfg.period())}
-    out = {}
-    for name, layer in pparams.items():
-        def mdim(sub, leaf, layer=layer):
-            t = layer.get(sub, {}).get(leaf)
-            return "absent" if t is None else t.model_dim()
+    return {name: _materialize_layer(row, layer, _sublayer_modes(
+        cfg, row.M, specs[name], _layer_mdim(layer)))
+        for name, layer in pparams.items()}
 
-        modes = _sublayer_modes(cfg, row.M, specs[name], mdim)
-        split = {"attn": modes["attn"], "ffn": modes["ffn"] or modes["moe"],
-                 "mix": modes["mix"]}
-        lay = {}
-        for sub, tree in layer.items():
-            if split.get(sub):
-                lay[sub] = _Split(row, tree, modes["attn"] if sub == "attn"
-                                  else None)
-            else:
-                lay[sub] = whole(tree)
-        out[name] = lay
-    return out
+
+def materialize_encoder(cfg, layer):
+    """One encoder layer's leaves, as :func:`materialize` gives a
+    period's: its attention (not causal) and gelu MLP split where their
+    specs split them.  The encoder runs outside the periods' checkpoints
+    (as JAX's plain ``lax.scan``), so each is fetched once a step.
+    Tensors pass through."""
+    sample = first_leaf(layer)
+    if not isinstance(sample, RowLeaf):
+        return layer
+    row = sample.row
+    return _materialize_layer(row, layer, _sublayer_modes(
+        cfg, row.M, _ENCODER, _layer_mdim(layer)))
+
+
+def _head_leaves(sp: _Split, m: int, spec) -> tuple:
+    """``(leaves, spec)`` of position ``m``'s heads of a split attention
+    or cross-attention sublayer: ``wq`` (and, mode ``"kv"``, ``wk``/``wv``)
+    its columns and ``wo`` its rows; mode ``"pick"``: ``wk``/``wv``
+    fetched whole, cut to the one kv head its query heads share."""
+    M = sp.row.M
+    Hq, hd = spec.n_heads // M, spec.head_dim
+    p = {"wq": sp.p["wq"].part(m), "wo": sp.p["wo"].part(m)}
+    if sp.mode == "kv":
+        p["wk"], p["wv"] = sp.p["wk"].part(m), sp.p["wv"].part(m)
+        sub = dataclasses.replace(spec, n_heads=Hq,
+                                  n_kv_heads=spec.n_kv_heads // M)
+    else:   # the one kv head position m's query heads share
+        j = m * Hq // (spec.n_heads // spec.n_kv_heads)
+        cols = slice(j * hd, (j + 1) * hd)
+        p["wk"] = sp.p["wk"].whole(m)[:, cols]
+        p["wv"] = sp.p["wv"].whole(m)[:, cols]
+        sub = dataclasses.replace(spec, n_heads=Hq, n_kv_heads=1)
+    for g in ("q_gamma", "k_gamma"):
+        if g in sp.p:
+            p[g] = sp.p[g].whole(m)
+    return p, sub
 
 
 def attn_train(sp: _Split, h, positions, spec):
     """``attn_train`` with the heads split over the row's positions: the
     partial outputs summed on the row's first position.  Returns ``(y,
     (None, None))`` (no cache: train mode only)."""
-    row, M = sp.row, sp.row.M
-    Hq, hd = spec.n_heads // M, spec.head_dim
-    G = spec.n_heads // spec.n_kv_heads
+    row = sp.row
     hs = row.broadcast(h)
     ys = []
-    for m in range(M):
-        p = {"wq": sp.p["wq"].part(m), "wo": sp.p["wo"].part(m)}
-        if sp.mode == "kv":
-            p["wk"], p["wv"] = sp.p["wk"].part(m), sp.p["wv"].part(m)
-            sub = dataclasses.replace(spec, n_heads=Hq,
-                                      n_kv_heads=spec.n_kv_heads // M)
-        else:   # the one kv head position m's query heads share
-            j = m * Hq // G
-            cols = slice(j * hd, (j + 1) * hd)
-            p["wk"] = sp.p["wk"].whole(m)[:, cols]
-            p["wv"] = sp.p["wv"].whole(m)[:, cols]
-            sub = dataclasses.replace(spec, n_heads=Hq, n_kv_heads=1)
-        for g in ("q_gamma", "k_gamma"):
-            if g in sp.p:
-                p[g] = sp.p[g].whole(m)
+    for m in range(row.M):
+        p, sub = _head_leaves(sp, m, spec)
         y, _ = _attn_train(p, hs[m], row.send(positions, m), sub)
+        ys.append(y)
+    return row.reduce(ys), (None, None)
+
+
+def cross_attn(sp: _Split, x, positions, spec, memory, memory_pos):
+    """``cross_attn`` with the heads split over the row's positions
+    (train mode: no RoPE, not causal): position ``m`` takes ``q`` from
+    its ``wq`` columns on ``x`` and ``k``/``v`` from its ``wk``/``wv``
+    columns on the encoder memory.  ``x`` and the memory go to each
+    position (the memory's gradient comes back summed as ``x``'s does);
+    the partial outputs are summed on the row's first position.  Returns
+    ``(y, (None, None))``."""
+    row = sp.row
+    xs, mems = row.broadcast(x), row.broadcast(memory)
+    ys = []
+    for m in range(row.M):
+        p, sub = _head_leaves(sp, m, spec)
+        y, _ = _cross_attn(p, xs[m], row.send(positions, m), sub, mems[m],
+                           row.send(memory_pos, m))
         ys.append(y)
     return row.reduce(ys), (None, None)
 
@@ -659,6 +759,71 @@ def mamba_apply(sp: _Split, x, state=None):
     return row.reduce(outs), None
 
 
+def rwkv_apply(sp: _Split, x, state=None):
+    """RWKV's time mix (train mode: no state) with its heads split over
+    the row's positions, ``H / M`` heads each.  ``x`` goes to each
+    position; position ``m`` takes ``r``, ``k``, ``v`` and ``g`` from its
+    columns of ``wr``/``wk``/``wv``/``wg``, its decay from ``tanh(mix
+    @ wA) @ wB``'s columns (``wA`` fetched whole) plus its channels of
+    ``w0``, its heads of ``u`` and its channels of ``ln_g``, and runs the
+    WKV scan (its heads' f32 state), the group norm and the gate on its
+    own heads; its rows of ``wo`` give a partial output, summed on the
+    row's first position (f32 in position order, cast once).  Returns
+    ``(y, None)``."""
+    if state is not None:
+        raise ValueError("a data row's split RWKV time mix runs in train "
+                         "mode only (no decode state)")
+    row, p = sp.row, sp.p
+    B, _, d = x.shape
+    H, hd = p["u"].s.shape[-2:]
+    h = H // row.M
+    xs = row.broadcast(x)
+    outs = []
+    for m in range(row.M):
+        c0 = p["wr"].start(m)
+        cols, heads = slice(c0, c0 + h * hd), slice(c0 // hd, c0 // hd + h)
+        q = {k: p[k].part(m) for k in _RWKV_PARTS}
+        q.update(mu=p["mu"].whole(m), wA=p["wA"].whole(m),
+                 w0=p["w0"].whole(m)[cols], ln_g=p["ln_g"].whole(m)[cols],
+                 u=p["u"].whole(m)[heads])
+        last = torch.zeros((B, d), dtype=x.dtype, device=xs[m].device)
+        S0 = torch.zeros((B, h, hd, hd), dtype=torch.float32,
+                         device=xs[m].device)
+        y, _ = time_mix(q, xs[m], shift(xs[m], last), S0)
+        outs.append(y)
+    return row.reduce(outs), None
+
+
+def rwkv_ffn_apply(sp: _Split, x, state=None):
+    """RWKV's channel mix (train mode: no state) with ``d_ff`` split over
+    the row's positions, ``f = d_ff / M`` each.  ``wv`` ``(d_ff, d)``
+    takes the attention rule by name, so ``model`` lies on its ``d``, not
+    on ``d_ff``: position ``m`` fetches the rows ``[m f, (m + 1) f)`` of
+    ``wv`` that pair with its ``kk = relu(xk @ wk)²`` columns, across the
+    ``model`` blocks (a span, booked as ``gather``), and its partial ``kk
+    @ wv`` is summed on the row's first position (f32 in position order,
+    cast once).  ``rr = sigmoid(xr @ wr)`` comes from ``wr``'s column
+    slices, collected there in position order.  Returns ``(rr * vv,
+    None)``."""
+    if state is not None:
+        raise ValueError("a data row's split RWKV channel mix runs in "
+                         "train mode only (no decode state)")
+    row, p = sp.row, sp.p
+    B, _, d = x.shape
+    f = p["wk"].s.shape[-1] // row.M
+    xs = row.broadcast(x)
+    vvs, rrs = [], []
+    for m in range(row.M):
+        q = {"mu": p["mu"].whole(m), "wk": p["wk"].part(m),
+             "wv": p["wv"].span(m, m * f, (m + 1) * f, dim=0),
+             "wr": p["wr"].part(m)}
+        last = torch.zeros((B, d), dtype=x.dtype, device=xs[m].device)
+        vv, rr = channel_mix(q, xs[m], shift(xs[m], last))
+        vvs.append(vv)
+        rrs.append(rr)
+    return torch.cat(row.collect(rrs), -1) * row.reduce(vvs), None
+
+
 def splits_vocab(w) -> bool:
     """Whether ``w`` (the embedding or the head) is the leaf of a row
     that :func:`splits` whose vocabulary splits over ``model``."""
@@ -714,6 +879,36 @@ def vocab_head_loss(w: RowLeaf, x, labels, valid, dt):
 # composed from the specs
 # ---------------------------------------------------------------------------
 
+def _uses(cfg, M: int, modes: dict, sub: str, name: str) -> list:
+    """``[(position, part, span)]``: the uses one forward pass of a layer
+    (``modes`` as :func:`_sublayer_modes` gives them) makes of its leaf
+    ``name`` of sublayer ``sub`` (``span`` as :func:`_fetch_plan` takes
+    it, the stack dim counted)."""
+    every = range(M)
+    if sub in ("attn", "cross") and modes[sub]:
+        kv_whole = modes[sub] == "pick" and name in ("wk", "wv")
+        part = name in _ATTN_PARTS and not kv_whole
+        return [(m, part, None) for m in every]
+    if sub == "ffn" and modes["moe"] and name == "router":
+        return [(0, False, None)]
+    if sub == "ffn" and modes["cmix"]:
+        if name == "wv":    # the rows of d_ff that pair with kk's slice
+            f = cfg.d_ff // M
+            return [(m, False, (1, m * f, (m + 1) * f)) for m in every]
+        return [(m, name != "mu", None) for m in every]
+    if sub == "mix" and modes["rwkv"]:
+        return [(m, name in _RWKV_PARTS, None) for m in every]
+    if (sub == "ffn" and (modes["ffn"] or modes["moe"])
+            or sub == "mix" and modes["mix"] and name != "in_proj"):
+        return [(m, True, None) for m in every]
+    if sub == "mix" and modes["mix"]:   # in_proj: xin's, z's
+        di = cfg.d_inner
+        c = di // M
+        return [(m, False, (2, lo, lo + c)) for m in every
+                for lo in (m * c, di + m * c)]
+    return [(0, False, None)]
+
+
 def row_moves(cfg, params, shardings, first, devs, batch: int,
               seq_len: int) -> tuple:
     """What one (microbatch, row) slice of ``batch`` rows of ``seq_len``
@@ -721,7 +916,9 @@ def row_moves(cfg, params, shardings, first, devs, batch: int,
     (``params``, ``meta`` tensors will do), their ``shardings`` and the
     mesh's device of each position (``devs``): ``(gather, model,
     pieces)``, ``pieces`` as ``[(bytes, position)]``, a stacked leaf's
-    periods (or encoder layers) as one."""
+    periods (or encoder layers) as one.  A VLM's stack runs on its
+    ``frontend_len`` patch rows and the text; an encoder runs on
+    ``frontend_len`` frames."""
     from repro_torch.training.tree import leaves
 
     ls, shs = leaves(params), leaves(shardings)
@@ -752,48 +949,39 @@ def row_moves(cfg, params, shardings, first, devs, batch: int,
 
     def mdim_of(path):
         k = by_path[path]
-        return _model_dim(shs[k], ls[k].ndim, 1 if path[0] == "blocks"
-                          else 0)
+        return _model_dim(shs[k], ls[k].ndim,
+                          1 if path[0] in ("blocks", "encoder") else 0)
 
-    n_split = dict.fromkeys(_WHOLE, 0)
-    specs = {f"l{i}": spec for i, spec in enumerate(cfg.period())}
-    for layer in sorted({p[1] for p in paths if p[0] == "blocks"}):
-        def lmdim(sub, name, layer=layer):
-            path = ("blocks", layer, sub, name)
+    def stack(prefix, spec, layer, times, count, n_split):
+        """Book the stacked layer ``layer`` (``()`` for the encoder's)
+        under ``prefix``: every leaf's uses ``times`` times a period;
+        count its split sublayers ``count`` times in ``n_split``."""
+        def lmdim(sub, name):
+            path = (prefix, *layer, sub, name)
             return mdim_of(path) if path in by_path else "absent"
 
-        modes = _sublayer_modes(cfg, M, specs[layer], lmdim)
+        modes = _sublayer_modes(cfg, M, spec, lmdim)
         for sub in n_split:
-            n_split[sub] += bool(modes[sub]) * cfg.n_periods
+            n_split[sub] += bool(modes[sub]) * count
+        n = len(layer) + 1
         for k, path in enumerate(paths):
-            if path[0] != "blocks" or path[1] != layer:
-                continue
-            sub, name = path[2], path[-1]
-            # each period: its forward and its recomputation
-            if sub == "attn" and modes["attn"]:
-                kv_whole = modes["attn"] == "pick" and name in ("wk", "wv")
-                part = name in _ATTN_PARTS and not kv_whole
-                for m in range(M):
-                    use(k, m, part, 2)
-            elif sub == "ffn" and modes["moe"] and name == "router":
-                use(k, 0, False, 2)
-            elif (sub == "ffn" and (modes["ffn"] or modes["moe"])
-                  or sub == "mix" and modes["mix"] and name != "in_proj"):
-                for m in range(M):
-                    use(k, m, True, 2)
-            elif sub == "mix" and modes["mix"]:   # in_proj: xin's, z's
-                di = cfg.d_inner
-                c = di // M
-                for m in range(M):
-                    for lo in (m * c, di + m * c):
-                        use(k, m, False, 2, (2, lo, lo + c))
-            else:
-                use(k, 0, False, 2)
+            if path[0] == prefix and path[1:n] == layer:
+                sub = path[n] if len(path) > n + 1 else None
+                for m, part, span in _uses(cfg, M, modes, sub, path[-1]):
+                    use(k, m, part, times, span)
+
+    # each period: its forward and its recomputation; each encoder layer
+    # once (the encoder runs outside the periods' checkpoints)
+    n_split, n_enc = dict.fromkeys(_WHOLE, 0), dict.fromkeys(_WHOLE, 0)
+    for i, spec in enumerate(cfg.period()):
+        stack("blocks", spec, (f"l{i}",), 2, cfg.n_periods, n_split)
+    if cfg.encoder_layers:
+        stack("encoder", _ENCODER, (), 1, cfg.encoder_layers, n_enc)
     head = "embed" if cfg.tie_embeddings else "lm_head"
     vocab = {}
     for k, path in enumerate(paths):
         name = path[0]
-        if name == "blocks":
+        if name in ("blocks", "encoder"):
             continue
         vocab[name] = split and name in ("embed", "lm_head") and (
             mdim_of(path) is not None)
@@ -805,29 +993,44 @@ def row_moves(cfg, params, shardings, first, devs, batch: int,
     # the model axis: each position other than the row's first, and those
     # of them on another device than the first
     e = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
-    # tokens and labels are int32 (training/data.py), positions int64,
-    # the loss's maxima, sums and gold logits f32
-    T = batch * seq_len
-    act = T * cfg.d_model * e
-    tok = T * torch.int32.itemsize
-    f32 = T * torch.float32.itemsize
+    i64 = torch.int64.itemsize
+    # the stack's rows (a VLM's patches and the text), the encoder's
+    # frames, the text's rows (tokens and labels int32, training/data.py;
+    # the loss's maxima, sums and gold logits f32)
+    S = seq_len + (cfg.frontend_len if cfg.frontend == "vision_stub" else 0)
+    F = cfg.frontend_len if cfg.encoder_layers else 0
+    T, Tt = batch * S, batch * seq_len
+    act, act_t, mem = (T * cfg.d_model * e, Tt * cfg.d_model * e,
+                       batch * F * cfg.d_model * e)
+    tok = Tt * torch.int32.itemsize
+    f32 = Tt * torch.float32.itemsize
     # forward, recomputation and backward: the input out and the partials
     # back, then their gradients; the positions in the first two.  The
     # MoE also sends combine out and takes f32 partials back; the Mamba
-    # mixer also takes x_proj's partials back and sends their sum out
+    # mixer also takes x_proj's partials back and sends their sum out;
+    # the channel mix also takes each slice of rr back; the
+    # cross-attention also sends the memory out and takes its gradient
+    # back, and sends the memory's positions
     comb = T * cfg.n_experts * e
     dt_rank = max(1, math.ceil(cfg.d_model / 16))    # ssm.mamba_init's
     proj = T * (dt_rank + 2 * cfg.ssm_d_state) * e
-    per = (3 * 2 * act * (n_split["attn"] + n_split["ffn"])
-           + 2 * seq_len * torch.int64.itemsize * n_split["attn"]
-           + 3 * (act + comb + f32 * cfg.d_model) * n_split["moe"]
-           + 3 * 2 * (act + proj) * n_split["mix"])
+    per = (3 * 2 * act * (n_split["attn"] + n_split["ffn"]
+                          + n_split["rwkv"])
+           + 2 * S * i64 * n_split["attn"]
+           + 3 * (act + comb + T * 4 * cfg.d_model) * n_split["moe"]
+           + 3 * 2 * (act + proj) * n_split["mix"]
+           + 3 * (2 * act + act // M) * n_split["cmix"]
+           + (3 * (2 * act + mem) + 2 * (S + F) * i64) * n_split["cross"])
+    # the encoder's layers: forward and backward, its positions once
+    act_e = batch * F * cfg.d_model * e
+    per += (2 * 2 * act_e * (n_enc["attn"] + n_enc["ffn"])
+            + F * i64 * n_enc["attn"])
     if vocab.get("embed"):   # the tokens; the rows and their gradient
-        per += tok + 2 * act
+        per += tok + 2 * act_t
     if vocab.get(head):      # x and its gradient, the labels; each
         #                      slice's logsumexp and gold logits, and their
         #                      gradients
-        per += 2 * act + tok + 4 * f32
+        per += 2 * act_t + tok + 4 * f32
     model = MoveStats(per * (M - 1),
                       per * sum(1 for k in ks[1:] if devs[k] != devs[ks[0]]))
     return gather, model, pieces

@@ -25,13 +25,14 @@ and the other rows compute nothing (their shards are fetched as any
 shard is).  Each (microbatch, row) slice runs on the row's view of the
 state (:mod:`repro_torch.models.tensor_parallel`): no row holds the
 parameters gathered at once; each period gathers its leaves inside the
-period (and again in the backward pass), the embedding and head where
-they are used, and the dense, moe and hybrid families' attention, MLP,
-MoE, Mamba mixer and vocabulary compute on each ``model`` position's
-slice, their partial outputs summed over ``model`` in f32 in a fixed
-order.  Every other family computes whole products, so its mesh step
-performs the arithmetic of the one-device step at ``accum * D'``
-bitwise.  Each piece's gradient (a (row, position) slice) is added at
+period (and again in the backward pass), the encoder's once, the
+embedding and head where they are used, and every family's attention,
+MLP, MoE, Mamba mixer, RWKV time and channel mix, cross-attention and
+vocabulary compute on each ``model`` position's slice where ``model``
+divides them, their partial outputs summed over ``model`` in f32 in a
+fixed order.  Where nothing splits (a ``model`` axis that divides none
+of a config's products), the mesh step performs the arithmetic of the
+one-device step at ``accum * D'`` bitwise.  Each piece's gradient (a (row, position) slice) is added at
 its box into f32 buffers on the mesh's first device in a fixed order,
 microbatch outer and row inner, ``g.float() / (accum * D')`` each (no
 atomics).  The sum (compressed there, against the gathered error

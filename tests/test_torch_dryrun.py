@@ -342,7 +342,8 @@ MOVE_CASES = [("qwen3-0.6b", "2x4", 1, False, False, "bfloat16"),
               ("qwen3-0.6b", "alternating", 2, True, True, "bfloat16"),
               ("phi3.5-moe-42b-a6.6b", "two_devices", 2, False, False,
                "bfloat16"),
-              ("jamba-v0.1-52b", "alternating", 1, False, False, None)]
+              ("jamba-v0.1-52b", "alternating", 1, False, False, None),
+              ("paligemma-3b", "alternating", 2, False, False, "bfloat16")]
 
 
 @pytest.mark.parametrize("arch,mesh_name,accum,compress,regridded,dtype",
@@ -397,18 +398,26 @@ def bits(t):
             else t).numpy().tobytes()
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "mixtral-8x22b"])
-def test_a_microbatch_over_fewer_data_rows(arch):
+@pytest.mark.parametrize("arch,whole", [("rwkv6-1.6b", False),
+                                        ("mixtral-8x22b", False),
+                                        ("rwkv6-1.6b", True)],
+                         ids=["rwkv6-1.6b", "mixtral-8x22b",
+                              "rwkv6-1.6b-whole"])
+def test_a_microbatch_over_fewer_data_rows(arch, whole, monkeypatch):
     """The (2, 2, 2) pod/data/model mesh, a global batch of 4 in 2
     microbatches: 2 rows a microbatch over 4 data rows.  JAX's ``_fit``
     drops ``pod``: the 2 rows of ``pod`` 0 compute a row each, those of
     ``pod`` 1 hold the same slices and run nothing.  Two steps are the
-    one-device step's at accum 2 x 2: bitwise for rwkv6 (whole products);
-    for mixtral (split products) bitwise on a repeat and with the
+    one-device step's at accum 2 x 2: bitwise where the products stay
+    whole (``whole``: the ssm family taken out of the split families);
+    where they split (mixtral, rwkv6) bitwise on a repeat and with the
     positions on two devices, and within 1e-5 of its loss and grad_norm,
     every parameter within 2 lr k.  The composed moves equal the
     measured ones (one thread: a multithreaded CPU product may round
     differently run to run)."""
+    if whole:
+        monkeypatch.setattr(tp, "SPLIT_FAMILIES", tuple(
+            f for f in tp.SPLIT_FAMILIES if f != "ssm"))
     cfg = treg.SMOKES[arch]
     mesh = mesh_of("2x2x2")
     assert tts.microbatch_rows(mesh, 4, 2) == (2, 1)
@@ -445,7 +454,8 @@ def test_a_microbatch_over_fewer_data_rows(arch):
                 and all(bits(x) == bits(y)
                         for x, y in zip(leaves(a[0]), leaves(b[0]))))
 
-    if cfg.family in tp.SPLIT_FAMILIES:
+    assert (m_on[-1]["moved"].model.positions > 0) == (not whole)
+    if not whole:
         assert same(runs[1], runs[0]) and same(runs[2], runs[0])
         for x, y in zip(m_on, m_one):
             for k in keys:

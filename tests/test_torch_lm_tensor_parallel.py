@@ -394,12 +394,13 @@ def test_period_gathers_twice_and_saves_no_gathered_leaf(monkeypatch, arch):
 
 
 def test_other_families_compute_whole_products():
-    """rwkv6's time mix and channel mix on a (2, 4) row (the ssm family
-    splits nothing yet): every leaf whole on the row's first position; no
-    model-axis copy."""
-    _, cfg, _, _, placed = setup("rwkv6-1.6b", (2, 4))
+    """rwkv6's time mix and channel mix on a (2, 3) row, whose 3
+    positions divide none of its heads, widths or vocabulary: every leaf
+    whole on the row's first position; no model-axis copy.  (On (2, 4)
+    they split: tests/test_torch_lm_tensor_parallel_families.py.)"""
+    _, cfg, _, _, placed = setup("rwkv6-1.6b", (2, 3))
     tree, row, stats = view(cfg, placed)
-    assert not row.split
+    assert row.split and tp.splits(cfg, 4)
     lay = period(cfg, tree)
     assert all(not tp.is_split(v) for v in lay.values())
     assert all(isinstance(t, torch.Tensor)

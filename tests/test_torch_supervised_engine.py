@@ -109,6 +109,16 @@ def _match(engines, last=None):
                 np.asarray(getattr(last[1][sid], f)), err_msg=f"{sid} {f}")
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op torch thread: the suite runs several workers on few
+    cores, whose threads would otherwise oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _step(engines, n):
     port, jax_ = engines
     last = (port.step_all(n), jax_.step_all(n))

@@ -52,6 +52,16 @@ NOISE = 1e-3        # sqrt(v_hat) below this share of the leaf's max: noise
 TIGHT = 1e-2        # x lr: above-noise elements without compression
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op torch thread: the suite runs several workers on few
+    cores, whose threads would otherwise oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def data_kw(cfg, seq_len=16, batch=4, seed=1):
     return dict(vocab_size=cfg.vocab_size, seq_len=seq_len,
                 global_batch=batch, seed=seed,
