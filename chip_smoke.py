@@ -367,7 +367,15 @@ result.  Phases, in order (any failure exits nonzero):
     18b's bars against the one-device step at accum 2, the mesh run
     twice bitwise; s a step, both peaks, the bytes a step moves by kind
     beside the whole-product schedule's (``FAMILY_WHOLE_MOVES``): the
-    gather below it, ``model`` above 0;
+    gather below it, ``model`` above 0; (18h) 18e's cut with the sorted
+    MoE dispatch at capacity factor 1.0, 2 x 4096 (two 2048-position
+    chunks), row 0's labels masked from 2048, the (2, 4) mesh at accum 1
+    against the one-device step at accum 1 (the same microbatch) to 18b's
+    bars, the mesh run twice bitwise, the bytes a step moves equal to
+    what ``mesh_step_moves`` composes (``routes`` too), assignments
+    dropped, the mesh's kept set exactly what a stable sort over the
+    microbatch's own recorded routes keeps; the dropped counts both ways,
+    the tokens whose routes differ, s a step and both peaks;
     (18c) the GPipe
     forward of the same cut, 8 x 1024 on a (pod 2, data 2, model 2) mesh
     with 4 microbatches: bitwise ``hidden_states`` per slice, within 1e-2
@@ -435,11 +443,12 @@ result.  Phases, in order (any failure exits nonzero):
     kernels' build and waits for it before phase 3): 80 records, 66 ``ok``, 14
     ``skipped``, none in error, each under JAX's file name, the command's
     seconds, ``moves`` on every ``ok`` train cell; then the ``moves`` it
-    composes at 18b's, 18e's and 18g's configurations (qwen3-0.6b cut to
-    4 layers, phi3.5-moe cut to 1, rwkv6, paligemma and whisper cut to 1,
-    a (2, 4) mesh naming ``cuda:0`` 8 times, accum 1, 8 x 1024) against
-    the ``MeshStepStats`` 18b, 18e and 18g measured
-    (every kind, ``model`` too), integer for integer.  Its results go on
+    composes at 18b's, 18e's, 18h's and 18g's configurations (qwen3-0.6b
+    cut to 4 layers, phi3.5-moe cut to 1 (18h: sorted, 2 x 4096), rwkv6,
+    paligemma and whisper cut to 1, a (2, 4) mesh naming ``cuda:0`` 8
+    times, accum 1, 8 x 1024) against the ``MeshStepStats`` 18b, 18e, 18h
+    and 18g measured (every kind, ``model`` and ``routes`` too), integer
+    for integer.  Its results go on
     a line of their own (``dryrun {...}``).
 
 In phases 9-14 every kernel wrapper's plain version is made to raise while
@@ -7324,7 +7333,7 @@ MOE_WHOLE_MOVES = {          # 18e: what mesh_step_moves composes at 18e's
     "gather": [9_889_644_544, 0],   # configuration for the schedule that
     "reduce": [3_126_091_776, 0],   # ran the MoE family's products whole
     "scatter": [6_391_676_928, 0],  # on the row's first position
-    "relayout": [0, 0], "model": [0, 0]}
+    "relayout": [0, 0], "model": [0, 0], "routes": [0, 0]}
 JAMBA = "jamba-v0.1-52b"     # 18f
 MIXER_BATCH, MIXER_SEQ = 2, 512  # 18f: the sublayers' input
 MIXER_TOL = 1e-4             # 18f: f32 split against whole, of the largest
@@ -7343,13 +7352,27 @@ FAMILY_WHOLE_MOVES = {       # 18g: what mesh_step_moves composes at 18g's
     "rwkv6-1.6b": {          # configurations for the schedule that ran
         "gather": [1_188_298_752, 0],   # these families' products whole
         "reduce": [646_508_544, 0],     # on the row's first position
-        "scatter": [2_073_387_008, 0], "relayout": [0, 0], "model": [0, 0]},
+        "scatter": [2_073_387_008, 0], "relayout": [0, 0], "model": [0, 0],
+        "routes": [0, 0]},
     "paligemma-3b": {
         "gather": [3_931_373_568, 0], "reduce": [1_273_769_984, 0],
-        "scatter": [4_072_972_288, 0], "relayout": [0, 0], "model": [0, 0]},
+        "scatter": [4_072_972_288, 0], "relayout": [0, 0], "model": [0, 0],
+        "routes": [0, 0]},
     "whisper-medium": {
         "gather": [161_480_704, 0], "reduce": [271_173_632, 0],
-        "scatter": [3_077_107_712, 0], "relayout": [0, 0], "model": [0, 0]}}
+        "scatter": [3_077_107_712, 0], "relayout": [0, 0], "model": [0, 0],
+        "routes": [0, 0]}}
+
+
+SORTED_SEQ, SORTED_BATCH = 4096, 2   # 18h: JAX's train_4k length (two
+#                          2048-position chunks of the sorted dispatch), a
+#                          batch row on each of the (2, 4) mesh's data rows
+SORTED_CF = 1.0              # 18h: the capacity factor; at JAX's 1.25 a
+#                          chunk's 4,096 tokens put ~512 assignments on
+#                          each of 16 experts against C 640 (the 8,192
+#                          tokens ~1,024 against 1,280): nothing drops
+SORTED_MASK = SORTED_SEQ // 2  # 18h: row 0's labels masked from here on
+#                          (the two data rows' valid counts differ)
 
 
 def mesh_devices(n: int) -> list:
@@ -7497,17 +7520,18 @@ def params_within(torch, got, want, lr: float, k: int) -> dict:
     return out
 
 
-def mesh_step_runs(torch, dev, cfg, opt, batches, routes=None) -> dict:
-    """18b's and 18e's runs, each from ``init_state`` (seed 0) on ``dev``:
-    the one-device step at accum D (the (2, 4) mesh's data rows), then
-    the mesh step at accum 1 twice.  Returns both runs' losses and
-    grad_norms (the first mesh run's), their largest relative
-    differences (``rel``), :func:`params_within` of the first mesh run's
-    parameters (``bar``), whether the two mesh runs are bitwise equal
-    (state, losses, grad_norms),
-    seconds a step, raw peaks, the resident state before each run and
-    the last step's ``moved``.  With ``routes`` (two lists), the MoE
-    routes of the one-device run and of the first mesh run."""
+def mesh_step_runs(torch, dev, cfg, opt, batches, one_accum=None,
+                   spies=None) -> dict:
+    """18b's, 18e's, 18g's and 18h's runs, each from ``init_state`` (seed
+    0) on ``dev``: the one-device step at accum D (the (2, 4) mesh's data
+    rows; ``one_accum`` if given), then the mesh step at accum 1 twice.
+    Returns both runs' losses and grad_norms (the first mesh run's),
+    their largest relative differences (``rel``), :func:`params_within`
+    of the first mesh run's parameters (``bar``), whether the two mesh
+    runs are bitwise equal (state, losses, grad_norms), seconds a step,
+    raw peaks, the resident state before each run and the last step's
+    ``moved``.  ``spies``: two context managers' factories, around the
+    one-device run and the first mesh run."""
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.sharding import Sharded, unshard
     from repro_torch.training.train_step import (data_rows, init_state,
@@ -7521,15 +7545,15 @@ def mesh_step_runs(torch, dev, cfg, opt, batches, routes=None) -> dict:
         return init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
 
     def record(i):
-        return (router_record(torch, routes[i]) if routes is not None
-                else contextlib.nullcontext())
+        return spies[i]() if spies is not None else contextlib.nullcontext()
 
     state = fresh()
     resident_one = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with record(0):
         state, m_one, s_one = train_run(
-            torch, make_train_step(cfg, opt, accum=D), state, batches)
+            torch, make_train_step(cfg, opt, accum=D if one_accum is None
+                                   else one_accum), state, batches)
     peak_one = torch.cuda.max_memory_allocated()
     want = leaves(state.params)
     del state
@@ -7734,7 +7758,9 @@ def moe_mesh_phase(torch, dev, problems) -> dict:
                       global_batch=MESH_BATCH, seed=0)
     batches = [batch_at(dcfg, k, device=dev) for k in range(MESH_STEPS)]
     routes = ([], [])
-    r = mesh_step_runs(torch, dev, cfg, opt, batches, routes)
+    r = mesh_step_runs(torch, dev, cfg, opt, batches, spies=(
+        lambda: router_record(torch, routes[0]),
+        lambda: router_record(torch, routes[1])))
     D, moved, bar, rel = r["D"], r["moved"], r["bar"], r["rel"]
     flips = sum(int((a != b).any(-1).sum()) for a, b in zip(*routes))
     routed = sum(a.shape[0] * a.shape[1] for a in routes[0])
@@ -7794,6 +7820,219 @@ def moe_mesh_phase(torch, dev, problems) -> dict:
     return out
 
 
+def sorted_mesh_config():
+    """18h's configuration: 18e's with the sorted dispatch at
+    ``SORTED_CF``."""
+    return dataclasses.replace(moe_mesh_config(), moe_dispatch="sorted",
+                               moe_capacity_factor=SORTED_CF)
+
+
+def sorted_batches(cfg, dev) -> list:
+    """18h's batches: ``batch_at`` (seed 0) at ``SORTED_SEQ`` x
+    ``SORTED_BATCH``, row 0's labels masked from ``SORTED_MASK`` on."""
+    from repro_torch.models.lm import MASK_LABEL
+    from repro_torch.training.data import DataConfig, batch_at
+
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=SORTED_SEQ,
+                      global_batch=SORTED_BATCH, seed=0)
+    out = []
+    for k in range(MESH_STEPS):
+        b = batch_at(dcfg, k, device=dev)
+        b["labels"][0, SORTED_MASK:] = MASK_LABEL
+        out.append(b)
+    return out
+
+
+def sort_keep(torch, idx, C: int):
+    """What JAX's ``_moe_sorted_block`` keeps of routes ``idx`` ``(N,
+    k)`` at capacity ``C``: a stable sort by expert over their flat
+    order, an assignment kept where its rank in its expert is below
+    ``C`` (in the flat order)."""
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    se = flat[order]
+    rank = (torch.arange(se.numel(), device=se.device)
+            - torch.searchsorted(se, se))
+    keep = torch.empty_like(flat, dtype=torch.bool)
+    keep[order] = rank < C
+    return keep
+
+
+def capacity(cfg, n: int) -> int:
+    """JAX's ``C`` for ``n`` tokens."""
+    return int(cfg.moe_capacity_factor * n * cfg.experts_per_token
+               / cfg.n_experts + 0.999)
+
+
+@contextlib.contextmanager
+def micro_record(calls: list):
+    """Record each microbatch view the mesh step makes (its sorted
+    dispatch's decisions, ``Micro.routes``)."""
+    from repro_torch.models import tensor_parallel as tp
+
+    real = tp.micro_view
+
+    def spy(*args, **kw):
+        trees, micro = real(*args, **kw)
+        calls.append(micro)
+        return trees, micro
+
+    tp.micro_view = spy
+    try:
+        yield calls
+    finally:
+        tp.micro_view = real
+
+
+@contextlib.contextmanager
+def sorted_block_record(torch, cfg, calls: list):
+    """Record each whole sorted block's ``(routes, kept)`` in the forward
+    pass while the LM stack runs (the one-device step; not the backward
+    pass's recomputation), the routes from the block's own router
+    product."""
+    from repro_torch.models import layers
+
+    real = layers._moe_sorted_block
+
+    def spy(p, x, **kw):
+        if torch._C._current_graph_task_id() != -1:   # a recomputation
+            return real(p, x, **kw)
+        with torch.no_grad():
+            logits = x.reshape(-1, x.shape[-1]).float() @ p["router"]
+            idx = torch.topk(logits, kw["top_k"], dim=-1).indices
+            calls.append((idx, sort_keep(torch, idx,
+                                         capacity(cfg, idx.shape[0]))))
+        return real(p, x, **kw)
+
+    layers._moe_sorted_block = spy
+    try:
+        yield calls
+    finally:
+        layers._moe_sorted_block = real
+
+
+def kept_set_check(torch, cfg, micros: list) -> tuple:
+    """``(counts, problems)``: each microbatch's kept assignments (the
+    mesh step's, recorded in its ``Micro``) against what a sort over the
+    microbatch's own recorded routes keeps (:func:`sort_keep`, the rows'
+    routes in row order, the microbatch's capacity), exactly; at least
+    one assignment must drop.  ``busiest2``: the least and the most share
+    of a (chunk, row)'s assignments that its two busiest experts take."""
+    out = {"chunks": 0, "assignments": 0, "dropped": 0, "mismatched": 0}
+    shares = []
+    for micro in micros:
+        for routes in micro.routes.values():
+            for r in routes:
+                loads = torch.bincount(r[0].flatten(),
+                                       minlength=cfg.n_experts)
+                shares.append(float(loads.sort(descending=True).values[:2]
+                                    .sum()) / r[0].numel())
+            idx = torch.cat([r[0] for r in routes])
+            keep = torch.cat([r[1] for r in routes])
+            want = sort_keep(torch, idx, capacity(cfg, idx.shape[0]))
+            out["chunks"] += 1
+            out["assignments"] += keep.numel()
+            out["dropped"] += int((~keep).sum())
+            out["mismatched"] += int((keep != want).sum())
+    out["busiest2"] = [min(shares, default=0.0), max(shares, default=0.0)]
+    problems = []
+    if not out["chunks"] or out["mismatched"]:
+        problems.append(f"18h: the mesh's kept set is not the microbatch "
+                        f"sort's of its own routes: {out}")
+    if not out["dropped"]:
+        problems.append(f"18h: no assignment dropped: {out}")
+    return out, problems
+
+
+def sorted_mesh_phase(torch, dev, problems) -> dict:
+    """18h: 18e's configuration with the sorted MoE dispatch at capacity
+    factor ``SORTED_CF``, ``SORTED_BATCH`` x ``SORTED_SEQ`` (row 0's
+    labels masked from ``SORTED_MASK`` on), the (2, 4) mesh at accum 1
+    against the one-device step at accum 1 (the same microbatch) with
+    18b's bars, the mesh run twice bitwise; the bytes a step moves equal
+    to what ``mesh_step_moves`` composes; assignments dropped, and the
+    mesh's kept set the microbatch sort's of its own recorded routes
+    (:func:`kept_set_check`); the dropped counts both ways and the
+    tokens whose routes differ between the two runs."""
+    from repro_torch.training.optimizer import AdamW
+
+    cfg = sorted_mesh_config()
+    opt = AdamW()
+    batches = sorted_batches(cfg, dev)
+    micros, blocks = [], []
+    r = mesh_step_runs(torch, dev, cfg, opt, batches, one_accum=1, spies=(
+        lambda: sorted_block_record(torch, cfg, blocks),
+        lambda: micro_record(micros)))
+    moved, bar, rel = r["moved"], r["bar"], r["rel"]
+    kept, found = kept_set_check(torch, cfg, micros)
+    problems += found
+    # the one-device step's blocks against the mesh's chunks, in order
+    mesh = [torch.cat([x[0] for x in routes]) for micro in micros
+            for routes in micro.routes.values()]
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for (a, _), b in zip(blocks, mesh))
+    dropped_one = sum(int((~keep).sum()) for _, keep in blocks)
+    if len(blocks) != len(mesh):
+        problems.append(f"18h: {len(blocks)} sorted blocks on one device, "
+                        f"{len(mesh)} on the mesh")
+    bound = 2 * opt.lr * MESH_STEPS
+    composed = composed_moves(cfg, SORTED_SEQ, SORTED_BATCH)
+    measured = {k: list(v) for k, v in moved._asdict().items()}
+    out = {"layers": cfg.n_layers, "seq_len": SORTED_SEQ,
+           "batch": SORTED_BATCH, "capacity_factor": SORTED_CF,
+           "capacity": capacity(cfg, SORTED_BATCH * min(SORTED_SEQ, 2048)),
+           "losses": r["losses"], "grad_norms": r["grad_norms"],
+           "mesh_losses": r["mesh_losses"],
+           "mesh_grad_norms": r["mesh_grad_norms"], "rel_loss": rel[0],
+           "rel_grad_norm": rel[1], "param_err": bar["max"],
+           "param_bound": bound, "param_excess": bar["excess"],
+           "over_2lrk": bar["over_2lrk"], "kept": kept,
+           "dropped_one_device": dropped_one, "route_flips": flips,
+           "one_device_step_s": r["s_one"], "mesh_step_s": r["secs"],
+           "peak_bytes_one_device": r["peak_one"],
+           "peak_bytes_mesh": r["peaks"],
+           "resident_bytes_one_device": r["resident_one"],
+           "resident_bytes_mesh": r["resident"], "moved": measured,
+           "composed": composed, "bitwise_repeat": r["repeat"]}
+    print(f"  [18h] {PHI} at full width cut to {cfg.n_layers} layer(s), "
+          f"the sorted dispatch at capacity factor {SORTED_CF} (C "
+          f"{out['capacity']} a 2048-position chunk), {cfg.dtype}, "
+          f"{SORTED_BATCH} x {SORTED_SEQ}, row 0's labels masked from "
+          f"{SORTED_MASK}: losses {[f'{x:.4f}' for x in r['losses']]} one "
+          f"device at accum 1, {[f'{x:.4f}' for x in r['mesh_losses']]} on "
+          f"the {MESH_SHAPE} mesh at accum 1; within {rel[0]:.2e} / "
+          f"{rel[1]:.2e} (loss / grad_norm; bar {PIPE_TOL}); every "
+          f"parameter within {bar['max']:.3e} (2 lr k = {bound:.1e}, "
+          f"passed by {bar['over_2lrk']} elements; with {MESH_STEPS} bf16 "
+          f"roundings passed by {bar['excess']:.3e}); the two mesh runs "
+          f"bitwise: {r['repeat']}")
+    print(f"  [18h] assignments dropped: the mesh {kept['dropped']} of "
+          f"{kept['assignments']} ({kept['chunks']} chunks), one device "
+          f"{dropped_one}; the mesh's kept set against the microbatch sort "
+          f"of its own routes: {kept['mismatched']} differ; tokens whose "
+          f"routes differ between the two runs {flips}; a (chunk, row)'s "
+          f"two busiest experts take {kept['busiest2'][0]:.4f}-"
+          f"{kept['busiest2'][1]:.4f} of its assignments")
+    print(f"  [18h] s a step: one device "
+          f"{[f'{x:.3f}' for x in r['s_one']]}, the mesh "
+          f"{[[f'{x:.3f}' for x in s] for s in r['secs']]} (two runs); "
+          f"peak memory one device {r['peak_one']:,} B "
+          f"({r['resident_one']:,} resident), the mesh {r['peaks']} B "
+          f"({r['resident']} resident); bytes a step moves (between "
+          f"devices): " + ", ".join(f"{k} {v[0]:,} ({v[1]:,})"
+                                    for k, v in measured.items())
+          + f"; composed equal: {composed == measured}")
+    if not (max(rel) <= PIPE_TOL and bar["excess"] <= 0 and r["repeat"]):
+        problems.append(f"18h: within {rel} of the one-device step's "
+                        f"losses and grad_norms (bar {PIPE_TOL}), parameters "
+                        f"{bar} (bar 2 lr k = {bound} and a storage "
+                        f"rounding a step), repeat {r['repeat']}")
+    if composed != measured:
+        problems.append(f"18h: moves composed {composed}, measured "
+                        f"{measured}")
+    return out
+
+
 def mixer_split_phase(torch, dev, problems) -> dict:
     """18f: jamba's Mamba mixer and MoE sublayer at full width in f32 on
     one (2, 4) row, split over ``model``, against the whole sublayers on
@@ -7842,7 +8081,8 @@ def mixer_split_phase(torch, dev, problems) -> dict:
         free_device(torch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        stats = {"gather": MoveStats(), "model": MoveStats()}
+        stats = {"gather": MoveStats(), "model": MoveStats(),
+             "routes": MoveStats()}
         tree, row = tp.row_view(cfg, placed, (0, 0), stats)
         sp = tp.materialize(cfg, lm._index(tree["blocks"], 0))[layer][sub]
         xs = x.clone().requires_grad_()
@@ -8163,7 +8403,8 @@ def lm_mesh_phase(torch, dev) -> dict:
     out = {"part_s": {}}
     for key, part in (("policy", mesh_policy_phase),
                       ("train", mesh_train_phase),
-                      ("moe", moe_mesh_phase), ("mixer", mixer_split_phase),
+                      ("moe", moe_mesh_phase), ("sorted", sorted_mesh_phase),
+                      ("mixer", mixer_split_phase),
                       ("families", family_mesh_phase),
                       ("pipeline", pipeline_phase), ("kv", kv_mesh_phase)):
         t1 = time.perf_counter()
@@ -8271,16 +8512,17 @@ def dryrun_problems(records: list, names: list) -> list:
     return out
 
 
-def composed_moves(cfg, seq=None) -> dict:
-    """The moves :func:`mesh_step_moves` composes for 18b's, 18e's and
-    18g's step of ``cfg`` (the (2, 4) mesh on the card, accum 1, 8 x
-    ``seq``, default ``MESH_SEQ``), as those parts report what they
-    measured."""
+def composed_moves(cfg, seq=None, batch=None) -> dict:
+    """The moves :func:`mesh_step_moves` composes for 18b's, 18e's, 18g's
+    and 18h's step of ``cfg`` (the (2, 4) mesh on the card, accum 1,
+    ``batch`` x ``seq``, default ``MESH_BATCH`` x ``MESH_SEQ``), as those
+    parts report what they measured."""
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.training.train_step import mesh_step_moves
 
     mesh = make_debug_mesh(*MESH_SHAPE, devices=mesh_devices(8))
-    moved = mesh_step_moves(cfg, mesh, 1, MESH_BATCH,
+    moved = mesh_step_moves(cfg, mesh, 1,
+                            MESH_BATCH if batch is None else batch,
                             MESH_SEQ if seq is None else seq)
     return {k: list(v) for k, v in moved._asdict().items()}
 
@@ -8333,7 +8575,8 @@ def start_dryrun():
 def dryrun_phase(lm_mesh: dict | None = None, pending=None) -> dict:
     """Phase 20 (see the module docstring): the whole dry-run as a user
     runs it (``pending``: the future :func:`start_dryrun` gave, else run
-    here), then, with phase 18's result, 18b's, 18e's and 18g's bytes."""
+    here), then, with phase 18's result, 18b's, 18e's, 18h's and 18g's
+    bytes."""
     t0 = time.perf_counter()
     print("[20] the port's dry-run: every (arch x shape x mesh) cell on the "
           "production meshes, on the host"
@@ -8356,7 +8599,9 @@ def dryrun_phase(lm_mesh: dict | None = None, pending=None) -> dict:
         problems.append(f"20: train cells without moves: "
                         f"{out['moves_reason']}")
     runs = [(("train",), "18b", composed_18b_moves),
-            (("moe",), "18e", composed_18e_moves)] + [
+            (("moe",), "18e", composed_18e_moves),
+            (("sorted",), "18h", lambda: composed_moves(
+                sorted_mesh_config(), SORTED_SEQ, SORTED_BATCH))] + [
         (("families", arch), f"18g {arch}", functools.partial(
             composed_moves, family_mesh_config(arch),
             FAMILY_SEQ.get(arch, MESH_SEQ))) for arch in FAMILIES]
@@ -8427,7 +8672,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dryrun", action="store_true",
                     help="phase 20 (the port's dry-run of every cell) "
                          "alone, after phases 1-2; with --lm-mesh, after "
-                         "phase 18, checking 18b's, 18e's and 18g's bytes too")
+                         "phase 18, checking 18b's, 18e's, 18g's and 18h's "
+                         "bytes too")
     return ap
 
 

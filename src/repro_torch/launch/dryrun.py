@@ -22,14 +22,19 @@ under ``--out`` with what can be composed exactly from it:
 * ``moves`` (train cells): the bytes one step of the port's mesh train
   step (``training/train_step.py``) copies between positions and between
   devices, by kind (``gather``, ``reduce``, ``scatter``, ``relayout``,
-  ``model``, as ``MeshStepStats`` counts them when the step runs), at
-  ``cfg.train_accum`` and the shape's batch and sequence length
+  ``model``, ``routes``, as ``MeshStepStats`` counts them when the step
+  runs), at ``cfg.train_accum`` and the shape's batch and sequence length
   (:func:`~repro_torch.training.train_step.mesh_step_moves`): each
   period's parameters gathered in the forward and again in the backward
-  pass, every family's products split over ``model`` (the sorted MoE
-  dispatch, which no registry config sets, whole), a microbatch over the data rows JAX's ``_fit`` gives it
-  (mixtral's and jamba's 16 rows over 2x16x16's ``data`` rows, ``pod``
-  dropped).  They are the port's schedule, not GSPMD's collectives.
+  pass, every family's products split over ``model``, a microbatch over
+  the data rows JAX's ``_fit`` gives it (mixtral's and jamba's 16 rows
+  over 2x16x16's ``data`` rows, ``pod`` dropped).  The sorted MoE
+  dispatch (``moe_dispatch="sorted"``, which no registry config sets;
+  ``run_cell(..., cfg=)`` composes a cell with it, as JAX's hillclimbed
+  phi3.5-moe ``train_4k`` cell) splits its experts' ``d_ff`` too and
+  books each data row's per-expert counts to the next row of its
+  microbatch under ``routes``.  They are the port's schedule, not GSPMD's
+  collectives.
   Where ``train_accum`` does not divide the global batch, the step
   raises and the record says so under ``moves_reason`` instead (no
   registry cell).  Prefill and decode have no mesh step in the port: no
@@ -94,7 +99,9 @@ MOVES_SCHEDULE = ("repro_torch mesh train step (MeshStepStats): bytes "
                   "time (forward and recomputation), the encoder's once, "
                   "every family's products split over model (kind "
                   "model); a microbatch over the data rows _fit gives it, "
-                  "each distinct slice run once, on the lowest row")
+                  "each distinct slice run once, on the lowest row; the "
+                  "sorted MoE dispatch's expert counts row to row (kind "
+                  "routes)")
 
 
 def _shape_bytes(text: str) -> int:
@@ -236,10 +243,13 @@ def _moves(cfg, shape_name: str, mesh) -> dict:
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
-             save_hlo: bool = False, correct: bool = True) -> dict:
-    """Compose and write one cell's record.  ``save_hlo`` raises (the port
-    has no HLO); ``correct`` is JAX's scan-undercount switch and changes
-    nothing here (nothing is undercounted)."""
+             save_hlo: bool = False, correct: bool = True,
+             cfg=None) -> dict:
+    """Compose and write one cell's record (``cfg``: the arch's config
+    with a lever set, as :func:`build_lowerable` takes it; default the
+    registry's).  ``save_hlo`` raises (the port has no HLO); ``correct``
+    is JAX's scan-undercount switch and changes nothing here (nothing is
+    undercounted)."""
     from repro_torch.configs.registry import cell_is_skipped, get_config
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.launch.analysis import analytical_bytes, analytical_flops
@@ -258,7 +268,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
         return record
 
     t0 = time.time()
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi_pod"))
     _, args, shardings, _, _ = build_lowerable(arch, shape_name, mesh, cfg)
     record["argument_size_in_bytes"] = argument_bytes(args, shardings)

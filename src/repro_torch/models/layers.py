@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 __all__ = ["MetaGenerator", "dense_init", "rms_norm", "rope", "act_fn",
            "mlp_init", "mlp_apply", "moe_init", "moe_route", "moe_chunks",
-           "moe_expert", "moe_apply",
+           "moe_sorted_chunks", "moe_capacity", "moe_expert", "moe_apply",
            "moe_apply_sorted", "torch_dtype"]
 
 
@@ -152,6 +152,20 @@ def moe_chunks(S: int) -> list:
     return [(0, S)]
 
 
+def moe_sorted_chunks(S: int) -> list:
+    """The ``[lo, hi)`` position ranges the sorted dispatch sorts over:
+    chunks of 2048 where ``S`` is a longer multiple of it, as in JAX."""
+    cs = 2048
+    if S > cs and S % cs == 0:
+        return [(i, i + cs) for i in range(0, S, cs)]
+    return [(0, S)]
+
+
+def moe_capacity(capacity_factor: float, N: int, top_k: int, E: int) -> int:
+    """Each expert's slots for ``N`` tokens, as JAX's ``C``."""
+    return int(capacity_factor * N * top_k / E + 0.999)
+
+
 def moe_apply(p, x: torch.Tensor, *, top_k: int, act: str) -> torch.Tensor:
     """Dropless top-k MoE, expert-looped dense dispatch.
 
@@ -185,13 +199,12 @@ def moe_apply_sorted(p, x: torch.Tensor, *, top_k: int, act: str,
     and combines; assignments past capacity are dropped.  Sequences
     longer than 2048 (and a multiple of it) run in chunks of 2048.
     """
-    cs = 2048
-    B, S, d = x.shape
-    if S > cs and S % cs == 0:
+    chunks = moe_sorted_chunks(x.shape[1])
+    if len(chunks) > 1:
         return torch.cat([
-            _moe_sorted_block(p, x[:, i:i + cs], top_k=top_k, act=act,
+            _moe_sorted_block(p, x[:, lo:hi], top_k=top_k, act=act,
                               capacity_factor=capacity_factor)
-            for i in range(0, S, cs)], dim=1)
+            for lo, hi in chunks], dim=1)
     return _moe_sorted_block(p, x, top_k=top_k, act=act,
                              capacity_factor=capacity_factor)
 
@@ -205,7 +218,7 @@ def _moe_sorted_block(p, x, *, top_k, act, capacity_factor):
     weights, idx = torch.topk(logits, top_k, dim=-1)      # (N, k)
     weights = torch.softmax(weights, dim=-1).to(x.dtype)
 
-    C = int(capacity_factor * N * top_k / E + 0.999)
+    C = moe_capacity(capacity_factor, N, top_k, E)
     # sort assignments by expert (stable, as jnp.argsort); rank in expert
     flat_e = idx.reshape(-1)                               # (N*k,)
     order = torch.argsort(flat_e, stable=True)

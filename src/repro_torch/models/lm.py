@@ -26,15 +26,17 @@ trees, which a reentrant checkpoint would give no gradient), as JAX's
 ``jax.checkpoint(policy=nothing_saveable)``: only the period inputs are
 saved and the backward recomputes each period.
 
-The mesh train step runs ``loss_fn`` on a data row's view of a sharded
-tree (:mod:`repro_torch.models.tensor_parallel`): each period gathers its
-leaves inside the period (so the backward pass gathers them again, the
-recomputation running to the period's end), the embedding and head where
-they are used, and the attention, dense MLP, MoE (dense dispatch), Mamba
-mixer, RWKV time and channel mix, cross-attention, the encoder's layers
+The mesh train step runs ``row_losses`` on the data rows' views of a
+sharded tree (:mod:`repro_torch.models.tensor_parallel`); ``loss_fn``
+takes whole trees only.  Each period gathers its leaves inside the
+period (so the backward pass gathers them again, the recomputation
+running to the period's end), the embedding and head where they are
+used, and the attention, dense MLP, MoE (either dispatch), Mamba mixer,
+RWKV time and channel mix, cross-attention, the encoder's layers
 (fetched once: the encoder runs outside the periods' checkpoints) and
 vocabulary run split over the row's ``model`` positions where their
-specs split.
+specs split.  Where a microbatch's rows couple (the sorted dispatch),
+``row_losses`` runs them through the stack together, a period at a time.
 """
 from __future__ import annotations
 
@@ -59,8 +61,8 @@ from repro_torch.models.ssm import mamba_apply, mamba_init
 
 __all__ = ["D_CONV", "MASK_LABEL", "attn_spec", "init_params",
            "param_specs", "init_cache", "cache_specs", "encode",
-           "hidden_states", "forward", "loss_fn", "head_loss", "prefill",
-           "decode_step"]
+           "hidden_states", "forward", "loss_fn", "row_losses", "head_loss",
+           "prefill", "decode_step"]
 
 D_CONV = 4
 MASK_LABEL = -100
@@ -231,84 +233,122 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
 
 def _apply_period(cfg: ModelConfig, pparams, x, positions, cache, mode,
                   memory=None, memory_pos=None, pos=None):
-    """Run one period of layers.  mode: train | prefill | decode."""
-    pparams = tp.materialize(cfg, pparams)
+    """Run one period of layers of a whole tree.  mode: train | prefill |
+    decode."""
     new_cache = {}
     for i, spec in enumerate(cfg.period()):
         p = pparams[f"l{i}"]
         c = cache[f"l{i}"] if cache is not None else None
-        nc = {}
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        if spec.kind == LayerKind.ATTN:
-            if mode == "decode":
-                y, kv = attn_decode(p["attn"], h, pos,
-                                    {"k": c["k"], "v": c["v"]},
-                                    attn_spec(cfg))
-                nc.update(kv)
-            else:
-                y, (k, v) = (tp.attn_train if tp.is_split(p["attn"])
-                             else attn_train)(p["attn"], h, positions,
-                                              attn_spec(cfg))
-                if mode == "prefill":
-                    nc["k"] = _prefill_write(c["k"], k)
-                    nc["v"] = _prefill_write(c["v"], v)
-        elif spec.kind == LayerKind.MAMBA:
-            y, st = (tp.mamba_apply if tp.is_split(p["mix"])
-                     else mamba_apply)(p["mix"], h,
-                                       state=c if mode == "decode" else None)
-            if mode in ("prefill", "decode"):
-                nc.update({"conv": st["conv"].to(c["conv"].dtype),
-                           "ssm": st["ssm"]})
-        else:  # RWKV
-            y, st = (tp.rwkv_apply if tp.is_split(p["mix"])
-                     else rwkv_apply)(p["mix"], h,
-                                      state={"S": c["S"], "last": c["last"]}
-                                      if mode == "decode" else None)
-            if mode in ("prefill", "decode"):
-                nc.update({"S": st["S"], "last": st["last"].to(x.dtype)})
-        x = x + y
-
-        if cfg.cross_attention:
-            hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
-            cspec = attn_spec(cfg, cross=True)
-            if mode == "decode":
-                yx = _cross_decode(p["cross"], hx, c["ck"], c["cv"], cspec)
-                nc["ck"], nc["cv"] = c["ck"], c["cv"]
-            else:
-                yx, (ck, cv) = (tp.cross_attn if tp.is_split(p["cross"])
-                                else cross_attn)(p["cross"], hx, positions,
-                                                 cspec, memory, memory_pos)
-                if mode == "prefill":
-                    nc["ck"], nc["cv"] = (ck.to(c["ck"].dtype),
-                                          cv.to(c["cv"].dtype))
-            x = x + yx
-
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        if spec.kind == LayerKind.RWKV:
-            y2, st = (tp.rwkv_ffn_apply if tp.is_split(p["ffn"])
-                      else rwkv_ffn_apply)(p["ffn"], h2,
-                                           state={"last": c["ffn_last"]}
-                                           if mode == "decode" else None)
-            if mode in ("prefill", "decode"):
-                nc["ffn_last"] = st["last"].to(x.dtype)
-        elif spec.moe:
-            if tp.is_split(p["ffn"]):
-                y2 = tp.moe_apply(p["ffn"], h2, top_k=cfg.experts_per_token,
-                                  act=cfg.act)
-            elif cfg.moe_dispatch == "sorted":
-                y2 = moe_apply_sorted(p["ffn"], h2,
-                                      top_k=cfg.experts_per_token,
-                                      act=cfg.act,
-                                      capacity_factor=cfg.moe_capacity_factor)
-            else:
-                y2 = moe_apply(p["ffn"], h2, top_k=cfg.experts_per_token,
-                               act=cfg.act)
-        else:
-            y2 = (tp.mlp_apply if tp.is_split(p["ffn"])
-                  else mlp_apply)(p["ffn"], h2, cfg.act)
-        x = x + y2
+        x, nc = _mixers(cfg, spec, p, x, positions, c, mode, memory,
+                        memory_pos, pos)
+        x = x + _ffn(cfg, spec, p, rms_norm(x, p["ln2"], cfg.norm_eps), c,
+                     mode, nc)
         new_cache[f"l{i}"] = nc if nc else (c if c is not None else {})
     return x, new_cache
+
+
+def _apply_period_rows(cfg: ModelConfig, pparams: list, xs: list,
+                       positions: list, memories: list) -> list:
+    """One period (train mode) over the data rows of one microbatch
+    (``pparams``: each row's view of the period; ``xs``, ``positions``
+    and ``memories`` (``(memory, memory_pos)``) each row's): each
+    sublayer runs each row's slice on its own positions, layer by layer,
+    and the sorted MoE dispatch runs once over every row
+    (:func:`~repro_torch.models.tensor_parallel.moe_apply_sorted`)."""
+    ps = [tp.materialize(cfg, pp) for pp in pparams]
+    for i, spec in enumerate(cfg.period()):
+        name = f"l{i}"
+        xs = [_mixers(cfg, spec, p[name], x, pos, None, "train", *mem)[0]
+              for p, x, pos, mem in zip(ps, xs, positions, memories)]
+        h2s = [rms_norm(x, p[name]["ln2"], cfg.norm_eps)
+               for p, x in zip(ps, xs)]
+        if spec.moe and cfg.moe_dispatch == "sorted":
+            ys = tp.moe_apply_sorted([p[name]["ffn"] for p in ps], h2s,
+                                     **_sorted_kw(cfg))
+        else:
+            ys = [_ffn(cfg, spec, p[name], h2, None, "train", {})
+                  for p, h2 in zip(ps, h2s)]
+        xs = [x + y for x, y in zip(xs, ys)]
+    return xs
+
+
+def _sorted_kw(cfg: ModelConfig) -> dict:
+    return dict(top_k=cfg.experts_per_token, act=cfg.act,
+                capacity_factor=cfg.moe_capacity_factor)
+
+
+def _mixers(cfg: ModelConfig, spec, p, x, positions, c, mode, memory=None,
+            memory_pos=None, pos=None):
+    """A layer's attention, Mamba or RWKV sublayer and its
+    cross-attention, each with its residual add: ``(x, new cache
+    leaves)``."""
+    nc = {}
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if spec.kind == LayerKind.ATTN:
+        if mode == "decode":
+            y, kv = attn_decode(p["attn"], h, pos,
+                                {"k": c["k"], "v": c["v"]},
+                                attn_spec(cfg))
+            nc.update(kv)
+        else:
+            y, (k, v) = (tp.attn_train if tp.is_split(p["attn"])
+                         else attn_train)(p["attn"], h, positions,
+                                          attn_spec(cfg))
+            if mode == "prefill":
+                nc["k"] = _prefill_write(c["k"], k)
+                nc["v"] = _prefill_write(c["v"], v)
+    elif spec.kind == LayerKind.MAMBA:
+        y, st = (tp.mamba_apply if tp.is_split(p["mix"])
+                 else mamba_apply)(p["mix"], h,
+                                   state=c if mode == "decode" else None)
+        if mode in ("prefill", "decode"):
+            nc.update({"conv": st["conv"].to(c["conv"].dtype),
+                       "ssm": st["ssm"]})
+    else:  # RWKV
+        y, st = (tp.rwkv_apply if tp.is_split(p["mix"])
+                 else rwkv_apply)(p["mix"], h,
+                                  state={"S": c["S"], "last": c["last"]}
+                                  if mode == "decode" else None)
+        if mode in ("prefill", "decode"):
+            nc.update({"S": st["S"], "last": st["last"].to(x.dtype)})
+    x = x + y
+
+    if cfg.cross_attention:
+        hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        cspec = attn_spec(cfg, cross=True)
+        if mode == "decode":
+            yx = _cross_decode(p["cross"], hx, c["ck"], c["cv"], cspec)
+            nc["ck"], nc["cv"] = c["ck"], c["cv"]
+        else:
+            yx, (ck, cv) = (tp.cross_attn if tp.is_split(p["cross"])
+                            else cross_attn)(p["cross"], hx, positions,
+                                             cspec, memory, memory_pos)
+            if mode == "prefill":
+                nc["ck"], nc["cv"] = (ck.to(c["ck"].dtype),
+                                      cv.to(c["cv"].dtype))
+        x = x + yx
+    return x, nc
+
+
+def _ffn(cfg: ModelConfig, spec, p, h2, c, mode, nc):
+    """A layer's MLP, MoE or RWKV channel mix on its normalised input
+    ``h2`` (a decode state written into ``nc``)."""
+    if spec.kind == LayerKind.RWKV:
+        y2, st = (tp.rwkv_ffn_apply if tp.is_split(p["ffn"])
+                  else rwkv_ffn_apply)(p["ffn"], h2,
+                                       state={"last": c["ffn_last"]}
+                                       if mode == "decode" else None)
+        if mode in ("prefill", "decode"):
+            nc["ffn_last"] = st["last"].to(h2.dtype)
+        return y2
+    if not spec.moe:
+        return (tp.mlp_apply if tp.is_split(p["ffn"])
+                else mlp_apply)(p["ffn"], h2, cfg.act)
+    if cfg.moe_dispatch == "sorted":   # whole: rows sort together
+        return moe_apply_sorted(p["ffn"], h2, **_sorted_kw(cfg))
+    return (tp.moe_apply if tp.is_split(p["ffn"])
+            else moe_apply)(p["ffn"], h2, top_k=cfg.experts_per_token,
+                            act=cfg.act)
 
 
 def _prefill_write(cache_leaf, new):
@@ -390,19 +430,15 @@ def _run_stack(cfg, params, x, positions, cache, mode, memory=None,
                memory_pos=None, pos=None):
     """The periods in order.  In mode ``train`` with autograd recording,
     each period is recomputed in the backward pass (and so are the
-    recurrences' time chunks inside it); on a data row's view the
-    recomputation runs to the period's end, so each gathers (and books)
-    what its forward did."""
+    recurrences' time chunks inside it)."""
     remat = mode == "train" and _records(x, params)
-    row = isinstance(tp.first_leaf(params["blocks"]), tp.RowLeaf)
     for i in range(cfg.n_periods):
         pcache = _index(cache, i) if cache is not None else None
         args = (cfg, _index(params["blocks"], i), x, positions, pcache, mode)
         kw = dict(memory=memory, memory_pos=memory_pos, pos=pos)
         if remat:
-            with set_checkpoint_early_stop(not row):
-                x, nc = checkpoint(_apply_period, *args, use_reentrant=False,
-                                   preserve_rng_state=False, **kw)
+            x, nc = checkpoint(_apply_period, *args, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
         else:
             x, nc = _apply_period(*args, **kw)
         if pcache is not None:
@@ -449,6 +485,11 @@ def hidden_states(cfg: ModelConfig, params, tokens: torch.Tensor,
     positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
     x, _ = _run_stack(cfg, params, x, positions, None, "train",
                       memory=memory, memory_pos=memory_pos)
+    return _final(cfg, params, x, n_prefix)
+
+
+def _final(cfg, params, x, n_prefix: int):
+    """The final norm, the prefix rows cut."""
     x = rms_norm(x, tp.whole(params["final_ln"]), cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:, :]
@@ -478,6 +519,30 @@ def loss_fn(cfg: ModelConfig, params, tokens: torch.Tensor,
     """
     x = hidden_states(cfg, params, tokens, frontend)
     return head_loss(cfg, params, x, labels)
+
+
+def row_losses(cfg: ModelConfig, trees: list, batches: list) -> list:
+    """``loss_fn`` of each data row's slice of one microbatch (``trees``:
+    the rows' views, :func:`~repro_torch.models.tensor_parallel.micro_view`;
+    ``batches``: their slices, ``tokens``, ``labels`` and perhaps
+    ``frontend``).  Each row embeds, encodes and takes its loss alone; the
+    stack runs every row a period at a time, each period under one
+    ``checkpoint`` (recomputed to its end), so a sorted MoE dispatch sees
+    the whole microbatch (:func:`_apply_period_rows`)."""
+    ins = [_inputs(cfg, t, b["tokens"], b.get("frontend"))
+           for t, b in zip(trees, batches)]
+    xs = [i[0] for i in ins]
+    positions = [torch.arange(x.shape[1], dtype=torch.int64,
+                              device=x.device) for x in xs]
+    memories = [(i[1], i[2]) for i in ins]
+    for k in range(cfg.n_periods):
+        with set_checkpoint_early_stop(False):
+            xs = checkpoint(_apply_period_rows, cfg,
+                            [_index(t["blocks"], k) for t in trees], xs,
+                            positions, memories, use_reentrant=False,
+                            preserve_rng_state=False)
+    return [head_loss(cfg, t, _final(cfg, t, x, i[3]), b["labels"])
+            for t, x, i, b in zip(trees, xs, ins, batches)]
 
 
 def head_loss(cfg: ModelConfig, params, x: torch.Tensor,

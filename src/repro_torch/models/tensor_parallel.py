@@ -2,11 +2,19 @@
 where they are used, and every family's products split over ``model``.
 
 The mesh train step (:mod:`repro_torch.training.train_step`) runs
-:func:`~repro_torch.models.lm.loss_fn` once for each (microbatch, data
-row) on :func:`row_view`'s tree, whose leaves are :class:`RowLeaf`\\s of
-the state's :class:`~repro_torch.core.layout.Sharded` leaves.  Nothing is
-gathered up front.  A leaf is fetched where the model uses it: a period's
-leaves inside the period (which runs under ``checkpoint``, so the
+:func:`~repro_torch.models.lm.row_losses` on :func:`micro_view`'s trees,
+one for each data row, whose leaves are :class:`RowLeaf`\\s of the
+state's :class:`~repro_torch.core.layout.Sharded` leaves.  Where the rows
+of a microbatch do not couple, each row is a :class:`Micro` of its own
+and runs alone.  Where they do (:func:`couples`: a sorted-dispatch MoE
+layer, whose capacity and drops are the whole microbatch's, as in JAX's
+one function of the microbatch), the microbatch's rows share one
+:class:`Micro` and run through the stack together, a period at a time:
+every sublayer runs each row's slice on its own positions with the calls
+it makes alone, and :func:`moe_apply_sorted` runs once over the rows.
+Nothing is gathered up front.  A leaf is fetched where the model uses
+it: a period's leaves inside the period (which runs under
+``checkpoint``, so the
 backward pass fetches them again and no fetched leaf is saved for it),
 the embedding for the lookup, the head for the loss; an encoder layer
 inside the encoder, which runs outside the periods' checkpoints (as JAX's
@@ -46,8 +54,17 @@ rules), position ``(r, m)`` computes with its slices:
 * the MoE (dense dispatch; :func:`moe_apply`): each expert's ``d_ff``
   slice, the experts over the data axes (EP) or ``d`` over them (FSDP)
   gathered; the routing once on the row's first position, ``combine``
-  sent out; the sorted dispatch (``moe_dispatch="sorted"``, which no
-  registry config sets) runs whole;
+  sent out;
+* the sorted MoE dispatch (``moe_dispatch="sorted"``, which no registry
+  config sets; :func:`moe_apply_sorted`): each row routes its tokens on
+  its first position, the keep decision is the microbatch's stable sort
+  (each row hands the next its per-expert counts, booked as ``routes``),
+  made by the forward pass and taken again by the recomputation; each
+  position runs the ``(E, C, ff)`` products of its row's kept
+  assignments on its ``d_ff`` slice (fetched as the dense dispatch's),
+  each assignment's partial output summed on the row's first position,
+  the combine there (whole on the row's first position where ``d_ff``
+  does not split);
 * the Mamba mixer (:func:`mamba_apply`): ``d_inner`` (where ``model``
   divides it): each position's channels through the conv and the scan;
   ``x_proj``'s partial products summed and sent back;
@@ -71,9 +88,10 @@ f32 in position order (no atomics) and cast once to the model dtype (the
 MoE's partials come back in f32); the backward pass sends the output's
 gradient out and sums the input's gradients back the same way.  These
 copies, with the tokens, labels, positions, the MoE's ``combine``, the
-mixer's ``x_proj`` partials and their sum, the channel mix's ``rr``
-slices, the encoder memory and its gradient, and the loss's per-slice
-``logsumexp`` and gold logits, are booked as ``model``.  A VLM's stack
+sorted dispatch's slots and per-assignment partials, the mixer's
+``x_proj`` partials and their sum, the channel mix's ``rr`` slices, the
+encoder memory and its gradient, and the loss's per-slice ``logsumexp``
+and gold logits, are booked as ``model``.  A VLM's stack
 runs on its patch rows and its text, so its sublayers' copies count both.
 A position on the row's first device copies nothing (a view) and is still
 booked between positions.  The split forms run in train mode only: a
@@ -95,15 +113,17 @@ from repro_torch.models.attention import attn_train as _attn_train
 from repro_torch.models.attention import cross_attn as _cross_attn
 from repro_torch.models.config import LayerKind, LayerSpec
 from repro_torch.models.layers import mlp_apply as _mlp_apply
-from repro_torch.models.layers import (moe_chunks, moe_expert, moe_route,
-                                       torch_dtype)
+from repro_torch.models.layers import (act_fn, moe_capacity, moe_chunks,
+                                       moe_expert, moe_route,
+                                       moe_sorted_chunks, torch_dtype)
 from repro_torch.models.rwkv import channel_mix, shift, time_mix
 from repro_torch.models.ssm import mamba_conv, mamba_scan
 
-__all__ = ["SPLIT_FAMILIES", "RowLeaf", "Row", "row_view", "first_leaf",
-           "whole", "splits", "materialize", "materialize_encoder",
-           "splits_vocab", "is_split", "attn_train", "cross_attn",
-           "mlp_apply", "moe_apply", "mamba_apply", "rwkv_apply",
+__all__ = ["SPLIT_FAMILIES", "RowLeaf", "Row", "Micro", "row_view",
+           "micro_view", "couples", "first_leaf", "whole", "splits",
+           "materialize", "materialize_encoder", "splits_vocab", "is_split",
+           "attn_train", "cross_attn", "mlp_apply", "moe_apply",
+           "moe_apply_sorted", "mamba_apply", "rwkv_apply",
            "rwkv_ffn_apply", "vocab_lookup", "vocab_head_loss",
            "fetch_moves", "row_moves"]
 
@@ -274,16 +294,31 @@ class _Collect(torch.autograd.Function):
         return (None, None, *outs)
 
 
+class Micro:
+    """The data rows that compute one microbatch together
+    (:func:`micro_view`): ``rows`` in row order, the lock their move
+    counts share (the backward pass runs a thread a device), and
+    ``routes``, the sorted MoE dispatch's decisions ``{(router leaf,
+    period, chunk): [(idx, keep, dst) a row]}`` (:func:`moe_apply_sorted`):
+    made by the forward pass, taken again by the period's recomputation.
+    A view serves one forward pass and its recomputation."""
+
+    def __init__(self):
+        self.rows: list = []
+        self.lock = threading.Lock()
+        self.routes: dict = {}
+
+
 class Row:
     """One data row of a mesh for one (microbatch, row) slice: its
     positions along ``model`` (``ks``, indices in position order, the
     row's first position first), their devices, whether its products
-    split (:func:`splits`), the sinks, and the
-    step's move counts (``stats``: ``{"gather": MoveStats, "model":
-    MoveStats}``, shared by the rows; a lock guards them against the
-    backward pass's device threads)."""
+    split (:func:`splits`), the sinks, the :class:`Micro` it belongs to,
+    and the step's move counts (``stats``: ``{"gather": MoveStats,
+    "model": MoveStats, ...}``, shared by the rows; the micro's lock
+    guards them against the backward pass's device threads)."""
 
-    def __init__(self, cfg, mesh, first, stats: dict):
+    def __init__(self, cfg, mesh, first, stats: dict, micro=None):
         pos = mesh.positions()
         axes = mesh.axis_names
         M = mesh.shape["model"] if "model" in axes else 1
@@ -297,7 +332,9 @@ class Row:
         self.home = self.devs[0]
         self.split = splits(cfg, M)
         self.stats = stats
-        self.lock = threading.Lock()
+        self.micro = Micro() if micro is None else micro
+        self.micro.rows.append(self)
+        self.lock = self.micro.lock
         self.sinks: dict = {}
 
     # -- moves -----------------------------------------------------------
@@ -392,8 +429,6 @@ class RowLeaf:
     """A :class:`Sharded` leaf (``k``-th of the tree; ``period`` of a
     stacked one) as a data row uses it."""
 
-    requires_grad = True
-
     def __init__(self, row: Row, s: Sharded, k: int, period=None):
         self.row, self.s, self.k, self.period = row, s, k, period
 
@@ -433,15 +468,25 @@ class RowLeaf:
         return sh.block(pos, self.s.ndim)[d + self.off] * n
 
 
-def row_view(cfg, params, first, stats: dict) -> tuple:
+def row_view(cfg, params, first, stats: dict, micro=None) -> tuple:
     """``(tree, row)``: ``params`` (a tree of :class:`Sharded` leaves) as
-    the data row whose first position is ``first`` uses it."""
+    the data row whose first position is ``first`` uses it (``micro``:
+    the :class:`Micro` it joins, else one of its own)."""
     from repro_torch.training.tree import leaves, unflatten
 
     ls = leaves(params)
-    row = Row(cfg, ls[0].mesh, first, stats)
+    row = Row(cfg, ls[0].mesh, first, stats, micro)
     return unflatten(params, [RowLeaf(row, s, k)
                               for k, s in enumerate(ls)]), row
+
+
+def micro_view(cfg, params, firsts, stats: dict) -> tuple:
+    """``(trees, micro)``: :func:`row_view` of each data row whose first
+    position is in ``firsts`` (in order), the rows of one
+    :class:`Micro`, their counts in ``stats``."""
+    micro = Micro()
+    trees = [row_view(cfg, params, c, stats, micro)[0] for c in firsts]
+    return trees, micro
 
 
 def first_leaf(tree):
@@ -479,11 +524,11 @@ def _mlp_splits(mdim) -> bool:
             and mdim("w_gate") in (1, "absent"))
 
 
-def _moe_splits(cfg, mdim) -> bool:
+def _moe_splits(mdim) -> bool:
     """The experts' ``d_ff`` over ``model`` (``w_up``/``w_gate`` ``(E, d,
-    ff)``, ``w_down`` ``(E, ff, d)``), the dense dispatch only."""
-    return (cfg.moe_dispatch != "sorted" and mdim("w_up") == 2
-            and mdim("w_down") == 1 and mdim("w_gate") in (2, "absent"))
+    ff)``, ``w_down`` ``(E, ff, d)``), either dispatch."""
+    return (mdim("w_up") == 2 and mdim("w_down") == 1
+            and mdim("w_gate") in (2, "absent"))
 
 
 # the Mamba mixer's leaves and the dim of each that holds d_inner
@@ -515,9 +560,15 @@ def _cmix_splits(mdim) -> bool:
 
 
 _WHOLE = {"attn": None, "ffn": False, "moe": False, "mix": False,
-          "rwkv": False, "cmix": False, "cross": None}
+          "rwkv": False, "cmix": False, "cross": None, "sorted": None}
 # an encoder layer: attention and a dense MLP
 _ENCODER = LayerSpec(LayerKind.ATTN, moe=False)
+
+
+def couples(cfg) -> bool:
+    """Whether a microbatch's data rows couple: a sorted-dispatch MoE
+    layer, whose capacity and drops are the whole microbatch's."""
+    return cfg.moe_dispatch == "sorted" and any(s.moe for s in cfg.period())
 
 
 def splits(cfg, M: int) -> bool:
@@ -529,33 +580,40 @@ def splits(cfg, M: int) -> bool:
 
 def _sublayer_modes(cfg, M: int, spec, layer_mdim) -> dict:
     """``{"attn": mode, "ffn", "moe", "mix", "rwkv", "cmix": bool,
-    "cross": mode}`` of one layer (``spec``: its
+    "cross": mode, "sorted": mode}`` of one layer (``spec``: its
     :class:`~repro_torch.models.config.LayerSpec`; an encoder layer's
-    is :data:`_ENCODER`) of a family that :func:`splits`
-    (``layer_mdim(sub, name)``: the model dim, ``"absent"`` for a leaf
-    the layer does not have): attention, the dense MLP, the MoE, the
-    Mamba mixer, RWKV's time mix and channel mix, the cross-attention."""
+    is :data:`_ENCODER`) (``layer_mdim(sub, name)``: the model dim,
+    ``"absent"`` for a leaf the layer does not have): attention, the
+    dense MLP, the MoE (dense dispatch), the Mamba mixer, RWKV's time mix
+    and channel mix, the cross-attention, split where the family
+    :func:`splits`; the sorted MoE dispatch (``"sorted"``) always runs as
+    :func:`moe_apply_sorted` on a row (its sort is the microbatch's),
+    ``"part"`` where the experts' ``d_ff`` splits, else ``"whole"``."""
+    sort = spec.moe and cfg.moe_dispatch == "sorted"
     if not splits(cfg, M):
-        return _WHOLE
+        return dict(_WHOLE, sorted="whole" if sort else None)
     ffn = functools.partial(layer_mdim, "ffn")
     mix = functools.partial(layer_mdim, "mix")
     rwkv = spec.kind == LayerKind.RWKV
+    moe = spec.moe and _moe_splits(ffn)
     return {"attn": _attn_mode(cfg.n_heads, cfg.n_kv_heads, M,
                                functools.partial(layer_mdim, "attn")),
             "ffn": not spec.moe and not rwkv and _mlp_splits(ffn),
-            "moe": spec.moe and _moe_splits(cfg, ffn),
+            "moe": moe and not sort,
             "mix": not rwkv and _mix_splits(cfg, M, mix),
             "rwkv": rwkv and _rwkv_splits(cfg, M, mix),
             "cmix": rwkv and _cmix_splits(ffn),
             "cross": _attn_mode(cfg.n_heads, cfg.n_kv_heads, M,
-                                functools.partial(layer_mdim, "cross"))}
+                                functools.partial(layer_mdim, "cross")),
+            "sorted": ("part" if moe else "whole") if sort else None}
 
 
 @dataclasses.dataclass
 class _Split:
     """A sublayer whose products split over ``model``: its leaves
     (:class:`RowLeaf`), ``mode`` as :func:`_attn_mode` gives it for
-    attention and cross-attention."""
+    attention and cross-attention, as :func:`_sublayer_modes` gives
+    ``"sorted"`` for the sorted MoE dispatch."""
 
     row: Row
     p: dict
@@ -577,25 +635,28 @@ def _materialize_layer(row: Row, layer: dict, modes: dict) -> dict:
     """One layer's sublayers: split where ``modes`` split them, every
     other leaf fetched whole."""
     split = {"attn": modes["attn"], "cross": modes["cross"],
-             "ffn": modes["ffn"] or modes["moe"] or modes["cmix"],
+             "ffn": (modes["ffn"] or modes["moe"] or modes["cmix"]
+                     or modes["sorted"]),
              "mix": modes["mix"] or modes["rwkv"]}
+    mode = {"attn": modes["attn"], "cross": modes["cross"],
+            "ffn": modes["sorted"]}
     out = {}
     for sub, tree in layer.items():
         if split.get(sub):
-            out[sub] = _Split(row, tree, modes[sub] if sub in ("attn", "cross")
-                              else None)
+            out[sub] = _Split(row, tree, mode.get(sub))
         else:
             out[sub] = whole(tree)
     return out
 
 
 def materialize(cfg, pparams):
-    """One period's leaves as ``_apply_period`` runs them, fetched here
+    """One period's leaves as ``_apply_period_rows`` runs them, fetched here
     (inside the period): a row's attention, dense MLP, MoE, Mamba mixer,
     RWKV time and channel mix and cross-attention as split sublayers
     (:func:`attn_train`, :func:`mlp_apply`, :func:`moe_apply`,
     :func:`mamba_apply`, :func:`rwkv_apply`, :func:`rwkv_ffn_apply`,
-    :func:`cross_attn`) where :func:`_sublayer_modes` splits them, every
+    :func:`cross_attn`) where :func:`_sublayer_modes` splits them, the
+    sorted MoE dispatch as :func:`moe_apply_sorted`'s sublayer, every
     other leaf whole.  Tensors pass through."""
     sample = first_leaf(pparams)
     if not isinstance(sample, RowLeaf):
@@ -714,6 +775,129 @@ def moe_apply(sp: _Split, x, *, top_k: int, act: str):
             outs.append(ob)
         parts.append(outs[0] if len(outs) == 1 else torch.cat(outs, 1))
     return row.reduce(parts, x.dtype)
+
+
+def _sort_routes(rows: list, logits: list, top_k: int, E: int,
+                 C: int) -> list:
+    """Each row's ``(idx, keep, dst)`` for one chunk of the sorted
+    dispatch (``logits``: each row's router logits ``(n, E)``, f32): its
+    tokens' top-k experts ``(n, k)``, whether each assignment (flat ``(n,
+    k)`` order) is kept, and its slot in an ``(E C + 1)``-row buffer
+    (``E C``: dropped).  An assignment's rank within its expert is its
+    place in the microbatch's stable sort by expert over the flat
+    ``(row, b, s, k)`` order, as JAX's ``_moe_sorted_block`` sorts: the
+    row's own stable sort plus the assignments of that expert in the rows
+    before it; each row hands the next those counts (``E`` int64s, booked
+    as ``routes``), the only bytes that cross data rows.  Kept where the
+    rank is below ``C``."""
+    out = []
+    with torch.no_grad():
+        before = torch.zeros(E, dtype=torch.int64, device=rows[0].home)
+        for r, (row, lg) in enumerate(zip(rows, logits)):
+            if r:
+                n = before.numel() * before.element_size()
+                prev = rows[r - 1].home
+                row._book("routes", MoveStats(n, n if prev != row.home
+                                              else 0))
+                before = before.to(row.home)
+            idx = torch.topk(lg, top_k, dim=-1).indices
+            flat = idx.reshape(-1)
+            order = torch.argsort(flat, stable=True)
+            se = flat[order]
+            rank = before[se] + (torch.arange(se.numel(), device=se.device)
+                                 - torch.searchsorted(se, se, side="left"))
+            dst = torch.empty_like(se)
+            dst[order] = torch.where(rank < C, se * C + rank, E * C)
+            out.append((idx, dst < E * C, dst))
+            before = before + torch.bincount(flat, minlength=E)
+    return out
+
+
+def _sorted_experts(row: Row, experts: list, x, dst, E: int, C: int,
+                    top_k: int, act: str):
+    """Every assignment's expert output ``(n k, d)`` in ``x``'s dtype
+    (dropped: 0) for one row's chunk ``x`` ``(n, d)``: each position of
+    ``experts`` (one a position: its ``d_ff`` slice of every expert, or
+    one whole set) packs the row's kept assignments into the ``(E, C,
+    d)`` buffer at their slots ``dst``, runs the ``(E, C, ff)`` products
+    on its slice and picks each assignment's row; the partials are summed
+    on the row's first position (f32 in position order, cast once)."""
+    n, d = x.shape
+    split = len(experts) > 1
+    xs = row.broadcast(x) if split else (x,)
+    parts = []
+    for m, p in enumerate(experts):
+        at = row.send(dst, m)
+        disp = torch.zeros((E * C + 1, d), dtype=x.dtype, device=at.device)
+        disp[at] = xs[m][:, None, :].expand(n, top_k, d).reshape(-1, d)
+        disp = disp[:E * C].reshape(E, C, d)
+        up = torch.einsum("ecd,edf->ecf", disp, p["w_up"])
+        if "w_gate" in p:
+            up = up * act_fn(act)(torch.einsum("ecd,edf->ecf", disp,
+                                               p["w_gate"]))
+        else:
+            up = act_fn(act)(up)
+        y = torch.einsum("ecf,efd->ecd", up, p["w_down"]).reshape(E * C, d)
+        # index_select: its backward adds each kept row's one gradient
+        # (the dropped ones' zeros go to the cut row) in parallel
+        parts.append(torch.cat([y, y.new_zeros((1, d))]).index_select(0, at))
+    return row.reduce(parts) if split else parts[0]
+
+
+def moe_apply_sorted(sps: list, xs: list, *, top_k: int, act: str,
+                     capacity_factor: float = 1.25) -> list:
+    """``moe_apply_sorted`` over one microbatch whose data rows hold its
+    slices (``sps``: each row's sorted-dispatch sublayer, in the
+    :class:`Micro`'s row order; ``xs``: each row's ``(b, S, d)`` slice),
+    as JAX's ``_moe_sorted_block`` computes it over the whole microbatch.
+    Per chunk (:func:`~repro_torch.models.layers.moe_sorted_chunks`):
+    each row's router (whole on its first position) in f32, ``top_k``
+    and the softmax of the top-k logits; the capacity ``C`` from the
+    microbatch's ``N`` tokens in the chunk; the keep decision from the
+    microbatch's stable sort (:func:`_sort_routes`), made once by the
+    forward pass and taken again by the period's recomputation (the
+    :class:`Micro`'s ``routes``), so both see one set of kept
+    assignments.  Each row computes its own tokens' kept assignments
+    (:func:`_sorted_experts`): where the experts' ``d_ff`` splits
+    (``mode`` ``"part"``) each position its slice, as JAX pins
+    ``up`` over ``model``, the experts over the data axes (EP) or ``d``
+    over them (FSDP) gathered; else whole on the row's first position.
+    The combine adds each token's ``top_k`` contributions in rank order
+    from zero, as the whole form does.  Returns each row's output."""
+    rows = [sp.row for sp in sps]
+    micro = rows[0].micro
+    b, S, d = xs[0].shape
+    router = sps[0].p["router"]
+    E = router.s.shape[-1]
+    chunks = moe_sorted_chunks(S)
+    C = moe_capacity(capacity_factor, len(xs) * b * (chunks[0][1]
+                                                     - chunks[0][0]),
+                     top_k, E)
+    routers = [sp.p["router"].whole() for sp in sps]
+    experts = [[{k: v.part(m) for k, v in sp.p.items() if k != "router"}
+                for m in range(sp.row.M)] if sp.mode == "part"
+               else [{k: v.whole() for k, v in sp.p.items()
+                      if k != "router"}] for sp in sps]
+    outs = [[] for _ in xs]
+    for c, (lo, hi) in enumerate(chunks):
+        xcs = [x[:, lo:hi].reshape(-1, d) for x in xs]
+        logits = [xc.float() @ w for xc, w in zip(xcs, routers)]
+        key = (router.k, router.period, c)
+        if key not in micro.routes:
+            micro.routes[key] = _sort_routes(rows, logits, top_k, E, C)
+        for r, (xc, lg) in enumerate(zip(xcs, logits)):
+            idx, keep, dst = micro.routes[key][r]
+            w = torch.softmax(lg.gather(-1, idx), dim=-1).to(xc.dtype)
+            y = _sorted_experts(rows[r], experts[r], xc, dst, E, C, top_k,
+                                act)
+            contrib = torch.where(keep[:, None], y * w.reshape(-1, 1),
+                                  0.0).to(xc.dtype).reshape(-1, top_k, d)
+            out = torch.zeros((xc.shape[0], d), dtype=xc.dtype,
+                              device=xc.device)
+            for j in range(top_k):
+                out = out + contrib[:, j]
+            outs[r].append(out.reshape(b, hi - lo, d))
+    return [o[0] if len(o) == 1 else torch.cat(o, 1) for o in outs]
 
 
 def mamba_apply(sp: _Split, x, state=None):
@@ -889,8 +1073,11 @@ def _uses(cfg, M: int, modes: dict, sub: str, name: str) -> list:
         kv_whole = modes[sub] == "pick" and name in ("wk", "wv")
         part = name in _ATTN_PARTS and not kv_whole
         return [(m, part, None) for m in every]
-    if sub == "ffn" and modes["moe"] and name == "router":
+    if sub == "ffn" and (modes["moe"] or modes["sorted"]) and (
+            name == "router" or modes["sorted"] == "whole"):
         return [(0, False, None)]
+    if sub == "ffn" and modes["sorted"]:
+        return [(m, True, None) for m in every]
     if sub == "ffn" and modes["cmix"]:
         if name == "wv":    # the rows of d_ff that pair with kk's slice
             f = cfg.d_ff // M
@@ -961,8 +1148,9 @@ def row_moves(cfg, params, shardings, first, devs, batch: int,
             return mdim_of(path) if path in by_path else "absent"
 
         modes = _sublayer_modes(cfg, M, spec, lmdim)
-        for sub in n_split:
-            n_split[sub] += bool(modes[sub]) * count
+        for sub in n_split:   # the sorted dispatch's copies: "part" only
+            n_split[sub] += bool(modes[sub] not in (None, False, "whole")
+                                 ) * count
         n = len(layer) + 1
         for k, path in enumerate(paths):
             if path[0] == prefix and path[1:n] == layer:
@@ -1010,8 +1198,12 @@ def row_moves(cfg, params, shardings, first, devs, batch: int,
     # mixer also takes x_proj's partials back and sends their sum out;
     # the channel mix also takes each slice of rr back; the
     # cross-attention also sends the memory out and takes its gradient
-    # back, and sends the memory's positions
+    # back, and sends the memory's positions; the sorted MoE dispatch
+    # sends the input out and each assignment's slot (int64), and takes
+    # each assignment's partial output (n k rows) back
     comb = T * cfg.n_experts * e
+    assign = T * cfg.experts_per_token
+    sort = 3 * act + 2 * assign * i64 + 3 * assign * cfg.d_model * e
     dt_rank = max(1, math.ceil(cfg.d_model / 16))    # ssm.mamba_init's
     proj = T * (dt_rank + 2 * cfg.ssm_d_state) * e
     per = (3 * 2 * act * (n_split["attn"] + n_split["ffn"]
@@ -1020,7 +1212,8 @@ def row_moves(cfg, params, shardings, first, devs, batch: int,
            + 3 * (act + comb + T * 4 * cfg.d_model) * n_split["moe"]
            + 3 * 2 * (act + proj) * n_split["mix"]
            + 3 * (2 * act + act // M) * n_split["cmix"]
-           + (3 * (2 * act + mem) + 2 * (S + F) * i64) * n_split["cross"])
+           + (3 * (2 * act + mem) + 2 * (S + F) * i64) * n_split["cross"]
+           + sort * n_split["sorted"])
     # the encoder's layers: forward and backward, its positions once
     act_e = batch * F * cfg.d_model * e
     per += (2 * 2 * act_e * (n_enc["attn"] + n_enc["ffn"])

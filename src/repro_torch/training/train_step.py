@@ -23,7 +23,12 @@ along a dropped axis would hold the same slice, as JAX's replicated batch
 dim does: each distinct slice runs once, on the row of the lowest index,
 and the other rows compute nothing (their shards are fetched as any
 shard is).  Each (microbatch, row) slice runs on the row's view of the
-state (:mod:`repro_torch.models.tensor_parallel`): no row holds the
+state (:mod:`repro_torch.models.tensor_parallel`) through
+``lm.row_losses``, one row after another (launch for launch as the row
+alone) or, where the microbatch's rows couple (a sorted-dispatch MoE
+layer: ``tp.couples``), all of the microbatch's rows together a period
+at a time, the sorted dispatch's capacity and drops the microbatch's:
+no row holds the
 parameters gathered at once; each period gathers its leaves inside the
 period (and again in the backward pass), the encoder's once, the
 embedding and head where they are used, and every family's attention,
@@ -32,11 +37,16 @@ vocabulary compute on each ``model`` position's slice where ``model``
 divides them, their partial outputs summed over ``model`` in f32 in a
 fixed order.  Where nothing splits (a ``model`` axis that divides none
 of a config's products), the mesh step performs the arithmetic of the
-one-device step at ``accum * D'`` bitwise.  Each piece's gradient (a (row, position) slice) is added at
-its box into f32 buffers on the mesh's first device in a fixed order,
-microbatch outer and row inner, ``g.float() / (accum * D')`` each (no
-atomics).  The sum (compressed there, against the gathered error
-buffers, when ``compress``) gives the global norm over whole leaves, is
+one-device step at ``accum * D'`` bitwise.  The step's loss is JAX's:
+each microbatch's summed token losses over its valid labels (those not
+``MASK_LABEL``) ``N_mb``, over ``accum``; a row's loss, its own mean over
+its ``n_r`` valid labels, and its gradients weigh ``n_r / (accum
+N_mb)``, ``1 / (accum * D')`` where the rows' counts are equal.  Each
+piece's gradient (a (row, position) slice) is added at its box into f32
+buffers on the mesh's first device in a fixed order, microbatch outer
+and row inner, ``g.float() / (accum N_mb / n_r)`` each (no atomics).
+The sum (compressed there, against the gathered error buffers, when
+``compress``) gives the global norm over whole leaves, is
 scattered to ``grad_shardings`` (default: the parameters' shardings;
 JAX's meaning: where the reduced gradient lives before the update), and
 AdamW updates each shard on its own device.  Only a batch that ``accum``
@@ -56,7 +66,7 @@ from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models import lm
 from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MetaGenerator
+from repro_torch.models.layers import MetaGenerator, moe_sorted_chunks
 from repro_torch.models.sharding import (MoveStats, Sharded, _axsize, _fit,
                                          dp_axes, move_plan, param_shardings,
                                          reshard, shard, sharded_leaves,
@@ -86,13 +96,17 @@ class MeshStepStats(NamedTuple):
     new error buffers) to their shards, ``relayout`` the gradient from
     ``grad_shardings`` to the parameters' shardings, ``model`` the
     activations, partial outputs and their gradients between a data row's
-    positions along ``model`` (the split products' sums)."""
+    positions along ``model`` (the split products' sums), ``routes`` the
+    sorted MoE dispatch's per-expert counts each data row hands the next
+    row of its microbatch (the only bytes the microbatch's forward pass
+    sends between data rows)."""
 
     gather: MoveStats
     reduce: MoveStats
     scatter: MoveStats
     relayout: MoveStats
     model: MoveStats
+    routes: MoveStats = MoveStats()
 
 
 def data_rows(mesh: DeviceMesh) -> list[tuple[int, ...]]:
@@ -187,19 +201,24 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
         metrics = {"loss": loss_val, "grad_norm": gnorm, "step": opt.step}
         return TrainState(params, opt, err), metrics
 
-    def row_grads(tree, row, b):
-        """``(loss, [(leaf index, index, position, gradient)])`` of one
-        data row's slice ``b`` on its view ``tree``: each piece it computed
-        with, its gradient on its position's device."""
+    def slice_grads(trees, rows, slices):
+        """Each data row's ``(loss, [(leaf index, index, position,
+        gradient)])`` on its view (``trees``, ``rows``) of its slice of one
+        microbatch: each piece it computed with, its gradient on its
+        position's device.  The rows run through the stack together
+        (``lm.row_losses``; a group of one row runs alone), one backward
+        pass over their losses (no gradient crosses rows: a row's loss
+        depends on another's only through the sorted dispatch's discrete
+        keep decision)."""
         with torch.enable_grad():
-            loss = lm.loss_fn(cfg, tree, b["tokens"], b["labels"],
-                              b.get("frontend"))
-            pieces = row.pieces()
-            grads = torch.autograd.grad(loss, [p[3] for p in pieces],
-                                        allow_unused=True,
-                                        materialize_grads=True)
-        return loss.detach(), [(k, idx, q, g) for (k, idx, q, _), g
-                               in zip(pieces, grads)]
+            losses = lm.row_losses(cfg, trees, slices)
+            pieces = [row.pieces() for row in rows]
+            grads = iter(torch.autograd.grad(
+                losses, [p[3] for ps in pieces for p in ps],
+                allow_unused=True, materialize_grads=True))
+        return [(loss.detach(), [(k, idx, q, next(grads))
+                                 for k, idx, q, _ in ps])
+                for loss, ps in zip(losses, pieces)]
 
     def on_mesh(state: TrainState, batch: dict):
         p_leaves = leaves(state.params)
@@ -210,31 +229,47 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
                                accum)
         rows = data_rows(mesh)[:D]
         n = accum * D
+        # each slice's valid labels: a row's mean over its own n_r labels
+        # weighs S_r / n_r * n_r / (accum N_mb), JAX's S_r / N_mb / accum
+        # (N_mb the microbatch's count); 1 / n where the counts are equal
+        valid = (batch["labels"] != lm.MASK_LABEL).reshape(n, -1).sum(-1)
+        valid = valid.tolist()
         # f32 buffers for a sum, allocated before the first slice runs; a
         # single slice's pieces in the parameters' dtype
         grads = [torch.zeros(tuple(p.shape), dtype=torch.float32 if n > 1
                              else p.dtype, device=home) for p in p_leaves]
         loss_val = torch.zeros((), dtype=torch.float32, device=home)
-        booked = {"gather": MoveStats(), "model": MoveStats()}
+        booked = {"gather": MoveStats(), "model": MoveStats(),
+                  "routes": MoveStats()}
         reduce = MoveStats()
+        groups = [[c] for c in rows] if not tp.couples(cfg) else [rows]
         for i in range(accum):
-            for r, c in enumerate(rows):
-                tree, row = tp.row_view(cfg, state.params, c, booked)
-                j = i * D + r
-                loss_i, pieces = row_grads(tree, row, {
-                    k: v[j * b:(j + 1) * b].to(row.home)
-                    for k, v in batch.items()})
-                for k, idx, q, g in pieces:
-                    # a piece computed away from the first position goes
-                    # there
-                    if q:
-                        nb = g.numel() * g.element_size()
-                        reduce += MoveStats(nb, nb if devs[q] != home else 0)
-                    g = g.to(home)
-                    grads[k][idx] += g.float() / n if n > 1 else g
-                del pieces
-                loss_val = (loss_val + loss_i.to(home) / n if n > 1
-                            else loss_i.to(home))
+            n_mb = max(sum(valid[i * D:(i + 1) * D]), 1)
+            r0 = 0
+            for group in groups:
+                trees, micro = tp.micro_view(cfg, state.params, group,
+                                             booked)
+                slices = [{k: v[(i * D + r) * b:(i * D + r + 1) * b].to(
+                    row.home) for k, v in batch.items()}
+                    for r, row in enumerate(micro.rows, r0)]
+                results = slice_grads(trees, micro.rows, slices)
+                del trees, micro, slices
+                for r, (loss_i, pieces) in enumerate(results, r0):
+                    nr = valid[i * D + r]
+                    w = accum * n_mb / nr if nr else math.inf
+                    for k, idx, q, g in pieces:
+                        # a piece computed away from the first position
+                        # goes there
+                        if q:
+                            nb = g.numel() * g.element_size()
+                            reduce += MoveStats(nb, nb if devs[q] != home
+                                                else 0)
+                        g = g.to(home)
+                        grads[k][idx] += g.float() / w if n > 1 else g
+                    loss_val = (loss_val + loss_i.to(home) / w if n > 1
+                                else loss_i.to(home))
+                del results
+                r0 += len(group)
         grads = unflatten(state.params, grads)
         scatter = MoveStats()
         err = state.err
@@ -264,7 +299,8 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
                                       state.opt, state.params, gnorm)
         metrics = {"loss": loss_val, "grad_norm": gnorm, "step": opt.step,
                    "moved": MeshStepStats(booked["gather"], reduce, scatter,
-                                          relayout, booked["model"])}
+                                          relayout, booked["model"],
+                                          booked["routes"])}
         return TrainState(params, opt, err), metrics
 
     def train_step(state: TrainState, batch: dict):
@@ -327,7 +363,18 @@ def mesh_step_moves(cfg: ModelConfig, mesh: DeviceMesh, accum: int,
             out += MoveStats((len(pos) - 1) * n, off * n)
         return out
 
-    gather = model = reduce = MoveStats()
+    gather = model = reduce = routes = MoveStats()
+    if tp.couples(cfg):
+        # each sorted MoE layer's chunk, in each microbatch's forward pass:
+        # a data row's per-expert counts (int64) to the next row
+        S = seq_len + (cfg.frontend_len if cfg.frontend == "vision_stub"
+                       else 0)
+        n = (accum * cfg.n_periods * sum(s.moe for s in cfg.period())
+             * len(moe_sorted_chunks(S)))
+        nb = cfg.n_experts * torch.int64.itemsize
+        homes = [devs[pos.index(c)] for c in rows]
+        for a, h in zip(homes, homes[1:]):
+            routes += times(MoveStats(nb, nb if a != h else 0), n)
     for c in rows:
         g, mo, pieces = tp.row_moves(cfg, params, shardings, c, devs, b,
                                      seq_len)
@@ -358,7 +405,7 @@ def mesh_step_moves(cfg: ModelConfig, mesh: DeviceMesh, accum: int,
             if ks != kd:
                 n = math.prod(hi - lo for lo, hi in piece) * item
                 relayout += MoveStats(n, n if devs[ks] != devs[kd] else 0)
-    return MeshStepStats(gather, reduce, scatter, relayout, model)
+    return MeshStepStats(gather, reduce, scatter, relayout, model, routes)
 
 
 def init_state(cfg: ModelConfig, optimizer: AdamW, gen: torch.Generator,

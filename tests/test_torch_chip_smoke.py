@@ -1370,7 +1370,7 @@ def test_moe_whole_moves_are_the_whole_product_schedule(monkeypatch):
     assert got == {
         "gather": [5_200_936_960, 0], "reduce": [5_470_445_568, 0],
         "scatter": [6_391_676_928, 0], "relayout": [0, 0],
-        "model": [3_828_252_672, 0]}
+        "model": [3_828_252_672, 0], "routes": [0, 0]}
     assert got["gather"][0] < chip_smoke.MOE_WHOLE_MOVES["gather"][0]
     monkeypatch.setattr(tp, "SPLIT_FAMILIES", ("dense",))
     assert chip_smoke.composed_18e_moves() == chip_smoke.MOE_WHOLE_MOVES
@@ -1478,6 +1478,92 @@ def test_phase18e_on_the_cpu(monkeypatch, capsys):
     assert out["moved"] == chip_smoke.composed_18e_moves()
     assert out["moved"]["model"][0] > 0
     assert "tokens whose routes differ 0 of" in capsys.readouterr().out
+
+
+def test_phase18h_cuts_keep_the_widths():
+    """18h: 18e's phi3.5-moe cut (published widths, one layer) with the
+    sorted dispatch at capacity factor 1.0, 2 x 4096 (two 2048-position
+    chunks, C 512 each), row 0's labels masked from 2048."""
+    cfg = chip_smoke.sorted_mesh_config()
+    assert cfg == dataclasses.replace(chip_smoke.moe_mesh_config(),
+                                      moe_dispatch="sorted",
+                                      moe_capacity_factor=1.0)
+    assert (chip_smoke.SORTED_SEQ, chip_smoke.SORTED_BATCH,
+            chip_smoke.SORTED_MASK) == (4096, 2, 2048)
+    assert chip_smoke.capacity(cfg, 2 * 2048) == 512
+    assert chip_smoke.capacity(dataclasses.replace(
+        cfg, moe_capacity_factor=1.25), 2 * 2048) == 640
+    batches = chip_smoke.sorted_batches(cfg, torch.device("cpu"))
+    assert len(batches) == chip_smoke.MESH_STEPS
+    for b in batches:
+        assert tuple(b["labels"].shape) == (2, 4096)
+        assert (b["labels"][0, 2048:] == -100).all()
+        assert (b["labels"][0, :2048] != -100).all()
+        assert (b["labels"][1] != -100).all()
+
+
+def sorted_smoke(monkeypatch):
+    """18h on phi3.5-smoke cut to one layer, 2 x 32 (row 0 masked from
+    16), the card stubbed."""
+    from repro_torch.configs import registry
+    from repro_torch.models.config import validate
+
+    stub_card(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "SORTED_SEQ", 32)
+    monkeypatch.setattr(chip_smoke, "SORTED_MASK", 16)
+    monkeypatch.setattr(chip_smoke, "sorted_mesh_config", lambda: validate(
+        dataclasses.replace(registry.get_smoke_config(chip_smoke.PHI),
+                            n_layers=1, moe_dispatch="sorted",
+                            moe_capacity_factor=1.0)))
+
+
+def test_phase18h_on_the_cpu(monkeypatch, capsys, one_thread):
+    """18h's checks at SMOKE width: the mesh step within 18b's bars of
+    the one-device step at accum 1, repeatable, its bytes the composed
+    ones (``routes`` too), assignments dropped and the kept set the
+    microbatch sort's of its own routes, the one-device step's routes
+    the mesh's."""
+    sorted_smoke(monkeypatch)
+    problems = []
+    out = chip_smoke.sorted_mesh_phase(torch, torch.device("cpu"), problems)
+    assert not problems
+    assert out["bitwise_repeat"]
+    assert max(out["rel_loss"], out["rel_grad_norm"]) <= 1e-5
+    kept = out["kept"]
+    assert kept["chunks"] == chip_smoke.MESH_STEPS
+    assert kept["assignments"] == kept["chunks"] * 2 * 32 * 2
+    assert kept["dropped"] > 0 == kept["mismatched"]
+    # top 2 of 4 experts: at least half of a row's 2 x 32 assignments
+    assert 0.5 <= kept["busiest2"][0] <= kept["busiest2"][1] <= 1.0
+    assert out["dropped_one_device"] == kept["dropped"]
+    assert out["route_flips"] == 0
+    assert out["moved"] == out["composed"]
+    # a step: one hand-off of 4 int64 counts (1 layer, 1 chunk, 2 rows)
+    assert out["moved"]["routes"] == [4 * 8, 0]
+    assert out["capacity"] == 2 * 32 * 2 // 4
+    assert "assignments dropped: the mesh" in capsys.readouterr().out
+
+
+def test_phase18h_kept_set_check_catches_a_per_row_sort(monkeypatch,
+                                                        one_thread):
+    """Each data row sorting its own assignments at its own capacity (the
+    whole sublayer on each row, as before the split): the kept set is no
+    longer the microbatch sort's, and 18h says so."""
+    from repro_torch.models import tensor_parallel as tp
+
+    sorted_smoke(monkeypatch)
+    real = tp._sort_routes
+
+    def per_row(rows, logits, top_k, E, C):
+        return [real([row], [lg], top_k, E, C // len(rows))[0]
+                for row, lg in zip(rows, logits)]
+
+    monkeypatch.setattr(tp, "_sort_routes", per_row)
+    problems = []
+    out = chip_smoke.sorted_mesh_phase(torch, torch.device("cpu"), problems)
+    assert out["kept"]["mismatched"] > 0
+    assert any("kept set is not the microbatch sort's" in p
+               for p in problems)
 
 
 def test_phase18g_cuts_keep_the_widths():
@@ -2034,7 +2120,7 @@ def test_composed_18b_moves_are_18b_s_measured_bytes(monkeypatch):
     assert got == {
         "gather": [251_658_240, 0], "reduce": [764_772_352, 0],
         "scatter": [1_309_564_928, 0], "relayout": [0, 0],
-        "model": [2_618_228_736, 0]}
+        "model": [2_618_228_736, 0], "routes": [0, 0]}
     assert got["gather"][0] < chip_smoke.MESH_WHOLE_GATHER
 
 

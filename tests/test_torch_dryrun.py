@@ -18,9 +18,12 @@ argument leaf's ``shard_shape`` times its itemsize) and the analytical
 fields.  The composed ``moves`` equal the ``MeshStepStats`` a real mesh
 train step counts (parameters gathered a period at a time, the dense, moe
 and hybrid families' products split over ``model``; a microbatch over the
-data rows ``_fit`` gives it), and at 18b's configuration of
-``chip_smoke.py`` the bytes the card measured.  Then the command line and
-``benchmarks/roofline.py``'s ``derive`` on a port record.
+data rows ``_fit`` gives it; the sorted MoE dispatch's split experts and
+its per-expert counts between a microbatch's rows, ``routes``), and at
+18b's configuration of ``chip_smoke.py`` the bytes the card measured;
+JAX's hillclimbed sorted cell (phi3.5-moe ``train_4k``) composes on both
+production meshes through ``run_cell(..., cfg=)``.  Then the command line
+and ``benchmarks/roofline.py``'s ``derive`` on a port record.
 """
 import dataclasses
 import importlib
@@ -390,6 +393,79 @@ def test_composed_moves_equal_a_real_mesh_step(arch, mesh_name, accum,
     assert str(e1.value) == str(e2.value) == (
         f"a global batch of {2 * accum * D - 1} does not split into 2 "
         f"microbatches")
+
+
+# the sorted MoE dispatch at capacity factor 1.0 (phi3.5's 4 experts
+# over the two rows' devices: EP; mixtral's over the (2, 2, 2) mesh's 4
+# data rows, a microbatch over all 4 rows)
+SORTED_MOVE_CASES = [("phi3.5-moe-42b-a6.6b", "two_devices", 2),
+                     ("phi3.5-moe-42b-a6.6b", "alternating", 1),
+                     ("mixtral-8x22b", "2x2x2", 1)]
+
+
+@pytest.mark.parametrize("arch,mesh_name,accum", SORTED_MOVE_CASES)
+def test_composed_moves_equal_a_sorted_mesh_step(arch, mesh_name, accum):
+    """A sorted-dispatch step's bytes composed from the specs equal what
+    the step counts: its split experts' gathers and ``model`` copies
+    (the input and each assignment's slot out, the partials back), and
+    ``routes``, each data row's expert counts to the next row of its
+    microbatch in each chunk's forward pass (across devices where the
+    rows' first positions are on two)."""
+    cfg = dataclasses.replace(treg.SMOKES[arch], moe_dispatch="sorted",
+                              moe_capacity_factor=1.0)
+    mesh = mesh_of(mesh_name)
+    D = len(tts.data_rows(mesh))
+    opt = topt.AdamW()
+    state = tts.init_state(cfg, opt, torch.Generator().manual_seed(0))
+    batch = tdata.batch_at(tdata.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=2 * accum * D,
+        seed=0), 0, device="cpu")
+    _, m = tts.make_train_step(cfg, opt, accum=accum)(
+        tts.shard_state(state, mesh), batch)
+    got = tts.mesh_step_moves(cfg, mesh, accum, 2 * accum * D, 16)
+    assert got == m["moved"]
+    E, n_moe = cfg.n_experts, cfg.n_layers
+    assert got.routes.positions == accum * n_moe * (D - 1) * E * 8
+    assert (got.routes.devices > 0) == (mesh_name == "two_devices")
+    dense = tts.mesh_step_moves(treg.SMOKES[arch], mesh, accum,
+                                2 * accum * D, 16)
+    assert dense.routes == MoveStats() and got.model != dense.model
+    assert (got.gather, got.reduce, got.scatter) == (
+        dense.gather, dense.reduce, dense.scatter)
+
+
+def test_composes_the_hillclimbed_sorted_cell(tmp_path):
+    """JAX's hillclimbed cell, phi3.5-moe ``train_4k`` with
+    ``moe_dispatch="sorted"`` (``benchmarks/hillclimb.py``), through
+    ``build_lowerable(..., cfg=)`` and ``run_cell(..., cfg=)`` on both
+    production meshes: the same arguments as the registry's cell; the
+    same gathers, reduce and scatter (the experts split alike), other
+    ``model`` copies, and ``routes``: 8 microbatches x 32 layers x 2
+    chunks x (D' - 1) hand-offs of 16 int64 counts, D' 16 on 16x16 (32
+    rows a microbatch), 32 on 2x16x16."""
+    from repro_torch.launch.mesh import make_production_mesh
+
+    arch = "phi3.5-moe-42b-a6.6b"
+    cfg = dataclasses.replace(treg.ARCHS[arch], moe_dispatch="sorted")
+    for kind, rows in (("single_pod", 16), ("multi_pod", 32)):
+        mesh = make_production_mesh(multi_pod=kind == "multi_pod")
+        _, args, sh, _, _ = tdry.build_lowerable(arch, "train_4k", mesh, cfg)
+        _, want_args, want_sh, _, _ = tdry.build_lowerable(arch, "train_4k",
+                                                           mesh)
+        assert (tdry.argument_bytes(args, sh)
+                == tdry.argument_bytes(want_args, want_sh))
+        rec = tdry.run_cell(arch, "train_4k", kind, str(tmp_path / "s"),
+                            cfg=cfg)
+        base = tdry.run_cell(arch, "train_4k", kind, str(tmp_path / "d"))
+        mv, mb = rec["moves"], base["moves"]
+        assert rec["status"] == "ok" and "moves_reason" not in rec
+        for k in ("gather", "reduce", "scatter", "relayout"):
+            assert mv[k] == mb[k], k
+        assert mv["model"] != mb["model"] and mb["routes"]["positions"] == 0
+        n = 8 * 32 * 2 * (rows - 1) * 16 * 8
+        assert mv["routes"] == {"positions": n, "devices": n}
+        assert (rec["analytical_flops_global"]
+                < base["analytical_flops_global"])
 
 
 def bits(t):

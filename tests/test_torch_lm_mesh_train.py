@@ -34,13 +34,20 @@ rule against JAX's one-device step too; the moments and error buffers
 as there): glm4-9b, qwen3-0.6b, starcoder2-7b (whose 6 heads do not
 split over 4 positions), mixtral-8x22b (its experts' ``d_ff`` split,
 EP), phi3.5-moe and jamba (its Mamba mixer's ``d_inner`` and its MoE
-split).  JAX's step computes the whole batch at once and the port's two
+split), and microbatches whose data rows differ: qwen3-0.6b with a
+seeded half of the first batch row's labels masked (JAX's loss divides
+the microbatch's summed losses by its valid labels), phi3.5-moe with the
+sorted dispatch at capacity factor 1.0 (its capacity and drops the
+microbatch's; the case asserts that each row's own sort would keep other
+assignments), also at 4096 positions (two chunks; a batch of 2, one
+step).  JAX's step computes the whole batch at once and the port's two
 rows' halves, so the two differ by rounding only.  Then the launcher
 (qwen3-0.6b): a mesh run resumed on the mesh is bitwise an uninterrupted
 mesh run; ``--mesh 2,4`` resumes an unsharded run's checkpoint and the
 reverse, and both, like the mesh run, are within (1)'s bar of an
 unsharded run at ``--accum 2``; a mesh with too few devices raises.
 """
+import dataclasses
 import json
 import os
 import pickle
@@ -54,7 +61,8 @@ import pytest
 import torch
 
 from repro_torch.configs import registry as treg
-from repro_torch.interop import train_state_from_numpy, train_state_to_numpy
+from repro_torch.interop import (lm_params_from_numpy, train_state_from_numpy,
+                                train_state_to_numpy)
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.mesh import make_debug_mesh, make_mesh
 from repro_torch.models.sharding import (MoveStats, NamedSharding, P,
@@ -78,9 +86,32 @@ JAX_CASES = [("glm4-9b", False), ("glm4-9b", True), ("qwen3-0.6b", False),
 # drift JAX's own accum 1 against accum 2 shows at 4.0e-3 lr
 TIGHT_ARCHS = ("qwen3-0.6b",)
 NOISE, TIGHT = 1e-3, 1e-2   # tests/test_torch_train_step.py's rule
+# microbatches whose data rows differ: a seeded half of the first batch
+# row's labels masked (the first data row then holds fewer valid labels
+# than the second); the sorted MoE dispatch at capacity factor 1.0 (its
+# capacity and drops the microbatch's), also at 4096 positions (two
+# 2048-position chunks; a batch of 2, one step)
+VARIANTS = [("qwen3-0.6b", "masked"), ("phi3.5-moe-42b-a6.6b", "sorted"),
+            ("phi3.5-moe-42b-a6.6b", "sorted_4096")]
+MASK_SEED, MASK_SHARE = 7, 0.5
+
+
+def shape_of(variant) -> tuple:
+    """``(seq_len, global batch, steps)`` of a case."""
+    return (4096, 2, 1) if variant == "sorted_4096" else (SEQ, BATCH, STEPS)
+
+
+def masked(labels, k: int):
+    """``labels`` (numpy) with a seeded share of the first batch row's
+    masked (step ``k``'s draw)."""
+    rng = np.random.default_rng([MASK_SEED, k])
+    out = labels.copy()
+    out[0, rng.random(out.shape[1]) < MASK_SHARE] = -100
+    return out
+
 
 JAX_SIDE = textwrap.dedent(f"""
-    import pickle, sys
+    import dataclasses, pickle, sys
     import jax, numpy as np
     from jax.sharding import AxisType
     from repro.configs.registry import get_smoke_config
@@ -89,15 +120,28 @@ JAX_SIDE = textwrap.dedent(f"""
     from repro.training.optimizer import AdamW, AdamWState
     from repro.training.train_step import init_state, make_train_step
 
+    def masked(labels, k):
+        rng = np.random.default_rng([{MASK_SEED}, k])
+        out = labels.copy()
+        out[0, rng.random(out.shape[1]) < {MASK_SHARE}] = -100
+        return out
+
     mesh = jax.make_mesh((2, 4), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
     set_activation_mesh(mesh)
     out = {{}}
-    for arch, compress in {JAX_CASES!r}:
+    cases = ([(a, c, None) for a, c in {JAX_CASES!r}]
+             + [(a, False, v) for a, v in {VARIANTS!r}])
+    for arch, compress, variant in cases:
         cfg = get_smoke_config(arch)
+        if variant and variant.startswith("sorted"):
+            cfg = dataclasses.replace(cfg, moe_dispatch="sorted",
+                                      moe_capacity_factor=1.0)
+        seq, batch, steps = (4096, 2, 1) if variant == "sorted_4096" else (
+            {SEQ}, {BATCH}, {STEPS})
         opt = AdamW(lr={JAX_LR})
-        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len={SEQ},
-                          global_batch={BATCH}, seed=0)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                          global_batch=batch, seed=0)
         s = init_state(cfg, opt, jax.random.key(0), compress=compress)
         init = jax.tree.map(np.asarray, s)
         p_sh = param_shardings(mesh, jax.eval_shape(lambda: s.params))
@@ -106,10 +150,14 @@ JAX_SIDE = textwrap.dedent(f"""
             step=s.opt.step, m=put(s.opt.m), v=put(s.opt.v)))
         step = jax.jit(make_train_step(cfg, opt, compress=compress))
         metrics = []
-        for k in range({STEPS}):
-            s, m = step(s, batch_at(dcfg, k))
+        for k in range(steps):
+            b = batch_at(dcfg, k)
+            if variant == "masked":
+                b = dict(b, labels=masked(np.asarray(b["labels"]), k))
+            s, m = step(s, b)
             metrics.append((float(m["loss"]), float(m["grad_norm"])))
-        out[(arch, compress)] = (init, jax.tree.map(np.asarray, s), metrics)
+        out[(arch, variant or compress)] = (
+            init, jax.tree.map(np.asarray, s), metrics)
     with open(sys.argv[1], "wb") as f:
         pickle.dump(out, f)
 """)
@@ -343,34 +391,88 @@ def test_grad_shardings_relayout_and_need_a_mesh(one_thread):
 # against JAX's sharded step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,compress", JAX_CASES)
+def keep_of(idx, E: int, C: int):
+    """The assignments of routes ``idx`` ``(N, k)`` a stable sort by
+    expert over their flat order keeps at capacity ``C`` (JAX's
+    ``_moe_sorted_block``'s rule), in that order."""
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    se = flat[order]
+    rank = torch.arange(se.numel()) - torch.searchsorted(se, se)
+    keep = torch.empty_like(flat, dtype=torch.bool)
+    keep[order] = rank < C
+    return keep
+
+
+def first_routes(cfg, params, tokens):
+    """The routes of the first MoE layer's first chunk (at most 2048
+    positions) at ``params`` (one device) for ``tokens``."""
+    from repro_torch.models import lm
+    from repro_torch.models.attention import attn_train
+    from repro_torch.models.layers import rms_norm
+
+    p = {k: v[0] for k, v in params["blocks"]["l0"].items()
+         if not isinstance(v, dict)}
+    sub = {n: {k: v[0] for k, v in params["blocks"]["l0"][n].items()}
+           for n in ("attn", "ffn")}
+    x = params["embed"][tokens]
+    y, _ = attn_train(sub["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                      torch.arange(x.shape[1]), lm.attn_spec(cfg))
+    h2 = rms_norm(x + y, p["ln2"], cfg.norm_eps)[:, :2048]
+    logits = h2.reshape(-1, cfg.d_model).float() @ sub["ffn"]["router"]
+    return torch.topk(logits, cfg.experts_per_token, dim=-1).indices
+
+
+JAX_PARAMS = ([pytest.param(a, c, None, id=f"{a}-{c}") for a, c in JAX_CASES]
+              + [pytest.param(a, False, v, id=f"{a}-{v}")
+                 for a, v in VARIANTS])
+
+
+@pytest.mark.parametrize("arch,compress,variant", JAX_PARAMS)
 def test_mesh_step_matches_jax_sharded_step(jax_runs, arch, compress,
-                                           one_thread):
-    init, want, jmetrics = jax_runs[(arch, compress)]
+                                           variant, one_thread):
+    """The mesh step against JAX's sharded step; besides the cases of
+    ``JAX_CASES``, microbatches whose data rows differ (``VARIANTS``):
+    masked labels spread unevenly over the rows (the loss is the
+    microbatch's sum over its valid labels), and the sorted MoE dispatch
+    at capacity factor 1.0, whose sort over the microbatch drops other
+    assignments than each row's own sort would."""
+    init, want, jmetrics = jax_runs[(arch, variant or compress)]
     cfg = treg.SMOKES[arch]
+    if variant and variant.startswith("sorted"):
+        cfg = dataclasses.replace(cfg, moe_dispatch="sorted",
+                                  moe_capacity_factor=1.0)
+    seq, batch, steps = shape_of(variant)
     mesh = make_debug_mesh(2, 4, CPU8)
     state = train_state_from_numpy(init, mesh=mesh)
     assert all(isinstance(x, Sharded) for x in leaves(state.params))
     step = tts.make_train_step(cfg, topt.AdamW(lr=JAX_LR),
                                compress=compress, accum=1)
-    for k in range(STEPS):
-        state, m = step(state, tdata.batch_at(dcfg(cfg), k, device="cpu"))
+    batches = [tdata.batch_at(dcfg(cfg, batch, seq), k, device="cpu")
+               for k in range(steps)]
+    if variant == "masked":
+        for k, b in enumerate(batches):
+            b["labels"] = torch.as_tensor(masked(b["labels"].numpy(), k))
+        valid = (batches[0]["labels"] != -100).reshape(2, -1).sum(-1)
+        assert valid[0] < valid[1]
+    for k in range(steps):
+        state, m = step(state, batches[k])
         jl, jg = jmetrics[k]
         assert abs(float(m["loss"]) - jl) <= 1e-5 * abs(jl), k
         assert abs(float(m["grad_norm"]) - jg) <= (
             1e-4 if compress else 1e-5) * abs(jg), k
     got = train_state_to_numpy(state)
-    bc2 = 1 - 0.95 ** STEPS
+    bc2 = 1 - 0.95 ** steps
     for g, w, v in zip(leaves(got.params), leaves(want.params),
                        leaves(want.opt.v)):
         assert g.dtype == w.dtype and g.shape == w.shape
         d = np.abs(g.astype(np.float64) - w)
-        assert d.max() <= 2 * JAX_LR * STEPS + 1e-7
+        assert d.max() <= 2 * JAX_LR * steps + 1e-7
         sv = np.sqrt(v / bc2)
         above = sv >= NOISE * sv.max()
         if not compress and arch in TIGHT_ARCHS and above.any():
             assert d[above].max() <= TIGHT * JAX_LR
-    for tree, n in (("m", STEPS / 127), ("v", 2 * STEPS / 127)):
+    for tree, n in (("m", steps / 127), ("v", 2 * steps / 127)):
         bound = 2e-4 + (n if compress else 0.0)
         for g, w in zip(leaves(getattr(got.opt, tree)),
                         leaves(getattr(want.opt, tree))):
@@ -379,6 +481,22 @@ def test_mesh_step_matches_jax_sharded_step(jax_runs, arch, compress,
     if compress:
         for g, w in zip(leaves(got.err), leaves(want.err)):
             assert np.abs(g - w).max() <= 2.5 * np.abs(w).max() + 1e-12
+    if variant and variant.startswith("sorted"):
+        # the case exposes a per-row sort: at the first step's first MoE
+        # layer, sorting each data row's half apart keeps other
+        # assignments than the microbatch's sort
+        one = lm_params_from_numpy(init.params, device="cpu")
+        idx = first_routes(cfg, one, batches[0]["tokens"])
+        E, k = cfg.n_experts, cfg.experts_per_token
+
+        def capacity(n):   # JAX's C at capacity factor 1.0
+            return int(n * k / E + 0.999)
+
+        whole = keep_of(idx, E, capacity(idx.shape[0]))
+        half = idx.shape[0] // 2
+        rows = torch.cat([keep_of(h, E, capacity(half))
+                          for h in (idx[:half], idx[half:])])
+        assert (~whole).any() and not torch.equal(whole, rows)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,11 @@ split sublayer on its ``model`` positions' slices:
 * the gated (glm4) and the plain (starcoder2) MLP;
 * the MoE, each expert's ``d_ff`` split: the experts over the data axes
   (EP: mixtral and phi3.5 on (2, 4)) and ``d`` over them (FSDP: mixtral's
-  4 experts on an (8, 2) mesh's 8 data rows);
+  4 experts on an (8, 2) mesh's 8 data rows); the sorted dispatch at
+  capacity factor 1.0 over a microbatch of two data rows (``micro_view``)
+  on both branches, also over two 2048-position chunks, its output and
+  gradients against the whole sorted dispatch over the microbatch and
+  JAX's;
 * jamba's Mamba mixer, ``d_inner`` 128 over 4 positions, and whole where
   3 do not divide it;
 * the vocabulary: the lookup (bitwise the whole one: one slice owns each
@@ -32,6 +36,7 @@ once in the forward and once more in the backward pass, no fetched leaf
 saved for the backward.
 """
 import collections
+import dataclasses
 import functools
 import math
 
@@ -50,7 +55,7 @@ from repro_torch.interop import lm_params_from_numpy
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import lm as tlm
 from repro_torch.models import tensor_parallel as tp
-from repro_torch.models.layers import mlp_apply, moe_apply
+from repro_torch.models.layers import mlp_apply, moe_apply, moe_apply_sorted
 from repro_torch.models.sharding import MoveStats, param_shardings, shard
 from repro_torch.training.tree import key_paths, leaves, unflatten
 
@@ -85,7 +90,8 @@ def setup(arch, mesh_shape, seed=0):
 
 
 def view(cfg, placed):
-    stats = {"gather": MoveStats(), "model": MoveStats()}
+    stats = {"gather": MoveStats(), "model": MoveStats(),
+             "routes": MoveStats()}
     tree, row = tp.row_view(cfg, placed, (0,) * 2, stats)
     return tree, row, stats
 
@@ -196,6 +202,91 @@ def test_split_moe_matches_whole_and_jax(arch, mesh_shape, branch):
     assert stats["model"] == MoveStats((M - 1) * (2 * act + comb), 0)
 
 
+# (arch, mesh, branch, sequence): the sorted dispatch at capacity factor
+# 1.0 over a microbatch of 2 batch rows, one on each of two data rows; at
+# 4096 positions its two 2048-position chunks
+SORTED_CASES = [("phi3.5-moe-42b-a6.6b", (2, 4), "ep", S),
+                ("mixtral-8x22b", (8, 2), "fsdp", S),
+                ("phi3.5-moe-42b-a6.6b", (2, 4), "ep", 4096)]
+
+
+@pytest.mark.parametrize("arch,mesh_shape,branch,seq", SORTED_CASES)
+def test_split_sorted_moe_matches_whole_and_jax(arch, mesh_shape, branch,
+                                                seq):
+    """The sorted dispatch split over two data rows (each expert's
+    ``d_ff`` over ``model``; the experts over ``data``, EP, or ``d``,
+    FSDP): its output and the gradients of its input and every parameter
+    (a random cotangent) against the whole ``moe_apply_sorted`` over the
+    microbatch and JAX's, within 2e-6 of the largest |value|; the
+    microbatch's capacity drops assignments; each chunk hands the second
+    row the first row's expert counts; the input out, the slots out and
+    the partials back (and their gradients) along ``model``."""
+    jcfg, cfg, jp, params, placed = setup(arch, mesh_shape)
+    cfg = dataclasses.replace(cfg, moe_dispatch="sorted",
+                              moe_capacity_factor=1.0)
+    jcfg = dataclasses.replace(jcfg, moe_dispatch="sorted",
+                               moe_capacity_factor=1.0)
+    assert tp.couples(cfg) and tp.splits(cfg, mesh_shape[1])
+    stats = {"gather": MoveStats(), "model": MoveStats(),
+             "routes": MoveStats()}
+    trees, micro = tp.micro_view(cfg, placed, [(0, 0), (1, 0)], stats)
+    name = layer_of(cfg, moe=True)
+    subs = [period(cfg, t, name)["ffn"] for t in trees]
+    # the sorted dispatch splits: no longer whole on the row's first
+    # position
+    assert all(tp.is_split(sp) and sp.mode == "part" for sp in subs)
+    spec = subs[0].p["w_up"].s.sharding.spec
+    assert spec[1 if branch == "ep" else 2] == "data" and spec[3] == "model"
+    rng = np.random.default_rng(1)
+    h = rng.standard_normal((2, seq, cfg.d_model)).astype(np.float32)
+    g = rng.standard_normal(h.shape).astype(np.float32)
+    kw = dict(top_k=cfg.experts_per_token, act=cfg.act,
+              capacity_factor=1.0)
+    xs = [torch.as_tensor(h[r:r + 1]).requires_grad_() for r in range(2)]
+    ys = tp.moe_apply_sorted(subs, xs, **kw)
+    pieces = [p for row in micro.rows for p in row.pieces()]
+    # (the period's norms, fetched whole, feed nothing here)
+    got = torch.autograd.grad((torch.cat(ys) * torch.as_tensor(g)).sum(),
+                              xs + [p[3] for p in pieces],
+                              allow_unused=True, materialize_grads=True)
+    grads = [torch.zeros_like(t) for t in leaves(params)]
+    for (k, idx, _, _), gk in zip(pieces, got[2:]):
+        grads[k][idx] += gk
+    # the whole sublayer over the microbatch, and JAX's
+    pw = {k: v.clone().requires_grad_()
+          for k, v in at0(params["blocks"][name]["ffn"]).items()}
+    xw = torch.as_tensor(h).requires_grad_()
+    yw = moe_apply_sorted(pw, xw, **kw)
+    gw = torch.autograd.grad((yw * torch.as_tensor(g)).sum(),
+                             [xw] + list(pw.values()))
+    want, vjp = jax.vjp(functools.partial(jlay.moe_apply_sorted, **kw),
+                        at0(jp["blocks"][name]["ffn"]), jnp.asarray(h))
+    jgp, jgx = vjp(jnp.asarray(g))
+    y = torch.cat(ys)
+    assert rel_err(y, yw.detach().numpy()) <= F32
+    assert rel_err(y, np.asarray(want)) <= F32
+    gx = torch.cat(got[:2])
+    assert rel_err(gx, gw[0].numpy()) <= F32
+    assert rel_err(gx, np.asarray(jgx)) <= F32
+    paths = [k for k, _ in key_paths(params)]
+    for leaf, w in zip(pw, gw[1:]):
+        k = paths.index(f"['blocks'][{name!r}]['ffn'][{leaf!r}]")
+        assert rel_err(grads[k][0], w.numpy()) <= F32, leaf
+        assert rel_err(grads[k][0], np.asarray(jgp[leaf])) <= F32, leaf
+    # the microbatch's capacity drops; its decisions made once
+    chunks = 2 if seq == 4096 else 1
+    assert len(micro.routes) == chunks
+    assert sum(int((~keep).sum()) for routes in micro.routes.values()
+               for _, keep, _ in routes) > 0
+    E, M, k = cfg.n_experts, mesh_shape[1], cfg.experts_per_token
+    assert stats["routes"] == MoveStats(chunks * E * 8, 0)
+    # each row: its input out and its gradient back, the slots out, the
+    # partials back and their gradients out, at each other position
+    act, n = seq * cfg.d_model * 4, seq * k
+    assert stats["model"] == MoveStats(
+        2 * (M - 1) * (2 * act + n * 8 + 2 * n * cfg.d_model * 4), 0)
+
+
 @pytest.mark.parametrize("mesh_shape,splits", [((2, 4), True),
                                                ((2, 3), False)])
 def test_split_mamba_matches_whole_and_jax(mesh_shape, splits):
@@ -294,8 +385,9 @@ def test_row_loss_and_gradients_match_jax(arch, mesh_shape):
     labels = labels_of(cfg)
     tree, row, stats = view(cfg, placed)
     with torch.enable_grad():
-        loss = tlm.loss_fn(cfg, tree, torch.as_tensor(tokens),
-                           torch.as_tensor(labels))
+        loss = tlm.row_losses(cfg, [tree], [
+            {"tokens": torch.as_tensor(tokens),
+             "labels": torch.as_tensor(labels)}])[0]
         pieces = row.pieces()
         got = torch.autograd.grad(loss, [p[3] for p in pieces])
     grads = [torch.zeros_like(t) for t in leaves(params)]
@@ -350,16 +442,31 @@ def test_model_sum_is_f32_in_position_order_cast_once():
     assert stats["model"] == MoveStats(12 * 15 * 2, 0)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mixtral-8x22b",
-                                  "jamba-v0.1-52b"])
-def test_period_gathers_twice_and_saves_no_gathered_leaf(monkeypatch, arch):
-    """qwen3, mixtral (the experts' slices) and jamba (the mixer's, its
-    in_proj columns) on (2, 4), remat on: each (block leaf, period,
-    position) is fetched once by the forward and once more by the
-    backward pass, and no tensor saved for the backward outside the
-    periods shares storage with a tensor a period fetched."""
+@pytest.mark.parametrize("arch,sorted_rows", [
+    pytest.param("qwen3-0.6b", False, id="qwen3-0.6b"),
+    pytest.param("mixtral-8x22b", False, id="mixtral-8x22b"),
+    pytest.param("jamba-v0.1-52b", False, id="jamba-v0.1-52b"),
+    pytest.param("phi3.5-moe-42b-a6.6b", True,
+                 id="phi3.5-moe-42b-a6.6b-sorted")])
+def test_period_gathers_twice_and_saves_no_gathered_leaf(monkeypatch, arch,
+                                                         sorted_rows):
+    """qwen3, mixtral (the experts' slices), jamba (the mixer's, its
+    in_proj columns) and phi3.5's sorted dispatch over a microbatch of
+    two data rows (its periods run both rows under one checkpoint) on
+    (2, 4), through ``row_losses`` as the mesh step runs them, remat on:
+    each (block leaf, period, position) is fetched once by the forward
+    and once more by the backward pass, and no tensor saved for the
+    backward outside the periods shares storage with a tensor a period
+    fetched."""
     _, cfg, _, _, placed = setup(arch, (2, 4))
-    tree, row, _ = view(cfg, placed)
+    firsts = [(0, 0)]
+    if sorted_rows:
+        cfg = dataclasses.replace(cfg, moe_dispatch="sorted",
+                                  moe_capacity_factor=1.0)
+        firsts = [(0, 0), (1, 0)]
+    stats = {"gather": MoveStats(), "model": MoveStats(),
+             "routes": MoveStats()}
+    trees, micro = tp.micro_view(cfg, placed, firsts, stats)
     fetched, count = [], collections.Counter()
     real = tp.Row.fetch
 
@@ -378,15 +485,20 @@ def test_period_gathers_twice_and_saves_no_gathered_leaf(monkeypatch, arch):
         return t
 
     rng = np.random.default_rng(0)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)))
-    labels = torch.as_tensor(labels_of(cfg))
+    batches = [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                       (B, S))),
+                "labels": torch.as_tensor(labels_of(cfg, seed=2 + r))}
+               for r in range(len(firsts))]
     with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
             pack, lambda t: t):
-        loss = tlm.loss_fn(cfg, tree, tokens, labels)
+        loss = sum(tlm.row_losses(cfg, trees, batches))
     assert count and set(count.values()) == {1}
     assert not set(packed) & {t.untyped_storage().data_ptr()
                               for t in fetched}
-    torch.autograd.grad(loss, [p[3] for p in row.pieces()])
+    if sorted_rows:
+        assert stats["routes"].positions > 0
+    torch.autograd.grad(loss, [p[3] for row in micro.rows
+                               for p in row.pieces()])
     assert set(count.values()) == {2}
     # every block leaf of every period, on every position that uses it
     per_period = collections.Counter(p for _, p, _, _ in count)

@@ -85,7 +85,8 @@ def setup(arch, mesh_shape=(2, 4), seed=0):
 
 
 def view(cfg, placed):
-    stats = {"gather": MoveStats(), "model": MoveStats()}
+    stats = {"gather": MoveStats(), "model": MoveStats(),
+             "routes": MoveStats()}
     tree, row = tp.row_view(cfg, placed, (0, 0), stats)
     return tree, row, stats
 
@@ -272,10 +273,11 @@ def test_row_loss_and_gradients_match_jax(arch):
                 * 0.02).astype(np.float32) if cfg.frontend else None
     tree, row, stats = view(cfg, placed)
     with torch.enable_grad():
-        loss = tlm.loss_fn(cfg, tree, torch.as_tensor(tokens),
-                           torch.as_tensor(labels),
-                           None if frontend is None
-                           else torch.as_tensor(frontend))
+        batch = {"tokens": torch.as_tensor(tokens),
+                 "labels": torch.as_tensor(labels)}
+        if frontend is not None:
+            batch["frontend"] = torch.as_tensor(frontend)
+        loss = tlm.row_losses(cfg, [tree], [batch])[0]
         pieces = row.pieces()
         got = torch.autograd.grad(loss, [p[3] for p in pieces])
     grads = [torch.zeros_like(t) for t in leaves(params)]
@@ -315,8 +317,9 @@ def test_encoder_fetched_once_and_periods_twice(monkeypatch):
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)))
     frames = torch.as_tensor(inputs(cfg, cfg.frontend_len, seed=4))
     with torch.enable_grad():
-        loss = tlm.loss_fn(cfg, tree, tokens, torch.as_tensor(
-            labels_of(cfg)), frames)
+        loss = tlm.row_losses(cfg, [tree], [{
+            "tokens": tokens, "labels": torch.as_tensor(labels_of(cfg)),
+            "frontend": frames}])[0]
         torch.autograd.grad(loss, [p[3] for p in row.pieces()])
     by_kind = collections.defaultdict(set)
     for key, n in count.items():
